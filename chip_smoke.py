@@ -1,0 +1,473 @@
+#!/usr/bin/env python3
+"""Chip smoke test of the PyTorch/CUDA port (``easydarwin_tpu_torch``).
+
+Run from the repository root on a machine with one CUDA card:
+
+    python3 chip_smoke.py
+
+It builds the hand-written kernels from ``easydarwin_tpu_torch/csrc`` and
+drives the port's live-relay path on the card, phase by phase; any failed
+phase raises and the script exits non-zero.
+
+1. build     nvcc the kernel library (seconds printed)
+2. card      the card's name and power limit (nvidia-smi)
+3. K1        ``ed_parse_packets`` vs the plain parse, bit-exact, on 600
+             fuzzed rows, 4096 rows (16×256) and 1024 rows
+4. window    ``ed_relay_window`` vs the plain window pass, bit-exact, at
+             [16,256,100]×[16,256,6], the prime shape [1,16,100]×[1,8,6]
+             and a ragged 5-stream bucket padded to 8
+5. scheduler the main path in-process: MegabatchScheduler + FanoutEngine
+             over 16 streams × 256 subscribers in 2 buckets for 36 wakes,
+             every wire byte held against RelayStream.reflect, plus the
+             RelayPipeline(use_pallas_parse=True) step each wake
+6. server    ``python -m easydarwin_tpu_torch --device cuda`` on loopback:
+             2 pushers × 4 TCP players, every packet checked
+7. kernels   launches on the main path (phases 5-6), CUDA-event times at
+             the config-4 shapes beside the plain versions' and the byte
+             bound
+
+The kernel launch counts are set to 0 just before phase 5 and read just
+after phase 6 (the server process reports its own at exit); the
+comparisons and timings of phases 3, 4 and 7 run outside that window.
+Detail goes to ``chiprun_out/chip_smoke.json``.  The last line of standard
+output is ``{"ok": true, "device": {...}}``.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import json
+import os
+import subprocess
+import sys
+import time
+
+#: NVIDIA H100 SXM data-sheet peaks (dense): HBM bandwidth and the 32-bit
+#: non-tensor rate, which is the rate the kernels' integer work runs at
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = 67e12
+#: integer operations ``parse_row`` does per packet, counted from the
+#: source (field assembly ≈ 20, header size 3, NAL resolution ≈ 15,
+#: classification ≈ 12)
+OPS_PER_PACKET = 50
+#: per packet in the window pass: the parse, the le32 decode and the max
+OPS_PER_WINDOW_ROW = OPS_PER_PACKET + 8
+#: per subscriber in the window pass: two subtractions, a mask, 4 stores
+OPS_PER_SUBSCRIBER = 7
+
+#: where the port runs; the phases that drive it (5, 6) read this
+DEVICE = "cuda"
+HERE = os.path.dirname(os.path.abspath(__file__))
+OUT_DIR = os.path.join(HERE, "chiprun_out")
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def check(cond: bool, what: str) -> None:
+    if not cond:
+        raise AssertionError(what)
+
+
+def call_ms(fn, reps: int, inner: int) -> float:
+    """Median per-call time by CUDA events around ``inner`` back-to-back
+    direct calls (host enqueue included: a launch-bound call measures the
+    host), after a warm-up."""
+    import torch
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    samples = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(inner):
+            fn()
+        b.record()
+        b.synchronize()
+        samples.append(a.elapsed_time(b) / inner)
+    samples.sort()
+    return samples[len(samples) // 2]
+
+
+def graph_ms(fn, reps: int = 21, inner: int = 100) -> float:
+    """Median per-call device time by CUDA events around one replay of a
+    CUDA graph holding ``inner`` calls: the host's enqueue cost is out of
+    the measurement, so a microsecond kernel is timed at device speed."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(inner):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    samples = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        g.replay()
+        b.record()
+        b.synchronize()
+        samples.append(a.elapsed_time(b) / inner)
+    samples.sort()
+    return samples[len(samples) // 2]
+
+
+# ------------------------------------------------------------ phases 3-4
+def fuzz_rows(rng, n: int):
+    from easydarwin_tpu_torch.utils import synth
+    return synth.stage([synth.random_packet(rng) for _ in range(n)])
+
+
+def compare_parse(prefix, length) -> int:
+    """Kernel vs plain parse on the same CUDA tensors; returns the max
+    absolute difference over the nine fields (must be 0)."""
+    import torch
+    from easydarwin_tpu_torch.ops.parse import FIELDS, parse_packets
+    from easydarwin_tpu_torch.ops.parse_kernel import parse_packets_kernel
+    k = parse_packets_kernel(prefix, length)
+    p = parse_packets(prefix, length)
+    torch.cuda.synchronize()
+    worst = 0
+    for f in FIELDS:
+        a, b = k[f].cpu().numpy(), p[f].cpu().numpy()
+        check(a.dtype == b.dtype and a.shape == b.shape,
+              f"K1 {f}: {a.dtype}{a.shape} vs {b.dtype}{b.shape}")
+        d = int(abs(a.astype("int64") - b.astype("int64")).max()) if a.size else 0
+        check(d == 0, f"K1 field {f} differs from the plain parse (max {d})")
+        worst = max(worst, d)
+    return worst
+
+
+def phase_k1(rng) -> dict:
+    import torch
+    res = {}
+    for name, n in (("fuzz600", 600), ("config4_16x256", 16 * 256),
+                    ("max_stage_rows_1024", 1024)):
+        pre, ln = fuzz_rows(rng, n)
+        res[name] = compare_parse(torch.from_numpy(pre).cuda(),
+                                  torch.from_numpy(ln).cuda())
+        log(f"[k1] {name}: {n} rows bit-exact vs plain parse")
+    return res
+
+
+def window_inputs(rng, b_real: int, b_pad: int, p: int, s_real: int,
+                  s_pad: int):
+    """Fused rows + state for a bucket: b_real streams of p fuzzed/paced
+    rows (ragged lengths, zero padding rows) and random rewrite state
+    that wraps seq and ts; padding streams and subscribers stay zero."""
+    import numpy as np
+    from easydarwin_tpu_torch.ops import fanout
+    from easydarwin_tpu_torch.utils import synth
+    win = np.zeros((b_pad, p, 100), np.uint8)
+    for i in range(b_real):
+        n = int(rng.integers(1, p + 1))      # ragged: live rows then pad
+        pkts = [synth.random_packet(rng) for _ in range(n)]
+        pre, ln = synth.stage(pkts)
+        win[i, :n] = fanout.pack_window(pre, ln)
+    st = np.zeros((b_pad, s_pad, 6), np.uint32)
+    st[:b_real, :s_real] = rng.integers(0, 1 << 32, size=(b_real, s_real, 6),
+                                        dtype=np.uint64).astype(np.uint32)
+    return win, st
+
+
+def compare_window(win, st) -> int:
+    import numpy as np
+    import torch
+    from easydarwin_tpu_torch.ops import fanout
+    dw, ds = torch.from_numpy(win).cuda(), torch.from_numpy(st).cuda()
+    k = fanout.relay_affine_step_window(dw, ds).cpu().numpy()
+    p = fanout.relay_affine_step_window_plain(dw, ds).cpu().numpy()
+    torch.cuda.synchronize()
+    check(k.dtype == np.uint32 and k.shape == p.shape, "window dtype/shape")
+    d = int(np.abs(k.astype(np.int64) - p.astype(np.int64)).max())
+    check(d == 0, f"window kernel differs from the plain pass (max {d})")
+    return d
+
+
+def phase_window(rng) -> dict:
+    res = {}
+    for name, shape in (("config4", (16, 16, 256, 256, 256)),
+                        ("prime", (1, 1, 16, 8, 8)),
+                        ("ragged5of8", (5, 8, 64, 13, 16))):
+        b_real, b_pad, p, s_real, s_pad = shape
+        win, st = window_inputs(rng, b_real, b_pad, p, s_real, s_pad)
+        res[name] = compare_window(win, st)
+        log(f"[window] {name}: [{b_pad},{p},100]x[{b_pad},{s_pad},6] "
+            f"bit-exact vs plain pass")
+    return res
+
+
+# -------------------------------------------------------------- phase 5
+def phase_scheduler(rng) -> dict:
+    """16 streams × 256 subscribers through MegabatchScheduler +
+    FanoutEngine, each wire byte against the scalar oracle run on an
+    identical copy; RelayPipeline(use_pallas_parse=True) on stream 0's
+    newest 256 packets every wake, against the ring's host classification."""
+    import numpy as np
+    from easydarwin_tpu_torch.models.relay_pipeline import (
+        RelayPipeline, RelayPipelineConfig)
+    from easydarwin_tpu_torch.protocol import sdp
+    from easydarwin_tpu_torch.relay.fanout import FanoutEngine
+    from easydarwin_tpu_torch.relay.megabatch import MegabatchScheduler
+    from easydarwin_tpu_torch.relay.output import CollectingOutput
+    from easydarwin_tpu_torch.relay.ring import PacketFlags
+    from easydarwin_tpu_torch.relay.stream import RelayStream, StreamSettings
+    from easydarwin_tpu_torch.utils import synth
+    from easydarwin_tpu_torch.utils.loopback import VIDEO_SDP
+
+    n_streams, n_subs, wakes = 16, 256, 36
+    info = sdp.parse(VIDEO_SDP).streams[0]
+    settings = StreamSettings(bucket_delay_ms=10)
+    sub_rng = np.random.default_rng(int(rng.integers(1 << 31)))
+    params = [[(int(sub_rng.integers(1 << 32)), int(sub_rng.integers(1 << 16)),
+                int(sub_rng.integers(1 << 32))) for _ in range(n_subs + 8)]
+              for _ in range(n_streams)]
+
+    def make(i, j):
+        ssrc, seq0, ts0 = params[i][j]
+        return CollectingOutput(ssrc=ssrc, out_seq_start=seq0,
+                                out_ts_start=ts0)
+
+    dev = [RelayStream(info, settings) for _ in range(n_streams)]
+    ora = [RelayStream(info, settings) for _ in range(n_streams)]
+    for i in range(n_streams):
+        for j in range(n_subs):
+            dev[i].add_output(make(i, j))
+            ora[i].add_output(make(i, j))
+    # two shape buckets: 6 vs 20 new packets per wake pad to 16 vs 32 rows
+    burst = [6 if i < n_streams // 2 else 20 for i in range(n_streams)]
+    feeds = []
+    for i in range(n_streams):
+        pkts = []
+        while len(pkts) < burst[i] * wakes:
+            pkts += synth.paced_gop(rng, seq0=0xFFF0 + len(pkts) + 97 * i,
+                                    ts0=0xFFFF0000 + 3000 * len(pkts),
+                                    ssrc=0x1000 + i, frames=10,
+                                    packets_per_frame=4)
+        feeds.append(pkts)
+    engines = [FanoutEngine() for _ in range(n_streams)]
+    sched = MegabatchScheduler(device=DEVICE)
+    pipe = RelayPipeline(RelayPipelineConfig(use_pallas_parse=True),
+                         device=DEVICE)
+    t = 1000
+    delivered = 0
+    #: host milliseconds per wake: begin_wake (harvest + prime), the
+    #: engine steps (header render + wire writes), end_wake (stage +
+    #: dispatch), and the whole wake
+    parts = {"begin": [], "steps": [], "end": [], "wake": []}
+    for w in range(wakes):
+        for i in range(n_streams):
+            for pkt in feeds[i][w * burst[i]:(w + 1) * burst[i]]:
+                dev[i].push_rtp(pkt, t)
+                ora[i].push_rtp(pkt, t)
+        if w == 12:   # membership change on stream 3: 4 leave, 4 join
+            for k in range(4):
+                for s in (dev[3], ora[3]):
+                    s.remove_output(s.outputs[k])
+                dev[3].add_output(make(3, n_subs + k))
+                ora[3].add_output(make(3, n_subs + k))
+        pairs = list(zip(dev, engines))
+        t0 = time.perf_counter()
+        sched.begin_wake(pairs, t)
+        t1 = time.perf_counter()
+        for s, e in pairs:
+            e.step(s, t)
+        t2 = time.perf_counter()
+        sched.end_wake(pairs, t)
+        t3 = time.perf_counter()
+        for k, a, b in (("begin", t0, t1), ("steps", t1, t2), ("end", t2, t3),
+                        ("wake", t0, t3)):
+            parts[k].append((b - a) * 1e3)
+        for s in ora:
+            s.reflect(t)
+        for i in range(n_streams):
+            for a, b in zip(dev[i].outputs, ora[i].outputs):
+                check(a.rtp_packets == b.rtp_packets,
+                      f"wake {w} stream {i}: engine bytes differ from the "
+                      f"scalar oracle")
+                delivered += len(a.rtp_packets)
+                a.rtp_packets.clear()
+                b.rtp_packets.clear()
+        # the K1 pipeline step over stream 0's newest 256 packets
+        ring = dev[0].rtp_ring
+        ids = np.arange(max(ring.tail, ring.head - 256), ring.head)
+        slots = ids % ring.capacity
+        prefix = np.zeros((256, 96), np.uint8)
+        length = np.zeros(256, np.int32)
+        prefix[:len(ids)] = ring.data[slots, :96]
+        length[:len(ids)] = ring.length[slots]
+        age = np.zeros(256, np.int32)
+        age[:len(ids)] = t - ring.arrival[slots]
+        out = pipe(prefix, length, age, np.zeros((8, 6), np.uint32),
+                   np.zeros(8, np.int32))
+        kf = out["keyframe_first"].cpu().numpy()[:len(ids)]
+        host_kf = (ring.flags[slots] & PacketFlags.KEYFRAME_FIRST) != 0
+        check(np.array_equal(kf, host_kf), f"wake {w}: K1 keyframe flags "
+              f"differ from the ring's host classification")
+        seq = out["seq"].cpu().numpy()[:len(ids)]
+        check(np.array_equal(seq.astype(np.int64), ring.seq[slots]),
+              f"wake {w}: K1 seq differs from the ring")
+        t += 20
+    sched.drain()
+    st = sched.stats()
+    check(st["mismatches"] == 0, f"scheduler oracle mismatches: {st}")
+    check(all(e.missing_params == 0 for e in engines),
+          "an engine found no installed params")
+    check(delivered > 0, "nothing was delivered")
+    res = {"delivered_packets": delivered, "scheduler": st}
+    for k, v in parts.items():
+        v.sort()
+        res[f"{k}_host_ms_p50"] = v[len(v) // 2]
+        res[f"{k}_host_ms_max"] = v[-1]
+    log(f"[scheduler] {delivered} packets to {n_streams}x{n_subs} outputs "
+        f"over {wakes} wakes, bit-equal to the scalar oracle; "
+        f"passes={st['passes']} prime_passes={st['prime_passes']} "
+        f"mismatches={st['mismatches']}; host ms p50 begin/steps/end "
+        f"{res['begin_host_ms_p50']:.3f}/{res['steps_host_ms_p50']:.3f}/"
+        f"{res['end_host_ms_p50']:.3f}")
+    return res
+
+
+# -------------------------------------------------------------- phase 6
+def phase_server(rng) -> dict:
+    """2 pushers × 4 interleaved TCP players through the CLI server."""
+    from easydarwin_tpu_torch.utils import loopback
+    res = asyncio.run(asyncio.wait_for(loopback.serve_and_check(
+        DEVICE, rng, n_push=2, n_play=4, deadline_s=30), 180))
+    log(f"[server] {res['players']} players x {res['packets_per_player']} "
+        f"packets: payload bit-equal, seq/ts rebased per RTP-Info, one SSRC "
+        f"each; server launches {res['server_stats']['kernel_launches']}")
+    return res
+
+
+# -------------------------------------------------------------- phase 7
+def phase_kernels(rng, launches: dict, errs: dict) -> list[dict]:
+    """Times at the config-4 shapes: each kernel alone (entry point on
+    preallocated outputs) and its plain version, by CUDA events around
+    graph replays; the wrappers' direct-call times go to the detail."""
+    import torch
+    from easydarwin_tpu_torch.ops import fanout, kernel_lib
+    from easydarwin_tpu_torch.ops.parse import parse_packets
+    from easydarwin_tpu_torch.ops.parse_kernel import parse_packets_kernel
+    rows = 16 * 256
+    pre, ln = fuzz_rows(rng, rows)
+    dp, dl = torch.from_numpy(pre).cuda(), torch.from_numpy(ln).cuda()
+    words = torch.empty((rows, 4), dtype=torch.int32, device="cuda")
+    flags = torch.empty((rows, 5), dtype=torch.int32, device="cuda")
+    win, st = window_inputs(rng, 16, 16, 256, 256, 256)
+    dw, ds = torch.from_numpy(win).cuda(), torch.from_numpy(st).cuda()
+    packed = torch.empty((16, 4 * 256 + 1), dtype=torch.int32, device="cuda")
+    k1_bytes = dp.numel() + 4 * rows + (16 + 20) * rows
+    win_bytes = dw.numel() + 4 * ds.numel() + 4 * packed.numel()
+    k1_ops = OPS_PER_PACKET * rows
+    win_ops = OPS_PER_WINDOW_ROW * 16 * 256 + OPS_PER_SUBSCRIBER * 16 * 256
+    cases = (
+        ("ed_parse_packets", "easydarwin_tpu/ops/parse_pallas.py:84",
+         lambda: kernel_lib.launch(
+             "ed_parse_packets", dp.data_ptr(), rows, 96, dl.data_ptr(),
+             words.data_ptr(), flags.data_ptr()),
+         lambda: parse_packets_kernel(dp, dl),
+         lambda: parse_packets(dp, dl), k1_bytes, k1_ops),
+        ("ed_relay_window", "easydarwin_tpu/ops/fanout.py:183",
+         lambda: kernel_lib.launch(
+             "ed_relay_window", dw.data_ptr(), 16, 256, 100, ds.data_ptr(),
+             256, packed.data_ptr()),
+         lambda: fanout.relay_affine_step_window(dw, ds),
+         lambda: fanout.relay_affine_step_window_plain(dw, ds),
+         win_bytes, win_ops))
+    out = []
+    for name, src_line, kernel, wrapper, plain, nbytes, ops in cases:
+        t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+        t_ops = ops / PEAK_OPS_PER_S * 1e3
+        out.append({
+            "name": name, "route": "cuda",
+            "source": "easydarwin_tpu_torch/csrc/relay_kernels.cu",
+            "replaces": src_line, "launches": launches[name],
+            "max_abs_err": errs[name],
+            "ms": graph_ms(kernel),
+            "plain_ms": graph_ms(plain, inner=20),
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": None,
+            # detail only (not part of the kernels line)
+            "_wrapper_graph_ms": graph_ms(wrapper),
+            "_wrapper_call_ms": call_ms(wrapper, reps=21, inner=100),
+            "_plain_call_ms": call_ms(plain, reps=11, inner=10),
+        })
+    return out
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this test "
+              "needs a CUDA card", file=sys.stderr)
+        return 2
+    import numpy as np
+    from easydarwin_tpu_torch.ops import kernel_lib
+
+    os.makedirs(OUT_DIR, exist_ok=True)
+    rng = np.random.default_rng(20261016)
+    detail: dict = {}
+
+    b = kernel_lib.build()
+    kernel_lib.library()
+    log(f"[build] {b.path.name} built in {b.seconds:.3f} s")
+    detail["build"] = {"seconds": b.seconds, "log": b.log}
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip()
+    log(f"[card] {smi}")
+    detail["card"] = smi
+
+    detail["k1"] = phase_k1(rng)
+    detail["window"] = phase_window(rng)
+
+    kernel_lib.reset_launch_counts()           # the main path starts here
+    detail["scheduler"] = phase_scheduler(rng)
+    in_proc = dict(kernel_lib.LAUNCHES)
+    detail["server"] = phase_server(rng)
+    server = detail["server"]["server_stats"]["kernel_launches"]
+    launches = {k: in_proc[k] + server.get(k, 0) for k in in_proc}
+    log(f"[main path] kernel launches {launches} (in-process {in_proc}, "
+        f"server {server})")
+    for k, n in launches.items():
+        check(n > 0, f"kernel {k} was not launched on the main path")
+
+    errs = {"ed_parse_packets": max(detail["k1"].values()),
+            "ed_relay_window": max(detail["window"].values())}
+    timed = phase_kernels(rng, launches, errs)
+    detail["kernels"] = timed
+    kernels = [{k: v for k, v in t.items() if not k.startswith("_")}
+               for t in timed]
+    for k in timed:
+        log(f"[kernels] {k['name']}: {k['ms']:.6f} ms (plain "
+            f"{k['plain_ms']:.6f} ms, bound {k['bound_ms']:.6f} ms by "
+            f"{k['bound_by']}), wrapper {k['_wrapper_graph_ms']:.6f} ms in a "
+            f"graph, {k['_wrapper_call_ms']:.6f} ms per direct call; "
+            f"{k['launches']} main-path launches")
+    with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
+        json.dump(detail, f, indent=1, default=str)
+
+    device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+              "count": torch.cuda.device_count()}
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(smi, flush=True)
+    print(json.dumps({"ok": True, "device": device}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,14 @@
+"""Device tier: plain PyTorch functions on tensors and the CUDA kernels
+beside them.
+
+    parse.parse_packets          RTP fixed header + H.264/MJPEG classify
+    parse_kernel                 K1 on the card (``ed_parse_packets``)
+    gop.newest_keyframe          IDR bookmark scan
+    fanout.relay_affine_step_window
+                                 the megabatch window pass; on the card the
+                                 fused kernel ``ed_relay_window``
+    staging.gather_window        host packing of ring windows into rows
+
+A wrapper runs its kernel on a CUDA tensor and its plain version on a CPU
+tensor; on a CUDA tensor it never falls back.
+"""

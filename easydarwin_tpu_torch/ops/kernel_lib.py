@@ -1,0 +1,148 @@
+"""Build, load and bind the hand-written CUDA kernels (``csrc/*.cu``).
+
+The library is compiled at first use with ``nvcc`` for ``sm_90a`` into
+``build/easydarwin_tpu_torch/`` beside the package (a directory git
+ignores), under a name that carries the source's hash, so an edited source
+is rebuilt and an unchanged one is loaded as it is.  It has a plain C
+interface bound with ``ctypes``; no PyTorch header is compiled, which keeps
+the build to seconds.
+
+A failed build or a failed launch raises; nothing here falls back to the
+plain PyTorch versions.  Each wrapper adds one to its entry in
+``LAUNCHES`` where it launches its kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from dataclasses import dataclass
+from pathlib import Path
+
+import torch
+
+_PKG = Path(__file__).resolve().parents[1]
+SOURCES = (_PKG / "csrc" / "relay_kernels.cu",)
+BUILD_DIR = _PKG.parent / "build" / "easydarwin_tpu_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+#: kernel name → launches made by its wrapper in this process
+LAUNCHES = {"ed_parse_packets": 0, "ed_relay_window": 0}
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_SIGNATURES = {
+    # prefix, n_rows, row_stride, length, words, flags, stream
+    "ed_parse_packets": (_P, _I, _I, _P, _P, _P, _P),
+    # window, n_streams, n_pkts, row_stride, state, n_subs, out, stream
+    "ed_relay_window": (_P, _I, _I, _I, _P, _I, _P, _P),
+}
+
+
+@dataclass
+class BuildResult:
+    path: Path
+    seconds: float          # nvcc wall time; 0.0 when an earlier build was reused
+    log: str                # nvcc's output (ptxas register/spill report)
+
+
+_LIB: ctypes.CDLL | None = None
+_BUILD: BuildResult | None = None
+
+
+def reset_launch_counts() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _nvcc() -> str:
+    for cand in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if cand and os.path.exists(os.path.join(cand, "bin", "nvcc")):
+            return os.path.join(cand, "bin", "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on "
+                           "PATH); the CUDA kernels cannot be built")
+    return found
+
+
+def _source_hash() -> str:
+    h = hashlib.sha256()
+    for src in SOURCES:
+        h.update(src.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
+def build() -> BuildResult:
+    """Compile the kernel library unless this source hash is built."""
+    global _BUILD
+    if _BUILD is not None:
+        return _BUILD
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out = BUILD_DIR / f"librelay_kernels.{_source_hash()}.so"
+    if out.exists():
+        _BUILD = BuildResult(out, 0.0, "")
+        return _BUILD
+    # compile to a private name and rename: two processes building at
+    # once (a test and the server it started) never load a torn file
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, SOURCES)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+    os.replace(tmp, out)
+    _BUILD = BuildResult(out, seconds, log)
+    return _BUILD
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built on first call)."""
+    global _LIB
+    if _LIB is None:
+        lib = ctypes.CDLL(str(build().path))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = list(argtypes)
+            fn.restype = ctypes.c_int
+        lib.ed_error_string.argtypes = [ctypes.c_int]
+        lib.ed_error_string.restype = ctypes.c_char_p
+        _LIB = lib
+    return _LIB
+
+
+def launch(name: str, *args) -> None:
+    """Call one entry point on the current stream; raise on a CUDA error,
+    count the launch otherwise."""
+    lib = library()
+    stream = torch.cuda.current_stream().cuda_stream
+    rc = getattr(lib, name)(*args, stream)
+    if rc != 0:
+        msg = lib.ed_error_string(rc).decode()
+        raise RuntimeError(f"{name} launch failed: cudaError {rc} ({msg})")
+    LAUNCHES[name] += 1
+
+
+def require(t: torch.Tensor, name: str, dtype: torch.dtype, dim: int,
+            device: torch.device) -> None:
+    """The wrapper-side checks a kernel relies on: device, dtype, rank and
+    a C-contiguous layout (the kernels compute their own offsets)."""
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if t.dim() != dim:
+        raise ValueError(f"{name} must be {dim}-D, got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")

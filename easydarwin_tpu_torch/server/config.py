@@ -1,0 +1,19 @@
+"""Server configuration for the live-relay path."""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+
+from ..relay.stream import StreamSettings
+
+
+@dataclass
+class ServerConfig:
+    rtsp_port: int = 10554
+    bind_ip: str = "0.0.0.0"
+    reflect_interval_ms: int = 20      # pump tick when no ingest wakes it
+    rtsp_timeout_sec: int = 120        # idle player connection kill
+    push_timeout_sec: int = 20         # idle pusher connection kill
+    max_connections: int = 20000
+    #: per-stream relay tunables (buckets, fast-start, eviction, ring)
+    stream: StreamSettings = field(default_factory=StreamSettings)

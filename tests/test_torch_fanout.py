@@ -1,0 +1,228 @@
+"""The port's fan-out ops, window pass, pipeline and staging ≡ the JAX
+package's, bit-exact, on the same numpy inputs (CPU tensors: the plain
+PyTorch versions the kernel wrappers run off the card)."""
+
+import numpy as np
+import pytest
+import torch
+
+from easydarwin_tpu.models import relay_pipeline as ref_pipe
+from easydarwin_tpu.ops import fanout as ref_fanout
+from easydarwin_tpu.ops import staging as ref_staging
+from easydarwin_tpu.ops.parse import parse_packets as ref_parse
+from easydarwin_tpu.relay.output import CollectingOutput as RefOutput
+from easydarwin_tpu.relay.ring import PacketRing as RefRing
+from easydarwin_tpu_torch import convert
+from easydarwin_tpu_torch.models import relay_pipeline as pipe
+from easydarwin_tpu_torch.ops import fanout, staging
+from easydarwin_tpu_torch.relay.output import CollectingOutput
+from easydarwin_tpu_torch.utils import synth
+
+
+def _state(rng, b, s):
+    """Random rewrite state: uint32 everywhere, so seq0 < base_seq and
+    ts0 < base_ts (the wrap cases) are common."""
+    return rng.integers(0, 1 << 32, size=(b, s, 6),
+                        dtype=np.uint64).astype(np.uint32)
+
+
+def _bucket(rng, b_real=5, b_pad=8, p=16, s_real=5, s_pad=8):
+    """A ragged bucket: b_real streams with 1..p live rows, zero padding
+    rows and streams; the last stream carries no keyframe at all."""
+    win = np.zeros((b_pad, p, 100), np.uint8)
+    for i in range(b_real):
+        n = int(rng.integers(1, p + 1))
+        if i == b_real - 1:
+            pkts = [synth.h264_packet(j, 90 * j, 1, ssrc=7, body=b"x" * 30)
+                    for j in range(n)]
+        else:
+            pkts = [synth.random_packet(rng) for _ in range(n)]
+        pre, ln = synth.stage(pkts)
+        win[i, :n] = fanout.pack_window(pre, ln)
+    st = np.zeros((b_pad, s_pad, 6), np.uint32)
+    st[:b_real, :s_real] = _state(rng, b_real, s_real)
+    return win, st
+
+
+def test_window_pass_matches_megabatch_window_step():
+    rng = np.random.default_rng(42)
+    for _ in range(3):
+        win, st = _bucket(rng)
+        ref = np.asarray(ref_pipe.megabatch_window_step(win.copy(), st))
+        out = pipe.megabatch_window_step(torch.from_numpy(win),
+                                         convert.state_from_numpy(st, "cpu"))
+        assert out.dtype == torch.uint32
+        np.testing.assert_array_equal(out.numpy(), ref)
+        kf = out.numpy()[:, -1].astype(np.int32)
+        assert kf[4] == -1 and kf[5:].tolist() == [-1, -1, -1]
+        np.testing.assert_array_equal(
+            fanout.relay_affine_step_window(torch.from_numpy(win),
+                                            torch.from_numpy(st)).numpy(),
+            np.asarray(ref_fanout.relay_affine_step_window(win, st)))
+
+
+def test_window_length_column_wraps_like_int32_cast():
+    win = np.zeros((1, 2, 100), np.uint8)
+    win[0, 0, 96:100] = [0xFF, 0xFF, 0xFF, 0xFF]    # 0xFFFFFFFF → -1
+    win[0, 1, 96:100] = [20, 0, 0, 0]
+    got = fanout.window_lengths(torch.from_numpy(win))
+    assert got.tolist() == [[-1, 20]]
+    st = np.zeros((1, 8, 6), np.uint32)
+    np.testing.assert_array_equal(
+        fanout.relay_affine_step_window(torch.from_numpy(win),
+                                        torch.from_numpy(st)).numpy(),
+        np.asarray(ref_fanout.relay_affine_step_window(win, st)))
+
+
+def test_window_pass_rejects_bad_shapes():
+    with pytest.raises(ValueError):
+        fanout.relay_affine_step_window(torch.zeros((2, 4, 99), dtype=torch.uint8),
+                                        torch.zeros((2, 8, 6), dtype=torch.uint32))
+    with pytest.raises(ValueError):
+        fanout.relay_affine_step_window(torch.zeros((2, 4, 100), dtype=torch.uint8),
+                                        torch.zeros((3, 8, 6), dtype=torch.uint32))
+
+
+def test_affine_step_single_and_packed_match_reference():
+    rng = np.random.default_rng(8)
+    pkts = [synth.random_packet(rng) for _ in range(3 * 32)]
+    pre, ln = synth.stage(pkts)
+    st = _state(rng, 3, 8)
+    ref = ref_fanout.relay_affine_step(pre[:32], ln[:32], st[0])
+    out = fanout.relay_affine_step(torch.from_numpy(pre[:32]),
+                                   torch.from_numpy(ln[:32]),
+                                   torch.from_numpy(st[0]))
+    for k, v in ref.items():
+        np.testing.assert_array_equal(np.asarray(out[k]), np.asarray(v),
+                                      err_msg=k)
+    ref_p = np.asarray(ref_fanout.relay_affine_step_packed(
+        pre.reshape(3, 32, 96), ln.reshape(3, 32), st))
+    out_p = fanout.relay_affine_step_packed(
+        torch.from_numpy(pre.reshape(3, 32, 96)),
+        torch.from_numpy(ln.reshape(3, 32)), torch.from_numpy(st))
+    np.testing.assert_array_equal(out_p.numpy(), ref_p)
+    for a, b in zip(fanout.unpack_affine(out_p.numpy(), 8),
+                    ref_fanout.unpack_affine(ref_p, 8)):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_fanout_headers_and_eligibility_match_reference():
+    rng = np.random.default_rng(3)
+    pkts = [synth.random_packet(rng) for _ in range(40)]
+    pkts = [p for p in pkts if len(p) >= 12]
+    pre, ln = synth.stage(pkts)
+    rf = ref_parse(pre, ln)
+    st = _state(rng, 1, 11)[0]
+    ref = np.asarray(ref_fanout.fanout_headers(pre[:, :2], rf["seq"],
+                                               rf["timestamp"], st))
+    out = fanout.fanout_headers(torch.from_numpy(pre[:, :2]),
+                                torch.from_numpy(np.array(rf["seq"])),
+                                torch.from_numpy(np.array(rf["timestamp"])),
+                                torch.from_numpy(st))
+    np.testing.assert_array_equal(out.numpy(), ref)
+    age = rng.integers(0, 400, 40).astype(np.int32)
+    buckets = np.arange(6, dtype=np.int32)
+    np.testing.assert_array_equal(
+        fanout.eligibility(torch.from_numpy(age), torch.from_numpy(buckets),
+                           73).numpy(),
+        np.asarray(ref_fanout.eligibility(age, buckets, 73)))
+
+
+def test_pack_output_state_and_pack_window_match_reference():
+    rng = np.random.default_rng(2)
+    kw = [dict(ssrc=int(rng.integers(1 << 32)),
+               out_seq_start=int(rng.integers(1 << 16)),
+               out_ts_start=int(rng.integers(1 << 32))) for _ in range(6)]
+    ref_outs = [RefOutput(**k) for k in kw]
+    outs = [CollectingOutput(**k) for k in kw]
+    for i, (a, b) in enumerate(zip(ref_outs, outs)):
+        if i % 2:
+            a.rewrite.base_src_seq = b.rewrite.base_src_seq = 65000 + i
+            a.rewrite.base_src_ts = b.rewrite.base_src_ts = 4_000_000_000 + i
+        if i == 3:
+            a.interleave_chan = b.interleave_chan = 6
+    np.testing.assert_array_equal(fanout.pack_output_state(outs),
+                                  ref_fanout.pack_output_state(ref_outs))
+    pre, ln = synth.stage([synth.random_packet(rng) for _ in range(10)])
+    np.testing.assert_array_equal(fanout.pack_window(pre, ln),
+                                  ref_fanout.pack_window(pre, ln))
+
+
+@pytest.mark.parametrize("mode", ["affine", "headers"])
+def test_pipeline_with_k1_matches_reference_pipeline(mode):
+    rng = np.random.default_rng(17 if mode == "affine" else 18)
+    P, S = 32, 8
+    pkts = [synth.random_packet(rng) for _ in range(P - 4)]
+    pre, ln = synth.stage(pkts)
+    pre = np.concatenate([pre, np.zeros((4, 96), np.uint8)])
+    ln = np.concatenate([ln, np.zeros(4, np.int32)])
+    age = rng.integers(0, 12_000, P).astype(np.int32)
+    st = _state(rng, 1, S)[0]
+    buckets = rng.integers(0, 4, S).astype(np.int32)
+    cfg = dict(use_pallas_parse=True, mode=mode)
+    ref = ref_pipe.RelayPipeline(ref_pipe.RelayPipelineConfig(**cfg))(
+        pre, ln, age, st, buckets)
+    out = pipe.RelayPipeline(pipe.RelayPipelineConfig(**cfg), device="cpu")(
+        pre, ln, age, st, buckets)
+    assert set(out) == set(ref)
+    for k, v in ref.items():
+        np.testing.assert_array_equal(np.asarray(out[k]), np.asarray(v),
+                                      err_msg=k)
+
+
+def test_scatter_affine_segments_matches_reference():
+    rng = np.random.default_rng(5)
+    packed = rng.integers(0, 1 << 32, size=(4, 4 * 8 + 1),
+                          dtype=np.uint64).astype(np.uint32)
+    packed[2, -1] = 0xFFFFFFFF
+    ref = ref_pipe.scatter_affine_segments(packed, [8, 3, 5])
+    out = pipe.scatter_affine_segments(torch.from_numpy(packed), [8, 3, 5])
+    assert len(out) == len(ref) == 3
+    for a, b in zip(out, ref):
+        for x, y in zip(a[:4], b[:4]):
+            np.testing.assert_array_equal(x, y)
+        assert a[4] == b[4]
+    assert out[2][4] == -1
+
+
+def _rings(capacity=64, n=100, seed=9):
+    rng = np.random.default_rng(seed)
+    ref = RefRing(capacity, is_video=True)
+    for i in range(n):
+        body = bytes(rng.integers(0, 256, int(rng.integers(0, 300)),
+                                  dtype=np.uint8))
+        if i % 17 == 5:
+            pkt = body[:7]                                  # runt
+        else:
+            pkt = synth.h264_packet(i, 3000 * i, 5 if i % 30 == 0 else 1,
+                                    ssrc=1, body=body)
+        ref.push(pkt, 1000 + i)
+    port = convert.ring_from_arrays(ref.data, ref.length, ref.arrival,
+                                    ref.seq, ref.timestamp, ref.flags,
+                                    ref.head, ref.tail, ref.capacity)
+    return ref, port
+
+
+def test_gather_window_bytes_match_reference_across_the_ring_seam():
+    ref, port = _rings()
+    for start, count, rows in ((ref.tail, 40, 64), (ref.head - 10, 10, 16),
+                               (0, 1024, 64), (ref.head, 5, 16)):
+        a = np.full((rows, staging.ROW_STRIDE), 0xAB, np.uint8)
+        b = np.full((rows, staging.ROW_STRIDE), 0xCD, np.uint8)
+        na = ref_staging.gather_window(ref, start, count, a)
+        nb = staging.gather_window(port, start, count, b)
+        assert na == nb
+        np.testing.assert_array_equal(a, b)
+
+
+def test_staging_helpers_match_reference():
+    for n, lo in ((0, 16), (1, 16), (17, 16), (300, 8), (5, 1)):
+        assert staging.pow2(n, lo) == ref_staging.pow2(n, lo)
+    for n, k in ((1, 1), (5, 2), (16, 4), (7, 8)):
+        assert staging.rows_per_shard(n, k) == ref_staging.rows_per_shard(n, k)
+    rng = np.random.default_rng(1)
+    data = rng.integers(0, 256, (5, 120), dtype=np.uint8)
+    ln = rng.integers(0, 2060, 5).astype(np.int32)
+    np.testing.assert_array_equal(
+        staging.pack_rows(data, ln, np.full((8, 100), 7, np.uint8)),
+        ref_staging.pack_rows(data, ln, np.full((8, 100), 7, np.uint8)))

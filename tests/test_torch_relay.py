@@ -1,0 +1,250 @@
+"""The port's relay tier ≡ the JAX package's host oracle.
+
+* the port's packet ring classifies and stores exactly what the
+  reference ring does;
+* the megabatch scheduler installs exactly ``_host_affine_params``;
+* the fan-out engine, fed only by the scheduler, writes the same wire bytes
+  as the reference's scalar ``RelayStream.reflect`` on state carried over
+  with ``convert.py`` (stalls, runts, bucket delays and a late joiner
+  included).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from easydarwin_tpu.protocol import sdp as ref_sdp
+from easydarwin_tpu.relay import megabatch as ref_megabatch
+from easydarwin_tpu.relay.output import CollectingOutput as RefOutput
+from easydarwin_tpu.relay.ring import PacketRing as RefRing
+from easydarwin_tpu.relay.stream import RelayStream as RefStream
+from easydarwin_tpu.relay.stream import StreamSettings as RefSettings
+from easydarwin_tpu_torch import convert, resolve_device
+from easydarwin_tpu_torch.models.relay_pipeline import RelayPipeline
+from easydarwin_tpu_torch.protocol import sdp
+from easydarwin_tpu_torch.relay import megabatch
+from easydarwin_tpu_torch.relay.fanout import FanoutEngine, params_key
+from easydarwin_tpu_torch.relay.megabatch import MegabatchScheduler
+from easydarwin_tpu_torch.relay.output import CollectingOutput
+from easydarwin_tpu_torch.relay.ring import PacketRing
+from easydarwin_tpu_torch.relay.stream import RelayStream, StreamSettings
+from easydarwin_tpu_torch.server import StreamingServer
+from easydarwin_tpu_torch.utils import synth
+
+SDP = ("v=0\r\nm=video 0 RTP/AVP 96\r\na=rtpmap:96 H264/90000\r\n"
+       "a=control:trackID=1\r\n")
+
+
+def _packets(rng, n, seq0=65500, ts0=0xFFFFF000):
+    """Paced H.264 with an IDR run every 30 packets and a runt every 17."""
+    out = []
+    for i in range(n):
+        if i % 17 == 9:
+            out.append(b"\x80\x60\x00")                       # runt
+            continue
+        body = rng.integers(0, 256, int(rng.integers(8, 200)),
+                            dtype=np.uint8).tobytes()
+        out.append(synth.h264_packet(seq0 + i, ts0 + 3000 * (i // 3),
+                                     5 if i % 30 < 3 else 1, ssrc=0xABC,
+                                     body=body, marker=i % 3 == 2))
+    return out
+
+
+@pytest.mark.parametrize("codec", [None, "JPEG"])
+def test_ring_push_matches_reference_ring(codec):
+    rng = np.random.default_rng(6)
+    ref = RefRing(32, is_video=True, codec=codec)
+    port = PacketRing(32, is_video=True, codec=codec)
+    pkts = _packets(rng, 70) + [bytes(2100)]                  # oversize drop
+    pkts += [synth.random_packet(rng) for _ in range(20)]
+    for i, p in enumerate(pkts):
+        assert port.push(p, 10 * i) == ref.push(p, 10 * i)
+    for name in ("data", "length", "arrival", "flags", "seq", "timestamp",
+                 "ssrc"):
+        np.testing.assert_array_equal(getattr(port, name), getattr(ref, name),
+                                      err_msg=name)
+    assert (port.head, port.tail, port.total_dropped, port.total_oversize) == \
+        (ref.head, ref.tail, ref.total_dropped, ref.total_oversize)
+    assert port.evict_older_than(700, 200, pin_id=port.head - 5) == \
+        ref.evict_older_than(700, 200, pin_id=ref.head - 5)
+    ids_p, len_p, fl_p = port.window_meta(port.tail, 9)
+    ids_r, len_r, fl_r = ref.window_meta(ref.tail, 9)
+    for a, b in ((ids_p, ids_r), (len_p, len_r), (fl_p, fl_r)):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_convert_validates_and_copies():
+    st = np.arange(2 * 3 * 6, dtype=np.uint32).reshape(2, 3, 6)
+    t = convert.state_from_numpy(st, "cpu")
+    assert t.dtype == torch.uint32 and t.numpy().tolist() == st.tolist()
+    st[0, 0, 0] = 99
+    assert int(t[0, 0, 0]) == 0                        # a copy, not a view
+    with pytest.raises(TypeError):
+        convert.state_from_numpy(st.astype(np.int64), "cpu")
+    with pytest.raises(ValueError):
+        convert.state_from_numpy(np.zeros((3, 5), np.uint32), "cpu")
+    ref = RefRing(8, is_video=True)
+    with pytest.raises(ValueError):
+        convert.ring_from_arrays(ref.data, ref.length, ref.arrival, ref.seq,
+                                 ref.timestamp, ref.flags, 3, 5, 8)
+
+
+def test_host_affine_oracle_matches_reference():
+    rng = np.random.default_rng(12)
+    for _ in range(20):
+        key = tuple((int(rng.integers(1 << 32)),
+                     int(rng.choice([-1, int(rng.integers(1 << 16))])),
+                     int(rng.choice([-1, int(rng.integers(1 << 32))])),
+                     int(rng.integers(1 << 16)), int(rng.integers(1 << 32)),
+                     int(rng.choice([-1, 0, 2])))
+                    for _ in range(int(rng.integers(1, 9))))
+        for a, b in zip(megabatch._host_affine_params(key),
+                        ref_megabatch._host_affine_params(key)):
+            np.testing.assert_array_equal(a, b)
+
+
+def _twin_streams(n_out=10, seed=31):
+    """A reference stream with history, and the port stream carried over
+    from its arrays; outputs with identical rewrite state on both."""
+    rng = np.random.default_rng(seed)
+    settings = dict(bucket_size=4, bucket_delay_ms=10)
+    ref = RefStream(ref_sdp.parse(SDP).streams[0], RefSettings(**settings))
+    pkts = _packets(rng, 400)
+    t = 1000
+    for p in pkts[:40]:
+        ref.push_rtp(p, t)
+        t += 4
+    r = ref.rtp_ring
+    ring = convert.ring_from_arrays(r.data, r.length, r.arrival, r.seq,
+                                    r.timestamp, r.flags, r.head, r.tail,
+                                    r.capacity)
+    port = RelayStream(sdp.parse(SDP).streams[0], StreamSettings(**settings),
+                       rtp_ring=ring)
+    port.keyframe_id = ref.keyframe_id
+    port._kf_run_active = ref._kf_run_active
+    kws = [dict(ssrc=int(rng.integers(1 << 32)),
+                out_seq_start=int(rng.integers(1 << 16)),
+                out_ts_start=int(rng.integers(1 << 32)))
+           for _ in range(n_out + 2)]
+    for k in kws[:n_out]:
+        ref.add_output(RefOutput(**k))
+        port.add_output(CollectingOutput(**k))
+    return ref, port, pkts[40:], kws[n_out:], t
+
+
+def test_engine_wire_bytes_match_reference_scalar_reflect():
+    ref, port, more, late, t = _twin_streams()
+    eng = FanoutEngine()
+    sched = MegabatchScheduler(device="cpu")
+    pairs = [(port, eng)]
+    for wake in range(14):
+        for p in more[wake * 9:(wake + 1) * 9]:
+            ref.push_rtp(p, t)
+            port.push_rtp(p, t)
+        if wake == 4:                          # a stall: replay next wake
+            ref.outputs[1].block_next = port.outputs[1].block_next = 1
+        if wake == 6:                          # a late joiner
+            ref.add_output(RefOutput(**late[0]))
+            port.add_output(CollectingOutput(**late[0]))
+        if wake == 9:                          # a leaver
+            ref.remove_output(ref.outputs[3])
+            port.remove_output(port.outputs[3])
+        sched.begin_wake(pairs, t)
+        eng.step(port, t)
+        sched.end_wake(pairs, t)
+        ref.reflect(t)
+        for a, b in zip(port.outputs, ref.outputs):
+            assert a.rtp_packets == b.rtp_packets, wake
+            assert (a.bookmark, a.packets_sent, a.bytes_sent,
+                    a.payload_octets, a.stalls) == \
+                (b.bookmark, b.packets_sent, b.bytes_sent, b.payload_octets,
+                 b.stalls), wake
+        t += 20
+    assert sum(len(o.rtp_packets) for o in port.outputs) > 500
+    assert sched.mismatches == 0 and eng.missing_params == 0
+    assert port.stats.stalls == ref.stats.stalls == 1
+    assert sched.prime_passes >= 2 and sched.harvests > 0
+
+
+def test_scheduler_installs_exactly_the_host_oracle():
+    streams, engines = [], []
+    rng = np.random.default_rng(2)
+    for i, n_out in enumerate((3, 9, 20)):     # three subscriber buckets
+        st = RelayStream(sdp.parse(SDP).streams[0])
+        for p in _packets(rng, 25 + 10 * i, seq0=i * 1000):
+            st.push_rtp(p, 500)
+        for _ in range(n_out):
+            st.add_output(CollectingOutput(
+                ssrc=int(rng.integers(1 << 32)),
+                out_seq_start=int(rng.integers(1 << 16)),
+                out_ts_start=int(rng.integers(1 << 32))))
+        streams.append(st)
+        engines.append(FanoutEngine())
+    sched = MegabatchScheduler(device="cpu")
+    pairs = list(zip(streams, engines))
+    extra = _packets(rng, 6, seq0=9000)
+    for wake in range(3):
+        for st in streams:                     # fresh packets every wake
+            for p in extra[2 * wake:2 * wake + 2]:
+                st.push_rtp(p, 1000 + wake)
+        sched.begin_wake(pairs, 1000 + wake)
+        for st, eng in pairs:
+            key = params_key(eng.fast_outputs(st))
+            assert eng.megabatch_params[0] == key
+            for a, b in zip(eng.megabatch_params[1],
+                            ref_megabatch._host_affine_params(key)):
+                np.testing.assert_array_equal(a[0], b)
+            eng.step(st, 1000 + wake)
+        sched.end_wake(pairs, 1000 + wake)
+    assert sched.drain() == 3 and sched.mismatches == 0
+
+
+def test_scheduler_discards_a_segment_that_disagrees_with_the_oracle(
+        monkeypatch):
+    _ref, port, _more, _late, t = _twin_streams(n_out=4)
+    eng = FanoutEngine()
+    sched = MegabatchScheduler(device="cpu")
+    real = megabatch.megabatch_window_step
+
+    def corrupt(window, state):
+        out = real(window, state).clone()
+        out[0, 0] = out[0, 0] ^ 1              # flip one seq_off bit
+        return out
+
+    monkeypatch.setattr(megabatch, "megabatch_window_step", corrupt)
+    sched.begin_wake([(port, eng)], t)
+    assert sched.mismatches == 1 and eng.megabatch_params is None
+    before = [o.bookmark for o in port.outputs]
+    assert eng.step(port, t) == 0              # no params: nothing sent
+    assert [o.bookmark for o in port.outputs] == before
+    assert eng.missing_params == 1
+    assert all(not o.rtp_packets for o in port.outputs)
+
+
+def test_staging_buffer_returns_to_the_pool_only_at_harvest():
+    _ref, port, more, _late, t = _twin_streams(n_out=2)
+    eng = FanoutEngine()
+    sched = MegabatchScheduler(device="cpu")
+    pairs = [(port, eng)]
+    sched.begin_wake(pairs, t)
+    eng.step(port, t)
+    sched.end_wake(pairs, t)
+    (inf,) = sched._inflight
+    assert all(inf.buf is not b for pool in sched._free.values() for b in pool)
+    port.push_rtp(more[0], t + 5)
+    sched.begin_wake(pairs, t + 5)             # harvest recycles it
+    assert not sched._inflight
+    assert any(inf.buf is b for pool in sched._free.values() for b in pool)
+
+
+def test_default_device_is_the_card():
+    if torch.cuda.is_available():
+        assert resolve_device().type == "cuda"
+        return
+    for make in (resolve_device, MegabatchScheduler, RelayPipeline,
+                 StreamingServer,
+                 lambda: convert.state_from_numpy(np.zeros((1, 6), np.uint32))):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
+    with pytest.raises(ValueError):
+        resolve_device("mps")
