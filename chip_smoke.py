@@ -6,29 +6,45 @@ Run from the repository root on a machine with one CUDA card:
     python3 chip_smoke.py
 
 It builds the hand-written kernels from ``easydarwin_tpu_torch/csrc`` and
-drives the port's live-relay path on the card, phase by phase; any failed
-phase raises and the script exits non-zero.
+drives the port's live-relay and transcode paths on the card, phase by
+phase; any failed phase raises and the script exits non-zero.
 
-1. build     nvcc the kernel library (seconds printed)
-2. card      the card's name and power limit (nvidia-smi)
+1. build     nvcc the kernel library, one nvcc per source started together
+             (seconds printed)
+2. card      the card's name and power limit (nvidia-smi), and the fp32
+             matmul settings (TF32 must be off)
 3. K1        ``ed_parse_packets`` vs the plain parse, bit-exact, on 600
              fuzzed rows, 4096 rows (16×256) and 1024 rows
 4. window    ``ed_relay_window`` vs the plain window pass, bit-exact, at
              [16,256,100]×[16,256,6], the prime shape [1,16,100]×[1,8,6]
              and a ragged 5-stream bucket padded to 8
-5. scheduler the main path in-process: MegabatchScheduler + FanoutEngine
+5. K2        ``ed_decode_blocks`` vs ``decode_blocks_plain`` at N = 1, 300,
+             48,960 (one 1080p 4:2:0 frame) and 783,360 (config 5: 16
+             sources × one 1080p frame): |diff| <= 1 on < 1% of pixels;
+             N = 0 returns empty without a launch
+6. scheduler the main path in-process: MegabatchScheduler + FanoutEngine
              over 16 streams × 256 subscribers in 2 buckets for 36 wakes,
              every wire byte held against RelayStream.reflect, plus the
              RelayPipeline(use_pallas_parse=True) step each wake
-6. server    ``python -m easydarwin_tpu_torch --device cuda`` on loopback:
+7. server    ``python -m easydarwin_tpu_torch --device cuda`` on loopback:
              2 pushers × 4 TCP players, every packet checked
-7. kernels   launches on the main path (phases 5-6), CUDA-event times at
-             the config-4 shapes beside the plain versions' and the byte
-             bound
+8. pipeline  the config-5 TranscodePipeline (qualities 80/50/25 from 90,
+             decode_pixels) for 8 steps of 783,360 blocks on the card:
+             8 K2 launches, one step held against the same pipeline on the
+             CPU
+9. ladder    the live MJPEG ladder through the CLI server: one VGA 4:2:0
+             source, 6 frames at 10 fps, REST starttranscode rungs 40 and
+             20s2, one TCP player per rung; every delivered rung frame
+             decodes and matches the CPU requantization oracle of its
+             source frame; the host split per frame is printed
+10. kernels  launches on the main path (phases 6-9), CUDA-event times at
+             the config-4 (K1, window) and config-5 (K2) shapes beside the
+             plain versions', the bound and, for K2, cuBLAS's fp32 product
+             alone
 
-The kernel launch counts are set to 0 just before phase 5 and read just
-after phase 6 (the server process reports its own at exit); the
-comparisons and timings of phases 3, 4 and 7 run outside that window.
+The kernel launch counts are set to 0 just before phase 6 and read just
+after phase 9 (the server processes report their own at exit); the
+comparisons and timings of phases 3, 4, 5 and 10 run outside that window.
 Detail goes to ``chiprun_out/chip_smoke.json``.  The last line of standard
 output is ``{"ok": true, "device": {...}}``.
 """
@@ -43,9 +59,18 @@ import sys
 import time
 
 #: NVIDIA H100 SXM data-sheet peaks (dense): HBM bandwidth and the 32-bit
-#: non-tensor rate, which is the rate the kernels' integer work runs at
+#: non-tensor rate, which is the rate the kernels' integer work and K2's
+#: fp32 work (no tensor cores at full fp32) run at
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = 67e12
+#: BASELINE config 5: 16 sources × one 1080p 4:2:0 frame (1920×1088:
+#: 32,640 Y + 2 × 8,160 C blocks)
+FRAME_1080P_BLOCKS = 48_960
+CONFIG5_SOURCES = 16
+CONFIG5_BLOCKS = CONFIG5_SOURCES * FRAME_1080P_BLOCKS
+#: K2's tolerance against its plain version, the reference's own
+#: (tests/test_transform.py): |diff| <= 1 on < 1% of pixels
+K2_MAX_DIFF, K2_MAX_FRAC = 1, 0.01
 #: integer operations ``parse_row`` does per packet, counted from the
 #: source (field assembly ≈ 20, header size 3, NAL resolution ≈ 15,
 #: classification ≈ 12)
@@ -208,6 +233,88 @@ def phase_window(rng) -> dict:
 
 
 # -------------------------------------------------------------- phase 5
+def frame_pixels_1080p(gen, index: int):
+    """One 1920×1088 4:2:0 frame of smooth moving gradients plus noise,
+    made on the card from ``gen`` → uint8 blocks [48,960, 64] in MCU
+    order (4 Y blocks per 16×16 MCU, then Cb, then Cr)."""
+    import math
+    import torch
+    h, w = 1088, 1920
+    yy = torch.arange(h, device="cuda", dtype=torch.float32)[:, None]
+    xx = torch.arange(w, device="cuda", dtype=torch.float32)[None, :]
+    luma = (128 + 80 * torch.sin(2 * math.pi * (xx + 37 * index) / w
+                                 * (1 + index % 3))
+            * torch.cos(math.pi * yy / h)
+            + 6 * torch.randn((h, w), device="cuda", generator=gen))
+    cy, cx = yy[::2], xx[:, ::2]
+    cb = (128 + 60 * (cx / w - 0.5) + 20 * torch.sin(cy / 37 + index)
+          + 3 * torch.randn((h // 2, w // 2), device="cuda", generator=gen))
+    cr = (128 + 60 * (cy / h - 0.5) + 20 * torch.cos(cx / 53 - index)
+          + 3 * torch.randn((h // 2, w // 2), device="cuda", generator=gen))
+
+    def blocks(plane, sub):
+        ph, pw = plane.shape
+        b = plane.reshape(ph // (8 * sub), sub, 8, pw // (8 * sub), sub, 8)
+        return b.permute(0, 3, 1, 4, 2, 5).reshape(-1, 64)
+    pix = torch.cat([blocks(luma, 2), blocks(cb, 1), blocks(cr, 1)])
+    return torch.clamp(torch.round(pix), 0, 255).to(torch.uint8)
+
+
+def config5_levels(seed: int, source_quality: int = 90):
+    """The config-5 batch: 16 sources × one 1080p frame, ``encode_blocks``
+    at the source quality → int32 [783,360, 64] on the card."""
+    import torch
+    from easydarwin_tpu_torch.ops import transform as tf
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    qt = torch.from_numpy(tf.quality_table(source_quality)).cuda()
+    lv = torch.cat([tf.encode_blocks(frame_pixels_1080p(gen, i), qt)
+                    for i in range(CONFIG5_SOURCES)])
+    check(lv.shape == (CONFIG5_BLOCKS, 64), f"config-5 batch {lv.shape}")
+    return lv.contiguous(), qt
+
+
+def k2_diff(a, b) -> tuple[int, float]:
+    """(max |diff|, share of pixels that differ) of two uint8 tensors."""
+    import torch
+    d = (a.to(torch.int16) - b.to(torch.int16)).abs()
+    if d.numel() == 0:
+        return 0, 0.0
+    return int(d.max()), float((d > 0).double().mean())
+
+
+def phase_k2(levels, qt) -> dict:
+    """K2 vs its plain version on the card at 1, 300, one 1080p frame and
+    the config-5 batch; N = 0 must not launch."""
+    import torch
+    from easydarwin_tpu_torch.ops import kernel_lib
+    from easydarwin_tpu_torch.ops.transform import decode_blocks_plain
+    from easydarwin_tpu_torch.ops.transform_kernel import decode_blocks_kernel
+    res = {}
+    for n in (1, 300, FRAME_1080P_BLOCKS, CONFIG5_BLOCKS):
+        lv = levels[:n]
+        k = decode_blocks_kernel(lv, qt)
+        p = decode_blocks_plain(lv, qt)
+        torch.cuda.synchronize()
+        check(k.dtype == torch.uint8 and k.shape == (n, 64),
+              f"K2 N={n}: {k.dtype}{tuple(k.shape)}")
+        worst, frac = k2_diff(k, p)
+        check(worst <= K2_MAX_DIFF and frac < K2_MAX_FRAC,
+              f"K2 N={n}: max diff {worst} on {frac:.4%} of pixels")
+        res[f"n{n}"] = {"max_abs_err": worst, "mismatch_frac": frac}
+        log(f"[k2] N={n}: max |diff| {worst} on {frac:.6%} of pixels vs "
+            f"decode_blocks_plain")
+    before = kernel_lib.LAUNCHES["ed_decode_blocks"]
+    empty = decode_blocks_kernel(levels[:0], qt)
+    check(empty.shape == (0, 64) and empty.dtype == torch.uint8,
+          f"K2 N=0 gave {tuple(empty.shape)}")
+    check(kernel_lib.LAUNCHES["ed_decode_blocks"] == before,
+          "K2 launched for N=0")
+    log("[k2] N=0: empty [0,64] uint8, no launch")
+    return res
+
+
+# -------------------------------------------------------------- phase 6
 def phase_scheduler(rng) -> dict:
     """16 streams × 256 subscribers through MegabatchScheduler +
     FanoutEngine, each wire byte against the scalar oracle run on an
@@ -338,7 +445,7 @@ def phase_scheduler(rng) -> dict:
     return res
 
 
-# -------------------------------------------------------------- phase 6
+# -------------------------------------------------------------- phase 7
 def phase_server(rng) -> dict:
     """2 pushers × 4 interleaved TCP players through the CLI server."""
     from easydarwin_tpu_torch.utils import loopback
@@ -350,15 +457,96 @@ def phase_server(rng) -> dict:
     return res
 
 
-# -------------------------------------------------------------- phase 7
-def phase_kernels(rng, launches: dict, errs: dict) -> list[dict]:
-    """Times at the config-4 shapes: each kernel alone (entry point on
-    preallocated outputs) and its plain version, by CUDA events around
-    graph replays; the wrappers' direct-call times go to the detail."""
+# -------------------------------------------------------------- phase 8
+def phase_pipeline(levels) -> dict:
+    """The config-5 TranscodePipeline for 8 steps of 783,360 blocks on the
+    card (K2 on the pixel leg), step 0 held against the CPU pipeline."""
+    import numpy as np
+    import torch
+    from easydarwin_tpu_torch.models import TranscodeConfig, TranscodePipeline
+    from easydarwin_tpu_torch.ops import kernel_lib
+    cfg = TranscodeConfig(qualities=(80, 50, 25), source_quality=90,
+                          decode_pixels=True)
+    pipe = TranscodePipeline(cfg, device=DEVICE)
+    before = kernel_lib.LAUNCHES["ed_decode_blocks"]
+    step_ms, first = [], None
+    for s in range(8):
+        t0 = time.perf_counter()
+        out = pipe(levels)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        if s == 0:
+            first = {k: v.cpu() for k, v in out.items()}
+    launched = kernel_lib.LAUNCHES["ed_decode_blocks"] - before
+    check(launched == 8, f"pipeline launched K2 {launched} times in 8 steps")
+    ref = TranscodePipeline(cfg, device="cpu")(levels.cpu())
+    rung_d = (first["rungs"].to(torch.int64) - ref["rungs"].to(torch.int64)
+              ).abs()
+    rung_max = int(rung_d.max())
+    rung_frac = float((rung_d > 0).double().mean())
+    # bit-exact is expected (IEEE divide and round half to even on both);
+    # the reference's own bound for its fused ladder is <= 1 on < 2%
+    check(rung_max <= 1 and rung_frac < 0.02,
+          f"pipeline rungs off the CPU run: max {rung_max}, {rung_frac:.4%}")
+    check(torch.equal(first["nonzeros"], ref["nonzeros"]) or rung_max > 0,
+          "pipeline nonzeros differ from the CPU run with equal rungs")
+    pix_max, pix_frac = k2_diff(first["pixels"], ref["pixels"])
+    check(pix_max <= K2_MAX_DIFF and pix_frac < K2_MAX_FRAC,
+          f"pipeline pixels off the CPU run: max {pix_max}, {pix_frac:.4%}")
+    nz = first["nonzeros"].tolist()
+    check(nz[0] >= nz[1] >= nz[2] > 0, f"nonzeros not monotone: {nz}")
+    res = {"blocks": CONFIG5_BLOCKS, "steps": 8, "k2_launches": launched,
+           "step_ms": step_ms, "step_ms_p50": float(np.median(step_ms)),
+           "rungs_max_abs_err": rung_max, "rungs_mismatch_frac": rung_frac,
+           "rungs_bit_exact": rung_max == 0,
+           "nonzeros": nz, "nonzeros_equal": bool(
+               torch.equal(first["nonzeros"], ref["nonzeros"])),
+           "pixels_max_abs_err": pix_max, "pixels_mismatch_frac": pix_frac}
+    log(f"[pipeline] 8 steps x {CONFIG5_BLOCKS} blocks, {launched} K2 "
+        f"launches, step p50 {res['step_ms_p50']:.3f} ms (host clock, "
+        f"synchronized); vs CPU: rungs max {rung_max} on {rung_frac:.6%}, "
+        f"pixels max {pix_max} on {pix_frac:.6%}, nonzeros {nz}")
+    return res
+
+
+# -------------------------------------------------------------- phase 9
+def phase_ladder(rng) -> dict:
+    """The live MJPEG ladder through the CLI server on the card.  VGA is a
+    cut forced by the CPython entropy codec (seconds per 1080p frame)."""
+    from easydarwin_tpu_torch.utils import mjpeg_loopback
+    res = asyncio.run(asyncio.wait_for(mjpeg_loopback.serve_mjpeg_ladder(
+        DEVICE, rng, width=640, height=480, n_frames=6, fps=10,
+        rungs=("40", "20s2"), deadline_s=120), 300))
+    split, last = res["host_ms_per_frame"], res["host_ms_last_frame"]
+    rungs = "; ".join(f"{r['path']} {r['frames']} frames from source "
+                      f"{r['source_frames']} max |diff| {r['max_abs_err']}"
+                      for r in res["rungs"])
+    log(f"[ladder] VGA 4:2:0 (cut from 1080p: the host entropy codec is "
+        f"CPython) {res['frames_pushed']} frames pushed, "
+        f"{res['frames_in']} transcoded, {res['frames_dropped']} dropped "
+        f"(newest wins), decode_errors {res['decode_errors']}; {rungs}; "
+        f"host ms per frame (mean; newest frame): entropy decode "
+        f"{split['entropy_decode']:.3f}; {last['entropy_decode']:.3f}, "
+        f"device requant {split['device_requant']:.3f}; "
+        f"{last['device_requant']:.3f}, entropy encode "
+        f"{split['entropy_encode']:.3f}; {last['entropy_encode']:.3f}")
+    return res
+
+
+# ------------------------------------------------------------- phase 10
+def phase_kernels(rng, launches: dict, errs: dict, levels, qt
+                  ) -> list[dict]:
+    """Times at the config-4 (K1, window) and config-5 (K2) shapes: each
+    kernel alone (entry point on preallocated outputs) and its plain
+    version, by CUDA events around graph replays; K2 also beside cuBLAS's
+    fp32 product alone.  The wrappers' direct-call times go to the
+    detail."""
     import torch
     from easydarwin_tpu_torch.ops import fanout, kernel_lib
+    from easydarwin_tpu_torch.ops import transform as tf
     from easydarwin_tpu_torch.ops.parse import parse_packets
     from easydarwin_tpu_torch.ops.parse_kernel import parse_packets_kernel
+    from easydarwin_tpu_torch.ops.transform_kernel import decode_blocks_kernel
     rows = 16 * 256
     pre, ln = fuzz_rows(rng, rows)
     dp, dl = torch.from_numpy(pre).cuda(), torch.from_numpy(ln).cuda()
@@ -367,41 +555,60 @@ def phase_kernels(rng, launches: dict, errs: dict) -> list[dict]:
     win, st = window_inputs(rng, 16, 16, 256, 256, 256)
     dw, ds = torch.from_numpy(win).cuda(), torch.from_numpy(st).cuda()
     packed = torch.empty((16, 4 * 256 + 1), dtype=torch.int32, device="cuda")
+    n = levels.shape[0]
+    inv = tf.operator("inv", levels.device)
+    pixels = torch.empty((n, 64), dtype=torch.uint8, device="cuda")
+    deq = tf.dequantize(levels, qt)            # the library's input
     k1_bytes = dp.numel() + 4 * rows + (16 + 20) * rows
     win_bytes = dw.numel() + 4 * ds.numel() + 4 * packed.numel()
+    k2_bytes = 4 * levels.numel() + 4 * 64 + 4 * inv.numel() + pixels.numel()
     k1_ops = OPS_PER_PACKET * rows
     win_ops = OPS_PER_WINDOW_ROW * 16 * 256 + OPS_PER_SUBSCRIBER * 16 * 256
+    k2_ops = 2 * 64 * 64 * n                   # fp32 multiply-adds
+    relay_src = "easydarwin_tpu_torch/csrc/relay_kernels.cu"
     cases = (
-        ("ed_parse_packets", "easydarwin_tpu/ops/parse_pallas.py:84",
+        ("ed_parse_packets", relay_src, "easydarwin_tpu/ops/parse_pallas.py:84",
          lambda: kernel_lib.launch(
              "ed_parse_packets", dp.data_ptr(), rows, 96, dl.data_ptr(),
              words.data_ptr(), flags.data_ptr()),
          lambda: parse_packets_kernel(dp, dl),
-         lambda: parse_packets(dp, dl), k1_bytes, k1_ops),
-        ("ed_relay_window", "easydarwin_tpu/ops/fanout.py:183",
+         lambda: parse_packets(dp, dl), None, k1_bytes, k1_ops, 100),
+        ("ed_relay_window", relay_src, "easydarwin_tpu/ops/fanout.py:183",
          lambda: kernel_lib.launch(
              "ed_relay_window", dw.data_ptr(), 16, 256, 100, ds.data_ptr(),
              256, packed.data_ptr()),
          lambda: fanout.relay_affine_step_window(dw, ds),
-         lambda: fanout.relay_affine_step_window_plain(dw, ds),
-         win_bytes, win_ops))
+         lambda: fanout.relay_affine_step_window_plain(dw, ds), None,
+         win_bytes, win_ops, 100),
+        ("ed_decode_blocks", "easydarwin_tpu_torch/csrc/transform_kernels.cu",
+         "easydarwin_tpu/ops/transform.py:172",
+         lambda: kernel_lib.launch(
+             "ed_decode_blocks", levels.data_ptr(), n, qt.data_ptr(),
+             inv.data_ptr(), pixels.data_ptr()),
+         lambda: decode_blocks_kernel(levels, qt),
+         lambda: tf.decode_blocks_plain(levels, qt),
+         lambda: torch.matmul(deq, inv.T),      # product alone
+         k2_bytes, k2_ops, 20),
+    )
     out = []
-    for name, src_line, kernel, wrapper, plain, nbytes, ops in cases:
+    for (name, src, src_line, kernel, wrapper, plain, library, nbytes, ops,
+         inner) in cases:
         t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
         t_ops = ops / PEAK_OPS_PER_S * 1e3
         out.append({
-            "name": name, "route": "cuda",
-            "source": "easydarwin_tpu_torch/csrc/relay_kernels.cu",
+            "name": name, "route": "cuda", "source": src,
             "replaces": src_line, "launches": launches[name],
             "max_abs_err": errs[name],
-            "ms": graph_ms(kernel),
-            "plain_ms": graph_ms(plain, inner=20),
+            "ms": graph_ms(kernel, inner=inner),
+            "plain_ms": graph_ms(plain, inner=min(inner, 20)),
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": None,
+            "library_ms": None if library is None
+            else graph_ms(library, inner=inner),
             # detail only (not part of the kernels line)
-            "_wrapper_graph_ms": graph_ms(wrapper),
-            "_wrapper_call_ms": call_ms(wrapper, reps=21, inner=100),
+            "_bytes": nbytes, "_ops": ops,
+            "_wrapper_graph_ms": graph_ms(wrapper, inner=inner),
+            "_wrapper_call_ms": call_ms(wrapper, reps=21, inner=inner),
             "_plain_call_ms": call_ms(plain, reps=11, inner=10),
         })
     return out
@@ -432,32 +639,53 @@ def main() -> int:
     log(f"[card] {smi}")
     detail["card"] = smi
 
+    matmul = {"cuda.matmul.allow_tf32":
+              torch.backends.cuda.matmul.allow_tf32,
+              "float32_matmul_precision":
+              torch.get_float32_matmul_precision(),
+              "cudnn.allow_tf32": torch.backends.cudnn.allow_tf32}
+    log(f"[card] fp32 matmul settings {matmul}")
+    check(not matmul["cuda.matmul.allow_tf32"]
+          and matmul["float32_matmul_precision"] == "highest",
+          "fp32 matmuls would run in TF32")
+    detail["matmul_settings"] = matmul
+
     detail["k1"] = phase_k1(rng)
     detail["window"] = phase_window(rng)
+    levels, qt = config5_levels(int(rng.integers(1 << 31)))
+    detail["k2"] = phase_k2(levels, qt)
 
     kernel_lib.reset_launch_counts()           # the main path starts here
     detail["scheduler"] = phase_scheduler(rng)
-    in_proc = dict(kernel_lib.LAUNCHES)
     detail["server"] = phase_server(rng)
-    server = detail["server"]["server_stats"]["kernel_launches"]
-    launches = {k: in_proc[k] + server.get(k, 0) for k in in_proc}
+    detail["pipeline"] = phase_pipeline(levels)
+    detail["ladder"] = phase_ladder(rng)
+    in_proc = dict(kernel_lib.LAUNCHES)
+    servers = [detail[p]["server_stats"]["kernel_launches"]
+               for p in ("server", "ladder")]
+    launches = {k: in_proc[k] + sum(s.get(k, 0) for s in servers)
+                for k in in_proc}
     log(f"[main path] kernel launches {launches} (in-process {in_proc}, "
-        f"server {server})")
+        f"servers {servers})")
     for k, n in launches.items():
         check(n > 0, f"kernel {k} was not launched on the main path")
 
     errs = {"ed_parse_packets": max(detail["k1"].values()),
-            "ed_relay_window": max(detail["window"].values())}
-    timed = phase_kernels(rng, launches, errs)
+            "ed_relay_window": max(detail["window"].values()),
+            "ed_decode_blocks": max(v["max_abs_err"]
+                                    for v in detail["k2"].values())}
+    timed = phase_kernels(rng, launches, errs, levels, qt)
     detail["kernels"] = timed
     kernels = [{k: v for k, v in t.items() if not k.startswith("_")}
                for t in timed]
     for k in timed:
+        lib = ("" if k["library_ms"] is None
+               else f", library {k['library_ms']:.6f} ms")
         log(f"[kernels] {k['name']}: {k['ms']:.6f} ms (plain "
             f"{k['plain_ms']:.6f} ms, bound {k['bound_ms']:.6f} ms by "
-            f"{k['bound_by']}), wrapper {k['_wrapper_graph_ms']:.6f} ms in a "
-            f"graph, {k['_wrapper_call_ms']:.6f} ms per direct call; "
-            f"{k['launches']} main-path launches")
+            f"{k['bound_by']}{lib}), wrapper {k['_wrapper_graph_ms']:.6f} "
+            f"ms in a graph, {k['_wrapper_call_ms']:.6f} ms per direct "
+            f"call; {k['launches']} main-path launches")
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(detail, f, indent=1, default=str)
 

@@ -3,9 +3,13 @@
 The live RTP relay runs here on an NVIDIA H100: the megabatch scheduler
 stages every stream's new ring packets into fused ``[B, P, 96+4]`` rows,
 and one hand-written CUDA kernel per shape bucket (``csrc/relay_kernels.cu``)
-parses them and emits the per-subscriber affine rewrite.  Every plain
-PyTorch function beside a kernel computes the same result and is what a
-CPU tensor runs.
+parses them and emits the per-subscriber affine rewrite.  The config-5
+transcode path runs here too: ``models.TranscodePipeline`` requantizes
+coefficient blocks into every ladder rung and decodes pixels with the
+hand-written K2 (``csrc/transform_kernels.cu``), and the live MJPEG ladder
+(``models.mjpeg_ladder``) is started over REST.  Every plain PyTorch
+function beside a kernel computes the same result and is what a CPU tensor
+runs.
 
 Device rule: every entry point takes ``device``; the default is ``"cuda"``
 and it raises when no card is present.  Callers that want the CPU ask for

@@ -1,8 +1,12 @@
-"""CLI entry: ``python -m easydarwin_tpu_torch [-p PORT] [--device cuda|cpu]``.
+"""CLI entry: ``python -m easydarwin_tpu_torch [-p PORT] [--service-port N]
+[--device cuda|cpu]``.
 
 Serves the live relay: pushers ANNOUNCE/SETUP/RECORD over TCP-interleaved
-RTSP, players DESCRIBE/SETUP/PLAY.  Prints one ``listening:`` line once the
-listener is bound (port 0 picks a free port) and runs until SIGINT/SIGTERM.
+RTSP, players DESCRIBE/SETUP/PLAY.  The REST API on the service port
+starts MJPEG transcode ladders (``/api/v1/starttranscode?path=/cam&
+rungs=40,20s2``) whose rungs play as ``/cam@q40`` and ``/cam@q20s2``.
+Prints one ``listening:`` line once both listeners are bound (port 0 picks
+a free port) and runs until SIGINT/SIGTERM.
 """
 
 from __future__ import annotations
@@ -18,24 +22,30 @@ from .server import ServerConfig, StreamingServer
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="easydarwin_tpu_torch",
-        description="RTSP live relay with its device pass on a CUDA card")
+        description="RTSP live relay and MJPEG transcode ladder with their "
+                    "device work on a CUDA card")
     p.add_argument("-p", "--rtsp-port", type=int, default=10554,
                    help="RTSP listen port (0 = any free port)")
+    p.add_argument("--service-port", type=int, default=10008,
+                   help="REST API listen port (0 = any free port)")
     p.add_argument("--bind-ip", default="0.0.0.0", help="bind address")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
-                   help="where the megabatch pass runs (default: cuda)")
+                   help="where the megabatch pass and the transcode ladder "
+                        "run (default: cuda)")
     p.add_argument("--reflect-interval-ms", type=int, default=20,
                    help="pump tick when no ingest wakes it")
     return p
 
 
 async def amain(args) -> int:
-    cfg = ServerConfig(rtsp_port=args.rtsp_port, bind_ip=args.bind_ip,
+    cfg = ServerConfig(rtsp_port=args.rtsp_port,
+                       service_port=args.service_port, bind_ip=args.bind_ip,
                        reflect_interval_ms=args.reflect_interval_ms)
     app = StreamingServer(cfg, device=args.device)
     await app.start()
     print(f"easydarwin-tpu-torch listening: rtsp://{cfg.bind_ip}:"
-          f"{app.rtsp.port} device={app.device}", flush=True)
+          f"{app.rtsp.port} service http://{cfg.bind_ip}:{app.rest.port}"
+          f"/api/v1 device={app.device}", flush=True)
     stop = asyncio.Event()
     loop = asyncio.get_running_loop()
     for sig in (signal.SIGINT, signal.SIGTERM):

@@ -1,8 +1,9 @@
-"""Carry relay state from the reference's numpy arrays into the port.
+"""Carry state from the reference's numpy arrays into the port.
 
 The system has no learned weights: what two implementations must share to
-compute on the same state is the subscriber rewrite state and the packet
-ring's contents.  Both arrive here as plain numpy arrays.
+compute on the same state is the subscriber rewrite state, the packet
+ring's contents and, for the transcode ladder, its quant tables.  All
+arrive here as plain numpy arrays.
 """
 
 from __future__ import annotations
@@ -54,3 +55,25 @@ def ring_from_arrays(data, length, arrival, seq, timestamp, flags,
     ring.head = int(head)
     ring.tail = int(tail)
     return ring
+
+
+def transcode_tables_from_numpy(qt_in, qt_rungs,
+                                device: str | torch.device = "cuda"
+                                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The transcode pipeline's quant tables (its parameters): the source
+    table ``[64]`` and the rung tables ``[R, 64]``, as the reference's
+    ``quality_table`` gives them → f32 tensors on ``device``."""
+    dev = resolve_device(device)
+    qi = np.asarray(qt_in)
+    qr = np.asarray(qt_rungs)
+    if qi.shape != (64,):
+        raise ValueError(f"qt_in must be [64], got {qi.shape}")
+    if qr.ndim != 2 or qr.shape[1] != 64 or qr.shape[0] < 1:
+        raise ValueError(f"qt_rungs must be [R>=1, 64], got {qr.shape}")
+    for name, a in (("qt_in", qi), ("qt_rungs", qr)):
+        if a.dtype.kind not in "fiu":
+            raise TypeError(f"{name} must be numeric, got {a.dtype}")
+        if not np.all(np.isfinite(a)) or np.any(a <= 0):
+            raise ValueError(f"{name} entries must be finite and positive")
+    return (torch.from_numpy(qi.astype(np.float32)).to(dev),
+            torch.from_numpy(np.array(qr, np.float32)).to(dev))

@@ -8,6 +8,9 @@ beside them.
                                  the megabatch window pass; on the card the
                                  fused kernel ``ed_relay_window``
     staging.gather_window        host packing of ring windows into rows
+    transform                    DCT/quant/zigzag/downscale math of the
+                                 transcode ladder; ``decode_blocks`` is K2
+    transform_kernel             K2 on the card (``ed_decode_blocks``)
 
 A wrapper runs its kernel on a CUDA tensor and its plain version on a CPU
 tensor; on a CUDA tensor it never falls back.

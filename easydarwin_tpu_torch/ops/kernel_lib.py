@@ -2,10 +2,12 @@
 
 The library is compiled at first use with ``nvcc`` for ``sm_90a`` into
 ``build/easydarwin_tpu_torch/`` beside the package (a directory git
-ignores), under a name that carries the source's hash, so an edited source
-is rebuilt and an unchanged one is loaded as it is.  It has a plain C
-interface bound with ``ctypes``; no PyTorch header is compiled, which keeps
-the build to seconds.
+ignores), under a name that carries the sources' hash, so an edited source
+is rebuilt and an unchanged one is loaded as it is.  Each source is
+compiled by its own ``nvcc``, all started together, and one more call
+links the objects into one shared library.  It has a plain C interface
+bound with ``ctypes``; no PyTorch header is compiled, which keeps the
+build to seconds.
 
 A failed build or a failed launch raises; nothing here falls back to the
 plain PyTorch versions.  Each wrapper adds one to its entry in
@@ -27,13 +29,17 @@ from pathlib import Path
 import torch
 
 _PKG = Path(__file__).resolve().parents[1]
-SOURCES = (_PKG / "csrc" / "relay_kernels.cu",)
+SOURCES = (_PKG / "csrc" / "relay_kernels.cu",
+           _PKG / "csrc" / "transform_kernels.cu")
 BUILD_DIR = _PKG.parent / "build" / "easydarwin_tpu_torch"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+GENCODE = ("-gencode", "arch=compute_90a,code=sm_90a")
+#: compile flags of every source (no fast-math: K2 rounds like jnp.round)
+NVCC_FLAGS = (*GENCODE, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
 
 #: kernel name → launches made by its wrapper in this process
-LAUNCHES = {"ed_parse_packets": 0, "ed_relay_window": 0}
+LAUNCHES = {"ed_parse_packets": 0, "ed_relay_window": 0,
+            "ed_decode_blocks": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -42,13 +48,15 @@ _SIGNATURES = {
     "ed_parse_packets": (_P, _I, _I, _P, _P, _P, _P),
     # window, n_streams, n_pkts, row_stride, state, n_subs, out, stream
     "ed_relay_window": (_P, _I, _I, _I, _P, _I, _P, _P),
+    # levels, n_blocks, qtable, inv, out, stream
+    "ed_decode_blocks": (_P, _I, _P, _P, _P, _P),
 }
 
 
 @dataclass
 class BuildResult:
     path: Path
-    seconds: float          # nvcc wall time; 0.0 when an earlier build was reused
+    seconds: float          # build wall time; 0.0 when an earlier build was reused
     log: str                # nvcc's output (ptxas register/spill report)
 
 
@@ -90,20 +98,33 @@ def build() -> BuildResult:
     if out.exists():
         _BUILD = BuildResult(out, 0.0, "")
         return _BUILD
-    # compile to a private name and rename: two processes building at
-    # once (a test and the server it started) never load a torn file
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, SOURCES)]
+    nvcc = _nvcc()
+    # private names and a final rename: two processes building at once (a
+    # test and the server it started) never load a torn file
+    work = Path(tempfile.mkdtemp(dir=BUILD_DIR))
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
-    os.replace(tmp, out)
-    _BUILD = BuildResult(out, seconds, log)
+    try:
+        objs = [work / f"{src.stem}.o" for src in SOURCES]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj),
+                                   str(src)], stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for src, obj in zip(SOURCES, objs)]
+        outputs = [p.communicate()[0] for p in procs]
+        log = "".join(outputs)
+        failed = [src.name for src, p in zip(SOURCES, procs) if p.returncode]
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n{log}")
+        tmp = work / out.name
+        link = subprocess.run([nvcc, "-shared", *GENCODE, "-o", str(tmp),
+                               *map(str, objs)],
+                              capture_output=True, text=True)
+        log += link.stdout + link.stderr
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{log}")
+        os.replace(tmp, out)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    _BUILD = BuildResult(out, time.perf_counter() - t0, log)
     return _BUILD
 
 

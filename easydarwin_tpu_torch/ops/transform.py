@@ -1,0 +1,214 @@
+"""Transform-domain ops for the transcode ladder (BASELINE config 5).
+
+The 8×8 DCT/IDCT is ONE batched ``[N, 64] @ [64, 64]`` product through the
+Kronecker identity ``vec(Cᵀ·X·C) = (Cᵀ ⊗ Cᵀ)·vec(X)``; quantization follows
+the JPEG convention (base table × quality scale).  Entropy coding stays on
+the host (``protocol.jpeg_entropy``); the device owns the dense
+transform/quant math.
+
+``decode_blocks`` (dequant → IDCT → +128 → round → clip → uint8) is kernel
+K2: on a CUDA tensor it launches the hand-written ``ed_decode_blocks``
+(``ops.transform_kernel``); on a CPU tensor it runs
+``decode_blocks_plain``, the same function in plain PyTorch.
+
+Every product here is fp32.  ``torch.round`` rounds half to even, as
+``jnp.round`` does.  The downscale ``[N, 256] @ [256, 64]`` is a plain
+``torch.matmul`` (the JAX package left it to XLA at
+``precision="highest"``); the port never enables TF32, so it runs in full
+fp32 on the card too.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+# ----------------------------------------------------------------- DCT bases
+
+
+def dct_matrix() -> np.ndarray:
+    """Orthonormal 8-point DCT-II matrix C: y = C @ x."""
+    C = np.zeros((8, 8), dtype=np.float64)
+    for k in range(8):
+        a = np.sqrt(1 / 8) if k == 0 else np.sqrt(2 / 8)
+        for n in range(8):
+            C[k, n] = a * np.cos(np.pi * (2 * n + 1) * k / 16)
+    return C
+
+
+@functools.lru_cache(maxsize=None)
+def _kron_mats() -> tuple[np.ndarray, np.ndarray]:
+    """(forward, inverse) 64×64 operators on row-major vec'd blocks.
+
+    forward: vec(C X Cᵀ) = (C ⊗ C) vec(X)   (2-D DCT of spatial block X)
+    inverse: vec(Cᵀ Y C) = (Cᵀ ⊗ Cᵀ) vec(Y)
+    """
+    C = dct_matrix()
+    fwd = np.kron(C, C)
+    inv = np.kron(C.T, C.T)
+    return (fwd.astype(np.float32), inv.astype(np.float32))
+
+
+@functools.lru_cache(maxsize=None)
+def operator(name: str, device: torch.device) -> torch.Tensor:
+    """A fixed fp32 operator as a tensor on ``device``, made once per
+    device: ``"fwd"``/``"inv"`` (64×64) or ``"down2x"`` (256×64)."""
+    arr = {"fwd": lambda: _kron_mats()[0], "inv": lambda: _kron_mats()[1],
+           "down2x": downscale2x_operator}[name]()
+    return torch.from_numpy(np.ascontiguousarray(arr)).to(device)
+
+
+def dct_blocks(x: torch.Tensor) -> torch.Tensor:
+    """[N, 64] spatial → [N, 64] coefficients (row-major 8×8 blocks)."""
+    return x @ operator("fwd", x.device).T
+
+
+def idct_blocks(y: torch.Tensor) -> torch.Tensor:
+    """[N, 64] coefficients → [N, 64] spatial."""
+    return y @ operator("inv", y.device).T
+
+
+# -------------------------------------------------------------- quantization
+
+#: JPEG Annex K luminance base table, row-major.
+JPEG_LUMA_QT = np.array([
+    16, 11, 10, 16, 24, 40, 51, 61,
+    12, 12, 14, 19, 26, 58, 60, 55,
+    14, 13, 16, 24, 40, 57, 69, 56,
+    14, 17, 22, 29, 51, 87, 80, 62,
+    18, 22, 37, 56, 68, 109, 103, 77,
+    24, 35, 55, 64, 81, 104, 113, 92,
+    49, 64, 78, 87, 103, 121, 120, 101,
+    72, 92, 95, 98, 112, 100, 103, 99], dtype=np.float32)
+
+
+def quality_table(quality: int) -> np.ndarray:
+    """JPEG quality (1-100) → effective quant table [64]."""
+    quality = int(np.clip(quality, 1, 100))
+    scale = 5000 / quality if quality < 50 else 200 - 2 * quality
+    qt = np.floor((JPEG_LUMA_QT * scale + 50) / 100)
+    return np.clip(qt, 1, 255).astype(np.float32)
+
+
+def quantize(coef: torch.Tensor, qtable: torch.Tensor) -> torch.Tensor:
+    """[N,64] float coefficients → int32 levels (round half to even)."""
+    return torch.round(coef / qtable[None, :]).to(torch.int32)
+
+
+def dequantize(levels: torch.Tensor, qtable: torch.Tensor) -> torch.Tensor:
+    return levels.to(torch.float32) * qtable[None, :]
+
+
+# ------------------------------------------------------------------- zigzag
+
+@functools.lru_cache(maxsize=None)
+def zigzag_order() -> np.ndarray:
+    """[64] indices mapping raster order → zigzag scan order."""
+    # odd diagonals run down-left (i ascending), even ones up-right
+    order = sorted(((i + j, i if (i + j) % 2 else j, i, j)
+                    for i in range(8) for j in range(8)))
+    return np.array([i * 8 + j for (_, _, i, j) in order], dtype=np.int32)
+
+
+def to_zigzag(levels: torch.Tensor) -> torch.Tensor:
+    idx = torch.from_numpy(zigzag_order().astype(np.int64))
+    return levels[:, idx.to(levels.device)]
+
+
+def from_zigzag(z: torch.Tensor) -> torch.Tensor:
+    idx = torch.from_numpy(np.argsort(zigzag_order()).astype(np.int64))
+    return z[:, idx.to(z.device)]
+
+
+def to_zigzag_np(natural: np.ndarray) -> np.ndarray:
+    """Host-side ``to_zigzag`` ([..., 64] natural → zigzag) — the entropy
+    codec and ladder reorder on the host, off the device round-trip."""
+    return natural[..., zigzag_order()]
+
+
+def from_zigzag_np(z: np.ndarray) -> np.ndarray:
+    out = np.empty_like(z)
+    out[..., zigzag_order()] = z
+    return out
+
+
+# ----------------------------------------------------- encode / decode paths
+
+def encode_blocks(pixels: torch.Tensor, qtable: torch.Tensor) -> torch.Tensor:
+    """uint8 [N,64] spatial blocks → int32 quantized coefficient levels."""
+    x = pixels.to(torch.float32) - 128.0
+    return quantize(dct_blocks(x), qtable)
+
+
+def decode_blocks_plain(levels: torch.Tensor,
+                        qtable: torch.Tensor) -> torch.Tensor:
+    """K2 in plain PyTorch: int32 [N,64] levels · f32 qtable ([64] or
+    [1,64]) → uint8 [N,64] spatial blocks (dequant+IDCT+shift+clip)."""
+    x = idct_blocks(dequantize(levels, qtable.reshape(64))) + 128.0
+    return torch.clamp(torch.round(x), 0, 255).to(torch.uint8)
+
+
+def decode_blocks(levels: torch.Tensor, qtable: torch.Tensor) -> torch.Tensor:
+    """int32 levels → uint8 [N,64] spatial blocks.  A CUDA tensor launches
+    ``ed_decode_blocks``; a CPU tensor runs ``decode_blocks_plain``."""
+    from .transform_kernel import decode_blocks_kernel  # imports this module
+    return decode_blocks_kernel(levels, qtable)
+
+
+def requantize(levels: torch.Tensor, qtable_in: torch.Tensor,
+               qtable_out: torch.Tensor) -> torch.Tensor:
+    """Transform-domain bitrate step-down: dequant with the source table,
+    requant with a coarser one (no IDCT round-trip)."""
+    return quantize(dequantize(levels, qtable_in), qtable_out)
+
+
+def transcode_ladder(levels: torch.Tensor, qtable_in: torch.Tensor,
+                     qualities: tuple[int, ...]) -> list[torch.Tensor]:
+    """One decode-side coefficient block set → N ladder rungs."""
+    dev = levels.device
+    return [requantize(levels, qtable_in,
+                       torch.from_numpy(quality_table(q)).to(dev))
+            for q in qualities]
+
+
+# ------------------------------------------------- DCT-domain 2x downscale
+
+@functools.lru_cache(maxsize=None)
+def downscale2x_operator() -> np.ndarray:
+    """[256, 64] linear map: a 2×2 quad of dequantized 8×8 DCT blocks →
+    the 8×8 DCT block of the half-resolution tile (DCT ∘ avgpool2 ∘ IDCT
+    over the 16×16 tile the quad reconstructs).  Quad layout is row-major:
+    [top-left, top-right, bottom-left, bottom-right], each block vec'd
+    row-major (natural order, not zigzag)."""
+    _, inv = _kron_mats()                      # [64, 64] coeff → spatial
+    eye = np.eye(256, dtype=np.float64)
+    quads = eye.reshape(256, 2, 2, 8, 8)       # [in, qy, qx, 8, 8]
+    blocks = quads.reshape(256, 4, 64) @ inv.astype(np.float64).T
+    blocks = blocks.reshape(256, 2, 2, 8, 8)
+    tile = np.zeros((256, 16, 16))
+    for qy in range(2):
+        for qx in range(2):
+            tile[:, qy * 8:qy * 8 + 8, qx * 8:qx * 8 + 8] = \
+                blocks[:, qy, qx]
+    pooled = tile.reshape(256, 8, 2, 8, 2).mean(axis=(2, 4))
+    fwd, _ = _kron_mats()
+    out = pooled.reshape(256, 64) @ fwd.astype(np.float64).T
+    return out.astype(np.float32)              # [256, 64]
+
+
+def downscale2x_blocks(quads: torch.Tensor) -> torch.Tensor:
+    """[N, 256] dequantized coefficient quads → [N, 64] half-res
+    coefficients (natural order)."""
+    return torch.matmul(quads, operator("down2x", quads.device))
+
+
+def requantize_downscale2x(quads: torch.Tensor, qtable_in: torch.Tensor,
+                           qtable_out: torch.Tensor) -> torch.Tensor:
+    """Quantized quad levels [N, 4, 64] (or [N, 256]) → quantized
+    half-res levels [N, 64]: dequant (input table broadcast over the 4
+    blocks), one [N, 256] @ [256, 64] fp32 product, requant."""
+    deq = quads.reshape(-1, 4, 64).to(torch.float32) * qtable_in[None, None, :]
+    out = downscale2x_blocks(deq.reshape(-1, 256))
+    return torch.round(out / qtable_out[None, :]).to(torch.int32)

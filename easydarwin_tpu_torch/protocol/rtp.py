@@ -13,11 +13,17 @@ import struct
 from dataclasses import dataclass
 
 FIXED_HEADER_LEN = 12
+RTP_VERSION = 2
+
+
+class RtpError(ValueError):
+    pass
 
 
 @dataclass
 class RtpPacket:
-    """An RTP packet to build (no padding, no header extension)."""
+    """An RTP packet to build (no padding, no header extension), or one
+    parsed from the wire (``parse`` strips the extension and padding)."""
 
     payload_type: int
     seq: int
@@ -37,6 +43,34 @@ class RtpPacket:
             out += struct.pack("!I", c & 0xFFFFFFFF)
         out += self.payload
         return bytes(out)
+
+    @classmethod
+    def parse(cls, data: bytes) -> "RtpPacket":
+        if len(data) < FIXED_HEADER_LEN:
+            raise RtpError(f"short RTP packet: {len(data)} bytes")
+        b0, b1, seq, ts, ssrc = struct.unpack_from("!BBHII", data)
+        if b0 >> 6 != RTP_VERSION:
+            raise RtpError(f"bad RTP version {b0 >> 6}")
+        cc = b0 & 0x0F
+        off = FIXED_HEADER_LEN + 4 * cc
+        if len(data) < off:
+            raise RtpError("truncated CSRC list")
+        csrcs = struct.unpack_from(f"!{cc}I", data, FIXED_HEADER_LEN) if cc else ()
+        if b0 & 0x10:
+            if len(data) < off + 4:
+                raise RtpError("truncated extension header")
+            _profile, words = struct.unpack_from("!HH", data, off)
+            if len(data) < off + 4 + 4 * words:
+                raise RtpError("truncated extension data")
+            off += 4 + 4 * words
+        payload = data[off:]
+        if b0 & 0x20:
+            if not payload or payload[-1] == 0 or payload[-1] > len(payload):
+                raise RtpError("bad padding")
+            payload = payload[:-payload[-1]]
+        return cls(payload_type=b1 & 0x7F, seq=seq, timestamp=ts, ssrc=ssrc,
+                   marker=bool(b1 & 0x80), csrcs=tuple(csrcs),
+                   payload=payload)
 
 
 def header_size_cc_only(data: bytes) -> int:

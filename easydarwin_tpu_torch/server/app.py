@@ -1,4 +1,5 @@
-"""Server assembly: session registry → RTSP listener → relay pump.
+"""Server assembly: session registry → RTSP listener + REST API → relay
+pump, and the MJPEG transcode service the REST API starts ladders on.
 
 The pump is one asyncio task, woken by ingest and ticking every
 ``reflect_interval_ms``.  Each wake runs the live relay for every stream
@@ -11,7 +12,8 @@ that has outputs:
 3. ``MegabatchScheduler.end_wake`` — stage and dispatch the next pass (one
    ``ed_relay_window`` launch per shape bucket on the card).
 
-Once a second the pump evicts old packets and closes idle connections.
+Once a second the pump evicts old packets, closes idle connections and
+retires transcode ladders whose source went away.
 """
 
 from __future__ import annotations
@@ -24,11 +26,13 @@ import traceback
 import torch
 
 from .. import resolve_device
+from ..models.mjpeg_ladder import MjpegTranscodeService
 from ..ops import kernel_lib
 from ..relay.fanout import FanoutEngine
 from ..relay.megabatch import MegabatchScheduler
 from ..relay.session import SessionRegistry, now_ms
 from .config import ServerConfig
+from .rest import RestApi
 from .rtsp import RtspServer
 
 
@@ -41,6 +45,10 @@ class StreamingServer:
         self.rtsp = RtspServer(self.config, self.registry,
                                on_pump_wake=self._wake)
         self.megabatch = MegabatchScheduler(device=self.device)
+        self.transcodes = MjpegTranscodeService(
+            self.registry, on_frame=lambda _p: self._wake(),
+            device=self.device)
+        self.rest = RestApi(self.config, self)
         self._engines: dict[int, FanoutEngine] = {}
         self._pump_event = asyncio.Event()
         self._pump_task: asyncio.Task | None = None
@@ -51,6 +59,7 @@ class StreamingServer:
 
     async def start(self) -> None:
         await self.rtsp.start()
+        await self.rest.start()
         self._running = True
         self._pump_task = asyncio.create_task(self._pump_loop())
 
@@ -60,6 +69,8 @@ class StreamingServer:
             self._pump_event.set()
             await self._pump_task
             self._pump_task = None
+        self.transcodes.stop_all()
+        await self.rest.stop()
         await self.rtsp.stop()
         self.megabatch.drain()
 
@@ -121,6 +132,7 @@ class StreamingServer:
                 for sess in list(self.registry.sessions.values()):
                     sess.prune(t)
                 self.rtsp.sweep_timeouts()
+                self.transcodes.sweep()
 
     def stats(self) -> dict:
         return {"wakes": self.wakes, "packets_in": self.rtsp.packets_in,

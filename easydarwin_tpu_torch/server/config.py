@@ -1,4 +1,4 @@
-"""Server configuration for the live-relay path."""
+"""Server configuration: the live relay and the REST service port."""
 
 from __future__ import annotations
 
@@ -10,6 +10,7 @@ from ..relay.stream import StreamSettings
 @dataclass
 class ServerConfig:
     rtsp_port: int = 10554
+    service_port: int = 10008          # REST API (service_lan_port)
     bind_ip: str = "0.0.0.0"
     reflect_interval_ms: int = 20      # pump tick when no ingest wakes it
     rtsp_timeout_sec: int = 120        # idle player connection kill

@@ -1,0 +1,121 @@
+"""JSON REST management API on the service port, trimmed to the
+transcode ladder.
+
+A tiny HTTP/1.1 keep-alive server (no framework): request line, headers
+and an optional body, a ``/api/v1/<cmd>`` router, and answers in the
+EasyProtocol envelope (``cluster.protocol.ack``).  Commands:
+``starttranscode``, ``stoptranscode`` and ``gettranscodes``; any other
+command answers the 404 envelope.  There is no auth (the reference's is
+off by default).
+"""
+
+from __future__ import annotations
+
+import asyncio
+import json
+from urllib.parse import parse_qs, urlparse
+
+from ..cluster import protocol as ep
+from .config import ServerConfig
+
+SERVER_NAME = "easydarwin-tpu-torch/0.1"
+
+
+class RestApi:
+    def __init__(self, config: ServerConfig, app):
+        self.config = config
+        self.app = app                      # StreamingServer
+        self._server: asyncio.AbstractServer | None = None
+        self.port: int | None = None
+
+    async def start(self) -> None:
+        self._server = await asyncio.start_server(
+            self._on_connection, self.config.bind_ip,
+            self.config.service_port)
+        self.port = self._server.sockets[0].getsockname()[1]
+
+    async def stop(self) -> None:
+        if self._server is not None:
+            self._server.close()
+            await self._server.wait_closed()
+
+    async def _on_connection(self, reader: asyncio.StreamReader,
+                             writer: asyncio.StreamWriter) -> None:
+        try:
+            while True:
+                head = await reader.readuntil(b"\r\n\r\n")
+                lines = head.decode("latin-1").split("\r\n")
+                try:
+                    method, target, _version = lines[0].split(None, 2)
+                except ValueError:
+                    break
+                headers = {}
+                for ln in lines[1:]:
+                    k, sep, v = ln.partition(":")
+                    if sep:
+                        headers[k.strip().lower()] = v.strip()
+                body = b""
+                clen = int(headers.get("content-length", "0") or 0)
+                if clen:
+                    body = await reader.readexactly(clen)
+                status, payload = await self.route(method, target, headers,
+                                                   body)
+                data = payload.encode()
+                reason = "OK" if status == 200 else "Error"
+                writer.write((
+                    f"HTTP/1.1 {status} {reason}\r\n"
+                    f"Server: {SERVER_NAME}\r\n"
+                    "Content-Type: application/json\r\n"
+                    f"Content-Length: {len(data)}\r\n"
+                    "Connection: keep-alive\r\n\r\n").encode() + data)
+                await writer.drain()
+        except (asyncio.IncompleteReadError, ConnectionError,
+                asyncio.LimitOverrunError):
+            pass
+        finally:
+            writer.close()
+
+    async def route(self, method: str, target: str, headers: dict,
+                    body: bytes) -> tuple[int, str]:
+        url = urlparse(target)
+        path = url.path.rstrip("/").lower()
+        params = parse_qs(url.query)
+        if not path.startswith("/api/v1/"):
+            return 404, json.dumps({"error": "not found"})
+        fn = getattr(self, f"_cmd_{path[len('/api/v1/'):]}", None)
+        if fn is None:
+            return 404, ep.ack(ep.MSG_SC_EXCEPTION, error=ep.ERR_NOT_FOUND)
+        return fn(params, body)
+
+    def _cmd_starttranscode(self, params: dict,
+                            body: bytes) -> tuple[int, str]:
+        """Start an MJPEG bitrate ladder on a live path; the rungs appear
+        as {path}@q{Q}[s2] live streams."""
+        path = params.get("path", [""])[0]
+        rungs = tuple(q for q in
+                      params.get("rungs", ["40,20"])[0].split(",") if q)
+        try:
+            out = self.app.transcodes.start(path, rungs)
+        except KeyError:
+            return 404, ep.ack(ep.MSG_SC_EXCEPTION, error=ep.ERR_NOT_FOUND)
+        except ValueError as e:
+            return 400, ep.ack(ep.MSG_SC_EXCEPTION, error=ep.ERR_BAD_REQUEST,
+                               body={"Detail": str(e)})
+        return 200, ep.ack(ep.MSG_SC_SERVER_INFO_ACK, body={
+            "Transcode": out.source_path,
+            "Rungs": [r.session.path for r in out.rungs]})
+
+    def _cmd_stoptranscode(self, params: dict,
+                           body: bytes) -> tuple[int, str]:
+        path = params.get("path", [""])[0]
+        try:
+            st = self.app.transcodes.stop(path)
+        except KeyError:
+            return 404, ep.ack(ep.MSG_SC_EXCEPTION, error=ep.ERR_NOT_FOUND)
+        return 200, ep.ack(ep.MSG_SC_SERVER_INFO_ACK, body={
+            "Transcode": st["path"], "FramesIn": str(st["frames_in"])})
+
+    def _cmd_gettranscodes(self, params: dict,
+                           body: bytes) -> tuple[int, str]:
+        return 200, ep.ack(ep.MSG_SC_SERVER_INFO_ACK, body={
+            "Transcodes": self.app.transcodes.list_ladders()})

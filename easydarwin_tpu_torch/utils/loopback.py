@@ -8,9 +8,9 @@ keyframe on, the payload is bit-equal from byte 12, seq is contiguous from
 the RTP-Info seq, ts is offset by the RTP-Info rtptime, and each player
 sees one SSRC.  Any failure raises ``AssertionError``.
 
-``serve_and_check`` starts ``python -m easydarwin_tpu_torch`` on a free
-port, runs ``push_play`` against it, stops it with SIGTERM and checks the
-stats it prints at exit.
+``serve_and_check`` starts ``python -m easydarwin_tpu_torch`` on free
+ports (``CliServer``), runs ``push_play`` against it, stops it with
+SIGTERM and checks the stats it prints at exit.
 """
 
 from __future__ import annotations
@@ -166,32 +166,62 @@ async def push_play(port: int, rng: np.random.Generator, *, n_push: int,
             "packets_per_player": len(sent[0])}
 
 
+class CliServer:
+    """``python -m easydarwin_tpu_torch`` on free loopback ports, as an
+    async context manager: ``rtsp_port`` and ``rest_port`` are set once
+    it listens; ``stop()`` sends SIGTERM and returns the stats it prints
+    at exit (a server still running at exit is killed)."""
+
+    def __init__(self, device: str):
+        self.device = device
+        self.proc = None
+        self.rtsp_port = self.rest_port = None
+
+    async def __aenter__(self) -> "CliServer":
+        self.proc = await asyncio.create_subprocess_exec(
+            sys.executable, "-m", "easydarwin_tpu_torch", "-p", "0",
+            "--service-port", "0", "--bind-ip", "127.0.0.1",
+            "--device", self.device,
+            cwd=Path(__file__).resolve().parents[2],
+            stdout=asyncio.subprocess.PIPE)
+        try:
+            line = (await asyncio.wait_for(self.proc.stdout.readline(),
+                                           60)).decode()
+            m = re.search(r"listening: rtsp://[\d.]+:(\d+) service "
+                          r"http://[\d.]+:(\d+)", line)
+            check(m is not None, f"server did not start: {line!r}")
+        except BaseException:
+            await self.__aexit__(None, None, None)
+            raise
+        self.rtsp_port, self.rest_port = int(m.group(1)), int(m.group(2))
+        return self
+
+    async def stop(self) -> dict:
+        """SIGTERM, then the exit stats; pump errors and oracle mismatches
+        must be 0."""
+        self.proc.send_signal(signal.SIGTERM)
+        out, _ = await asyncio.wait_for(self.proc.communicate(), 60)
+        check(self.proc.returncode == 0,
+              f"server exited {self.proc.returncode}")
+        stats = json.loads(out.decode().split("stats ", 1)[1])
+        check(stats["pump_errors"] == 0, f"server pump errors: {stats}")
+        check(stats["megabatch"]["mismatches"] == 0,
+              f"server scheduler mismatches: {stats}")
+        return stats
+
+    async def __aexit__(self, *exc) -> None:
+        if self.proc is not None and self.proc.returncode is None:
+            self.proc.kill()
+            await self.proc.wait()
+
+
 async def serve_and_check(device: str, rng: np.random.Generator, *,
                           n_push: int, n_play: int,
                           deadline_s: float = 20.0) -> dict:
     """``push_play`` against the CLI server on ``device``; adds the
     server's exit stats (pump errors and oracle mismatches must be 0)."""
-    proc = await asyncio.create_subprocess_exec(
-        sys.executable, "-m", "easydarwin_tpu_torch", "-p", "0",
-        "--bind-ip", "127.0.0.1", "--device", device,
-        cwd=Path(__file__).resolve().parents[2],
-        stdout=asyncio.subprocess.PIPE)
-    try:
-        line = (await asyncio.wait_for(proc.stdout.readline(), 60)).decode()
-        m = re.search(r"listening: rtsp://[\d.]+:(\d+)", line)
-        check(m is not None, f"server did not start: {line!r}")
-        res = await push_play(int(m.group(1)), rng, n_push=n_push,
+    async with CliServer(device) as srv:
+        res = await push_play(srv.rtsp_port, rng, n_push=n_push,
                               n_play=n_play, deadline_s=deadline_s)
-        proc.send_signal(signal.SIGTERM)
-        out, _ = await asyncio.wait_for(proc.communicate(), 60)
-        check(proc.returncode == 0, f"server exited {proc.returncode}")
-        stats = json.loads(out.decode().split("stats ", 1)[1])
-        check(stats["pump_errors"] == 0, f"server pump errors: {stats}")
-        check(stats["megabatch"]["mismatches"] == 0,
-              f"server scheduler mismatches: {stats}")
-        res["server_stats"] = stats
+        res["server_stats"] = await srv.stop()
         return res
-    finally:
-        if proc.returncode is None:
-            proc.kill()
-            await proc.wait()

@@ -3,8 +3,9 @@
 * a loopback push → play through ``python -m easydarwin_tpu_torch
   --device cpu``: 1 source × 2 interleaved TCP players, every relayed
   packet held to what was pushed (``utils.loopback``);
-* importing the port, its server and its CLI leaves ``jax`` and
-  ``easydarwin_tpu`` out of ``sys.modules``;
+* importing the port, its server, its CLI, the transcode modules and
+  the REST API leaves ``jax`` and ``easydarwin_tpu`` out of
+  ``sys.modules``;
 * the CLI's device defaults to the card, and without one it raises.
 """
 
@@ -33,7 +34,8 @@ async def test_loopback_push_play_through_the_cli_on_cpu():
     assert stats["megabatch"]["installs"] > 0
     # CPU tensors take the plain versions: no kernel was launched
     assert stats["kernel_launches"] == {"ed_parse_packets": 0,
-                                        "ed_relay_window": 0}
+                                        "ed_relay_window": 0,
+                                        "ed_decode_blocks": 0}
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
@@ -41,7 +43,12 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "import easydarwin_tpu_torch, easydarwin_tpu_torch.__main__\n"
             "import easydarwin_tpu_torch.convert, easydarwin_tpu_torch.server\n"
             "import easydarwin_tpu_torch.ops.parse_kernel\n"
+            "import easydarwin_tpu_torch.ops.transform_kernel\n"
+            "import easydarwin_tpu_torch.models.transcode_pipeline\n"
+            "import easydarwin_tpu_torch.models.mjpeg_ladder\n"
+            "import easydarwin_tpu_torch.server.rest\n"
             "import easydarwin_tpu_torch.utils.loopback\n"
+            "import easydarwin_tpu_torch.utils.mjpeg_loopback\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m.split('.')[0] in ('jax', 'jaxlib', "
             "'easydarwin_tpu'))\n"

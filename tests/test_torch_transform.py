@@ -1,0 +1,246 @@
+"""The port's transform ops and transcode pipeline ≡ the JAX package's.
+
+The same numpy inputs, made from a seed, go through
+``easydarwin_tpu.ops.transform`` (K2 as ``decode_blocks_pallas`` in
+interpret mode) and ``easydarwin_tpu_torch.ops.transform`` on the CPU.
+Tolerances, each with its reason:
+
+* tables and operators: bit-equal (the same numpy code);
+* ``quantize``/``dequantize``/``requantize``/``encode_blocks``/
+  ``requantize_downscale2x``/``decode_blocks``: bit-exact on these inputs
+  (IEEE fp32 multiply, divide, round half to even on both sides; the fp32
+  products sum in another order but land on the same integers here).  The
+  reference's own bound for K2 is |diff| <= 1 on < 1% of pixels
+  (``tests/test_transform.py``);
+* the pipeline's rungs against the JAX *pipeline*: <= 1 on < 2%
+  (``tests/test_models.py``: XLA's fused ladder may round differently at
+  exact .5 boundaries); against JAX ``requantize``, rung by rung:
+  bit-exact.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from easydarwin_tpu.models.transcode_pipeline import TranscodeConfig as RefConfig
+from easydarwin_tpu.models.transcode_pipeline import \
+    TranscodePipeline as RefPipeline
+from easydarwin_tpu.ops import transform as ref
+from easydarwin_tpu_torch import convert
+from easydarwin_tpu_torch.models import TranscodeConfig, TranscodePipeline
+from easydarwin_tpu_torch.models.transcode_pipeline import _ladder_step
+from easydarwin_tpu_torch.ops import kernel_lib
+from easydarwin_tpu_torch.ops import transform as tf
+from easydarwin_tpu_torch.ops.transform_kernel import decode_blocks_kernel
+
+
+def _t(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a))
+
+
+def _smooth_pixels(rng, n):
+    """Blocks of gradients plus noise (JPEG-like spectra), uint8 [n, 64]."""
+    yy, xx = np.mgrid[0:8, 0:8]
+    gx, gy = rng.uniform(-12, 12, (2, n, 1, 1))
+    base = rng.uniform(40, 215, (n, 1, 1))
+    pix = base + gx * (xx - 3.5) + gy * (yy - 3.5) + rng.normal(0, 4, (n, 8, 8))
+    return np.clip(np.round(pix), 0, 255).astype(np.uint8).reshape(n, 64)
+
+
+def test_dct_and_kron_operators_bit_equal():
+    np.testing.assert_array_equal(tf.dct_matrix(), ref.dct_matrix())
+    for a, b in zip(tf._kron_mats(), ref._kron_mats()):
+        assert a.dtype == b.dtype == np.float32
+        np.testing.assert_array_equal(a, b)
+    inv = tf.operator("inv", torch.device("cpu"))
+    np.testing.assert_array_equal(inv.numpy(), ref._kron_mats()[1])
+
+
+@pytest.mark.parametrize("q", [1, 25, 50, 75, 90, 100])
+def test_quality_table_bit_equal(q):
+    a, b = tf.quality_table(q), ref.quality_table(q)
+    assert a.dtype == b.dtype == np.float32
+    np.testing.assert_array_equal(a, b)
+
+
+def test_zigzag_order_and_reorders_equal():
+    np.testing.assert_array_equal(tf.zigzag_order(), ref.zigzag_order())
+    rng = np.random.default_rng(3)
+    lv = rng.integers(-500, 500, (37, 64)).astype(np.int32)
+    np.testing.assert_array_equal(tf.to_zigzag(_t(lv)).numpy(),
+                                  np.asarray(ref.to_zigzag(lv)))
+    np.testing.assert_array_equal(tf.from_zigzag(_t(lv)).numpy(),
+                                  np.asarray(ref.from_zigzag(lv)))
+    np.testing.assert_array_equal(tf.to_zigzag_np(lv), ref.to_zigzag_np(lv))
+    np.testing.assert_array_equal(tf.from_zigzag_np(lv),
+                                  ref.from_zigzag_np(lv))
+    np.testing.assert_array_equal(tf.from_zigzag_np(tf.to_zigzag_np(lv)), lv)
+
+
+def test_downscale2x_operator_bit_equal():
+    a, b = tf.downscale2x_operator(), ref.downscale2x_operator()
+    assert a.shape == (256, 64) and a.dtype == b.dtype == np.float32
+    np.testing.assert_array_equal(a, b)
+
+
+def test_quantize_dequantize_bit_exact():
+    rng = np.random.default_rng(8)
+    coef = rng.normal(0, 300, (2048, 64)).astype(np.float32)
+    coef[:64] = np.round(coef[:64]) + 0.5        # exact .5 ties: half-even
+    qt = ref.quality_table(60)
+    np.testing.assert_array_equal(tf.quantize(_t(coef), _t(qt)).numpy(),
+                                  np.asarray(ref.quantize(coef, qt)))
+    lv = rng.integers(-2047, 2048, (2048, 64)).astype(np.int32)
+    np.testing.assert_array_equal(tf.dequantize(_t(lv), _t(qt)).numpy(),
+                                  np.asarray(ref.dequantize(lv, qt)))
+
+
+@pytest.mark.parametrize("q_in,q_out", [(90, 80), (90, 25), (50, 95)])
+def test_requantize_and_ladder_bit_exact(q_in, q_out):
+    rng = np.random.default_rng(q_in * 100 + q_out)
+    qi = ref.quality_table(q_in)
+    lv = np.asarray(ref.encode_blocks(_smooth_pixels(rng, 1024), qi))
+    qo = ref.quality_table(q_out)
+    np.testing.assert_array_equal(
+        tf.requantize(_t(lv), _t(qi), _t(qo)).numpy(),
+        np.asarray(ref.requantize(lv, qi, qo)))
+    for a, b in zip(tf.transcode_ladder(_t(lv), _t(qi), (q_out, 30)),
+                    ref.transcode_ladder(lv, qi, (q_out, 30))):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+
+
+def test_encode_blocks_bit_exact():
+    rng = np.random.default_rng(11)
+    pix = np.concatenate([_smooth_pixels(rng, 2000),
+                          rng.integers(0, 256, (500, 64), dtype=np.uint8)])
+    for q in (95, 50, 10):
+        qt = ref.quality_table(q)
+        np.testing.assert_array_equal(
+            tf.encode_blocks(_t(pix), _t(qt)).numpy(),
+            np.asarray(ref.encode_blocks(pix, qt)))
+
+
+@pytest.mark.parametrize("n", [1, 300, 4096])
+def test_decode_blocks_plain_matches_jnp_and_pallas_interpret(n):
+    rng = np.random.default_rng(n)
+    qt = ref.quality_table(75)
+    lv = np.asarray(ref.encode_blocks(_smooth_pixels(rng, n), qt))
+    got = tf.decode_blocks_plain(_t(lv), _t(qt)).numpy()
+    assert got.dtype == np.uint8 and got.shape == (n, 64)
+    for want in (np.asarray(ref.decode_blocks(lv, qt)),
+                 np.asarray(ref.decode_blocks_pallas(lv, qt,
+                                                     interpret=True))):
+        d = np.abs(got.astype(int) - want.astype(int))
+        assert d.max() <= 1 and (d > 0).mean() < 0.01
+        np.testing.assert_array_equal(got, want)      # and here exactly
+    # the [1, 64] table shape the Pallas call takes gives the same result
+    np.testing.assert_array_equal(
+        tf.decode_blocks(_t(lv), _t(qt).reshape(1, 64)).numpy(), got)
+
+
+def test_requantize_downscale2x_bit_exact():
+    rng = np.random.default_rng(21)
+    qi = ref.quality_table(85)
+    lv = np.asarray(ref.encode_blocks(_smooth_pixels(rng, 4 * 512), qi))
+    quads = lv.reshape(512, 4, 64)
+    qo = ref.quality_table(40)
+    got = tf.requantize_downscale2x(_t(quads), _t(qi), _t(qo)).numpy()
+    want = np.asarray(ref.requantize_downscale2x(quads, qi, qo))
+    assert got.dtype == np.int32 and got.shape == (512, 64)
+    np.testing.assert_array_equal(got, want)
+    deq = (quads.reshape(512, 256) * np.tile(qi, 4)).astype(np.float32)
+    np.testing.assert_allclose(tf.downscale2x_blocks(_t(deq)).numpy(),
+                               np.asarray(ref.downscale2x_blocks(deq)),
+                               rtol=1e-5, atol=1e-3)
+
+
+@pytest.mark.parametrize("decode_pixels", [False, True])
+def test_pipeline_matches_the_jax_pipeline(decode_pixels):
+    qualities, src_q = (80, 50, 25), 90
+    rng = np.random.default_rng(7)
+    lv = np.asarray(ref.encode_blocks(_smooth_pixels(rng, 1536),
+                                      ref.quality_table(src_q)))
+    want = RefPipeline(RefConfig(qualities, src_q, decode_pixels))(lv)
+    pipe = TranscodePipeline(TranscodeConfig(qualities, src_q,
+                                             decode_pixels), device="cpu")
+    got = pipe(lv)
+    # the same step on tables carried over from the reference's numpy
+    qt_in, qt_rungs = convert.transcode_tables_from_numpy(
+        ref.quality_table(src_q),
+        np.stack([ref.quality_table(q) for q in qualities]), "cpu")
+    np.testing.assert_array_equal(qt_in.numpy(), pipe.qt_in.numpy())
+    np.testing.assert_array_equal(qt_rungs.numpy(), pipe.qt_rungs.numpy())
+    again = _ladder_step(_t(lv), qt_in=qt_in, qt_rungs=qt_rungs,
+                         decode_pixels=decode_pixels)
+    assert sorted(got) == sorted(again) == sorted(want)
+    rungs = got["rungs"].numpy()
+    assert rungs.shape == (3, 1536, 64) and rungs.dtype == np.int32
+    np.testing.assert_array_equal(again["rungs"].numpy(), rungs)
+    d = np.abs(rungs - np.asarray(want["rungs"]))
+    assert d.max() <= 1 and (d > 0).mean() < 0.02
+    for r, q in enumerate(qualities):             # rung by rung: exact
+        np.testing.assert_array_equal(rungs[r], np.asarray(ref.requantize(
+            lv, ref.quality_table(src_q), ref.quality_table(q))))
+    nz = got["nonzeros"].numpy()
+    assert nz.dtype == np.int32
+    np.testing.assert_array_equal(nz, (rungs != 0).sum(axis=(1, 2)))
+    assert nz[0] >= nz[1] >= nz[2] > 0
+    if decode_pixels:
+        px = got["pixels"].numpy()
+        d = np.abs(px.astype(int) - np.asarray(want["pixels"]).astype(int))
+        assert d.max() <= 1 and (d > 0).mean() < 0.01
+
+
+def test_transcode_tables_from_numpy_validates_and_copies():
+    qi = ref.quality_table(90)
+    qr = np.stack([ref.quality_table(q) for q in (80, 40)])
+    a, b = convert.transcode_tables_from_numpy(qi, qr, "cpu")
+    assert a.dtype == b.dtype == torch.float32 and tuple(b.shape) == (2, 64)
+    qr[0, 0] = 99
+    assert float(b[0, 0]) == ref.quality_table(80)[0]   # a copy
+    with pytest.raises(ValueError):
+        convert.transcode_tables_from_numpy(qi[:63], qr, "cpu")
+    with pytest.raises(ValueError):
+        convert.transcode_tables_from_numpy(qi, qr[0], "cpu")
+    with pytest.raises(ValueError):
+        convert.transcode_tables_from_numpy(np.zeros(64), qr, "cpu")
+
+
+def test_cpu_decode_counts_no_launch():
+    kernel_lib.reset_launch_counts()
+    qt = _t(ref.quality_table(50))
+    lv = torch.zeros((10, 64), dtype=torch.int32)
+    assert decode_blocks_kernel(lv, qt).shape == (10, 64)
+    assert decode_blocks_kernel(lv[:0], qt).shape == (0, 64)
+    TranscodePipeline(TranscodeConfig(decode_pixels=True), device="cpu")(lv)
+    assert kernel_lib.LAUNCHES["ed_decode_blocks"] == 0
+    assert set(kernel_lib.LAUNCHES) == {"ed_parse_packets", "ed_relay_window",
+                                        "ed_decode_blocks"}
+
+
+@pytest.mark.parametrize("levels,qtable,err", [
+    (torch.zeros((4, 64), dtype=torch.float32), torch.ones(64), TypeError),
+    (torch.zeros((4, 63), dtype=torch.int32), torch.ones(64), ValueError),
+    (torch.zeros((4, 64), dtype=torch.int32), torch.ones(63), ValueError),
+    (torch.zeros((4, 64), dtype=torch.int32),
+     torch.ones(64, dtype=torch.float64), TypeError),
+    (torch.zeros(64, dtype=torch.int32), torch.ones(64), ValueError),
+])
+def test_decode_wrapper_raises_on_a_wrong_dtype_or_shape(levels, qtable, err):
+    with pytest.raises(err):
+        decode_blocks_kernel(levels, qtable)
+    with pytest.raises(err):
+        tf.decode_blocks(levels, qtable)
+
+
+def test_pipeline_device_defaults_to_the_card():
+    if torch.cuda.is_available():
+        assert TranscodePipeline().device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TranscodePipeline()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        convert.transcode_tables_from_numpy(np.ones(64), np.ones((1, 64)))
+    pipe = TranscodePipeline(device="cpu")
+    (lv,) = pipe.example_args(64)
+    assert lv.shape == (64, 64) and lv.dtype == np.int32
