@@ -19,9 +19,11 @@ phase; any failed phase raises and the script exits non-zero.
              [16,256,100]×[16,256,6], the prime shape [1,16,100]×[1,8,6]
              and a ragged 5-stream bucket padded to 8
 5. K2        ``ed_decode_blocks`` vs ``decode_blocks_plain`` at N = 1, 300,
-             48,960 (one 1080p 4:2:0 frame) and 783,360 (config 5: 16
-             sources × one 1080p frame): |diff| <= 1 on < 1% of pixels;
-             N = 0 returns empty without a launch
+             48,960 (one 1080p 4:2:0 frame), 48,961, T·stages + 1 (one
+             past a full ring of tiles), CTAs·T·stages + 1 (every CTA
+             wraps its ring, the last tile ragged) and 783,360 (config 5:
+             16 sources × one 1080p frame): |diff| <= 1 on < 1% of
+             pixels; N = 0 returns empty without a launch
 6. scheduler the main path in-process: MegabatchScheduler + FanoutEngine
              over 16 streams × 256 subscribers in 2 buckets for 36 wakes,
              every wire byte held against RelayStream.reflect, plus the
@@ -39,8 +41,8 @@ phase; any failed phase raises and the script exits non-zero.
              source frame; the host split per frame is printed
 10. kernels  launches on the main path (phases 6-9), CUDA-event times at
              the config-4 (K1, window) and config-5 (K2) shapes beside the
-             plain versions', the bound and, for K2, cuBLAS's fp32 product
-             alone
+             plain versions', the bound, the achieved GB/s and share of
+             the bound and, for K2, cuBLAS's fp32 product alone
 
 The kernel launch counts are set to 0 just before phase 6 and read just
 after phase 9 (the server processes report their own at exit); the
@@ -283,15 +285,18 @@ def k2_diff(a, b) -> tuple[int, float]:
     return int(d.max()), float((d > 0).double().mean())
 
 
-def phase_k2(levels, qt) -> dict:
-    """K2 vs its plain version on the card at 1, 300, one 1080p frame and
-    the config-5 batch; N = 0 must not launch."""
+def phase_k2(levels, qt, ring: dict) -> dict:
+    """K2 vs its plain version on the card at 1, 300, one 1080p frame,
+    sizes aimed at the ring's tail and wrap-around, and the config-5
+    batch; N = 0 must not launch."""
     import torch
     from easydarwin_tpu_torch.ops import kernel_lib
     from easydarwin_tpu_torch.ops.transform import decode_blocks_plain
     from easydarwin_tpu_torch.ops.transform_kernel import decode_blocks_kernel
     res = {}
-    for n in (1, 300, FRAME_1080P_BLOCKS, CONFIG5_BLOCKS):
+    ring_rows = ring["tile_blocks"] * ring["stages"]
+    for n in (1, 300, FRAME_1080P_BLOCKS, FRAME_1080P_BLOCKS + 1,
+              ring_rows + 1, ring["ctas"] * ring_rows + 1, CONFIG5_BLOCKS):
         lv = levels[:n]
         k = decode_blocks_kernel(lv, qt)
         p = decode_blocks_plain(lv, qt)
@@ -556,15 +561,19 @@ def phase_kernels(rng, launches: dict, errs: dict, levels, qt
     dw, ds = torch.from_numpy(win).cuda(), torch.from_numpy(st).cuda()
     packed = torch.empty((16, 4 * 256 + 1), dtype=torch.int32, device="cuda")
     n = levels.shape[0]
-    inv = tf.operator("inv", levels.device)
+    inv = tf.operator("inv", levels.device)    # the library's operator
+    idct8 = tf.operator("idct8", levels.device)
     pixels = torch.empty((n, 64), dtype=torch.uint8, device="cuda")
     deq = tf.dequantize(levels, qt)            # the library's input
     k1_bytes = dp.numel() + 4 * rows + (16 + 20) * rows
     win_bytes = dw.numel() + 4 * ds.numel() + 4 * packed.numel()
-    k2_bytes = 4 * levels.numel() + 4 * 64 + 4 * inv.numel() + pixels.numel()
+    k2_bytes = (4 * levels.numel() + 4 * 64 + 4 * idct8.numel()
+                + pixels.numel())
     k1_ops = OPS_PER_PACKET * rows
     win_ops = OPS_PER_WINDOW_ROW * 16 * 256 + OPS_PER_SUBSCRIBER * 16 * 256
-    k2_ops = 2 * 64 * 64 * n                   # fp32 multiply-adds
+    # the separable IDCT: a row and a column pass of 8 x 64 fp32
+    # multiply-adds per block (the dense 64x64 product would be 4x this)
+    k2_ops = 2 * (2 * 8 * 64) * n
     relay_src = "easydarwin_tpu_torch/csrc/relay_kernels.cu"
     cases = (
         ("ed_parse_packets", relay_src, "easydarwin_tpu/ops/parse_pallas.py:84",
@@ -584,7 +593,7 @@ def phase_kernels(rng, launches: dict, errs: dict, levels, qt
          "easydarwin_tpu/ops/transform.py:172",
          lambda: kernel_lib.launch(
              "ed_decode_blocks", levels.data_ptr(), n, qt.data_ptr(),
-             inv.data_ptr(), pixels.data_ptr()),
+             idct8.data_ptr(), pixels.data_ptr()),
          lambda: decode_blocks_kernel(levels, qt),
          lambda: tf.decode_blocks_plain(levels, qt),
          lambda: torch.matmul(deq, inv.T),      # product alone
@@ -595,11 +604,12 @@ def phase_kernels(rng, launches: dict, errs: dict, levels, qt
          inner) in cases:
         t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
         t_ops = ops / PEAK_OPS_PER_S * 1e3
+        ms = graph_ms(kernel, inner=inner)
         out.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": src_line, "launches": launches[name],
             "max_abs_err": errs[name],
-            "ms": graph_ms(kernel, inner=inner),
+            "ms": ms,
             "plain_ms": graph_ms(plain, inner=min(inner, 20)),
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -607,6 +617,8 @@ def phase_kernels(rng, launches: dict, errs: dict, levels, qt
             else graph_ms(library, inner=inner),
             # detail only (not part of the kernels line)
             "_bytes": nbytes, "_ops": ops,
+            "_gb_per_s": nbytes / ms / 1e6,
+            "_bound_share": max(t_bytes, t_ops) / ms,
             "_wrapper_graph_ms": graph_ms(wrapper, inner=inner),
             "_wrapper_call_ms": call_ms(wrapper, reps=21, inner=inner),
             "_plain_call_ms": call_ms(plain, reps=11, inner=10),
@@ -622,6 +634,7 @@ def main() -> int:
         return 2
     import numpy as np
     from easydarwin_tpu_torch.ops import kernel_lib
+    from easydarwin_tpu_torch.ops.transform_kernel import ring_geometry
 
     os.makedirs(OUT_DIR, exist_ok=True)
     rng = np.random.default_rng(20261016)
@@ -653,7 +666,9 @@ def main() -> int:
     detail["k1"] = phase_k1(rng)
     detail["window"] = phase_window(rng)
     levels, qt = config5_levels(int(rng.integers(1 << 31)))
-    detail["k2"] = phase_k2(levels, qt)
+    detail["k2_ring"] = ring_geometry()
+    log(f"[k2] ring: {detail['k2_ring']}")
+    detail["k2"] = phase_k2(levels, qt, detail["k2_ring"])
 
     kernel_lib.reset_launch_counts()           # the main path starts here
     detail["scheduler"] = phase_scheduler(rng)
@@ -683,7 +698,9 @@ def main() -> int:
                else f", library {k['library_ms']:.6f} ms")
         log(f"[kernels] {k['name']}: {k['ms']:.6f} ms (plain "
             f"{k['plain_ms']:.6f} ms, bound {k['bound_ms']:.6f} ms by "
-            f"{k['bound_by']}{lib}), wrapper {k['_wrapper_graph_ms']:.6f} "
+            f"{k['bound_by']}{lib}), {k['_gb_per_s']:.1f} GB/s, "
+            f"{k['_bound_share']:.1%} of the bound, wrapper "
+            f"{k['_wrapper_graph_ms']:.6f} "
             f"ms in a graph, {k['_wrapper_call_ms']:.6f} ms per direct "
             f"call; {k['launches']} main-path launches")
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:

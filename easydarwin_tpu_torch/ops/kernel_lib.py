@@ -41,15 +41,23 @@ NVCC_FLAGS = (*GENCODE, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 LAUNCHES = {"ed_parse_packets": 0, "ed_relay_window": 0,
             "ed_decode_blocks": 0}
 
+#: an entry point's return code at or above this is this base plus the
+#: ``CUresult`` of ``cuTensorMapEncodeTiled`` (a TMA tensor map), not a
+#: cudaError
+TENSOR_MAP_ERROR = 1 << 16
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_IP = ctypes.POINTER(ctypes.c_int)
 _SIGNATURES = {
     # prefix, n_rows, row_stride, length, words, flags, stream
     "ed_parse_packets": (_P, _I, _I, _P, _P, _P, _P),
     # window, n_streams, n_pkts, row_stride, state, n_subs, out, stream
     "ed_relay_window": (_P, _I, _I, _I, _P, _I, _P, _P),
-    # levels, n_blocks, qtable, inv, out, stream
+    # levels, n_blocks, qtable, idct8 (the 8x8 DCT matrix C), out, stream
     "ed_decode_blocks": (_P, _I, _P, _P, _P, _P),
+    # -> blocks per tile, ring stages, CTAs a launch uses (not a launch)
+    "ed_decode_blocks_geometry": (_IP, _IP, _IP),
 }
 
 
@@ -150,9 +158,16 @@ def launch(name: str, *args) -> None:
     stream = torch.cuda.current_stream().cuda_stream
     rc = getattr(lib, name)(*args, stream)
     if rc != 0:
-        msg = lib.ed_error_string(rc).decode()
-        raise RuntimeError(f"{name} launch failed: cudaError {rc} ({msg})")
+        raise RuntimeError(f"{name} launch failed: {error_message(rc)}")
     LAUNCHES[name] += 1
+
+
+def error_message(rc: int) -> str:
+    """What an entry point's nonzero return code means."""
+    if rc >= TENSOR_MAP_ERROR:
+        return (f"cuTensorMapEncodeTiled failed with CUresult "
+                f"{rc - TENSOR_MAP_ERROR}")
+    return f"cudaError {rc} ({library().ed_error_string(rc).decode()})"
 
 
 def require(t: torch.Tensor, name: str, dtype: torch.dtype, dim: int,

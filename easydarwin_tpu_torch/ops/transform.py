@@ -8,8 +8,10 @@ transform/quant math.
 
 ``decode_blocks`` (dequant → IDCT → +128 → round → clip → uint8) is kernel
 K2: on a CUDA tensor it launches the hand-written ``ed_decode_blocks``
-(``ops.transform_kernel``); on a CPU tensor it runs
-``decode_blocks_plain``, the same function in plain PyTorch.
+(``ops.transform_kernel``), which applies the IDCT in its separable form
+``Cᵀ·Y·C`` with the 8×8 ``operator("idct8")``; on a CPU tensor it runs
+``decode_blocks_plain``, the same function in plain PyTorch through the
+64×64 Kronecker operator, as the reference does.
 
 Every product here is fp32.  ``torch.round`` rounds half to even, as
 ``jnp.round`` does.  The downscale ``[N, 256] @ [256, 64]`` is a plain
@@ -54,9 +56,11 @@ def _kron_mats() -> tuple[np.ndarray, np.ndarray]:
 @functools.lru_cache(maxsize=None)
 def operator(name: str, device: torch.device) -> torch.Tensor:
     """A fixed fp32 operator as a tensor on ``device``, made once per
-    device: ``"fwd"``/``"inv"`` (64×64) or ``"down2x"`` (256×64)."""
+    device: ``"fwd"``/``"inv"`` (64×64), ``"down2x"`` (256×64) or
+    ``"idct8"``, the 8×8 DCT matrix C that K2 applies as ``Cᵀ·Y·C``."""
     arr = {"fwd": lambda: _kron_mats()[0], "inv": lambda: _kron_mats()[1],
-           "down2x": downscale2x_operator}[name]()
+           "down2x": downscale2x_operator,
+           "idct8": lambda: dct_matrix().astype(np.float32)}[name]()
     return torch.from_numpy(np.ascontiguousarray(arr)).to(device)
 
 

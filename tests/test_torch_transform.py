@@ -12,6 +12,10 @@ Tolerances, each with its reason:
   products sum in another order but land on the same integers here).  The
   reference's own bound for K2 is |diff| <= 1 on < 1% of pixels
   (``tests/test_transform.py``);
+* a numpy mirror of the CUDA kernel's separable fp32 order (``Cᵀ·Y·C``
+  in fmaf chains, which the card alone can run as written): the
+  reference's tolerance, since it sums in another order than the 64×64
+  product;
 * the pipeline's rungs against the JAX *pipeline*: <= 1 on < 2%
   (``tests/test_models.py``: XLA's fused ladder may round differently at
   exact .5 boundaries); against JAX ``requantize``, rung by rung:
@@ -136,6 +140,74 @@ def test_decode_blocks_plain_matches_jnp_and_pallas_interpret(n):
     # the [1, 64] table shape the Pallas call takes gives the same result
     np.testing.assert_array_equal(
         tf.decode_blocks(_t(lv), _t(qt).reshape(1, 64)).numpy(), got)
+
+
+def test_idct8_operator_bit_equal():
+    got = tf.operator("idct8", torch.device("cpu")).numpy()
+    want = ref.dct_matrix().astype(np.float32)
+    assert got.dtype == np.float32 and got.shape == (8, 8)
+    np.testing.assert_array_equal(got, want)
+
+
+def _fmaf(a, b, c):
+    """fp32 fused multiply-add: the product of two fp32 values is exact in
+    fp64, so the fp64 sum rounded once more to fp32 is ``fmaf`` (but for
+    the rare double-rounding tie)."""
+    return (a.astype(np.float64) * b.astype(np.float64)
+            + c.astype(np.float64)).astype(np.float32)
+
+
+def _separable_decode_mirror(levels, qt, c):
+    """The kernel's arithmetic in numpy, in its order: dequantize in fp32;
+    row pass Z[u][j] = Σ_v Y[u][v]·C[v][j], v ascending; column pass
+    X[i][j] = Σ_u C[u][i]·Z[u][j], u ascending; each sum a chain of fmaf
+    from 0; then +128, round half to even, clamp, uint8."""
+    y = (levels.astype(np.float32) * qt.astype(np.float32)).reshape(-1, 8, 8)
+    z = np.zeros_like(y)
+    for v in range(8):
+        z = _fmaf(y[:, :, v:v + 1], c[v][None, None, :], z)
+    x = np.zeros_like(z)
+    for u in range(8):
+        x = _fmaf(c[u][None, :, None], z[:, u:u + 1, :], x)
+    x = x + np.float32(128)
+    return np.clip(np.rint(x), 0, 255).astype(np.uint8).reshape(-1, 64)
+
+
+def _decode_case(kind, n):
+    """(levels, qtable) of one kind: JPEG-like smooth blocks at q75,
+    random pixels at q75, or random levels in ±2000 at q50."""
+    rng = np.random.default_rng(1000 + n)
+    if kind == "levels2000":
+        return (rng.integers(-2000, 2001, (n, 64)).astype(np.int32),
+                ref.quality_table(50))
+    qt = ref.quality_table(75)
+    pix = (_smooth_pixels(rng, n) if kind == "smooth"
+           else rng.integers(0, 256, (n, 64), dtype=np.uint8))
+    return np.asarray(ref.encode_blocks(pix, qt)), qt
+
+
+@pytest.mark.parametrize("kind", ["smooth", "pixels", "levels2000"])
+@pytest.mark.parametrize("n", [1, 300, 4096])
+def test_separable_mirror_matches_jnp_and_pallas_interpret(kind, n):
+    """The kernel's separable fp32 order, proven on the CPU against JAX
+    ``decode_blocks`` and the Pallas kernel in interpret mode at the
+    reference's tolerance: |diff| <= 1 on < 1% of pixels."""
+    lv, qt = _decode_case(kind, n)
+    c = tf.operator("idct8", torch.device("cpu")).numpy()
+    got = _separable_decode_mirror(lv, qt, c)
+    assert got.dtype == np.uint8 and got.shape == (n, 64)
+    for want in (np.asarray(ref.decode_blocks(lv, qt)),
+                 np.asarray(ref.decode_blocks_pallas(lv, qt,
+                                                     interpret=True))):
+        d = np.abs(got.astype(int) - want.astype(int))
+        assert d.max() <= 1 and (d > 0).mean() < 0.01
+
+
+def test_tensor_map_failure_reads_as_a_cuda_result():
+    # ed_decode_blocks returns this base + CUresult when a TMA tensor map
+    # cannot be encoded; the launch then raises with this message
+    msg = kernel_lib.error_message(kernel_lib.TENSOR_MAP_ERROR + 1)
+    assert msg == "cuTensorMapEncodeTiled failed with CUresult 1"
 
 
 def test_requantize_downscale2x_bit_exact():
