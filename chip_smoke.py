@@ -14,10 +14,17 @@ phase; any failed phase raises and the script exits non-zero.
 2. card      the card's name and power limit (nvidia-smi), and the fp32
              matmul settings (TF32 must be off)
 3. K1        ``ed_parse_packets`` vs the plain parse, bit-exact, on 600
-             fuzzed rows, 4096 rows (16×256) and 1024 rows
-4. window    ``ed_relay_window`` vs the plain window pass, bit-exact, at
-             [16,256,100]×[16,256,6], the prime shape [1,16,100]×[1,8,6]
-             and a ragged 5-stream bucket padded to 8
+             fuzzed rows, the main path's 256, 4,096 (16×256), 1,024, 1,
+             63 and 4,097 rows, rows of 97 and 100 bytes, and a view whose
+             first byte is not 16-byte aligned (``prefix[1:]``, W = 97)
+4. window    the library's launch geometry against the Python plans, then
+             ``ed_relay_window`` vs the plain window pass, every bucket
+             bit-exact: the phase-6 wake ([8,16,100] + [8,32,100], each
+             ×[8,256,6]) as ONE grouped launch, a mixed group (prime
+             [1,16,100]×[1,8,6], ragged 5 of 8 at [8,64,100]×[8,16,6],
+             MAX_STAGE_ROWS [16,1024,100]×[16,8,6]), config 4
+             [16,256,100]×[16,256,6], ragged P = 13, W = 104, and 33
+             buckets (two launches)
 5. K2        ``ed_decode_blocks`` vs ``decode_blocks_plain`` at N = 1, 300,
              48,960 (one 1080p 4:2:0 frame), 48,961, T·stages + 1 (one
              past a full ring of tiles), CTAs·T·stages + 1 (every CTA
@@ -27,7 +34,9 @@ phase; any failed phase raises and the script exits non-zero.
 6. scheduler the main path in-process: MegabatchScheduler + FanoutEngine
              over 16 streams × 256 subscribers in 2 buckets for 36 wakes,
              every wire byte held against RelayStream.reflect, plus the
-             RelayPipeline(use_pallas_parse=True) step each wake
+             RelayPipeline(use_pallas_parse=True) step each wake;
+             ``ed_relay_window`` launches = the scheduler's window_calls,
+             at most one per dispatching and one per priming wake
 7. server    ``python -m easydarwin_tpu_torch --device cuda`` on loopback:
              2 pushers × 4 TCP players, every packet checked
 8. pipeline  the config-5 TranscodePipeline (qualities 80/50/25 from 90,
@@ -39,10 +48,16 @@ phase; any failed phase raises and the script exits non-zero.
              20s2, one TCP player per rung; every delivered rung frame
              decodes and matches the CPU requantization oracle of its
              source frame; the host split per frame is printed
-10. kernels  launches on the main path (phases 6-9), CUDA-event times at
-             the config-4 (K1, window) and config-5 (K2) shapes beside the
-             plain versions', the bound, the achieved GB/s and share of
-             the bound and, for K2, cuBLAS's fp32 product alone
+10. kernels  launches on the main path (phases 6-9), the launch floor
+             (one graph node of an empty kernel), ptxas registers, shared
+             memory and spills, CUDA-event times at the main path's shapes
+             (K1 256 rows, the window's phase-6 wake group, K2 config 5)
+             and at earlier runs' config-4 shapes (K1 4,096 rows, window
+             [16,256,100]×[16,256,6], and the same bytes as
+             [64,64,100]×[64,64,6] with no cluster) beside the plain
+             versions', the bound, the achieved GB/s and share of the
+             bound and, for K2, cuBLAS's fp32 product alone; the kernels
+             line carries the main path's shapes
 
 The kernel launch counts are set to 0 just before phase 6 and read just
 after phase 9 (the server processes report their own at exit); the
@@ -150,9 +165,14 @@ def graph_ms(fn, reps: int = 21, inner: int = 100) -> float:
 
 
 # ------------------------------------------------------------ phases 3-4
-def fuzz_rows(rng, n: int):
+def fuzz_rows(rng, n: int, width: int = 96):
+    """``n`` fuzzed packets staged as [n, width] prefixes (columns past 96
+    hold random bytes) + [n] lengths."""
+    import numpy as np
     from easydarwin_tpu_torch.utils import synth
-    return synth.stage([synth.random_packet(rng) for _ in range(n)])
+    pre, ln = synth.stage([synth.random_packet(rng) for _ in range(n)])
+    extra = rng.integers(0, 256, (n, width - 96), dtype=np.uint8)
+    return np.ascontiguousarray(np.concatenate([pre, extra], axis=1)), ln
 
 
 def compare_parse(prefix, length) -> int:
@@ -176,61 +196,139 @@ def compare_parse(prefix, length) -> int:
 
 
 def phase_k1(rng) -> dict:
+    """K1 against the plain parse at the main path's 256 rows, the old
+    config-4 4,096, ragged row counts around the 64-row tile, rows of 97
+    and 100 bytes, and a view whose first byte is not 16-byte aligned."""
     import torch
     res = {}
-    for name, n in (("fuzz600", 600), ("config4_16x256", 16 * 256),
-                    ("max_stage_rows_1024", 1024)):
-        pre, ln = fuzz_rows(rng, n)
+    for name, n, width in (("fuzz600", 600, 96), ("main_path_256", 256, 96),
+                           ("config4_16x256", 16 * 256, 96),
+                           ("max_stage_rows_1024", 1024, 96), ("p1", 1, 96),
+                           ("p63", 63, 96), ("p4097", 4097, 96),
+                           ("w97", 600, 97), ("w100", 600, 100)):
+        pre, ln = fuzz_rows(rng, n, width)
         res[name] = compare_parse(torch.from_numpy(pre).cuda(),
                                   torch.from_numpy(ln).cuda())
-        log(f"[k1] {name}: {n} rows bit-exact vs plain parse")
+        log(f"[k1] {name}: [{n},{width}] bit-exact vs plain parse")
+    pre, ln = fuzz_rows(rng, 601, 97)
+    view = torch.from_numpy(pre).cuda()[1:]
+    check(view.is_contiguous() and view.data_ptr() % 16 != 0,
+          "the unaligned K1 case is not unaligned")
+    res["w97_view_offset_97"] = compare_parse(
+        view, torch.from_numpy(ln[1:].copy()).cuda())
+    log(f"[k1] w97_view_offset_97: prefix[1:] of [601,97] (first byte at "
+        f"{view.data_ptr() % 16} mod 16) bit-exact vs plain parse")
     return res
 
 
 def window_inputs(rng, b_real: int, b_pad: int, p: int, s_real: int,
-                  s_pad: int):
+                  s_pad: int, w: int = 100):
     """Fused rows + state for a bucket: b_real streams of p fuzzed/paced
     rows (ragged lengths, zero padding rows) and random rewrite state
-    that wraps seq and ts; padding streams and subscribers stay zero."""
+    that wraps seq and ts; padding streams and subscribers stay zero;
+    columns past the le32 length (w > 100) hold random bytes."""
     import numpy as np
     from easydarwin_tpu_torch.ops import fanout
     from easydarwin_tpu_torch.utils import synth
-    win = np.zeros((b_pad, p, 100), np.uint8)
+    win = np.zeros((b_pad, p, w), np.uint8)
+    win[:, :, 100:] = rng.integers(0, 256, (b_pad, p, w - 100), dtype=np.uint8)
     for i in range(b_real):
         n = int(rng.integers(1, p + 1))      # ragged: live rows then pad
         pkts = [synth.random_packet(rng) for _ in range(n)]
         pre, ln = synth.stage(pkts)
-        win[i, :n] = fanout.pack_window(pre, ln)
+        win[i, :n, :100] = fanout.pack_window(pre, ln)
     st = np.zeros((b_pad, s_pad, 6), np.uint32)
     st[:b_real, :s_real] = rng.integers(0, 1 << 32, size=(b_real, s_real, 6),
                                         dtype=np.uint64).astype(np.uint32)
     return win, st
 
 
-def compare_window(win, st) -> int:
+def window_group(rng, specs) -> list:
+    """CUDA (window, state) pairs, one per (b_real, b_pad, P, s_real,
+    s_pad[, W]) bucket spec."""
+    import torch
+    pairs = []
+    for spec in specs:
+        win, st = window_inputs(rng, *spec)
+        pairs.append((torch.from_numpy(win).cuda(),
+                      torch.from_numpy(st).cuda()))
+    return pairs
+
+
+#: the scheduler's wake in phase 6: 8 streams of 6 and 8 of 20 new packets
+#: a wake, padded to 16 and 32 rows, each with 256 subscribers
+WAKE_GROUP = ((8, 8, 16, 256, 256), (8, 8, 32, 256, 256))
+
+
+def compare_windows(pairs) -> tuple[int, int]:
+    """One grouped kernel call vs the plain pass per bucket; returns (max
+    difference over every bucket, must be 0; launches the call made)."""
     import numpy as np
     import torch
-    from easydarwin_tpu_torch.ops import fanout
-    dw, ds = torch.from_numpy(win).cuda(), torch.from_numpy(st).cuda()
-    k = fanout.relay_affine_step_window(dw, ds).cpu().numpy()
-    p = fanout.relay_affine_step_window_plain(dw, ds).cpu().numpy()
+    from easydarwin_tpu_torch.ops import fanout, kernel_lib
+    before = kernel_lib.LAUNCHES["ed_relay_window"]
+    outs = fanout.relay_affine_step_windows(pairs)
+    launched = kernel_lib.LAUNCHES["ed_relay_window"] - before
+    worst = 0
+    for (dw, ds), out in zip(pairs, outs):
+        k = out.cpu().numpy()
+        p = fanout.relay_affine_step_window_plain(dw, ds).cpu().numpy()
+        check(k.dtype == np.uint32 and k.shape == p.shape, "window dtype/shape")
+        d = int(np.abs(k.astype(np.int64) - p.astype(np.int64)).max())
+        check(d == 0, f"window kernel differs from the plain pass (max {d}) "
+              f"at {tuple(dw.shape)}x{tuple(ds.shape)}")
+        worst = max(worst, d)
     torch.cuda.synchronize()
-    check(k.dtype == np.uint32 and k.shape == p.shape, "window dtype/shape")
-    d = int(np.abs(k.astype(np.int64) - p.astype(np.int64)).max())
-    check(d == 0, f"window kernel differs from the plain pass (max {d})")
-    return d
+    return worst, launched
+
+
+def relay_geometry() -> dict:
+    """The relay kernels' constants as the library has them, held against
+    the Python launch plans that mirror them."""
+    import ctypes
+    from easydarwin_tpu_torch.ops import fanout, kernel_lib, parse_kernel
+    names = ("max_buckets", "max_cluster", "window_threads", "tile_rows",
+             "smem_limit")
+    vals = [ctypes.c_int() for _ in names]
+    rc = kernel_lib.library().ed_relay_geometry(
+        *(ctypes.byref(v) for v in vals))
+    check(rc == 0, f"ed_relay_geometry: {rc}")
+    geo = dict(zip(names, (v.value for v in vals)))
+    check((geo["max_buckets"], geo["max_cluster"], geo["tile_rows"],
+           geo["smem_limit"]) == (fanout.WINDOW_MAX_BUCKETS,
+                                  fanout.WINDOW_MAX_CLUSTER,
+                                  parse_kernel.PARSE_TILE_ROWS,
+                                  kernel_lib.DYN_SMEM_LIMIT),
+          f"the library's relay geometry {geo} differs from the Python plans")
+    return geo
 
 
 def phase_window(rng) -> dict:
+    """Every bucket of each grouped call bit-exact against the plain pass:
+    the phase-6 wake as one launch, a mixed group (prime, ragged, the
+    MAX_STAGE_ROWS bucket: cluster size 8), config 4, ragged P = 13,
+    W = 104, and a group of more buckets than one launch takes."""
+    from easydarwin_tpu_torch.ops import fanout
     res = {}
-    for name, shape in (("config4", (16, 16, 256, 256, 256)),
-                        ("prime", (1, 1, 16, 8, 8)),
-                        ("ragged5of8", (5, 8, 64, 13, 16))):
-        b_real, b_pad, p, s_real, s_pad = shape
-        win, st = window_inputs(rng, b_real, b_pad, p, s_real, s_pad)
-        res[name] = compare_window(win, st)
-        log(f"[window] {name}: [{b_pad},{p},100]x[{b_pad},{s_pad},6] "
-            f"bit-exact vs plain pass")
+    split = ((1, 1, 16 if i % 2 else 32, 3, 8)
+             for i in range(fanout.WINDOW_MAX_BUCKETS + 1))
+    for name, specs, launches in (
+            ("wake_group", WAKE_GROUP, 1),
+            ("mixed_group", ((1, 1, 16, 8, 8), (5, 8, 64, 13, 16),
+                             (16, 16, 1024, 8, 8)), 1),
+            ("config4", ((16, 16, 256, 256, 256),), 1),
+            ("ragged_p13", ((3, 4, 13, 5, 8),), 1),
+            ("w104", ((4, 4, 32, 6, 8, 104), (2, 2, 256, 3, 8, 104)), 1),
+            ("split_33", tuple(split), 2)):
+        pairs = window_group(rng, specs)
+        res[name], launched = compare_windows(pairs)
+        check(launched == launches, f"window {name}: {launched} launches, "
+              f"expected {launches}")
+        shapes = ", ".join(f"[{tuple(w.shape)}x{tuple(s.shape)}]"
+                           for w, s in pairs[:3])
+        more = f" (+{len(pairs) - 3} more)" if len(pairs) > 3 else ""
+        log(f"[window] {name}: {shapes}{more}: {launched} launch(es), "
+            f"every bucket bit-exact vs plain pass")
     return res
 
 
@@ -328,6 +426,7 @@ def phase_scheduler(rng) -> dict:
     import numpy as np
     from easydarwin_tpu_torch.models.relay_pipeline import (
         RelayPipeline, RelayPipelineConfig)
+    from easydarwin_tpu_torch.ops import kernel_lib
     from easydarwin_tpu_torch.protocol import sdp
     from easydarwin_tpu_torch.relay.fanout import FanoutEngine
     from easydarwin_tpu_torch.relay.megabatch import MegabatchScheduler
@@ -377,6 +476,9 @@ def phase_scheduler(rng) -> dict:
     #: engine steps (header render + wire writes), end_wake (stage +
     #: dispatch), and the whole wake
     parts = {"begin": [], "steps": [], "end": [], "wake": []}
+    #: wakes whose begin_wake primed / whose end_wake dispatched
+    priming = dispatching = 0
+    launches0 = kernel_lib.LAUNCHES["ed_relay_window"]
     for w in range(wakes):
         for i in range(n_streams):
             for pkt in feeds[i][w * burst[i]:(w + 1) * burst[i]]:
@@ -389,14 +491,21 @@ def phase_scheduler(rng) -> dict:
                 dev[3].add_output(make(3, n_subs + k))
                 ora[3].add_output(make(3, n_subs + k))
         pairs = list(zip(dev, engines))
+        calls0 = sched.window_calls
         t0 = time.perf_counter()
         sched.begin_wake(pairs, t)
         t1 = time.perf_counter()
+        calls1 = sched.window_calls
         for s, e in pairs:
             e.step(s, t)
         t2 = time.perf_counter()
         sched.end_wake(pairs, t)
         t3 = time.perf_counter()
+        check(calls1 - calls0 <= 1 and sched.window_calls - calls1 <= 1,
+              f"wake {w}: more than one window call in begin_wake or "
+              f"end_wake")
+        priming += calls1 - calls0
+        dispatching += sched.window_calls - calls1
         for k, a, b in (("begin", t0, t1), ("steps", t1, t2), ("end", t2, t3),
                         ("wake", t0, t3)):
             parts[k].append((b - a) * 1e3)
@@ -432,11 +541,18 @@ def phase_scheduler(rng) -> dict:
         t += 20
     sched.drain()
     st = sched.stats()
+    window_launches = kernel_lib.LAUNCHES["ed_relay_window"] - launches0
+    check(window_launches == st["window_calls"] == priming + dispatching,
+          f"ed_relay_window launched {window_launches} times for "
+          f"{st['window_calls']} window calls ({priming} priming + "
+          f"{dispatching} dispatching wakes)")
     check(st["mismatches"] == 0, f"scheduler oracle mismatches: {st}")
     check(all(e.missing_params == 0 for e in engines),
           "an engine found no installed params")
     check(delivered > 0, "nothing was delivered")
-    res = {"delivered_packets": delivered, "scheduler": st}
+    res = {"delivered_packets": delivered, "scheduler": st,
+           "window_launches": window_launches, "priming_wakes": priming,
+           "dispatching_wakes": dispatching}
     for k, v in parts.items():
         v.sort()
         res[f"{k}_host_ms_p50"] = v[len(v) // 2]
@@ -444,7 +560,10 @@ def phase_scheduler(rng) -> dict:
     log(f"[scheduler] {delivered} packets to {n_streams}x{n_subs} outputs "
         f"over {wakes} wakes, bit-equal to the scalar oracle; "
         f"passes={st['passes']} prime_passes={st['prime_passes']} "
-        f"mismatches={st['mismatches']}; host ms p50 begin/steps/end "
+        f"mismatches={st['mismatches']}; ed_relay_window launches "
+        f"{window_launches} = window_calls {st['window_calls']} for "
+        f"{dispatching} dispatching + {priming} priming wakes; host ms p50 "
+        f"begin/steps/end "
         f"{res['begin_host_ms_p50']:.3f}/{res['steps_host_ms_p50']:.3f}/"
         f"{res['end_host_ms_p50']:.3f}")
     return res
@@ -539,69 +658,135 @@ def phase_ladder(rng) -> dict:
 
 
 # ------------------------------------------------------------- phase 10
+def ptxas_report(build_log: str) -> dict:
+    """Registers, shared memory and spills of each kernel from the build's
+    ``-Xptxas -v`` lines, keyed by the kernel's name."""
+    import re
+    names = ("parse_packets_kernel", "relay_window_kernel",
+             "launch_floor_kernel", "decode_blocks_kernel")
+    out, cur = {}, None
+    for line in build_log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur = next((n for n in names if n in m.group(1)), None)
+            if cur:
+                out[cur] = {}
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out[cur]["spill_stores"] = int(m.group(1))
+            out[cur]["spill_loads"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?", line)
+        if m:
+            out[cur]["registers"] = int(m.group(1))
+            out[cur]["static_smem_bytes"] = int(m.group(2) or 0)
+    return out
+
+
+def launch_floor_ms() -> float:
+    """One graph node of an empty kernel: the card's floor for a launch."""
+    import torch
+    from easydarwin_tpu_torch.ops import kernel_lib
+    lib = kernel_lib.library()
+
+    def floor():
+        rc = lib.ed_launch_floor(torch.cuda.current_stream().cuda_stream)
+        check(rc == 0, f"ed_launch_floor: {kernel_lib.error_message(rc)}")
+    return graph_ms(floor, inner=100)
+
+
 def phase_kernels(rng, launches: dict, errs: dict, levels, qt
                   ) -> list[dict]:
-    """Times at the config-4 (K1, window) and config-5 (K2) shapes: each
-    kernel alone (entry point on preallocated outputs) and its plain
-    version, by CUDA events around graph replays; K2 also beside cuBLAS's
-    fp32 product alone.  The wrappers' direct-call times go to the
-    detail."""
+    """Each kernel alone (entry point on preallocated outputs) and its
+    plain version, by CUDA events around graph replays, at the main path's
+    shapes (K1: 256 rows; window: the phase-6 wake group, one launch) and
+    at the config-4 shapes of earlier runs (K1: 4,096 rows; window:
+    [16,256,100]x[16,256,6], and its bytes as [64,64,100]x[64,64,6], which
+    needs no cluster); K2 at config 5 beside cuBLAS's fp32 product alone.
+    The wrappers' direct-call times go to the detail."""
+    import ctypes
     import torch
     from easydarwin_tpu_torch.ops import fanout, kernel_lib
     from easydarwin_tpu_torch.ops import transform as tf
     from easydarwin_tpu_torch.ops.parse import parse_packets
     from easydarwin_tpu_torch.ops.parse_kernel import parse_packets_kernel
     from easydarwin_tpu_torch.ops.transform_kernel import decode_blocks_kernel
-    rows = 16 * 256
-    pre, ln = fuzz_rows(rng, rows)
-    dp, dl = torch.from_numpy(pre).cuda(), torch.from_numpy(ln).cuda()
-    words = torch.empty((rows, 4), dtype=torch.int32, device="cuda")
-    flags = torch.empty((rows, 5), dtype=torch.int32, device="cuda")
-    win, st = window_inputs(rng, 16, 16, 256, 256, 256)
-    dw, ds = torch.from_numpy(win).cuda(), torch.from_numpy(st).cuda()
-    packed = torch.empty((16, 4 * 256 + 1), dtype=torch.int32, device="cuda")
+    relay_src = "easydarwin_tpu_torch/csrc/relay_kernels.cu"
+    cases = []
+
+    def k1_case(rows: int, main: bool):
+        pre, ln = fuzz_rows(rng, rows)
+        dp, dl = torch.from_numpy(pre).cuda(), torch.from_numpy(ln).cuda()
+        words = torch.empty((rows, 4), dtype=torch.int32, device="cuda")
+        flags = torch.empty((rows, 5), dtype=torch.int32, device="cuda")
+        cases.append((
+            "ed_parse_packets", f"[{rows},96]", main, relay_src,
+            "easydarwin_tpu/ops/parse_pallas.py:84",
+            lambda: kernel_lib.launch(
+                "ed_parse_packets", dp.data_ptr(), rows, 96, dl.data_ptr(),
+                words.data_ptr(), flags.data_ptr()),
+            lambda: parse_packets_kernel(dp, dl),
+            lambda: parse_packets(dp, dl), None,
+            dp.numel() + 4 * rows + (16 + 20) * rows,
+            OPS_PER_PACKET * rows, 100))
+
+    def window_case(specs, main: bool):
+        pairs = window_group(rng, specs)
+        outs = [torch.empty((w.shape[0], 4 * s.shape[1] + 1),
+                            dtype=torch.int32, device="cuda")
+                for w, s in pairs]
+        shapes = [(*w.shape, s.shape[1]) for w, s in pairs]
+        (plan,) = fanout.window_launch_plan(
+            shapes, [w.data_ptr() for w, _ in pairs])
+        descs = fanout.window_descriptors(plan, pairs, outs)
+        nbytes = sum(w.numel() + 4 * s.numel() + 4 * o.numel()
+                     for (w, s), o in zip(pairs, outs))
+        ops = sum(OPS_PER_WINDOW_ROW * b * p + OPS_PER_SUBSCRIBER * b * n_s
+                  for b, p, _w, n_s in shapes)
+        cases.append((
+            "ed_relay_window",
+            " + ".join(f"[{b},{p},{w}]x[{b},{n_s},6]"
+                       for b, p, w, n_s in shapes) + f" (C={plan.cluster})",
+            main, relay_src, "easydarwin_tpu/ops/fanout.py:183",
+            lambda: kernel_lib.launch("ed_relay_window",
+                                      ctypes.addressof(descs), len(descs),
+                                      plan.cluster),
+            lambda: fanout.relay_affine_step_windows(pairs),
+            lambda: [fanout.relay_affine_step_window_plain(w, s)
+                     for w, s in pairs], None, nbytes, ops, 100))
+
+    k1_case(256, True)
+    k1_case(16 * 256, False)
+    window_case(WAKE_GROUP, True)
+    window_case(((16, 16, 256, 256, 256),), False)
+    # config 4's bytes and 64 CTAs again, as 64 streams of 64 rows: one CTA
+    # a stream row, so no cluster exchange
+    window_case(((64, 64, 64, 64, 64),), False)
     n = levels.shape[0]
     inv = tf.operator("inv", levels.device)    # the library's operator
     idct8 = tf.operator("idct8", levels.device)
     pixels = torch.empty((n, 64), dtype=torch.uint8, device="cuda")
     deq = tf.dequantize(levels, qt)            # the library's input
-    k1_bytes = dp.numel() + 4 * rows + (16 + 20) * rows
-    win_bytes = dw.numel() + 4 * ds.numel() + 4 * packed.numel()
-    k2_bytes = (4 * levels.numel() + 4 * 64 + 4 * idct8.numel()
-                + pixels.numel())
-    k1_ops = OPS_PER_PACKET * rows
-    win_ops = OPS_PER_WINDOW_ROW * 16 * 256 + OPS_PER_SUBSCRIBER * 16 * 256
     # the separable IDCT: a row and a column pass of 8 x 64 fp32
     # multiply-adds per block (the dense 64x64 product would be 4x this)
-    k2_ops = 2 * (2 * 8 * 64) * n
-    relay_src = "easydarwin_tpu_torch/csrc/relay_kernels.cu"
-    cases = (
-        ("ed_parse_packets", relay_src, "easydarwin_tpu/ops/parse_pallas.py:84",
-         lambda: kernel_lib.launch(
-             "ed_parse_packets", dp.data_ptr(), rows, 96, dl.data_ptr(),
-             words.data_ptr(), flags.data_ptr()),
-         lambda: parse_packets_kernel(dp, dl),
-         lambda: parse_packets(dp, dl), None, k1_bytes, k1_ops, 100),
-        ("ed_relay_window", relay_src, "easydarwin_tpu/ops/fanout.py:183",
-         lambda: kernel_lib.launch(
-             "ed_relay_window", dw.data_ptr(), 16, 256, 100, ds.data_ptr(),
-             256, packed.data_ptr()),
-         lambda: fanout.relay_affine_step_window(dw, ds),
-         lambda: fanout.relay_affine_step_window_plain(dw, ds), None,
-         win_bytes, win_ops, 100),
-        ("ed_decode_blocks", "easydarwin_tpu_torch/csrc/transform_kernels.cu",
-         "easydarwin_tpu/ops/transform.py:172",
-         lambda: kernel_lib.launch(
-             "ed_decode_blocks", levels.data_ptr(), n, qt.data_ptr(),
-             idct8.data_ptr(), pixels.data_ptr()),
-         lambda: decode_blocks_kernel(levels, qt),
-         lambda: tf.decode_blocks_plain(levels, qt),
-         lambda: torch.matmul(deq, inv.T),      # product alone
-         k2_bytes, k2_ops, 20),
-    )
+    cases.append((
+        "ed_decode_blocks", f"[{n},64]", True,
+        "easydarwin_tpu_torch/csrc/transform_kernels.cu",
+        "easydarwin_tpu/ops/transform.py:172",
+        lambda: kernel_lib.launch(
+            "ed_decode_blocks", levels.data_ptr(), n, qt.data_ptr(),
+            idct8.data_ptr(), pixels.data_ptr()),
+        lambda: decode_blocks_kernel(levels, qt),
+        lambda: tf.decode_blocks_plain(levels, qt),
+        lambda: torch.matmul(deq, inv.T),      # product alone
+        4 * levels.numel() + 4 * 64 + 4 * idct8.numel() + pixels.numel(),
+        2 * (2 * 8 * 64) * n, 20))
     out = []
-    for (name, src, src_line, kernel, wrapper, plain, library, nbytes, ops,
-         inner) in cases:
+    for (name, shape, main, src, src_line, kernel, wrapper, plain, library,
+         nbytes, ops, inner) in cases:
         t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
         t_ops = ops / PEAK_OPS_PER_S * 1e3
         ms = graph_ms(kernel, inner=inner)
@@ -616,6 +801,7 @@ def phase_kernels(rng, launches: dict, errs: dict, levels, qt
             "library_ms": None if library is None
             else graph_ms(library, inner=inner),
             # detail only (not part of the kernels line)
+            "_shape": shape, "_main_path": main,
             "_bytes": nbytes, "_ops": ops,
             "_gb_per_s": nbytes / ms / 1e6,
             "_bound_share": max(t_bytes, t_ops) / ms,
@@ -664,6 +850,9 @@ def main() -> int:
     detail["matmul_settings"] = matmul
 
     detail["k1"] = phase_k1(rng)
+    detail["relay_geometry"] = relay_geometry()
+    log(f"[window] library geometry {detail['relay_geometry']} = the Python "
+        f"launch plans")
     detail["window"] = phase_window(rng)
     levels, qt = config5_levels(int(rng.integers(1 << 31)))
     detail["k2_ring"] = ring_geometry()
@@ -689,14 +878,23 @@ def main() -> int:
             "ed_relay_window": max(detail["window"].values()),
             "ed_decode_blocks": max(v["max_abs_err"]
                                     for v in detail["k2"].values())}
+    detail["launch_floor_ms"] = launch_floor_ms()
+    log(f"[kernels] launch floor: {detail['launch_floor_ms']:.6f} ms per "
+        f"graph node (ed_launch_floor, an empty kernel)")
+    detail["ptxas"] = ptxas_report(detail["build"]["log"])
+    for name, rep in detail["ptxas"].items():
+        log(f"[kernels] ptxas {name}: {rep}")
     timed = phase_kernels(rng, launches, errs, levels, qt)
     detail["kernels"] = timed
     kernels = [{k: v for k, v in t.items() if not k.startswith("_")}
-               for t in timed]
+               for t in timed if t["_main_path"]]
     for k in timed:
         lib = ("" if k["library_ms"] is None
                else f", library {k['library_ms']:.6f} ms")
-        log(f"[kernels] {k['name']}: {k['ms']:.6f} ms (plain "
+        where = "main path" if k["_main_path"] else "earlier runs' shape"
+        log(f"[kernels] {k['name']} at {k['_shape']} ({where}): "
+            f"{k['ms']:.6f} ms, {k['ms'] / detail['launch_floor_ms']:.2f}x "
+            f"the launch floor (plain "
             f"{k['plain_ms']:.6f} ms, bound {k['bound_ms']:.6f} ms by "
             f"{k['bound_by']}{lib}), {k['_gb_per_s']:.1f} GB/s, "
             f"{k['_bound_share']:.1%} of the bound, wrapper "

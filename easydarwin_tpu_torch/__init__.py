@@ -2,8 +2,9 @@
 
 The live RTP relay runs here on an NVIDIA H100: the megabatch scheduler
 stages every stream's new ring packets into fused ``[B, P, 96+4]`` rows,
-and one hand-written CUDA kernel per shape bucket (``csrc/relay_kernels.cu``)
-parses them and emits the per-subscriber affine rewrite.  The config-5
+and one launch of a hand-written CUDA kernel per wake, over every shape
+bucket (``csrc/relay_kernels.cu``), parses them and emits the
+per-subscriber affine rewrite.  The config-5
 transcode path runs here too: ``models.TranscodePipeline`` requantizes
 coefficient blocks into every ladder rung and decodes pixels with the
 hand-written K2 (``csrc/transform_kernels.cu``), and the live MJPEG ladder

@@ -6,8 +6,8 @@
 // into build/easydarwin_tpu_torch/ and bound with ctypes: plain C entry
 // points taking pointers, sizes, strides and the caller's stream.  Each
 // entry point launches on that stream, never synchronises, allocates
-// nothing, and returns cudaGetLastError() so the Python wrapper can raise
-// on a refused launch.
+// nothing, and returns a cudaError_t so the Python wrapper can raise on a
+// refused launch.
 //
 // What these replace
 //   * ed_parse_packets (K1) replaces the Pallas kernel
@@ -17,44 +17,89 @@
 //     (nal_type, keyframe_first, frame_first, frame_last, marker).
 //   * ed_relay_window replaces the XLA pass
 //     easydarwin_tpu/ops/fanout.py:relay_affine_step_window (the megabatch
-//     window step) with K1's parse fused in: [B, P, 100] uint8 rows
+//     window step) with K1's parse fused in: [B, P, W>=100] uint8 rows
 //     (96-byte prefix + le32 length) and [B, S, 6] uint32 subscriber state
-//     -> [B, 4*S+1] uint32 (seq_off | ts_off | ssrc | chan | newest_kf).
+//     -> [B, 4*S+1] uint32 (seq_off | ts_off | ssrc | chan | newest_kf),
+//     for every shape bucket of a scheduler wake in ONE launch.
 //
 // Why the TPU's trick is dropped
 //   The TPU kernel avoids per-row dynamic gathers by building each byte at
 //   12 + 4*CC + delta from 16 masked static column slices
 //   (parse_pallas.py:30-38), because Mosaic lowers that to vector selects.
-//   On Hopper one thread owns one packet and simply indexes its own row at
-//   12 + 4*CC + delta; the loads hit L1/L2 lines the thread's neighbours
-//   are reading anyway.
+//   On Hopper one thread owns one packet and indexes its own row, which
+//   sits in shared memory.
 //
-// What bounds it
+// What bounds them
 //   At the megabatch's config-4 size (16 streams x 256 packets x 256
 //   subscribers) the window pass reads 16*256*100 B = 410 KB of rows plus
-//   16*256*24 B = 98 KB of state and writes 16*1025*4 B = 66 KB: about
-//   0.17 us at 3.35 TB/s.  The arithmetic is a few dozen integer ops per
-//   packet.  So the pass is bound by launch latency, not by bytes or
-//   operations; the design keeps it to ONE launch per shape bucket per
-//   wake (parse + keyframe reduction + affine emit in one block per
-//   stream) instead of the several launches separate torch ops would take.
+//   16*256*24 B = 98 KB of state and writes 16*1025*4 B = 66 KB: 0.17 us
+//   at 3.35 TB/s.  A scheduler wake's buckets are smaller still, and K1 on
+//   the main path parses 256 rows.  The arithmetic is a few dozen integer
+//   ops per packet.  So both kernels are bound by latency: the launch, and
+//   inside it the chain of dependent memory round trips per packet
+//   (row[0] -> row[hs] -> the inner NAL byte), not by bytes or operations.
 //
-// Scope
-//   Simple and right first: rows are read byte by byte (a 100-byte row is
-//   not 4-byte aligned), one block of 256 threads per stream row.
-//   Coalesced 16-byte row loads, TMA and a CUDA graph around the wake are
-//   for later work.
+// What the design does about that
+//   * One launch per wake: ed_relay_window takes up to kMaxBuckets bucket
+//     descriptors by value (a __grid_constant__ struct), so every bucket of
+//     a wake shares one launch; a cluster finds its bucket by a short scan.
+//   * One thread-block cluster per stream row, C = min(8, max(1, P_max/64))
+//     CTAs (the launch plan of ops/fanout.py:window_launch_plan, which this
+//     file computes by the same formulas).  CTA rank r takes rows
+//     [r*P/C, (r+1)*P/C) and subscribers [r*S/C, (r+1)*S/C), so a stream's
+//     rows are pulled by C SMs at once.
+//   * Rows come into shared memory by ONE bulk asynchronous copy
+//     (cp.async.bulk ... mbarrier::complete_tx) of the 16-byte-aligned
+//     interior of the CTA's byte span, issued by one elected thread; the
+//     at most 15 head and 15 tail bytes outside it are plain loads by the
+//     other threads.  One code path serves ragged P and W and unaligned
+//     views.  The buffer keeps the global address's offset mod 16, so byte
+//     i of the span is buf[i] whatever the alignment.
+//   * The subscriber emit does not depend on the rows: it runs while the
+//     copy is in flight, and only then do the threads wait on the mbarrier.
+//   * The parse reads shared memory, and issues every peek that may be
+//     needed (row[hs + 0/1/3/5/8/9]) at once after row[0], so a packet
+//     costs two dependent shared-memory latencies.
+//   * The newest keyframe: __reduce_max_sync in a warp, a shared-memory max
+//     across warps, and across the cluster each rank stores its partial
+//     max into rank 0's shared memory through distributed shared memory;
+//     after ONE cluster barrier rank 0 reduces them.  (Rank 0 pulling the
+//     partials between two barriers measured slower on the H100: every
+//     cluster barrier and every serial remote load is latency.)
+//   * K1 runs the same parse on 64-row tiles brought in by the same bulk
+//     copy; it writes words as one 16-byte store a row, and stages flags in
+//     shared memory so the CTA writes them with coalesced 4-byte stores.
 
 #include <cstdint>
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kParsePrefix = 96;       // PARSE_PREFIX: where the le32 length sits
+constexpr int kWindowExtra = 4;        // the le32 length
 constexpr int kMinClassifyLen = 20;    // the reflector's classify floor
-constexpr int kThreads = 256;
 constexpr int kStateCols = 6;          // ssrc, base_seq, base_ts, seq0, ts0, chan
+constexpr int kFlagCols = 5;
+constexpr int kBulkAlign = 16;         // cp.async.bulk: address and size
+// dynamic shared memory a launch may ask for without an opt-in (48 KB less
+// room for the kernels' static shared memory)
+constexpr int kDynSmemLimit = 48 * 1024 - 2048;
+
+constexpr int kWindowThreads = 128;
+constexpr int kWindowWarps = kWindowThreads / 32;
+constexpr int kEmitPerThread = 2;      // subscribers a window thread emits
+constexpr int kMaxBuckets = 32;
+constexpr int kMaxCluster = 8;         // the portable cluster size
+constexpr int kTileRows = 64;          // K1: rows (and threads) per CTA
+
+// head + tail bytes are at most 2 * 15 (an empty interior means a span of
+// at most 30 bytes); threads 1.. load them, one byte each
+static_assert(kWindowThreads - 1 >= 2 * (kBulkAlign - 1), "head/tail loaders");
+static_assert(kTileRows - 1 >= 2 * (kBulkAlign - 1), "head/tail loaders");
 
 struct Parsed {
   uint32_t seq, ts, ssrc, hs;
@@ -64,12 +109,17 @@ struct Parsed {
 // K1's fields for one packet.  ``row`` holds at least kParsePrefix bytes;
 // the deepest peek is 12 + 4*15 + 9 = 81 < 96, so no read leaves the row
 // whatever the packet's length (the length only gates what a peek means).
-__device__ __forceinline__ Parsed parse_row(const uint8_t* __restrict__ row,
+// Every peek is issued before any is used: row[0] gives hs, then the six
+// payload bytes come in parallel.
+__device__ __forceinline__ Parsed parse_row(const uint8_t* row,
                                             int32_t length) {
   Parsed o;
   const int b0 = row[0];
   const int b1 = row[1];
   const int hs = 12 + 4 * (b0 & 0x0F);
+  const uint8_t* pl = row + hs;
+  const int p0 = pl[0], p1 = pl[1], p3 = pl[3], p5 = pl[5], p8 = pl[8],
+            p9 = pl[9];
   o.seq = (uint32_t(row[2]) << 8) | uint32_t(row[3]);
   o.ts = (uint32_t(row[4]) << 24) | (uint32_t(row[5]) << 16) |
          (uint32_t(row[6]) << 8) | uint32_t(row[7]);
@@ -78,17 +128,17 @@ __device__ __forceinline__ Parsed parse_row(const uint8_t* __restrict__ row,
   o.hs = uint32_t(hs);
   const bool marker = (b1 & 0x80) != 0;
   const bool classifiable = length >= kMinClassifyLen && length > hs;
-  const int nal0 = row[hs] & 0x1F;
+  const int nal0 = p0 & 0x1F;
   int eff = nal0;
   // STAP-A/B, MTAP16/24: the first aggregated NAL's header byte
   const int off = nal0 == 24 ? 3 : nal0 == 25 ? 5 : nal0 == 26 ? 8
                 : nal0 == 27 ? 9 : 0;
-  if (off != 0 && length > hs + off) eff = row[hs + off] & 0x1F;
+  const int inner = nal0 == 24 ? p3 : nal0 == 25 ? p5 : nal0 == 26 ? p8 : p9;
+  if (off != 0 && length > hs + off) eff = inner & 0x1F;
   // FU-A/B: the fragmented NAL's type, only on the start fragment
-  const int fu_hdr = row[hs + 1];
   const bool fu_start = (nal0 == 28 || nal0 == 29) && length > hs + 1 &&
-                        (fu_hdr & 0x80) != 0;
-  if (fu_start) eff = fu_hdr & 0x1F;
+                        (p1 & 0x80) != 0;
+  if (fu_start) eff = p1 & 0x1F;
   if (!classifiable) eff = -1;
   o.nal = eff;
   o.kf = classifiable && (eff == 5 || eff == 7 || eff == 8);
@@ -98,69 +148,223 @@ __device__ __forceinline__ Parsed parse_row(const uint8_t* __restrict__ row,
   return o;
 }
 
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ int32_t le32(const uint8_t* p) {
+  return int32_t(uint32_t(p[0]) | (uint32_t(p[1]) << 8) |
+                 (uint32_t(p[2]) << 16) | (uint32_t(p[3]) << 24));
+}
+
+// A byte span [addr, addr + nbytes) cut into a head, a 16-byte-aligned
+// interior (a multiple of 16, what one bulk copy moves) and a tail
+// (kernel_lib.bulk_split is the same rule).
+struct BulkSpan {
+  uint32_t head, interior, tail;
+};
+
+__host__ __device__ __forceinline__ BulkSpan bulk_split(uintptr_t addr,
+                                                        uint32_t nbytes) {
+  const uintptr_t lo = (addr + kBulkAlign - 1) & ~uintptr_t(kBulkAlign - 1);
+  const uintptr_t hi = (addr + nbytes) & ~uintptr_t(kBulkAlign - 1);
+  if (hi <= lo) return {nbytes, 0u, 0u};
+  return {uint32_t(lo - addr), uint32_t(hi - lo), uint32_t(addr + nbytes - hi)};
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  }
+}
+
+// Bring the span [src, src + nbytes) into buf (buf keeps src's offset mod
+// 16, so buf[i] == src[i]).  Thread 0 initialises the mbarrier and issues
+// one bulk copy of the aligned interior; threads 1.. load the head and
+// tail bytes.  Returns whether the caller must wait on ``bar`` (phase 0)
+// after a __syncthreads.
+__device__ __forceinline__ bool bulk_fetch(uint8_t* buf, const uint8_t* src,
+                                           uint32_t nbytes, uint64_t* bar) {
+  const BulkSpan sp = bulk_split(reinterpret_cast<uintptr_t>(src), nbytes);
+  const int t = threadIdx.x;
+  if (t == 0 && sp.interior != 0) {
+    const uint32_t b = smem_addr(bar);
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" :: "r"(b) : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+                 :: "r"(b), "r"(sp.interior) : "memory");
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+        " [%0], [%1], %2, [%3];"
+        :: "r"(smem_addr(buf + sp.head)), "l"(src + sp.head),
+           "r"(sp.interior), "r"(b) : "memory");
+  }
+  const int i = t - 1;
+  if (i >= 0 && i < int(sp.head + sp.tail)) {
+    const uint32_t at = i < int(sp.head) ? uint32_t(i)
+                                         : nbytes - sp.tail + (i - sp.head);
+    buf[at] = src[at];
+  }
+  return sp.interior != 0;
+}
+
+// ------------------------------------------------------------------ K1
+
+__global__ void __launch_bounds__(kTileRows)
 parse_packets_kernel(const uint8_t* __restrict__ prefix, int n_rows,
                      int row_stride, const int32_t* __restrict__ length,
-                     uint32_t* __restrict__ words,
-                     int32_t* __restrict__ flags) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n_rows) return;
-  const Parsed p = parse_row(prefix + size_t(i) * row_stride, length[i]);
-  uint32_t* w = words + size_t(i) * 4;
-  w[0] = p.seq;
-  w[1] = p.ts;
-  w[2] = p.ssrc;
-  w[3] = p.hs;
-  int32_t* f = flags + size_t(i) * 5;
-  f[0] = p.nal;
-  f[1] = p.kf;
-  f[2] = p.ff;
-  f[3] = p.fl;
-  f[4] = p.marker;
-}
-
-// One block per stream row b.  Phase 1: every thread parses a strided
-// subset of the P rows and keeps the newest keyframe-first row index;
-// a warp-shuffle + shared-memory max gives the block's newest (or -1).
-// Phase 2: the threads emit the per-subscriber affine columns.
-__global__ void __launch_bounds__(kThreads)
-relay_window_kernel(const uint8_t* __restrict__ window, int n_pkts,
-                    int row_stride, const uint32_t* __restrict__ state,
-                    int n_subs, uint32_t* __restrict__ out) {
-  const int b = blockIdx.x;
-  const uint8_t* rows = window + size_t(b) * n_pkts * row_stride;
-  int best = -1;
-  for (int p = threadIdx.x; p < n_pkts; p += blockDim.x) {
-    const uint8_t* row = rows + size_t(p) * row_stride;
-    const uint8_t* lb = row + kParsePrefix;    // unaligned: byte by byte
-    const int32_t len = int32_t(uint32_t(lb[0]) | (uint32_t(lb[1]) << 8) |
-                                (uint32_t(lb[2]) << 16) |
-                                (uint32_t(lb[3]) << 24));
-    const Parsed q = parse_row(row, len);
-    // padding rows carry length 0: never valid, never a keyframe
-    if (q.kf && len > 0) best = p;             // p grows: last hit is max
-  }
-  for (int o = 16; o > 0; o >>= 1)
-    best = max(best, __shfl_down_sync(0xffffffffu, best, o));
-  __shared__ int warp_best[kThreads / 32];
-  if ((threadIdx.x & 31) == 0) warp_best[threadIdx.x >> 5] = best;
-
-  const uint32_t* st = state + size_t(b) * n_subs * kStateCols;
-  uint32_t* o = out + size_t(b) * (4 * size_t(n_subs) + 1);
-  for (int s = threadIdx.x; s < n_subs; s += blockDim.x) {
-    const uint32_t* r = st + size_t(s) * kStateCols;
-    o[s] = (r[3] - r[1]) & 0xFFFFu;            // seq_off (mod 2^16)
-    o[n_subs + s] = r[4] - r[2];               // ts_off (mod 2^32)
-    o[2 * n_subs + s] = r[0];                  // ssrc
-    o[3 * n_subs + s] = r[5];                  // interleave channel
+                     uint4* __restrict__ words, int32_t* __restrict__ flags) {
+  extern __shared__ __align__(16) uint8_t s_tile[];
+  __shared__ uint64_t s_bar;
+  __shared__ int32_t s_flags[kTileRows * kFlagCols];
+  const int t = threadIdx.x;
+  const int row0 = blockIdx.x * kTileRows;
+  const int rows = min(kTileRows, n_rows - row0);
+  const uint8_t* src = prefix + size_t(row0) * row_stride;
+  uint8_t* buf = s_tile + (reinterpret_cast<uintptr_t>(src) & (kBulkAlign - 1));
+  const bool wait = bulk_fetch(buf, src, uint32_t(rows) * row_stride, &s_bar);
+  const int32_t len = t < rows ? length[row0 + t] : 0;    // coalesced
+  __syncthreads();
+  if (wait) mbar_wait(smem_addr(&s_bar), 0);
+  if (t < rows) {
+    const Parsed p = parse_row(buf + size_t(t) * row_stride, len);
+    words[row0 + t] = make_uint4(p.seq, p.ts, p.ssrc, p.hs);
+    int32_t* f = s_flags + t * kFlagCols;
+    f[0] = p.nal;
+    f[1] = p.kf;
+    f[2] = p.ff;
+    f[3] = p.fl;
+    f[4] = p.marker;
   }
   __syncthreads();
-  if (threadIdx.x == 0) {
+  int32_t* out = flags + size_t(row0) * kFlagCols;
+  for (int j = t; j < rows * kFlagCols; j += kTileRows) out[j] = s_flags[j];
+}
+
+// ------------------------------------------------------------- window
+
+// One shape bucket of a grouped window launch (ops/fanout.py
+// WindowBucketDesc has the same layout).
+struct WindowBucket {
+  const uint8_t* window;     // [n_streams, n_pkts, row_stride] uint8
+  const uint32_t* state;     // [n_streams, n_subs, kStateCols] uint32
+  uint32_t* out;             // [n_streams, 4 * n_subs + 1] uint32
+  int n_streams, n_pkts, row_stride, n_subs;
+  int first_cluster;         // clusters of earlier buckets in the launch
+  int pad;
+};
+
+struct WindowLaunch {
+  WindowBucket bucket[kMaxBuckets];
+  int n_buckets;
+};
+
+static_assert(sizeof(WindowBucket) == 48, "WindowBucketDesc layout");
+static_assert(sizeof(WindowLaunch) < 4096, "kernel parameter space");
+
+// One cluster per stream row of one bucket.  Phase 1 (no dependence on the
+// rows): bulk copy in flight, the subscribers' affine columns written.
+// Phase 2: parse the CTA's rows from shared memory and keep the newest
+// keyframe-first row; phase 3: reduce it over the warp, the CTA and the
+// cluster; rank 0 writes newest_kf.  When the launch's cluster size is
+// above 1 this costs a cluster barrier; the split is what keeps a CTA's
+// rows within 48 KB of shared memory at MAX_STAGE_ROWS.
+__global__ void __launch_bounds__(kWindowThreads)
+relay_window_kernel(const __grid_constant__ WindowLaunch launch) {
+  extern __shared__ __align__(16) uint8_t s_rows[];
+  __shared__ uint64_t s_bar;
+  __shared__ int s_warp_best[kWindowWarps];
+  __shared__ int s_rank_best[kMaxCluster];     // rank 0's: every rank's max
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int n_ranks = int(cluster.num_blocks());
+  const int rank = int(cluster.block_rank());
+  const int cluster_id = blockIdx.x / n_ranks;
+  int k = 0;
+  while (k + 1 < launch.n_buckets &&
+         cluster_id >= launch.bucket[k + 1].first_cluster)
+    ++k;
+  const WindowBucket& bk = launch.bucket[k];
+  const int b = cluster_id - bk.first_cluster;
+  const int n_pkts = bk.n_pkts, stride = bk.row_stride, n_subs = bk.n_subs;
+  const int row_lo = rank * n_pkts / n_ranks;
+  const int row_hi = (rank + 1) * n_pkts / n_ranks;
+  const int sub_lo = rank * n_subs / n_ranks;
+  const int sub_hi = (rank + 1) * n_subs / n_ranks;
+  const int t = threadIdx.x;
+
+  const uint8_t* src = bk.window + (size_t(b) * n_pkts + row_lo) * stride;
+  uint8_t* buf = s_rows + (reinterpret_cast<uintptr_t>(src) & (kBulkAlign - 1));
+  const bool wait =
+      bulk_fetch(buf, src, uint32_t(row_hi - row_lo) * stride, &s_bar);
+
+  const uint32_t* __restrict__ st = bk.state + size_t(b) * n_subs * kStateCols;
+  uint32_t* __restrict__ o = bk.out + size_t(b) * (4 * size_t(n_subs) + 1);
+  // kEmitPerThread subscribers a thread, every state word loaded before any
+  // store: one memory round trip for up to 256 subscribers a CTA.  State
+  // columns: ssrc, base_seq, base_ts, seq0, ts0, chan.
+  for (int s0 = sub_lo + t; s0 < sub_hi;
+       s0 += kEmitPerThread * kWindowThreads) {
+    uint32_t sv[kEmitPerThread][kStateCols];
+#pragma unroll
+    for (int j = 0; j < kEmitPerThread; ++j) {
+      const int s = s0 + j * kWindowThreads;
+#pragma unroll
+      for (int c = 0; c < kStateCols; ++c)
+        sv[j][c] = s < sub_hi ? st[size_t(s) * kStateCols + c] : 0u;
+    }
+#pragma unroll
+    for (int j = 0; j < kEmitPerThread; ++j) {
+      const int s = s0 + j * kWindowThreads;
+      if (s < sub_hi) {
+        o[s] = (sv[j][3] - sv[j][1]) & 0xFFFFu;  // seq_off (mod 2^16)
+        o[n_subs + s] = sv[j][4] - sv[j][2];     // ts_off (mod 2^32)
+        o[2 * n_subs + s] = sv[j][0];            // ssrc
+        o[3 * n_subs + s] = sv[j][5];            // interleave channel
+      }
+    }
+  }
+  __syncthreads();                             // mbarrier init, head/tail bytes
+  if (wait) mbar_wait(smem_addr(&s_bar), 0);
+
+  int best = -1;
+  for (int p = t; p < row_hi - row_lo; p += kWindowThreads) {
+    const uint8_t* row = buf + size_t(p) * stride;
+    const int32_t len = le32(row + kParsePrefix);
+    const Parsed q = parse_row(row, len);
+    // padding rows carry length 0: never valid, never a keyframe
+    if (q.kf && len > 0) best = row_lo + p;   // p grows: last hit is max
+  }
+  best = __reduce_max_sync(0xffffffffu, best);
+  if ((t & 31) == 0) s_warp_best[t >> 5] = best;
+  __syncthreads();
+  if (t == 0) {
     int m = -1;
-    for (int w = 0; w < kThreads / 32; ++w) m = max(m, warp_best[w]);
-    o[4 * size_t(n_subs)] = uint32_t(m);       // -1 rides as 0xFFFFFFFF
+    for (int w = 0; w < kWindowWarps; ++w) m = max(m, s_warp_best[w]);
+    if (n_ranks == 1)
+      o[4 * size_t(n_subs)] = uint32_t(m);     // -1 rides as 0xFFFFFFFF
+    else                                       // into rank 0's shared memory
+      *cluster.map_shared_rank(&s_rank_best[rank], 0) = m;
+  }
+  if (n_ranks == 1) return;
+  // every rank's max is in rank 0's shared memory; after this barrier no
+  // CTA touches another's shared memory, so the others may exit
+  cluster.sync();
+  if (rank == 0 && t == 0) {
+    int m = -1;
+    for (int r = 0; r < n_ranks; ++r) m = max(m, s_rank_best[r]);
+    o[4 * size_t(n_subs)] = uint32_t(m);
   }
 }
+
+// The card's floor for one launch: a kernel that does nothing.
+__global__ void launch_floor_kernel() {}
 
 }  // namespace
 
@@ -169,27 +373,79 @@ extern "C" {
 int ed_parse_packets(const void* prefix, int n_rows, int row_stride,
                      const void* length, void* words, void* flags,
                      void* stream) {
-  if (n_rows > 0) {
-    const int blocks = (n_rows + kThreads - 1) / kThreads;
-    parse_packets_kernel<<<blocks, kThreads, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const uint8_t*>(prefix), n_rows, row_stride,
-        static_cast<const int32_t*>(length), static_cast<uint32_t*>(words),
-        static_cast<int32_t*>(flags));
-  }
+  if (n_rows <= 0) return 0;
+  const size_t smem = size_t(kTileRows) * row_stride + kBulkAlign;
+  if (row_stride < kParsePrefix || smem > size_t(kDynSmemLimit) ||
+      (reinterpret_cast<uintptr_t>(words) & 15) != 0)
+    return int(cudaErrorInvalidValue);
+  const int blocks = (n_rows + kTileRows - 1) / kTileRows;
+  parse_packets_kernel<<<blocks, kTileRows, smem,
+                         static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(prefix), n_rows, row_stride,
+      static_cast<const int32_t*>(length), static_cast<uint4*>(words),
+      static_cast<int32_t*>(flags));
   return int(cudaGetLastError());
 }
 
-int ed_relay_window(const void* window, int n_streams, int n_pkts,
-                    int row_stride, const void* state, int n_subs, void* out,
+// One grouped window launch: ``buckets`` points at n_buckets WindowBucket
+// descriptors (first_cluster = the running sum of n_streams), ``cluster``
+// is the launch's cluster size.  The plan is checked, not trusted: a
+// descriptor that does not follow it is refused.
+int ed_relay_window(const void* buckets, int n_buckets, int cluster,
                     void* stream) {
-  if (n_streams > 0) {
-    relay_window_kernel<<<n_streams, kThreads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const uint8_t*>(window), n_pkts, row_stride,
-        static_cast<const uint32_t*>(state), n_subs,
-        static_cast<uint32_t*>(out));
+  if (n_buckets <= 0) return 0;
+  if (n_buckets > kMaxBuckets || cluster < 1 || cluster > kMaxCluster)
+    return int(cudaErrorInvalidValue);
+  WindowLaunch launch = {};
+  launch.n_buckets = n_buckets;
+  const WindowBucket* in = static_cast<const WindowBucket*>(buckets);
+  int clusters = 0;
+  size_t smem = kBulkAlign;
+  for (int k = 0; k < n_buckets; ++k) {
+    const WindowBucket& d = in[k];
+    if (d.first_cluster != clusters || d.n_streams <= 0 || d.n_pkts < 0 ||
+        d.n_subs < 0 || d.row_stride < kParsePrefix + kWindowExtra)
+      return int(cudaErrorInvalidValue);
+    launch.bucket[k] = d;
+    clusters += d.n_streams;
+    const size_t rows = (size_t(d.n_pkts) + cluster - 1) / cluster;
+    const size_t need = rows * d.row_stride + kBulkAlign;
+    if (need > smem) smem = need;
   }
+  smem = (smem + kBulkAlign - 1) & ~size_t(kBulkAlign - 1);
+  if (smem > size_t(kDynSmemLimit)) return int(cudaErrorInvalidValue);
+
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = unsigned(cluster);
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(unsigned(clusters) * unsigned(cluster), 1, 1);
+  cfg.blockDim = dim3(kWindowThreads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, relay_window_kernel, launch);
+  if (err != cudaSuccess) return int(err);
+  return int(cudaGetLastError());
+}
+
+// The constants the Python launch plans mirror (ops/kernel_lib.py and
+// ops/fanout.py): checked by chip_smoke.py against the Python side.
+int ed_relay_geometry(int* max_buckets, int* max_cluster, int* window_threads,
+                      int* tile_rows, int* smem_limit) {
+  *max_buckets = kMaxBuckets;
+  *max_cluster = kMaxCluster;
+  *window_threads = kWindowThreads;
+  *tile_rows = kTileRows;
+  *smem_limit = kDynSmemLimit;
+  return 0;
+}
+
+int ed_launch_floor(void* stream) {
+  launch_floor_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>();
   return int(cudaGetLastError());
 }
 

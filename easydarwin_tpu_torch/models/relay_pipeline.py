@@ -6,9 +6,11 @@ Two parse backends (the hand-written K1 kernel, or the plain PyTorch parse
 * ``affine`` (production): O(S+P) rewrite parameters, egress renders;
 * ``headers``: full [S, P, 12] rendered headers on the device.
 
-``megabatch_window_step`` is the cross-stream stacked pass the scheduler
-(``relay.megabatch``) dispatches once per shape bucket per wake, and
-``scatter_affine_segments`` splits its result back into per-stream params.
+``megabatch_window_steps`` is the cross-stream stacked pass the scheduler
+(``relay.megabatch``) dispatches once per wake over every shape bucket
+(``megabatch_window_step`` is its group of one), and
+``scatter_affine_segments`` splits a bucket's result back into per-stream
+params.
 """
 
 from __future__ import annotations
@@ -104,6 +106,14 @@ def megabatch_window_step(window: torch.Tensor,
     (``seq_off[S] ∥ ts_off[S] ∥ ssrc[S] ∥ chan[S] ∥ newest_keyframe``).
     On the card this is one ``ed_relay_window`` launch."""
     return fanout_ops.relay_affine_step_window(window, out_state)
+
+
+def megabatch_window_steps(pairs) -> list[torch.Tensor]:
+    """``megabatch_window_step`` over every ``(window, out_state)`` bucket
+    of a wake, one result per bucket.  On the card this is ONE
+    ``ed_relay_window`` launch (for up to ``WINDOW_MAX_BUCKETS``
+    buckets)."""
+    return fanout_ops.relay_affine_step_windows(pairs)
 
 
 def scatter_affine_segments(packed, n_subs):

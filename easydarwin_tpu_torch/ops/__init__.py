@@ -4,8 +4,9 @@ beside them.
     parse.parse_packets          RTP fixed header + H.264/MJPEG classify
     parse_kernel                 K1 on the card (``ed_parse_packets``)
     gop.newest_keyframe          IDR bookmark scan
-    fanout.relay_affine_step_window
-                                 the megabatch window pass; on the card the
+    fanout.relay_affine_step_windows
+                                 the megabatch window pass over a wake's
+                                 buckets; on the card one launch of the
                                  fused kernel ``ed_relay_window``
     staging.gather_window        host packing of ring windows into rows
     transform                    DCT/quant/zigzag/downscale math of the

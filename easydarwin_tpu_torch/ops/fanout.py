@@ -7,17 +7,23 @@ base_src_seq) mod 2¹⁶``, ``ts' = ts + (out_ts_start − base_src_ts) mod
 stream instead of O(S·P) headers, and the host egress applies them while
 it writes the wire.
 
-``relay_affine_step_window`` is the megabatch's one device pass per shape
-bucket: on a CUDA tensor it launches the hand-written ``ed_relay_window``
-kernel (K1's parse fused with the keyframe reduction and the affine emit);
-on a CPU tensor it runs ``relay_affine_step_window_plain``, the same
-function in plain PyTorch.
+``relay_affine_step_windows`` is the megabatch's device pass for a whole
+wake: on CUDA tensors it makes ONE launch of the hand-written
+``ed_relay_window`` kernel (K1's parse fused with the keyframe reduction
+and the affine emit) for every ``(window, state)`` bucket, by the plan of
+``window_launch_plan``; on CPU tensors it runs
+``relay_affine_step_window_plain``, the same function in plain PyTorch,
+once per bucket.  ``relay_affine_step_window`` is its group of one.
 
 All arithmetic on 32-bit quantities runs in int64 masked to 16/32 bits;
 values become uint32 only at the output boundary (``u32_from_i64``).
 """
 
 from __future__ import annotations
+
+import ctypes
+import itertools
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -166,23 +172,148 @@ def relay_affine_step_window(window: torch.Tensor,
                              out_state: torch.Tensor) -> torch.Tensor:
     """The megabatch window pass: ``window`` [B, P, 96+4] uint8 (fused
     ``pack_window`` rows) · ``out_state`` [B, S, STATE_COLS] uint32 →
-    [B, 4·S + 1] uint32.  A CUDA tensor launches ``ed_relay_window``; a
-    CPU tensor runs the plain version."""
-    if window.device.type == "cpu":
-        return relay_affine_step_window_plain(window, out_state)
-    if window.device.type != "cuda":
-        raise ValueError(f"no window kernel for device {window.device}")
-    _check_window(window, out_state)
-    dev = window.device
-    kernel_lib.require(window, "window", torch.uint8, 3, dev)
-    kernel_lib.require(out_state, "out_state", torch.uint32, 3, dev)
-    b, p, w = window.shape
-    s = out_state.shape[1]
-    out = torch.empty((b, 4 * s + 1), dtype=torch.int32, device=dev)
-    if b:
-        kernel_lib.launch("ed_relay_window", window.data_ptr(), b, p, w,
-                          out_state.data_ptr(), s, out.data_ptr())
-    return out.view(torch.uint32)
+    [B, 4·S + 1] uint32.  A group of one of ``relay_affine_step_windows``."""
+    return relay_affine_step_windows([(window, out_state)])[0]
+
+
+#: the window kernel's launch geometry (``kMaxBuckets``, ``kMaxCluster``
+#: in ``csrc/relay_kernels.cu``; chip_smoke.py checks them against the
+#: library's ``ed_relay_geometry``)
+WINDOW_MAX_BUCKETS = 32
+WINDOW_MAX_CLUSTER = 8
+#: packets a stream row holds per CTA before its cluster takes another
+WINDOW_ROWS_PER_CTA = 64
+
+
+class WindowBucketDesc(ctypes.Structure):
+    """One bucket of a grouped launch: ``WindowBucket`` in the source."""
+    _fields_ = [("window", ctypes.c_void_p), ("state", ctypes.c_void_p),
+                ("out", ctypes.c_void_p), ("n_streams", ctypes.c_int),
+                ("n_pkts", ctypes.c_int), ("row_stride", ctypes.c_int),
+                ("n_subs", ctypes.c_int), ("first_cluster", ctypes.c_int),
+                ("pad", ctypes.c_int)]
+
+
+def cluster_size(p_max: int) -> int:
+    """CTAs per stream row for a launch whose widest bucket has ``p_max``
+    packets: ``min(8, max(1, p_max // 64))``."""
+    return min(WINDOW_MAX_CLUSTER, max(1, p_max // WINDOW_ROWS_PER_CTA))
+
+
+def cta_range(n: int, rank: int, cluster: int) -> tuple[int, int]:
+    """Rank ``rank``'s contiguous share ``[lo, hi)`` of ``n`` items."""
+    return rank * n // cluster, (rank + 1) * n // cluster
+
+
+@dataclass(frozen=True)
+class WindowCta:
+    """One CTA of a window launch: its stream row, packet rows and
+    subscribers, and how its bytes come into shared memory."""
+    bucket: int                 # index into the caller's bucket list
+    cluster_id: int
+    rank: int
+    stream: int
+    rows: tuple[int, int]
+    subs: tuple[int, int]
+    addr: int                   # first byte of its rows
+    head: int
+    interior: int               # the one bulk copy
+    tail: int
+
+
+@dataclass(frozen=True)
+class WindowLaunch:
+    """One grouped ``ed_relay_window`` launch: at most
+    ``WINDOW_MAX_BUCKETS`` buckets, one cluster of ``cluster`` CTAs per
+    stream row."""
+    buckets: tuple[int, ...]                    # indices into the caller's list
+    first_cluster: tuple[int, ...]
+    shapes: tuple[tuple[int, int, int, int], ...]   # (B, P, W, S)
+    addrs: tuple[int, ...]                      # each window's first byte
+    cluster: int
+    smem_bytes: int
+
+    def ctas(self):
+        """Every CTA, as the kernel computes its spans."""
+        for k, ((n_b, p, w, s), addr) in enumerate(zip(self.shapes,
+                                                        self.addrs)):
+            for b in range(n_b):
+                for r in range(self.cluster):
+                    lo, hi = cta_range(p, r, self.cluster)
+                    start = addr + (b * p + lo) * w
+                    yield WindowCta(self.buckets[k], self.first_cluster[k] + b,
+                                    r, b, (lo, hi),
+                                    cta_range(s, r, self.cluster), start,
+                                    *kernel_lib.bulk_split(start,
+                                                           (hi - lo) * w))
+
+
+def window_launch_plan(shapes, addrs) -> list[WindowLaunch]:
+    """The launches for buckets of ``(B, P, W, S)`` shapes whose windows
+    start at ``addrs``: buckets in order, ``WINDOW_MAX_BUCKETS`` to a
+    launch; a bucket with no stream row gets no CTA.  The dynamic shared
+    memory is the largest CTA span plus the alignment slack; a launch
+    that would need more than ``kernel_lib.DYN_SMEM_LIMIT`` raises."""
+    live = [i for i, shape in enumerate(shapes) if shape[0] > 0]
+    plans = []
+    for g in range(0, len(live), WINDOW_MAX_BUCKETS):
+        idx = tuple(live[g:g + WINDOW_MAX_BUCKETS])
+        group = tuple(tuple(shapes[i]) for i in idx)
+        c = cluster_size(max(p for _b, p, _w, _s in group))
+        align = kernel_lib.BULK_ALIGN
+        smem = max([align] + [-(-p // c) * w + align
+                              for _b, p, w, _s in group])
+        smem = -(-smem // align) * align
+        if smem > kernel_lib.DYN_SMEM_LIMIT:
+            raise ValueError(f"window launch needs {smem} B of shared memory "
+                             f"per CTA (> {kernel_lib.DYN_SMEM_LIMIT}): "
+                             f"shapes {group}")
+        firsts = tuple(itertools.accumulate(
+            (b for b, _p, _w, _s in group[:-1]), initial=0))
+        plans.append(WindowLaunch(idx, firsts, group,
+                                  tuple(addrs[i] for i in idx), c, smem))
+    return plans
+
+
+def window_descriptors(plan: WindowLaunch, pairs, outs) -> ctypes.Array:
+    """The launch's ``WindowBucket`` array over ``pairs`` (window, state)
+    and their ``outs``."""
+    return (WindowBucketDesc * len(plan.buckets))(*[
+        WindowBucketDesc(pairs[i][0].data_ptr(), pairs[i][1].data_ptr(),
+                         outs[i].data_ptr(), *plan.shapes[k],
+                         plan.first_cluster[k], 0)
+        for k, i in enumerate(plan.buckets)])
+
+
+def relay_affine_step_windows(pairs) -> list[torch.Tensor]:
+    """The window pass over every ``(window, out_state)`` bucket of a wake
+    → one [B, 4·S + 1] uint32 result per bucket.  CUDA tensors make ONE
+    ``ed_relay_window`` launch per ``WINDOW_MAX_BUCKETS`` buckets; CPU
+    tensors run the plain version once per bucket."""
+    pairs = list(pairs)
+    for window, out_state in pairs:
+        _check_window(window, out_state)
+    if not pairs:
+        return []
+    dev = pairs[0][0].device
+    if any(t.device != dev for pair in pairs for t in pair):
+        raise ValueError("every window and state of a group must be on "
+                         f"{dev}")
+    if dev.type == "cpu":
+        return [relay_affine_step_window_plain(w, s) for w, s in pairs]
+    if dev.type != "cuda":
+        raise ValueError(f"no window kernel for device {dev}")
+    for window, out_state in pairs:
+        kernel_lib.require(window, "window", torch.uint8, 3, dev)
+        kernel_lib.require(out_state, "out_state", torch.uint32, 3, dev)
+    outs = [torch.empty((w.shape[0], 4 * s.shape[1] + 1), dtype=torch.int32,
+                        device=dev) for w, s in pairs]
+    shapes = [(*w.shape, s.shape[1]) for w, s in pairs]
+    for plan in window_launch_plan(shapes, [w.data_ptr() for w, _ in pairs]):
+        descs = window_descriptors(plan, pairs, outs)
+        kernel_lib.launch("ed_relay_window", ctypes.addressof(descs),
+                          len(descs), plan.cluster)
+    return [o.view(torch.uint32) for o in outs]
 
 
 def unpack_affine(packed, n_sub: int):

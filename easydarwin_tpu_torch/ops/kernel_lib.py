@@ -41,6 +41,12 @@ NVCC_FLAGS = (*GENCODE, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 LAUNCHES = {"ed_parse_packets": 0, "ed_relay_window": 0,
             "ed_decode_blocks": 0}
 
+#: cp.async.bulk moves 16-byte-aligned runs that are a multiple of 16 bytes
+BULK_ALIGN = 16
+#: dynamic shared memory a relay kernel launch may ask for without an
+#: opt-in: 48 KB less room for static shared memory (``kDynSmemLimit``)
+DYN_SMEM_LIMIT = 48 * 1024 - 2048
+
 #: an entry point's return code at or above this is this base plus the
 #: ``CUresult`` of ``cuTensorMapEncodeTiled`` (a TMA tensor map), not a
 #: cudaError
@@ -52,8 +58,12 @@ _IP = ctypes.POINTER(ctypes.c_int)
 _SIGNATURES = {
     # prefix, n_rows, row_stride, length, words, flags, stream
     "ed_parse_packets": (_P, _I, _I, _P, _P, _P, _P),
-    # window, n_streams, n_pkts, row_stride, state, n_subs, out, stream
-    "ed_relay_window": (_P, _I, _I, _I, _P, _I, _P, _P),
+    # WindowBucket descriptors, n_buckets, cluster size, stream
+    "ed_relay_window": (_P, _I, _I, _P),
+    # -> max buckets, max cluster, window threads, K1 tile rows, smem limit
+    "ed_relay_geometry": (_IP, _IP, _IP, _IP, _IP),
+    # stream (an empty kernel: the launch floor)
+    "ed_launch_floor": (_P,),
     # levels, n_blocks, qtable, idct8 (the 8x8 DCT matrix C), out, stream
     "ed_decode_blocks": (_P, _I, _P, _P, _P, _P),
     # -> blocks per tile, ring stages, CTAs a launch uses (not a launch)
@@ -168,6 +178,18 @@ def error_message(rc: int) -> str:
         return (f"cuTensorMapEncodeTiled failed with CUresult "
                 f"{rc - TENSOR_MAP_ERROR}")
     return f"cudaError {rc} ({library().ed_error_string(rc).decode()})"
+
+
+def bulk_split(addr: int, nbytes: int) -> tuple[int, int, int]:
+    """``(head, interior, tail)`` of the byte span ``[addr, addr + nbytes)``:
+    the interior is the 16-byte-aligned run, a multiple of 16 bytes, that
+    one bulk copy moves; head and tail (at most 15 bytes each) are plain
+    loads.  ``bulk_split`` in ``csrc/relay_kernels.cu`` is the same rule."""
+    lo = -(-addr // BULK_ALIGN) * BULK_ALIGN
+    hi = (addr + nbytes) // BULK_ALIGN * BULK_ALIGN
+    if hi <= lo:
+        return nbytes, 0, 0
+    return lo - addr, hi - lo, addr + nbytes - hi
 
 
 def require(t: torch.Tensor, name: str, dtype: torch.dtype, dim: int,

@@ -3,11 +3,12 @@
 The counterpart of the reference's Pallas kernel
 (``easydarwin_tpu/ops/parse_pallas.py:parse_packets_pallas``), written by
 hand in CUDA C++ (``csrc/relay_kernels.cu``).  Same contract as
-``ops.parse.parse_packets``: one thread per packet writes
-``words [P,4]`` (seq, timestamp, ssrc, payload_start) and
-``flags [P,5]`` (nal_type, keyframe_first, frame_first, frame_last,
-marker); the wrapper splits them into the nine fields with the plain
-version's dtypes.
+``ops.parse.parse_packets``: ``words [P,4]`` (seq, timestamp, ssrc,
+payload_start) and ``flags [P,5]`` (nal_type, keyframe_first, frame_first,
+frame_last, marker); the wrapper splits them into the nine fields with the
+plain version's dtypes.  Each CTA takes a tile of ``PARSE_TILE_ROWS`` rows
+into shared memory by one bulk copy (``parse_tile_plan``), one thread per
+packet parses its row there.
 
 On a CPU tensor the wrapper runs the plain version; on a CUDA tensor it
 launches the kernel or raises.
@@ -19,6 +20,31 @@ import torch
 
 from . import kernel_lib
 from .parse import check_prefix, parse_packets
+
+#: rows (and threads) per CTA (``kTileRows`` in the source)
+PARSE_TILE_ROWS = 64
+
+
+def _check_stride(row_stride: int) -> None:
+    if PARSE_TILE_ROWS * row_stride + kernel_lib.BULK_ALIGN > \
+            kernel_lib.DYN_SMEM_LIMIT:
+        raise ValueError(f"row stride {row_stride} too wide for a "
+                         f"{PARSE_TILE_ROWS}-row tile in shared memory")
+
+
+def parse_tile_plan(n_rows: int, row_stride: int, addr: int
+                    ) -> list[tuple[int, int, int, int, int]]:
+    """K1's tiles over ``n_rows`` rows of ``row_stride`` bytes from byte
+    ``addr``: ``(row_lo, row_hi, head, interior, tail)`` per CTA, as the
+    kernel computes them.  A stride whose tile would need more than
+    ``kernel_lib.DYN_SMEM_LIMIT`` bytes of shared memory raises."""
+    _check_stride(row_stride)
+    tiles = []
+    for lo in range(0, n_rows, PARSE_TILE_ROWS):
+        hi = min(lo + PARSE_TILE_ROWS, n_rows)
+        tiles.append((lo, hi, *kernel_lib.bulk_split(addr + lo * row_stride,
+                                                     (hi - lo) * row_stride)))
+    return tiles
 
 
 def parse_packets_kernel(prefix: torch.Tensor, length: torch.Tensor
@@ -35,6 +61,7 @@ def parse_packets_kernel(prefix: torch.Tensor, length: torch.Tensor
     n, width = prefix.shape
     if length.shape[0] != n:
         raise ValueError(f"length has {length.shape[0]} rows, prefix {n}")
+    _check_stride(width)
     words = torch.empty((n, 4), dtype=torch.int32, device=dev)
     flags = torch.empty((n, 5), dtype=torch.int32, device=dev)
     if n:

@@ -14,16 +14,18 @@ pass per wake**:
   harvest, after the pass's CUDA event — recorded behind its H2D copy,
   the kernel and the D2H copy — has completed, so the host never
   rewrites an upload the copy engine may still be reading;
-* **dispatch** — one ``megabatch_window_step`` (one ``ed_relay_window``
-  launch on the card) per bucket; the result is copied into a pinned host
-  buffer with ``non_blocking=True``;
+* **dispatch** — ONE ``megabatch_window_steps`` call per wake over every
+  bucket (one ``ed_relay_window`` launch on the card); each bucket's
+  result is copied into its pinned host buffer with ``non_blocking=True``
+  and one CUDA event, recorded behind them all, stands for the wake;
 * **harvest** (next wake) — a pass whose event ``query()`` reports done is
   scattered back into per-stream affine params (``scatter_affine_segments``)
   and installed into each engine's ``megabatch_params``.
 
 Streams whose membership or rebase state changed are served by a
-synchronous **prime** pass in ``begin_wake``, on fresh zero windows: the
-affine params depend only on rewrite state, never on packet bytes.
+synchronous **prime** pass in ``begin_wake``, on fresh zero windows (one
+call for all its subscriber buckets): the affine params depend only on
+rewrite state, never on packet bytes.  ``window_calls`` counts the calls.
 
 Every installed segment is checked against the host arithmetic oracle
 ``_host_affine_params``; a disagreement is counted in ``mismatches`` and the
@@ -38,7 +40,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
-from ..models.relay_pipeline import (megabatch_window_step,
+from ..models.relay_pipeline import (megabatch_window_steps,
                                      scatter_affine_segments)
 from ..ops import staging
 from ..ops.fanout import STATE_COLS, pack_output_state
@@ -87,8 +89,8 @@ class _InFlight:
         #: pinned host copy of the [B, 4·S+1] result (valid once ``event``
         #: has completed)
         self.host = host
-        #: CUDA event recorded after the D2H copy; None on the CPU, where
-        #: the pass has already run
+        #: CUDA event recorded after the wake's D2H copies (shared by every
+        #: bucket of the wake); None on the CPU, where the pass has run
         self.event = event
         #: per-row (stream, engine, key, n_fast, base_pid)
         self.entries = entries
@@ -127,6 +129,8 @@ class MegabatchScheduler:
         self.wakes = 0
         self.passes = 0
         self.prime_passes = 0
+        #: megabatch_window_steps calls (one device launch each on the card)
+        self.window_calls = 0
         self.streams_coalesced = 0
         self.harvests = 0
         self.installs = 0
@@ -170,8 +174,8 @@ class MegabatchScheduler:
             _stream, _eng, fast, _key, _base, n_new = item
             shape = (pow2(max(n_new, 1), 16), pow2(len(fast), 8))
             buckets.setdefault(shape, []).append(item)
-        for (p_pad, s_pad), entries in sorted(buckets.items()):
-            self._dispatch_bucket(entries, p_pad, s_pad)
+        self._dispatch([(entries, p_pad, s_pad) for (p_pad, s_pad), entries
+                        in sorted(buckets.items())])
 
     # ------------------------------------------------------------- prime
     def _prime_stale(self, pairs, now_ms: int) -> None:
@@ -197,6 +201,7 @@ class MegabatchScheduler:
         buckets: dict[int, list] = {}
         for item in stale:
             buckets.setdefault(pow2(len(item[1]), 8), []).append(item)
+        groups, inputs = [], []
         for s_pad, items in sorted(buckets.items()):
             b_pad = pow2(len(items), 1)
             # fresh zeros on the device, never a recycled buffer: a stale
@@ -207,14 +212,20 @@ class MegabatchScheduler:
             state = np.zeros((b_pad, s_pad, STATE_COLS), np.uint32)
             for i, (_eng, fast, _key) in enumerate(items):
                 state[i, :len(fast)] = pack_output_state(fast)
-            res = megabatch_window_step(
-                win, torch.from_numpy(state).to(self.device))
+            groups.append(items)
+            inputs.append((win, torch.from_numpy(state).to(self.device)))
+        for items, res in zip(groups, self._window_steps(inputs)):
             segs = scatter_affine_segments(
                 res.cpu().numpy(), [len(f) for (_e, f, _k) in items])
             for (eng, _fast, key), seg in zip(items, segs):
                 self._install_segment(eng, key, seg)
             self.prime_passes += 1
             self._note_pass(len(items))
+
+    def _window_steps(self, inputs) -> list:
+        """The one device call of a dispatch or a prime."""
+        self.window_calls += 1
+        return megabatch_window_steps(inputs)
 
     @staticmethod
     def _needs_params(eng, key) -> bool:
@@ -291,32 +302,45 @@ class MegabatchScheduler:
         self._state_cache[id(stream)] = (key, packed)
         return packed
 
-    def _dispatch_bucket(self, entries, p_pad: int, s_pad: int) -> None:
-        b_pad = pow2(len(entries), 1)
-        buf = self._buffer(b_pad, p_pad, s_pad)
-        buf.state_np[:] = 0
-        recs = []
-        for i, (stream, eng, fast, key, base, n_new) in enumerate(entries):
-            staging.gather_window(stream.rtp_ring, base, n_new, buf.win_np[i])
-            buf.state_np[i, :len(fast)] = self._packed_state(stream, fast, key)
-            self._tracked[id(stream)] = base + n_new
-            recs.append((stream, eng, key, len(fast), base))
-        if b_pad > len(entries):
+    def _dispatch(self, buckets) -> None:
+        """Stage every ``(entries, p_pad, s_pad)`` bucket and upload it,
+        then ONE window call for the wake; each bucket's result goes to
+        its pinned host buffer, and one event stands behind them all."""
+        staged = []
+        for entries, p_pad, s_pad in buckets:
+            buf = self._buffer(pow2(len(entries), 1), p_pad, s_pad)
+            buf.state_np[:] = 0
+            recs = []
+            for i, (stream, eng, fast, key, base, n_new) in enumerate(entries):
+                staging.gather_window(stream.rtp_ring, base, n_new,
+                                      buf.win_np[i])
+                buf.state_np[i, :len(fast)] = self._packed_state(stream, fast,
+                                                                 key)
+                self._tracked[id(stream)] = base + n_new
+                recs.append((stream, eng, key, len(fast), base))
             buf.win_np[len(entries):] = 0  # bucket padding rows
+            staged.append((buf, recs))
         if self._pin:
-            dwin = buf.win.to(self.device, non_blocking=True)
-            dstate = buf.state.to(self.device, non_blocking=True)
-            res = megabatch_window_step(dwin, dstate)
-            host = torch.empty(res.shape, dtype=torch.int32, pin_memory=True)
-            host.copy_(res.view(torch.int32), non_blocking=True)
+            results = self._window_steps(
+                [(buf.win.to(self.device, non_blocking=True),
+                  buf.state.to(self.device, non_blocking=True))
+                 for buf, _recs in staged])
+            hosts = []
+            for res in results:
+                host = torch.empty(res.shape, dtype=torch.int32,
+                                   pin_memory=True)
+                host.copy_(res.view(torch.int32), non_blocking=True)
+                hosts.append(host)
             event = torch.cuda.Event()
             event.record()
         else:
-            host = megabatch_window_step(buf.win, buf.state)
+            hosts = self._window_steps([(buf.win, buf.state)
+                                        for buf, _recs in staged])
             event = None
-        self._inflight.append(
-            _InFlight(host, event, recs, buf, time.perf_counter_ns()))
-        self._note_pass(len(entries))
+        now = time.perf_counter_ns()
+        for (buf, recs), host in zip(staged, hosts):
+            self._inflight.append(_InFlight(host, event, recs, buf, now))
+            self._note_pass(len(recs))
 
     # ------------------------------------------------------------- harvest
     def _harvest(self, *, force: bool = False) -> int:
@@ -350,6 +374,7 @@ class MegabatchScheduler:
             "wakes": self.wakes,
             "passes": self.passes,
             "prime_passes": self.prime_passes,
+            "window_calls": self.window_calls,
             "streams_coalesced": self.streams_coalesced,
             "inflight": len(self._inflight),
             "harvests": self.harvests,

@@ -2,6 +2,8 @@
 package's, bit-exact, on the same numpy inputs (CPU tensors: the plain
 PyTorch versions the kernel wrappers run off the card)."""
 
+from collections import Counter
+
 import numpy as np
 import pytest
 import torch
@@ -14,7 +16,7 @@ from easydarwin_tpu.relay.output import CollectingOutput as RefOutput
 from easydarwin_tpu.relay.ring import PacketRing as RefRing
 from easydarwin_tpu_torch import convert
 from easydarwin_tpu_torch.models import relay_pipeline as pipe
-from easydarwin_tpu_torch.ops import fanout, staging
+from easydarwin_tpu_torch.ops import fanout, kernel_lib, staging
 from easydarwin_tpu_torch.relay.output import CollectingOutput
 from easydarwin_tpu_torch.utils import synth
 
@@ -26,10 +28,12 @@ def _state(rng, b, s):
                         dtype=np.uint64).astype(np.uint32)
 
 
-def _bucket(rng, b_real=5, b_pad=8, p=16, s_real=5, s_pad=8):
+def _bucket(rng, b_real=5, b_pad=8, p=16, s_real=5, s_pad=8, w=100):
     """A ragged bucket: b_real streams with 1..p live rows, zero padding
-    rows and streams; the last stream carries no keyframe at all."""
-    win = np.zeros((b_pad, p, 100), np.uint8)
+    rows and streams; the last stream carries no keyframe at all.  Columns
+    past the le32 length (``w`` > 100) hold random bytes."""
+    win = np.zeros((b_pad, p, w), np.uint8)
+    win[:, :, 100:] = rng.integers(0, 256, (b_pad, p, w - 100), dtype=np.uint8)
     for i in range(b_real):
         n = int(rng.integers(1, p + 1))
         if i == b_real - 1:
@@ -38,7 +42,7 @@ def _bucket(rng, b_real=5, b_pad=8, p=16, s_real=5, s_pad=8):
         else:
             pkts = [synth.random_packet(rng) for _ in range(n)]
         pre, ln = synth.stage(pkts)
-        win[i, :n] = fanout.pack_window(pre, ln)
+        win[i, :n, :100] = fanout.pack_window(pre, ln)
     st = np.zeros((b_pad, s_pad, 6), np.uint32)
     st[:b_real, :s_real] = _state(rng, b_real, s_real)
     return win, st
@@ -59,6 +63,88 @@ def test_window_pass_matches_megabatch_window_step():
             fanout.relay_affine_step_window(torch.from_numpy(win),
                                             torch.from_numpy(st)).numpy(),
             np.asarray(ref_fanout.relay_affine_step_window(win, st)))
+
+
+#: grouped wakes as (b_real, b_pad, P, s_real, s_pad, W) buckets: the
+#: scheduler's config-4 wake (6 vs 20 new packets a stream), a prime beside
+#: a ragged bucket and a MAX_STAGE_ROWS one, ragged P, wide rows
+WINDOW_GROUPS = {
+    "wake_16_32": [(8, 8, 16, 256, 256, 100), (8, 8, 32, 256, 256, 100)],
+    "mixed": [(1, 1, 16, 8, 8, 100), (5, 8, 64, 13, 16, 100),
+              (16, 16, 1024, 8, 8, 100)],
+    "ragged_p13": [(3, 4, 13, 5, 8, 100)],
+    "w104": [(4, 4, 32, 6, 8, 104), (2, 2, 16, 3, 8, 104)],
+}
+
+
+@pytest.mark.parametrize("group", sorted(WINDOW_GROUPS))
+def test_grouped_window_passes_match_reference(group):
+    rng = np.random.default_rng(sorted(WINDOW_GROUPS).index(group) + 70)
+    buckets = [_bucket(rng, *spec) for spec in WINDOW_GROUPS[group]]
+    outs = pipe.megabatch_window_steps(
+        [(torch.from_numpy(w), torch.from_numpy(s)) for w, s in buckets])
+    assert len(outs) == len(buckets)
+    for (win, st), out in zip(buckets, outs):
+        ref = np.asarray(ref_pipe.megabatch_window_step(win.copy(), st))
+        assert out.dtype == torch.uint32
+        np.testing.assert_array_equal(out.numpy(), ref)
+
+
+def _bucket_of_cluster(first_cluster, cluster_id):
+    """The kernel's scan: the last bucket whose first cluster is <= id."""
+    k = 0
+    while k + 1 < len(first_cluster) and cluster_id >= first_cluster[k + 1]:
+        k += 1
+    return k
+
+
+def test_window_launch_plan_covers_every_row_once():
+    shapes = [(8, 16, 100, 256), (8, 32, 100, 256), (1, 16, 100, 8),
+              (8, 64, 100, 16), (16, 1024, 100, 8), (4, 13, 100, 5),
+              (0, 16, 100, 8), (4, 32, 104, 8)]
+    addrs = [0x10000, 0x20003, 0x3000F, 0x40001, 0x50000, 0x60007, 0x70000,
+             0x80009]
+    (plan,) = fanout.window_launch_plan(shapes, addrs)
+    assert plan.cluster == fanout.cluster_size(1024) == 8
+    assert 6 not in plan.buckets                 # no stream row, no CTA
+    rows, subs = Counter(), Counter()
+    clusters = set()
+    for cta in plan.ctas():
+        b_n, p, w, s = shapes[cta.bucket]
+        lo, hi = cta.rows
+        assert cta.head + cta.interior + cta.tail == (hi - lo) * w
+        assert cta.addr == addrs[cta.bucket] + (cta.stream * p + lo) * w
+        if cta.interior:
+            assert (cta.addr + cta.head) % 16 == 0 and cta.interior % 16 == 0
+            assert cta.head < 16 and cta.tail < 16
+        else:
+            assert cta.head <= 30 and cta.tail == 0
+        assert (cta.addr % 16) + (hi - lo) * w <= plan.smem_bytes
+        k = _bucket_of_cluster(plan.first_cluster, cta.cluster_id)
+        assert plan.buckets[k] == cta.bucket
+        clusters.add(cta.cluster_id)
+        rows.update((cta.bucket, cta.stream, q) for q in range(lo, hi))
+        subs.update((cta.bucket, cta.stream, q) for q in range(*cta.subs))
+    assert plan.smem_bytes <= kernel_lib.DYN_SMEM_LIMIT
+    assert clusters == set(range(sum(b for b, _p, _w, _s in shapes)))
+    live = [i for i, sh in enumerate(shapes) if sh[0]]
+    assert rows == Counter((i, b, q) for i in live
+                           for b in range(shapes[i][0])
+                           for q in range(shapes[i][1]))
+    assert subs == Counter((i, b, q) for i in live
+                           for b in range(shapes[i][0])
+                           for q in range(shapes[i][3]))
+    # a small launch keeps one CTA per stream row
+    assert fanout.window_launch_plan(shapes[:2], addrs[:2])[0].cluster == 1
+    # more buckets than the kernel takes: split, in order
+    many = [(1, 16, 100, 8)] * (2 * fanout.WINDOW_MAX_BUCKETS + 1)
+    plans = fanout.window_launch_plan(many, [1600 * i + 5 for i in range(65)])
+    assert [len(pl.buckets) for pl in plans] == [32, 32, 1]
+    assert [i for pl in plans for i in pl.buckets] == list(range(65))
+    assert all(pl.first_cluster == tuple(range(len(pl.buckets)))
+               for pl in plans)
+    with pytest.raises(ValueError):              # 512 rows a CTA: too wide
+        fanout.window_launch_plan([(1, 4096, 100, 8)], [0])
 
 
 def test_window_length_column_wraps_like_int32_cast():

@@ -15,7 +15,10 @@ from easydarwin_tpu.ops import parse as ref_parse
 from easydarwin_tpu.ops.parse_pallas import parse_packets_pallas
 from easydarwin_tpu.protocol import nalu as ref_nalu
 from easydarwin_tpu_torch.ops import gop, parse
-from easydarwin_tpu_torch.ops.parse_kernel import parse_packets_kernel
+from easydarwin_tpu_torch.ops import kernel_lib
+from easydarwin_tpu_torch.ops.parse_kernel import (PARSE_TILE_ROWS,
+                                                   parse_packets_kernel,
+                                                   parse_tile_plan)
 from easydarwin_tpu_torch.protocol import mjpeg, nalu, rtp
 from easydarwin_tpu_torch.utils import synth
 
@@ -51,6 +54,27 @@ def test_k1_wrapper_runs_plain_version_on_cpu_tensors():
     ref = _np(ref_parse.parse_packets(pre, ln))
     out = _np(parse_packets_kernel(torch.from_numpy(pre), torch.from_numpy(ln)))
     _assert_fields_equal(out, ref)
+
+
+@pytest.mark.parametrize("width", [96, 97, 100])
+@pytest.mark.parametrize("n_rows", [1, 63, 64, 256, 4097])
+def test_k1_tile_plan_covers_every_row_once(n_rows, width):
+    for addr in (0x10000, 0x10001, 0x1000F, 0x10000 + width):
+        tiles = parse_tile_plan(n_rows, width, addr)
+        assert len(tiles) == -(-n_rows // PARSE_TILE_ROWS)
+        covered = []
+        for lo, hi, head, interior, tail in tiles:
+            assert 0 < hi - lo <= PARSE_TILE_ROWS
+            covered += range(lo, hi)
+            assert head + interior + tail == (hi - lo) * width
+            start = addr + lo * width
+            assert interior > 0 and (start + head) % 16 == 0
+            assert interior % 16 == 0 and head < 16 and tail < 16
+            assert (start % 16) + (hi - lo) * width <= \
+                PARSE_TILE_ROWS * width + kernel_lib.BULK_ALIGN
+        assert covered == list(range(n_rows))
+    with pytest.raises(ValueError):
+        parse_tile_plan(64, 1024, 0)
 
 
 @pytest.mark.parametrize("codec,is_video", [("mjpeg", True), ("mjpeg", False),

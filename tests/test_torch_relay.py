@@ -199,19 +199,84 @@ def test_scheduler_installs_exactly_the_host_oracle():
     assert sched.drain() == 3 and sched.mismatches == 0
 
 
+def test_one_window_call_per_wake_over_many_buckets():
+    """Four (window, subscriber) buckets a wake and primes over two
+    subscriber buckets, each one window call; wire bytes, installs and the
+    oracle as the reference has them."""
+    rng = np.random.default_rng(44)
+    settings = dict(bucket_size=4, bucket_delay_ms=10)
+    n_outs = (3, 5, 12, 12)            # s_pad 8, 8, 16, 16
+    bursts = (5, 20, 5, 40)            # p_pad 16, 32, 16, 64
+    kws = [[dict(ssrc=int(rng.integers(1 << 32)),
+                 out_seq_start=int(rng.integers(1 << 16)),
+                 out_ts_start=int(rng.integers(1 << 32)))
+            for _ in range(n + 1)] for n in n_outs]
+    refs = [RefStream(ref_sdp.parse(SDP).streams[0], RefSettings(**settings))
+            for _ in n_outs]
+    ports = [RelayStream(sdp.parse(SDP).streams[0], StreamSettings(**settings))
+             for _ in n_outs]
+    for ref, port, kw, n in zip(refs, ports, kws, n_outs):
+        for k in kw[:n]:
+            ref.add_output(RefOutput(**k))
+            port.add_output(CollectingOutput(**k))
+    feeds = [_packets(rng, 6 * b, seq0=1000 * i) for i, b in enumerate(bursts)]
+    engines = [FanoutEngine() for _ in n_outs]
+    sched = MegabatchScheduler(device="cpu")
+    pairs = list(zip(ports, engines))
+    t, delivered, prime_buckets = 1000, 0, []
+    for wake in range(6):
+        for ref, port, feed, b in zip(refs, ports, feeds, bursts):
+            for p in feed[wake * b:(wake + 1) * b]:
+                ref.push_rtp(p, t)
+                port.push_rtp(p, t)
+        if wake == 3:                  # late joiners in both s_pad buckets
+            for i in (0, 2):
+                refs[i].add_output(RefOutput(**kws[i][-1]))
+                ports[i].add_output(CollectingOutput(**kws[i][-1]))
+        calls, primes = sched.window_calls, sched.prime_passes
+        sched.begin_wake(pairs, t)
+        prime_buckets.append(sched.prime_passes - primes)
+        assert sched.window_calls - calls == (prime_buckets[-1] > 0)
+        for port, eng in pairs:
+            key = params_key(eng.fast_outputs(port))
+            assert eng.megabatch_params[0] == key
+            for a, b in zip(eng.megabatch_params[1],
+                            ref_megabatch._host_affine_params(key)):
+                np.testing.assert_array_equal(a[0], b)
+            eng.step(port, t)
+        calls, passes = sched.window_calls, sched.passes
+        sched.end_wake(pairs, t)
+        assert sched.window_calls - calls == 1
+        assert sched.passes - passes == 4          # four buckets, one call
+        for ref, port in zip(refs, ports):
+            ref.reflect(t)
+            for a, b in zip(port.outputs, ref.outputs):
+                assert a.rtp_packets == b.rtp_packets, wake
+                delivered += len(a.rtp_packets)
+        t += 20
+    sched.drain()
+    # primes: the joins of wake 0, the rebase latched by wake 0's first
+    # sends, the late joiners of wake 3 — each over both s_pad buckets
+    assert prime_buckets == [2, 2, 0, 2, 0, 0]
+    assert sched.stats()["window_calls"] == 6 + 3
+    assert delivered > 300
+    assert sched.mismatches == 0
+    assert all(e.missing_params == 0 for e in engines)
+
+
 def test_scheduler_discards_a_segment_that_disagrees_with_the_oracle(
         monkeypatch):
     _ref, port, _more, _late, t = _twin_streams(n_out=4)
     eng = FanoutEngine()
     sched = MegabatchScheduler(device="cpu")
-    real = megabatch.megabatch_window_step
+    real = megabatch.megabatch_window_steps
 
-    def corrupt(window, state):
-        out = real(window, state).clone()
-        out[0, 0] = out[0, 0] ^ 1              # flip one seq_off bit
-        return out
+    def corrupt(pairs):
+        outs = [o.clone() for o in real(pairs)]
+        outs[0][0, 0] = outs[0][0, 0] ^ 1      # flip one seq_off bit
+        return outs
 
-    monkeypatch.setattr(megabatch, "megabatch_window_step", corrupt)
+    monkeypatch.setattr(megabatch, "megabatch_window_steps", corrupt)
     sched.begin_wake([(port, eng)], t)
     assert sched.mismatches == 1 and eng.megabatch_params is None
     before = [o.bookmark for o in port.outputs]
