@@ -25,6 +25,11 @@ phase; any failed phase raises and the script exits non-zero.
              MAX_STAGE_ROWS [16,1024,100]×[16,8,6]), config 4
              [16,256,100]×[16,256,6], ragged P = 13, W = 104, and 33
              buckets (two launches)
+4b. ring     ``ed_ring_query`` vs ``device_ring.query_params_plain`` on the
+             same card ring, bit-exact: C = 4,096 at S = 64 and S = 256,
+             heads that wrapped the ring several times, a partly filled
+             ring, a ring with no keyframe (−1), fuzzed rows with runts and
+             length-0 rows
 5. K2        ``ed_decode_blocks`` vs ``decode_blocks_plain`` at N = 1, 300,
              48,960 (one 1080p 4:2:0 frame), 48,961, T·stages + 1 (one
              past a full ring of tiles), CTAs·T·stages + 1 (every CTA
@@ -37,8 +42,25 @@ phase; any failed phase raises and the script exits non-zero.
              RelayPipeline(use_pallas_parse=True) step each wake;
              ``ed_relay_window`` launches = the scheduler's window_calls,
              at most one per dispatching and one per priming wake
+6b. native   config 4 with native egress, in-process: phase 6's traffic
+             for 9 wakes (a join at wake 6, the last delay bucket's first
+             sends at wake 8) to 16 × 256 ``UdpOutput``s on one shared
+             egress socket (one loopback receiver a subscriber as far as
+             RLIMIT_NOFILE allows): the engines' ``native_sent`` equals the
+             scalar oracle's count, every received datagram equals the
+             oracle's bytes for its (SSRC, seq), and a datagram not
+             received is allowed only where the host's UDP RcvbufErrors
+             rose by as many; the wake split (begin_wake / steps /
+             end_wake) beside phase 6's
 7. server    ``python -m easydarwin_tpu_torch --device cuda`` on loopback:
-             2 pushers × 4 TCP players, every packet checked
+             2 pushers × 4 TCP players, every packet checked; the players
+             went through ``ed_stream_send`` (``native_sent`` > 0)
+7b. config2  BASELINE config 2 through the CLI server: one pusher of paced
+             1080p30 H.264 (13 packets of about 1.3 KB a frame, an IDR
+             every 30 frames, 5 s), 64 UDP players joining one a frame;
+             every datagram checked, ``ed_ring_query`` launched,
+             ``ed_relay_window`` not (the megabatch idles at one stream),
+             ``native_sent`` > 0 and the egress core loaded
 8. pipeline  the config-5 TranscodePipeline (qualities 80/50/25 from 90,
              decode_pixels) for 8 steps of 783,360 blocks on the card:
              8 K2 launches, one step held against the same pipeline on the
@@ -51,7 +73,8 @@ phase; any failed phase raises and the script exits non-zero.
 10. kernels  launches on the main path (phases 6-9), the launch floor
              (one graph node of an empty kernel), ptxas registers, shared
              memory and spills, CUDA-event times at the main path's shapes
-             (K1 256 rows, the window's phase-6 wake group, K2 config 5)
+             (K1 256 rows, the window's phase-6 wake group, the ring query
+             at config 2's C = 4,096 × S = 64, K2 config 5)
              and at earlier runs' config-4 shapes (K1 4,096 rows, window
              [16,256,100]×[16,256,6], and the same bytes as
              [64,64,100]×[64,64,6] with no cluster) beside the plain
@@ -61,7 +84,8 @@ phase; any failed phase raises and the script exits non-zero.
 
 The kernel launch counts are set to 0 just before phase 6 and read just
 after phase 9 (the server processes report their own at exit); the
-comparisons and timings of phases 3, 4, 5 and 10 run outside that window.
+comparisons and timings of phases 3, 4, 4b, 5 and 10 run outside that
+window.
 Detail goes to ``chiprun_out/chip_smoke.json``.  The last line of standard
 output is ``{"ok": true, "device": {...}}``.
 """
@@ -332,6 +356,83 @@ def phase_window(rng) -> dict:
     return res
 
 
+# ------------------------------------------------------------- phase 4b
+#: the per-stream ring's capacity (``relay/ring.py DEFAULT_CAPACITY``) and
+#: config 2's subscribers
+RING_C, CONFIG2_SUBS = 4096, 64
+
+
+def fuzzed_ring(rng, capacity: int, n_total: int, keyframes: bool = True):
+    """A card ring after ``n_total`` appends of 512-row batches: fuzzed
+    packets with one row in 12 of length 0 and one in 25 a runt, or (no
+    ``keyframes``) P-frame packets only."""
+    import numpy as np
+    from easydarwin_tpu_torch.ops import device_ring as dr
+    from easydarwin_tpu_torch.utils import synth
+    if keyframes:
+        pool = [synth.random_packet(rng) for _ in range(2048)]
+    else:
+        pool = [synth.h264_packet(i, 3000 * i, 1, ssrc=7, body=bytes(60))
+                for i in range(2048)]
+    pre, ln = synth.stage(pool)
+    ln[rng.random(len(ln)) < 1 / 12] = 0
+    ln[rng.random(len(ln)) < 1 / 25] = 7
+    ring = dr.init_ring(capacity, device=DEVICE)
+    done = 0
+    while done < n_total:
+        n = min(512, n_total - done)
+        pick = rng.integers(0, len(pool), n)
+        dr.append(ring, pre[pick], ln[pick],
+                  rng.integers(0, 1 << 20, n).astype(np.int32), n)
+        done += n
+    return ring
+
+
+def ring_state(rng, n_subs: int):
+    import numpy as np
+    import torch
+    st = rng.integers(0, 1 << 32, size=(n_subs, 6), dtype=np.uint64)
+    return torch.from_numpy(st.astype(np.uint32)).to(DEVICE)
+
+
+def phase_ring_query(rng) -> dict:
+    """``ed_ring_query`` vs its plain version on the same card ring."""
+    import numpy as np
+    import torch
+    from easydarwin_tpu_torch.ops import device_ring as dr
+    from easydarwin_tpu_torch.ops import kernel_lib
+    res = {}
+    for name, n_subs, n_total, keyframes in (
+            ("wrapped5_s64", 64, 5 * RING_C + 123, True),
+            ("wrapped3_s256", 256, 3 * RING_C + 7, True),
+            ("partly_filled_s256", 256, 1000, True),
+            ("no_keyframe_s64", 64, RING_C + 300, False)):
+        ring = fuzzed_ring(rng, RING_C, n_total, keyframes)
+        st = ring_state(rng, n_subs)
+        before = kernel_lib.LAUNCHES["ed_ring_query"]
+        k = dr.query_params(ring, st).cpu().numpy()
+        check(kernel_lib.LAUNCHES["ed_ring_query"] == before + 1,
+              f"ring {name}: not one ed_ring_query launch")
+        p = dr.query_params_plain(ring, st).cpu().numpy()
+        torch.cuda.synchronize()
+        check(k.dtype == np.uint32 and k.shape == p.shape == (4 * n_subs + 1,),
+              f"ring {name}: {k.dtype}{k.shape} vs {p.shape}")
+        d = int(np.abs(k.astype(np.int64) - p.astype(np.int64)).max())
+        check(d == 0, f"ed_ring_query differs from the plain query in "
+              f"{name} (max {d})")
+        newest = int(k[-1].astype(np.int32))
+        if keyframes:
+            check(ring.head - RING_C <= newest < ring.head,
+                  f"ring {name}: newest keyframe {newest} outside the "
+                  f"window of head {ring.head}")
+        else:
+            check(newest == -1, f"ring {name}: newest keyframe {newest}")
+        res[name] = d
+        log(f"[ring] {name}: C={RING_C} S={n_subs} head={ring.head} "
+            f"newest keyframe {newest}: bit-exact vs the plain query")
+    return res
+
+
 # -------------------------------------------------------------- phase 5
 def frame_pixels_1080p(gen, index: int):
     """One 1920×1088 4:2:0 frame of smooth moving gradients plus noise,
@@ -569,15 +670,239 @@ def phase_scheduler(rng) -> dict:
     return res
 
 
+# ------------------------------------------------------------- phase 6b
+def udp_rcvbuf_errors() -> int:
+    """The host's UDP ``RcvbufErrors`` counter (``/proc/net/snmp``):
+    datagrams a full receive buffer dropped."""
+    with open("/proc/net/snmp") as f:
+        rows = [line.split() for line in f if line.startswith("Udp:")]
+    return int(dict(zip(rows[0][1:], rows[1][1:]))["RcvbufErrors"])
+
+
+def phase_config4_native(rng, phase6: dict, *, wakes: int = 9) -> dict:
+    """Phase 6's traffic to 16 × 256 ``UdpOutput``s on one egress socket
+    through the engines' native scatter, against the scalar oracle: the
+    engines' count, then datagram by datagram (keyed by SSRC and seq); the
+    wake split beside phase 6's Python loop on collecting outputs."""
+    import resource
+    import socket
+    import numpy as np
+    from easydarwin_tpu_torch import native
+    from easydarwin_tpu_torch.protocol import rtp, sdp
+    from easydarwin_tpu_torch.relay.fanout import FanoutEngine
+    from easydarwin_tpu_torch.relay.megabatch import MegabatchScheduler
+    from easydarwin_tpu_torch.relay.output import CollectingOutput
+    from easydarwin_tpu_torch.relay.stream import RelayStream, StreamSettings
+    from easydarwin_tpu_torch.server.transports import (SharedUdpEgress,
+                                                        UdpOutput)
+    from easydarwin_tpu_torch.utils import synth
+    from easydarwin_tpu_torch.utils.loopback import VIDEO_SDP
+
+    check(native.available(),
+          f"the egress core did not build or load: {native.load_error}")
+    n_streams, n_subs = 16, 256
+    soft, hard = resource.getrlimit(resource.RLIMIT_NOFILE)
+    resource.setrlimit(resource.RLIMIT_NOFILE, (hard, hard))
+    room = (1 << 20 if hard == resource.RLIM_INFINITY else hard) - 512
+    n_rx = max(1, min(n_streams * (n_subs + 4), room))
+    receivers = []
+    for _ in range(n_rx):
+        r = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+        r.setsockopt(socket.SOL_SOCKET, socket.SO_RCVBUF, 1 << 20)
+        r.bind(("127.0.0.1", 0))
+        r.setblocking(False)
+        receivers.append(r)
+    ports = [r.getsockname()[1] for r in receivers]
+    egress = SharedUdpEgress("127.0.0.1")
+    egress.rtp_sock = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+    egress.rtp_sock.setblocking(False)
+    egress.rtp_sock.setsockopt(socket.SOL_SOCKET, socket.SO_SNDBUF, 1 << 22)
+    info = sdp.parse(VIDEO_SDP).streams[0]
+    settings = StreamSettings(bucket_delay_ms=10)
+    base = int(rng.integers(1 << 32))
+    made = [0]
+
+    def make():
+        j = made[0]
+        made[0] += 1
+        kw = dict(ssrc=(base + 7919 * j) & 0xFFFFFFFF,    # distinct SSRCs
+                  out_seq_start=int(rng.integers(1 << 16)),
+                  out_ts_start=int(rng.integers(1 << 32)))
+        port = ports[j % n_rx]
+        return (UdpOutput(egress, "127.0.0.1", port, port + 1, **kw),
+                CollectingOutput(**kw))
+
+    dev = [RelayStream(info, settings) for _ in range(n_streams)]
+    ora = [RelayStream(info, settings) for _ in range(n_streams)]
+    for i in range(n_streams):
+        for _ in range(n_subs):
+            a, b = make()
+            dev[i].add_output(a)
+            ora[i].add_output(b)
+    burst = [6 if i < n_streams // 2 else 20 for i in range(n_streams)]
+    feeds = []
+    for i in range(n_streams):
+        pkts = []
+        while len(pkts) < burst[i] * wakes:
+            pkts += synth.paced_gop(rng, seq0=0xFFF0 + len(pkts) + 97 * i,
+                                    ts0=0xFFFF0000 + 3000 * len(pkts),
+                                    ssrc=0x1000 + i, frames=10,
+                                    packets_per_frame=4)
+        feeds.append(pkts)
+    engines = [FanoutEngine(egress_fd=egress.fileno(), device=DEVICE)
+               for _ in range(n_streams)]
+    sched = MegabatchScheduler(device=DEVICE)
+    native0 = native.get_stats()
+    rcvbuf0 = udp_rcvbuf_errors()
+    pending: dict = {}
+    parts = {"begin": [], "steps": [], "end": [], "wake": []}
+    mismatched = received = expected = catch_up = 0
+    t = 1000
+    w = 0
+    while w < wakes or (catch_up < 4 and any(
+            a.bookmark != b.bookmark for s, o in zip(dev, ora)
+            for a, b in zip(s.outputs, o.outputs))):
+        # after the last wake, wakes with no new packets at the same time
+        # let an engine that met EAGAIN replay what it held
+        catch_up += w >= wakes
+        for i in range(n_streams if w < wakes else 0):
+            for pkt in feeds[i][w * burst[i]:(w + 1) * burst[i]]:
+                dev[i].push_rtp(pkt, t)
+                ora[i].push_rtp(pkt, t)
+        if w == 6:    # membership change on stream 3: 4 leave, 4 join
+            for k in range(4):
+                dev[3].remove_output(dev[3].outputs[k])
+                ora[3].remove_output(ora[3].outputs[k])
+                a, b = make()
+                dev[3].add_output(a)
+                ora[3].add_output(b)
+        pairs = list(zip(dev, engines))
+        t0 = time.perf_counter()
+        sched.begin_wake(pairs, t)
+        t1 = time.perf_counter()
+        for s, e in pairs:
+            e.step(s, t)
+        t2 = time.perf_counter()
+        sched.end_wake(pairs, t)
+        t3 = time.perf_counter()
+        for k, a, b in (("begin", t0, t1), ("steps", t1, t2), ("end", t2, t3),
+                        ("wake", t0, t3)):
+            parts[k].append((b - a) * 1e3)
+        # outside the timed part: the oracle's bytes, then every receiver
+        for s in ora:
+            s.reflect(t)
+            for o in s.outputs:
+                for pkt in o.rtp_packets:
+                    pending[(o.rewrite.ssrc, rtp.peek_seq(pkt))] = pkt
+                expected += len(o.rtp_packets)
+                o.rtp_packets.clear()
+        for r in receivers:
+            while True:
+                try:
+                    got = r.recv(65536)
+                except BlockingIOError:
+                    break
+                received += 1
+                want = pending.pop((rtp.peek_ssrc(got), rtp.peek_seq(got)),
+                                   None)
+                if want != got:
+                    mismatched += 1
+        w += 1
+        t += 20 if w < wakes else 0
+    sched.drain()
+    for r in receivers:
+        r.close()
+    egress.close()
+    st = sched.stats()
+    sent = sum(e.native_sent for e in engines)
+    stats = {k: v - native0[k] for k, v in native.get_stats().items()}
+    rcvbuf_errors = udp_rcvbuf_errors() - rcvbuf0
+    check(sent == expected, f"the engines sent {sent} datagrams, the scalar "
+          f"oracle {expected} (EAGAIN stops {stats['eagain_stops']}, hard "
+          f"errors {stats['hard_errors']})")
+    check(mismatched == 0, f"{mismatched} received datagrams differ from the "
+          f"scalar oracle")
+    check(len(pending) <= rcvbuf_errors,
+          f"{len(pending)} datagrams not received, but the host's UDP "
+          f"RcvbufErrors rose by {rcvbuf_errors}")
+    check(st["mismatches"] == 0, f"scheduler oracle mismatches: {st}")
+    check(all(e.missing_params == 0 for e in engines),
+          "an engine found no params")
+    res = {"streams": n_streams, "subscribers": n_subs, "wakes": wakes,
+           "catch_up_wakes": catch_up, "receivers": n_rx,
+           "rlimit_nofile": [soft, hard],
+           "expected_datagrams": expected, "received_datagrams": received,
+           "mismatched_datagrams": mismatched, "lost_datagrams": len(pending),
+           "udp_rcvbuf_errors": rcvbuf_errors, "native_sent": sent,
+           "native_stats": stats, "scheduler": st,
+           "send_errors": sum(e.send_errors for e in engines)}
+    for k, v in parts.items():
+        v.sort()
+        res[f"{k}_host_ms_p50"] = v[len(v) // 2]
+        res[f"{k}_host_ms_max"] = v[-1]
+    log(f"[native] config 4 to {n_streams}x{n_subs} UdpOutputs on one egress "
+        f"socket through the native scatter, {n_rx} receivers, {wakes} wakes "
+        f"(+{catch_up} catch-up): native_sent {sent} = the oracle's "
+        f"{expected}; {received} datagrams received, {mismatched} differ "
+        f"from the oracle, {len(pending)} not received (UDP RcvbufErrors "
+        f"+{rcvbuf_errors}); sendmmsg calls "
+        f"{stats['sendmmsg_calls']}, GSO supers {stats['gso_supers']}, "
+        f"EAGAIN stops {stats['eagain_stops']}, hard errors "
+        f"{stats['hard_errors']}; host ms p50/max begin "
+        f"{res['begin_host_ms_p50']:.3f}/{res['begin_host_ms_max']:.3f} steps "
+        f"{res['steps_host_ms_p50']:.3f}/{res['steps_host_ms_max']:.3f} end "
+        f"{res['end_host_ms_p50']:.3f}/{res['end_host_ms_max']:.3f} wake "
+        f"{res['wake_host_ms_p50']:.3f}/{res['wake_host_ms_max']:.3f}; "
+        f"phase 6 (Python loop, CollectingOutput) begin "
+        f"{phase6['begin_host_ms_p50']:.3f}/{phase6['begin_host_ms_max']:.3f} "
+        f"steps {phase6['steps_host_ms_p50']:.3f}/"
+        f"{phase6['steps_host_ms_max']:.3f} end "
+        f"{phase6['end_host_ms_p50']:.3f}/{phase6['end_host_ms_max']:.3f} wake "
+        f"{phase6['wake_host_ms_p50']:.3f}/{phase6['wake_host_ms_max']:.3f}")
+    return res
+
+
 # -------------------------------------------------------------- phase 7
 def phase_server(rng) -> dict:
-    """2 pushers × 4 interleaved TCP players through the CLI server."""
+    """2 pushers × 4 interleaved TCP players through the CLI server; the
+    players went through the native framed writev (``ed_stream_send``)."""
     from easydarwin_tpu_torch.utils import loopback
     res = asyncio.run(asyncio.wait_for(loopback.serve_and_check(
         DEVICE, rng, n_push=2, n_play=4, deadline_s=30), 180))
+    st = res["server_stats"]
+    check(st["native_loaded"], "the server's egress core did not load")
+    check(st["native_sent"] > 0, "no TCP player went through ed_stream_send")
     log(f"[server] {res['players']} players x {res['packets_per_player']} "
         f"packets: payload bit-equal, seq/ts rebased per RTP-Info, one SSRC "
-        f"each; server launches {res['server_stats']['kernel_launches']}")
+        f"each; {st['native_sent']} of {st['packets_out']} packets through "
+        f"ed_stream_send; server launches {st['kernel_launches']}")
+    return res
+
+
+# ------------------------------------------------------------- phase 7b
+def phase_config2(rng) -> dict:
+    """BASELINE config 2 through the CLI server: one 1080p30 source, 64
+    UDP players joining one a frame, for about 5 s."""
+    from easydarwin_tpu_torch.utils import loopback
+    res = asyncio.run(asyncio.wait_for(loopback.serve_and_check(
+        DEVICE, rng, n_push=1, n_play=CONFIG2_SUBS, transport="udp", gops=5,
+        frames=30, packets_per_frame=13, body_len=(1270, 1300),
+        frame_interval_s=1 / 30, join_every=1, deadline_s=30), 240))
+    st = res["server_stats"]
+    launches = st["kernel_launches"]
+    check(st["native_loaded"], "the server's egress core did not load")
+    check(launches["ed_ring_query"] > 0, "config 2 launched no ed_ring_query")
+    check(launches["ed_relay_window"] == 0,
+          "config 2 engaged the megabatch (ed_relay_window launched)")
+    check(st["native_sent"] > 0, "no UDP player went through the scatter")
+    check(st["send_errors"] == 0 and st["missing_params"] == 0,
+          f"config 2 send errors / missing params: {st}")
+    log(f"[config2] 1 source x {res['players']} UDP players, "
+        f"{res['packets_per_player']} packets pushed, {res['delivered']} "
+        f"datagrams delivered, every one checked; native_sent "
+        f"{st['native_sent']} of {st['packets_out']}, per-stream queries "
+        f"{st['device_param_refreshes']}, launches {launches}; wake host ms "
+        f"p50 {st['wake_ms_p50']:.3f} max {st['wake_ms_max']:.3f}")
     return res
 
 
@@ -663,7 +988,8 @@ def ptxas_report(build_log: str) -> dict:
     ``-Xptxas -v`` lines, keyed by the kernel's name."""
     import re
     names = ("parse_packets_kernel", "relay_window_kernel",
-             "launch_floor_kernel", "decode_blocks_kernel")
+             "ring_query_kernel", "launch_floor_kernel",
+             "decode_blocks_kernel")
     out, cur = {}, None
     for line in build_log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
@@ -758,8 +1084,26 @@ def phase_kernels(rng, launches: dict, errs: dict, levels, qt
             lambda: [fanout.relay_affine_step_window_plain(w, s)
                      for w, s in pairs], None, nbytes, ops, 100))
 
+    def ring_case(n_subs: int, main: bool):
+        from easydarwin_tpu_torch.ops import device_ring as dr
+        ring = fuzzed_ring(rng, RING_C, 2 * RING_C + 100)
+        st = ring_state(rng, n_subs)
+        out = torch.empty(4 * n_subs + 1, dtype=torch.int32, device="cuda")
+        cases.append((
+            "ed_ring_query", f"C={RING_C} S={n_subs}", main, relay_src,
+            "easydarwin_tpu/ops/device_ring.py:66",
+            lambda: kernel_lib.launch(
+                "ed_ring_query", ring.rows.data_ptr(), RING_C, dr.ROW_STRIDE,
+                ring.head, st.data_ptr(), n_subs, out.data_ptr()),
+            lambda: dr.query_params(ring, st),
+            lambda: dr.query_params_plain(ring, st), None,
+            ring.rows.numel() + 4 * st.numel() + 4 * out.numel(),
+            OPS_PER_WINDOW_ROW * RING_C + OPS_PER_SUBSCRIBER * n_subs, 100))
+
     k1_case(256, True)
     k1_case(16 * 256, False)
+    ring_case(CONFIG2_SUBS, True)
+    ring_case(256, False)
     window_case(WAKE_GROUP, True)
     window_case(((16, 16, 256, 256, 256),), False)
     # config 4's bytes and 64 CTAs again, as 64 streams of 64 rows: one CTA
@@ -854,6 +1198,7 @@ def main() -> int:
     log(f"[window] library geometry {detail['relay_geometry']} = the Python "
         f"launch plans")
     detail["window"] = phase_window(rng)
+    detail["ring"] = phase_ring_query(rng)
     levels, qt = config5_levels(int(rng.integers(1 << 31)))
     detail["k2_ring"] = ring_geometry()
     log(f"[k2] ring: {detail['k2_ring']}")
@@ -861,12 +1206,14 @@ def main() -> int:
 
     kernel_lib.reset_launch_counts()           # the main path starts here
     detail["scheduler"] = phase_scheduler(rng)
+    detail["native"] = phase_config4_native(rng, detail["scheduler"])
     detail["server"] = phase_server(rng)
+    detail["config2"] = phase_config2(rng)
     detail["pipeline"] = phase_pipeline(levels)
     detail["ladder"] = phase_ladder(rng)
     in_proc = dict(kernel_lib.LAUNCHES)
     servers = [detail[p]["server_stats"]["kernel_launches"]
-               for p in ("server", "ladder")]
+               for p in ("server", "config2", "ladder")]
     launches = {k: in_proc[k] + sum(s.get(k, 0) for s in servers)
                 for k in in_proc}
     log(f"[main path] kernel launches {launches} (in-process {in_proc}, "
@@ -876,6 +1223,7 @@ def main() -> int:
 
     errs = {"ed_parse_packets": max(detail["k1"].values()),
             "ed_relay_window": max(detail["window"].values()),
+            "ed_ring_query": max(detail["ring"].values()),
             "ed_decode_blocks": max(v["max_abs_err"]
                                     for v in detail["k2"].values())}
     detail["launch_floor_ms"] = launch_floor_ms()

@@ -2,7 +2,8 @@
 [--device cuda|cpu]``.
 
 Serves the live relay: pushers ANNOUNCE/SETUP/RECORD over TCP-interleaved
-RTSP, players DESCRIBE/SETUP/PLAY.  The REST API on the service port
+RTSP, players DESCRIBE/SETUP/PLAY over interleaved TCP or UDP
+(``client_port``).  The REST API on the service port
 starts MJPEG transcode ladders (``/api/v1/starttranscode?path=/cam&
 rungs=40,20s2``) whose rungs play as ``/cam@q40`` and ``/cam@q20s2``.
 Prints one ``listening:`` line once both listeners are bound (port 0 picks

@@ -21,6 +21,17 @@
 //     (96-byte prefix + le32 length) and [B, S, 6] uint32 subscriber state
 //     -> [B, 4*S+1] uint32 (seq_off | ts_off | ssrc | chan | newest_kf),
 //     for every shape bucket of a scheduler wake in ONE launch.
+//   * ed_ring_query replaces the XLA pass
+//     easydarwin_tpu/ops/device_ring.py:66 query, whose parse is K1's
+//     function: K1's parse of every row of a stream's resident ring
+//     [C, 100] uint8, keyframe_first & valid under the ring's absolute-id
+//     mapping, the max absolute id over those rows, and the affine emit of
+//     S subscribers -> [4*S+1] uint32.  At C = 4096 it reads 409.6 KB
+//     (0.12 us at 3.35 TB/s), so it sits at the launch floor; it is one
+//     launch of K1's tiles plus a few emit CTAs (the window kernel cannot
+//     take it: a 4,096-row stream row needs 51,200 B of shared memory per
+//     CTA of a cluster of 8, and its newest keyframe is a row index, where
+//     a wrapped ring needs the newest absolute id).
 //
 // Why the TPU's trick is dropped
 //   The TPU kernel avoids per-row dynamic gathers by building each byte at
@@ -363,6 +374,67 @@ relay_window_kernel(const __grid_constant__ WindowLaunch launch) {
   }
 }
 
+// -------------------------------------------------------- ring query
+
+// One launch per per-stream query over the whole resident ring.  CTAs
+// [0, n_tiles) are K1's 64-row tiles: one bulk copy brings a tile into
+// shared memory, one thread parses one row, and the CTA's max over the
+// absolute ids of its valid keyframe-first rows goes into the result's
+// last word by one atomicMax (order-free, so the result is deterministic;
+// the entry point sets the word to -1 on the same stream first).  CTAs
+// [n_tiles, grid) write the affine columns of 64 subscribers each, as the
+// window kernel's emit does.
+__global__ void __launch_bounds__(kTileRows)
+ring_query_kernel(const uint8_t* __restrict__ rows, int capacity,
+                  int row_stride, int head, const uint32_t* __restrict__ state,
+                  int n_subs, int n_tiles, uint32_t* __restrict__ out) {
+  extern __shared__ __align__(16) uint8_t s_tile[];
+  __shared__ uint64_t s_bar;
+  __shared__ int s_warp_best[kTileRows / 32];
+  const int t = threadIdx.x;
+  if (int(blockIdx.x) >= n_tiles) {
+    const int s = (int(blockIdx.x) - n_tiles) * kTileRows + t;
+    if (s < n_subs) {
+      uint32_t v[kStateCols];
+#pragma unroll
+      for (int c = 0; c < kStateCols; ++c) v[c] = state[size_t(s) * kStateCols + c];
+      out[s] = (v[3] - v[1]) & 0xFFFFu;          // seq_off (mod 2^16)
+      out[n_subs + s] = v[4] - v[2];             // ts_off (mod 2^32)
+      out[2 * n_subs + s] = v[0];                // ssrc
+      out[3 * n_subs + s] = v[5];                // interleave channel
+    }
+    return;
+  }
+  const int row0 = int(blockIdx.x) * kTileRows;
+  const int rows_here = min(kTileRows, capacity - row0);
+  const uint8_t* src = rows + size_t(row0) * row_stride;
+  uint8_t* buf = s_tile + (reinterpret_cast<uintptr_t>(src) & (kBulkAlign - 1));
+  const bool wait =
+      bulk_fetch(buf, src, uint32_t(rows_here) * row_stride, &s_bar);
+  __syncthreads();
+  if (wait) mbar_wait(smem_addr(&s_bar), 0);
+  int best = -1;
+  if (t < rows_here) {
+    const uint8_t* row = buf + size_t(t) * row_stride;
+    const int32_t len = le32(row + kParsePrefix);
+    // slot -> absolute id: head - ((head - slot - 1) mod C) - 1; a slot
+    // the ring never wrote maps below 0
+    int m = (head - (row0 + t) - 1) % capacity;
+    if (m < 0) m += capacity;
+    const int abs_id = head - m - 1;
+    if (len > 0 && abs_id >= 0 && parse_row(row, len).kf) best = abs_id;
+  }
+  best = __reduce_max_sync(0xffffffffu, best);
+  if ((t & 31) == 0) s_warp_best[t >> 5] = best;
+  __syncthreads();
+  if (t == 0) {
+    int mx = -1;
+    for (int w = 0; w < kTileRows / 32; ++w) mx = max(mx, s_warp_best[w]);
+    if (mx >= 0)
+      atomicMax(reinterpret_cast<int*>(out + 4 * size_t(n_subs)), mx);
+  }
+}
+
 // The card's floor for one launch: a kernel that does nothing.
 __global__ void launch_floor_kernel() {}
 
@@ -429,6 +501,29 @@ int ed_relay_window(const void* buckets, int n_buckets, int cluster,
   cfg.numAttrs = 1;
   const cudaError_t err = cudaLaunchKernelEx(&cfg, relay_window_kernel, launch);
   if (err != cudaSuccess) return int(err);
+  return int(cudaGetLastError());
+}
+
+// One per-stream ring query: rows [capacity, row_stride] uint8 (prefix +
+// le32 length), head = packets ever appended, state [n_subs, 6] uint32 ->
+// out [4 * n_subs + 1] uint32, the last word the newest keyframe's
+// absolute id (-1 = none).  A memset of that word, then one launch.
+int ed_ring_query(const void* rows, int capacity, int row_stride, int head,
+                  const void* state, int n_subs, void* out, void* stream) {
+  const size_t smem = size_t(kTileRows) * row_stride + kBulkAlign;
+  if (capacity <= 0 || head < 0 || n_subs < 0 ||
+      row_stride < kParsePrefix + kWindowExtra || smem > size_t(kDynSmemLimit))
+    return int(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  uint32_t* o = static_cast<uint32_t*>(out);
+  cudaError_t err = cudaMemsetAsync(o + 4 * size_t(n_subs), 0xFF,
+                                    sizeof(uint32_t), s);
+  if (err != cudaSuccess) return int(err);
+  const int n_tiles = (capacity + kTileRows - 1) / kTileRows;
+  const int n_emit = (n_subs + kTileRows - 1) / kTileRows;
+  ring_query_kernel<<<n_tiles + n_emit, kTileRows, smem, s>>>(
+      static_cast<const uint8_t*>(rows), capacity, row_stride, head,
+      static_cast<const uint32_t*>(state), n_subs, n_tiles, o);
   return int(cudaGetLastError());
 }
 

@@ -39,7 +39,7 @@ NVCC_FLAGS = (*GENCODE, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 
 #: kernel name → launches made by its wrapper in this process
 LAUNCHES = {"ed_parse_packets": 0, "ed_relay_window": 0,
-            "ed_decode_blocks": 0}
+            "ed_ring_query": 0, "ed_decode_blocks": 0}
 
 #: cp.async.bulk moves 16-byte-aligned runs that are a multiple of 16 bytes
 BULK_ALIGN = 16
@@ -60,6 +60,8 @@ _SIGNATURES = {
     "ed_parse_packets": (_P, _I, _I, _P, _P, _P, _P),
     # WindowBucket descriptors, n_buckets, cluster size, stream
     "ed_relay_window": (_P, _I, _I, _P),
+    # rows, capacity, row_stride, head, state, n_subs, out, stream
+    "ed_ring_query": (_P, _I, _I, _I, _P, _I, _P, _P),
     # -> max buckets, max cluster, window threads, K1 tile rows, smem limit
     "ed_relay_geometry": (_IP, _IP, _IP, _IP, _IP),
     # stream (an empty kernel: the launch floor)

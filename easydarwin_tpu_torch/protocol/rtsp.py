@@ -44,6 +44,7 @@ class TransportSpec:
     unicast: bool = True
     mode: str = "PLAY"                 # PLAY | RECORD (mode=receive → RECORD)
     client_port: tuple[int, int] | None = None
+    server_port: tuple[int, int] | None = None
     interleaved: tuple[int, int] | None = None
     ssrc: int | None = None
 
@@ -65,7 +66,7 @@ class TransportSpec:
             elif key == "mode":
                 v = val.strip('"').upper()
                 t.mode = "RECORD" if v in ("RECORD", "RECEIVE") else "PLAY"
-            elif key in ("client_port", "interleaved"):
+            elif key in ("client_port", "server_port", "interleaved"):
                 lo, _, hi = val.partition("-")
                 try:
                     pair = (int(lo), int(hi) if hi else int(lo) + 1)
@@ -83,6 +84,8 @@ class TransportSpec:
         parts = [self.protocol, "unicast" if self.unicast else "multicast"]
         if self.client_port:
             parts.append(f"client_port={self.client_port[0]}-{self.client_port[1]}")
+        if self.server_port:
+            parts.append(f"server_port={self.server_port[0]}-{self.server_port[1]}")
         if self.interleaved:
             parts.append(f"interleaved={self.interleaved[0]}-{self.interleaved[1]}")
         if self.ssrc is not None:

@@ -1,25 +1,54 @@
-"""The fan-out engine of the megabatch path.
+"""The fan-out engine: one stream's wire writes from device-computed params.
 
 ``RelayStream.reflect`` is the scalar oracle.  ``FanoutEngine`` serves the
-same outputs from the affine params the megabatch scheduler computed on the
-device (``relay.megabatch``): it renders every (subscriber, packet) header
-from O(P) packet fields and O(S) offsets in one numpy pass
-(``render_headers``) and writes ``header ∥ packet[12:]`` through each
-output's ``send_rewritten``.  Payload bytes never go to the device and are
-never rewritten per subscriber.
+same outputs from the affine rewrite params (``seq_off``, ``ts_off``,
+``ssrc``, ``chan`` per output) that the device computed, on three rungs:
 
-The engine never computes params itself: a stream whose installed segment
-is missing or stale this wake sends nothing this wake, and its bookmarks
-do not move.  For the same ring and output state its bytes equal those of
-``RelayStream.reflect`` (tested).
+* **UDP fast** — outputs with a ``native_addr`` (the server's shared
+  egress socket): ONE ``sendmmsg``/UDP-GSO scatter of every eligible
+  (packet, output) pair through the egress core (``native``), the header
+  rewritten in C;
+* **TCP fast** — interleaved outputs whose socket is directly writable:
+  ONE framed ``writev`` per connection (``native.stream_send``), a torn
+  packet's remainder completed through ``push_tail``;
+* **the loop** — every other primed output (``CollectingOutput``, an
+  interleaved output whose transport holds a backlog): headers rendered
+  by numpy (``render_headers``) and written through ``send_rewritten``.
+
+The canonical order of a stream's primed outputs is UDP fast, TCP fast,
+then the rest; ``params_key``, the scheduler's state rows and the dest
+table all follow it, so one set of params covers all three rungs.
+
+Where the params come from: the megabatch scheduler installs them
+(``megabatch_params``) for the streams it owns.  Otherwise — a stream the
+scheduler does not own, or an owned stream whose key went stale mid-wake —
+the engine queries its own device-resident ring (``ops.device_ring``; one
+``ed_ring_query`` launch on the card), which it keeps current by appending
+each wake's new packets.  Params are only recomputed when the key
+(membership and rebase state) changes, and every computed set is checked
+against the host arithmetic oracle ``host_affine_params`` before it is
+used: a disagreement sends nothing that wake and leaves the bookmarks.
+
+For the same ring and output state the bytes equal those of
+``RelayStream.reflect`` (tested), apart from the TCP rung's shed of a
+reader more than half the ring behind.
 """
 
 from __future__ import annotations
 
-import numpy as np
+import errno
 
+import numpy as np
+import torch
+
+from .. import native
+from ..ops import device_ring, staging
+from ..ops.fanout import pack_output_state, unpack_affine
+from ..protocol import rtp
 from .output import WriteResult
 from .stream import RelayStream
+
+_EAGAIN = (0, errno.EAGAIN, errno.EWOULDBLOCK)
 
 
 def render_headers(b01: np.ndarray, seq: np.ndarray, ts: np.ndarray,
@@ -54,33 +83,140 @@ def params_key(outputs) -> tuple:
                   o.rewrite.out_ts_start, _chan(o)) for o in outputs)
 
 
+def host_affine_params(key) -> tuple:
+    """The affine rewrite computed by plain host arithmetic from a
+    ``params_key`` — the oracle every device result is checked against
+    (the uint32 formulas of ``ops.fanout.affine_params`` over
+    ``pack_output_state``'s max(·, 0) clamping; the channel column is a
+    passthrough)."""
+    st = np.asarray(key, dtype=np.int64).reshape(-1, 6)
+    ssrc = (st[:, 0] & 0xFFFFFFFF).astype(np.uint32)
+    base_seq = np.maximum(st[:, 1], 0).astype(np.uint32)
+    base_ts = np.maximum(st[:, 2], 0).astype(np.uint32)
+    seq0 = (st[:, 3] & 0xFFFFFFFF).astype(np.uint32)
+    ts0 = (st[:, 4] & 0xFFFFFFFF).astype(np.uint32)
+    chan = (st[:, 5] & 0xFFFFFFFF).astype(np.uint32)
+    return ((seq0 - base_seq) & np.uint32(0xFFFF), ts0 - base_ts, ssrc,
+            chan)
+
+
+def params_agree(params, key) -> bool:
+    """Whether ``(seq_off, ts_off, ssrc, chan)`` ``[1, S]`` rows equal the
+    host oracle for ``key``."""
+    return all(np.array_equal(a[0], b)
+               for a, b in zip(params, host_affine_params(key)))
+
+
+class _RingStaging:
+    """The pinned host rows one append uploads from, reused only after the
+    CUDA event recorded behind its copies has completed."""
+
+    __slots__ = ("rows", "arrival", "event")
+
+    def __init__(self, n: int, pin: bool):
+        self.rows = torch.zeros((n, device_ring.ROW_STRIDE),
+                                dtype=torch.uint8, pin_memory=pin)
+        self.arrival = torch.zeros(n, dtype=torch.int32, pin_memory=pin)
+        self.event = None
+
+
 class FanoutEngine:
-    """Batched fan-out for one stream, fed by the megabatch scheduler.
+    """Batched fan-out for one stream.
 
-    Stateless between steps apart from the installed params; all mutable
-    relay state stays in the stream and its outputs."""
+    ``egress_fd`` is the shared UDP egress socket (−1: none, UDP outputs
+    take the loop), written with UDP GSO over ``sendmmsg`` (retried
+    without GSO, which is dropped after two strikes); ``device`` holds the
+    per-stream ring (resolved at first use)."""
 
-    def __init__(self):
+    def __init__(self, *, egress_fd: int = -1,
+                 device: str | torch.device = "cuda"):
+        self.egress_fd = egress_fd
+        self.device = device
         self.steps = 0
         self.packets_sent = 0
+        #: packets sent by the native rungs / passes that used them
+        self.native_sent = 0
+        self.native_passes = 0
+        #: per-stream ring queries that installed params
+        self.device_param_refreshes = 0
+        #: datagrams or packets a hard send error skipped
+        self.send_errors = 0
         self.last_newest_keyframe = -1
+        #: True while the megabatch scheduler owns this stream's device
+        #: work (it stages the windows; the engine skips its ring append)
+        self.megabatch_owned = False
         #: (params_key, (seq_off, ts_off, ssrc, chan)) installed by the
         #: scheduler's last harvest or prime pass for this stream
         self.megabatch_params: tuple | None = None
         self.megabatch_installs = 0
-        #: steps that found no installed params for the current key
+        #: steps that found no params agreeing with the host oracle
         self.missing_params = 0
         self._params_key = None
         self._params = None           # ([1,S] seq_off, ts_off, ssrc, chan)
+        self._dests_key = None
+        self._dests = None
+        # UDP GSO is tried each pass until proven broken: two passes where
+        # it fails and plain sendmmsg works drop it
+        self._gso_disabled = False
+        self._gso_strikes = 0
+        self._dring: device_ring.RingState | None = None
+        self._dring_appended = 0      # host pid appended up to
+        self._dring_base = 0          # host pid of device abs id 0
+        self._dring_epoch = 0         # arrival-ms epoch (int32 room)
+        self._stage: _RingStaging | None = None
+        self.dring_appends = 0
 
+    # ------------------------------------------------------------ outputs
     def _flat_outputs(self, stream: RelayStream):
         return [(out, b_idx) for b_idx, bucket in enumerate(stream.buckets)
                 for out in bucket]
 
+    def _native_ok(self) -> bool:
+        return self.egress_fd >= 0 and native.available()
+
+    @staticmethod
+    def _fast_eligible(out, native_ok: bool) -> bool:
+        """UDP fast rung: a primed output on the shared egress socket.
+        (The reference also requires no meta-info wrap and a pass-through
+        thinning filter; the port has neither yet, ROADMAP A3.)"""
+        return (native_ok and out.bookmark is not None
+                and out.native_addr is not None)
+
+    @staticmethod
+    def _tcp_eligible(out) -> bool:
+        """TCP fast rung: a primed interleaved output whose socket takes
+        raw writes now (nothing buffered that they could overtake).  (No
+        meta-info or thinning to exclude yet, ROADMAP A3.)"""
+        return (out.bookmark is not None
+                and getattr(out, "interleave_chan", None) is not None
+                and out.stream_fd >= 0 and out.engine_writable()
+                and native.available())
+
+    def split_flat(self, flat) -> tuple[list, list, list]:
+        """The primed ``(output, bucket)`` pairs as (UDP fast, TCP fast,
+        the rest)."""
+        udp, tcp, rest = [], [], []
+        native_ok = None
+        for out, b_idx in flat:
+            if out.bookmark is None:
+                continue
+            if out.native_addr is not None:
+                if native_ok is None:
+                    native_ok = self._native_ok()
+                if self._fast_eligible(out, native_ok):
+                    udp.append((out, b_idx))
+                    continue
+            if self._tcp_eligible(out):
+                tcp.append((out, b_idx))
+            else:
+                rest.append((out, b_idx))
+        return udp, tcp, rest
+
     def fast_from_flat(self, flat) -> list:
-        """The outputs this engine serves, in the order ``params_key`` and
-        the device state matrix are built in: every primed output."""
-        return [o for o, _ in flat if o.bookmark is not None]
+        """Every primed output in the canonical order (UDP fast, TCP fast,
+        the rest): the order ``params_key``, the device state rows and the
+        dest table are built in."""
+        return [o for group in self.split_flat(flat) for o, _ in group]
 
     def fast_outputs(self, stream: RelayStream) -> list:
         return self.fast_from_flat(self._flat_outputs(stream))
@@ -113,18 +249,77 @@ class FanoutEngine:
                 out.rewrite.base_src_seq = int(ring.seq[s])
                 out.rewrite.base_src_ts = int(ring.timestamp[s])
 
-    def _installed_params(self, outputs):
+    # ------------------------------------------------------- device ring
+    def _ring_sync(self, ring, now_ms: int) -> None:
+        """Append the packets the device ring has not seen (O(new) H2D):
+        one gather into pinned staging, at most two slice copies a
+        tensor.  A ring that fell behind by more than its capacity, lost
+        packets to eviction or nears the int32 head restarts."""
+        dr = self._dring
+        if (dr is None or ring.head - self._dring_appended > ring.capacity
+                or ring.tail > self._dring_appended
+                or dr.head > device_ring.MAX_HEAD):
+            self._dring = dr = device_ring.init_ring(ring.capacity,
+                                                     self.device)
+            self._dring_appended = self._dring_base = max(
+                ring.tail, ring.head - ring.capacity)
+            self._dring_epoch = now_ms
+        n = ring.head - self._dring_appended
+        if n <= 0:
+            return
+        pin = dr.rows.device.type == "cuda"
+        st = self._stage
+        if st is None or st.rows.shape[0] < n:
+            st = self._stage = _RingStaging(staging.pow2(n, 16), pin)
+        elif st.event is not None:
+            st.event.synchronize()     # the last upload from it is done
+        start = self._dring_appended
+        staging.gather_window(ring, start, n, st.rows.numpy())
+        slots = np.arange(start, start + n) % ring.capacity
+        st.arrival.numpy()[:n] = ring.arrival[slots] - self._dring_epoch
+        device_ring.append_rows(dr, st.rows, st.arrival, n)
+        if pin:
+            st.event = torch.cuda.Event()
+            st.event.record()
+        self._dring_appended = ring.head
+        self.dring_appends += 1
+
+    def _install(self, key, params) -> tuple:
+        self._params, self._params_key = params, key
+        return params
+
+    def _device_params(self, outputs, ring, now_ms: int):
+        """The affine params for ``outputs`` (canonical order): cached
+        while the key holds, else the scheduler's installed set, else one
+        per-stream query of the device ring.  None when the device result
+        disagrees with the host oracle."""
         key = params_key(outputs)
         if key == self._params_key:
             return self._params
         mb = self.megabatch_params
         if mb is not None and mb[0] == key:
-            self._params = mb[1]
-            self._params_key = key
             self.megabatch_installs += 1
-            return self._params
-        return None
+            return self._install(key, mb[1])
+        if self.megabatch_owned:
+            # an owned stream's override is missing or stale (a join or a
+            # rebase latch mid-wake): the scheduler staged its windows, so
+            # the resident ring catches up first
+            self._ring_sync(ring, now_ms)
+        state = torch.from_numpy(pack_output_state(outputs)).to(
+            self._dring.rows.device)
+        packed = device_ring.query_params(self._dring, state)
+        seq_off, ts_off, ssrc, chan, kf = unpack_affine(
+            packed.cpu().numpy()[None], len(outputs))
+        params = tuple(np.ascontiguousarray(a)
+                       for a in (seq_off, ts_off, ssrc, chan))
+        if not params_agree(params, key):
+            return None
+        kf = int(kf[0])
+        self.last_newest_keyframe = self._dring_base + kf if kf >= 0 else -1
+        self.device_param_refreshes += 1
+        return self._install(key, params)
 
+    # --------------------------------------------------------------- step
     def step(self, stream: RelayStream, now_ms: int) -> int:
         """One fan-out pass over ``stream``; returns packets written."""
         ring = stream.rtp_ring
@@ -132,41 +327,259 @@ class FanoutEngine:
         if not flat or len(ring) == 0:
             return 0
         self._prime(stream, flat, now_ms)
-        flat = [(o, b) for o, b in flat if o.bookmark is not None]
-        if not flat:
+        udp, tcp, rest = self.split_flat(flat)
+        if not (udp or tcp or rest):
             return 0
-        params = self._installed_params([o for o, _ in flat])
+        if not self.megabatch_owned:
+            self._ring_sync(ring, now_ms)
+        order = [o for group in (udp, tcp, rest) for o, _ in group]
+        params = self._device_params(order, ring, now_ms)
         if params is None:
             self.missing_params += 1
             return 0
-        seq_off, ts_off, ssrc, _chan = params
-        start = min(o.bookmark for o, _ in flat)
+        start = min(o.bookmark for o in order)
         ids, lengths, _flags = ring.window_meta(start, ring.head - start)
         if len(ids) == 0:
             return 0
-        start = int(ids[0])                 # window_meta clamps to tail
-        idx = ids % ring.capacity
-        arrivals = ring.arrival[idx]
-        headers = render_headers(ring.data[idx, :2], ring.seq[idx],
-                                 ring.timestamp[idx], seq_off[0], ts_off[0],
-                                 ssrc[0])
-        delay = stream.settings.bucket_delay_ms
+        win = _Window(ring, ids, lengths, now_ms,
+                      stream.settings.bucket_delay_ms)
         sent = 0
-        for s, (out, b_idx) in enumerate(flat):
-            deadline = now_ms - b_idx * delay
+        if udp:
+            sent += self._udp_scatter(stream, udp, win, params)
+        if tcp:
+            sent += self._tcp_scatter(stream, tcp, len(udp), win, params)
+        if udp or tcp:
+            self.native_passes += 1
+        if rest:
+            sent += self._loop(stream, rest, len(udp) + len(tcp), win,
+                               params)
+        stream.stats.packets_out += sent
+        self.steps += 1
+        self.packets_sent += sent
+        return sent
+
+    # ---------------------------------------------------------- UDP rung
+    def _dests_for(self, udp):
+        key = tuple(o.native_addr for o, _ in udp)
+        if key != self._dests_key:
+            self._dests = native.make_dests(list(key))
+            self._dests_key = key
+        return self._dests
+
+    def _send_ops(self, ring, params, dests, ops_np, mode) -> int:
+        seq_off, ts_off, ssrc, _chan = params
+        return native.fanout_send_multi(
+            self.egress_fd, ring.data, ring.length, seq_off, ts_off, ssrc,
+            dests, native.ops_from_numpy(ops_np), len(ops_np), use_gso=mode)
+
+    def _udp_scatter(self, stream, udp, win, params) -> int:
+        """ONE native scatter of every eligible (packet, output) pair;
+        bookmarks move exactly as the scalar loop's would under the same
+        partial (EAGAIN) or failed (hard error) sends.  The op list is
+        built for all outputs at once from prefix counts over the
+        window's valid rows; only the bookkeeping walks the outputs."""
+        ring = stream.rtp_ring
+        n_out = len(udp)
+        lo = np.maximum(np.fromiter((o.bookmark for o, _ in udp), np.int64,
+                                    n_out) - win.start, 0)
+        hi = win.his(lo, np.fromiter((b for _, b in udp), np.int64, n_out))
+        has = hi > lo
+        first = win.valid_cum[lo]                 # valid rows before lo
+        n = np.where(has, win.valid_cum[hi] - first, 0)
+        total = int(n.sum())
+        ends = np.cumsum(n)
+        starts = ends - n                         # each output's first op
+        r, hard = 0, False
+        if total:
+            rows = win.valid_rows[np.repeat(first - starts, n)
+                                  + np.arange(total)]
+            ops_np = np.empty((total, 2), np.int32)
+            ops_np[:, 0] = win.idx[rows]
+            ops_np[:, 1] = np.repeat(np.arange(n_out, dtype=np.int32), n)
+            r, hard = self._udp_send_all(ring, params, self._dests_for(udp),
+                                         ops_np)
+        k = np.clip(r - starts, 0, n)
+        nbytes = win.valid_len_cum[first + k] - win.valid_len_cum[first]
+        hard_used = False
+        for (out, _b), h, ok, ns, ks, nb, f in zip(
+                udp, has.tolist(), hi.tolist(), n.tolist(), k.tolist(),
+                nbytes.tolist(), first.tolist()):
+            if not h:
+                continue
+            if ks == ns:                    # all sent, or a runt-only span
+                out.bookmark = win.start + ok
+            elif hard and not hard_used:
+                # the datagram at the boundary failed hard: drop this
+                # output's rest for the pass so the others are not starved
+                hard_used = True
+                out.bookmark = win.start + ok
+                self.send_errors += ns - ks
+            else:
+                out.bookmark = int(win.ids[win.valid_rows[f + ks]])
+                out.stalls += 1             # the first unsent packet
+                stream.stats.stalls += 1
+            if ks:
+                out.packets_sent += ks
+                out.bytes_sent += nb
+                out.payload_octets += nb - 12 * ks
+        self.native_sent += r
+        return r
+
+    def _udp_send_all(self, ring, params, dests, ops_np) -> tuple[int, bool]:
+        """``(ops sent, whether the stop was hard)`` for ``ops_np``."""
+        total = len(ops_np)
+        r, used_gso = self._udp_send(ring, params, dests, ops_np)
+        if r < 0:
+            # nothing sent and the stop was hard: the poisoned output is
+            # skipped (the scalar loop advances on ERROR too)
+            return 0, True
+        if r == total:
+            return r, False
+        hard = native.last_send_errno() not in _EAGAIN
+        if hard and used_gso:
+            # a kernel without UDP_SEGMENT may send one-segment supers and
+            # refuse the next: a GSO failure, not a bad destination — the
+            # rest goes again without GSO
+            self._gso_strike()
+            r2 = self._send_ops(ring, params, dests, ops_np[r:],
+                                native.SEND_PLAIN)
+            if r2 >= 0:
+                r += r2
+                hard = (r < total
+                        and native.last_send_errno() not in _EAGAIN)
+        return int(r), hard
+
+    def _gso_strike(self) -> None:
+        self._gso_strikes += 1
+        if self._gso_strikes >= 2:
+            self._gso_disabled = True
+
+    def _udp_send(self, ring, params, dests, ops_np) -> tuple[int, bool]:
+        """``(ops sent or −errno, whether GSO sent)``.  A GSO call that
+        sends nothing while plain sendmmsg works is a strike; a GSO pass
+        that works clears them."""
+        if not self._gso_disabled:
+            r = self._send_ops(ring, params, dests, ops_np, native.SEND_GSO)
+            if r >= 0:
+                self._gso_strikes = 0
+                return r, True
+        r = self._send_ops(ring, params, dests, ops_np, native.SEND_PLAIN)
+        if r >= 0 and not self._gso_disabled:
+            self._gso_strike()
+        return r, False
+
+    # ---------------------------------------------------------- TCP rung
+    def _tcp_scatter(self, stream, tcp, col0: int, win, params) -> int:
+        """One framed ``writev`` per connection.  EAGAIN holds the
+        bookmark; a torn packet's remainder goes through ``push_tail``
+        (the transport then owns the connection's order); a reader more
+        than half the ring behind is moved forward to the newest keyframe
+        (whole frames dropped, never a blocked wake)."""
+        ring = stream.rtp_ring
+        seq_off, ts_off, ssrc, chan = params
+        sent = 0
+        for j, (out, b_idx) in enumerate(tcp):
+            col = col0 + j
+            if ring.head - out.bookmark > ring.capacity // 2:
+                kf = stream.keyframe_id
+                if kf is None or kf <= out.bookmark:
+                    kf = ring.head - ring.capacity // 4
+                if kf > out.bookmark:
+                    out.bookmark = int(kf)
+                    out.stalls += 1
+                    stream.stats.stalls += 1
+            lo, hi = win.span(out.bookmark, b_idx)
+            if hi <= lo:
+                continue
+            sel = win.valid[lo:hi]
+            pids = win.ids[lo:hi][sel]
+            slots = np.ascontiguousarray(win.idx[lo:hi][sel])
+            lens = win.lengths[lo:hi][sel]
+            if len(pids) == 0:
+                out.bookmark = win.start + hi   # a runt-only span
+                continue
+            ch = int(chan[0, col]) & 0xFF
+            r, partial = native.stream_send(
+                out.stream_fd, ring.data, ring.length, int(seq_off[0, col]),
+                int(ts_off[0, col]), int(ssrc[0, col]), ch, slots)
+            if r < 0:
+                if native.last_send_errno() in _EAGAIN:
+                    out.stalls += 1           # replay from the bookmark
+                    stream.stats.stalls += 1
+                else:                         # a dead connection: skip
+                    out.bookmark = win.start + hi
+                    self.send_errors += len(pids)
+                continue
+            k = r
+            nbytes = int(lens[:k].sum())
+            dead = False
+            if partial > 0 and k < len(pids):
+                # the k-th packet is torn on the wire: its remainder must
+                # be the connection's next bytes
+                if out.push_tail(self._framed(ring, int(slots[k]), out,
+                                              ch)[partial:]):
+                    nbytes += int(lens[k])
+                    k += 1
+                else:
+                    # the transport died: skip the span, and never send
+                    # the torn packet again on a socket holding its start
+                    dead = True
+                    out.bookmark = win.start + hi
+                    self.send_errors += len(pids) - k
+            if dead:
+                pass
+            elif k == len(pids):
+                out.bookmark = win.start + hi
+            else:
+                out.bookmark = int(pids[k])  # the first unsent packet
+                out.stalls += 1
+                stream.stats.stalls += 1
+            if k:
+                out.packets_sent += k
+                out.bytes_sent += nbytes
+                out.payload_octets += nbytes - 12 * k
+                sent += k
+        self.native_sent += sent
+        return sent
+
+    @staticmethod
+    def _framed(ring, slot: int, out, chan: int) -> bytes:
+        """One framed interleaved packet rendered on the host (what the C
+        renderer writes, by the same rewrite)."""
+        n = int(ring.length[slot])
+        pkt = ring.data[slot, :n].tobytes()
+        rw = out.rewrite
+        body = rtp.rewrite_header(
+            pkt, seq=rw.map_seq(rtp.peek_seq(pkt)),
+            timestamp=rw.map_ts(rtp.peek_timestamp(pkt)), ssrc=rw.ssrc)
+        return b"$" + bytes((chan,)) + n.to_bytes(2, "big") + body
+
+    # ----------------------------------------------------------- the loop
+    def _loop(self, stream, rest, col0: int, win, params) -> int:
+        """Render every header with numpy and write each packet through
+        ``send_rewritten``, in the scalar oracle's order."""
+        ring = stream.rtp_ring
+        seq_off, ts_off, ssrc, _chan = (p[:, col0:col0 + len(rest)]
+                                        for p in params)
+        headers = render_headers(ring.data[win.idx, :2], ring.seq[win.idx],
+                                 ring.timestamp[win.idx], seq_off[0],
+                                 ts_off[0], ssrc[0])
+        sent = 0
+        for s, (out, b_idx) in enumerate(rest):
+            deadline = win.now_ms - b_idx * win.delay
             pid = out.bookmark
             while pid < ring.head:
-                j = pid - start
+                j = pid - win.start
                 # the oracle's order: eligibility first (break holds the
                 # bookmark), runt-skip second (advance)
-                if arrivals[j] > deadline:
+                if win.arrivals[j] > deadline:
                     break
-                n = int(lengths[j])
+                n = int(win.lengths[j])
                 if n < 12:
                     pid += 1
                     continue
                 wr = out.send_rewritten(headers[s, j].tobytes(),
-                                        ring.data[idx[j], 12:n].tobytes())
+                                        ring.data[win.idx[j], 12:n].tobytes())
                 if wr is WriteResult.WOULD_BLOCK:
                     out.stalls += 1
                     stream.stats.stalls += 1
@@ -178,7 +591,54 @@ class FanoutEngine:
                     out.payload_octets += n - 12
                     sent += 1
             out.bookmark = pid
-        stream.stats.packets_out += sent
-        self.steps += 1
-        self.packets_sent += sent
         return sent
+
+
+class _Window:
+    """One pass's view of the ring from the lowest bookmark to the head:
+    absolute ids, slots, lengths and arrivals, and each bucket's
+    eligibility edge."""
+
+    __slots__ = ("ids", "idx", "lengths", "arrivals", "valid", "start",
+                 "now_ms", "delay", "valid_rows", "valid_cum",
+                 "valid_len_cum", "_late")
+
+    def __init__(self, ring, ids, lengths, now_ms: int, delay: int):
+        self.ids = ids
+        self.start = int(ids[0])            # window_meta clamps to tail
+        self.idx = (ids % ring.capacity).astype(np.int32)
+        self.lengths = lengths
+        self.arrivals = ring.arrival[self.idx]
+        self.valid = lengths >= 12
+        self.now_ms = now_ms
+        self.delay = delay
+        #: the rows a send takes (not runts), how many precede each row,
+        #: and their bytes before each of them
+        self.valid_rows = np.flatnonzero(self.valid)
+        self.valid_cum = np.concatenate(([0], np.cumsum(self.valid)))
+        self.valid_len_cum = np.concatenate(
+            ([0], np.cumsum(lengths[self.valid_rows], dtype=np.int64)))
+        self._late: dict[int, np.ndarray] = {}
+
+    def _late_rows(self, b_idx: int) -> np.ndarray:
+        late = self._late.get(b_idx)
+        if late is None:
+            late = self._late[b_idx] = np.flatnonzero(
+                self.arrivals > self.now_ms - b_idx * self.delay)
+        return late
+
+    def his(self, lo: np.ndarray, b_idx: np.ndarray) -> np.ndarray:
+        """Each output's end row: the first row at or after its ``lo``
+        that arrived after its bucket's deadline (where the scalar loop
+        stops), or the window's end."""
+        hi = np.empty_like(lo)
+        for b in np.unique(b_idx).tolist():
+            sel = b_idx == b
+            late = np.append(self._late_rows(b), len(self.ids))
+            hi[sel] = late[np.searchsorted(late, lo[sel])]
+        return hi
+
+    def span(self, bookmark: int, b_idx: int) -> tuple[int, int]:
+        """``[lo, hi)`` window rows one output may send (``his`` for one)."""
+        lo = max(bookmark - self.start, 0)
+        return lo, int(self.his(np.array([lo]), np.array([b_idx]))[0])

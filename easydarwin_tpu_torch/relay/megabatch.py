@@ -28,8 +28,9 @@ call for all its subscriber buckets): the affine params depend only on
 rewrite state, never on packet bytes.  ``window_calls`` counts the calls.
 
 Every installed segment is checked against the host arithmetic oracle
-``_host_affine_params``; a disagreement is counted in ``mismatches`` and the
-segment discarded, so a device/host divergence can never reach the wire.
+(``relay.fanout.host_affine_params``); a disagreement is counted in
+``mismatches`` and the segment discarded, so a device/host divergence can
+never reach the wire.
 """
 
 from __future__ import annotations
@@ -39,30 +40,13 @@ import time
 import numpy as np
 import torch
 
-from .. import resolve_device
+from .. import native, resolve_device
 from ..models.relay_pipeline import (megabatch_window_steps,
                                      scatter_affine_segments)
 from ..ops import staging
 from ..ops.fanout import STATE_COLS, pack_output_state
 from ..ops.staging import pow2
-from .fanout import params_key
-
-
-def _host_affine_params(key) -> tuple:
-    """The affine rewrite computed by plain host arithmetic from a
-    ``params_key`` — the oracle every device segment is checked against
-    (the uint32 formulas of ``ops.fanout.affine_params`` over
-    ``pack_output_state``'s max(·, 0) clamping; the channel column is a
-    passthrough)."""
-    st = np.asarray(key, dtype=np.int64).reshape(-1, 6)
-    ssrc = (st[:, 0] & 0xFFFFFFFF).astype(np.uint32)
-    base_seq = np.maximum(st[:, 1], 0).astype(np.uint32)
-    base_ts = np.maximum(st[:, 2], 0).astype(np.uint32)
-    seq0 = (st[:, 3] & 0xFFFFFFFF).astype(np.uint32)
-    ts0 = (st[:, 4] & 0xFFFFFFFF).astype(np.uint32)
-    chan = (st[:, 5] & 0xFFFFFFFF).astype(np.uint32)
-    return ((seq0 - base_seq) & np.uint32(0xFFFF), ts0 - base_ts, ssrc,
-            chan)
+from .fanout import params_agree, params_key
 
 
 class _Staging:
@@ -117,6 +101,9 @@ class MegabatchScheduler:
     def __init__(self, device: str | torch.device = "cuda"):
         self.device = resolve_device(device)
         self._pin = self.device.type == "cuda"
+        #: staging gathers through the egress core's ``ed_stage_gather``
+        #: when it builds (``ops.staging.gather_window``)
+        self.native_gather = native.available()
         #: staging buffers kept per hot shape (the double buffer)
         self._pool_cap = 2
         self._tracked: dict[int, int] = {}     # id(stream) → staged head
@@ -139,10 +126,13 @@ class MegabatchScheduler:
 
     # ------------------------------------------------------------- wake API
     def begin_wake(self, pairs, now_ms: int) -> None:
-        """Harvest any finished stacked pass, then prime params for streams
-        whose membership or rebase state changed — ONE stacked pass for
-        every such stream."""
+        """Mark the engines owned (they skip their own ring appends this
+        wake), harvest any finished stacked pass, then prime params for
+        streams whose membership or rebase state changed — ONE stacked
+        pass for every such stream."""
         self.wakes += 1
+        for _stream, eng in pairs:
+            eng.megabatch_owned = True
         self._harvest()
         self._prime_stale(pairs, now_ms)
 
@@ -274,16 +264,12 @@ class MegabatchScheduler:
         engine's params — the ONE definition the harvest and the prime go
         through.  Returns False (and counts the mismatch) on device/host
         divergence."""
-        seq_off, ts_off, ssrc, chan, kf = seg
-        host = _host_affine_params(key)
-        if not (np.array_equal(seq_off[0], host[0])
-                and np.array_equal(ts_off[0], host[1])
-                and np.array_equal(ssrc[0], host[2])
-                and np.array_equal(chan[0], host[3])):
+        params, kf = seg[:4], seg[4]
+        if not params_agree(params, key):
             self.mismatches += 1
             eng.megabatch_params = None
             return False
-        eng.megabatch_params = (key, (seq_off, ts_off, ssrc, chan))
+        eng.megabatch_params = (key, params)
         self.installs += 1
         if base is not None and kf >= 0:
             eng.last_newest_keyframe = max(eng.last_newest_keyframe,
@@ -381,4 +367,5 @@ class MegabatchScheduler:
             "installs": self.installs,
             "mismatches": self.mismatches,
             "deferred_wakes": self.deferred_wakes,
+            "native_gather": self.native_gather,
         }

@@ -41,7 +41,24 @@ class RewriteState:
 
 
 class RelayOutput:
-    """One subscriber × one track.  Subclasses implement ``send_bytes``."""
+    """One subscriber × one track.  Subclasses implement ``send_bytes``.
+
+    The fan-out engine's native rungs read four hooks, whose defaults keep
+    an output on the Python send loop: ``native_addr`` (the ``(ip, port)``
+    a UDP output's datagrams go to through the server's shared egress
+    socket), ``stream_fd`` (the raw stream socket of an interleaved
+    output), ``engine_writable()`` (raw writes to that socket cannot
+    overtake buffered bytes) and ``push_tail()`` (queue a torn packet's
+    remaining bytes behind the socket's own buffer)."""
+
+    native_addr: tuple[str, int] | None = None
+    stream_fd: int = -1
+
+    def engine_writable(self) -> bool:
+        return False
+
+    def push_tail(self, data: bytes) -> bool:
+        return False
 
     def __init__(self, *, ssrc: int = 0, out_seq_start: int = 1,
                  out_ts_start: int = 0):

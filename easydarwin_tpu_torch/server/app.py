@@ -3,14 +3,22 @@ pump, and the MJPEG transcode service the REST API starts ladders on.
 
 The pump is one asyncio task, woken by ingest and ticking every
 ``reflect_interval_ms``.  Each wake runs the live relay for every stream
-that has outputs:
+that has outputs.  With at least ``MEGABATCH_MIN_STREAMS`` of them:
 
 1. ``MegabatchScheduler.begin_wake`` — harvest the previous wake's device
    pass, prime params for streams whose membership changed;
 2. ``FanoutEngine.step`` per stream — write every eligible packet from the
-   installed params;
+   installed params: UDP players in one native ``sendmmsg``/GSO scatter
+   through the shared egress socket, interleaved players in one framed
+   ``writev`` each, the rest through the Python loop;
 3. ``MegabatchScheduler.end_wake`` — stage and dispatch the next pass (one
-   ``ed_relay_window`` launch per shape bucket on the card).
+   ``ed_relay_window`` launch for the wake on the card).
+
+Below that the scheduler idles and each engine keeps its stream's ring on
+the device, appending the new packets each wake and querying it (one
+``ed_ring_query`` launch) when its membership changes.  The native egress
+core is built when the server starts; without it every player takes the
+Python loop.
 
 Once a second the pump evicts old packets, closes idle connections and
 retires transcode ladders whose source went away.
@@ -19,13 +27,14 @@ retires transcode ladders whose source went away.
 from __future__ import annotations
 
 import asyncio
+import collections
 import sys
 import time
 import traceback
 
 import torch
 
-from .. import resolve_device
+from .. import native, resolve_device
 from ..models.mjpeg_ladder import MjpegTranscodeService
 from ..ops import kernel_lib
 from ..relay.fanout import FanoutEngine
@@ -34,6 +43,14 @@ from ..relay.session import SessionRegistry, now_ms
 from .config import ServerConfig
 from .rest import RestApi
 from .rtsp import RtspServer
+
+#: below this many streams with players the megabatch scheduler idles and
+#: each stream's engine queries its own device ring (the reference's
+#: ``megabatch_min_streams`` default)
+MEGABATCH_MIN_STREAMS = 2
+#: per-engine counters ``stats()`` sums over every engine the server ran
+ENGINE_COUNTERS = ("native_sent", "native_passes", "device_param_refreshes",
+                   "send_errors", "missing_params")
 
 
 class StreamingServer:
@@ -50,14 +67,20 @@ class StreamingServer:
             device=self.device)
         self.rest = RestApi(self.config, self)
         self._engines: dict[int, FanoutEngine] = {}
+        #: native counters of engines whose streams went away
+        self._retired = dict.fromkeys(ENGINE_COUNTERS, 0)
+        self.native_loaded = False
         self._pump_event = asyncio.Event()
         self._pump_task: asyncio.Task | None = None
         self._running = False
         self.wakes = 0
+        #: host ms of the newest wakes that sent packets (the pump's clock)
+        self.wake_ms: collections.deque = collections.deque(maxlen=8192)
         self.packets_out = 0
         self.pump_errors = 0
 
     async def start(self) -> None:
+        self.native_loaded = native.available()
         await self.rtsp.start()
         await self.rest.start()
         self._running = True
@@ -77,20 +100,25 @@ class StreamingServer:
     def _wake(self) -> None:
         self._pump_event.set()
 
+    def _engine_for(self, stream) -> FanoutEngine:
+        eng = self._engines.get(id(stream))
+        if eng is None:
+            eng = self._engines[id(stream)] = FanoutEngine(device=self.device)
+        egress = self.rtsp.shared_egress
+        eng.egress_fd = egress.fileno() if egress is not None else -1
+        return eng
+
     def _pairs(self) -> list:
         """(stream, engine) for every stream with outputs, in a stable
         order; engines of streams that went away are dropped."""
-        pairs = []
-        for sess in list(self.registry.sessions.values()):
-            for stream in sess.streams.values():
-                if stream.num_outputs:
-                    eng = self._engines.get(id(stream))
-                    if eng is None:
-                        eng = self._engines[id(stream)] = FanoutEngine()
-                    pairs.append((stream, eng))
+        pairs = [(stream, self._engine_for(stream))
+                 for sess in list(self.registry.sessions.values())
+                 for stream in sess.streams.values() if stream.num_outputs]
         live = {id(s) for s, _ in pairs}
         for sid in [k for k in self._engines if k not in live]:
-            del self._engines[sid]
+            eng = self._engines.pop(sid)
+            for k in ENGINE_COUNTERS:
+                self._retired[k] += getattr(eng, k)
         return pairs
 
     def reflect_all(self) -> int:
@@ -98,14 +126,20 @@ class StreamingServer:
         t = now_ms()
         self.wakes += 1
         pairs = self._pairs()
-        if not pairs:
+        engaged = len(pairs) >= MEGABATCH_MIN_STREAMS
+        if engaged:
+            self.megabatch.begin_wake(pairs, t)
+        else:
+            # too few streams to coalesce: each engine runs its own
+            # device ring (the scheduler keeps harvesting what it has out)
             self.megabatch.idle_wake()
-            return 0
-        self.megabatch.begin_wake(pairs, t)
+            for _stream, eng in pairs:
+                eng.megabatch_owned = False
         sent = 0
         for stream, eng in pairs:
             sent += eng.step(stream, t)
-        self.megabatch.end_wake(pairs, t)
+        if engaged:
+            self.megabatch.end_wake(pairs, t)
         self.packets_out += sent
         return sent
 
@@ -119,7 +153,9 @@ class StreamingServer:
                 pass
             self._pump_event.clear()
             try:
-                self.reflect_all()
+                t0 = time.perf_counter()
+                if self.reflect_all():
+                    self.wake_ms.append((time.perf_counter() - t0) * 1e3)
             except Exception:
                 # the pump must keep serving the other streams; the error
                 # is counted and its traceback kept
@@ -135,9 +171,16 @@ class StreamingServer:
                 self.transcodes.sweep()
 
     def stats(self) -> dict:
+        engines = {k: v + sum(getattr(e, k) for e in self._engines.values())
+                   for k, v in self._retired.items()}
+        wake = sorted(self.wake_ms)
         return {"wakes": self.wakes, "packets_in": self.rtsp.packets_in,
                 "packets_out": self.packets_out,
                 "pump_errors": self.pump_errors,
                 "sessions": len(self.registry.sessions),
+                **engines,
+                "wake_ms_p50": wake[len(wake) // 2] if wake else None,
+                "wake_ms_max": wake[-1] if wake else None,
+                "native_loaded": self.native_loaded,
                 "megabatch": self.megabatch.stats(),
                 "kernel_launches": dict(kernel_lib.LAUNCHES)}

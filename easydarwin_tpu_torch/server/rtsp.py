@@ -1,12 +1,14 @@
-"""The RTSP session layer for the live relay over TCP-interleaved RTP.
+"""The RTSP session layer of the live relay.
 
 One asyncio task per connection.  A connection is a *pusher*
 (ANNOUNCE → SETUP mode=record → RECORD, then ``$``-framed RTP on the
-negotiated channels), a *player* (DESCRIBE → SETUP interleaved → PLAY, then
-``$``-framed relayed RTP), or a plain control connection.  Methods:
-OPTIONS, DESCRIBE, ANNOUNCE, SETUP, RECORD, PLAY, TEARDOWN.  Only
-interleaved (RTP/AVP/TCP) transport is served; a UDP SETUP is refused with
-461 Unsupported Transport.
+negotiated channels), a *player* (DESCRIBE → SETUP → PLAY), or a plain
+control connection.  Methods: OPTIONS, DESCRIBE, ANNOUNCE, SETUP, RECORD,
+PLAY, TEARDOWN.  A player's SETUP takes interleaved transport
+(``RTP/AVP/TCP;interleaved=a-b``: relayed RTP comes back ``$``-framed on
+the connection) or UDP (``RTP/AVP;unicast;client_port=a-b``: relayed RTP
+goes to the client's ports from the server's shared egress pair, whose
+ports the reply names as ``server_port``).  Pushers send interleaved.
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ import traceback
 from ..protocol import rtsp, sdp
 from ..relay.session import RelaySession, SessionRegistry
 from .config import ServerConfig
-from .transports import InterleavedOutput
+from .transports import InterleavedOutput, SharedUdpEgress, UdpOutput
 
 SERVER_NAME = "easydarwin-tpu-torch/0.1"
 ALLOWED = "OPTIONS, DESCRIBE, ANNOUNCE, SETUP, PLAY, RECORD, TEARDOWN"
@@ -53,8 +55,8 @@ class RtspConnection:
         self.path: str | None = None
         self.relay: RelaySession | None = None
         self.is_pusher = False
-        #: track id → InterleavedOutput of this player
-        self.player_tracks: dict[int, InterleavedOutput] = {}
+        #: track id → output (interleaved or UDP) of this player
+        self.player_tracks: dict[int, InterleavedOutput | UdpOutput] = {}
         #: interleaved channel → (track_id, is_rtcp) for push ingest
         self.channel_map: dict[int, tuple[int, bool]] = {}
         self.last_activity = time.monotonic()
@@ -132,15 +134,17 @@ class RtspConnection:
         t = req.transport
         if t is None:
             raise rtsp.RtspError(461)
-        if not t.is_tcp:
-            raise rtsp.RtspError(461, "only RTP/AVP/TCP interleaved is served")
+        record = t.mode == "RECORD" or self.is_pusher
+        if not t.is_tcp and (record or not t.client_port):
+            raise rtsp.RtspError(461, "UDP needs client_port, and pushers "
+                                      "send interleaved")
         base, track_id = _extract_track(req.path())
         if self.session_id is None:
             self.session_id = secrets.token_hex(8)
-        if t.mode == "RECORD" or self.is_pusher:
+        if record:
             self._setup_record(req, track_id, t)
         else:
-            self._setup_play(req, base, track_id, t)
+            await self._setup_play(req, base, track_id, t)
 
     def _setup_record(self, req, track_id, t) -> None:
         if self.relay is None:
@@ -156,7 +160,7 @@ class RtspConnection:
         self._reply(rtsp.RtspResponse(200, {"Transport": resp_t.to_header()}),
                     req.cseq)
 
-    def _setup_play(self, req, base, track_id, t) -> None:
+    async def _setup_play(self, req, base, track_id, t) -> None:
         relay = self.server.registry.find(base)
         if relay is None:
             raise rtsp.RtspError(404)
@@ -167,15 +171,26 @@ class RtspConnection:
             track_id = free[0] if free else None
         if track_id is None or track_id not in relay.streams:
             raise rtsp.RtspError(404, f"unknown track {track_id}")
-        n = len(self.player_tracks)
-        ch = t.interleaved or (2 * n, 2 * n + 1)
-        out = InterleavedOutput(self.writer.transport, ch[0], ch[1],
-                                ssrc=secrets.randbits(32),
-                                out_seq_start=secrets.randbits(16),
-                                out_ts_start=secrets.randbits(32))
+        rewrite = dict(ssrc=secrets.randbits(32),
+                       out_seq_start=secrets.randbits(16),
+                       out_ts_start=secrets.randbits(32))
+        resp_t = rtsp.TransportSpec(protocol=t.protocol, is_tcp=t.is_tcp,
+                                    ssrc=rewrite["ssrc"])
+        if t.is_tcp:
+            n = len(self.player_tracks)
+            ch = t.interleaved or (2 * n, 2 * n + 1)
+            out = InterleavedOutput(self.writer.transport, ch[0], ch[1],
+                                    **rewrite)
+            resp_t.interleaved = ch
+        else:
+            sender = self.server.shared_egress
+            if sender is None:
+                raise rtsp.RtspError(503, "the UDP egress is not started")
+            out = UdpOutput(sender, self.writer.get_extra_info("peername")[0],
+                            *t.client_port, **rewrite)
+            resp_t.client_port = t.client_port
+            resp_t.server_port = (sender.rtp_port, sender.rtcp_port)
         self.player_tracks[track_id] = out
-        resp_t = rtsp.TransportSpec(protocol=t.protocol, is_tcp=True,
-                                    interleaved=ch, ssrc=out.rewrite.ssrc)
         self._reply(rtsp.RtspResponse(200, {"Transport": resp_t.to_header()}),
                     req.cseq)
 
@@ -248,15 +263,22 @@ class RtspServer:
         self._server: asyncio.AbstractServer | None = None
         self._tasks: set[asyncio.Task] = set()
         self.port: int | None = None
+        #: the UDP players' shared egress pair (None until start)
+        self.shared_egress: SharedUdpEgress | None = None
 
     async def start(self) -> None:
         self._server = await asyncio.start_server(
             self._on_connection, self.config.bind_ip, self.config.rtsp_port)
         self.port = self._server.sockets[0].getsockname()[1]
+        self.shared_egress = SharedUdpEgress(self.config.bind_ip)
+        await self.shared_egress.start()
 
     async def stop(self) -> None:
         for conn in list(self.connections):
             await conn.close()
+        if self.shared_egress is not None:
+            self.shared_egress.close()
+            self.shared_egress = None
         if self._server is not None:
             self._server.close()
             await self._server.wait_closed()

@@ -1,13 +1,20 @@
-"""Interleaved RTP egress over a client's RTSP TCP connection.
+"""RTP egress to players: interleaved over the RTSP TCP connection, or UDP.
 
 WouldBlock flow control: a stalled client must never stall the relay.  Past
-``HIGH_WATER`` buffered bytes the output reports WOULD_BLOCK and the
-engine replays from its bookmark on a later pass.
+``HIGH_WATER`` buffered bytes an interleaved output reports WOULD_BLOCK,
+and a UDP send that would block does too; the engine replays from the
+bookmark on a later pass.
+
+UDP players are served from one shared socket pair (``SharedUdpEgress``),
+whose RTP socket the engine writes with one ``sendmmsg``/UDP-GSO scatter a
+stream a wake.  Incoming RTCP on the pair is read and dropped
+(receiver-report handling is later work).
 """
 
 from __future__ import annotations
 
 import asyncio
+import socket
 
 from ..relay.output import RelayOutput, WriteResult
 
@@ -16,7 +23,13 @@ HIGH_WATER = 256 * 1024
 
 
 class InterleavedOutput(RelayOutput):
-    """$-framed RTP/RTCP egress on the player's RTSP TCP connection."""
+    """$-framed RTP/RTCP egress on the player's RTSP TCP connection.
+
+    The engine frames whole ring spans onto ``stream_fd`` through the
+    native writev sender while the transport's own buffer is empty
+    (``engine_writable``), and hands the remainder of a torn packet to
+    ``push_tail``, after which the transport owns the order of the bytes
+    until its buffer drains."""
 
     def __init__(self, transport: asyncio.WriteTransport,
                  rtp_channel: int, rtcp_channel: int, **kw):
@@ -24,12 +37,27 @@ class InterleavedOutput(RelayOutput):
         self.transport = transport
         self.rtp_channel = rtp_channel
         self.rtcp_channel = rtcp_channel
+        sock = transport.get_extra_info("socket")
+        #: the raw stream socket, or −1 where the transport has none
+        self.stream_fd = sock.fileno() if sock is not None else -1
 
     @property
     def interleave_chan(self) -> int:
         """The RTP interleave channel byte — the per-output framing
         constant that rides the device pass's ``chan`` column."""
         return self.rtp_channel
+
+    def engine_writable(self) -> bool:
+        tr = self.transport
+        return (self.stream_fd >= 0 and not tr.is_closing()
+                and tr.get_write_buffer_size() == 0)
+
+    def push_tail(self, data: bytes) -> bool:
+        tr = self.transport
+        if tr.is_closing():
+            return False
+        tr.write(data)
+        return True
 
     def _send(self, channel: int, chunks: tuple[bytes, ...]) -> WriteResult:
         tr = self.transport
@@ -49,3 +77,96 @@ class InterleavedOutput(RelayOutput):
 
     def send_rewritten(self, header: bytes, tail: bytes) -> WriteResult:
         return self._send(self.rtp_channel, (header, tail))
+
+
+class UdpOutput(RelayOutput):
+    """RTP/RTCP egress to a client's UDP port pair through ``sender``, the
+    server's ``SharedUdpEgress``; the engine scatters its RTP natively to
+    ``native_addr`` through the same socket."""
+
+    def __init__(self, sender, client_ip: str, client_rtp_port: int,
+                 client_rtcp_port: int, **kw):
+        super().__init__(**kw)
+        self.sender = sender
+        self.rtp_addr = (client_ip, client_rtp_port)
+        self.rtcp_addr = (client_ip, client_rtcp_port)
+        self.native_addr = self.rtp_addr
+
+    def send_bytes(self, data: bytes, *, is_rtcp: bool) -> WriteResult:
+        if is_rtcp:
+            return self.sender.send_rtcp(data, self.rtcp_addr)
+        return self.sender.send_rtp(data, self.rtp_addr)
+
+
+class _DropRtcp(asyncio.DatagramProtocol):
+    """Reads incoming RTCP and drops it."""
+
+    def __init__(self):
+        self.transport: asyncio.DatagramTransport | None = None
+        self.received = 0
+
+    def connection_made(self, transport):
+        self.transport = transport
+
+    def datagram_received(self, data, addr):
+        self.received += 1
+
+
+class SharedUdpEgress:
+    """The server's shared (RTP, RTCP) UDP pair for every UDP player.
+
+    RTP leaves through one plain non-blocking socket: the engine's native
+    scatter writes it (``fileno``), and ``send_rtp`` is the scalar send
+    (WOULD_BLOCK when the socket buffer is full).  RTCP leaves through an
+    asyncio endpoint, whose incoming datagrams are dropped."""
+
+    def __init__(self, bind_ip: str = "0.0.0.0"):
+        self.bind_ip = bind_ip
+        self.rtp_sock: socket.socket | None = None
+        self.rtcp_transport: asyncio.DatagramTransport | None = None
+        self.rtcp_proto: _DropRtcp | None = None
+        self.rtp_port = 0
+        self.rtcp_port = 0
+        self.send_errors = 0
+
+    async def start(self) -> None:
+        self.rtp_sock = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+        self.rtp_sock.setblocking(False)
+        self.rtp_sock.setsockopt(socket.SOL_SOCKET, socket.SO_SNDBUF, 1 << 22)
+        self.rtp_sock.bind((self.bind_ip, 0))
+        self.rtp_port = self.rtp_sock.getsockname()[1]
+        loop = asyncio.get_running_loop()
+        self.rtcp_transport, self.rtcp_proto = \
+            await loop.create_datagram_endpoint(
+                _DropRtcp, local_addr=(self.bind_ip, 0))
+        self.rtcp_port = self.rtcp_transport.get_extra_info("sockname")[1]
+
+    def fileno(self) -> int:
+        return self.rtp_sock.fileno() if self.rtp_sock is not None else -1
+
+    def send_rtp(self, data: bytes, addr) -> WriteResult:
+        if self.rtp_sock is None:
+            return WriteResult.ERROR
+        try:
+            self.rtp_sock.sendto(data, addr)
+        except BlockingIOError:
+            return WriteResult.WOULD_BLOCK
+        except OSError:
+            self.send_errors += 1
+            return WriteResult.ERROR
+        return WriteResult.OK
+
+    def send_rtcp(self, data: bytes, addr) -> WriteResult:
+        tr = self.rtcp_transport
+        if tr is None or tr.is_closing():
+            return WriteResult.ERROR
+        tr.sendto(data, addr)
+        return WriteResult.OK
+
+    def close(self) -> None:
+        if self.rtp_sock is not None:
+            self.rtp_sock.close()
+            self.rtp_sock = None
+        if self.rtcp_transport is not None:
+            self.rtcp_transport.close()
+            self.rtcp_transport = None

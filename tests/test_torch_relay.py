@@ -2,12 +2,19 @@
 
 * the port's packet ring classifies and stores exactly what the
   reference ring does;
-* the megabatch scheduler installs exactly ``_host_affine_params``;
-* the fan-out engine, fed only by the scheduler, writes the same wire bytes
+* the megabatch scheduler installs exactly ``host_affine_params``;
+* the fan-out engine, fed by the scheduler, writes the same wire bytes
   as the reference's scalar ``RelayStream.reflect`` on state carried over
   with ``convert.py`` (stalls, runts, bucket delays and a late joiner
-  included).
+  included);
+* on real sockets, a stream of UDP (native scatter), interleaved TCP
+  (native framed writev) and collecting outputs delivers the reference's
+  bytes, megabatch-owned and through the per-stream ring query, and a
+  torn TCP write is completed through ``push_tail``.
 """
+
+import socket
+import time
 
 import numpy as np
 import pytest
@@ -19,16 +26,21 @@ from easydarwin_tpu.relay.output import CollectingOutput as RefOutput
 from easydarwin_tpu.relay.ring import PacketRing as RefRing
 from easydarwin_tpu.relay.stream import RelayStream as RefStream
 from easydarwin_tpu.relay.stream import StreamSettings as RefSettings
-from easydarwin_tpu_torch import convert, resolve_device
+from easydarwin_tpu_torch import convert, native, resolve_device
 from easydarwin_tpu_torch.models.relay_pipeline import RelayPipeline
+from easydarwin_tpu_torch.ops import device_ring
 from easydarwin_tpu_torch.protocol import sdp
 from easydarwin_tpu_torch.relay import megabatch
-from easydarwin_tpu_torch.relay.fanout import FanoutEngine, params_key
+from easydarwin_tpu_torch.relay.fanout import (FanoutEngine,
+                                               host_affine_params, params_key)
 from easydarwin_tpu_torch.relay.megabatch import MegabatchScheduler
 from easydarwin_tpu_torch.relay.output import CollectingOutput
 from easydarwin_tpu_torch.relay.ring import PacketRing
 from easydarwin_tpu_torch.relay.stream import RelayStream, StreamSettings
+from easydarwin_tpu_torch.protocol.rtsp import frame_interleaved
 from easydarwin_tpu_torch.server import StreamingServer
+from easydarwin_tpu_torch.server.transports import (InterleavedOutput,
+                                                    SharedUdpEgress, UdpOutput)
 from easydarwin_tpu_torch.utils import synth
 
 SDP = ("v=0\r\nm=video 0 RTP/AVP 96\r\na=rtpmap:96 H264/90000\r\n"
@@ -98,7 +110,7 @@ def test_host_affine_oracle_matches_reference():
                      int(rng.integers(1 << 16)), int(rng.integers(1 << 32)),
                      int(rng.choice([-1, 0, 2])))
                     for _ in range(int(rng.integers(1, 9))))
-        for a, b in zip(megabatch._host_affine_params(key),
+        for a, b in zip(host_affine_params(key),
                         ref_megabatch._host_affine_params(key)):
             np.testing.assert_array_equal(a, b)
 
@@ -267,16 +279,24 @@ def test_one_window_call_per_wake_over_many_buckets():
 def test_scheduler_discards_a_segment_that_disagrees_with_the_oracle(
         monkeypatch):
     _ref, port, _more, _late, t = _twin_streams(n_out=4)
-    eng = FanoutEngine()
+    eng = FanoutEngine(device="cpu")
     sched = MegabatchScheduler(device="cpu")
     real = megabatch.megabatch_window_steps
+    real_query = device_ring.query_params
 
     def corrupt(pairs):
         outs = [o.clone() for o in real(pairs)]
         outs[0][0, 0] = outs[0][0, 0] ^ 1      # flip one seq_off bit
         return outs
 
+    def corrupt_query(state, out_state):
+        out = real_query(state, out_state).clone()
+        out[0] = out[0] ^ 1
+        return out
+
     monkeypatch.setattr(megabatch, "megabatch_window_steps", corrupt)
+    # the engine's fallback, its own ring query, disagrees the same way
+    monkeypatch.setattr(device_ring, "query_params", corrupt_query)
     sched.begin_wake([(port, eng)], t)
     assert sched.mismatches == 1 and eng.megabatch_params is None
     before = [o.bookmark for o in port.outputs]
@@ -313,3 +333,298 @@ def test_default_device_is_the_card():
             make()
     with pytest.raises(ValueError):
         resolve_device("mps")
+
+
+class _Transport:
+    """The slice of an asyncio write transport an interleaved output uses:
+    a write goes straight to the socket while nothing is buffered, the
+    rest waits for ``flush`` (the event loop's job)."""
+
+    def __init__(self, sock):
+        self.sock = sock
+        self.buf = bytearray()
+
+    def get_extra_info(self, name):
+        return self.sock if name == "socket" else None
+
+    def is_closing(self) -> bool:
+        return False
+
+    def get_write_buffer_size(self) -> int:
+        return len(self.buf)
+
+    def write(self, data) -> None:
+        self.buf += data
+        self.flush()
+
+    def flush(self) -> None:
+        while self.buf:
+            try:
+                n = self.sock.send(self.buf)
+            except BlockingIOError:
+                return
+            del self.buf[:n]
+
+
+class _TornCountingOutput(InterleavedOutput):
+    tails = 0
+
+    def push_tail(self, data: bytes) -> bool:
+        self.tails += 1
+        return super().push_tail(data)
+
+
+def _tcp_pair(bufsize: int):
+    """A loopback TCP connection (the kind a player's RTSP connection is):
+    the writer's send and the reader's receive buffer set to ``bufsize``."""
+    with socket.socket() as srv:
+        srv.bind(("127.0.0.1", 0))
+        srv.listen()
+        a = socket.create_connection(srv.getsockname())
+        b, _ = srv.accept()
+    a.setsockopt(socket.SOL_SOCKET, socket.SO_SNDBUF, bufsize)
+    b.setsockopt(socket.SOL_SOCKET, socket.SO_RCVBUF, bufsize)
+    a.setblocking(False)
+    b.setblocking(False)
+    return a, b
+
+
+def _recv_all(sock, into) -> None:
+    while True:
+        try:
+            data = sock.recv(1 << 20)
+        except BlockingIOError:
+            return
+        if isinstance(into, bytearray):
+            into += data
+        else:
+            into.append(data)
+
+
+class _MixedTwins:
+    """A port stream of UDP, interleaved and collecting outputs on real
+    sockets beside a reference stream of collecting outputs with the same
+    rewrite state, fed the same packets."""
+
+    def __init__(self, kinds, seed, *, sndbuf=1 << 21):
+        self.rng = np.random.default_rng(seed)
+        settings = dict(bucket_size=2, bucket_delay_ms=10)
+        self.ref = RefStream(ref_sdp.parse(SDP).streams[0],
+                             RefSettings(**settings))
+        self.port = RelayStream(sdp.parse(SDP).streams[0],
+                                StreamSettings(**settings))
+        self.egress = SharedUdpEgress("127.0.0.1")
+        self.egress.rtp_sock = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+        self.egress.rtp_sock.setblocking(False)
+        self.sndbuf = sndbuf
+        self.socks = []
+        self.outs = []          # (kind, port output, ref output, sink)
+        for kind in kinds:
+            self.add(kind)
+
+    def add(self, kind):
+        kw = dict(ssrc=int(self.rng.integers(1 << 32)),
+                  out_seq_start=int(self.rng.integers(1 << 16)),
+                  out_ts_start=int(self.rng.integers(1 << 32)))
+        if kind == "udp":
+            rx = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+            rx.setsockopt(socket.SOL_SOCKET, socket.SO_RCVBUF, 1 << 22)
+            rx.bind(("127.0.0.1", 0))
+            rx.setblocking(False)
+            self.socks.append(rx)
+            out = UdpOutput(self.egress, "127.0.0.1", rx.getsockname()[1],
+                            rx.getsockname()[1] + 1, **kw)
+            sink = (rx, [])
+        elif kind in ("tcp", "torn"):
+            a, b = _tcp_pair(self.sndbuf)
+            self.socks += [a, b]
+            cls = _TornCountingOutput if kind == "torn" else InterleavedOutput
+            out = cls(_Transport(a), 2 * len(self.outs), 2 * len(self.outs) + 1,
+                      **kw)
+            sink = (b, bytearray())
+        else:
+            out = CollectingOutput(**kw)
+            sink = None
+        ref_out = RefOutput(**kw)
+        self.port.add_output(out)
+        self.ref.add_output(ref_out)
+        self.outs.append((kind, out, ref_out, sink))
+
+    def remove(self, i):
+        kind, out, ref_out, _sink = self.outs[i]
+        self.port.remove_output(out)
+        self.ref.remove_output(ref_out)
+
+    def push(self, pkts, t):
+        for p in pkts:
+            self.ref.push_rtp(p, t)
+            self.port.push_rtp(p, t)
+
+    def collect(self):
+        for kind, out, _ref, sink in self.outs:
+            if kind in ("tcp", "torn"):
+                out.transport.flush()
+            if sink is not None:
+                _recv_all(*sink)
+
+    def assert_same(self, wake, *, counters=True):
+        for kind, out, ref_out, sink in self.outs:
+            if kind == "udp":
+                got, want = sink[1], ref_out.rtp_packets
+            elif kind in ("tcp", "torn"):
+                got = bytes(sink[1])
+                want = b"".join(frame_interleaved(out.rtp_channel, p)
+                                for p in ref_out.rtp_packets)
+            else:
+                got, want = out.rtp_packets, ref_out.rtp_packets
+            assert got == want, (wake, kind)
+            if counters:
+                assert (out.bookmark, out.packets_sent, out.bytes_sent,
+                        out.payload_octets) == \
+                    (ref_out.bookmark, ref_out.packets_sent,
+                     ref_out.bytes_sent, ref_out.payload_octets), (wake, kind)
+
+    def close(self):
+        for s in self.socks:
+            s.close()
+        self.egress.rtp_sock.close()
+
+
+@pytest.mark.parametrize("owned", [True, False],
+                         ids=["megabatch", "per_stream_query"])
+def test_mixed_udp_tcp_collecting_wire_bytes_match_reference(owned):
+    tw = _MixedTwins(["udp", "tcp", "col", "udp", "tcp", "udp", "col"], 91)
+    eng = FanoutEngine(egress_fd=tw.egress.fileno(), device="cpu")
+    sched = MegabatchScheduler(device="cpu")
+    pairs = [(tw.port, eng)]
+    feed = _packets(tw.rng, 200)
+    t = 1000
+    try:
+        tw.push(feed[:40], t)
+        for wake in range(16):
+            tw.push(feed[40 + wake * 9:40 + (wake + 1) * 9], t)
+            if wake == 3:                      # a stall on a collecting one
+                tw.outs[2][1].block_next = tw.outs[2][2].block_next = 1
+            if wake == 5:                      # joiners of every kind
+                for kind in ("udp", "tcp", "col"):
+                    tw.add(kind)
+            if wake == 9:                      # leavers
+                tw.remove(0)
+                tw.remove(4)
+            if owned:
+                sched.begin_wake(pairs, t)
+            eng.step(tw.port, t)
+            if owned:
+                sched.end_wake(pairs, t)
+            tw.ref.reflect(t)
+            tw.collect()
+            tw.assert_same(wake)
+            t += 20
+        assert eng.native_sent > 300 and eng.native_passes > 0
+        assert eng.missing_params == 0 and eng.send_errors == 0
+        assert tw.port.stats.stalls == tw.ref.stats.stalls == 1
+        if owned:
+            assert sched.mismatches == 0 and sched.installs > 0
+        else:
+            # one query per membership or rebase change, none in between
+            assert 2 <= eng.device_param_refreshes <= 6
+            assert eng.dring_appends == 16
+            assert eng.last_newest_keyframe >= 0
+    finally:
+        tw.close()
+
+
+def test_torn_tcp_write_is_completed_through_push_tail():
+    """4 KB socket buffers and a reader that reads every twelfth wake:
+    the native writev tears packets, their tails go through the transport,
+    the output waits on the loop rung while the transport holds bytes, and
+    the byte stream still equals the reference's."""
+    tw = _MixedTwins(["torn", "udp"], 5, sndbuf=4096)
+    eng = FanoutEngine(egress_fd=tw.egress.fileno(), device="cpu")
+    feed = _packets(tw.rng, 1220)
+    t = 1000
+    kind, out, ref_out, (reader, got) = tw.outs[0]
+    try:
+        tw.push(feed[:20], t)
+        for wake in range(40):
+            tw.push(feed[20 + wake * 30:20 + (wake + 1) * 30], t)
+            eng.step(tw.port, t)
+            tw.ref.reflect(t)
+            if wake % 12 == 11:
+                out.transport.flush()
+                _recv_all(reader, got)
+                out.transport.flush()
+            t += 20
+        # the tail of the stream: a small TCP window drains on the
+        # kernel's clock, so the wakes go on until every byte is read
+        reader.setsockopt(socket.SOL_SOCKET, socket.SO_RCVBUF, 1 << 20)
+        deadline = time.monotonic() + 30
+        while (len(got) < sum(4 + len(p) for p in ref_out.rtp_packets)
+               and time.monotonic() < deadline):
+            eng.step(tw.port, t)
+            tw.ref.reflect(t)
+            tw.collect()
+            t += 20
+            time.sleep(0.002)
+        tw.assert_same("end", counters=False)
+        assert out.tails > 0
+        assert out.bookmark == ref_out.bookmark
+        assert out.packets_sent == ref_out.packets_sent
+        assert eng.send_errors == 0
+    finally:
+        tw.close()
+
+
+def _is_subsequence(got, want) -> bool:
+    it = iter(want)
+    return all(any(g == w for w in it) for g in got)
+
+
+@pytest.mark.parametrize("gso,eagain_every,enobufs_every", [
+    (True, 3, 0), (False, 7, 0), (False, 0, 5)],
+    ids=["eagain_gso", "eagain_plain", "enobufs_plain"])
+def test_udp_fault_bookmarks_replay_without_duplicates(gso, eagain_every,
+                                                       enobufs_every):
+    """EAGAIN holds each output's bookmark at its first unsent packet and
+    the next wakes deliver the rest exactly once; a hard error (ENOBUFS)
+    skips the failing output's rest for that pass, counted in
+    ``send_errors``, and nothing is ever sent twice.  (Under GSO a hard
+    stop is retried without GSO first, so the plain sendmmsg rung — an
+    engine whose GSO strikes are spent — shows it.)"""
+    tw = _MixedTwins(["udp"] * 6 + ["col"], 17)
+    eng = FanoutEngine(egress_fd=tw.egress.fileno(), device="cpu")
+    eng._gso_disabled = not gso
+    feed = _packets(tw.rng, 220)
+    t = 1000
+    try:
+        tw.push(feed[:40], t)
+        native.fault_set(eagain_every, enobufs_every)
+        for wake in range(20):
+            tw.push(feed[40 + wake * 9:40 + (wake + 1) * 9], t)
+            eng.step(tw.port, t)
+            tw.ref.reflect(t)
+            tw.collect()
+            t += 20
+        native.fault_clear()
+        for _ in range(4):                     # the replays, fault-free
+            eng.step(tw.port, t)
+            tw.ref.reflect(t)
+            tw.collect()
+            t += 20
+        missing = 0
+        for kind, out, ref_out, sink in tw.outs:
+            if kind != "udp":
+                continue
+            assert _is_subsequence(sink[1], ref_out.rtp_packets)
+            missing += len(ref_out.rtp_packets) - len(sink[1])
+        assert missing == eng.send_errors
+        assert native.get_stats()["fault_injections"] > 0
+        if enobufs_every:
+            assert eng.send_errors > 0
+        else:
+            tw.assert_same("end", counters=False)
+            assert eng.send_errors == 0
+            assert sum(o.stalls for _k, o, _r, _s in tw.outs) > 0
+    finally:
+        native.fault_clear()
+        tw.close()

@@ -457,4 +457,5 @@ async def test_cli_serves_the_ladder_end_to_end_on_cpu():
     assert stats["packets_in"] >= 4 and stats["pump_errors"] == 0
     assert stats["kernel_launches"] == {"ed_parse_packets": 0,
                                         "ed_relay_window": 0,
+                                        "ed_ring_query": 0,
                                         "ed_decode_blocks": 0}

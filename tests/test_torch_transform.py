@@ -287,7 +287,7 @@ def test_cpu_decode_counts_no_launch():
     TranscodePipeline(TranscodeConfig(decode_pixels=True), device="cpu")(lv)
     assert kernel_lib.LAUNCHES["ed_decode_blocks"] == 0
     assert set(kernel_lib.LAUNCHES) == {"ed_parse_packets", "ed_relay_window",
-                                        "ed_decode_blocks"}
+                                        "ed_ring_query", "ed_decode_blocks"}
 
 
 @pytest.mark.parametrize("levels,qtable,err", [
