@@ -29,7 +29,10 @@ phase; any failed phase raises and the script exits non-zero.
              same card ring, bit-exact: C = 4,096 at S = 64 and S = 256,
              heads that wrapped the ring several times, a partly filled
              ring, a ring with no keyframe (−1), fuzzed rows with runts and
-             length-0 rows
+             length-0 rows, C = 1,000 and C = 100 (S = 300, more
+             subscribers than the grid has threads); three back-to-back
+             queries on one ring and two rings queried in turn on one
+             stream; the ring's arrival counter back at 0 after each
 5. K2        ``ed_decode_blocks`` vs ``decode_blocks_plain`` at N = 1, 300,
              48,960 (one 1080p 4:2:0 frame), 48,961, T·stages + 1 (one
              past a full ring of tiles), CTAs·T·stages + 1 (every CTA
@@ -60,7 +63,9 @@ phase; any failed phase raises and the script exits non-zero.
              every 30 frames, 5 s), 64 UDP players joining one a frame;
              every datagram checked, ``ed_ring_query`` launched,
              ``ed_relay_window`` not (the megabatch idles at one stream),
-             ``native_sent`` > 0 and the egress core loaded
+             ``native_sent`` > 0 and the egress core loaded; the first
+             join's wake printed apart from the p50 and the max (the
+             server warms the card in ``start``)
 8. pipeline  the config-5 TranscodePipeline (qualities 80/50/25 from 90,
              decode_pixels) for 8 steps of 783,360 blocks on the card:
              8 K2 launches, one step held against the same pipeline on the
@@ -80,12 +85,15 @@ phase; any failed phase raises and the script exits non-zero.
              [64,64,100]×[64,64,6] with no cluster) beside the plain
              versions', the bound, the achieved GB/s and share of the
              bound and, for K2, cuBLAS's fp32 product alone; the kernels
-             line carries the main path's shapes
+             line carries the main path's shapes.  The ring query at
+             C = 4,096 with S = 64 and 256, the engine's whole join query on the host (state upload, launch,
+             readback, oracle: ``FanoutEngine._device_params``), and the
+             ring queried again after the graph replays, bit-exact
 
 The kernel launch counts are set to 0 just before phase 6 and read just
-after phase 9 (the server processes report their own at exit); the
-comparisons and timings of phases 3, 4, 4b, 5 and 10 run outside that
-window.
+after phase 9 (the server processes report their own at exit, without
+their start-up warm-up); the comparisons and timings of phases 3, 4, 4b,
+5 and 10 run outside that window.
 Detail goes to ``chiprun_out/chip_smoke.json``.  The last line of standard
 output is ``{"ok": true, "device": {...}}``.
 """
@@ -311,18 +319,19 @@ def relay_geometry() -> dict:
     the Python launch plans that mirror them."""
     import ctypes
     from easydarwin_tpu_torch.ops import fanout, kernel_lib, parse_kernel
+    from easydarwin_tpu_torch.ops import device_ring
     names = ("max_buckets", "max_cluster", "window_threads", "tile_rows",
-             "smem_limit")
+             "smem_limit", "ring_tile_rows")
     vals = [ctypes.c_int() for _ in names]
     rc = kernel_lib.library().ed_relay_geometry(
         *(ctypes.byref(v) for v in vals))
     check(rc == 0, f"ed_relay_geometry: {rc}")
     geo = dict(zip(names, (v.value for v in vals)))
     check((geo["max_buckets"], geo["max_cluster"], geo["tile_rows"],
-           geo["smem_limit"]) == (fanout.WINDOW_MAX_BUCKETS,
-                                  fanout.WINDOW_MAX_CLUSTER,
-                                  parse_kernel.PARSE_TILE_ROWS,
-                                  kernel_lib.DYN_SMEM_LIMIT),
+           geo["smem_limit"], geo["ring_tile_rows"]) == (
+               fanout.WINDOW_MAX_BUCKETS, fanout.WINDOW_MAX_CLUSTER,
+               parse_kernel.PARSE_TILE_ROWS, kernel_lib.DYN_SMEM_LIMIT,
+               device_ring.RING_TILE_ROWS),
           f"the library's relay geometry {geo} differs from the Python plans")
     return geo
 
@@ -380,7 +389,7 @@ def fuzzed_ring(rng, capacity: int, n_total: int, keyframes: bool = True):
     ring = dr.init_ring(capacity, device=DEVICE)
     done = 0
     while done < n_total:
-        n = min(512, n_total - done)
+        n = min(512, capacity, n_total - done)
         pick = rng.integers(0, len(pool), n)
         dr.append(ring, pre[pick], ln[pick],
                   rng.integers(0, 1 << 20, n).astype(np.int32), n)
@@ -395,41 +404,81 @@ def ring_state(rng, n_subs: int):
     return torch.from_numpy(st.astype(np.uint32)).to(DEVICE)
 
 
+def ring_diff(ring, st, k) -> int:
+    """Max |kernel − plain| over one query's words (must be 0)."""
+    import numpy as np
+    from easydarwin_tpu_torch.ops import device_ring as dr
+    p = dr.query_params_plain(ring, st).cpu().numpy()
+    k = k.cpu().numpy()
+    words = 4 * st.shape[0] + 1
+    check(k.dtype == np.uint32 and k.shape == p.shape == (words,),
+          f"ring query {k.dtype}{k.shape} vs {p.shape}")
+    return int(np.abs(k.astype(np.int64) - p.astype(np.int64)).max())
+
+
+def counter_at_zero(ring) -> None:
+    import torch
+    torch.cuda.synchronize()
+    check(int(ring.scratch[-1]) == 0,
+          f"the ring's arrival counter is {int(ring.scratch[-1])} after a "
+          f"query, not 0")
+
+
 def phase_ring_query(rng) -> dict:
-    """``ed_ring_query`` vs its plain version on the same card ring."""
+    """``ed_ring_query`` vs its plain version on the same card ring;
+    queries back to back on one ring and in turn on two."""
     import numpy as np
     import torch
     from easydarwin_tpu_torch.ops import device_ring as dr
     from easydarwin_tpu_torch.ops import kernel_lib
     res = {}
-    for name, n_subs, n_total, keyframes in (
-            ("wrapped5_s64", 64, 5 * RING_C + 123, True),
-            ("wrapped3_s256", 256, 3 * RING_C + 7, True),
-            ("partly_filled_s256", 256, 1000, True),
-            ("no_keyframe_s64", 64, RING_C + 300, False)):
-        ring = fuzzed_ring(rng, RING_C, n_total, keyframes)
+    rings = {}
+    for name, cap, n_subs, n_total, keyframes in (
+            ("wrapped5_s64", RING_C, 64, 5 * RING_C + 123, True),
+            ("wrapped3_s256", RING_C, 256, 3 * RING_C + 7, True),
+            ("partly_filled_s256", RING_C, 256, 1000, True),
+            ("no_keyframe_s64", RING_C, 64, RING_C + 300, False),
+            ("c1000_s64", 1000, 64, 3 * 1000 + 17, True),
+            ("c100_s300", 100, 300, 7 * 100 + 3, True)):
+        ring = fuzzed_ring(rng, cap, n_total, keyframes)
         st = ring_state(rng, n_subs)
+        rings[name] = (ring, st)
         before = kernel_lib.LAUNCHES["ed_ring_query"]
-        k = dr.query_params(ring, st).cpu().numpy()
+        k = dr.query_params(ring, st)
         check(kernel_lib.LAUNCHES["ed_ring_query"] == before + 1,
               f"ring {name}: not one ed_ring_query launch")
-        p = dr.query_params_plain(ring, st).cpu().numpy()
-        torch.cuda.synchronize()
-        check(k.dtype == np.uint32 and k.shape == p.shape == (4 * n_subs + 1,),
-              f"ring {name}: {k.dtype}{k.shape} vs {p.shape}")
-        d = int(np.abs(k.astype(np.int64) - p.astype(np.int64)).max())
+        d = ring_diff(ring, st, k)
         check(d == 0, f"ed_ring_query differs from the plain query in "
               f"{name} (max {d})")
-        newest = int(k[-1].astype(np.int32))
+        counter_at_zero(ring)
+        newest = int(k.cpu().numpy()[-1].astype(np.int32))
         if keyframes:
-            check(ring.head - RING_C <= newest < ring.head,
+            check(ring.head - cap <= newest < ring.head,
                   f"ring {name}: newest keyframe {newest} outside the "
                   f"window of head {ring.head}")
         else:
             check(newest == -1, f"ring {name}: newest keyframe {newest}")
         res[name] = d
-        log(f"[ring] {name}: C={RING_C} S={n_subs} head={ring.head} "
-            f"newest keyframe {newest}: bit-exact vs the plain query")
+        log(f"[ring] {name}: C={cap} S={n_subs} head={ring.head} newest "
+            f"keyframe {newest}: bit-exact vs the plain query, counter back "
+            f"at 0")
+    # three queries back to back on one ring, nothing between them
+    ring, st = rings["wrapped5_s64"]
+    outs = [dr.query_params(ring, st) for _ in range(3)]
+    res["back_to_back_3"] = max(ring_diff(ring, st, k) for k in outs)
+    check(res["back_to_back_3"] == 0, "back-to-back ring queries differ")
+    counter_at_zero(ring)
+    # two rings queried in turn on one stream
+    other, st2 = rings["c1000_s64"]
+    outs = [(r, s, dr.query_params(r, s))
+            for r, s in ((ring, st), (other, st2)) * 2]
+    res["two_rings_in_turn"] = max(ring_diff(r, s, k) for r, s, k in outs)
+    check(res["two_rings_in_turn"] == 0, "rings queried in turn differ")
+    counter_at_zero(ring)
+    counter_at_zero(other)
+    log("[ring] three back-to-back queries on one ring and two rings "
+        "queried in turn on one stream: bit-exact, counters back at 0")
+    torch.cuda.synchronize()
     return res
 
 
@@ -903,6 +952,8 @@ def phase_config2(rng) -> dict:
         f"{st['native_sent']} of {st['packets_out']}, per-stream queries "
         f"{st['device_param_refreshes']}, launches {launches}; wake host ms "
         f"p50 {st['wake_ms_p50']:.3f} max {st['wake_ms_max']:.3f}")
+    log(f"[config2] first join's wake (the server warmed the card in "
+        f"start): {st['wake_ms_first']:.3f} host ms")
     return res
 
 
@@ -1035,6 +1086,7 @@ def phase_kernels(rng, launches: dict, errs: dict, levels, qt
     The wrappers' direct-call times go to the detail."""
     import ctypes
     import torch
+    from easydarwin_tpu_torch.ops import device_ring as dr
     from easydarwin_tpu_torch.ops import fanout, kernel_lib
     from easydarwin_tpu_torch.ops import transform as tf
     from easydarwin_tpu_torch.ops.parse import parse_packets
@@ -1084,17 +1136,20 @@ def phase_kernels(rng, launches: dict, errs: dict, levels, qt
             lambda: [fanout.relay_affine_step_window_plain(w, s)
                      for w, s in pairs], None, nbytes, ops, 100))
 
+    replayed = []
+
     def ring_case(n_subs: int, main: bool):
-        from easydarwin_tpu_torch.ops import device_ring as dr
         ring = fuzzed_ring(rng, RING_C, 2 * RING_C + 100)
         st = ring_state(rng, n_subs)
         out = torch.empty(4 * n_subs + 1, dtype=torch.int32, device="cuda")
+        replayed.append((f"S={n_subs}", ring, st))
         cases.append((
             "ed_ring_query", f"C={RING_C} S={n_subs}", main, relay_src,
             "easydarwin_tpu/ops/device_ring.py:66",
             lambda: kernel_lib.launch(
                 "ed_ring_query", ring.rows.data_ptr(), RING_C, dr.ROW_STRIDE,
-                ring.head, st.data_ptr(), n_subs, out.data_ptr()),
+                ring.head, st.data_ptr(), n_subs, ring.scratch.data_ptr(),
+                out.data_ptr()),
             lambda: dr.query_params(ring, st),
             lambda: dr.query_params_plain(ring, st), None,
             ring.rows.numel() + 4 * st.numel() + 4 * out.numel(),
@@ -1153,7 +1208,63 @@ def phase_kernels(rng, launches: dict, errs: dict, levels, qt
             "_wrapper_call_ms": call_ms(wrapper, reps=21, inner=inner),
             "_plain_call_ms": call_ms(plain, reps=11, inner=10),
         })
+    # the graph replays above left each ring's counter at 0: a query now
+    # is still bit-exact
+    for label, ring, st in replayed:
+        d = ring_diff(ring, st, dr.query_params(ring, st))
+        check(d == 0, f"ed_ring_query after graph replays ({label}) differs "
+              f"from the plain query (max {d})")
+        counter_at_zero(ring)
+        log(f"[kernels] ed_ring_query at C={RING_C} {label} after the graph "
+            f"replays: bit-exact, counter back at 0")
     return out
+
+
+def join_query_ms(rng, n_subs: int = CONFIG2_SUBS) -> dict:
+    """The engine's whole join query on the host clock: output state
+    packed and uploaded, ONE ed_ring_query, the packed row read back and
+    held against the host oracle (``FanoutEngine._device_params`` with its
+    cache dropped), over a C = 4,096 ring of paced 1080p-sized packets."""
+    import numpy as np
+    from easydarwin_tpu_torch.protocol import sdp
+    from easydarwin_tpu_torch.relay.fanout import FanoutEngine
+    from easydarwin_tpu_torch.relay.output import CollectingOutput
+    from easydarwin_tpu_torch.relay.stream import RelayStream, StreamSettings
+    from easydarwin_tpu_torch.utils import synth
+    from easydarwin_tpu_torch.utils.loopback import VIDEO_SDP
+    stream = RelayStream(sdp.parse(VIDEO_SDP).streams[0],
+                         StreamSettings(bucket_size=n_subs))
+    pkts = []
+    while len(pkts) < RING_C + 500:
+        pkts += synth.paced_gop(rng, seq0=len(pkts), ts0=3000 * len(pkts),
+                                ssrc=0x77, frames=30, packets_per_frame=13,
+                                body_len=(1270, 1300))
+    t = 1000
+    for pkt in pkts:
+        stream.push_rtp(pkt, t)
+    for _ in range(n_subs):
+        stream.add_output(CollectingOutput(
+            ssrc=int(rng.integers(1 << 32)),
+            out_seq_start=int(rng.integers(1 << 16)),
+            out_ts_start=int(rng.integers(1 << 32))))
+    eng = FanoutEngine(device=DEVICE)
+    flat = eng._flat_outputs(stream)
+    eng._prime(stream, flat, t)
+    eng._ring_sync(stream.rtp_ring, t)
+    order = eng.fast_outputs(stream)
+    samples = []
+    for _ in range(53):
+        eng._params_key = None                 # a join: no cached params
+        t0 = time.perf_counter()
+        params = eng._device_params(order, stream.rtp_ring, t)
+        samples.append((time.perf_counter() - t0) * 1e3)
+        check(params is not None, "the join query disagreed with the oracle")
+    samples = sorted(samples[3:])
+    return {"subscribers": n_subs, "ring_rows": RING_C,
+            "host_ms_p50": samples[len(samples) // 2],
+            "host_ms_min": samples[0], "host_ms_max": samples[-1],
+            "newest_keyframe": eng.last_newest_keyframe,
+            "queries": eng.device_param_refreshes}
 
 
 def main() -> int:
@@ -1234,6 +1345,15 @@ def main() -> int:
         log(f"[kernels] ptxas {name}: {rep}")
     timed = phase_kernels(rng, launches, errs, levels, qt)
     detail["kernels"] = timed
+    detail["join_query"] = join = join_query_ms(rng)
+    ring_ms = next(k["ms"] for k in timed if k["name"] == "ed_ring_query"
+                   and k["_main_path"])
+    log(f"[kernels] the engine's join query (pack + upload + ed_ring_query "
+        f"+ readback + oracle, _device_params) at C={RING_C} "
+        f"S={join['subscribers']}: host ms p50 {join['host_ms_p50']:.6f} "
+        f"(min {join['host_ms_min']:.6f}, max {join['host_ms_max']:.6f}); "
+        f"the kernel's {ring_ms:.6f} ms is "
+        f"{ring_ms / join['host_ms_p50']:.2%} of it")
     kernels = [{k: v for k, v in t.items() if not k.startswith("_")}
                for t in timed if t["_main_path"]]
     for k in timed:

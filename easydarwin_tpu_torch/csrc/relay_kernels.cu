@@ -27,11 +27,11 @@
 //     [C, 100] uint8, keyframe_first & valid under the ring's absolute-id
 //     mapping, the max absolute id over those rows, and the affine emit of
 //     S subscribers -> [4*S+1] uint32.  At C = 4096 it reads 409.6 KB
-//     (0.12 us at 3.35 TB/s), so it sits at the launch floor; it is one
-//     launch of K1's tiles plus a few emit CTAs (the window kernel cannot
-//     take it: a 4,096-row stream row needs 51,200 B of shared memory per
-//     CTA of a cluster of 8, and its newest keyframe is a row index, where
-//     a wrapped ring needs the newest absolute id).
+//     (0.12 us at 3.35 TB/s), so it is bound by latency like the others:
+//     ONE kernel node per query (the window kernel cannot take it: a
+//     4,096-row stream row needs 51,200 B of shared memory per CTA of a
+//     cluster of 8, and its newest keyframe is a row index, where a
+//     wrapped ring needs the newest absolute id).
 //
 // Why the TPU's trick is dropped
 //   The TPU kernel avoids per-row dynamic gathers by building each byte at
@@ -80,6 +80,23 @@
 //   * K1 runs the same parse on 64-row tiles brought in by the same bulk
 //     copy; it writes words as one 16-byte store a row, and stages flags in
 //     shared memory so the CTA writes them with coalesced 4-byte stores.
+//   * ed_ring_query is one launch of tile CTAs and nothing else: no memset
+//     node before it, no emit CTAs beside it.  Each tile CTA issues its
+//     rows' bulk copy, writes its share of the S subscribers' affine
+//     columns while the copy is in flight, then parses its rows.  The
+//     newest keyframe is a last-CTA fold that resets itself: each CTA
+//     stores its partial max into partials[tile] of a per-ring scratch
+//     (n_tiles + 1 int32, zeroed once when the ring is made) and makes ONE
+//     acq_rel atomic add on the arrival counter scratch[n_tiles] (it
+//     releases the partial, and for the last CTA acquires the others', in
+//     place of two full fences around a relaxed atomic); warp 0 of the CTA
+//     that draws n_tiles - 1 reduces the partials, writes out[4*S] exactly
+//     once and stores 0 back into the counter, so the next query, or the
+//     next replay of a CUDA graph, needs no host step.  This needs the queries
+//     of one ring to be ordered on one stream, as the engine's are.  Tiles
+//     of kRingTileRows = 128 rows (K1's parse_row and bulk_fetch as they
+//     are): 128 timed faster than 64 or 256, and than one non-portable
+//     cluster of 16 CTAs reducing over distributed shared memory (PERF.md).
 
 #include <cstdint>
 
@@ -106,11 +123,13 @@ constexpr int kEmitPerThread = 2;      // subscribers a window thread emits
 constexpr int kMaxBuckets = 32;
 constexpr int kMaxCluster = 8;         // the portable cluster size
 constexpr int kTileRows = 64;          // K1: rows (and threads) per CTA
+constexpr int kRingTileRows = 128;     // ed_ring_query: rows (and threads) per CTA
 
 // head + tail bytes are at most 2 * 15 (an empty interior means a span of
 // at most 30 bytes); threads 1.. load them, one byte each
 static_assert(kWindowThreads - 1 >= 2 * (kBulkAlign - 1), "head/tail loaders");
 static_assert(kTileRows - 1 >= 2 * (kBulkAlign - 1), "head/tail loaders");
+static_assert(kRingTileRows - 1 >= 2 * (kBulkAlign - 1), "head/tail loaders");
 
 struct Parsed {
   uint32_t seq, ts, ssrc, hs;
@@ -225,6 +244,69 @@ __device__ __forceinline__ bool bulk_fetch(uint8_t* buf, const uint8_t* src,
   return sp.interior != 0;
 }
 
+// The affine columns of subscribers [lo, hi) of ``st`` [n_subs, 6] into
+// ``o`` [4 * n_subs + 1] by kThreads threads, kEmitPerThread subscribers a
+// thread with every state word loaded before any store: one memory round
+// trip for up to kEmitPerThread * kThreads subscribers.  State columns:
+// ssrc, base_seq, base_ts, seq0, ts0, chan.
+template <int kThreads>
+__device__ __forceinline__ void emit_affine(const uint32_t* __restrict__ st,
+                                            int n_subs, int lo, int hi,
+                                            uint32_t* __restrict__ o) {
+  for (int s0 = lo + int(threadIdx.x); s0 < hi;
+       s0 += kEmitPerThread * kThreads) {
+    uint32_t sv[kEmitPerThread][kStateCols];
+#pragma unroll
+    for (int j = 0; j < kEmitPerThread; ++j) {
+      const int s = s0 + j * kThreads;
+#pragma unroll
+      for (int c = 0; c < kStateCols; ++c)
+        sv[j][c] = s < hi ? st[size_t(s) * kStateCols + c] : 0u;
+    }
+#pragma unroll
+    for (int j = 0; j < kEmitPerThread; ++j) {
+      const int s = s0 + j * kThreads;
+      if (s < hi) {
+        o[s] = (sv[j][3] - sv[j][1]) & 0xFFFFu;  // seq_off (mod 2^16)
+        o[n_subs + s] = sv[j][4] - sv[j][2];     // ts_off (mod 2^32)
+        o[2 * n_subs + s] = sv[j][0];            // ssrc
+        o[3 * n_subs + s] = sv[j][5];            // interleave channel
+      }
+    }
+  }
+}
+
+// The max of ``v`` over a CTA of kThreads threads, in every thread
+// (``s_warp`` holds kThreads / 32 ints; the caller's next write to it must
+// follow a __syncthreads).
+template <int kThreads>
+__device__ __forceinline__ int block_max(int v, int* s_warp) {
+  v = __reduce_max_sync(0xffffffffu, v);
+  if ((threadIdx.x & 31) == 0) s_warp[threadIdx.x >> 5] = v;
+  __syncthreads();
+  int m = -1;
+#pragma unroll
+  for (int w = 0; w < kThreads / 32; ++w) m = max(m, s_warp[w]);
+  return m;
+}
+
+// Ring slot -> absolute id: head - ((head - slot - 1) mod C) - 1; a slot
+// the ring never wrote maps below 0.
+__device__ __forceinline__ int ring_abs_id(int head, int slot, int capacity) {
+  int m = (head - slot - 1) % capacity;
+  if (m < 0) m += capacity;
+  return head - m - 1;
+}
+
+// The abs id of ring row ``row`` (slot ``slot``) if it is a valid
+// keyframe-first packet, else -1.
+__device__ __forceinline__ int ring_row_best(const uint8_t* row, int slot,
+                                             int head, int capacity) {
+  const int32_t len = le32(row + kParsePrefix);
+  const int abs_id = ring_abs_id(head, slot, capacity);
+  return len > 0 && abs_id >= 0 && parse_row(row, len).kf ? abs_id : -1;
+}
+
 // ------------------------------------------------------------------ K1
 
 __global__ void __launch_bounds__(kTileRows)
@@ -317,30 +399,7 @@ relay_window_kernel(const __grid_constant__ WindowLaunch launch) {
 
   const uint32_t* __restrict__ st = bk.state + size_t(b) * n_subs * kStateCols;
   uint32_t* __restrict__ o = bk.out + size_t(b) * (4 * size_t(n_subs) + 1);
-  // kEmitPerThread subscribers a thread, every state word loaded before any
-  // store: one memory round trip for up to 256 subscribers a CTA.  State
-  // columns: ssrc, base_seq, base_ts, seq0, ts0, chan.
-  for (int s0 = sub_lo + t; s0 < sub_hi;
-       s0 += kEmitPerThread * kWindowThreads) {
-    uint32_t sv[kEmitPerThread][kStateCols];
-#pragma unroll
-    for (int j = 0; j < kEmitPerThread; ++j) {
-      const int s = s0 + j * kWindowThreads;
-#pragma unroll
-      for (int c = 0; c < kStateCols; ++c)
-        sv[j][c] = s < sub_hi ? st[size_t(s) * kStateCols + c] : 0u;
-    }
-#pragma unroll
-    for (int j = 0; j < kEmitPerThread; ++j) {
-      const int s = s0 + j * kWindowThreads;
-      if (s < sub_hi) {
-        o[s] = (sv[j][3] - sv[j][1]) & 0xFFFFu;  // seq_off (mod 2^16)
-        o[n_subs + s] = sv[j][4] - sv[j][2];     // ts_off (mod 2^32)
-        o[2 * n_subs + s] = sv[j][0];            // ssrc
-        o[3 * n_subs + s] = sv[j][5];            // interleave channel
-      }
-    }
-  }
+  emit_affine<kWindowThreads>(st, n_subs, sub_lo, sub_hi, o);
   __syncthreads();                             // mbarrier init, head/tail bytes
   if (wait) mbar_wait(smem_addr(&s_bar), 0);
 
@@ -376,62 +435,63 @@ relay_window_kernel(const __grid_constant__ WindowLaunch launch) {
 
 // -------------------------------------------------------- ring query
 
-// One launch per per-stream query over the whole resident ring.  CTAs
-// [0, n_tiles) are K1's 64-row tiles: one bulk copy brings a tile into
-// shared memory, one thread parses one row, and the CTA's max over the
-// absolute ids of its valid keyframe-first rows goes into the result's
-// last word by one atomicMax (order-free, so the result is deterministic;
-// the entry point sets the word to -1 on the same stream first).  CTAs
-// [n_tiles, grid) write the affine columns of 64 subscribers each, as the
-// window kernel's emit does.
-__global__ void __launch_bounds__(kTileRows)
+// One launch per per-stream query over the whole resident ring: one CTA
+// per kRingTileRows-row tile, one thread per row, gridDim.x = n_tiles.
+// Phase 1 (no dependence on the rows): the tile's bulk copy in flight, the
+// CTA's share of the subscribers' affine columns written.  Phase 2: parse the
+// tile from shared memory, the CTA's max over the absolute ids of its
+// valid keyframe-first rows into partials[tile], then the arrival.  The
+// last arrival folds every partial into out[4 * n_subs] and resets the
+// counter.  ``scratch`` = partials[n_tiles] ++ arrival counter, which is 0
+// between queries.
+__global__ void __launch_bounds__(kRingTileRows)
 ring_query_kernel(const uint8_t* __restrict__ rows, int capacity,
                   int row_stride, int head, const uint32_t* __restrict__ state,
-                  int n_subs, int n_tiles, uint32_t* __restrict__ out) {
+                  int n_subs, int* __restrict__ scratch,
+                  uint32_t* __restrict__ out) {
   extern __shared__ __align__(16) uint8_t s_tile[];
   __shared__ uint64_t s_bar;
-  __shared__ int s_warp_best[kTileRows / 32];
+  __shared__ int s_warp_best[kRingTileRows / 32];
+  __shared__ int s_last;
   const int t = threadIdx.x;
-  if (int(blockIdx.x) >= n_tiles) {
-    const int s = (int(blockIdx.x) - n_tiles) * kTileRows + t;
-    if (s < n_subs) {
-      uint32_t v[kStateCols];
-#pragma unroll
-      for (int c = 0; c < kStateCols; ++c) v[c] = state[size_t(s) * kStateCols + c];
-      out[s] = (v[3] - v[1]) & 0xFFFFu;          // seq_off (mod 2^16)
-      out[n_subs + s] = v[4] - v[2];             // ts_off (mod 2^32)
-      out[2 * n_subs + s] = v[0];                // ssrc
-      out[3 * n_subs + s] = v[5];                // interleave channel
-    }
-    return;
-  }
-  const int row0 = int(blockIdx.x) * kTileRows;
-  const int rows_here = min(kTileRows, capacity - row0);
+  const int tile = blockIdx.x;
+  const int n_tiles = gridDim.x;
+  const int row0 = tile * kRingTileRows;
+  const int rows_here = min(kRingTileRows, capacity - row0);
   const uint8_t* src = rows + size_t(row0) * row_stride;
   uint8_t* buf = s_tile + (reinterpret_cast<uintptr_t>(src) & (kBulkAlign - 1));
   const bool wait =
       bulk_fetch(buf, src, uint32_t(rows_here) * row_stride, &s_bar);
-  __syncthreads();
+  emit_affine<kRingTileRows>(state, n_subs,
+                             int(int64_t(tile) * n_subs / n_tiles),
+                             int(int64_t(tile + 1) * n_subs / n_tiles), out);
+  __syncthreads();                             // mbarrier init, head/tail bytes
   if (wait) mbar_wait(smem_addr(&s_bar), 0);
-  int best = -1;
-  if (t < rows_here) {
-    const uint8_t* row = buf + size_t(t) * row_stride;
-    const int32_t len = le32(row + kParsePrefix);
-    // slot -> absolute id: head - ((head - slot - 1) mod C) - 1; a slot
-    // the ring never wrote maps below 0
-    int m = (head - (row0 + t) - 1) % capacity;
-    if (m < 0) m += capacity;
-    const int abs_id = head - m - 1;
-    if (len > 0 && abs_id >= 0 && parse_row(row, len).kf) best = abs_id;
-  }
-  best = __reduce_max_sync(0xffffffffu, best);
-  if ((t & 31) == 0) s_warp_best[t >> 5] = best;
-  __syncthreads();
+
+  int* partials = scratch;
+  int* arrivals = scratch + n_tiles;
+  const int mine = t < rows_here ? ring_row_best(buf + size_t(t) * row_stride,
+                                                 row0 + t, head, capacity)
+                                  : -1;
+  const int best = block_max<kRingTileRows>(mine, s_warp_best);
   if (t == 0) {
-    int mx = -1;
-    for (int w = 0; w < kTileRows / 32; ++w) mx = max(mx, s_warp_best[w]);
-    if (mx >= 0)
-      atomicMax(reinterpret_cast<int*>(out + 4 * size_t(n_subs)), mx);
+    partials[tile] = best;
+    // one acq_rel atomic: it releases the partial before the arrival and,
+    // for the last CTA, acquires every other CTA's partial
+    int before;
+    asm volatile("atom.acq_rel.gpu.global.add.u32 %0, [%1], 1;"
+                 : "=r"(before) : "l"(arrivals) : "memory");
+    s_last = before == n_tiles - 1;
+  }
+  __syncthreads();                             // s_last
+  if (!s_last || t >= 32) return;
+  // the last arrival: warp 0 folds the partials (read from L2)
+  int m = -1;
+  for (int i = t; i < n_tiles; i += 32) m = max(m, __ldcg(partials + i));
+  m = __reduce_max_sync(0xffffffffu, m);
+  if (t == 0) {
+    out[4 * size_t(n_subs)] = uint32_t(m);     // -1 rides as 0xFFFFFFFF
+    *arrivals = 0;                             // ready for the next query
   }
 }
 
@@ -507,35 +567,35 @@ int ed_relay_window(const void* buckets, int n_buckets, int cluster,
 // One per-stream ring query: rows [capacity, row_stride] uint8 (prefix +
 // le32 length), head = packets ever appended, state [n_subs, 6] uint32 ->
 // out [4 * n_subs + 1] uint32, the last word the newest keyframe's
-// absolute id (-1 = none).  A memset of that word, then one launch.
+// absolute id (-1 = none).  ``scratch`` holds ceil(capacity / kRingTileRows)
+// + 1 int32 whose last word is 0 (the ring's, zeroed when it was made and
+// reset by every query).  ONE launch.
 int ed_ring_query(const void* rows, int capacity, int row_stride, int head,
-                  const void* state, int n_subs, void* out, void* stream) {
-  const size_t smem = size_t(kTileRows) * row_stride + kBulkAlign;
+                  const void* state, int n_subs, void* scratch, void* out,
+                  void* stream) {
+  const size_t smem = size_t(kRingTileRows) * row_stride + kBulkAlign;
   if (capacity <= 0 || head < 0 || n_subs < 0 ||
       row_stride < kParsePrefix + kWindowExtra || smem > size_t(kDynSmemLimit))
     return int(cudaErrorInvalidValue);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  uint32_t* o = static_cast<uint32_t*>(out);
-  cudaError_t err = cudaMemsetAsync(o + 4 * size_t(n_subs), 0xFF,
-                                    sizeof(uint32_t), s);
-  if (err != cudaSuccess) return int(err);
-  const int n_tiles = (capacity + kTileRows - 1) / kTileRows;
-  const int n_emit = (n_subs + kTileRows - 1) / kTileRows;
-  ring_query_kernel<<<n_tiles + n_emit, kTileRows, smem, s>>>(
+  const int n_tiles = (capacity + kRingTileRows - 1) / kRingTileRows;
+  ring_query_kernel<<<n_tiles, kRingTileRows, smem,
+                      static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(rows), capacity, row_stride, head,
-      static_cast<const uint32_t*>(state), n_subs, n_tiles, o);
+      static_cast<const uint32_t*>(state), n_subs, static_cast<int*>(scratch),
+      static_cast<uint32_t*>(out));
   return int(cudaGetLastError());
 }
 
 // The constants the Python launch plans mirror (ops/kernel_lib.py and
 // ops/fanout.py): checked by chip_smoke.py against the Python side.
 int ed_relay_geometry(int* max_buckets, int* max_cluster, int* window_threads,
-                      int* tile_rows, int* smem_limit) {
+                      int* tile_rows, int* smem_limit, int* ring_tile_rows) {
   *max_buckets = kMaxBuckets;
   *max_cluster = kMaxCluster;
   *window_threads = kWindowThreads;
   *tile_rows = kTileRows;
   *smem_limit = kDynSmemLimit;
+  *ring_tile_rows = kRingTileRows;
   return 0;
 }
 

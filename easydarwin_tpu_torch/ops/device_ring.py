@@ -22,7 +22,10 @@ in plain PyTorch on either device.  ``query_params`` is the engine's call:
 the packed ``[4·S + 1]`` uint32 row ``ops.fanout.unpack_affine`` reads,
 whose last word is the newest keyframe as an *absolute* id (−1 = none).
 On a CUDA ring it is one launch of the hand-written ``ed_ring_query``
-(``csrc/relay_kernels.cu``); on a CPU ring it runs
+(``csrc/relay_kernels.cu``): one CTA per ``RING_TILE_ROWS``-row tile that
+also writes its share of the subscribers' columns, and a fold of the
+tiles' maxima by the last CTA to arrive, through the ring's own
+``scratch`` (``ring_query_plan``).  On a CPU ring it runs
 ``query_params_plain``, the same function in plain PyTorch.
 """
 
@@ -38,18 +41,29 @@ from . import kernel_lib
 from .fanout import (STATE_COLS, WINDOW_EXTRA, affine_params,
                      relay_affine_step, window_lengths)
 from .parse import PARSE_PREFIX, i64_from_u32, parse_packets, u32_from_i64
-from .parse_kernel import PARSE_TILE_ROWS, parse_tile_plan
 
 #: bytes per ring row: the prefix and its le32 length
 ROW_STRIDE = PARSE_PREFIX + WINDOW_EXTRA
+#: rows (and threads) per CTA of ``ed_ring_query`` (``kRingTileRows`` in
+#: ``csrc/relay_kernels.cu``; chip_smoke.py checks it against the
+#: library's ``ed_relay_geometry``)
+RING_TILE_ROWS = 128
 #: ``head`` stays an int32 on the card; an owner restarts its ring before
 MAX_HEAD = (1 << 31) - (1 << 20)
+
+
+def ring_tiles(capacity: int) -> int:
+    """CTAs of one ``ed_ring_query`` launch."""
+    return -(-capacity // RING_TILE_ROWS)
 
 
 @dataclass
 class RingState:
     rows: torch.Tensor          # [C, ROW_STRIDE] uint8
     arrival: torch.Tensor       # [C] int32
+    #: [ring_tiles(C) + 1] int32: the query's per-tile maxima, then its
+    #: arrival counter (0 between queries: each query resets it)
+    scratch: torch.Tensor
     head: int = 0
 
     @property
@@ -74,7 +88,8 @@ def init_ring(capacity: int, device: str | torch.device = "cuda"
         raise ValueError(f"capacity must be positive, got {capacity}")
     return RingState(
         torch.zeros((capacity, ROW_STRIDE), dtype=torch.uint8, device=dev),
-        torch.zeros(capacity, dtype=torch.int32, device=dev), 0)
+        torch.zeros(capacity, dtype=torch.int32, device=dev),
+        torch.zeros(ring_tiles(capacity) + 1, dtype=torch.int32, device=dev))
 
 
 def _seam(head: int, capacity: int, n: int):
@@ -176,21 +191,27 @@ def query_params_plain(state: RingState, out_state: torch.Tensor
 
 
 def ring_query_plan(capacity: int, n_subs: int, addr: int) -> dict:
-    """``ed_ring_query``'s grid as the kernel computes it: K1's 64-row
-    tiles over the ring (``parse_tile_plan``: rows, and the head, bulk
-    interior and tail of each tile's bytes), then one emit CTA per 64
-    subscribers ``[lo, hi)``."""
-    tiles = parse_tile_plan(capacity, ROW_STRIDE, addr)
-    emit = [(lo, min(lo + PARSE_TILE_ROWS, n_subs))
-            for lo in range(0, n_subs, PARSE_TILE_ROWS)]
-    return {"tiles": tiles, "emit": emit, "grid": len(tiles) + len(emit),
-            "threads": PARSE_TILE_ROWS}
+    """``ed_ring_query``'s grid as the kernel computes it: one CTA per
+    ``RING_TILE_ROWS``-row tile, with its rows ``[lo, hi)``, the head, bulk
+    interior and tail of its bytes from byte ``addr``, and the subscribers
+    ``[lo, hi)`` it emits while its copy is in flight; ``scratch_words``
+    int32 of scratch (the per-tile maxima, then the arrival counter)."""
+    n_tiles = ring_tiles(capacity)
+    tiles, emit = [], []
+    for k in range(n_tiles):
+        lo, hi = k * RING_TILE_ROWS, min((k + 1) * RING_TILE_ROWS, capacity)
+        tiles.append((lo, hi, *kernel_lib.bulk_split(addr + lo * ROW_STRIDE,
+                                                     (hi - lo) * ROW_STRIDE)))
+        emit.append((k * n_subs // n_tiles, (k + 1) * n_subs // n_tiles))
+    return {"tiles": tiles, "emit": emit, "grid": n_tiles,
+            "threads": RING_TILE_ROWS, "scratch_words": n_tiles + 1}
 
 
 def query_params(state: RingState, out_state: torch.Tensor) -> torch.Tensor:
     """The engine's per-stream query → ``[4·S + 1]`` uint32 on the ring's
     device.  A CUDA ring makes ONE ``ed_ring_query`` launch (or raises); a
-    CPU ring runs ``query_params_plain``."""
+    CPU ring runs ``query_params_plain``.  Queries of one ring must stay
+    ordered on one stream (they share its scratch)."""
     dev = state.rows.device
     if dev.type == "cpu":
         return query_params_plain(state, out_state)
@@ -199,11 +220,15 @@ def query_params(state: RingState, out_state: torch.Tensor) -> torch.Tensor:
     _check_state(state, out_state)
     kernel_lib.require(state.rows, "rows", torch.uint8, 2, dev)
     kernel_lib.require(out_state, "out_state", torch.uint32, 2, dev)
+    kernel_lib.require(state.scratch, "scratch", torch.int32, 1, dev)
     if state.rows.shape[1] != ROW_STRIDE:
         raise ValueError(f"ring rows must be {ROW_STRIDE} bytes wide")
+    if state.scratch.shape[0] != ring_tiles(state.capacity) + 1:
+        raise ValueError(f"scratch must hold {ring_tiles(state.capacity) + 1}"
+                         f" int32, got {state.scratch.shape[0]}")
     n_subs = out_state.shape[0]
     out = torch.empty(4 * n_subs + 1, dtype=torch.int32, device=dev)
     kernel_lib.launch("ed_ring_query", state.rows.data_ptr(), state.capacity,
                       ROW_STRIDE, state.head, out_state.data_ptr(), n_subs,
-                      out.data_ptr())
+                      state.scratch.data_ptr(), out.data_ptr())
     return out.view(torch.uint32)

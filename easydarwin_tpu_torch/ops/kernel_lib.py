@@ -60,10 +60,11 @@ _SIGNATURES = {
     "ed_parse_packets": (_P, _I, _I, _P, _P, _P, _P),
     # WindowBucket descriptors, n_buckets, cluster size, stream
     "ed_relay_window": (_P, _I, _I, _P),
-    # rows, capacity, row_stride, head, state, n_subs, out, stream
-    "ed_ring_query": (_P, _I, _I, _I, _P, _I, _P, _P),
-    # -> max buckets, max cluster, window threads, K1 tile rows, smem limit
-    "ed_relay_geometry": (_IP, _IP, _IP, _IP, _IP),
+    # rows, capacity, row_stride, head, state, n_subs, scratch, out, stream
+    "ed_ring_query": (_P, _I, _I, _I, _P, _I, _P, _P, _P),
+    # -> max buckets, max cluster, window threads, K1 tile rows, smem limit,
+    # ring query tile rows
+    "ed_relay_geometry": (_IP, _IP, _IP, _IP, _IP, _IP),
     # stream (an empty kernel: the launch floor)
     "ed_launch_floor": (_P,),
     # levels, n_blocks, qtable, idct8 (the 8x8 DCT matrix C), out, stream

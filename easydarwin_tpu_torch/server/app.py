@@ -18,7 +18,10 @@ Below that the scheduler idles and each engine keeps its stream's ring on
 the device, appending the new packets each wake and querying it (one
 ``ed_ring_query`` launch) when its membership changes.  The native egress
 core is built when the server starts; without it every player takes the
-Python loop.
+Python loop.  On a card the server also makes the CUDA context, loads the
+kernel library and runs one small ring query when it starts, so the first
+join does not pay for them.  One stream's error is counted
+(``pump_errors``) and the wake goes on with the next stream.
 
 Once a second the pump evicts old packets, closes idle connections and
 retires transcode ladders whose source went away.
@@ -36,7 +39,7 @@ import torch
 
 from .. import native, resolve_device
 from ..models.mjpeg_ladder import MjpegTranscodeService
-from ..ops import kernel_lib
+from ..ops import device_ring, kernel_lib
 from ..relay.fanout import FanoutEngine
 from ..relay.megabatch import MegabatchScheduler
 from ..relay.session import SessionRegistry, now_ms
@@ -76,11 +79,15 @@ class StreamingServer:
         self.wakes = 0
         #: host ms of the newest wakes that sent packets (the pump's clock)
         self.wake_ms: collections.deque = collections.deque(maxlen=8192)
+        #: host ms of the first wake that sent packets (a first join's)
+        self.wake_ms_first: float | None = None
         self.packets_out = 0
         self.pump_errors = 0
 
     async def start(self) -> None:
         self.native_loaded = native.available()
+        if self.device.type == "cuda":
+            self._warm_card()
         await self.rtsp.start()
         await self.rest.start()
         self._running = True
@@ -99,6 +106,32 @@ class StreamingServer:
 
     def _wake(self) -> None:
         self._pump_event.set()
+
+    def _warm_card(self) -> None:
+        """Make the CUDA context, load the kernel library and run one
+        launch-floor kernel and one ring query on a small ring fed from
+        pinned memory, then synchronise: a stream's first join then pays
+        none of it.  The warm-up calls the library directly, so its
+        launches are not counted."""
+        lib = kernel_lib.library()
+        stream = torch.cuda.current_stream(self.device).cuda_stream
+        ring = device_ring.init_ring(64, self.device)
+        rows = torch.zeros((1, device_ring.ROW_STRIDE), dtype=torch.uint8,
+                           pin_memory=True)
+        device_ring.append_rows(ring, rows, torch.zeros(1, dtype=torch.int32,
+                                                        pin_memory=True), 1)
+        state = torch.zeros((1, 6), dtype=torch.uint32, device=self.device)
+        out = torch.empty(5, dtype=torch.int32, device=self.device)
+        for name, args in (
+                ("ed_launch_floor", ()),
+                ("ed_ring_query", (ring.rows.data_ptr(), ring.capacity,
+                                   device_ring.ROW_STRIDE, ring.head,
+                                   state.data_ptr(), 1,
+                                   ring.scratch.data_ptr(), out.data_ptr()))):
+            rc = getattr(lib, name)(*args, stream)
+            if rc != 0:
+                raise RuntimeError(f"{name}: {kernel_lib.error_message(rc)}")
+        torch.cuda.synchronize(self.device)
 
     def _engine_for(self, stream) -> FanoutEngine:
         eng = self._engines.get(id(stream))
@@ -121,26 +154,44 @@ class StreamingServer:
                 self._retired[k] += getattr(eng, k)
         return pairs
 
+    def _pump_error(self) -> None:
+        """Count an error the pump caught and keep its traceback."""
+        self.pump_errors += 1
+        traceback.print_exc(file=sys.stderr)
+
     def reflect_all(self) -> int:
-        """One pump wake of the live relay; returns packets written."""
+        """One pump wake of the live relay; returns packets written.  One
+        stream's error is counted and the wake goes on with the next; a
+        failed ``begin_wake`` serves the wake's streams one by one."""
         t = now_ms()
         self.wakes += 1
         pairs = self._pairs()
         engaged = len(pairs) >= MEGABATCH_MIN_STREAMS
         if engaged:
-            self.megabatch.begin_wake(pairs, t)
-        else:
-            # too few streams to coalesce: each engine runs its own
-            # device ring (the scheduler keeps harvesting what it has out)
-            self.megabatch.idle_wake()
+            try:
+                self.megabatch.begin_wake(pairs, t)
+            except Exception:
+                self._pump_error()
+                engaged = False
+        if not engaged:
+            # too few streams to coalesce (or the scheduler failed): each
+            # engine runs its own device ring, and the scheduler keeps
+            # harvesting what it has out
+            try:
+                self.megabatch.idle_wake()
+            except Exception:
+                self._pump_error()
             for _stream, eng in pairs:
                 eng.megabatch_owned = False
         sent = 0
         for stream, eng in pairs:
-            sent += eng.step(stream, t)
+            try:
+                sent += eng.step(stream, t)
+            except Exception:
+                self._pump_error()
+        self.packets_out += sent
         if engaged:
             self.megabatch.end_wake(pairs, t)
-        self.packets_out += sent
         return sent
 
     async def _pump_loop(self) -> None:
@@ -155,12 +206,14 @@ class StreamingServer:
             try:
                 t0 = time.perf_counter()
                 if self.reflect_all():
-                    self.wake_ms.append((time.perf_counter() - t0) * 1e3)
+                    ms = (time.perf_counter() - t0) * 1e3
+                    if self.wake_ms_first is None:
+                        self.wake_ms_first = ms
+                    self.wake_ms.append(ms)
             except Exception:
-                # the pump must keep serving the other streams; the error
-                # is counted and its traceback kept
-                self.pump_errors += 1
-                traceback.print_exc(file=sys.stderr)
+                # the pump must keep serving the streams; the error is
+                # counted and its traceback kept
+                self._pump_error()
             now = time.monotonic()
             if now - last_maint >= 1.0:
                 last_maint = now
@@ -181,6 +234,7 @@ class StreamingServer:
                 **engines,
                 "wake_ms_p50": wake[len(wake) // 2] if wake else None,
                 "wake_ms_max": wake[-1] if wake else None,
+                "wake_ms_first": self.wake_ms_first,
                 "native_loaded": self.native_loaded,
                 "megabatch": self.megabatch.stats(),
                 "kernel_launches": dict(kernel_lib.LAUNCHES)}

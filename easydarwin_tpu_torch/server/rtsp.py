@@ -9,6 +9,11 @@ PLAY, TEARDOWN.  A player's SETUP takes interleaved transport
 the connection) or UDP (``RTP/AVP;unicast;client_port=a-b``: relayed RTP
 goes to the client's ports from the server's shared egress pair, whose
 ports the reply names as ``server_port``).  Pushers send interleaved.
+
+A player's RTSP connection is silent while it plays, so RTCP keeps it
+alive: a datagram on the shared pair's RTCP port that parses as RTCP
+refreshes the idle clock of the connection whose UDP track registered its
+source address, or whose output SSRC an RR report block names.
 """
 
 from __future__ import annotations
@@ -19,7 +24,7 @@ import sys
 import time
 import traceback
 
-from ..protocol import rtsp, sdp
+from ..protocol import rtcp, rtsp, sdp
 from ..relay.session import RelaySession, SessionRegistry
 from .config import ServerConfig
 from .transports import InterleavedOutput, SharedUdpEgress, UdpOutput
@@ -40,6 +45,15 @@ def _extract_track(uri_path: str) -> tuple[str, int | None]:
             if tail.isdigit():
                 return uri_path[:pos], int(tail)
     return uri_path, None
+
+
+def _rtcp_keys(out) -> list[tuple]:
+    """What proves a player's RTCP is its own: its output's SSRC, and a
+    UDP output's registered RTCP address."""
+    keys = [("ssrc", out.rewrite.ssrc)]
+    if isinstance(out, UdpOutput):
+        keys.append(("addr", out.rtcp_addr))
+    return keys
 
 
 class RtspConnection:
@@ -190,6 +204,8 @@ class RtspConnection:
                             *t.client_port, **rewrite)
             resp_t.client_port = t.client_port
             resp_t.server_port = (sender.rtp_port, sender.rtcp_port)
+        self.server.note_player_output(self, out,
+                                       self.player_tracks.get(track_id))
         self.player_tracks[track_id] = out
         self._reply(rtsp.RtspResponse(200, {"Transport": resp_t.to_header()}),
                     req.cseq)
@@ -240,6 +256,7 @@ class RtspConnection:
                 st = self.relay.streams.get(tid)
                 if st is not None:
                     st.remove_output(out)
+                self.server.drop_player_output(self, out)
             # pusher gone → tear the session down, if it is still ours
             if (self.is_pusher and self.relay.owner is self
                     and self.server.registry.find(self.relay.path)
@@ -265,12 +282,18 @@ class RtspServer:
         self.port: int | None = None
         #: the UDP players' shared egress pair (None until start)
         self.shared_egress: SharedUdpEgress | None = None
+        #: ("ssrc", n) / ("addr", (ip, port)) → the player connection whose
+        #: RTCP that proves (``_rtcp_keys``)
+        self._rtcp_owner: dict[tuple, RtspConnection] = {}
+        #: datagrams on the RTCP port that parsed as RTCP
+        self.rtcp_in = 0
 
     async def start(self) -> None:
         self._server = await asyncio.start_server(
             self._on_connection, self.config.bind_ip, self.config.rtsp_port)
         self.port = self._server.sockets[0].getsockname()[1]
-        self.shared_egress = SharedUdpEgress(self.config.bind_ip)
+        self.shared_egress = SharedUdpEgress(self.config.bind_ip,
+                                             on_rtcp=self.on_player_rtcp)
         await self.shared_egress.start()
 
     async def stop(self) -> None:
@@ -290,6 +313,36 @@ class RtspServer:
         conn = RtspConnection(self, reader, writer)
         self.connections.add(conn)
         await conn.run()
+
+    def note_player_output(self, conn: RtspConnection, out,
+                           replaced=None) -> None:
+        """Register a player output's RTCP keys (a re-SETUP of a track
+        drops the output it replaces)."""
+        if replaced is not None:
+            self.drop_player_output(conn, replaced)
+        for key in _rtcp_keys(out):
+            self._rtcp_owner[key] = conn
+
+    def drop_player_output(self, conn: RtspConnection, out) -> None:
+        for key in _rtcp_keys(out):
+            if self._rtcp_owner.get(key) is conn:
+                del self._rtcp_owner[key]
+
+    def on_player_rtcp(self, data: bytes, addr) -> None:
+        """Incoming RTCP on the shared pair: refresh the idle clock of the
+        connection that registered ``addr``, and of each whose output SSRC
+        an RR report block names.  A datagram that is not RTCP proves
+        nothing."""
+        ssrcs = rtcp.rr_report_ssrcs(data)
+        if ssrcs is None:
+            return
+        self.rtcp_in += 1
+        keys = [("addr", (addr[0], addr[1]))] + [("ssrc", s) for s in ssrcs]
+        now = time.monotonic()
+        for key in keys:
+            conn = self._rtcp_owner.get(key)
+            if conn is not None:
+                conn.last_activity = now
 
     def wake_pump(self) -> None:
         if self._on_pump_wake is not None:

@@ -7,8 +7,9 @@ bookmark on a later pass.
 
 UDP players are served from one shared socket pair (``SharedUdpEgress``),
 whose RTP socket the engine writes with one ``sendmmsg``/UDP-GSO scatter a
-stream a wake.  Incoming RTCP on the pair is read and dropped
-(receiver-report handling is later work).
+stream a wake.  Each datagram that reaches its RTCP socket is handed with
+its source address to ``on_rtcp`` (the RTSP server, which keeps the
+sending player alive).
 """
 
 from __future__ import annotations
@@ -98,18 +99,17 @@ class UdpOutput(RelayOutput):
         return self.sender.send_rtp(data, self.rtp_addr)
 
 
-class _DropRtcp(asyncio.DatagramProtocol):
-    """Reads incoming RTCP and drops it."""
+class _RtcpReceiver(asyncio.DatagramProtocol):
+    """Hands every incoming datagram and its source address on."""
 
-    def __init__(self):
-        self.transport: asyncio.DatagramTransport | None = None
+    def __init__(self, on_rtcp):
+        self.on_rtcp = on_rtcp
         self.received = 0
-
-    def connection_made(self, transport):
-        self.transport = transport
 
     def datagram_received(self, data, addr):
         self.received += 1
+        if self.on_rtcp is not None:
+            self.on_rtcp(data, addr)
 
 
 class SharedUdpEgress:
@@ -118,13 +118,15 @@ class SharedUdpEgress:
     RTP leaves through one plain non-blocking socket: the engine's native
     scatter writes it (``fileno``), and ``send_rtp`` is the scalar send
     (WOULD_BLOCK when the socket buffer is full).  RTCP leaves through an
-    asyncio endpoint, whose incoming datagrams are dropped."""
+    asyncio endpoint, whose incoming datagrams go to ``on_rtcp(data,
+    addr)``."""
 
-    def __init__(self, bind_ip: str = "0.0.0.0"):
+    def __init__(self, bind_ip: str = "0.0.0.0", on_rtcp=None):
         self.bind_ip = bind_ip
+        self.on_rtcp = on_rtcp
         self.rtp_sock: socket.socket | None = None
         self.rtcp_transport: asyncio.DatagramTransport | None = None
-        self.rtcp_proto: _DropRtcp | None = None
+        self.rtcp_proto: _RtcpReceiver | None = None
         self.rtp_port = 0
         self.rtcp_port = 0
         self.send_errors = 0
@@ -138,7 +140,8 @@ class SharedUdpEgress:
         loop = asyncio.get_running_loop()
         self.rtcp_transport, self.rtcp_proto = \
             await loop.create_datagram_endpoint(
-                _DropRtcp, local_addr=(self.bind_ip, 0))
+                lambda: _RtcpReceiver(self.on_rtcp),
+                local_addr=(self.bind_ip, 0))
         self.rtcp_port = self.rtcp_transport.get_extra_info("sockname")[1]
 
     def fileno(self) -> int:

@@ -4,8 +4,9 @@ The same numpy inputs go through the reference's ``append``/``query`` and
 the port's (plain version, ``device="cpu"``); every integer result is
 bit-exact.  ``query_params_plain`` (what ``ed_ring_query`` computes) is
 held against the reference's query, and a Python mirror of the kernel's
-tile plan — per-tile maxima folded by atomicMax, emit CTAs by subscriber
-range — against ``query_params_plain``.
+plan — tile CTAs that also emit their share of the subscribers, partial
+maxima in the ring's scratch, one fold by the last CTA to arrive, which
+puts the arrival counter back to 0 — against ``query_params_plain``.
 """
 
 import numpy as np
@@ -162,18 +163,33 @@ def test_no_keyframe_gives_minus_one():
     assert int(empty.view(torch.int32)[-1]) == -1
 
 
-def _mirror(state, out_state, addr):
-    """``ed_ring_query`` computed the kernel's way from its plan: each
-    tile CTA parses its rows and folds its max abs id into the last word
-    (initialised to −1) by a max; each emit CTA writes its subscribers."""
-    plan = dr.ring_query_plan(state.capacity, out_state.shape[0], addr)
+def _mirror(state, out_state, addr, scratch, order):
+    """``ed_ring_query`` computed the kernel's way from its plan: the tile
+    CTAs run in ``order``; each writes its subscribers' columns, parses
+    its rows, stores its max abs id into ``scratch[tile]`` and draws an
+    arrival from ``scratch[-1]``; the CTA that draws n_tiles − 1 folds the
+    partials into the last word and stores 0 back into the counter.
+    Returns the words and how often each was written."""
+    n = out_state.shape[0]
+    plan = dr.ring_query_plan(state.capacity, n, addr)
+    n_tiles = plan["grid"]
+    assert plan["threads"] == dr.RING_TILE_ROWS
+    assert scratch.shape == (plan["scratch_words"],) == (n_tiles + 1,)
+    assert scratch[-1] == 0
     rows = state.rows.numpy()
     st = out_state.numpy().astype(np.int64)
-    n = st.shape[0]
     out = np.zeros(4 * n + 1, np.int64)
-    out[-1] = -1
-    for lo, hi, head_b, interior, tail in plan["tiles"]:
+    writes = np.zeros(4 * n + 1, np.int64)
+    for k in order:
+        lo, hi, head_b, interior, tail = plan["tiles"][k]
         assert head_b + interior + tail == (hi - lo) * dr.ROW_STRIDE
+        assert 0 < hi - lo <= dr.RING_TILE_ROWS
+        for s in range(*plan["emit"][k]):
+            out[s] = (st[s, 3] - st[s, 1]) & 0xFFFF
+            out[n + s] = (st[s, 4] - st[s, 2]) & 0xFFFFFFFF
+            out[2 * n + s] = st[s, 0]
+            out[3 * n + s] = st[s, 5]
+            writes[[s, n + s, 2 * n + s, 3 * n + s]] += 1
         tile = torch.from_numpy(rows[lo:hi])
         length = torch.from_numpy(rows[lo:hi, 96:100].copy().view("<i4")[:, 0])
         kf = parse_packets(tile[:, :96], length)["keyframe_first"].numpy()
@@ -183,31 +199,68 @@ def _mirror(state, out_state, addr):
             a = state.head - m - 1
             if length[t] > 0 and a >= 0 and kf[t]:
                 best = max(best, a)
-        out[-1] = max(out[-1], best)
-    for lo, hi in plan["emit"]:
-        for s in range(lo, hi):
-            out[s] = (st[s, 3] - st[s, 1]) & 0xFFFF
-            out[n + s] = (st[s, 4] - st[s, 2]) & 0xFFFFFFFF
-            out[2 * n + s] = st[s, 0]
-            out[3 * n + s] = st[s, 5]
-    assert plan["grid"] == len(plan["tiles"]) + len(plan["emit"])
-    return out & 0xFFFFFFFF
+        scratch[k] = best
+        arrival = int(scratch[-1])
+        scratch[-1] += 1
+        if arrival == n_tiles - 1:
+            out[-1] = int(scratch[:n_tiles].max())
+            writes[-1] += 1
+            scratch[-1] = 0
+    return out & 0xFFFFFFFF, writes
 
 
-@pytest.mark.parametrize("capacity,n_subs,addr", [
-    (4096, 64, 0), (4096, 256, 0), (4096, 70, 3), (100, 1, 7)])
-def test_kernel_tile_plan_mirror_equals_plain(capacity, n_subs, addr):
-    rng = np.random.default_rng(capacity + n_subs + addr)
+def _fuzzed_ring(rng, capacity):
     port = dr.init_ring(capacity, device="cpu")
     for pre, ln, arr, n in _fuzz_batches(rng, 3 * capacity // 64 + 2, 64):
         dr.append(port, pre, ln, arr, n)
+    return port
+
+
+@pytest.mark.parametrize("capacity,n_subs,addr", [
+    (4096, 64, 0), (4096, 256, 0), (4096, 70, 3), (100, 1, 7),
+    (1000, 64, 0),          # a capacity that is not a multiple of the tile
+    (100, 300, 5),          # more subscribers than the grid has threads
+    (128, 3, 0),            # exactly one tile
+    (129, 2, 9),            # one row past a tile: a one-row last CTA
+    (4096, 0, 0),           # no subscribers: only the newest keyframe
+])
+def test_kernel_tile_plan_mirror_equals_plain(capacity, n_subs, addr):
+    rng = np.random.default_rng(capacity + n_subs + addr)
+    port = _fuzzed_ring(rng, capacity)
     st = torch.from_numpy(_state(rng, n_subs))
     plan = dr.ring_query_plan(capacity, n_subs, addr)
-    assert [t[0] for t in plan["tiles"]] == list(range(0, capacity, 64))
+    assert [t[0] for t in plan["tiles"]] == list(
+        range(0, capacity, dr.RING_TILE_ROWS))
     assert plan["tiles"][-1][1] == capacity
-    assert sum(hi - lo for lo, hi in plan["emit"]) == n_subs
+    assert [lo for lo, _ in plan["emit"]] == [0] + [hi for _, hi
+                                                    in plan["emit"][:-1]]
+    assert plan["emit"][-1][1] == n_subs
     plain = dr.query_params_plain(port, st).numpy().astype(np.int64)
-    np.testing.assert_array_equal(_mirror(port, st, addr), plain)
+    scratch = port.scratch.numpy()
+    order = rng.permutation(plan["grid"])       # CTAs arrive in any order
+    got, writes = _mirror(port, st, addr, scratch, order)
+    np.testing.assert_array_equal(got, plain)
+    assert (writes == 1).all()                  # every word written once
+    assert scratch[-1] == 0                     # the counter reset itself
+
+
+def test_two_queries_in_a_row_find_the_counter_at_zero():
+    """Two queries of one ring with appends between them: each equals the
+    plain query, and each leaves the ring's arrival counter at 0 for the
+    next."""
+    rng = np.random.default_rng(606)
+    port = _fuzzed_ring(rng, 1000)
+    st = torch.from_numpy(_state(rng, 40))
+    assert port.scratch.shape == (dr.ring_tiles(1000) + 1,)
+    for query in range(2):
+        if query:
+            for pre, ln, arr, n in _fuzz_batches(rng, 3, 64):
+                dr.append(port, pre, ln, arr, n)
+        plain = dr.query_params_plain(port, st).numpy().astype(np.int64)
+        order = rng.permutation(dr.ring_tiles(1000))
+        got, writes = _mirror(port, st, 0, port.scratch.numpy(), order)
+        np.testing.assert_array_equal(got, plain)
+        assert (writes == 1).all() and int(port.scratch[-1]) == 0
 
 
 def test_append_rejects_what_the_ring_cannot_hold():

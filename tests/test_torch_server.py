@@ -8,13 +8,22 @@
   pushed (``utils.loopback``);
 * a UDP SETUP names the shared egress ports, and is refused without
   ``client_port`` or from a pusher; the outputs' native hooks;
+* one stream that raises in a wake leaves the other streams served and
+  the scheduler dispatching; a failed ``begin_wake`` serves the wake's
+  streams one by one;
+* a UDP player whose RTSP connection is silent stays while it sends RTCP
+  (from its registered RTCP address, or naming its SSRC in an RR) and a
+  silent one is closed; the port's RR parse against the reference's;
+* a server on the CPU touches nothing of CUDA when it starts;
 * importing the port, its server, its CLI, the transcode modules and
   the REST API leaves ``jax`` and ``easydarwin_tpu`` out of
   ``sys.modules``;
 * the CLI's device defaults to the card, and without one it raises.
 """
 
+import asyncio
 import socket
+import struct
 import subprocess
 import sys
 from pathlib import Path
@@ -23,13 +32,17 @@ import numpy as np
 import pytest
 import torch
 
+from easydarwin_tpu.protocol import rtcp as ref_rtcp
 from easydarwin_tpu_torch import __main__ as cli
-from easydarwin_tpu_torch.protocol import rtsp
+from easydarwin_tpu_torch.ops import kernel_lib
+from easydarwin_tpu_torch.protocol import rtcp, rtsp
 from easydarwin_tpu_torch.relay.output import CollectingOutput
+from easydarwin_tpu_torch.relay.session import now_ms
+from easydarwin_tpu_torch.relay.stream import RelayStream
 from easydarwin_tpu_torch.server import ServerConfig, StreamingServer
 from easydarwin_tpu_torch.server.transports import (InterleavedOutput,
                                                     SharedUdpEgress, UdpOutput)
-from easydarwin_tpu_torch.utils import loopback
+from easydarwin_tpu_torch.utils import loopback, synth
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -158,6 +171,161 @@ class _Transport:
 
     def write(self, data):
         self.written.append(data)
+
+
+class _BrokenOutput(CollectingOutput):
+    """An output whose every send raises (a bug in one output's code)."""
+
+    def send_bytes(self, data, *, is_rtcp):
+        raise OSError("broken output")
+
+
+def _scheduler_down(*_args):
+    raise RuntimeError("scheduler down")
+
+
+@pytest.mark.parametrize("fault", ["stream_step", "begin_wake"])
+def test_one_stream_error_leaves_the_wake_to_the_others(fault, monkeypatch):
+    """Two streams (the megabatch engages).  ``stream_step``: the first
+    stream's first output raises on every send; the second stream's bytes
+    still equal ``RelayStream.reflect``'s and the scheduler dispatches a
+    pass every wake.  ``begin_wake``: the scheduler raises; both streams
+    are served one by one from their own rings."""
+    app = StreamingServer(ServerConfig(rtsp_port=0, service_port=0),
+                          device="cpu")
+    bad, good = (next(iter(app.registry.find_or_create(
+        path, loopback.VIDEO_SDP).streams.values()))
+        for path in ("/live/bad", "/live/good"))
+    twins = {id(s): RelayStream(s.info, s.settings) for s in (bad, good)}
+    rng = np.random.default_rng(61)
+    for stream in (bad, good):
+        for i in range(3):
+            kw = dict(ssrc=int(rng.integers(1 << 32)),
+                      out_seq_start=int(rng.integers(1 << 16)),
+                      out_ts_start=int(rng.integers(1 << 32)))
+            broken = fault == "stream_step" and stream is bad and i == 0
+            stream.add_output((_BrokenOutput if broken
+                               else CollectingOutput)(**kw))
+            twins[id(stream)].add_output(CollectingOutput(**kw))
+    if fault == "begin_wake":
+        monkeypatch.setattr(app.megabatch, "begin_wake", _scheduler_down)
+    pkts = synth.paced_gop(rng, seq0=65530, ts0=0xFFFFF000, ssrc=0x51,
+                           frames=12, packets_per_frame=4)
+    passes = []
+    for wake in range(6):
+        t = now_ms()
+        for pkt in pkts[8 * wake:8 * (wake + 1)]:
+            for s in (bad, good, *twins.values()):
+                s.push_rtp(pkt, t)
+        app.reflect_all()
+        t = now_ms()
+        for twin in twins.values():
+            twin.reflect(t)
+        passes.append(app.megabatch.passes)
+    assert app.pump_errors == 6                 # one a wake, counted
+    served = (good,) if fault == "stream_step" else (bad, good)
+    for stream in served:
+        outs, want = stream.outputs, twins[id(stream)].outputs
+        assert all(o.rtp_packets for o in outs)
+        assert [o.rtp_packets for o in outs] == [o.rtp_packets for o in want]
+    if fault == "stream_step":
+        # a pass dispatched every wake (the first wake primes one too)
+        assert all(b > a for a, b in zip([0] + passes, passes))
+        assert app.megabatch.stats()["mismatches"] == 0
+    else:
+        assert passes == [0] * 6
+        assert app.stats()["device_param_refreshes"] >= 2
+
+
+def _rr(sender: int, *reported: int) -> bytes:
+    """A receiver report naming ``reported`` in its report blocks."""
+    return (struct.pack("!BBHI", 0x80 | len(reported), rtcp.RR,
+                        1 + 6 * len(reported), sender)
+            + b"".join(struct.pack("!IIIIII", s, 0, 7, 0, 0, 0)
+                       for s in reported))
+
+
+def test_rr_report_ssrcs_matches_the_reference_parse():
+    sr = ref_rtcp.SenderReport(5, 1 << 40, 9, 3, 4, [
+        ref_rtcp.ReportBlock(77, 0, 0, 1, 0, 0, 0)]).to_bytes()
+    rr = ref_rtcp.ReceiverReport(6, [ref_rtcp.ReportBlock(
+        s, 3, -1, 9, 2, 0, 0) for s in (11, 12)]).to_bytes()
+    bye = ref_rtcp.Bye([6]).to_bytes()
+    for data in (rr, sr + rr, rr + bye, sr, _rr(1), _rr(2, 99, 1 << 31)):
+        want = {b.ssrc for p in ref_rtcp.parse_compound(data)
+                if isinstance(p, ref_rtcp.ReceiverReport) for b in p.reports}
+        assert rtcp.rr_report_ssrcs(data) == want
+    for bad in (b"", b"\x80", rr[:-4], b"\x40" + rr[1:], b"junk" * 4):
+        assert rtcp.rr_report_ssrcs(bad) is None
+
+
+@pytest.mark.parametrize("proof", ["source_address", "report_block_ssrc"])
+async def test_udp_player_kept_alive_by_rtcp_alone(proof):
+    """Two UDP players whose RTSP connections go silent after PLAY, with a
+    2 s idle limit: the one that sends RRs to the shared pair's RTCP port
+    (from the RTCP port it registered, or from another naming its SSRC)
+    stays; the silent one is closed."""
+    app = StreamingServer(ServerConfig(
+        rtsp_port=0, service_port=0, bind_ip="127.0.0.1", rtsp_timeout_sec=2,
+        push_timeout_sec=60), device="cpu")
+    await app.start()
+    pusher, live, silent = (loopback.MiniClient() for _ in range(3))
+    other = None
+    try:
+        uri = f"rtsp://127.0.0.1:{app.rtsp.port}/live/cam0"
+        await pusher.connect(app.rtsp.port)
+        await pusher.request("ANNOUNCE", uri,
+                             {"content-type": "application/sdp"},
+                             loopback.VIDEO_SDP.encode())
+        ssrc = {}
+        for player in (live, silent):
+            await player.connect(app.rtsp.port)
+            ports = await player.udp_ports()
+            await player.request("DESCRIBE", uri)
+            resp = await player.request("SETUP", uri + "/trackID=1", {
+                "transport": f"RTP/AVP;unicast;client_port={ports}"})
+            ssrc[player] = rtsp.TransportSpec.parse(
+                resp.headers["transport"]).ssrc
+            await player.request("PLAY", uri)
+        server_rtcp = ("127.0.0.1", app.rtsp.shared_egress.rtcp_port)
+        if proof == "source_address":
+            send, report = live._udp[1].sendto, _rr(0x1234)
+        else:
+            loop = asyncio.get_running_loop()
+            other, _ = await loop.create_datagram_endpoint(
+                asyncio.DatagramProtocol, local_addr=("127.0.0.1", 0))
+            send, report = other.sendto, _rr(0x1234, ssrc[live])
+        for _ in range(23):                     # 4.6 s: past two sweeps
+            send(report, server_rtcp)
+            send(b"not rtcp", server_rtcp)
+            await asyncio.sleep(0.2)
+        assert silent._task.done(), "the silent player was not closed"
+        assert not live._task.done(), "the player sending RRs was closed"
+        assert app.rtsp.rtcp_in >= 20
+        assert app.rtsp.shared_egress.rtcp_proto.received >= 40
+    finally:
+        if other is not None:
+            other.close()
+        for c in (pusher, live, silent):
+            if c._task is not None:
+                await c.close()
+        await app.stop()
+
+
+async def test_a_cpu_server_touches_nothing_of_cuda(monkeypatch):
+    """``start`` warms the card only when the device is CUDA."""
+    def no_cuda(*_a, **_k):
+        raise AssertionError("a CPU server touched CUDA")
+    monkeypatch.setattr(kernel_lib, "library", no_cuda)
+    monkeypatch.setattr(torch.cuda, "synchronize", no_cuda)
+    monkeypatch.setattr(torch.cuda, "current_stream", no_cuda)
+    app = StreamingServer(ServerConfig(rtsp_port=0, service_port=0,
+                                       bind_ip="127.0.0.1"), device="cpu")
+    was_initialized = torch.cuda.is_initialized()
+    await app.start()
+    await app.stop()
+    assert torch.cuda.is_initialized() == was_initialized
+    assert app.stats()["wake_ms_first"] is None
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
