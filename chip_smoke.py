@@ -66,6 +66,21 @@ phase; any failed phase raises and the script exits non-zero.
              ``native_sent`` > 0 and the egress core loaded; the first
              join's wake printed apart from the p50 and the max (the
              server warms the card in ``start``)
+7c. rtcp     BASELINE config 2 with RTCP through the CLI server: one pusher
+             of paced 1080p30 H.264 (FU-A, 13 packets of about 1.3 KB a
+             frame, an IDR every 30 frames, 7 s) and an AAC track (one
+             packet of 200-400 bytes each 21.3 ms), an SR + SDES per track
+             each second; 64 UDP players of both tracks joining one a
+             frame, each sending an RR a second: 48 plain, 8 with
+             x-RTP-Meta-Info tt;sq;md, 8 that report 35% loss once (one
+             thinning level).  Every SR on its output's SSRC, timeline
+             and the host clock; plain datagrams equal to the oracle;
+             meta-info md and sq equal to the oracle's packet; thinned
+             video a frame-whole level-1 subset of the oracle, audio
+             whole; the pusher's upstream RRs; the server's
+             ed_parse_packets > 0 (B9, the batch-header rung, on the
+             card), native_sent covering the plain players, batch_sent
+             covering the meta-info packets
 8. pipeline  the config-5 TranscodePipeline (qualities 80/50/25 from 90,
              decode_pixels) for 8 steps of 783,360 blocks on the card:
              8 K2 launches, one step held against the same pipeline on the
@@ -88,7 +103,11 @@ phase; any failed phase raises and the script exits non-zero.
              line carries the main path's shapes.  The ring query at
              C = 4,096 with S = 64 and 256, the engine's whole join query on the host (state upload, launch,
              readback, oracle: ``FanoutEngine._device_params``), and the
-             ring queried again after the graph replays, bit-exact
+             ring queried again after the graph replays, bit-exact;
+             ``relay_batch_step`` (B9: K1 + torch ops) on the card against
+             the same call on CPU tensors, bit-exact on every key, at
+             phase 7c's shape and at config 4's (P = 256, S = 256), timed
+             beside its bound and its CPU time
 
 The kernel launch counts are set to 0 just before phase 6 and read just
 after phase 9 (the server processes report their own at exit, without
@@ -957,6 +976,51 @@ def phase_config2(rng) -> dict:
     return res
 
 
+# ------------------------------------------------------------- phase 7c
+#: phase 7c's players, in join order: six plain, one meta-info, one lossy
+RTCP_PLAYERS = [dict(transport="udp", meta=i % 8 == 6, lossy=i % 8 == 7)
+                for i in range(CONFIG2_SUBS)]
+
+
+def phase_rtcp(rng) -> dict:
+    """BASELINE config 2 with RTCP: one 1080p30 H.264 + AAC source, 64 UDP
+    players (48 plain, 8 meta-info, 8 lossy) sending RRs, for 7 s."""
+    from easydarwin_tpu_torch.utils import loopback
+    res = asyncio.run(asyncio.wait_for(loopback.serve_and_check(
+        DEVICE, rng, harness=loopback.push_play_av, players=RTCP_PLAYERS,
+        gops=7, frames=30, packets_per_frame=13, body_len=(1270, 1300),
+        deadline_s=30), 300))
+    st = res["server_stats"]
+    launches = st["kernel_launches"]
+    check(st["native_loaded"], "the server's egress core did not load")
+    check(launches["ed_parse_packets"] > 0,
+          "the batch-header rung launched no ed_parse_packets")
+    check(st["native_sent"] >= res["plain_udp_packets"],
+          f"native_sent {st['native_sent']} does not cover the plain "
+          f"players' {res['plain_udp_packets']} datagrams")
+    check(st["batch_sent"] >= res["delivered"]["meta"] > 0,
+          f"batch_sent {st['batch_sent']} does not cover the meta-info "
+          f"players' {res['delivered']['meta']} packets")
+    check(st["native_sent"] + st["batch_sent"] == st["packets_out"],
+          f"a packet left on another rung: {st}")
+    check(st["send_errors"] == 0 and st["missing_params"] == 0,
+          f"rtcp send errors / missing params: {st}")
+    check(st["rtcp"]["rr"] > 0, f"no RR reached an output: {st['rtcp']}")
+    thin = res["thinned"]
+    log(f"[rtcp] 1 source (H.264 + AAC) x {res['players']} UDP players: "
+        f"{res['video_packets']} video + {res['audio_packets']} audio "
+        f"packets pushed; delivered {res['delivered']}, every packet held "
+        f"to the oracle; SRs {res['srs']}; thinned video (got, span) "
+        f"{thin}; upstream RRs {res['upstream_rrs']}; native_sent "
+        f"{st['native_sent']}, batch_sent {st['batch_sent']} in "
+        f"{st['batch_passes']} passes ({st['batch_rows']} rows), RTCP in "
+        f"{st['rtcp']}; launches {launches} (ed_ring_query and "
+        f"ed_relay_window both printed, not held)")
+    log(f"[rtcp] wake host ms p50 {st['wake_ms_p50']:.3f} max "
+        f"{st['wake_ms_max']:.3f}, first join's {st['wake_ms_first']:.3f}")
+    return res
+
+
 # -------------------------------------------------------------- phase 8
 def phase_pipeline(levels) -> dict:
     """The config-5 TranscodePipeline for 8 steps of 783,360 blocks on the
@@ -1220,6 +1284,73 @@ def phase_kernels(rng, launches: dict, errs: dict, levels, qt
     return out
 
 
+#: per (output, packet) header of B9: the seq and ts adds and masks, 10
+#: byte extractions, the eligibility compare and the mask
+OPS_PER_BATCH_HEADER = 16
+
+
+def phase_batch_step(rng, shapes, launches: int) -> list[dict]:
+    """``relay_batch_step`` (B9) on CUDA tensors against the same call on
+    CPU tensors, every key bit-exact, at each ``(label, P, S)``: fuzzed
+    rows with runts and zero-length padding rows, random rewrite state,
+    16 outputs a delay bucket.  Times: one call in a CUDA graph (K1 and
+    the torch ops, no host), a direct call on the card (host enqueue
+    included), and the CPU call on the host clock."""
+    import numpy as np
+    import torch
+    from easydarwin_tpu_torch.ops import fanout
+    from easydarwin_tpu_torch.utils import synth
+    out = []
+    for label, p, s in shapes:
+        n = p - p // 8                          # the rest is zero padding
+        pre, ln = synth.stage([synth.random_packet(rng) for _ in range(n)])
+        prefix = np.zeros((p, 96), np.uint8)
+        length = np.zeros(p, np.int32)
+        prefix[:n], length[:n] = pre, ln
+        age = rng.integers(0, 400, p).astype(np.int32)
+        state = rng.integers(0, 1 << 32, (s, 6), dtype=np.uint64
+                             ).astype(np.uint32)
+        buckets = (np.arange(s) // 16).astype(np.int32)
+        cpu = [torch.from_numpy(a) for a in (prefix, length, age, state,
+                                              buckets)]
+        dev = [t.cuda() for t in cpu]
+        want = fanout.relay_batch_step(*cpu, 73)
+        got = fanout.relay_batch_step(*dev, 73)
+        for k, v in want.items():
+            check(got[k].dtype == v.dtype and torch.equal(got[k].cpu(), v),
+                  f"relay_batch_step {label}: {k} differs on the card")
+        samples = []
+        for _ in range(21):
+            t0 = time.perf_counter()
+            fanout.relay_batch_step(*cpu, 73)
+            samples.append((time.perf_counter() - t0) * 1e3)
+        samples.sort()
+        nbytes = (prefix.nbytes + length.nbytes + age.nbytes + state.nbytes
+                  + buckets.nbytes + 12 * s * p + s * p + 2 * p + 4)
+        ops = OPS_PER_PACKET * p + OPS_PER_BATCH_HEADER * s * p
+        t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+        t_ops = ops / PEAK_OPS_PER_S * 1e3
+        row = {"name": "relay_batch_step", "route": "K1 + torch ops",
+               "shape": f"{label}: P={p} S={s}", "max_abs_err": 0,
+               "launches": launches,
+               "ms": graph_ms(lambda: fanout.relay_batch_step(*dev, 73),
+                              inner=20),
+               "call_ms": call_ms(lambda: fanout.relay_batch_step(*dev, 73),
+                                  reps=11, inner=10),
+               "plain_cpu_ms": samples[len(samples) // 2],
+               "bound_ms": max(t_bytes, t_ops),
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+               "library_ms": None, "bytes": nbytes, "ops": ops}
+        log(f"[b9] relay_batch_step at {row['shape']}: bit-exact against "
+            f"the CPU call on every key; {row['ms']:.6f} ms in a graph, "
+            f"{row['call_ms']:.6f} ms a direct call, bound "
+            f"{row['bound_ms']:.6f} ms by {row['bound_by']}, CPU "
+            f"{row['plain_cpu_ms']:.6f} ms; {launches} main-path passes "
+            f"(one K1 launch each)")
+        out.append(row)
+    return out
+
+
 def join_query_ms(rng, n_subs: int = CONFIG2_SUBS) -> dict:
     """The engine's whole join query on the host clock: output state
     packed and uploaded, ONE ed_ring_query, the packed row read back and
@@ -1320,11 +1451,12 @@ def main() -> int:
     detail["native"] = phase_config4_native(rng, detail["scheduler"])
     detail["server"] = phase_server(rng)
     detail["config2"] = phase_config2(rng)
+    detail["rtcp"] = phase_rtcp(rng)
     detail["pipeline"] = phase_pipeline(levels)
     detail["ladder"] = phase_ladder(rng)
     in_proc = dict(kernel_lib.LAUNCHES)
     servers = [detail[p]["server_stats"]["kernel_launches"]
-               for p in ("server", "config2", "ladder")]
+               for p in ("server", "config2", "rtcp", "ladder")]
     launches = {k: in_proc[k] + sum(s.get(k, 0) for s in servers)
                 for k in in_proc}
     log(f"[main path] kernel launches {launches} (in-process {in_proc}, "
@@ -1354,6 +1486,12 @@ def main() -> int:
         f"(min {join['host_ms_min']:.6f}, max {join['host_ms_max']:.6f}); "
         f"the kernel's {ring_ms:.6f} ms is "
         f"{ring_ms / join['host_ms_p50']:.2%} of it")
+    rtcp_st = detail["rtcp"]["server_stats"]
+    b9_p = -(-rtcp_st["batch_rows"] // max(rtcp_st["batch_passes"], 1))
+    b9_s = sum(1 for pl in RTCP_PLAYERS if pl["meta"] or pl["lossy"])
+    detail["batch_step"] = phase_batch_step(
+        rng, (("phase 7c", b9_p, b9_s), ("config 4", 256, 256)),
+        rtcp_st["batch_passes"])
     kernels = [{k: v for k, v in t.items() if not k.startswith("_")}
                for t in timed if t["_main_path"]]
     for k in timed:

@@ -15,6 +15,10 @@ and the affine emit) for every ``(window, state)`` bucket, by the plan of
 ``relay_affine_step_window_plain``, the same function in plain PyTorch,
 once per bucket.  ``relay_affine_step_window`` is its group of one.
 
+``relay_batch_step`` (B9) is one source's full step for the engine's
+batch-header rung: the parse (kernel K1 on a CUDA tensor), the ``[S, P,
+12]`` headers and the ``[S, P]`` eligibility mask as torch ops.
+
 All arithmetic on 32-bit quantities runs in int64 masked to 16/32 bits;
 values become uint32 only at the output boundary (``u32_from_i64``).
 """
@@ -31,6 +35,7 @@ import torch
 from . import kernel_lib
 from .gop import newest_keyframe
 from .parse import PARSE_PREFIX, i64_from_u32, parse_packets, u32_from_i64
+from .parse_kernel import parse_packets_kernel
 
 #: columns of the per-output state matrix: ssrc, base_src_seq,
 #: base_src_ts, out_seq_start, out_ts_start, chan (the RTSP-interleave
@@ -94,6 +99,33 @@ def eligibility(age_ms: torch.Tensor, bucket_of_output: torch.Tensor,
     waits b × bucket_delay_ms).  ``age_ms`` is ``now − arrival``."""
     min_age = bucket_of_output.to(torch.int64) * int(bucket_delay_ms)
     return age_ms[None, :].to(torch.int64) >= min_age[:, None]
+
+
+def relay_batch_step(prefix: torch.Tensor, length: torch.Tensor,
+                     age_ms: torch.Tensor, out_state: torch.Tensor,
+                     bucket_of_output: torch.Tensor,
+                     bucket_delay_ms: int) -> dict[str, torch.Tensor]:
+    """One source's device step for the batch-header rung: ``prefix``
+    ``[P, W>=96]`` uint8, ``length`` ``[P]`` int32, ``age_ms`` ``[P]``
+    (now − arrival), ``out_state`` ``[S, STATE_COLS]`` uint32,
+    ``bucket_of_output`` ``[S]`` → ``headers`` ``[S, P, 12]`` uint8,
+    ``mask`` ``[S, P]`` (bucket-eligible and ``length >= 12``),
+    ``keyframe_first`` and ``frame_last`` ``[P]``, ``newest_keyframe``
+    (−1 = none).  The parse is K1 (``parse_packets_kernel``): its kernel
+    on a CUDA tensor, the plain parse on a CPU one.  Rows of length 0
+    (padding) are never keyframes and never sendable."""
+    fields = parse_packets_kernel(prefix, length)
+    headers = fanout_headers(prefix[:, :2], fields["seq"],
+                             fields["timestamp"], out_state)
+    mask = eligibility(age_ms, bucket_of_output, bucket_delay_ms)
+    return {
+        "headers": headers,
+        "mask": mask & (length >= 12)[None, :],
+        "keyframe_first": fields["keyframe_first"],
+        "newest_keyframe": newest_keyframe(fields["keyframe_first"],
+                                           length > 0),
+        "frame_last": fields["frame_last"],
+    }
 
 
 def relay_affine_step(prefix: torch.Tensor, length: torch.Tensor,

@@ -1,8 +1,9 @@
 """The fan-out engine: one stream's wire writes from device-computed params.
 
 ``RelayStream.reflect`` is the scalar oracle.  ``FanoutEngine`` serves the
-same outputs from the affine rewrite params (``seq_off``, ``ts_off``,
-``ssrc``, ``chan`` per output) that the device computed, on three rungs:
+same outputs on four rungs.  Three of them write from the affine rewrite
+params (``seq_off``, ``ts_off``, ``ssrc``, ``chan`` per output) that the
+device computed:
 
 * **UDP fast** — outputs with a ``native_addr`` (the server's shared
   egress socket): ONE ``sendmmsg``/UDP-GSO scatter of every eligible
@@ -15,19 +16,29 @@ same outputs from the affine rewrite params (``seq_off``, ``ts_off``,
   interleaved output whose transport holds a backlog): headers rendered
   by numpy (``render_headers``) and written through ``send_rewritten``.
 
-The canonical order of a stream's primed outputs is UDP fast, TCP fast,
-then the rest; ``params_key``, the scheduler's state rows and the dest
-table all follow it, so one set of params covers all three rungs.
+The fourth, the **batch-header rung**, serves the outputs the other three
+must not: a meta-info output (its packets are wrapped) and a thinned one
+(``thinning.passthrough()`` false: its filter drops frames).  It renders
+their headers with ``ops.fanout.relay_batch_step`` (B9; K1's parse on the
+card) and walks each output through ``admit`` and ``send_rewritten`` in
+the oracle's order.  Every pass ends in ``RelayStream.relay_rtcp``.
+
+The canonical order of a stream's primed param-rung outputs is UDP fast,
+TCP fast, then the loop; ``params_key``, the scheduler's state rows and
+the dest table all follow it, so one set of params covers all three, and
+a batch-rung output is never staged by the megabatch.
 
 Where the params come from: the megabatch scheduler installs them
 (``megabatch_params``) for the streams it owns.  Otherwise — a stream the
-scheduler does not own, or an owned stream whose key went stale mid-wake —
-the engine queries its own device-resident ring (``ops.device_ring``; one
-``ed_ring_query`` launch on the card), which it keeps current by appending
-each wake's new packets.  Params are only recomputed when the key
-(membership and rebase state) changes, and every computed set is checked
-against the host arithmetic oracle ``host_affine_params`` before it is
-used: a disagreement sends nothing that wake and leaves the bookmarks.
+scheduler does not own, or an owned stream whose key went stale mid-wake
+(a join, a rebase latch, an output moving between rungs) — the engine
+queries its own device-resident ring (``ops.device_ring``; one
+``ed_ring_query`` launch on the card), which it keeps current by
+appending each wake's new packets.  Params are only recomputed when the
+key (membership and rebase state) changes, and every computed set is
+checked against the host arithmetic oracle ``host_affine_params`` before
+it is used: a disagreement sends nothing on those rungs that wake and
+leaves their bookmarks.
 
 For the same ring and output state the bytes equal those of
 ``RelayStream.reflect`` (tested), apart from the TCP rung's shed of a
@@ -41,12 +52,17 @@ import errno
 import numpy as np
 import torch
 
-from .. import native
+from .. import native, resolve_device
 from ..ops import device_ring, staging
-from ..ops.fanout import pack_output_state, unpack_affine
+from ..ops.fanout import pack_output_state, relay_batch_step, unpack_affine
+from ..ops.parse import PARSE_PREFIX
 from ..protocol import rtp
 from .output import WriteResult
+from .ring import PacketFlags
 from .stream import RelayStream
+
+#: the flags of a packet that starts a video frame (``admit`` counts it)
+_VIDEO_FRAME_FIRST = PacketFlags.VIDEO | PacketFlags.FRAME_FIRST
 
 _EAGAIN = (0, errno.EAGAIN, errno.EWOULDBLOCK)
 
@@ -141,6 +157,11 @@ class FanoutEngine:
         self.device_param_refreshes = 0
         #: datagrams or packets a hard send error skipped
         self.send_errors = 0
+        #: packets the batch-header rung sent, passes that ran it and the
+        #: window rows those passes rendered
+        self.batch_sent = 0
+        self.batch_passes = 0
+        self.batch_rows = 0
         self.last_newest_keyframe = -1
         #: True while the megabatch scheduler owns this stream's device
         #: work (it stages the windows; the engine skips its ring append)
@@ -175,30 +196,39 @@ class FanoutEngine:
         return self.egress_fd >= 0 and native.available()
 
     @staticmethod
-    def _fast_eligible(out, native_ok: bool) -> bool:
-        """UDP fast rung: a primed output on the shared egress socket.
-        (The reference also requires no meta-info wrap and a pass-through
-        thinning filter; the port has neither yet, ROADMAP A3.)"""
-        return (native_ok and out.bookmark is not None
-                and out.native_addr is not None)
+    def _batched(out) -> bool:
+        """An output only the batch-header rung may serve: its packets are
+        wrapped in meta-info, or its thinning filter may drop them."""
+        return (out.meta_field_ids is not None
+                or not out.thinning.passthrough())
 
-    @staticmethod
-    def _tcp_eligible(out) -> bool:
-        """TCP fast rung: a primed interleaved output whose socket takes
-        raw writes now (nothing buffered that they could overtake).  (No
-        meta-info or thinning to exclude yet, ROADMAP A3.)"""
-        return (out.bookmark is not None
+    @classmethod
+    def _fast_eligible(cls, out, native_ok: bool) -> bool:
+        """UDP fast rung: a primed plain, unthinned output on the shared
+        egress socket."""
+        return (native_ok and out.bookmark is not None
+                and out.native_addr is not None and not cls._batched(out))
+
+    @classmethod
+    def _tcp_eligible(cls, out) -> bool:
+        """TCP fast rung: a primed plain, unthinned interleaved output
+        whose socket takes raw writes now (nothing buffered that they
+        could overtake)."""
+        return (out.bookmark is not None and not cls._batched(out)
                 and getattr(out, "interleave_chan", None) is not None
                 and out.stream_fd >= 0 and out.engine_writable()
                 and native.available())
 
-    def split_flat(self, flat) -> tuple[list, list, list]:
+    def split_flat(self, flat) -> tuple[list, list, list, list]:
         """The primed ``(output, bucket)`` pairs as (UDP fast, TCP fast,
-        the rest)."""
-        udp, tcp, rest = [], [], []
+        the loop, the batch-header rung)."""
+        udp, tcp, rest, batch = [], [], [], []
         native_ok = None
         for out, b_idx in flat:
             if out.bookmark is None:
+                continue
+            if self._batched(out):
+                batch.append((out, b_idx))
                 continue
             if out.native_addr is not None:
                 if native_ok is None:
@@ -210,13 +240,14 @@ class FanoutEngine:
                 tcp.append((out, b_idx))
             else:
                 rest.append((out, b_idx))
-        return udp, tcp, rest
+        return udp, tcp, rest, batch
 
     def fast_from_flat(self, flat) -> list:
-        """Every primed output in the canonical order (UDP fast, TCP fast,
-        the rest): the order ``params_key``, the device state rows and the
-        dest table are built in."""
-        return [o for group in self.split_flat(flat) for o, _ in group]
+        """Every primed output of the param rungs in the canonical order
+        (UDP fast, TCP fast, the loop): the order ``params_key``, the
+        device state rows and the dest table are built in.  Batch-rung
+        outputs are not in it."""
+        return [o for group in self.split_flat(flat)[:3] for o, _ in group]
 
     def fast_outputs(self, stream: RelayStream) -> list:
         return self.fast_from_flat(self._flat_outputs(stream))
@@ -321,15 +352,34 @@ class FanoutEngine:
 
     # --------------------------------------------------------------- step
     def step(self, stream: RelayStream, now_ms: int) -> int:
-        """One fan-out pass over ``stream``; returns packets written."""
+        """One fan-out pass over ``stream``, then its RTCP; returns RTP
+        packets written."""
+        sent = self._send_rtp(stream, now_ms)
+        stream.relay_rtcp(now_ms)
+        return sent
+
+    def _send_rtp(self, stream: RelayStream, now_ms: int) -> int:
         ring = stream.rtp_ring
         flat = self._flat_outputs(stream)
         if not flat or len(ring) == 0:
             return 0
         self._prime(stream, flat, now_ms)
-        udp, tcp, rest = self.split_flat(flat)
-        if not (udp or tcp or rest):
+        udp, tcp, rest, batch = self.split_flat(flat)
+        if not (udp or tcp or rest or batch):
             return 0
+        sent = 0
+        if udp or tcp or rest:
+            sent += self._param_rungs(stream, udp, tcp, rest, now_ms)
+        if batch:
+            sent += self._batch_header_step(stream, batch, now_ms)
+        stream.stats.packets_out += sent
+        self.steps += 1
+        self.packets_sent += sent
+        return sent
+
+    def _param_rungs(self, stream, udp, tcp, rest, now_ms: int) -> int:
+        """The UDP fast, TCP fast and loop rungs from one params set."""
+        ring = stream.rtp_ring
         if not self.megabatch_owned:
             self._ring_sync(ring, now_ms)
         order = [o for group in (udp, tcp, rest) for o, _ in group]
@@ -338,10 +388,10 @@ class FanoutEngine:
             self.missing_params += 1
             return 0
         start = min(o.bookmark for o in order)
-        ids, lengths, _flags = ring.window_meta(start, ring.head - start)
+        ids, lengths, flags = ring.window_meta(start, ring.head - start)
         if len(ids) == 0:
             return 0
-        win = _Window(ring, ids, lengths, now_ms,
+        win = _Window(ring, ids, lengths, flags, now_ms,
                       stream.settings.bucket_delay_ms)
         sent = 0
         if udp:
@@ -353,9 +403,6 @@ class FanoutEngine:
         if rest:
             sent += self._loop(stream, rest, len(udp) + len(tcp), win,
                                params)
-        stream.stats.packets_out += sent
-        self.steps += 1
-        self.packets_sent += sent
         return sent
 
     # ---------------------------------------------------------- UDP rung
@@ -400,10 +447,16 @@ class FanoutEngine:
                                          ops_np)
         k = np.clip(r - starts, 0, n)
         nbytes = win.valid_len_cum[first + k] - win.valid_len_cum[first]
+        # video frame starts among each output's first k + 1 and all n
+        # sendable rows (``admit`` would have counted them)
+        ff_k1 = (win.ff_cum[first + np.minimum(k + 1, n)]
+                 - win.ff_cum[first])
+        ff_n = win.ff_cum[first + n] - win.ff_cum[first]
         hard_used = False
-        for (out, _b), h, ok, ns, ks, nb, f in zip(
+        for (out, _b), h, ok, ns, ks, nb, f, fk, fn in zip(
                 udp, has.tolist(), hi.tolist(), n.tolist(), k.tolist(),
-                nbytes.tolist(), first.tolist()):
+                nbytes.tolist(), first.tolist(), ff_k1.tolist(),
+                ff_n.tolist()):
             if not h:
                 continue
             if ks == ns:                    # all sent, or a runt-only span
@@ -418,6 +471,8 @@ class FanoutEngine:
                 out.bookmark = int(win.ids[win.valid_rows[f + ks]])
                 out.stalls += 1             # the first unsent packet
                 stream.stats.stalls += 1
+                fn = fk      # the oracle admits the blocked packet again
+            out.thinning.note_frames(fn)
             if ks:
                 out.packets_sent += ks
                 out.bytes_sent += nb
@@ -495,6 +550,7 @@ class FanoutEngine:
             pids = win.ids[lo:hi][sel]
             slots = np.ascontiguousarray(win.idx[lo:hi][sel])
             lens = win.lengths[lo:hi][sel]
+            ffs = win.frame_first[lo:hi][sel]
             if len(pids) == 0:
                 out.bookmark = win.start + hi   # a runt-only span
                 continue
@@ -506,9 +562,11 @@ class FanoutEngine:
                 if native.last_send_errno() in _EAGAIN:
                     out.stalls += 1           # replay from the bookmark
                     stream.stats.stalls += 1
+                    out.thinning.note_frames(int(ffs[0]))
                 else:                         # a dead connection: skip
                     out.bookmark = win.start + hi
                     self.send_errors += len(pids)
+                    out.thinning.note_frames(int(ffs.sum()))
                 continue
             k = r
             nbytes = int(lens[:k].sum())
@@ -527,13 +585,16 @@ class FanoutEngine:
                     out.bookmark = win.start + hi
                     self.send_errors += len(pids) - k
             if dead:
-                pass
+                out.thinning.note_frames(int(ffs.sum()))
             elif k == len(pids):
                 out.bookmark = win.start + hi
+                out.thinning.note_frames(int(ffs.sum()))
             else:
                 out.bookmark = int(pids[k])  # the first unsent packet
                 out.stalls += 1
                 stream.stats.stalls += 1
+                # the oracle admits the blocked packet again on replay
+                out.thinning.note_frames(int(ffs[:k + 1].sum()))
             if k:
                 out.packets_sent += k
                 out.bytes_sent += nbytes
@@ -578,6 +639,9 @@ class FanoutEngine:
                 if n < 12:
                     pid += 1
                     continue
+                # a pass-through filter admits every packet; it still
+                # counts the frames, as the oracle's does
+                out.thinning.admit(int(ring.flags[win.idx[j]]))
                 wr = out.send_rewritten(headers[s, j].tobytes(),
                                         ring.data[win.idx[j], 12:n].tobytes())
                 if wr is WriteResult.WOULD_BLOCK:
@@ -593,6 +657,63 @@ class FanoutEngine:
             out.bookmark = pid
         return sent
 
+    # ------------------------------------------------- batch-header rung
+    def _batch_header_step(self, stream, batch, now_ms: int) -> int:
+        """Meta-info and thinned outputs: ``relay_batch_step`` renders
+        every (output, packet) header on the engine's device, then each
+        output walks its span in the oracle's order (eligibility, runts,
+        ``admit``) and sends through ``send_rewritten``."""
+        ring = stream.rtp_ring
+        start = min(o.bookmark for o, _ in batch)
+        ids, lengths, flags = ring.window_meta(start, ring.head - start)
+        if len(ids) == 0:
+            return 0
+        start = int(ids[0])                 # window_meta clamps to tail
+        idx = ids % ring.capacity
+        arrivals = ring.arrival[idx]
+        dev = resolve_device(self.device)
+        state = pack_output_state([o for o, _ in batch])
+        buckets = np.fromiter((b for _, b in batch), np.int32, len(batch))
+        res = relay_batch_step(
+            torch.from_numpy(ring.data[idx, :PARSE_PREFIX]).to(dev),
+            torch.from_numpy(lengths.astype(np.int32)).to(dev),
+            torch.from_numpy((now_ms - arrivals).astype(np.int32)).to(dev),
+            torch.from_numpy(state).to(dev), torch.from_numpy(buckets).to(dev),
+            stream.settings.bucket_delay_ms)
+        headers = res["headers"].cpu().numpy()
+        self.batch_passes += 1
+        self.batch_rows += len(ids)
+        delay = stream.settings.bucket_delay_ms
+        sent = 0
+        for s, (out, b_idx) in enumerate(batch):
+            deadline = now_ms - b_idx * delay
+            pid = out.bookmark
+            while pid < ring.head:
+                j = pid - start
+                # the oracle's order: eligibility first (break holds the
+                # bookmark), runt-skip second, the thinning filter third
+                if arrivals[j] > deadline:
+                    break
+                n = int(lengths[j])
+                if n < 12 or not out.thinning.admit(int(flags[j])):
+                    pid += 1
+                    continue
+                wr = out.send_rewritten(headers[s, j].tobytes(),
+                                        ring.data[idx[j], 12:n].tobytes())
+                if wr is WriteResult.WOULD_BLOCK:
+                    out.stalls += 1
+                    stream.stats.stalls += 1
+                    break
+                pid += 1
+                if wr is WriteResult.OK:
+                    out.packets_sent += 1
+                    out.bytes_sent += n
+                    out.payload_octets += n - 12
+                    sent += 1
+            out.bookmark = pid
+        self.batch_sent += sent
+        return sent
+
 
 class _Window:
     """One pass's view of the ring from the lowest bookmark to the head:
@@ -601,9 +722,9 @@ class _Window:
 
     __slots__ = ("ids", "idx", "lengths", "arrivals", "valid", "start",
                  "now_ms", "delay", "valid_rows", "valid_cum",
-                 "valid_len_cum", "_late")
+                 "valid_len_cum", "frame_first", "ff_cum", "_late")
 
-    def __init__(self, ring, ids, lengths, now_ms: int, delay: int):
+    def __init__(self, ring, ids, lengths, flags, now_ms: int, delay: int):
         self.ids = ids
         self.start = int(ids[0])            # window_meta clamps to tail
         self.idx = (ids % ring.capacity).astype(np.int32)
@@ -618,6 +739,11 @@ class _Window:
         self.valid_cum = np.concatenate(([0], np.cumsum(self.valid)))
         self.valid_len_cum = np.concatenate(
             ([0], np.cumsum(lengths[self.valid_rows], dtype=np.int64)))
+        #: the rows that start a video frame, and how many of them the
+        #: sendable rows before each sendable row hold
+        self.frame_first = (flags & _VIDEO_FRAME_FIRST) == _VIDEO_FRAME_FIRST
+        self.ff_cum = np.concatenate(
+            ([0], np.cumsum(self.frame_first[self.valid_rows])))
         self._late: dict[int, np.ndarray] = {}
 
     def _late_rows(self, b_idx: int) -> np.ndarray:

@@ -37,8 +37,6 @@ class RelaySession:
         #: identity-based ownership, so a teardown never removes a session
         #: something else has since taken over
         self.owner: object | None = None
-        #: RTCP compounds the pusher sent; relaying them is later work
-        self.rtcp_in = 0
 
     # -- ingest ------------------------------------------------------------
     def push(self, track_id: int, packet: bytes, *, is_rtcp: bool = False,
@@ -49,7 +47,7 @@ class RelaySession:
         t = now_ms() if t_ms is None else t_ms
         self.last_ingest_ms = t
         if is_rtcp:
-            self.rtcp_in += 1
+            st.push_rtcp(packet, t)
             return
         st.push_rtp(packet, t)
         self._kf_resync(st)

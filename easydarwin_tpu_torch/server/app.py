@@ -10,7 +10,10 @@ that has outputs.  With at least ``MEGABATCH_MIN_STREAMS`` of them:
 2. ``FanoutEngine.step`` per stream — write every eligible packet from the
    installed params: UDP players in one native ``sendmmsg``/GSO scatter
    through the shared egress socket, interleaved players in one framed
-   ``writev`` each, the rest through the Python loop;
+   ``writev`` each, meta-info and thinned players through the
+   batch-header rung (``relay_batch_step``, K1's parse on the card), the
+   rest through the Python loop; then the stream's RTCP (the pusher's
+   SRs rebased per player, and SRs of the relay's own);
 3. ``MegabatchScheduler.end_wake`` — stage and dispatch the next pass (one
    ``ed_relay_window`` launch for the wake on the card).
 
@@ -23,8 +26,9 @@ kernel library and runs one small ring query when it starts, so the first
 join does not pay for them.  One stream's error is counted
 (``pump_errors``) and the wake goes on with the next stream.
 
-Once a second the pump evicts old packets, closes idle connections and
-retires transcode ladders whose source went away.
+Once a second the pump evicts old packets, sends each pusher its due
+receiver reports, closes idle connections and retires transcode ladders
+whose source went away.
 """
 
 from __future__ import annotations
@@ -53,7 +57,8 @@ from .rtsp import RtspServer
 MEGABATCH_MIN_STREAMS = 2
 #: per-engine counters ``stats()`` sums over every engine the server ran
 ENGINE_COUNTERS = ("native_sent", "native_passes", "device_param_refreshes",
-                   "send_errors", "missing_params")
+                   "send_errors", "missing_params", "batch_sent",
+                   "batch_passes", "batch_rows")
 
 
 class StreamingServer:
@@ -220,6 +225,8 @@ class StreamingServer:
                 t = now_ms()
                 for sess in list(self.registry.sessions.values()):
                     sess.prune(t)
+                    for st in sess.streams.values():
+                        st.send_upstream_rr(t)
                 self.rtsp.sweep_timeouts()
                 self.transcodes.sweep()
 
@@ -236,5 +243,6 @@ class StreamingServer:
                 "wake_ms_max": wake[-1] if wake else None,
                 "wake_ms_first": self.wake_ms_first,
                 "native_loaded": self.native_loaded,
+                "rtcp": {"in": self.rtsp.rtcp_in, **self.rtsp.rtcp_counts},
                 "megabatch": self.megabatch.stats(),
                 "kernel_launches": dict(kernel_lib.LAUNCHES)}

@@ -10,10 +10,20 @@ the connection) or UDP (``RTP/AVP;unicast;client_port=a-b``: relayed RTP
 goes to the client's ports from the server's shared egress pair, whose
 ports the reply names as ``server_port``).  Pushers send interleaved.
 
-A player's RTSP connection is silent while it plays, so RTCP keeps it
-alive: a datagram on the shared pair's RTCP port that parses as RTCP
-refreshes the idle clock of the connection whose UDP track registered its
-source address, or whose output SSRC an RR report block names.
+A player's SETUP may ask for ``x-RTP-Meta-Info`` (``tt``, ``sq`` and the
+mandatory ``md`` are served): the reply grants the fields and the output
+wraps every packet.  A pusher's interleaved SETUP installs the stream's
+upstream-RTCP writer on its RTCP channel, for the relay's RRs.
+
+A player's RTCP (a datagram on the shared pair's RTCP port, or an odd
+interleaved channel of its connection) goes to ``on_client_rtcp``: routed
+by its source address, then by the SSRCs its RR report blocks and NADU
+blocks name, an RR's loss fraction and a NADU block's buffer state move
+that output's thinning level.  Generic NACKs and APP packets are parsed
+and counted only.  A player's RTSP connection is silent while it plays,
+so that RTCP also keeps it alive, but only on proof of ownership: the
+source address a UDP track registered, or a block naming an output SSRC
+of the connection.
 """
 
 from __future__ import annotations
@@ -24,13 +34,16 @@ import sys
 import time
 import traceback
 
-from ..protocol import rtcp, rtsp, sdp
+from ..protocol import rtcp, rtp_meta, rtsp, sdp
 from ..relay.session import RelaySession, SessionRegistry
 from .config import ServerConfig
 from .transports import InterleavedOutput, SharedUdpEgress, UdpOutput
 
 SERVER_NAME = "easydarwin-tpu-torch/0.1"
 ALLOWED = "OPTIONS, DESCRIBE, ANNOUNCE, SETUP, PLAY, RECORD, TEARDOWN"
+#: x-RTP-Meta-Info fields the live relay fills: transmit time, sequence
+#: number and the media payload (mandatory)
+META_SUPPORTED = ("tt", "sq", "md")
 
 
 def _extract_track(uri_path: str) -> tuple[str, int | None]:
@@ -45,6 +58,23 @@ def _extract_track(uri_path: str) -> tuple[str, int | None]:
             if tail.isdigit():
                 return uri_path[:pos], int(tail)
     return uri_path, None
+
+
+def negotiate_meta_info(want: str, out) -> dict[str, str]:
+    """A SETUP's ``x-RTP-Meta-Info`` request → the reply header granting
+    the served fields it names (compressed ids in ``META_SUPPORTED``
+    order; ``md`` is never compressed), set on ``out``.  No ``md``, no
+    grant: a media stream cannot go without its payload."""
+    if not want:
+        return {}
+    requested = rtp_meta.parse_header(want)
+    granted = {f: i for i, f in enumerate(
+        f for f in META_SUPPORTED if f in requested)}
+    if "md" not in granted:
+        return {}
+    granted["md"] = rtp_meta.UNCOMPRESSED
+    out.meta_field_ids = granted
+    return {"x-RTP-Meta-Info": rtp_meta.build_header(granted)}
 
 
 def _rtcp_keys(out) -> list[tuple]:
@@ -169,6 +199,10 @@ class RtspConnection:
         ch = t.interleaved or (2 * n, 2 * n + 1)
         self.channel_map[ch[0]] = (track_id, False)
         self.channel_map[ch[1]] = (track_id, True)
+        # the relay's receiver reports go back on the RTCP channel
+        st = self.relay.streams[track_id]
+        st.upstream_rtcp = lambda d, c=ch[1]: self.send_interleaved(c, d)
+        st.upstream_rtcp_owner = self
         resp_t = rtsp.TransportSpec(protocol=t.protocol, is_tcp=True,
                                     mode="RECORD", interleaved=ch)
         self._reply(rtsp.RtspResponse(200, {"Transport": resp_t.to_header()}),
@@ -204,11 +238,13 @@ class RtspConnection:
                             *t.client_port, **rewrite)
             resp_t.client_port = t.client_port
             resp_t.server_port = (sender.rtp_port, sender.rtcp_port)
+        meta = negotiate_meta_info(req.headers.get("x-rtp-meta-info", ""),
+                                   out)
         self.server.note_player_output(self, out,
                                        self.player_tracks.get(track_id))
         self.player_tracks[track_id] = out
-        self._reply(rtsp.RtspResponse(200, {"Transport": resp_t.to_header()}),
-                    req.cseq)
+        self._reply(rtsp.RtspResponse(200, {"Transport": resp_t.to_header(),
+                                            **meta}), req.cseq)
 
     async def _do_record(self, req: rtsp.RtspRequest) -> None:
         if not self.is_pusher or self.relay is None:
@@ -236,15 +272,21 @@ class RtspConnection:
 
     # -------------------------------------------------------- media path
     def _on_interleaved(self, pkt: rtsp.InterleavedPacket) -> None:
-        """Pushed media (RECORD mode); a player's RTCP is read and dropped
-        (receiver-report handling is later work)."""
+        """Pushed media and RTCP (RECORD mode), or a player's RTCP on an
+        odd channel."""
         m = self.channel_map.get(pkt.channel)
-        if m is None or self.relay is None:
-            return
-        track_id, is_rtcp = m
-        self.relay.push(track_id, pkt.data, is_rtcp=is_rtcp)
-        self.server.packets_in += 1
-        self.server.wake_pump()
+        if m is not None and self.relay is not None:
+            track_id, is_rtcp = m
+            self.relay.push(track_id, pkt.data, is_rtcp=is_rtcp)
+            self.server.packets_in += 1
+            self.server.wake_pump()
+        elif self.player_tracks and pkt.channel % 2 == 1:
+            self.server.on_client_rtcp(pkt.data, conn=self)
+
+    def send_interleaved(self, channel: int, data: bytes) -> None:
+        """Write one ``$``-framed packet on this connection."""
+        if not self.writer.is_closing():
+            self.writer.write(rtsp.frame_interleaved(channel, data))
 
     # ----------------------------------------------------------- teardown
     async def close(self) -> None:
@@ -257,6 +299,12 @@ class RtspConnection:
                 if st is not None:
                     st.remove_output(out)
                 self.server.drop_player_output(self, out)
+            if self.is_pusher:
+                # our RR writers point at this closing connection; a
+                # pusher that adopted the session installed its own
+                for st in self.relay.streams.values():
+                    if st.upstream_rtcp_owner is self:
+                        st.upstream_rtcp = st.upstream_rtcp_owner = None
             # pusher gone → tear the session down, if it is still ours
             if (self.is_pusher and self.relay.owner is self
                     and self.server.registry.find(self.relay.path)
@@ -285,15 +333,18 @@ class RtspServer:
         #: ("ssrc", n) / ("addr", (ip, port)) → the player connection whose
         #: RTCP that proves (``_rtcp_keys``)
         self._rtcp_owner: dict[tuple, RtspConnection] = {}
-        #: datagrams on the RTCP port that parsed as RTCP
+        #: players' RTCP compounds that parsed, and the packets in them
+        #: by kind: RR and NADU blocks applied to an output, generic
+        #: NACKs and APP packets (counted only)
         self.rtcp_in = 0
+        self.rtcp_counts = dict.fromkeys(("rr", "nadu", "nack", "app"), 0)
 
     async def start(self) -> None:
         self._server = await asyncio.start_server(
             self._on_connection, self.config.bind_ip, self.config.rtsp_port)
         self.port = self._server.sockets[0].getsockname()[1]
         self.shared_egress = SharedUdpEgress(self.config.bind_ip,
-                                             on_rtcp=self.on_player_rtcp)
+                                             on_rtcp=self.on_client_rtcp)
         await self.shared_egress.start()
 
     async def stop(self) -> None:
@@ -328,21 +379,57 @@ class RtspServer:
             if self._rtcp_owner.get(key) is conn:
                 del self._rtcp_owner[key]
 
-    def on_player_rtcp(self, data: bytes, addr) -> None:
-        """Incoming RTCP on the shared pair: refresh the idle clock of the
-        connection that registered ``addr``, and of each whose output SSRC
-        an RR report block names.  A datagram that is not RTCP proves
-        nothing."""
-        ssrcs = rtcp.rr_report_ssrcs(data)
-        if ssrcs is None:
+    def on_client_rtcp(self, data: bytes, addr=None,
+                       conn: RtspConnection | None = None) -> None:
+        """A player's RTCP compound: from ``addr`` on the shared pair, or
+        on ``conn``'s own interleaved channel.  It is routed to the
+        connection that registered ``addr`` (or ``conn``), else, block by
+        block, to the connection owning the SSRC an RR report block or a
+        NADU block names; each named output's level moves
+        (``on_receiver_report`` with ``fraction_lost / 256``,
+        ``on_nadu``).  NACKs and APP packets are counted.  The idle clock
+        of a connection is refreshed only on proof: its registered
+        address, or a block naming one of its output SSRCs."""
+        try:
+            pkts = rtcp.parse_compound(data)
+        except rtcp.RtcpError:
             return
         self.rtcp_in += 1
-        keys = [("addr", (addr[0], addr[1]))] + [("ssrc", s) for s in ssrcs]
+        if conn is None and addr is not None:
+            conn = self._rtcp_owner.get(("addr", (addr[0], addr[1])))
+        proven = {conn} if conn is not None and addr is not None else set()
+
+        def output(ssrc: int):
+            """(connection, output) whose output SSRC is ``ssrc``."""
+            c = conn or self._rtcp_owner.get(("ssrc", ssrc))
+            if c is None:
+                return None, None
+            return c, next((o for o in c.player_tracks.values()
+                            if o.rewrite.ssrc == ssrc), None)
+
+        for p in pkts:
+            if isinstance(p, rtcp.ReceiverReport):
+                for rb in p.reports:
+                    c, out = output(rb.ssrc)
+                    if out is not None:
+                        proven.add(c)
+                        self.rtcp_counts["rr"] += 1
+                        out.on_receiver_report(rb.fraction_lost / 256.0)
+            elif isinstance(p, rtcp.Nadu):
+                for blk in p.blocks:
+                    c, out = output(blk.ssrc)
+                    if out is not None:
+                        proven.add(c)
+                        self.rtcp_counts["nadu"] += 1
+                        out.on_nadu(blk.playout_delay_ms,
+                                    blk.free_buffer_64b)
+            elif isinstance(p, rtcp.GenericNack):
+                self.rtcp_counts["nack"] += 1
+            elif isinstance(p, rtcp.App):
+                self.rtcp_counts["app"] += 1
         now = time.monotonic()
-        for key in keys:
-            conn = self._rtcp_owner.get(key)
-            if conn is not None:
-                conn.last_activity = now
+        for c in proven:
+            c.last_activity = now
 
     def wake_pump(self) -> None:
         if self._on_pump_wake is not None:

@@ -8,8 +8,8 @@ bookmark on a later pass.
 UDP players are served from one shared socket pair (``SharedUdpEgress``),
 whose RTP socket the engine writes with one ``sendmmsg``/UDP-GSO scatter a
 stream a wake.  Each datagram that reaches its RTCP socket is handed with
-its source address to ``on_rtcp`` (the RTSP server, which keeps the
-sending player alive).
+its source address to ``on_rtcp`` (the RTSP server, which routes a
+player's receiver reports to its outputs).
 """
 
 from __future__ import annotations
@@ -77,6 +77,9 @@ class InterleavedOutput(RelayOutput):
         return self._send(ch, (data,))
 
     def send_rewritten(self, header: bytes, tail: bytes) -> WriteResult:
+        if self.meta_field_ids is not None:
+            return self._send(self.rtp_channel,
+                              (self.wrap_meta(header, tail),))
         return self._send(self.rtp_channel, (header, tail))
 
 

@@ -1,4 +1,4 @@
-"""End-to-end check of a running relay server over loopback RTSP.
+"""End-to-end checks of a running relay server over loopback RTSP.
 
 ``push_play`` plays pushers (ANNOUNCE → SETUP record → RECORD, then
 ``$``-framed RTP) and players (DESCRIBE → SETUP → PLAY) against a server
@@ -12,9 +12,20 @@ seq is contiguous from the RTP-Info seq, ts is offset by the RTP-Info
 rtptime, and the SSRC is the one the SETUP reply named.  Any failure
 raises ``AssertionError``.
 
+``push_play_av`` adds RTCP and the per-player options: one pusher of an
+H.264 track (FU-A, so a frame is one NAL) and an AAC track, each with an
+SR + SDES compound a second, and players of both tracks that send RRs,
+may ask for ``x-RTP-Meta-Info: tt;sq;md`` and may report loss once.  It
+holds every player to the oracle (each packet the rewrite of a pushed
+one), a thinned player to a frame-whole, level-1 subset of it, every SR
+to its output's SSRC, timeline and the host's wall clock, and the
+pusher's upstream RRs to its media SSRCs.  It reads RTCP and meta-info
+with ``struct`` alone (RFC 3550 §6.4, the meta-info TLV layout), not with
+the port's parsers, so that a fault there cannot cancel itself out.
+
 ``serve_and_check`` starts ``python -m easydarwin_tpu_torch`` on free
-ports (``CliServer``), runs ``push_play`` against it, stops it with
-SIGTERM and checks the stats it prints at exit.
+ports (``CliServer``), runs ``push_play`` (or ``push_play_av``) against
+it, stops it with SIGTERM and checks the stats it prints at exit.
 """
 
 from __future__ import annotations
@@ -24,6 +35,7 @@ import json
 import re
 import signal
 import socket
+import struct
 import sys
 import time
 from pathlib import Path
@@ -45,23 +57,39 @@ def check(cond: bool, what: str) -> None:
 
 
 class _Datagrams(asyncio.DatagramProtocol):
-    def __init__(self, sink: list | None):
+    """Appends each datagram to ``sink``, with ``stamp`` as
+    ``(monotonic seconds, data)``; ``before`` runs first."""
+
+    def __init__(self, sink: list | None, stamp: bool = False,
+                 before=None):
         self.sink = sink
+        self.stamp = stamp
+        self.before = before
 
     def datagram_received(self, data, addr):
+        if self.before is not None:
+            self.before()
         if self.sink is not None:
-            self.sink.append(data)
+            self.sink.append((time.monotonic(), data) if self.stamp
+                             else data)
 
 
-async def _udp_endpoint(sink: list | None):
-    """A datagram endpoint on a free loopback port with a deep receive
-    buffer (a fast-start burst must not overflow it)."""
+async def _udp_endpoint(sink: list | None, stamp: bool = False, *,
+                        before=None, sock=None):
+    """A datagram endpoint on a free loopback port (or ``sock``) with a
+    deep receive buffer (a fast-start burst must not overflow it)."""
+    if sock is None:
+        sock = _udp_socket()
+    tr, _ = await asyncio.get_running_loop().create_datagram_endpoint(
+        lambda: _Datagrams(sink, stamp, before), sock=sock)
+    return tr
+
+
+def _udp_socket() -> socket.socket:
     sock = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
     sock.setsockopt(socket.SOL_SOCKET, socket.SO_RCVBUF, 1 << 22)
     sock.bind(("127.0.0.1", 0))
-    tr, _ = await asyncio.get_running_loop().create_datagram_endpoint(
-        lambda: _Datagrams(sink), sock=sock)
-    return tr
+    return sock
 
 
 class MiniClient:
@@ -72,6 +100,8 @@ class MiniClient:
         self.wire = rtsp.RtspWireReader(parse_responses=True)
         self.responses: asyncio.Queue = asyncio.Queue()
         self.frames: list[bytes] = []
+        #: interleaved channel → [(monotonic seconds, data)]
+        self.channels: dict[int, list] = {}
         self.cseq = 0
         self.session = None
         self._task = None
@@ -100,6 +130,8 @@ class MiniClient:
                 if isinstance(ev, rtsp.InterleavedPacket):
                     if ev.channel == 0:
                         self.frames.append(ev.data)
+                    self.channels.setdefault(ev.channel, []).append(
+                        (time.monotonic(), ev.data))
                 else:
                     self.responses.put_nowait(ev)
 
@@ -116,8 +148,8 @@ class MiniClient:
             self.session = resp.headers["session"].split(";")[0]
         return resp
 
-    def push(self, pkt: bytes) -> None:
-        self.writer.write(rtsp.frame_interleaved(0, pkt))
+    def push(self, pkt: bytes, channel: int = 0) -> None:
+        self.writer.write(rtsp.frame_interleaved(channel, pkt))
 
     async def close(self) -> None:
         for tr in self._udp:
@@ -171,13 +203,6 @@ async def push_play(port: int, rng: np.random.Generator, *, n_push: int,
             pushers[k][0].push(pkt)
         pushed[k] += len(pkts)
 
-    def starts(before: int, after: int) -> range:
-        """The fast-start points a PLAY may get: the GOP heads from the
-        newest one pushed before the request to the newest one pushed by
-        the time of its reply."""
-        return range((before - 1) // gop * gop, (after - 1) // gop * gop + 1,
-                     gop)
-
     async def join(k: int) -> None:
         uri = pushers[k][1]
         p = MiniClient()
@@ -198,7 +223,7 @@ async def push_play(port: int, rng: np.random.Generator, *, n_push: int,
         seq0 = int(re.search(r"seq=(\d+)", info).group(1))
         ts0 = int(re.search(r"rtptime=(\d+)", info).group(1))
         players.append((p, k, seq0, ts0, t.ssrc,
-                        starts(before, pushed[k])))
+                        gop_heads(before, pushed[k], gop)))
 
     for k in range(n_push):                    # the first GOP
         push(k, sent[k][:gop])
@@ -262,6 +287,14 @@ async def push_play(port: int, rng: np.random.Generator, *, n_push: int,
             "delivered": delivered}
 
 
+def gop_heads(before: int, after: int, gop: int) -> range:
+    """The fast-start points a PLAY may get: the heads of ``gop``-packet
+    GOPs from the newest one pushed before the request (``before``
+    packets) to the newest one pushed by the time of its reply
+    (``after``)."""
+    return range((before - 1) // gop * gop, (after - 1) // gop * gop + 1, gop)
+
+
 class CliServer:
     """``python -m easydarwin_tpu_torch`` on free loopback ports, as an
     async context manager: ``rtsp_port`` and ``rest_port`` are set once
@@ -312,12 +345,523 @@ class CliServer:
 
 
 async def serve_and_check(device: str, rng: np.random.Generator, *,
-                          n_push: int, n_play: int, **kw) -> dict:
-    """``push_play`` (``kw`` passed on) against the CLI server on
-    ``device``; adds the server's exit stats (pump errors and oracle
-    mismatches must be 0)."""
+                          harness=None, **kw) -> dict:
+    """``harness`` (``push_play`` by default, or ``push_play_av``; ``kw``
+    passed on) against the CLI server on ``device``; adds the server's
+    exit stats (pump errors and oracle mismatches must be 0)."""
     async with CliServer(device) as srv:
-        res = await push_play(srv.rtsp_port, rng, n_push=n_push,
-                              n_play=n_play, **kw)
+        res = await (harness or push_play)(srv.rtsp_port, rng, **kw)
         res["server_stats"] = await srv.stop()
         return res
+
+
+# ------------------------------------------------------- audio + video + RTCP
+AV_SDP = VIDEO_SDP + ("m=audio 0 RTP/AVP 97\r\n"
+                      "a=rtpmap:97 mpeg4-generic/48000/2\r\n"
+                      "a=control:trackID=2\r\n")
+#: RTCP packet types (RFC 3550 §12.1)
+_SR, _RR, _SDES = 200, 201, 202
+_NTP_EPOCH = 2208988800
+PUSHER_CNAME = b"loopback-pusher"
+#: the CNAME of the relay's own SRs
+RELAY_CNAME = b"easydarwin-tpu"
+#: (clock rate, ticks a packet or frame) of the two tracks
+VIDEO, AUDIO = 1, 2
+CLOCK = {VIDEO: 90000, AUDIO: 48000}
+AUDIO_TICKS = 1024                      # one AAC frame
+#: video frames a second
+FPS = 30
+#: the fraction a lossy player reports once: 90/256 ≈ 0.35
+LOSS_FRACTION = 90
+
+
+def rtcp_packets(data: bytes) -> list[tuple[int, int, bytes]]:
+    """``(packet type, count, body)`` of each packet of an RTCP compound
+    (RFC 3550 §6.1); a malformed compound fails the check."""
+    out, off = [], 0
+    while off < len(data):
+        check(off + 4 <= len(data), "RTCP compound: a torn header")
+        b0, pt, words = struct.unpack_from("!BBH", data, off)
+        end = off + 4 + 4 * words
+        check(b0 >> 6 == 2 and end <= len(data),
+              "RTCP compound: a bad version or length")
+        out.append((pt, b0 & 0x1F, data[off + 4:end]))
+        off = end
+    return out
+
+
+def sdes_cname(body: bytes) -> bytes | None:
+    """The CNAME item of an SDES packet's first chunk."""
+    pos = 4
+    while pos + 2 <= len(body) and body[pos] != 0:
+        item, n = body[pos], body[pos + 1]
+        if item == 1:
+            return body[pos + 2:pos + 2 + n]
+        pos += 2 + n
+    return None
+
+
+def sr_compound(ssrc: int, unix_time: float, rtp_ts: int, packets: int,
+                octets: int, cname: bytes) -> bytes:
+    """SR (no report blocks) + SDES(CNAME), as a sender sends them."""
+    ntp = struct.pack("!II", int(unix_time) + _NTP_EPOCH,
+                      int(unix_time % 1 * (1 << 32)) & 0xFFFFFFFF)
+    sr = (struct.pack("!BBHI", 0x80, _SR, 6, ssrc) + ntp
+          + struct.pack("!III", rtp_ts & 0xFFFFFFFF, packets, octets))
+    chunk = struct.pack("!IBB", ssrc, 1, len(cname)) + cname + b"\0"
+    chunk += b"\0" * (-len(chunk) % 4)
+    return sr + struct.pack("!BBH", 0x81, _SDES, len(chunk) // 4) + chunk
+
+
+def receiver_report(reporter: int, ssrc: int, fraction_lost: int,
+                    highest_seq: int) -> bytes:
+    """An RR with one report block on ``ssrc``."""
+    return struct.pack("!BBHIIIIIII", 0x81, _RR, 7, reporter, ssrc,
+                       (fraction_lost & 0xFF) << 24, highest_seq, 0, 0, 0)
+
+
+def meta_fields(pkt: bytes, ids: dict[str, int]) -> dict[str, bytes]:
+    """The x-RTP-Meta-Info fields after a packet's 12-byte header: a
+    compressed field is ``0x80 | id``, an 8-bit length and its data, an
+    uncompressed one its 2-letter name, a 16-bit length and its data."""
+    by_id = {i: n for n, i in ids.items() if i >= 0}
+    out, pos = {}, 12
+    while pos < len(pkt):
+        if pkt[pos] & 0x80:
+            check(pos + 2 <= len(pkt), "meta-info: a torn field header")
+            name, n, pos = by_id.get(pkt[pos] & 0x7F), pkt[pos + 1], pos + 2
+        else:
+            check(pos + 4 <= len(pkt), "meta-info: a torn field header")
+            name = pkt[pos:pos + 2].decode("ascii", "replace")
+            n, pos = int.from_bytes(pkt[pos + 2:pos + 4], "big"), pos + 4
+        check(name is not None and pos + n <= len(pkt),
+              f"meta-info: an unknown or overlong field at {pos}")
+        out[name] = pkt[pos:pos + n]
+        pos += n
+    return out
+
+
+def _drain(sock: socket.socket, sink: list) -> None:
+    """Stamp and keep every datagram queued on ``sock`` now."""
+    while True:
+        try:
+            data = sock.recv(65536)
+        except (BlockingIOError, InterruptedError):
+            return
+        sink.append((time.monotonic(), data))
+
+
+def _meta_ids(header: str) -> dict[str, int]:
+    """``tt=0;sq=1;md`` → {field: compressed id, −1 = uncompressed}."""
+    out = {}
+    for part in header.split(";"):
+        name, _, fid = part.strip().partition("=")
+        if name:
+            out[name] = int(fid) if fid else -1
+    return out
+
+
+def _s32(v: int) -> int:
+    """A 32-bit difference as a signed number."""
+    return (v + (1 << 31)) % (1 << 32) - (1 << 31)
+
+
+class _AvTrack:
+    """One player's view of one track: what its SETUP and PLAY replies
+    named, and what arrived ``[(monotonic s, bytes)]``."""
+
+    def __init__(self):
+        self.ssrc = self.seq0 = self.ts0 = None
+        self.meta_ids: dict[str, int] | None = None
+        self.rtp: list = []
+        self.rtcp: list = []
+        self.rtcp_tr = None             # UDP: the RTCP endpoint
+        self.server_rtcp = None         # UDP: the server's RTCP address
+
+
+class _AvPlayer:
+    def __init__(self, index: int, spec: dict, rng):
+        self.index = index
+        self.transport = spec.get("transport", "udp")
+        self.meta = bool(spec.get("meta"))
+        self.lossy = bool(spec.get("lossy"))
+        self.kind = "meta" if self.meta else "lossy" if self.lossy \
+            else "plain"
+        self.client = MiniClient()
+        self.tracks = {VIDEO: _AvTrack(), AUDIO: _AvTrack()}
+        self.reporter = int(rng.integers(1 << 32))
+        self.joined_at = None
+        self.loss_sent_at = None
+        self.allowed = range(0)
+
+    def received(self, tid: int) -> list[tuple[float, bytes]]:
+        """``(arrival, RTP packet)``: a meta-info packet as the RTP packet
+        it carries (header ∥ ``md``), its ``sq`` held to its seq and its
+        ``tt`` to the host's wall clock (within 2 s)."""
+        tr = self.tracks[tid]
+        if tr.meta_ids is None:
+            return tr.rtp
+        wall_minus_mono = time.time() - time.monotonic()
+        out = []
+        for t, pkt in tr.rtp:
+            f = meta_fields(pkt, tr.meta_ids)
+            check({"tt", "sq", "md"} <= set(f),
+                  f"player {self.index}: a meta-info packet without tt, sq "
+                  f"or md: {sorted(f)}")
+            check(f["sq"] == pkt[2:4],
+                  f"player {self.index}: sq differs from the packet's seq")
+            tt = int.from_bytes(f["tt"], "big") / 1000
+            check(abs(tt - (t + wall_minus_mono)) <= 2.0,
+                  f"player {self.index}: tt {tt:.3f} is not the host "
+                  f"clock's {t + wall_minus_mono:.3f}")
+            out.append((t, pkt[:12] + f["md"]))
+        return out
+
+    def send_rr(self, tid: int, fraction_lost: int) -> None:
+        tr = self.tracks[tid]
+        got = tr.rtp
+        highest = rtp.peek_seq(got[-1][1]) if got else 0
+        rr = receiver_report(self.reporter, tr.ssrc, fraction_lost, highest)
+        if self.transport == "udp":
+            tr.rtcp_tr.sendto(rr, tr.server_rtcp)
+        else:
+            self.client.push(rr, 2 * (tid - 1) + 1)
+
+
+async def push_play_av(port: int, rng: np.random.Generator, *,
+                       players: list[dict], gops: int = 7, frames: int = 30,
+                       packets_per_frame: int = 13, body_len=(1270, 1300),
+                       rr_every_s: float = 1.0, loss_after_s: float = 1.0,
+                       deadline_s: float = 30.0) -> dict:
+    """One pusher of ``gops`` GOPs of ``frames`` H.264 frames (FU-A,
+    ``packets_per_frame`` packets a frame) at ``FPS`` and an AAC track
+    (one packet of 200–400 bytes each 1024 ticks at 48 kHz), each with an
+    SR + SDES compound a second; after the first GOP one player of
+    ``players`` joins each frame.  A player spec is ``{"transport":
+    "udp"|"tcp", "meta": bool, "lossy": bool}``; every player sends an RR
+    on each track each ``rr_every_s``, a lossy one reports
+    ``LOSS_FRACTION`` on video once, ``loss_after_s`` after its join.
+    Every check of the module docstring is made; returns the counts."""
+    gop = frames * packets_per_frame
+    duration = gops * frames / FPS
+    v_ssrc, a_ssrc = 0xC0DE0001, 0xA0D10002
+    video = []
+    for _ in range(gops):
+        video += synth.paced_gop(
+            rng, seq0=0xFFE0 + len(video), ts0=0xFFFF0000 + 3000 * (
+                len(video) // packets_per_frame), ssrc=v_ssrc, frames=frames,
+            packets_per_frame=packets_per_frame, body_len=body_len,
+            fu_a=True)
+    n_audio = int(duration * CLOCK[AUDIO] / AUDIO_TICKS)
+    audio = [synth.aac_packet(rng, 0xFF00 + i, 0xFFFFF000 + AUDIO_TICKS * i,
+                              ssrc=a_ssrc) for i in range(n_audio)]
+    sent = {VIDEO: video, AUDIO: audio}
+    media_ssrc = {VIDEO: v_ssrc, AUDIO: a_ssrc}
+    pusher = MiniClient()
+    await pusher.connect(port)
+    uri = f"rtsp://127.0.0.1:{port}/live/av"
+    await pusher.request("ANNOUNCE", uri, {"content-type": "application/sdp"},
+                         AV_SDP.encode())
+    for tid in (VIDEO, AUDIO):
+        await pusher.request("SETUP", f"{uri}/trackID={tid}", {
+            "transport": f"RTP/AVP/TCP;unicast;interleaved={2 * tid - 2}-"
+                         f"{2 * tid - 1};mode=record"})
+    await pusher.request("RECORD", uri)
+    # the push schedule: (seconds from the start, track or 0 = SR, index)
+    events = [(f / FPS, VIDEO, f) for f in range(gops * frames)]
+    events += [(i * AUDIO_TICKS / CLOCK[AUDIO], AUDIO, i)
+               for i in range(n_audio)]
+    k = 0
+    while k + 0.75 < duration:                 # out of phase with joins
+        events.append((k + 0.75, 0, k))
+        k += 1
+    events.sort()
+    pushed = {VIDEO: 0, AUDIO: 0}
+    octets = {VIDEO: 0, AUDIO: 0}
+    av = [_AvPlayer(i, spec, rng) for i, spec in enumerate(players)]
+    waiting = list(av)
+    joins: list[asyncio.Task] = []
+
+    async def join(pl: _AvPlayer) -> None:
+        c = pl.client
+        await c.connect(port)
+        await c.request("DESCRIBE", uri)
+        for tid, tr in pl.tracks.items():
+            if pl.transport == "udp":
+                rtp_sock = _udp_socket()
+                rtp_tr = await _udp_endpoint(tr.rtp, True, sock=rtp_sock)
+                # an RTCP datagram is stamped only after every RTP datagram
+                # already queued on the track's socket: the two sockets'
+                # events reach the loop in no fixed order
+                tr.rtcp_tr = await _udp_endpoint(
+                    tr.rtcp, True, before=lambda s=rtp_sock, sink=tr.rtp:
+                    _drain(s, sink))
+                c._udp += [rtp_tr, tr.rtcp_tr]
+                a, b = (x.get_extra_info("sockname")[1]
+                        for x in (rtp_tr, tr.rtcp_tr))
+                spec = f"RTP/AVP;unicast;client_port={a}-{b}"
+            else:
+                spec = (f"RTP/AVP/TCP;unicast;interleaved={2 * tid - 2}-"
+                        f"{2 * tid - 1}")
+                tr.rtp = c.channels.setdefault(2 * tid - 2, [])
+                tr.rtcp = c.channels.setdefault(2 * tid - 1, [])
+            hdr = {"transport": spec}
+            if pl.meta:
+                hdr["x-rtp-meta-info"] = "tt;sq;md"
+            resp = await c.request("SETUP", f"{uri}/trackID={tid}", hdr)
+            t = rtsp.TransportSpec.parse(resp.headers["transport"])
+            check(t.ssrc is not None, "SETUP reply names no ssrc")
+            tr.ssrc = t.ssrc
+            if pl.transport == "udp":
+                check(t.server_port is not None,
+                      "UDP SETUP reply names no server_port")
+                tr.server_rtcp = ("127.0.0.1", t.server_port[1])
+            if pl.meta:
+                granted = resp.headers.get("x-rtp-meta-info")
+                check(granted is not None,
+                      "a meta-info SETUP was answered without the header")
+                tr.meta_ids = _meta_ids(granted)
+                check(set(tr.meta_ids) == {"tt", "sq", "md"}
+                      and tr.meta_ids["md"] == -1,
+                      f"meta-info grant {granted!r}")
+        before = pushed[VIDEO]
+        resp = await c.request("PLAY", uri)
+        pl.allowed = gop_heads(before, pushed[VIDEO], gop)
+        for item in resp.headers["rtp-info"].split(","):
+            tid = int(re.search(r"trackID=(\d+)", item).group(1))
+            pl.tracks[tid].seq0 = int(re.search(r"seq=(\d+)", item).group(1))
+            pl.tracks[tid].ts0 = int(
+                re.search(r"rtptime=(\d+)", item).group(1))
+        pl.joined_at = time.monotonic()
+
+    stop = asyncio.Event()
+
+    async def rr_ticker() -> None:
+        while not stop.is_set():
+            now = time.monotonic()
+            for pl in av:
+                if pl.joined_at is None:
+                    continue
+                for tid in (VIDEO, AUDIO):
+                    frac = 0
+                    if (pl.lossy and tid == VIDEO and pl.loss_sent_at is None
+                            and now - pl.joined_at >= loss_after_s):
+                        frac, pl.loss_sent_at = LOSS_FRACTION, now
+                    pl.send_rr(tid, frac)
+            try:
+                await asyncio.wait_for(stop.wait(), rr_every_s)
+            except asyncio.TimeoutError:
+                pass
+
+    ticker = asyncio.create_task(rr_ticker())
+    t_start = time.monotonic()
+    wall0 = time.time()
+    try:
+        for t_ev, tid, i in events:
+            delay = t_start + t_ev - time.monotonic()
+            if delay > 0:
+                await asyncio.sleep(delay)
+            if tid == 0:
+                for trk in (VIDEO, AUDIO):
+                    n = pushed[trk]
+                    rtp_ts = (rtp.peek_timestamp(sent[trk][0])
+                              + int(t_ev * CLOCK[trk])) & 0xFFFFFFFF
+                    pusher.push(sr_compound(
+                        media_ssrc[trk], wall0 + t_ev, rtp_ts, n,
+                        octets[trk], PUSHER_CNAME), 2 * trk - 1)
+                continue
+            if tid == VIDEO:
+                if i >= frames and waiting:
+                    joins.append(asyncio.create_task(join(waiting.pop(0))))
+                pkts = video[i * packets_per_frame:(i + 1) * packets_per_frame]
+            else:
+                pkts = [audio[i]]
+            for pkt in pkts:
+                pusher.push(pkt, 2 * tid - 2)
+                octets[tid] += len(pkt) - 12
+            pushed[tid] += len(pkts)
+        for pl in waiting:                      # joiners the frames outran
+            joins.append(asyncio.create_task(join(pl)))
+        await asyncio.gather(*joins)
+        deadline = time.monotonic() + deadline_s
+
+        def done(pl: _AvPlayer) -> bool:
+            """Both tracks reached their last pushed packet (a thinned
+            video its last two frames), and both had RTCP."""
+            v, a = pl.tracks[VIDEO].rtp, pl.tracks[AUDIO].rtp
+            tail = video[-2 * packets_per_frame:] if pl.lossy else video[-1:]
+            return (bool(v) and bool(a)
+                    and any(v[-1][1].endswith(p[12:]) for p in tail)
+                    and a[-1][1].endswith(audio[-1][12:])
+                    and all(tr.rtcp for tr in pl.tracks.values()))
+
+        while time.monotonic() < deadline and not all(map(done, av)):
+            await asyncio.sleep(0.05)
+        settled = time.monotonic()
+        await asyncio.sleep(0.5)               # thinned players' last frames
+        stop.set()
+        await ticker
+        res = _check_av(av, sent, media_ssrc, pusher, frames,
+                        packets_per_frame, time.time() - time.monotonic())
+    finally:
+        stop.set()
+        if not ticker.done():
+            ticker.cancel()
+            try:
+                await ticker
+            except asyncio.CancelledError:
+                pass
+        for pl in av:
+            if pl.client._task is not None:
+                await pl.client.close()
+        await pusher.close()
+    res.update(players=len(av), video_packets=len(video),
+               audio_packets=len(audio), push_s=duration,
+               settle_s=settled - t_start - duration)
+    return res
+
+
+def _oracle(src: bytes, seq: int, ts: int, ssrc: int) -> bytes:
+    """What a player must receive for the pushed ``src``: its bytes with
+    seq, ts and SSRC rewritten."""
+    return src[:2] + struct.pack("!HII", seq & 0xFFFF, ts & 0xFFFFFFFF,
+                                 ssrc) + src[12:]
+
+
+def _check_track(pl: _AvPlayer, tid: int, sent: list[bytes],
+                 frames: int, ppf: int) -> list[int]:
+    """Hold one player's track to the oracle; returns the pushed indices
+    it received."""
+    tr = pl.tracks[tid]
+    got = [pkt for _t, pkt in pl.received(tid)]
+    who = f"player {pl.index} ({pl.kind}, {pl.transport}) track {tid}"
+    check(bool(got), f"{who}: no packet")
+    if tid == VIDEO:
+        starts = list(pl.allowed)
+    else:
+        starts = range(len(sent))
+    i0 = next((i for i in starts if sent[i][12:] == got[0][12:]), None)
+    check(i0 is not None, f"{who}: the first packet is not a fast-start "
+          f"point ({list(starts)[:4]}...)")
+    src_ts0 = rtp.peek_timestamp(sent[i0])
+    idxs = []
+    for pkt in got:
+        j = (rtp.peek_seq(pkt) - tr.seq0) & 0xFFFF
+        check(i0 + j < len(sent) and (not idxs or j > idxs[-1]),
+              f"{who}: seq {rtp.peek_seq(pkt)} out of order or range")
+        src = sent[i0 + j]
+        check(pkt == _oracle(src, tr.seq0 + j,
+                             tr.ts0 + rtp.peek_timestamp(src) - src_ts0,
+                             tr.ssrc),
+              f"{who}: packet {j} differs from the oracle's bytes")
+        idxs.append(j)
+    idxs = [i0 + j for j in idxs]
+    if pl.lossy and tid == VIDEO:
+        _check_thinned(who, idxs, frames, ppf)
+    else:
+        check(idxs == list(range(i0, len(sent))),
+              f"{who}: {len(idxs)} of {len(sent) - i0} packets")
+    return idxs
+
+
+def _check_thinned(who: str, idxs: list[int], frames: int,
+                   ppf: int) -> None:
+    """A thinned video track: whole frames only, strictly fewer packets
+    than were pushed over its span, and between its first and its last
+    missing frame the level-1 pattern (every keyframe kept, never two
+    non-key frames in a row)."""
+    span = idxs[-1] - idxs[0] + 1
+    check(len(idxs) < span, f"{who}: not thinned ({len(idxs)} packets of "
+          f"the {span} pushed over its span)")
+    have: dict[int, int] = {}
+    for i in idxs:
+        have[i // ppf] = have.get(i // ppf, 0) + 1
+    first, last = idxs[0] // ppf, idxs[-1] // ppf
+    for f in range(first, last + 1):
+        n = have.get(f, 0)
+        check(n in (0, ppf), f"{who}: frame {f} partly delivered ({n} of "
+              f"{ppf})")
+    missing = [f for f in range(first, last + 1) if not have.get(f)]
+    for f in range(missing[0], missing[-1] + 1):
+        if f % frames == 0:
+            check(f in have, f"{who}: keyframe {f} dropped at level 1")
+        elif f + 1 <= missing[-1] and (f + 1) % frames:
+            check(not (f in have and f + 1 in have),
+                  f"{who}: non-key frames {f} and {f + 1} both delivered "
+                  f"while thinned (a rung skipped the filter)")
+
+
+def _check_srs(pl: _AvPlayer, tid: int, wall_minus_mono: float) -> dict:
+    """Every SR a player got on a track: its output's SSRC, an NTP time
+    within 2 s of the host clock, and an RTP time on the output's
+    timeline: within a second of clock ticks of the newest RTP timestamp
+    it had received on that SSRC, carried forward by the time since that
+    packet arrived (the SR's RTP time is "now")."""
+    tr = pl.tracks[tid]
+    who = f"player {pl.index} ({pl.kind}, {pl.transport}) track {tid}"
+    rtp_in = pl.received(tid)
+    counts = {"relayed": 0, "originated": 0}
+    for t, data in tr.rtcp:
+        pkts = rtcp_packets(data)
+        srs = [body for pt, _c, body in pkts if pt == _SR]
+        check(len(srs) == 1, f"{who}: an RTCP compound with {len(srs)} SRs")
+        ssrc, sec, frac, rtp_ts = struct.unpack_from("!IIII", srs[0])
+        check(ssrc == tr.ssrc, f"{who}: SR SSRC {ssrc:#x}, not {tr.ssrc:#x}")
+        ntp_unix = sec - _NTP_EPOCH + frac / (1 << 32)
+        check(abs(ntp_unix - (t + wall_minus_mono)) <= 2.0,
+              f"{who}: SR NTP time {ntp_unix:.3f} is not the host clock's "
+              f"{t + wall_minus_mono:.3f}")
+        before = [(ta, p) for ta, p in rtp_in if ta <= t]
+        ta, ref = before[-1] if before else rtp_in[0]
+        want = rtp.peek_timestamp(ref) + round((t - ta) * CLOCK[tid])
+        check(abs(_s32(rtp_ts - want)) <= CLOCK[tid],
+              f"{who}: SR RTP time {rtp_ts} is not on the output's "
+              f"timeline (newest received {rtp.peek_timestamp(ref)}, "
+              f"{t - ta:.3f} s before it)")
+        cname = next((sdes_cname(b) for pt, _c, b in pkts if pt == _SDES),
+                     None)
+        counts["originated" if cname == RELAY_CNAME else "relayed"] += 1
+    check(sum(counts.values()) > 0, f"{who}: no SR")
+    return counts
+
+
+def _check_av(av, sent, media_ssrc, pusher, frames, ppf,
+              wall_minus_mono) -> dict:
+    delivered = {"plain": 0, "meta": 0, "lossy": 0}
+    #: (kind, transport) → SRs by origin
+    srs: dict[str, dict[str, int]] = {}
+    thinned = []
+    for pl in av:
+        for tid in (VIDEO, AUDIO):
+            idxs = _check_track(pl, tid, sent[tid], frames, ppf)
+            delivered[pl.kind] += len(idxs)
+            if pl.lossy and tid == VIDEO:
+                thinned.append((len(idxs), idxs[-1] - idxs[0] + 1))
+            got = srs.setdefault(f"{pl.kind}/{pl.transport}",
+                                 {"relayed": 0, "originated": 0})
+            for k, n in _check_srs(pl, tid, wall_minus_mono).items():
+                got[k] += n
+    upstream = {}
+    for tid in (VIDEO, AUDIO):
+        rrs = 0
+        for _t, data in pusher.channels.get(2 * tid - 1, []):
+            for pt, count, body in rtcp_packets(data):
+                if pt != _RR:
+                    continue
+                reporter = struct.unpack_from("!I", body)[0]
+                blocks = [struct.unpack_from("!I", body, 4 + 24 * b)[0]
+                          for b in range(count)]
+                check(reporter != media_ssrc[tid],
+                      f"track {tid}: the upstream RR reports as the media "
+                      f"SSRC")
+                check(media_ssrc[tid] in blocks,
+                      f"track {tid}: the upstream RR names {blocks}, not "
+                      f"the pushed SSRC")
+                rrs += 1
+        check(rrs > 0, f"track {tid}: the pusher received no RR")
+        upstream[tid] = rrs
+    return {"delivered": delivered, "srs": srs, "thinned": thinned,
+            "upstream_rrs": upstream,
+            "plain_udp_packets": sum(
+                len(pl.tracks[t].rtp) for pl in av for t in (VIDEO, AUDIO)
+                if pl.kind == "plain" and pl.transport == "udp")}

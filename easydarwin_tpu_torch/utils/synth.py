@@ -70,19 +70,47 @@ def h264_packet(seq: int, ts: int, nal_type: int, *, ssrc: int,
                          ).to_bytes()
 
 
+def fu_a_packet(seq: int, ts: int, nal_type: int, *, ssrc: int,
+                body: bytes, start: bool, end: bool) -> bytes:
+    """One FU-A fragment (RFC 6184 §5.8) of a NAL of ``nal_type``; the
+    marker is set on the last fragment."""
+    fu = (0x80 if start else 0) | (0x40 if end else 0) | nal_type
+    return rtp.RtpPacket(payload_type=96, seq=seq & 0xFFFF,
+                         timestamp=ts & 0xFFFFFFFF, ssrc=ssrc, marker=end,
+                         payload=bytes(((3 << 5) | 28, fu)) + body
+                         ).to_bytes()
+
+
 def paced_gop(rng: np.random.Generator, *, seq0: int, ts0: int, ssrc: int,
               frames: int, packets_per_frame: int, frame_ticks: int = 3000,
-              body_len=(40, 400)) -> list[bytes]:
+              body_len=(40, 400), fu_a: bool = False) -> list[bytes]:
     """One GOP of a paced stream: an IDR frame, then P frames; marker on
-    each frame's last packet.  Returns the packets in send order."""
+    each frame's last packet.  Each packet is a NAL of its own, or with
+    ``fu_a`` each frame is one NAL in ``packets_per_frame`` FU-A
+    fragments (so only a frame's first packet starts a frame).  Returns
+    the packets in send order."""
     out = []
     seq, ts = seq0, ts0
     for f in range(frames):
+        nal = 5 if f == 0 else 1
         for k in range(packets_per_frame):
             body = _bytes(rng, int(rng.integers(*body_len)))
-            out.append(h264_packet(seq, ts, 5 if f == 0 else 1, ssrc=ssrc,
-                                   body=body,
-                                   marker=k == packets_per_frame - 1))
+            last = k == packets_per_frame - 1
+            out.append(fu_a_packet(seq, ts, nal, ssrc=ssrc, body=body,
+                                   start=k == 0, end=last) if fu_a else
+                       h264_packet(seq, ts, nal, ssrc=ssrc, body=body,
+                                   marker=last))
             seq += 1
         ts += frame_ticks
     return out
+
+
+def aac_packet(rng: np.random.Generator, seq: int, ts: int, *, ssrc: int,
+               size=(200, 400)) -> bytes:
+    """One RFC 3640 AAC-hbr packet of ``size`` bytes in all: one AU
+    header (13-bit size, 3-bit index) and a random access unit."""
+    au = int(rng.integers(*size)) - 16
+    return rtp.RtpPacket(payload_type=97, seq=seq & 0xFFFF,
+                         timestamp=ts & 0xFFFFFFFF, ssrc=ssrc, marker=True,
+                         payload=b"\x00\x10" + (au << 3).to_bytes(2, "big")
+                         + _bytes(rng, au)).to_bytes()

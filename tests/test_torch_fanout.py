@@ -1,6 +1,7 @@
-"""The port's fan-out ops, window pass, pipeline and staging ≡ the JAX
-package's, bit-exact, on the same numpy inputs (CPU tensors: the plain
-PyTorch versions the kernel wrappers run off the card)."""
+"""The port's fan-out ops, window pass, batch-header step (B9), pipeline
+and staging ≡ the JAX package's, bit-exact, on the same numpy inputs (CPU
+tensors: the plain PyTorch versions the kernel wrappers run off the
+card)."""
 
 from collections import Counter
 
@@ -312,3 +313,50 @@ def test_staging_helpers_match_reference():
     np.testing.assert_array_equal(
         staging.pack_rows(data, ln, np.full((8, 100), 7, np.uint8)),
         ref_staging.pack_rows(data, ln, np.full((8, 100), 7, np.uint8)))
+
+
+def _b9_inputs(case, rng):
+    """(prefix, length, age, state, buckets, delay) for one B9 case: the
+    reference's own end-to-end shape (32 whole packets, 8 outputs from
+    rebase 0, 4 a bucket), a window padded to a power of two with
+    length-0 rows (as the reference's batch-header rung pads it), and
+    fuzzed rows with runts and truncated packets."""
+    if case == "reference_shape":
+        pkts = [p for p in (synth.random_packet(rng) for _ in range(64))
+                if len(p) >= 12][:32]
+        outs = [RefOutput(ssrc=i) for i in range(8)]
+        for o in outs:
+            o.rewrite.base_src_seq = o.rewrite.base_src_ts = 0
+        state = ref_fanout.pack_output_state(outs)
+        pre, ln = synth.stage(pkts)
+        return (pre, ln, np.full(len(pkts), 100, np.int32), state,
+                (np.arange(8) // 4).astype(np.int32), 73)
+    n = 21 if case == "pow2_padded" else 48
+    pkts = [synth.random_packet(rng) for _ in range(n)]
+    if case == "fuzzed_runts":
+        runts = (b"\x80\x60\x00", b"", b"\x80" * 11, b"\x80" * 12, bytes(3))
+        for i in range(0, n, 5):
+            pkts[i] = runts[i // 5 % len(runts)]
+    pre, ln = synth.stage(pkts)
+    p = staging.pow2(n, 16) if case == "pow2_padded" else n
+    prefix = np.zeros((p, 96), np.uint8)
+    length = np.zeros(p, np.int32)
+    prefix[:n], length[:n] = pre, ln
+    age = rng.integers(0, 400, p).astype(np.int32)
+    return (prefix, length, age, _state(rng, 1, 13)[0],
+            (np.arange(13) % 4).astype(np.int32), 73)
+
+
+@pytest.mark.parametrize("case", ["reference_shape", "pow2_padded",
+                                  "fuzzed_runts"])
+def test_relay_batch_step_matches_reference(case):
+    args = _b9_inputs(case, np.random.default_rng(len(case)))
+    ref = ref_fanout.relay_batch_step(*args)
+    got = fanout.relay_batch_step(*[torch.from_numpy(np.asarray(a))
+                                    for a in args[:5]], args[5])
+    assert sorted(got) == sorted(ref)
+    for k, v in ref.items():
+        v = np.asarray(v)
+        assert got[k].numpy().dtype == v.dtype, k
+        np.testing.assert_array_equal(got[k].numpy(), v, err_msg=k)
+    assert kernel_lib.LAUNCHES["ed_parse_packets"] == 0   # the CPU parse

@@ -10,7 +10,11 @@
 * on real sockets, a stream of UDP (native scatter), interleaved TCP
   (native framed writev) and collecting outputs delivers the reference's
   bytes, megabatch-owned and through the per-stream ring query, and a
-  torn TCP write is completed through ``push_tail``.
+  torn TCP write is completed through ``push_tail``;
+* meta-info and thinned outputs take only the batch-header rung: never
+  staged for the device params, never sent by the native UDP or TCP
+  rung, and an output thinned and thickened mid-stream keeps its
+  bookmark and the reference's bytes across the moves.
 """
 
 import socket
@@ -37,7 +41,6 @@ from easydarwin_tpu_torch.relay.megabatch import MegabatchScheduler
 from easydarwin_tpu_torch.relay.output import CollectingOutput
 from easydarwin_tpu_torch.relay.ring import PacketRing
 from easydarwin_tpu_torch.relay.stream import RelayStream, StreamSettings
-from easydarwin_tpu_torch.protocol.rtsp import frame_interleaved
 from easydarwin_tpu_torch.server import StreamingServer
 from easydarwin_tpu_torch.server.transports import (InterleavedOutput,
                                                     SharedUdpEgress, UdpOutput)
@@ -404,6 +407,19 @@ def _recv_all(sock, into) -> None:
             into.append(data)
 
 
+def _deframe(buf: bytes) -> list[tuple[int, bytes]]:
+    """``(channel, data)`` of each whole ``$``-framed chunk of ``buf``."""
+    out, off = [], 0
+    while off + 4 <= len(buf):
+        assert buf[off] == 0x24, off
+        n = int.from_bytes(buf[off + 2:off + 4], "big")
+        if off + 4 + n > len(buf):
+            break
+        out.append((buf[off + 1], buf[off + 4:off + 4 + n]))
+        off += 4 + n
+    return out
+
+
 class _MixedTwins:
     """A port stream of UDP, interleaved and collecting outputs on real
     sockets beside a reference stream of collecting outputs with the same
@@ -462,6 +478,8 @@ class _MixedTwins:
         for p in pkts:
             self.ref.push_rtp(p, t)
             self.port.push_rtp(p, t)
+        # one wall clock for both streams' SR NTP times
+        self.port._wall_base = self.ref._wall_base
 
     def collect(self):
         for kind, out, _ref, sink in self.outs:
@@ -475,17 +493,26 @@ class _MixedTwins:
             if kind == "udp":
                 got, want = sink[1], ref_out.rtp_packets
             elif kind in ("tcp", "torn"):
-                got = bytes(sink[1])
-                want = b"".join(frame_interleaved(out.rtp_channel, p)
-                                for p in ref_out.rtp_packets)
+                # the connection carries the output's SRs on its RTCP
+                # channel between the RTP frames
+                frames = _deframe(bytes(sink[1]))
+                got = [d for ch, d in frames if ch == out.rtp_channel]
+                want = ref_out.rtp_packets
+                assert [d for ch, d in frames if ch == out.rtcp_channel] \
+                    == ref_out.rtcp_packets, (wake, kind)
+                assert len(frames) == len(want) + len(ref_out.rtcp_packets)
             else:
                 got, want = out.rtp_packets, ref_out.rtp_packets
             assert got == want, (wake, kind)
             if counters:
-                assert (out.bookmark, out.packets_sent, out.bytes_sent,
+                assert (out.bookmark, out.packets_sent,
                         out.payload_octets) == \
                     (ref_out.bookmark, ref_out.packets_sent,
-                     ref_out.bytes_sent, ref_out.payload_octets), (wake, kind)
+                     ref_out.payload_octets), (wake, kind)
+                # the engine counts a meta-info packet's RTP bytes, as the
+                # reference's engine does; its scalar oracle the wrap's
+                assert out.meta_field_ids is not None or \
+                    out.bytes_sent == ref_out.bytes_sent, (wake, kind)
 
     def close(self):
         for s in self.socks:
@@ -537,6 +564,87 @@ def test_mixed_udp_tcp_collecting_wire_bytes_match_reference(owned):
         tw.close()
 
 
+@pytest.mark.parametrize("owned", [True, False],
+                         ids=["megabatch", "per_stream_query"])
+def test_meta_and_thinned_outputs_take_the_batch_header_rung(owned,
+                                                             monkeypatch):
+    """Meta-info and thinned UDP and interleaved outputs are never staged
+    for the device params (the megabatch's state rows, the per-stream
+    query) and never reach the native UDP scatter or TCP writev; a plain
+    UDP output thinned mid-stream moves to the batch-header rung and,
+    thickened again, back, with no packet twice and none skipped; every
+    output's wire bytes equal the reference's scalar reflect."""
+    monkeypatch.setattr(time, "time", lambda: 1.7e9)  # meta-info tt
+    tw = _MixedTwins(["udp", "tcp", "udp", "tcp", "col", "udp"], 23)
+    for i in (0, 3):                   # meta-info: UDP and interleaved
+        for o in tw.outs[i][1:3]:
+            o.meta_field_ids = {"tt": 0, "sq": 1, "md": -1}
+    for i in (1, 2):                   # thinned: interleaved and UDP
+        for o in tw.outs[i][1:3]:
+            o.on_receiver_report(0.35)
+    mover = tw.outs[5][1]
+    eng = FanoutEngine(egress_fd=tw.egress.fileno(), device="cpu")
+    sched = MegabatchScheduler(device="cpu")
+    pairs = [(tw.port, eng)]
+    seen = {"native": [], "query": [], "megabatch": []}
+
+    def plain_only(where, outs):
+        for o in outs:
+            assert o.meta_field_ids is None and o.thinning.passthrough(), \
+                where
+        seen[where].extend(outs)
+
+    def spy(where, real, pick):
+        def call(*args):
+            plain_only(where, pick(args))
+            return real(*args)
+        return call
+
+    for name in ("_udp_scatter", "_tcp_scatter"):
+        monkeypatch.setattr(eng, name, spy("native", getattr(eng, name),
+                                           lambda a: [o for o, _ in a[1]]))
+    monkeypatch.setattr(eng, "_device_params", spy(
+        "query", eng._device_params, lambda a: a[0]))
+    monkeypatch.setattr(megabatch, "pack_output_state", spy(
+        "megabatch", megabatch.pack_output_state, lambda a: a[0]))
+    feed = _packets(tw.rng, 260)
+    t = 1000
+    try:
+        tw.push(feed[:40], t)
+        for wake in range(22):
+            tw.push(feed[40 + wake * 10:40 + (wake + 1) * 10], t)
+            if wake == 6:
+                for o in tw.outs[5][1:3]:
+                    o.on_receiver_report(0.5)
+            if wake == 9:
+                native_before = seen["native"].count(mover)
+            if wake == 14:
+                for o in tw.outs[5][1:3]:
+                    for _ in range(6):
+                        o.on_receiver_report(0.0)
+            if owned:
+                sched.begin_wake(pairs, t)
+            eng.step(tw.port, t)
+            if owned:
+                sched.end_wake(pairs, t)
+            tw.ref.reflect(t)
+            tw.collect()
+            tw.assert_same(wake)
+            if 6 < wake < 14:
+                assert not mover.thinning.passthrough()
+            t += 20
+        assert seen["native"].count(mover) > native_before > 0
+        assert mover.thinning.dropped > 0
+        assert seen["megabatch" if owned else "query"]
+        assert eng.batch_sent > 0 and eng.native_sent > 0
+        assert all(len(tw.outs[i][3][1]) for i in (0, 2))  # UDP got them
+        assert eng.missing_params == 0 and eng.send_errors == 0
+        if owned:
+            assert sched.mismatches == 0
+    finally:
+        tw.close()
+
+
 def test_torn_tcp_write_is_completed_through_push_tail():
     """4 KB socket buffers and a reader that reads every twelfth wake:
     the native writev tears packets, their tails go through the transport,
@@ -566,7 +674,8 @@ def test_torn_tcp_write_is_completed_through_push_tail():
         # kernel's clock, so the wakes go on while each brings bytes
         reader.setsockopt(socket.SOL_SOCKET, socket.SO_RCVBUF, 1 << 20)
         idle = 0
-        while (len(got) < sum(4 + len(p) for p in ref_out.rtp_packets)
+        while (len(got) < sum(4 + len(p) for p in ref_out.rtp_packets
+                              + ref_out.rtcp_packets)
                and idle < 1000):
             before = len(got)
             eng.step(tw.port, t)

@@ -14,6 +14,14 @@
 * a UDP player whose RTSP connection is silent stays while it sends RTCP
   (from its registered RTCP address, or naming its SSRC in an RR) and a
   silent one is closed; the port's RR parse against the reference's;
+* RTCP end to end (1 pusher of H.264 + AAC with SRs, 4 players): relayed
+  and originated SRs reach UDP and TCP players on their own timelines, an
+  RR with loss thins only the players that sent it (a TCP player's on
+  its interleaved RTCP channel), a meta-info SETUP is granted and served,
+  and the pusher gets its upstream RRs (``utils.loopback.push_play_av``);
+* forged RTCP (an unregistered address, no owned SSRC) neither refreshes
+  an idle clock nor moves a level; a closing pusher clears only the
+  upstream-RR writer it installed;
 * a server on the CPU touches nothing of CUDA when it starts;
 * importing the port, its server, its CLI, the transcode modules and
   the REST API leaves ``jax`` and ``easydarwin_tpu`` out of
@@ -246,6 +254,10 @@ def _rr(sender: int, *reported: int) -> bytes:
 
 
 def test_rr_report_ssrcs_matches_the_reference_parse():
+    """The report-block SSRCs an RR names (what routes it and proves
+    ownership) come from the port's full parse exactly as from the
+    reference's; what is not RTCP raises, and less than a header is an
+    empty compound."""
     sr = ref_rtcp.SenderReport(5, 1 << 40, 9, 3, 4, [
         ref_rtcp.ReportBlock(77, 0, 0, 1, 0, 0, 0)]).to_bytes()
     rr = ref_rtcp.ReceiverReport(6, [ref_rtcp.ReportBlock(
@@ -254,9 +266,17 @@ def test_rr_report_ssrcs_matches_the_reference_parse():
     for data in (rr, sr + rr, rr + bye, sr, _rr(1), _rr(2, 99, 1 << 31)):
         want = {b.ssrc for p in ref_rtcp.parse_compound(data)
                 if isinstance(p, ref_rtcp.ReceiverReport) for b in p.reports}
-        assert rtcp.rr_report_ssrcs(data) == want
-    for bad in (b"", b"\x80", rr[:-4], b"\x40" + rr[1:], b"junk" * 4):
-        assert rtcp.rr_report_ssrcs(bad) is None
+        assert {b.ssrc for p in rtcp.parse_compound(data)
+                if isinstance(p, rtcp.ReceiverReport)
+                for b in p.reports} == want
+    for bad in (rr[:-4], b"\x40" + rr[1:], b"junk" * 4):
+        with pytest.raises(rtcp.RtcpError):
+            rtcp.parse_compound(bad)
+        with pytest.raises(ref_rtcp.RtcpError):
+            ref_rtcp.parse_compound(bad)
+    for empty in (b"", b"\x80"):          # no packet: names no SSRC
+        assert rtcp.parse_compound(empty) == \
+            ref_rtcp.parse_compound(empty) == []
 
 
 @pytest.mark.parametrize("proof", ["source_address", "report_block_ssrc"])
@@ -308,6 +328,122 @@ async def test_udp_player_kept_alive_by_rtcp_alone(proof):
             other.close()
         for c in (pusher, live, silent):
             if c._task is not None:
+                await c.close()
+        await app.stop()
+
+
+async def test_rtcp_meta_and_thinning_through_the_cli_on_cpu():
+    res = await loopback.serve_and_check(
+        "cpu", np.random.default_rng(11), harness=loopback.push_play_av,
+        players=[dict(transport="udp"), dict(transport="udp", meta=True),
+                 dict(transport="udp", lossy=True),
+                 dict(transport="tcp", lossy=True)],
+        gops=6, frames=15, packets_per_frame=4, body_len=(40, 200),
+        rr_every_s=0.25, loss_after_s=0.3, deadline_s=10)
+    srs = res["srs"]
+    assert all(srs[k]["relayed"] > 0 for k in ("plain/udp", "lossy/tcp"))
+    assert sum(v["originated"] for v in srs.values()) > 0
+    assert len(res["thinned"]) == 2
+    assert all(got < span for got, span in res["thinned"])
+    assert res["delivered"]["meta"] > 0
+    assert all(n > 0 for n in res["upstream_rrs"].values())
+    stats = res["server_stats"]
+    assert stats["rtcp"]["rr"] > 0 and stats["rtcp"]["in"] > 0
+    assert stats["batch_sent"] >= res["delivered"]["meta"]
+    assert stats["native_sent"] >= res["plain_udp_packets"]
+    assert stats["send_errors"] == 0 and stats["missing_params"] == 0
+
+
+async def test_forged_rtcp_neither_keeps_alive_nor_thins():
+    """A UDP player whose RTSP connection is silent, and a forger on an
+    unregistered address whose RR, NADU, NACK and APP name no SSRC the
+    player owns: the player is closed at its idle limit, its level never
+    moves, and the NACK and APP are counted."""
+    app = StreamingServer(ServerConfig(
+        rtsp_port=0, service_port=0, bind_ip="127.0.0.1", rtsp_timeout_sec=2,
+        push_timeout_sec=60), device="cpu")
+    await app.start()
+    pusher, player = loopback.MiniClient(), loopback.MiniClient()
+    forger = None
+    try:
+        uri = f"rtsp://127.0.0.1:{app.rtsp.port}/live/cam0"
+        await pusher.connect(app.rtsp.port)
+        await pusher.request("ANNOUNCE", uri,
+                             {"content-type": "application/sdp"},
+                             loopback.VIDEO_SDP.encode())
+        await player.connect(app.rtsp.port)
+        ports = await player.udp_ports()
+        await player.request("DESCRIBE", uri)
+        resp = await player.request("SETUP", uri + "/trackID=1", {
+            "transport": f"RTP/AVP;unicast;client_port={ports}"})
+        ssrc = rtsp.TransportSpec.parse(resp.headers["transport"]).ssrc
+        await player.request("PLAY", uri)
+        (out,) = next(iter(app.registry.sessions.values())) \
+            .streams[1].outputs
+        forged = (_rr(0x1234, ssrc ^ 1, ssrc ^ 2)
+                  + rtcp.Nadu(0x1234, [rtcp.NaduBlock(ssrc ^ 1, 0, 0, 0,
+                                                      0)]).to_bytes()
+                  + rtcp.GenericNack.from_seqs(0x1234, ssrc, [1, 2])
+                  .to_bytes()
+                  + rtcp.App(ssrc, "qtak", data=bytes(4)).to_bytes())
+        forger, _ = await asyncio.get_running_loop().create_datagram_endpoint(
+            asyncio.DatagramProtocol, local_addr=("127.0.0.1", 0))
+        for _ in range(18):                     # 3.6 s: past two sweeps
+            forger.sendto(forged, ("127.0.0.1",
+                                   app.rtsp.shared_egress.rtcp_port))
+            await asyncio.sleep(0.2)
+        assert player._task.done(), "forged RTCP kept the player alive"
+        assert out.thinning.controller.level == 0
+        counts = app.rtsp.rtcp_counts
+        assert app.rtsp.rtcp_in >= 15 and counts["rr"] == counts["nadu"] == 0
+        assert counts["nack"] == counts["app"] == app.rtsp.rtcp_in
+    finally:
+        if forger is not None:
+            forger.close()
+        for c in (pusher, player):
+            if c._task is not None:
+                await c.close()
+        await app.stop()
+
+
+async def test_a_closing_pusher_clears_only_its_own_upstream_rr_writer():
+    """A pusher's interleaved SETUP installs the stream's upstream-RR
+    writer on its RTCP channel; a second pusher that re-ANNOUNCEs the
+    path takes it over, and the first one's close leaves it alone."""
+    app = StreamingServer(ServerConfig(rtsp_port=0, service_port=0,
+                                       bind_ip="127.0.0.1"), device="cpu")
+    await app.start()
+    first, second = loopback.MiniClient(), loopback.MiniClient()
+    try:
+        uri = f"rtsp://127.0.0.1:{app.rtsp.port}/live/cam0"
+        for c in (first, second):
+            await c.connect(app.rtsp.port)
+            await c.request("ANNOUNCE", uri,
+                            {"content-type": "application/sdp"},
+                            loopback.VIDEO_SDP.encode())
+            await c.request("SETUP", uri + "/trackID=1", {
+                "transport": "RTP/AVP/TCP;unicast;interleaved=0-1;"
+                             "mode=record"})
+        st = app.registry.find("/live/cam0").streams[1]
+        owner = st.upstream_rtcp_owner
+        assert owner is not None and st.upstream_rtcp is not None
+        st.push_rtp(synth.h264_packet(1, 0, 5, ssrc=0x99, body=bytes(20)),
+                    now_ms())
+        await first.close()
+        await asyncio.sleep(0.2)
+        assert st.upstream_rtcp_owner is owner and owner.closed is False
+        assert st.send_upstream_rr(now_ms() + 10_000)
+        await asyncio.sleep(0.2)
+        for _t, data in second.channels[1]:    # the pump's and this one
+            (rr,) = rtcp.parse_compound(data)
+            assert rr.ssrc == st.reporter_ssrc and rr.reports[0].ssrc == 0x99
+        assert not first.channels.get(1)
+        await second.close()
+        await asyncio.sleep(0.2)
+        assert st.upstream_rtcp is None and st.upstream_rtcp_owner is None
+    finally:
+        for c in (first, second):
+            if c._task is not None and not c._task.done():
                 await c.close()
         await app.stop()
 
