@@ -33,6 +33,15 @@ phase; any failed phase raises and the script exits non-zero.
              subscribers than the grid has threads); three back-to-back
              queries on one ring and two rings queried in turn on one
              stream; the ring's arrival counter back at 0 after each
+4c. gf      ``ed_gf_parity`` (B4) vs ``gf_parity_plain`` on the card,
+             bit-exact: the wire shape [16,2048]x[2,16] (and R = 1, 8;
+             B = 256; K = 48, 64), 40 fuzzed K <= 64, R <= 8, B <= 4,096
+             with zero rows, bytes and coefficients, and the stripe
+             [4,1 MiB]x[2,4]; the wire and stripe shapes also vs the host
+             ``gf_matmul``; K = 65, R = 9, B = 300 and an odd address raise
+             without a launch; ``StripeCodec(4, 2)`` parity and a two-loss,
+             crc-checked reconstruct of 4 × 1 MiB blobs on the card equal
+             the host product (2 device passes, 0 mismatches)
 5. K2        ``ed_decode_blocks`` vs ``decode_blocks_plain`` at N = 1, 300,
              48,960 (one 1080p 4:2:0 frame), 48,961, T·stages + 1 (one
              past a full ring of tiles), CTAs·T·stages + 1 (every CTA
@@ -81,6 +90,19 @@ phase; any failed phase raises and the script exits non-zero.
              ed_parse_packets > 0 (B9, the batch-header rung, on the
              card), native_sent covering the plain players, batch_sent
              covering the meta-info packets
+7d. lossy   BASELINE config 2 with the reliability tier through the CLI
+             server: phase 7b's pusher for 8 s, 64 UDP players joining one
+             a frame: 40 plain; 16 with x-FEC: parity that drop media at
+             8% (seeded), send an RR each 0.5 s reporting 20/256 and a
+             generic NACK for each packet parity did not rebuild; 8 with
+             x-Retransmit: our-retransmit that drop at 5% and ack each
+             datagram they keep with a 'qtak' APP.  Every player's span
+             byte-equal to the oracle; FEC oracle mismatches 0 (a
+             mismatch raises in the pump), device passes = the server's
+             ed_gf_parity launches, RTX and reliable give-ups 0; per FEC
+             player the packets rebuilt by parity and by RTX; the wake
+             p50, max and first join; the host ms per FEC window split
+             into staging + H2D, kernel + D2H and the host oracle
 8. pipeline  the config-5 TranscodePipeline (qualities 80/50/25 from 90,
              decode_pixels) for 8 steps of 783,360 blocks on the card:
              8 K2 launches, one step held against the same pipeline on the
@@ -107,12 +129,15 @@ phase; any failed phase raises and the script exits non-zero.
              ``relay_batch_step`` (B9: K1 + torch ops) on the card against
              the same call on CPU tensors, bit-exact on every key, at
              phase 7c's shape and at config 4's (P = 256, S = 256), timed
-             beside its bound and its CPU time
+             beside its bound and its CPU time; ``ed_gf_parity`` at the
+             wire shape (the kernels line) and the stripe beside its bound
+             and its plain version; B7, the ladder's requant at config 5,
+             in a graph beside its byte bound
 
 The kernel launch counts are set to 0 just before phase 6 and read just
 after phase 9 (the server processes report their own at exit, without
 their start-up warm-up); the comparisons and timings of phases 3, 4, 4b,
-5 and 10 run outside that window.
+4c, 5 and 10 run outside that window.
 Detail goes to ``chiprun_out/chip_smoke.json``.  The last line of standard
 output is ``{"ok": true, "device": {...}}``.
 """
@@ -499,6 +524,131 @@ def phase_ring_query(rng) -> dict:
         "queried in turn on one stream: bit-exact, counters back at 0")
     torch.cuda.synchronize()
     return res
+
+
+# ------------------------------------------------------------- phase 4c
+#: B4's wire shape: a 16-packet window of 1080p rows (pow2 of ≈1.3 KB is
+#: 2,048 bytes) and 2 parity rows (10% overhead); the stripe codec's: 4
+#: blobs of 1 MiB and 2 parity shards
+GF_WIRE = (16, 2048, 2)
+GF_STRIPE = (4, 1 << 20, 2)
+#: per (parity row, row, column) product: the log add, the antilog
+#: gather, the zero mask and the XOR; per (row, column): the log gather
+#: and the zero test
+OPS_PER_GF_PRODUCT = 4
+OPS_PER_GF_BYTE = 2
+
+
+def gf_inputs(rng, k: int, b: int, r: int):
+    """Fuzzed ``rows [k, b]`` and ``coeff [r, k]`` uint8 on the card, with
+    a zero row, zero bytes and zero coefficients."""
+    import numpy as np
+    import torch
+    rows = rng.integers(0, 256, (k, b), dtype=np.uint8)
+    coeff = rng.integers(0, 256, (r, k), dtype=np.uint8)
+    rows[int(rng.integers(k))] = 0
+    rows[rng.random((k, b)) < 0.05] = 0
+    coeff[rng.random((r, k)) < 0.2] = 0
+    if k > 1:
+        coeff[:, int(rng.integers(k))] = 0
+    return torch.from_numpy(rows).cuda(), torch.from_numpy(coeff).cuda()
+
+
+def gf_bound(k: int, b: int, r: int) -> tuple[int, int]:
+    """(bytes, operations) one ``ed_gf_parity`` call must move and do:
+    rows and coefficients read once, parity written once."""
+    return (k * b + r * k + r * b,
+            OPS_PER_GF_PRODUCT * r * k * b + OPS_PER_GF_BYTE * k * b)
+
+
+def phase_gf(rng) -> dict:
+    """``ed_gf_parity`` vs ``gf_parity_plain`` on the card, bit-exact, at
+    the wire shapes, 40 fuzzed (K <= 64, R <= 8, B <= 4,096) and the
+    stripe; shapes out of range raise without a launch; the stripe codec's
+    parity and a two-loss reconstruct of 4 × 1 MiB blobs on the card equal
+    the host product."""
+    import zlib
+    import numpy as np
+    import torch
+    from easydarwin_tpu_torch.ops import kernel_lib
+    from easydarwin_tpu_torch.ops.fec_kernel import gf_parity, gf_parity_plain
+    from easydarwin_tpu_torch.relay.fec import coeff_rows, gf_matmul
+    from easydarwin_tpu_torch.storage.codec import StripeCodec
+    shapes = [GF_WIRE, (16, 2048, 1), (16, 2048, 8), (16, 256, 2),
+              (48, 2048, 8), (64, 4096, 8), (1, 256, 1)]
+    shapes += [(int(rng.integers(1, 65)), 256 * int(rng.integers(1, 17)),
+                int(rng.integers(1, 9))) for _ in range(40)]
+    shapes.append(GF_STRIPE)
+    err = 0
+    for k, b, r in shapes:
+        rows, coeff = gf_inputs(rng, k, b, r)
+        before = kernel_lib.LAUNCHES["ed_gf_parity"]
+        got = gf_parity(rows, coeff)
+        check(kernel_lib.LAUNCHES["ed_gf_parity"] == before + 1,
+              f"gf [{k},{b}]x[{r},{k}]: not one launch")
+        want = gf_parity_plain(rows, coeff)
+        torch.cuda.synchronize()
+        err = max(err, int((got.int() - want.int()).abs().max()))
+        check(got.dtype == torch.uint8 and torch.equal(got, want),
+              f"ed_gf_parity [{k},{b}]x[{r},{k}] differs from the plain "
+              f"version")
+        if (k, b, r) in (GF_WIRE, GF_STRIPE):
+            host = gf_matmul(coeff.cpu().numpy(), rows.cpu().numpy())
+            err = max(err, int(np.abs(got.cpu().numpy().astype(np.int32)
+                                      - host).max()))
+            check(np.array_equal(got.cpu().numpy(), host),
+                  f"ed_gf_parity [{k},{b}]x[{r},{k}] differs from gf_matmul")
+    log(f"[gf] ed_gf_parity bit-exact vs gf_parity_plain at {len(shapes)} "
+        f"shapes: wire {GF_WIRE} (and R 1, 8; B 256), 40 fuzzed with zero "
+        f"rows, bytes and coefficients, stripe {GF_STRIPE}; the wire and "
+        f"stripe shapes also vs the host gf_matmul")
+    before = kernel_lib.LAUNCHES["ed_gf_parity"]
+    u8 = dict(dtype=torch.uint8, device="cuda")
+    for rows, coeff, what in (
+            (torch.zeros((65, 256), **u8), torch.ones((2, 65), **u8),
+             "K = 65"),
+            (torch.zeros((16, 256), **u8), torch.ones((9, 16), **u8),
+             "R = 9"),
+            (torch.zeros((16, 300), **u8), torch.ones((2, 16), **u8),
+             "B = 300"),
+            (torch.zeros(16 * 2048 + 1, **u8)[1:].view(16, 2048),
+             torch.ones((2, 16), **u8), "rows at an odd address")):
+        try:
+            gf_parity(rows, coeff)
+        except ValueError:
+            continue
+        raise AssertionError(f"ed_gf_parity took {what}")
+    check(kernel_lib.LAUNCHES["ed_gf_parity"] == before,
+          "an out-of-range shape launched")
+    log("[gf] K = 65, R = 9, B = 300 and rows at an odd address raise "
+        "without a launch")
+    # the stripe codec on the card: 4 blobs of ≈1 MiB, two lost
+    blobs = [rng.integers(0, 256, GF_STRIPE[1] - 41 * i,
+                          dtype=np.uint8).tobytes() for i in range(4)]
+    codec = StripeCodec(4, 2, device="cuda")
+    before = kernel_lib.LAUNCHES["ed_gf_parity"]
+    parity = codec.parity(blobs)
+    lens = [len(x) for x in blobs]
+    stripe = np.zeros((4, max(lens)), np.uint8)
+    for i, x in enumerate(blobs):
+        stripe[i, :len(x)] = np.frombuffer(x, np.uint8)
+    host = gf_matmul(coeff_rows(range(4), 2), stripe)
+    check(parity == [host[p].tobytes() for p in range(2)],
+          "StripeCodec.parity on the card differs from gf_matmul")
+    crcs = [zlib.crc32(x) & 0xFFFFFFFF for x in blobs]
+    got = codec.reconstruct({2: blobs[2], 3: blobs[3], 4: parity[0],
+                             5: parity[1]}, lens, asset="chip", crcs=crcs)
+    check(got == {0: blobs[0], 1: blobs[1]},
+          "StripeCodec two-loss reconstruct is not the lost blobs")
+    check(codec.oracle_mismatches == 0 and codec.device_passes == 2
+          and kernel_lib.LAUNCHES["ed_gf_parity"] == before + 2,
+          f"stripe codec: {codec.oracle_mismatches} mismatches, "
+          f"{codec.device_passes} device passes")
+    log("[gf] StripeCodec(4, 2) on the card: parity of 4 x 1 MiB blobs "
+        "equals the host product, a two-loss reconstruct (crc-checked) "
+        "returns the lost blobs; 2 device passes, 0 oracle mismatches")
+    return {"shapes": len(shapes), "max_abs_err": err,
+            "stripe_device_passes": codec.device_passes}
 
 
 # -------------------------------------------------------------- phase 5
@@ -1021,6 +1171,73 @@ def phase_rtcp(rng) -> dict:
     return res
 
 
+# ------------------------------------------------------------- phase 7d
+#: phase 7d's players, in join order: five plain, two FEC, one reliable
+LOSSY_PLAYERS = [dict(kind="plain") if i % 8 < 5
+                 else dict(kind="fec", drop=0.08) if i % 8 < 7
+                 else dict(kind="reliable", drop=0.05)
+                 for i in range(CONFIG2_SUBS)]
+
+
+def phase_lossy(rng) -> dict:
+    """BASELINE config 2 with the reliability tier through the CLI
+    server: phase 7b's pusher for 8 s, 64 UDP players joining one a frame
+    (40 plain, 16 FEC dropping 8% of media, 8 reliable dropping 5%)."""
+    from easydarwin_tpu_torch.utils import loopback
+    res = asyncio.run(asyncio.wait_for(loopback.serve_and_check(
+        DEVICE, rng, harness=loopback.push_play_lossy, players=LOSSY_PLAYERS,
+        gops=8, frames=30, packets_per_frame=13, body_len=(1270, 1300),
+        rr_every_s=0.5, deadline_s=60), 400))
+    st = res["server_stats"]
+    fec, rel = st["fec"], st["reliable"]
+    launches = st["kernel_launches"]
+    check(st["native_loaded"], "the server's egress core did not load")
+    check(fec["oracle_mismatches"] == 0,
+          f"FEC parity disagreed with the host oracle: {fec}")
+    check(fec["device_passes"] > 0
+          and fec["device_passes"] == launches["ed_gf_parity"],
+          f"FEC device passes {fec['device_passes']} != the server's "
+          f"ed_gf_parity launches {launches['ed_gf_parity']}")
+    check(fec["rtx_giveups"] == 0 and rel["giveups"] == 0,
+          f"give-ups: RTX {fec['rtx_giveups']}, reliable {rel['giveups']}")
+    check(fec["parity_sent"] > 0 and fec["rtx_sent"] > 0,
+          f"no parity or no RTX: {fec}")
+    check(all(p["parity"] > 0 for p in res["fec_players"]),
+          "a FEC player rebuilt nothing from parity")
+    check(rel["resends"] > 0 and rel["acks"] > 0, f"reliable: {rel}")
+    check(st["send_errors"] == 0 and st["missing_params"] == 0,
+          f"lossy send errors / missing params: {st}")
+    check(st["batch_sent"] >= res["delivered"]["reliable"],
+          "the reliable players' packets left on another rung")
+    log(f"[lossy] 1 source x {res['players']} UDP players: "
+        f"{res['packets_pushed']} packets pushed in {res['push_s']:.1f} s, "
+        f"the last span complete {res['settle_s']:.1f} s later; delivered "
+        f"{res['delivered']}, every player's span byte-equal to the oracle; "
+        f"FEC {fec['parity_sent']} parity packets in "
+        f"{fec['windows_emitted']} windows ({fec['windows_skipped']} "
+        f"skipped), {fec['device_passes']} device passes = "
+        f"{launches['ed_gf_parity']} ed_gf_parity launches, 0 oracle "
+        f"mismatches, RTX {fec['rtx_sent']} sent, 0 give-ups; reliable "
+        f"{rel['resends']} resends, {rel['acks']} acks, 0 give-ups; RTCP "
+        f"{st['rtcp']}; launches {launches}")
+    for p in res["fec_players"]:
+        log(f"[lossy] FEC player {p['index']}: {p['packets']} packets, "
+            f"{p['dropped']} dropped, {p['parity']} rebuilt from parity, "
+            f"{p['rtx']} by RTX ({p['nacks']} NACKs of {p['nacked_seqs']} "
+            f"seqs)")
+    for p in res["reliable_players"]:
+        log(f"[lossy] reliable player {p['index']}: {p['packets']} packets, "
+            f"{p['dropped']} dropped, {p['duplicates']} duplicates, "
+            f"{p['acks']} acks")
+    log(f"[lossy] wake host ms p50 {st['wake_ms_p50']:.3f} max "
+        f"{st['wake_ms_max']:.3f}, first join's {st['wake_ms_first']:.3f}; "
+        f"host ms per FEC window (device pass): staging + H2D "
+        f"{fec['stage_ms_per_window']:.6f}, kernel + D2H "
+        f"{fec['kernel_ms_per_window']:.6f}, host oracle "
+        f"{fec['oracle_ms_per_window']:.6f}")
+    return res
+
+
 # -------------------------------------------------------------- phase 8
 def phase_pipeline(levels) -> dict:
     """The config-5 TranscodePipeline for 8 steps of 783,360 blocks on the
@@ -1104,7 +1321,7 @@ def ptxas_report(build_log: str) -> dict:
     import re
     names = ("parse_packets_kernel", "relay_window_kernel",
              "ring_query_kernel", "launch_floor_kernel",
-             "decode_blocks_kernel")
+             "decode_blocks_kernel", "gf_parity_kernel")
     out, cur = {}, None
     for line in build_log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
@@ -1151,7 +1368,7 @@ def phase_kernels(rng, launches: dict, errs: dict, levels, qt
     import ctypes
     import torch
     from easydarwin_tpu_torch.ops import device_ring as dr
-    from easydarwin_tpu_torch.ops import fanout, kernel_lib
+    from easydarwin_tpu_torch.ops import fanout, fec_kernel, kernel_lib
     from easydarwin_tpu_torch.ops import transform as tf
     from easydarwin_tpu_torch.ops.parse import parse_packets
     from easydarwin_tpu_torch.ops.parse_kernel import parse_packets_kernel
@@ -1228,6 +1445,25 @@ def phase_kernels(rng, launches: dict, errs: dict, levels, qt
     # config 4's bytes and 64 CTAs again, as 64 streams of 64 rows: one CTA
     # a stream row, so no cluster exchange
     window_case(((64, 64, 64, 64, 64),), False)
+    def gf_case(shape, main: bool):
+        k, b, r = shape
+        rows, coeff = gf_inputs(rng, k, b, r)
+        tables = fec_kernel._tables(rows.device)
+        out = torch.empty((r, b), dtype=torch.uint8, device="cuda")
+        nbytes, ops = gf_bound(k, b, r)
+        cases.append((
+            "ed_gf_parity", f"[{k},{b}]x[{r},{k}]", main,
+            "easydarwin_tpu_torch/csrc/fec_kernels.cu",
+            "easydarwin_tpu/models/relay_pipeline.py:280",
+            lambda: kernel_lib.launch(
+                "ed_gf_parity", rows.data_ptr(), k, b, coeff.data_ptr(), r,
+                tables.data_ptr(), out.data_ptr()),
+            lambda: fec_kernel.gf_parity(rows, coeff),
+            lambda: fec_kernel.gf_parity_plain(rows, coeff), None,
+            nbytes, ops, 100 if main else 20))
+
+    gf_case(GF_WIRE, True)
+    gf_case(GF_STRIPE, False)
     n = levels.shape[0]
     inv = tf.operator("inv", levels.device)    # the library's operator
     idct8 = tf.operator("idct8", levels.device)
@@ -1282,6 +1518,43 @@ def phase_kernels(rng, launches: dict, errs: dict, levels, qt
         log(f"[kernels] ed_ring_query at C={RING_C} {label} after the graph "
             f"replays: bit-exact, counter back at 0")
     return out
+
+
+#: per coefficient of B7's requant: the dequant multiply, then per rung
+#: the divide, the round, the int conversion and the nonzero count
+OPS_PER_B7_COEF, OPS_PER_B7_RUNG_COEF = 1, 4
+
+
+def phase_b7(levels) -> dict:
+    """B7, the config-5 ladder's requant (torch ops, no hand kernel): one
+    ``_ladder_step`` without pixels (dequantize, three rungs, nonzero
+    counts) at 783,360 blocks in a CUDA graph, beside its bound."""
+    from easydarwin_tpu_torch.models.transcode_pipeline import (
+        TranscodeConfig, TranscodePipeline, _ladder_step)
+    pipe = TranscodePipeline(TranscodeConfig(qualities=(80, 50, 25),
+                                             source_quality=90),
+                             device=DEVICE)
+    r = pipe.qt_rungs.shape[0]
+    n = levels.numel()
+    nbytes = (4 * n + 4 * pipe.qt_in.numel() + 4 * pipe.qt_rungs.numel()
+              + 4 * r * n + 4 * r)
+    ops = OPS_PER_B7_COEF * n + OPS_PER_B7_RUNG_COEF * r * n
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S * 1e3
+    ms = graph_ms(lambda: _ladder_step(levels, qt_in=pipe.qt_in,
+                                       qt_rungs=pipe.qt_rungs,
+                                       decode_pixels=False), inner=5)
+    res = {"name": "B7 _ladder_step (no pixels)", "route": "torch ops",
+           "shape": f"[{levels.shape[0]},64] x {r} rungs", "ms": ms,
+           "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "bytes": nbytes, "ops": ops, "bound_share": max(t_bytes, t_ops)
+           / ms, "library_ms": None}
+    log(f"[b7] the ladder's requant at config 5 ({res['shape']}): "
+        f"{ms:.6f} ms in a graph, bound {res['bound_ms']:.6f} ms by "
+        f"{res['bound_by']} ({nbytes} bytes), {res['bound_share']:.1%} of "
+        f"the bound")
+    return res
 
 
 #: per (output, packet) header of B9: the seq and ts adds and masks, 10
@@ -1441,6 +1714,7 @@ def main() -> int:
         f"launch plans")
     detail["window"] = phase_window(rng)
     detail["ring"] = phase_ring_query(rng)
+    detail["gf"] = phase_gf(rng)
     levels, qt = config5_levels(int(rng.integers(1 << 31)))
     detail["k2_ring"] = ring_geometry()
     log(f"[k2] ring: {detail['k2_ring']}")
@@ -1452,11 +1726,12 @@ def main() -> int:
     detail["server"] = phase_server(rng)
     detail["config2"] = phase_config2(rng)
     detail["rtcp"] = phase_rtcp(rng)
+    detail["lossy"] = phase_lossy(rng)
     detail["pipeline"] = phase_pipeline(levels)
     detail["ladder"] = phase_ladder(rng)
     in_proc = dict(kernel_lib.LAUNCHES)
     servers = [detail[p]["server_stats"]["kernel_launches"]
-               for p in ("server", "config2", "rtcp", "ladder")]
+               for p in ("server", "config2", "rtcp", "lossy", "ladder")]
     launches = {k: in_proc[k] + sum(s.get(k, 0) for s in servers)
                 for k in in_proc}
     log(f"[main path] kernel launches {launches} (in-process {in_proc}, "
@@ -1468,7 +1743,8 @@ def main() -> int:
             "ed_relay_window": max(detail["window"].values()),
             "ed_ring_query": max(detail["ring"].values()),
             "ed_decode_blocks": max(v["max_abs_err"]
-                                    for v in detail["k2"].values())}
+                                    for v in detail["k2"].values()),
+            "ed_gf_parity": detail["gf"]["max_abs_err"]}
     detail["launch_floor_ms"] = launch_floor_ms()
     log(f"[kernels] launch floor: {detail['launch_floor_ms']:.6f} ms per "
         f"graph node (ed_launch_floor, an empty kernel)")
@@ -1492,6 +1768,7 @@ def main() -> int:
     detail["batch_step"] = phase_batch_step(
         rng, (("phase 7c", b9_p, b9_s), ("config 4", 256, 256)),
         rtcp_st["batch_passes"])
+    detail["b7"] = phase_b7(levels)
     kernels = [{k: v for k, v in t.items() if not k.startswith("_")}
                for t in timed if t["_main_path"]]
     for k in timed:

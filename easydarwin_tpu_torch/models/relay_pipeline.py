@@ -10,7 +10,9 @@ Two parse backends (the hand-written K1 kernel, or the plain PyTorch parse
 (``relay.megabatch``) dispatches once per wake over every shape bucket
 (``megabatch_window_step`` is its group of one), and
 ``scatter_affine_segments`` splits a bucket's result back into per-stream
-params.
+params.  ``fec_parity_window_step`` is the FEC tier's GF(256) parity pass
+(B4), shared by the wire FEC (``relay.fec``) and the stripe codec
+(``storage.codec``).
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ import torch
 
 from .. import resolve_device
 from ..ops import fanout as fanout_ops
+from ..ops import fec_kernel
 from ..ops import gop as gop_ops
 from ..ops.parse import normalize_codec, parse_packets, u32_from_i64
 from ..ops.parse_kernel import parse_packets_kernel
@@ -138,3 +141,13 @@ def scatter_affine_segments(packed, n_subs):
             np.ascontiguousarray(row[None, 3 * s_pad:3 * s_pad + n]),
             int(row[4 * s_pad].astype(np.int32))))
     return out
+
+
+def fec_parity_window_step(rows: torch.Tensor,
+                           coeff: torch.Tensor) -> torch.Tensor:
+    """GF(256) parity: ``rows [K, B]`` uint8 (a window's ring rows or a
+    stripe's blobs, zero-padded, B a multiple of 256) × ``coeff [R, K]``
+    uint8 (``relay.fec.coeff_rows``) → ``[R, B]`` uint8.  Zero rows and
+    zero coefficients contribute nothing, so padding is free.  On the card
+    one ``ed_gf_parity`` launch; on a CPU tensor the plain version."""
+    return fec_kernel.gf_parity(rows, coeff)

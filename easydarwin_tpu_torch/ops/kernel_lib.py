@@ -30,7 +30,8 @@ import torch
 
 _PKG = Path(__file__).resolve().parents[1]
 SOURCES = (_PKG / "csrc" / "relay_kernels.cu",
-           _PKG / "csrc" / "transform_kernels.cu")
+           _PKG / "csrc" / "transform_kernels.cu",
+           _PKG / "csrc" / "fec_kernels.cu")
 BUILD_DIR = _PKG.parent / "build" / "easydarwin_tpu_torch"
 GENCODE = ("-gencode", "arch=compute_90a,code=sm_90a")
 #: compile flags of every source (no fast-math: K2 rounds like jnp.round)
@@ -39,7 +40,7 @@ NVCC_FLAGS = (*GENCODE, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 
 #: kernel name → launches made by its wrapper in this process
 LAUNCHES = {"ed_parse_packets": 0, "ed_relay_window": 0,
-            "ed_ring_query": 0, "ed_decode_blocks": 0}
+            "ed_ring_query": 0, "ed_decode_blocks": 0, "ed_gf_parity": 0}
 
 #: cp.async.bulk moves 16-byte-aligned runs that are a multiple of 16 bytes
 BULK_ALIGN = 16
@@ -71,6 +72,8 @@ _SIGNATURES = {
     "ed_decode_blocks": (_P, _I, _P, _P, _P, _P),
     # -> blocks per tile, ring stages, CTAs a launch uses (not a launch)
     "ed_decode_blocks_geometry": (_IP, _IP, _IP),
+    # rows, K, B, coeff, R, tables (antilog 512 ∥ log 256), out, stream
+    "ed_gf_parity": (_P, _I, _I, _P, _I, _P, _P, _P),
 }
 
 

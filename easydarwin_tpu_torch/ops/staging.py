@@ -7,11 +7,17 @@ belong to the scheduler (``relay.megabatch``), double-buffered per shape
 bucket; the functions here only fill them, byte for byte as the reference
 packs them: through the egress core's ``ed_stage_gather`` when the native
 library is loaded, with numpy otherwise.
+
+The FEC tier's device pass stages one window of whole ring rows at a time
+(``stage_fec_rows``) into a ``PinnedStage``: host buffers, page-locked
+when they feed a card, that are written again only after the CUDA event
+recorded behind their last copy has completed.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from .. import native
 from .fanout import WINDOW_EXTRA
@@ -83,3 +89,47 @@ def gather_window(ring, start: int, count: int, out_rows: np.ndarray,
     out_rows[:n, prefix_width + 4:] = 0
     out_rows[n:] = 0
     return n
+
+
+class PinnedStage:
+    """Host buffers for one caller's H2D and D2H copies, one per (name,
+    shape, dtype), page-locked when ``pin``; ``buffer`` waits on the event
+    recorded behind the last copies (``record``) before it hands a buffer
+    out again."""
+
+    def __init__(self, pin: bool):
+        self.pin = pin
+        self._bufs: dict[tuple, torch.Tensor] = {}
+        self.event = None
+
+    def buffer(self, name: str, shape: tuple, dtype=torch.uint8
+               ) -> torch.Tensor:
+        if self.event is not None:
+            self.event.synchronize()       # the last copies from it are done
+            self.event = None
+        key = (name, tuple(shape), dtype)
+        buf = self._bufs.get(key)
+        if buf is None:
+            buf = self._bufs[key] = torch.empty(shape, dtype=dtype,
+                                                pin_memory=self.pin)
+        return buf
+
+    def record(self) -> None:
+        """Mark the copies just enqueued on the current stream."""
+        if self.pin:
+            self.event = torch.cuda.Event()
+            self.event.record()
+
+
+def stage_fec_rows(ring, slots: np.ndarray, lens: np.ndarray,
+                   out_rows: np.ndarray) -> None:
+    """Window rows for the GF parity pass: ``out_rows [k, B]`` gets the
+    ring bytes of ``slots`` (as many as fit in a slot or in ``B``), zero
+    past each packet's length (a slot may hold an earlier occupant's bytes
+    there) and zero rows below the window's packets."""
+    n = len(slots)
+    b_pad = out_rows.shape[1]
+    width = min(b_pad, ring.data.shape[1])
+    out_rows[:] = 0
+    out_rows[:n, :width] = ring.data[slots, :width]
+    out_rows[:n][np.arange(b_pad)[None, :] >= np.asarray(lens)[:, None]] = 0

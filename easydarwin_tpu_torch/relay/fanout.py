@@ -17,11 +17,14 @@ device computed:
   by numpy (``render_headers``) and written through ``send_rewritten``.
 
 The fourth, the **batch-header rung**, serves the outputs the other three
-must not: a meta-info output (its packets are wrapped) and a thinned one
-(``thinning.passthrough()`` false: its filter drops frames).  It renders
-their headers with ``ops.fanout.relay_batch_step`` (B9; K1's parse on the
-card) and walks each output through ``admit`` and ``send_rewritten`` in
-the oracle's order.  Every pass ends in ``RelayStream.relay_rtcp``.
+must not: a meta-info output (its packets are wrapped), a thinned one
+(``thinning.passthrough()`` false: its filter drops frames) and a reliable
+UDP output (``records_sends``: every datagram enters its resend window).
+It renders their headers with ``ops.fanout.relay_batch_step`` (B9; K1's
+parse on the card) and walks each output through ``admit`` and
+``send_rewritten`` in the oracle's order.  A FEC output stays on the UDP
+fast rung; its parity and RTX leave through ``send_bytes`` from
+``relay.fec``.  Every pass ends in ``RelayStream.relay_rtcp``.
 
 The canonical order of a stream's primed param-rung outputs is UDP fast,
 TCP fast, then the loop; ``params_key``, the scheduler's state rows and
@@ -198,8 +201,9 @@ class FanoutEngine:
     @staticmethod
     def _batched(out) -> bool:
         """An output only the batch-header rung may serve: its packets are
-        wrapped in meta-info, or its thinning filter may drop them."""
-        return (out.meta_field_ids is not None
+        wrapped in meta-info, its thinning filter may drop them, or it
+        must see each datagram it sends (``records_sends``)."""
+        return (out.meta_field_ids is not None or out.records_sends
                 or not out.thinning.passthrough())
 
     @classmethod

@@ -54,10 +54,16 @@ class RelayOutput:
     socket), ``stream_fd`` (the raw stream socket of an interleaved
     output), ``engine_writable()`` (raw writes to that socket cannot
     overtake buffered bytes) and ``push_tail()`` (queue a torn packet's
-    remaining bytes behind the socket's own buffer)."""
+    remaining bytes behind the socket's own buffer); ``records_sends``
+    keeps an output off every rung but the batch-header rung.  A UDP
+    output may carry ``fec``, its FEC tier state (``relay.fec.
+    FecOutputState``), which ``RelayStream.add_output`` registers."""
 
     native_addr: tuple[str, int] | None = None
     stream_fd: int = -1
+    #: True for an output that must see every datagram it sends (reliable
+    #: UDP's resend window): the engine serves it on the batch-header rung
+    records_sends: bool = False
 
     def engine_writable(self) -> bool:
         return False
@@ -73,6 +79,8 @@ class RelayOutput:
         self.thinning = ThinningFilter()
         #: negotiated x-RTP-Meta-Info {field: compressed id}; None = plain
         self.meta_field_ids: dict[str, int] | None = None
+        #: the FEC tier's state (``relay.fec.FecOutputState``), or None
+        self.fec = None
         self.packets_sent = 0
         self.bytes_sent = 0
         #: RTP payload octets only (no 12-byte header, no meta-info wrap):

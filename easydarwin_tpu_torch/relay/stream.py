@@ -15,6 +15,12 @@ RTCP compound rebased onto each output's timeline, and an SR of the
 relay's own for every output that has had none for ``SR_INTERVAL_MS``.
 ``send_upstream_rr`` reports the reception of the pushed stream (RFC 3550
 A.3) back to the pusher at the same cadence.
+
+The lossy-UDP tier hangs off the stream: ``fec`` (a ``relay.fec.
+StreamFec``, made when the first output with an ``out.fec`` state joins)
+emits parity at the head of every ``relay_rtcp``, and
+``tickable_outputs`` lists the outputs with a ``tick`` (reliable UDP's
+resend sweeps), which the server's pump runs each wake.
 """
 
 from __future__ import annotations
@@ -99,6 +105,11 @@ class RelayStream:
         self._rr_received = 0
         self._rr_prev_expected = 0
         self._rr_prev_received = 0
+        #: the FEC tier's per-stream engine (``relay.fec.StreamFec``),
+        #: made when the first FEC output joins
+        self.fec = None
+        #: outputs with a resend sweep (``tick``), run by the pump
+        self.tickable_outputs: list[RelayOutput] = []
 
     # -- ingest ------------------------------------------------------------
     def _note_rtp_ingested(self, pid: int) -> None:
@@ -147,6 +158,13 @@ class RelayStream:
         """Place in the first bucket with a free slot, growing the bucket
         array as needed; ``bucket`` pins an explicit index instead."""
         self._next_sr_due_ms = 0        # a new output: its SR is due now
+        if hasattr(output, "tick"):     # reliable UDP's resend sweeps
+            self.tickable_outputs.append(output)
+        if getattr(output, "fec", None) is not None:
+            if self.fec is None:
+                from .fec import StreamFec
+                self.fec = StreamFec(self, output.fec.cfg)
+            self.fec.add_output(output)
         if bucket is not None:
             while len(self.buckets) <= bucket:
                 self.buckets.append([])
@@ -159,6 +177,10 @@ class RelayStream:
         self.buckets.append([output])
 
     def remove_output(self, output: RelayOutput) -> bool:
+        if output in self.tickable_outputs:
+            self.tickable_outputs.remove(output)
+        if self.fec is not None:
+            self.fec.remove_output(output)
         for bucket in self.buckets:
             if output in bucket:
                 bucket.remove(output)
@@ -250,7 +272,11 @@ class RelayStream:
         An output whose rebase has not latched gets no SR: the
         source-timeline pair would poison its sync; it is checked again
         every pass until it latches.  SR NTP time is the wall-clock base
-        plus the relay clock, so both engines give the same bytes."""
+        plus the relay clock, so both engines give the same bytes.  The
+        FEC tier's parity goes first, before the early return: a pusher
+        that sends no RTCP still gets its players' parity."""
+        if self.fec is not None:
+            self.fec.tick(now_ms)
         rring = self.rtcp_ring
         if len(rring) == 0 and now_ms < self._next_sr_due_ms:
             return                  # nothing buffered, no SR due

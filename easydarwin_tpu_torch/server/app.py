@@ -26,6 +26,12 @@ kernel library and runs one small ring query when it starts, so the first
 join does not pay for them.  One stream's error is counted
 (``pump_errors``) and the wake goes on with the next stream.
 
+After each stream's step the pump runs the resend sweep (``tick``) of
+each of its reliable-UDP players, each one guarded like the step.  The
+FEC tier's parity rides the step itself (``relay_rtcp``); ``stats()``
+sums it over every stream (``"fec"``) and the reliable players' resends,
+acks and give-ups (``"reliable"``).
+
 Once a second the pump evicts old packets, sends each pusher its due
 receiver reports, closes idle connections and retires transcode ladders
 whose source went away.
@@ -45,6 +51,7 @@ from .. import native, resolve_device
 from ..models.mjpeg_ladder import MjpegTranscodeService
 from ..ops import device_ring, kernel_lib
 from ..relay.fanout import FanoutEngine
+from ..relay.fec import StreamFec
 from ..relay.megabatch import MegabatchScheduler
 from ..relay.session import SessionRegistry, now_ms
 from .config import ServerConfig
@@ -68,7 +75,7 @@ class StreamingServer:
         self.device = resolve_device(device)
         self.registry = SessionRegistry(self.config.stream)
         self.rtsp = RtspServer(self.config, self.registry,
-                               on_pump_wake=self._wake)
+                               on_pump_wake=self._wake, device=self.device)
         self.megabatch = MegabatchScheduler(device=self.device)
         self.transcodes = MjpegTranscodeService(
             self.registry, on_frame=lambda _p: self._wake(),
@@ -77,6 +84,13 @@ class StreamingServer:
         self._engines: dict[int, FanoutEngine] = {}
         #: native counters of engines whose streams went away
         self._retired = dict.fromkeys(ENGINE_COUNTERS, 0)
+        #: stream id → the StreamFec of every stream with one, and the FEC
+        #: counters of those that went away
+        self._fec: dict[int, StreamFec] = {}
+        self._fec_retired = dict.fromkeys(StreamFec.COUNTERS, 0)
+        #: reliable-UDP resend sweeps: packets resent and given up
+        self.reliable_resends = 0
+        self.reliable_giveups = 0
         self.native_loaded = False
         self._pump_event = asyncio.Event()
         self._pump_task: asyncio.Task | None = None
@@ -157,6 +171,13 @@ class StreamingServer:
             eng = self._engines.pop(sid)
             for k in ENGINE_COUNTERS:
                 self._retired[k] += getattr(eng, k)
+        for s, _ in pairs:
+            if s.fec is not None:
+                self._fec[id(s)] = s.fec
+        for sid in [k for k in self._fec if k not in live]:
+            fec = self._fec.pop(sid)
+            for k, v in fec.drain_counters().items():
+                self._fec_retired[k] += v
         return pairs
 
     def _pump_error(self) -> None:
@@ -194,10 +215,33 @@ class StreamingServer:
                 sent += eng.step(stream, t)
             except Exception:
                 self._pump_error()
+            for out in list(stream.tickable_outputs):
+                try:
+                    self._tick(out, t)
+                except Exception:
+                    self._pump_error()
         self.packets_out += sent
         if engaged:
             self.megabatch.end_wake(pairs, t)
         return sent
+
+    def _tick(self, out, t: int) -> None:
+        """One reliable-UDP player's resend sweep."""
+        expired = out.resender.expired
+        self.reliable_resends += out.tick(t)
+        self.reliable_giveups += out.resender.expired - expired
+
+    def fec_stats(self) -> dict:
+        """The FEC tier's counters over every stream the server ran, and
+        the host ms per device pass of its three legs."""
+        tot = dict(self._fec_retired)
+        for fec in self._fec.values():
+            for k in StreamFec.COUNTERS:
+                tot[k] += getattr(fec, k)
+        passes = max(tot["device_passes"], 1)
+        for leg in ("stage", "kernel", "oracle"):
+            tot[f"{leg}_ms_per_window"] = tot.pop(f"{leg}_ns") / passes / 1e6
+        return tot
 
     async def _pump_loop(self) -> None:
         interval = self.config.reflect_interval_ms / 1000.0
@@ -244,5 +288,9 @@ class StreamingServer:
                 "wake_ms_first": self.wake_ms_first,
                 "native_loaded": self.native_loaded,
                 "rtcp": {"in": self.rtsp.rtcp_in, **self.rtsp.rtcp_counts},
+                "fec": self.fec_stats(),
+                "reliable": {"resends": self.reliable_resends,
+                             "acks": self.rtsp.reliable_acks,
+                             "giveups": self.reliable_giveups},
                 "megabatch": self.megabatch.stats(),
                 "kernel_launches": dict(kernel_lib.LAUNCHES)}

@@ -15,15 +15,27 @@ mandatory ``md`` are served): the reply grants the fields and the output
 wraps every packet.  A pusher's interleaved SETUP installs the stream's
 upstream-RTCP writer on its RTCP channel, for the relay's RRs.
 
+A UDP player's SETUP may also ask for one of two loss tiers.
+``x-FEC: parity`` arms the FEC tier (``relay.fec``: parity windows whose
+overhead follows the player's RRs, and generic-NACK → RTX replay from the
+ring); the reply grants ``parity;pt=<fec pt>;rtx-pt=<rtx pt>``.
+``x-Retransmit: our-retransmit[;window=KB]`` wraps the output in the
+resend window (``relay.reliable.ReliableUdpOutput``) and echoes the
+header.  A reliable or meta-info output gets no FEC; TCP gets neither.
+
 A player's RTCP (a datagram on the shared pair's RTCP port, or an odd
 interleaved channel of its connection) goes to ``on_client_rtcp``: routed
 by its source address, then by the SSRCs its RR report blocks and NADU
 blocks name, an RR's loss fraction and a NADU block's buffer state move
-that output's thinning level.  Generic NACKs and APP packets are parsed
-and counted only.  A player's RTSP connection is silent while it plays,
-so that RTCP also keeps it alive, but only on proof of ownership: the
-source address a UDP track registered, or a block naming an output SSRC
-of the connection.
+that output's thinning level and, for a FEC output, its parity overhead.
+A generic NACK naming a FEC output (or arriving from its registered
+address) is replayed as RTX; an APP ack goes to the reliable output of
+its source address or SSRC, or to the connection's one reliable output.
+A player's RTSP connection is silent while it plays, so that RTCP also
+keeps it alive, but only on proof of ownership: the source address a UDP
+track registered, a block naming an output SSRC of the connection, a
+NACK a FEC output acted on, an APP routed by address or SSRC to a
+reliable output, or a fallback ack that popped a packet from the window.
 """
 
 from __future__ import annotations
@@ -34,8 +46,12 @@ import sys
 import time
 import traceback
 
+import torch
+
 from ..protocol import rtcp, rtp_meta, rtsp, sdp
-from ..relay.session import RelaySession, SessionRegistry
+from ..relay.fec import FecConfig, FecOutputState
+from ..relay.reliable import ReliableUdpOutput
+from ..relay.session import RelaySession, SessionRegistry, now_ms
 from .config import ServerConfig
 from .transports import InterleavedOutput, SharedUdpEgress, UdpOutput
 
@@ -77,12 +93,46 @@ def negotiate_meta_info(want: str, out) -> dict[str, str]:
     return {"x-RTP-Meta-Info": rtp_meta.build_header(granted)}
 
 
+def negotiate_retransmit(want: str, out, t):
+    """A UDP SETUP's ``x-Retransmit: our-retransmit[;window=KB]`` →
+    ``(output, reply headers)``: the output wrapped in the resend window
+    and the header echoed.  A TCP transport is never wrapped."""
+    if t.is_tcp or "our-retransmit" not in want.lower():
+        return out, {}
+    window_kb = None
+    for part in want.split(";"):
+        k, _, v = part.partition("=")
+        if k.strip().lower() == "window":
+            try:
+                window_kb = int(v.strip())
+            except ValueError:
+                pass
+    return (ReliableUdpOutput(out, window_kb=window_kb),
+            {"x-Retransmit": want})
+
+
+def attach_fec(want: str, out, t, device: torch.device) -> dict[str, str]:
+    """A UDP SETUP's ``x-FEC: parity`` → the FEC tier state on ``out`` and
+    the grant header.  Not for TCP (it does not lose packets), a reliable
+    output (its resend window owns its loss) or a meta-info output (parity
+    would have to describe the wrapped packets)."""
+    if (t.is_tcp or "parity" not in want.lower()
+            or isinstance(out, ReliableUdpOutput)
+            or out.meta_field_ids is not None):
+        return {}
+    cfg = FecConfig(device=str(device))
+    out.fec = FecOutputState(cfg)
+    return {"x-FEC": f"parity;pt={cfg.payload_type}"
+                     f";rtx-pt={cfg.rtx_payload_type}"}
+
+
 def _rtcp_keys(out) -> list[tuple]:
     """What proves a player's RTCP is its own: its output's SSRC, and a
     UDP output's registered RTCP address."""
     keys = [("ssrc", out.rewrite.ssrc)]
-    if isinstance(out, UdpOutput):
-        keys.append(("addr", out.rtcp_addr))
+    addr = getattr(out, "rtcp_addr", None)
+    if addr is not None:
+        keys.append(("addr", addr))
     return keys
 
 
@@ -238,13 +288,18 @@ class RtspConnection:
                             *t.client_port, **rewrite)
             resp_t.client_port = t.client_port
             resp_t.server_port = (sender.rtp_port, sender.rtcp_port)
-        meta = negotiate_meta_info(req.headers.get("x-rtp-meta-info", ""),
-                                   out)
-        self.server.note_player_output(self, out,
-                                       self.player_tracks.get(track_id))
+        extra = negotiate_meta_info(req.headers.get("x-rtp-meta-info", ""),
+                                    out)
+        srv = self.server
+        out, rel = negotiate_retransmit(req.headers.get("x-retransmit", ""),
+                                        out, t)
+        extra.update(rel)
+        extra.update(attach_fec(req.headers.get("x-fec", ""), out, t,
+                                srv.device))
+        srv.note_player_output(self, out, self.player_tracks.get(track_id))
         self.player_tracks[track_id] = out
         self._reply(rtsp.RtspResponse(200, {"Transport": resp_t.to_header(),
-                                            **meta}), req.cseq)
+                                            **extra}), req.cseq)
 
     async def _do_record(self, req: rtsp.RtspRequest) -> None:
         if not self.is_pusher or self.relay is None:
@@ -319,9 +374,11 @@ class RtspServer:
     """Listener + connection registry."""
 
     def __init__(self, config: ServerConfig, registry: SessionRegistry, *,
-                 on_pump_wake=None):
+                 on_pump_wake=None, device: str | torch.device = "cuda"):
         self.config = config
         self.registry = registry
+        #: where the FEC tier's parity pass runs
+        self.device = torch.device(device)
         self.connections: set[RtspConnection] = set()
         self.packets_in = 0
         self._on_pump_wake = on_pump_wake
@@ -335,9 +392,11 @@ class RtspServer:
         self._rtcp_owner: dict[tuple, RtspConnection] = {}
         #: players' RTCP compounds that parsed, and the packets in them
         #: by kind: RR and NADU blocks applied to an output, generic
-        #: NACKs and APP packets (counted only)
+        #: NACKs and APP packets (each one, acted on or not)
         self.rtcp_in = 0
         self.rtcp_counts = dict.fromkeys(("rr", "nadu", "nack", "app"), 0)
+        #: packets APP acks popped from reliable outputs' resend windows
+        self.reliable_acks = 0
 
     async def start(self) -> None:
         self._server = await asyncio.start_server(
@@ -384,12 +443,13 @@ class RtspServer:
         """A player's RTCP compound: from ``addr`` on the shared pair, or
         on ``conn``'s own interleaved channel.  It is routed to the
         connection that registered ``addr`` (or ``conn``), else, block by
-        block, to the connection owning the SSRC an RR report block or a
-        NADU block names; each named output's level moves
-        (``on_receiver_report`` with ``fraction_lost / 256``,
-        ``on_nadu``).  NACKs and APP packets are counted.  The idle clock
-        of a connection is refreshed only on proof: its registered
-        address, or a block naming one of its output SSRCs."""
+        block, to the connection owning the SSRC a block names.  RR and
+        NADU blocks move the named output's thinning level
+        (``on_receiver_report`` with ``fraction_lost / 256``, ``on_nadu``)
+        and a FEC output's parity overhead; a generic NACK replays the
+        named FEC output's lost seqs as RTX (``_handle_nack``); an APP ack
+        goes to a reliable output (``_route_ack``).  The idle clock of a
+        connection is refreshed only on proof (the module docstring)."""
         try:
             pkts = rtcp.parse_compound(data)
         except rtcp.RtcpError:
@@ -398,6 +458,12 @@ class RtspServer:
         if conn is None and addr is not None:
             conn = self._rtcp_owner.get(("addr", (addr[0], addr[1])))
         proven = {conn} if conn is not None and addr is not None else set()
+        #: the output whose registered RTCP address sent this
+        addr_out = None
+        if conn is not None and addr is not None:
+            addr_out = next((o for o in conn.player_tracks.values()
+                             if getattr(o, "rtcp_addr", None)
+                             == (addr[0], addr[1])), None)
 
         def output(ssrc: int):
             """(connection, output) whose output SSRC is ``ssrc``."""
@@ -414,7 +480,10 @@ class RtspServer:
                     if out is not None:
                         proven.add(c)
                         self.rtcp_counts["rr"] += 1
-                        out.on_receiver_report(rb.fraction_lost / 256.0)
+                        frac = rb.fraction_lost / 256.0
+                        out.on_receiver_report(frac)
+                        if out.fec is not None:
+                            out.fec.controller.on_receiver_report(frac)
             elif isinstance(p, rtcp.Nadu):
                 for blk in p.blocks:
                     c, out = output(blk.ssrc)
@@ -423,13 +492,66 @@ class RtspServer:
                         self.rtcp_counts["nadu"] += 1
                         out.on_nadu(blk.playout_delay_ms,
                                     blk.free_buffer_64b)
+                        if out.fec is not None:
+                            out.fec.controller.on_nadu(
+                                blk.playout_delay_ms, blk.free_buffer_64b)
             elif isinstance(p, rtcp.GenericNack):
                 self.rtcp_counts["nack"] += 1
+                c, out = output(p.media_ssrc)
+                if out is None and addr_out is not None \
+                        and addr_out.fec is not None:
+                    c, out = conn, addr_out     # routed by source address
+                if out is not None and self._handle_nack(c, out, p):
+                    proven.add(c)
             elif isinstance(p, rtcp.App):
                 self.rtcp_counts["app"] += 1
+                c = self._route_ack(p, conn, addr_out, output)
+                if c is not None:
+                    proven.add(c)
         now = time.monotonic()
         for c in proven:
             c.last_activity = now
+
+    def _route_ack(self, app, conn, addr_out, output):
+        """An APP ack to the reliable output it is for: the one of its
+        source address, else the one whose SSRC it carries, else the
+        connection's only reliable output.  Returns the connection it
+        proves (None: none).  A fallback ack proves ownership only if it
+        popped a packet from the window: a forged APP with an arbitrary
+        SSRC proves nothing."""
+        c, owned = output(app.ssrc)
+        if addr_out is not None:
+            c, target, routed = conn, addr_out, True
+        elif owned is not None:
+            target, routed = owned, True
+        elif conn is not None:
+            reliable = [o for o in conn.player_tracks.values()
+                        if isinstance(o, ReliableUdpOutput)]
+            if len(reliable) != 1:
+                return None
+            c, target, routed = conn, reliable[0], False
+        else:
+            return None
+        if not isinstance(target, ReliableUdpOutput):
+            return None
+        matched = target.on_rtcp_app(app)
+        self.reliable_acks += matched
+        return c if routed or matched else None
+
+    def _handle_nack(self, conn: RtspConnection, out, nack) -> bool:
+        """Replay one generic NACK's lost OUTPUT seqs from the ring as RTX
+        (``StreamFec.replay_nacked``; an empty token bucket is a counted
+        give-up).  True when a FEC output acted on it: the proof of
+        ownership (a forged NACK for an unknown SSRC proves nothing)."""
+        if out.fec is None or conn.relay is None:
+            return False
+        tid = next((t for t, o in conn.player_tracks.items() if o is out),
+                   None)
+        stream = conn.relay.streams.get(tid) if tid is not None else None
+        if stream is None or stream.fec is None:
+            return False
+        stream.fec.replay_nacked(out, nack.lost_seqs(), now_ms())
+        return True
 
     def wake_pump(self) -> None:
         if self._on_pump_wake is not None:

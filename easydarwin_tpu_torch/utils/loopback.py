@@ -23,14 +23,26 @@ pusher's upstream RRs to its media SSRCs.  It reads RTCP and meta-info
 with ``struct`` alone (RFC 3550 §6.4, the meta-info TLV layout), not with
 the port's parsers, so that a fault there cannot cancel itself out.
 
+``push_play_lossy`` plays ``push_play``'s pusher to UDP players of three
+kinds: plain ones; FEC ones (``x-FEC: parity``) that drop media datagrams
+at a seeded rate, report a fixed loss in an RR each ``rr_every_s``,
+rebuild what they can from parity (``relay.fec.FecReceiver``) and send a
+generic NACK for each packet still missing ``NACK_AFTER_S`` after a later
+one arrived (at most ``NACK_MAX_PER_TICK`` a 50 ms tick); and reliable
+ones (``x-Retransmit: our-retransmit``) that
+drop at a seeded rate and ack each datagram they keep with a 'qtak' APP.
+Every player's whole span, from its fast-start IDR to the last pushed
+packet, must end byte-equal to the oracle, however each packet came.
+
 ``serve_and_check`` starts ``python -m easydarwin_tpu_torch`` on free
-ports (``CliServer``), runs ``push_play`` (or ``push_play_av``) against
+ports (``CliServer``), runs ``push_play`` (or another harness) against
 it, stops it with SIGTERM and checks the stats it prints at exit.
 """
 
 from __future__ import annotations
 
 import asyncio
+import itertools
 import json
 import re
 import signal
@@ -42,7 +54,9 @@ from pathlib import Path
 
 import numpy as np
 
-from ..protocol import rtp, rtsp
+from ..protocol import rtcp, rtp, rtsp
+from ..relay.fec import FecReceiver
+from ..relay.reliable import build_ack
 from . import synth
 
 VIDEO_SDP = ("v=0\r\no=- 1 1 IN IP4 127.0.0.1\r\ns=loopback\r\n"
@@ -865,3 +879,345 @@ def _check_av(av, sent, media_ssrc, pusher, frames, ppf,
             "plain_udp_packets": sum(
                 len(pl.tracks[t].rtp) for pl in av for t in (VIDEO, AUDIO)
                 if pl.kind == "plain" and pl.transport == "udp")}
+
+
+# ------------------------------------------------------- lossy UDP players
+#: the RR loss a FEC player reports, 20/256 ≈ 8%: above the FEC
+#: controller's 2% step, below thinning's 10%
+FEC_LOSS_FRACTION = 20
+#: how long a FEC player waits for parity to rebuild a missing packet
+#: (its window's parity is due by then) before it NACKs it, and before it
+#: NACKs it again
+NACK_AFTER_S = 0.25
+NACK_AGAIN_S = 2.0
+#: the seqs a FEC player NACKs at most in one 50 ms tick: 40 a second,
+#: inside the server's RTX budget of 64 an output a second (and a burst
+#: of 32 covers the NACKs that queue behind a slow wake)
+NACK_MAX_PER_TICK = 2
+
+
+class _LossyPlayer:
+    """One UDP player of ``push_play_lossy`` (the module docstring)."""
+
+    def __init__(self, index: int, spec: dict, rng):
+        self.index = index
+        self.kind = spec.get("kind", "plain")
+        self.drop = float(spec.get("drop", 0.0))
+        #: the player's own seeded drop stream
+        self.rng = np.random.default_rng(int(rng.integers(1 << 62)))
+        self.client = MiniClient()
+        self.reporter = int(rng.integers(1 << 32))
+        self.ssrc = self.seq0 = self.ts0 = None
+        self.allowed = range(0)
+        self.rtcp_tr = None
+        self.server_rtcp = None
+        self.joined_at = None
+        self.datagrams: list[bytes] = []   # plain: in arrival order
+        self.rx: FecReceiver | None = None
+        self.got: dict[int, bytes] = {}    # reliable: seq → packet
+        self.dropped = self.duplicates = self.acks = 0
+        self.nacks = self.nacked_seqs = 0
+        #: packet indices since the RTP-Info seq held (however they came),
+        #: the bytes of index 0, the newest index, and index → when it
+        #: was first seen missing below the newest
+        self.held: set[int] = set()
+        self.first: bytes | None = None
+        self.max_j = -1
+        self.missing: dict[int, float] = {}
+        self._nacked_at: dict[int, float] = {}
+        self._early: list[tuple[int, bytes]] = []
+
+    def set_origin(self, seq0: int, ts0: int) -> None:
+        """The PLAY reply's RTP-Info: index what arrived before it."""
+        self.seq0, self.ts0 = seq0, ts0
+        early, self._early = self._early, []
+        for key, data in early:
+            self._hold(key, data)
+
+    def _hold(self, key: int, data: bytes) -> None:
+        """Note a packet held, by its (extended) seq."""
+        if self.seq0 is None:
+            self._early.append((key, data))
+            return
+        j = (key - self.seq0) & 0xFFFF
+        if j in self.held:
+            return
+        self.held.add(j)
+        if j == 0:
+            self.first = data
+        self.missing.pop(j, None)
+        now = time.monotonic()
+        for m in range(self.max_j + 1, j):
+            if m not in self.held:
+                self.missing[m] = now
+        self.max_j = max(self.max_j, j)
+
+    # -- the RTP socket --------------------------------------------------
+    def on_rtp(self, data: bytes) -> None:
+        if self.kind == "plain":
+            self.datagrams.append(data)
+            return
+        if len(data) >= 12 and (data[1] & 0x7F) == 96 \
+                and self.rng.random() < self.drop:
+            self.dropped += 1              # a media datagram lost
+            return
+        if self.kind == "fec":
+            rx = self.rx
+            sizes = [(d, len(d)) for d in (rx.media, rx.rtx_restored,
+                                           rx.recovered)]
+            rx.on_packet(data)
+            for d, n0 in sizes:            # the entries this packet added
+                for ext in itertools.islice(reversed(d), len(d) - n0):
+                    self._hold(ext, d[ext])
+            return
+        seq = rtp.peek_seq(data)
+        if seq in self.got:
+            self.duplicates += 1
+        self.got[seq] = data
+        self._hold(seq, data)
+        self.rtcp_tr.sendto(build_ack(self.ssrc, seq), self.server_rtcp)
+        self.acks += 1
+
+    # -- what it holds -----------------------------------------------------
+    def span(self) -> dict[int, bytes]:
+        """Packet index since the RTP-Info seq → its bytes (media first,
+        then an RTX replay, then a parity rebuild)."""
+        if self.kind == "reliable":
+            return {(s - self.seq0) & 0xFFFF: d for s, d in self.got.items()}
+        out: dict[int, bytes] = {}
+        for src in (self.rx.recovered, self.rx.rtx_restored, self.rx.media):
+            for ext, d in src.items():
+                out[(ext - self.seq0) & 0xFFFF] = d
+        return out
+
+    def nack_due(self, now: float) -> list[int]:
+        """Indices missing below the newest held for ``NACK_AFTER_S``,
+        each again after ``NACK_AGAIN_S``: the oldest
+        ``NACK_MAX_PER_TICK`` of them."""
+        due = []
+        for j, since in self.missing.items():
+            if now - since >= NACK_AFTER_S and \
+                    now - self._nacked_at.get(j, -NACK_AGAIN_S) \
+                    >= NACK_AGAIN_S:
+                due.append(j)
+                if len(due) == NACK_MAX_PER_TICK:
+                    break
+        for j in due:
+            self._nacked_at[j] = now
+        return due
+
+    def send_rtcp(self, data: bytes) -> None:
+        self.rtcp_tr.sendto(data, self.server_rtcp)
+
+
+async def push_play_lossy(port: int, rng: np.random.Generator, *,
+                          players: list[dict], gops: int = 8,
+                          frames: int = 30, packets_per_frame: int = 13,
+                          body_len=(1270, 1300),
+                          frame_interval_s: float = 1 / 30,
+                          rr_every_s: float = 0.5,
+                          deadline_s: float = 30.0) -> dict:
+    """One pusher of ``gops`` GOPs (``push_play``'s), then one player of
+    ``players`` joining each frame of the live part; a spec is
+    ``{"kind": "plain"|"fec"|"reliable", "drop": fraction}``.  Holds every
+    player's span to the oracle (the module docstring); returns the
+    counts, per FEC player the packets rebuilt from parity and replayed,
+    and the first join's host time."""
+    gop = frames * packets_per_frame
+    uri = f"rtsp://127.0.0.1:{port}/live/lossy"
+    sent = []
+    for _ in range(gops):
+        sent += synth.paced_gop(rng, seq0=0xFFE0 + len(sent),
+                                ts0=0xFFFF0000 + 3000 * len(sent),
+                                ssrc=0xC0DE0000, frames=frames,
+                                packets_per_frame=packets_per_frame,
+                                body_len=body_len)
+    pusher = MiniClient()
+    await pusher.connect(port)
+    await pusher.request("ANNOUNCE", uri, {"content-type": "application/sdp"},
+                         VIDEO_SDP.encode())
+    await pusher.request("SETUP", uri + "/trackID=1", {
+        "transport": "RTP/AVP/TCP;unicast;interleaved=0-1;mode=record"})
+    await pusher.request("RECORD", uri)
+    av = [_LossyPlayer(i, spec, rng) for i, spec in enumerate(players)]
+    pushed = 0
+
+    async def join(pl: _LossyPlayer) -> None:
+        c = pl.client
+        await c.connect(port)
+        await c.request("DESCRIBE", uri)
+        rtp_sock = _udp_socket()
+        rtp_tr, _ = await asyncio.get_running_loop() \
+            .create_datagram_endpoint(lambda: _Callback(pl.on_rtp),
+                                      sock=rtp_sock)
+        pl.rtcp_tr = await _udp_endpoint(None)
+        c._udp += [rtp_tr, pl.rtcp_tr]
+        a, b = (x.get_extra_info("sockname")[1] for x in (rtp_tr, pl.rtcp_tr))
+        hdr = {"transport": f"RTP/AVP;unicast;client_port={a}-{b}"}
+        if pl.kind == "fec":
+            hdr["x-fec"] = "parity"
+        elif pl.kind == "reliable":
+            hdr["x-retransmit"] = "our-retransmit"
+        resp = await c.request("SETUP", uri + "/trackID=1", hdr)
+        t = rtsp.TransportSpec.parse(resp.headers["transport"])
+        check(t.ssrc is not None and t.server_port is not None,
+              "UDP SETUP reply names no ssrc or server_port")
+        pl.ssrc = t.ssrc
+        pl.server_rtcp = ("127.0.0.1", t.server_port[1])
+        if pl.kind == "fec":
+            grant = resp.headers.get("x-fec", "")
+            m = re.fullmatch(r"parity;pt=(\d+);rtx-pt=(\d+)", grant)
+            check(m is not None, f"x-FEC grant {grant!r}")
+            pl.rx = FecReceiver(media_pt=96, fec_pt=int(m.group(1)),
+                                rtx_pt=int(m.group(2)))
+        elif pl.kind == "reliable":
+            check(resp.headers.get("x-retransmit") == "our-retransmit",
+                  "x-Retransmit was not granted")
+        before = pushed
+        resp = await c.request("PLAY", uri)
+        pl.allowed = gop_heads(before, pushed, gop)
+        info = resp.headers["rtp-info"]
+        pl.set_origin(int(re.search(r"seq=(\d+)", info).group(1)),
+                      int(re.search(r"rtptime=(\d+)", info).group(1)))
+        pl.joined_at = time.monotonic()
+
+    def first_index(pl: _LossyPlayer, first: bytes | None) -> int | None:
+        if first is None:
+            return None
+        return next((i for i in pl.allowed if sent[i][12:] == first[12:]),
+                    None)
+
+    def done(pl: _LossyPlayer) -> bool:
+        if pl.seq0 is None:
+            return False
+        if pl.kind == "plain":
+            i0 = first_index(pl, pl.datagrams[0] if pl.datagrams else None)
+            return i0 is not None and len(pl.datagrams) >= len(sent) - i0
+        i0 = first_index(pl, pl.first)
+        return i0 is not None and len(pl.held) >= len(sent) - i0
+
+    stop = asyncio.Event()
+
+    async def ticker() -> None:
+        last_rr = 0.0
+        while not stop.is_set():
+            now = time.monotonic()
+            rr_due = now - last_rr >= rr_every_s
+            if rr_due:
+                last_rr = now
+            for pl in av:
+                if pl.seq0 is None or pl.kind == "plain":
+                    continue
+                if rr_due:
+                    pl.send_rtcp(receiver_report(
+                        pl.reporter, pl.ssrc,
+                        FEC_LOSS_FRACTION if pl.kind == "fec" else 0, 0))
+                if pl.kind == "fec":
+                    due = pl.nack_due(now)
+                    if due:
+                        pl.nacks += 1
+                        pl.nacked_seqs += len(due)
+                        pl.send_rtcp(rtcp.GenericNack.from_seqs(
+                            pl.reporter, pl.ssrc,
+                            [(pl.seq0 + j) & 0xFFFF for j in due])
+                            .to_bytes())
+            try:
+                await asyncio.wait_for(stop.wait(), 0.05)
+            except asyncio.TimeoutError:
+                pass
+
+    tick = asyncio.create_task(ticker())
+    waiting = list(av)
+    joins: list[asyncio.Task] = []
+    t_start = time.monotonic()
+    try:
+        for f, i in enumerate(range(0, len(sent), packets_per_frame)):
+            delay = t_start + f * frame_interval_s - time.monotonic()
+            if delay > 0:
+                await asyncio.sleep(delay)
+            if i >= gop and waiting:
+                joins.append(asyncio.create_task(join(waiting.pop(0))))
+            for pkt in sent[i:i + packets_per_frame]:
+                pusher.push(pkt)
+            pushed += len(sent[i:i + packets_per_frame])
+        for pl in waiting:                      # joiners the frames outran
+            joins.append(asyncio.create_task(join(pl)))
+        await asyncio.gather(*joins)
+        push_s = time.monotonic() - t_start
+        deadline = time.monotonic() + deadline_s
+        while time.monotonic() < deadline and not all(map(done, av)):
+            await asyncio.sleep(0.1)
+        settle_s = time.monotonic() - t_start - push_s
+        stop.set()
+        await tick
+        res = _check_lossy(av, sent)
+    finally:
+        stop.set()
+        if not tick.done():
+            tick.cancel()
+            try:
+                await tick
+            except asyncio.CancelledError:
+                pass
+        for pl in av:
+            if pl.client._task is not None:
+                await pl.client.close()
+        await pusher.close()
+    res.update(players=len(av), packets_pushed=len(sent), push_s=push_s,
+               settle_s=settle_s)
+    return res
+
+
+class _Callback(asyncio.DatagramProtocol):
+    """Hands each datagram to ``fn``."""
+
+    def __init__(self, fn):
+        self.fn = fn
+
+    def datagram_received(self, data, addr):
+        self.fn(data)
+
+
+def _check_lossy(av: list[_LossyPlayer], sent: list[bytes]) -> dict:
+    delivered = {"plain": 0, "fec": 0, "reliable": 0}
+    fec_players, reliable_players = [], []
+    for pl in av:
+        who = f"player {pl.index} ({pl.kind})"
+        if pl.kind == "plain":
+            have = dict(enumerate(pl.datagrams))
+        else:
+            have = pl.span()
+        first = have.get(0)
+        i0 = next((i for i in pl.allowed
+                   if first is not None and sent[i][12:] == first[12:]), None)
+        check(i0 is not None, f"{who}: no packet at its RTP-Info seq, or "
+              f"one that is not the IDR at packet "
+              f"{' or '.join(map(str, pl.allowed))}")
+        n = len(sent) - i0
+        check(sorted(have) == list(range(n)),
+              f"{who}: {len(have)} packets held of the {n} of its span "
+              f"(missing {[j for j in range(n) if j not in have][:8]})")
+        src_ts0 = rtp.peek_timestamp(sent[i0])
+        for j in range(n):
+            src = sent[i0 + j]
+            check(have[j] == _oracle(src, pl.seq0 + j,
+                                     pl.ts0 + rtp.peek_timestamp(src)
+                                     - src_ts0, pl.ssrc),
+                  f"{who}: packet {j} differs from the oracle's bytes")
+        delivered[pl.kind] += n
+        if pl.kind == "fec":
+            def idx(d):
+                return {(e - pl.seq0) & 0xFFFF for e in d}
+            media = idx(pl.rx.media)
+            parity = idx(pl.rx.recovered) - media
+            fec_players.append({
+                "index": pl.index, "packets": n, "dropped": pl.dropped,
+                "parity": len(parity),
+                "rtx": len(idx(pl.rx.rtx_restored) - media - parity),
+                "nacks": pl.nacks, "nacked_seqs": pl.nacked_seqs})
+        elif pl.kind == "reliable":
+            reliable_players.append({
+                "index": pl.index, "packets": n, "dropped": pl.dropped,
+                "duplicates": pl.duplicates, "acks": pl.acks})
+    return {"delivered": delivered, "fec_players": fec_players,
+            "reliable_players": reliable_players}

@@ -22,6 +22,11 @@
 * forged RTCP (an unregistered address, no owned SSRC) neither refreshes
   an idle clock nor moves a level; a closing pusher clears only the
   upstream-RR writer it installed;
+* the loss tiers: ``x-FEC`` and ``x-Retransmit`` grants equal the
+  reference's headers (TCP gets neither); lossy UDP players (seeded drops,
+  RRs, generic NACKs, 'qtak' acks) through the CLI end byte-equal to the
+  oracle; a NACK and an APP with forged SSRCs neither refresh an idle
+  clock nor replay, and the same from the registered address do;
 * a server on the CPU touches nothing of CUDA when it starts;
 * importing the port, its server, its CLI, the transcode modules and
   the REST API leaves ``jax`` and ``easydarwin_tpu`` out of
@@ -41,10 +46,14 @@ import pytest
 import torch
 
 from easydarwin_tpu.protocol import rtcp as ref_rtcp
+from easydarwin_tpu.relay.output import CollectingOutput as RefOutput
+from easydarwin_tpu.server.config import ServerConfig as RefConfig
+from easydarwin_tpu.server.rtsp import RtspConnection as RefConnection
 from easydarwin_tpu_torch import __main__ as cli
 from easydarwin_tpu_torch.ops import kernel_lib
 from easydarwin_tpu_torch.protocol import rtcp, rtsp
 from easydarwin_tpu_torch.relay.output import CollectingOutput
+from easydarwin_tpu_torch.relay.reliable import ReliableUdpOutput, build_ack
 from easydarwin_tpu_torch.relay.session import now_ms
 from easydarwin_tpu_torch.relay.stream import RelayStream
 from easydarwin_tpu_torch.server import ServerConfig, StreamingServer
@@ -72,7 +81,8 @@ async def test_loopback_push_play_through_the_cli_on_cpu():
     assert stats["kernel_launches"] == {"ed_parse_packets": 0,
                                         "ed_relay_window": 0,
                                         "ed_ring_query": 0,
-                                        "ed_decode_blocks": 0}
+                                        "ed_decode_blocks": 0,
+                                        "ed_gf_parity": 0}
 
 
 async def test_udp_players_through_the_cli_on_cpu():
@@ -448,6 +458,202 @@ async def test_a_closing_pusher_clears_only_its_own_upstream_rr_writer():
         await app.stop()
 
 
+# ------------------------------------------------------------ loss tiers
+_TIER_HEADERS = [
+    {"x-fec": "parity"},
+    {"x-retransmit": "our-retransmit"},
+    {"x-retransmit": "our-retransmit;window=64"},
+    {"x-fec": "parity", "x-retransmit": "our-retransmit"},
+    {"x-fec": "parity", "x-rtp-meta-info": "tt;sq;md"},
+    {"x-fec": "xor-please"},
+]
+
+
+def _reference_grants(headers: dict, is_tcp: bool) -> dict:
+    """The headers the reference server adds to a SETUP reply for these
+    loss-tier requests (its ``_negotiate_retransmit`` then ``_attach_fec``
+    on a plain output)."""
+    conn = type("Conn", (), {})()
+    conn.server = type("Srv", (), {})()
+    conn.server.config = RefConfig()
+    req = type("Req", (), {})()
+    req.headers = headers
+    t = rtsp.TransportSpec(protocol="RTP/AVP", is_tcp=is_tcp)
+    out = RefOutput(ssrc=1)
+    if "x-rtp-meta-info" in headers:
+        out.meta_field_ids = {"tt": 0, "sq": 1, "md": -1}
+    out, extra = RefConnection._negotiate_retransmit(conn, req, out, t)
+    extra = dict(extra)
+    extra.update(RefConnection._attach_fec(conn, req, out, t))
+    return {k.lower(): v for k, v in extra.items()
+            if k.lower() in ("x-fec", "x-retransmit")}
+
+
+async def test_loss_tier_grants_match_the_reference():
+    """Each SETUP's ``x-FEC``/``x-Retransmit`` reply headers equal the
+    reference's, byte for byte; the outputs are armed to match, and an
+    interleaved SETUP gets neither."""
+    app = StreamingServer(ServerConfig(rtsp_port=0, service_port=0,
+                                       bind_ip="127.0.0.1"), device="cpu")
+    await app.start()
+    pusher = loopback.MiniClient()
+    players = []
+    try:
+        uri = f"rtsp://127.0.0.1:{app.rtsp.port}/live/cam0"
+        await pusher.connect(app.rtsp.port)
+        await pusher.request("ANNOUNCE", uri,
+                             {"content-type": "application/sdp"},
+                             loopback.VIDEO_SDP.encode())
+        for headers in _TIER_HEADERS:
+            for is_tcp in (False, True):
+                player = loopback.MiniClient()
+                players.append(player)
+                await player.connect(app.rtsp.port)
+                await player.request("DESCRIBE", uri)
+                spec = ("RTP/AVP/TCP;unicast;interleaved=0-1" if is_tcp else
+                        f"RTP/AVP;unicast;client_port="
+                        f"{await player.udp_ports()}")
+                resp = await player.request("SETUP", uri + "/trackID=1",
+                                            {"transport": spec, **headers})
+                got = {k: v for k, v in resp.headers.items()
+                       if k in ("x-fec", "x-retransmit")}
+                want = _reference_grants(headers, is_tcp)
+                assert got == want, (headers, is_tcp)
+                conn = next(c for c in app.rtsp.connections
+                            if c.session_id == player.session)
+                out = conn.player_tracks[1]
+                assert isinstance(out, ReliableUdpOutput) == \
+                    ("x-retransmit" in want)
+                assert (out.fec is not None) == ("x-fec" in want)
+                if "x-fec" in want:
+                    assert want["x-fec"] == "parity;pt=127;rtx-pt=126"
+                    assert out.fec.cfg.device == "cpu"
+                if is_tcp:
+                    assert want == {}
+    finally:
+        for c in (pusher, *players):
+            if c._task is not None:
+                await c.close()
+        await app.stop()
+
+
+async def test_lossy_udp_players_through_the_cli_on_cpu():
+    """Plain, FEC and reliable UDP players with seeded drops, RRs, generic
+    NACKs and 'qtak' acks: every player's span ends byte-equal to the
+    oracle; parity and RTX did the FEC players' repairs, resends the
+    reliable one's, and the stats count them."""
+    res = await loopback.serve_and_check(
+        "cpu", np.random.default_rng(5), harness=loopback.push_play_lossy,
+        players=[dict(kind="plain"), dict(kind="fec", drop=0.1),
+                 dict(kind="fec", drop=0.08),
+                 dict(kind="reliable", drop=0.05)],
+        gops=5, frames=15, packets_per_frame=4, body_len=(40, 200),
+        rr_every_s=0.2, deadline_s=15)
+    assert res["players"] == 4
+    assert res["delivered"]["fec"] > 0 and res["delivered"]["reliable"] > 0
+    assert all(p["dropped"] > 0 and p["parity"] > 0 and p["rtx"] > 0
+               for p in res["fec_players"])
+    (rel,) = res["reliable_players"]
+    assert rel["dropped"] > 0 and rel["acks"] >= rel["packets"]
+    st = res["server_stats"]
+    fec = st["fec"]
+    assert fec["oracle_mismatches"] == 0 and st["pump_errors"] == 0
+    assert fec["device_passes"] > 0 and fec["parity_sent"] > 0
+    assert fec["rtx_sent"] > 0 and fec["rtx_giveups"] == 0
+    assert st["reliable"]["resends"] >= rel["dropped"] > 0
+    assert st["reliable"]["giveups"] == 0
+    assert st["reliable"]["acks"] == rel["packets"]
+    assert st["rtcp"]["nack"] == sum(p["nacks"] for p in res["fec_players"])
+    # FEC players' media left through the native scatter, the reliable
+    # player's through the batch-header rung
+    assert st["batch_sent"] == rel["packets"]
+    assert st["kernel_launches"]["ed_gf_parity"] == 0     # CPU: plain
+    assert st["send_errors"] == 0 and st["missing_params"] == 0
+
+
+async def test_forged_nack_and_app_neither_refresh_nor_replay():
+    """A FEC player and a reliable player, both silent on RTSP: a NACK and
+    an APP naming SSRCs they do not own, from an unregistered address,
+    move neither idle clock and replay nothing; the same NACK and ack
+    from the players' registered addresses do both."""
+    app = StreamingServer(ServerConfig(rtsp_port=0, service_port=0,
+                                       bind_ip="127.0.0.1"), device="cpu")
+    await app.start()
+    pusher = loopback.MiniClient()
+    fec_pl, rel_pl = loopback.MiniClient(), loopback.MiniClient()
+    forger = None
+    try:
+        uri = f"rtsp://127.0.0.1:{app.rtsp.port}/live/cam0"
+        await pusher.connect(app.rtsp.port)
+        await pusher.request("ANNOUNCE", uri,
+                             {"content-type": "application/sdp"},
+                             loopback.VIDEO_SDP.encode())
+        await pusher.request("SETUP", uri + "/trackID=1", {
+            "transport": "RTP/AVP/TCP;unicast;interleaved=0-1;mode=record"})
+        await pusher.request("RECORD", uri)
+        rng = np.random.default_rng(3)
+        pkts = synth.paced_gop(rng, seq0=10, ts0=0, ssrc=0x99, frames=4,
+                               packets_per_frame=4, body_len=(40, 80))
+        for pkt in pkts[:8]:
+            pusher.push(pkt)
+        await asyncio.sleep(0.2)
+        ssrc = {}
+        for player, hdr in ((fec_pl, {"x-fec": "parity"}),
+                            (rel_pl, {"x-retransmit": "our-retransmit"})):
+            await player.connect(app.rtsp.port)
+            ports = await player.udp_ports()
+            await player.request("DESCRIBE", uri)
+            resp = await player.request("SETUP", uri + "/trackID=1", {
+                "transport": f"RTP/AVP;unicast;client_port={ports}", **hdr})
+            ssrc[player] = rtsp.TransportSpec.parse(
+                resp.headers["transport"]).ssrc
+            await player.request("PLAY", uri)
+        for pkt in pkts[8:]:
+            pusher.push(pkt)
+        await asyncio.sleep(0.3)
+        conns = {p: next(c for c in app.rtsp.connections
+                         if c.session_id == p.session)
+                 for p in (fec_pl, rel_pl)}
+        st = next(iter(app.registry.sessions.values())).streams[1]
+        rel_out = conns[rel_pl].player_tracks[1]
+        in_flight = rel_out.resender.in_flight
+        assert in_flight > 0 and st.fec is not None
+        pending = sorted(rel_out.resender.pending)
+        before = {p: c.last_activity for p, c in conns.items()}
+        server = ("127.0.0.1", app.rtsp.shared_egress.rtcp_port)
+        forged = (rtcp.GenericNack.from_seqs(0x1234, ssrc[fec_pl] ^ 1,
+                                             [1, 2, 3]).to_bytes()
+                  + build_ack(ssrc[rel_pl] ^ 1, pending[0], 0xFFFFFFFF))
+        forger, _ = await asyncio.get_running_loop().create_datagram_endpoint(
+            asyncio.DatagramProtocol, local_addr=("127.0.0.1", 0))
+        for _ in range(3):
+            forger.sendto(forged, server)
+        await asyncio.sleep(0.3)
+        assert {p: c.last_activity for p, c in conns.items()} == before
+        assert st.fec.rtx_sent == 0
+        assert rel_out.resender.in_flight == in_flight
+        assert app.rtsp.rtcp_counts["nack"] == app.rtsp.rtcp_counts["app"] \
+            == 3
+        fec_seq0 = conns[fec_pl].player_tracks[1].rewrite.out_seq_start
+        fec_pl._udp[1].sendto(rtcp.GenericNack.from_seqs(
+            0x1234, ssrc[fec_pl] ^ 1, [fec_seq0 + 1]).to_bytes(), server)
+        rel_pl._udp[1].sendto(build_ack(ssrc[rel_pl] ^ 1, pending[0]),
+                              server)
+        await asyncio.sleep(0.3)
+        for p, c in conns.items():
+            assert c.last_activity > before[p]
+        assert st.fec.rtx_sent == 1
+        assert rel_out.resender.in_flight == in_flight - 1
+        assert app.rtsp.reliable_acks == 1
+    finally:
+        if forger is not None:
+            forger.close()
+        for c in (pusher, fec_pl, rel_pl):
+            if c._task is not None:
+                await c.close()
+        await app.stop()
+
+
 async def test_a_cpu_server_touches_nothing_of_cuda(monkeypatch):
     """``start`` warms the card only when the device is CUDA."""
     def no_cuda(*_a, **_k):
@@ -478,6 +684,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "import easydarwin_tpu_torch.server.rest\n"
             "import easydarwin_tpu_torch.utils.loopback\n"
             "import easydarwin_tpu_torch.utils.mjpeg_loopback\n"
+            "import easydarwin_tpu_torch.relay.fec\n"
+            "import easydarwin_tpu_torch.relay.reliable\n"
+            "import easydarwin_tpu_torch.ops.fec_kernel\n"
+            "import easydarwin_tpu_torch.storage.codec\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m.split('.')[0] in ('jax', 'jaxlib', "
             "'easydarwin_tpu'))\n"

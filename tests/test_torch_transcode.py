@@ -458,4 +458,5 @@ async def test_cli_serves_the_ladder_end_to_end_on_cpu():
     assert stats["kernel_launches"] == {"ed_parse_packets": 0,
                                         "ed_relay_window": 0,
                                         "ed_ring_query": 0,
-                                        "ed_decode_blocks": 0}
+                                        "ed_decode_blocks": 0,
+                                        "ed_gf_parity": 0}
