@@ -42,12 +42,27 @@ phase; any failed phase raises and the script exits non-zero.
              without a launch; ``StripeCodec(4, 2)`` parity and a two-loss,
              crc-checked reconstruct of 4 × 1 MiB blobs on the card equal
              the host product (2 device passes, 0 mismatches)
+4d. b9      ``ed_relay_batch`` (B9) vs ``relay_batch_step_plain`` on the
+             same card tensors and vs the call on CPU tensors, every key
+             bit-exact: phase 7c's pass (P = 47, S = 16), P = S = 256, the
+             tile's edges, 20 fuzzed passes (runts, padding only, zero
+             rows, W 96-128, delay 0) and an unaligned view; one launch a
+             pass, its ticket back at 0; the library's tile and limits =
+             ``ops.fanout``'s; P, S = 65,537, W = 95, wrong dtypes, a
+             strided prefix and meta tensors raise without a launch
 5. K2        ``ed_decode_blocks`` vs ``decode_blocks_plain`` at N = 1, 300,
              48,960 (one 1080p 4:2:0 frame), 48,961, T·stages + 1 (one
              past a full ring of tiles), CTAs·T·stages + 1 (every CTA
              wraps its ring, the last tile ragged) and 783,360 (config 5:
              16 sources × one 1080p frame): |diff| <= 1 on < 1% of
              pixels; N = 0 returns empty without a launch
+5b. b7      ``ed_requant_rungs`` (B7) vs ``requant_rungs_plain`` on the
+             card, rungs and nonzeros bit-exact: config 5 (783,360 blocks,
+             3 rungs) and 11 fuzzed N (1 to 300,001: ragged rows and
+             several trips of the grid's stride) at R = 1..8 with .5 ties and levels at ±2047, one also
+             vs the CPU; the library's limits = ``ops.transform_kernel``'s;
+             N = 0 returns zeros without a launch; R = 9, levels off 16
+             bytes and wrong dtypes raise without one
 6. scheduler the main path in-process: MegabatchScheduler + FanoutEngine
              over 16 streams × 256 subscribers in 2 buckets for 36 wakes,
              every wire byte held against RelayStream.reflect, plus the
@@ -87,9 +102,10 @@ phase; any failed phase raises and the script exits non-zero.
              meta-info md and sq equal to the oracle's packet; thinned
              video a frame-whole level-1 subset of the oracle, audio
              whole; the pusher's upstream RRs; the server's
-             ed_parse_packets > 0 (B9, the batch-header rung, on the
-             card), native_sent covering the plain players, batch_sent
-             covering the meta-info packets
+             ed_relay_batch launches = its batch passes (B9, the
+             batch-header rung, on the card), native_sent covering the
+             plain players, batch_sent covering the meta-info packets; the
+             batch leg's host ms a pass (staging + H2D, kernel + D2H)
 7d. lossy   BASELINE config 2 with the reliability tier through the CLI
              server: phase 7b's pusher for 8 s, 64 UDP players joining one
              a frame: 40 plain; 16 with x-FEC: parity that drop media at
@@ -105,8 +121,8 @@ phase; any failed phase raises and the script exits non-zero.
              into staging + H2D, kernel + D2H and the host oracle
 8. pipeline  the config-5 TranscodePipeline (qualities 80/50/25 from 90,
              decode_pixels) for 8 steps of 783,360 blocks on the card:
-             8 K2 launches, one step held against the same pipeline on the
-             CPU
+             8 K2 and 8 ed_requant_rungs launches, one step held against
+             the same pipeline on the CPU (rungs and nonzeros equal)
 9. ladder    the live MJPEG ladder through the CLI server: one VGA 4:2:0
              source, 6 frames at 10 fps, REST starttranscode rungs 40 and
              20s2, one TCP player per rung; every delivered rung frame
@@ -116,7 +132,8 @@ phase; any failed phase raises and the script exits non-zero.
              (one graph node of an empty kernel), ptxas registers, shared
              memory and spills, CUDA-event times at the main path's shapes
              (K1 256 rows, the window's phase-6 wake group, the ring query
-             at config 2's C = 4,096 × S = 64, K2 config 5)
+             at config 2's C = 4,096 × S = 64, K2 config 5, B9 at phase
+             7c's pass, B7 at config 5)
              and at earlier runs' config-4 shapes (K1 4,096 rows, window
              [16,256,100]×[16,256,6], and the same bytes as
              [64,64,100]×[64,64,6] with no cluster) beside the plain
@@ -125,19 +142,24 @@ phase; any failed phase raises and the script exits non-zero.
              line carries the main path's shapes.  The ring query at
              C = 4,096 with S = 64 and 256, the engine's whole join query on the host (state upload, launch,
              readback, oracle: ``FanoutEngine._device_params``), and the
-             ring queried again after the graph replays, bit-exact;
-             ``relay_batch_step`` (B9: K1 + torch ops) on the card against
-             the same call on CPU tensors, bit-exact on every key, at
-             phase 7c's shape and at config 4's (P = 256, S = 256), timed
-             beside its bound and its CPU time; ``ed_gf_parity`` at the
-             wire shape (the kernels line) and the stripe beside its bound
-             and its plain version; B7, the ladder's requant at config 5,
-             in a graph beside its byte bound
+             ring, B9 and B7 called again after the graph replays,
+             bit-exact; ``relay_batch_step`` (B9: one ``ed_relay_batch``
+             launch) on the card against the same call on CPU tensors,
+             bit-exact on every key, at phase 7c's shape and at config 4's
+             (P = 256, S = 256): the kernel in a graph, the direct call,
+             the plain version (K1 + torch ops) in a graph, the bound, the
+             CPU call and the engine's batch leg (7c's and 7d's servers,
+             and alone in this process at the same shape, its headers
+             held against the CPU call);
+             ``ed_gf_parity`` at the wire shape (the kernels line) and the
+             stripe beside its bound and its plain version; B7's
+             ``ed_requant_rungs`` at config 5 beside the plain torch chain
+             and its byte bound
 
 The kernel launch counts are set to 0 just before phase 6 and read just
 after phase 9 (the server processes report their own at exit, without
 their start-up warm-up); the comparisons and timings of phases 3, 4, 4b,
-4c, 5 and 10 run outside that window.
+4c, 4d, 5, 5b and 10 run outside that window.
 Detail goes to ``chiprun_out/chip_smoke.json``.  The last line of standard
 output is ``{"ok": true, "device": {...}}``.
 """
@@ -361,16 +383,12 @@ def compare_windows(pairs) -> tuple[int, int]:
 def relay_geometry() -> dict:
     """The relay kernels' constants as the library has them, held against
     the Python launch plans that mirror them."""
-    import ctypes
     from easydarwin_tpu_torch.ops import fanout, kernel_lib, parse_kernel
     from easydarwin_tpu_torch.ops import device_ring
     names = ("max_buckets", "max_cluster", "window_threads", "tile_rows",
              "smem_limit", "ring_tile_rows")
-    vals = [ctypes.c_int() for _ in names]
-    rc = kernel_lib.library().ed_relay_geometry(
-        *(ctypes.byref(v) for v in vals))
-    check(rc == 0, f"ed_relay_geometry: {rc}")
-    geo = dict(zip(names, (v.value for v in vals)))
+    geo = dict(zip(names, kernel_lib.geometry("ed_relay_geometry",
+                                              len(names))))
     check((geo["max_buckets"], geo["max_cluster"], geo["tile_rows"],
            geo["smem_limit"], geo["ring_tile_rows"]) == (
                fanout.WINDOW_MAX_BUCKETS, fanout.WINDOW_MAX_CLUSTER,
@@ -651,6 +669,164 @@ def phase_gf(rng) -> dict:
             "stripe_device_passes": codec.device_passes}
 
 
+# ------------------------------------------------------------- phase 4d
+#: B9's kinds of fuzzed pass: random packets with runts and a padding
+#: tail, padding only (newest keyframe −1), runts only (mask all False),
+#: rows of zero bytes with real lengths
+B9_KINDS = ("fuzz", "padding", "runts", "zero_rows")
+
+
+def b9_arrays(rng, p: int, s: int, width: int = 96, kind: str = "fuzz"):
+    """One batch pass as numpy: ``prefix [p, width]`` (columns past 96
+    random), ``length``, ``age`` (int32), ``state [s, 6]`` uint32 (random,
+    so seq and ts wrap) and ``buckets`` (16 outputs a delay bucket)."""
+    import numpy as np
+    from easydarwin_tpu_torch.utils import synth
+    prefix = rng.integers(0, 256, (p, width), dtype=np.uint8)
+    length = np.zeros(p, np.int32)
+    n = p if kind in ("runts", "zero_rows") else p - p // 8
+    if kind == "runts":
+        pkts = [bytes(rng.integers(0, 256, int(rng.integers(0, 12)),
+                                   dtype=np.uint8)) for _ in range(n)]
+    else:
+        pkts = [synth.random_packet(rng) for _ in range(n)]
+    pre, ln = synth.stage(pkts)
+    prefix[:n, :96], length[:n] = pre, ln
+    prefix[n:] = 0
+    if kind == "padding":
+        prefix[:] = 0
+        length[:] = 0
+    elif kind == "zero_rows":
+        prefix[:, :96] = 0
+    age = rng.integers(-50, 400, p).astype(np.int32)
+    state = rng.integers(0, 1 << 32, (s, 6), dtype=np.uint64
+                         ).astype(np.uint32)
+    buckets = (np.arange(s) // 16).astype(np.int32)
+    return prefix, length, age, state, buckets
+
+
+def b9_diff(got: dict, want: dict, what: str) -> int:
+    """Every key of two B9 results equal in dtype and shape; returns the
+    max absolute difference (must be 0)."""
+    import torch
+    check(sorted(got) == sorted(want), f"{what}: keys {sorted(got)}")
+    worst = 0
+    for k, v in want.items():
+        g = got[k].cpu()
+        v = v.cpu()
+        check(g.dtype == v.dtype and g.shape == v.shape,
+              f"{what}: {k} is {g.dtype}{tuple(g.shape)}, plain "
+              f"{v.dtype}{tuple(v.shape)}")
+        d = int((g.to(torch.int64) - v.to(torch.int64)).abs().max()
+                ) if g.numel() else 0
+        check(d == 0, f"{what}: {k} differs (max {d})")
+        worst = max(worst, d)
+    return worst
+
+
+def batch_scratch_at_zero() -> None:
+    import torch
+    from easydarwin_tpu_torch.ops import fanout, kernel_lib
+    torch.cuda.synchronize()
+    ticket = int(kernel_lib.scratch("ed_relay_batch",
+                                    fanout.BATCH_SCRATCH_WORDS,
+                                    torch.device("cuda", 0))[0])
+    check(ticket == 0, f"ed_relay_batch left its ticket at {ticket}")
+
+
+def phase_b9(rng) -> dict:
+    """``ed_relay_batch`` (B9) against ``relay_batch_step_plain`` on the
+    same card tensors and against the call on CPU tensors, every key
+    bit-exact: phase 7c's pass (P = 47, S = 16), P = S = 256, the tile's
+    edges, a view whose first byte is not 16-byte aligned and 20 fuzzed
+    passes (runts, padding only, zero rows, rows of 97-128 bytes, delay 0);
+    out-of-range shapes raise without a launch; one launch a pass."""
+    import torch
+    from easydarwin_tpu_torch.ops import fanout, kernel_lib
+    geo = kernel_lib.geometry("ed_relay_batch_geometry", 4)
+    check(geo == (fanout.BATCH_TILE_ROWS, fanout.BATCH_SUBS_PER_CTA,
+                  fanout.BATCH_MAX_PKTS, fanout.BATCH_MAX_SUBS),
+          f"ed_relay_batch_geometry {geo} differs from ops.fanout's")
+    cases = [("7c", 47, 16, 96, "fuzz", 73),
+             ("config4", 256, 256, 96, "fuzz", 73),
+             ("p1_s1", 1, 1, 96, "fuzz", 73),
+             ("p64_s16", 64, 16, 96, "fuzz", 73),
+             ("p65_s17", 65, 17, 96, "fuzz", 73),
+             ("p600_s70_w100", 600, 70, 100, "fuzz", 40)]
+    for i in range(20):
+        cases.append((f"fuzz{i}", int(rng.integers(1, 700)),
+                      int(rng.integers(1, 80)),
+                      int(rng.choice([96, 97, 100, 128])),
+                      B9_KINDS[i % len(B9_KINDS)],
+                      int(rng.choice([0, 73, 500]))))
+    res = {}
+    for label, p, s, w, kind, delay in cases:
+        arrays = b9_arrays(rng, p, s, w, kind)
+        cpu = [torch.from_numpy(a) for a in arrays]
+        dev = [t.cuda() for t in cpu]
+        before = kernel_lib.LAUNCHES["ed_relay_batch"]
+        got = fanout.relay_batch_step(*dev, delay)
+        check(kernel_lib.LAUNCHES["ed_relay_batch"] == before + 1,
+              f"b9 {label}: not one launch")
+        plain = fanout.relay_batch_step_plain(*dev, delay)
+        host = fanout.relay_batch_step(*cpu, delay)
+        torch.cuda.synchronize()
+        what = f"ed_relay_batch {label} (P={p} S={s} W={w} {kind})"
+        res[label] = max(b9_diff(got, plain, what + " vs plain"),
+                         b9_diff(got, host, what + " vs CPU"))
+    # rows at an address that is not 16-byte aligned: head and tail bytes
+    arrays = b9_arrays(rng, 301, 9, 97)
+    view = torch.from_numpy(arrays[0]).cuda()[1:]
+    check(view.is_contiguous() and view.data_ptr() % 16 != 0,
+          "the unaligned B9 case is not unaligned")
+    dev = ([view] + [torch.from_numpy(a[1:].copy()).cuda()
+                     for a in arrays[1:3]]
+           + [torch.from_numpy(a).cuda() for a in arrays[3:]])
+    res["w97_view"] = b9_diff(fanout.relay_batch_step(*dev, 73),
+                              fanout.relay_batch_step_plain(*dev, 73),
+                              "ed_relay_batch prefix[1:] of [301,97]")
+    batch_scratch_at_zero()
+    log(f"[b9] ed_relay_batch bit-exact on every key vs "
+        f"relay_batch_step_plain on the card and vs the CPU call at "
+        f"{len(cases)} passes (7c P=47 S=16, P=S=256, tile edges, 20 "
+        f"fuzzed: runts, padding only, zero rows, W 96-128, delay 0) and "
+        f"an unaligned view; one launch a pass; ticket back at 0; geometry "
+        f"{geo} = ops.fanout's")
+    before = kernel_lib.LAUNCHES["ed_relay_batch"]
+    good = [torch.from_numpy(a).cuda() for a in b9_arrays(rng, 8, 3)]
+    meta = [torch.empty(t.shape, dtype=t.dtype, device="meta")
+            for t in good]
+    for args, what in (
+            ([torch.empty((fanout.BATCH_MAX_PKTS + 1, 96), dtype=torch.uint8,
+                          device="cuda")] + [
+                torch.zeros(fanout.BATCH_MAX_PKTS + 1, dtype=torch.int32,
+                            device="cuda")] * 2 + good[3:],
+             f"P = {fanout.BATCH_MAX_PKTS + 1}"),
+            (good[:3] + [torch.zeros((fanout.BATCH_MAX_SUBS + 1, 6),
+                                     dtype=torch.uint32, device="cuda"),
+                         torch.zeros(fanout.BATCH_MAX_SUBS + 1,
+                                     dtype=torch.int32, device="cuda")],
+             f"S = {fanout.BATCH_MAX_SUBS + 1}"),
+            ([good[0][:, :95].contiguous()] + good[1:], "W = 95"),
+            ([good[0]] + [good[1].long()] + good[2:], "int64 lengths"),
+            (good[:3] + [good[3].view(torch.int32)] + good[4:],
+             "int32 state"),
+            ([torch.zeros((8, 100), dtype=torch.uint8,
+                          device="cuda")[:, :96]] + good[1:],
+             "a strided prefix"),
+            (meta, "meta tensors")):
+        try:
+            fanout.relay_batch_step(*args, 73)
+        except (ValueError, TypeError):
+            continue
+        raise AssertionError(f"ed_relay_batch took {what}")
+    check(kernel_lib.LAUNCHES["ed_relay_batch"] == before,
+          "an out-of-range B9 pass launched")
+    log("[b9] P = 65,537, S = 65,537, W = 95, int64 lengths, int32 state, "
+        "a strided prefix and meta tensors raise without a launch")
+    return res
+
+
 # -------------------------------------------------------------- phase 5
 def frame_pixels_1080p(gen, index: int):
     """One 1920×1088 4:2:0 frame of smooth moving gradients plus noise,
@@ -733,6 +909,108 @@ def phase_k2(levels, qt, ring: dict) -> dict:
     check(kernel_lib.LAUNCHES["ed_decode_blocks"] == before,
           "K2 launched for N=0")
     log("[k2] N=0: empty [0,64] uint8, no launch")
+    return res
+
+
+# ------------------------------------------------------------- phase 5b
+def config5_tables():
+    """The config-5 ladder's tables on the card (qualities 80/50/25 from
+    90): ``(qt_in [64], qt_rungs [3, 64])``."""
+    from easydarwin_tpu_torch.models import TranscodeConfig, TranscodePipeline
+    pipe = TranscodePipeline(TranscodeConfig(qualities=(80, 50, 25),
+                                             source_quality=90),
+                             device=DEVICE)
+    return pipe.qt_in, pipe.qt_rungs
+
+
+def b7_diff(got, want, what: str) -> int:
+    """Rungs and nonzeros of two B7 results equal in dtype and shape;
+    returns the max absolute difference (must be 0)."""
+    import torch
+    worst = 0
+    for name, g, w in (("rungs", got[0], want[0]),
+                       ("nonzeros", got[1], want[1])):
+        check(g.dtype == w.dtype == torch.int32 and g.shape == w.shape,
+              f"{what}: {name} {g.dtype}{tuple(g.shape)} vs "
+              f"{w.dtype}{tuple(w.shape)}")
+        d = int((g.cpu().to(torch.int64) - w.cpu().to(torch.int64)).abs()
+                .max()) if g.numel() else 0
+        check(d == 0, f"{what}: {name} differs (max {d})")
+        worst = max(worst, d)
+    return worst
+
+
+def phase_b7_check(rng, levels) -> dict:
+    """``ed_requant_rungs`` (B7) against ``requant_rungs_plain`` on the
+    card, rungs and nonzeros bit-exact: config 5 (783,360 blocks, 3 rungs),
+    N around the 16-chunk rows and the grid's stride at R = 1..8 with
+    random tables, levels in ±2047 and .5 ties, one case also against the
+    CPU; out-of-range calls raise without a launch, N = 0 returns zeros
+    without one."""
+    import numpy as np
+    import torch
+    from easydarwin_tpu_torch.ops import kernel_lib
+    from easydarwin_tpu_torch.ops import transform as tf
+    from easydarwin_tpu_torch.ops import transform_kernel as tk
+    geo = kernel_lib.geometry("ed_requant_geometry", 3)
+    check(geo == (tk.REQUANT_MAX_RUNGS, tk.REQUANT_MAX_BLOCKS,
+                  tk.REQUANT_MAX_CTAS),
+          f"ed_requant_geometry {geo} differs from ops.transform_kernel's")
+    qt_in, qt_rungs = config5_tables()
+    res = {"config5": b7_diff(tk.requant_rungs(levels, qt_in, qt_rungs),
+                              tf.requant_rungs_plain(levels, qt_in, qt_rungs),
+                              "ed_requant_rungs config 5")}
+    sizes = (1, 7, 15, 16, 17, 255, 256, 4097, 65_535, 65_541, 300_001)
+    for i, n in enumerate(sizes):
+        r = 1 + i % tk.REQUANT_MAX_RUNGS
+        lv = rng.integers(-2047, 2048, (n, 64)).astype(np.int32)
+        lv.flat[:2] = (2047, -2047)
+        qi = tf.quality_table(int(rng.integers(50, 100)))
+        qr = np.stack([tf.quality_table(int(q))
+                       for q in rng.integers(5, 96, r)])
+        qi[:4] = 1                              # .5 ties in columns 0-3
+        qr[:, :2], qr[:, 2:4] = 2, 4
+        args = [torch.from_numpy(a).cuda() for a in (lv, qi, qr)]
+        before = kernel_lib.LAUNCHES["ed_requant_rungs"]
+        got = tk.requant_rungs(*args)
+        check(kernel_lib.LAUNCHES["ed_requant_rungs"] == before + 1,
+              f"b7 N={n} R={r}: not one launch")
+        what = f"ed_requant_rungs N={n} R={r}"
+        res[f"n{n}_r{r}"] = b7_diff(got, tf.requant_rungs_plain(*args), what)
+        if n == 4097:
+            res["cpu"] = b7_diff(got, tf.requant_rungs_plain(
+                *[torch.from_numpy(a) for a in (lv, qi, qr)]), what + " CPU")
+    torch.cuda.synchronize()
+    ticket = int(kernel_lib.scratch("ed_requant_rungs",
+                                    tk.REQUANT_SCRATCH_WORDS,
+                                    levels.device)[0])
+    check(ticket == 0, f"ed_requant_rungs left its ticket at {ticket}")
+    log(f"[b7] ed_requant_rungs bit-exact (rungs and nonzeros) vs "
+        f"requant_rungs_plain at config 5 ([{levels.shape[0]},64] x 3) and "
+        f"{len(sizes)} fuzzed N x R (1..8), one also vs the CPU; ticket "
+        f"back at 0; geometry {geo} = ops.transform_kernel's")
+    before = kernel_lib.LAUNCHES["ed_requant_rungs"]
+    empty = tk.requant_rungs(levels[:0], qt_in, qt_rungs)
+    check(empty[0].shape == (3, 0, 64) and int(empty[1].abs().sum()) == 0,
+          "B7 N = 0 is not empty rungs and zero counts")
+    odd = torch.zeros(64 * 64 + 1, dtype=torch.int32,
+                      device="cuda")[1:].view(64, 64)
+    for args, what in (
+            ((levels[:64], qt_in, torch.ones((9, 64), device="cuda")),
+             "R = 9"),
+            ((odd, qt_in, qt_rungs), "levels at an address off 16 bytes"),
+            ((levels[:64].float(), qt_in, qt_rungs), "float levels"),
+            ((levels[:64], qt_in, qt_rungs.double()), "float64 tables")):
+        try:
+            tk.requant_rungs(*args)
+        except (ValueError, TypeError):
+            continue
+        raise AssertionError(f"ed_requant_rungs took {what}")
+    check(kernel_lib.LAUNCHES["ed_requant_rungs"] == before,
+          "an out-of-range B7 call launched")
+    log("[b7] N = 0 returns empty rungs and zero counts, R = 9, levels off "
+        "16 bytes, float levels and float64 tables raise, all without a "
+        "launch")
     return res
 
 
@@ -1143,8 +1421,10 @@ def phase_rtcp(rng) -> dict:
     st = res["server_stats"]
     launches = st["kernel_launches"]
     check(st["native_loaded"], "the server's egress core did not load")
-    check(launches["ed_parse_packets"] > 0,
-          "the batch-header rung launched no ed_parse_packets")
+    check(launches["ed_relay_batch"] > 0
+          and launches["ed_relay_batch"] == st["batch_passes"],
+          f"the batch-header rung's {st['batch_passes']} passes made "
+          f"{launches['ed_relay_batch']} ed_relay_batch launches")
     check(st["native_sent"] >= res["plain_udp_packets"],
           f"native_sent {st['native_sent']} does not cover the plain "
           f"players' {res['plain_udp_packets']} datagrams")
@@ -1167,7 +1447,10 @@ def phase_rtcp(rng) -> dict:
         f"{st['rtcp']}; launches {launches} (ed_ring_query and "
         f"ed_relay_window both printed, not held)")
     log(f"[rtcp] wake host ms p50 {st['wake_ms_p50']:.3f} max "
-        f"{st['wake_ms_max']:.3f}, first join's {st['wake_ms_first']:.3f}")
+        f"{st['wake_ms_max']:.3f}, first join's {st['wake_ms_first']:.3f}; "
+        f"batch-header rung host ms a pass: staging + H2D "
+        f"{st['batch_stage_ms_per_pass']:.6f}, kernel + D2H "
+        f"{st['batch_kernel_ms_per_pass']:.6f}")
     return res
 
 
@@ -1250,6 +1533,7 @@ def phase_pipeline(levels) -> dict:
                           decode_pixels=True)
     pipe = TranscodePipeline(cfg, device=DEVICE)
     before = kernel_lib.LAUNCHES["ed_decode_blocks"]
+    before_b7 = kernel_lib.LAUNCHES["ed_requant_rungs"]
     step_ms, first = [], None
     for s in range(8):
         t0 = time.perf_counter()
@@ -1260,31 +1544,34 @@ def phase_pipeline(levels) -> dict:
             first = {k: v.cpu() for k, v in out.items()}
     launched = kernel_lib.LAUNCHES["ed_decode_blocks"] - before
     check(launched == 8, f"pipeline launched K2 {launched} times in 8 steps")
+    b7_launched = kernel_lib.LAUNCHES["ed_requant_rungs"] - before_b7
+    check(b7_launched == 8,
+          f"pipeline launched ed_requant_rungs {b7_launched} times in 8 steps")
     ref = TranscodePipeline(cfg, device="cpu")(levels.cpu())
     rung_d = (first["rungs"].to(torch.int64) - ref["rungs"].to(torch.int64)
               ).abs()
     rung_max = int(rung_d.max())
     rung_frac = float((rung_d > 0).double().mean())
-    # bit-exact is expected (IEEE divide and round half to even on both);
-    # the reference's own bound for its fused ladder is <= 1 on < 2%
-    check(rung_max <= 1 and rung_frac < 0.02,
+    # ed_requant_rungs rounds every product and quotient as the CPU does
+    check(rung_max == 0,
           f"pipeline rungs off the CPU run: max {rung_max}, {rung_frac:.4%}")
-    check(torch.equal(first["nonzeros"], ref["nonzeros"]) or rung_max > 0,
-          "pipeline nonzeros differ from the CPU run with equal rungs")
+    check(torch.equal(first["nonzeros"], ref["nonzeros"]),
+          "pipeline nonzeros differ from the CPU run")
     pix_max, pix_frac = k2_diff(first["pixels"], ref["pixels"])
     check(pix_max <= K2_MAX_DIFF and pix_frac < K2_MAX_FRAC,
           f"pipeline pixels off the CPU run: max {pix_max}, {pix_frac:.4%}")
     nz = first["nonzeros"].tolist()
     check(nz[0] >= nz[1] >= nz[2] > 0, f"nonzeros not monotone: {nz}")
     res = {"blocks": CONFIG5_BLOCKS, "steps": 8, "k2_launches": launched,
+           "b7_launches": b7_launched,
            "step_ms": step_ms, "step_ms_p50": float(np.median(step_ms)),
            "rungs_max_abs_err": rung_max, "rungs_mismatch_frac": rung_frac,
            "rungs_bit_exact": rung_max == 0,
            "nonzeros": nz, "nonzeros_equal": bool(
                torch.equal(first["nonzeros"], ref["nonzeros"])),
            "pixels_max_abs_err": pix_max, "pixels_mismatch_frac": pix_frac}
-    log(f"[pipeline] 8 steps x {CONFIG5_BLOCKS} blocks, {launched} K2 "
-        f"launches, step p50 {res['step_ms_p50']:.3f} ms (host clock, "
+    log(f"[pipeline] 8 steps x {CONFIG5_BLOCKS} blocks, {launched} K2 and "
+        f"{b7_launched} ed_requant_rungs launches, step p50 {res['step_ms_p50']:.3f} ms (host clock, "
         f"synchronized); vs CPU: rungs max {rung_max} on {rung_frac:.6%}, "
         f"pixels max {pix_max} on {pix_frac:.6%}, nonzeros {nz}")
     return res
@@ -1321,7 +1608,8 @@ def ptxas_report(build_log: str) -> dict:
     import re
     names = ("parse_packets_kernel", "relay_window_kernel",
              "ring_query_kernel", "launch_floor_kernel",
-             "decode_blocks_kernel", "gf_parity_kernel")
+             "decode_blocks_kernel", "gf_parity_kernel",
+             "relay_batch_kernel", "requant_rungs_kernel")
     out, cur = {}, None
     for line in build_log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
@@ -1356,15 +1644,16 @@ def launch_floor_ms() -> float:
     return graph_ms(floor, inner=100)
 
 
-def phase_kernels(rng, launches: dict, errs: dict, levels, qt
-                  ) -> list[dict]:
+def phase_kernels(rng, launches: dict, errs: dict, levels, qt,
+                  b9_shape: tuple[int, int]) -> list[dict]:
     """Each kernel alone (entry point on preallocated outputs) and its
     plain version, by CUDA events around graph replays, at the main path's
-    shapes (K1: 256 rows; window: the phase-6 wake group, one launch) and
-    at the config-4 shapes of earlier runs (K1: 4,096 rows; window:
-    [16,256,100]x[16,256,6], and its bytes as [64,64,100]x[64,64,6], which
-    needs no cluster); K2 at config 5 beside cuBLAS's fp32 product alone.
-    The wrappers' direct-call times go to the detail."""
+    shapes (K1: 256 rows; window: the phase-6 wake group, one launch; B9:
+    phase 7c's pass ``b9_shape``; B7: config 5) and at the config-4 shapes
+    of earlier runs (K1: 4,096 rows; window: [16,256,100]x[16,256,6], and
+    its bytes as [64,64,100]x[64,64,6], which needs no cluster; B9: P = S =
+    256); K2 at config 5 beside cuBLAS's fp32 product alone.  The
+    wrappers' direct-call times go to the detail."""
     import ctypes
     import torch
     from easydarwin_tpu_torch.ops import device_ring as dr
@@ -1372,6 +1661,7 @@ def phase_kernels(rng, launches: dict, errs: dict, levels, qt
     from easydarwin_tpu_torch.ops import transform as tf
     from easydarwin_tpu_torch.ops.parse import parse_packets
     from easydarwin_tpu_torch.ops.parse_kernel import parse_packets_kernel
+    from easydarwin_tpu_torch.ops import transform_kernel as tk
     from easydarwin_tpu_torch.ops.transform_kernel import decode_blocks_kernel
     relay_src = "easydarwin_tpu_torch/csrc/relay_kernels.cu"
     cases = []
@@ -1464,6 +1754,52 @@ def phase_kernels(rng, launches: dict, errs: dict, levels, qt
 
     gf_case(GF_WIRE, True)
     gf_case(GF_STRIPE, False)
+
+    def batch_case(p: int, s: int, main: bool):
+        dev = [torch.from_numpy(a).cuda() for a in b9_arrays(rng, p, s)]
+        prefix, length, age, state, buckets = dev
+        headers = torch.empty((s, p, 12), dtype=torch.uint8, device="cuda")
+        mask = torch.empty((s, p), dtype=torch.bool, device="cuda")
+        flags = torch.empty((2, p), dtype=torch.bool, device="cuda")
+        newest = torch.empty((), dtype=torch.int32, device="cuda")
+        nbytes, ops = b9_bound(p, s)
+        cases.append((
+            "ed_relay_batch", f"P={p} S={s}", main, relay_src,
+            "easydarwin_tpu/ops/fanout.py:212",
+            lambda: kernel_lib.launch(
+                "ed_relay_batch", prefix.data_ptr(), p, 96, length.data_ptr(),
+                age.data_ptr(), state.data_ptr(), buckets.data_ptr(), s, 73,
+                headers.data_ptr(), mask.data_ptr(), flags[0].data_ptr(),
+                flags[1].data_ptr(),
+                kernel_lib.scratch("ed_relay_batch",
+                                   fanout.BATCH_SCRATCH_WORDS,
+                                   prefix.device).data_ptr(),
+                newest.data_ptr()),
+            lambda: fanout.relay_batch_step(*dev, 73),
+            lambda: fanout.relay_batch_step_plain(*dev, 73), None,
+            nbytes, ops, 100))
+
+    batch_case(*b9_shape, True)
+    batch_case(256, 256, False)
+    qt_in, qt_rungs = config5_tables()
+    n_rungs = qt_rungs.shape[0]
+    rungs = torch.empty((n_rungs, levels.shape[0], 64), dtype=torch.int32,
+                        device="cuda")
+    nonzeros = torch.empty(n_rungs, dtype=torch.int32, device="cuda")
+    nbytes, ops = b7_bound(levels.shape[0], n_rungs)
+    cases.append((
+        "ed_requant_rungs", f"[{levels.shape[0]},64] x {n_rungs} rungs", True,
+        "easydarwin_tpu_torch/csrc/transform_kernels.cu",
+        "easydarwin_tpu/models/transcode_pipeline.py:61",
+        lambda: kernel_lib.launch(
+            "ed_requant_rungs", levels.data_ptr(), levels.shape[0],
+            qt_in.data_ptr(), qt_rungs.data_ptr(), n_rungs, rungs.data_ptr(),
+            kernel_lib.scratch("ed_requant_rungs", tk.REQUANT_SCRATCH_WORDS,
+                               levels.device).data_ptr(),
+            nonzeros.data_ptr()),
+        lambda: tk.requant_rungs(levels, qt_in, qt_rungs),
+        lambda: tf.requant_rungs_plain(levels, qt_in, qt_rungs), None,
+        nbytes, ops, 5))
     n = levels.shape[0]
     inv = tf.operator("inv", levels.device)    # the library's operator
     idct8 = tf.operator("idct8", levels.device)
@@ -1517,6 +1853,17 @@ def phase_kernels(rng, launches: dict, errs: dict, levels, qt
         counter_at_zero(ring)
         log(f"[kernels] ed_ring_query at C={RING_C} {label} after the graph "
             f"replays: bit-exact, counter back at 0")
+    # so did the B9 and B7 tickets: a call now is still bit-exact
+    batch_scratch_at_zero()
+    dev = [torch.from_numpy(a).cuda() for a in b9_arrays(rng, *b9_shape)]
+    b9_diff(fanout.relay_batch_step(*dev, 73),
+            fanout.relay_batch_step_plain(*dev, 73),
+            "ed_relay_batch after the graph replays")
+    b7_diff(tk.requant_rungs(levels, qt_in, qt_rungs),
+            tf.requant_rungs_plain(levels, qt_in, qt_rungs),
+            "ed_requant_rungs after the graph replays")
+    log("[kernels] ed_relay_batch and ed_requant_rungs after the graph "
+        "replays: bit-exact, tickets back at 0")
     return out
 
 
@@ -1525,35 +1872,31 @@ def phase_kernels(rng, launches: dict, errs: dict, levels, qt
 OPS_PER_B7_COEF, OPS_PER_B7_RUNG_COEF = 1, 4
 
 
-def phase_b7(levels) -> dict:
-    """B7, the config-5 ladder's requant (torch ops, no hand kernel): one
-    ``_ladder_step`` without pixels (dequantize, three rungs, nonzero
-    counts) at 783,360 blocks in a CUDA graph, beside its bound."""
-    from easydarwin_tpu_torch.models.transcode_pipeline import (
-        TranscodeConfig, TranscodePipeline, _ladder_step)
-    pipe = TranscodePipeline(TranscodeConfig(qualities=(80, 50, 25),
-                                             source_quality=90),
-                             device=DEVICE)
-    r = pipe.qt_rungs.shape[0]
-    n = levels.numel()
-    nbytes = (4 * n + 4 * pipe.qt_in.numel() + 4 * pipe.qt_rungs.numel()
-              + 4 * r * n + 4 * r)
-    ops = OPS_PER_B7_COEF * n + OPS_PER_B7_RUNG_COEF * r * n
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_OPS_PER_S * 1e3
-    ms = graph_ms(lambda: _ladder_step(levels, qt_in=pipe.qt_in,
-                                       qt_rungs=pipe.qt_rungs,
-                                       decode_pixels=False), inner=5)
-    res = {"name": "B7 _ladder_step (no pixels)", "route": "torch ops",
-           "shape": f"[{levels.shape[0]},64] x {r} rungs", "ms": ms,
-           "bound_ms": max(t_bytes, t_ops),
-           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-           "bytes": nbytes, "ops": ops, "bound_share": max(t_bytes, t_ops)
-           / ms, "library_ms": None}
-    log(f"[b7] the ladder's requant at config 5 ({res['shape']}): "
-        f"{ms:.6f} ms in a graph, bound {res['bound_ms']:.6f} ms by "
-        f"{res['bound_by']} ({nbytes} bytes), {res['bound_share']:.1%} of "
-        f"the bound")
+def b7_bound(n_blocks: int, n_rungs: int) -> tuple[int, int]:
+    """(bytes, operations) of one B7 call: levels and tables read once,
+    rungs and counts written once."""
+    n = 64 * n_blocks
+    return (4 * n + 4 * 64 * (1 + n_rungs) + 4 * n_rungs * n + 4 * n_rungs,
+            OPS_PER_B7_COEF * n + OPS_PER_B7_RUNG_COEF * n_rungs * n)
+
+
+def phase_b7(timed: list, pipeline: dict) -> dict:
+    """B7 at config 5: ``ed_requant_rungs`` in a graph beside the plain
+    chain (``requant_rungs_plain``, torch ops: the design it replaced)
+    and the byte bound, and phase 8's step."""
+    k = next(t for t in timed if t["name"] == "ed_requant_rungs")
+    res = {"shape": k["_shape"], "ms": k["ms"], "plain_ms": k["plain_ms"],
+           "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
+           "bound_share": k["_bound_share"], "gb_per_s": k["_gb_per_s"],
+           "call_ms": k["_wrapper_call_ms"],
+           "pipeline_step_ms_p50": pipeline["step_ms_p50"]}
+    log(f"[b7] the ladder's requant at config 5 ({k['_shape']}): "
+        f"ed_requant_rungs {k['ms']:.6f} ms in a graph ({k['_gb_per_s']:.1f} "
+        f"GB/s, {k['_bound_share']:.1%} of the {k['bound_ms']:.6f} ms bound "
+        f"by {k['bound_by']}), {k['_wrapper_call_ms']:.6f} ms a direct call; "
+        f"the plain torch chain (the design it replaced) "
+        f"{k['plain_ms']:.6f} ms in a "
+        f"graph; phase 8's step p50 {pipeline['step_ms_p50']:.3f} ms")
     return res
 
 
@@ -1562,64 +1905,113 @@ def phase_b7(levels) -> dict:
 OPS_PER_BATCH_HEADER = 16
 
 
-def phase_batch_step(rng, shapes, launches: int) -> list[dict]:
-    """``relay_batch_step`` (B9) on CUDA tensors against the same call on
-    CPU tensors, every key bit-exact, at each ``(label, P, S)``: fuzzed
-    rows with runts and zero-length padding rows, random rewrite state,
-    16 outputs a delay bucket.  Times: one call in a CUDA graph (K1 and
-    the torch ops, no host), a direct call on the card (host enqueue
-    included), and the CPU call on the host clock."""
+def b9_bound(p: int, s: int) -> tuple[int, int]:
+    """(bytes, operations) of one B9 pass: 96-byte rows, lengths, ages,
+    state and buckets read once; headers, mask, the two flag rows and the
+    newest keyframe written once."""
+    return (96 * p + 8 * p + 28 * s + 13 * s * p + 2 * p + 4,
+            OPS_PER_PACKET * p + OPS_PER_BATCH_HEADER * s * p)
+
+
+def batch_leg_ms(rng, n_pkts: int, n_subs: int) -> dict:
+    """The engine's batch leg alone, in this process and away from any
+    server's load: ``FanoutEngine._batch_headers`` over the newest
+    ``n_pkts`` packets of a ring of paced 1080p-sized packets for
+    ``n_subs`` outputs (pinned staging, one upload, ONE ed_relay_batch,
+    the headers copied back and their event waited on), held against the
+    CPU call; host ms a pass from the engine's own two counters."""
     import numpy as np
     import torch
     from easydarwin_tpu_torch.ops import fanout
+    from easydarwin_tpu_torch.protocol import sdp
+    from easydarwin_tpu_torch.relay.fanout import FanoutEngine
+    from easydarwin_tpu_torch.relay.output import CollectingOutput
+    from easydarwin_tpu_torch.relay.stream import RelayStream, StreamSettings
     from easydarwin_tpu_torch.utils import synth
+    from easydarwin_tpu_torch.utils.loopback import VIDEO_SDP
+    stream = RelayStream(sdp.parse(VIDEO_SDP).streams[0], StreamSettings())
+    t = 5000
+    for i, pkt in enumerate(synth.paced_gop(
+            rng, seq0=65500, ts0=0xFFFFF000, ssrc=0x77, frames=30,
+            packets_per_frame=13, body_len=(1270, 1300))):
+        stream.push_rtp(pkt, t + i // 13 * 33)
+    ring = stream.rtp_ring
+    now = t + 30 * 33
+    ids = np.arange(ring.head - n_pkts, ring.head)
+    idx = ids % ring.capacity
+    lengths = ring.length[idx].astype(np.int32)
+    ages = (now - ring.arrival[idx]).astype(np.int32)
+    batch = [(CollectingOutput(ssrc=int(rng.integers(1 << 32)),
+                               out_seq_start=int(rng.integers(1 << 16)),
+                               out_ts_start=int(rng.integers(1 << 32))),
+              i // 4) for i in range(n_subs)]
+    for out, _ in batch:
+        out.rewrite.base_src_seq = int(ring.seq[idx[0]])
+        out.rewrite.base_src_ts = int(ring.timestamp[idx[0]])
+    eng = FanoutEngine(device=DEVICE)
+    want = fanout.relay_batch_step(*[torch.from_numpy(a) for a in (
+        ring.data[idx, :96], lengths, ages,
+        fanout.pack_output_state([o for o, _ in batch]),
+        np.array([b for _, b in batch], np.int32))], 60)["headers"].numpy()
+    for i in range(53):
+        if i == 3:                              # after the warm-up
+            eng.batch_stage_ns = eng.batch_kernel_ns = 0
+        got = eng._batch_headers(ring, idx, lengths, ages, batch, 60)
+        check(np.array_equal(got, want),
+              "the engine's batch leg differs from the CPU call")
+    return {"packets": n_pkts, "outputs": n_subs, "passes": 50,
+            "stage_ms_per_pass": eng.batch_stage_ns / 50 / 1e6,
+            "kernel_ms_per_pass": eng.batch_kernel_ns / 50 / 1e6}
+
+
+def phase_batch_step(rng, shapes, timed: list, servers: dict
+                     ) -> list[dict]:
+    """B9 at each ``(label, P, S)``: ``relay_batch_step`` on CUDA tensors
+    (one ``ed_relay_batch`` launch) against the same call on CPU tensors,
+    every key bit-exact; beside phase 10's times of the kernel in a graph,
+    the direct call and the plain version in a graph, the bound, the CPU
+    call on the host clock and the engine's batch leg on the host clock
+    (host ms a pass in phases 7c and 7d's servers, and ``batch_leg_ms`` at
+    this shape in this process)."""
+    import torch
+    from easydarwin_tpu_torch.ops import fanout
+    legs = {name: {"passes": st["batch_passes"],
+                   "stage_ms_per_pass": st["batch_stage_ms_per_pass"],
+                   "kernel_ms_per_pass": st["batch_kernel_ms_per_pass"]}
+            for name, st in servers.items()}
     out = []
     for label, p, s in shapes:
-        n = p - p // 8                          # the rest is zero padding
-        pre, ln = synth.stage([synth.random_packet(rng) for _ in range(n)])
-        prefix = np.zeros((p, 96), np.uint8)
-        length = np.zeros(p, np.int32)
-        prefix[:n], length[:n] = pre, ln
-        age = rng.integers(0, 400, p).astype(np.int32)
-        state = rng.integers(0, 1 << 32, (s, 6), dtype=np.uint64
-                             ).astype(np.uint32)
-        buckets = (np.arange(s) // 16).astype(np.int32)
-        cpu = [torch.from_numpy(a) for a in (prefix, length, age, state,
-                                              buckets)]
+        legs["in-process"] = batch_leg_ms(rng, p, s)
+        leg_txt = "; ".join(
+            f"{name} {v['stage_ms_per_pass']:.6f} staging + H2D, "
+            f"{v['kernel_ms_per_pass']:.6f} kernel + D2H over {v['passes']} "
+            f"passes" for name, v in legs.items())
+        cpu = [torch.from_numpy(a) for a in b9_arrays(rng, p, s)]
         dev = [t.cuda() for t in cpu]
         want = fanout.relay_batch_step(*cpu, 73)
-        got = fanout.relay_batch_step(*dev, 73)
-        for k, v in want.items():
-            check(got[k].dtype == v.dtype and torch.equal(got[k].cpu(), v),
-                  f"relay_batch_step {label}: {k} differs on the card")
+        b9_diff(fanout.relay_batch_step(*dev, 73), want,
+                f"relay_batch_step {label} on the card vs the CPU")
         samples = []
         for _ in range(21):
             t0 = time.perf_counter()
             fanout.relay_batch_step(*cpu, 73)
             samples.append((time.perf_counter() - t0) * 1e3)
         samples.sort()
-        nbytes = (prefix.nbytes + length.nbytes + age.nbytes + state.nbytes
-                  + buckets.nbytes + 12 * s * p + s * p + 2 * p + 4)
-        ops = OPS_PER_PACKET * p + OPS_PER_BATCH_HEADER * s * p
-        t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-        t_ops = ops / PEAK_OPS_PER_S * 1e3
-        row = {"name": "relay_batch_step", "route": "K1 + torch ops",
-               "shape": f"{label}: P={p} S={s}", "max_abs_err": 0,
-               "launches": launches,
-               "ms": graph_ms(lambda: fanout.relay_batch_step(*dev, 73),
-                              inner=20),
-               "call_ms": call_ms(lambda: fanout.relay_batch_step(*dev, 73),
-                                  reps=11, inner=10),
-               "plain_cpu_ms": samples[len(samples) // 2],
-               "bound_ms": max(t_bytes, t_ops),
-               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-               "library_ms": None, "bytes": nbytes, "ops": ops}
+        k = next(t for t in timed if t["name"] == "ed_relay_batch"
+                 and t["_shape"] == f"P={p} S={s}")
+        row = {"shape": f"{label}: P={p} S={s}", "ms": k["ms"],
+               "call_ms": k["_wrapper_call_ms"],
+               "wrapper_graph_ms": k["_wrapper_graph_ms"],
+               "plain_ms": k["plain_ms"], "plain_cpu_ms": samples[10],
+               "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
+               "launches": k["launches"], "engine_leg_host_ms": dict(legs)}
         log(f"[b9] relay_batch_step at {row['shape']}: bit-exact against "
-            f"the CPU call on every key; {row['ms']:.6f} ms in a graph, "
-            f"{row['call_ms']:.6f} ms a direct call, bound "
+            f"the CPU call on every key; ed_relay_batch {row['ms']:.6f} ms "
+            f"in a graph, {row['call_ms']:.6f} ms a direct call, plain "
+            f"(K1 + torch ops) {row['plain_ms']:.6f} ms in a graph, bound "
             f"{row['bound_ms']:.6f} ms by {row['bound_by']}, CPU "
-            f"{row['plain_cpu_ms']:.6f} ms; {launches} main-path passes "
-            f"(one K1 launch each)")
+            f"{row['plain_cpu_ms']:.6f} ms; {row['launches']} main-path "
+            f"launches; the engine's batch leg, host ms a pass: {leg_txt}")
         out.append(row)
     return out
 
@@ -1715,10 +2107,12 @@ def main() -> int:
     detail["window"] = phase_window(rng)
     detail["ring"] = phase_ring_query(rng)
     detail["gf"] = phase_gf(rng)
+    detail["b9"] = phase_b9(rng)
     levels, qt = config5_levels(int(rng.integers(1 << 31)))
     detail["k2_ring"] = ring_geometry()
     log(f"[k2] ring: {detail['k2_ring']}")
     detail["k2"] = phase_k2(levels, qt, detail["k2_ring"])
+    detail["b7_check"] = phase_b7_check(rng, levels)
 
     kernel_lib.reset_launch_counts()           # the main path starts here
     detail["scheduler"] = phase_scheduler(rng)
@@ -1744,14 +2138,19 @@ def main() -> int:
             "ed_ring_query": max(detail["ring"].values()),
             "ed_decode_blocks": max(v["max_abs_err"]
                                     for v in detail["k2"].values()),
-            "ed_gf_parity": detail["gf"]["max_abs_err"]}
+            "ed_gf_parity": detail["gf"]["max_abs_err"],
+            "ed_relay_batch": max(detail["b9"].values()),
+            "ed_requant_rungs": max(detail["b7_check"].values())}
     detail["launch_floor_ms"] = launch_floor_ms()
     log(f"[kernels] launch floor: {detail['launch_floor_ms']:.6f} ms per "
         f"graph node (ed_launch_floor, an empty kernel)")
     detail["ptxas"] = ptxas_report(detail["build"]["log"])
     for name, rep in detail["ptxas"].items():
         log(f"[kernels] ptxas {name}: {rep}")
-    timed = phase_kernels(rng, launches, errs, levels, qt)
+    rtcp_st = detail["rtcp"]["server_stats"]
+    b9_p = -(-rtcp_st["batch_rows"] // max(rtcp_st["batch_passes"], 1))
+    b9_s = sum(1 for pl in RTCP_PLAYERS if pl["meta"] or pl["lossy"])
+    timed = phase_kernels(rng, launches, errs, levels, qt, (b9_p, b9_s))
     detail["kernels"] = timed
     detail["join_query"] = join = join_query_ms(rng)
     ring_ms = next(k["ms"] for k in timed if k["name"] == "ed_ring_query"
@@ -1762,13 +2161,10 @@ def main() -> int:
         f"(min {join['host_ms_min']:.6f}, max {join['host_ms_max']:.6f}); "
         f"the kernel's {ring_ms:.6f} ms is "
         f"{ring_ms / join['host_ms_p50']:.2%} of it")
-    rtcp_st = detail["rtcp"]["server_stats"]
-    b9_p = -(-rtcp_st["batch_rows"] // max(rtcp_st["batch_passes"], 1))
-    b9_s = sum(1 for pl in RTCP_PLAYERS if pl["meta"] or pl["lossy"])
     detail["batch_step"] = phase_batch_step(
-        rng, (("phase 7c", b9_p, b9_s), ("config 4", 256, 256)),
-        rtcp_st["batch_passes"])
-    detail["b7"] = phase_b7(levels)
+        rng, (("phase 7c", b9_p, b9_s), ("config 4", 256, 256)), timed,
+        {"7c": rtcp_st, "7d": detail["lossy"]["server_stats"]})
+    detail["b7"] = phase_b7(timed, detail["pipeline"])
     kernels = [{k: v for k, v in t.items() if not k.startswith("_")}
                for t in timed if t["_main_path"]]
     for k in timed:

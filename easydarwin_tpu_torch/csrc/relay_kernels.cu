@@ -32,6 +32,20 @@
 //     4,096-row stream row needs 51,200 B of shared memory per CTA of a
 //     cluster of 8, and its newest keyframe is a row index, where a
 //     wrapped ring needs the newest absolute id).
+//   * ed_relay_batch replaces the XLA pass
+//     easydarwin_tpu/ops/fanout.py:212 relay_batch_step (B9, the batch-
+//     header rung's step, K1's parse inside): [P, W>=96] uint8 prefixes,
+//     [P] int32 lengths and ages, [S, 6] uint32 state and [S] int32 delay
+//     buckets -> headers [S, P, 12] uint8 (bytes 0-1 the source's, seq and
+//     ts rewritten big-endian mod 2^16 and 2^32, the output's SSRC), the
+//     [S, P] mask (bucket-eligible and length >= 12), keyframe_first and
+//     frame_last [P] and the newest keyframe (-1 = none).  At phase 7c's
+//     pass (P = 47, S = 16) it moves 15 KB: bound by latency, like the
+//     others.  It was K1 and about 30 torch launches; now it is ONE launch
+//     of 64-row tile CTAs (K1's bulk_fetch and parse_row, each row parsed
+//     once) by 4-output columns, whose stores run as 4-byte words along
+//     each output's contiguous 12 * P header bytes, and whose newest
+//     keyframe is the ring query's self-resetting last-CTA fold.
 //
 // Why the TPU's trick is dropped
 //   The TPU kernel avoids per-row dynamic gathers by building each byte at
@@ -124,12 +138,21 @@ constexpr int kMaxBuckets = 32;
 constexpr int kMaxCluster = 8;         // the portable cluster size
 constexpr int kTileRows = 64;          // K1: rows (and threads) per CTA
 constexpr int kRingTileRows = 128;     // ed_ring_query: rows (and threads) per CTA
+constexpr int kBatchTileRows = 64;     // ed_relay_batch: rows a CTA parses
+constexpr int kBatchThreads = 128;
+constexpr int kBatchSubsPerCta = 4;    // outputs a CTA renders
+constexpr int kBatchMaxPkts = 1 << 16;
+constexpr int kBatchMaxSubs = 1 << 16;
+constexpr int kBatchMaxTiles = kBatchMaxPkts / kBatchTileRows;
 
 // head + tail bytes are at most 2 * 15 (an empty interior means a span of
 // at most 30 bytes); threads 1.. load them, one byte each
 static_assert(kWindowThreads - 1 >= 2 * (kBulkAlign - 1), "head/tail loaders");
 static_assert(kTileRows - 1 >= 2 * (kBulkAlign - 1), "head/tail loaders");
 static_assert(kRingTileRows - 1 >= 2 * (kBulkAlign - 1), "head/tail loaders");
+static_assert(kBatchTileRows - 1 >= 2 * (kBulkAlign - 1), "head/tail loaders");
+static_assert(kBatchThreads >= kBatchTileRows, "one thread a row");
+static_assert(kBatchThreads >= kBatchSubsPerCta, "one thread an output");
 
 struct Parsed {
   uint32_t seq, ts, ssrc, hs;
@@ -495,6 +518,144 @@ ring_query_kernel(const uint8_t* __restrict__ rows, int capacity,
   }
 }
 
+// -------------------------------------------------- batch step (B9)
+
+// One launch per batch pass: grid (n_tiles, ceil(n_subs / kBatchSubsPerCta)).
+// CTA (x, y) takes rows [64x, 64x + 64) into shared memory by the bulk copy,
+// loads its outputs' state and the rows' lengths and ages while the copy is
+// in flight, parses each row once (one thread a row) into shared memory,
+// then writes its (output, packet) tile: headers as 4-byte words, three a
+// packet, along each output's contiguous 12 * P bytes, and the mask bytes.
+// The y = 0 CTAs also write keyframe_first and frame_last and, after their
+// stores are issued, fold the newest keyframe: one tile writes it at once;
+// more store each tile's max into partials[x] and make ONE acq_rel add on
+// the ticket, and the last arrival's warp 0 reduces the partials, writes
+// *newest and puts the ticket back to 0.  ``scratch`` = ticket ++
+// partials[kBatchMaxTiles]; launches sharing it stay on one stream.
+__global__ void __launch_bounds__(kBatchThreads)
+relay_batch_kernel(const uint8_t* __restrict__ prefix, int n_pkts,
+                   int row_stride, const int32_t* __restrict__ length,
+                   const int32_t* __restrict__ age_ms,
+                   const uint32_t* __restrict__ state,
+                   const int32_t* __restrict__ bucket, int n_subs,
+                   int64_t delay_ms, uint32_t* __restrict__ headers,
+                   uint8_t* __restrict__ mask,
+                   uint8_t* __restrict__ keyframe_first,
+                   uint8_t* __restrict__ frame_last, int* __restrict__ scratch,
+                   int32_t* __restrict__ newest) {
+  extern __shared__ __align__(16) uint8_t s_tile[];
+  __shared__ uint64_t s_bar;
+  __shared__ uint32_t s_word0[kBatchTileRows];   // b0 | b1 << 8 | seq << 16
+  __shared__ uint32_t s_ts[kBatchTileRows];
+  __shared__ int32_t s_age[kBatchTileRows];
+  __shared__ uint8_t s_sendable[kBatchTileRows];  // length >= 12: not a runt
+  __shared__ uint32_t s_seq_add[kBatchSubsPerCta];
+  __shared__ uint32_t s_ts_add[kBatchSubsPerCta];
+  __shared__ uint32_t s_ssrc_be[kBatchSubsPerCta];
+  __shared__ int64_t s_min_age[kBatchSubsPerCta];
+  __shared__ int s_warp_best[kBatchThreads / 32];
+  __shared__ int s_last;
+  const int t = threadIdx.x;
+  const int tile = blockIdx.x;
+  const int row0 = tile * kBatchTileRows;
+  const int rows = min(kBatchTileRows, n_pkts - row0);
+  const int sub0 = blockIdx.y * kBatchSubsPerCta;
+  const int subs = min(kBatchSubsPerCta, n_subs - sub0);
+  const bool first_col = blockIdx.y == 0;      // writes the per-packet outputs
+  const uint8_t* src = prefix + size_t(row0) * row_stride;
+  uint8_t* buf = s_tile + (reinterpret_cast<uintptr_t>(src) & (kBulkAlign - 1));
+  const bool wait = bulk_fetch(buf, src, uint32_t(rows) * row_stride, &s_bar);
+
+  // under the copy: the rows' lengths and ages, the outputs' affine terms
+  const int32_t len = t < rows ? length[row0 + t] : 0;
+  const int32_t age = t < rows ? age_ms[row0 + t] : 0;
+  if (t < subs) {
+    const uint32_t* st = state + size_t(sub0 + t) * kStateCols;
+    uint32_t sv[kStateCols];
+#pragma unroll
+    for (int c = 0; c < kStateCols; ++c) sv[c] = st[c];
+    const int32_t b = bucket[sub0 + t];
+    s_seq_add[t] = (sv[3] - sv[1]) & 0xFFFFu;      // seq' = seq + this (mod 2^16)
+    s_ts_add[t] = sv[4] - sv[2];                   // ts' = ts + this (mod 2^32)
+    s_ssrc_be[t] = __byte_perm(sv[0], 0, 0x0123);  // big-endian on the wire
+    // bucket * delay in int64, wrapping as the plain version's product does
+    s_min_age[t] = int64_t(uint64_t(int64_t(b)) * uint64_t(delay_ms));
+  }
+  __syncthreads();                             // mbarrier init, head/tail bytes
+  if (wait) mbar_wait(smem_addr(&s_bar), 0);
+
+  int best = -1;
+  if (t < rows) {
+    const uint8_t* row = buf + size_t(t) * row_stride;
+    const Parsed p = parse_row(row, len);
+    s_word0[t] = uint32_t(row[0]) | (uint32_t(row[1]) << 8) | (p.seq << 16);
+    s_ts[t] = p.ts;
+    s_age[t] = age;
+    s_sendable[t] = len >= 12;
+    if (first_col) {
+      keyframe_first[row0 + t] = uint8_t(p.kf);
+      frame_last[row0 + t] = uint8_t(p.fl);
+    }
+    // padding rows carry length 0: never valid, never a keyframe
+    if (p.kf && len > 0) best = row0 + t;
+  }
+  __syncthreads();                             // the parsed rows
+
+  // headers: word w of an output's span is packet w / 3, part w % 3
+  // (0: b0 b1 seq_hi seq_lo, 1: ts big-endian, 2: ssrc big-endian)
+  const int words = 3 * rows;
+  for (int s = 0; s < subs; ++s) {
+    uint32_t* out = headers + (size_t(sub0 + s) * n_pkts + row0) * 3;
+    const uint32_t seq_add = s_seq_add[s], ts_add = s_ts_add[s];
+    for (int w = t; w < words; w += kBatchThreads) {
+      const int j = w / 3;
+      const int part = w - 3 * j;
+      uint32_t v;
+      if (part == 0) {
+        const uint32_t w0 = s_word0[j];
+        const uint32_t seq = ((w0 >> 16) + seq_add) & 0xFFFFu;
+        v = (w0 & 0xFFFFu) | ((seq >> 8) << 16) | ((seq & 0xFFu) << 24);
+      } else if (part == 1) {
+        v = __byte_perm(s_ts[j] + ts_add, 0, 0x0123);
+      } else {
+        v = s_ssrc_be[s];
+      }
+      out[w] = v;
+    }
+    // mask: bucket-eligible (age >= bucket * delay) and not a runt
+    if (t < rows)
+      mask[size_t(sub0 + s) * n_pkts + row0 + t] =
+          uint8_t(s_sendable[t] && int64_t(s_age[t]) >= s_min_age[s]);
+  }
+
+  if (!first_col) return;                      // uniform over the CTA
+  const int m = block_max<kBatchThreads>(best, s_warp_best);
+  if (gridDim.x == 1) {                        // one tile: no fold
+    if (t == 0) *newest = m;
+    return;
+  }
+  if (t == 0) {
+    scratch[1 + tile] = m;
+    // one acq_rel atomic: it releases the partial before the arrival and,
+    // for the last CTA, acquires every other CTA's partial
+    int before;
+    asm volatile("atom.acq_rel.gpu.global.add.u32 %0, [%1], 1;"
+                 : "=r"(before) : "l"(scratch) : "memory");
+    s_last = before == int(gridDim.x) - 1;
+  }
+  __syncthreads();                             // s_last
+  if (!s_last || t >= 32) return;
+  // the last arrival: warp 0 folds the partials (read from L2)
+  int fold = -1;
+  for (int i = t; i < int(gridDim.x); i += 32)
+    fold = max(fold, __ldcg(scratch + 1 + i));
+  fold = __reduce_max_sync(0xffffffffu, fold);
+  if (t == 0) {
+    *newest = fold;
+    *scratch = 0;                              // ready for the next pass
+  }
+}
+
 // The card's floor for one launch: a kernel that does nothing.
 __global__ void launch_floor_kernel() {}
 
@@ -584,6 +745,49 @@ int ed_ring_query(const void* rows, int capacity, int row_stride, int head,
       static_cast<const uint32_t*>(state), n_subs, static_cast<int*>(scratch),
       static_cast<uint32_t*>(out));
   return int(cudaGetLastError());
+}
+
+// One batch-header pass (B9): prefix [n_pkts, row_stride] uint8, length
+// and age_ms [n_pkts] int32, state [n_subs, 6] uint32, bucket [n_subs]
+// int32 -> headers [n_subs, n_pkts, 12] uint8 (4-byte aligned), mask
+// [n_subs, n_pkts], keyframe_first and frame_last [n_pkts] (0/1 bytes) and
+// *newest (-1 = none).  ``scratch`` holds 1 + kBatchMaxTiles int32 whose
+// first word is 0 (every pass leaves it at 0).  ONE launch.
+int ed_relay_batch(const void* prefix, int n_pkts, int row_stride,
+                   const void* length, const void* age_ms, const void* state,
+                   const void* bucket, int n_subs, long long delay_ms,
+                   void* headers, void* mask, void* keyframe_first,
+                   void* frame_last, void* scratch, void* newest,
+                   void* stream) {
+  const size_t smem = size_t(kBatchTileRows) * row_stride + kBulkAlign;
+  if (n_pkts < 1 || n_pkts > kBatchMaxPkts || n_subs < 1 ||
+      n_subs > kBatchMaxSubs || row_stride < kParsePrefix ||
+      smem > size_t(kDynSmemLimit) ||
+      (reinterpret_cast<uintptr_t>(headers) & 3) != 0)
+    return int(cudaErrorInvalidValue);
+  const dim3 grid((n_pkts + kBatchTileRows - 1) / kBatchTileRows,
+                  (n_subs + kBatchSubsPerCta - 1) / kBatchSubsPerCta);
+  relay_batch_kernel<<<grid, kBatchThreads, smem,
+                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(prefix), n_pkts, row_stride,
+      static_cast<const int32_t*>(length), static_cast<const int32_t*>(age_ms),
+      static_cast<const uint32_t*>(state), static_cast<const int32_t*>(bucket),
+      n_subs, int64_t(delay_ms), static_cast<uint32_t*>(headers),
+      static_cast<uint8_t*>(mask), static_cast<uint8_t*>(keyframe_first),
+      static_cast<uint8_t*>(frame_last), static_cast<int*>(scratch),
+      static_cast<int32_t*>(newest));
+  return int(cudaGetLastError());
+}
+
+// ed_relay_batch's tile and limits (ops/fanout.py BATCH_*): checked by
+// chip_smoke.py against the Python side.
+int ed_relay_batch_geometry(int* tile_rows, int* subs_per_cta, int* max_pkts,
+                            int* max_subs) {
+  *tile_rows = kBatchTileRows;
+  *subs_per_cta = kBatchSubsPerCta;
+  *max_pkts = kBatchMaxPkts;
+  *max_subs = kBatchMaxSubs;
+  return 0;
 }
 
 // The constants the Python launch plans mirror (ops/kernel_lib.py and

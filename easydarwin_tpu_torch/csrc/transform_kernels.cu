@@ -1,11 +1,26 @@
-// Hand-written Hopper kernel of the transcode path (sm_90a): K2.
+// Hand-written Hopper kernels of the transcode path (sm_90a): K2 and B7.
 //
 // Built by ops/kernel_lib.py beside relay_kernels.cu into the same shared
-// library, with a plain C entry point bound with ctypes: pointers, sizes
-// and the caller's stream.  It launches on that stream, never
+// library, with plain C entry points bound with ctypes: pointers, sizes
+// and the caller's stream.  Each launches on that stream, never
 // synchronises, allocates nothing, and returns cudaGetLastError() (or
 // kTensorMapError + the CUresult of cuTensorMapEncodeTiled when a tensor
 // map cannot be encoded).
+//
+// ed_requant_rungs (B7) replaces the XLA pass
+// easydarwin_tpu/models/transcode_pipeline.py:61 _ladder_step without
+// pixels, whose rung is easydarwin_tpu/ops/transform.py:144 requantize:
+// levels [N, 64] int32, qt_in [64] and qt_rungs [R, 64] f32 -> rungs
+// [R, N, 64] int32 = rint(float(level) * qt_in / qt_rung) and nonzeros
+// [R].  At config 5 (N = 783,360, R = 3) it reads 200.5 MB and writes
+// 601.6 MB: 0.239 ms at 3.35 TB/s, against 4 R + 1 = 13 operations a
+// coefficient (0.01 ms at 67 T/s), so it is bound by bytes.  The torch
+// chain it replaces wrote and read back about 4.9 GB of intermediates;
+// this kernel reads each level once and writes each rung level once, with
+// streaming (evict-first) loads and stores.  Exactness: each step is
+// rounded as the plain version rounds it, the product by __fmul_rn, the
+// IEEE quotient by __fdiv_rn (never a reciprocal: coef * (1 / q) differs
+// from coef / q on some levels), round half to even by __float2int_rn.
 //
 // What this replaces
 //   ed_decode_blocks (K2) replaces the Pallas kernel
@@ -86,6 +101,13 @@ constexpr int kSmemBytes = kAlign + kStages * kStageBytes
                            + kOutBuffers * kOutBytes + 2 * 64 * 4
                            + 2 * kStages * 8;
 constexpr int kMaxDevices = 64;
+constexpr int kRqThreads = 256;                // ed_requant_rungs
+constexpr int kRqUnroll = 2;                   // chunk loads in flight a thread
+constexpr int kRqMaxRungs = 8;
+constexpr int kRqMaxCtas = 2048;
+constexpr int kRqMaxBlocks = 1 << 24;          // N * 64 counts fit an int32
+
+static_assert((kRqThreads % 16) == 0, "a fixed 4-column group a thread");
 constexpr int kTensorMapError = 1 << 16;       // + CUresult
 
 static_assert(kSmemBytes <= 232448, "one CTA's shared memory");
@@ -284,6 +306,151 @@ decode_blocks_kernel(__grid_constant__ const CUtensorMap levels_map,
   if (lane == 0) asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
 }
 
+// ------------------------------------------------ B7: ed_requant_rungs
+
+// A persistent grid of one wave (at most kRqMaxCtas CTAs) walks the
+// [N, 64] levels as 16-byte chunks (four columns); the grid's stride is a
+// multiple of 16 chunks, so each thread keeps one 4-column group, and its
+// four qt_in and R x 4 rung-table entries stay in registers.  A thread
+// issues kRqUnroll chunk loads before any arithmetic, then writes R
+// 16-byte rung stores a chunk.  Nonzeros: per warp by
+// __ballot_sync/__popc (all lanes take every trip: the loop's bound is
+// warp-uniform and a lane past the end counts a zero chunk), per CTA into
+// partials[cta * kRqMaxRungs + r], then the last CTA of one acq_rel
+// ticket sums them and resets the ticket.
+// ``scratch`` = ticket ++ partials[kRqMaxCtas * kRqMaxRungs].
+template <int R>
+__global__ void __launch_bounds__(kRqThreads)
+requant_rungs_kernel(const int4* __restrict__ levels, int n_chunks,
+                     const float* __restrict__ qt_in,
+                     const float* __restrict__ qt_rungs,
+                     int4* __restrict__ rungs, int* __restrict__ scratch,
+                     int32_t* __restrict__ nonzeros) {
+  __shared__ int s_count[kRqThreads / 32][R];
+  __shared__ int s_last;
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int stride = int(gridDim.x) * kRqThreads;
+  const int first = int(blockIdx.x) * kRqThreads + t;
+  const int col = (first & 15) * 4;
+  float qi[4], qr[R][4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    qi[e] = qt_in[col + e];
+#pragma unroll
+    for (int r = 0; r < R; ++r) qr[r][e] = qt_rungs[r * 64 + col + e];
+  }
+  int count[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) count[r] = 0;
+  const size_t plane = size_t(n_chunks);             // chunks of one rung
+  for (int base = first - lane; base < n_chunks; base += kRqUnroll * stride) {
+    int4 v[kRqUnroll];
+#pragma unroll
+    for (int u = 0; u < kRqUnroll; ++u) {
+      const int i = base + lane + u * stride;
+      v[u] = i < n_chunks ? __ldcs(levels + i) : make_int4(0, 0, 0, 0);
+    }
+#pragma unroll
+    for (int u = 0; u < kRqUnroll; ++u) {
+      const int i = base + lane + u * stride;
+      // coef = float(level) * qt_in, then the IEEE quotient and round half
+      // to even: the plain version's ops, each rounded once (no reciprocal)
+      const float c[4] = {__fmul_rn(__int2float_rn(v[u].x), qi[0]),
+                          __fmul_rn(__int2float_rn(v[u].y), qi[1]),
+                          __fmul_rn(__int2float_rn(v[u].z), qi[2]),
+                          __fmul_rn(__int2float_rn(v[u].w), qi[3])};
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const int4 q = make_int4(__float2int_rn(__fdiv_rn(c[0], qr[r][0])),
+                                 __float2int_rn(__fdiv_rn(c[1], qr[r][1])),
+                                 __float2int_rn(__fdiv_rn(c[2], qr[r][2])),
+                                 __float2int_rn(__fdiv_rn(c[3], qr[r][3])));
+        if (i < n_chunks) __stcs(rungs + r * plane + i, q);
+        count[r] += __popc(__ballot_sync(0xffffffffu, q.x != 0)) +
+                    __popc(__ballot_sync(0xffffffffu, q.y != 0)) +
+                    __popc(__ballot_sync(0xffffffffu, q.z != 0)) +
+                    __popc(__ballot_sync(0xffffffffu, q.w != 0));
+      }
+    }
+  }
+  if (lane == 0) {
+#pragma unroll
+    for (int r = 0; r < R; ++r) s_count[warp][r] = count[r];
+  }
+  __syncthreads();
+  int* partials = scratch + 1;
+  if (t == 0) {
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      int sum = 0;
+      for (int w = 0; w < kRqThreads / 32; ++w) sum += s_count[w][r];
+      partials[blockIdx.x * kRqMaxRungs + r] = sum;
+    }
+    // one acq_rel atomic: it releases the partials before the arrival and,
+    // for the last CTA, acquires every other CTA's
+    int before;
+    asm volatile("atom.acq_rel.gpu.global.add.u32 %0, [%1], 1;"
+                 : "=r"(before) : "l"(scratch) : "memory");
+    s_last = before == int(gridDim.x) - 1;
+  }
+  __syncthreads();
+  if (!s_last || warp != 0) return;
+  // the last arrival: warp 0 sums each rung's partials (read from L2)
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    int sum = 0;
+    for (int b = lane; b < int(gridDim.x); b += 32)
+      sum += __ldcg(partials + b * kRqMaxRungs + r);
+    sum = __reduce_add_sync(0xffffffffu, sum);
+    if (lane == 0) nonzeros[r] = sum;
+  }
+  if (lane == 0) *scratch = 0;                 // ready for the next launch
+}
+
+// The CTAs of one wave on the current device (SMs x the kernel's
+// occupancy, at most kRqMaxCtas), worked out once per device: a second,
+// partial wave would leave SMs idle at the end.
+template <int R>
+int requant_wave(int* ctas) {
+  static int cached[kMaxDevices] = {0};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return int(err);
+  if (dev < kMaxDevices && cached[dev] > 0) {
+    *ctas = cached[dev];
+    return 0;
+  }
+  int sms = 0, per_sm = 0;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return int(err);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, requant_rungs_kernel<R>, kRqThreads, 0);
+  if (err != cudaSuccess) return int(err);
+  int n = sms * (per_sm > 0 ? per_sm : 1);
+  if (n > kRqMaxCtas) n = kRqMaxCtas;
+  if (dev < kMaxDevices) cached[dev] = n;
+  *ctas = n;
+  return 0;
+}
+
+template <int R>
+int launch_requant(const void* levels, int n_chunks, const void* qt_in,
+                   const void* qt_rungs, void* rungs, void* scratch,
+                   void* nonzeros, cudaStream_t stream) {
+  int wave = 0;
+  const int rc = requant_wave<R>(&wave);
+  if (rc != 0) return rc;
+  const int per_cta = kRqThreads * kRqUnroll;
+  int ctas = (n_chunks + per_cta - 1) / per_cta;
+  if (ctas > wave) ctas = wave;
+  requant_rungs_kernel<R><<<ctas, kRqThreads, 0, stream>>>(
+      static_cast<const int4*>(levels), n_chunks,
+      static_cast<const float*>(qt_in), static_cast<const float*>(qt_rungs),
+      static_cast<int4*>(rungs), static_cast<int*>(scratch),
+      static_cast<int32_t*>(nonzeros));
+  return int(cudaGetLastError());
+}
+
 using EncodeTiled = decltype(&cuTensorMapEncodeTiled);
 
 // cuTensorMapEncodeTiled, from the libcuda the CUDA runtime has loaded (no
@@ -368,6 +535,39 @@ int ed_decode_blocks(const void* levels, int n_blocks, const void* qtable,
       levels_map, out_map, n_blocks, static_cast<const float*>(qtable),
       static_cast<const float*>(idct8));
   return int(cudaGetLastError());
+}
+
+// B7's ladder requant: levels [n_blocks, 64] int32 (16-byte aligned),
+// qt_in [64] and qt_rungs [n_rungs, 64] f32 -> rungs [n_rungs, n_blocks,
+// 64] int32 (16-byte aligned) and nonzeros [n_rungs] int32.  ``scratch``
+// holds 1 + kRqMaxCtas * kRqMaxRungs int32 whose first word is 0 (every
+// launch leaves it at 0).  ONE launch.
+int ed_requant_rungs(const void* levels, int n_blocks, const void* qt_in,
+                     const void* qt_rungs, int n_rungs, void* rungs,
+                     void* scratch, void* nonzeros, void* stream) {
+  if (n_blocks < 1 || n_blocks > kRqMaxBlocks || n_rungs < 1 ||
+      n_rungs > kRqMaxRungs ||
+      ((reinterpret_cast<uintptr_t>(levels) |
+        reinterpret_cast<uintptr_t>(rungs)) & 15) != 0)
+    return int(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  using Launch = int (*)(const void*, int, const void*, const void*, void*,
+                         void*, void*, cudaStream_t);
+  static constexpr Launch kByRungs[kRqMaxRungs] = {
+      launch_requant<1>, launch_requant<2>, launch_requant<3>,
+      launch_requant<4>, launch_requant<5>, launch_requant<6>,
+      launch_requant<7>, launch_requant<8>};
+  return kByRungs[n_rungs - 1](levels, n_blocks * 16, qt_in, qt_rungs, rungs,
+                               scratch, nonzeros, st);
+}
+
+// ed_requant_rungs's limits (ops/transform_kernel.py REQUANT_*): checked by
+// chip_smoke.py against the Python side.
+int ed_requant_geometry(int* max_rungs, int* max_blocks, int* max_ctas) {
+  *max_rungs = kRqMaxRungs;
+  *max_blocks = kRqMaxBlocks;
+  *max_ctas = kRqMaxCtas;
+  return 0;
 }
 
 // The ring's geometry on the current device: blocks per tile, stages, and

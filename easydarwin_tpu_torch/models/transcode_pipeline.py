@@ -5,7 +5,8 @@ entropy-decoded intra blocks of an MJPEG source; entropy coding stays on
 the host) and produces every ladder rung:
 
 * per rung: requantized levels (no IDCT round-trip) and nonzero counts
-  (the rate proxy driving rung selection);
+  (the rate proxy driving rung selection): B7, on the card ONE launch of
+  the hand-written ``ed_requant_rungs``;
 * optionally decoded pixels at the source table (preview/JPEG snaps): on
   the card that leg is kernel K2, ``ed_decode_blocks``.
 
@@ -23,6 +24,7 @@ import torch
 from .. import resolve_device
 from ..convert import transcode_tables_from_numpy
 from ..ops import transform as tf
+from ..ops.transform_kernel import requant_rungs
 
 
 @dataclass(frozen=True)
@@ -61,10 +63,8 @@ class TranscodePipeline:
 
 def _ladder_step(levels: torch.Tensor, *, qt_in: torch.Tensor,
                  qt_rungs: torch.Tensor, decode_pixels: bool) -> dict:
-    coef = tf.dequantize(levels, qt_in)                  # shared intermediate
-    rung_levels = torch.round(coef[None] / qt_rungs[:, None, :]).to(
-        torch.int32)                                     # [R, N, 64]
-    nonzeros = (rung_levels != 0).sum(dim=(1, 2), dtype=torch.int32)
+    # B7: every rung and its nonzero count; ed_requant_rungs on the card
+    rung_levels, nonzeros = requant_rungs(levels, qt_in, qt_rungs)
     out = {"rungs": rung_levels, "nonzeros": nonzeros}
     if decode_pixels:
         # the same function as idct(dequantize(levels)) + 128 → round →

@@ -16,8 +16,12 @@ and the affine emit) for every ``(window, state)`` bucket, by the plan of
 once per bucket.  ``relay_affine_step_window`` is its group of one.
 
 ``relay_batch_step`` (B9) is one source's full step for the engine's
-batch-header rung: the parse (kernel K1 on a CUDA tensor), the ``[S, P,
-12]`` headers and the ``[S, P]`` eligibility mask as torch ops.
+batch-header rung: the parse, the ``[S, P, 12]`` headers, the ``[S, P]``
+eligibility mask and the newest keyframe.  On CUDA tensors it is ONE
+launch of the hand-written ``ed_relay_batch`` (K1's parse fused in); on
+CPU tensors it runs ``relay_batch_step_plain``.  ``pack_batch_upload`` and
+``batch_upload_views`` lay its five inputs out as one buffer, so the engine
+uploads a pass in one copy.
 
 All arithmetic on 32-bit quantities runs in int64 masked to 16/32 bits;
 values become uint32 only at the output boundary (``u32_from_i64``).
@@ -34,7 +38,8 @@ import torch
 
 from . import kernel_lib
 from .gop import newest_keyframe
-from .parse import PARSE_PREFIX, i64_from_u32, parse_packets, u32_from_i64
+from .parse import (PARSE_PREFIX, check_prefix, i64_from_u32, parse_packets,
+                    u32_from_i64)
 from .parse_kernel import parse_packets_kernel
 
 #: columns of the per-output state matrix: ssrc, base_src_seq,
@@ -101,19 +106,66 @@ def eligibility(age_ms: torch.Tensor, bucket_of_output: torch.Tensor,
     return age_ms[None, :].to(torch.int64) >= min_age[:, None]
 
 
-def relay_batch_step(prefix: torch.Tensor, length: torch.Tensor,
+#: ``ed_relay_batch``'s tile and limits (``kBatch*`` in
+#: ``csrc/relay_kernels.cu``; chip_smoke.py checks them against the
+#: library's ``ed_relay_batch_geometry``): 64-row tiles by 4-output
+#: columns, 1 <= P <= 65,536 packets and 1 <= S <= 65,536 outputs a pass
+BATCH_TILE_ROWS = 64
+BATCH_SUBS_PER_CTA = 4
+BATCH_MAX_PKTS = 1 << 16
+BATCH_MAX_SUBS = 1 << 16
+#: the fold's scratch: the ticket and one partial a tile
+BATCH_SCRATCH_WORDS = 1 + BATCH_MAX_PKTS // BATCH_TILE_ROWS
+
+
+def check_batch_args(prefix: torch.Tensor, length: torch.Tensor,
                      age_ms: torch.Tensor, out_state: torch.Tensor,
-                     bucket_of_output: torch.Tensor,
-                     bucket_delay_ms: int) -> dict[str, torch.Tensor]:
-    """One source's device step for the batch-header rung: ``prefix``
-    ``[P, W>=96]`` uint8, ``length`` ``[P]`` int32, ``age_ms`` ``[P]``
-    (now − arrival), ``out_state`` ``[S, STATE_COLS]`` uint32,
-    ``bucket_of_output`` ``[S]`` → ``headers`` ``[S, P, 12]`` uint8,
-    ``mask`` ``[S, P]`` (bucket-eligible and ``length >= 12``),
-    ``keyframe_first`` and ``frame_last`` ``[P]``, ``newest_keyframe``
-    (−1 = none).  The parse is K1 (``parse_packets_kernel``): its kernel
-    on a CUDA tensor, the plain parse on a CPU one.  Rows of length 0
-    (padding) are never keyframes and never sendable."""
+                     bucket_of_output: torch.Tensor) -> None:
+    """What ``ed_relay_batch`` takes, on either device: ``prefix``
+    ``[P, W]`` uint8 with 96 <= W and a 64-row tile of W-byte rows inside
+    ``kernel_lib.DYN_SMEM_LIMIT``, ``length`` and ``age_ms`` int32 ``[P]``,
+    ``out_state`` uint32 ``[S, STATE_COLS]``, ``bucket_of_output`` int32
+    ``[S]``, 1 <= P <= ``BATCH_MAX_PKTS``, 1 <= S <= ``BATCH_MAX_SUBS``,
+    all on one device."""
+    check_prefix(prefix)
+    if prefix.dtype != torch.uint8:
+        raise TypeError(f"prefix must be torch.uint8, got {prefix.dtype}")
+    n_pkts, width = prefix.shape
+    if BATCH_TILE_ROWS * width + kernel_lib.BULK_ALIGN > \
+            kernel_lib.DYN_SMEM_LIMIT:
+        raise ValueError(f"row stride {width} too wide for a "
+                         f"{BATCH_TILE_ROWS}-row tile in shared memory")
+    if not 1 <= n_pkts <= BATCH_MAX_PKTS:
+        raise ValueError(f"P = {n_pkts} packets is outside 1..{BATCH_MAX_PKTS}")
+    if out_state.dim() != 2 or out_state.shape[1] != STATE_COLS:
+        raise ValueError(f"out_state must be [S, {STATE_COLS}], got "
+                         f"{tuple(out_state.shape)}")
+    if out_state.dtype != torch.uint32:
+        raise TypeError(f"out_state must be torch.uint32, got "
+                        f"{out_state.dtype}")
+    n_subs = out_state.shape[0]
+    if not 1 <= n_subs <= BATCH_MAX_SUBS:
+        raise ValueError(f"S = {n_subs} outputs is outside 1..{BATCH_MAX_SUBS}")
+    for name, t, n in (("length", length, n_pkts), ("age_ms", age_ms, n_pkts),
+                       ("bucket_of_output", bucket_of_output, n_subs)):
+        if tuple(t.shape) != (n,):
+            raise ValueError(f"{name} must be [{n}], got {tuple(t.shape)}")
+        if t.dtype != torch.int32:
+            raise TypeError(f"{name} must be torch.int32, got {t.dtype}")
+    for name, t in (("length", length), ("age_ms", age_ms),
+                    ("out_state", out_state),
+                    ("bucket_of_output", bucket_of_output)):
+        if t.device != prefix.device:
+            raise ValueError(f"{name} is on {t.device}, prefix on "
+                             f"{prefix.device}")
+
+
+def relay_batch_step_plain(prefix: torch.Tensor, length: torch.Tensor,
+                           age_ms: torch.Tensor, out_state: torch.Tensor,
+                           bucket_of_output: torch.Tensor,
+                           bucket_delay_ms: int) -> dict[str, torch.Tensor]:
+    """B9 in plain PyTorch (K1's parse through ``parse_packets_kernel``):
+    the arguments and results of ``relay_batch_step``."""
     fields = parse_packets_kernel(prefix, length)
     headers = fanout_headers(prefix[:, :2], fields["seq"],
                              fields["timestamp"], out_state)
@@ -126,6 +178,88 @@ def relay_batch_step(prefix: torch.Tensor, length: torch.Tensor,
                                            length > 0),
         "frame_last": fields["frame_last"],
     }
+
+
+def relay_batch_step(prefix: torch.Tensor, length: torch.Tensor,
+                     age_ms: torch.Tensor, out_state: torch.Tensor,
+                     bucket_of_output: torch.Tensor,
+                     bucket_delay_ms: int) -> dict[str, torch.Tensor]:
+    """One source's device step for the batch-header rung: ``prefix``
+    ``[P, W>=96]`` uint8, ``length`` ``[P]`` int32, ``age_ms`` ``[P]``
+    int32 (now − arrival), ``out_state`` ``[S, STATE_COLS]`` uint32,
+    ``bucket_of_output`` ``[S]`` int32 → ``headers`` ``[S, P, 12]`` uint8,
+    ``mask`` ``[S, P]`` (bucket-eligible and ``length >= 12``),
+    ``keyframe_first`` and ``frame_last`` ``[P]``, ``newest_keyframe``
+    (−1 = none).  Rows of length 0 (padding) are never keyframes and never
+    sendable.  CUDA tensors make ONE ``ed_relay_batch`` launch; CPU tensors
+    run ``relay_batch_step_plain``."""
+    check_batch_args(prefix, length, age_ms, out_state, bucket_of_output)
+    dev = prefix.device
+    if dev.type == "cpu":
+        return relay_batch_step_plain(prefix, length, age_ms, out_state,
+                                      bucket_of_output, bucket_delay_ms)
+    if dev.type != "cuda":
+        raise ValueError(f"no batch-step kernel for device {dev}")
+    for name, t in (("prefix", prefix), ("length", length),
+                    ("age_ms", age_ms), ("out_state", out_state),
+                    ("bucket_of_output", bucket_of_output)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    n_pkts, width = prefix.shape
+    n_subs = out_state.shape[0]
+    headers = torch.empty((n_subs, n_pkts, 12), dtype=torch.uint8, device=dev)
+    mask = torch.empty((n_subs, n_pkts), dtype=torch.bool, device=dev)
+    flags = torch.empty((2, n_pkts), dtype=torch.bool, device=dev)
+    newest = torch.empty((), dtype=torch.int32, device=dev)
+    kernel_lib.launch(
+        "ed_relay_batch", prefix.data_ptr(), n_pkts, width, length.data_ptr(),
+        age_ms.data_ptr(), out_state.data_ptr(), bucket_of_output.data_ptr(),
+        n_subs, int(bucket_delay_ms), headers.data_ptr(), mask.data_ptr(),
+        flags[0].data_ptr(), flags[1].data_ptr(),
+        kernel_lib.scratch("ed_relay_batch", BATCH_SCRATCH_WORDS,
+                           dev).data_ptr(),
+        newest.data_ptr())
+    return {"headers": headers, "mask": mask, "keyframe_first": flags[0],
+            "newest_keyframe": newest, "frame_last": flags[1]}
+
+
+def batch_upload_layout(n_pkts: int, n_subs: int) -> tuple[int, ...]:
+    """Byte offsets of ``relay_batch_step``'s five inputs in one upload
+    buffer (prefix ``[P, 96]``, length, age, state, buckets) and its total
+    size; every offset is a multiple of 4."""
+    o_len = n_pkts * PARSE_PREFIX
+    o_age = o_len + 4 * n_pkts
+    o_state = o_age + 4 * n_pkts
+    o_bucket = o_state + 4 * STATE_COLS * n_subs
+    return o_len, o_age, o_state, o_bucket, o_bucket + 4 * n_subs
+
+
+def pack_batch_upload(out: np.ndarray, prefix: np.ndarray,
+                      length: np.ndarray, age_ms: np.ndarray,
+                      out_state: np.ndarray, buckets: np.ndarray) -> int:
+    """Host helper: write one pass's inputs into ``out`` (uint8, at least
+    the layout's size) in ``batch_upload_layout``'s order; returns the
+    bytes used."""
+    n_pkts, n_subs = len(length), len(buckets)
+    o_len, o_age, o_state, o_bucket, end = batch_upload_layout(n_pkts, n_subs)
+    out[:o_len].reshape(n_pkts, PARSE_PREFIX)[:] = prefix
+    out[o_len:o_age].view(np.int32)[:] = length
+    out[o_age:o_state].view(np.int32)[:] = age_ms
+    out[o_state:o_bucket].view(np.uint32)[:] = out_state.reshape(-1)
+    out[o_bucket:end].view(np.int32)[:] = buckets
+    return end
+
+
+def batch_upload_views(buf: torch.Tensor, n_pkts: int, n_subs: int
+                       ) -> tuple[torch.Tensor, ...]:
+    """``(prefix, length, age_ms, out_state, bucket_of_output)`` as views
+    of an uploaded ``pack_batch_upload`` buffer (uint8, 4-byte aligned)."""
+    o_len, o_age, o_state, o_bucket, end = batch_upload_layout(n_pkts, n_subs)
+    return (buf[:o_len].view(n_pkts, PARSE_PREFIX),
+            buf[o_len:o_age].view(torch.int32),
+            buf[o_age:o_state].view(torch.int32),
+            buf[o_state:o_bucket].view(torch.uint32).view(n_subs, STATE_COLS),
+            buf[o_bucket:end].view(torch.int32))
 
 
 def relay_affine_step(prefix: torch.Tensor, length: torch.Tensor,

@@ -34,13 +34,15 @@ SOURCES = (_PKG / "csrc" / "relay_kernels.cu",
            _PKG / "csrc" / "fec_kernels.cu")
 BUILD_DIR = _PKG.parent / "build" / "easydarwin_tpu_torch"
 GENCODE = ("-gencode", "arch=compute_90a,code=sm_90a")
-#: compile flags of every source (no fast-math: K2 rounds like jnp.round)
+#: compile flags of every source (no fast-math: K2 rounds like jnp.round,
+#: and ed_requant_rungs divides as IEEE division does)
 NVCC_FLAGS = (*GENCODE, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
 
 #: kernel name → launches made by its wrapper in this process
 LAUNCHES = {"ed_parse_packets": 0, "ed_relay_window": 0,
-            "ed_ring_query": 0, "ed_decode_blocks": 0, "ed_gf_parity": 0}
+            "ed_ring_query": 0, "ed_decode_blocks": 0, "ed_gf_parity": 0,
+            "ed_relay_batch": 0, "ed_requant_rungs": 0}
 
 #: cp.async.bulk moves 16-byte-aligned runs that are a multiple of 16 bytes
 BULK_ALIGN = 16
@@ -74,6 +76,16 @@ _SIGNATURES = {
     "ed_decode_blocks_geometry": (_IP, _IP, _IP),
     # rows, K, B, coeff, R, tables (antilog 512 ∥ log 256), out, stream
     "ed_gf_parity": (_P, _I, _I, _P, _I, _P, _P, _P),
+    # prefix, P, row_stride, length, age_ms, state, bucket, S, delay_ms,
+    # headers, mask, keyframe_first, frame_last, scratch, newest, stream
+    "ed_relay_batch": (_P, _I, _I, _P, _P, _P, _P, _I, ctypes.c_longlong,
+                       _P, _P, _P, _P, _P, _P, _P),
+    # -> tile rows, outputs per CTA, max P, max S
+    "ed_relay_batch_geometry": (_IP, _IP, _IP, _IP),
+    # levels, N, qt_in, qt_rungs, R, rungs, scratch, nonzeros, stream
+    "ed_requant_rungs": (_P, _I, _P, _P, _I, _P, _P, _P, _P),
+    # -> max rungs, max blocks, max CTAs
+    "ed_requant_geometry": (_IP, _IP, _IP),
 }
 
 
@@ -86,6 +98,7 @@ class BuildResult:
 
 _LIB: ctypes.CDLL | None = None
 _BUILD: BuildResult | None = None
+_SCRATCH: dict[tuple, torch.Tensor] = {}
 
 
 def reset_launch_counts() -> None:
@@ -176,6 +189,29 @@ def launch(name: str, *args) -> None:
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: {error_message(rc)}")
     LAUNCHES[name] += 1
+
+
+def scratch(name: str, words: int, device: torch.device) -> torch.Tensor:
+    """The int32 scratch of ``name``'s cross-CTA fold on ``device``'s
+    current stream: ``words`` zeros, made once per (kernel, device, stream)
+    and kept.  Its first word is the fold's ticket, which every launch
+    leaves at 0, so launches on one stream need no memset between them and
+    a CUDA graph replays them as captured."""
+    key = (name, device.index, torch.cuda.current_stream(device).cuda_stream)
+    buf = _SCRATCH.get(key)
+    if buf is None:
+        buf = _SCRATCH[key] = torch.zeros(words, dtype=torch.int32,
+                                          device=device)
+    return buf
+
+
+def geometry(name: str, count: int) -> tuple[int, ...]:
+    """The ``count`` constants a ``*_geometry`` entry point reports."""
+    vals = [ctypes.c_int() for _ in range(count)]
+    rc = getattr(library(), name)(*(ctypes.byref(v) for v in vals))
+    if rc != 0:
+        raise RuntimeError(f"{name} failed: {error_message(rc)}")
+    return tuple(v.value for v in vals)
 
 
 def error_message(rc: int) -> str:

@@ -6,6 +6,10 @@ the JPEG convention (base table × quality scale).  Entropy coding stays on
 the host (``protocol.jpeg_entropy``); the device owns the dense
 transform/quant math.
 
+``requantize`` and the pipeline's ladder step are B7: on a CUDA tensor
+``requant_rungs`` (``ops.transform_kernel``) launches the hand-written
+``ed_requant_rungs``; on a CPU tensor it runs ``requant_rungs_plain``.
+
 ``decode_blocks`` (dequant → IDCT → +128 → round → clip → uint8) is kernel
 K2: on a CUDA tensor it launches the hand-written ``ed_decode_blocks``
 (``ops.transform_kernel``), which applies the IDCT in its separable form
@@ -161,11 +165,25 @@ def decode_blocks(levels: torch.Tensor, qtable: torch.Tensor) -> torch.Tensor:
     return decode_blocks_kernel(levels, qtable)
 
 
+def requant_rungs_plain(levels: torch.Tensor, qt_in: torch.Tensor,
+                        qt_rungs: torch.Tensor
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """B7 in plain PyTorch: int32 ``[N, 64]`` levels dequantized once with
+    ``qt_in`` (64 entries) and requantized with each row of ``qt_rungs``
+    ``[R, 64]`` → ``rungs [R, N, 64]`` int32 and ``nonzeros [R]`` int32 (the
+    rate proxy).  IEEE fp32 multiply and divide, round half to even."""
+    coef = dequantize(levels, qt_in.reshape(64))          # shared intermediate
+    rungs = torch.round(coef[None] / qt_rungs[:, None, :]).to(torch.int32)
+    return rungs, (rungs != 0).sum(dim=(1, 2), dtype=torch.int32)
+
+
 def requantize(levels: torch.Tensor, qtable_in: torch.Tensor,
                qtable_out: torch.Tensor) -> torch.Tensor:
     """Transform-domain bitrate step-down: dequant with the source table,
-    requant with a coarser one (no IDCT round-trip)."""
-    return quantize(dequantize(levels, qtable_in), qtable_out)
+    requant with a coarser one (no IDCT round-trip).  The one-rung case of
+    ``requant_rungs``: a CUDA tensor launches ``ed_requant_rungs``."""
+    from .transform_kernel import requant_rungs  # imports this module
+    return requant_rungs(levels, qtable_in, qtable_out.reshape(1, 64))[0][0]
 
 
 def transcode_ladder(levels: torch.Tensor, qtable_in: torch.Tensor,

@@ -20,9 +20,10 @@ The fourth, the **batch-header rung**, serves the outputs the other three
 must not: a meta-info output (its packets are wrapped), a thinned one
 (``thinning.passthrough()`` false: its filter drops frames) and a reliable
 UDP output (``records_sends``: every datagram enters its resend window).
-It renders their headers with ``ops.fanout.relay_batch_step`` (B9; K1's
-parse on the card) and walks each output through ``admit`` and
-``send_rewritten`` in the oracle's order.  A FEC output stays on the UDP
+It renders their headers with ``ops.fanout.relay_batch_step`` (B9; ONE
+``ed_relay_batch`` launch on the card, fed by one upload from pinned
+memory, with only the headers copied back) and walks each output through
+``admit`` and ``send_rewritten`` in the oracle's order.  A FEC output stays on the UDP
 fast rung; its parity and RTX leave through ``send_bytes`` from
 ``relay.fec``.  Every pass ends in ``RelayStream.relay_rtcp``.
 
@@ -51,13 +52,15 @@ reader more than half the ring behind.
 from __future__ import annotations
 
 import errno
+import time
 
 import numpy as np
 import torch
 
 from .. import native, resolve_device
 from ..ops import device_ring, staging
-from ..ops.fanout import pack_output_state, relay_batch_step, unpack_affine
+from ..ops.fanout import (batch_upload_views, pack_batch_upload,
+                          pack_output_state, relay_batch_step, unpack_affine)
 from ..ops.parse import PARSE_PREFIX
 from ..protocol import rtp
 from .output import WriteResult
@@ -165,6 +168,12 @@ class FanoutEngine:
         self.batch_sent = 0
         self.batch_passes = 0
         self.batch_rows = 0
+        #: host ns of the batch passes' device leg: staging + H2D, and
+        #: kernel + D2H (launch, headers copy, the wait on its event)
+        self.batch_stage_ns = 0
+        self.batch_kernel_ns = 0
+        self._batch_stage: staging.PinnedStage | None = None
+        self._batch_dev: torch.device | None = None
         self.last_newest_keyframe = -1
         #: True while the megabatch scheduler owns this stream's device
         #: work (it stages the windows; the engine skips its ring append)
@@ -675,19 +684,11 @@ class FanoutEngine:
         start = int(ids[0])                 # window_meta clamps to tail
         idx = ids % ring.capacity
         arrivals = ring.arrival[idx]
-        dev = resolve_device(self.device)
-        state = pack_output_state([o for o, _ in batch])
-        buckets = np.fromiter((b for _, b in batch), np.int32, len(batch))
-        res = relay_batch_step(
-            torch.from_numpy(ring.data[idx, :PARSE_PREFIX]).to(dev),
-            torch.from_numpy(lengths.astype(np.int32)).to(dev),
-            torch.from_numpy((now_ms - arrivals).astype(np.int32)).to(dev),
-            torch.from_numpy(state).to(dev), torch.from_numpy(buckets).to(dev),
-            stream.settings.bucket_delay_ms)
-        headers = res["headers"].cpu().numpy()
+        delay = stream.settings.bucket_delay_ms
+        headers = self._batch_headers(ring, idx, lengths, now_ms - arrivals,
+                                      batch, delay)
         self.batch_passes += 1
         self.batch_rows += len(ids)
-        delay = stream.settings.bucket_delay_ms
         sent = 0
         for s, (out, b_idx) in enumerate(batch):
             deadline = now_ms - b_idx * delay
@@ -717,6 +718,41 @@ class FanoutEngine:
             out.bookmark = pid
         self.batch_sent += sent
         return sent
+
+
+    def _batch_headers(self, ring, idx, lengths, ages, batch,
+                       delay: int) -> np.ndarray:
+        """``[S, P, 12]`` headers of one batch pass: the window's rows,
+        lengths and ages and the outputs' state and buckets packed into
+        one pinned buffer (kept per size, reused after its event), ONE
+        upload, ONE ``relay_batch_step``, the headers alone copied back
+        into pinned memory, and that copy's event waited on."""
+        if self._batch_stage is None:
+            self._batch_dev = resolve_device(self.device)
+            self._batch_stage = staging.PinnedStage(
+                self._batch_dev.type == "cuda")
+        st, dev = self._batch_stage, self._batch_dev
+        n_pkts, n_subs = len(idx), len(batch)
+        t0 = time.perf_counter_ns()
+        up = st.buffer("upload", (staging.pow2(
+            n_pkts * (PARSE_PREFIX + 8) + n_subs * 28, 4096),))
+        nbytes = pack_batch_upload(
+            up.numpy(), ring.data[idx, :PARSE_PREFIX], lengths, ages,
+            pack_output_state([o for o, _ in batch]),
+            np.fromiter((b for _, b in batch), np.int32, n_subs))
+        d_up = up[:nbytes].to(dev, non_blocking=True)
+        t1 = time.perf_counter_ns()
+        res = relay_batch_step(*batch_upload_views(d_up, n_pkts, n_subs),
+                               delay)
+        n_hdr = n_subs * n_pkts * 12
+        out = st.buffer("headers", (staging.pow2(n_hdr, 4096),))[:n_hdr]
+        out.copy_(res["headers"].view(-1), non_blocking=True)
+        st.record()
+        if st.event is not None:
+            st.event.synchronize()
+        self.batch_stage_ns += t1 - t0
+        self.batch_kernel_ns += time.perf_counter_ns() - t1
+        return out.numpy().reshape(n_subs, n_pkts, 12)
 
 
 class _Window:

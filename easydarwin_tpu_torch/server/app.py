@@ -11,8 +11,8 @@ that has outputs.  With at least ``MEGABATCH_MIN_STREAMS`` of them:
    installed params: UDP players in one native ``sendmmsg``/GSO scatter
    through the shared egress socket, interleaved players in one framed
    ``writev`` each, meta-info and thinned players through the
-   batch-header rung (``relay_batch_step``, K1's parse on the card), the
-   rest through the Python loop; then the stream's RTCP (the pusher's
+   batch-header rung (``relay_batch_step``, ``ed_relay_batch`` on the
+   card), the rest through the Python loop; then the stream's RTCP (the pusher's
    SRs rebased per player, and SRs of the relay's own);
 3. ``MegabatchScheduler.end_wake`` — stage and dispatch the next pass (one
    ``ed_relay_window`` launch for the wake on the card).
@@ -65,7 +65,8 @@ MEGABATCH_MIN_STREAMS = 2
 #: per-engine counters ``stats()`` sums over every engine the server ran
 ENGINE_COUNTERS = ("native_sent", "native_passes", "device_param_refreshes",
                    "send_errors", "missing_params", "batch_sent",
-                   "batch_passes", "batch_rows")
+                   "batch_passes", "batch_rows", "batch_stage_ns",
+                   "batch_kernel_ns")
 
 
 class StreamingServer:
@@ -277,6 +278,11 @@ class StreamingServer:
     def stats(self) -> dict:
         engines = {k: v + sum(getattr(e, k) for e in self._engines.values())
                    for k, v in self._retired.items()}
+        # the batch-header rung's device leg, host ms a pass
+        passes = max(engines["batch_passes"], 1)
+        for leg in ("stage", "kernel"):
+            engines[f"batch_{leg}_ms_per_pass"] = \
+                engines.pop(f"batch_{leg}_ns") / passes / 1e6
         wake = sorted(self.wake_ms)
         return {"wakes": self.wakes, "packets_in": self.rtsp.packets_in,
                 "packets_out": self.packets_out,

@@ -1,7 +1,8 @@
 """The port's fan-out ops, window pass, batch-header step (B9), pipeline
 and staging ≡ the JAX package's, bit-exact, on the same numpy inputs (CPU
 tensors: the plain PyTorch versions the kernel wrappers run off the
-card)."""
+card); B9's wrapper raises on what ``ed_relay_batch`` does not take, on
+either device."""
 
 from collections import Counter
 
@@ -360,3 +361,127 @@ def test_relay_batch_step_matches_reference(case):
         assert got[k].numpy().dtype == v.dtype, k
         np.testing.assert_array_equal(got[k].numpy(), v, err_msg=k)
     assert kernel_lib.LAUNCHES["ed_parse_packets"] == 0   # the CPU parse
+    assert kernel_lib.LAUNCHES["ed_relay_batch"] == 0
+
+
+def _b9_edge_inputs(case, rng):
+    """(prefix, length, age, state, buckets, delay) for one edge of B9:
+    one output and one packet, P off the 64-row tile (65, 200), a window
+    of padding rows only (no keyframe: −1), runts only (an all-False
+    mask), seq and ts that wrap (every base above the packet's value),
+    a zero bucket delay and 100-byte rows."""
+    p, s, w, delay = {"s1_p1": (1, 1, 96, 73), "p65": (65, 5, 96, 73),
+                      "p200": (200, 21, 96, 40), "all_padding": (48, 7, 96, 73),
+                      "all_runts": (48, 7, 96, 73), "wrap": (80, 9, 96, 73),
+                      "delay0": (70, 18, 96, 0), "w100": (90, 6, 100, 73)}[case]
+    if case == "all_runts":
+        pkts = [bytes(rng.integers(0, 256, int(rng.integers(0, 12)),
+                                   dtype=np.uint8)) for _ in range(p)]
+    elif case == "s1_p1":
+        pkts = [synth.h264_packet(3, 900, 5, ssrc=9, body=b"k" * 40)]
+    else:
+        pkts = [synth.random_packet(rng) for _ in range(p)]
+    pre, ln = synth.stage(pkts)
+    prefix = rng.integers(0, 256, (p, w), dtype=np.uint8)
+    prefix[:, :96] = pre
+    length = ln.astype(np.int32)
+    if case == "all_padding":
+        prefix[:] = 0
+        length[:] = 0
+    state = _state(rng, 1, s)[0]
+    if case == "wrap":
+        state[:, 1] = 0xFFFF        # base_seq above every seq
+        state[:, 2] = 0xFFFFFFF0    # base_ts above every ts
+        state[:, 3] = rng.integers(0, 0x100, s)
+        state[:, 4] = rng.integers(0, 0x100, s)
+    age = rng.integers(-50, 400, p).astype(np.int32)
+    buckets = rng.integers(0, 4, s).astype(np.int32)
+    return prefix, length, age, state, buckets, delay
+
+
+@pytest.mark.parametrize("case", ["s1_p1", "p65", "p200", "all_padding",
+                                  "all_runts", "wrap", "delay0", "w100"])
+def test_relay_batch_step_plain_matches_reference_at_the_edges(case):
+    args = _b9_edge_inputs(case, np.random.default_rng(sum(map(ord, case))))
+    ref = ref_fanout.relay_batch_step(*args)
+    tensors = [torch.from_numpy(np.asarray(a)) for a in args[:5]]
+    plain = fanout.relay_batch_step_plain(*tensors, args[5])
+    got = fanout.relay_batch_step(*tensors, args[5])
+    assert sorted(plain) == sorted(got) == sorted(ref)
+    for k, v in ref.items():
+        v = np.asarray(v)
+        for res in (plain, got):
+            assert res[k].numpy().dtype == v.dtype, k
+            np.testing.assert_array_equal(res[k].numpy(), v, err_msg=k)
+    if case == "all_padding":
+        assert int(got["newest_keyframe"]) == -1
+    if case == "all_runts":
+        assert not got["mask"].any()
+    assert kernel_lib.LAUNCHES["ed_relay_batch"] == 0      # the CPU version
+
+
+def _b9_tensors(p=8, s=3, w=96):
+    return [torch.zeros((p, w), dtype=torch.uint8),
+            torch.zeros(p, dtype=torch.int32), torch.zeros(p, dtype=torch.int32),
+            torch.zeros((s, 6), dtype=torch.uint32),
+            torch.zeros(s, dtype=torch.int32)]
+
+
+def _b9_bad(i, t):
+    args = _b9_tensors()
+    args[i] = t
+    return args
+
+
+@pytest.mark.parametrize("args,err,match", [
+    (_b9_tensors(w=95), ValueError, "W>=96"),
+    (_b9_tensors(w=800), ValueError, "too wide"),
+    (_b9_bad(0, torch.zeros((8, 96), dtype=torch.int8)), TypeError, "uint8"),
+    (_b9_tensors(p=0), ValueError, "P = 0"),
+    (_b9_tensors(s=0), ValueError, "S = 0"),
+    ([t.to("meta") for t in _b9_tensors(p=fanout.BATCH_MAX_PKTS + 1)],
+     ValueError, "packets is outside"),
+    ([t.to("meta") for t in _b9_tensors(s=fanout.BATCH_MAX_SUBS + 1)],
+     ValueError, "outputs is outside"),
+    (_b9_bad(1, torch.zeros(7, dtype=torch.int32)), ValueError, "length"),
+    (_b9_bad(1, torch.zeros(8, dtype=torch.int64)), TypeError, "length"),
+    (_b9_bad(2, torch.zeros((8, 1), dtype=torch.int32)), ValueError,
+     "age_ms"),
+    (_b9_bad(2, torch.zeros(8, dtype=torch.float32)), TypeError, "age_ms"),
+    (_b9_bad(3, torch.zeros((3, 5), dtype=torch.uint32)), ValueError,
+     "out_state"),
+    (_b9_bad(3, torch.zeros((3, 6), dtype=torch.int32)), TypeError,
+     "out_state"),
+    (_b9_bad(4, torch.zeros(4, dtype=torch.int32)), ValueError,
+     "bucket_of_output"),
+    (_b9_bad(4, torch.zeros(3, dtype=torch.int64)), TypeError,
+     "bucket_of_output"),
+    (_b9_bad(4, torch.zeros(3, dtype=torch.int32, device="meta")),
+     ValueError, "bucket_of_output is on meta"),
+])
+def test_relay_batch_step_raises_on_a_wrong_shape_or_dtype(args, err, match):
+    with pytest.raises(err, match=match):
+        fanout.relay_batch_step(*args, 73)
+    assert kernel_lib.LAUNCHES["ed_relay_batch"] == 0
+
+
+def test_relay_batch_step_raises_on_a_device_without_a_kernel():
+    with pytest.raises(ValueError, match="no batch-step kernel for device "
+                                         "meta"):
+        fanout.relay_batch_step(*[t.to("meta") for t in _b9_tensors()], 73)
+
+
+def test_batch_upload_round_trips_every_input():
+    rng = np.random.default_rng(5)
+    prefix = rng.integers(0, 256, (37, 96), dtype=np.uint8)
+    length = rng.integers(-5, 2000, 37).astype(np.int32)
+    age = rng.integers(-1 << 31, 1 << 31, 37, dtype=np.int64).astype(np.int32)
+    state = _state(rng, 1, 11)[0]
+    buckets = rng.integers(0, 9, 11).astype(np.int32)
+    buf = np.full(8192, 0xAB, np.uint8)
+    n = fanout.pack_batch_upload(buf, prefix, length, age, state, buckets)
+    assert n == fanout.batch_upload_layout(37, 11)[-1] == 37 * 104 + 11 * 28
+    views = fanout.batch_upload_views(torch.from_numpy(buf)[:n], 37, 11)
+    for got, want in zip(views, (prefix, length, age, state, buckets)):
+        assert got.numpy().dtype == want.dtype
+        np.testing.assert_array_equal(got.numpy(), want)

@@ -82,7 +82,9 @@ async def test_loopback_push_play_through_the_cli_on_cpu():
                                         "ed_relay_window": 0,
                                         "ed_ring_query": 0,
                                         "ed_decode_blocks": 0,
-                                        "ed_gf_parity": 0}
+                                        "ed_gf_parity": 0,
+                                        "ed_relay_batch": 0,
+                                        "ed_requant_rungs": 0}
 
 
 async def test_udp_players_through_the_cli_on_cpu():

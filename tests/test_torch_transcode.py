@@ -459,4 +459,6 @@ async def test_cli_serves_the_ladder_end_to_end_on_cpu():
                                         "ed_relay_window": 0,
                                         "ed_ring_query": 0,
                                         "ed_decode_blocks": 0,
-                                        "ed_gf_parity": 0}
+                                        "ed_gf_parity": 0,
+                                        "ed_relay_batch": 0,
+                                        "ed_requant_rungs": 0}

@@ -19,6 +19,10 @@ Tolerances, each with its reason:
 * the pipeline's rungs against the JAX *pipeline*: <= 1 on < 2%
   (``tests/test_models.py``: XLA's fused ladder may round differently at
   exact .5 boundaries); against JAX ``requantize``, rung by rung:
+  bit-exact;
+* B7's ``requant_rungs_plain`` (and the wrapper on a CPU tensor) against
+  JAX ``requantize`` rung by rung, at exact .5 boundaries, at ±2047 and at
+  levels where a reciprocal multiply would round the other way:
   bit-exact.
 """
 
@@ -35,7 +39,8 @@ from easydarwin_tpu_torch.models import TranscodeConfig, TranscodePipeline
 from easydarwin_tpu_torch.models.transcode_pipeline import _ladder_step
 from easydarwin_tpu_torch.ops import kernel_lib
 from easydarwin_tpu_torch.ops import transform as tf
-from easydarwin_tpu_torch.ops.transform_kernel import decode_blocks_kernel
+from easydarwin_tpu_torch.ops.transform_kernel import (
+    REQUANT_MAX_BLOCKS, REQUANT_MAX_RUNGS, decode_blocks_kernel, requant_rungs)
 
 
 def _t(a) -> torch.Tensor:
@@ -288,7 +293,8 @@ def test_cpu_decode_counts_no_launch():
     assert kernel_lib.LAUNCHES["ed_decode_blocks"] == 0
     assert set(kernel_lib.LAUNCHES) == {"ed_parse_packets", "ed_relay_window",
                                         "ed_ring_query", "ed_decode_blocks",
-                                        "ed_gf_parity"}
+                                        "ed_gf_parity", "ed_relay_batch",
+                                        "ed_requant_rungs"}
 
 
 @pytest.mark.parametrize("levels,qtable,err", [
@@ -317,3 +323,106 @@ def test_pipeline_device_defaults_to_the_card():
     pipe = TranscodePipeline(device="cpu")
     (lv,) = pipe.example_args(64)
     assert lv.shape == (64, 64) and lv.dtype == np.int32
+
+
+def _requant_case(n, r, seed):
+    """(levels, qt_in, qt_rungs) with levels in ±2047 (both ends present),
+    random quality tables, and columns 0-3 set up for exact .5 ties: there
+    qt_in is 1 and a rung's entry 2 or 4, so odd levels (or levels 2 mod 4)
+    land on k + 0.5."""
+    rng = np.random.default_rng(seed)
+    lv = rng.integers(-2047, 2048, (n, 64)).astype(np.int32)
+    lv.flat[:2] = (2047, -2047)
+    qi = ref.quality_table(int(rng.integers(50, 100)))
+    qr = np.stack([ref.quality_table(int(q))
+                   for q in rng.integers(5, 96, r)]).astype(np.float32)
+    qi[:4] = 1
+    qr[:, :2] = 2
+    qr[:, 2:4] = 4
+    return lv, qi, qr
+
+
+@pytest.mark.parametrize("r", [1, 2, 3, 4])
+@pytest.mark.parametrize("n", [1, 7, 4096])
+def test_requant_rungs_plain_matches_jax_requantize(n, r):
+    lv, qi, qr = _requant_case(n, r, 100 * n + r)
+    rungs, nonzeros = tf.requant_rungs_plain(_t(lv), _t(qi), _t(qr))
+    assert rungs.dtype == nonzeros.dtype == torch.int32
+    assert tuple(rungs.shape) == (r, n, 64) and tuple(nonzeros.shape) == (r,)
+    again = requant_rungs(_t(lv), _t(qi), _t(qr))      # the CPU wrapper
+    for k in range(r):
+        want = np.asarray(ref.requantize(lv, qi, qr[k]))
+        np.testing.assert_array_equal(rungs[k].numpy(), want)
+        np.testing.assert_array_equal(again[0][k].numpy(), want)
+        np.testing.assert_array_equal(
+            tf.requantize(_t(lv), _t(qi), _t(qr[k])).numpy(), want)
+        assert int(nonzeros[k]) == np.count_nonzero(want)
+    np.testing.assert_array_equal(again[1].numpy(), nonzeros.numpy())
+    ties = lv[:, :4].astype(np.float32) / qr[0, :4]
+    if n > 1:
+        assert (ties == np.floor(ties) + 0.5).any()    # the .5 ties are there
+    assert kernel_lib.LAUNCHES["ed_requant_rungs"] == 0
+
+
+def test_requant_rungs_divides_where_a_reciprocal_would_not():
+    """Levels where round(coef * (1/q)) and round(coef / q) differ in fp32,
+    found by a seeded search over quality pairs: the plain version equals
+    JAX ``requantize`` there, and so does not multiply by a reciprocal."""
+    rng = np.random.default_rng(2026)
+    all_levels = np.arange(-2047, 2048, dtype=np.int32)
+    found = 0
+    for q_in, q_out in rng.integers(5, 100, (12, 2)):
+        qi, qo = ref.quality_table(int(q_in)), ref.quality_table(int(q_out))
+        coef = all_levels[:, None].astype(np.float32) * qi[None, :]
+        true_q = np.rint(coef / qo[None, :])
+        recip_q = np.rint(coef * (np.float32(1) / qo)[None, :])
+        hits = true_q != recip_q                       # [4095, 64]
+        if not hits.any():
+            continue
+        # one row per hit, its level in the hit's column, zeros elsewhere
+        rows, cols = np.nonzero(hits)
+        lv = np.zeros((len(rows), 64), np.int32)
+        lv[np.arange(len(rows)), cols] = all_levels[rows]
+        got = tf.requant_rungs_plain(_t(lv), _t(qi), _t(qo[None]))[0][0]
+        got = got.numpy()[np.arange(len(rows)), cols]
+        want = np.asarray(ref.requantize(lv, qi, qo))[np.arange(len(rows)),
+                                                     cols]
+        np.testing.assert_array_equal(got, want)
+        np.testing.assert_array_equal(got, true_q[rows, cols])
+        assert (got != recip_q[rows, cols]).all()
+        found += len(rows)
+    assert found > 0
+
+
+def _levels(n=4, dtype=torch.int32, device="cpu"):
+    return torch.zeros((n, 64), dtype=dtype, device=device)
+
+
+@pytest.mark.parametrize("levels,qt_in,qt_rungs,err,match", [
+    (_levels(dtype=torch.float32), torch.ones(64), torch.ones((2, 64)),
+     TypeError, "levels"),
+    (torch.zeros((4, 63), dtype=torch.int32), torch.ones(64),
+     torch.ones((2, 64)), ValueError, "levels"),
+    (_levels(), torch.ones(63), torch.ones((2, 64)), ValueError, "qtable"),
+    (_levels(), torch.ones(64), torch.ones((2, 64), dtype=torch.float64),
+     TypeError, "qt_rungs"),
+    (_levels(), torch.ones(64), torch.ones(64), ValueError, "qt_rungs"),
+    (_levels(), torch.ones(64), torch.ones((0, 64)), ValueError, "qt_rungs"),
+    (_levels(), torch.ones(64), torch.ones((REQUANT_MAX_RUNGS + 1, 64)),
+     ValueError, "qt_rungs"),
+    (_levels(), torch.ones(64), torch.ones((2, 63)), ValueError, "qt_rungs"),
+    (_levels(REQUANT_MAX_BLOCKS + 1, device="meta"),
+     torch.ones(64, device="meta"), torch.ones((2, 64), device="meta"),
+     ValueError, "blocks is above"),
+    (_levels(), torch.ones(64), torch.ones((2, 64), device="meta"),
+     ValueError, "qt_rungs is on meta"),
+    (_levels(device="meta"), torch.ones(64, device="meta"),
+     torch.ones((2, 64), device="meta"), ValueError,
+     "no requant kernel for device meta"),
+])
+def test_requant_wrapper_raises_on_a_wrong_dtype_or_shape(levels, qt_in,
+                                                          qt_rungs, err,
+                                                          match):
+    with pytest.raises(err, match=match):
+        requant_rungs(levels, qt_in, qt_rungs)
+    assert kernel_lib.LAUNCHES["ed_requant_rungs"] == 0
