@@ -35,9 +35,12 @@ phase; any failed phase raises and the script exits non-zero.
              stream; the ring's arrival counter back at 0 after each
 4c. gf      ``ed_gf_parity`` (B4) vs ``gf_parity_plain`` on the card,
              bit-exact: the wire shape [16,2048]x[2,16] (and R = 1, 8;
-             B = 256; K = 48, 64), 40 fuzzed K <= 64, R <= 8, B <= 4,096
-             with zero rows, bytes and coefficients, and the stripe
-             [4,1 MiB]x[2,4]; the wire and stripe shapes also vs the host
+             B = 256; K = 48, 64; K = 64 R = 8 B = 256; K = 33, odd
+             across a warp), 40 fuzzed K <= 64, R <= 8, B <= 4,096 with
+             zero rows, bytes and coefficients, five 256 KiB stripes
+             (with the stripe [4,1 MiB]x[2,4], each of the stripe
+             kernel's instantiations; two shapes on the lane kernel) and
+             the stripe; the wire and stripe shapes also vs the host
              ``gf_matmul``; K = 65, R = 9, B = 300 and an odd address raise
              without a launch; ``StripeCodec(4, 2)`` parity and a two-loss,
              crc-checked reconstruct of 4 × 1 MiB blobs on the card equal
@@ -152,7 +155,12 @@ phase; any failed phase raises and the script exits non-zero.
              and alone in this process at the same shape, its headers
              held against the CPU call);
              ``ed_gf_parity`` at the wire shape (the kernels line) and the
-             stripe beside its bound and its plain version; B7's
+             stripe, on one input set and rotating through 12 (75 MB, more
+             than L2 holds), beside the launch floor, its bound and its
+             plain version, and the FEC leg alone
+             (``StreamFec._device_parity`` at the wire shape, every pass
+             held against the host ``gf_matmul``) with the kernel's share
+             of it ([b4] lines); B7's
              ``ed_requant_rungs`` at config 5 beside the plain torch chain
              and its byte bound
 
@@ -550,11 +558,18 @@ def phase_ring_query(rng) -> dict:
 #: blobs of 1 MiB and 2 parity shards
 GF_WIRE = (16, 2048, 2)
 GF_STRIPE = (4, 1 << 20, 2)
-#: per (parity row, row, column) product: the log add, the antilog
-#: gather, the zero mask and the XOR; per (row, column): the log gather
-#: and the zero test
-OPS_PER_GF_PRODUCT = 4
-OPS_PER_GF_BYTE = 2
+#: the least B the stripe kernel takes (``kGfStripeMinB``)
+GF_STRIPE_MIN_B = 1 << 18
+#: ``ed_gf_parity``'s integer ops, counted from its source: per (parity
+#: row, row, 4-byte word) product two prmt, two masked XORs and the XOR
+#: into the sum; per (row, word) the selectors and masks; per (parity
+#: row, word) the byte-order prmt
+OPS_PER_GF_PRODUCT_WORD = 5
+OPS_PER_GF_WORD = 10
+OPS_PER_GF_OUT_WORD = 1
+#: input sets the stripe's HBM row rotates through: 12 × 6.3 MB = 75 MB,
+#: more than the card's 50 MB L2, so no call finds its inputs there
+GF_STRIPE_SETS = 12
 
 
 def gf_inputs(rng, k: int, b: int, r: int):
@@ -576,7 +591,8 @@ def gf_bound(k: int, b: int, r: int) -> tuple[int, int]:
     """(bytes, operations) one ``ed_gf_parity`` call must move and do:
     rows and coefficients read once, parity written once."""
     return (k * b + r * k + r * b,
-            OPS_PER_GF_PRODUCT * r * k * b + OPS_PER_GF_BYTE * k * b)
+            (OPS_PER_GF_PRODUCT_WORD * r * k + OPS_PER_GF_WORD * k
+             + OPS_PER_GF_OUT_WORD * r) * (b // 4))
 
 
 def phase_gf(rng) -> dict:
@@ -593,9 +609,16 @@ def phase_gf(rng) -> dict:
     from easydarwin_tpu_torch.relay.fec import coeff_rows, gf_matmul
     from easydarwin_tpu_torch.storage.codec import StripeCodec
     shapes = [GF_WIRE, (16, 2048, 1), (16, 2048, 8), (16, 256, 2),
-              (48, 2048, 8), (64, 4096, 8), (1, 256, 1)]
+              (48, 2048, 8), (64, 4096, 8), (1, 256, 1), (64, 256, 8),
+              (33, 2048, 4), (33, 256, 3)]
     shapes += [(int(rng.integers(1, 65)), 256 * int(rng.integers(1, 17)),
                 int(rng.integers(1, 9))) for _ in range(40)]
+    # the stripe kernel at its smallest B (with GF_STRIPE, each of its
+    # instantiations: K <= 4 or 8, R = 1 or 2), and stripe-sized shapes
+    # that take the lane kernel
+    shapes += [(3, GF_STRIPE_MIN_B, 1), (6, GF_STRIPE_MIN_B, 1),
+               (8, GF_STRIPE_MIN_B, 2), (4, GF_STRIPE_MIN_B, 4),
+               (16, GF_STRIPE_MIN_B, 2)]
     shapes.append(GF_STRIPE)
     err = 0
     for k, b, r in shapes:
@@ -617,9 +640,11 @@ def phase_gf(rng) -> dict:
             check(np.array_equal(got.cpu().numpy(), host),
                   f"ed_gf_parity [{k},{b}]x[{r},{k}] differs from gf_matmul")
     log(f"[gf] ed_gf_parity bit-exact vs gf_parity_plain at {len(shapes)} "
-        f"shapes: wire {GF_WIRE} (and R 1, 8; B 256), 40 fuzzed with zero "
-        f"rows, bytes and coefficients, stripe {GF_STRIPE}; the wire and "
-        f"stripe shapes also vs the host gf_matmul")
+        f"shapes: wire {GF_WIRE} (and R 1, 8; B 256), K = 64 R = 8 B = 256, "
+        f"K = 33, 40 fuzzed with zero rows, bytes and coefficients, five "
+        f"256 KiB stripes (K 3, 6, 8 on the stripe kernel; R = 4 and K = "
+        f"16 on the lane kernel), stripe {GF_STRIPE}; the wire and stripe "
+        f"shapes also vs the host gf_matmul")
     before = kernel_lib.LAUNCHES["ed_gf_parity"]
     u8 = dict(dtype=torch.uint8, device="cuda")
     for rows, coeff, what in (
@@ -1604,18 +1629,23 @@ def phase_ladder(rng) -> dict:
 # ------------------------------------------------------------- phase 10
 def ptxas_report(build_log: str) -> dict:
     """Registers, shared memory and spills of each kernel from the build's
-    ``-Xptxas -v`` lines, keyed by the kernel's name."""
+    ``-Xptxas -v`` lines, keyed by the kernel's name and, for a template,
+    its integer arguments (``gf_parity_lanes_kernel<1,2>``)."""
     import re
     names = ("parse_packets_kernel", "relay_window_kernel",
              "ring_query_kernel", "launch_floor_kernel",
-             "decode_blocks_kernel", "gf_parity_kernel",
-             "relay_batch_kernel", "requant_rungs_kernel")
+             "decode_blocks_kernel", "gf_parity_lanes_kernel",
+             "gf_parity_stripe_kernel", "relay_batch_kernel",
+             "requant_rungs_kernel")
     out, cur = {}, None
     for line in build_log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
             cur = next((n for n in names if n in m.group(1)), None)
             if cur:
+                args = re.findall(r"Li(\d+)E", m.group(1).split(cur, 1)[1])
+                if args:
+                    cur += f"<{','.join(args)}>"
                 out[cur] = {}
             continue
         if cur is None:
@@ -1655,6 +1685,7 @@ def phase_kernels(rng, launches: dict, errs: dict, levels, qt,
     256); K2 at config 5 beside cuBLAS's fp32 product alone.  The
     wrappers' direct-call times go to the detail."""
     import ctypes
+    import itertools
     import torch
     from easydarwin_tpu_torch.ops import device_ring as dr
     from easydarwin_tpu_torch.ops import fanout, fec_kernel, kernel_lib
@@ -1735,25 +1766,38 @@ def phase_kernels(rng, launches: dict, errs: dict, levels, qt,
     # config 4's bytes and 64 CTAs again, as 64 streams of 64 rows: one CTA
     # a stream row, so no cluster exchange
     window_case(((64, 64, 64, 64, 64),), False)
-    def gf_case(shape, main: bool):
+    def gf_case(shape, main: bool, n_sets: int = 1):
+        # with n_sets > 1 each call takes the next input set, so a graph of
+        # calls walks more bytes than L2 holds
         k, b, r = shape
-        rows, coeff = gf_inputs(rng, k, b, r)
-        tables = fec_kernel._tables(rows.device)
-        out = torch.empty((r, b), dtype=torch.uint8, device="cuda")
+        sets = [(*gf_inputs(rng, k, b, r),
+                 torch.empty((r, b), dtype=torch.uint8, device="cuda"))
+                for _ in range(n_sets)]
+        tables = fec_kernel._tables(sets[0][0].device)
+        turn = itertools.count()
+
+        def pick():
+            return sets[next(turn) % n_sets]
+
+        def kernel():
+            rows, coeff, out = pick()
+            kernel_lib.launch("ed_gf_parity", rows.data_ptr(), k, b,
+                              coeff.data_ptr(), r, tables.data_ptr(),
+                              out.data_ptr())
+
         nbytes, ops = gf_bound(k, b, r)
         cases.append((
-            "ed_gf_parity", f"[{k},{b}]x[{r},{k}]", main,
+            "ed_gf_parity", f"[{k},{b}]x[{r},{k}]"
+            + (f" over {n_sets} input sets" if n_sets > 1 else ""), main,
             "easydarwin_tpu_torch/csrc/fec_kernels.cu",
-            "easydarwin_tpu/models/relay_pipeline.py:280",
-            lambda: kernel_lib.launch(
-                "ed_gf_parity", rows.data_ptr(), k, b, coeff.data_ptr(), r,
-                tables.data_ptr(), out.data_ptr()),
-            lambda: fec_kernel.gf_parity(rows, coeff),
-            lambda: fec_kernel.gf_parity_plain(rows, coeff), None,
+            "easydarwin_tpu/models/relay_pipeline.py:280", kernel,
+            lambda: fec_kernel.gf_parity(*pick()[:2]),
+            lambda: fec_kernel.gf_parity_plain(*pick()[:2]), None,
             nbytes, ops, 100 if main else 20))
 
     gf_case(GF_WIRE, True)
     gf_case(GF_STRIPE, False)
+    gf_case(GF_STRIPE, False, GF_STRIPE_SETS)
 
     def batch_case(p: int, s: int, main: bool):
         dev = [torch.from_numpy(a).cuda() for a in b9_arrays(rng, p, s)]
@@ -1897,6 +1941,93 @@ def phase_b7(timed: list, pipeline: dict) -> dict:
         f"the plain torch chain (the design it replaced) "
         f"{k['plain_ms']:.6f} ms in a "
         f"graph; phase 8's step p50 {pipeline['step_ms_p50']:.3f} ms")
+    return res
+
+
+def fec_leg_ms(rng, passes: int = 50) -> dict:
+    """The FEC tier's device leg alone, in this process and away from any
+    server's load: ``StreamFec._device_parity`` over one 16-packet window
+    of paced 1080p-sized packets at the wire shape (pinned staging, the
+    upload, ONE ed_gf_parity, the parity copied back and its event waited
+    on), each pass held against the host ``gf_matmul``, whose time is the
+    oracle's; host ms a pass from the tier's own two counters."""
+    import numpy as np
+    from easydarwin_tpu_torch.ops import staging
+    from easydarwin_tpu_torch.protocol import sdp
+    from easydarwin_tpu_torch.relay.fec import (FecConfig, StreamFec,
+                                                coeff_rows, gf_matmul)
+    from easydarwin_tpu_torch.relay.stream import RelayStream, StreamSettings
+    from easydarwin_tpu_torch.utils import synth
+    from easydarwin_tpu_torch.utils.loopback import VIDEO_SDP
+    stream = RelayStream(sdp.parse(VIDEO_SDP).streams[0], StreamSettings())
+    for i, pkt in enumerate(synth.paced_gop(
+            rng, seq0=65500, ts0=0, ssrc=0x77, frames=30,
+            packets_per_frame=13, body_len=(1270, 1300))):
+        stream.push_rtp(pkt, 5000 + i // 13 * 33)
+    fec = StreamFec(stream, FecConfig(device=DEVICE))
+    k, b, r = GF_WIRE
+    slots, deltas, _seqs, lens, max_len = fec._window_rows(5)
+    b_pad = staging.pow2(max_len, 256)
+    check(fec.cfg.window == k and b_pad == b,
+          f"the leg's window is [{fec.cfg.window},{b_pad}], not the wire "
+          f"shape {GF_WIRE}")
+    coeff = coeff_rows(deltas, r)
+    oracle_ns = 0
+    for i in range(passes + 3):
+        if i == 3:                              # after the warm-up
+            fec.stage_ns = fec.kernel_ns = oracle_ns = 0
+        rows, parity = fec._device_parity(slots, lens, coeff, b_pad)
+        t0 = time.perf_counter_ns()
+        want = gf_matmul(coeff, rows)
+        oracle_ns += time.perf_counter_ns() - t0
+        check(np.array_equal(parity, want),
+              "the FEC leg's parity differs from the host gf_matmul")
+    return {"window": [k, b_pad], "parity_rows": r, "passes": passes,
+            "stage_ms_per_pass": fec.stage_ns / passes / 1e6,
+            "kernel_ms_per_pass": fec.kernel_ns / passes / 1e6,
+            "oracle_ms_per_pass": oracle_ns / passes / 1e6}
+
+
+def phase_b4(rng, timed: list, floor_ms: float, lossy: dict) -> dict:
+    """B4 at the wire shape and the stripe: ``ed_gf_parity`` in a graph
+    beside the launch floor, its bound and the plain version; the stripe
+    on one input set (in L2) and rotating through ``GF_STRIPE_SETS``
+    (from HBM); the FEC leg alone (``fec_leg_ms``), with the kernel's
+    share of it, and in phase 7d's server."""
+    rows = {k["_shape"]: k for k in timed if k["name"] == "ed_gf_parity"}
+    leg = fec_leg_ms(rng)
+    server = lossy["server_stats"]["fec"]
+    res = {"launch_floor_ms": floor_ms, "leg_alone": leg,
+           "leg_7d": {k: server[k] for k in (
+               "device_passes", "stage_ms_per_window",
+               "kernel_ms_per_window", "oracle_ms_per_window")},
+           "rows": [{"shape": k["_shape"], "ms": k["ms"],
+                     "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+                     "bound_by": k["bound_by"],
+                     "bound_share": k["_bound_share"],
+                     "gb_per_s": k["_gb_per_s"],
+                     "call_ms": k["_wrapper_call_ms"],
+                     "launches": k["launches"]} for k in rows.values()]}
+    for k in res["rows"]:
+        log(f"[b4] ed_gf_parity at {k['shape']}: {k['ms']:.6f} ms in a "
+            f"graph ({k['ms'] / floor_ms:.2f}x the {floor_ms:.6f} ms launch "
+            f"floor; {k['bound_share']:.1%} of the {k['bound_ms']:.6f} ms "
+            f"bound by {k['bound_by']}, {k['gb_per_s']:.1f} GB/s), "
+            f"{k['call_ms']:.6f} ms a direct call, plain (log/antilog "
+            f"gathers in torch ops) {k['plain_ms']:.6f} ms; {k['launches']} "
+            f"main-path launches")
+    wire = rows[f"[{GF_WIRE[0]},{GF_WIRE[1]}]x[{GF_WIRE[2]},{GF_WIRE[0]}]"]
+    leg_ms = leg["stage_ms_per_pass"] + leg["kernel_ms_per_pass"]
+    res["kernel_share_of_leg"] = wire["ms"] / leg_ms
+    log(f"[b4] the FEC leg alone at the wire shape ({leg['passes']} passes "
+        f"of StreamFec._device_parity): staging + H2D "
+        f"{leg['stage_ms_per_pass']:.6f} ms, kernel + D2H "
+        f"{leg['kernel_ms_per_pass']:.6f} ms a pass, the host oracle "
+        f"{leg['oracle_ms_per_pass']:.6f}; the kernel's {wire['ms']:.6f} ms "
+        f"is {res['kernel_share_of_leg']:.2%} of the device leg; in phase "
+        f"7d's server {server['stage_ms_per_window']:.6f} + "
+        f"{server['kernel_ms_per_window']:.6f} ms a window, oracle "
+        f"{server['oracle_ms_per_window']:.6f}")
     return res
 
 
@@ -2165,6 +2296,8 @@ def main() -> int:
         rng, (("phase 7c", b9_p, b9_s), ("config 4", 256, 256)), timed,
         {"7c": rtcp_st, "7d": detail["lossy"]["server_stats"]})
     detail["b7"] = phase_b7(timed, detail["pipeline"])
+    detail["b4"] = phase_b4(rng, timed, detail["launch_floor_ms"],
+                            detail["lossy"])
     kernels = [{k: v for k, v in t.items() if not k.startswith("_")}
                for t in timed if t["_main_path"]]
     for k in timed:

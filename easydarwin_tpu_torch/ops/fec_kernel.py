@@ -5,9 +5,11 @@ The counterpart of the reference's XLA pass
 written by hand in CUDA C++ (``csrc/fec_kernels.cu``): ``rows [K, B]``
 uint8 (a FEC window's ring rows, or a stripe's blobs) times
 ``coeff [R, K]`` uint8 (Vandermonde rows, ``relay.fec.coeff_rows``) →
-``[R, B]`` uint8 over GF(256) with the polynomial 0x11D.  Each product is
-``exp[log c + log r]`` with zero operands masked, XORed over K; the XOR
-row is the all-ones coefficient row, so one pass serves both kinds.
+``[R, B]`` uint8 over GF(256) with the polynomial 0x11D, XORed over K;
+the XOR row is the all-ones coefficient row, so one pass serves both
+kinds.  The kernel multiplies through nibble product tables
+(``GF_NIB``: ``c·x = c·(x & 0x0F) ⊕ c·(x & 0xF0)``, two 16-byte tables
+per coefficient) held in registers, not log/antilog gathers.
 
 ``gf_parity_plain`` is the plain PyTorch version: int64 table gathers
 (``rows.long()`` indices) and a loop of uint8 ``^=`` over K.  On a CPU
@@ -18,19 +20,37 @@ both devices: K <= 64, R <= 8 and B a positive multiple of 256.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..relay.fec import GF_EXP512, GF_LOG
 from . import kernel_lib
 
 #: the kernel's limits: rows a window, parity rows, and the byte-axis unit
-#: (each thread owns 16 columns; B is pow2-padded to at least 256)
+#: (B / 4 words fill whole CTAs of 64 threads; B is pow2-padded to at
+#: least 256)
 MAX_K = 64
 MAX_R = 8
 B_UNIT = 256
 
-#: per device: the kernel's 768-byte table, and the plain version's
-#: (log int64, antilog uint8) pair; made once, so both are graph-capturable
+
+def _nibble_tables() -> np.ndarray:
+    """``[256, 2, 16]`` uint8: ``[c, 0, i] = c·i`` and ``[c, 1, i] =
+    c·(i << 4)``, the products of every coefficient by every low and high
+    nibble (row 0 and column 0 are zeros)."""
+    c = np.arange(256)[:, None]
+    x = np.concatenate([np.arange(16), np.arange(16) << 4])[None, :]
+    prod = GF_EXP512[GF_LOG[c] + GF_LOG[x]]
+    prod[(c == 0) | (x == 0)] = 0
+    return prod.astype(np.uint8).reshape(256, 2, 16)
+
+
+#: the kernel's table: one coefficient's low-nibble then high-nibble
+#: products, 32 bytes, at ``32 · c`` (8 KB)
+GF_NIB = _nibble_tables()
+
+#: per device: the kernel's ``GF_NIB``, and the plain version's (log
+#: int64, antilog uint8) pair; made once, so both are graph-capturable
 _TABLES: dict[torch.device, torch.Tensor] = {}
 _PLAIN_TABLES: dict[torch.device, tuple[torch.Tensor, torch.Tensor]] = {}
 
@@ -77,13 +97,10 @@ def gf_parity_plain(rows: torch.Tensor, coeff: torch.Tensor) -> torch.Tensor:
 
 
 def _tables(device: torch.device) -> torch.Tensor:
-    """``GF_EXP512 ∥ GF_LOG`` as 768 uint8 on ``device`` (log values are
-    0..254, log[0] the sentinel the kernel masks)."""
+    """``GF_NIB`` on ``device``, uploaded once."""
     t = _TABLES.get(device)
     if t is None:
-        host = torch.cat([torch.as_tensor(GF_EXP512, dtype=torch.uint8),
-                          torch.as_tensor(GF_LOG, dtype=torch.uint8)])
-        t = _TABLES[device] = host.to(device)
+        t = _TABLES[device] = torch.from_numpy(GF_NIB).to(device)
     return t
 
 

@@ -74,7 +74,7 @@ _SIGNATURES = {
     "ed_decode_blocks": (_P, _I, _P, _P, _P, _P),
     # -> blocks per tile, ring stages, CTAs a launch uses (not a launch)
     "ed_decode_blocks_geometry": (_IP, _IP, _IP),
-    # rows, K, B, coeff, R, tables (antilog 512 ∥ log 256), out, stream
+    # rows, K, B, coeff, R, tables (GF_NIB [256, 2, 16]), out, stream
     "ed_gf_parity": (_P, _I, _I, _P, _I, _P, _P, _P),
     # prefix, P, row_stride, length, age_ms, state, bucket, S, delay_ms,
     # headers, mask, keyframe_first, frame_last, scratch, newest, stream

@@ -6,6 +6,11 @@ reference (``easydarwin_tpu.relay.fec``) on the CPU, bit for bit:
 * B4's plain version (``models.relay_pipeline.fec_parity_window_step`` on
   CPU tensors) against the reference's XLA pass at the wire shapes and the
   stripe geometry, with zero rows and zero coefficients; its shape checks;
+* B4's kernel arithmetic, which no CPU can run as CUDA: the ``GF_NIB``
+  nibble tables against ``gf_mul`` and the reference's log/antilog product
+  for every (c, x), and the kernel's nibble-split product with PTX
+  ``prmt`` emulated in numpy (sign replication included) against the
+  reference's pass at the wire shapes, 20 fuzzed and a stripe slice;
 * the parity and RTX packets' bytes, and ``FecRateController``'s steps on
   the same RR and NADU series;
 * ``StreamFec`` on the same pushed stream: the same parity bytes through
@@ -186,6 +191,118 @@ def test_parity_shapes_outside_the_kernel_range_raise(k, b, r, dtype):
         fec_parity_window_step(torch.zeros((16, 256), dtype=torch.uint8),
                                torch.ones((2, 15), dtype=torch.uint8))
     assert kernel_lib.LAUNCHES["ed_gf_parity"] == 0
+
+
+# ------------------------------------------- B4's kernel arithmetic in numpy
+def test_nibble_tables_equal_gf_mul_and_the_reference_product():
+    nib = fec_kernel.GF_NIB
+    assert nib.shape == (256, 2, 16) and nib.dtype == np.uint8
+    c = np.arange(256)[:, None]
+    x = np.arange(256)[None, :]
+    # every (c, x) from the two nibble products, against gf_mul and the
+    # reference's own log/antilog tables
+    split = nib[c, 0, x & 0x0F] ^ nib[c, 1, x >> 4]
+    want = np.array([[fec.gf_mul(a, b) for b in range(256)]
+                     for a in range(256)], np.uint8)
+    ref = ref_fec.GF_EXP[(ref_fec.GF_LOG[c] + ref_fec.GF_LOG[x]) % 255]
+    ref = np.where((c == 0) | (x == 0), 0, ref).astype(np.uint8)
+    assert np.array_equal(split, want)
+    assert np.array_equal(split, ref)
+    assert not nib[0].any() and not nib[:, :, 0].any()
+    # the tensor the wrapper hands the kernel is this table
+    assert np.array_equal(
+        fec_kernel._tables(torch.device("cpu")).numpy(), nib)
+
+
+def _prmt(a, b, s):
+    """PTX ``prmt.b32`` in its default mode over uint32 arrays: result
+    byte n is byte ``(s >> 4n) & 7`` of ``{b, a}`` (a holds bytes 0-3),
+    or, when bit 3 of that nibble is set, that byte's sign replicated."""
+    a, b, s = np.broadcast_arrays(*(np.asarray(v, np.uint32)
+                                    for v in (a, b, s)))
+    src = np.stack([(a >> np.uint32(8 * i)) & np.uint32(0xFF)
+                    for i in range(4)]
+                   + [(b >> np.uint32(8 * i)) & np.uint32(0xFF)
+                      for i in range(4)])
+    out = np.zeros(a.shape, np.uint32)
+    for n in range(4):
+        nib = (s >> np.uint32(4 * n)) & np.uint32(0xF)
+        byte = np.take_along_axis(src, (nib & np.uint32(7))[None], 0)[0]
+        sign = np.where(byte & np.uint32(0x80), np.uint32(0xFF),
+                        np.uint32(0))
+        byte = np.where(nib & np.uint32(8), sign, byte)
+        out |= byte << np.uint32(8 * n)
+    return out
+
+
+def _nibble_parity(rows, coeff, sel_mask=0x07070707):
+    """``ed_gf_parity``'s arithmetic (``csrc/fec_kernels.cu``: nibbles,
+    coef_tables, product, in_order) word by word in numpy, through
+    ``GF_NIB``."""
+    u32 = np.uint32
+    words = np.ascontiguousarray(rows).view("<u4").astype(u32)  # [K, B/4]
+    tabs = fec_kernel.GF_NIB.reshape(256, 32).view("<u4").astype(u32)
+    out = np.zeros((coeff.shape[0], words.shape[1]), u32)
+    for k in range(rows.shape[0]):
+        w = words[k]
+        lo = w & u32(sel_mask)
+        hi = (w >> u32(4)) & u32(sel_mask)
+        sel_lo = lo | (lo >> u32(12))
+        sel_hi = hi | (hi >> u32(12))
+        big_lo = _prmt(w << u32(4), 0, 0xB9A8)
+        big_hi = _prmt(w, 0, 0xB9A8)
+        for r in range(coeff.shape[0]):
+            t = tabs[int(coeff[r, k])]            # lo words 0-3, hi 4-7
+            c8, c80 = _prmt(t[2], 0, 0), _prmt(t[6], 0, 0)
+            out[r] ^= (_prmt(t[0], t[1], sel_lo) ^ (c8 & big_lo)
+                       ^ _prmt(t[4], t[5], sel_hi) ^ (c80 & big_hi))
+    return _prmt(out, 0, 0x3120).astype("<u4").view(np.uint8)
+
+
+def test_prmt_emulation_copies_and_replicates_the_sign():
+    a, b = 0x83_02_F1_00, 0x7F_80_45_C6
+    assert _prmt(a, b, 0x3210) == a and _prmt(a, b, 0x7654) == b
+    assert _prmt(a, b, 0x0123) == 0x00_F1_02_83           # byte order
+    # bit 3 of a nibble: 0xFF for bytes 0x83, 0xF1, 0xC6, 0x80; 0 else
+    assert _prmt(a, b, 0x8BDC) == 0x00_FF_00_FF
+    assert _prmt(a, b, 0xEC9A) == 0xFF_FF_FF_00
+
+
+def _kernel_inputs(rng, k, b, r):
+    rows = rng.integers(0, 256, (k, b), dtype=np.uint8)
+    coeff = rng.integers(0, 256, (r, k), dtype=np.uint8)
+    rows[int(rng.integers(k))] = 0                 # a zero row
+    rows[rng.random((k, b)) < 0.05] = 0            # zero bytes
+    coeff[rng.random((r, k)) < 0.2] = 0            # zero coefficients
+    return rows, coeff
+
+
+_FUZZ = np.random.default_rng(1010)
+#: the wire shape and its R = 1 and 8, 20 fuzzed, a K = 4 stripe slice
+_NIBBLE_SHAPES = ([(16, 2048, 2), (16, 2048, 1), (16, 2048, 8)]
+                  + [(int(_FUZZ.integers(1, 65)),
+                      256 * int(_FUZZ.integers(1, 17)),
+                      int(_FUZZ.integers(1, 9))) for _ in range(20)]
+                  + [(4, 1 << 18, 2)])
+
+
+@pytest.mark.parametrize("k,b,r", _NIBBLE_SHAPES)
+def test_nibble_product_equals_the_reference_pass(k, b, r):
+    rows, coeff = _kernel_inputs(np.random.default_rng(k * 1000 + r + b),
+                                 k, b, r)
+    want = np.asarray(ref_parity_step(rows, coeff))
+    assert np.array_equal(_nibble_parity(rows, coeff), want)
+
+
+def test_nibble_selector_needs_its_bit_3_cleared():
+    # every byte value, against every coefficient: with bit 3 of the
+    # selector nibbles kept, prmt replicates signs and the product breaks
+    rows = np.tile(np.arange(256, dtype=np.uint8), (1, 1))
+    coeff = np.arange(256, dtype=np.uint8)[:, None]
+    want = fec.gf_matmul(coeff, rows)
+    assert np.array_equal(_nibble_parity(rows, coeff), want)
+    assert not np.array_equal(_nibble_parity(rows, coeff, 0x0F0F0F0F),
+                              want)
 
 
 # ----------------------------------------------------------- wire formats
