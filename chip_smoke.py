@@ -44,7 +44,11 @@ phase; any failed phase raises and the script exits non-zero.
              ``gf_matmul``; K = 65, R = 9, B = 300 and an odd address raise
              without a launch; ``StripeCodec(4, 2)`` parity and a two-loss,
              crc-checked reconstruct of 4 × 1 MiB blobs on the card equal
-             the host product (2 device passes, 0 mismatches)
+             the host product (2 device passes, 0 mismatches); a k = 65
+             stripe (past the kernel's 64 rows): ``fec_parity_window_step``
+             as two launches XORed, byte-equal to the plain version and
+             ``gf_matmul``, and ``StripeCodec(65, 2)`` parity and a
+             two-loss reconstruct equal to the host product
 4d. b9      ``ed_relay_batch`` (B9) vs ``relay_batch_step_plain`` on the
              same card tensors and vs the call on CPU tensors, every key
              bit-exact: phase 7c's pass (P = 47, S = 16), P = S = 256, the
@@ -64,8 +68,17 @@ phase; any failed phase raises and the script exits non-zero.
              3 rungs) and 11 fuzzed N (1 to 300,001: ragged rows and
              several trips of the grid's stride) at R = 1..8 with .5 ties and levels at ±2047, one also
              vs the CPU; the library's limits = ``ops.transform_kernel``'s;
-             N = 0 returns zeros without a launch; R = 9, levels off 16
-             bytes and wrong dtypes raise without one
+             N = 0 returns zeros without a launch; one launch's R = 9,
+             levels off 16 bytes and wrong dtypes raise without one;
+             ``requant_rungs`` with R = 9 at config 5 is two launches
+             (8 + 1 rungs), bit-exact with its nonzeros summed
+5c. b6      B6 (``h264_requant``, ``h264_requant_chroma``: plain torch
+             int32 ops, no hand kernel) at config-5 width, 16 × one 1080p
+             frame of 8,160 macroblocks: luma [2,088,960, 16], chroma DC
+             [261,120, 4] and AC [261,120, 4, 15], a seeded QP mix over all
+             three chroma arms with levels beyond ±LEVEL_CLIP; the card's
+             result equal to the CPU's, 4,096 sampled rows of each equal to
+             the scalar oracles
 6. scheduler the main path in-process: MegabatchScheduler + FanoutEngine
              over 16 streams × 256 subscribers in 2 buckets for 36 wakes,
              every wire byte held against RelayStream.reflect, plus the
@@ -122,6 +135,14 @@ phase; any failed phase raises and the script exits non-zero.
              player the packets rebuilt by parity and by RTX; the wake
              p50, max and first join; the host ms per FEC window split
              into staging + H2D, kernel + D2H and the host oracle
+7e. udp push BASELINE config 2 pushed over RTP/UDP through the CLI server:
+             phase 7b's traffic from a pusher that SETUPs with client_port
+             and mode=record, sends its packets to the server's port pair
+             and an SR a second to its RTCP port; every datagram held to
+             the oracle, the server's native ingest (``ed_udp_ingest``)
+             took every packet pushed in fewer drains, 0 oversize, 0 send
+             errors, the pusher received the relay's RRs; the wake p50,
+             max and first join and the ns a packet inside the drain
 8. pipeline  the config-5 TranscodePipeline (qualities 80/50/25 from 90,
              decode_pixels) for 8 steps of 783,360 blocks on the card:
              8 K2 and 8 ed_requant_rungs launches, one step held against
@@ -162,12 +183,17 @@ phase; any failed phase raises and the script exits non-zero.
              held against the host ``gf_matmul``) with the kernel's share
              of it ([b4] lines); B7's
              ``ed_requant_rungs`` at config 5 beside the plain torch chain
-             and its byte bound
+             and its byte bound; B6's two torch chains at phase 5c's
+             shapes in a graph and by direct call beside their byte bounds
+             ([b6] lines, not in the kernels line: B6 has no hand kernel)
+
+Before the last lines, ``[uring]`` gives ``ed_uring_probe``'s answer on
+this host: its capability bits by name, or the errno's name.
 
 The kernel launch counts are set to 0 just before phase 6 and read just
 after phase 9 (the server processes report their own at exit, without
 their start-up warm-up); the comparisons and timings of phases 3, 4, 4b,
-4c, 4d, 5, 5b and 10 run outside that window.
+4c, 4d, 5, 5b, 5c and 10 run outside that window.
 Detail goes to ``chiprun_out/chip_smoke.json``.  The last line of standard
 output is ``{"ok": true, "device": {...}}``.
 """
@@ -690,8 +716,74 @@ def phase_gf(rng) -> dict:
     log("[gf] StripeCodec(4, 2) on the card: parity of 4 x 1 MiB blobs "
         "equals the host product, a two-loss reconstruct (crc-checked) "
         "returns the lost blobs; 2 device passes, 0 oracle mismatches")
+    k65 = gf_wide_stripe(rng)
+    err = max(err, k65["max_abs_err"])
     return {"shapes": len(shapes), "max_abs_err": err,
-            "stripe_device_passes": codec.device_passes}
+            "stripe_device_passes": codec.device_passes, "k65": k65}
+
+
+#: a stripe past ``ed_gf_parity``'s 64 rows: 65 blobs of 16 KiB, 2 parity
+GF_WIDE = (65, 1 << 14, 2)
+
+
+def gf_wide_stripe(rng) -> dict:
+    """A k = 65 stripe on the card: ``fec_parity_window_step`` runs it as
+    two ``ed_gf_parity`` launches (64 rows, then 1) whose products are
+    XORed, byte-equal to the plain version and the host ``gf_matmul``;
+    ``StripeCodec(65, 2)`` parity and a two-loss reconstruct on the card
+    equal the host product."""
+    import zlib
+    import numpy as np
+    import torch
+    from easydarwin_tpu_torch.models.relay_pipeline import \
+        fec_parity_window_step
+    from easydarwin_tpu_torch.ops import kernel_lib
+    from easydarwin_tpu_torch.ops.fec_kernel import gf_parity_plain
+    from easydarwin_tpu_torch.relay.fec import coeff_rows, gf_matmul
+    from easydarwin_tpu_torch.storage.codec import StripeCodec
+    k, b, r = GF_WIDE
+    rows, coeff = gf_inputs(rng, k, b, r)
+    before = kernel_lib.LAUNCHES["ed_gf_parity"]
+    got = fec_parity_window_step(rows, coeff)
+    check(kernel_lib.LAUNCHES["ed_gf_parity"] == before + 2,
+          f"gf k = {k}: not two launches")
+    want = gf_parity_plain(rows, coeff)
+    host = gf_matmul(coeff.cpu().numpy(), rows.cpu().numpy())
+    err = max(int((got.int() - want.int()).abs().max()),
+              int(np.abs(got.cpu().numpy().astype(np.int32) - host).max()))
+    check(err == 0, f"ed_gf_parity k = {k}: the XORed launches differ "
+                    f"from the plain version or gf_matmul")
+    blobs = [rng.integers(0, 256, b - 37 * i, dtype=np.uint8).tobytes()
+             for i in range(k)]
+    codec = StripeCodec(k, r, device="cuda")
+    before = kernel_lib.LAUNCHES["ed_gf_parity"]
+    parity = codec.parity(blobs)
+    lens = [len(x) for x in blobs]
+    stripe = np.zeros((k, max(lens)), np.uint8)
+    for i, x in enumerate(blobs):
+        stripe[i, :len(x)] = np.frombuffer(x, np.uint8)
+    host = gf_matmul(coeff_rows(range(k), r), stripe)
+    check(parity == [host[p].tobytes() for p in range(r)],
+          f"StripeCodec({k}, {r}).parity on the card differs from gf_matmul")
+    present = {i: x for i, x in enumerate(blobs) if i not in (0, k - 1)}
+    present.update({k + p: x for p, x in enumerate(parity)})
+    crcs = [zlib.crc32(x) & 0xFFFFFFFF for x in blobs]
+    got = codec.reconstruct(present, lens, asset="chip", crcs=crcs)
+    check(got == {0: blobs[0], k - 1: blobs[k - 1]},
+          f"StripeCodec({k}, {r}) two-loss reconstruct is not the lost "
+          f"blobs")
+    launches = kernel_lib.LAUNCHES["ed_gf_parity"] - before
+    check(codec.oracle_mismatches == 0 and launches == 4,
+          f"stripe k = {k}: {codec.oracle_mismatches} mismatches, "
+          f"{launches} launches")
+    torch.cuda.synchronize()
+    log(f"[gf] k = {k} (C3): fec_parity_window_step [{k},{b}]x[{r},{k}] is "
+        f"two ed_gf_parity launches XORed, byte-equal to gf_parity_plain "
+        f"and gf_matmul; StripeCodec({k}, {r}) parity and a two-loss "
+        f"reconstruct on the card equal the host product ({launches} "
+        f"launches, 0 oracle mismatches)")
+    return {"shape": [k, b, r], "max_abs_err": err,
+            "codec_launches": launches}
 
 
 # ------------------------------------------------------------- phase 4d
@@ -1014,6 +1106,17 @@ def phase_b7_check(rng, levels) -> dict:
         f"requant_rungs_plain at config 5 ([{levels.shape[0]},64] x 3) and "
         f"{len(sizes)} fuzzed N x R (1..8), one also vs the CPU; ticket "
         f"back at 0; geometry {geo} = ops.transform_kernel's")
+    # C4: nine rungs, past the kernel's eight: two launches (8 + 1)
+    qt9 = torch.from_numpy(np.stack([tf.quality_table(q) for q in (
+        90, 80, 70, 60, 50, 40, 30, 20, 10)])).cuda()
+    before = kernel_lib.LAUNCHES["ed_requant_rungs"]
+    got = tk.requant_rungs(levels, qt_in, qt9)
+    launched = kernel_lib.LAUNCHES["ed_requant_rungs"] - before
+    check(launched == 2, f"b7 R = 9: {launched} launches, not two")
+    res["r9"] = b7_diff(got, tf.requant_rungs_plain(levels, qt_in, qt9),
+                        "ed_requant_rungs R = 9")
+    log(f"[b7] R = 9 (C4) at config 5: two ed_requant_rungs launches (8 + 1 "
+        f"rungs), rungs and summed nonzeros bit-exact vs requant_rungs_plain")
     before = kernel_lib.LAUNCHES["ed_requant_rungs"]
     empty = tk.requant_rungs(levels[:0], qt_in, qt_rungs)
     check(empty[0].shape == (3, 0, 64) and int(empty[1].abs().sum()) == 0,
@@ -1027,7 +1130,7 @@ def phase_b7_check(rng, levels) -> dict:
             ((levels[:64].float(), qt_in, qt_rungs), "float levels"),
             ((levels[:64], qt_in, qt_rungs.double()), "float64 tables")):
         try:
-            tk.requant_rungs(*args)
+            tk.requant_rungs_launch(*args)
         except (ValueError, TypeError):
             continue
         raise AssertionError(f"ed_requant_rungs took {what}")
@@ -1036,6 +1139,156 @@ def phase_b7_check(rng, levels) -> dict:
     log("[b7] N = 0 returns empty rungs and zero counts, R = 9, levels off "
         "16 bytes, float levels and float64 tables raise, all without a "
         "launch")
+    return res
+
+
+# ------------------------------------------------------------- phase 5c
+#: config 5's H.264 ladder at full width: 16 sources × one 1080p frame,
+#: 120 × 68 = 8,160 macroblocks a frame, 16 luma 4×4 blocks and two
+#: chroma components a macroblock
+H264_MBS = 16 * 120 * 68
+H264_LUMA_ROWS = 16 * H264_MBS
+H264_CHROMA_ROWS = 2 * H264_MBS
+#: rows held against the scalar oracles, a sample of each kind
+H264_SAMPLE = 4096
+
+
+def h264_inputs(rng) -> dict:
+    """B6's seeded inputs at config-5 width as numpy: luma levels [N, 16]
+    with per-block ``qp_in`` 0-51 and ``qp_out = qp_in + 6k``; chroma DC
+    [M, 4] and AC [M, 4, 15] with QPc through Table 8-15 from a luma QP
+    and a step of 0, 6, 12 or 18, so all three arms occur (identity,
+    exact shift, general round trip).  Some levels lie beyond
+    ±``LEVEL_CLIP``."""
+    import numpy as np
+    from easydarwin_tpu_torch.codecs.h264_transform import (CHROMA_QP,
+                                                            LEVEL_CLIP)
+    n, m = H264_LUMA_ROWS, H264_CHROMA_ROWS
+    lev = (rng.integers(-60, 61, (n, 16))
+           * (rng.random((n, 16)) < 0.3)).astype(np.int32)
+    wide = rng.random((n, 16)) < 0.002
+    lev[wide] = rng.integers(-LEVEL_CLIP - 400, LEVEL_CLIP + 401,
+                             int(wide.sum()))
+    qi = rng.integers(0, 52, n).astype(np.int32)
+    qo = (qi + 6 * rng.integers(0, (51 - qi) // 6 + 1)).astype(np.int32)
+    dc = rng.integers(-600, 601, (m, 4)).astype(np.int32)
+    ac = (rng.integers(-90, 91, (m, 4, 15))
+          * (rng.random((m, 4, 15)) < 0.3)).astype(np.int32)
+    wide = rng.random((m, 4, 15)) < 0.002
+    ac[wide] = rng.integers(-LEVEL_CLIP - 400, LEVEL_CLIP + 401,
+                            int(wide.sum()))
+    dc[::97] = rng.integers(-LEVEL_CLIP - 400, LEVEL_CLIP + 401, (4,))
+    qpy = rng.integers(0, 52, m)
+    step = rng.choice([0, 6, 12, 18], m)
+    qci = CHROMA_QP[qpy].astype(np.int32)
+    qco = CHROMA_QP[np.minimum(qpy + step, 51)].astype(np.int32)
+    return {"lev": lev, "qi": qi, "qo": qo, "dc": dc, "ac": ac,
+            "qci": qci, "qco": qco}
+
+
+def h264_bound(rows: int, row_bytes: int) -> int:
+    """Bytes one B6 call must move: its levels read and written once and
+    its two int32 QP vectors read once."""
+    return rows * (2 * row_bytes + 8)
+
+
+def phase_h264(rng) -> dict:
+    """B6 at config-5 width on the card: ``h264_requant`` over
+    [2,088,960, 16] and ``h264_requant_chroma`` over DC [261,120, 4] and
+    AC [261,120, 4, 15], int32 and equal to the same functions on the
+    CPU; 4,096 sampled rows of each also equal to the scalar oracles.
+    B6 is plain torch ops (no hand kernel: no path runs it yet)."""
+    import numpy as np
+    import torch
+    from easydarwin_tpu_torch.codecs import h264_transform as ht
+    from easydarwin_tpu_torch.ops import transform as tf
+    x = h264_inputs(rng)
+    cuda = {k: torch.from_numpy(v).cuda() for k, v in x.items()}
+    cpu = {k: torch.from_numpy(v) for k, v in x.items()}
+    t0 = time.perf_counter()
+    luma = tf.h264_requant(cuda["lev"], cuda["qi"], cuda["qo"])
+    dc, ac = tf.h264_requant_chroma(cuda["dc"], cuda["ac"], cuda["qci"],
+                                    cuda["qco"])
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    for t in (luma, dc, ac):
+        check(t.dtype == torch.int32 and t.is_cuda, f"B6 output {t.dtype}")
+    want_l = tf.h264_requant(cpu["lev"], cpu["qi"], cpu["qo"])
+    want_dc, want_ac = tf.h264_requant_chroma(cpu["dc"], cpu["ac"],
+                                              cpu["qci"], cpu["qco"])
+    luma, dc, ac = luma.cpu(), dc.cpu(), ac.cpu()
+    err = max(int((a.long() - b.long()).abs().max())
+              for a, b in ((luma, want_l), (dc, want_dc), (ac, want_ac)))
+    check(err == 0, f"B6 on the card differs from the CPU (max {err})")
+    delta = x["qco"] - x["qci"]
+    arms = {"identity": int((delta == 0).sum()),
+            "shift": int(((delta != 0) & (delta % 6 == 0)).sum()),
+            "general": int((delta % 6 != 0).sum())}
+    check(min(arms.values()) > 0, f"B6 chroma arms not all covered: {arms}")
+    clipped = int((np.abs(x["lev"]) > ht.LEVEL_CLIP).sum()
+                  + (np.abs(x["ac"]) > ht.LEVEL_CLIP).sum())
+    check(clipped > 0, "no level beyond LEVEL_CLIP")
+    for i in rng.choice(H264_LUMA_ROWS, H264_SAMPLE, replace=False):
+        qi, qo = int(x["qi"][i]), int(x["qo"][i])
+        want = (ht.requant_levels_scalar(x["lev"][i], qi, qo) if qo > qi
+                else np.clip(x["lev"][i], -ht.LEVEL_CLIP, ht.LEVEL_CLIP))
+        check(np.array_equal(luma[i].numpy(), want),
+              f"h264_requant row {i} differs from the scalar oracle")
+    for i in rng.choice(H264_CHROMA_ROWS, H264_SAMPLE, replace=False):
+        sdc, sac = ht.requant_chroma_scalar(x["dc"][i], x["ac"][i],
+                                            int(x["qci"][i]),
+                                            int(x["qco"][i]))
+        check(np.array_equal(dc[i].numpy(), sdc)
+              and np.array_equal(ac[i].numpy(), sac),
+              f"h264_requant_chroma row {i} differs from the scalar oracle")
+    log(f"[b6] h264_requant [{H264_LUMA_ROWS},16] and h264_requant_chroma "
+        f"DC [{H264_CHROMA_ROWS},4] AC [{H264_CHROMA_ROWS},4,15] on the "
+        f"card: int32, equal to the CPU run; chroma arms {arms}; "
+        f"{clipped} levels beyond +-{ht.LEVEL_CLIP}; {H264_SAMPLE} sampled "
+        f"rows of each equal to the scalar oracles; first call "
+        f"{first_ms:.3f} host ms (both, synchronized)")
+    return {"luma_rows": H264_LUMA_ROWS, "chroma_rows": H264_CHROMA_ROWS,
+            "arms": arms, "levels_beyond_clip": clipped, "max_abs_err": err,
+            "first_call_ms": first_ms}, cuda
+
+
+def phase_b6(x: dict) -> dict:
+    """B6's plain torch chains on the card at config-5 width, by CUDA
+    events around graph replays (and around direct calls, host enqueue
+    included), beside their byte bounds at the HBM rate; the results
+    after the replays equal the first call's.  Their operations (tens a
+    coefficient) bound them far below the bytes."""
+    import torch
+    from easydarwin_tpu_torch.ops import transform as tf
+
+    def luma():
+        return (tf.h264_requant(x["lev"], x["qi"], x["qo"]),)
+
+    def chroma():
+        return tf.h264_requant_chroma(x["dc"], x["ac"], x["qci"], x["qco"])
+
+    res = {}
+    for name, fn, rows, row_bytes in (
+            ("h264_requant", luma, H264_LUMA_ROWS, 16 * 4),
+            ("h264_requant_chroma", chroma, H264_CHROMA_ROWS, 64 * 4)):
+        first = fn()
+        ms = graph_ms(fn, reps=11, inner=5)
+        call = call_ms(fn, reps=5, inner=5)
+        again = fn()
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(first, again)),
+              f"{name} after the graph replays differs")
+        nbytes = h264_bound(rows, row_bytes)
+        bound = nbytes / PEAK_BYTES_PER_S * 1e3
+        res[name] = {"rows": rows, "ms": ms, "call_ms": call,
+                     "bytes": nbytes, "bound_ms": bound, "bound_by": "bytes",
+                     "times_bound": ms / bound,
+                     "gb_per_s": nbytes / (ms * 1e-3) / 1e9}
+        log(f"[b6] {name} ({rows} rows, plain torch int32 ops, no hand "
+            f"kernel): {ms:.6f} ms in a graph, {call:.6f} ms a direct "
+            f"call; bound {bound:.6f} ms by bytes ({nbytes / 1e6:.1f} MB "
+            f"at 3.35 TB/s), {ms / bound:.2f}x it, "
+            f"{res[name]['gb_per_s']:.1f} GB/s; equal after the replays")
     return res
 
 
@@ -1543,6 +1796,47 @@ def phase_lossy(rng) -> dict:
         f"{fec['stage_ms_per_window']:.6f}, kernel + D2H "
         f"{fec['kernel_ms_per_window']:.6f}, host oracle "
         f"{fec['oracle_ms_per_window']:.6f}")
+    return res
+
+
+# ------------------------------------------------------------- phase 7e
+def phase_udp_push(rng) -> dict:
+    """BASELINE config 2 pushed over RTP/UDP: phase 7b's traffic from a
+    pusher that SETUPs with ``client_port`` and ``mode=record`` and sends
+    its packets and SRs to the server's port pair; the server drains its
+    RTP socket natively (recvmmsg batches straight into the ring)."""
+    from easydarwin_tpu_torch.utils import loopback
+    res = asyncio.run(asyncio.wait_for(loopback.serve_and_check(
+        DEVICE, rng, n_push=1, n_play=CONFIG2_SUBS, transport="udp",
+        push_transport="udp", gops=5, frames=30, packets_per_frame=13,
+        body_len=(1270, 1300), frame_interval_s=1 / 30, join_every=1,
+        deadline_s=30), 240))
+    st = res["server_stats"]
+    ing = st["ingest"]
+    check(st["native_loaded"], "the server's egress core did not load")
+    check(ing["native_pkts"] == res["packets_pushed"]
+          and ing["datagram_pkts"] == 0,
+          f"the native drain served {ing['native_pkts']} of "
+          f"{res['packets_pushed']} packets pushed: {ing}")
+    check(ing["oversize"] == 0 and ing["errors"] == 0
+          and ing["native_batches"] > 0, f"native ingest: {ing}")
+    check(st["send_errors"] == 0 and st["missing_params"] == 0,
+          f"udp push send errors / missing params: {st}")
+    check(min(res["upstream_rrs"]) >= 1, "the pusher received no RR")
+    res["ingest_ns_per_packet"] = ing["ingest_ns"] / max(ing["recv_packets"],
+                                                         1)
+    log(f"[udp push] config 2 pushed over RTP/UDP: 1 source x "
+        f"{res['players']} UDP players, {res['packets_pushed']} packets "
+        f"pushed, {res['delivered']} datagrams delivered, every one held to "
+        f"the oracle; native ingest {ing['native_pkts']} packets in "
+        f"{ing['native_batches']} drains ({ing['recvmmsg_calls']} recvmmsg "
+        f"calls), 0 oversize, 0 errors, "
+        f"{res['ingest_ns_per_packet']:.1f} ns a packet inside "
+        f"ed_udp_ingest; the pusher got {res['upstream_rrs'][0]} RRs; "
+        f"native_sent {st['native_sent']} of {st['packets_out']}; launches "
+        f"{st['kernel_launches']}")
+    log(f"[udp push] wake host ms p50 {st['wake_ms_p50']:.3f} max "
+        f"{st['wake_ms_max']:.3f}, first join's {st['wake_ms_first']:.3f}")
     return res
 
 
@@ -2201,6 +2495,7 @@ def main() -> int:
               "needs a CUDA card", file=sys.stderr)
         return 2
     import numpy as np
+    from easydarwin_tpu_torch import native
     from easydarwin_tpu_torch.ops import kernel_lib
     from easydarwin_tpu_torch.ops.transform_kernel import ring_geometry
 
@@ -2244,6 +2539,7 @@ def main() -> int:
     log(f"[k2] ring: {detail['k2_ring']}")
     detail["k2"] = phase_k2(levels, qt, detail["k2_ring"])
     detail["b7_check"] = phase_b7_check(rng, levels)
+    detail["b6"], b6_inputs = phase_h264(rng)
 
     kernel_lib.reset_launch_counts()           # the main path starts here
     detail["scheduler"] = phase_scheduler(rng)
@@ -2252,11 +2548,13 @@ def main() -> int:
     detail["config2"] = phase_config2(rng)
     detail["rtcp"] = phase_rtcp(rng)
     detail["lossy"] = phase_lossy(rng)
+    detail["udp_push"] = phase_udp_push(rng)
     detail["pipeline"] = phase_pipeline(levels)
     detail["ladder"] = phase_ladder(rng)
     in_proc = dict(kernel_lib.LAUNCHES)
     servers = [detail[p]["server_stats"]["kernel_launches"]
-               for p in ("server", "config2", "rtcp", "lossy", "ladder")]
+               for p in ("server", "config2", "rtcp", "lossy", "udp_push",
+                         "ladder")]
     launches = {k: in_proc[k] + sum(s.get(k, 0) for s in servers)
                 for k in in_proc}
     log(f"[main path] kernel launches {launches} (in-process {in_proc}, "
@@ -2298,6 +2596,10 @@ def main() -> int:
     detail["b7"] = phase_b7(timed, detail["pipeline"])
     detail["b4"] = phase_b4(rng, timed, detail["launch_floor_ms"],
                             detail["lossy"])
+    detail["b6_timing"] = phase_b6(b6_inputs)
+    del b6_inputs
+    caps = native.uring_probe()
+    detail["uring"] = {"probe": caps, "answer": native.describe_uring(caps)}
     kernels = [{k: v for k, v in t.items() if not k.startswith("_")}
                for t in timed if t["_main_path"]]
     for k in timed:
@@ -2318,6 +2620,8 @@ def main() -> int:
 
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}
+    log(f"[uring] ed_uring_probe on this host: {caps} "
+        f"({detail['uring']['answer']})")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": device}), flush=True)

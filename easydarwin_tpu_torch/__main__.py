@@ -1,8 +1,9 @@
 """CLI entry: ``python -m easydarwin_tpu_torch [-p PORT] [--service-port N]
 [--device cuda|cpu]``.
 
-Serves the live relay: pushers ANNOUNCE/SETUP/RECORD over TCP-interleaved
-RTSP, players DESCRIBE/SETUP/PLAY over interleaved TCP or UDP
+Serves the live relay: pushers ANNOUNCE/SETUP/RECORD over interleaved TCP
+or UDP (``client_port``; their RTP drained in native recvmmsg batches),
+players DESCRIBE/SETUP/PLAY over interleaved TCP or UDP
 (``client_port``).  The REST API on the service port
 starts MJPEG transcode ladders (``/api/v1/starttranscode?path=/cam&
 rungs=40,20s2``) whose rungs play as ``/cam@q40`` and ``/cam@q20s2``.

@@ -1,15 +1,19 @@
 // egress_core — the host egress data plane of easydarwin_tpu_torch (see
 // egress_core.h).  Host C++, not a kernel: it carries the relay's wire
-// writes and the megabatch upload gather.
+// writes, the megabatch upload gather, the UDP pusher ingest and the
+// io_uring capability probe.
 #include "egress_core.h"
 
 #include <arpa/inet.h>
 #include <netinet/in.h>
 #include <netinet/udp.h>
+#include <sys/mman.h>
 #include <sys/socket.h>
+#include <sys/syscall.h>
 #include <sys/uio.h>
 #include <unistd.h>
 
+#include <algorithm>
 #include <atomic>
 #include <cerrno>
 #include <cstring>
@@ -19,6 +23,7 @@
 namespace {
 
 constexpr int kSendBatch = 512;
+constexpr int kRecvBatch = 64;
 
 inline void render_header(uint8_t *dst, const uint8_t *src, uint32_t seq_off,
                           uint32_t ts_off, uint32_t ssrc) {
@@ -51,7 +56,8 @@ struct StatCells {
       gso_supers{0}, gso_segments{0}, eagain_stops{0}, hard_errors{0},
       bytes_to_wire{0}, send_ns{0}, stage_gather_ns{0}, staged_bytes{0},
       fault_injections{0}, stream_writev_calls{0}, stream_packets{0},
-      stream_bytes{0};
+      stream_bytes{0}, recvmmsg_calls{0}, recv_packets{0}, recv_bytes{0},
+      oversize_dropped{0}, ingest_ns{0};
 };
 StatCells g_stat;
 
@@ -149,6 +155,11 @@ void ed_get_stats(ed_stats *out) {
   out->stream_writev_calls = ld(g_stat.stream_writev_calls);
   out->stream_packets = ld(g_stat.stream_packets);
   out->stream_bytes = ld(g_stat.stream_bytes);
+  out->recvmmsg_calls = ld(g_stat.recvmmsg_calls);
+  out->recv_packets = ld(g_stat.recv_packets);
+  out->recv_bytes = ld(g_stat.recv_bytes);
+  out->oversize_dropped = ld(g_stat.oversize_dropped);
+  out->ingest_ns = ld(g_stat.ingest_ns);
 }
 
 // Every field is int64, so the count follows the struct by construction.
@@ -163,7 +174,9 @@ void ed_reset_stats(void) {
         &g_stat.hard_errors, &g_stat.bytes_to_wire, &g_stat.send_ns,
         &g_stat.stage_gather_ns, &g_stat.staged_bytes,
         &g_stat.fault_injections, &g_stat.stream_writev_calls,
-        &g_stat.stream_packets, &g_stat.stream_bytes})
+        &g_stat.stream_packets, &g_stat.stream_bytes,
+        &g_stat.recvmmsg_calls, &g_stat.recv_packets, &g_stat.recv_bytes,
+        &g_stat.oversize_dropped, &g_stat.ingest_ns})
     c->store(0, std::memory_order_relaxed);
 }
 
@@ -586,6 +599,201 @@ int32_t ed_stage_gather(const uint8_t *ring_data, const int32_t *ring_len,
   stat_add(g_stat.staged_bytes,
            static_cast<int64_t>(n_slots) * (prefix_width + 4));
   return n_slots;
+}
+
+int32_t ed_udp_ingest(int fd, uint8_t *ring_data, int32_t *ring_len,
+                      int64_t *ring_arrival, int32_t capacity,
+                      int32_t slot_size, int64_t now_ms, int64_t *head,
+                      int32_t max_pkts, int32_t *oversize_dropped) {
+  if (capacity <= 0 || slot_size <= 0 || max_pkts < 0 || *head < 0)
+    return -EINVAL;
+  StatTimer timer(g_stat.ingest_ns);
+  int32_t admitted = 0;
+  // what max_pkts bounds: datagrams consumed from the socket, dropped ones
+  // included, so an oversize flood cannot stretch one call
+  int32_t consumed = 0;
+  mmsghdr msgs[kRecvBatch];
+  iovec iovs[kRecvBatch];
+  while (consumed < max_pkts) {
+    const int want = std::min<int32_t>(kRecvBatch, max_pkts - consumed);
+    for (int i = 0; i < want; ++i) {
+      const int64_t slot = (*head + i) % capacity;
+      iovs[i].iov_base = ring_data + slot * slot_size;
+      iovs[i].iov_len = static_cast<size_t>(slot_size);
+      std::memset(&msgs[i], 0, sizeof(mmsghdr));
+      msgs[i].msg_hdr.msg_iov = &iovs[i];
+      msgs[i].msg_hdr.msg_iovlen = 1;
+    }
+    const int n = recvmmsg(fd, msgs, want, MSG_DONTWAIT, nullptr);
+    if (n < 0) {
+      if (errno == EINTR) continue;
+      if (errno == EAGAIN || errno == EWOULDBLOCK) break;
+      // datagrams of earlier batches are consumed already: report them so
+      // the caller commits the head
+      return admitted > 0 ? admitted : -errno;
+    }
+    if (n == 0) break;
+    stat_add(g_stat.recvmmsg_calls, 1);
+    int wrote = 0;
+    int64_t bytes = 0;
+    for (int i = 0; i < n; ++i) {
+      if (msgs[i].msg_hdr.msg_flags & MSG_TRUNC) {
+        if (oversize_dropped) ++*oversize_dropped;
+        stat_add(g_stat.oversize_dropped, 1);
+        continue;
+      }
+      const int32_t len = static_cast<int32_t>(msgs[i].msg_len);
+      const int64_t src = (*head + i) % capacity;
+      const int64_t dst = (*head + wrote) % capacity;
+      uint8_t *row = ring_data + dst * slot_size;
+      if (dst != src)  // compact over a dropped datagram's slot
+        std::memmove(row, ring_data + src * slot_size,
+                     static_cast<size_t>(len));
+      // slots are zero past their length (the upload gather relies on it)
+      if (len < slot_size)
+        std::memset(row + len, 0, static_cast<size_t>(slot_size - len));
+      ring_len[dst] = len;
+      ring_arrival[dst] = now_ms;
+      bytes += len;
+      ++wrote;
+    }
+    *head += wrote;
+    admitted += wrote;
+    consumed += n;
+    stat_add(g_stat.recv_packets, wrote);
+    stat_add(g_stat.recv_bytes, bytes);
+    if (n < want) break;
+  }
+  return admitted;
+}
+
+}  // extern "C"
+
+// ------------------------------------------------------ io_uring probe
+//
+// Raw syscalls and the kernel's frozen ABI layouts, defined here so that
+// one source builds against any <linux/io_uring.h> vintage, or none.
+
+namespace {
+
+#ifndef __NR_io_uring_setup
+#define __NR_io_uring_setup 425
+#endif
+#ifndef __NR_io_uring_register
+#define __NR_io_uring_register 427
+#endif
+
+constexpr unsigned kProbeEntries = 8;
+constexpr uint32_t kSetupSqpoll = 1u << 1;
+constexpr uint32_t kSetupClamp = 1u << 4;
+constexpr uint64_t kOffSqRing = 0;
+constexpr unsigned kRegBuffers = 0;
+constexpr unsigned kRegProbe = 8;
+constexpr uint16_t kOpSupported = 1u << 0;
+// opcodes (ABI-stable ids)
+constexpr uint8_t kOpSendmsg = 9;
+constexpr uint8_t kOpRecvmsg = 10;
+constexpr uint8_t kOpSendZc = 26;
+constexpr uint8_t kOpSendmsgZc = 30;
+constexpr uint8_t kOpProvideBuffers = 31;
+
+struct SqOffsets {
+  uint32_t head, tail, ring_mask, ring_entries, flags, dropped, array, resv1;
+  uint64_t user_addr;
+};
+struct CqOffsets {
+  uint32_t head, tail, ring_mask, ring_entries, overflow, cqes, flags, resv1;
+  uint64_t user_addr;
+};
+struct UringParams {
+  uint32_t sq_entries, cq_entries, flags, sq_thread_cpu, sq_thread_idle,
+      features, wq_fd, resv[3];
+  SqOffsets sq_off;
+  CqOffsets cq_off;
+};
+static_assert(sizeof(UringParams) == 120, "io_uring_params ABI");
+
+struct ProbeOp {
+  uint8_t op, resv;
+  uint16_t flags;
+  uint32_t resv2;
+};
+struct Probe {
+  uint8_t last_op, ops_len;
+  uint16_t resv;
+  uint32_t resv2[3];
+  ProbeOp ops[256];
+};
+
+int uring_setup(unsigned entries, UringParams *p) {
+  return static_cast<int>(syscall(__NR_io_uring_setup, entries, p));
+}
+
+int uring_register(int fd, unsigned opcode, const void *arg,
+                   unsigned nr_args) {
+  return static_cast<int>(
+      syscall(__NR_io_uring_register, fd, opcode, arg, nr_args));
+}
+
+bool op_supported(const Probe &p, uint8_t op) {
+  return op <= p.last_op && (p.ops[op].flags & kOpSupported);
+}
+
+}  // namespace
+
+extern "C" {
+
+int32_t ed_uring_probe(void) {
+  UringParams params;
+  std::memset(&params, 0, sizeof(params));
+  params.flags = kSetupClamp;
+  const int fd = uring_setup(kProbeEntries, &params);
+  if (fd < 0) return -errno;  // ENOSYS, EPERM (seccomp, sysctl), EMFILE
+  // map the submission ring as a ring user would
+  const size_t sq_bytes =
+      params.sq_off.array + params.sq_entries * sizeof(uint32_t);
+  void *sq = mmap(nullptr, sq_bytes, PROT_READ | PROT_WRITE,
+                  MAP_SHARED | MAP_POPULATE, fd, kOffSqRing);
+  if (sq == MAP_FAILED) {
+    const int err = errno;
+    close(fd);
+    return -err;
+  }
+  munmap(sq, sq_bytes);
+  int32_t caps = ED_URING_CAP_RING;
+  Probe probe;
+  std::memset(&probe, 0, sizeof(probe));
+  if (uring_register(fd, kRegProbe, &probe, 256) == 0) {
+    if (!op_supported(probe, kOpSendmsg) ||
+        !op_supported(probe, kOpRecvmsg)) {
+      close(fd);
+      return -ENOSYS;  // a ring without sendmsg/recvmsg is of no use here
+    }
+    if (op_supported(probe, kOpSendmsgZc)) caps |= ED_URING_CAP_SEND_ZC;
+    // multishot recvmsg came with the zero-copy sends (6.0/6.1); no probe
+    // exists for flags, so the ops of that release stand in for it
+    if (op_supported(probe, kOpSendZc) &&
+        op_supported(probe, kOpProvideBuffers))
+      caps |= ED_URING_CAP_RECV_MULTI;
+  }
+  // a ring older than the op probe (5.6) has sendmsg/recvmsg (5.3) and
+  // none of the newer ops
+  alignas(4096) static uint8_t page[4096];
+  iovec iov{page, sizeof(page)};
+  if (uring_register(fd, kRegBuffers, &iov, 1) == 0)
+    caps |= ED_URING_CAP_FIXED_BUFS;
+  close(fd);
+  // SQPOLL changes how the ring is built, so it needs a setup of its own
+  UringParams sp;
+  std::memset(&sp, 0, sizeof(sp));
+  sp.flags = kSetupClamp | kSetupSqpoll;
+  sp.sq_thread_idle = 50;
+  const int sfd = uring_setup(kProbeEntries, &sp);
+  if (sfd >= 0) {
+    caps |= ED_URING_CAP_SQPOLL;
+    close(sfd);
+  }
+  return caps;
 }
 
 }  // extern "C"

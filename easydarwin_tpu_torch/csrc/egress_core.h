@@ -6,8 +6,9 @@
  * one sendmmsg (or UDP-GSO) scatter with the 12-byte RTP header rewritten
  * on the fly from per-subscriber affine params, every interleaved TCP
  * player in one framed writev, and packs the megabatch scheduler's upload
- * rows.  No Python runs per packet, and payload bytes are never copied
- * per subscriber.
+ * rows; on ingest it drains a UDP pusher's RTP socket in recvmmsg batches
+ * straight into the packet ring.  No Python runs per packet, and payload
+ * bytes are never copied per subscriber.
  */
 #ifndef EASYDARWIN_TPU_TORCH_EGRESS_CORE_H
 #define EASYDARWIN_TPU_TORCH_EGRESS_CORE_H
@@ -42,6 +43,11 @@ typedef struct {
   int64_t stream_writev_calls; /* writev(2)/send(2) calls on stream fds */
   int64_t stream_packets;      /* framed packets fully written */
   int64_t stream_bytes;        /* bytes written to stream sockets */
+  int64_t recvmmsg_calls;      /* recvmmsg(2) calls that returned data */
+  int64_t recv_packets;        /* datagrams admitted into a ring */
+  int64_t recv_bytes;          /* bytes of those datagrams */
+  int64_t oversize_dropped;    /* kernel-truncated datagrams dropped */
+  int64_t ingest_ns;           /* ns inside ed_udp_ingest */
 } ed_stats;
 
 void ed_get_stats(ed_stats *out);
@@ -108,6 +114,33 @@ int32_t ed_stage_gather(const uint8_t *ring_data, const int32_t *ring_len,
                         const int32_t *slots, int32_t n_slots,
                         int32_t prefix_width, uint8_t *out,
                         int32_t out_stride, int32_t out_rows);
+
+/* Drain up to max_pkts datagrams from fd (non-blocking recvmmsg, at most
+ * 64 a call) straight into ring rows [capacity, slot_size] from *head (mod
+ * capacity), writing each length and arrival_ms (now_ms) and zeroing the
+ * row past the datagram.  A kernel-truncated datagram (MSG_TRUNC: larger
+ * than the slot) is dropped, compacted over and counted in
+ * *oversize_dropped (nullable): a truncated slot would relay a corrupt
+ * packet.  max_pkts bounds the datagrams consumed, dropped ones included.
+ * Returns the datagrams admitted (0 if none) and advances *head by as
+ * many, or -errno on a hard error with nothing admitted. */
+int32_t ed_udp_ingest(int fd, uint8_t *ring_data, int32_t *ring_len,
+                      int64_t *ring_arrival, int32_t capacity,
+                      int32_t slot_size, int64_t now_ms, int64_t *head,
+                      int32_t max_pkts, int32_t *oversize_dropped);
+
+/* What io_uring offers this process, from raw syscalls (no liburing): one
+ * throwaway ring answers every capability question.  Returns the
+ * ED_URING_CAP_* bits (>= 0), or -errno when there is no usable ring
+ * (ENOSYS: no io_uring, or no sendmsg/recvmsg on it; EPERM: a seccomp or
+ * sysctl denial). */
+#define ED_URING_CAP_RING        1   /* io_uring_setup + mmap worked */
+#define ED_URING_CAP_SQPOLL      2   /* kernel-side submission polling */
+#define ED_URING_CAP_SEND_ZC     4   /* IORING_OP_SENDMSG_ZC */
+#define ED_URING_CAP_RECV_MULTI  8   /* multishot recvmsg ingest */
+#define ED_URING_CAP_FIXED_BUFS 16   /* IORING_REGISTER_BUFFERS allowed
+                                      * under this RLIMIT_MEMLOCK */
+int32_t ed_uring_probe(void);
 
 #ifdef __cplusplus
 }

@@ -149,5 +149,17 @@ def fec_parity_window_step(rows: torch.Tensor,
     stripe's blobs, zero-padded, B a multiple of 256) × ``coeff [R, K]``
     uint8 (``relay.fec.coeff_rows``) → ``[R, B]`` uint8.  Zero rows and
     zero coefficients contribute nothing, so padding is free.  On the card
-    one ``ed_gf_parity`` launch; on a CPU tensor the plain version."""
-    return fec_kernel.gf_parity(rows, coeff)
+    one ``ed_gf_parity`` launch for each group of at most
+    ``fec_kernel.MAX_K`` rows; on a CPU tensor the plain version.  K has
+    no bound: addition in GF(256) is XOR, so the groups' partial products
+    are XORed together."""
+    k, step = rows.shape[0] if rows.dim() == 2 else 0, fec_kernel.MAX_K
+    if k <= step:
+        return fec_kernel.gf_parity(rows, coeff)
+    if coeff.dim() != 2 or coeff.shape[1] != k:
+        raise ValueError(f"coeff is {tuple(coeff.shape)} for {k} rows")
+    out = fec_kernel.gf_parity(rows[:step], coeff[:, :step].contiguous())
+    for g in range(step, k, step):
+        out.bitwise_xor_(fec_kernel.gf_parity(
+            rows[g:g + step], coeff[:, g:g + step].contiguous()))
+    return out

@@ -1,5 +1,9 @@
 """ctypes bridge to the port's host egress core (``csrc/egress_core.cpp``).
 
+It sends the relay's wire writes, packs the megabatch upload rows, drains
+a UDP pusher's RTP socket into the packet ring (``udp_ingest``) and
+probes what io_uring offers this process (``uring_probe``).
+
 The library is compiled at first use with ``g++ -O3 -fPIC -shared
 -std=c++17`` into ``build/easydarwin_tpu_torch/libegress_core.<hash>.so``
 beside the package (a directory git ignores), under a name that carries
@@ -16,6 +20,7 @@ against the library at load (``ed_stats_fields``).
 from __future__ import annotations
 
 import ctypes
+import errno
 import hashlib
 import os
 import shutil
@@ -56,7 +61,9 @@ class Dest(ctypes.Structure):
 STAT_FIELDS = ("sendmmsg_calls", "send_packets", "gso_supers",
                "gso_segments", "eagain_stops", "hard_errors", "bytes_to_wire",
                "send_ns", "stage_gather_ns", "staged_bytes", "fault_injections",
-               "stream_writev_calls", "stream_packets", "stream_bytes")
+               "stream_writev_calls", "stream_packets", "stream_bytes",
+               "recvmmsg_calls", "recv_packets", "recv_bytes",
+               "oversize_dropped", "ingest_ns")
 
 
 class EdStats(ctypes.Structure):
@@ -66,9 +73,14 @@ class EdStats(ctypes.Structure):
 #: ``use_gso`` values of ``ed_fanout_send_multi``
 SEND_PLAIN, SEND_GSO = 0, 1
 
+#: ``ed_uring_probe``'s capability bits (``ED_URING_CAP_*``), by name
+URING_CAPS = {"ring": 1, "sqpoll": 2, "send_zc": 4, "recv_multi": 8,
+              "fixed_bufs": 16}
+
 _I32 = ctypes.c_int32
 _U8P = ctypes.POINTER(ctypes.c_uint8)
 _I32P = ctypes.POINTER(ctypes.c_int32)
+_I64P = ctypes.POINTER(ctypes.c_int64)
 _U32P = ctypes.POINTER(ctypes.c_uint32)
 _OPP = ctypes.POINTER(SendOp)
 _DESTP = ctypes.POINTER(Dest)
@@ -87,6 +99,10 @@ _SIGNATURES = {
         ctypes.c_uint32, ctypes.c_uint32, _I32, _I32P, _I32, _I32P]),
     "ed_stage_gather": (_I32, [
         _U8P, _I32P, _I32, _I32, _I32P, _I32, _I32, _U8P, _I32, _I32]),
+    "ed_udp_ingest": (_I32, [
+        ctypes.c_int, _U8P, _I32P, _I64P, _I32, _I32, ctypes.c_int64, _I64P,
+        _I32, _I32P]),
+    "ed_uring_probe": (_I32, []),
 }
 
 
@@ -308,3 +324,58 @@ def stage_gather(ring_data: np.ndarray, ring_len: np.ndarray,
         _u8(ring_data), _i32(lens), ring_data.shape[0], ring_data.shape[1],
         _i32(slots32), len(slots32), prefix_width, _u8(out_rows),
         out_rows.shape[1], out_rows.shape[0])
+
+
+def udp_ingest(fd: int, ring_data: np.ndarray, ring_len: np.ndarray,
+               ring_arrival: np.ndarray, now_ms: int, head: int,
+               max_pkts: int) -> tuple[int, int, int]:
+    """Drain up to ``max_pkts`` datagrams from the non-blocking socket
+    ``fd`` in recvmmsg batches straight into the ring's own arrays (rows
+    from ``head`` mod capacity; ``ring_len`` int32 and ``ring_arrival``
+    int64, written in place).  Returns ``(admitted, new head, oversize
+    datagrams dropped)``; a hard receive error with nothing admitted
+    raises ``OSError``."""
+    lib = _need()
+    if ring_data.dtype != np.uint8 or ring_data.ndim != 2 \
+            or not ring_data.flags.c_contiguous:
+        raise ValueError("ring_data must be C-contiguous [capacity, slot] "
+                         "uint8")
+    cap = ring_data.shape[0]
+    for a, dt, name in ((ring_len, np.int32, "ring_len"),
+                        (ring_arrival, np.int64, "ring_arrival")):
+        if a.dtype != dt or a.shape != (cap,) or not a.flags.c_contiguous:
+            raise ValueError(f"{name} must be C-contiguous [{cap}] {dt}")
+    h = ctypes.c_int64(head)
+    drops = ctypes.c_int32(0)
+    n = lib.ed_udp_ingest(
+        fd, _u8(ring_data), _i32(ring_len),
+        ring_arrival.ctypes.data_as(_I64P), cap, ring_data.shape[1],
+        int(now_ms), ctypes.byref(h), int(max_pkts), ctypes.byref(drops))
+    if n < 0:
+        raise OSError(-n, os.strerror(-n))
+    return n, h.value, drops.value
+
+
+_uring_caps: int | None = None
+
+
+def uring_probe() -> int:
+    """What io_uring offers this process (``ed_uring_probe``): the
+    ``URING_CAPS`` bits (>= 0), or −errno (−ENOSYS where there is no
+    io_uring or no library, −EPERM where it is denied).  Probed once per
+    process."""
+    global _uring_caps
+    if _uring_caps is None:
+        lib = _load()
+        _uring_caps = (-errno.ENOSYS if lib is None
+                       else int(lib.ed_uring_probe()))
+    return _uring_caps
+
+
+def describe_uring(caps: int) -> str:
+    """``uring_probe``'s answer in words: the capability names, or the
+    errno's name."""
+    if caps < 0:
+        return errno.errorcode.get(-caps, f"errno {-caps}")
+    return "+".join(n for n, bit in URING_CAPS.items() if caps & bit) \
+        or "none"

@@ -17,7 +17,12 @@ K2: on a CUDA tensor it launches the hand-written ``ed_decode_blocks``
 ``decode_blocks_plain``, the same function in plain PyTorch through the
 64×64 Kronecker operator, as the reference does.
 
-Every product here is fp32.  ``torch.round`` rounds half to even, as
+``h264_requant`` and ``h264_requant_chroma`` are B6, the H.264 4×4
+transform-domain requant: plain torch int32 ops on the tensors' device,
+bit-exact with the scalar oracles of ``codecs.h264_transform`` (no hand
+kernel: no path the port serves runs them yet).
+
+Every product in the DCT ops is fp32.  ``torch.round`` rounds half to even, as
 ``jnp.round`` does.  The downscale ``[N, 256] @ [256, 64]`` is a plain
 ``torch.matmul`` (the JAX package left it to XLA at
 ``precision="highest"``); the port never enables TF32, so it runs in full
@@ -234,3 +239,137 @@ def requantize_downscale2x(quads: torch.Tensor, qtable_in: torch.Tensor,
     deq = quads.reshape(-1, 4, 64).to(torch.float32) * qtable_in[None, None, :]
     out = downscale2x_blocks(deq.reshape(-1, 256))
     return torch.round(out / qtable_out[None, :]).to(torch.int32)
+
+
+# ------------------------------------------------- H.264 4x4 requant (int32)
+@functools.lru_cache(maxsize=None)
+def _h264_tables(device: torch.device) -> dict[str, torch.Tensor]:
+    """B6's tables on ``device``, made once per device, all int32 (an
+    int64 operand would promote the whole expression) but the AC scan
+    index: ``vpos``/``mfpos`` [6, 16] per-position V and MF of each
+    ``qp % 6``, ``v0``/``mf0`` [6] their class-A column, ``ac_idx`` the
+    raster positions of zigzag scan positions 1-15."""
+    from ..codecs.h264_transform import MF, V, ZIGZAG4, _CLS
+
+    def i32(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(device)
+    return {"vpos": i32(V[:, _CLS]), "mfpos": i32(MF[:, _CLS]),
+            "v0": i32(V[:, 0]), "mf0": i32(MF[:, 0]),
+            "ac_idx": torch.from_numpy(ZIGZAG4[1:].copy()).to(device)}
+
+
+def _qp(qp, like: torch.Tensor) -> torch.Tensor:
+    """A QP vector (or scalar) as int32 on ``like``'s device."""
+    return torch.as_tensor(qp, device=like.device).to(torch.int32)
+
+
+def _floordiv(x: torch.Tensor, d: int) -> torch.Tensor:
+    return torch.div(x, d, rounding_mode="floor")
+
+
+def _pow2(k: torch.Tensor) -> torch.Tensor:
+    """``1 << k`` elementwise, int32."""
+    return torch.bitwise_left_shift(torch.ones_like(k), k)
+
+
+def _shift_round(x: torch.Tensor, k: torch.Tensor,
+                 f: torch.Tensor) -> torch.Tensor:
+    """``sign(x)·((|x| + f) >> k)``: the exact +6k requant of a level."""
+    return torch.sign(x) * ((x.abs() + f) >> k)
+
+
+def h264_requant(levels: torch.Tensor, qp_in, qp_out) -> torch.Tensor:
+    """H.264 4×4 transform-domain requant, bit-exact with
+    ``codecs.h264_transform.requant_levels_scalar``: a +6k QP step is a
+    rounded k-bit right shift of each level,
+    ``l' = sign(l)·((|l| + 2^k/3) >> k)``, ``k = (qp_out − qp_in) // 6``.
+
+    ``levels`` int [N, 16] (any scan order: the op is elementwise),
+    ``qp_in`` [N] per-block source QP, ``qp_out`` [N] or a scalar with
+    ``qp_out ≡ qp_in (mod 6)`` → int32 [N, 16] on ``levels``' device.
+    Levels clip to ±``LEVEL_CLIP`` first, the shared overflow contract."""
+    from ..codecs.h264_transform import LEVEL_CLIP
+    lev = levels.to(torch.int32).clamp(-LEVEL_CLIP, LEVEL_CLIP)
+    k = _floordiv(_qp(qp_out, lev) - _qp(qp_in, lev), 6)[:, None]
+    return _shift_round(lev, k, _floordiv(_pow2(k), 3))
+
+
+def _h2x2(v: torch.Tensor) -> torch.Tensor:
+    """Elementwise 2×2 Hadamard (H2·c·H2) of [..., 4] raster quads."""
+    a, b, c, d = v.unbind(-1)
+    return torch.stack([a + b + c + d, a - b + c - d,
+                        a + b - c - d, a - b - c + d], dim=-1)
+
+
+def _inv_core_1d(a, b, c, d):
+    e0, e1 = a + c, a - c
+    e2, e3 = (b >> 1) - d, b + (d >> 1)
+    return e0 + e3, e1 + e2, e1 - e2, e0 - e3
+
+
+def _fwd_core_1d(x0, x1, x2, x3):
+    t0, t1, t2, t3 = x0 + x3, x1 + x2, x1 - x2, x0 - x3
+    return t0 + t1, 2 * t3 + t2, t0 - t1, t3 - 2 * t2
+
+
+def _rows_cols(w: torch.Tensor, fn) -> torch.Tensor:
+    """A 4-point butterfly over the rows, then the columns, of
+    [..., 4, 4]."""
+    r = torch.stack(fn(*w.unbind(-1)), dim=-1)
+    return torch.stack(fn(*r.unbind(-2)), dim=-2)
+
+
+def h264_requant_chroma(dc: torch.Tensor, ac: torch.Tensor, qpc_in,
+                        qpc_out) -> tuple[torch.Tensor, torch.Tensor]:
+    """Batched chroma requant, bit-exact with
+    ``codecs.h264_transform.requant_chroma_scalar`` (same clips, int32
+    throughout: the scalar module's clips keep every product inside it).
+
+    ``dc`` int [N, 4] chroma DC levels (2×2 raster) a macroblock
+    component, ``ac`` int [N, 4, 15] each block's zigzag AC tail,
+    ``qpc_in``/``qpc_out`` [N] → ``(dc', ac')`` int32.  Each row takes one
+    of three arms by ``delta = qpc_out − qpc_in``, all computed dense and
+    selected with ``torch.where``, with no branch: identity (0), the
+    exact shift (a multiple of 6), or dequant (8.5.11 DC + 8.5.12 AC) →
+    inverse core → forward core → requant at ``qpc_out``.  A negative
+    multiple of 6 takes the shift arm at k = 0, the identity."""
+    from ..codecs.h264_transform import LEVEL_CLIP, RES_CLIP, W_CLIP
+    t = _h264_tables(dc.device)
+    n = dc.shape[0]
+    dc = dc.to(torch.int32).clamp(-LEVEL_CLIP, LEVEL_CLIP)
+    ac = ac.to(torch.int32).clamp(-LEVEL_CLIP, LEVEL_CLIP)
+    qi, qo = _qp(qpc_in, dc).expand(n), _qp(qpc_out, dc).expand(n)
+    delta = qo - qi
+
+    # the exact-shift arm
+    k = _floordiv(delta, 6).clamp(min=0)
+    f6 = _floordiv(_pow2(k), 3)
+    dc_shift = _shift_round(dc, k[:, None], f6[:, None])
+    ac_shift = _shift_round(ac, k[:, None, None], f6[:, None, None])
+
+    # the general arm: dequant → inverse core → forward core → requant
+    si, so = _floordiv(qi, 6), _floordiv(qo, 6)
+    mi, mo = torch.remainder(qi, 6).long(), torch.remainder(qo, 6).long()
+    dcc = ((_h2x2(dc) * t["v0"][mi][:, None]) << si[:, None]) >> 1
+    lev = torch.zeros((n, 4, 16), dtype=torch.int32, device=dc.device)
+    lev[:, :, t["ac_idx"]] = ac
+    w = (lev * t["vpos"][mi][:, None, :]) << si[:, None, None]
+    w[:, :, 0] = dcc
+    x = _rows_cols(w.reshape(n, 4, 4, 4), _inv_core_1d)
+    x = ((x + 32) >> 6).clamp(-RES_CLIP, RES_CLIP)
+    big = _rows_cols(x, _fwd_core_1d).clamp(-W_CLIP, W_CLIP).reshape(n, 4, 16)
+    qbits = 15 + so
+    off = _floordiv(_pow2(qbits), 3)
+    q = _shift_round(big * t["mfpos"][mo][:, None, :], qbits[:, None, None],
+                     off[:, None, None])
+    ac_gen = q.clamp(-LEVEL_CLIP, LEVEL_CLIP)[:, :, t["ac_idx"]]
+    f2 = _h2x2(big[:, :, 0]).clamp(-W_CLIP, W_CLIP)
+    dc_gen = _shift_round(f2 * t["mf0"][mo][:, None], (qbits + 1)[:, None],
+                          2 * off[:, None]).clamp(-LEVEL_CLIP, LEVEL_CLIP)
+
+    same = (delta == 0)[:, None]
+    shift = (torch.remainder(delta, 6) == 0)[:, None]
+    dc_out = torch.where(same, dc, torch.where(shift, dc_shift, dc_gen))
+    ac_out = torch.where(same[:, :, None], ac,
+                         torch.where(shift[:, :, None], ac_shift, ac_gen))
+    return dc_out, ac_out

@@ -122,7 +122,35 @@ def check_requant_args(levels: torch.Tensor, qt_in: torch.Tensor,
 def requant_rungs(levels: torch.Tensor, qt_in: torch.Tensor,
                   qt_rungs: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Every ladder rung of ``[N, 64]`` int32 levels: ``rungs [R, N, 64]``
-    int32 and ``nonzeros [R]`` int32."""
+    int32 and ``nonzeros [R]`` int32, for any R >= 1 and N.  R runs in
+    groups of at most ``REQUANT_MAX_RUNGS`` and N in chunks of at most
+    ``REQUANT_MAX_BLOCKS``, one ``requant_rungs_launch`` each: the rungs
+    are concatenated and the per-rung nonzero counts summed."""
+    check_decode_args(levels, qt_in)
+    if (qt_rungs.dim() != 2 or qt_rungs.shape[1] != 64
+            or qt_rungs.shape[0] < 1):
+        raise ValueError(f"qt_rungs must be [R, 64] with R >= 1, got "
+                         f"{tuple(qt_rungs.shape)}")
+    n, r = levels.shape[0], qt_rungs.shape[0]
+    if n <= REQUANT_MAX_BLOCKS and r <= REQUANT_MAX_RUNGS:
+        return requant_rungs_launch(levels, qt_in, qt_rungs)
+    rungs = torch.empty((r, n, 64), dtype=torch.int32, device=levels.device)
+    nonzeros = torch.zeros(r, dtype=torch.int32, device=levels.device)
+    for g in range(0, r, REQUANT_MAX_RUNGS):
+        tables = qt_rungs[g:g + REQUANT_MAX_RUNGS]
+        for c in range(0, max(n, 1), REQUANT_MAX_BLOCKS):
+            part, nz = requant_rungs_launch(
+                levels[c:c + REQUANT_MAX_BLOCKS], qt_in, tables)
+            rungs[g:g + REQUANT_MAX_RUNGS, c:c + REQUANT_MAX_BLOCKS] = part
+            nonzeros[g:g + REQUANT_MAX_RUNGS] += nz
+    return rungs, nonzeros
+
+
+def requant_rungs_launch(levels: torch.Tensor, qt_in: torch.Tensor,
+                         qt_rungs: torch.Tensor
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """One ``ed_requant_rungs`` launch (the plain version on a CPU
+    tensor), inside the kernel's limits (``check_requant_args``)."""
     check_requant_args(levels, qt_in, qt_rungs)
     if levels.device.type == "cpu":
         return requant_rungs_plain(levels, qt_in, qt_rungs)

@@ -116,6 +116,29 @@ class PacketRing:
         self.head = pid + 1
         return pid
 
+    def native_drain(self, fd: int, now_ms: int, max_pkts: int = 512) -> int:
+        """Drain the datagrams pending on the non-blocking socket ``fd``
+        straight into the ring's slots through the egress core's recvmmsg
+        batches (``native.udp_ingest``), then classify each admitted slot
+        as ``push`` does.  At most one ring's worth a call, so the
+        overwrite-oldest accounting stays exact; a datagram larger than
+        the slot is dropped and counted in ``total_oversize``.  Returns
+        the packets admitted."""
+        from .. import native
+        n, new_head, oversize = native.udp_ingest(
+            fd, self.data, self.length, self.arrival, now_ms, self.head,
+            min(max_pkts, self.capacity))
+        self.total_oversize += oversize
+        for pid in range(self.head, new_head):
+            s = self.slot(pid)
+            self.classify_slot(s, self.data[s, :self.length[s]].tobytes())
+        self.head = new_head
+        if len(self) > self.capacity:       # the batch wrapped the ring
+            dropped = len(self) - self.capacity
+            self.tail += dropped
+            self.total_dropped += dropped
+        return n
+
     def get(self, pkt_id: int) -> bytes:
         if not self.valid(pkt_id):
             raise IndexError(f"packet {pkt_id} not in [{self.tail}, {self.head})")

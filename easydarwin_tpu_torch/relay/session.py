@@ -63,6 +63,22 @@ class RelaySession:
                 if out.bookmark is None and len(other.rtp_ring):
                     out.bookmark = other.rtp_ring.head - 1
 
+    def drain_native(self, track_id: int, fd: int,
+                     max_pkts: int = 512) -> int:
+        """Drain a UDP pusher's RTP socket of ``track_id`` into its
+        stream's ring (``RelayStream.drain_rtp_native``) with ``push``'s
+        housekeeping: the ingest clock and the audio re-alignment on a
+        fresh keyframe.  Returns the packets admitted."""
+        st = self.streams.get(track_id)
+        if st is None:
+            return 0
+        t = now_ms()
+        n = st.drain_rtp_native(fd, t, max_pkts)
+        if n:
+            self.last_ingest_ms = t
+            self._kf_resync(st)
+        return n
+
     # -- maintenance -------------------------------------------------------
     def prune(self, t_ms: int | None = None) -> int:
         t = now_ms() if t_ms is None else t_ms

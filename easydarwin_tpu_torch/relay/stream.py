@@ -110,6 +110,9 @@ class RelayStream:
         self.fec = None
         #: outputs with a resend sweep (``tick``), run by the pump
         self.tickable_outputs: list[RelayOutput] = []
+        #: packets and non-empty drains of the native UDP ingest
+        self.native_ingest_pkts = 0
+        self.native_ingest_batches = 0
 
     # -- ingest ------------------------------------------------------------
     def _note_rtp_ingested(self, pid: int) -> None:
@@ -148,6 +151,25 @@ class RelayStream:
         if pid >= 0:
             self._note_rtp_ingested(pid)
         return pid
+
+    def drain_rtp_native(self, fd: int, now_ms: int,
+                         max_pkts: int = 512) -> int:
+        """Drain a UDP pusher's RTP socket straight into the ring
+        (``PacketRing.native_drain``: recvmmsg batches, no Python per
+        datagram on the receive), then run ``push_rtp``'s per-packet
+        bookkeeping for every admitted id, so the RR accounting, the
+        keyframe-run bookmark and every ring reading this one see the
+        batch as they see the same packets pushed one by one.  Returns
+        the packets admitted."""
+        self._latch_wall_base(now_ms)
+        pre = self.rtp_ring.head
+        n = self.rtp_ring.native_drain(fd, now_ms, max_pkts)
+        for pid in range(pre, self.rtp_ring.head):
+            self._note_rtp_ingested(pid)
+        if n > 0:
+            self.native_ingest_batches += 1
+            self.native_ingest_pkts += n
+        return n
 
     def push_rtcp(self, packet: bytes, now_ms: int) -> int:
         return self.rtcp_ring.push(packet, now_ms, is_rtcp=True)

@@ -244,6 +244,17 @@ class StreamingServer:
             tot[f"{leg}_ms_per_window"] = tot.pop(f"{leg}_ns") / passes / 1e6
         return tot
 
+    def ingest_stats(self) -> dict:
+        """UDP pushers' RTP ingest: the RTSP layer's counts, and the
+        egress core's receive counters (recvmmsg calls and the ns inside
+        the native drain) when it is loaded."""
+        ing = dict(self.rtsp.ingest)
+        if native.loaded():
+            core = native.get_stats()
+            for k in ("recvmmsg_calls", "recv_packets", "ingest_ns"):
+                ing[k] = core[k]
+        return ing
+
     async def _pump_loop(self) -> None:
         interval = self.config.reflect_interval_ms / 1000.0
         last_maint = 0.0
@@ -293,6 +304,7 @@ class StreamingServer:
                 "wake_ms_max": wake[-1] if wake else None,
                 "wake_ms_first": self.wake_ms_first,
                 "native_loaded": self.native_loaded,
+                "ingest": self.ingest_stats(),
                 "rtcp": {"in": self.rtsp.rtcp_in, **self.rtsp.rtcp_counts},
                 "fec": self.fec_stats(),
                 "reliable": {"resends": self.reliable_resends,

@@ -16,5 +16,9 @@ class ServerConfig:
     rtsp_timeout_sec: int = 120        # idle player connection kill
     push_timeout_sec: int = 20         # idle pusher connection kill
     max_connections: int = 20000
+    #: a UDP pusher's RTP socket is drained in native recvmmsg batches
+    #: straight into the ring (off: one asyncio callback a datagram); the
+    #: per-datagram path serves when the egress core is not built
+    native_ingest: bool = True
     #: per-stream relay tunables (buckets, fast-start, eviction, ring)
     stream: StreamSettings = field(default_factory=StreamSettings)

@@ -1,14 +1,25 @@
 """The RTSP session layer of the live relay.
 
 One asyncio task per connection.  A connection is a *pusher*
-(ANNOUNCE → SETUP mode=record → RECORD, then ``$``-framed RTP on the
-negotiated channels), a *player* (DESCRIBE → SETUP → PLAY), or a plain
-control connection.  Methods: OPTIONS, DESCRIBE, ANNOUNCE, SETUP, RECORD,
+(ANNOUNCE → SETUP mode=record → RECORD, then RTP ``$``-framed on the
+negotiated channels, or as datagrams to the server port pair its SETUP
+got), a *player* (DESCRIBE → SETUP → PLAY), or a plain control
+connection.  Methods: OPTIONS, DESCRIBE, ANNOUNCE, SETUP, RECORD,
 PLAY, TEARDOWN.  A player's SETUP takes interleaved transport
 (``RTP/AVP/TCP;interleaved=a-b``: relayed RTP comes back ``$``-framed on
 the connection) or UDP (``RTP/AVP;unicast;client_port=a-b``: relayed RTP
 goes to the client's ports from the server's shared egress pair, whose
-ports the reply names as ``server_port``).  Pushers send interleaved.
+ports the reply names as ``server_port``).
+
+A pusher's SETUP takes interleaved transport or UDP
+(``RTP/AVP;unicast;client_port=a-b;mode=record``): the track gets a port
+pair of its own from the server's pool, named in the reply as
+``server_port``.  With ``ServerConfig.native_ingest`` (and the egress
+core built) its RTP socket is drained in recvmmsg batches straight into
+the ring (``RelaySession.drain_native``), else one datagram at a time.
+Its RTCP goes to the stream's RTCP ring, and the first one's source
+address becomes the stream's upstream-RTCP writer, so the relay's RRs
+reach the pusher.  A UDP SETUP without ``client_port`` gets 461.
 
 A player's SETUP may ask for ``x-RTP-Meta-Info`` (``tt``, ``sq`` and the
 mandatory ``md`` are served): the reply grants the fields and the output
@@ -53,7 +64,8 @@ from ..relay.fec import FecConfig, FecOutputState
 from ..relay.reliable import ReliableUdpOutput
 from ..relay.session import RelaySession, SessionRegistry, now_ms
 from .config import ServerConfig
-from .transports import InterleavedOutput, SharedUdpEgress, UdpOutput
+from .transports import (InterleavedOutput, SharedUdpEgress, UdpOutput,
+                         UdpPair, UdpPortPool)
 
 SERVER_NAME = "easydarwin-tpu-torch/0.1"
 ALLOWED = "OPTIONS, DESCRIBE, ANNOUNCE, SETUP, PLAY, RECORD, TEARDOWN"
@@ -153,6 +165,8 @@ class RtspConnection:
         self.player_tracks: dict[int, InterleavedOutput | UdpOutput] = {}
         #: interleaved channel → (track_id, is_rtcp) for push ingest
         self.channel_map: dict[int, tuple[int, bool]] = {}
+        #: track id → the UDP port pair a pusher sends that track to
+        self.pusher_pairs: dict[int, UdpPair] = {}
         self.last_activity = time.monotonic()
         self.closed = False
 
@@ -229,32 +243,42 @@ class RtspConnection:
         if t is None:
             raise rtsp.RtspError(461)
         record = t.mode == "RECORD" or self.is_pusher
-        if not t.is_tcp and (record or not t.client_port):
-            raise rtsp.RtspError(461, "UDP needs client_port, and pushers "
-                                      "send interleaved")
+        if not t.is_tcp and not t.client_port:
+            raise rtsp.RtspError(461, "UDP needs client_port")
         base, track_id = _extract_track(req.path())
         if self.session_id is None:
             self.session_id = secrets.token_hex(8)
         if record:
-            self._setup_record(req, track_id, t)
+            await self._setup_record(req, track_id, t)
         else:
             await self._setup_play(req, base, track_id, t)
 
-    def _setup_record(self, req, track_id, t) -> None:
+    async def _setup_record(self, req, track_id, t) -> None:
         if self.relay is None:
             raise rtsp.RtspError(455, "SETUP record before ANNOUNCE")
         if track_id is None or track_id not in self.relay.streams:
             raise rtsp.RtspError(404, f"unknown track {track_id}")
-        n = len({tid for tid, _ in self.channel_map.values()})
-        ch = t.interleaved or (2 * n, 2 * n + 1)
-        self.channel_map[ch[0]] = (track_id, False)
-        self.channel_map[ch[1]] = (track_id, True)
-        # the relay's receiver reports go back on the RTCP channel
         st = self.relay.streams[track_id]
-        st.upstream_rtcp = lambda d, c=ch[1]: self.send_interleaved(c, d)
-        st.upstream_rtcp_owner = self
-        resp_t = rtsp.TransportSpec(protocol=t.protocol, is_tcp=True,
-                                    mode="RECORD", interleaved=ch)
+        if t.is_tcp:
+            n = len({tid for tid, _ in self.channel_map.values()})
+            ch = t.interleaved or (2 * n, 2 * n + 1)
+            self.channel_map[ch[0]] = (track_id, False)
+            self.channel_map[ch[1]] = (track_id, True)
+            # the relay's receiver reports go back on the RTCP channel
+            st.upstream_rtcp = lambda d, c=ch[1]: self.send_interleaved(c, d)
+            st.upstream_rtcp_owner = self
+            resp_t = rtsp.TransportSpec(protocol=t.protocol, is_tcp=True,
+                                        mode="RECORD", interleaved=ch)
+        else:
+            old = self.pusher_pairs.pop(track_id, None)
+            if old is not None:
+                old.close()
+            pair = await self.server.allocate_pusher_pair(self, track_id)
+            self.pusher_pairs[track_id] = pair
+            resp_t = rtsp.TransportSpec(
+                protocol=t.protocol, is_tcp=False, mode="RECORD",
+                client_port=t.client_port,
+                server_port=(pair.rtp_port, pair.rtcp_port))
         self._reply(rtsp.RtspResponse(200, {"Transport": resp_t.to_header()}),
                     req.cseq)
 
@@ -343,11 +367,73 @@ class RtspConnection:
         if not self.writer.is_closing():
             self.writer.write(rtsp.frame_interleaved(channel, data))
 
+    def native_rtp_drain(self, track_id: int, fd: int) -> None:
+        """A UDP pusher's RTP socket is readable: drain everything pending
+        into the ring in recvmmsg batches.  A hard receive error, or a
+        track this connection no longer feeds, stops the watch, so a
+        socket nobody drains cannot spin the loop; the idle sweep then
+        closes the connection."""
+        st = self.relay.streams.get(track_id) if self.relay else None
+        if st is None:
+            asyncio.get_running_loop().remove_reader(fd)
+            return
+        oversize = st.rtp_ring.total_oversize
+        try:
+            n = self.relay.drain_native(track_id, fd)
+        except OSError:
+            asyncio.get_running_loop().remove_reader(fd)
+            self.server.ingest["errors"] += 1
+            return
+        ing = self.server.ingest
+        ing["oversize"] += st.rtp_ring.total_oversize - oversize
+        if n:
+            ing["native_pkts"] += n
+            ing["native_batches"] += 1
+            self._pushed(n)
+
+    def udp_ingest(self, track_id: int, data: bytes, addr,
+                   is_rtcp: bool) -> None:
+        """One datagram to a UDP pusher's port pair: RTP (the per-datagram
+        path) into the ring, RTCP into the RTCP ring.  The first RTCP
+        datagram's source address becomes the stream's upstream-RTCP
+        writer."""
+        st = self.relay.streams.get(track_id) if self.relay else None
+        if st is None:
+            return
+        if not is_rtcp:
+            oversize = st.rtp_ring.total_oversize
+            self.relay.push(track_id, data)
+            dropped = st.rtp_ring.total_oversize - oversize
+            self.server.ingest["oversize"] += dropped
+            if not dropped:
+                self.server.ingest["datagram_pkts"] += 1
+                self._pushed(1)
+            return
+        self.relay.push(track_id, data, is_rtcp=True)
+        pair = self.pusher_pairs.get(track_id)
+        if (st.upstream_rtcp is None and pair is not None
+                and pair.rtcp_transport is not None):
+            st.upstream_rtcp = (lambda d, tr=pair.rtcp_transport, a=addr:
+                                tr.sendto(d, a))
+            st.upstream_rtcp_owner = self
+        self.server.packets_in += 1
+        self.server.wake_pump()
+
+    def _pushed(self, n: int) -> None:
+        """Media arrived from this pusher: it is alive, and the pump has
+        work."""
+        self.last_activity = time.monotonic()
+        self.server.packets_in += n
+        self.server.wake_pump()
+
     # ----------------------------------------------------------- teardown
     async def close(self) -> None:
         if self.closed:
             return
         self.closed = True
+        for pair in self.pusher_pairs.values():
+            pair.close()
+        self.pusher_pairs.clear()
         if self.relay is not None:
             for tid, out in self.player_tracks.items():
                 st = self.relay.streams.get(tid)
@@ -387,6 +473,14 @@ class RtspServer:
         self.port: int | None = None
         #: the UDP players' shared egress pair (None until start)
         self.shared_egress: SharedUdpEgress | None = None
+        #: UDP pushers' port pairs
+        self.udp_pool = UdpPortPool(config.bind_ip)
+        #: UDP pushers' RTP: packets and non-empty drains of the native
+        #: ingest, datagrams of the per-datagram path, datagrams dropped
+        #: as larger than a ring slot, and drains stopped by an error
+        self.ingest = dict.fromkeys(("native_pkts", "native_batches",
+                                     "datagram_pkts", "oversize", "errors"),
+                                    0)
         #: ("ssrc", n) / ("addr", (ip, port)) → the player connection whose
         #: RTCP that proves (``_rtcp_keys``)
         self._rtcp_owner: dict[tuple, RtspConnection] = {}
@@ -423,6 +517,22 @@ class RtspServer:
         conn = RtspConnection(self, reader, writer)
         self.connections.add(conn)
         await conn.run()
+
+    async def allocate_pusher_pair(self, conn: RtspConnection,
+                                   track_id: int) -> UdpPair:
+        """A port pair for one track of a UDP pusher: RTP drained natively
+        when ``native_ingest`` is on and the egress core is built, else a
+        datagram endpoint; RTCP an endpoint either way."""
+        from .. import native
+        on_rtcp = (lambda d, a, tid=track_id:
+                   conn.udp_ingest(tid, d, a, True))
+        if self.config.native_ingest and native.available():
+            return await self.udp_pool.allocate_native(
+                lambda fd, tid=track_id: conn.native_rtp_drain(tid, fd),
+                on_rtcp)
+        return await self.udp_pool.allocate(
+            lambda d, a, tid=track_id: conn.udp_ingest(tid, d, a, False),
+            on_rtcp)
 
     def note_player_output(self, conn: RtspConnection, out,
                            replaced=None) -> None:

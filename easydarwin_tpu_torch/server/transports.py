@@ -1,4 +1,5 @@
-"""RTP egress to players: interleaved over the RTSP TCP connection, or UDP.
+"""RTP egress to players (interleaved over the RTSP TCP connection, or
+UDP), and the UDP port pairs of pushers.
 
 WouldBlock flow control: a stalled client must never stall the relay.  Past
 ``HIGH_WATER`` buffered bytes an interleaved output reports WOULD_BLOCK,
@@ -10,6 +11,14 @@ whose RTP socket the engine writes with one ``sendmmsg``/UDP-GSO scatter a
 stream a wake.  Each datagram that reaches its RTCP socket is handed with
 its source address to ``on_rtcp`` (the RTSP server, which routes a
 player's receiver reports to its outputs).
+
+A pusher that SETUPs over UDP gets a port pair of its own from
+``UdpPortPool``: an even RTP port and the odd one above it.  With the
+native ingest (``allocate_native``) the RTP side is a plain non-blocking
+socket watched by ``loop.add_reader``, and one readiness callback drains
+the whole pending batch into the ring in recvmmsg batches
+(``NativeIngestPair``); without it (``allocate``) each datagram is one
+asyncio callback.  The RTCP side is an asyncio endpoint either way.
 """
 
 from __future__ import annotations
@@ -102,17 +111,17 @@ class UdpOutput(RelayOutput):
         return self.sender.send_rtp(data, self.rtp_addr)
 
 
-class _RtcpReceiver(asyncio.DatagramProtocol):
+class _DatagramSink(asyncio.DatagramProtocol):
     """Hands every incoming datagram and its source address on."""
 
-    def __init__(self, on_rtcp):
-        self.on_rtcp = on_rtcp
+    def __init__(self, on_packet):
+        self.on_packet = on_packet
         self.received = 0
 
     def datagram_received(self, data, addr):
         self.received += 1
-        if self.on_rtcp is not None:
-            self.on_rtcp(data, addr)
+        if self.on_packet is not None:
+            self.on_packet(data, addr)
 
 
 class SharedUdpEgress:
@@ -129,7 +138,7 @@ class SharedUdpEgress:
         self.on_rtcp = on_rtcp
         self.rtp_sock: socket.socket | None = None
         self.rtcp_transport: asyncio.DatagramTransport | None = None
-        self.rtcp_proto: _RtcpReceiver | None = None
+        self.rtcp_proto: _DatagramSink | None = None
         self.rtp_port = 0
         self.rtcp_port = 0
         self.send_errors = 0
@@ -143,7 +152,7 @@ class SharedUdpEgress:
         loop = asyncio.get_running_loop()
         self.rtcp_transport, self.rtcp_proto = \
             await loop.create_datagram_endpoint(
-                lambda: _RtcpReceiver(self.on_rtcp),
+                lambda: _DatagramSink(self.on_rtcp),
                 local_addr=(self.bind_ip, 0))
         self.rtcp_port = self.rtcp_transport.get_extra_info("sockname")[1]
 
@@ -176,3 +185,115 @@ class SharedUdpEgress:
         if self.rtcp_transport is not None:
             self.rtcp_transport.close()
             self.rtcp_transport = None
+
+
+class UdpPair:
+    """A pusher's bound even/odd (RTP, RTCP) port pair, each side an
+    asyncio endpoint whose datagrams go to its callback."""
+
+    def __init__(self, rtp_transport, rtcp_transport, rtp_port: int):
+        self.rtp_transport: asyncio.DatagramTransport | None = rtp_transport
+        self.rtcp_transport: asyncio.DatagramTransport | None = \
+            rtcp_transport
+        self.rtp_port = rtp_port
+
+    @property
+    def rtcp_port(self) -> int:
+        return self.rtp_port + 1
+
+    def close(self) -> None:
+        for tr in (self.rtp_transport, self.rtcp_transport):
+            if tr is not None and not tr.is_closing():
+                tr.close()
+
+
+class NativeIngestPair(UdpPair):
+    """A ``UdpPair`` whose RTP side is a plain non-blocking socket: the
+    event loop calls ``on_readable(fd)`` once a readiness edge, and that
+    call drains the whole pending batch through the egress core's
+    recvmmsg (``RelaySession.drain_native``)."""
+
+    def __init__(self, rtp_sock: socket.socket, rtcp_transport,
+                 rtp_port: int, loop: asyncio.AbstractEventLoop,
+                 on_readable):
+        super().__init__(None, rtcp_transport, rtp_port)
+        self.rtp_sock: socket.socket | None = rtp_sock
+        self._loop = loop
+        loop.add_reader(rtp_sock.fileno(), on_readable, rtp_sock.fileno())
+
+    def close(self) -> None:
+        if self.rtp_sock is not None:
+            self._loop.remove_reader(self.rtp_sock.fileno())
+            self.rtp_sock.close()
+            self.rtp_sock = None
+        super().close()
+
+
+class UdpPortPool:
+    """Even/odd UDP port pairs for pushers, scanned upward from
+    ``base_port`` (a port in use is skipped)."""
+
+    def __init__(self, bind_ip: str = "0.0.0.0", base_port: int = 6970,
+                 max_pairs: int = 4000):
+        self.bind_ip = bind_ip
+        self.base_port = base_port
+        self.max_pairs = max_pairs
+        self._next = base_port
+
+    async def _scan(self, make_rtp, on_rtcp):
+        """Bind ``make_rtp(loop, port)`` (returning ``(rtp, close)``) on an
+        even port and the RTCP endpoint on the odd one above it, undoing
+        the first when the second fails.  Returns ``(rtp, rtcp transport,
+        port)``."""
+        loop = asyncio.get_running_loop()
+        last_err: OSError | None = None
+        for _ in range(self.max_pairs):
+            port = self._next
+            self._next += 2
+            if self._next >= self.base_port + 2 * self.max_pairs:
+                self._next = self.base_port
+            try:
+                rtp, rtp_close = await make_rtp(loop, port)
+            except OSError as e:
+                last_err = e
+                continue
+            try:
+                rtcp_t, _ = await loop.create_datagram_endpoint(
+                    lambda: _DatagramSink(on_rtcp),
+                    local_addr=(self.bind_ip, port + 1))
+            except OSError as e:
+                rtp_close()
+                last_err = e
+                continue
+            return rtp, rtcp_t, port
+        raise OSError(f"no free UDP port pair: {last_err}")
+
+    async def allocate(self, on_rtp, on_rtcp) -> UdpPair:
+        """A pair whose every datagram is one callback:
+        ``on_rtp(data, addr)`` and ``on_rtcp(data, addr)``."""
+        async def make_rtp(loop, port):
+            tr, _ = await loop.create_datagram_endpoint(
+                lambda: _DatagramSink(on_rtp),
+                local_addr=(self.bind_ip, port))
+            return tr, tr.close
+
+        rtp_t, rtcp_t, port = await self._scan(make_rtp, on_rtcp)
+        return UdpPair(rtp_t, rtcp_t, port)
+
+    async def allocate_native(self, on_readable, on_rtcp) -> NativeIngestPair:
+        """A pair whose RTP socket feeds the native drain:
+        ``on_readable(fd)`` runs once a readiness edge."""
+        async def make_rtp(_loop, port):
+            sock = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+            try:
+                sock.setblocking(False)
+                sock.setsockopt(socket.SOL_SOCKET, socket.SO_RCVBUF, 1 << 21)
+                sock.bind((self.bind_ip, port))
+            except OSError:
+                sock.close()
+                raise
+            return sock, sock.close
+
+        sock, rtcp_t, port = await self._scan(make_rtp, on_rtcp)
+        return NativeIngestPair(sock, rtcp_t, port,
+                                asyncio.get_running_loop(), on_readable)

@@ -1,15 +1,18 @@
 """End-to-end checks of a running relay server over loopback RTSP.
 
 ``push_play`` plays pushers (ANNOUNCE → SETUP record → RECORD, then
-``$``-framed RTP) and players (DESCRIBE → SETUP → PLAY) against a server
-on ``127.0.0.1:port``: interleaved TCP players read ``$``-framed RTP from
+``$``-framed RTP, or with ``push_transport="udp"`` RTP datagrams to the
+``server_port`` pair the SETUP reply named, an SR a second to its RTCP
+port) and players (DESCRIBE → SETUP → PLAY) against a server on
+``127.0.0.1:port``: interleaved TCP players read ``$``-framed RTP from
 the connection, UDP players (``client_port``) read datagrams on a port
 pair of their own.  Every relayed packet is held to what was pushed: each
 player receives every packet from its fast-start keyframe on — the newest
 IDR pushed before its PLAY reply came back, or the next one where one was
 pushed while PLAY was in flight — the payload is bit-equal from byte 12,
 seq is contiguous from the RTP-Info seq, ts is offset by the RTP-Info
-rtptime, and the SSRC is the one the SETUP reply named.  Any failure
+rtptime, and the SSRC is the one the SETUP reply named.  A UDP pusher
+must also receive an RR of the relay naming its SSRC.  Any failure
 raises ``AssertionError``.
 
 ``push_play_av`` adds RTCP and the per-player options: one pusher of an
@@ -108,12 +111,17 @@ def _udp_socket() -> socket.socket:
 
 class MiniClient:
     """Just enough RTSP over TCP for a pusher, an interleaved player or a
-    UDP player (``udp_ports`` opens its RTP/RTCP endpoints)."""
+    UDP player or pusher (``udp_ports`` opens its RTP/RTCP endpoints; a
+    UDP pusher sets ``server_port`` from its SETUP reply)."""
 
     def __init__(self):
         self.wire = rtsp.RtspWireReader(parse_responses=True)
         self.responses: asyncio.Queue = asyncio.Queue()
         self.frames: list[bytes] = []
+        #: datagrams on the RTCP endpoint of ``udp_ports``
+        self.rtcp: list[bytes] = []
+        #: the server's (RTP, RTCP) ports a UDP pusher sends to
+        self.server_port: tuple[int, int] | None = None
         #: interleaved channel → [(monotonic seconds, data)]
         self.channels: dict[int, list] = {}
         self.cseq = 0
@@ -122,10 +130,10 @@ class MiniClient:
         self._udp: list = []
 
     async def udp_ports(self) -> str:
-        """Open the RTP (into ``frames``) and RTCP endpoints; returns the
-        ``client_port=a-b`` value."""
+        """Open the RTP (into ``frames``) and RTCP (into ``rtcp``)
+        endpoints; returns the ``client_port=a-b`` value."""
         self._udp = [await _udp_endpoint(self.frames),
-                     await _udp_endpoint(None)]
+                     await _udp_endpoint(self.rtcp)]
         a, b = (t.get_extra_info("sockname")[1] for t in self._udp)
         return f"{a}-{b}"
 
@@ -163,7 +171,14 @@ class MiniClient:
         return resp
 
     def push(self, pkt: bytes, channel: int = 0) -> None:
-        self.writer.write(rtsp.frame_interleaved(channel, pkt))
+        """Send one packet: ``$``-framed on ``channel``, or for a UDP
+        pusher as a datagram to the server's RTP (even channel) or RTCP
+        (odd) port from the matching endpoint."""
+        if self.server_port is None:
+            self.writer.write(rtsp.frame_interleaved(channel, pkt))
+        else:
+            self._udp[channel % 2].sendto(
+                pkt, ("127.0.0.1", self.server_port[channel % 2]))
 
     async def close(self) -> None:
         for tr in self._udp:
@@ -178,16 +193,21 @@ class MiniClient:
 
 
 async def push_play(port: int, rng: np.random.Generator, *, n_push: int,
-                    n_play: int, transport: str = "tcp", gops: int = 4,
+                    n_play: int, transport: str = "tcp",
+                    push_transport: str = "tcp", gops: int = 4,
                     frames: int = 5, packets_per_frame: int = 4,
                     body_len=(40, 400), frame_interval_s: float = 0.02,
                     join_every: int = 0, deadline_s: float = 20.0) -> dict:
     """Push ``gops`` GOPs of ``frames`` frames from each of ``n_push``
-    sources, one frame each ``frame_interval_s``; ``n_play`` players of
-    ``transport`` (``tcp`` or ``udp``) join each source after the first
-    GOP, or — with ``join_every`` — one every ``join_every`` frames of the
-    live part.  Returns counts."""
+    sources over ``push_transport`` (``tcp`` or ``udp``), one frame each
+    ``frame_interval_s`` (a UDP pusher paces its first GOP too, and sends
+    an SR a second); ``n_play`` players of ``transport`` (``tcp`` or
+    ``udp``, or a sequence of them taken in turn by the joins) join each
+    source after the first GOP, or — with ``join_every`` — one every
+    ``join_every`` frames of the live part.  Returns counts."""
     gop = frames * packets_per_frame           # packets a GOP; IDR first
+    udp_push = push_transport == "udp"
+    kinds = (transport,) if isinstance(transport, str) else tuple(transport)
     pushers, sent = [], []
     for k in range(n_push):
         c = MiniClient()
@@ -195,8 +215,17 @@ async def push_play(port: int, rng: np.random.Generator, *, n_push: int,
         uri = f"rtsp://127.0.0.1:{port}/live/cam{k}"
         await c.request("ANNOUNCE", uri, {"content-type": "application/sdp"},
                         VIDEO_SDP.encode())
-        await c.request("SETUP", uri + "/trackID=1", {
-            "transport": "RTP/AVP/TCP;unicast;interleaved=0-1;mode=record"})
+        spec = "RTP/AVP/TCP;unicast;interleaved=0-1;mode=record"
+        if udp_push:
+            spec = (f"RTP/AVP;unicast;client_port={await c.udp_ports()};"
+                    f"mode=record")
+        resp = await c.request("SETUP", uri + "/trackID=1",
+                               {"transport": spec})
+        if udp_push:
+            c.server_port = rtsp.TransportSpec.parse(
+                resp.headers["transport"]).server_port
+            check(c.server_port is not None,
+                  "a UDP record SETUP reply names no server_port")
         await c.request("RECORD", uri)
         pkts = []
         for _ in range(gops):
@@ -211,25 +240,50 @@ async def push_play(port: int, rng: np.random.Generator, *, n_push: int,
     pushed = [0] * n_push
     joins = [k for _ in range(n_play) for k in range(n_push)]
     players = []
+    #: each player's transport, in join order
+    player_kinds: list[str] = []
 
     def push(k: int, pkts: list[bytes]) -> None:
         for pkt in pkts:
             pushers[k][0].push(pkt)
         pushed[k] += len(pkts)
 
+    def send_sr(k: int) -> None:
+        """An SR + SDES of source k on its newest packet."""
+        last = sent[k][pushed[k] - 1]
+        pushers[k][0].push(sr_compound(
+            rtp.peek_ssrc(last), time.time(), rtp.peek_timestamp(last),
+            pushed[k], sum(len(p) - 12 for p in sent[k][:pushed[k]]),
+            PUSHER_CNAME), channel=1)
+
+    async def push_frames(start: int, stop: int) -> None:
+        """Frames [start, stop) of every source, paced, with a UDP
+        pusher's SRs a second; staggered joins happen in the live part
+        (``start`` past the first GOP)."""
+        for f, i in enumerate(range(start, stop, packets_per_frame)):
+            if join_every and joins and start and f % join_every == 0:
+                await join(joins.pop(0))
+            for k in range(n_push):
+                push(k, sent[k][i:i + packets_per_frame])
+                if udp_push and (i // packets_per_frame) % sr_every == 0:
+                    send_sr(k)
+            await asyncio.sleep(frame_interval_s)
+
     async def join(k: int) -> None:
         uri = pushers[k][1]
         p = MiniClient()
         await p.connect(port)
         await p.request("DESCRIBE", uri)
+        kind = kinds[len(player_kinds) % len(kinds)]
+        player_kinds.append(kind)
         spec = "RTP/AVP/TCP;unicast;interleaved=0-1"
-        if transport == "udp":
+        if kind == "udp":
             spec = f"RTP/AVP;unicast;client_port={await p.udp_ports()}"
         resp = await p.request("SETUP", uri + "/trackID=1",
                                {"transport": spec})
         t = rtsp.TransportSpec.parse(resp.headers["transport"])
         check(t.ssrc is not None, "SETUP reply names no ssrc")
-        check(transport == "tcp" or t.server_port is not None,
+        check(kind == "tcp" or t.server_port is not None,
               "UDP SETUP reply names no server_port")
         before = pushed[k]
         resp = await p.request("PLAY", uri)
@@ -239,19 +293,18 @@ async def push_play(port: int, rng: np.random.Generator, *, n_push: int,
         players.append((p, k, seq0, ts0, t.ssrc,
                         gop_heads(before, pushed[k], gop)))
 
-    for k in range(n_push):                    # the first GOP
-        push(k, sent[k][:gop])
+    sr_every = max(1, round(1 / frame_interval_s))     # frames a second
+    if udp_push:                               # the first GOP, paced
+        await push_frames(0, gop)
+    else:
+        for k in range(n_push):
+            push(k, sent[k][:gop])
     await asyncio.sleep(0.3)
     if not join_every:
         for k in joins:
             await join(k)
         joins = []
-    for f, i in enumerate(range(gop, len(sent[0]), packets_per_frame)):
-        if join_every and joins and f % join_every == 0:
-            await join(joins.pop(0))
-        for k in range(n_push):
-            push(k, sent[k][i:i + packets_per_frame])
-        await asyncio.sleep(frame_interval_s)
+    await push_frames(gop, len(sent[0]))
     for k in joins:                            # joiners the frames outran
         await join(k)
 
@@ -266,19 +319,33 @@ async def push_play(port: int, rng: np.random.Generator, *, n_push: int,
                    if sent[k][i][12:] == p.frames[0][12:]), None)
         return None if i0 is None else sent[k][i0:]
 
+    def upstream_rrs(k: int) -> int:
+        """RRs on pusher k's RTCP port that name its SSRC."""
+        ssrc = rtp.peek_ssrc(sent[k][0])
+        n = 0
+        for data in pushers[k][0].rtcp:
+            for pt, count, body in rtcp_packets(data):
+                if pt == _RR and ssrc in [
+                        struct.unpack_from("!I", body, 4 + 24 * b)[0]
+                        for b in range(count)]:
+                    n += 1
+        return n
+
     deadline = time.monotonic() + deadline_s
     while (time.monotonic() < deadline
-           and any(want(j) is None or len(players[j][0].frames)
-                   < len(want(j)) for j in range(len(players)))):
+           and (any(want(j) is None or len(players[j][0].frames)
+                    < len(want(j)) for j in range(len(players)))
+                or udp_push and not all(map(upstream_rrs, range(n_push))))):
         await asyncio.sleep(0.05)
     delivered = 0
     for j, (p, k, seq0, ts0, ssrc, allowed) in enumerate(players):
         got, w = p.frames, want(j)
-        check(w is not None, f"{transport} player of cam{k}: no packet, or "
+        kind = player_kinds[j]
+        check(w is not None, f"{kind} player of cam{k}: no packet, or "
               f"a first packet that is not the IDR at packet "
               f"{' or '.join(map(str, allowed))}, the newest pushed before "
               f"its PLAY reply")
-        check(len(got) == len(w), f"{transport} player of cam{k}: "
+        check(len(got) == len(w), f"{kind} player of cam{k}: "
               f"{len(got)} of {len(w)} packets")
         src_ts0 = rtp.peek_timestamp(w[0])
         for i, (g, s) in enumerate(zip(got, w)):
@@ -292,12 +359,16 @@ async def push_play(port: int, rng: np.random.Generator, *, n_push: int,
             check(rtp.peek_ssrc(g) == ssrc,
                   f"cam{k} packet {i}: SSRC is not the SETUP reply's")
         delivered += len(got)
+    rrs = [upstream_rrs(k) for k in range(n_push)] if udp_push else []
+    check(all(rrs), f"a UDP pusher received no RR naming its SSRC: {rrs}")
     for p, *_ in players:
         await p.close()
     for c, _ in pushers:
         await c.close()
     return {"pushers": n_push, "players": len(players),
-            "transport": transport, "packets_per_player": len(sent[0]),
+            "transport": transport, "push_transport": push_transport,
+            "packets_per_player": len(sent[0]),
+            "packets_pushed": sum(pushed), "upstream_rrs": rrs,
             "delivered": delivered}
 
 
@@ -361,8 +432,9 @@ class CliServer:
 async def serve_and_check(device: str, rng: np.random.Generator, *,
                           harness=None, **kw) -> dict:
     """``harness`` (``push_play`` by default, or ``push_play_av``; ``kw``
-    passed on) against the CLI server on ``device``; adds the server's
-    exit stats (pump errors and oracle mismatches must be 0)."""
+    passed on, ``push_transport="udp"`` among them) against the CLI
+    server on ``device``; adds the server's exit stats (pump errors and
+    oracle mismatches must be 0)."""
     async with CliServer(device) as srv:
         res = await (harness or push_play)(srv.rtsp_port, rng, **kw)
         res["server_stats"] = await srv.stop()

@@ -186,7 +186,10 @@ def test_parity_shapes_outside_the_kernel_range_raise(k, b, r, dtype):
     coeff = torch.ones((r, k), dtype=torch.uint8)
     kernel_lib.reset_launch_counts()
     with pytest.raises(ValueError):
-        fec_parity_window_step(rows, coeff)
+        fec_kernel.gf_parity(rows, coeff)
+    if k <= fec_kernel.MAX_K:       # past it, K runs in groups of MAX_K
+        with pytest.raises(ValueError):
+            fec_parity_window_step(rows, coeff)
     with pytest.raises(ValueError):
         fec_parity_window_step(torch.zeros((16, 256), dtype=torch.uint8),
                                torch.ones((2, 15), dtype=torch.uint8))

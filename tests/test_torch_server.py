@@ -7,7 +7,7 @@
   players joining one by one; every relayed packet held to what was
   pushed (``utils.loopback``);
 * a UDP SETUP names the shared egress ports, and is refused without
-  ``client_port`` or from a pusher; the outputs' native hooks;
+  ``client_port`` (a pusher's too); the outputs' native hooks;
 * one stream that raises in a wake leaves the other streams served and
   the scheduler dispatching; a failed ``begin_wake`` serves the wake's
   streams one by one;
@@ -117,8 +117,8 @@ async def test_staggered_udp_joins_on_one_stream_through_the_cli_on_cpu():
 
 async def test_udp_setup_replies_with_the_shared_egress_ports_in_process():
     """A player's UDP SETUP is answered with the shared egress pair's ports
-    as ``server_port``; a UDP SETUP without ``client_port``, or a
-    pusher's, gets 461."""
+    as ``server_port``; a UDP SETUP without ``client_port``, a pusher's
+    too, gets 461."""
     app = StreamingServer(ServerConfig(rtsp_port=0, service_port=0,
                                        bind_ip="127.0.0.1"), device="cpu")
     await app.start()
@@ -132,8 +132,7 @@ async def test_udp_setup_replies_with_the_shared_egress_ports_in_process():
                              loopback.VIDEO_SDP.encode())
         with pytest.raises(AssertionError, match="-> 461"):
             await pusher.request("SETUP", uri + "/trackID=1", {
-                "transport": "RTP/AVP;unicast;client_port=5000-5001;"
-                             "mode=record"})
+                "transport": "RTP/AVP;unicast;mode=record"})
         await player.connect(app.rtsp.port)
         await player.request("DESCRIBE", uri)
         with pytest.raises(AssertionError, match="-> 461"):
@@ -690,6 +689,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "import easydarwin_tpu_torch.relay.reliable\n"
             "import easydarwin_tpu_torch.ops.fec_kernel\n"
             "import easydarwin_tpu_torch.storage.codec\n"
+            "import easydarwin_tpu_torch.codecs.h264_transform\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m.split('.')[0] in ('jax', 'jaxlib', "
             "'easydarwin_tpu'))\n"

@@ -40,7 +40,8 @@ from easydarwin_tpu_torch.models.transcode_pipeline import _ladder_step
 from easydarwin_tpu_torch.ops import kernel_lib
 from easydarwin_tpu_torch.ops import transform as tf
 from easydarwin_tpu_torch.ops.transform_kernel import (
-    REQUANT_MAX_BLOCKS, REQUANT_MAX_RUNGS, decode_blocks_kernel, requant_rungs)
+    REQUANT_MAX_BLOCKS, REQUANT_MAX_RUNGS, decode_blocks_kernel, requant_rungs,
+    requant_rungs_launch)
 
 
 def _t(a) -> torch.Tensor:
@@ -424,5 +425,5 @@ def test_requant_wrapper_raises_on_a_wrong_dtype_or_shape(levels, qt_in,
                                                           qt_rungs, err,
                                                           match):
     with pytest.raises(err, match=match):
-        requant_rungs(levels, qt_in, qt_rungs)
+        requant_rungs_launch(levels, qt_in, qt_rungs)
     assert kernel_lib.LAUNCHES["ed_requant_rungs"] == 0
