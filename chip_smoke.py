@@ -6,8 +6,9 @@ Run from the repository root on a machine with one CUDA card:
     python3 chip_smoke.py
 
 It builds the hand-written kernels from ``easydarwin_tpu_torch/csrc`` and
-drives the port's live-relay and transcode paths on the card, phase by
-phase; any failed phase raises and the script exits non-zero.
+drives the port's live-relay, transcode and file-playback (VOD) paths on
+the card, phase by phase; any failed phase raises and the script exits
+non-zero.
 
 1. build     nvcc the kernel library, one nvcc per source started together
              (seconds printed)
@@ -187,13 +188,48 @@ phase; any failed phase raises and the script exits non-zero.
              shapes in a graph and by direct call beside their byte bounds
              ([b6] lines, not in the kernels line: B6 has no hand kernel)
 
+4e. window vod ``ed_relay_window`` vs the plain window pass, bit-exact,
+             at the VOD prime's shapes, past the 48 KB a CTA had before the
+             kernel's opt-in to Hopper's large shared memory:
+             [1,2048,100]x[1,64,6], [4,4096,100]x[4,16,6],
+             [1,8192,100]x[1,8,6], [1,16384,100]x[1,8,6], 2,048 and 8,192
+             rows in one launch, and [1,32768,100] as two pieces of 16,384
+             in one launch; the ptxas static shared memory and each plan's
+             cluster and dynamic shared memory
+11. vod      VOD in-process: clips A (1080p30 H.264, 30 s, IDR 120,000 B
+             every 30 frames, P 25,000 B; AAC 44.1 kHz, 372 B frames) and B
+             (2160p30, 10 s, IDR 600,000 B, P 150,000 B) written by the
+             port's Mp4Writer from the seed; a warm SegmentCache resident on
+             the card, VodPacerGroup, MegabatchScheduler and one
+             FanoutEngine a stream, 64 players of clip A joining one a
+             frame and 8 of clip B, 8 s over loopback UDP: every datagram
+             equal to the cold FileSession packetizers' packet, device
+             primes = the joins, prime failures 0, uploads <= the windows
+             touched, scheduler mismatches 0 and streams coalesced; the
+             resident bytes and the prime's host ms per join (stack,
+             launch + readback, oracle)
+11b. vod srv ``python -m easydarwin_tpu_torch --device cuda --movie-folder``
+             serving clip A to 32 UDP players from npt 0, 16 with Range
+             npt=10-, 8 with Scale 2, 8 that PAUSE at 3 s and PLAY with
+             Range npt=3-, 4 interleaved TCP, one with x-Retransmit (acking
+             each datagram) and one asking for x-FEC (not granted); every
+             packet, the DESCRIBE SDP, Range and RTP-Info held to the cold
+             path; the wake p50, max and first join
+11c. record  a server of its own: phase 7b's traffic pushed for 5 s (SDP with
+             sprop-parameter-sets) with REST startrecord and stoprecord;
+             the MP4 byte-equal to what the port's RecorderOutput writes
+             on the CPU from the same packets, its tables read back
+
 Before the last lines, ``[uring]`` gives ``ed_uring_probe``'s answer on
 this host: its capability bits by name, or the errno's name.
 
 The kernel launch counts are set to 0 just before phase 6 and read just
 after phase 9 (the server processes report their own at exit, without
-their start-up warm-up); the comparisons and timings of phases 3, 4, 4b,
-4c, 4d, 5, 5b, 5c and 10 run outside that window.
+their start-up warm-up), then set to 0 again just before phase 11 and
+read just after phase 11c (the VOD path); the kernels line's launches are
+the two paths' sum.  The comparisons and timings of phases 3, 4, 4b, 4c,
+4d, 4e, 5, 5b, 5c and 10 run outside those windows.  Phase 10's window
+rows also time the VOD prime's calls of phase 11.
 Detail goes to ``chiprun_out/chip_smoke.json``.  The last line of standard
 output is ``{"ok": true, "device": {...}}``.
 """
@@ -458,6 +494,52 @@ def phase_window(rng) -> dict:
         more = f" (+{len(pairs) - 3} more)" if len(pairs) > 3 else ""
         log(f"[window] {name}: {shapes}{more}: {launched} launch(es), "
             f"every bucket bit-exact vs plain pass")
+    return res
+
+
+# ------------------------------------------------------------- phase 4e
+#: ``ed_relay_window`` at the VOD prime's shapes: (name, bucket specs as
+#: (b_real, b_pad, P, s_real, s_pad)); 32,768 rows run as two pieces of
+#: 16,384 (``fanout.split_wide_windows``) in the same one launch
+VOD_WINDOWS = (
+    ("1x2048_S64", ((1, 1, 2048, 64, 64),)),
+    ("4x4096_S16", ((4, 4, 4096, 16, 16),)),
+    ("1x8192_S8", ((1, 1, 8192, 8, 8),)),
+    ("1x16384_S8", ((1, 1, 16384, 8, 8),)),
+    ("mixed_2048_8192", ((1, 1, 2048, 8, 8), (2, 2, 8192, 8, 8))),
+    ("1x32768_in_pieces", ((1, 1, 32768, 8, 8),)),
+)
+
+
+def phase_window_vod(rng, ptxas: dict) -> dict:
+    """``ed_relay_window`` bit-exact against the plain pass at the VOD
+    prime's shapes, past the 48 KB a CTA had before the kernel's opt-in to
+    Hopper's large shared memory; each with its launch plan's cluster and
+    shared memory."""
+    from easydarwin_tpu_torch.ops import fanout, kernel_lib
+    static = ptxas.get("relay_window_kernel", {}).get("static_smem_bytes")
+    res = {"static_smem_bytes": static,
+           "smem_limit": kernel_lib.WINDOW_SMEM_LIMIT}
+    log(f"[window vod] relay_window_kernel: ptxas static smem {static} B; "
+        f"dynamic limit after the opt-in {kernel_lib.WINDOW_SMEM_LIMIT} B "
+        f"(48 KB before it: {kernel_lib.DYN_SMEM_LIMIT} B)")
+    for name, specs in VOD_WINDOWS:
+        pairs = window_group(rng, specs)
+        pieces, cuts = fanout.split_wide_windows(pairs)
+        (plan,) = fanout.window_launch_plan(
+            [(*w.shape, s.shape[1]) for w, s in pieces],
+            [w.data_ptr() for w, _ in pieces])
+        worst, launched = compare_windows(pairs)
+        check(launched == 1, f"window {name}: {launched} launches")
+        res[name] = {"max_abs_err": worst, "cluster": plan.cluster,
+                     "smem_bytes": plan.smem_bytes,
+                     "pieces": [n for n, _p in cuts]}
+        log(f"[window vod] {name}: "
+            + " + ".join(f"[{tuple(w.shape)}x{tuple(s.shape)}]"
+                         for w, s in pairs)
+            + f" as {' + '.join(str(tuple(w.shape)) for w, _ in pieces)}: "
+            f"C={plan.cluster}, {plan.smem_bytes} B dynamic smem a CTA, "
+            f"1 launch, bit-exact vs the plain pass")
     return res
 
 
@@ -1445,14 +1527,6 @@ def phase_scheduler(rng) -> dict:
 
 
 # ------------------------------------------------------------- phase 6b
-def udp_rcvbuf_errors() -> int:
-    """The host's UDP ``RcvbufErrors`` counter (``/proc/net/snmp``):
-    datagrams a full receive buffer dropped."""
-    with open("/proc/net/snmp") as f:
-        rows = [line.split() for line in f if line.startswith("Udp:")]
-    return int(dict(zip(rows[0][1:], rows[1][1:]))["RcvbufErrors"])
-
-
 def phase_config4_native(rng, phase6: dict, *, wakes: int = 9) -> dict:
     """Phase 6's traffic to 16 × 256 ``UdpOutput``s on one egress socket
     through the engines' native scatter, against the scalar oracle: the
@@ -1470,7 +1544,8 @@ def phase_config4_native(rng, phase6: dict, *, wakes: int = 9) -> dict:
     from easydarwin_tpu_torch.server.transports import (SharedUdpEgress,
                                                         UdpOutput)
     from easydarwin_tpu_torch.utils import synth
-    from easydarwin_tpu_torch.utils.loopback import VIDEO_SDP
+    from easydarwin_tpu_torch.utils.loopback import (VIDEO_SDP,
+                                                     udp_rcvbuf_errors)
 
     check(native.available(),
           f"the egress core did not build or load: {native.load_error}")
@@ -1920,6 +1995,193 @@ def phase_ladder(rng) -> dict:
     return res
 
 
+# ------------------------------------------------------------- phase 11
+#: the VOD clips under ``build/`` (git-ignored): clip A 1080p30 30 s with
+#: AAC, clip B 2160p30 10 s (``utils.vod_clips``)
+VOD_DIR = os.path.join(HERE, "build", "vod_clips")
+#: players of phase 11: 64 on clip A joining one a frame, 8 on clip B
+#: joining one each 8 frames; seconds of play
+VOD_A_PLAYERS, VOD_B_PLAYERS, VOD_RUN_S = 64, 8, 8.0
+
+
+def vod_clips(seed: int) -> dict:
+    """Write clips A and B from ``seed``; returns their paths."""
+    from easydarwin_tpu_torch.utils import vod_clips as vc
+    os.makedirs(VOD_DIR, exist_ok=True)
+    t0 = time.perf_counter()
+    paths = {"A": vc.write_clip(os.path.join(VOD_DIR, "clipA.mp4"),
+                                vc.CLIP_A, seed),
+             "B": vc.write_clip(os.path.join(VOD_DIR, "clipB.mp4"),
+                                vc.CLIP_B, seed + 1)}
+    log(f"[vod] clips written from seed {seed} in "
+        f"{time.perf_counter() - t0:.3f} s: A "
+        f"{os.path.getsize(paths['A'])} B (1080p30 30 s + AAC), B "
+        f"{os.path.getsize(paths['B'])} B (2160p30 10 s)")
+    return paths
+
+
+def phase_vod(clips: dict) -> dict:
+    """VOD in-process on the card: a warm ``SegmentCache`` resident on the
+    card, the group pacer, the megabatch scheduler and one engine a
+    stream over loopback UDP; every join primed on the card; every
+    datagram held to the cold path."""
+    from easydarwin_tpu_torch.ops import kernel_lib
+    from easydarwin_tpu_torch.utils import vod_loopback as vl
+    before = kernel_lib.LAUNCHES["ed_relay_window"]
+    res = vl.vod_in_process(
+        DEVICE, [vl.VodClip(clips["A"], VOD_A_PLAYERS, 1),
+                 vl.VodClip(clips["B"], VOD_B_PLAYERS, 8)],
+        run_s=VOD_RUN_S)
+    res["ed_relay_window"] = kernel_lib.LAUNCHES["ed_relay_window"] - before
+    pacer, cache, sched = res["pacer"], res["cache"], res["scheduler"]
+    check(res["datagrams"] > 0, "no VOD datagram arrived")
+    check(res["lost"] <= res["udp_rcvbuf_errors"],
+          f"{res['lost']} datagrams not received, but the host's UDP "
+          f"RcvbufErrors rose by {res['udp_rcvbuf_errors']}")
+    check(res["native_sent"] == res["sent"],
+          f"native_sent {res['native_sent']} != the outputs' {res['sent']}")
+    check(pacer["device_primes"] == res["joins"],
+          f"{pacer['device_primes']} device primes for {res['joins']} "
+          f"joins with fast outputs")
+    check(pacer["prime_failures"] == 0, f"prime failures: {pacer}")
+    check(cache["device_uploads"] <= res["windows_touched"],
+          f"{cache['device_uploads']} uploads for "
+          f"{res['windows_touched']} windows touched")
+    check(sched["mismatches"] == 0 and sched["streams_coalesced"] > 0,
+          f"scheduler: {sched}")
+    check(res["send_errors"] == 0, "VOD send errors")
+    check(res["ed_relay_window"] >= sched["window_calls"] > 0,
+          f"ed_relay_window launches {res['ed_relay_window']}, window "
+          f"calls {sched['window_calls']}")
+    joins = max(pacer["device_primes"], 1)
+    calls = max(pacer["prime_calls"], 1)
+    split = {leg: pacer[f"prime_{leg}_ms_per_call"] * calls / joins
+             for leg in ("stack", "launch", "oracle")}
+    res["prime_host_ms_per_join"] = split
+    log(f"[vod] {res['players']} players ({VOD_A_PLAYERS} of clip A "
+        f"one a frame, {VOD_B_PLAYERS} of clip B), {VOD_RUN_S:g} s: "
+        f"{res['datagrams']} datagrams, every one equal to the cold path's; "
+        f"{res['lost']} not received (UDP RcvbufErrors "
+        f"+{res['udp_rcvbuf_errors']}); native_sent {res['native_sent']}; "
+        f"{cache['windows']} windows warmed in {res['warm_s']:.3f} s, "
+        f"{cache['device_uploads']} uploaded for {res['windows_touched']} "
+        f"touched, {cache['device_bytes']} B resident on the card; "
+        f"device primes {pacer['device_primes']} = joins {res['joins']}, "
+        f"prime failures 0, prime calls {pacer['prime_calls']}; scheduler "
+        f"window calls {sched['window_calls']}, coalesced "
+        f"{sched['streams_coalesced']}, mismatches 0; ed_relay_window "
+        f"launches {res['ed_relay_window']}")
+    eg = res.get("egress", {})
+    if eg.get("send_packets"):
+        per = eg["send_ns"] / eg["send_packets"] / 1e3
+        log(f"[vod] inside sendmmsg: {per:.3f} us a datagram over "
+            f"{eg['send_packets']} datagrams in "
+            f"{eg['sendmmsg_calls']} calls, "
+            f"{eg['send_ns'] / 1e6 / res['wake_ms_sum']:.1%} of the wakes' "
+            f"{res['wake_ms_sum']:.1f} host ms")
+    log(f"[vod] the prime's host ms per join: stack "
+        f"{split['stack']:.6f}, launch + readback {split['launch']:.6f}, "
+        f"oracle {split['oracle']:.6f}; its window calls by shape "
+        f"{res['prime_shapes']}; wake host ms p50 {res['wake_ms_p50']:.3f} "
+        f"max {res['wake_ms_max']:.3f}")
+    return res
+
+
+# ------------------------------------------------------- phases 11b, 11c
+#: phase 11b's players of clip A, in join order: 32 from npt 0, 16 with
+#: Range npt=10-, 8 with Scale 2, 8 that PAUSE at 3 s and PLAY with Range
+#: npt=3-, 4 interleaved TCP, one with x-Retransmit, one asking for x-FEC
+VOD_SERVER_KINDS = (["plain"] * 32 + ["range"] * 16 + ["scale"] * 8
+                    + ["pause"] * 8 + ["tcp"] * 4 + ["retransmit", "fec"])
+
+
+def phase_vod_server(clips: dict, rng) -> dict:
+    """Clip A from ``python -m easydarwin_tpu_torch --device cuda
+    --movie-folder`` to phase 11b's players, every packet held to the cold
+    path; then phase 11c: phase 7b's traffic pushed for 5 s with REST
+    startrecord/stoprecord, the file equal to the CPU recorder's."""
+    from easydarwin_tpu_torch.utils import loopback, synth, vod_clips
+    from easydarwin_tpu_torch.utils import vod_loopback as vl
+
+    async def run():
+        async with loopback.CliServer(DEVICE, "--movie-folder",
+                                      VOD_DIR) as srv:
+            rcvbuf0 = loopback.udp_rcvbuf_errors()
+            play = await vl.play_vod(srv.rtsp_port, VOD_DIR, "clipA.mp4",
+                                     VOD_SERVER_KINDS, run_s=VOD_RUN_S)
+            play["udp_rcvbuf_errors"] = loopback.udp_rcvbuf_errors() - rcvbuf0
+            play_stats = await srv.stop()
+        # the recorder on a server of its own, so each phase's wake
+        # figures are its own
+        async with loopback.CliServer(DEVICE, "--movie-folder",
+                                      VOD_DIR) as srv:
+            pkts = []
+            for g in range(5):
+                pkts += synth.paced_gop(
+                    rng, seq0=0xFFE0 + len(pkts),
+                    ts0=0xFFFF0000 + 3000 * len(pkts) // 13,
+                    ssrc=0xC0DE0000, frames=30, packets_per_frame=13,
+                    body_len=(1270, 1300))
+            rec = await vl.record_via_rest(
+                srv.rtsp_port, srv.rest_port, VOD_DIR, pkts,
+                sps=vod_clips.SPS, pps=vod_clips.PPS, frame_s=1 / 30,
+                packets_per_frame=13)
+            rec["server_stats"] = await srv.stop()
+            return play, rec, play_stats
+
+    play, rec, st = asyncio.run(asyncio.wait_for(run(), 300))
+    vod = st["vod"]
+    launches = st["kernel_launches"]
+    check(st["vod_errors"] == 0, f"server VOD pacer errors: {st}")
+    check(vod["prime_failures"] == 0 and vod["device_primes"] > 0,
+          f"server VOD primes: {vod}")
+    check(launches["ed_relay_window"] > 0,
+          "the VOD server launched no ed_relay_window")
+    lost = sum(r["lost"] for k, r in play["by_kind"].items() if k != "tcp")
+    check(lost <= play["udp_rcvbuf_errors"],
+          f"{lost} VOD datagrams not received, but the host's UDP "
+          f"RcvbufErrors rose by {play['udp_rcvbuf_errors']}")
+    tcp_gaps = play["by_kind"]["tcp"]["lost"]
+    check(tcp_gaps <= st["tcp_shed_pkts"],
+          f"{tcp_gaps} packets missing in the TCP players' streams, but the "
+          f"server's TCP rung shed {st['tcp_shed_pkts']}")
+    log(f"[vod server] clip A to {play['players']} players "
+        + ", ".join(f"{k} {r['players']}" for k, r in
+                    play["by_kind"].items())
+        + f": {sum(r['datagrams'] for r in play['by_kind'].values())} "
+        f"packets, every one equal to the cold path's, {lost} lost in "
+        f"UDP (RcvbufErrors +{play['udp_rcvbuf_errors']}), {tcp_gaps} in "
+        f"TCP (the TCP rung shed {st['tcp_shed_pkts']}); DESCRIBE, Range "
+        f"and RTP-Info as the cold path computes; no x-FEC grant; the "
+        f"reliable player's acks {play['by_kind']['retransmit']['acks']}, "
+        f"resends received {play['by_kind']['retransmit']['duplicates']}; "
+        f"device primes "
+        f"{vod['device_primes']}, prime failures 0, hot packets "
+        f"{vod['hot_pkts']}, cold {vod['cold_pkts']}; launches {launches}")
+    eg = st.get("egress", {})
+    if eg.get("send_packets"):
+        log(f"[vod server] inside sendmmsg: "
+            f"{eg['send_ns'] / eg['send_packets'] / 1e3:.3f} us a datagram "
+            f"over {eg['send_packets']} datagrams, "
+            f"{eg['send_ns'] / 1e9:.3f} s in all")
+    log(f"[vod server] wake host ms p50 {st['wake_ms_p50']:.3f} max "
+        f"{st['wake_ms_max']:.3f}, first join {st['wake_ms_first']:.3f} "
+        f"({st['wakes']} wakes, {st['megabatch']['wakes']} through the "
+        f"megabatch, {st['packets_out']} packets out); "
+        f"the prime's host ms per call: stack "
+        f"{vod['prime_stack_ms_per_call']:.6f}, launch + readback "
+        f"{vod['prime_launch_ms_per_call']:.6f}, oracle "
+        f"{vod['prime_oracle_ms_per_call']:.6f} ({vod['prime_calls']} calls)")
+    log(f"[record] phase 7b's traffic for 5 s recorded over REST: "
+        f"{rec['samples']} samples ({rec['sync_samples']} sync), "
+        f"{rec['bytes']} B, byte-equal to the CPU RecorderOutput's file, "
+        f"tables read back through Mp4File")
+    vod_launches = {k: n + rec["server_stats"]["kernel_launches"].get(k, 0)
+                    for k, n in st["kernel_launches"].items()}
+    return {"play": play, "record": rec, "server_stats": st,
+            "kernel_launches": vod_launches}
+
+
 # ------------------------------------------------------------- phase 10
 def ptxas_report(build_log: str) -> dict:
     """Registers, shared memory and spills of each kernel from the build's
@@ -1968,11 +2230,33 @@ def launch_floor_ms() -> float:
     return graph_ms(floor, inner=100)
 
 
+def prime_window_specs(prime_shapes: dict, top: int = 3) -> list:
+    """The window bucket specs of phase 11's ``top`` most frequent prime
+    calls (``vod_in_process``'s ``prime_shapes`` keys, ``[B,P,W]x[B,S,6]``
+    joined by `` + ``), and clip A's and clip B's one-join windows (2,048
+    and 8,192 rows) where those are not among them."""
+    import re
+    specs = []
+    for key, _n in sorted(prime_shapes.items(), key=lambda kv: -kv[1]):
+        specs.append(tuple(
+            (int(b), int(b), int(p), int(n), int(n), int(w))
+            for b, p, w, n in re.findall(
+                r"\[(\d+),(\d+),(\d+)\]x\[\d+,(\d+),6\]", key)))
+    specs = specs[:top]
+    for p in (2048, 8192):
+        one = ((1, 1, p, 8, 8, 100),)
+        if one not in specs:
+            specs.append(one)
+    return specs
+
+
 def phase_kernels(rng, launches: dict, errs: dict, levels, qt,
-                  b9_shape: tuple[int, int]) -> list[dict]:
+                  b9_shape: tuple[int, int],
+                  vod_specs=()) -> list[dict]:
     """Each kernel alone (entry point on preallocated outputs) and its
     plain version, by CUDA events around graph replays, at the main path's
-    shapes (K1: 256 rows; window: the phase-6 wake group, one launch; B9:
+    shapes (K1: 256 rows; window: the phase-6 wake group, one launch, and
+    the VOD prime's calls of phase 11, ``vod_specs``; B9:
     phase 7c's pass ``b9_shape``; B7: config 5) and at the config-4 shapes
     of earlier runs (K1: 4,096 rows; window: [16,256,100]x[16,256,6], and
     its bytes as [64,64,100]x[64,64,6], which needs no cluster; B9: P = S =
@@ -1990,6 +2274,9 @@ def phase_kernels(rng, launches: dict, errs: dict, levels, qt,
     from easydarwin_tpu_torch.ops.transform_kernel import decode_blocks_kernel
     relay_src = "easydarwin_tpu_torch/csrc/relay_kernels.cu"
     cases = []
+    #: case index → where its shape comes from, when not the main path's
+    #: wake or an earlier run's shape
+    where_of = {}
 
     def k1_case(rows: int, main: bool):
         pre, ln = fuzz_rows(rng, rows)
@@ -2060,6 +2347,9 @@ def phase_kernels(rng, launches: dict, errs: dict, levels, qt,
     # config 4's bytes and 64 CTAs again, as 64 streams of 64 rows: one CTA
     # a stream row, so no cluster exchange
     window_case(((64, 64, 64, 64, 64),), False)
+    for spec in vod_specs:
+        where_of[len(cases)] = "phase 11's VOD prime"
+        window_case(spec, False)
     def gf_case(shape, main: bool, n_sets: int = 1):
         # with n_sets > 1 each call takes the next input set, so a graph of
         # calls walks more bytes than L2 holds
@@ -2158,8 +2448,8 @@ def phase_kernels(rng, launches: dict, errs: dict, levels, qt,
         4 * levels.numel() + 4 * 64 + 4 * idct8.numel() + pixels.numel(),
         2 * (2 * 8 * 64) * n, 20))
     out = []
-    for (name, shape, main, src, src_line, kernel, wrapper, plain, library,
-         nbytes, ops, inner) in cases:
+    for i, (name, shape, main, src, src_line, kernel, wrapper, plain,
+            library, nbytes, ops, inner) in enumerate(cases):
         t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
         t_ops = ops / PEAK_OPS_PER_S * 1e3
         ms = graph_ms(kernel, inner=inner)
@@ -2175,6 +2465,8 @@ def phase_kernels(rng, launches: dict, errs: dict, levels, qt,
             else graph_ms(library, inner=inner),
             # detail only (not part of the kernels line)
             "_shape": shape, "_main_path": main,
+            "_where": where_of.get(i, "main path" if main
+                                   else "earlier runs' shape"),
             "_bytes": nbytes, "_ops": ops,
             "_gb_per_s": nbytes / ms / 1e6,
             "_bound_share": max(t_bytes, t_ops) / ms,
@@ -2526,11 +2818,13 @@ def main() -> int:
           "fp32 matmuls would run in TF32")
     detail["matmul_settings"] = matmul
 
+    detail["ptxas"] = ptxas_report(detail["build"]["log"])
     detail["k1"] = phase_k1(rng)
     detail["relay_geometry"] = relay_geometry()
     log(f"[window] library geometry {detail['relay_geometry']} = the Python "
         f"launch plans")
     detail["window"] = phase_window(rng)
+    detail["window_vod"] = phase_window_vod(rng, detail["ptxas"])
     detail["ring"] = phase_ring_query(rng)
     detail["gf"] = phase_gf(rng)
     detail["b9"] = phase_b9(rng)
@@ -2562,8 +2856,26 @@ def main() -> int:
     for k, n in launches.items():
         check(n > 0, f"kernel {k} was not launched on the main path")
 
+    clips = vod_clips(int(rng.integers(1 << 31)))
+    kernel_lib.reset_launch_counts()           # the VOD path starts here
+    detail["vod"] = phase_vod(clips)
+    detail["vod_server"] = phase_vod_server(clips, rng)
+    vod_in_proc = dict(kernel_lib.LAUNCHES)
+    vod_srv = detail["vod_server"]["kernel_launches"]
+    vod_launches = {k: vod_in_proc[k] + vod_srv.get(k, 0)
+                    for k in vod_in_proc}
+    log(f"[vod path] kernel launches {vod_launches} (in-process "
+        f"{vod_in_proc}, server {vod_srv})")
+    check(vod_launches["ed_relay_window"] > 0,
+          "ed_relay_window was not launched on the VOD path")
+    detail["vod_path_launches"] = vod_launches
+    launches = {k: n + vod_launches[k] for k, n in launches.items()}
+
     errs = {"ed_parse_packets": max(detail["k1"].values()),
-            "ed_relay_window": max(detail["window"].values()),
+            "ed_relay_window": max(
+                [*detail["window"].values()]
+                + [v["max_abs_err"] for v in detail["window_vod"].values()
+                   if isinstance(v, dict)]),
             "ed_ring_query": max(detail["ring"].values()),
             "ed_decode_blocks": max(v["max_abs_err"]
                                     for v in detail["k2"].values()),
@@ -2573,13 +2885,13 @@ def main() -> int:
     detail["launch_floor_ms"] = launch_floor_ms()
     log(f"[kernels] launch floor: {detail['launch_floor_ms']:.6f} ms per "
         f"graph node (ed_launch_floor, an empty kernel)")
-    detail["ptxas"] = ptxas_report(detail["build"]["log"])
     for name, rep in detail["ptxas"].items():
         log(f"[kernels] ptxas {name}: {rep}")
     rtcp_st = detail["rtcp"]["server_stats"]
     b9_p = -(-rtcp_st["batch_rows"] // max(rtcp_st["batch_passes"], 1))
     b9_s = sum(1 for pl in RTCP_PLAYERS if pl["meta"] or pl["lossy"])
-    timed = phase_kernels(rng, launches, errs, levels, qt, (b9_p, b9_s))
+    timed = phase_kernels(rng, launches, errs, levels, qt, (b9_p, b9_s),
+                          prime_window_specs(detail["vod"]["prime_shapes"]))
     detail["kernels"] = timed
     detail["join_query"] = join = join_query_ms(rng)
     ring_ms = next(k["ms"] for k in timed if k["name"] == "ed_ring_query"
@@ -2605,8 +2917,7 @@ def main() -> int:
     for k in timed:
         lib = ("" if k["library_ms"] is None
                else f", library {k['library_ms']:.6f} ms")
-        where = "main path" if k["_main_path"] else "earlier runs' shape"
-        log(f"[kernels] {k['name']} at {k['_shape']} ({where}): "
+        log(f"[kernels] {k['name']} at {k['_shape']} ({k['_where']}): "
             f"{k['ms']:.6f} ms, {k['ms'] / detail['launch_floor_ms']:.2f}x "
             f"the launch floor (plain "
             f"{k['plain_ms']:.6f} ms, bound {k['bound_ms']:.6f} ms by "

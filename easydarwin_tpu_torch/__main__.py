@@ -1,12 +1,16 @@
 """CLI entry: ``python -m easydarwin_tpu_torch [-p PORT] [--service-port N]
-[--device cuda|cpu]``.
+[--device cuda|cpu] [--movie-folder DIR] [--vod-cache-*]``.
 
 Serves the live relay: pushers ANNOUNCE/SETUP/RECORD over interleaved TCP
 or UDP (``client_port``; their RTP drained in native recvmmsg batches),
 players DESCRIBE/SETUP/PLAY over interleaved TCP or UDP
 (``client_port``).  The REST API on the service port
 starts MJPEG transcode ladders (``/api/v1/starttranscode?path=/cam&
-rungs=40,20s2``) whose rungs play as ``/cam@q40`` and ``/cam@q20s2``.
+rungs=40,20s2``) whose rungs play as ``/cam@q40`` and ``/cam@q20s2``, and
+records a live path to an MP4 (``startrecord?path=/cam&file=cam.mp4``,
+``stoprecord?path=/cam``).  A path no pusher serves plays the file of
+that name under ``--movie-folder`` (``rtsp://host:port/clip.mp4``),
+through the card-resident segment cache unless ``--vod-cache-enabled 0``.
 Prints one ``listening:`` line once both listeners are bound (port 0 picks
 a free port) and runs until SIGINT/SIGTERM.
 """
@@ -24,8 +28,8 @@ from .server import ServerConfig, StreamingServer
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="easydarwin_tpu_torch",
-        description="RTSP live relay and MJPEG transcode ladder with their "
-                    "device work on a CUDA card")
+        description="RTSP live relay, file playback and MJPEG transcode "
+                    "ladder with their device work on a CUDA card")
     p.add_argument("-p", "--rtsp-port", type=int, default=10554,
                    help="RTSP listen port (0 = any free port)")
     p.add_argument("--service-port", type=int, default=10008,
@@ -36,13 +40,38 @@ def build_parser() -> argparse.ArgumentParser:
                         "run (default: cuda)")
     p.add_argument("--reflect-interval-ms", type=int, default=20,
                    help="pump tick when no ingest wakes it")
+    d = ServerConfig()
+    p.add_argument("--movie-folder", default=d.movie_folder,
+                   help="files played by path, and where recordings go")
+    p.add_argument("--vod-cache-enabled", type=int, choices=(0, 1),
+                   default=int(d.vod_cache_enabled),
+                   help="serve files through the segment cache and the "
+                        "group pacer (0: one FileSession a player)")
+    p.add_argument("--vod-cache-bytes", type=int, default=d.vod_cache_bytes,
+                   help="the cache's byte budget (host + device)")
+    p.add_argument("--vod-cache-window-samples", type=int,
+                   default=d.vod_cache_window_samples,
+                   help="samples packed per cache window")
+    p.add_argument("--vod-cache-lookahead-ms", type=int,
+                   default=d.vod_cache_lookahead_ms,
+                   help="how far ahead the pacer fills a player's ring")
+    p.add_argument("--vod-cache-device", type=int, choices=(0, 1),
+                   default=int(d.vod_cache_device),
+                   help="keep windows resident on the device and prime "
+                        "joins there")
     return p
 
 
 async def amain(args) -> int:
     cfg = ServerConfig(rtsp_port=args.rtsp_port,
                        service_port=args.service_port, bind_ip=args.bind_ip,
-                       reflect_interval_ms=args.reflect_interval_ms)
+                       reflect_interval_ms=args.reflect_interval_ms,
+                       movie_folder=args.movie_folder,
+                       vod_cache_enabled=bool(args.vod_cache_enabled),
+                       vod_cache_bytes=args.vod_cache_bytes,
+                       vod_cache_window_samples=args.vod_cache_window_samples,
+                       vod_cache_lookahead_ms=args.vod_cache_lookahead_ms,
+                       vod_cache_device=bool(args.vod_cache_device))
     app = StreamingServer(cfg, device=args.device)
     await app.start()
     print(f"easydarwin-tpu-torch listening: rtsp://{cfg.bind_ip}:"

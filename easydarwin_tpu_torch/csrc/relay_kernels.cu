@@ -112,6 +112,7 @@
 //     are): 128 timed faster than 64 or 256, and than one non-portable
 //     cluster of 16 CTAs reducing over distributed shared memory (PERF.md).
 
+#include <atomic>
 #include <cstdint>
 
 #include <cooperative_groups.h>
@@ -130,6 +131,11 @@ constexpr int kBulkAlign = 16;         // cp.async.bulk: address and size
 // dynamic shared memory a launch may ask for without an opt-in (48 KB less
 // room for the kernels' static shared memory)
 constexpr int kDynSmemLimit = 48 * 1024 - 2048;
+// ed_relay_window opts into Hopper's large shared memory: 227 KB a block
+// (232,448 B), less 1 KB for its static shared memory.  A VOD prime stacks
+// whole cached windows, up to 16,384 rows of 100 B at a cluster of 8
+// (204,816 B a CTA).  ops/kernel_lib.py WINDOW_SMEM_LIMIT is this value.
+constexpr int kWindowSmemLimit = 227 * 1024 - 1024;
 
 constexpr int kWindowThreads = 128;
 constexpr int kWindowWarps = kWindowThreads / 32;
@@ -390,7 +396,8 @@ static_assert(sizeof(WindowLaunch) < 4096, "kernel parameter space");
 // keyframe-first row; phase 3: reduce it over the warp, the CTA and the
 // cluster; rank 0 writes newest_kf.  When the launch's cluster size is
 // above 1 this costs a cluster barrier; the split is what keeps a CTA's
-// rows within 48 KB of shared memory at MAX_STAGE_ROWS.
+// rows within 48 KB of shared memory at MAX_STAGE_ROWS, and within
+// kWindowSmemLimit for a VOD window of 16,384 rows.
 __global__ void __launch_bounds__(kWindowThreads)
 relay_window_kernel(const __grid_constant__ WindowLaunch launch) {
   extern __shared__ __align__(16) uint8_t s_rows[];
@@ -659,6 +666,23 @@ relay_batch_kernel(const uint8_t* __restrict__ prefix, int n_pkts,
 // The card's floor for one launch: a kernel that does nothing.
 __global__ void launch_floor_kernel() {}
 
+// Opt relay_window_kernel into kWindowSmemLimit bytes of dynamic shared
+// memory on the current device, once a device (up to 64 of them).
+int window_optin() {
+  static std::atomic<unsigned long long> opted{0};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return int(err);
+  const unsigned long long bit = dev < 64 ? 1ull << dev : 0;
+  if (bit && (opted.load() & bit)) return 0;
+  err = cudaFuncSetAttribute(relay_window_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kWindowSmemLimit);
+  if (err != cudaSuccess) return int(err);
+  opted.fetch_or(bit);
+  return 0;
+}
+
 }  // namespace
 
 extern "C" {
@@ -706,7 +730,11 @@ int ed_relay_window(const void* buckets, int n_buckets, int cluster,
     if (need > smem) smem = need;
   }
   smem = (smem + kBulkAlign - 1) & ~size_t(kBulkAlign - 1);
-  if (smem > size_t(kDynSmemLimit)) return int(cudaErrorInvalidValue);
+  if (smem > size_t(kWindowSmemLimit)) return int(cudaErrorInvalidValue);
+  if (smem > size_t(kDynSmemLimit)) {
+    const int rc = window_optin();
+    if (rc != 0) return rc;
+  }
 
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -801,6 +829,13 @@ int ed_relay_geometry(int* max_buckets, int* max_cluster, int* window_threads,
   *smem_limit = kDynSmemLimit;
   *ring_tile_rows = kRingTileRows;
   return 0;
+}
+
+// Opt ed_relay_window into its large shared memory on the current device
+// and report the limit (ops/kernel_lib.py checks it at load).
+int ed_relay_window_optin(int* smem_limit) {
+  *smem_limit = kWindowSmemLimit;
+  return window_optin();
 }
 
 int ed_launch_floor(void* stream) {

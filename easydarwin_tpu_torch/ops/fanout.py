@@ -13,7 +13,11 @@ wake: on CUDA tensors it makes ONE launch of the hand-written
 and the affine emit) for every ``(window, state)`` bucket, by the plan of
 ``window_launch_plan``; on CPU tensors it runs
 ``relay_affine_step_window_plain``, the same function in plain PyTorch,
-once per bucket.  ``relay_affine_step_window`` is its group of one.
+once per bucket.  ``relay_affine_step_window`` is its group of one.  A
+stream row wider than one cluster's shared memory holds (a VOD window of
+more than ``window_max_rows`` packets) is cut into pieces that run as
+rows of their own, and the pieces' results are merged back
+(``split_wide_windows``, on either device).
 
 ``relay_batch_step`` (B9) is one source's full step for the engine's
 batch-header rung: the parse, the ``[S, P, 12]`` headers, the ``[S, P]``
@@ -419,7 +423,9 @@ def window_launch_plan(shapes, addrs) -> list[WindowLaunch]:
     start at ``addrs``: buckets in order, ``WINDOW_MAX_BUCKETS`` to a
     launch; a bucket with no stream row gets no CTA.  The dynamic shared
     memory is the largest CTA span plus the alignment slack; a launch
-    that would need more than ``kernel_lib.DYN_SMEM_LIMIT`` raises."""
+    that would need more than ``kernel_lib.WINDOW_SMEM_LIMIT`` (the
+    kernel's opt-in to Hopper's large shared memory) raises: callers cut
+    wider rows first (``split_wide_windows``)."""
     live = [i for i, shape in enumerate(shapes) if shape[0] > 0]
     plans = []
     for g in range(0, len(live), WINDOW_MAX_BUCKETS):
@@ -430,9 +436,9 @@ def window_launch_plan(shapes, addrs) -> list[WindowLaunch]:
         smem = max([align] + [-(-p // c) * w + align
                               for _b, p, w, _s in group])
         smem = -(-smem // align) * align
-        if smem > kernel_lib.DYN_SMEM_LIMIT:
+        if smem > kernel_lib.WINDOW_SMEM_LIMIT:
             raise ValueError(f"window launch needs {smem} B of shared memory "
-                             f"per CTA (> {kernel_lib.DYN_SMEM_LIMIT}): "
+                             f"per CTA (> {kernel_lib.WINDOW_SMEM_LIMIT}): "
                              f"shapes {group}")
         firsts = tuple(itertools.accumulate(
             (b for b, _p, _w, _s in group[:-1]), initial=0))
@@ -451,11 +457,72 @@ def window_descriptors(plan: WindowLaunch, pairs, outs) -> ctypes.Array:
         for k, i in enumerate(plan.buckets)])
 
 
+def window_max_rows(width: int) -> int:
+    """The most packets of ``width``-byte rows one stream row of a window
+    launch takes: a cluster of ``WINDOW_MAX_CLUSTER`` CTAs, each within
+    ``kernel_lib.WINDOW_SMEM_LIMIT`` (16,384 rows fit at width 100)."""
+    per_cta = (kernel_lib.WINDOW_SMEM_LIMIT - kernel_lib.BULK_ALIGN) // width
+    if per_cta < 1:
+        raise ValueError(f"a {width}-byte row does not fit a CTA's shared "
+                         f"memory ({kernel_lib.WINDOW_SMEM_LIMIT} B)")
+    return WINDOW_MAX_CLUSTER * per_cta
+
+
+def split_wide_windows(pairs):
+    """Cut every bucket whose rows exceed ``window_max_rows`` into
+    ``n`` pieces of at most that many rows, each piece a stream row of its
+    own with the stream's state (``[B·n, P/n, W]``, a view when ``n``
+    divides ``P``, else zero rows are appended on the window's device).
+    Returns the pairs to run and, per bucket, ``(n, piece rows)`` for
+    ``merge_wide_results``."""
+    out, cuts = [], []
+    for window, out_state in pairs:
+        n_b, p, w = window.shape
+        limit = window_max_rows(w)
+        if p <= limit:
+            out.append((window, out_state))
+            cuts.append((1, p))
+            continue
+        n = -(-p // limit)
+        piece = -(-p // n)
+        if piece * n != p:
+            window = torch.cat([window, torch.zeros(
+                (n_b, piece * n - p, w), dtype=window.dtype,
+                device=window.device)], 1)
+        out.append((window.reshape(n_b * n, piece, w),
+                    out_state.view(torch.int32).repeat_interleave(n, 0)
+                    .view(torch.uint32)))
+        cuts.append((n, piece))
+    return out, cuts
+
+
+def merge_wide_results(results, cuts) -> list[torch.Tensor]:
+    """The results of ``split_wide_windows``'s pairs back as one
+    ``[B, 4·S + 1]`` row per stream: every piece has the stream's state,
+    so its affine columns are piece 0's; the newest keyframe is the
+    highest piece's hit, offset by that piece's first row (−1: none)."""
+    merged = []
+    for res, (n, piece) in zip(results, cuts):
+        if n == 1:
+            merged.append(res)
+            continue
+        r = res.view(torch.int32).reshape(-1, n, res.shape[1])
+        kf = r[:, :, -1]
+        off = torch.arange(n, dtype=torch.int32, device=res.device) * piece
+        best = torch.where(kf >= 0, kf + off, torch.full_like(kf, -1))
+        row = r[:, 0].clone()
+        row[:, -1] = best.amax(1)
+        merged.append(row.view(torch.uint32))
+    return merged
+
+
 def relay_affine_step_windows(pairs) -> list[torch.Tensor]:
     """The window pass over every ``(window, out_state)`` bucket of a wake
     → one [B, 4·S + 1] uint32 result per bucket.  CUDA tensors make ONE
     ``ed_relay_window`` launch per ``WINDOW_MAX_BUCKETS`` buckets; CPU
-    tensors run the plain version once per bucket."""
+    tensors run the plain version once per bucket.  Rows wider than one
+    launch takes run as pieces (``split_wide_windows``) on either
+    device."""
     pairs = list(pairs)
     for window, out_state in pairs:
         _check_window(window, out_state)
@@ -465,6 +532,12 @@ def relay_affine_step_windows(pairs) -> list[torch.Tensor]:
     if any(t.device != dev for pair in pairs for t in pair):
         raise ValueError("every window and state of a group must be on "
                          f"{dev}")
+    pairs, cuts = split_wide_windows(pairs)
+    return merge_wide_results(_window_pass(pairs, dev), cuts)
+
+
+def _window_pass(pairs, dev: torch.device) -> list[torch.Tensor]:
+    """``relay_affine_step_windows`` on buckets every launch can take."""
     if dev.type == "cpu":
         return [relay_affine_step_window_plain(w, s) for w, s in pairs]
     if dev.type != "cuda":

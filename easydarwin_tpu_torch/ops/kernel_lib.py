@@ -49,6 +49,10 @@ BULK_ALIGN = 16
 #: dynamic shared memory a relay kernel launch may ask for without an
 #: opt-in: 48 KB less room for static shared memory (``kDynSmemLimit``)
 DYN_SMEM_LIMIT = 48 * 1024 - 2048
+#: dynamic shared memory of one ``ed_relay_window`` CTA: the kernel opts
+#: into Hopper's 227 KB a block (232,448 B), less 1 KB for its static
+#: shared memory (``kWindowSmemLimit``; ``library`` checks the two agree)
+WINDOW_SMEM_LIMIT = 227 * 1024 - 1024
 
 #: an entry point's return code at or above this is this base plus the
 #: ``CUresult`` of ``cuTensorMapEncodeTiled`` (a TMA tensor map), not a
@@ -68,6 +72,9 @@ _SIGNATURES = {
     # -> max buckets, max cluster, window threads, K1 tile rows, smem limit,
     # ring query tile rows
     "ed_relay_geometry": (_IP, _IP, _IP, _IP, _IP, _IP),
+    # -> the window kernel's shared-memory limit, after opting it in on
+    # the current device
+    "ed_relay_window_optin": (_IP,),
     # stream (an empty kernel: the launch floor)
     "ed_launch_floor": (_P,),
     # levels, n_blocks, qtable, idct8 (the 8x8 DCT matrix C), out, stream
@@ -176,6 +183,15 @@ def library() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         lib.ed_error_string.argtypes = [ctypes.c_int]
         lib.ed_error_string.restype = ctypes.c_char_p
+        limit = ctypes.c_int()
+        rc = lib.ed_relay_window_optin(ctypes.byref(limit))
+        if rc != 0:
+            raise RuntimeError("ed_relay_window's shared-memory opt-in "
+                               f"failed: cudaError {rc} "
+                               f"({lib.ed_error_string(rc).decode()})")
+        if limit.value != WINDOW_SMEM_LIMIT:
+            raise RuntimeError(f"kWindowSmemLimit {limit.value} != "
+                               f"WINDOW_SMEM_LIMIT {WINDOW_SMEM_LIMIT}")
         _LIB = lib
     return _LIB
 

@@ -5,8 +5,10 @@ packed into the fused ``pack_window`` layout: ``[prefix_width bytes |
 le32 length]`` per row, zero-padded.  The staging buffers themselves
 belong to the scheduler (``relay.megabatch``), double-buffered per shape
 bucket; the functions here only fill them, byte for byte as the reference
-packs them: through the egress core's ``ed_stage_gather`` when the native
-library is loaded, with numpy otherwise.
+packs them: from a ring's own pre-packed rows when it keeps them (the VOD
+tier's ``vod.cache.StagedPacketRing``), else through the egress core's
+``ed_stage_gather`` when the native library is loaded, with numpy
+otherwise.
 
 The FEC tier's device pass stages one window of whole ring rows at a time
 (``stage_fec_rows``) into a ``PinnedStage``: host buffers, page-locked
@@ -76,6 +78,12 @@ def gather_window(ring, start: int, count: int, out_rows: np.ndarray,
         out_rows[:] = 0
         return 0
     slots = (np.arange(start, stop) % ring.capacity).astype(np.int32)
+    staged = getattr(ring, "staged", None)
+    if staged is not None and prefix_width == PARSE_PREFIX:
+        # the ring keeps its fused rows current: one row copy, no packing
+        out_rows[:n] = staged[slots]
+        out_rows[n:] = 0
+        return n
     if native.loaded():
         # the same bytes in one C walk (``ed_stage_gather``)
         r = native.stage_gather(ring.data, ring.length, slots, prefix_width,

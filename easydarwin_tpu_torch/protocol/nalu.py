@@ -9,6 +9,9 @@
 
 The vectorized equivalent is ``ops.parse.parse_packets`` and, on the card,
 the ``parse_row`` device function of ``csrc/relay_kernels.cu``.
+
+``packetize_h264`` is the RFC 6184 packetizer (single NAL or FU-A) the VOD
+tier's file packetizer (``vod.packetizer``) runs per NAL unit.
 """
 
 from __future__ import annotations
@@ -79,3 +82,29 @@ def is_frame_first_packet(packet: bytes) -> bool:
 def is_frame_last_packet(packet: bytes) -> bool:
     """True iff the RTP marker bit is set (and the packet is ≥ 20 bytes)."""
     return len(packet) >= _MIN_CLASSIFY_LEN and bool(packet[1] & 0x80)
+
+
+def packetize_h264(nal: bytes, *, seq: int, timestamp: int, ssrc: int,
+                   payload_type: int = 96, mtu: int = 1400,
+                   marker_on_last: bool = True) -> list[bytes]:
+    """Packetize one NAL unit into RTP packets: one single-NAL packet when
+    it fits ``mtu``, else FU-A fragments of ``mtu - 2`` payload bytes."""
+    if len(nal) <= mtu:
+        return [rtp.RtpPacket(
+            payload_type=payload_type, seq=seq, timestamp=timestamp,
+            ssrc=ssrc, marker=marker_on_last, payload=nal).to_bytes()]
+    pkts: list[bytes] = []
+    fu_indicator = (nal[0] & 0x60) | NAL_FU_A
+    ntype = nal[0] & 0x1F
+    body = memoryview(nal)[1:]
+    step = mtu - 2
+    for off in range(0, len(body), step):
+        last = off + step >= len(body)
+        fu_header = ntype | (0x80 if off == 0 else 0) | (0x40 if last else 0)
+        pkts.append(rtp.RtpPacket(
+            payload_type=payload_type, seq=seq, timestamp=timestamp,
+            ssrc=ssrc, marker=marker_on_last and last,
+            payload=bytes((fu_indicator, fu_header))
+            + bytes(body[off:off + step])).to_bytes())
+        seq = (seq + 1) & 0xFFFF
+    return pkts

@@ -1,8 +1,9 @@
-"""SDP parse (the RFC 4566 subset push/play of a live track needs).
+"""SDP parse and build (the RFC 4566 subset push/play needs).
 
 A pushed ANNOUNCE body becomes a ``SessionDescription`` with one
 ``StreamInfo`` per media section; DESCRIBE answers with the pushed text as
-it was announced (``SdpCache``).
+it was announced (``SdpCache``).  A file's DESCRIBE answer is built from
+its tracks (``vod.packetizer.sdp_for_file``) and serialized by ``build``.
 """
 
 from __future__ import annotations
@@ -116,6 +117,32 @@ def parse(text: str | bytes) -> SessionDescription:
             s.codec = {0: "PCMU", 8: "PCMA", 14: "MPA", 26: "JPEG",
                        32: "MPV", 33: "MP2T"}.get(s.payload_type, "")
     return sd
+
+
+def build(sd: SessionDescription, *, server_ip: str = "0.0.0.0",
+          session_id: int = 0) -> str:
+    """Serialize a DESCRIBE answer in the v/o/s/c/t/a line order."""
+    lines = [
+        "v=0",
+        sd.origin and f"o={sd.origin}"
+        or f"o=- {session_id} {session_id} IN IP4 {server_ip}",
+        f"s={sd.session_name or 'easydarwin_tpu'}",
+        f"c={sd.connection or f'IN IP4 {server_ip}'}",
+        "t=0 0",
+        f"a=control:{sd.control or '*'}",
+    ]
+    for name, aval in sd.attributes.items():
+        lines.append(f"a={name}:{aval}" if aval else f"a={name}")
+    for i, s in enumerate(sd.streams, start=1):
+        lines.append(f"m={s.media_type} 0 RTP/AVP {s.payload_type}")
+        if s.payload_name:
+            lines.append(f"a=rtpmap:{s.payload_type} {s.payload_name}")
+        if s.fmtp:
+            lines.append(f"a=fmtp:{s.fmtp}")
+        lines.append(f"a=control:trackID={s.track_id or i}")
+        for name, aval in s.attributes.items():
+            lines.append(f"a={name}:{aval}" if aval else f"a={name}")
+    return "\r\n".join(lines) + "\r\n"
 
 
 class SdpCache:

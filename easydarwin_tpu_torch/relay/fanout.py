@@ -163,6 +163,9 @@ class FanoutEngine:
         self.device_param_refreshes = 0
         #: datagrams or packets a hard send error skipped
         self.send_errors = 0
+        #: packets the TCP rung skipped for readers more than half the
+        #: ring behind (moved forward to the newest keyframe)
+        self.tcp_shed_pkts = 0
         #: packets the batch-header rung sent, passes that ran it and the
         #: window rows those passes rendered
         self.batch_sent = 0
@@ -553,6 +556,7 @@ class FanoutEngine:
                 if kf is None or kf <= out.bookmark:
                     kf = ring.head - ring.capacity // 4
                 if kf > out.bookmark:
+                    self.tcp_shed_pkts += int(kf) - out.bookmark
                     out.bookmark = int(kf)
                     out.stalls += 1
                     stream.stats.stalls += 1

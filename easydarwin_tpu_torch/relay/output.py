@@ -111,16 +111,23 @@ class RelayOutput:
                                    is_rtcp=False)
         return self.send_bytes(header + tail, is_rtcp=False)
 
-    def wrap_meta(self, header: bytes, payload: bytes) -> bytes:
-        """RTP → x-RTP-Meta-Info packet with the negotiated live fields:
-        ``tt`` the wall-clock ms of sending, ``sq`` the seq of the packet
-        as sent (clients correlate ``md`` with the RTP header), ``md`` the
-        payload."""
+    def wrap_meta(self, header: bytes, payload: bytes, *,
+                  frame_type: int | None = None,
+                  packet_number: int | None = None,
+                  packet_position: int | None = None) -> bytes:
+        """RTP → x-RTP-Meta-Info packet with the negotiated fields: ``tt``
+        the wall-clock ms of sending, ``sq`` the seq of the packet as sent
+        (clients correlate ``md`` with the RTP header), ``md`` the
+        payload; a file session also fills ``ft``, ``pn`` and ``pp`` from
+        its sample tables."""
         ids = self.meta_field_ids
         return rtp_meta.build_packet(
             header, media=payload, field_ids=ids,
             transmit_time=int(time.time() * 1000) if "tt" in ids else None,
-            seq=rtp.peek_seq(header) if "sq" in ids else None)
+            seq=rtp.peek_seq(header) if "sq" in ids else None,
+            frame_type=frame_type if "ft" in ids else None,
+            packet_number=packet_number if "pn" in ids else None,
+            packet_position=packet_position if "pp" in ids else None)
 
     def write_rtp(self, packet: bytes) -> WriteResult:
         """Rewrite the header per this output's state and send — the scalar

@@ -116,6 +116,42 @@ class PacketRing:
         self.head = pid + 1
         return pid
 
+    def push_block(self, data: np.ndarray, length: np.ndarray,
+                   arrival_ms: np.ndarray, flags: np.ndarray,
+                   seq: np.ndarray, timestamp: np.ndarray) -> int:
+        """Admit ``n`` pre-classified packets (``data [n, <= slot_size]``
+        uint8 rows and their per-packet metadata) into consecutive slots
+        in a few array copies: the VOD pacer's fill from a packed cache
+        window, which was parsed and classified once when it was packed.
+        Each row's RTP seq bytes are restamped from ``seq``, so one shared
+        canonical window serves every subscriber's ring.  Returns the
+        absolute id of the first packet."""
+        n = len(length)
+        if n == 0:
+            return self.head
+        if n > self.capacity:
+            raise ValueError(f"push_block of {n} > capacity {self.capacity}")
+        overflow = len(self) + n - self.capacity
+        if overflow > 0:                 # overwrite-oldest, like push()
+            self.tail += overflow
+            self.total_dropped += overflow
+        first = self.head
+        slots = np.arange(first, first + n) % self.capacity
+        w = min(data.shape[1], self.slot_size)
+        self.data[slots, :w] = data[:, :w]
+        if w < self.slot_size:
+            self.data[slots, w:] = 0
+        sq = (np.asarray(seq, np.int64) & 0xFFFF).astype(">u2")
+        self.data[slots, 2:4] = sq[:, None].view(np.uint8)
+        self.length[slots] = length
+        self.arrival[slots] = arrival_ms
+        self.flags[slots] = flags
+        self.seq[slots] = np.asarray(seq, np.int64) & 0xFFFF
+        self.timestamp[slots] = timestamp
+        self.ssrc[slots] = 0
+        self.head = first + n
+        return first
+
     def native_drain(self, fd: int, now_ms: int, max_pkts: int = 512) -> int:
         """Drain the datagrams pending on the non-blocking socket ``fd``
         straight into the ring's slots through the egress core's recvmmsg

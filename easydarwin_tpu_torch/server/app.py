@@ -35,6 +35,16 @@ acks and give-ups (``"reliable"``).
 Once a second the pump evicts old packets, sends each pusher its due
 receiver reports, closes idle connections and retires transcode ladders
 whose source went away.
+
+File playback (``vod``): with the segment cache on, the group pacer
+(``VodPacerGroup``) fills every hot file session's rings at the head of
+each wake and primes its joins on the card; its ``(stream, engine)``
+pairs join the live pairs for the megabatch, the steps and the resend
+sweeps.  A pacer error is counted (``vod_errors``) and the wake serves
+the live streams.  ``recordings`` attaches MP4 recorders to live
+sessions (REST ``startrecord``/``stoprecord``); recorder temp files a
+crashed process left in the movie folder are listed at start
+(``record_orphans``).
 """
 
 from __future__ import annotations
@@ -54,6 +64,9 @@ from ..relay.fanout import FanoutEngine
 from ..relay.fec import StreamFec
 from ..relay.megabatch import MegabatchScheduler
 from ..relay.session import SessionRegistry, now_ms
+from ..vod.cache import SegmentCache
+from ..vod.record import RecordingManager, sweep_orphans
+from ..vod.session import VodPacerGroup, VodService
 from .config import ServerConfig
 from .rest import RestApi
 from .rtsp import RtspServer
@@ -64,9 +77,9 @@ from .rtsp import RtspServer
 MEGABATCH_MIN_STREAMS = 2
 #: per-engine counters ``stats()`` sums over every engine the server ran
 ENGINE_COUNTERS = ("native_sent", "native_passes", "device_param_refreshes",
-                   "send_errors", "missing_params", "batch_sent",
-                   "batch_passes", "batch_rows", "batch_stage_ns",
-                   "batch_kernel_ns")
+                   "send_errors", "tcp_shed_pkts", "missing_params",
+                   "batch_sent", "batch_passes", "batch_rows",
+                   "batch_stage_ns", "batch_kernel_ns")
 
 
 class StreamingServer:
@@ -75,13 +88,35 @@ class StreamingServer:
         self.config = config or ServerConfig()
         self.device = resolve_device(device)
         self.registry = SessionRegistry(self.config.stream)
+        self.vod = VodService(self.config.movie_folder)
         self.rtsp = RtspServer(self.config, self.registry,
-                               on_pump_wake=self._wake, device=self.device)
+                               on_pump_wake=self._wake, device=self.device,
+                               vod=self.vod)
         self.megabatch = MegabatchScheduler(device=self.device)
         self.transcodes = MjpegTranscodeService(
             self.registry, on_frame=lambda _p: self._wake(),
             device=self.device)
         self.rest = RestApi(self.config, self)
+        self.recordings = RecordingManager()
+        #: recorder temp files found in the movie folder at start
+        self.record_orphans: list[str] = []
+        self.vod_cache: SegmentCache | None = None
+        self.vod_pacer: VodPacerGroup | None = None
+        if self.config.vod_cache_enabled:
+            self.vod_cache = SegmentCache(
+                budget_bytes=self.config.vod_cache_bytes,
+                window_samples=self.config.vod_cache_window_samples,
+                device=self.device)
+            self.vod_pacer = VodPacerGroup(
+                self.vod_cache, engine_for=self._engine_for,
+                engine_drop=self._drop_engine,
+                scheduler=lambda: self.megabatch,
+                settings=self.config.stream,
+                lookahead_ms=self.config.vod_cache_lookahead_ms,
+                device_prime=self.config.vod_cache_device)
+            self.rtsp.vod_pacer = self.vod_pacer
+        #: pacer ticks that raised (the wake went on without its pairs)
+        self.vod_errors = 0
         self._engines: dict[int, FanoutEngine] = {}
         #: native counters of engines whose streams went away
         self._retired = dict.fromkeys(ENGINE_COUNTERS, 0)
@@ -108,6 +143,7 @@ class StreamingServer:
         self.native_loaded = native.available()
         if self.device.type == "cuda":
             self._warm_card()
+        self.record_orphans = sweep_orphans(self.config.movie_folder)
         await self.rtsp.start()
         await self.rest.start()
         self._running = True
@@ -120,8 +156,14 @@ class StreamingServer:
             await self._pump_task
             self._pump_task = None
         self.transcodes.stop_all()
+        # every in-flight recording finalizes while its session exists
+        self.recordings.stop_all()
         await self.rest.stop()
         await self.rtsp.stop()
+        if self.vod_pacer is not None:
+            self.rtsp.vod_pacer = None
+            self.vod_pacer.close()
+            self.vod_cache.close()
         self.megabatch.drain()
 
     def _wake(self) -> None:
@@ -161,17 +203,27 @@ class StreamingServer:
         eng.egress_fd = egress.fileno() if egress is not None else -1
         return eng
 
-    def _pairs(self) -> list:
-        """(stream, engine) for every stream with outputs, in a stable
-        order; engines of streams that went away are dropped."""
+    def _drop_engine(self, stream) -> None:
+        """Forget a stream's engine, keeping its counters."""
+        self._retire_engine(id(stream))
+
+    def _retire_engine(self, sid: int) -> None:
+        eng = self._engines.pop(sid, None)
+        if eng is not None:
+            for k in ENGINE_COUNTERS:
+                self._retired[k] += getattr(eng, k)
+
+    def _pairs(self, vod_pairs=()) -> list:
+        """(stream, engine) for every live stream with outputs, in a
+        stable order, then ``vod_pairs``; engines of streams that went
+        away are dropped."""
         pairs = [(stream, self._engine_for(stream))
                  for sess in list(self.registry.sessions.values())
                  for stream in sess.streams.values() if stream.num_outputs]
+        pairs.extend(vod_pairs)
         live = {id(s) for s, _ in pairs}
         for sid in [k for k in self._engines if k not in live]:
-            eng = self._engines.pop(sid)
-            for k in ENGINE_COUNTERS:
-                self._retired[k] += getattr(eng, k)
+            self._retire_engine(sid)
         for s, _ in pairs:
             if s.fec is not None:
                 self._fec[id(s)] = s.fec
@@ -192,7 +244,14 @@ class StreamingServer:
         failed ``begin_wake`` serves the wake's streams one by one."""
         t = now_ms()
         self.wakes += 1
-        pairs = self._pairs()
+        vod_pairs = []
+        if self.vod_pacer is not None and self.vod_pacer.sessions:
+            try:
+                vod_pairs = self.vod_pacer.tick(t)
+            except Exception:
+                self.vod_errors += 1
+                traceback.print_exc(file=sys.stderr)
+        pairs = self._pairs(vod_pairs)
         engaged = len(pairs) >= MEGABATCH_MIN_STREAMS
         if engaged:
             try:
@@ -243,6 +302,15 @@ class StreamingServer:
         for leg in ("stage", "kernel", "oracle"):
             tot[f"{leg}_ms_per_window"] = tot.pop(f"{leg}_ns") / passes / 1e6
         return tot
+
+    def egress_stats(self) -> dict:
+        """The egress core's UDP send counters (sendmmsg calls, datagrams,
+        ns inside the calls), when it is loaded."""
+        if not native.loaded():
+            return {}
+        core = native.get_stats()
+        return {k: core[k] for k in ("sendmmsg_calls", "send_packets",
+                                     "send_ns")}
 
     def ingest_stats(self) -> dict:
         """UDP pushers' RTP ingest: the RTSP layer's counts, and the
@@ -305,10 +373,16 @@ class StreamingServer:
                 "wake_ms_first": self.wake_ms_first,
                 "native_loaded": self.native_loaded,
                 "ingest": self.ingest_stats(),
+                "egress": self.egress_stats(),
                 "rtcp": {"in": self.rtsp.rtcp_in, **self.rtsp.rtcp_counts},
                 "fec": self.fec_stats(),
                 "reliable": {"resends": self.reliable_resends,
                              "acks": self.rtsp.reliable_acks,
                              "giveups": self.reliable_giveups},
                 "megabatch": self.megabatch.stats(),
+                "vod": (None if self.vod_pacer is None
+                        else self.vod_pacer.stats()),
+                "vod_errors": self.vod_errors,
+                "recordings": len(self.recordings.active),
+                "record_orphans": self.record_orphans,
                 "kernel_launches": dict(kernel_lib.LAUNCHES)}

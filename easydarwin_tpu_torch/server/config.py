@@ -1,7 +1,10 @@
-"""Server configuration: the live relay and the REST service port."""
+"""Server configuration: the live relay, file playback (VOD) and the REST
+service port."""
 
 from __future__ import annotations
 
+import os
+import tempfile
 from dataclasses import dataclass, field
 
 from ..relay.stream import StreamSettings
@@ -22,3 +25,22 @@ class ServerConfig:
     native_ingest: bool = True
     #: per-stream relay tunables (buckets, fast-start, eviction, ring)
     stream: StreamSettings = field(default_factory=StreamSettings)
+    #: where DESCRIBE/SETUP/PLAY of a path that no pusher serves look for
+    #: a file (``.mp4``, ``.mov``, ``.m4v``), and recordings are written
+    #: (default: ``movies`` in the temp directory)
+    movie_folder: str = field(default_factory=lambda: os.path.join(
+        tempfile.gettempdir(), "movies"))
+    #: the segment cache: PLAY on a file is served by the shared group
+    #: pacer, each hot asset's samples packed once into ring-window rows
+    #: that every player's stream rides through the megabatch engine; a
+    #: miss streams cold while a background fill packs the window.  Off:
+    #: every player gets its own ``FileSession`` (as Scale and meta-info
+    #: sessions always do)
+    vod_cache_enabled: bool = True
+    vod_cache_bytes: int = 268_435_456     # LRU byte budget (host + card)
+    vod_cache_window_samples: int = 64     # samples packed per window
+    vod_cache_lookahead_ms: int = 500      # pacer ring-fill horizon
+    #: keep each packed window's rows resident on the server's device
+    #: (uploaded once, shared by every player of that window) and prime
+    #: each join there; host-only caching and no device prime when off
+    vod_cache_device: bool = True

@@ -1,21 +1,24 @@
 """JSON REST management API on the service port, trimmed to the
-transcode ladder.
+transcode ladder and the recorder.
 
 A tiny HTTP/1.1 keep-alive server (no framework): request line, headers
 and an optional body, a ``/api/v1/<cmd>`` router, and answers in the
 EasyProtocol envelope (``cluster.protocol.ack``).  Commands:
-``starttranscode``, ``stoptranscode`` and ``gettranscodes``; any other
-command answers the 404 envelope.  There is no auth (the reference's is
-off by default).
+``starttranscode``, ``stoptranscode``, ``gettranscodes``, ``startrecord``
+and ``stoprecord``; any other command answers the 404 envelope.  There is
+no auth (the reference's is off by default).
 """
 
 from __future__ import annotations
 
 import asyncio
 import json
+import os
+import time
 from urllib.parse import parse_qs, urlparse
 
 from ..cluster import protocol as ep
+from ..utils.paths import confined_subpath
 from .config import ServerConfig
 
 SERVER_NAME = "easydarwin-tpu-torch/0.1"
@@ -119,3 +122,40 @@ class RestApi:
                            body: bytes) -> tuple[int, str]:
         return 200, ep.ack(ep.MSG_SC_SERVER_INFO_ACK, body={
             "Transcodes": self.app.transcodes.list_ladders()})
+
+    def _cmd_startrecord(self, params: dict, body: bytes) -> tuple[int, str]:
+        """Attach an MP4 recorder to a live session's video track; the file
+        (``file=``, default ``<path>_<time>.mp4``) lands under the movie
+        folder, confined to it."""
+        path = params.get("path", [""])[0]
+        sess = self.app.registry.find(path) if path else None
+        if sess is None:
+            return 404, ep.ack(ep.MSG_SC_EXCEPTION, error=ep.ERR_NOT_FOUND)
+        fname = params.get("file", [""])[0] or (
+            sess.path.strip("/").replace("/", "_")
+            + time.strftime("_%Y%m%d%H%M%S") + ".mp4")
+        root = self.config.movie_folder
+        os.makedirs(root, exist_ok=True)
+        # commonpath over realpaths: refuses .. traversal, a sibling
+        # folder sharing the prefix string and a symlink leaving the root
+        full = confined_subpath(root, fname)
+        if full is None:
+            return 400, ep.ack(ep.MSG_SC_EXCEPTION, error=ep.ERR_BAD_REQUEST,
+                               body={"Detail": "file escapes movie_folder"})
+        os.makedirs(os.path.dirname(full), exist_ok=True)
+        try:
+            self.app.recordings.start(sess, full)
+        except ValueError as e:
+            return 400, ep.ack(ep.MSG_SC_EXCEPTION, error=ep.ERR_BAD_REQUEST,
+                               body={"Detail": str(e)})
+        return 200, ep.ack(ep.MSG_SC_SERVER_INFO_ACK,
+                           body={"Recording": sess.path, "File": full})
+
+    def _cmd_stoprecord(self, params: dict, body: bytes) -> tuple[int, str]:
+        path = params.get("path", [""])[0]
+        try:
+            res = self.app.recordings.stop(path)
+        except KeyError:
+            return 404, ep.ack(ep.MSG_SC_EXCEPTION, error=ep.ERR_NOT_FOUND)
+        return 200, ep.ack(ep.MSG_SC_SERVER_INFO_ACK, body={
+            "File": res["path"], "Samples": str(res["samples"])})

@@ -5,7 +5,7 @@ One asyncio task per connection.  A connection is a *pusher*
 negotiated channels, or as datagrams to the server port pair its SETUP
 got), a *player* (DESCRIBE → SETUP → PLAY), or a plain control
 connection.  Methods: OPTIONS, DESCRIBE, ANNOUNCE, SETUP, RECORD,
-PLAY, TEARDOWN.  A player's SETUP takes interleaved transport
+PLAY, PAUSE, TEARDOWN.  A player's SETUP takes interleaved transport
 (``RTP/AVP/TCP;interleaved=a-b``: relayed RTP comes back ``$``-framed on
 the connection) or UDP (``RTP/AVP;unicast;client_port=a-b``: relayed RTP
 goes to the client's ports from the server's shared egress pair, whose
@@ -33,6 +33,17 @@ ring); the reply grants ``parity;pt=<fec pt>;rtx-pt=<rtx pt>``.
 ``x-Retransmit: our-retransmit[;window=KB]`` wraps the output in the
 resend window (``relay.reliable.ReliableUdpOutput``) and echoes the
 header.  A reliable or meta-info output gets no FEC; TCP gets neither.
+
+A path no pusher serves is looked up as a file under the movie folder
+(``vod.session.VodService``): DESCRIBE answers the file's SDP, SETUP makes
+the player's outputs (x-RTP-Meta-Info may also ask for ``pp``, ``ft`` and
+``pn``; x-Retransmit is offered, x-FEC is not: a NACK resolves through a
+relay stream, which a file session does not have) and PLAY (``Range:
+npt=a-``, ``Scale``, ``Speed``; a negative or out-of-range value plays at
+1 and says so) starts a paced session: on the group pacer
+(``VodPacerGroup``, the cache-fed hot path) when the server has one and
+the session has neither Scale nor meta-info, else a ``FileSession``.
+PAUSE stops it; a later PLAY with a Range starts afresh from there.
 
 A player's RTCP (a datagram on the shared pair's RTCP port, or an odd
 interleaved channel of its connection) goes to ``on_client_rtcp``: routed
@@ -63,15 +74,20 @@ from ..protocol import rtcp, rtp_meta, rtsp, sdp
 from ..relay.fec import FecConfig, FecOutputState
 from ..relay.reliable import ReliableUdpOutput
 from ..relay.session import RelaySession, SessionRegistry, now_ms
+from ..vod.session import FileSession
 from .config import ServerConfig
 from .transports import (InterleavedOutput, SharedUdpEgress, UdpOutput,
                          UdpPair, UdpPortPool)
 
 SERVER_NAME = "easydarwin-tpu-torch/0.1"
-ALLOWED = "OPTIONS, DESCRIBE, ANNOUNCE, SETUP, PLAY, RECORD, TEARDOWN"
+ALLOWED = ("OPTIONS, DESCRIBE, ANNOUNCE, SETUP, PLAY, PAUSE, RECORD, "
+           "TEARDOWN")
 #: x-RTP-Meta-Info fields the live relay fills: transmit time, sequence
 #: number and the media payload (mandatory)
 META_SUPPORTED = ("tt", "sq", "md")
+#: a file session adds the packet's file position, the frame type and the
+#: packet number from its sample tables
+META_SUPPORTED_VOD = ("pp", "tt", "ft", "pn", "sq", "md")
 
 
 def _extract_track(uri_path: str) -> tuple[str, int | None]:
@@ -88,16 +104,17 @@ def _extract_track(uri_path: str) -> tuple[str, int | None]:
     return uri_path, None
 
 
-def negotiate_meta_info(want: str, out) -> dict[str, str]:
+def negotiate_meta_info(want: str, out,
+                        supported=META_SUPPORTED) -> dict[str, str]:
     """A SETUP's ``x-RTP-Meta-Info`` request → the reply header granting
-    the served fields it names (compressed ids in ``META_SUPPORTED``
-    order; ``md`` is never compressed), set on ``out``.  No ``md``, no
-    grant: a media stream cannot go without its payload."""
+    the served fields it names (compressed ids in ``supported`` order;
+    ``md`` is never compressed), set on ``out``.  No ``md``, no grant: a
+    media stream cannot go without its payload."""
     if not want:
         return {}
     requested = rtp_meta.parse_header(want)
     granted = {f: i for i, f in enumerate(
-        f for f in META_SUPPORTED if f in requested)}
+        f for f in supported if f in requested)}
     if "md" not in granted:
         return {}
     granted["md"] = rtp_meta.UNCOMPRESSED
@@ -138,6 +155,43 @@ def attach_fec(want: str, out, t, device: torch.device) -> dict[str, str]:
                      f";rtx-pt={cfg.rtx_payload_type}"}
 
 
+def parse_rate(req) -> tuple[float, float, dict[str, str]]:
+    """A PLAY's ``Scale`` and ``Speed`` → ``(speed, ts_scale, reply
+    headers)``.  Speed (RFC 2326 §12.35) paces delivery; Scale (§12.34)
+    paces delivery AND compresses RTP timestamps by the factor.  A value
+    outside [0.01, 8] (reverse play included) plays at 1, and the reply
+    says so."""
+    extra: dict[str, str] = {}
+    speed, ts_scale = 1.0, 1.0
+    for hdr in ("scale", "speed"):
+        v = req.headers.get(hdr, "")
+        if not v:
+            continue
+        try:
+            f = float(v)
+        except ValueError:
+            f = None
+        if f is None or not 0.01 <= f <= 8.0:
+            extra[hdr.capitalize()] = "1"
+            continue
+        speed *= f
+        if hdr == "scale":
+            ts_scale = f
+        extra[hdr.capitalize()] = f"{f:g}"
+    return speed, ts_scale, extra
+
+
+def parse_range_npt(req) -> float:
+    """A PLAY's ``Range: npt=a-`` start in seconds (0 when absent)."""
+    rng = req.headers.get("range", "")
+    if rng.startswith("npt="):
+        try:
+            return float(rng[4:].split("-")[0] or 0.0)
+        except ValueError:
+            return 0.0
+    return 0.0
+
+
 def _rtcp_keys(out) -> list[tuple]:
     """What proves a player's RTCP is its own: its output's SSRC, and a
     UDP output's registered RTCP address."""
@@ -167,6 +221,10 @@ class RtspConnection:
         self.channel_map: dict[int, tuple[int, bool]] = {}
         #: track id → the UDP port pair a pusher sends that track to
         self.pusher_pairs: dict[int, UdpPair] = {}
+        #: the file a VOD player SETUP (an ``Mp4File``), and its playing
+        #: session (``FileSession`` or ``PacedVodSession``)
+        self.vod_file = None
+        self.vod_session = None
         self.last_activity = time.monotonic()
         self.closed = False
 
@@ -219,7 +277,10 @@ class RtspConnection:
 
     async def _do_describe(self, req: rtsp.RtspRequest) -> None:
         path = req.path()
+        # a pushed session wins over a file of the same name
         text = self.server.registry.sdp_cache.get(path)
+        if text is None and self.server.vod is not None:
+            text = self.server.vod.describe(path)
         if text is None:
             raise rtsp.RtspError(404)
         self.path = sdp._norm(path)
@@ -282,20 +343,10 @@ class RtspConnection:
         self._reply(rtsp.RtspResponse(200, {"Transport": resp_t.to_header()}),
                     req.cseq)
 
-    async def _setup_play(self, req, base, track_id, t) -> None:
-        relay = self.server.registry.find(base)
-        if relay is None:
-            raise rtsp.RtspError(404)
-        self.relay = relay
-        self.path = relay.path
-        if track_id is None:
-            free = sorted(set(relay.streams) - set(self.player_tracks))
-            track_id = free[0] if free else None
-        if track_id is None or track_id not in relay.streams:
-            raise rtsp.RtspError(404, f"unknown track {track_id}")
-        rewrite = dict(ssrc=secrets.randbits(32),
-                       out_seq_start=secrets.randbits(16),
-                       out_ts_start=secrets.randbits(32))
+    def _make_output(self, t, rewrite: dict):
+        """A player track's output for transport ``t``: interleaved on this
+        connection, or UDP from the shared egress pair.  Returns ``(output,
+        reply transport)``."""
         resp_t = rtsp.TransportSpec(protocol=t.protocol, is_tcp=t.is_tcp,
                                     ssrc=rewrite["ssrc"])
         if t.is_tcp:
@@ -312,6 +363,23 @@ class RtspConnection:
                             *t.client_port, **rewrite)
             resp_t.client_port = t.client_port
             resp_t.server_port = (sender.rtp_port, sender.rtcp_port)
+        return out, resp_t
+
+    async def _setup_play(self, req, base, track_id, t) -> None:
+        relay = self.server.registry.find(base)
+        if relay is None:
+            await self._setup_play_vod(req, base, track_id, t)
+            return
+        self.relay = relay
+        self.path = relay.path
+        if track_id is None:
+            free = sorted(set(relay.streams) - set(self.player_tracks))
+            track_id = free[0] if free else None
+        if track_id is None or track_id not in relay.streams:
+            raise rtsp.RtspError(404, f"unknown track {track_id}")
+        out, resp_t = self._make_output(t, dict(
+            ssrc=secrets.randbits(32), out_seq_start=secrets.randbits(16),
+            out_ts_start=secrets.randbits(32)))
         extra = negotiate_meta_info(req.headers.get("x-rtp-meta-info", ""),
                                     out)
         srv = self.server
@@ -325,12 +393,46 @@ class RtspConnection:
         self._reply(rtsp.RtspResponse(200, {"Transport": resp_t.to_header(),
                                             **extra}), req.cseq)
 
+    async def _setup_play_vod(self, req, base, track_id, t) -> None:
+        """SETUP of a track of a file under the movie folder."""
+        if self.vod_file is None:
+            vod = self.server.vod
+            f = vod.open(base) if vod is not None else None
+            if f is None:
+                raise rtsp.RtspError(404)
+            self.vod_file = f
+            self.path = base
+        n_tracks = sum(1 for tr in (self.vod_file.video_track(),
+                                    self.vod_file.audio_track())
+                       if tr is not None)
+        if track_id is None:
+            track_id = len(self.player_tracks) + 1
+        if not 1 <= track_id <= n_tracks:
+            raise rtsp.RtspError(404, f"unknown track {track_id}")
+        out, resp_t = self._make_output(t, dict(
+            ssrc=secrets.randbits(32), out_seq_start=secrets.randbits(16)))
+        extra = negotiate_meta_info(req.headers.get("x-rtp-meta-info", ""),
+                                    out, META_SUPPORTED_VOD)
+        out, rel = negotiate_retransmit(req.headers.get("x-retransmit", ""),
+                                        out, t)
+        extra.update(rel)
+        # no x-FEC: a NACK is replayed from a relay stream's ring, which a
+        # file session does not have
+        self.server.note_player_output(self, out,
+                                       self.player_tracks.get(track_id))
+        self.player_tracks[track_id] = out
+        self._reply(rtsp.RtspResponse(200, {"Transport": resp_t.to_header(),
+                                            **extra}), req.cseq)
+
     async def _do_record(self, req: rtsp.RtspRequest) -> None:
         if not self.is_pusher or self.relay is None:
             raise rtsp.RtspError(455)
         self._reply(rtsp.RtspResponse(200), req.cseq)
 
     async def _do_play(self, req: rtsp.RtspRequest) -> None:
+        if self.vod_file is not None:
+            self._play_vod(req)
+            return
         if self.relay is None or not self.player_tracks:
             raise rtsp.RtspError(455)
         infos = []
@@ -344,6 +446,54 @@ class RtspConnection:
         self.server.wake_pump()
         self._reply(rtsp.RtspResponse(200, {
             "Range": "npt=now-", "RTP-Info": ",".join(infos)}), req.cseq)
+
+    def _play_vod(self, req: rtsp.RtspRequest) -> None:
+        if not self.player_tracks:
+            raise rtsp.RtspError(455)
+        start_npt = parse_range_npt(req)
+        speed, ts_scale, extra = parse_rate(req)
+        if self.vod_session is not None:
+            self.vod_session.stop()
+        outputs = dict(self.player_tracks)
+        # hot: the group pacer serves plain-RTP sessions through the cache
+        # and the live engine; Scale (compressed timestamps are not an
+        # affine offset) and meta-info sessions (ft/pn/pp come from the
+        # sample tables mid-send) keep a FileSession
+        pacer = self.server.vod_pacer
+        if (pacer is not None and ts_scale == 1.0
+                and all(o.meta_field_ids is None for o in outputs.values())):
+            self.vod_session = pacer.open(self.vod_file, outputs,
+                                          start_npt=start_npt, speed=speed,
+                                          path=self.path or req.uri)
+            self.server.wake_pump()
+        else:
+            self.vod_session = FileSession(self.vod_file, outputs,
+                                           start_npt=start_npt, speed=speed,
+                                           ts_scale=ts_scale)
+            self.vod_session.start()
+        infos = ",".join(f"url={req.uri.rstrip('/')}/trackID={tid}"
+                         f";seq={out.rewrite.out_seq_start}"
+                         for tid, out in self.player_tracks.items())
+        self._reply(rtsp.RtspResponse(200, {
+            "Range": f"npt={start_npt:.3f}-", "RTP-Info": infos, **extra}),
+            req.cseq)
+
+    async def _do_pause(self, req: rtsp.RtspRequest) -> None:
+        """A file session stops (a PLAY starts it afresh); a live player's
+        outputs leave their streams until the next PLAY."""
+        if self.vod_session is not None:
+            self.vod_session.stop()
+            self.vod_session = None
+        self._detach_outputs()
+        self._reply(rtsp.RtspResponse(200), req.cseq)
+
+    def _detach_outputs(self) -> None:
+        if self.relay is None:
+            return
+        for tid, out in self.player_tracks.items():
+            st = self.relay.streams.get(tid)
+            if st is not None:
+                st.remove_output(out)
 
     async def _do_teardown(self, req: rtsp.RtspRequest) -> None:
         self._reply(rtsp.RtspResponse(200), req.cseq)
@@ -434,6 +584,14 @@ class RtspConnection:
         for pair in self.pusher_pairs.values():
             pair.close()
         self.pusher_pairs.clear()
+        if self.vod_session is not None:
+            self.vod_session.stop()
+            self.vod_session = None
+        if self.vod_file is not None:
+            self.vod_file.close()
+            self.vod_file = None
+            for out in self.player_tracks.values():
+                self.server.drop_player_output(self, out)
         if self.relay is not None:
             for tid, out in self.player_tracks.items():
                 st = self.relay.streams.get(tid)
@@ -460,9 +618,15 @@ class RtspServer:
     """Listener + connection registry."""
 
     def __init__(self, config: ServerConfig, registry: SessionRegistry, *,
-                 on_pump_wake=None, device: str | torch.device = "cuda"):
+                 on_pump_wake=None, device: str | torch.device = "cuda",
+                 vod=None):
         self.config = config
         self.registry = registry
+        #: the file tier (``vod.session.VodService``; None: live only) and
+        #: the group pacer of hot file sessions (None: every file session
+        #: is a ``FileSession``)
+        self.vod = vod
+        self.vod_pacer = None
         #: where the FEC tier's parity pass runs
         self.device = torch.device(device)
         self.connections: set[RtspConnection] = set()

@@ -386,8 +386,10 @@ class CliServer:
     it listens; ``stop()`` sends SIGTERM and returns the stats it prints
     at exit (a server still running at exit is killed)."""
 
-    def __init__(self, device: str):
+    def __init__(self, device: str, *args: str):
         self.device = device
+        #: more command-line arguments (``--movie-folder DIR``)
+        self.args = args
         self.proc = None
         self.rtsp_port = self.rest_port = None
 
@@ -395,7 +397,7 @@ class CliServer:
         self.proc = await asyncio.create_subprocess_exec(
             sys.executable, "-m", "easydarwin_tpu_torch", "-p", "0",
             "--service-port", "0", "--bind-ip", "127.0.0.1",
-            "--device", self.device,
+            "--device", self.device, *self.args,
             cwd=Path(__file__).resolve().parents[2],
             stdout=asyncio.subprocess.PIPE)
         try:
@@ -525,6 +527,33 @@ def meta_fields(pkt: bytes, ids: dict[str, int]) -> dict[str, bytes]:
         out[name] = pkt[pos:pos + n]
         pos += n
     return out
+
+
+def udp_rcvbuf_errors() -> int:
+    """The host's UDP ``RcvbufErrors`` (``/proc/net/snmp``): datagrams a
+    full receive buffer dropped; 0 where the file has no such row."""
+    try:
+        with open("/proc/net/snmp") as f:
+            rows = [line.split() for line in f if line.startswith("Udp:")]
+        return int(dict(zip(rows[0][1:], rows[1][1:]))["RcvbufErrors"])
+    except (OSError, KeyError, IndexError):
+        return 0
+
+
+async def http_get_json(port: int, target: str) -> tuple[int, dict]:
+    """One GET on the REST port → (status, JSON body)."""
+    reader, writer = await asyncio.open_connection("127.0.0.1", port)
+    try:
+        writer.write(f"GET {target} HTTP/1.1\r\nHost: 127.0.0.1\r\n\r\n"
+                     .encode())
+        head = (await asyncio.wait_for(reader.readuntil(b"\r\n\r\n"), 30)
+                ).decode("latin-1")
+        status = int(head.split()[1])
+        clen = int(re.search(r"(?i)content-length:\s*(\d+)", head).group(1))
+        body = await asyncio.wait_for(reader.readexactly(clen), 30)
+        return status, json.loads(body)
+    finally:
+        writer.close()
 
 
 def _drain(sock: socket.socket, sink: list) -> None:

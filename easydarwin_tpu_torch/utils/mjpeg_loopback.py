@@ -18,7 +18,6 @@ on free ports and checks the server's exit stats.
 from __future__ import annotations
 
 import asyncio
-import json
 import re
 import time
 from dataclasses import dataclass
@@ -30,7 +29,7 @@ from ..models import mjpeg_ladder as ml
 from ..ops import transform as tf
 from ..protocol import jpeg_entropy as je
 from ..protocol import mjpeg
-from .loopback import CliServer, MiniClient, check
+from .loopback import CliServer, MiniClient, check, http_get_json
 
 MJPEG_SDP = ("v=0\r\no=- 1 1 IN IP4 127.0.0.1\r\ns=mjpeg\r\n"
              "c=IN IP4 0.0.0.0\r\nt=0 0\r\na=control:*\r\n"
@@ -121,22 +120,6 @@ def rung_oracle(levels: list[np.ndarray], width: int, height: int,
         y2, c2, n, w2, h2 = ml.downscale_rung(qy, qc, quads, qy_in, qc_in,
                                               width, height, cpu)
     return [y2, c2[:n], c2[n:]], w2, h2
-
-
-async def http_get_json(port: int, target: str) -> tuple[int, dict]:
-    """One GET on the REST port → (status, JSON body)."""
-    reader, writer = await asyncio.open_connection("127.0.0.1", port)
-    try:
-        writer.write(f"GET {target} HTTP/1.1\r\nHost: 127.0.0.1\r\n\r\n"
-                     .encode())
-        head = (await asyncio.wait_for(reader.readuntil(b"\r\n\r\n"), 30)
-                ).decode("latin-1")
-        status = int(head.split()[1])
-        clen = int(re.search(r"(?i)content-length:\s*(\d+)", head).group(1))
-        body = await asyncio.wait_for(reader.readexactly(clen), 30)
-        return status, json.loads(body)
-    finally:
-        writer.close()
 
 
 def _body(doc: dict) -> dict:

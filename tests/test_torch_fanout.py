@@ -145,8 +145,12 @@ def test_window_launch_plan_covers_every_row_once():
     assert [i for pl in plans for i in pl.buckets] == list(range(65))
     assert all(pl.first_cluster == tuple(range(len(pl.buckets)))
                for pl in plans)
-    with pytest.raises(ValueError):              # 512 rows a CTA: too wide
-        fanout.window_launch_plan([(1, 4096, 100, 8)], [0])
+    # 512 rows a CTA: past 48 KB, inside the kernel's large-smem opt-in
+    (wide,) = fanout.window_launch_plan([(1, 4096, 100, 8)], [0])
+    assert kernel_lib.DYN_SMEM_LIMIT < wide.smem_bytes \
+        <= kernel_lib.WINDOW_SMEM_LIMIT
+    with pytest.raises(ValueError):              # 4,096 rows a CTA: too wide
+        fanout.window_launch_plan([(1, 32768, 100, 8)], [0])
 
 
 def test_window_length_column_wraps_like_int32_cast():

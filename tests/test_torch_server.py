@@ -28,8 +28,8 @@
   oracle; a NACK and an APP with forged SSRCs neither refresh an idle
   clock nor replay, and the same from the registered address do;
 * a server on the CPU touches nothing of CUDA when it starts;
-* importing the port, its server, its CLI, the transcode modules and
-  the REST API leaves ``jax`` and ``easydarwin_tpu`` out of
+* importing the port, its server, its CLI, the transcode modules, the
+  REST API and the VOD tier leaves ``jax`` and ``easydarwin_tpu`` out of
   ``sys.modules``;
 * the CLI's device defaults to the card, and without one it raises.
 """
@@ -690,6 +690,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "import easydarwin_tpu_torch.ops.fec_kernel\n"
             "import easydarwin_tpu_torch.storage.codec\n"
             "import easydarwin_tpu_torch.codecs.h264_transform\n"
+            "import easydarwin_tpu_torch.vod, easydarwin_tpu_torch.vod.cache\n"
+            "import easydarwin_tpu_torch.vod.record\n"
+            "import easydarwin_tpu_torch.vod.session\n"
+            "import easydarwin_tpu_torch.utils.paths\n"
+            "import easydarwin_tpu_torch.utils.vod_clips\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m.split('.')[0] in ('jax', 'jaxlib', "
             "'easydarwin_tpu'))\n"
