@@ -6,8 +6,8 @@ Run from the repository root on a machine with one CUDA card:
     python3 chip_smoke.py
 
 It builds the hand-written kernels from ``easydarwin_tpu_torch/csrc`` and
-drives the port's live-relay, transcode and file-playback (VOD) paths on
-the card, phase by phase; any failed phase raises and the script exits
+drives the port's live-relay, transcode, file-playback (VOD) and DVR
+paths on the card, phase by phase; any failed phase raises and the script exits
 non-zero.
 
 1. build     nvcc the kernel library, one nvcc per source started together
@@ -220,14 +220,43 @@ non-zero.
              the MP4 byte-equal to what the port's RecorderOutput writes
              on the CPU from the same packets, its tables read back
 
+12. dvr     DVR, time-shift and the erasure-coded store through the CLI
+             server (``--dvr-enabled 1 --storage-enabled 1``, 64-packet
+             windows, k = 4, m = 2; ``utils.dvr_loopback.dvr_session``):
+             config 2's pusher (1080p30 H.264, 13 packets of about 1.3 KB a
+             frame, an IDR every 30 frames) with phase 7c's AAC track over
+             interleaved TCP for 12 s, 64 UDP players of both tracks joining
+             one a frame: 48 at the live edge, 8 that PAUSE at 3 s and PLAY
+             with no Range and Speed 2 at 5 s, 8 that PLAY with Range npt=1-
+             and Speed 4 at 6 s (both kinds catch up and rejoin the live
+             stream); REST stoprecord, 4 players replaying ``/live/dvr.dvr``
+             from npt 0 at Speed 4; the store awaited; one scrub over every
+             shard in this process; then every spill.bin and 2 shards of
+             each stripe deleted and a second server (a cold cache) replays
+             the asset to 4 players through the reconstruct.  Every
+             datagram is the rewrite of the pushed packet of its payload,
+             one SSRC a track, source ids rising (a range player's restart
+             once, at a GOP head), a loss only where RcvbufErrors rose; 32
+             catch-up joins (16 players x 2 tracks); 0 vod, finalize,
+             spill, push, reconstruct, worker, repair and scrub errors and
+             0 oracle mismatches; one stored asset of a data shard a window
+             and 2 parity shards a stripe; ed_gf_parity launches = the
+             store's device passes in each server; the spill, finalize,
+             store and reconstruct host ms, the wake p50 and max, the
+             time-shift streams through begin_wake and the first join of
+             a ``.dvr`` replay.  ``ed_gf_parity`` is then held against
+             ``gf_parity_plain`` at the run's stripe shapes (``[gf]``), and
+             phase 10 times it there ([b4] lines)
+
 Before the last lines, ``[uring]`` gives ``ed_uring_probe``'s answer on
 this host: its capability bits by name, or the errno's name.
 
 The kernel launch counts are set to 0 just before phase 6 and read just
 after phase 9 (the server processes report their own at exit, without
 their start-up warm-up), then set to 0 again just before phase 11 and
-read just after phase 11c (the VOD path); the kernels line's launches are
-the two paths' sum.  The comparisons and timings of phases 3, 4, 4b, 4c,
+read just after phase 11c (the VOD path), and again just before phase 12
+and just after it (the DVR path); the kernels line's launches are the
+three paths' sum.  The comparisons and timings of phases 3, 4, 4b, 4c,
 4d, 4e, 5, 5b, 5c and 10 run outside those windows.  Phase 10's window
 rows also time the VOD prime's calls of phase 11.
 Detail goes to ``chiprun_out/chip_smoke.json``.  The last line of standard
@@ -2182,6 +2211,151 @@ def phase_vod_server(clips: dict, rng) -> dict:
             "kernel_launches": vod_launches}
 
 
+# ------------------------------------------------------------- phase 12
+#: phase 12's movie folder (its .dvr and .shards trees), written anew
+DVR_DIR = os.path.join(HERE, "build", "dvr_phase")
+#: phase 12's players of the live path, in join order: live, pause, range
+DVR_PLAYERS = (48, 8, 8)
+#: the spill window (packets) and the stripe geometry: the defaults
+DVR_WINDOW_PKTS, STORAGE_K, STORAGE_M = 64, 4, 2
+
+
+def dvr_manifest(folder: str) -> dict:
+    """The stored asset's manifest, read from phase 12's shard tree."""
+    from easydarwin_tpu_torch.utils.dvr_loopback import PATH
+    with open(os.path.join(folder, ".shards", PATH.strip("/"),
+                           "manifest.json")) as f:
+        return json.load(f)
+
+
+def phase_dvr(rng) -> dict:
+    """DVR, time-shift and the store through the CLI server on the card
+    (``utils.dvr_loopback.dvr_session``), every datagram held to the
+    pushed packets; the counters that must be 0, the catch-up joins, the
+    store and the scrub; returns the launches of both servers and the
+    stripe shapes B4 ran at."""
+    from easydarwin_tpu_torch.ops.staging import pow2
+    from easydarwin_tpu_torch.utils import dvr_loopback as dl
+    res = asyncio.run(asyncio.wait_for(dl.dvr_session(
+        DEVICE, DVR_DIR, rng, kinds=dl.phase_players(*DVR_PLAYERS),
+        window_pkts=DVR_WINDOW_PKTS), 600))
+    a, b = res["server_a"], res["server_b"]
+    man = dvr_manifest(DVR_DIR)
+    stripes = sum(len(t["stripes"]) for t in man["tracks"].values())
+    windows = sum(len(t["wins"]) for t in man["tracks"].values())
+    n_shift = DVR_PLAYERS[1] + DVR_PLAYERS[2]
+    check(a["dvr"]["catchup_joins"] == 2 * n_shift,
+          f"catch-up joins {a['dvr']['catchup_joins']}, not {n_shift} "
+          f"players x 2 tracks")
+    for name, st in (("A", a), ("B", b)):
+        zero = {"vod_errors": st["vod_errors"],
+                "finalize_errors": st["dvr"]["finalize_errors"],
+                "spill_errors": st["dvr"]["spill_errors"],
+                **{k: st["storage"][k] for k in (
+                    "push_failures", "reconstruct_failures",
+                    "oracle_mismatches", "worker_errors", "repair_errors",
+                    "scrub_errors")}}
+        check(not any(zero.values()), f"server {name}: nonzero {zero}")
+        check(st["kernel_launches"]["ed_relay_window"] > 0,
+              f"server {name} launched no ed_relay_window")
+        check(st["dvr_megabatch_streams"] > 0,
+              f"server {name}: no time-shift stream went through "
+              f"begin_wake")
+        check(st["kernel_launches"]["ed_gf_parity"]
+              == st["storage"]["device_passes"] > 0,
+              f"server {name}: ed_gf_parity launches "
+              f"{st['kernel_launches']['ed_gf_parity']} != the store's "
+              f"device passes {st['storage']['device_passes']}")
+    sa, sb = a["storage"], b["storage"]
+    check(sa["assets"] == 1, f"stored assets {sa['assets']}")
+    check(sa["shards_local"] == windows + STORAGE_M * stripes,
+          f"shards_local {sa['shards_local']} != {windows} data + "
+          f"{STORAGE_M} x {stripes} parity")
+    check(sa["device_passes"] == stripes,
+          f"store device passes {sa['device_passes']} != {stripes} stripes")
+    scrub = res["scrub"]
+    check(scrub["errors"] == 0 and scrub["scrubbed"] == scrub["files"]
+          == sa["shards_local"], f"scrub {scrub}")
+    check(sb["reconstructs"] > 0 and sb["gathers"] > 0,
+          f"server B reconstructed nothing: {sb}")
+    check(res["by_kind"]["reconstruct"]["players"] > 0, "no reconstruct "
+          "player")
+    fin = a["dvr"]["finalized_assets"][0]
+    for tid, tr in sorted(fin["tracks"].items()):
+        log(f"[dvr] track {tid}: {tr['windows']} spill windows, "
+            f"{tr['bytes']} B ({tr['skipped']} skipped, {tr['evictions']} "
+            f"evicted), {tr['spill_ns'] / 1e6:.3f} host ms spilling")
+    log(f"[dvr] spill tick: {a['dvr']['spill_ms_per_spill_tick']:.6f} host "
+        f"ms a tick that spilled ({a['dvr']['spill_ticks']} of "
+        f"{a['dvr']['ticks']} ticks; {a['dvr']['tick_ms_per_tick']:.6f} ms "
+        f"a tick over all); finalize {fin['finalize_ms']:.3f} ms")
+    log(f"[dvr] store_asset: {sa['store_ms_per_call']:.3f} ms for "
+        f"{stripes} stripes of k={STORAGE_K} m={STORAGE_M} ({windows} "
+        f"windows, {sa['shards_local']} shards): {sa['device_passes']} B4 "
+        f"launches, {sa['parity_product_ms']:.3f} ms in the products "
+        f"(upload, launch, readback), {sa['parity_check_ms']:.3f} ms in "
+        f"the host checks")
+    log(f"[dvr] reconstruct (server B, {res['deleted']['shards_deleted']} "
+        f"shards of {res['deleted']['stripes']} stripes and "
+        f"{res['deleted']['spill_files']} spill files deleted): "
+        f"{sb['gathers']} gathers, per reconstruct gather "
+        f"{sb['gather_ms_per_reconstruct']:.6f} ms, launch + readback "
+        f"{sb['product_ms_per_reconstruct']:.6f} ms, crc "
+        f"{sb['check_ms_per_reconstruct']:.6f} ms; {sb['device_passes']} "
+        f"B4 launches, {sb['reconstructs']} windows served")
+    for name, st in (("A", a), ("B", b)):
+        log(f"[dvr] server {name}: wake host ms p50 {st['wake_ms_p50']:.3f} "
+            f"max {st['wake_ms_max']:.3f} ({st['wakes']} wakes, "
+            f"{st['megabatch']['wakes']} through the megabatch); "
+            f"{st['dvr_megabatch_streams']} time-shift streams through "
+            f"begin_wake; launches {st['kernel_launches']}")
+    log(f"[dvr] first join of a .dvr replay: "
+        + ", ".join(f"{x:.3f}" for x in res["replay_first_ms"])
+        + " ms (PLAY reply to first datagram); through the reconstruct: "
+        + ", ".join(f"{x:.3f}" for x in res["reconstruct_first_ms"]) + " ms")
+    log(f"[dvr] players: " + ", ".join(
+        f"{k} {v['players']} ({v['datagrams']} datagrams, {v['lost']} "
+        f"lost)" for k, v in res["by_kind"].items())
+        + f"; every datagram equal to the pushed packet's rewrite; "
+        f"{res['lost']} lost (UDP RcvbufErrors +{res['udp_rcvbuf_errors']});"
+        f" {a['dvr']['catchup_joins']} catch-up joins ({n_shift} players x "
+        f"2 tracks); {res['video_packets']} video and "
+        f"{res['audio_packets']} audio packets pushed in "
+        f"{res['push_s']:.3f} s; scrub of {scrub['scrubbed']} shards: 0 "
+        f"errors")
+    widths = sorted({pow2(max(s["width"] for s in t["stripes"]), 256)
+                     for t in man["tracks"].values()})
+    shapes = [(STORAGE_K, w, pow2(STORAGE_M, 1)) for w in widths]
+    launches = {k: a["kernel_launches"][k] + b["kernel_launches"].get(k, 0)
+                for k in a["kernel_launches"]}
+    res.pop("server_a")
+    res.pop("server_b")
+    return {"result": res, "server_a": a, "server_b": b,
+            "stripes": stripes, "windows": windows, "shapes": shapes,
+            "kernel_launches": launches}
+
+
+def gf_storage_check(rng, shapes) -> int:
+    """``ed_gf_parity`` (the wrapper) vs ``gf_parity_plain`` on the same
+    card tensors at phase 12's stripe shapes; the largest difference."""
+    import torch
+    from easydarwin_tpu_torch.ops import fec_kernel
+    err = 0
+    for k, b, r in shapes:
+        rows, coeff = gf_inputs(rng, k, b, r)
+        got = fec_kernel.gf_parity(rows, coeff)
+        want = fec_kernel.gf_parity_plain(rows, coeff)
+        d = int((got.int() - want.int()).abs().max())
+        check(d == 0, f"ed_gf_parity at the stripe [{k},{b}]x[{r},{k}] "
+              f"differs from the plain version (max {d})")
+        err = max(err, d)
+        torch.cuda.synchronize()
+    log(f"[gf] ed_gf_parity at phase 12's stripe shapes "
+        + ", ".join(f"[{k},{b}]x[{r},{k}]" for k, b, r in shapes)
+        + ": bit-exact vs gf_parity_plain")
+    return err
+
+
 # ------------------------------------------------------------- phase 10
 def ptxas_report(build_log: str) -> dict:
     """Registers, shared memory and spills of each kernel from the build's
@@ -2252,7 +2426,7 @@ def prime_window_specs(prime_shapes: dict, top: int = 3) -> list:
 
 def phase_kernels(rng, launches: dict, errs: dict, levels, qt,
                   b9_shape: tuple[int, int],
-                  vod_specs=()) -> list[dict]:
+                  vod_specs=(), stripe_shapes=()) -> list[dict]:
     """Each kernel alone (entry point on preallocated outputs) and its
     plain version, by CUDA events around graph replays, at the main path's
     shapes (K1: 256 rows; window: the phase-6 wake group, one launch, and
@@ -2382,6 +2556,9 @@ def phase_kernels(rng, launches: dict, errs: dict, levels, qt,
     gf_case(GF_WIRE, True)
     gf_case(GF_STRIPE, False)
     gf_case(GF_STRIPE, False, GF_STRIPE_SETS)
+    for shape in stripe_shapes:
+        where_of[len(cases)] = "phase 12's store and reconstruct"
+        gf_case(shape, False)
 
     def batch_case(p: int, s: int, main: bool):
         dev = [torch.from_numpy(a).cuda() for a in b9_arrays(rng, p, s)]
@@ -2871,6 +3048,19 @@ def main() -> int:
     detail["vod_path_launches"] = vod_launches
     launches = {k: n + vod_launches[k] for k, n in launches.items()}
 
+    kernel_lib.reset_launch_counts()           # the DVR path starts here
+    detail["dvr"] = phase_dvr(rng)
+    dvr_in_proc = dict(kernel_lib.LAUNCHES)
+    dvr_launches = {k: dvr_in_proc[k] + detail["dvr"]["kernel_launches"]
+                    .get(k, 0) for k in dvr_in_proc}
+    log(f"[dvr path] kernel launches {dvr_launches} (in-process "
+        f"{dvr_in_proc}, servers {detail['dvr']['kernel_launches']})")
+    for k in ("ed_relay_window", "ed_gf_parity"):
+        check(dvr_launches[k] > 0, f"{k} was not launched on the DVR path")
+    detail["dvr_path_launches"] = dvr_launches
+    launches = {k: n + dvr_launches[k] for k, n in launches.items()}
+    stripe_shapes = detail["dvr"]["shapes"]
+
     errs = {"ed_parse_packets": max(detail["k1"].values()),
             "ed_relay_window": max(
                 [*detail["window"].values()]
@@ -2879,7 +3069,8 @@ def main() -> int:
             "ed_ring_query": max(detail["ring"].values()),
             "ed_decode_blocks": max(v["max_abs_err"]
                                     for v in detail["k2"].values()),
-            "ed_gf_parity": detail["gf"]["max_abs_err"],
+            "ed_gf_parity": max(detail["gf"]["max_abs_err"],
+                                gf_storage_check(rng, stripe_shapes)),
             "ed_relay_batch": max(detail["b9"].values()),
             "ed_requant_rungs": max(detail["b7_check"].values())}
     detail["launch_floor_ms"] = launch_floor_ms()
@@ -2891,7 +3082,8 @@ def main() -> int:
     b9_p = -(-rtcp_st["batch_rows"] // max(rtcp_st["batch_passes"], 1))
     b9_s = sum(1 for pl in RTCP_PLAYERS if pl["meta"] or pl["lossy"])
     timed = phase_kernels(rng, launches, errs, levels, qt, (b9_p, b9_s),
-                          prime_window_specs(detail["vod"]["prime_shapes"]))
+                          prime_window_specs(detail["vod"]["prime_shapes"]),
+                          stripe_shapes)
     detail["kernels"] = timed
     detail["join_query"] = join = join_query_ms(rng)
     ring_ms = next(k["ms"] for k in timed if k["name"] == "ed_ring_query"

@@ -1,5 +1,6 @@
 """CLI entry: ``python -m easydarwin_tpu_torch [-p PORT] [--service-port N]
-[--device cuda|cpu] [--movie-folder DIR] [--vod-cache-*]``.
+[--device cuda|cpu] [--movie-folder DIR] [--vod-cache-*] [--dvr-*]
+[--storage-*]``.
 
 Serves the live relay: pushers ANNOUNCE/SETUP/RECORD over interleaved TCP
 or UDP (``client_port``; their RTP drained in native recvmmsg batches),
@@ -11,6 +12,12 @@ records a live path to an MP4 (``startrecord?path=/cam&file=cam.mp4``,
 ``stoprecord?path=/cam``).  A path no pusher serves plays the file of
 that name under ``--movie-folder`` (``rtsp://host:port/clip.mp4``),
 through the card-resident segment cache unless ``--vod-cache-enabled 0``.
+With ``--dvr-enabled 1`` every pushed session records to
+``<movie-folder>/.dvr``: a live player can PAUSE and PLAY with a Range
+into the past (with ``Speed`` to catch up), and a finished recording
+plays as ``rtsp://host:port/<path>.dvr``; ``--storage-enabled 1``
+erasure-codes each finished recording into ``<movie-folder>/.shards``
+(``--storage-data-shards`` k, ``--storage-parity-shards`` m).
 Prints one ``listening:`` line once both listeners are bound (port 0 picks
 a free port) and runs until SIGINT/SIGTERM.
 """
@@ -59,6 +66,31 @@ def build_parser() -> argparse.ArgumentParser:
                    default=int(d.vod_cache_device),
                    help="keep windows resident on the device and prime "
                         "joins there")
+    p.add_argument("--dvr-enabled", type=int, choices=(0, 1),
+                   default=int(d.dvr_enabled),
+                   help="record every pushed session for pause, rewind "
+                        "and <path>.dvr replay (needs the segment cache)")
+    p.add_argument("--dvr-window-pkts", type=int, default=d.dvr_window_pkts,
+                   help="packets a spill window")
+    p.add_argument("--dvr-retention-bytes", type=int,
+                   default=d.dvr_retention_bytes,
+                   help="spill byte budget a track")
+    p.add_argument("--dvr-retention-sec", type=float,
+                   default=d.dvr_retention_sec,
+                   help="spill duration cap a track")
+    p.add_argument("--storage-enabled", type=int, choices=(0, 1),
+                   default=int(d.storage_enabled),
+                   help="erasure-code every finished DVR recording "
+                        "(needs --dvr-enabled 1)")
+    p.add_argument("--storage-data-shards", type=int,
+                   default=d.storage_data_shards,
+                   help="k: data shards a stripe")
+    p.add_argument("--storage-parity-shards", type=int,
+                   default=d.storage_parity_shards,
+                   help="m: parity shards a stripe")
+    p.add_argument("--storage-scrub-interval-sec", type=float,
+                   default=d.storage_scrub_interval_sec,
+                   help="seconds between scrubs of the local shards")
     return p
 
 
@@ -71,7 +103,16 @@ async def amain(args) -> int:
                        vod_cache_bytes=args.vod_cache_bytes,
                        vod_cache_window_samples=args.vod_cache_window_samples,
                        vod_cache_lookahead_ms=args.vod_cache_lookahead_ms,
-                       vod_cache_device=bool(args.vod_cache_device))
+                       vod_cache_device=bool(args.vod_cache_device),
+                       dvr_enabled=bool(args.dvr_enabled),
+                       dvr_window_pkts=args.dvr_window_pkts,
+                       dvr_retention_bytes=args.dvr_retention_bytes,
+                       dvr_retention_sec=args.dvr_retention_sec,
+                       storage_enabled=bool(args.storage_enabled),
+                       storage_data_shards=args.storage_data_shards,
+                       storage_parity_shards=args.storage_parity_shards,
+                       storage_scrub_interval_sec=(
+                           args.storage_scrub_interval_sec))
     app = StreamingServer(cfg, device=args.device)
     await app.start()
     print(f"easydarwin-tpu-torch listening: rtsp://{cfg.bind_ip}:"

@@ -20,6 +20,8 @@ both devices: K <= 64, R <= 8 and B a positive multiple of 256.
 
 from __future__ import annotations
 
+import threading
+
 import numpy as np
 import torch
 
@@ -53,6 +55,7 @@ GF_NIB = _nibble_tables()
 #: int64, antilog uint8) pair; made once, so both are graph-capturable
 _TABLES: dict[torch.device, torch.Tensor] = {}
 _PLAIN_TABLES: dict[torch.device, tuple[torch.Tensor, torch.Tensor]] = {}
+_TABLES_LOCK = threading.Lock()
 
 
 def check_shape(rows: torch.Tensor, coeff: torch.Tensor) -> None:
@@ -97,11 +100,19 @@ def gf_parity_plain(rows: torch.Tensor, coeff: torch.Tensor) -> torch.Tensor:
 
 
 def _tables(device: torch.device) -> torch.Tensor:
-    """``GF_NIB`` on ``device``, uploaded once."""
+    """``GF_NIB`` on ``device``, uploaded once (the pump and the storage
+    workers may ask at the same time)."""
     t = _TABLES.get(device)
     if t is None:
-        t = _TABLES[device] = torch.from_numpy(GF_NIB).to(device)
+        with _TABLES_LOCK:
+            t = _TABLES.get(device)
+            if t is None:
+                t = _TABLES[device] = _upload(GF_NIB, device)
     return t
+
+
+def _upload(table: np.ndarray, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(table).to(device)
 
 
 def gf_parity(rows: torch.Tensor, coeff: torch.Tensor) -> torch.Tensor:

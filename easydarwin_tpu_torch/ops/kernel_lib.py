@@ -12,6 +12,10 @@ build to seconds.
 A failed build or a failed launch raises; nothing here falls back to the
 plain PyTorch versions.  Each wrapper adds one to its entry in
 ``LAUNCHES`` where it launches its kernel.
+
+Kernels are launched from more than one thread (the pump, and the
+storage tier's workers that run B4 for stripes), so the build and load,
+the scratch buffers and the launch counts are guarded by one lock.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 from dataclasses import dataclass
 from pathlib import Path
@@ -106,11 +111,14 @@ class BuildResult:
 _LIB: ctypes.CDLL | None = None
 _BUILD: BuildResult | None = None
 _SCRATCH: dict[tuple, torch.Tensor] = {}
+#: guards ``_LIB``, ``_BUILD``, ``_SCRATCH`` and ``LAUNCHES``
+_LOCK = threading.RLock()
 
 
 def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    with _LOCK:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
 
 
 def _nvcc() -> str:
@@ -173,9 +181,20 @@ def build() -> BuildResult:
 
 
 def library() -> ctypes.CDLL:
-    """The loaded kernel library (built on first call)."""
+    """The loaded kernel library (built on first call, once however many
+    threads ask at the same time)."""
     global _LIB
     if _LIB is None:
+        with _LOCK:
+            if _LIB is None:
+                _LIB = _load()
+    return _LIB
+
+
+def _load() -> ctypes.CDLL:
+    """Build (unless built), load and bind the library, and opt the
+    window kernel into its shared memory."""
+    with _LOCK:
         lib = ctypes.CDLL(str(build().path))
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(lib, name)
@@ -192,8 +211,7 @@ def library() -> ctypes.CDLL:
         if limit.value != WINDOW_SMEM_LIMIT:
             raise RuntimeError(f"kWindowSmemLimit {limit.value} != "
                                f"WINDOW_SMEM_LIMIT {WINDOW_SMEM_LIMIT}")
-        _LIB = lib
-    return _LIB
+    return lib
 
 
 def launch(name: str, *args) -> None:
@@ -204,7 +222,8 @@ def launch(name: str, *args) -> None:
     rc = getattr(lib, name)(*args, stream)
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: {error_message(rc)}")
-    LAUNCHES[name] += 1
+    with _LOCK:
+        LAUNCHES[name] += 1
 
 
 def scratch(name: str, words: int, device: torch.device) -> torch.Tensor:
@@ -213,12 +232,21 @@ def scratch(name: str, words: int, device: torch.device) -> torch.Tensor:
     and kept.  Its first word is the fold's ticket, which every launch
     leaves at 0, so launches on one stream need no memset between them and
     a CUDA graph replays them as captured."""
-    key = (name, device.index, torch.cuda.current_stream(device).cuda_stream)
-    buf = _SCRATCH.get(key)
-    if buf is None:
-        buf = _SCRATCH[key] = torch.zeros(words, dtype=torch.int32,
-                                          device=device)
+    key = (name, device.index, _stream_id(device))
+    with _LOCK:
+        buf = _SCRATCH.get(key)
+        if buf is None:
+            buf = _SCRATCH[key] = _zeros(words, device)
     return buf
+
+
+def _stream_id(device: torch.device) -> int:
+    """The handle of ``device``'s current stream in this thread."""
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def _zeros(words: int, device: torch.device) -> torch.Tensor:
+    return torch.zeros(words, dtype=torch.int32, device=device)
 
 
 def geometry(name: str, count: int) -> tuple[int, ...]:

@@ -41,16 +41,32 @@ File playback (``vod``): with the segment cache on, the group pacer
 each wake and primes its joins on the card; its ``(stream, engine)``
 pairs join the live pairs for the megabatch, the steps and the resend
 sweeps.  A pacer error is counted (``vod_errors``) and the wake serves
-the live streams.  ``recordings`` attaches MP4 recorders to live
-sessions (REST ``startrecord``/``stoprecord``); recorder temp files a
-crashed process left in the movie folder are listed at start
-(``record_orphans``).
+the live streams.
+
+DVR (``dvr``, with ``dvr_enabled`` and the segment cache on): RECORD arms
+a spiller a stream, and each wake runs the spill tick after the pacer's
+tick and before the pairs are taken, so a time-shift cursor at the
+spill/ring seam sees the freshest cold tail; a failed spill tick is
+counted (``spill_errors``) and the wake goes on.  Time-shift and ``.dvr``
+replay sessions are the pacer's, so their streams ride the megabatch
+with the live ones (``dvr_megabatch_streams`` counts them a wake).  With
+``storage_enabled`` every finalized asset is sharded on a storage worker
+(``StorageService.store_async``: B4 on the server's device), a window
+the spill files no longer hold is reconstructed on a worker while the
+cursor holds, and the maintenance loop submits a scrub every
+``storage_scrub_interval_sec``.  At stop every armed asset finalizes,
+then the storage workers finish.
+
+``recordings`` attaches MP4 recorders to live sessions (REST
+``startrecord``/``stoprecord``); recorder temp files a crashed process
+left in the movie folder are listed at start (``record_orphans``).
 """
 
 from __future__ import annotations
 
 import asyncio
 import collections
+import os
 import sys
 import time
 import traceback
@@ -58,12 +74,15 @@ import traceback
 import torch
 
 from .. import native, resolve_device
+from ..dvr import DvrManager
+from ..dvr.timeshift import DVR_TIER
 from ..models.mjpeg_ladder import MjpegTranscodeService
 from ..ops import device_ring, kernel_lib
 from ..relay.fanout import FanoutEngine
 from ..relay.fec import StreamFec
 from ..relay.megabatch import MegabatchScheduler
 from ..relay.session import SessionRegistry, now_ms
+from ..storage import StorageService
 from ..vod.cache import SegmentCache
 from ..vod.record import RecordingManager, sweep_orphans
 from ..vod.session import VodPacerGroup, VodService
@@ -75,6 +94,8 @@ from .rtsp import RtspServer
 #: each stream's engine queries its own device ring (the reference's
 #: ``megabatch_min_streams`` default)
 MEGABATCH_MIN_STREAMS = 2
+#: in-flight storage restores the pump keeps at most
+STORAGE_RESTORE_INFLIGHT_MAX = 32
 #: per-engine counters ``stats()`` sums over every engine the server ran
 ENGINE_COUNTERS = ("native_sent", "native_passes", "device_param_refreshes",
                    "send_errors", "tcp_shed_pkts", "missing_params",
@@ -117,6 +138,15 @@ class StreamingServer:
             self.rtsp.vod_pacer = self.vod_pacer
         #: pacer ticks that raised (the wake went on without its pairs)
         self.vod_errors = 0
+        self.dvr: DvrManager | None = None
+        self.storage: StorageService | None = None
+        #: (path, track, window) → the storage worker's restore future
+        self._storage_fetches: dict = {}
+        self._storage_scrub_due = 0.0
+        self._build_dvr()
+        #: time-shift and ``.dvr`` streams handed to ``begin_wake``,
+        #: summed over the wakes
+        self.dvr_megabatch_streams = 0
         self._engines: dict[int, FanoutEngine] = {}
         #: native counters of engines whose streams went away
         self._retired = dict.fromkeys(ENGINE_COUNTERS, 0)
@@ -139,6 +169,67 @@ class StreamingServer:
         self.packets_out = 0
         self.pump_errors = 0
 
+    def _build_dvr(self) -> None:
+        """The DVR manager under ``<movie_folder>/.dvr`` and the store
+        under ``<movie_folder>/.shards``, as the configuration asks.  DVR
+        without the segment cache, or the store without DVR, is refused
+        with a line on stderr and stays off."""
+        cfg = self.config
+        if cfg.dvr_enabled and self.vod_pacer is None:
+            print("dvr_enabled needs vod_cache_enabled (the spill serves "
+                  "through the segment cache); DVR is off", file=sys.stderr)
+        elif cfg.dvr_enabled:
+            self.dvr = DvrManager(
+                os.path.join(cfg.movie_folder, ".dvr"), self.vod_cache,
+                self.vod_pacer, self.registry,
+                window_pkts=cfg.dvr_window_pkts,
+                retention_bytes=cfg.dvr_retention_bytes,
+                retention_sec=cfg.dvr_retention_sec)
+            self.rtsp.dvr = self.dvr
+        if cfg.storage_enabled and self.dvr is None:
+            print("storage_enabled needs dvr_enabled (only finalized DVR "
+                  "assets are sharded); storage is off", file=sys.stderr)
+        elif cfg.storage_enabled:
+            self.storage = StorageService(
+                os.path.join(cfg.movie_folder, ".shards"), cfg.server_id,
+                k=cfg.storage_data_shards, m=cfg.storage_parity_shards,
+                device=self.device)
+            self.dvr.on_finalize = self._storage_on_finalize
+            self.dvr.restorer = self._storage_restore
+
+    def _storage_on_finalize(self, result: dict) -> None:
+        """The finalize hook: shard the finished asset on a storage
+        worker (the parity products are blocking; a finalize runs on the
+        event loop)."""
+        self.storage.store_async(result["path"], self.dvr)
+
+    def _storage_restore(self, path: str, track_id: int,
+                         win: int) -> bytes | None:
+        """The spill chain's last resort, called on the pump: start the
+        shard gather and reconstruct on a storage worker and answer
+        ``b""`` while it runs (the time-shift cursor holds), the blob
+        when it lands, None when the stripe is beyond the parity budget
+        or too many restores are in flight."""
+        key = (self.dvr.live_path_of(path), int(track_id), int(win))
+        fut = self._storage_fetches.get(key)
+        if fut is None:
+            if len(self._storage_fetches) >= STORAGE_RESTORE_INFLIGHT_MAX:
+                for k in [k for k, f in self._storage_fetches.items()
+                          if f.done()]:
+                    del self._storage_fetches[k]
+                if len(self._storage_fetches) \
+                        >= STORAGE_RESTORE_INFLIGHT_MAX:
+                    return None
+            self._storage_fetches[key] = self.storage.restore_async(
+                path, int(track_id), int(win))
+            return b""
+        if not fut.done():
+            return b""
+        del self._storage_fetches[key]
+        if fut.cancelled() or fut.exception() is not None:
+            return None                 # counted in worker_errors
+        return fut.result()
+
     async def start(self) -> None:
         self.native_loaded = native.available()
         if self.device.type == "cuda":
@@ -158,6 +249,12 @@ class StreamingServer:
         self.transcodes.stop_all()
         # every in-flight recording finalizes while its session exists
         self.recordings.stop_all()
+        if self.dvr is not None:
+            self.dvr.close()            # every armed asset finalizes
+            self.rtsp.dvr = None
+        if self.storage is not None:
+            self.storage.close()        # the stores in flight finish
+            self._storage_fetches.clear()
         await self.rest.stop()
         await self.rtsp.stop()
         if self.vod_pacer is not None:
@@ -251,11 +348,20 @@ class StreamingServer:
             except Exception:
                 self.vod_errors += 1
                 traceback.print_exc(file=sys.stderr)
+        if self.dvr is not None and self.dvr._armed:
+            try:
+                self.dvr.tick(t)
+            except Exception:
+                self.dvr.spill_errors += 1
+                traceback.print_exc(file=sys.stderr)
         pairs = self._pairs(vod_pairs)
         engaged = len(pairs) >= MEGABATCH_MIN_STREAMS
         if engaged:
             try:
                 self.megabatch.begin_wake(pairs, t)
+                self.dvr_megabatch_streams += sum(
+                    1 for s, _e in pairs
+                    if getattr(s, "audience_tier", None) == DVR_TIER)
             except Exception:
                 self._pump_error()
                 engaged = False
@@ -353,6 +459,11 @@ class StreamingServer:
                         st.send_upstream_rr(t)
                 self.rtsp.sweep_timeouts()
                 self.transcodes.sweep()
+                if self.storage is not None \
+                        and now >= self._storage_scrub_due:
+                    self._storage_scrub_due = (
+                        now + self.config.storage_scrub_interval_sec)
+                    self.storage.scrub_async()
 
     def stats(self) -> dict:
         engines = {k: v + sum(getattr(e, k) for e in self._engines.values())
@@ -383,6 +494,10 @@ class StreamingServer:
                 "vod": (None if self.vod_pacer is None
                         else self.vod_pacer.stats()),
                 "vod_errors": self.vod_errors,
+                "dvr": None if self.dvr is None else self.dvr.stats(),
+                "dvr_megabatch_streams": self.dvr_megabatch_streams,
+                "storage": (None if self.storage is None
+                            else self.storage.stats()),
                 "recordings": len(self.recordings.active),
                 "record_orphans": self.record_orphans,
                 "kernel_launches": dict(kernel_lib.LAUNCHES)}

@@ -1,5 +1,5 @@
-"""Server configuration: the live relay, file playback (VOD) and the REST
-service port."""
+"""Server configuration: the live relay, file playback (VOD), DVR and
+time-shift, the erasure-coded store and the REST service port."""
 
 from __future__ import annotations
 
@@ -44,3 +44,26 @@ class ServerConfig:
     #: (uploaded once, shared by every player of that window) and prime
     #: each join there; host-only caching and no device prime when off
     vod_cache_device: bool = True
+    #: DVR and time-shift: every pushed session's completed ring windows
+    #: spill to ``<movie_folder>/.dvr/<path>/`` in the packed serving
+    #: format; a live player can PAUSE and PLAY with a Range into the
+    #: past (served by the VOD pacer, catching up onto the live stream),
+    #: and a finished recording replays as ``<path>.dvr``.  Needs
+    #: ``vod_cache_enabled`` (the spill serves through the segment cache)
+    dvr_enabled: bool = False
+    dvr_window_pkts: int = 64              # packets a spill window
+    dvr_retention_bytes: int = 67_108_864  # spill byte budget a track
+    dvr_retention_sec: float = 600.0       # spill duration cap a track
+    #: erasure-coded store: every finalized DVR asset is sharded into
+    #: ``k`` data + ``m`` parity window shards under
+    #: ``<movie_folder>/.shards`` (the parity on the server's device,
+    #: checked against the host product); a read missing at most ``m``
+    #: shards of a stripe is reconstructed; a scrub re-verifies the
+    #: shards every ``storage_scrub_interval_sec``.  Needs
+    #: ``dvr_enabled``
+    storage_enabled: bool = False
+    storage_data_shards: int = 4           # k: data shards a stripe
+    storage_parity_shards: int = 2         # m: parity shards a stripe
+    storage_scrub_interval_sec: float = 30.0
+    #: this node's name in shard claims and manifests
+    server_id: str = "easydarwin-tpu-0"

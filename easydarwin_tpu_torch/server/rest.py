@@ -5,8 +5,10 @@ A tiny HTTP/1.1 keep-alive server (no framework): request line, headers
 and an optional body, a ``/api/v1/<cmd>`` router, and answers in the
 EasyProtocol envelope (``cluster.protocol.ack``).  Commands:
 ``starttranscode``, ``stoptranscode``, ``gettranscodes``, ``startrecord``
-and ``stoprecord``; any other command answers the 404 envelope.  There is
-no auth (the reference's is off by default).
+and ``stoprecord`` (with DVR on they also arm and finalize the path's
+DVR asset) and ``storagestats`` (plain JSON: the storage tier's counters
+and ``pack_window.calls``); any other command answers the 404 envelope.
+There is no auth (the reference's is off by default).
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from urllib.parse import parse_qs, urlparse
 
 from ..cluster import protocol as ep
 from ..utils.paths import confined_subpath
+from ..vod.cache import pack_window
 from .config import ServerConfig
 
 SERVER_NAME = "easydarwin-tpu-torch/0.1"
@@ -148,14 +151,41 @@ class RestApi:
         except ValueError as e:
             return 400, ep.ack(ep.MSG_SC_EXCEPTION, error=ep.ERR_BAD_REQUEST,
                                body={"Detail": str(e)})
+        dvr_armed = False
+        if self.app.dvr is not None:
+            sdp = self.app.registry.sdp_cache.get(sess.path) or ""
+            dvr_armed = (self.app.dvr.arm(sess, sdp)
+                         or self.app.dvr.armed(sess.path))
         return 200, ep.ack(ep.MSG_SC_SERVER_INFO_ACK,
-                           body={"Recording": sess.path, "File": full})
+                           body={"Recording": sess.path, "File": full,
+                                 "Dvr": "1" if dvr_armed else "0"})
 
     def _cmd_stoprecord(self, params: dict, body: bytes) -> tuple[int, str]:
+        """Stop the path's MP4 recorder and finalize its DVR asset (a
+        DVR-only recording, armed at RECORD, answers its window count)."""
         path = params.get("path", [""])[0]
+        dvr_res = (self.app.dvr.finalize(path)
+                   if self.app.dvr is not None else None)
         try:
             res = self.app.recordings.stop(path)
         except KeyError:
-            return 404, ep.ack(ep.MSG_SC_EXCEPTION, error=ep.ERR_NOT_FOUND)
+            if dvr_res is None:
+                return 404, ep.ack(ep.MSG_SC_EXCEPTION,
+                                   error=ep.ERR_NOT_FOUND)
+            return 200, ep.ack(ep.MSG_SC_SERVER_INFO_ACK, body={
+                "DvrWindows": str(dvr_res["windows"])})
+        extra = ({"DvrWindows": str(dvr_res["windows"])}
+                 if dvr_res is not None else {})
         return 200, ep.ack(ep.MSG_SC_SERVER_INFO_ACK, body={
-            "File": res["path"], "Samples": str(res["samples"])})
+            "File": res["path"], "Samples": str(res["samples"]), **extra})
+
+    def _cmd_storagestats(self, params: dict,
+                          body: bytes) -> tuple[int, str]:
+        """The storage tier's counters and ``pack_window.calls`` (a
+        reconstructed replay repacks nothing), as plain JSON."""
+        st = self.app.storage
+        doc: dict = {"enabled": st is not None,
+                     "pack_window_calls": int(pack_window.calls)}
+        if st is not None:
+            doc.update(st.stats())
+        return 200, json.dumps(doc, separators=(",", ":"))

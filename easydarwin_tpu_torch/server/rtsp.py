@@ -45,6 +45,19 @@ npt=a-``, ``Scale``, ``Speed``; a negative or out-of-range value plays at
 the session has neither Scale nor meta-info, else a ``FileSession``.
 PAUSE stops it; a later PLAY with a Range starts afresh from there.
 
+With DVR on (``RtspServer.dvr``, a ``DvrManager``), RECORD arms the
+session's spillers.  A live PLAY with a numeric ``Range: npt=a-`` (a
+rewind) or after a PAUSE enters a ``TimeShiftSession`` (``Speed`` paces
+it, and a replay faster than real time catches up and rejoins the live
+stream with the same SSRC and a contiguous seq); ``npt=now-`` or no
+Range joins the live edge.  PAUSE on a live path with an armed spiller
+latches each output's bookmark (the next id it has not been sent) as the
+resume cursor, and on a time-shift session its ``pause_ids``.
+DESCRIBE, SETUP and PLAY of ``<path>.dvr`` replay the spilled asset
+(the stored push SDP; no x-RTP-Meta-Info, no x-FEC; x-Retransmit is
+offered), and a PLAY without a Range after a PAUSE resumes at the
+latched cursors.
+
 A player's RTCP (a datagram on the shared pair's RTCP port, or an odd
 interleaved channel of its connection) goes to ``on_client_rtcp``: routed
 by its source address, then by the SSRCs its RR report blocks and NADU
@@ -192,6 +205,37 @@ def parse_range_npt(req) -> float:
     return 0.0
 
 
+def parse_range_start(req) -> float | None:
+    """The numeric start of a PLAY's ``Range: npt=a-``, or None for a
+    missing range or ``npt=now-`` (the live edge, RFC 2326 §3.6)."""
+    rng = req.headers.get("range", "")
+    if not rng.startswith("npt="):
+        return None
+    start = rng[4:].split("-")[0].strip()
+    if not start or start == "now":
+        return None
+    try:
+        return max(float(start), 0.0)
+    except ValueError:
+        return None
+
+
+def parse_speed(req) -> tuple[float, dict[str, str]]:
+    """A time-shift PLAY's ``Speed`` (RFC 2326 §12.35: >1 is how a
+    shifted viewer reaches the live head).  A value outside [0.01, 8]
+    plays at 1 and the reply says so."""
+    v = req.headers.get("speed", "")
+    if not v:
+        return 1.0, {}
+    try:
+        f = float(v)
+    except ValueError:
+        f = None
+    if f is None or not 0.01 <= f <= 8.0:
+        return 1.0, {"Speed": "1"}
+    return f, {"Speed": f"{f:g}"}
+
+
 def _rtcp_keys(out) -> list[tuple]:
     """What proves a player's RTCP is its own: its output's SSRC, and a
     UDP output's registered RTCP address."""
@@ -225,6 +269,13 @@ class RtspConnection:
         #: session (``FileSession`` or ``PacedVodSession``)
         self.vod_file = None
         self.vod_session = None
+        #: the ``<live>.dvr`` path a SETUP landed on (a replay)
+        self.dvr_path: str | None = None
+        #: resume cursors a track latched by a PAUSE under DVR: the next
+        #: PLAY without a Range re-enters the past here
+        self.pause_ids: dict[int, int] | None = None
+        #: a live or DVR PLAY is in effect (no PAUSE since)
+        self.playing = False
         self.last_activity = time.monotonic()
         self.closed = False
 
@@ -279,6 +330,8 @@ class RtspConnection:
         path = req.path()
         # a pushed session wins over a file of the same name
         text = self.server.registry.sdp_cache.get(path)
+        if text is None and self.server.dvr is not None:
+            text = await self.server.dvr.describe(path)
         if text is None and self.server.vod is not None:
             text = self.server.vod.describe(path)
         if text is None:
@@ -366,6 +419,11 @@ class RtspConnection:
         return out, resp_t
 
     async def _setup_play(self, req, base, track_id, t) -> None:
+        dvr = self.server.dvr
+        if (dvr is not None and dvr.is_dvr_path(base)
+                and self.vod_file is None):
+            await self._setup_play_dvr(req, base, track_id, t)
+            return
         relay = self.server.registry.find(base)
         if relay is None:
             await self._setup_play_vod(req, base, track_id, t)
@@ -424,17 +482,66 @@ class RtspConnection:
         self._reply(rtsp.RtspResponse(200, {"Transport": resp_t.to_header(),
                                             **extra}), req.cseq)
 
+    async def _setup_play_dvr(self, req, base, track_id, t) -> None:
+        """SETUP of a track of a ``<live>.dvr`` asset: the spilled
+        tracks name the tracks, and the output is an ordinary player
+        output the time-shift session fills at PLAY.  No x-RTP-Meta-Info
+        (no sample tables) and no x-FEC (no live relay stream)."""
+        asset = self.server.dvr.open_asset(base)
+        if asset is None:
+            raise rtsp.RtspError(404)
+        try:
+            track_ids = sorted(asset.tracks)
+        finally:
+            asset.close()
+        if track_id is None:
+            avail = [i for i in track_ids if i not in self.player_tracks]
+            track_id = avail[0] if avail else None
+        if track_id is None or track_id not in track_ids:
+            raise rtsp.RtspError(404, f"unknown track {track_id}")
+        self.dvr_path = sdp._norm(base)
+        self.path = self.dvr_path
+        out, resp_t = self._make_output(t, dict(
+            ssrc=secrets.randbits(32), out_seq_start=secrets.randbits(16)))
+        out, extra = negotiate_retransmit(req.headers.get("x-retransmit", ""),
+                                          out, t)
+        self.server.note_player_output(self, out,
+                                       self.player_tracks.get(track_id))
+        self.player_tracks[track_id] = out
+        self._reply(rtsp.RtspResponse(200, {"Transport": resp_t.to_header(),
+                                            **extra}), req.cseq)
+
     async def _do_record(self, req: rtsp.RtspRequest) -> None:
         if not self.is_pusher or self.relay is None:
             raise rtsp.RtspError(455)
+        if self.server.dvr is not None:
+            # every pushed broadcast records from its first full window
+            # (a second RECORD does not re-arm)
+            self.server.dvr.arm(
+                self.relay,
+                self.server.registry.sdp_cache.get(self.relay.path) or "")
         self._reply(rtsp.RtspResponse(200), req.cseq)
 
     async def _do_play(self, req: rtsp.RtspRequest) -> None:
         if self.vod_file is not None:
             self._play_vod(req)
             return
+        if self.dvr_path is not None:
+            self._play_dvr(req)
+            return
         if self.relay is None or not self.player_tracks:
             raise rtsp.RtspError(455)
+        # under DVR a numeric Range (a rewind) or a PAUSE's cursors enter
+        # the time-shift tier; npt=now- or no Range joins the live edge
+        start_npt = parse_range_start(req)
+        if (self.server.dvr is not None
+                and (start_npt is not None or self.pause_ids)
+                and self._play_timeshift(req, start_npt)):
+            return
+        if self.vod_session is not None:  # a time-shift session ends
+            self.vod_session.stop()
+            self.vod_session = None
+        self.playing = True
         infos = []
         for tid, out in self.player_tracks.items():
             stream = self.relay.streams[tid]
@@ -446,6 +553,57 @@ class RtspConnection:
         self.server.wake_pump()
         self._reply(rtsp.RtspResponse(200, {
             "Range": "npt=now-", "RTP-Info": ",".join(infos)}), req.cseq)
+
+    def _play_timeshift(self, req, start_npt: float | None) -> bool:
+        """PLAY into the past on a live subscription: the outputs leave
+        the live streams and (their rewrites kept) go to a time-shift
+        session over the spilled windows.  A Range wins over the PAUSE
+        cursors.  False (the caller joins live) when the asset has
+        nothing yet."""
+        speed, extra = parse_speed(req)
+        start_ids = None if start_npt is not None else self.pause_ids
+        self._detach_outputs()
+        if self.vod_session is not None:
+            self.vod_session.stop()
+            self.vod_session = None
+        sess = self.server.dvr.open_timeshift(
+            self.path, dict(self.player_tracks), start_npt=start_npt,
+            start_ids=start_ids, speed=speed)
+        if sess is None:
+            return False
+        self._started_shift(req, sess, extra)
+        return True
+
+    def _play_dvr(self, req: rtsp.RtspRequest) -> None:
+        """PLAY a ``.dvr`` asset: a replay under the shared pacer.  No
+        Range after a PAUSE resumes at the latched cursors; a Range
+        always wins."""
+        if not self.player_tracks:
+            raise rtsp.RtspError(455)
+        start_npt = parse_range_start(req)
+        start_ids = None if start_npt is not None else self.pause_ids
+        speed, extra = parse_speed(req)
+        if self.vod_session is not None:
+            self.vod_session.stop()
+            self.vod_session = None
+        sess = self.server.dvr.open_timeshift(
+            self.dvr_path, dict(self.player_tracks), start_npt=start_npt,
+            start_ids=start_ids, speed=speed)
+        if sess is None:
+            raise rtsp.RtspError(404)
+        self._started_shift(req, sess, extra)
+
+    def _started_shift(self, req, sess, extra: dict) -> None:
+        self.vod_session = sess
+        self.pause_ids = None
+        self.playing = True
+        self.server.wake_pump()
+        infos = ",".join(f"url={req.uri.rstrip('/')}/trackID={tid}"
+                         f";seq={out.rewrite.out_seq_start}"
+                         for tid, out in self.player_tracks.items())
+        self._reply(rtsp.RtspResponse(200, {
+            "Range": f"npt={sess.position_npt() or sess.start_npt:.3f}-",
+            "RTP-Info": infos, **extra}), req.cseq)
 
     def _play_vod(self, req: rtsp.RtspRequest) -> None:
         if not self.player_tracks:
@@ -480,11 +638,25 @@ class RtspConnection:
 
     async def _do_pause(self, req: rtsp.RtspRequest) -> None:
         """A file session stops (a PLAY starts it afresh); a live player's
-        outputs leave their streams until the next PLAY."""
-        if self.vod_session is not None:
-            self.vod_session.stop()
+        outputs leave their streams until the next PLAY.  A time-shift
+        session latches its ``pause_ids``; a live player under an armed
+        spiller latches each output's bookmark (the next id it has not
+        been sent, in the spill's id space)."""
+        sess = self.vod_session
+        if sess is not None and hasattr(sess, "pause_ids"):
+            self.pause_ids = sess.pause_ids()
+        elif (self.relay is not None and self.playing
+                and self.server.dvr is not None
+                and self.server.dvr.armed(self.path)):
+            ids = {tid: int(out.bookmark)
+                   for tid, out in self.player_tracks.items()
+                   if out.bookmark is not None}
+            self.pause_ids = ids or None
+        if sess is not None:
+            sess.stop()
             self.vod_session = None
         self._detach_outputs()
+        self.playing = False
         self._reply(rtsp.RtspResponse(200), req.cseq)
 
     def _detach_outputs(self) -> None:
@@ -587,9 +759,10 @@ class RtspConnection:
         if self.vod_session is not None:
             self.vod_session.stop()
             self.vod_session = None
-        if self.vod_file is not None:
-            self.vod_file.close()
-            self.vod_file = None
+        if self.vod_file is not None or self.dvr_path is not None:
+            if self.vod_file is not None:
+                self.vod_file.close()
+                self.vod_file = None
             for out in self.player_tracks.values():
                 self.server.drop_player_output(self, out)
         if self.relay is not None:
@@ -627,6 +800,9 @@ class RtspServer:
         #: is a ``FileSession``)
         self.vod = vod
         self.vod_pacer = None
+        #: the DVR manager (None: PAUSE detaches, ``.dvr`` paths 404 and
+        #: RECORD arms nothing)
+        self.dvr = None
         #: where the FEC tier's parity pass runs
         self.device = torch.device(device)
         self.connections: set[RtspConnection] = set()

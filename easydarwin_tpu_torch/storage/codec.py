@@ -20,11 +20,17 @@ More missing shards than surviving parity, a singular subset or a result
 that fails its check raises ``StorageError``.
 
 Unlike the reference, a failed device launch is not caught: it raises,
-and no product moves to the host.
+and no product moves to the host.  The storage tier calls a codec from
+its worker threads: each B4 launch goes on the calling thread's current
+stream and its ``.cpu()`` readback syncs it; the counters and the host
+ns of the device products (upload, launch, readback) and of their checks
+are updated under a lock.
 """
 
 from __future__ import annotations
 
+import threading
+import time
 import zlib
 
 import numpy as np
@@ -52,6 +58,11 @@ class StripeCodec:
         self.device = resolve_device(device)
         self.oracle_mismatches = 0
         self.device_passes = 0
+        #: host ns in the device products (upload, launch, readback) and
+        #: in their checks (host product or crc32s), by operation
+        self.product_ns = {"parity": 0, "reconstruct": 0}
+        self.check_ns = {"parity": 0, "reconstruct": 0}
+        self._lock = threading.Lock()
 
     def _device_product(self, coeff: np.ndarray,
                         rows: np.ndarray) -> np.ndarray:
@@ -59,13 +70,22 @@ class StripeCodec:
         from ..models.relay_pipeline import fec_parity_window_step
         out = fec_parity_window_step(
             torch.from_numpy(rows).to(self.device),
-            torch.from_numpy(coeff).to(self.device))
-        self.device_passes += 1
-        return out.cpu().numpy()
+            torch.from_numpy(coeff).to(self.device)).cpu().numpy()
+        with self._lock:
+            self.device_passes += 1
+        return out
+
+    def _timed(self, op: str, t0: int, t1: int) -> None:
+        """Book a product that ran from ``t0`` to ``t1`` and its check,
+        which ended now."""
+        with self._lock:
+            self.product_ns[op] += t1 - t0
+            self.check_ns[op] += time.perf_counter_ns() - t1
 
     def _mismatch(self, what: str) -> StorageError:
         """Count a product that failed its check; the error to raise."""
-        self.oracle_mismatches += 1
+        with self._lock:
+            self.oracle_mismatches += 1
         return StorageError(f"{what}: the device product fails its check")
 
     # ------------------------------------------------------------- encode
@@ -84,8 +104,12 @@ class StripeCodec:
                 rows[i, :len(b)] = np.frombuffer(b, np.uint8)
         r_pad = pow2(self.m, 1)
         coeff = coeff_rows(range(self.k), r_pad)
+        t0 = time.perf_counter_ns()
         parity = self._device_product(coeff, rows)
-        if not np.array_equal(parity, gf_matmul(coeff, rows)):
+        t1 = time.perf_counter_ns()
+        ok = np.array_equal(parity, gf_matmul(coeff, rows))
+        self._timed("parity", t0, t1)
+        if not ok:
             raise self._mismatch("stripe parity")
         return [parity[p, :width].tobytes() for p in range(self.m)]
 
@@ -163,13 +187,16 @@ class StripeCodec:
         rows[:surv.shape[0], :surv.shape[1]] = surv
         coeff = np.zeros((pow2(ccomb.shape[0], 1), rows.shape[0]), np.uint8)
         coeff[:ccomb.shape[0], :ccomb.shape[1]] = ccomb
+        t0 = time.perf_counter_ns()
         dev = self._device_product(coeff, rows)[:ccomb.shape[0],
                                                  :surv.shape[1]]
+        t1 = time.perf_counter_ns()
         if crcs:
             ok = all((zlib.crc32(dev[j, :lens[i]].tobytes()) & 0xFFFFFFFF)
                      == int(crcs[i]) for j, i in enumerate(need))
         else:
             ok = np.array_equal(dev, gf_matmul(ccomb, surv))
+        self._timed("reconstruct", t0, t1)
         if not ok:
             raise self._mismatch("stripe reconstruction")
         return dev

@@ -24,6 +24,11 @@ must not consume sequence numbers, as on the cold packetizer) and the
 per-subscriber ssrc/ts mapping rides the megabatch scheduler's affine
 rewrite, oracle-checked at install.
 
+DVR spill windows enter the same LRU through ``get_packed``: their rows
+were packed at record time (``CachedWindow.from_packed``, with the
+source seq and relay arrival a packet), so a time-shift or ``.dvr``
+replay never repacks (``pack_window.calls`` stays put).
+
 Entries live in an LRU whose byte budget covers the host arrays and the
 card copies; windows a pacer cursor is serving are pinned (refcounted)
 and never evicted.  ``snapshot``/``restore`` checkpoint which windows
@@ -118,9 +123,9 @@ class CachedWindow:
     """One packed ``(asset, track, window)`` entry."""
 
     __slots__ = ("key", "lo", "hi", "data", "length", "flags", "ts",
-                 "sample", "npt", "pkt_base", "sample_npt", "staged",
-                 "pins", "hits", "_device", "_on_device", "device_uploads",
-                 "nbytes")
+                 "sample", "npt", "pkt_base", "sample_npt", "seq",
+                 "arrival", "restored", "staged", "pins", "hits",
+                 "_device", "_on_device", "device_uploads", "nbytes")
 
     def __init__(self, key, lo, hi, pkts, samples, npts, tss, is_video,
                  sample_npts):
@@ -148,11 +153,20 @@ class CachedWindow:
         #: per-sample npt from the sample table, so packet-less samples
         #: still carry their decode time (due-time pacing reads this)
         self.sample_npt = np.asarray(sample_npts, np.float64)
+        #: per-packet source seq and relay-arrival ms: a DVR spill
+        #: window's (``from_packed``) only; canonical MP4 windows have None
+        self.seq = None
+        self.arrival = None
+        self._finish_init()
+
+    def _finish_init(self) -> None:
         # pow2 rows, so stacked windows fall into few shape groups
-        pad = staging.pow2(max(n, 1), 16)
+        pad = staging.pow2(max(len(self.length), 1), 16)
         self.staged = staging.pack_rows(
             self.data, self.length,
             np.zeros((pad, staging.ROW_STRIDE), np.uint8))
+        #: True when the rows came back through an erasure reconstruct
+        self.restored = False
         self.pins = 0
         self.hits = 0
         self._device = None
@@ -164,6 +178,40 @@ class CachedWindow:
                        + self.ts.nbytes + self.npt.nbytes
                        + self.sample.nbytes + self.pkt_base.nbytes
                        + self.sample_npt.nbytes)
+
+    @classmethod
+    def from_packed(cls, key, id_lo: int, data, length, flags, ts, *,
+                    seq=None, arrival=None,
+                    restored: bool = False) -> "CachedWindow":
+        """A window from rows already in the fixed-slot packed format (a
+        DVR spill window, ``dvr/spill.py``): no packetizer and no
+        classification; the parallel arrays are adopted as they are and
+        only the staging rows (a copy) are derived.  ``lo``/``hi``/
+        ``sample`` are absolute packet ids (the live ring's id space),
+        not MP4 sample indices."""
+        n = len(length)
+        w = object.__new__(cls)
+        w.key = key
+        w.lo, w.hi = id_lo, id_lo + n
+        w.data = np.ascontiguousarray(data, np.uint8)
+        w.length = np.ascontiguousarray(length, np.int32)
+        w.flags = np.ascontiguousarray(flags, np.int32)
+        w.ts = np.ascontiguousarray(ts, np.int64)
+        w.sample = np.arange(id_lo, id_lo + n, dtype=np.int32)
+        w.npt = np.zeros(n, np.float64)
+        w.pkt_base = np.arange(n + 1, dtype=np.int64)
+        w.sample_npt = np.zeros(n, np.float64)
+        w.seq = (np.ascontiguousarray(seq, np.int32)
+                 if seq is not None else None)
+        w.arrival = (np.ascontiguousarray(arrival, np.int64)
+                     if arrival is not None else None)
+        w._finish_init()
+        w.restored = bool(restored)
+        if w.seq is not None:
+            w.nbytes += w.seq.nbytes
+        if w.arrival is not None:
+            w.nbytes += w.arrival.nbytes
+        return w
 
     @property
     def n_pkts(self) -> int:
@@ -190,7 +238,10 @@ def pack_window(file: Mp4File, track: Track, lo: int, hi: int,
     """Packetize samples ``[lo, hi)`` of ``track`` into one canonical
     window with the packetizer classes the cold path uses (fresh, seq from
     0, ssrc 0), so fragmentation, markers and parameter sets are those of
-    a ``FileSession`` serving the same samples."""
+    a ``FileSession`` serving the same samples.  ``pack_window.calls``
+    counts the calls: a spilled DVR asset opens with none (its windows
+    enter the cache through ``CachedWindow.from_packed``)."""
+    pack_window.calls += 1
     is_video = track.info.handler == "vide"
     if is_video:
         pk = H264Packetizer(track, ssrc=0, seq_start=0, mtu=VOD_MTU)
@@ -211,6 +262,9 @@ def pack_window(file: Mp4File, track: Track, lo: int, hi: int,
             tss.append(rtp.peek_timestamp(p))
     return CachedWindow(key, lo, hi, pkts, samples, npts, tss, is_video,
                         track.dts[lo:hi].astype(np.float64) / scale)
+
+
+pack_window.calls = 0
 
 
 def _asset_id(file: Mp4File) -> tuple:
@@ -244,6 +298,9 @@ class SegmentCache:
         self.evictions = 0
         self.fills = 0
         self.fill_errors = 0
+        #: packed fills whose rows came back through an erasure
+        #: reconstruct (the storage tier)
+        self.restored_fills = 0
         self._closed = False
 
     # ---------------------------------------------------------------- keys
@@ -279,6 +336,51 @@ class SegmentCache:
             self._executor().submit(self._fill_job, file, track_no,
                                     track, win, key)
         return None
+
+    def get_packed(self, asset_id: tuple, track_no: int, win: int,
+                   loader) -> CachedWindow | None:
+        """The DVR open path: the same LRU, pinning, byte budget and card
+        residency as ``get``, but a miss is filled inline by
+        ``loader(win) -> CachedWindow | None`` (a spill-file read and
+        ``CachedWindow.from_packed``) instead of ``pack_window``.  A
+        loader that raises counts in ``fill_errors`` and the window is a
+        miss."""
+        key = (asset_id, track_no, int(win))
+        with self._lock:
+            w = self._lru.get(key)
+            if w is not None:
+                self._lru.move_to_end(key)
+                w.hits += 1
+                self.hits += 1
+                return w
+            self.misses += 1
+            if self._closed or key in self._filling:
+                return None
+            self._filling.add(key)
+        try:
+            w = loader(key[2])
+        except Exception:
+            self.fill_errors += 1
+            w = None
+        finally:
+            with self._lock:
+                self._filling.discard(key)
+        if w is None:
+            return None
+        w.key = key
+        with self._lock:
+            cur = self._lru.get(key)
+            if cur is not None:
+                return cur
+            self._lru[key] = w
+            w._on_device = (lambda n, k=key:
+                            self._account_device_bytes(k, n))
+            self.bytes += w.nbytes
+            self.fills += 1
+            if w.restored:
+                self.restored_fills += 1
+            self._evict_over_budget(keep=key)
+        return w
 
     def fill_now(self, file: Mp4File, track_no: int, track: Track,
                  win: int) -> CachedWindow | None:
@@ -443,6 +545,7 @@ class SegmentCache:
                 "hits": self.hits, "misses": self.misses,
                 "evictions": self.evictions, "fills": self.fills,
                 "fill_errors": self.fill_errors,
+                "restored_fills": self.restored_fills,
                 "device_uploads": sum(w.device_uploads for w in wins),
                 "device_bytes": sum(w.staged.nbytes for w in wins
                                     if w._device is not None),

@@ -663,6 +663,15 @@ class VodPacerGroup:
         self._unprimed.extend((sess, tr) for tr in sess.tracks)
         return sess
 
+    def adopt(self, sess):
+        """Register a paced session built elsewhere (the DVR tier's
+        ``TimeShiftSession``) under this pacer's tick and retire.  It
+        offers what ``tick`` and ``retire`` use: ``tick(now_ms)``,
+        ``done``, ``stopped``, ``tracks`` (each with ``stream`` and
+        ``release``), ``file.close()`` and an optional ``on_retire``."""
+        self.sessions.append(sess)
+        return sess
+
     def retire(self, sess: PacedVodSession) -> None:
         if sess in self.sessions:
             self.sessions.remove(sess)
@@ -674,6 +683,11 @@ class VodPacerGroup:
         if not sess.stopped:
             sess.stopped = True
             sess.file.close()
+            # inside the guard: a connection's stop() of a session the
+            # pacer already retired must not call the hook twice
+            cb = getattr(sess, "on_retire", None)
+            if cb is not None:
+                cb()
 
     # ---------------------------------------------------------------- tick
     def tick(self, now_ms: int) -> list:

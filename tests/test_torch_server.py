@@ -695,6 +695,12 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "import easydarwin_tpu_torch.vod.session\n"
             "import easydarwin_tpu_torch.utils.paths\n"
             "import easydarwin_tpu_torch.utils.vod_clips\n"
+            "import easydarwin_tpu_torch.dvr, easydarwin_tpu_torch.dvr.spill\n"
+            "import easydarwin_tpu_torch.dvr.timeshift\n"
+            "import easydarwin_tpu_torch.dvr.service\n"
+            "import easydarwin_tpu_torch.storage.service\n"
+            "import easydarwin_tpu_torch.cluster.placement\n"
+            "import easydarwin_tpu_torch.utils.dvr_loopback\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m.split('.')[0] in ('jax', 'jaxlib', "
             "'easydarwin_tpu'))\n"
