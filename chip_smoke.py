@@ -6,7 +6,7 @@ Run from the repository root on a machine with one CUDA card:
     python3 chip_smoke.py
 
 It builds the hand-written kernels from ``easydarwin_tpu_torch/csrc`` and
-drives the port's live-relay, transcode, file-playback (VOD) and DVR
+drives the port's live-relay, transcode, file-playback (VOD), DVR and HLS
 paths on the card, phase by phase; any failed phase raises and the script exits
 non-zero.
 
@@ -73,13 +73,24 @@ non-zero.
              levels off 16 bytes and wrong dtypes raise without one;
              ``requant_rungs`` with R = 9 at config 5 is two launches
              (8 + 1 rungs), bit-exact with its nonzeros summed
-5c. b6      B6 (``h264_requant``, ``h264_requant_chroma``: plain torch
-             int32 ops, no hand kernel) at config-5 width, 16 × one 1080p
-             frame of 8,160 macroblocks: luma [2,088,960, 16], chroma DC
+5c. b6      B6 as ``ed_h264_requant`` and ``ed_h264_requant_chroma``
+             (``ops.h264_kernel``) at config-5 width, 16 × one 1080p frame
+             of 8,160 macroblocks: luma [2,088,960, 16], chroma DC
              [261,120, 4] and AC [261,120, 4, 15], a seeded QP mix over all
-             three chroma arms with levels beyond ±LEVEL_CLIP; the card's
-             result equal to the CPU's, 4,096 sampled rows of each equal to
-             the scalar oracles
+             three chroma arms with levels beyond ±LEVEL_CLIP; one launch
+             each, bit-exact with the plain torch chains (``ops.transform.
+             h264_requant[_chroma]``) on the card and on the CPU, 4,096
+             sampled rows of each equal to the scalar oracles; N = 1, 127,
+             129, 421 and 36 fuzzed sizes bit-exact too; N = 0,
+             misaligned rows, int64 levels or QPs and mismatched DC/AC
+             rows launch nothing.  Then the ladder's form, the leg
+             (``RequantLeg``: int64 rows narrowed and tiled over the
+             targets into pinned staging, uploaded, ONE launch, read back,
+             in one call that keeps the GIL) at phase 13's AU and at sizes
+             around a CTA, luma at 1-3 deltas and chroma with 1 and 2 rows
+             a QP, bit-exact with the plain chains on the tiled rows, one
+             launch a leg; two legs in flight harvested in reverse order;
+             the host µs of a leg alone at phase 13's AU
 6. scheduler the main path in-process: MegabatchScheduler + FanoutEngine
              over 16 streams × 256 subscribers in 2 buckets for 36 wakes,
              every wire byte held against RelayStream.reflect, plus the
@@ -153,12 +164,13 @@ non-zero.
              20s2, one TCP player per rung; every delivered rung frame
              decodes and matches the CPU requantization oracle of its
              source frame; the host split per frame is printed
-10. kernels  launches on the main path (phases 6-9), the launch floor
+10. kernels  launches on the paths (phases 6-9, 11-11c, 12 and 13), the
+             launch floor
              (one graph node of an empty kernel), ptxas registers, shared
              memory and spills, CUDA-event times at the main path's shapes
              (K1 256 rows, the window's phase-6 wake group, the ring query
              at config 2's C = 4,096 × S = 64, K2 config 5, B9 at phase
-             7c's pass, B7 at config 5)
+             7c's pass, B7 and B6 at config 5)
              and at earlier runs' config-4 shapes (K1 4,096 rows, window
              [16,256,100]×[16,256,6], and the same bytes as
              [64,64,100]×[64,64,6] with no cluster) beside the plain
@@ -184,9 +196,10 @@ non-zero.
              held against the host ``gf_matmul``) with the kernel's share
              of it ([b4] lines); B7's
              ``ed_requant_rungs`` at config 5 beside the plain torch chain
-             and its byte bound; B6's two torch chains at phase 5c's
-             shapes in a graph and by direct call beside their byte bounds
-             ([b6] lines, not in the kernels line: B6 has no hand kernel)
+             and its byte bound; B6's two kernels at phase 5c's shapes
+             (the kernels line) beside their plain chains, bounds and the
+             launch floor, bit-exact again after the graph replays, and
+             phase 13's dispatch leg ([b6] lines)
 
 4e. window vod ``ed_relay_window`` vs the plain window pass, bit-exact,
              at the VOD prime's shapes, past the 48 KB a CTA had before the
@@ -248,16 +261,45 @@ non-zero.
              ``gf_parity_plain`` at the run's stripe shapes (``[gf]``), and
              phase 10 times it there ([b4] lines)
 
+13. hls     HLS with the H.264 requant ladder through the CLI server
+             (``utils.hls_loopback.serve_hls``): BASELINE config 5's 16
+             sources over interleaved TCP, all-intra H.264 from the port's
+             ``encode_iframe`` (8 CAVLC, 8 CABAC; 4 of 3 slices a picture;
+             4 with an AAC track), 176x144 pictures (the cut: the CPython
+             entropy walk, ROADMAP A7c), GOPs of 3 pictures cycled, 24
+             pictures a source at 0.4 a second (6.4 AUs a second offered,
+             60 s; more AUs a path than the shed gate of max(4, 2 x
+             workers) pending); REST starthls rungs=q6,q12 on
+             every source and master.m3u8 on 4 single-slice ones (r1, r2);
+             every playlist, init.mp4 and segment fetched: each sample equal
+             to the pushed picture or to the host scalar oracle
+             (``SliceRequantizer(delta)`` on the CPU), r2 the IDRs and r1 a
+             level-1 thinning, A/V segments with two trafs, a 304 on
+             revalidation, gethlsstreams with 16 paths; 0 device errors,
+             passed-through slices, shed AUs and mismatches; the server's
+             ed_h264_requant launches = its ladders' dispatches and
+             ed_h264_requant_chroma launches = the dispatches with chroma;
+             the ladder's host ms an AU by stage, an AU's latency (mean,
+             max), the most AUs pending, and the pump's wake p50 and max
+
+``python3 chip_smoke.py --hls-control`` runs phases 1, 2, 5c's leg check
+and phase 13 twice instead, each checked in full: the ladders' B6 on the
+card, then on the CPU's plain torch chains (the server's ``--hls-device
+cpu``); the two runs' drain, latency, stages and wake go to one JSON line
+before the last and to ``chiprun_out/hls_control.json``.
+
 Before the last lines, ``[uring]`` gives ``ed_uring_probe``'s answer on
 this host: its capability bits by name, or the errno's name.
 
 The kernel launch counts are set to 0 just before phase 6 and read just
 after phase 9 (the server processes report their own at exit, without
 their start-up warm-up), then set to 0 again just before phase 11 and
-read just after phase 11c (the VOD path), and again just before phase 12
-and just after it (the DVR path); the kernels line's launches are the
-three paths' sum.  The comparisons and timings of phases 3, 4, 4b, 4c,
-4d, 4e, 5, 5b, 5c and 10 run outside those windows.  Phase 10's window
+read just after phase 11c (the VOD path), again just before phase 12
+and just after it (the DVR path), and just before phase 13 and just
+after it (the HLS path, the only one that launches B6); the kernels
+line's launches are the four paths' sum.  The comparisons and timings of
+phases 3, 4, 4b, 4c, 4d, 4e, 5, 5b, 5c and 10 run outside those
+windows.  Phase 10's window
 rows also time the VOD prime's calls of phase 11.
 Detail goes to ``chiprun_out/chip_smoke.json``.  The last line of standard
 output is ``{"ok": true, "device": {...}}``.
@@ -296,6 +338,8 @@ OPS_PER_SUBSCRIBER = 7
 
 #: where the port runs; the phases that drive it (5, 6) read this
 DEVICE = "cuda"
+#: the kernels only the HLS path (phase 13) launches
+HLS_KERNELS = ("ed_h264_requant", "ed_h264_requant_chroma")
 HERE = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(HERE, "chiprun_out")
 
@@ -1262,6 +1306,9 @@ H264_LUMA_ROWS = 16 * H264_MBS
 H264_CHROMA_ROWS = 2 * H264_MBS
 #: rows held against the scalar oracles, a sample of each kind
 H264_SAMPLE = 4096
+#: rows a CTA of either B6 kernel takes (``kThreads`` in
+#: ``csrc/h264_kernels.cu``): phase 5c's edge sizes sit around it
+B6_CTA_ROWS = 128
 
 
 def h264_inputs(rng) -> dict:
@@ -1304,33 +1351,49 @@ def h264_bound(rows: int, row_bytes: int) -> int:
 
 
 def phase_h264(rng) -> dict:
-    """B6 at config-5 width on the card: ``h264_requant`` over
-    [2,088,960, 16] and ``h264_requant_chroma`` over DC [261,120, 4] and
-    AC [261,120, 4, 15], int32 and equal to the same functions on the
-    CPU; 4,096 sampled rows of each also equal to the scalar oracles.
-    B6 is plain torch ops (no hand kernel: no path runs it yet)."""
+    """B6 at config-5 width on the card: ``ed_h264_requant`` over
+    [2,088,960, 16] and ``ed_h264_requant_chroma`` over DC [261,120, 4]
+    and AC [261,120, 4, 15] (``ops.h264_kernel``), each ONE launch,
+    bit-exact with the plain torch chains (``ops.transform``) on the same
+    card tensors and with the chains on the CPU; 4,096 sampled rows of
+    each also equal to the scalar oracles.  Then N = 1 and N not a
+    multiple of the CTA's rows (fuzzed, 40 sizes), N = 0 without a
+    launch, and misaligned or wrongly typed inputs raising without one."""
     import numpy as np
     import torch
     from easydarwin_tpu_torch.codecs import h264_transform as ht
+    from easydarwin_tpu_torch.ops import h264_kernel as hk
+    from easydarwin_tpu_torch.ops import kernel_lib
     from easydarwin_tpu_torch.ops import transform as tf
+    threads = B6_CTA_ROWS
     x = h264_inputs(rng)
     cuda = {k: torch.from_numpy(v).cuda() for k, v in x.items()}
     cpu = {k: torch.from_numpy(v) for k, v in x.items()}
+
+    def run(d, fn_l, fn_c):
+        return (fn_l(d["lev"], d["qi"], d["qo"]),
+                *fn_c(d["dc"], d["ac"], d["qci"], d["qco"]))
+
+    def diff(got, want) -> int:
+        return max(int((a.cpu().long() - b.cpu().long()).abs().max())
+                   if a.numel() else 0 for a, b in zip(got, want))
+
+    before = dict(kernel_lib.LAUNCHES)
     t0 = time.perf_counter()
-    luma = tf.h264_requant(cuda["lev"], cuda["qi"], cuda["qo"])
-    dc, ac = tf.h264_requant_chroma(cuda["dc"], cuda["ac"], cuda["qci"],
-                                    cuda["qco"])
+    kern = run(cuda, hk.h264_requant_kernel, hk.h264_requant_chroma_kernel)
     torch.cuda.synchronize()
     first_ms = (time.perf_counter() - t0) * 1e3
-    for t in (luma, dc, ac):
+    for name in ("ed_h264_requant", "ed_h264_requant_chroma"):
+        check(kernel_lib.LAUNCHES[name] == before[name] + 1,
+              f"{name}: not one launch at config 5")
+    for t in kern:
         check(t.dtype == torch.int32 and t.is_cuda, f"B6 output {t.dtype}")
-    want_l = tf.h264_requant(cpu["lev"], cpu["qi"], cpu["qo"])
-    want_dc, want_ac = tf.h264_requant_chroma(cpu["dc"], cpu["ac"],
-                                              cpu["qci"], cpu["qco"])
-    luma, dc, ac = luma.cpu(), dc.cpu(), ac.cpu()
-    err = max(int((a.long() - b.long()).abs().max())
-              for a, b in ((luma, want_l), (dc, want_dc), (ac, want_ac)))
-    check(err == 0, f"B6 on the card differs from the CPU (max {err})")
+    plain = run(cuda, tf.h264_requant, tf.h264_requant_chroma)
+    host = run(cpu, tf.h264_requant, tf.h264_requant_chroma)
+    err = diff(kern, plain)
+    check(err == 0, f"B6 kernels differ from the plain chains (max {err})")
+    err_cpu = diff(kern, host)
+    check(err_cpu == 0, f"B6 kernels differ from the CPU (max {err_cpu})")
     delta = x["qco"] - x["qci"]
     arms = {"identity": int((delta == 0).sum()),
             "shift": int(((delta != 0) & (delta % 6 == 0)).sum()),
@@ -1339,67 +1402,279 @@ def phase_h264(rng) -> dict:
     clipped = int((np.abs(x["lev"]) > ht.LEVEL_CLIP).sum()
                   + (np.abs(x["ac"]) > ht.LEVEL_CLIP).sum())
     check(clipped > 0, "no level beyond LEVEL_CLIP")
+    luma, dc, ac = (t.cpu() for t in kern)
     for i in rng.choice(H264_LUMA_ROWS, H264_SAMPLE, replace=False):
         qi, qo = int(x["qi"][i]), int(x["qo"][i])
         want = (ht.requant_levels_scalar(x["lev"][i], qi, qo) if qo > qi
                 else np.clip(x["lev"][i], -ht.LEVEL_CLIP, ht.LEVEL_CLIP))
         check(np.array_equal(luma[i].numpy(), want),
-              f"h264_requant row {i} differs from the scalar oracle")
+              f"ed_h264_requant row {i} differs from the scalar oracle")
     for i in rng.choice(H264_CHROMA_ROWS, H264_SAMPLE, replace=False):
         sdc, sac = ht.requant_chroma_scalar(x["dc"][i], x["ac"][i],
                                             int(x["qci"][i]),
                                             int(x["qco"][i]))
         check(np.array_equal(dc[i].numpy(), sdc)
               and np.array_equal(ac[i].numpy(), sac),
-              f"h264_requant_chroma row {i} differs from the scalar oracle")
-    log(f"[b6] h264_requant [{H264_LUMA_ROWS},16] and h264_requant_chroma "
-        f"DC [{H264_CHROMA_ROWS},4] AC [{H264_CHROMA_ROWS},4,15] on the "
-        f"card: int32, equal to the CPU run; chroma arms {arms}; "
-        f"{clipped} levels beyond +-{ht.LEVEL_CLIP}; {H264_SAMPLE} sampled "
-        f"rows of each equal to the scalar oracles; first call "
-        f"{first_ms:.3f} host ms (both, synchronized)")
+              f"ed_h264_requant_chroma row {i} differs from the scalar "
+              "oracle")
+    log(f"[b6] ed_h264_requant [{H264_LUMA_ROWS},16] and "
+        f"ed_h264_requant_chroma DC [{H264_CHROMA_ROWS},4] AC "
+        f"[{H264_CHROMA_ROWS},4,15], one launch each: bit-exact with the "
+        f"plain torch chains on the card and with the CPU; chroma arms "
+        f"{arms}; {clipped} levels beyond +-{ht.LEVEL_CLIP}; "
+        f"{H264_SAMPLE} sampled rows of each equal to the scalar oracles; "
+        f"first call {first_ms:.3f} host ms (both, synchronized)")
+    # edge sizes: one row, and ragged sizes around the CTA's rows, each
+    # from the config-5 inputs (so every arm and clip recurs)
+    sizes = [1, threads - 1, threads + 1, 3 * threads + 37]
+    sizes += [int(n) for n in rng.integers(2, 5000, 36)]
+    worst = 0
+    for n in sizes:
+        lo = int(rng.integers(0, H264_CHROMA_ROWS - n))
+        sub = {k: v[lo:lo + n] for k, v in cuda.items()}
+        sub_cpu = {k: v[lo:lo + n] for k, v in cpu.items()}
+        got = run(sub, hk.h264_requant_kernel,
+                  hk.h264_requant_chroma_kernel)
+        worst = max(worst, diff(got, run(sub, tf.h264_requant,
+                                         tf.h264_requant_chroma)),
+                    diff(got, run(sub_cpu, tf.h264_requant,
+                                  tf.h264_requant_chroma)))
+    check(worst == 0, f"B6 kernels at the edge sizes differ (max {worst})")
+    log(f"[b6] {len(sizes)} edge sizes (N = 1, {threads - 1}, "
+        f"{threads + 1}, {3 * threads + 37} and 36 fuzzed below 5,000): "
+        f"bit-exact with the plain chains on the card and the CPU")
+    # refusals: nothing is launched
+    before = dict(kernel_lib.LAUNCHES)
+    empty = run({k: v[:0] for k, v in cuda.items()},
+                hk.h264_requant_kernel, hk.h264_requant_chroma_kernel)
+    check([tuple(t.shape) for t in empty] == [(0, 16), (0, 4), (0, 4, 15)],
+          f"B6 at N = 0: {[tuple(t.shape) for t in empty]}")
+    raw = torch.zeros(16 * 9 + 1, dtype=torch.int32, device="cuda")
+    bad = [
+        lambda: hk.h264_requant_kernel(raw[1:1 + 16 * 8].view(8, 16),
+                                       cuda["qi"][:8], cuda["qo"][:8]),
+        lambda: hk.h264_requant_kernel(cuda["lev"][:8].long(),
+                                       cuda["qi"][:8], cuda["qo"][:8]),
+        lambda: hk.h264_requant_kernel(cuda["lev"][:8], cuda["qi"][:8].long(),
+                                       cuda["qo"][:8]),
+        lambda: hk.h264_requant_chroma_kernel(
+            raw[1:1 + 4 * 8].view(8, 4), cuda["ac"][:8], cuda["qci"][:8],
+            cuda["qco"][:8]),
+        lambda: hk.h264_requant_chroma_kernel(
+            cuda["dc"][:8], cuda["ac"][:7], cuda["qci"][:8],
+            cuda["qco"][:8])]
+    for i, fn in enumerate(bad):
+        try:
+            fn()
+        except (TypeError, ValueError):
+            continue
+        raise AssertionError(f"B6 bad input {i} did not raise")
+    check(dict(kernel_lib.LAUNCHES) == before,
+          "an empty or refused B6 call launched")
+    log("[b6] N = 0 returns empty outputs; misaligned rows, int64 levels "
+        "or QPs and mismatched DC/AC rows raise; none launches")
+    leg = b6_leg_check(rng, x)
     return {"luma_rows": H264_LUMA_ROWS, "chroma_rows": H264_CHROMA_ROWS,
             "arms": arms, "levels_beyond_clip": clipped, "max_abs_err": err,
-            "first_call_ms": first_ms}, cuda
+            "max_abs_err_cpu": err_cpu, "edge_sizes": sizes,
+            "edge_max_abs_err": worst, "first_call_ms": first_ms,
+            "leg": leg}, cuda
 
 
-def phase_b6(x: dict) -> dict:
-    """B6's plain torch chains on the card at config-5 width, by CUDA
-    events around graph replays (and around direct calls, host enqueue
-    included), beside their byte bounds at the HBM rate; the results
-    after the replays equal the first call's.  Their operations (tens a
-    coefficient) bound them far below the bytes."""
+#: the ladder's leg checks: (rows, targets) of the luma leg and (QPs, rows
+#: a QP, targets) of the chroma leg; phase 13's AU (176x144: 99
+#: macroblocks, up to 1,683 luma rows and 99 chroma QPs, at 2 deltas) and
+#: sizes around a CTA's rows
+B6_LEG_LUMA = ((1, 1), (127, 2), (129, 3), (1683, 2), (4097, 2),
+               (65_536, 2))
+B6_LEG_CHROMA = ((1, 1, 1), (1, 2, 1), (63, 2, 2), (99, 2, 2), (333, 1, 2),
+                 (4097, 2, 3))
+#: host legs timed alone at phase 13's AU
+B6_LEG_REPS = 50
+
+
+def b6_leg_check(rng, x: dict) -> dict:
+    """The ladder's form of B6 (``ops.h264_kernel.RequantLeg``: numpy
+    rows narrowed and tiled over the targets into pinned staging,
+    uploaded, ONE launch, read back, in one call that keeps the GIL) at
+    ``B6_LEG_*``'s sizes from phase 5c's inputs, each bit-exact with the
+    plain chains on the same rows tiled on the card and one launch a leg;
+    two legs in flight harvested in reverse order; the host µs of a leg
+    alone at phase 13's AU (the constructor, then ``result``)."""
+    import numpy as np
     import torch
+    from easydarwin_tpu_torch.ops import h264_kernel as hk
+    from easydarwin_tpu_torch.ops import kernel_lib
     from easydarwin_tpu_torch.ops import transform as tf
+    dev = torch.device(DEVICE)
 
-    def luma():
-        return (tf.h264_requant(x["lev"], x["qi"], x["qo"]),)
+    def cu(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.int32)).cuda()
 
-    def chroma():
-        return tf.h264_requant_chroma(x["dc"], x["ac"], x["qci"], x["qco"])
+    def luma(r, t):
+        lo = int(rng.integers(0, H264_LUMA_ROWS - r))
+        rows = x["lev"][lo:lo + r].astype(np.int64)
+        qi = x["qi"][lo:lo + r].astype(np.int64)
+        steps = 6 * rng.integers(-1, 4, t)
+        want = tf.h264_requant(cu(np.tile(rows, (t, 1))), cu(np.tile(qi, t)),
+                               cu((qi[None] + steps[:, None]).reshape(-1)))
+        return [rows, qi, steps], [want]
 
-    res = {}
-    for name, fn, rows, row_bytes in (
-            ("h264_requant", luma, H264_LUMA_ROWS, 16 * 4),
-            ("h264_requant_chroma", chroma, H264_CHROMA_ROWS, 64 * 4)):
-        first = fn()
-        ms = graph_ms(fn, reps=11, inner=5)
-        call = call_ms(fn, reps=5, inner=5)
-        again = fn()
-        torch.cuda.synchronize()
-        check(all(torch.equal(a, b) for a, b in zip(first, again)),
-              f"{name} after the graph replays differs")
-        nbytes = h264_bound(rows, row_bytes)
-        bound = nbytes / PEAK_BYTES_PER_S * 1e3
-        res[name] = {"rows": rows, "ms": ms, "call_ms": call,
-                     "bytes": nbytes, "bound_ms": bound, "bound_by": "bytes",
-                     "times_bound": ms / bound,
-                     "gb_per_s": nbytes / (ms * 1e-3) / 1e9}
-        log(f"[b6] {name} ({rows} rows, plain torch int32 ops, no hand "
-            f"kernel): {ms:.6f} ms in a graph, {call:.6f} ms a direct "
-            f"call; bound {bound:.6f} ms by bytes ({nbytes / 1e6:.1f} MB "
-            f"at 3.35 TB/s), {ms / bound:.2f}x it, "
-            f"{res[name]['gb_per_s']:.1f} GB/s; equal after the replays")
+    def chroma(m, g, t):
+        lo = int(rng.integers(0, H264_CHROMA_ROWS - m * g))
+        dc = x["dc"][lo:lo + m * g].astype(np.int64)
+        ac = x["ac"][lo:lo + m * g].astype(np.int64)
+        qi = x["qci"][lo:lo + m].astype(np.int64)
+        offs = [lo] + [int(o) for o in
+                       rng.integers(0, H264_CHROMA_ROWS - m, t - 1)]
+        qo = np.stack([x["qco"][o:o + m] for o in offs]).astype(np.int64)
+        want = tf.h264_requant_chroma(
+            cu(np.tile(dc, (t, 1))), cu(np.tile(ac, (t, 1, 1))),
+            cu(np.repeat(np.tile(qi, t), g)), cu(np.repeat(qo.reshape(-1), g)))
+        return [dc, ac, qi, qo], list(want)
+
+    cases = ([("luma", luma(*c), 1, c) for c in B6_LEG_LUMA]
+             + [("chroma", chroma(*c), c[1], c) for c in B6_LEG_CHROMA])
+    worst = 0
+    for kind, (args, want), g, shape in cases:
+        name = "ed_h264_requant" + ("" if kind == "luma" else "_chroma")
+        before = kernel_lib.LAUNCHES[name]
+        got = hk.RequantLeg(kind, args, dev, group=g).result()
+        check(kernel_lib.LAUNCHES[name] == before + 1,
+              f"{kind} leg {shape}: not one launch")
+        for a, b in zip(got, want):
+            check(a.shape == tuple(b.shape), f"{kind} leg {shape}: shape "
+                  f"{a.shape} != {tuple(b.shape)}")
+            worst = max(worst, int(np.abs(a - b.cpu().numpy()).max()))
+    check(worst == 0, f"B6 legs differ from the plain chains (max {worst})")
+    # two legs in flight, harvested in reverse order (each owns buffers)
+    (la, wa), (lb, wb) = luma(1683, 2), luma(999, 3)
+    pa = hk.RequantLeg("luma", la, dev)
+    pb = hk.RequantLeg("luma", lb, dev)
+    check(np.array_equal(pb.result()[0], wb[0].cpu().numpy())
+          and np.array_equal(pa.result()[0], wa[0].cpu().numpy()),
+          "two B6 legs in flight mixed their rows")
+    # a leg alone at phase 13's AU: the host µs of each half
+    (ll, _), (lc, _) = luma(1683, 2), chroma(99, 2, 2)
+    sub, res = [], []
+    for _ in range(B6_LEG_REPS):
+        t0 = time.perf_counter()
+        legs = (hk.RequantLeg("luma", ll, dev),
+                hk.RequantLeg("chroma", lc, dev, group=2))
+        t1 = time.perf_counter()
+        for leg in legs:
+            leg.result()
+        sub.append((t1 - t0) * 1e6)
+        res.append((time.perf_counter() - t1) * 1e6)
+    alone = {"submit_us_p50": float(np.median(sub)),
+             "result_us_p50": float(np.median(res))}
+    log(f"[b6] the ladder's leg (RequantLeg: stage, upload, one launch, "
+        f"readback in one GIL-keeping call) at {len(cases)} sizes "
+        f"(luma {B6_LEG_LUMA}, chroma {B6_LEG_CHROMA}: (rows or QPs, "
+        f"rows a QP, targets)): bit-exact with the plain chains on the "
+        f"tiled rows, one launch a leg; two in flight harvested in "
+        f"reverse order; alone at phase 13's AU (luma 1683 x 2, chroma "
+        f"99 x 2 x 2), median of {B6_LEG_REPS}: both legs' constructors "
+        f"{alone['submit_us_p50']:.1f} host us, their results "
+        f"{alone['result_us_p50']:.1f}")
+    return {"max_abs_err": worst, "alone": alone}
+
+
+#: integer operations a B6 luma level (clip 2, abs, add, shift, sign
+#: multiply) and a row (k and the offset); a chroma row's general arm
+#: (dequant 120, the four blocks' inverse and forward cores 512, the
+#: round and clips 320, requant 448, DC chains 52), shift arm 256 and
+#: selects 128
+OPS_PER_B6_LUMA_LEVEL, OPS_PER_B6_LUMA_ROW = 6, 8
+OPS_PER_B6_CHROMA_ROW = 1836
+
+
+def b6_bound(kind: str, rows: int) -> tuple[int, int]:
+    """(bytes, operations) of one B6 call at ``rows`` rows."""
+    if kind == "luma":
+        return (h264_bound(rows, 16 * 4),
+                rows * (16 * OPS_PER_B6_LUMA_LEVEL + OPS_PER_B6_LUMA_ROW))
+    return h264_bound(rows, 64 * 4), rows * OPS_PER_B6_CHROMA_ROW
+
+
+def b6_cases(x: dict) -> list:
+    """Phase 10's B6 rows at phase 5c's config-5 inputs: each kernel's
+    entry point on preallocated outputs, its wrapper and its plain chain
+    (``phase_kernels``'s case tuple)."""
+    import torch
+    from easydarwin_tpu_torch.ops import h264_kernel as hk
+    from easydarwin_tpu_torch.ops import kernel_lib
+    from easydarwin_tpu_torch.ops import transform as tf
+    src = "easydarwin_tpu_torch/csrc/h264_kernels.cu"
+    n, m = x["lev"].shape[0], x["dc"].shape[0]
+    out = torch.empty_like(x["lev"])
+    dc_out, ac_out = torch.empty_like(x["dc"]), torch.empty_like(x["ac"])
+    lb, lo = b6_bound("luma", n)
+    cb, co = b6_bound("chroma", m)
+    return [
+        ("ed_h264_requant", f"[{n},16]", True, src,
+         "easydarwin_tpu/ops/transform.py:264",
+         lambda: kernel_lib.launch(
+             "ed_h264_requant", x["lev"].data_ptr(), x["qi"].data_ptr(),
+             x["qo"].data_ptr(), n, out.data_ptr()),
+         lambda: hk.h264_requant_kernel(x["lev"], x["qi"], x["qo"]),
+         lambda: tf.h264_requant(x["lev"], x["qi"], x["qo"]), None,
+         lb, lo, 20),
+        ("ed_h264_requant_chroma", f"DC [{m},4] AC [{m},4,15]", True, src,
+         "easydarwin_tpu/ops/transform.py:315",
+         lambda: kernel_lib.launch(
+             "ed_h264_requant_chroma", x["dc"].data_ptr(),
+             x["ac"].data_ptr(), x["qci"].data_ptr(), x["qco"].data_ptr(),
+             m, dc_out.data_ptr(), ac_out.data_ptr()),
+         lambda: hk.h264_requant_chroma_kernel(x["dc"], x["ac"], x["qci"],
+                                               x["qco"]),
+         lambda: tf.h264_requant_chroma(x["dc"], x["ac"], x["qci"],
+                                        x["qco"]), None,
+         cb, co, 20)]
+
+
+def phase_b6(x: dict, timed: list, floor_ms: float, hls: dict) -> dict:
+    """B6 at config 5 from phase 10's rows (the kernels in a graph, the
+    plain chains, the bounds and the launch floor), and the kernels again
+    after the graph replays, bit-exact with the plain chains; beside them
+    phase 13's dispatch leg (host ms an AU)."""
+    import torch
+    from easydarwin_tpu_torch.ops import h264_kernel as hk
+    from easydarwin_tpu_torch.ops import transform as tf
+    got = (hk.h264_requant_kernel(x["lev"], x["qi"], x["qo"]),
+           *hk.h264_requant_chroma_kernel(x["dc"], x["ac"], x["qci"],
+                                          x["qco"]))
+    want = (tf.h264_requant(x["lev"], x["qi"], x["qo"]),
+            *tf.h264_requant_chroma(x["dc"], x["ac"], x["qci"], x["qco"]))
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(got, want)),
+          "B6 kernels after the graph replays differ from the plain chains")
+    res = {"transform_device_ms_per_au":
+           hls["stage_ms_per_au"]["transform_device"]}
+    for name in ("ed_h264_requant", "ed_h264_requant_chroma"):
+        k = next(t for t in timed if t["name"] == name)
+        res[name] = {"shape": k["_shape"], "ms": k["ms"],
+                     "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+                     "bound_by": k["bound_by"],
+                     "bound_share": k["_bound_share"],
+                     "gb_per_s": k["_gb_per_s"],
+                     "call_ms": k["_wrapper_call_ms"],
+                     "plain_call_ms": k["_plain_call_ms"],
+                     "floors": k["ms"] / floor_ms,
+                     "launches": k["launches"]}
+        log(f"[b6] {name} at config 5 ({k['_shape']}): {k['ms']:.6f} ms in "
+            f"a graph ({k['ms'] / floor_ms:.2f}x the launch floor), bound "
+            f"{k['bound_ms']:.6f} ms by {k['bound_by']} "
+            f"({k['_bound_share']:.1%} of it, {k['_gb_per_s']:.1f} GB/s); "
+            f"plain torch chain {k['plain_ms']:.6f} ms in a graph "
+            f"({k['plain_ms'] / k['ms']:.1f}x the kernel), "
+            f"{k['_plain_call_ms']:.6f} ms a direct call; the wrapper "
+            f"{k['_wrapper_call_ms']:.6f} ms a direct call; "
+            f"{k['launches']} launches on the HLS path")
+    log(f"[b6] phase 13's dispatch leg (pinned upload, both launches, "
+        f"readback, event wait): "
+        f"{res['transform_device_ms_per_au']:.3f} host ms an AU; the "
+        f"kernels equal the plain chains after the graph replays")
     return res
 
 
@@ -2335,6 +2610,153 @@ def phase_dvr(rng) -> dict:
             "kernel_launches": launches}
 
 
+# ------------------------------------------------------------- phase 13
+#: config 5's H.264 ladder through HLS: 16 sources, the cut picture size
+#: (the CPython entropy walk of parse and recode, ROADMAP A7c, costs
+#: about a millisecond a macroblock a rendition; the B6 pass runs at
+#: config-5 width in phases 5c and 10), pictures a source and the push
+#: rate (16 x HLS_FPS AUs a second, below what the ladders keep up with
+#: at this size; more pictures a path than the ladder's shed gate,
+#: ``max(4, 2 * workers)`` AUs pending, so that a ladder falling behind
+#: would shed), the requant rungs and the master GETs (single-slice
+#: sources, which also get r1 and r2)
+HLS_SOURCES, HLS_WIDTH, HLS_HEIGHT = 16, 176, 144
+HLS_FRAMES, HLS_FPS, HLS_GOP = 24, 0.4, 3
+HLS_DELTAS = (6, 12)
+HLS_MASTER = 4
+#: processes encoding the sources and running the host scalar oracle
+HLS_PREP_WORKERS = 6
+
+
+def phase_hls(rng, hls_device: str | None = None) -> dict:
+    """HLS with the requant ladder through the CLI server on the card
+    (``utils.hls_loopback.serve_hls``; with ``hls_device="cpu"`` the
+    ladders run B6 as the plain torch chains on the CPU): every segment
+    sample held to the pushed pictures or to the host scalar oracle, 0
+    device errors, 0 passed-through slices, 0 shed AUs with more AUs a
+    path than the shed gate, a 304, 16 paths listed, and the server's B6
+    launches equal to its ladders' dispatches."""
+    from easydarwin_tpu_torch.utils import hls_loopback as hl
+    sources = hl.config5_sources(HLS_SOURCES)
+    where = "the card" if hls_device is None else hls_device
+    log(f"[hls] the cut: {HLS_WIDTH}x{HLS_HEIGHT} pictures "
+        f"({(HLS_WIDTH // 16) * (HLS_HEIGHT // 16)} macroblocks) for "
+        f"config 5's 1920x1080 (8,160): the host's CPython parse and "
+        f"recode, not B6, bound the ladder; {HLS_FRAMES} pictures a "
+        f"source at {HLS_FPS} a second ({HLS_SOURCES * HLS_FPS:g} AUs a "
+        f"second offered), GOPs of {HLS_GOP}; B6 on {where}")
+    load0, cpu0, t0 = os.getloadavg(), time.process_time(), time.monotonic()
+    res = asyncio.run(asyncio.wait_for(hl.serve_hls(
+        DEVICE, rng, sources=sources, width=HLS_WIDTH, height=HLS_HEIGHT,
+        frames=HLS_FRAMES, fps=HLS_FPS, gop=HLS_GOP, deltas=HLS_DELTAS,
+        master=HLS_MASTER, seed=int(rng.integers(1 << 31)),
+        workers=HLS_PREP_WORKERS, hls_device=hls_device), 600))
+    res["host"] = {"loadavg_before": load0, "loadavg_after": os.getloadavg(),
+                   "cpus": len(os.sched_getaffinity(0)),
+                   "smoke_cpu_s": time.process_time() - cpu0,
+                   "smoke_wall_s": time.monotonic() - t0}
+    st = res["server_stats"]
+    hls = st["hls"]
+    check(len(res["streams"]) == HLS_SOURCES,
+          f"gethlsstreams lists {len(res['streams'])} paths")
+    passed = sum(r.get("passed_through_slices", 0)
+                 for s in res["streams"] for r in s["renditions"])
+    check(passed == 0, f"{passed} slices passed through")
+    gate = max(4, 2 * hls["pool_workers"])
+    check(HLS_FRAMES > gate, f"{HLS_FRAMES} AUs a path cannot reach the "
+          f"shed gate of {gate} pending")
+    check(hls["shed"] == 0, f"{hls['shed']} AUs shed")
+    stages = hls["stage_ms_per_au"]
+    n_cabac = sum(s.entropy == "cabac" for s in sources)
+    log(f"[hls] {HLS_SOURCES} sources ({n_cabac} "
+        f"CABAC, {sum(s.slices > 1 for s in sources)} of 3 slices, "
+        f"{sum(s.audio for s in sources)} with AAC) pushed over interleaved "
+        f"TCP in {res['push_s']:.3f} s, the ladders drained "
+        f"{res['drain_s']:.3f} s after; {res['segments']} segments "
+        f"({res['av_segments']} A/V), {res['samples']} video samples each "
+        f"equal to the push or the scalar oracle, "
+        f"{res['audio_samples']} AAC samples; bytes by rendition "
+        f"{res['bytes']}, of them video samples {res['video_bytes']}; 304 "
+        f"on {res['revalidated']}")
+    log(f"[hls] ladders (B6 on {hls['device']}): {hls['aus']} AUs, "
+        f"{hls['dispatches']} dispatches "
+        f"({hls['dispatches_chroma']} with chroma), device errors "
+        f"{hls['device_errors']}, shed {hls['shed']} (gate {gate} pending "
+        f"with {hls['pool_workers']} workers; at most "
+        f"{hls['pending_max']} pending), mismatches "
+        f"{hls['mismatches']}; an AU's latency (depacketized to emitted) "
+        f"{hls['latency_ms_per_au']:.3f} ms mean, "
+        f"{hls['latency_s_max'] * 1e3:.3f} max; host ms an AU by stage: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in stages.items())
+        + "; the dispatch leg's host ms a dispatch: submit (gather, "
+        f"staging, enqueue) {hls['transform_ms_per_dispatch']['submit']:.3f},"
+        f" wait (the readbacks' events) "
+        f"{hls['transform_ms_per_dispatch']['wait']:.3f}")
+    log(f"[hls] launches: ed_h264_requant "
+        f"{st['kernel_launches']['ed_h264_requant']}, "
+        f"ed_h264_requant_chroma "
+        f"{st['kernel_launches']['ed_h264_requant_chroma']} (= the "
+        f"dispatches on the card, 0 on the CPU); the pump's wake ms p50 "
+        f"{st['wake_ms_p50']:.3f} max "
+        f"{st['wake_ms_max']:.3f} while the ladders ran; sources prepared "
+        f"in {res['prepare_s']:.3f} s")
+    host = res["host"]
+    log(f"[hls] host: the server used {st['cpu_s']:.3f} CPU s in "
+        f"{st['wall_s']:.3f} s; this process {host['smoke_cpu_s']:.3f} CPU "
+        f"s in {host['smoke_wall_s']:.3f} s (the sources' encoding and the "
+        f"oracle run in {HLS_PREP_WORKERS} other processes); load average "
+        f"{host['loadavg_before']} before, {host['loadavg_after']} after, "
+        f"{host['cpus']} CPUs")
+    return res
+
+
+def hls_control() -> int:
+    """``--hls-control``: the build, the card, phase 5c's leg check and
+    phase 13 twice in one process, with the ladders' B6 on the card and
+    then on the CPU's plain torch chains (``--hls-device cpu``), each
+    checked in full; one JSON line of the two runs' drain, latency,
+    stage and wake figures before the last line."""
+    import numpy as np
+    import torch
+    from easydarwin_tpu_torch.ops import kernel_lib
+    rng = np.random.default_rng(20261017)
+    b = kernel_lib.build()
+    kernel_lib.library()
+    log(f"[build] {b.path.name} built in {b.seconds:.3f} s")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip()
+    log(f"[card] {smi}")
+    b6_leg_check(rng, h264_inputs(rng))
+    runs = {}
+    for name, where in (("card", None), ("cpu", "cpu")):
+        res = phase_hls(rng, where)
+        st = res["server_stats"]
+        hls = st["hls"]
+        runs[name] = {
+            "push_s": res["push_s"], "drain_s": res["drain_s"],
+            "aus": hls["aus"], "shed": hls["shed"],
+            "pending_max": hls["pending_max"],
+            "latency_ms_mean": hls["latency_ms_per_au"],
+            "latency_ms_max": hls["latency_s_max"] * 1e3,
+            "stage_ms_per_au": hls["stage_ms_per_au"],
+            "transform_ms_per_dispatch": hls["transform_ms_per_dispatch"],
+            "wake_ms_p50": st["wake_ms_p50"], "wake_ms_max": st["wake_ms_max"],
+            "server_cpu_s": st["cpu_s"], "server_wall_s": st["wall_s"],
+            "host": res["host"],
+            "launches": {k: st["kernel_launches"][k] for k in HLS_KERNELS}}
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "hls_control.json"), "w") as f:
+        json.dump(runs, f, indent=1)
+    print(json.dumps({"hls_control": runs}), flush=True)
+    print(smi, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
 def gf_storage_check(rng, shapes) -> int:
     """``ed_gf_parity`` (the wrapper) vs ``gf_parity_plain`` on the same
     card tensors at phase 12's stripe shapes; the largest difference."""
@@ -2366,7 +2788,8 @@ def ptxas_report(build_log: str) -> dict:
              "ring_query_kernel", "launch_floor_kernel",
              "decode_blocks_kernel", "gf_parity_lanes_kernel",
              "gf_parity_stripe_kernel", "relay_batch_kernel",
-             "requant_rungs_kernel")
+             "requant_rungs_kernel", "h264_requant_chroma_kernel",
+             "h264_requant_kernel")
     out, cur = {}, None
     for line in build_log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
@@ -2426,7 +2849,7 @@ def prime_window_specs(prime_shapes: dict, top: int = 3) -> list:
 
 def phase_kernels(rng, launches: dict, errs: dict, levels, qt,
                   b9_shape: tuple[int, int],
-                  vod_specs=(), stripe_shapes=()) -> list[dict]:
+                  vod_specs=(), stripe_shapes=(), b6=()) -> list[dict]:
     """Each kernel alone (entry point on preallocated outputs) and its
     plain version, by CUDA events around graph replays, at the main path's
     shapes (K1: 256 rows; window: the phase-6 wake group, one launch, and
@@ -2624,6 +3047,7 @@ def phase_kernels(rng, launches: dict, errs: dict, levels, qt,
         lambda: torch.matmul(deq, inv.T),      # product alone
         4 * levels.numel() + 4 * 64 + 4 * idct8.numel() + pixels.numel(),
         2 * (2 * 8 * 64) * n, 20))
+    cases.extend(b6)                           # B6: config 5 (phase 5c)
     out = []
     for i, (name, shape, main, src, src_line, kernel, wrapper, plain,
             library, nbytes, ops, inner) in enumerate(cases):
@@ -2963,6 +3387,11 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this test "
               "needs a CUDA card", file=sys.stderr)
         return 2
+    if sys.argv[1:] == ["--hls-control"]:
+        return hls_control()
+    if sys.argv[1:]:
+        print(f"chip_smoke: unknown arguments {sys.argv[1:]}", file=sys.stderr)
+        return 2
     import numpy as np
     from easydarwin_tpu_torch import native
     from easydarwin_tpu_torch.ops import kernel_lib
@@ -3031,7 +3460,8 @@ def main() -> int:
     log(f"[main path] kernel launches {launches} (in-process {in_proc}, "
         f"servers {servers})")
     for k, n in launches.items():
-        check(n > 0, f"kernel {k} was not launched on the main path")
+        check(n > 0 or k in HLS_KERNELS,
+              f"kernel {k} was not launched on the main path")
 
     clips = vod_clips(int(rng.integers(1 << 31)))
     kernel_lib.reset_launch_counts()           # the VOD path starts here
@@ -3061,6 +3491,19 @@ def main() -> int:
     launches = {k: n + dvr_launches[k] for k, n in launches.items()}
     stripe_shapes = detail["dvr"]["shapes"]
 
+    kernel_lib.reset_launch_counts()           # the HLS path starts here
+    detail["hls"] = phase_hls(rng)
+    hls_in_proc = dict(kernel_lib.LAUNCHES)
+    hls_srv = detail["hls"]["server_stats"]["kernel_launches"]
+    hls_launches = {k: hls_in_proc[k] + hls_srv.get(k, 0)
+                    for k in hls_in_proc}
+    log(f"[hls path] kernel launches {hls_launches} (in-process "
+        f"{hls_in_proc}, server {hls_srv})")
+    for k in HLS_KERNELS:
+        check(hls_launches[k] > 0, f"{k} was not launched on the HLS path")
+    detail["hls_path_launches"] = hls_launches
+    launches = {k: n + hls_launches[k] for k, n in launches.items()}
+
     errs = {"ed_parse_packets": max(detail["k1"].values()),
             "ed_relay_window": max(
                 [*detail["window"].values()]
@@ -3072,7 +3515,12 @@ def main() -> int:
             "ed_gf_parity": max(detail["gf"]["max_abs_err"],
                                 gf_storage_check(rng, stripe_shapes)),
             "ed_relay_batch": max(detail["b9"].values()),
-            "ed_requant_rungs": max(detail["b7_check"].values())}
+            "ed_requant_rungs": max(detail["b7_check"].values()),
+            "ed_h264_requant": max(detail["b6"]["max_abs_err"],
+                                   detail["b6"]["max_abs_err_cpu"],
+                                   detail["b6"]["edge_max_abs_err"],
+                                   detail["b6"]["leg"]["max_abs_err"])}
+    errs["ed_h264_requant_chroma"] = errs["ed_h264_requant"]
     detail["launch_floor_ms"] = launch_floor_ms()
     log(f"[kernels] launch floor: {detail['launch_floor_ms']:.6f} ms per "
         f"graph node (ed_launch_floor, an empty kernel)")
@@ -3083,7 +3531,7 @@ def main() -> int:
     b9_s = sum(1 for pl in RTCP_PLAYERS if pl["meta"] or pl["lossy"])
     timed = phase_kernels(rng, launches, errs, levels, qt, (b9_p, b9_s),
                           prime_window_specs(detail["vod"]["prime_shapes"]),
-                          stripe_shapes)
+                          stripe_shapes, b6_cases(b6_inputs))
     detail["kernels"] = timed
     detail["join_query"] = join = join_query_ms(rng)
     ring_ms = next(k["ms"] for k in timed if k["name"] == "ed_ring_query"
@@ -3100,7 +3548,9 @@ def main() -> int:
     detail["b7"] = phase_b7(timed, detail["pipeline"])
     detail["b4"] = phase_b4(rng, timed, detail["launch_floor_ms"],
                             detail["lossy"])
-    detail["b6_timing"] = phase_b6(b6_inputs)
+    detail["b6_timing"] = phase_b6(b6_inputs, timed,
+                                   detail["launch_floor_ms"],
+                                   detail["hls"]["server_stats"]["hls"])
     del b6_inputs
     caps = native.uring_probe()
     detail["uring"] = {"probe": caps, "answer": native.describe_uring(caps)}

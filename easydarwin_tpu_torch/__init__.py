@@ -8,7 +8,10 @@ per-subscriber affine rewrite.  The config-5
 transcode path runs here too: ``models.TranscodePipeline`` requantizes
 coefficient blocks into every ladder rung and decodes pixels with the
 hand-written K2 (``csrc/transform_kernels.cu``), and the live MJPEG ladder
-(``models.mjpeg_ladder``) is started over REST.  Every plain PyTorch
+(``models.mjpeg_ladder``) is started over REST.  The HLS tier
+(``hls``) publishes pushed H.264 as fMP4 with temporal and requant rungs;
+the requant rungs' B6 pass is two hand-written kernels
+(``csrc/h264_kernels.cu``).  Every plain PyTorch
 function beside a kernel computes the same result and is what a CPU tensor
 runs.
 

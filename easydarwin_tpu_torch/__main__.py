@@ -1,6 +1,6 @@
 """CLI entry: ``python -m easydarwin_tpu_torch [-p PORT] [--service-port N]
 [--device cuda|cpu] [--movie-folder DIR] [--vod-cache-*] [--dvr-*]
-[--storage-*]``.
+[--storage-*] [--hls-device cuda|cpu]``.
 
 Serves the live relay: pushers ANNOUNCE/SETUP/RECORD over interleaved TCP
 or UDP (``client_port``; their RTP drained in native recvmmsg batches),
@@ -17,7 +17,12 @@ With ``--dvr-enabled 1`` every pushed session records to
 into the past (with ``Speed`` to catch up), and a finished recording
 plays as ``rtsp://host:port/<path>.dvr``; ``--storage-enabled 1``
 erasure-codes each finished recording into ``<movie-folder>/.shards``
-(``--storage-data-shards`` k, ``--storage-parity-shards`` m).
+(``--storage-data-shards`` k, ``--storage-parity-shards`` m).  A pushed
+H.264 path publishes over HLS: ``/api/v1/starthls?path=/cam&rungs=q6,q12``
+(or a GET of ``/hls/cam/master.m3u8``, which adds the temporal rungs r1
+and r2) on the service port, then ``/hls/cam/[<rung>/]index.m3u8``,
+``init.mp4`` and ``seg<N>.m4s``; the requant rungs run B6 on ``--device``
+(or ``--hls-device``).
 Prints one ``listening:`` line once both listeners are bound (port 0 picks
 a free port) and runs until SIGINT/SIGTERM.
 """
@@ -91,6 +96,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--storage-scrub-interval-sec", type=float,
                    default=d.storage_scrub_interval_sec,
                    help="seconds between scrubs of the local shards")
+    p.add_argument("--hls-device", choices=("cuda", "cpu"), default=None,
+                   help="where the HLS requant rungs run B6 (default: "
+                        "--device)")
     return p
 
 
@@ -112,7 +120,8 @@ async def amain(args) -> int:
                        storage_data_shards=args.storage_data_shards,
                        storage_parity_shards=args.storage_parity_shards,
                        storage_scrub_interval_sec=(
-                           args.storage_scrub_interval_sec))
+                           args.storage_scrub_interval_sec),
+                       hls_device=args.hls_device)
     app = StreamingServer(cfg, device=args.device)
     await app.start()
     print(f"easydarwin-tpu-torch listening: rtsp://{cfg.bind_ip}:"

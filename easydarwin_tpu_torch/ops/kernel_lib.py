@@ -13,9 +13,13 @@ A failed build or a failed launch raises; nothing here falls back to the
 plain PyTorch versions.  Each wrapper adds one to its entry in
 ``LAUNCHES`` where it launches its kernel.
 
-Kernels are launched from more than one thread (the pump, and the
-storage tier's workers that run B4 for stripes), so the build and load,
-the scratch buffers and the launch counts are guarded by one lock.
+Kernels are launched from more than one thread (the pump, the storage
+tier's workers that run B4 for stripes, and the HLS requant pool's
+workers that run B6), so the build and load, the scratch buffers and
+the launch counts are guarded by one lock.  A ``ctypes.CDLL`` call gives
+up the GIL; the few entry points that serve Python worker threads with
+microseconds of host work are bound a second time through
+``ctypes.PyDLL`` (``held``), which keeps it.
 """
 
 from __future__ import annotations
@@ -36,7 +40,8 @@ import torch
 _PKG = Path(__file__).resolve().parents[1]
 SOURCES = (_PKG / "csrc" / "relay_kernels.cu",
            _PKG / "csrc" / "transform_kernels.cu",
-           _PKG / "csrc" / "fec_kernels.cu")
+           _PKG / "csrc" / "fec_kernels.cu",
+           _PKG / "csrc" / "h264_kernels.cu")
 BUILD_DIR = _PKG.parent / "build" / "easydarwin_tpu_torch"
 GENCODE = ("-gencode", "arch=compute_90a,code=sm_90a")
 #: compile flags of every source (no fast-math: K2 rounds like jnp.round,
@@ -47,7 +52,8 @@ NVCC_FLAGS = (*GENCODE, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 #: kernel name → launches made by its wrapper in this process
 LAUNCHES = {"ed_parse_packets": 0, "ed_relay_window": 0,
             "ed_ring_query": 0, "ed_decode_blocks": 0, "ed_gf_parity": 0,
-            "ed_relay_batch": 0, "ed_requant_rungs": 0}
+            "ed_relay_batch": 0, "ed_requant_rungs": 0,
+            "ed_h264_requant": 0, "ed_h264_requant_chroma": 0}
 
 #: cp.async.bulk moves 16-byte-aligned runs that are a multiple of 16 bytes
 BULK_ALIGN = 16
@@ -98,7 +104,29 @@ _SIGNATURES = {
     "ed_requant_rungs": (_P, _I, _P, _P, _I, _P, _P, _P, _P),
     # -> max rungs, max blocks, max CTAs
     "ed_requant_geometry": (_IP, _IP, _IP),
+    # levels, qp_in, qp_out, N, out, stream
+    "ed_h264_requant": (_P, _P, _P, _I, _P, _P),
+    # dc, ac, qpc_in, qpc_out, N, dc_out, ac_out, stream
+    "ed_h264_requant_chroma": (_P, _P, _P, _P, _I, _P, _P, _P),
+    # -> a CUDA event without timing
+    "ed_event_create": (ctypes.POINTER(_P),),
+    # event (waits without the GIL: this library is a CDLL)
+    "ed_event_synchronize": (_P,),
 }
+#: the entry points bound again through ``ctypes.PyDLL`` (``held``): host
+#: calls of microseconds that keep the GIL, for callers beside busy Python
+#: threads, where every call that gives the GIL up waits to take it back
+_HELD_SIGNATURES = {
+    # rows, qp_in, deltas, r, t, stage, dev, back, event, stream
+    "ed_h264_requant_leg": (_P, _P, _P, _I, _I, _P, _P, _P, _P, _P),
+    # dc, ac, qp_in, qp_out, m, g, t, stage, dev, back, event, stream
+    "ed_h264_requant_chroma_leg": (_P, _P, _P, _P, _I, _I, _I, _P, _P, _P,
+                                   _P, _P),
+    # event, back, words, out, spin_us
+    "ed_h264_leg_finish": (_P, _P, ctypes.c_longlong, _P, _I),
+}
+#: ``cudaErrorNotReady``: an event or stream still has work pending
+CUDA_ERROR_NOT_READY = 600
 
 
 @dataclass
@@ -109,9 +137,10 @@ class BuildResult:
 
 
 _LIB: ctypes.CDLL | None = None
+_HELD: ctypes.PyDLL | None = None
 _BUILD: BuildResult | None = None
 _SCRATCH: dict[tuple, torch.Tensor] = {}
-#: guards ``_LIB``, ``_BUILD``, ``_SCRATCH`` and ``LAUNCHES``
+#: guards ``_LIB``, ``_HELD``, ``_BUILD``, ``_SCRATCH`` and ``LAUNCHES``
 _LOCK = threading.RLock()
 
 
@@ -212,6 +241,38 @@ def _load() -> ctypes.CDLL:
             raise RuntimeError(f"kWindowSmemLimit {limit.value} != "
                                f"WINDOW_SMEM_LIMIT {WINDOW_SMEM_LIMIT}")
     return lib
+
+
+def held() -> ctypes.PyDLL:
+    """The library's GIL-keeping entry points (``_HELD_SIGNATURES``):
+    the same file loaded through ``ctypes.PyDLL``, whose calls do not give
+    up the GIL."""
+    global _HELD
+    if _HELD is None:
+        path = build().path
+        library()
+        with _LOCK:
+            if _HELD is None:
+                lib = ctypes.PyDLL(str(path))
+                for name, argtypes in _HELD_SIGNATURES.items():
+                    fn = getattr(lib, name)
+                    fn.argtypes = list(argtypes)
+                    fn.restype = ctypes.c_int
+                _HELD = lib
+    return _HELD
+
+
+def launch_held(name: str, kernel: str, *args,
+                device: torch.device) -> None:
+    """Call the GIL-keeping entry point ``name``, which launches
+    ``kernel`` once, on ``device``'s current stream; raise on a CUDA
+    error, count the launch of ``kernel`` otherwise."""
+    stream = torch.cuda.current_stream(device).cuda_stream
+    rc = getattr(held(), name)(*args, stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} failed: {error_message(rc)}")
+    with _LOCK:
+        LAUNCHES[kernel] += 1
 
 
 def launch(name: str, *args) -> None:

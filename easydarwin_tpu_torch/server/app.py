@@ -34,7 +34,16 @@ acks and give-ups (``"reliable"``).
 
 Once a second the pump evicts old packets, sends each pusher its due
 receiver reports, closes idle connections and retires transcode ladders
-whose source went away.
+and HLS entries whose source went away.
+
+HLS (``hls``): REST ``starthls`` or a GET of ``/hls/<path>/master.m3u8``
+attaches the path's segmenters to its video track as relay outputs
+(temporal rungs are thinned outputs, so they take the batch-header rung);
+the requant rungs share one ``RequantLadder`` a path, whose B6 pass runs
+on the server's device (or ``ServerConfig.hls_device``) from the requant
+worker pool, beside the pump.
+``stats()["hls"]`` sums the ladders' counters (dispatches, device
+errors, shed AUs, host seconds by stage).
 
 File playback (``vod``): with the segment cache on, the group pacer
 (``VodPacerGroup``) fills every hot file session's rings at the head of
@@ -76,6 +85,7 @@ import torch
 from .. import native, resolve_device
 from ..dvr import DvrManager
 from ..dvr.timeshift import DVR_TIER
+from ..hls import HlsService
 from ..models.mjpeg_ladder import MjpegTranscodeService
 from ..ops import device_ring, kernel_lib
 from ..relay.fanout import FanoutEngine
@@ -118,6 +128,12 @@ class StreamingServer:
             self.registry, on_frame=lambda _p: self._wake(),
             device=self.device)
         self.rest = RestApi(self.config, self)
+        #: HLS publishing (REST ``starthls``, ``/hls/`` GETs); its requant
+        #: rungs run B6 on the server's device unless the config names one
+        self.hls = HlsService(
+            self.registry,
+            device=(self.device if self.config.hls_device is None
+                    else resolve_device(self.config.hls_device)))
         self.recordings = RecordingManager()
         #: recorder temp files found in the movie folder at start
         self.record_orphans: list[str] = []
@@ -168,6 +184,11 @@ class StreamingServer:
         self.wake_ms_first: float | None = None
         self.packets_out = 0
         self.pump_errors = 0
+        #: the process's CPU seconds (every thread) and the host clock at
+        #: construction: ``stats`` reports both since then, which says
+        #: whether the server ran short of cores or of the GIL
+        self._cpu0 = time.process_time()
+        self._wall0 = time.monotonic()
 
     def _build_dvr(self) -> None:
         """The DVR manager under ``<movie_folder>/.dvr`` and the store
@@ -459,6 +480,7 @@ class StreamingServer:
                         st.send_upstream_rr(t)
                 self.rtsp.sweep_timeouts()
                 self.transcodes.sweep()
+                self.hls.sweep()
                 if self.storage is not None \
                         and now >= self._storage_scrub_due:
                     self._storage_scrub_due = (
@@ -498,6 +520,10 @@ class StreamingServer:
                 "dvr_megabatch_streams": self.dvr_megabatch_streams,
                 "storage": (None if self.storage is None
                             else self.storage.stats()),
+                "hls": self.hls.stats(),
+                "hls_not_modified": self.rest.hls_not_modified,
                 "recordings": len(self.recordings.active),
                 "record_orphans": self.record_orphans,
+                "cpu_s": time.process_time() - self._cpu0,
+                "wall_s": time.monotonic() - self._wall0,
                 "kernel_launches": dict(kernel_lib.LAUNCHES)}

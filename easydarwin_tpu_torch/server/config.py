@@ -67,3 +67,6 @@ class ServerConfig:
     storage_scrub_interval_sec: float = 30.0
     #: this node's name in shard claims and manifests
     server_id: str = "easydarwin-tpu-0"
+    #: where the HLS requant rungs run B6 (``"cuda"`` or ``"cpu"``);
+    #: None: the server's device
+    hls_device: str | None = None

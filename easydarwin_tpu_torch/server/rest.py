@@ -1,14 +1,23 @@
-"""JSON REST management API on the service port, trimmed to the
-transcode ladder and the recorder.
+"""JSON REST management API and HLS serving on the service port.
 
 A tiny HTTP/1.1 keep-alive server (no framework): request line, headers
-and an optional body, a ``/api/v1/<cmd>`` router, and answers in the
-EasyProtocol envelope (``cluster.protocol.ack``).  Commands:
-``starttranscode``, ``stoptranscode``, ``gettranscodes``, ``startrecord``
-and ``stoprecord`` (with DVR on they also arm and finalize the path's
-DVR asset) and ``storagestats`` (plain JSON: the storage tier's counters
-and ``pack_window.calls``); any other command answers the 404 envelope.
-There is no auth (the reference's is off by default).
+and an optional body, a ``/api/v1/<cmd>`` router answering in the
+EasyProtocol envelope (``cluster.protocol.ack``), and ``/hls/...`` GETs
+served by ``hls.HlsService.serve`` (playlists, ``init.mp4`` and
+segments with their content type and ETag; a matching
+``If-None-Match`` is answered 304 with no body).  A route answers
+``(status, body)`` or ``(status, body, content_type, headers)``, the
+body ``str`` or ``bytes``; the header block and the body go out as two
+writes, so a segment is never copied into a response buffer.
+
+Commands: ``starttranscode``, ``stoptranscode``, ``gettranscodes``,
+``startrecord`` and ``stoprecord`` (with DVR on they also arm and
+finalize the path's DVR asset), ``storagestats`` (plain JSON: the
+storage tier's counters and ``pack_window.calls``), ``starthls``
+(``path=``, ``rungs=`` a comma list of thinning levels 1-2 and requant
+rungs q6-q18, default ``1,2``), ``stophls`` and ``gethlsstreams``; any
+other command answers the 404 envelope.  There is no auth (the
+reference's is off by default).
 """
 
 from __future__ import annotations
@@ -20,6 +29,8 @@ import time
 from urllib.parse import parse_qs, urlparse
 
 from ..cluster import protocol as ep
+from ..hls.segmenter import DEFAULT_RUNGS
+from ..protocol.sdp import _norm
 from ..utils.paths import confined_subpath
 from ..vod.cache import pack_window
 from .config import ServerConfig
@@ -33,6 +44,8 @@ class RestApi:
         self.app = app                      # StreamingServer
         self._server: asyncio.AbstractServer | None = None
         self.port: int | None = None
+        #: ``/hls/`` GETs answered 304 (an ``If-None-Match`` revalidation)
+        self.hls_not_modified = 0
 
     async def start(self) -> None:
         self._server = await asyncio.start_server(
@@ -64,16 +77,23 @@ class RestApi:
                 clen = int(headers.get("content-length", "0") or 0)
                 if clen:
                     body = await reader.readexactly(clen)
-                status, payload = await self.route(method, target, headers,
-                                                   body)
-                data = payload.encode()
-                reason = "OK" if status == 200 else "Error"
+                res = await self.route(method, target, headers, body)
+                status, payload = res[0], res[1]
+                ctype = res[2] if len(res) > 2 else "application/json"
+                extra = res[3] if len(res) > 3 else {}
+                data = payload.encode() if isinstance(payload, str) \
+                    else payload
+                reason = {200: "OK", 304: "Not Modified"}.get(status,
+                                                              "Error")
                 writer.write((
                     f"HTTP/1.1 {status} {reason}\r\n"
                     f"Server: {SERVER_NAME}\r\n"
-                    "Content-Type: application/json\r\n"
+                    f"Content-Type: {ctype}\r\n"
                     f"Content-Length: {len(data)}\r\n"
-                    "Connection: keep-alive\r\n\r\n").encode() + data)
+                    + "".join(f"{k}: {v}\r\n" for k, v in extra.items())
+                    + "Connection: keep-alive\r\n\r\n").encode())
+                if data:
+                    writer.write(data)
                 await writer.drain()
         except (asyncio.IncompleteReadError, ConnectionError,
                 asyncio.LimitOverrunError):
@@ -82,16 +102,66 @@ class RestApi:
             writer.close()
 
     async def route(self, method: str, target: str, headers: dict,
-                    body: bytes) -> tuple[int, str]:
+                    body: bytes) -> tuple:
         url = urlparse(target)
         path = url.path.rstrip("/").lower()
         params = parse_qs(url.query)
+        if path.startswith("/hls/"):
+            return self._serve_hls(url.path, headers)
         if not path.startswith("/api/v1/"):
             return 404, json.dumps({"error": "not found"})
         fn = getattr(self, f"_cmd_{path[len('/api/v1/'):]}", None)
         if fn is None:
             return 404, ep.ack(ep.MSG_SC_EXCEPTION, error=ep.ERR_NOT_FOUND)
         return fn(params, body)
+
+    def _serve_hls(self, url_path: str, headers: dict) -> tuple:
+        """A ``/hls/`` GET: the body, its content type and ETag, or a 304
+        when ``If-None-Match`` names the current ETag."""
+        served = self.app.hls.serve(url_path)
+        if served is None:
+            return 404, json.dumps({"error": "not found"})
+        ctype, data, etag = served
+        if etag is None:
+            return 200, data, ctype, {}
+        if headers.get("if-none-match") == etag:
+            self.hls_not_modified += 1
+            return 304, b"", ctype, {"ETag": etag}
+        return 200, data, ctype, {"ETag": etag}
+
+    def _cmd_starthls(self, params: dict, body: bytes) -> tuple[int, str]:
+        """Publish a live path over HLS: the source rendition plus the
+        rungs asked for (thinning levels and requant ``qN`` rungs)."""
+        path = params.get("path", [""])[0]
+        rungs_raw = params.get("rungs", [""])[0]
+        try:
+            rungs = (tuple(r if r.startswith("q") else int(r)
+                           for r in rungs_raw.split(",") if r)
+                     if rungs_raw else DEFAULT_RUNGS)
+            self.app.hls.start(path, rungs)
+        except KeyError:
+            return 404, ep.ack(ep.MSG_SC_EXCEPTION, error=ep.ERR_NOT_FOUND)
+        except ValueError as e:
+            return 400, ep.ack(ep.MSG_SC_EXCEPTION, error=ep.ERR_BAD_REQUEST,
+                               body={"Detail": str(e)})
+        key = _norm(path)
+        return 200, ep.ack(ep.MSG_SC_SERVER_INFO_ACK, body={
+            "Master": f"/hls{key}/master.m3u8",
+            "Renditions": ["index.m3u8"]
+            + [(f"{r}/index.m3u8" if isinstance(r, str)
+                else f"r{int(r)}/index.m3u8") for r in rungs]})
+
+    def _cmd_stophls(self, params: dict, body: bytes) -> tuple[int, str]:
+        key = _norm(params.get("path", [""])[0])
+        if key not in self.app.hls.outputs:
+            return 404, ep.ack(ep.MSG_SC_EXCEPTION, error=ep.ERR_NOT_FOUND)
+        self.app.hls.stop(key)
+        return 200, ep.ack(ep.MSG_SC_SERVER_INFO_ACK, body={"Hls": key})
+
+    def _cmd_gethlsstreams(self, params: dict,
+                           body: bytes) -> tuple[int, str]:
+        return 200, ep.ack(ep.MSG_SC_SERVER_INFO_ACK, body={
+            "Streams": self.app.hls.list_streams()})
 
     def _cmd_starttranscode(self, params: dict,
                             body: bytes) -> tuple[int, str]:

@@ -29,8 +29,8 @@
   clock nor replay, and the same from the registered address do;
 * a server on the CPU touches nothing of CUDA when it starts;
 * importing the port, its server, its CLI, the transcode modules, the
-  REST API and the VOD tier leaves ``jax`` and ``easydarwin_tpu`` out of
-  ``sys.modules``;
+  REST API, the VOD tier and the HLS tier with its codecs leaves ``jax``
+  and ``easydarwin_tpu`` out of ``sys.modules``;
 * the CLI's device defaults to the card, and without one it raises.
 """
 
@@ -84,7 +84,9 @@ async def test_loopback_push_play_through_the_cli_on_cpu():
                                         "ed_decode_blocks": 0,
                                         "ed_gf_parity": 0,
                                         "ed_relay_batch": 0,
-                                        "ed_requant_rungs": 0}
+                                        "ed_requant_rungs": 0,
+                                        "ed_h264_requant": 0,
+                                        "ed_h264_requant_chroma": 0}
 
 
 async def test_udp_players_through_the_cli_on_cpu():
@@ -701,6 +703,14 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "import easydarwin_tpu_torch.storage.service\n"
             "import easydarwin_tpu_torch.cluster.placement\n"
             "import easydarwin_tpu_torch.utils.dvr_loopback\n"
+            "import easydarwin_tpu_torch.hls\n"
+            "import easydarwin_tpu_torch.hls.requant\n"
+            "import easydarwin_tpu_torch.codecs\n"
+            "import easydarwin_tpu_torch.codecs.h264_requant\n"
+            "import easydarwin_tpu_torch.codecs.h264_cabac\n"
+            "import easydarwin_tpu_torch.ops.h264_kernel\n"
+            "import easydarwin_tpu_torch.protocol.aac\n"
+            "import easydarwin_tpu_torch.utils.hls_loopback\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m.split('.')[0] in ('jax', 'jaxlib', "
             "'easydarwin_tpu'))\n"
@@ -720,3 +730,20 @@ def test_cli_device_defaults_to_the_card():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             cli.main(["-p", "0", "--bind-ip", "127.0.0.1"])
+
+
+def test_hls_device_option_runs_the_ladders_apart():
+    """``--hls-device`` (``ServerConfig.hls_device``) puts the HLS requant
+    rungs' B6 on another device than the server's; by default they share
+    it."""
+    assert cli.build_parser().parse_args([]).hls_device is None
+    assert cli.build_parser().parse_args(
+        ["--hls-device", "cpu"]).hls_device == "cpu"
+    with pytest.raises(SystemExit):
+        cli.build_parser().parse_args(["--hls-device", "tpu"])
+    app = StreamingServer(ServerConfig(hls_device="cpu"), device="cpu")
+    assert app.hls.device == torch.device("cpu")
+    assert StreamingServer(device="cpu").hls.device == torch.device("cpu")
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            StreamingServer(ServerConfig(hls_device="cuda"), device="cpu")

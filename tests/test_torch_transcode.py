@@ -31,6 +31,7 @@ from easydarwin_tpu.relay.session import SessionRegistry as RefRegistry
 from easydarwin_tpu.relay.stream import RelayStream as RefStream
 from easydarwin_tpu.relay.stream import StreamSettings as RefSettings
 from easydarwin_tpu_torch.cluster import protocol as ep
+from easydarwin_tpu_torch.hls import HlsService
 from easydarwin_tpu_torch.models import mjpeg_ladder as ml
 from easydarwin_tpu_torch.ops import kernel_lib
 from easydarwin_tpu_torch.protocol import jpeg_entropy as je
@@ -428,6 +429,7 @@ async def test_rest_envelope_is_byte_compatible_and_unknown_is_404():
 
     class App:
         transcodes = ml.MjpegTranscodeService(SessionRegistry(), device="cpu")
+        hls = HlsService(SessionRegistry(), device="cpu")
     api = RestApi(None, App())
     status, doc = await api.route("GET", "/api/v1/getserverinfo", {}, b"")
     assert status == 404 and doc == ref_ep.ack(ref_ep.MSG_SC_EXCEPTION,
@@ -461,4 +463,6 @@ async def test_cli_serves_the_ladder_end_to_end_on_cpu():
                                         "ed_decode_blocks": 0,
                                         "ed_gf_parity": 0,
                                         "ed_relay_batch": 0,
-                                        "ed_requant_rungs": 0}
+                                        "ed_requant_rungs": 0,
+                                        "ed_h264_requant": 0,
+                                        "ed_h264_requant_chroma": 0}

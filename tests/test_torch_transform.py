@@ -295,7 +295,8 @@ def test_cpu_decode_counts_no_launch():
     assert set(kernel_lib.LAUNCHES) == {"ed_parse_packets", "ed_relay_window",
                                         "ed_ring_query", "ed_decode_blocks",
                                         "ed_gf_parity", "ed_relay_batch",
-                                        "ed_requant_rungs"}
+                                        "ed_requant_rungs", "ed_h264_requant",
+                                        "ed_h264_requant_chroma"}
 
 
 @pytest.mark.parametrize("levels,qtable,err", [
