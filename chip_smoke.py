@@ -80,16 +80,23 @@ non-zero.
              three chroma arms with levels beyond ±LEVEL_CLIP; one launch
              each, bit-exact with the plain torch chains (``ops.transform.
              h264_requant[_chroma]``) on the card and on the CPU, 4,096
-             sampled rows of each equal to the scalar oracles; N = 1, 127,
-             129, 421 and 36 fuzzed sizes bit-exact too; N = 0,
-             misaligned rows, int64 levels or QPs and mismatched DC/AC
-             rows launch nothing.  Then the ladder's form, the leg
-             (``RequantLeg``: int64 rows narrowed and tiled over the
-             targets into pinned staging, uploaded, ONE launch, read back,
-             in one call that keeps the GIL) at phase 13's AU and at sizes
-             around a CTA, luma at 1-3 deltas and chroma with 1 and 2 rows
-             a QP, bit-exact with the plain chains on the tiled rows, one
-             launch a leg; two legs in flight harvested in reverse order;
+             sampled rows of each equal to the scalar oracles; the chroma
+             kernel also with every row identity, exact shift or general,
+             and with arms uniform within each 8-row chunk; N = 1, 2, 3,
+             127, 129, 421, 7, 9, 10, 11, 63, 65, 229 (around the luma
+             CTA's 128 rows, the chroma warp's 8-row chunk with QP tails
+             of 1-3 words, and its CTA's 64 rows) and 36 fuzzed sizes,
+             each from a random row, bit-exact too; N = 0, misaligned
+             rows, int64 levels or QPs and mismatched DC/AC rows launch
+             nothing.  Then the ladder's form, the leg (``RequantLeg``:
+             int64 rows narrowed and tiled over the targets into pinned
+             staging, uploaded, ONE launch, read back, in one call that
+             keeps the GIL) at phase 13's AU and at sizes around a CTA,
+             luma at 1-3 deltas and chroma with 1 and 2 rows a QP and
+             rows n % 4 = 1, 2, 3 (the card buffer's QP vectors padded
+             to 16 bytes), bit-exact with the plain chains on the tiled
+             rows, one launch a leg; two legs in flight harvested in
+             reverse order;
              the host µs of a leg alone at phase 13's AU
 6. scheduler the main path in-process: MegabatchScheduler + FanoutEngine
              over 16 streams × 256 subscribers in 2 buckets for 36 wakes,
@@ -197,9 +204,13 @@ non-zero.
              of it ([b4] lines); B7's
              ``ed_requant_rungs`` at config 5 beside the plain torch chain
              and its byte bound; B6's two kernels at phase 5c's shapes
-             (the kernels line) beside their plain chains, bounds and the
-             launch floor, bit-exact again after the graph replays, and
-             phase 13's dispatch leg ([b6] lines)
+             (the kernels line), the chroma kernel also with every row
+             general and at phase 13's AU (396 rows), beside their plain
+             chains, the launch floor and both sides of the bound (bytes
+             at 3.35 TB/s, integer operations at the card's int32 lane
+             rate: 64 lanes an SM × the SMs × ``clocks.max.sm``),
+             bit-exact again after the graph replays, and phase 13's
+             dispatch leg ([b6] lines)
 
 4e. window vod ``ed_relay_window`` vs the plain window pass, bit-exact,
              at the VOD prime's shapes, past the 48 KB a CTA had before the
@@ -1306,9 +1317,17 @@ H264_LUMA_ROWS = 16 * H264_MBS
 H264_CHROMA_ROWS = 2 * H264_MBS
 #: rows held against the scalar oracles, a sample of each kind
 H264_SAMPLE = 4096
-#: rows a CTA of either B6 kernel takes (``kThreads`` in
-#: ``csrc/h264_kernels.cu``): phase 5c's edge sizes sit around it
-B6_CTA_ROWS = 128
+#: rows a CTA of ``ed_h264_requant`` takes (``kThreads`` in
+#: ``csrc/h264_kernels.cu``), and rows a warp's chunk and a CTA's eight
+#: warps of ``ed_h264_requant_chroma`` take at once (``kChromaChunkRows``,
+#: ``kChromaWarps``): phase 5c's edge sizes sit around them
+B6_LUMA_CTA_ROWS = 128
+B6_CHROMA_CHUNK_ROWS = 8
+B6_CHROMA_CTA_ROWS = 64
+#: phase 5c's chroma inputs besides the seeded mix: every row one arm, and
+#: arms uniform within each chunk (as the ladder lays rows out: a run of
+#: rows shares one target)
+B6_CHROMA_ARMS = ("identity", "shift", "general", "chunks")
 
 
 def h264_inputs(rng) -> dict:
@@ -1344,6 +1363,31 @@ def h264_inputs(rng) -> dict:
             "qci": qci, "qco": qco}
 
 
+def chroma_arm_qps(x: dict, arm: str):
+    """``(qpc_in, qpc_out)`` for phase 5c's chroma rows with every row in
+    one arm (``identity``: the same QP; ``shift``: +6, +12 or +18;
+    ``general``: +1 to +5), or with arms uniform within each chunk of
+    ``B6_CHROMA_CHUNK_ROWS`` (``chunks``: chunk i's delta is the i-th of
+    0, 6, 3, 12, 5, 18, 1, cyclically)."""
+    import numpy as np
+    qi = x["qci"]
+    i = np.arange(qi.shape[0])
+    delta = {"identity": np.zeros_like(i), "shift": 6 * (1 + i % 3),
+             "general": 1 + i % 5,
+             "chunks": np.array([0, 6, 3, 12, 5, 18, 1])[
+                 i // B6_CHROMA_CHUNK_ROWS % 7]}[arm]
+    return qi, (qi + delta).astype(np.int32)
+
+
+def chroma_arms(qi, qo) -> dict:
+    """Rows of each chroma arm among ``(qpc_in, qpc_out)``."""
+    import numpy as np
+    delta = np.asarray(qo, np.int64) - np.asarray(qi, np.int64)
+    return {"identity": int((delta == 0).sum()),
+            "shift": int(((delta != 0) & (delta % 6 == 0)).sum()),
+            "general": int((delta % 6 != 0).sum())}
+
+
 def h264_bound(rows: int, row_bytes: int) -> int:
     """Bytes one B6 call must move: its levels read and written once and
     its two int32 QP vectors read once."""
@@ -1356,8 +1400,11 @@ def phase_h264(rng) -> dict:
     and AC [261,120, 4, 15] (``ops.h264_kernel``), each ONE launch,
     bit-exact with the plain torch chains (``ops.transform``) on the same
     card tensors and with the chains on the CPU; 4,096 sampled rows of
-    each also equal to the scalar oracles.  Then N = 1 and N not a
-    multiple of the CTA's rows (fuzzed, 40 sizes), N = 0 without a
+    each also equal to the scalar oracles; the chroma kernel also on
+    ``B6_CHROMA_ARMS``'s four inputs.  Then N = 1, sizes around the luma
+    CTA's rows and the chroma chunk's and CTA's (the chroma QP tail of 1,
+    2 and 3 words) and 36 fuzzed ones, each from a random row (so QP
+    views off 16 bytes, which the chroma wrapper copies), N = 0 without a
     launch, and misaligned or wrongly typed inputs raising without one."""
     import numpy as np
     import torch
@@ -1365,7 +1412,6 @@ def phase_h264(rng) -> dict:
     from easydarwin_tpu_torch.ops import h264_kernel as hk
     from easydarwin_tpu_torch.ops import kernel_lib
     from easydarwin_tpu_torch.ops import transform as tf
-    threads = B6_CTA_ROWS
     x = h264_inputs(rng)
     cuda = {k: torch.from_numpy(v).cuda() for k, v in x.items()}
     cpu = {k: torch.from_numpy(v) for k, v in x.items()}
@@ -1394,10 +1440,7 @@ def phase_h264(rng) -> dict:
     check(err == 0, f"B6 kernels differ from the plain chains (max {err})")
     err_cpu = diff(kern, host)
     check(err_cpu == 0, f"B6 kernels differ from the CPU (max {err_cpu})")
-    delta = x["qco"] - x["qci"]
-    arms = {"identity": int((delta == 0).sum()),
-            "shift": int(((delta != 0) & (delta % 6 == 0)).sum()),
-            "general": int((delta % 6 != 0).sum())}
+    arms = chroma_arms(x["qci"], x["qco"])
     check(min(arms.values()) > 0, f"B6 chroma arms not all covered: {arms}")
     clipped = int((np.abs(x["lev"]) > ht.LEVEL_CLIP).sum()
                   + (np.abs(x["ac"]) > ht.LEVEL_CLIP).sum())
@@ -1424,9 +1467,35 @@ def phase_h264(rng) -> dict:
         f"{arms}; {clipped} levels beyond +-{ht.LEVEL_CLIP}; "
         f"{H264_SAMPLE} sampled rows of each equal to the scalar oracles; "
         f"first call {first_ms:.3f} host ms (both, synchronized)")
-    # edge sizes: one row, and ragged sizes around the CTA's rows, each
-    # from the config-5 inputs (so every arm and clip recurs)
-    sizes = [1, threads - 1, threads + 1, 3 * threads + 37]
+    # the chroma kernel on inputs of one arm, and of arms uniform within
+    # each chunk, on the card and on the CPU
+    by_arm = {}
+    for arm in B6_CHROMA_ARMS:
+        qi, qo = chroma_arm_qps(x, arm)
+        cq = (torch.from_numpy(qi).cuda(), torch.from_numpy(qo).cuda())
+        got = hk.h264_requant_chroma_kernel(cuda["dc"], cuda["ac"], *cq)
+        worst_arm = max(diff(got, tf.h264_requant_chroma(cuda["dc"],
+                                                         cuda["ac"], *cq)),
+                        diff(got, tf.h264_requant_chroma(
+                            cpu["dc"], cpu["ac"], torch.from_numpy(qi),
+                            torch.from_numpy(qo))))
+        by_arm[arm] = {"arms": chroma_arms(qi, qo),
+                       "max_abs_err": worst_arm}
+        err = max(err, worst_arm)
+    check(all(v["max_abs_err"] == 0 for v in by_arm.values()),
+          f"ed_h264_requant_chroma differs on one-arm inputs: {by_arm}")
+    log(f"[b6] ed_h264_requant_chroma at config 5 with every row identity, "
+        f"exact shift or general, and with arms uniform within each "
+        f"{B6_CHROMA_CHUNK_ROWS}-row chunk "
+        f"({by_arm['chunks']['arms']}): bit-exact with the plain chains on "
+        f"the card and the CPU")
+    # edge sizes: one row, ragged sizes around the luma CTA's rows, the
+    # chroma chunk's (QP tails of 1-3 words) and the chroma CTA's, each
+    # from the config-5 inputs at a random row (so every arm and clip
+    # recurs)
+    lt, ck, ct = B6_LUMA_CTA_ROWS, B6_CHROMA_CHUNK_ROWS, B6_CHROMA_CTA_ROWS
+    sizes = [1, 2, 3, lt - 1, lt + 1, 3 * lt + 37, ck - 1, ck + 1, ck + 2,
+             ck + 3, ct - 1, ct + 1, 3 * ct + 37]
     sizes += [int(n) for n in rng.integers(2, 5000, 36)]
     worst = 0
     for n in sizes:
@@ -1440,8 +1509,8 @@ def phase_h264(rng) -> dict:
                     diff(got, run(sub_cpu, tf.h264_requant,
                                   tf.h264_requant_chroma)))
     check(worst == 0, f"B6 kernels at the edge sizes differ (max {worst})")
-    log(f"[b6] {len(sizes)} edge sizes (N = 1, {threads - 1}, "
-        f"{threads + 1}, {3 * threads + 37} and 36 fuzzed below 5,000): "
+    log(f"[b6] {len(sizes)} edge sizes (N = "
+        f"{', '.join(map(str, sizes[:-36]))} and 36 fuzzed below 5,000): "
         f"bit-exact with the plain chains on the card and the CPU")
     # refusals: nothing is launched
     before = dict(kernel_lib.LAUNCHES)
@@ -1469,26 +1538,45 @@ def phase_h264(rng) -> dict:
         except (TypeError, ValueError):
             continue
         raise AssertionError(f"B6 bad input {i} did not raise")
+    # the chroma entry point refuses a QP vector off 16 bytes (its bulk
+    # copies could not take it; the wrapper copies such a view first)
+    outs = (torch.empty((8, 4), dtype=torch.int32, device="cuda"),
+            torch.empty((8, 4, 15), dtype=torch.int32, device="cuda"))
+    try:
+        kernel_lib.launch("ed_h264_requant_chroma", cuda["dc"].data_ptr(),
+                          cuda["ac"].data_ptr(), cuda["qci"][1:].data_ptr(),
+                          cuda["qco"].data_ptr(), 8, outs[0].data_ptr(),
+                          outs[1].data_ptr())
+    except RuntimeError:
+        pass
+    else:
+        raise AssertionError("ed_h264_requant_chroma took a QP vector off "
+                             "16 bytes")
     check(dict(kernel_lib.LAUNCHES) == before,
           "an empty or refused B6 call launched")
     log("[b6] N = 0 returns empty outputs; misaligned rows, int64 levels "
-        "or QPs and mismatched DC/AC rows raise; none launches")
+        "or QPs and mismatched DC/AC rows raise, and the chroma entry "
+        "point refuses a QP vector off 16 bytes; none launches")
     leg = b6_leg_check(rng, x)
     return {"luma_rows": H264_LUMA_ROWS, "chroma_rows": H264_CHROMA_ROWS,
             "arms": arms, "levels_beyond_clip": clipped, "max_abs_err": err,
-            "max_abs_err_cpu": err_cpu, "edge_sizes": sizes,
+            "max_abs_err_cpu": err_cpu, "one_arm": by_arm,
+            "edge_sizes": sizes,
             "edge_max_abs_err": worst, "first_call_ms": first_ms,
             "leg": leg}, cuda
 
 
 #: the ladder's leg checks: (rows, targets) of the luma leg and (QPs, rows
 #: a QP, targets) of the chroma leg; phase 13's AU (176x144: 99
-#: macroblocks, up to 1,683 luma rows and 99 chroma QPs, at 2 deltas) and
-#: sizes around a CTA's rows
+#: macroblocks, up to 1,683 luma rows and 99 chroma QPs, at 2 deltas),
+#: sizes around a CTA's rows, and chroma rows n % 4 = 1, 2 and 3 (the
+#: card buffer's QP vectors then need their padding to stay 16-byte
+#: aligned)
 B6_LEG_LUMA = ((1, 1), (127, 2), (129, 3), (1683, 2), (4097, 2),
                (65_536, 2))
 B6_LEG_CHROMA = ((1, 1, 1), (1, 2, 1), (63, 2, 2), (99, 2, 2), (333, 1, 2),
-                 (4097, 2, 3))
+                 (4097, 2, 3), (77, 1, 1), (5, 1, 2), (333, 1, 3),
+                 (43, 2, 3))
 #: host legs timed alone at phase 13's AU
 B6_LEG_REPS = 50
 
@@ -1581,36 +1669,88 @@ def b6_leg_check(rng, x: dict) -> dict:
 
 
 #: integer operations a B6 luma level (clip 2, abs, add, shift, sign
-#: multiply) and a row (k and the offset); a chroma row's general arm
-#: (dequant 120, the four blocks' inverse and forward cores 512, the
-#: round and clips 320, requant 448, DC chains 52), shift arm 256 and
-#: selects 128
+#: multiply) and a row (k and the offset)
 OPS_PER_B6_LUMA_LEVEL, OPS_PER_B6_LUMA_ROW = 6, 8
-OPS_PER_B6_CHROMA_ROW = 1836
+#: integer operations a B6 chroma row by its arm, counted from
+#: ``csrc/h264_kernels.cu``: identity, the clip of 64 levels (128); exact
+#: shift, the clip and the rounded shift (abs, add, shift, sign: 448);
+#: general, the clip 128, DC Hadamard and dequant 16, AC dequant 60, the
+#: four blocks' inverse core 320, the round and clip 256, the forward core
+#: 320, its clip 128, AC requant 480 (multiply, abs, add, shift, sign 2,
+#: clip 2) and the DC requant 48 (1,756); and a row's arm, shifts and
+#: offsets (16)
+OPS_PER_B6_CHROMA_ARM = {"identity": 128, "shift": 448, "general": 1756}
+OPS_PER_B6_CHROMA_ROW = 16
+#: INT32 lanes an SM has a clock on Hopper (16 in each of its four
+#: partitions; NVIDIA's Hopper white paper): B6's integer work runs at
+#: these lanes' rate, not the 32-bit float rate
+INT32_LANES_PER_SM = 64
+_INT32_RATE: list = []
 
 
-def b6_bound(kind: str, rows: int) -> tuple[int, int]:
-    """(bytes, operations) of one B6 call at ``rows`` rows."""
+def int32_ops_per_s() -> float:
+    """The card's int32 lane rate: ``INT32_LANES_PER_SM`` × its SMs × the
+    highest SM clock ``nvidia-smi --query-gpu=clocks.max.sm`` reads."""
+    if not _INT32_RATE:
+        import torch
+        mhz = float(subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.max.sm",
+             "--format=csv,noheader,nounits", "-i", "0"],
+            capture_output=True, text=True, check=True).stdout.split()[0])
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        _INT32_RATE.append(INT32_LANES_PER_SM * sms * mhz * 1e6)
+    return _INT32_RATE[0]
+
+
+def b6_bound(kind: str, rows: int, arms: dict | None = None
+             ) -> tuple[int, tuple[int, float]]:
+    """(bytes, (operations, int32 operations a second)) of one B6 call at
+    ``rows`` rows; for chroma, ``arms`` gives the rows of each arm (the
+    work depends on them)."""
     if kind == "luma":
         return (h264_bound(rows, 16 * 4),
-                rows * (16 * OPS_PER_B6_LUMA_LEVEL + OPS_PER_B6_LUMA_ROW))
-    return h264_bound(rows, 64 * 4), rows * OPS_PER_B6_CHROMA_ROW
+                (rows * (16 * OPS_PER_B6_LUMA_LEVEL + OPS_PER_B6_LUMA_ROW),
+                 int32_ops_per_s()))
+    ops = rows * OPS_PER_B6_CHROMA_ROW + sum(
+        OPS_PER_B6_CHROMA_ARM[a] * n for a, n in arms.items())
+    return h264_bound(rows, 64 * 4), (ops, int32_ops_per_s())
+
+
+#: phase 13's AU of chroma rows: 99 QPs x 2 rows (Cb, Cr) x 2 targets
+B6_AU_CHROMA_ROWS = 396
 
 
 def b6_cases(x: dict) -> list:
     """Phase 10's B6 rows at phase 5c's config-5 inputs: each kernel's
     entry point on preallocated outputs, its wrapper and its plain chain
-    (``phase_kernels``'s case tuple)."""
+    (``phase_kernels``'s case tuple); the chroma kernel also with every
+    row general and at phase 13's AU (the first 396 rows of the mix)."""
     import torch
     from easydarwin_tpu_torch.ops import h264_kernel as hk
     from easydarwin_tpu_torch.ops import kernel_lib
     from easydarwin_tpu_torch.ops import transform as tf
     src = "easydarwin_tpu_torch/csrc/h264_kernels.cu"
-    n, m = x["lev"].shape[0], x["dc"].shape[0]
+    n = x["lev"].shape[0]
     out = torch.empty_like(x["lev"])
-    dc_out, ac_out = torch.empty_like(x["dc"]), torch.empty_like(x["ac"])
     lb, lo = b6_bound("luma", n)
-    cb, co = b6_bound("chroma", m)
+
+    def chroma(dc, ac, qi, qo, label: str, main: bool, inner: int):
+        m = dc.shape[0]
+        dc_out, ac_out = torch.empty_like(dc), torch.empty_like(ac)
+        cb, co = b6_bound("chroma", m, chroma_arms(qi.cpu().numpy(),
+                                                   qo.cpu().numpy()))
+        return ("ed_h264_requant_chroma", f"DC [{m},4] AC [{m},4,15]{label}",
+                main, src, "easydarwin_tpu/ops/transform.py:315",
+                lambda: kernel_lib.launch(
+                    "ed_h264_requant_chroma", dc.data_ptr(), ac.data_ptr(),
+                    qi.data_ptr(), qo.data_ptr(), m, dc_out.data_ptr(),
+                    ac_out.data_ptr()),
+                lambda: hk.h264_requant_chroma_kernel(dc, ac, qi, qo),
+                lambda: tf.h264_requant_chroma(dc, ac, qi, qo), None,
+                cb, co, inner)
+
+    qi, qo = chroma_arm_qps({"qci": x["qci"].cpu().numpy()}, "general")
+    au = slice(0, B6_AU_CHROMA_ROWS)
     return [
         ("ed_h264_requant", f"[{n},16]", True, src,
          "easydarwin_tpu/ops/transform.py:264",
@@ -1620,17 +1760,11 @@ def b6_cases(x: dict) -> list:
          lambda: hk.h264_requant_kernel(x["lev"], x["qi"], x["qo"]),
          lambda: tf.h264_requant(x["lev"], x["qi"], x["qo"]), None,
          lb, lo, 20),
-        ("ed_h264_requant_chroma", f"DC [{m},4] AC [{m},4,15]", True, src,
-         "easydarwin_tpu/ops/transform.py:315",
-         lambda: kernel_lib.launch(
-             "ed_h264_requant_chroma", x["dc"].data_ptr(),
-             x["ac"].data_ptr(), x["qci"].data_ptr(), x["qco"].data_ptr(),
-             m, dc_out.data_ptr(), ac_out.data_ptr()),
-         lambda: hk.h264_requant_chroma_kernel(x["dc"], x["ac"], x["qci"],
-                                               x["qco"]),
-         lambda: tf.h264_requant_chroma(x["dc"], x["ac"], x["qci"],
-                                        x["qco"]), None,
-         cb, co, 20)]
+        chroma(x["dc"], x["ac"], x["qci"], x["qco"], "", True, 20),
+        chroma(x["dc"], x["ac"], torch.from_numpy(qi).cuda(),
+               torch.from_numpy(qo).cuda(), " every row general", False, 20),
+        chroma(x["dc"][au], x["ac"][au], x["qci"][au], x["qco"][au],
+               " (phase 13's AU)", False, 100)]
 
 
 def phase_b6(x: dict, timed: list, floor_ms: float, hls: dict) -> dict:
@@ -1650,23 +1784,29 @@ def phase_b6(x: dict, timed: list, floor_ms: float, hls: dict) -> dict:
     check(all(torch.equal(a, b) for a, b in zip(got, want)),
           "B6 kernels after the graph replays differ from the plain chains")
     res = {"transform_device_ms_per_au":
-           hls["stage_ms_per_au"]["transform_device"]}
-    for name in ("ed_h264_requant", "ed_h264_requant_chroma"):
-        k = next(t for t in timed if t["name"] == name)
-        res[name] = {"shape": k["_shape"], "ms": k["ms"],
-                     "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
-                     "bound_by": k["bound_by"],
-                     "bound_share": k["_bound_share"],
-                     "gb_per_s": k["_gb_per_s"],
-                     "call_ms": k["_wrapper_call_ms"],
-                     "plain_call_ms": k["_plain_call_ms"],
-                     "floors": k["ms"] / floor_ms,
-                     "launches": k["launches"]}
-        log(f"[b6] {name} at config 5 ({k['_shape']}): {k['ms']:.6f} ms in "
-            f"a graph ({k['ms'] / floor_ms:.2f}x the launch floor), bound "
-            f"{k['bound_ms']:.6f} ms by {k['bound_by']} "
-            f"({k['_bound_share']:.1%} of it, {k['_gb_per_s']:.1f} GB/s); "
-            f"plain torch chain {k['plain_ms']:.6f} ms in a graph "
+           hls["stage_ms_per_au"]["transform_device"], "rows": []}
+    for k in timed:
+        if k["name"] not in HLS_KERNELS:
+            continue
+        row = {"name": k["name"], "shape": k["_shape"], "ms": k["ms"],
+               "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+               "bound_by": k["bound_by"], "bytes_ms": k["_bytes_ms"],
+               "ops_ms": k["_ops_ms"], "ops_per_s": k["_ops_rate"],
+               "bound_share": k["_bound_share"],
+               "gb_per_s": k["_gb_per_s"], "call_ms": k["_wrapper_call_ms"],
+               "plain_call_ms": k["_plain_call_ms"],
+               "floors": k["ms"] / floor_ms, "launches": k["launches"]}
+        res["rows"].append(row)
+        if k["_main_path"]:
+            res[k["name"]] = row
+        log(f"[b6] {k['name']} at {k['_shape']}: {k['ms']:.6f} ms in a "
+            f"graph ({k['ms'] / floor_ms:.2f}x the {floor_ms:.6f} ms launch "
+            f"floor), bound {k['bound_ms']:.6f} ms by {k['bound_by']} "
+            f"(bytes {k['_bytes_ms']:.6f} ms at {PEAK_BYTES_PER_S:.3g} B/s, "
+            f"operations {k['_ops_ms']:.6f} ms at {k['_ops_rate']:.4g} int32 "
+            f"op/s; {k['_bound_share']:.1%} of the bound, "
+            f"{k['_gb_per_s']:.1f} GB/s); plain torch chain "
+            f"{k['plain_ms']:.6f} ms in a graph "
             f"({k['plain_ms'] / k['ms']:.1f}x the kernel), "
             f"{k['_plain_call_ms']:.6f} ms a direct call; the wrapper "
             f"{k['_wrapper_call_ms']:.6f} ms a direct call; "
@@ -2779,26 +2919,37 @@ def gf_storage_check(rng, shapes) -> int:
 
 
 # ------------------------------------------------------------- phase 10
-def ptxas_report(build_log: str) -> dict:
-    """Registers, shared memory and spills of each kernel from the build's
-    ``-Xptxas -v`` lines, keyed by the kernel's name and, for a template,
-    its integer arguments (``gf_parity_lanes_kernel<1,2>``)."""
+#: the library's kernels, as ``ptxas_report`` names them
+KERNEL_NAMES = ("parse_packets_kernel", "relay_window_kernel",
+                "ring_query_kernel", "launch_floor_kernel",
+                "decode_blocks_kernel", "gf_parity_lanes_kernel",
+                "gf_parity_stripe_kernel", "relay_batch_kernel",
+                "requant_rungs_kernel", "h264_requant_chroma_kernel",
+                "h264_requant_kernel")
+
+
+def kernel_key(mangled: str, names=KERNEL_NAMES) -> str | None:
+    """The first of ``names`` in a mangled symbol, with its template's
+    integer arguments (``gf_parity_lanes_kernel<1,2>``); None if none."""
     import re
-    names = ("parse_packets_kernel", "relay_window_kernel",
-             "ring_query_kernel", "launch_floor_kernel",
-             "decode_blocks_kernel", "gf_parity_lanes_kernel",
-             "gf_parity_stripe_kernel", "relay_batch_kernel",
-             "requant_rungs_kernel", "h264_requant_chroma_kernel",
-             "h264_requant_kernel")
+    name = next((n for n in names if n in mangled), None)
+    if name:
+        args = re.findall(r"Li(\d+)E", mangled.split(name, 1)[1])
+        if args:
+            name += f"<{','.join(args)}>"
+    return name
+
+
+def ptxas_report(build_log: str, names=KERNEL_NAMES) -> dict:
+    """Registers, shared memory and spills of each kernel from the build's
+    ``-Xptxas -v`` lines, keyed by ``kernel_key``."""
+    import re
     out, cur = {}, None
     for line in build_log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
-            cur = next((n for n in names if n in m.group(1)), None)
+            cur = kernel_key(m.group(1), names)
             if cur:
-                args = re.findall(r"Li(\d+)E", m.group(1).split(cur, 1)[1])
-                if args:
-                    cur += f"<{','.join(args)}>"
                 out[cur] = {}
             continue
         if cur is None:
@@ -3047,12 +3198,17 @@ def phase_kernels(rng, launches: dict, errs: dict, levels, qt,
         lambda: torch.matmul(deq, inv.T),      # product alone
         4 * levels.numel() + 4 * 64 + 4 * idct8.numel() + pixels.numel(),
         2 * (2 * 8 * 64) * n, 20))
-    cases.extend(b6)                           # B6: config 5 (phase 5c)
+    for case in b6:                            # B6: config 5 (phase 5c)
+        if not case[2]:
+            where_of[len(cases)] = "B6 chroma beside the main path's input"
+        cases.append(case)
     out = []
     for i, (name, shape, main, src, src_line, kernel, wrapper, plain,
             library, nbytes, ops, inner) in enumerate(cases):
+        # a case may give its operations' own rate: (count, per second)
+        ops, rate = ops if isinstance(ops, tuple) else (ops, PEAK_OPS_PER_S)
         t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-        t_ops = ops / PEAK_OPS_PER_S * 1e3
+        t_ops = ops / rate * 1e3
         ms = graph_ms(kernel, inner=inner)
         out.append({
             "name": name, "route": "cuda", "source": src,
@@ -3068,7 +3224,8 @@ def phase_kernels(rng, launches: dict, errs: dict, levels, qt,
             "_shape": shape, "_main_path": main,
             "_where": where_of.get(i, "main path" if main
                                    else "earlier runs' shape"),
-            "_bytes": nbytes, "_ops": ops,
+            "_bytes": nbytes, "_ops": ops, "_ops_rate": rate,
+            "_bytes_ms": t_bytes, "_ops_ms": t_ops,
             "_gb_per_s": nbytes / ms / 1e6,
             "_bound_share": max(t_bytes, t_ops) / ms,
             "_wrapper_graph_ms": graph_ms(wrapper, inner=inner),

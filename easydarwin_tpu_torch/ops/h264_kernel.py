@@ -117,6 +117,9 @@ def h264_requant_chroma_kernel(dc: torch.Tensor, ac: torch.Tensor, qpc_in,
         raise ValueError(f"no B6 kernel for device {dc.device}")
     _check_cuda(dc, "dc")
     _check_cuda(ac, "ac")
+    # the kernel bulk-copies each chunk's QPs too: a view off 16 bytes is
+    # copied to a fresh (aligned) tensor
+    qi, qo = (q if q.data_ptr() % 16 == 0 else q.clone() for q in (qi, qo))
     dc_out = torch.empty((n, 4), dtype=torch.int32, device=dc.device)
     ac_out = torch.empty((n, 4, 15), dtype=torch.int32, device=dc.device)
     if n:
@@ -129,6 +132,20 @@ def h264_requant_chroma_kernel(dc: torch.Tensor, ac: torch.Tensor, qpc_in,
 # ------------------------------------------------------------ the ladder's leg
 def _align4(words: int) -> int:
     return (words + 3) & ~3
+
+
+def chroma_leg_layout(n: int) -> dict[str, int]:
+    """Word offsets of the chroma leg's card buffer at ``n`` rows, as
+    ``ed_h264_requant_chroma_leg`` lays it out: ``dc`` [n, 4], ``ac``
+    [n, 4, 15], ``qpc_in`` [n], ``qpc_out`` [n] (the staged inputs, which
+    end at ``in_words``), then ``dc_out`` and ``ac_out``, which end at
+    ``words``.  Every segment starts on a 16-byte boundary, as the
+    kernel's bulk copies need."""
+    qo = 64 * n + _align4(n)
+    out = _align4(qo + n)
+    return {"dc": 0, "ac": 4 * n, "qpc_in": 64 * n, "qpc_out": qo,
+            "in_words": qo + n, "dc_out": out, "ac_out": out + 4 * n,
+            "words": out + 64 * n}
 
 
 class _LegBuffers:
@@ -216,7 +233,8 @@ class RequantLeg:
                 raise ValueError(f"chroma leg shapes "
                                  f"{[a.shape for a in arrays]}")
             n = rows * t
-            words = (66 * n, _align4(66 * n) + 64 * n, 64 * n)
+            lay = chroma_leg_layout(n)
+            words = (lay["in_words"], lay["words"], 64 * n)
             self._shapes = [(n, 4), (n, 4, 15)]
             name, kernel = ("ed_h264_requant_chroma_leg",
                             "ed_h264_requant_chroma")
