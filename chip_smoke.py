@@ -276,8 +276,9 @@ non-zero.
              (``utils.hls_loopback.serve_hls``): BASELINE config 5's 16
              sources over interleaved TCP, all-intra H.264 from the port's
              ``encode_iframe`` (8 CAVLC, 8 CABAC; 4 of 3 slices a picture;
-             4 with an AAC track), 176x144 pictures (the cut: the CPython
-             entropy walk, ROADMAP A7c), GOPs of 3 pictures cycled, 24
+             4 with an AAC track), 176x144 pictures (the cut made for the
+             CPython walk, kept so that the figures compare), GOPs of 3
+             pictures cycled, 24
              pictures a source at 0.4 a second (6.4 AUs a second offered,
              60 s; more AUs a path than the shed gate of max(4, 2 x
              workers) pending); REST starthls rungs=q6,q12 on
@@ -291,13 +292,33 @@ non-zero.
              ed_h264_requant launches = its ladders' dispatches and
              ed_h264_requant_chroma launches = the dispatches with chroma;
              the ladder's host ms an AU by stage, an AU's latency (mean,
-             max), the most AUs pending, and the pump's wake p50 and max
+             max), the most AUs pending, and the pump's wake p50 and max;
+             every requantized slice written by the native walk
+             (``native_slices``)
+13c. hls 1080p phase 13 at config 5's pictures, 1920x1088 (8,160
+             macroblocks): the same server, sources, rungs and rate for
+             30 s (12 pictures a source); 2 pictures of each kind (entropy
+             mode x slice count) encoded once by the CPython
+             ``encode_iframe`` on 8 processes and cycled (the seconds
+             printed), a GOP's later pictures rewritten as non-IDR; every
+             q-rung sample equal to the port's fused walk on the pushed
+             slices; 0 device errors, mismatches and passed-through
+             slices, launches = dispatches; shed, latency, host ms an AU
+             by stage, the most AUs pending and the wake reported beside
+             phase 13's figures on the CPython walk (shed is not refused)
+13b. walk    the decision measurement on 13c's 12 distinct AUs: host ms
+             an AU of (a) the fused walk once a rung (q6, q12) and (b) the
+             split walk (one C parse a slice, B6's leg for the AU, one C
+             write a slice a rung), on one thread (median of 3) and on a
+             pool of the requant pool's size (48 AU jobs an engine); (b)'s
+             bytes equal (a)'s and the oracle's everywhere
 
 ``python3 chip_smoke.py --hls-control`` runs phases 1, 2, 5c's leg check
-and phase 13 twice instead, each checked in full: the ladders' B6 on the
-card, then on the CPU's plain torch chains (the server's ``--hls-device
-cpu``); the two runs' drain, latency, stages and wake go to one JSON line
-before the last and to ``chiprun_out/hls_control.json``.
+and phases 13 and 13c twice each instead, each checked in full: the
+ladders' B6 on the card, then on the CPU's plain torch chains (the
+server's ``--hls-device cpu``); the runs' drain, latency, stages and wake
+go to one JSON line before the last and to
+``chiprun_out/hls_control.json``.
 
 Before the last lines, ``[uring]`` gives ``ed_uring_probe``'s answer on
 this host: its capability bits by name, or the errno's name.
@@ -306,9 +327,11 @@ The kernel launch counts are set to 0 just before phase 6 and read just
 after phase 9 (the server processes report their own at exit, without
 their start-up warm-up), then set to 0 again just before phase 11 and
 read just after phase 11c (the VOD path), again just before phase 12
-and just after it (the DVR path), and just before phase 13 and just
-after it (the HLS path, the only one that launches B6); the kernels
-line's launches are the four paths' sum.  The comparisons and timings of
+and just after it (the DVR path), just before phase 13 and just after it
+(the HLS path), and just before phase 13c and just after it (the 1080p
+HLS path; these two launch B6); the kernels line's launches are the
+five paths' sum.  Phase 13b runs after them: its B6 legs are not the
+main path's.  The comparisons and timings of
 phases 3, 4, 4b, 4c, 4d, 4e, 5, 5b, 5c and 10 run outside those
 windows.  Phase 10's window
 rows also time the VOD prime's calls of phase 11.
@@ -2264,6 +2287,7 @@ def phase_lossy(rng) -> dict:
     server: phase 7b's pusher for 8 s, 64 UDP players joining one a frame
     (40 plain, 16 FEC dropping 8% of media, 8 reliable dropping 5%)."""
     from easydarwin_tpu_torch.utils import loopback
+    rcvbuf0 = loopback.udp_rcvbuf_errors()
     res = asyncio.run(asyncio.wait_for(loopback.serve_and_check(
         DEVICE, rng, harness=loopback.push_play_lossy, players=LOSSY_PLAYERS,
         gops=8, frames=30, packets_per_frame=13, body_len=(1270, 1300),
@@ -2298,8 +2322,10 @@ def phase_lossy(rng) -> dict:
         f"skipped), {fec['device_passes']} device passes = "
         f"{launches['ed_gf_parity']} ed_gf_parity launches, 0 oracle "
         f"mismatches, RTX {fec['rtx_sent']} sent, 0 give-ups; reliable "
-        f"{rel['resends']} resends, {rel['acks']} acks, 0 give-ups; RTCP "
-        f"{st['rtcp']}; launches {launches}")
+        f"{rel['resends']} resends, {rel['acks']} acks, 0 give-ups, RTO at "
+        f"most {rel['rto_ms_max']:.1f} ms; RTCP {st['rtcp']} (socket_drops: "
+        f"datagrams the server's RTCP socket lost); host UDP RcvbufErrors "
+        f"+{loopback.udp_rcvbuf_errors() - rcvbuf0}; launches {launches}")
     for p in res["fec_players"]:
         log(f"[lossy] FEC player {p['index']}: {p['packets']} packets, "
             f"{p['dropped']} dropped, {p['parity']} rebuilt from parity, "
@@ -2751,15 +2777,13 @@ def phase_dvr(rng) -> dict:
 
 
 # ------------------------------------------------------------- phase 13
-#: config 5's H.264 ladder through HLS: 16 sources, the cut picture size
-#: (the CPython entropy walk of parse and recode, ROADMAP A7c, costs
-#: about a millisecond a macroblock a rendition; the B6 pass runs at
-#: config-5 width in phases 5c and 10), pictures a source and the push
-#: rate (16 x HLS_FPS AUs a second, below what the ladders keep up with
-#: at this size; more pictures a path than the ladder's shed gate,
-#: ``max(4, 2 * workers)`` AUs pending, so that a ladder falling behind
-#: would shed), the requant rungs and the master GETs (single-slice
-#: sources, which also get r1 and r2)
+#: config 5's H.264 ladder through HLS: 16 sources, the picture size it
+#: was cut to for the CPython walk (kept, so that its figures compare
+#: with the earlier runs'; phase 13c runs config 5's pictures), pictures
+#: a source and the push rate (16 x HLS_FPS AUs a second; more pictures a
+#: path than the ladder's shed gate, ``max(4, 2 * workers)`` AUs pending,
+#: so that a ladder falling behind would shed), the requant rungs and the
+#: master GETs (single-slice sources, which also get r1 and r2)
 HLS_SOURCES, HLS_WIDTH, HLS_HEIGHT = 16, 176, 144
 HLS_FRAMES, HLS_FPS, HLS_GOP = 24, 0.4, 3
 HLS_DELTAS = (6, 12)
@@ -2779,10 +2803,11 @@ def phase_hls(rng, hls_device: str | None = None) -> dict:
     from easydarwin_tpu_torch.utils import hls_loopback as hl
     sources = hl.config5_sources(HLS_SOURCES)
     where = "the card" if hls_device is None else hls_device
-    log(f"[hls] the cut: {HLS_WIDTH}x{HLS_HEIGHT} pictures "
-        f"({(HLS_WIDTH // 16) * (HLS_HEIGHT // 16)} macroblocks) for "
-        f"config 5's 1920x1080 (8,160): the host's CPython parse and "
-        f"recode, not B6, bound the ladder; {HLS_FRAMES} pictures a "
+    log(f"[hls] {HLS_WIDTH}x{HLS_HEIGHT} pictures "
+        f"({(HLS_WIDTH // 16) * (HLS_HEIGHT // 16)} macroblocks; the "
+        f"CPython walk's cut, kept to compare, phase 13c runs config 5's "
+        f"8,160); the "
+        f"native walk parses and writes; {HLS_FRAMES} pictures a "
         f"source at {HLS_FPS} a second ({HLS_SOURCES * HLS_FPS:g} AUs a "
         f"second offered), GOPs of {HLS_GOP}; B6 on {where}")
     load0, cpu0, t0 = os.getloadavg(), time.process_time(), time.monotonic()
@@ -2850,12 +2875,240 @@ def phase_hls(rng, hls_device: str | None = None) -> dict:
     return res
 
 
+# ----------------------------------------------------- phases 13b and 13c
+#: config 5's pictures: 1920x1088 (8,160 macroblocks), phase 13's sources,
+#: rungs, rate and GOPs for HLS_1080_SECONDS; HLS_1080_DISTINCT pictures
+#: of each kind (entropy mode x slice count) encoded once by the CPython
+#: ``encode_iframe`` on HLS_1080_WORKERS processes and cycled
+HLS_1080_WIDTH, HLS_1080_HEIGHT = 1920, 1088
+HLS_1080_SECONDS = 30
+HLS_1080_DISTINCT = 2
+HLS_1080_WORKERS = 8
+#: phase 13's figures at 176x144 on the CPython walk (an NVIDIA H100
+#: 80GB HBM3 at 700 W, the last run before the native walk)
+HLS_CPYTHON_WALK = {"shed": 0, "latency_s_mean": 0.97, "wake_ms_p50": 87.8,
+            "transform_device_ms_per_au": 37.1}
+#: phase 13b: one-thread repeats of each AU, and the pool's AU jobs a
+#: distinct AU
+WALK_REPS = 3
+WALK_POOL_ROUNDS = 4
+
+
+def prepare_1080(rng) -> tuple[list, list[dict], float]:
+    """Phase 13c's sources and their pictures and fused-walk oracle
+    (``hls_loopback.prepare_shared``), and the seconds it took."""
+    from easydarwin_tpu_torch.utils import hls_loopback as hl
+    sources = hl.config5_sources(HLS_SOURCES)
+    t0 = time.monotonic()
+    prepared = hl.prepare_shared(
+        sources, int(rng.integers(1 << 31)), width=HLS_1080_WIDTH,
+        height=HLS_1080_HEIGHT, gop=HLS_GOP, distinct=HLS_1080_DISTINCT,
+        deltas=HLS_DELTAS, workers=HLS_1080_WORKERS)
+    seconds = time.monotonic() - t0
+    kinds = len({(s.entropy, s.slices) for s in sources})
+    sizes = sorted({len(b"".join(p)) for pre in prepared
+                    for p in pre["pictures"]})
+    log(f"[hls 1080p] {kinds * HLS_1080_DISTINCT} pictures of "
+        f"{HLS_1080_WIDTH}x{HLS_1080_HEIGHT} ({kinds} kinds x "
+        f"{HLS_1080_DISTINCT}) encoded by the CPython encode_iframe on "
+        f"{HLS_1080_WORKERS} processes in {seconds:.3f} s, with the fused "
+        f"walk's oracle; AU bytes {sizes[0]} to {sizes[-1]}")
+    return sources, prepared, seconds
+
+
+def walk_aus(sources, prepared) -> list[dict]:
+    """Phase 13c's distinct AUs: each kind's GOP pictures with its
+    parameter sets and the fused walk's bytes for every rung."""
+    from easydarwin_tpu_torch.codecs.h264_intra import Pps, Sps
+    aus, seen = [], set()
+    for src, pre in zip(sources, prepared):
+        kind = (src.entropy, src.slices)
+        if kind in seen:
+            continue
+        seen.add(kind)
+        sps, pps = Sps.parse(pre["sps"]), Pps.parse(pre["pps"])
+        for k, nals in enumerate(pre["pictures"]):
+            aus.append({"kind": f"{src.entropy}/{src.slices}", "k": k,
+                        "sps": sps, "pps": pps, "nals": nals,
+                        "want": {d: pre["oracle"][d][k]
+                                 for d in HLS_DELTAS}})
+    return aus
+
+
+def fused_au(au: dict) -> tuple[dict, float]:
+    """(a): the fused walk once per rung on every slice of ``au``."""
+    from easydarwin_tpu_torch import native
+    from easydarwin_tpu_torch.codecs import h264_requant as rq
+    args = rq._walk_args(au["sps"], au["pps"])
+    t0 = time.perf_counter()
+    outs = {d: [native.h264_requant_slice(n, delta_qp=d, **args)[0]
+                for n in au["nals"]] for d in HLS_DELTAS}
+    return outs, (time.perf_counter() - t0) * 1e3
+
+
+def split_au(au: dict, device) -> tuple[dict, dict]:
+    """(b): one C parse a slice, B6's leg for every slice and rung (one
+    ``ed_h264_requant`` launch, one ``ed_h264_requant_chroma``), then one
+    C write a slice a rung; host ms by step."""
+    from easydarwin_tpu_torch.codecs import h264_requant as rq
+    sps, pps = au["sps"], au["pps"]
+    t0 = time.perf_counter()
+    parsed = [rq.parse_slice_nal(n, sps, pps) for n in au["nals"]]
+    gathers = [rq.gather_slice(p) for p in parsed]
+    t1 = time.perf_counter()
+    dispatch = rq.FusedRequantDispatch(
+        gathers, HLS_DELTAS, chroma_qp_offset=pps.chroma_qp_offset,
+        device=device)
+    dispatch._harvested()
+    t2 = time.perf_counter()
+    outs = {d: [rq.recode_parsed(p, g, dispatch, s, i)[0]
+                for s, (p, g) in enumerate(zip(parsed, gathers))]
+            for i, d in enumerate(HLS_DELTAS)}
+    t3 = time.perf_counter()
+    check(all(isinstance(p, rq.WalkedSlice) for p in parsed),
+          f"{au['kind']}: a slice left the native walk")
+    return outs, {"parse": (t1 - t0) * 1e3, "b6_leg": (t2 - t1) * 1e3,
+                  "write": (t3 - t2) * 1e3, "total": (t3 - t0) * 1e3}
+
+
+def phase_walk_decision(sources, prepared, device: str | None = None
+                        ) -> dict:
+    """Phase 13b: on phase 13c's distinct 1080p AUs, the host ms an AU of
+    (a) the fused walk once per rung and (b) the split walk around B6's
+    leg on ``device``, on one thread and then on a pool of the requant
+    pool's size; (b)'s bytes equal (a)'s and the oracle's."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    import torch
+    from easydarwin_tpu_torch.hls.requant import pool_workers
+    device = device or DEVICE
+    dev = torch.device(device)
+    aus = walk_aus(sources, prepared)
+    one = {"fused": [], "split": [], "steps": []}
+    for au in aus:
+        fa, fb, steps = [], [], []
+        for _ in range(WALK_REPS):
+            outs_a, ms_a = fused_au(au)
+            outs_b, st_b = split_au(au, dev)
+            check(outs_a == au["want"] and outs_b == outs_a,
+                  f"{au['kind']} picture {au['k']}: the split's bytes "
+                  f"differ from the fused walk's")
+            fa.append(ms_a)
+            fb.append(st_b["total"])
+            steps.append(st_b)
+        one["fused"].append(float(np.median(fa)))
+        one["split"].append(float(np.median(fb)))
+        one["steps"].append({k: float(np.median([s[k] for s in steps]))
+                             for k in steps[0]})
+    workers = pool_workers()
+    jobs = aus * WALK_POOL_ROUNDS
+    pool = {}
+    with ThreadPoolExecutor(max_workers=workers) as ex:
+        for name, fn in (("fused", fused_au),
+                         ("split", lambda a: split_au(a, dev))):
+            t0 = time.perf_counter()
+            res = list(ex.map(fn, jobs))
+            wall = time.perf_counter() - t0
+            for au, (outs, _ms) in zip(jobs, res):
+                check(outs == au["want"], f"{au['kind']} picture {au['k']}"
+                      f": {name} under the pool differs from the oracle")
+            per = [ms if name == "fused" else ms["total"] for _o, ms in res]
+            pool[name] = {"aus_per_s": len(jobs) / wall,
+                          "ms_per_au_mean": float(np.mean(per)),
+                          "wall_s": wall}
+    steps = {k: float(np.mean([s[k] for s in one["steps"]]))
+             for k in one["steps"][0]}
+    by_kind = {}
+    for au, a, b in zip(aus, one["fused"], one["split"]):
+        by_kind.setdefault(au["kind"], []).append((a, b))
+    res = {"aus": len(aus), "reps": WALK_REPS, "rungs": list(HLS_DELTAS),
+           "one_thread": {"fused_ms_per_au": float(np.mean(one["fused"])),
+                          "split_ms_per_au": float(np.mean(one["split"])),
+                          "split_steps_ms_per_au": steps,
+                          "by_kind": {k: {"fused": float(np.mean(
+                              [a for a, _ in v])), "split": float(np.mean(
+                                  [b for _, b in v]))}
+                              for k, v in by_kind.items()}},
+           "pool": {"workers": workers, "jobs": len(jobs), **pool}}
+    o = res["one_thread"]
+    log(f"[walk] 13b: {len(aus)} distinct {HLS_1080_WIDTH}x"
+        f"{HLS_1080_HEIGHT} AUs, rungs {list(HLS_DELTAS)}, B6 on "
+        f"{device}: one thread (median of {WALK_REPS}) (a) fused walk "
+        f"{o['fused_ms_per_au']:.3f} ms an AU, (b) split "
+        f"{o['split_ms_per_au']:.3f} ms (parse {steps['parse']:.3f}, B6 "
+        f"leg {steps['b6_leg']:.3f}, writes {steps['write']:.3f}); by kind "
+        + ", ".join(f"{k} (a) {v['fused']:.3f} (b) {v['split']:.3f}"
+                    for k, v in o["by_kind"].items())
+        + f"; (b) - (a) = {o['split_ms_per_au'] - o['fused_ms_per_au']:.3f}"
+        f" ms; bytes equal")
+    log(f"[walk] 13b under a pool of {workers} threads, {len(jobs)} AU "
+        f"jobs an engine: (a) {pool['fused']['aus_per_s']:.3f} AUs/s, "
+        f"{pool['fused']['ms_per_au_mean']:.3f} ms an AU; (b) "
+        f"{pool['split']['aus_per_s']:.3f} AUs/s, "
+        f"{pool['split']['ms_per_au_mean']:.3f} ms an AU; bytes equal")
+    return res
+
+
+def phase_hls_1080(rng, sources, prepared,
+                   hls_device: str | None = None) -> dict:
+    """Phase 13c: phase 13's server and sources at config 5's pictures
+    for HLS_1080_SECONDS: every sample held to the push or to the fused
+    walk's bytes, 0 device errors, 0 mismatches, 0 passed-through slices,
+    every requantized slice written by the native walk and the server's
+    B6 launches equal to its ladders' dispatches; shed AUs are reported,
+    not refused."""
+    from easydarwin_tpu_torch.utils import hls_loopback as hl
+    frames = int(HLS_1080_SECONDS * HLS_FPS)
+    where = "the card" if hls_device is None else hls_device
+    t0 = time.monotonic()
+    res = asyncio.run(asyncio.wait_for(hl.serve_hls(
+        DEVICE, rng, sources=sources, width=HLS_1080_WIDTH,
+        height=HLS_1080_HEIGHT, frames=frames, fps=HLS_FPS, gop=HLS_GOP,
+        deltas=HLS_DELTAS, master=HLS_MASTER, seed=0,
+        hls_device=hls_device, prepared=prepared, allow_shed=True,
+        deadline_s=240.0), 600))
+    res["wall_s"] = time.monotonic() - t0
+    st = res["server_stats"]
+    hls = st["hls"]
+    passed = sum(r.get("passed_through_slices", 0)
+                 for s in res["streams"] for r in s["renditions"])
+    check(passed == 0, f"{passed} slices passed through")
+    stages = hls["stage_ms_per_au"]
+    log(f"[hls 1080p] {HLS_SOURCES} sources at {HLS_1080_WIDTH}x"
+        f"{HLS_1080_HEIGHT}, {frames} pictures a source at {HLS_FPS} a "
+        f"second, B6 on {where}: pushed in {res['push_s']:.3f} s, drained "
+        f"{res['drain_s']:.3f} s after; {res['segments']} segments, "
+        f"{res['samples']} video samples each equal to the push or the "
+        f"fused walk (video sample bytes by rendition "
+        f"{res['video_bytes']}); {hls['aus']} AUs, {hls['dispatches']} "
+        f"dispatches "
+        f"({hls['dispatches_chroma']} with chroma), device errors "
+        f"{hls['device_errors']}, mismatches {hls['mismatches']}, passed "
+        f"through 0; shed {hls['shed']} (at most {hls['pending_max']} "
+        f"pending, gate {max(4, 2 * hls['pool_workers'])}); an AU's "
+        f"latency {hls['latency_ms_per_au']:.3f} ms mean, "
+        f"{hls['latency_s_max'] * 1e3:.3f} max; host ms an AU by stage: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in stages.items())
+        + f"; the pump's wake ms p50 {st['wake_ms_p50']:.3f} max "
+        f"{st['wake_ms_max']:.3f}; launches ed_h264_requant "
+        f"{st['kernel_launches']['ed_h264_requant']}, "
+        f"ed_h264_requant_chroma "
+        f"{st['kernel_launches']['ed_h264_requant_chroma']}")
+    w = HLS_CPYTHON_WALK
+    log(f"[hls 1080p] beside phase 13 on the CPython walk (176x144): "
+        f"shed {w['shed']}, latency {w['latency_s_mean']} s mean, wake p50 "
+        f"{w['wake_ms_p50']} ms, transform_device "
+        f"{w['transform_device_ms_per_au']} ms an AU")
+    return res
+
+
 def hls_control() -> int:
-    """``--hls-control``: the build, the card, phase 5c's leg check and
-    phase 13 twice in one process, with the ladders' B6 on the card and
-    then on the CPU's plain torch chains (``--hls-device cpu``), each
-    checked in full; one JSON line of the two runs' drain, latency,
-    stage and wake figures before the last line."""
+    """``--hls-control``: the build, the card, phase 5c's leg check, then
+    phase 13 and phase 13c each twice in one process, with the ladders'
+    B6 on the card and then on the CPU's plain torch chains
+    (``--hls-device cpu``), each checked in full; one JSON line of the
+    runs' drain, latency, stage and wake figures before the last line."""
     import numpy as np
     import torch
     from easydarwin_tpu_torch.ops import kernel_lib
@@ -2869,9 +3122,16 @@ def hls_control() -> int:
         check=True).stdout.strip()
     log(f"[card] {smi}")
     b6_leg_check(rng, h264_inputs(rng))
+    sources, prepared, _enc_s = prepare_1080(rng)
     runs = {}
-    for name, where in (("card", None), ("cpu", "cpu")):
-        res = phase_hls(rng, where)
+    for name, where, phase in (
+            ("card", None, lambda w: phase_hls(rng, w)),
+            ("cpu", "cpu", lambda w: phase_hls(rng, w)),
+            ("card_1080p", None,
+             lambda w: phase_hls_1080(rng, sources, prepared, w)),
+            ("cpu_1080p", "cpu",
+             lambda w: phase_hls_1080(rng, sources, prepared, w))):
+        res = phase(where)
         st = res["server_stats"]
         hls = st["hls"]
         runs[name] = {
@@ -2884,7 +3144,7 @@ def hls_control() -> int:
             "transform_ms_per_dispatch": hls["transform_ms_per_dispatch"],
             "wake_ms_p50": st["wake_ms_p50"], "wake_ms_max": st["wake_ms_max"],
             "server_cpu_s": st["cpu_s"], "server_wall_s": st["wall_s"],
-            "host": res["host"],
+            "host": res.get("host"),
             "launches": {k: st["kernel_launches"][k] for k in HLS_KERNELS}}
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "hls_control.json"), "w") as f:
@@ -3557,6 +3817,7 @@ def main() -> int:
     os.makedirs(OUT_DIR, exist_ok=True)
     rng = np.random.default_rng(20261016)
     detail: dict = {}
+    t_script = time.monotonic()
 
     b = kernel_lib.build()
     kernel_lib.library()
@@ -3661,6 +3922,27 @@ def main() -> int:
     detail["hls_path_launches"] = hls_launches
     launches = {k: n + hls_launches[k] for k, n in launches.items()}
 
+    t_1080 = time.monotonic()
+    sources_1080, prepared_1080, enc_s = prepare_1080(rng)
+    kernel_lib.reset_launch_counts()     # the 1080p HLS path starts here
+    detail["hls_1080p"] = phase_hls_1080(rng, sources_1080, prepared_1080)
+    h1080_in_proc = dict(kernel_lib.LAUNCHES)
+    h1080_srv = detail["hls_1080p"]["server_stats"]["kernel_launches"]
+    h1080_launches = {k: h1080_in_proc[k] + h1080_srv.get(k, 0)
+                      for k in h1080_in_proc}
+    log(f"[hls 1080p path] kernel launches {h1080_launches} (in-process "
+        f"{h1080_in_proc}, server {h1080_srv})")
+    for k in HLS_KERNELS:
+        check(h1080_launches[k] > 0,
+              f"{k} was not launched on the 1080p HLS path")
+    detail["hls_1080p"]["encode_s"] = enc_s
+    detail["hls_1080p_path_launches"] = h1080_launches
+    launches = {k: n + h1080_launches[k] for k, n in launches.items()}
+    detail["walk_decision"] = phase_walk_decision(sources_1080,
+                                                  prepared_1080)
+    del prepared_1080
+    new_phases_s = time.monotonic() - t_1080
+
     errs = {"ed_parse_packets": max(detail["k1"].values()),
             "ed_relay_window": max(
                 [*detail["window"].values()]
@@ -3725,6 +4007,11 @@ def main() -> int:
             f"{k['_wrapper_graph_ms']:.6f} "
             f"ms in a graph, {k['_wrapper_call_ms']:.6f} ms per direct "
             f"call; {k['launches']} main-path launches")
+    script_s = time.monotonic() - t_script
+    detail["seconds"] = {"script": script_s, "phases_13b_13c": new_phases_s}
+    log(f"[time] the script {script_s:.3f} s from its build; phases 13c "
+        f"and 13b (the 1080p pictures' encode included) {new_phases_s:.3f}"
+        f" s of it, the rest {script_s - new_phases_s:.3f} s")
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(detail, f, indent=1, default=str)
 

@@ -22,10 +22,17 @@ unchanged and are counted: the rung never corrupts what it cannot parse.
 
 The pipeline is parse → gather → ONE fused B6 dispatch → recode, the
 same for one rendition (``SliceRequantizer``) and for a ladder
-(``requant_multi``, ``hls.requant.RequantLadder``).  The reference also
-has a native C walk that requantizes inline with no device pass, and a
-closed loop for I slices; the port has neither yet (ROADMAP A7c), so
-every slice takes this pipeline and ``closed_loop=True`` raises.
+(``requant_multi``, ``hls.requant.RequantLadder``).  The parse and the
+recode are the native split walk (``native.h264_parse_slice`` and
+``SliceWalk.write``, ``csrc/h264_walk.cpp``): one C parse a slice fills
+the gather ``gather_slice`` would, B6 requantizes it, and one C write a
+rendition re-encodes it, all without the GIL.  High-profile 8x8 slices
+(``transform_8x8_mode``) and slices the walk answers -1 take the CPython
+parse and recode (``parse_slice_cpython``), with B6 the same; a slice the
+walk finds malformed (-2) passes through.  The walk's fused form
+(``native.h264_requant_slice``) is its oracle, never the serving path.
+A missing walk library raises.  The closed loop for I slices is not
+ported (ROADMAP A7c-2): ``closed_loop=True`` raises.
 
 On a card the dispatch (``FusedRequantDispatch`` with ``device``) makes
 one pinned upload, one ``ed_h264_requant`` launch and one readback for
@@ -44,10 +51,11 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from .. import native
 from .h264_bits import BitReader, BitWriter, nal_to_rbsp, rbsp_to_nal
 from .h264_intra import (MacroblockI16x16, MacroblockPSkip, Pps,
                          SliceCodec, SliceHeader, Sps)
-from .h264_transform import (chroma_qp, requant_chroma_scalar,
+from .h264_transform import (CHROMA_QP, requant_chroma_scalar,
                              requant_levels_scalar)
 
 
@@ -58,6 +66,7 @@ class RequantStats:
     blocks: int = 0
     bytes_in: int = 0
     bytes_out: int = 0
+    native_slices: int = 0              # written by the C walk
     # slice jobs of one AU complete on different pool workers: each
     # accumulates a local delta, and the fold into a shared target holds
     # the target's lock, so concurrent merges never drop counts
@@ -73,6 +82,7 @@ class RequantStats:
             self.blocks += d.blocks
             self.bytes_in += d.bytes_in
             self.bytes_out += d.bytes_out
+            self.native_slices += d.native_slices
 
 
 def _scalar_batch(levels: np.ndarray, qp_in: np.ndarray,
@@ -178,13 +188,15 @@ def device_batch_chroma(dc: np.ndarray, ac: np.ndarray, qpc_in: np.ndarray,
 # The ABR-ladder cost model: parse a slice ONCE, requantize the same
 # parsed MB arrays to N ``delta_qp`` targets, and re-encode N slices.
 #
-#   parse_slice_nal()  →  ParsedSlice     (one per slice, shared)
+#   parse_slice_nal()  →  WalkedSlice     (one per slice, shared: the C
+#                         parse; ParsedSlice on the CPython path)
 #   gather_slice()     →  SliceGather     (level rows + QPs, shared)
 #   FusedRequantDispatch(gathers × deltas): ONE transform dispatch for
 #       every (slice, rendition) of an AU; on a device it is
 #       asynchronous, so the card computes while pool workers parse the
 #       next AU
-#   recode_parsed()    →  bytes           (per rendition, clones the MBs)
+#   recode_parsed()    →  bytes           (per rendition: one C write, or
+#                                          the CPython recode of cloned MBs)
 #
 # ``SliceRequantizer._requant_slice`` runs the SAME pipeline with a
 # single delta and no clone, so the serial path and the fan-out path are
@@ -206,6 +218,20 @@ class ParsedSlice:
 
 
 @dataclass
+class WalkedSlice:
+    """One slice parsed by the native split walk: the C handle with the
+    slice's syntax (``native.SliceWalk``) and the gather it filled.  Each
+    rendition's recode is one C write from it."""
+
+    nal: bytes
+    walk: "native.SliceWalk"
+    gather: "SliceGather"
+    qp_in_base: int                     # slice-header QP (pre-shift)
+    sps: Sps
+    pps: Pps
+
+
+@dataclass
 class SliceGather:
     """The batched-requant surface of one parsed slice: every residual
     row with its per-row QP, plus the write-back routing map.  Built
@@ -213,8 +239,9 @@ class SliceGather:
 
     rows: np.ndarray                    # [R, 16] luma/8x8 level rows
     qps: np.ndarray                     # [R] absolute source QPY per row
-    row_map: list                       # (mb_index, kind, blk) per row
-    centries: list                      # mb indices with chroma residual
+    row_map: list | None                # (mb_index, kind, blk) per row
+    centries: list | None               # mb indices with chroma residual
+    # (the walk's gather keeps both maps in its C handle: None here)
     cqp: np.ndarray                     # [C] source QPY of those MBs
     cdc: np.ndarray                     # [C*2, 4] chroma DC rows
     cac: np.ndarray                     # [C*2, 4, 15] chroma AC rows
@@ -222,10 +249,43 @@ class SliceGather:
     max_qp: int                         # slice ceiling input (7.4.5 max)
 
 
-def parse_slice_nal(nal: bytes, sps: Sps, pps: Pps) -> ParsedSlice:
-    """Entropy-decode one coded-slice NAL into the shared MB model
-    (CAVLC or CABAC per the PPS).  Raises ValueError on anything outside
-    the requant profile — the caller passes the slice through."""
+def _walk_args(sps: Sps, pps: Pps) -> dict:
+    """The SPS and PPS fields the native walk takes."""
+    return dict(width_mbs=sps.width_mbs, height_mbs=sps.height_mbs,
+                log2_max_frame_num=sps.log2_max_frame_num,
+                poc_type=sps.poc_type, log2_max_poc_lsb=sps.log2_max_poc_lsb,
+                pic_init_qp=pps.pic_init_qp, pps_id=pps.pps_id,
+                deblocking_control=pps.deblocking_control,
+                bottom_field_poc=pps.bottom_field_poc,
+                chroma_qp_offset=pps.chroma_qp_offset,
+                cabac=pps.entropy_cabac,
+                num_ref_l0_default=pps.num_ref_l0_default,
+                weighted_pred=pps.weighted_pred)
+
+
+def parse_slice_nal(nal: bytes, sps: Sps, pps: Pps
+                    ) -> "WalkedSlice | ParsedSlice":
+    """Entropy-decode one coded-slice NAL: the native walk's parse and
+    gather (a ``WalkedSlice``), or for a High 8x8 PPS and a slice the walk
+    answers -1 the CPython parse (a ``ParsedSlice``).  Raises ValueError
+    on anything outside the requant profile, and on a slice the walk
+    finds malformed: the caller passes the slice through."""
+    if not pps.transform_8x8_mode:
+        walk = native.h264_parse_slice(nal, **_walk_args(sps, pps))
+        if not isinstance(walk, int):
+            gather = SliceGather(walk.rows, walk.qps, None, None, walk.cqp,
+                                 walk.cdc, walk.cac, walk.info["blocks"],
+                                 walk.info["max_qp"])
+            return WalkedSlice(nal, walk, gather, walk.info["qp"], sps,
+                               pps)
+        if walk == native.WALK_MALFORMED:
+            raise ValueError("malformed slice")
+    return parse_slice_cpython(nal, sps, pps)
+
+
+def parse_slice_cpython(nal: bytes, sps: Sps, pps: Pps) -> ParsedSlice:
+    """The CPython parse into the shared MB model (CAVLC or CABAC per the
+    PPS).  Raises ValueError on anything outside the requant profile."""
     if pps.entropy_cabac:
         from .h264_cabac import CabacSliceCodec
         hdr, _first, mbs, _qps = CabacSliceCodec(sps, pps).parse_slice(nal)
@@ -245,12 +305,16 @@ def parse_slice_nal(nal: bytes, sps: Sps, pps: Pps) -> ParsedSlice:
                        sps, pps)
 
 
-def gather_slice(parsed: ParsedSlice) -> SliceGather:
+def gather_slice(parsed: "WalkedSlice | ParsedSlice") -> SliceGather:
     """Collect every residual row of a parsed slice with its per-MB
     source QP (the +6k step is uniform, so the TARGET QP is derived per
     rendition at dispatch time).  I_16x16 MBs contribute a DC row + 16
     zero-padded 15-coeff AC rows (the op is elementwise, padding stays
-    zero); a row map routes results back to the right structure."""
+    zero); a row map routes results back to the right structure.  A
+    walked slice's gather was filled by its C parse, in the same order
+    (its levels clipped to ±2047 at the parse, which B6 does first)."""
+    if isinstance(parsed, WalkedSlice):
+        return parsed.gather
     mbs = parsed.mbs
     all_levels = []
     qps: list[int] = []
@@ -339,7 +403,7 @@ class FusedRequantDispatch:
         nd = len(active)
         self._offsets = np.cumsum([0] + [g.rows.shape[0]
                                          for g in gathers])
-        self._coffsets = np.cumsum([0] + [len(g.centries)
+        self._coffsets = np.cumsum([0] + [g.cqp.shape[0]
                                           for g in gathers])
         r_total = int(self._offsets[-1])
         c_total = int(self._coffsets[-1])
@@ -368,12 +432,11 @@ class FusedRequantDispatch:
         if c_total and nd:
             cdc = cat([g.cdc for g in gathers])
             cac = cat([g.cac for g in gathers])
-            cqp = [int(q) for g in gathers for q in g.cqp]
-            qin = np.array([chroma_qp(q, chroma_qp_offset) for q in cqp],
-                           dtype=np.int64)
-            qout = np.array([[chroma_qp(q + d, chroma_qp_offset)
-                              for q in cqp] for d in active],
-                            dtype=np.int64)
+            # Table 8-15 over clip3(0, 51, QPY + offset), as chroma_qp
+            cqp = cat([g.cqp for g in gathers]) + chroma_qp_offset
+            qin = CHROMA_QP[np.clip(cqp, 0, 51)]
+            qout = CHROMA_QP[np.clip(cqp[None, :] + np.array(
+                active, dtype=np.int64)[:, None], 0, 51)]
             if dev is not None:
                 self._pending_chroma = DevicePass(
                     "chroma", [cdc, cac, qin, qout], dev, group=2)
@@ -514,31 +577,42 @@ def _write_slice_bytes(parsed: ParsedSlice, mbs: list,
     return bytes([parsed.nal0]) + rbsp_to_nal(bw.to_bytes())
 
 
-def _check_ceiling(parsed: ParsedSlice, delta_qp: int) -> None:
-    # mb.qp is ABSOLUTE (parse accumulates mb_qp_delta per 7.4.5): the
-    # ceiling check covers the true per-MB maxima; P_Skip MBs carry no QP
-    if max((mb.qp for mb in parsed.mbs
-            if not isinstance(mb, MacroblockPSkip)),
-           default=parsed.qp_in_base) + delta_qp > 51:
-        raise ValueError("qp already at ladder ceiling")
-
-
-def recode_parsed(parsed: ParsedSlice, gather: SliceGather,
+def recode_parsed(parsed: "WalkedSlice | ParsedSlice", gather: SliceGather,
                   dispatch: FusedRequantDispatch, slice_idx: int,
-                  delta_idx: int, *, clone: bool = True
-                  ) -> tuple[bytes, int]:
+                  delta_idx: int, *, clone: bool = True,
+                  stats: RequantStats | None = None) -> tuple[bytes, int]:
     """One rendition's serial entropy re-encode over the shared parse:
-    clone the MB arrays, write the fused-requant rows back, recompute
-    CBP + the shifted QP chain, and serialize.  Raises ValueError when
-    this rendition's target QP would pass the ladder ceiling (the caller
-    passes the slice through for THAT rendition only)."""
+    for a walked slice ONE C write from its handle and the fused-requant
+    rows (``stats.native_slices`` counts it); otherwise clone the MB
+    arrays, write the rows back, recompute CBP + the shifted QP chain and
+    serialize in Python.  Raises ValueError when this rendition's target
+    QP would pass the ladder ceiling, or the slice cannot be recoded (the
+    caller passes the slice through for THAT rendition only)."""
     delta_qp = dispatch.deltas[delta_idx]
-    if gather.max_qp + delta_qp > 51:    # == _check_ceiling, O(1): the
-        # gather already carries the slice's per-MB QP maximum
+    if gather.max_qp + delta_qp > 51:    # the gather carries the slice's
+        # per-MB QP maximum (mb.qp is absolute; P_Skip MBs carry none)
         raise ValueError("qp already at ladder ceiling")
-    mbs = [_clone_mb(mb) for mb in parsed.mbs] if clone else parsed.mbs
     requanted = dispatch.luma_rows(slice_idx, delta_idx)
     cdc2, cac2 = dispatch.chroma_rows(slice_idx, delta_idx)
+    if isinstance(parsed, WalkedSlice):
+        out = parsed.walk.write(delta_qp, requanted, cdc2, cac2)
+        if isinstance(out, bytes):
+            if stats is not None:
+                stats.native_slices += 1
+            return out, gather.n_blocks
+        if out != native.WALK_UNSUPPORTED:
+            raise ValueError("the walk could not recode the slice")
+        # outside the walk for this rung (the slice QP or an mb_qp_delta
+        # out of range): the CPython recode over the same B6 rows, in the
+        # same order
+        walked = gather
+        parsed = parse_slice_cpython(parsed.nal, parsed.sps, parsed.pps)
+        gather = gather_slice(parsed)
+        if gather.rows.shape != walked.rows.shape \
+                or gather.cqp.shape != walked.cqp.shape:
+            raise ValueError("the CPython parse disagrees with the walk's")
+        clone = False
+    mbs = [_clone_mb(mb) for mb in parsed.mbs] if clone else parsed.mbs
     _writeback_rows(mbs, gather, requanted, cdc2, cac2)
     _finalize_mbs(mbs, delta_qp)
     return (_write_slice_bytes(parsed, mbs,
@@ -581,7 +655,7 @@ def requant_multi(nal: bytes, sps: Sps | None, pps: Pps | None,
         d.bytes_in += len(nal)
         try:
             out_nal, n_blocks = recode_parsed(parsed, gather, dispatch,
-                                              0, i)
+                                              0, i, stats=d)
             d.slices_requantized += 1
             d.blocks += n_blocks
         except (ValueError, EOFError, KeyError, IndexError):
@@ -595,12 +669,13 @@ def requant_multi(nal: bytes, sps: Sps | None, pps: Pps | None,
 class SliceRequantizer:
     """Per-stream requantizer: latches SPS/PPS from the NAL flow and
     rewrites coded slices ``delta_qp`` steps coarser through the parse →
-    B6 → recode pipeline.  ``requant_fn``/``chroma_fn`` run the transform
+    B6 → recode pipeline (the native walk's parse and write where it
+    covers the slice).  ``requant_fn``/``chroma_fn`` run the transform
     on the host (default: the scalar oracles); ``device`` runs it as a
     ``DevicePass`` there instead (the two are exclusive).
 
     ``closed_loop=True`` (I slices re-derived against the output
-    reconstruction) is not ported (ROADMAP A7c) and raises: it must
+    reconstruction) is not ported (ROADMAP A7c-2) and raises: it must
     never quietly run open loop."""
 
     def __init__(self, delta_qp: int, *, requant_fn=None, chroma_fn=None,
@@ -612,10 +687,11 @@ class SliceRequantizer:
             raise ValueError("delta_qp must be a positive multiple of 6")
         if closed_loop:
             raise ValueError("closed-loop requant is not ported (ROADMAP "
-                             "A7c: codecs/h264_closed_loop.py)")
+                             "A7c-2: codecs/h264_closed_loop.py)")
         if device is not None and (requant_fn or chroma_fn):
             raise ValueError("requant_fn/chroma_fn run on the host; pass "
                              "them or device, not both")
+        native.require()
         self.delta_qp = delta_qp
         self.requant_fn = requant_fn or _scalar_batch
         self.chroma_fn = chroma_fn or _scalar_batch_chroma
@@ -655,7 +731,7 @@ class SliceRequantizer:
             return nal, delta
         delta.bytes_in += len(nal)
         try:
-            out, n_blocks = self._requant_slice(nal, sps, pps)
+            out, n_blocks = self._requant_slice(nal, sps, pps, delta)
             delta.slices_requantized += 1
             delta.blocks += n_blocks
         except (ValueError, EOFError, KeyError, IndexError):
@@ -664,17 +740,18 @@ class SliceRequantizer:
         delta.bytes_out += len(out)
         return out, delta
 
-    def _requant_slice(self, nal: bytes, sps: Sps, pps: Pps
-                       ) -> tuple[bytes, int]:
+    def _requant_slice(self, nal: bytes, sps: Sps, pps: Pps,
+                       stats: RequantStats) -> tuple[bytes, int]:
         """Single-rendition requant: the SAME parse → gather → fused
         dispatch → recode pipeline the ladder fan-out runs, with one
         delta and no MB clone."""
         parsed = parse_slice_nal(nal, sps, pps)
-        _check_ceiling(parsed, self.delta_qp)
         gather = gather_slice(parsed)
+        # past the QP-51 ceiling the dispatch tiles nothing and the
+        # recode raises
         dispatch = FusedRequantDispatch(
             [gather], (self.delta_qp,), requant_fn=self.requant_fn,
             chroma_fn=self.chroma_fn,
             chroma_qp_offset=pps.chroma_qp_offset, device=self.device)
         return recode_parsed(parsed, gather, dispatch, 0, 0,
-                             clone=False)
+                             clone=False, stats=stats)

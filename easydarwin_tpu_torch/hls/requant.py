@@ -22,10 +22,16 @@ h264_requant.DevicePass``).  Admission sheds an AU when ``pending >=
 max(4, 2 * workers)`` (degrade in frame rate, never in latency), and
 counts it.
 
-The reference chooses a native C walk instead whenever its C core loads;
-the port has no such walk (ROADMAP A7c), so the choice does not look at
-``native.available()`` (the port's egress core): every ladder takes the
-device arm on its ``device``.  An exception in the dispatch (the upload,
+The parse and the recode are the native split walk (``native.
+h264_parse_slice`` and ``SliceWalk.write``: C calls that run without the
+GIL), so the pool's threads hold the GIL only between them and in B6's
+leg (which keeps it by design); High 8x8 slices and slices outside the
+walk take the CPython parse and recode.
+The reference instead serves a fused C walk (decode, requantize, encode
+in one pass a rung) whenever its C core loads, which takes its device
+off the ladder; the port keeps B6 on ``device`` for every ladder, and
+its fused walk (``native.h264_requant_slice``) is only the split's
+oracle.  An exception in the dispatch (the upload,
 a launch, the readback) is counted in ``device_errors`` with its
 traceback on stderr, apart from ``slices_passed_through``; the AU's
 source slices then go to the rungs unchanged.  ``counters()`` gives the
@@ -47,6 +53,7 @@ from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
+from .. import native
 from ..codecs.h264_requant import (FusedRequantDispatch, RequantStats,
                                    SliceRequantizer, gather_slice,
                                    parse_slice_nal, recode_parsed)
@@ -54,16 +61,17 @@ from ..relay.output import RelayOutput, WriteResult
 from ..vod.depacketize import AccessUnit, H264Depacketizer
 from .segmenter import HlsOutput
 
-#: the requant pipeline's stages: ``parse`` = one slice's entropy decode,
-#: ``transform_device`` = an AU's fused B6 dispatch and its harvest,
-#: ``recode`` = one rendition's entropy re-encode of one slice,
-#: ``reassemble`` = the ordered per-AU emit
+#: the requant pipeline's stages: ``parse`` = one slice's entropy decode
+#: and gather (the walk's C parse), ``transform_device`` = an AU's fused
+#: B6 dispatch and its harvest, ``recode`` = one rendition's entropy
+#: re-encode of one slice (the walk's C write), ``reassemble`` = the
+#: ordered per-AU emit
 REQUANT_STAGES = ("parse", "transform_device", "recode", "reassemble")
 
 #: one shared pool for ALL requant renditions of the process, sized to the
-#: cores it may use; the Python parse and recode hold the GIL, so the pool
-#: mostly keeps the work off the event loop, while the B6 pass and its
-#: copies release it
+#: cores it may use; the walk's C parse and write and the B6 pass's waits
+#: release the GIL, so the workers run side by side (the CPython path of
+#: High 8x8 slices holds it)
 _pool: ThreadPoolExecutor | None = None
 _pool_lock = threading.Lock()
 _sizing_cache: dict | None = None
@@ -410,7 +418,7 @@ class _AuJob:
         self.stats = {d: [] for d in deltas}
         self.remaining = 0
         self.lock = threading.Lock()
-        self.parsed = {}                # slice pos -> (ParsedSlice, gather)
+        self.parsed = {}                # slice pos -> (parsed, gather)
         self.mismatch = False
 
 
@@ -430,6 +438,7 @@ class RequantLadder(RelayOutput):
                  target_duration: float = 2.0, window: int = 6,
                  audio=None):
         super().__init__(ssrc=0x415)
+        native.require()                 # the walk, or raise here
         # identity rewrite, same as HlsOutput: every rendition keeps the
         # SOURCE timestamps so ABR switching never jumps in time
         self.rewrite.base_src_seq = 0
@@ -704,7 +713,7 @@ class RequantLadder(RelayOutput):
         try:
             t0 = time.perf_counter()
             out, n_blocks = recode_parsed(parsed, gather, dispatch,
-                                          s_i, d_i)
+                                          s_i, d_i, stats=d)
             self._stage("recode", t0)
             d.slices_requantized += 1
             d.blocks += n_blocks

@@ -624,6 +624,7 @@ class HlsService:
             if rq is not None:          # requant rung: surface honesty
                 d["requantized_slices"] = rq.stats.slices_requantized
                 d["passed_through_slices"] = rq.stats.slices_passed_through
+                d["native_slices"] = rq.stats.native_slices
                 d["shed_units"] = out.shed
                 d["pending_units"] = out.pending
             return d

@@ -1,20 +1,28 @@
-"""ctypes bridge to the port's host egress core (``csrc/egress_core.cpp``).
+"""ctypes bridge to the port's host core: the egress core
+(``csrc/egress_core.cpp``) and the H.264 slice walk (``csrc/h264_walk.cpp``).
 
-It sends the relay's wire writes, packs the megabatch upload rows, drains
-a UDP pusher's RTP socket into the packet ring (``udp_ingest``) and
-probes what io_uring offers this process (``uring_probe``).
+The egress core sends the relay's wire writes, packs the megabatch upload
+rows, drains a UDP pusher's RTP socket into the packet ring
+(``udp_ingest``) and probes what io_uring offers this process
+(``uring_probe``).  The walk serves the HLS requant ladder: the fused walk
+``h264_requant_slice`` (decode, requantize and re-encode in one pass, the
+split's oracle) and the split walk: ``h264_parse_slice`` (a ``SliceWalk``
+holding the gather), B6 elsewhere, then ``SliceWalk.write`` once a rung.
 
-The library is compiled at first use with ``g++ -O3 -fPIC -shared
+Both sources are compiled at first use with one ``g++ -O3 -fPIC -shared
 -std=c++17`` into ``build/easydarwin_tpu_torch/libegress_core.<hash>.so``
 beside the package (a directory git ignores), under a name that carries
-the source's hash, so an edited source is rebuilt and an unchanged one is
-loaded as it is.  ``available()`` builds and loads it and says whether
-that worked; callers that find it missing keep the Python send loop.
-``loaded()`` never builds.
+the sources' hash, so an edited source is rebuilt and an unchanged one is
+loaded as it is.  It is loaded with ``ctypes.CDLL``, so every call runs
+without the GIL.  ``available()`` builds and loads it and says whether
+that worked; the egress callers that find it missing keep the Python send
+loop, while the walk's entry points raise (the ladder never quietly runs
+its CPython parse instead).  ``loaded()`` never builds.
 
 Every pointer argument is declared (``c_void_p`` or a typed pointer), so
-none is cut to 32 bits, and the stats struct's field count is checked
-against the library at load (``ed_stats_fields``).
+none is cut to 32 bits; at load every symbol must be there, and the
+stats struct's and the walk's info field counts are checked against the
+library (``ed_stats_fields``, ``ed_h264_walk_info_fields``).
 """
 
 from __future__ import annotations
@@ -29,13 +37,15 @@ import struct
 import subprocess
 import tempfile
 import threading
+import weakref
 from pathlib import Path
 
 import numpy as np
 
 _PKG = Path(__file__).resolve().parent
-SOURCE = _PKG / "csrc" / "egress_core.cpp"
-HEADER = _PKG / "csrc" / "egress_core.h"
+SOURCES = (_PKG / "csrc" / "egress_core.cpp", _PKG / "csrc" / "h264_walk.cpp")
+HEADERS = (_PKG / "csrc" / "egress_core.h", _PKG / "csrc" / "h264_walk.h",
+           _PKG / "csrc" / "h264_tables.h")
 BUILD_DIR = _PKG.parent / "build" / "easydarwin_tpu_torch"
 CXX_FLAGS = ("-O3", "-fPIC", "-shared", "-std=c++17")
 
@@ -70,6 +80,14 @@ class EdStats(ctypes.Structure):
     _fields_ = [(n, ctypes.c_int64) for n in STAT_FIELDS]
 
 
+#: the ``info_out`` fields of ``ed_h264_parse_slice`` (``h264_walk.h``)
+WALK_INFO_FIELDS = ("rows", "centries", "blocks", "max_qp", "mbs", "qp")
+
+#: the walk's returns: a feature outside it, a malformed bitstream, an
+#: output buffer too small, arguments that do not match the handle
+WALK_UNSUPPORTED, WALK_MALFORMED, WALK_OVERFLOW, WALK_BAD_ARGS = -1, -2, -3, -4
+
+
 #: ``use_gso`` values of ``ed_fanout_send_multi``
 SEND_PLAIN, SEND_GSO = 0, 1
 
@@ -82,8 +100,19 @@ _U8P = ctypes.POINTER(ctypes.c_uint8)
 _I32P = ctypes.POINTER(ctypes.c_int32)
 _I64P = ctypes.POINTER(ctypes.c_int64)
 _U32P = ctypes.POINTER(ctypes.c_uint32)
+_I64P = ctypes.POINTER(ctypes.c_int64)
 _OPP = ctypes.POINTER(SendOp)
 _DESTP = ctypes.POINTER(Dest)
+_VP = ctypes.c_void_p
+#: the walk's slice arguments after (nal, nal_len): width and height in
+#: MBs, log2_max_frame_num, poc_type, log2_max_poc_lsb, pic_init_qp,
+#: pps_id, deblocking_control, bottom_field_poc
+_WALK_SLICE = [_I32] * 9
+_FUSED = (_I32, [_U8P, _I32, _U8P, _I32, *_WALK_SLICE, _I32, _I32, _I32, _I32,
+                 _I32P, _I32P])
+_PARSE = (_I32, [_U8P, _I32, *_WALK_SLICE, _I32, _I32, _I32,
+                 ctypes.POINTER(_VP), _I32P])
+_WRITE = (_I32, [_VP, _I32, _I64P, _I32, _I64P, _I64P, _I32, _U8P, _I32])
 _SIGNATURES = {
     "ed_last_send_errno": (_I32, []),
     "ed_get_stats": (None, [ctypes.POINTER(EdStats)]),
@@ -103,12 +132,21 @@ _SIGNATURES = {
         ctypes.c_int, _U8P, _I32P, _I64P, _I32, _I32, ctypes.c_int64, _I64P,
         _I32, _I32P]),
     "ed_uring_probe": (_I32, []),
+    "ed_h264_requant_slice": _FUSED,
+    "ed_h264_requant_slice_cabac": _FUSED,
+    "ed_h264_parse_slice": _PARSE,
+    "ed_h264_parse_slice_cabac": _PARSE,
+    "ed_h264_walk_gather": (_I32, [_VP, _I64P, _I64P, _I64P, _I64P, _I64P]),
+    "ed_h264_write_slice": _WRITE,
+    "ed_h264_write_slice_cabac": _WRITE,
+    "ed_h264_walk_free": (None, [_VP]),
+    "ed_h264_walk_info_fields": (_I32, []),
 }
 
 
 def _source_hash() -> str:
     h = hashlib.sha256()
-    for src in (SOURCE, HEADER):
+    for src in (*SOURCES, *HEADERS):
         h.update(src.read_bytes())
     h.update(" ".join(CXX_FLAGS).encode())
     return h.hexdigest()[:16]
@@ -133,7 +171,8 @@ def build() -> Path:
     work = Path(tempfile.mkdtemp(dir=BUILD_DIR))
     try:
         tmp = work / out.name
-        r = subprocess.run([cxx, *CXX_FLAGS, "-o", str(tmp), str(SOURCE)],
+        r = subprocess.run([cxx, *CXX_FLAGS, "-o", str(tmp),
+                            *map(str, SOURCES)],
                            capture_output=True, text=True, timeout=300)
         if r.returncode != 0:
             raise RuntimeError(f"g++ failed ({r.returncode}):\n{r.stderr}")
@@ -151,9 +190,11 @@ def _bind(lib: ctypes.CDLL) -> None:
 
 
 def _abi_ok(lib: ctypes.CDLL) -> bool:
-    """The library writes exactly the fields ``EdStats`` holds: fewer
-    would read as zeros, more would write past the buffer."""
-    return lib.ed_stats_fields() == len(STAT_FIELDS)
+    """The library writes exactly the fields ``EdStats`` and the walk's
+    info array hold: fewer would read as zeros, more would write past the
+    buffer.  (``_bind`` already found every symbol.)"""
+    return (lib.ed_stats_fields() == len(STAT_FIELDS)
+            and lib.ed_h264_walk_info_fields() == len(WALK_INFO_FIELDS))
 
 
 def _load() -> ctypes.CDLL | None:
@@ -165,12 +206,15 @@ def _load() -> ctypes.CDLL | None:
         try:
             lib = ctypes.CDLL(str(build()))
             _bind(lib)
-        except (OSError, RuntimeError, subprocess.SubprocessError) as e:
+        except (OSError, RuntimeError, AttributeError,
+                subprocess.SubprocessError) as e:
             load_error = str(e)
             return None
         if not _abi_ok(lib):
-            load_error = (f"ed_stats has {lib.ed_stats_fields()} fields, "
-                          f"the bridge {len(STAT_FIELDS)}")
+            load_error = (f"ed_stats has {lib.ed_stats_fields()} fields and "
+                          f"the walk's info {lib.ed_h264_walk_info_fields()}"
+                          f", the bridge {len(STAT_FIELDS)} and "
+                          f"{len(WALK_INFO_FIELDS)}")
             return None
         _lib = lib
         return _lib
@@ -189,8 +233,15 @@ def loaded() -> bool:
 def _need() -> ctypes.CDLL:
     lib = _load()
     if lib is None:
-        raise RuntimeError(f"egress core unavailable: {load_error}")
+        raise RuntimeError(f"host core unavailable: {load_error}")
     return lib
+
+
+def require() -> None:
+    """Build (once) and load the library, or raise: the H.264 walk's
+    users call it when they are made, so a missing walk fails there and
+    never shows up later as passed-through slices."""
+    _need()
 
 
 def _u8(a: np.ndarray):
@@ -354,6 +405,141 @@ def udp_ingest(fd: int, ring_data: np.ndarray, ring_len: np.ndarray,
     if n < 0:
         raise OSError(-n, os.strerror(-n))
     return n, h.value, drops.value
+
+
+# ---------------------------------------------------------- the H.264 walk
+def _walk_slice_args(width_mbs: int, height_mbs: int,
+                     log2_max_frame_num: int, poc_type: int,
+                     log2_max_poc_lsb: int, pic_init_qp: int, pps_id: int,
+                     deblocking_control: bool, bottom_field_poc: bool
+                     ) -> tuple[int, ...]:
+    return (width_mbs, height_mbs, log2_max_frame_num, poc_type,
+            log2_max_poc_lsb, pic_init_qp, pps_id,
+            1 if deblocking_control else 0, 1 if bottom_field_poc else 0)
+
+
+def h264_requant_slice(nal: bytes, *, width_mbs: int, height_mbs: int,
+                       log2_max_frame_num: int, poc_type: int,
+                       log2_max_poc_lsb: int, pic_init_qp: int,
+                       pps_id: int, deblocking_control: bool,
+                       bottom_field_poc: bool, delta_qp: int,
+                       chroma_qp_offset: int = 0,
+                       cabac: bool = False,
+                       num_ref_l0_default: int = 0,
+                       weighted_pred: bool = False
+                       ) -> tuple[bytes, int, int] | None:
+    """The FUSED walk (``ed_h264_requant_slice[_cabac]``, CABAC when
+    ``cabac``): one slice requantized ``delta_qp`` steps coarser in one
+    pass → (nal, macroblocks in the slice, residual blocks), the blocks
+    counted as the Python path batches them (17 an I_16x16 MB, 16 another
+    coded MB, 8 more with chroma).  None when the walk returns -1
+    (unsupported) or -2 (malformed).  The ladder does not serve from it:
+    it is the split walk's oracle and control."""
+    lib = _need()
+    entry = (lib.ed_h264_requant_slice_cabac if cabac
+             else lib.ed_h264_requant_slice)
+    src = np.frombuffer(nal, dtype=np.uint8)
+    args = _walk_slice_args(width_mbs, height_mbs, log2_max_frame_num,
+                            poc_type, log2_max_poc_lsb, pic_init_qp, pps_id,
+                            deblocking_control, bottom_field_poc)
+    mbs = ctypes.c_int32(0)
+    blocks = ctypes.c_int32(0)
+    for cap in (len(nal) * 2 + 256, len(nal) * 4 + 4096):
+        out = np.empty(cap, dtype=np.uint8)
+        n = entry(_u8(src), len(nal), _u8(out), cap, *args, delta_qp,
+                  chroma_qp_offset, num_ref_l0_default,
+                  1 if weighted_pred else 0, ctypes.byref(mbs),
+                  ctypes.byref(blocks))
+        if n != WALK_OVERFLOW:       # a slice that grew past twice its size
+            break
+    return (out[:n].tobytes(), mbs.value, blocks.value) if n > 0 else None
+
+
+class SliceWalk:
+    """One slice parsed by the split walk (``h264_parse_slice``): the C
+    handle, freed with this object, and its gather in int64 arrays in the
+    order and row map of ``codecs.h264_requant.gather_slice``: ``rows``
+    [R, 16], ``qps`` [R], ``cdc`` [2C, 4], ``cac`` [2C, 4, 15] (Cb then Cr
+    of each chroma-bearing macroblock), ``cqp`` [C]; ``info`` holds
+    ``WALK_INFO_FIELDS``.  ``write`` may run for several rungs at once."""
+
+    def __init__(self, lib: ctypes.CDLL, ptr: int, cabac: bool,
+                 info: dict[str, int], nal_len: int):
+        self.info = info
+        self.nal_len = nal_len
+        self._ptr = ptr
+        self._write = (lib.ed_h264_write_slice_cabac if cabac
+                       else lib.ed_h264_write_slice)
+        self._free = weakref.finalize(self, lib.ed_h264_walk_free, ptr)
+        r, c = info["rows"], info["centries"]
+        self.rows = np.empty((r, 16), dtype=np.int64)
+        self.qps = np.empty(r, dtype=np.int64)
+        self.cdc = np.empty((2 * c, 4), dtype=np.int64)
+        self.cac = np.empty((2 * c, 4, 15), dtype=np.int64)
+        self.cqp = np.empty(c, dtype=np.int64)
+        rc = lib.ed_h264_walk_gather(
+            ptr, *(a.ctypes.data_as(_I64P) for a in (
+                self.rows, self.qps, self.cdc, self.cac, self.cqp)))
+        if rc != 0:
+            raise RuntimeError(f"ed_h264_walk_gather returned {rc}")
+
+    def write(self, delta_qp: int, rows: np.ndarray, cdc: np.ndarray,
+              cac: np.ndarray) -> bytes | int:
+        """One rung: the slice re-encoded ``delta_qp`` steps coarser from
+        that rung's requantized rows (the gather's shapes; ``cdc`` and
+        ``cac`` may group Cb and Cr as [C, 2, ...]).  The NAL, or the
+        walk's -1 (outside it: the QP-51 ceiling, an mb_qp_delta out of
+        range) or -2."""
+        r, c = self.info["rows"], self.info["centries"]
+        rows = np.ascontiguousarray(rows, dtype=np.int64)
+        cdc = np.ascontiguousarray(cdc, dtype=np.int64)
+        cac = np.ascontiguousarray(cac, dtype=np.int64)
+        if rows.size != 16 * r or cdc.size != 8 * c or cac.size != 120 * c:
+            raise ValueError(f"rung rows {rows.shape} {cdc.shape} "
+                             f"{cac.shape} for a walk of {r} rows and {c} "
+                             f"chroma entries")
+        for cap in (self.nal_len * 2 + 256, self.nal_len * 4 + 4096):
+            out = np.empty(cap, dtype=np.uint8)
+            n = self._write(self._ptr, delta_qp, rows.ctypes.data_as(_I64P),
+                            r, cdc.ctypes.data_as(_I64P),
+                            cac.ctypes.data_as(_I64P), c, _u8(out), cap)
+            if n != WALK_OVERFLOW:
+                break
+        if n == WALK_BAD_ARGS:
+            raise ValueError("the walk refused the rung's arguments")
+        return out[:n].tobytes() if n > 0 else n
+
+
+def h264_parse_slice(nal: bytes, *, width_mbs: int, height_mbs: int,
+                     log2_max_frame_num: int, poc_type: int,
+                     log2_max_poc_lsb: int, pic_init_qp: int, pps_id: int,
+                     deblocking_control: bool, bottom_field_poc: bool,
+                     chroma_qp_offset: int = 0, cabac: bool = False,
+                     num_ref_l0_default: int = 0,
+                     weighted_pred: bool = False) -> SliceWalk | int:
+    """The split walk's parse (``ed_h264_parse_slice[_cabac]``) and its
+    gather: a ``SliceWalk``, or the walk's -1 (outside it: the caller
+    takes the Python path) or -2 (malformed: the caller passes the slice
+    through).  Raises when the library is missing."""
+    lib = _need()
+    entry = (lib.ed_h264_parse_slice_cabac if cabac
+             else lib.ed_h264_parse_slice)
+    src = np.frombuffer(nal, dtype=np.uint8)
+    handle = _VP()
+    info = (_I32 * len(WALK_INFO_FIELDS))()
+    rc = entry(_u8(src), len(nal),
+               *_walk_slice_args(width_mbs, height_mbs, log2_max_frame_num,
+                                 poc_type, log2_max_poc_lsb, pic_init_qp,
+                                 pps_id, deblocking_control,
+                                 bottom_field_poc),
+               chroma_qp_offset, num_ref_l0_default,
+               1 if weighted_pred else 0, ctypes.byref(handle), info)
+    if rc != 0:
+        if rc == WALK_BAD_ARGS:
+            raise ValueError("the walk refused the parse's arguments")
+        return rc
+    return SliceWalk(lib, handle.value, cabac,
+                     dict(zip(WALK_INFO_FIELDS, info)), len(nal))
 
 
 _uring_caps: int | None = None

@@ -173,6 +173,8 @@ class StreamingServer:
         #: reliable-UDP resend sweeps: packets resent and given up
         self.reliable_resends = 0
         self.reliable_giveups = 0
+        #: the largest RTO a reliable player's sweep ran with (ms)
+        self.reliable_rto_ms_max = 0.0
         self.native_loaded = False
         self._pump_event = asyncio.Event()
         self._pump_task: asyncio.Task | None = None
@@ -417,6 +419,8 @@ class StreamingServer:
         expired = out.resender.expired
         self.reliable_resends += out.tick(t)
         self.reliable_giveups += out.resender.expired - expired
+        self.reliable_rto_ms_max = max(self.reliable_rto_ms_max,
+                                       out.tracker.rto_ms)
 
     def fec_stats(self) -> dict:
         """The FEC tier's counters over every stream the server ran, and
@@ -507,11 +511,14 @@ class StreamingServer:
                 "native_loaded": self.native_loaded,
                 "ingest": self.ingest_stats(),
                 "egress": self.egress_stats(),
-                "rtcp": {"in": self.rtsp.rtcp_in, **self.rtsp.rtcp_counts},
+                "rtcp": {"in": self.rtsp.rtcp_in, **self.rtsp.rtcp_counts,
+                         **{f"socket_{k}": v for k, v
+                            in self.rtsp.rtcp_socket_stats().items()}},
                 "fec": self.fec_stats(),
                 "reliable": {"resends": self.reliable_resends,
                              "acks": self.rtsp.reliable_acks,
-                             "giveups": self.reliable_giveups},
+                             "giveups": self.reliable_giveups,
+                             "rto_ms_max": self.reliable_rto_ms_max},
                 "megabatch": self.megabatch.stats(),
                 "vod": (None if self.vod_pacer is None
                         else self.vod_pacer.stats()),

@@ -94,7 +94,7 @@ from .transports import (InterleavedOutput, SharedUdpEgress, UdpOutput,
 
 SERVER_NAME = "easydarwin-tpu-torch/0.1"
 ALLOWED = ("OPTIONS, DESCRIBE, ANNOUNCE, SETUP, PLAY, PAUSE, RECORD, "
-           "TEARDOWN")
+           "TEARDOWN, GET_PARAMETER, SET_PARAMETER")
 #: x-RTP-Meta-Info fields the live relay fills: transmit time, sequence
 #: number and the media payload (mandatory)
 META_SUPPORTED = ("tt", "sq", "md")
@@ -325,6 +325,14 @@ class RtspConnection:
 
     async def _do_options(self, req: rtsp.RtspRequest) -> None:
         self._reply(rtsp.RtspResponse(200, {"Public": ALLOWED}), req.cseq)
+
+    async def _do_get_parameter(self, req: rtsp.RtspRequest) -> None:
+        # players send it as a keep-alive: an empty 200 (the reference's
+        # x-freshness body needs the fleet observer, which the port lacks)
+        self._reply(rtsp.RtspResponse(200), req.cseq)
+
+    async def _do_set_parameter(self, req: rtsp.RtspRequest) -> None:
+        self._reply(rtsp.RtspResponse(200), req.cseq)
 
     async def _do_describe(self, req: rtsp.RtspRequest) -> None:
         path = req.path()
@@ -831,6 +839,15 @@ class RtspServer:
         self.rtcp_counts = dict.fromkeys(("rr", "nadu", "nack", "app"), 0)
         #: packets APP acks popped from reliable outputs' resend windows
         self.reliable_acks = 0
+        #: the shared RTCP socket's buffer and drops as they stood at stop
+        self._rtcp_socket_final = {"rcvbuf": 0, "drops": -1}
+
+    def rtcp_socket_stats(self) -> dict:
+        """The shared RTCP socket's granted receive buffer and the
+        datagrams the kernel dropped on it (at ``stop`` once it ran)."""
+        if self.shared_egress is not None:
+            return self.shared_egress.rtcp_socket_stats()
+        return self._rtcp_socket_final
 
     async def start(self) -> None:
         self._server = await asyncio.start_server(
@@ -844,6 +861,7 @@ class RtspServer:
         for conn in list(self.connections):
             await conn.close()
         if self.shared_egress is not None:
+            self._rtcp_socket_final = self.shared_egress.rtcp_socket_stats()
             self.shared_egress.close()
             self.shared_egress = None
         if self._server is not None:

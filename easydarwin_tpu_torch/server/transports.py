@@ -10,7 +10,14 @@ UDP players are served from one shared socket pair (``SharedUdpEgress``),
 whose RTP socket the engine writes with one ``sendmmsg``/UDP-GSO scatter a
 stream a wake.  Each datagram that reaches its RTCP socket is handed with
 its source address to ``on_rtcp`` (the RTSP server, which routes a
-player's receiver reports to its outputs).
+player's receiver reports to its outputs).  That socket takes every UDP
+player's reports, NACKs and reliable acks (one a packet), so a readiness
+callback takes up to ``RTCP_DRAIN_MAX`` datagrams off it (an asyncio
+endpoint takes one a loop turn; the bound keeps a flood from holding the
+loop), and
+its receive buffer (``RTCP_RCVBUF``) holds what arrives while a pump wake
+holds the loop: a dropped ack is resent data, and a late one inflates
+the reliable output's RTO.
 
 A pusher that SETUPs over UDP gets a port pair of its own from
 ``UdpPortPool``: an even RTP port and the odd one above it.  With the
@@ -18,15 +25,24 @@ native ingest (``allocate_native``) the RTP side is a plain non-blocking
 socket watched by ``loop.add_reader``, and one readiness callback drains
 the whole pending batch into the ring in recvmmsg batches
 (``NativeIngestPair``); without it (``allocate``) each datagram is one
-asyncio callback.  The RTCP side is an asyncio endpoint either way.
+asyncio callback.  A pusher's RTCP side is an asyncio endpoint either
+way.
 """
 
 from __future__ import annotations
 
 import asyncio
+import os
 import socket
 
 from ..relay.output import RelayOutput, WriteResult
+
+#: the shared RTCP socket's requested receive buffer (the kernel caps it
+#: at twice ``net.core.rmem_max``)
+RTCP_RCVBUF = 1 << 22
+#: datagrams one readiness callback takes off the RTCP socket at most
+RTCP_DRAIN_MAX = 64
+RTCP_MAX_DATAGRAM = 65536
 
 #: interleaved write-buffer high water mark
 HIGH_WATER = 256 * 1024
@@ -129,16 +145,17 @@ class SharedUdpEgress:
 
     RTP leaves through one plain non-blocking socket: the engine's native
     scatter writes it (``fileno``), and ``send_rtp`` is the scalar send
-    (WOULD_BLOCK when the socket buffer is full).  RTCP leaves through an
-    asyncio endpoint, whose incoming datagrams go to ``on_rtcp(data,
-    addr)``."""
+    (WOULD_BLOCK when the socket buffer is full).  RTCP leaves through a
+    plain non-blocking socket too, watched by ``loop.add_reader``; its
+    incoming datagrams go to ``on_rtcp(data, addr)``."""
 
     def __init__(self, bind_ip: str = "0.0.0.0", on_rtcp=None):
         self.bind_ip = bind_ip
         self.on_rtcp = on_rtcp
         self.rtp_sock: socket.socket | None = None
-        self.rtcp_transport: asyncio.DatagramTransport | None = None
+        self.rtcp_sock: socket.socket | None = None
         self.rtcp_proto: _DatagramSink | None = None
+        self._loop: asyncio.AbstractEventLoop | None = None
         self.rtp_port = 0
         self.rtcp_port = 0
         self.send_errors = 0
@@ -149,15 +166,54 @@ class SharedUdpEgress:
         self.rtp_sock.setsockopt(socket.SOL_SOCKET, socket.SO_SNDBUF, 1 << 22)
         self.rtp_sock.bind((self.bind_ip, 0))
         self.rtp_port = self.rtp_sock.getsockname()[1]
-        loop = asyncio.get_running_loop()
-        self.rtcp_transport, self.rtcp_proto = \
-            await loop.create_datagram_endpoint(
-                lambda: _DatagramSink(self.on_rtcp),
-                local_addr=(self.bind_ip, 0))
-        self.rtcp_port = self.rtcp_transport.get_extra_info("sockname")[1]
+        rtcp = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+        try:
+            rtcp.setblocking(False)
+            rtcp.setsockopt(socket.SOL_SOCKET, socket.SO_RCVBUF, RTCP_RCVBUF)
+            rtcp.bind((self.bind_ip, 0))
+        except OSError:
+            rtcp.close()
+            raise
+        self.rtcp_sock = rtcp
+        self.rtcp_port = rtcp.getsockname()[1]
+        self.rtcp_proto = _DatagramSink(self.on_rtcp)
+        self._loop = asyncio.get_running_loop()
+        self._loop.add_reader(rtcp.fileno(), self._drain_rtcp)
+
+    def _drain_rtcp(self) -> None:
+        """Every datagram queued on the RTCP socket, up to
+        ``RTCP_DRAIN_MAX`` a readiness callback."""
+        sock, sink = self.rtcp_sock, self.rtcp_proto
+        for _ in range(RTCP_DRAIN_MAX):
+            try:
+                data, addr = sock.recvfrom(RTCP_MAX_DATAGRAM)
+            except OSError:             # EAGAIN: nothing more queued
+                return
+            sink.datagram_received(data, addr)
 
     def fileno(self) -> int:
         return self.rtp_sock.fileno() if self.rtp_sock is not None else -1
+
+    def rtcp_socket_stats(self) -> dict:
+        """The RTCP socket's receive buffer as granted and the datagrams
+        the kernel dropped on it for want of room (``/proc/net/udp``'s
+        ``drops``; -1 where that file has no row for it)."""
+        sock = self.rtcp_sock
+        if sock is None:
+            return {"rcvbuf": 0, "drops": -1}
+        inode = str(os.fstat(sock.fileno()).st_ino)
+        drops = -1
+        try:
+            with open("/proc/net/udp") as f:
+                for line in f.readlines()[1:]:
+                    cols = line.split()
+                    if cols[9] == inode:
+                        drops = int(cols[-1])
+        except OSError:
+            pass
+        return {"rcvbuf": sock.getsockopt(socket.SOL_SOCKET,
+                                          socket.SO_RCVBUF),
+                "drops": drops}
 
     def send_rtp(self, data: bytes, addr) -> WriteResult:
         if self.rtp_sock is None:
@@ -172,19 +228,25 @@ class SharedUdpEgress:
         return WriteResult.OK
 
     def send_rtcp(self, data: bytes, addr) -> WriteResult:
-        tr = self.rtcp_transport
-        if tr is None or tr.is_closing():
+        if self.rtcp_sock is None:
             return WriteResult.ERROR
-        tr.sendto(data, addr)
+        try:
+            self.rtcp_sock.sendto(data, addr)
+        except BlockingIOError:
+            return WriteResult.WOULD_BLOCK
+        except OSError:
+            self.send_errors += 1
+            return WriteResult.ERROR
         return WriteResult.OK
 
     def close(self) -> None:
         if self.rtp_sock is not None:
             self.rtp_sock.close()
             self.rtp_sock = None
-        if self.rtcp_transport is not None:
-            self.rtcp_transport.close()
-            self.rtcp_transport = None
+        if self.rtcp_sock is not None:
+            self._loop.remove_reader(self.rtcp_sock.fileno())
+            self.rtcp_sock.close()
+            self.rtcp_sock = None
 
 
 class UdpPair:

@@ -130,16 +130,96 @@ def encode_source(seed: int, src: HlsSource, width: int, height: int,
 def as_non_idr(nal: bytes, sps, pps, k: int) -> bytes:
     """An IDR slice rewritten as the non-IDR I slice of picture ``k`` of
     its GOP (nal_unit_type 1, frame_num k, POC 2k, no reference marking
-    change): the same macroblocks through the port's slice writer."""
-    from ..codecs import h264_requant as rq
-    parsed = rq.parse_slice_nal(nal, sps, pps)
-    hdr = parsed.hdr
+    change): a new slice header before the same macroblock layer, bit for
+    bit (CAVLC: the bits up to the stop bit, then new trailing bits;
+    CABAC: alignment ones, then the same arithmetic-coded bytes).  No
+    macroblock is decoded, so a 1080p picture takes milliseconds."""
+    from ..codecs.h264_bits import BitReader, BitWriter, nal_to_rbsp, \
+        rbsp_to_nal
+    from ..codecs.h264_intra import SliceCodec
+    rbsp = nal_to_rbsp(nal[1:])
+    br = BitReader(rbsp)
+    codec = SliceCodec(sps, pps)
+    hdr = codec.parse_slice_header(br, nal[0])
     hdr.nal_type = 1
     hdr.frame_num = k % (1 << sps.log2_max_frame_num)
     hdr.poc_lsb = (2 * k) % (1 << sps.log2_max_poc_lsb)
     hdr.adaptive_marking = None
-    parsed.nal0 = (nal[0] & 0x60) | 1
-    return rq._write_slice_bytes(parsed, parsed.mbs, parsed.qp_in_base)
+    bw = BitWriter()
+    codec.write_slice_header(bw, hdr, hdr.qp)
+    if pps.entropy_cabac:
+        while bw.bit_length % 8:
+            bw.write_bit(1)              # cabac_alignment_one_bit
+        body = bw.to_bytes() + rbsp[(br.pos + 7) // 8:]
+    else:
+        whole = int.from_bytes(rbsp, "big")
+        stop = len(rbsp) * 8 - 1 - ((whole & -whole).bit_length() - 1)
+        n = stop - br.pos                # macroblock bits before the stop
+        bits = (whole >> (len(rbsp) * 8 - stop)) & ((1 << n) - 1)
+        head = bw.bit_length
+        bw.write_bits(0, -head % 8)
+        hv = int.from_bytes(bw.to_bytes(), "big") >> (-head % 8)
+        pad = -(head + n + 1) % 8
+        value = ((((hv << n) | bits) << 1) | 1) << pad
+        body = value.to_bytes((head + n + 1 + pad) // 8, "big")
+    return bytes([(nal[0] & 0x60) | 1]) + rbsp_to_nal(body)
+
+
+def encode_picture(seed: int, entropy: str, slices: int, width: int,
+                   height: int, j: int) -> list[bytes]:
+    """Picture ``j`` of one entropy mode and slice count as SPS, PPS and
+    its IDR slice NALs.  Runs in a worker process."""
+    from ..codecs.h264_intra import encode_iframe
+    rng = np.random.default_rng([seed, slices, entropy == "cabac", j])
+    y, cb, cr = _planes(rng, width, height, j)
+    return encode_iframe(y, PICTURE_QP, cb=cb, cr=cr, slices=slices,
+                         entropy=entropy)
+
+
+def prepare_shared(sources: list[HlsSource], seed: int, *, width: int,
+                   height: int, gop: int, distinct: int,
+                   deltas: tuple[int, ...], workers: int) -> list[dict]:
+    """``encode_source``'s result for every source from ``distinct``
+    pictures a kind (entropy mode and slice count), each encoded once on
+    ``workers`` spawned processes and shared by the sources of its kind;
+    a GOP's picture k is distinct picture ``k % distinct``, rewritten as a
+    non-IDR picture when k > 0.  The oracle is the native fused walk
+    (``native.h264_requant_slice``) on each slice.  For sizes whose
+    CPython encode takes seconds a picture."""
+    from .. import native
+    from ..codecs import h264_requant as rq
+    from ..codecs.h264_intra import Pps, Sps
+    kinds = sorted({(s.entropy, s.slices) for s in sources})
+    ctx = multiprocessing.get_context("spawn")
+    with ProcessPoolExecutor(max_workers=workers, mp_context=ctx) as ex:
+        futs = {(kind, j): ex.submit(encode_picture, seed, *kind, width,
+                                     height, j)
+                for kind in kinds for j in range(distinct)}
+        coded = {key: f.result() for key, f in futs.items()}
+    by_kind = {}
+    for kind in kinds:
+        sps_nal, pps_nal = coded[(kind, 0)][:2]
+        sps, pps = Sps.parse(sps_nal), Pps.parse(pps_nal)
+        pics = []
+        for k in range(gop):
+            nals = coded[(kind, k % distinct)]
+            check(nals[:2] == [sps_nal, pps_nal],
+                  f"{kind}: pictures with different parameter sets")
+            pics.append([as_non_idr(n, sps, pps, k) if k else n
+                         for n in nals[2:]])
+        oracle = {}
+        for d in deltas:
+            oracle[d] = []
+            for p in pics:
+                outs = [native.h264_requant_slice(n, delta_qp=d,
+                                                  **rq._walk_args(sps, pps))
+                        for n in p]
+                check(all(o is not None for o in outs),
+                      f"{kind}: the fused walk refused a slice at +{d}")
+                oracle[d].append([o[0] for o in outs])
+        by_kind[kind] = {"sps": sps_nal, "pps": pps_nal, "pictures": pics,
+                         "oracle": oracle}
+    return [by_kind[(s.entropy, s.slices)] for s in sources]
 
 
 def prepare_sources(sources: list[HlsSource], seed: int, *, width: int,
@@ -247,12 +327,16 @@ async def hls_play(rtsp_port: int, rest_port: int, sources: list[HlsSource],
                    prepared: list[dict], rng: np.random.Generator, *,
                    frames: int, fps: float, gop: int = 3,
                    deltas: tuple[int, ...] = (6, 12),
-                   master: int = 4, deadline_s: float = 120.0) -> dict:
+                   master: int = 4, deadline_s: float = 120.0,
+                   allow_shed: bool = False) -> dict:
     """Push ``frames`` pictures of each source at ``fps`` a second (media
     time ``FRAME_TICKS`` a picture), with the HLS entries started before
     the first picture, and check everything of the module docstring once
     every rendition holds the segments of its first ``frames // gop``
-    GOPs.  Audio sources keep pushing AAC until then."""
+    GOPs.  Audio sources keep pushing AAC until then.  With
+    ``allow_shed`` a ladder may shed AUs: a q-rung then waits only for
+    its ladder to drain, and its samples must be pushed pictures in
+    order, each equal to its oracle, with none past the source's."""
     base = f"rtsp://127.0.0.1:{rtsp_port}"
     ts0 = [int(t) for t in rng.integers(0, 1 << 32, len(sources))]
     seq0 = [int(s) for s in rng.integers(0, 1 << 16, len(sources))]
@@ -349,10 +433,15 @@ async def hls_play(rtsp_port: int, rest_port: int, sources: list[HlsSource],
         status, doc = await http_get_json(rest_port,
                                           "/api/v1/gethlsstreams")
         streams = _body(doc)["Streams"]
-        if all(len({r["segments"] for r in s["renditions"]}) == 1
-               and all(r["segments"] >= want_segs
-                       and r.get("pending_units", 0) == 0
-                       for r in s["renditions"]) for s in streams):
+
+        def done(r, s):
+            if allow_shed and r["name"].startswith("q"):
+                return r["segments"] >= 1 and r["pending_units"] == 0
+            return (r["segments"] >= want_segs
+                    and r.get("pending_units", 0) == 0
+                    and (allow_shed or len({q["segments"] for q
+                                            in s["renditions"]}) == 1))
+        if all(done(r, s) for s in streams for r in s["renditions"]):
             break
         check(time.monotonic() < deadline,
               f"renditions did not reach {want_segs} segments: {streams}")
@@ -365,7 +454,7 @@ async def hls_play(rtsp_port: int, rest_port: int, sources: list[HlsSource],
         for r in s["renditions"]:
             if r["name"].startswith("q"):
                 check(r["passed_through_slices"] == 0
-                      and r["shed_units"] == 0
+                      and (allow_shed or r["shed_units"] == 0)
                       and r["requantized_slices"] > 0,
                       f"{s['path']} {r['name']}: {r}")
 
@@ -393,7 +482,9 @@ async def hls_play(rtsp_port: int, rest_port: int, sources: list[HlsSource],
             check((init.count(b"mp4a") > 0) == src.audio,
                   f"{base_url}init.mp4: audio track {src.audio} expected")
             segs = re.findall(r"^seg(\d+)\.m4s$", pl.decode(), re.M)
-            check(len(segs) >= want_segs, f"{base_url}: {len(segs)} segments")
+            shed_ok = allow_shed and name.startswith("q")
+            check(len(segs) >= (1 if shed_ok else want_segs),
+                  f"{base_url}: {len(segs)} segments")
             got_frames = []
             av_segs = 0
             for seq in segs:
@@ -434,6 +525,11 @@ async def hls_play(rtsp_port: int, rest_port: int, sources: list[HlsSource],
                         res["video_bytes"].get(name, 0) + len(sample))
             check(av_segs > 0 or not src.audio,
                   f"{base_url}: no segment carries the AAC track")
+            if shed_ok:
+                # a shed AU is missing from its rung: the rest in order
+                check(got_frames == sorted(set(got_frames)) and got_frames[0]
+                      % gop == 0, f"{base_url}: frames {got_frames}")
+                continue
             check(got_frames and got_frames[0] in (0, gop),
                   f"{base_url}: segments start at frame {got_frames[:1]}")
             span = range(got_frames[0], got_frames[-1] + 1)
@@ -471,24 +567,29 @@ async def serve_hls(device: str, rng: np.random.Generator, *,
                     deltas: tuple[int, ...] = (6, 12),
                     master: int = 4, workers: int = 4,
                     deadline_s: float = 120.0,
-                    hls_device: str | None = None) -> dict:
-    """Prepare the sources (``prepare_sources``), run ``hls_play``
-    against the CLI server on ``device`` (its requant rungs on
-    ``hls_device``, default ``device``) and check its exit stats."""
+                    hls_device: str | None = None,
+                    prepared: list[dict] | None = None,
+                    allow_shed: bool = False) -> dict:
+    """Prepare the sources (``prepare_sources``, unless ``prepared`` is
+    given), run ``hls_play`` against the CLI server on ``device`` (its
+    requant rungs on ``hls_device``, default ``device``) and check its
+    exit stats; shed AUs are an error unless ``allow_shed``."""
     t0 = time.monotonic()
-    prepared = prepare_sources(sources, seed, width=width, height=height,
-                               pictures=gop, deltas=deltas, workers=workers)
+    if prepared is None:
+        prepared = prepare_sources(sources, seed, width=width, height=height,
+                                   pictures=gop, deltas=deltas,
+                                   workers=workers)
     prep_s = time.monotonic() - t0
     args = () if hls_device is None else ("--hls-device", hls_device)
     async with CliServer(device, *args) as srv:
         res = await hls_play(srv.rtsp_port, srv.rest_port, sources,
                              prepared, rng, frames=frames, fps=fps, gop=gop,
                              deltas=deltas, master=master,
-                             deadline_s=deadline_s)
+                             deadline_s=deadline_s, allow_shed=allow_shed)
         stats = await srv.stop()
     hls = stats["hls"]
     check(hls["device_errors"] == 0, f"B6 device errors: {hls}")
-    check(hls["shed"] == 0, f"shed AUs: {hls}")
+    check(allow_shed or hls["shed"] == 0, f"shed AUs: {hls}")
     check(hls["mismatches"] == 0, f"reassembly mismatches: {hls}")
     # the pushers left before the stop: a maintenance sweep in between
     # retires their entries, so every path is either live or retired
@@ -496,6 +597,12 @@ async def serve_hls(device: str, rng: np.random.Generator, *,
           f"HLS paths at exit: {hls}")
     check(hls["dispatches"] + hls["no_ps_aus"] == hls["aus"] > 0,
           f"ladder dispatches vs AUs: {hls}")
+    # every requantized slice went through the native walk's write
+    for s in res["streams"]:
+        for r in s["renditions"]:
+            if r["name"].startswith("q"):
+                check(r["native_slices"] == r["requantized_slices"],
+                      f"{s['path']} {r['name']}: slices off the walk {r}")
     check(stats["hls_not_modified"] >= 1, "no 304 counted")
     launches = stats["kernel_launches"]
     if (hls_device or device) != "cuda":

@@ -436,9 +436,14 @@ async def serve_and_check(device: str, rng: np.random.Generator, *,
     """``harness`` (``push_play`` by default, or ``push_play_av``; ``kw``
     passed on, ``push_transport="udp"`` among them) against the CLI
     server on ``device``; adds the server's exit stats (pump errors and
-    oracle mismatches must be 0)."""
+    oracle mismatches must be 0); a failed check of the harness is raised
+    again with those stats, which say why a player went short."""
     async with CliServer(device) as srv:
-        res = await (harness or push_play)(srv.rtsp_port, rng, **kw)
+        try:
+            res = await (harness or push_play)(srv.rtsp_port, rng, **kw)
+        except AssertionError as e:
+            raise AssertionError(
+                f"{e}; the server's exit stats: {await srv.stop()}") from e
         res["server_stats"] = await srv.stop()
         return res
 

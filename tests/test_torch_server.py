@@ -26,7 +26,12 @@
   reference's headers (TCP gets neither); lossy UDP players (seeded drops,
   RRs, generic NACKs, 'qtak' acks) through the CLI end byte-equal to the
   oracle; a NACK and an APP with forged SSRCs neither refresh an idle
-  clock nor replay, and the same from the registered address do;
+  clock nor replay, and the same from the registered address do; the
+  shared RTCP socket takes a burst of acks in batches a readiness
+  callback and drops none;
+* OPTIONS lists GET_PARAMETER and SET_PARAMETER, and both answer 200
+  with the CSeq (and the Session once there is one), as the reference's
+  server does in process;
 * a server on the CPU touches nothing of CUDA when it starts;
 * importing the port, its server, its CLI, the transcode modules, the
   REST API, the VOD tier and the HLS tier with its codecs leaves ``jax``
@@ -52,12 +57,14 @@ from easydarwin_tpu.server.rtsp import RtspConnection as RefConnection
 from easydarwin_tpu_torch import __main__ as cli
 from easydarwin_tpu_torch.ops import kernel_lib
 from easydarwin_tpu_torch.protocol import rtcp, rtsp
-from easydarwin_tpu_torch.relay.output import CollectingOutput
-from easydarwin_tpu_torch.relay.reliable import ReliableUdpOutput, build_ack
+from easydarwin_tpu_torch.relay.output import CollectingOutput, WriteResult
+from easydarwin_tpu_torch.relay.reliable import (BandwidthTracker,
+                                                 ReliableUdpOutput, build_ack)
 from easydarwin_tpu_torch.relay.session import now_ms
 from easydarwin_tpu_torch.relay.stream import RelayStream
 from easydarwin_tpu_torch.server import ServerConfig, StreamingServer
-from easydarwin_tpu_torch.server.transports import (InterleavedOutput,
+from easydarwin_tpu_torch.server.transports import (RTCP_DRAIN_MAX,
+                                                    InterleavedOutput,
                                                     SharedUdpEgress, UdpOutput)
 from easydarwin_tpu_torch.utils import loopback, synth
 
@@ -572,6 +579,48 @@ async def test_lossy_udp_players_through_the_cli_on_cpu():
     assert st["batch_sent"] == rel["packets"]
     assert st["kernel_launches"]["ed_gf_parity"] == 0     # CPU: plain
     assert st["send_errors"] == 0 and st["missing_params"] == 0
+    assert st["rtcp"]["socket_drops"] == 0
+    assert st["reliable"]["rto_ms_max"] >= BandwidthTracker.MIN_RTO_MS
+
+
+async def test_shared_rtcp_socket_drains_a_burst_in_batches():
+    """A burst of acks queued on the shared RTCP socket is taken up to
+    ``RTCP_DRAIN_MAX`` a readiness callback (an asyncio endpoint takes one
+    a loop turn), none dropped, with its buffer and drops in the socket's stats; RTCP goes
+    back out through the same socket."""
+    got = []
+    egress = SharedUdpEgress("127.0.0.1",
+                             on_rtcp=lambda data, addr: got.append(data))
+    await egress.start()
+    tx = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+    try:
+        tx.bind(("127.0.0.1", 0))
+        acks = [build_ack(7, seq) for seq in range(512)]
+        for ack in acks:
+            tx.sendto(ack, ("127.0.0.1", egress.rtcp_port))
+        turns = 0
+        while len(got) < len(acks) and turns < 100:
+            await asyncio.sleep(0)
+            turns += 1
+        assert got == acks
+        # RTCP_DRAIN_MAX a callback; an asyncio endpoint takes one a turn
+        assert turns <= 2 * len(acks) // RTCP_DRAIN_MAX + 2
+        assert egress.rtcp_proto.received == len(acks)
+        st = egress.rtcp_socket_stats()
+        assert st["drops"] == 0
+        assert st["rcvbuf"] == egress.rtcp_sock.getsockopt(
+            socket.SOL_SOCKET, socket.SO_RCVBUF) > 0
+        reply = build_ack(9, 1)
+        assert egress.send_rtcp(reply, tx.getsockname()) is \
+            WriteResult.OK
+        tx.settimeout(5)
+        assert tx.recvfrom(2048) == (reply, ("127.0.0.1", egress.rtcp_port))
+    finally:
+        tx.close()
+        egress.close()
+    assert egress.rtcp_sock is None
+    assert egress.send_rtcp(b"x", ("127.0.0.1", 9)) is \
+        WriteResult.ERROR
 
 
 async def test_forged_nack_and_app_neither_refresh_nor_replay():
@@ -655,6 +704,77 @@ async def test_forged_nack_and_app_neither_refresh_nor_replay():
             if c._task is not None:
                 await c.close()
         await app.stop()
+
+
+async def _parameter_replies(port: int) -> list:
+    """OPTIONS, then GET_PARAMETER and SET_PARAMETER without a session
+    and inside a pusher's session: (method, status, CSeq, Session, Public)
+    of each reply."""
+    client = loopback.MiniClient()
+    await client.connect(port)
+    uri = f"rtsp://127.0.0.1:{port}/live/keepalive"
+    out = []
+
+    async def ask(method, headers=None, body=b"", track=""):
+        client.cseq += 1
+        h = {"cseq": str(client.cseq), **(headers or {})}
+        if client.session:
+            h["session"] = client.session
+        client.writer.write(rtsp.RtspRequest(method, uri + track, h,
+                                             body).to_bytes())
+        resp = await asyncio.wait_for(client.responses.get(), 30)
+        if "session" in resp.headers:
+            client.session = resp.headers["session"].split(";")[0]
+        out.append((method, resp.status, resp.headers.get("cseq"),
+                    resp.headers.get("session"), resp.headers.get("public")))
+
+    try:
+        await ask("OPTIONS")
+        await ask("GET_PARAMETER")
+        await ask("SET_PARAMETER", {"content-type": "text/parameters"},
+                  b"barparam: barstuff\r\n")
+        await ask("ANNOUNCE", {"content-type": "application/sdp"},
+                  loopback.VIDEO_SDP.encode())
+        await ask("SETUP", {"transport": "RTP/AVP/TCP;unicast;"
+                            "interleaved=0-1;mode=record"},
+                  track="/trackID=1")
+        await ask("GET_PARAMETER")
+        await ask("SET_PARAMETER", {"content-type": "text/parameters"},
+                  b"barparam: barstuff\r\n")
+    finally:
+        await client.close()
+    return out
+
+
+async def test_get_and_set_parameter_answer_as_the_reference():
+    """RTSP players send GET_PARAMETER as a keep-alive: the port lists
+    both parameter methods in OPTIONS and answers each 200 with the
+    request's CSeq, and with the Session once SETUP made one, exactly as
+    the reference's server does."""
+    from easydarwin_tpu.server import ServerConfig as RefServerConfig
+    from easydarwin_tpu.server import StreamingServer as RefServer
+    mine = StreamingServer(ServerConfig(rtsp_port=0, service_port=0,
+                                        bind_ip="127.0.0.1"), device="cpu")
+    ref = RefServer(RefServerConfig(rtsp_port=0, service_port=0,
+                                    bind_ip="127.0.0.1"))
+    await mine.start()
+    await ref.start()
+    try:
+        got = await _parameter_replies(mine.rtsp.port)
+        want = await _parameter_replies(ref.rtsp.port)
+    finally:
+        await mine.stop()
+        await ref.stop()
+    methods = {m.strip() for m in got[0][4].split(",")}
+    assert {"GET_PARAMETER", "SET_PARAMETER"} <= methods
+    assert methods == {m.strip() for m in want[0][4].split(",")}
+    for (m, status, cseq, sess, _), (rm, rstatus, rcseq, rsess, _) in zip(
+            got, want):
+        assert (m, status, cseq) == (rm, rstatus, rcseq)
+        assert (sess is None) == (rsess is None), m
+    assert [g[1] for g in got] == [200] * 7
+    assert got[1][3] is None and got[5][3] is not None
+    assert got[5][3] == got[4][3] == got[6][3]
 
 
 async def test_a_cpu_server_touches_nothing_of_cuda(monkeypatch):
