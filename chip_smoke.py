@@ -7,8 +7,9 @@ Run from the repository root on a machine with one CUDA card:
 
 It builds the hand-written kernels from ``easydarwin_tpu_torch/csrc`` and
 drives the port's live-relay, transcode, file-playback (VOD), DVR and HLS
-paths on the card, phase by phase; any failed phase raises and the script exits
-non-zero.
+paths, the megabatch mesh, the pump's timer wheel, per-player UDP pairs
+and the closed-loop requant on the card, phase by phase; any failed
+phase raises and the script exits non-zero.
 
 1. build     nvcc the kernel library, one nvcc per source started together
              (seconds printed)
@@ -103,7 +104,10 @@ non-zero.
              every wire byte held against RelayStream.reflect, plus the
              RelayPipeline(use_pallas_parse=True) step each wake;
              ``ed_relay_window`` launches = the scheduler's window_calls,
-             at most one per dispatching and one per priming wake
+             at most one per dispatching and one per priming wake; after
+             each wake, outside its time, the walk the server's pump makes
+             to arm its timer wheel (every stream's ``next_deadline_ms``);
+             phases 7, 7b, 7f and 7g print the pump's own (``schedule_ms``)
 6b. native   config 4 with native egress, in-process: phase 6's traffic
              for 9 wakes (a join at wake 6, the last delay bucket's first
              sends at wake 8) to 16 × 256 ``UdpOutput``s on one shared
@@ -210,7 +214,11 @@ non-zero.
              at 3.35 TB/s, integer operations at the card's int32 lane
              rate: 64 lanes an SM × the SMs × ``clocks.max.sm``),
              bit-exact again after the graph replays, and phase 13's
-             dispatch leg ([b6] lines)
+             dispatch leg ([b6] lines); B8's ``ed_relay_shard`` (its two
+             launches over phase 6c's two shards, into one result) at
+             config 4's shape and the example batch's, beside B8's entry
+             point ``sharded_relay_step``, its plain version (B9's plain
+             chain a source) and its byte bound
 
 4e. window vod ``ed_relay_window`` vs the plain window pass, bit-exact,
              at the VOD prime's shapes, past the 48 KB a CTA had before the
@@ -313,6 +321,39 @@ non-zero.
              pool of the requant pool's size (48 AU jobs an engine); (b)'s
              bytes equal (a)'s and the oracle's everywhere
 
+6c. mesh    B8 on a mesh of two shards on the one card (passed in: the
+             server's ``make_megabatch_mesh`` keeps None on one card):
+             ``parallel.mesh.sharded_relay_step`` at ``example_batch(4, 8,
+             32)`` and config 4's 16 × 256 × 256, with rows of 0 and 1-11
+             bytes, in the layouts (2,1,1), (1,2,1) and (1,1,2),
+             bit-exact with its plain version on a CPU mesh; then phase 6's
+             config-4 traffic (16 × 256, 12 wakes, 4 leave and 4 join at
+             wake 6) through the scheduler's mesh path, every packet equal
+             to the one-device scheduler's run; window launches = window
+             calls (one a shard a wake); then B8 once at each shape, one
+             ``ed_relay_shard`` a shard
+7f. wheel   the pump's timer wheel: an in-process server with a 200 ms
+             reflect interval and 30 ms bucket delay, one H.264 source
+             (4 packets a frame, a frame each 100 ms, 3 s) to 16 UDP
+             players, 6 a bucket; each bucket's release delay (arrival
+             minus push) p50 and max, buckets 1 and 2 within their delay
+             plus a few ms; the pump's wakes by ingest, by time and on a
+             wheel deadline
+7g. pairs   BASELINE config 2 (phase 7b's source, 3 s) to 64 UDP players
+             with ``shared_udp_egress=False`` on an in-process server:
+             each player on a pool pair of its own, every datagram held
+             to the oracle, all through the engine's loop rung; its host
+             µs a datagram beside phase 7b's µs a datagram in
+             ``sendmmsg`` on the shared pair
+13d. closed ``SliceRequantizer(6, closed_loop=True)`` over the committed
+             x264 IPPP fixtures (``tests/fixtures/ippp_176x144_*.264``,
+             1 IDR + 7 P, CAVLC and CABAC): every NAL equal to the CPU
+             run, one ``ed_h264_requant`` a P slice with residual rows and
+             one ``ed_h264_requant_chroma`` a P slice with chroma rows,
+             host ms an AU of the I (the host loop) and P (the split walk
+             around B6) pictures, the I picture's PSNR to the source
+             closed against open loop (the port's intra decoder)
+
 ``python3 chip_smoke.py --hls-control`` runs phases 1, 2, 5c's leg check
 and phases 13 and 13c twice each instead, each checked in full: the
 ladders' B6 on the card, then on the CPU's plain torch chains (the
@@ -329,12 +370,19 @@ their start-up warm-up), then set to 0 again just before phase 11 and
 read just after phase 11c (the VOD path), again just before phase 12
 and just after it (the DVR path), just before phase 13 and just after it
 (the HLS path), and just before phase 13c and just after it (the 1080p
-HLS path; these two launch B6); the kernels line's launches are the
-five paths' sum.  Phase 13b runs after them: its B6 legs are not the
-main path's.  The comparisons and timings of
-phases 3, 4, 4b, 4c, 4d, 4e, 5, 5b, 5c and 10 run outside those
-windows.  Phase 10's window
-rows also time the VOD prime's calls of phase 11.
+HLS path; these two launch B6).  Phase 13b runs after them: its B6 legs
+are not the main path's.  Then each of phase 6c's scheduler mesh
+path (after its one-device comparison run), 7f, 7g and 13d is its own
+path, with the counts set to 0 just before it and read just after, and
+so is B8's own path in phase 6c: its two calls through
+``sharded_relay_step``.  No serving code calls B8 (the server's mesh path
+is the scheduler's, one ``ed_relay_window`` a shard), so its kernel
+``ed_relay_shard`` is launched on that path alone, and its row in the
+kernels line says so under ``caller``.  The kernels line's launches are
+the ten paths' sum.  The comparisons and
+timings of phases 3, 4, 4b, 4c, 4d, 4e, 5, 5b, 5c and 10 run outside
+those windows.  Phase 10's window rows also time the VOD prime's calls
+of phase 11.
 Detail goes to ``chiprun_out/chip_smoke.json``.  The last line of standard
 output is ``{"ok": true, "device": {...}}``.
 """
@@ -374,6 +422,13 @@ OPS_PER_SUBSCRIBER = 7
 DEVICE = "cuda"
 #: the kernels only the HLS path (phase 13) launches
 HLS_KERNELS = ("ed_h264_requant", "ed_h264_requant_chroma")
+#: kernels that no serving path launches, each with what calls it (its
+#: launches are those of its own path in phase 6c)
+MODULE_KERNELS = {
+    "ed_relay_shard": "no serving caller: B8, parallel.mesh."
+                      "sharded_relay_step, called directly (phase 6c; the "
+                      "tests); the server's mesh path launches "
+                      "ed_relay_window a shard"}
 HERE = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(HERE, "chiprun_out")
 
@@ -1898,8 +1953,10 @@ def phase_scheduler(rng) -> dict:
     delivered = 0
     #: host milliseconds per wake: begin_wake (harvest + prime), the
     #: engine steps (header render + wire writes), end_wake (stage +
-    #: dispatch), and the whole wake
-    parts = {"begin": [], "steps": [], "end": [], "wake": []}
+    #: dispatch), and the whole wake; then, outside the wake, the walk the
+    #: server's pump makes after each pass to arm the timer wheel (every
+    #: stream's ``next_deadline_ms``, over every held-back output)
+    parts = {"begin": [], "steps": [], "end": [], "wake": [], "schedule": []}
     #: wakes whose begin_wake primed / whose end_wake dispatched
     priming = dispatching = 0
     launches0 = kernel_lib.LAUNCHES["ed_relay_window"]
@@ -1930,8 +1987,11 @@ def phase_scheduler(rng) -> dict:
               f"end_wake")
         priming += calls1 - calls0
         dispatching += sched.window_calls - calls1
+        for s in dev:
+            s.next_deadline_ms(t, allow_due=not s.last_pass_stalled)
+        t4 = time.perf_counter()
         for k, a, b in (("begin", t0, t1), ("steps", t1, t2), ("end", t2, t3),
-                        ("wake", t0, t3)):
+                        ("wake", t0, t3), ("schedule", t3, t4)):
             parts[k].append((b - a) * 1e3)
         for s in ora:
             s.reflect(t)
@@ -1989,7 +2049,10 @@ def phase_scheduler(rng) -> dict:
         f"{dispatching} dispatching + {priming} priming wakes; host ms p50 "
         f"begin/steps/end "
         f"{res['begin_host_ms_p50']:.3f}/{res['steps_host_ms_p50']:.3f}/"
-        f"{res['end_host_ms_p50']:.3f}")
+        f"{res['end_host_ms_p50']:.3f}; the pump's deadline walk over the "
+        f"{n_streams} streams after a wake (not in the wake) p50 "
+        f"{res['schedule_host_ms_p50']:.4f} max "
+        f"{res['schedule_host_ms_max']:.4f}")
     return res
 
 
@@ -2191,8 +2254,19 @@ def phase_server(rng) -> dict:
     log(f"[server] {res['players']} players x {res['packets_per_player']} "
         f"packets: payload bit-equal, seq/ts rebased per RTP-Info, one SSRC "
         f"each; {st['native_sent']} of {st['packets_out']} packets through "
-        f"ed_stream_send; server launches {st['kernel_launches']}")
+        f"ed_stream_send; server launches {st['kernel_launches']}; "
+        f"{schedule_line(st)}")
     return res
+
+
+def schedule_line(st: dict) -> str:
+    """The pump's wheel work after each pass (advance, and every stream's
+    next deadline armed), which ``wake_ms`` leaves out."""
+    p = st["pump"]
+    if p["schedule_ms_p50"] is None:
+        return "pump schedule host ms: no wake"
+    return (f"pump schedule host ms p50 {p['schedule_ms_p50']:.4f} max "
+            f"{p['schedule_ms_max']:.4f}")
 
 
 # ------------------------------------------------------------- phase 7b
@@ -2218,7 +2292,8 @@ def phase_config2(rng) -> dict:
         f"datagrams delivered, every one checked; native_sent "
         f"{st['native_sent']} of {st['packets_out']}, per-stream queries "
         f"{st['device_param_refreshes']}, launches {launches}; wake host ms "
-        f"p50 {st['wake_ms_p50']:.3f} max {st['wake_ms_max']:.3f}")
+        f"p50 {st['wake_ms_p50']:.3f} max {st['wake_ms_max']:.3f}; "
+        f"{schedule_line(st)}")
     log(f"[config2] first join's wake (the server warmed the card in "
         f"start): {st['wake_ms_first']:.3f} host ms")
     return res
@@ -3157,6 +3232,482 @@ def hls_control() -> int:
     return 0
 
 
+# ------------------------------------------------------------- phase 6c
+#: the mesh of phase 6c: two shards on the one card, passed in explicitly
+#: (the server's ``make_megabatch_mesh`` keeps None on one card)
+MESH_LAYOUTS = ({"src": 2}, {"src": 1, "sub": 2}, {"src": 1, "win": 2})
+MESH_WAKES = 12
+
+
+def b8_batch(n_src: int, n_sub: int, n_pkt: int, seed: int,
+             width: int = 96):
+    """``parallel.mesh.example_batch`` with a seeded share of its rows cut
+    to 0 and to 1-11 bytes (the reference's mask counts the short ones)
+    and seeded ages across the delay buckets."""
+    import numpy as np
+    from easydarwin_tpu_torch.parallel import mesh
+    batch = list(mesh.example_batch(n_src=n_src, n_sub=n_sub, n_pkt=n_pkt,
+                                    width=width, seed=seed))
+    rng = np.random.default_rng(seed)
+    length = batch[1]
+    cut = rng.random(length.shape)
+    length[cut < 0.1] = rng.integers(1, 12, length.shape)[cut < 0.1]
+    length[cut > 0.95] = 0
+    batch[2] = rng.integers(0, 400, length.shape).astype(np.int32)
+    return batch
+
+
+def b8_diff(got, want, what: str) -> int:
+    """Max |difference| of B8's four outputs; any is a failure."""
+    err = 0
+    for name, a, b in zip(("headers", "mask", "newest_keyframe",
+                           "total_eligible"), got, want):
+        a = a.cpu().numpy().astype("int64")
+        b = b.cpu().numpy().astype("int64")
+        check(a.shape == b.shape, f"{what}: {name} {a.shape} vs {b.shape}")
+        d = int(abs(a - b).max()) if a.size else 0
+        check(d == 0, f"{what}: {name} differs from the plain version "
+              f"(max {d})")
+        err = max(err, d)
+    return err
+
+
+def config4_feeds(rng, n_streams: int, bursts, wakes: int):
+    from easydarwin_tpu_torch.utils import synth
+    feeds = []
+    for i in range(n_streams):
+        pkts = []
+        while len(pkts) < bursts[i] * wakes:
+            pkts += synth.paced_gop(rng, seq0=0xFFF0 + len(pkts) + 97 * i,
+                                    ts0=0xFFFF0000 + 3000 * len(pkts),
+                                    ssrc=0x1000 + i, frames=10,
+                                    packets_per_frame=4)
+        feeds.append(pkts)
+    return feeds
+
+
+def config4_run(feeds, bursts, params, sched, wakes: int) -> list:
+    """Phase 6's config-4 traffic (16 × 256 collecting outputs, 4 leave
+    and 4 join stream 3 at wake 6) through ``sched`` and one engine a
+    stream; returns each wake's packets by stream and output."""
+    from easydarwin_tpu_torch.protocol import sdp
+    from easydarwin_tpu_torch.relay.fanout import FanoutEngine
+    from easydarwin_tpu_torch.relay.output import CollectingOutput
+    from easydarwin_tpu_torch.relay.stream import RelayStream, StreamSettings
+    from easydarwin_tpu_torch.utils.loopback import VIDEO_SDP
+
+    info = sdp.parse(VIDEO_SDP).streams[0]
+    n_subs = len(params[0]) - 4
+
+    def make(i, j):
+        ssrc, seq0, ts0 = params[i][j]
+        return CollectingOutput(ssrc=ssrc, out_seq_start=seq0,
+                                out_ts_start=ts0)
+
+    streams = [RelayStream(info, StreamSettings(bucket_delay_ms=10))
+               for _ in feeds]
+    for i, s in enumerate(streams):
+        for j in range(n_subs):
+            s.add_output(make(i, j))
+    engines = [FanoutEngine(device=DEVICE) for _ in streams]
+    out, t = [], 1000
+    for w in range(wakes):
+        for i, s in enumerate(streams):
+            for pkt in feeds[i][w * bursts[i]:(w + 1) * bursts[i]]:
+                s.push_rtp(pkt, t)
+        if w == 6:
+            for k in range(4):
+                streams[3].remove_output(streams[3].outputs[k])
+                streams[3].add_output(make(3, n_subs + k))
+        pairs = list(zip(streams, engines))
+        sched.begin_wake(pairs, t)
+        for s, e in pairs:
+            e.step(s, t)
+        sched.end_wake(pairs, t)
+        wake = []
+        for s in streams:
+            wake.append([list(o.rtp_packets) for o in s.outputs])
+            for o in s.outputs:
+                o.rtp_packets.clear()
+        out.append(wake)
+        t += 20
+    sched.drain()
+    check(all(e.missing_params == 0 for e in engines),
+          "an engine found no installed params")
+    return out
+
+
+def phase_mesh(rng) -> dict:
+    """B8 on a mesh of two shards on the one card: ``sharded_relay_step``
+    at ``example_batch(4, 8, 32)`` and config 4's 16 × 256 × 256 (rows of
+    1-11 bytes and of 0 among them) in the layouts (2,1,1), (1,2,1) and
+    (1,1,2), bit-exact with the same step's plain version on a CPU mesh;
+    then, with the launch counts at 0, the scheduler's mesh path on config
+    4's traffic, wire bytes equal to the one-device scheduler's run before
+    it (the mesh path: ``path_launches``); then, with the counts at 0
+    again, B8 once at each shape through its entry point (B8's own path:
+    no serving code calls it, ``b8_launches``)."""
+    import numpy as np
+    import torch
+    from easydarwin_tpu_torch.ops import kernel_lib
+    from easydarwin_tpu_torch.parallel import mesh
+    from easydarwin_tpu_torch.relay.megabatch import MegabatchScheduler
+
+    card = torch.device(DEVICE)
+    check(torch.cuda.device_count() != 1 or mesh.make_megabatch_mesh() is None,
+          "make_megabatch_mesh built a mesh on one card")
+    shapes = {"example (4, 8, 32)": (4, 8, 32),
+              "config 4 (16, 256, 256)": (16, 256, 256)}
+    batches = {k: b8_batch(*v, seed=i + 5)
+               for i, (k, v) in enumerate(shapes.items())}
+    # off the kernel's 64-row tile and 4-output columns, on 100-byte rows
+    checked = {**batches, "ragged (4, 18, 130) w100":
+               b8_batch(4, 18, 130, seed=7, width=100)}
+    err = 0
+    for axes in MESH_LAYOUTS:
+        on_card = mesh.make_relay_mesh([card, card], **axes)
+        on_cpu = mesh.make_relay_mesh(["cpu", "cpu"], **axes)
+        for name, batch in checked.items():
+            want = mesh.sharded_relay_step_plain(on_cpu)(*batch)
+            got = mesh.sharded_relay_step(on_card)(*batch)
+            err = max(err, b8_diff(got, want, f"B8 {axes} at {name}"))
+            # the inputs on the card: each shard reads its strided block
+            got = mesh.sharded_relay_step(on_card)(
+                *(torch.from_numpy(a).to(card) for a in batch))
+            err = max(err, b8_diff(got, want, f"B8 {axes} at {name}, "
+                                   f"inputs on the card"))
+    log(f"[mesh] sharded_relay_step on [{card}, {card}] in the layouts "
+        f"{MESH_LAYOUTS} at {list(checked)}, inputs from the host and on "
+        f"the card: bit-exact with its plain version on a CPU mesh (short "
+        f"rows in the mask)")
+    n_streams, n_subs = 16, 256
+    bursts = [6 if i < n_streams // 2 else 20 for i in range(n_streams)]
+    sub_rng = np.random.default_rng(int(rng.integers(1 << 31)))
+    params = [[(int(sub_rng.integers(1 << 32)), int(sub_rng.integers(1 << 16)),
+                int(sub_rng.integers(1 << 32))) for _ in range(n_subs + 4)]
+              for _ in range(n_streams)]
+    feeds = config4_feeds(rng, n_streams, bursts, MESH_WAKES)
+    one = config4_run(feeds, bursts, params,
+                      MegabatchScheduler(device=DEVICE), MESH_WAKES)
+
+    kernel_lib.reset_launch_counts()           # the mesh path starts here
+    sched = MegabatchScheduler(device=DEVICE,
+                               mesh=mesh.make_megabatch_mesh(0, [card, card]))
+    sharded = config4_run(feeds, bursts, params, sched, MESH_WAKES)
+    path = dict(kernel_lib.LAUNCHES)
+    st = sched.stats()
+    delivered = 0
+    for w, (a, b) in enumerate(zip(sharded, one)):
+        check(a == b, f"wake {w}: the mesh path's wire bytes differ from "
+              f"the one-device scheduler's")
+        delivered += sum(len(p) for s in a for p in s)
+    check(delivered > 0, "the mesh path delivered nothing")
+    check(st["sharded_passes"] > 0 and st["mismatches"] == 0
+          and st["mesh_dispatch_errors"] == 0, f"mesh scheduler: {st}")
+    check(path["ed_relay_window"] == st["window_calls"] > 0,
+          f"ed_relay_window launched {path['ed_relay_window']} times for "
+          f"{st['window_calls']} window calls")
+    log(f"[mesh] config 4 through the scheduler's mesh path ({MESH_WAKES} "
+        f"wakes, 4 leave and 4 join at wake 6): {delivered} packets, every "
+        f"one equal to the one-device scheduler's; sharded passes "
+        f"{st['sharded_passes']}, window calls {st['window_calls']} (one a "
+        f"shard a wake), prime passes {st['prime_passes']}, mismatches 0; "
+        f"path launches {path}")
+
+    kernel_lib.reset_launch_counts()           # B8's own path starts here
+    b8 = mesh.sharded_relay_step(mesh.make_relay_mesh([card, card], src=2))
+    for batch in batches.values():
+        b8(*batch)
+    if card.type == "cuda":
+        torch.cuda.synchronize()
+    b8_path = dict(kernel_lib.LAUNCHES)
+    check(b8_path["ed_relay_shard"] == 2 * len(batches)
+          and sum(b8_path.values()) == b8_path["ed_relay_shard"],
+          f"B8's two calls over two shards made launches {b8_path}, not one "
+          f"ed_relay_shard a shard")
+    log(f"[mesh] B8 (sharded_relay_step; no serving code calls it) once at "
+        f"each shape over two shards: launches {b8_path} (one "
+        f"ed_relay_shard a shard)")
+    return {"max_abs_err": err, "scheduler": st, "delivered": delivered,
+            "path_launches": path, "b8_launches": b8_path}
+
+
+def b8_bound(n: int, s: int, p: int) -> tuple[int, int]:
+    """(bytes, operations) of one B8 call over [n, p] rows and [n, s]
+    outputs: rows, lengths, ages, state and buckets read once; headers,
+    mask, the newest keyframes and the sum written once; B9's operations
+    a source."""
+    nbytes = (96 * n * p + 8 * n * p + 28 * n * s + 13 * n * s * p + 4 * n
+              + 8)
+    return nbytes, n * (OPS_PER_PACKET * p + OPS_PER_BATCH_HEADER * s * p)
+
+
+# ------------------------------------------------------------- phase 7f
+WHEEL_TICK_MS, WHEEL_DELAY_MS, WHEEL_BUCKET = 200, 30, 6
+WHEEL_PLAYERS, WHEEL_FRAMES, WHEEL_FRAME_S = 16, 30, 0.1
+
+
+def phase_wheel(rng) -> dict:
+    """The pump's timer wheel on the card: an in-process server with a
+    200 ms reflect interval and a 30 ms bucket delay serves one H.264
+    source (4 packets a frame, a frame each 100 ms) to 16 UDP players, 6
+    a bucket; each bucket's release delay (arrival at the player minus
+    the push) and the pump's wakes by cause."""
+    return asyncio.run(asyncio.wait_for(_wheel_run(rng), 120))
+
+
+async def _wheel_run(rng) -> dict:
+    import numpy as np
+    from easydarwin_tpu_torch.relay.stream import StreamSettings
+    from easydarwin_tpu_torch.server import ServerConfig, StreamingServer
+    from easydarwin_tpu_torch.utils import loopback, synth
+
+    app = StreamingServer(ServerConfig(
+        rtsp_port=0, service_port=0, bind_ip="127.0.0.1",
+        reflect_interval_ms=WHEEL_TICK_MS,
+        stream=StreamSettings(bucket_size=WHEEL_BUCKET,
+                              bucket_delay_ms=WHEEL_DELAY_MS)),
+        device=DEVICE)
+    await app.start()
+    clients = []
+    pushed: dict[bytes, float] = {}
+    seq = int(rng.integers(1 << 16))
+
+    def frame(k: int, key: bool) -> list[bytes]:
+        nonlocal seq
+        pkts = []
+        for i in range(4):
+            body = seq.to_bytes(4, "big") + bytes(int(rng.integers(200, 900)))
+            pkts.append(synth.h264_packet(seq, 3000 * k, 5 if key and i == 0
+                                          else 1, ssrc=0x7F00, body=body))
+            seq += 1
+        return pkts
+
+    try:
+        uri = f"rtsp://127.0.0.1:{app.rtsp.port}/live/wheel"
+        pusher = loopback.MiniClient()
+        clients.append(pusher)
+        await pusher.connect(app.rtsp.port)
+        await pusher.request("ANNOUNCE", uri,
+                             {"content-type": "application/sdp"},
+                             loopback.VIDEO_SDP.encode())
+        await pusher.request("SETUP", uri + "/trackID=1", {
+            "transport": "RTP/AVP/TCP;unicast;interleaved=0-1;mode=record"})
+        await pusher.request("RECORD", uri)
+        for p in frame(0, True):
+            pusher.push(p)
+        players = []
+        for _ in range(WHEEL_PLAYERS):
+            pl = loopback.MiniClient()
+            clients.append(pl)
+            await pl.connect(app.rtsp.port)
+            ports = await pl.udp_ports(stamp=True)
+            await pl.request("DESCRIBE", uri)
+            await pl.request("SETUP", uri + "/trackID=1", {
+                "transport": f"RTP/AVP;unicast;client_port={ports}"})
+            await pl.request("PLAY", uri)
+            players.append(pl)
+        await asyncio.sleep(0.5)
+        before = app.stats()["pump"]
+        for k in range(1, WHEEL_FRAMES + 1):
+            t = time.monotonic()
+            for p in frame(k, k % 10 == 0):
+                pusher.push(p)
+                pushed[p[12:]] = t
+            await asyncio.sleep(WHEEL_FRAME_S)
+        await asyncio.sleep(0.4)
+        after = app.stats()
+    finally:
+        for c in clients:
+            await c.close()
+        await app.stop()
+    lags: dict[int, list] = {}
+    for i, pl in enumerate(players):
+        got = [(t_rx - pushed[d[12:]]) * 1e3 for t_rx, d in pl.frames
+               if d[12:] in pushed]
+        check(len(got) == len(pushed), f"player {i} received {len(got)} of "
+              f"{len(pushed)} measured packets")
+        lags.setdefault(i // WHEEL_BUCKET, []).extend(got)
+    pump = {k: after["pump"][k] - before[k]
+            for k in ("time_wakes", "wheel_wakes", "event_wakes")}
+    res = {"buckets": {}, "pump": pump, "wake_ms_p50": after["wake_ms_p50"],
+           "server_stats": after}
+    for b, v in sorted(lags.items()):
+        v = np.sort(np.asarray(v))
+        res["buckets"][b] = {"p50_ms": float(v[len(v) // 2]),
+                             "max_ms": float(v[-1]),
+                             "min_ms": float(v[0]), "packets": len(v)}
+        log(f"[wheel] bucket {b} (delay {b * WHEEL_DELAY_MS} ms): release "
+            f"delay p50 {v[len(v) // 2]:.3f} ms, min {v[0]:.3f}, max "
+            f"{v[-1]:.3f} over {len(v)} datagrams")
+        if b:
+            check(v[len(v) // 2] <= b * WHEEL_DELAY_MS + 15
+                  and v[-1] < b * WHEEL_DELAY_MS + 60,
+                  f"bucket {b}'s releases are not within their delay plus "
+                  f"a few ms: p50 {v[len(v) // 2]:.3f} max {v[-1]:.3f}")
+    check(pump["wheel_wakes"] >= WHEEL_FRAMES,
+          f"the wheel woke the pump {pump['wheel_wakes']} times for "
+          f"{WHEEL_FRAMES} frames")
+    log(f"[wheel] pump wakes over {WHEEL_FRAMES} frames at "
+        f"{1 / WHEEL_FRAME_S:.0f} a second (tick {WHEEL_TICK_MS} ms): "
+        f"{pump['event_wakes']} by ingest, {pump['time_wakes']} timed out "
+        f"({pump['wheel_wakes']} of them on a wheel deadline); wake host "
+        f"ms p50 {after['wake_ms_p50']:.3f}; {schedule_line(after)}; "
+        f"launches {after['kernel_launches']}")
+    return res
+
+
+# ------------------------------------------------------------- phase 7g
+def phase_udp_pairs(rng, shared: dict) -> dict:
+    """BASELINE config 2 with ``shared_udp_egress=False`` on an in-process
+    server (the CLI has no flag for it): one 1080p30 source, 64 UDP
+    players joining one a frame, each on a port pair of its own, 3 s;
+    every datagram held to the oracle; the engine's loop rung's host µs a
+    datagram beside phase 7b's shared pair (µs a datagram inside
+    ``sendmmsg``, from the same run)."""
+    from easydarwin_tpu_torch.server import ServerConfig, StreamingServer
+    from easydarwin_tpu_torch.utils import loopback
+
+    async def run():
+        app = StreamingServer(ServerConfig(
+            rtsp_port=0, service_port=0, bind_ip="127.0.0.1",
+            shared_udp_egress=False), device=DEVICE)
+        await app.start()
+        try:
+            check(app.rtsp.shared_egress is None,
+                  "the server made a shared egress pair")
+            res = await loopback.push_play(
+                app.rtsp.port, rng, n_push=1, n_play=CONFIG2_SUBS,
+                transport="udp", gops=3, frames=30, packets_per_frame=13,
+                body_len=(1270, 1300), frame_interval_s=1 / 30, join_every=1,
+                deadline_s=30)
+            res["server_stats"] = app.stats()
+            return res
+        finally:
+            await app.stop()
+
+    res = asyncio.run(asyncio.wait_for(run(), 240))
+    st = res["server_stats"]
+    check(st["pump_errors"] == 0 and st["send_errors"] == 0
+          and st["missing_params"] == 0, f"7g server: {st}")
+    check(st["native_sent"] == 0 and st["loop_sent"] == st["packets_out"]
+          == res["delivered"], f"7g: {st['loop_sent']} sent by the loop, "
+          f"{st['native_sent']} by the scatter, {res['delivered']} delivered")
+    eg = shared["egress"]
+    shared_us = eg["send_ns"] / max(eg["send_packets"], 1) / 1e3
+    res["loop_us_per_datagram"] = st["loop_us_per_packet"]
+    res["shared_sendmmsg_us_per_datagram"] = shared_us
+    log(f"[pairs] 1 source x {res['players']} UDP players on pairs of "
+        f"their own, {res['delivered']} datagrams, every one checked; the "
+        f"loop rung {st['loop_us_per_packet']:.3f} host µs a datagram "
+        f"(header render + send through the pair's socket) against the "
+        f"shared pair's {shared_us:.3f} µs a datagram inside sendmmsg "
+        f"(phase 7b, {eg['send_packets']} datagrams); wake host ms p50 "
+        f"{st['wake_ms_p50']:.3f} (7b {shared['wake_ms_p50']:.3f}); "
+        f"{schedule_line(st)}; launches {st['kernel_launches']}")
+    return res
+
+
+# ------------------------------------------------------------- phase 13d
+CLOSED_LOOP_FIXTURES = ("tests/fixtures/ippp_176x144_cavlc.264",
+                        "tests/fixtures/ippp_176x144_cabac.264")
+
+
+def split_annexb(data: bytes) -> list[bytes]:
+    """An Annex-B stream's NAL payloads (start codes stripped)."""
+    nals, i = [], data.find(b"\x00\x00\x01")
+    while i >= 0:
+        j = data.find(b"\x00\x00\x01", i + 3)
+        end = j if j >= 0 else len(data)
+        while end > i + 3 and data[end - 1] == 0:
+            end -= 1
+        nals.append(data[i + 3:end])
+        i = j
+    return [n for n in nals if n]
+
+
+def phase_closed_loop() -> dict:
+    """``SliceRequantizer(6, closed_loop=True)`` on the card over the
+    committed x264 IPPP fixtures (176x144, 1 IDR and 7 P pictures, CAVLC
+    and CABAC): every NAL byte-equal to the run with ``device="cpu"``;
+    the P slices' B6 launches one ``ed_h264_requant`` a P slice with
+    residual rows and one ``ed_h264_requant_chroma`` a P slice with
+    chroma residual (the I slice runs the host loop); host ms an AU of
+    the I and the P pictures; the I picture's PSNR against the source
+    (the port's intra decoder), closed loop against open loop."""
+    import numpy as np
+    from easydarwin_tpu_torch.codecs import h264_requant as rq
+    from easydarwin_tpu_torch.codecs.h264_closed_loop import (
+        decode_intra_picture)
+    from easydarwin_tpu_torch.codecs.h264_intra import Pps, Sps, psnr
+    from easydarwin_tpu_torch.ops import kernel_lib
+
+    def idr_picture(nals, sps, pps):
+        return decode_intra_picture(sps, pps, [
+            (p.hdr, p.mbs) for p in (rq.parse_slice_cpython(n, sps, pps)
+                                     for n in nals if n[0] & 0x1F == 5)])
+
+    res = {}
+    for path in CLOSED_LOOP_FIXTURES:
+        kind = os.path.basename(path).rsplit("_", 1)[1].split(".")[0]
+        with open(os.path.join(HERE, path), "rb") as f:
+            nals = split_annexb(f.read())
+        sps = Sps.parse(next(n for n in nals if n[0] & 0x1F == 7))
+        pps = Pps.parse(next(n for n in nals if n[0] & 0x1F == 8))
+        want_luma = want_chroma = 0
+        for n in nals:
+            if n[0] & 0x1F == 1:
+                g = rq.gather_slice(rq.parse_slice_nal(n, sps, pps))
+                if g.max_qp + 6 <= 51:
+                    want_luma += g.rows.shape[0] > 0
+                    want_chroma += g.cqp.shape[0] > 0
+        runs = {}
+        for dev in (DEVICE, "cpu"):
+            eng = rq.SliceRequantizer(6, closed_loop=True, device=dev)
+            before = {k: kernel_lib.LAUNCHES[k] for k in HLS_KERNELS}
+            out, ms = [], {"I": [], "P": []}
+            for n in nals:
+                t0 = time.perf_counter()
+                out.append(eng.transform_nal(n))
+                if n[0] & 0x1F in (1, 5):
+                    ms["I" if n[0] & 0x1F == 5 else "P"].append(
+                        (time.perf_counter() - t0) * 1e3)
+            runs[dev] = (out, ms, {k: kernel_lib.LAUNCHES[k] - before[k]
+                                   for k in HLS_KERNELS}, eng.stats)
+        out, ms, launches, st = runs[DEVICE]
+        check(out == runs["cpu"][0], f"{kind}: the card's closed-loop NALs "
+              f"differ from the CPU run's")
+        check(st.slices_passed_through == 0 and st.slices_requantized == 8,
+              f"{kind}: {st}")
+        check(launches == {"ed_h264_requant": want_luma,
+                           "ed_h264_requant_chroma": want_chroma},
+              f"{kind}: B6 launches {launches}, P slices with luma rows "
+              f"{want_luma} and with chroma rows {want_chroma}")
+        eng_open = rq.SliceRequantizer(6, device=DEVICE)
+        opened = [eng_open.transform_nal(n) for n in nals]
+        src = idr_picture(nals, sps, pps)
+        scores = {}
+        for name, stream in (("closed", out), ("open", opened)):
+            pic = idr_picture(stream, sps, pps)
+            scores[name] = float(np.mean([psnr(a, b)
+                                          for a, b in zip(src, pic)]))
+        check(scores["closed"] > scores["open"],
+              f"{kind}: closed loop {scores['closed']:.2f} dB is not above "
+              f"the open loop's {scores['open']:.2f} dB")
+        res[kind] = {"launches": launches, "host_ms_i": ms["I"],
+                     "host_ms_p_mean": float(np.mean(ms["P"])),
+                     "psnr_db": scores,
+                     "bytes": {"in": st.bytes_in, "out": st.bytes_out}}
+        log(f"[closed] {kind} 176x144 IPPP (1 + 7): every NAL equal to the "
+            f"CPU run; B6 launches {launches} (one a P slice's dispatch); "
+            f"host ms an AU: I {ms['I'][0]:.3f} (the closed loop), P mean "
+            f"{np.mean(ms['P']):.3f} (the split walk around B6); the I "
+            f"picture's PSNR to the source {scores['closed']:.3f} dB closed "
+            f"vs {scores['open']:.3f} dB open (Y, Cb, Cr mean); bytes "
+            f"{st.bytes_in} -> {st.bytes_out}")
+    return res
+
+
 def gf_storage_check(rng, shapes) -> int:
     """``ed_gf_parity`` (the wrapper) vs ``gf_parity_plain`` on the same
     card tensors at phase 12's stripe shapes; the largest difference."""
@@ -3190,11 +3741,12 @@ KERNEL_NAMES = ("parse_packets_kernel", "relay_window_kernel",
 
 def kernel_key(mangled: str, names=KERNEL_NAMES) -> str | None:
     """The first of ``names`` in a mangled symbol, with its template's
-    integer arguments (``gf_parity_lanes_kernel<1,2>``); None if none."""
+    integer and bool arguments (``gf_parity_lanes_kernel<1,2>``,
+    ``relay_batch_kernel<1>``); None if none."""
     import re
     name = next((n for n in names if n in mangled), None)
     if name:
-        args = re.findall(r"Li(\d+)E", mangled.split(name, 1)[1])
+        args = re.findall(r"L[ib](\d+)E", mangled.split(name, 1)[1])
         if args:
             name += f"<{','.join(args)}>"
     return name
@@ -3272,6 +3824,7 @@ def phase_kernels(rng, launches: dict, errs: dict, levels, qt,
     wrappers' direct-call times go to the detail."""
     import ctypes
     import itertools
+    import numpy as np
     import torch
     from easydarwin_tpu_torch.ops import device_ring as dr
     from easydarwin_tpu_torch.ops import fanout, fec_kernel, kernel_lib
@@ -3420,6 +3973,39 @@ def phase_kernels(rng, launches: dict, errs: dict, levels, qt,
 
     batch_case(*b9_shape, True)
     batch_case(256, 256, False)
+
+    def b8_case(n: int, s: int, p: int, main: bool):
+        # B8 over phase 6c's mesh: two shards on the card, one
+        # ed_relay_shard each, into one result
+        from easydarwin_tpu_torch.parallel import mesh as pm
+        card = torch.device("cuda")
+        dev = [torch.from_numpy(np.ascontiguousarray(a)).cuda()
+               for a in b8_batch(n, s, p, seed=n + s + p)]
+        m = pm.make_relay_mesh([card, card], src=2)
+        step = pm.sharded_relay_step(m)
+        plain = pm.sharded_relay_step_plain(m)
+        prefix, length, age, state, buckets = dev
+        headers = torch.empty((n, s, p, 12), dtype=torch.uint8, device=card)
+        mask = torch.empty((n, s, p), dtype=torch.bool, device=card)
+        newest = torch.full((n,), -1, dtype=torch.int32, device=card)
+        total = torch.zeros((), dtype=torch.int64, device=card)
+
+        def shards():
+            for rs in (slice(0, n // 2), slice(n // 2, n)):
+                fanout.relay_shard_step(
+                    prefix[rs], length[rs], age[rs], state[rs], buckets[rs],
+                    73, 0, headers[rs], mask[rs], newest[rs], total)
+
+        where_of[len(cases)] = ("phase 6c's mesh of two shards on the card "
+                                "(B8's own path: no serving caller)")
+        cases.append((
+            "ed_relay_shard", f"[{n},{p},96]x[{n},{s},6] over 2 shards",
+            main, relay_src, "easydarwin_tpu/parallel/mesh.py:80",
+            shards, lambda: step(*dev), lambda: plain(*dev),
+            None, *b8_bound(n, s, p), 20))
+
+    b8_case(16, 256, 256, True)
+    b8_case(4, 8, 32, False)
     qt_in, qt_rungs = config5_tables()
     n_rungs = qt_rungs.shape[0]
     rungs = torch.empty((n_rungs, levels.shape[0], 64), dtype=torch.int32,
@@ -3473,6 +4059,8 @@ def phase_kernels(rng, launches: dict, errs: dict, levels, qt,
         out.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": src_line, "launches": launches[name],
+            **({"caller": MODULE_KERNELS[name]} if name in MODULE_KERNELS
+               else {}),
             "max_abs_err": errs[name],
             "ms": ms,
             "plain_ms": graph_ms(plain, inner=min(inner, 20)),
@@ -3878,7 +4466,7 @@ def main() -> int:
     log(f"[main path] kernel launches {launches} (in-process {in_proc}, "
         f"servers {servers})")
     for k, n in launches.items():
-        check(n > 0 or k in HLS_KERNELS,
+        check(n > 0 or k in HLS_KERNELS or k in MODULE_KERNELS,
               f"kernel {k} was not launched on the main path")
 
     clips = vod_clips(int(rng.integers(1 << 31)))
@@ -3943,6 +4531,26 @@ def main() -> int:
     del prepared_1080
     new_phases_s = time.monotonic() - t_1080
 
+    t_mesh = time.monotonic()
+    detail["mesh"] = phase_mesh(rng)           # the mesh path, then B8's
+    for part in ("path_launches", "b8_launches"):
+        launches = {k: n + detail["mesh"][part][k]
+                    for k, n in launches.items()}
+    for name, run, kernels in (
+            ("wheel", lambda: phase_wheel(rng), ("ed_ring_query",)),
+            ("pairs", lambda: phase_udp_pairs(
+                rng, detail["config2"]["server_stats"]), ("ed_ring_query",)),
+            ("closed_loop", phase_closed_loop, HLS_KERNELS)):
+        kernel_lib.reset_launch_counts()       # each path starts here
+        detail[name] = run()
+        path = dict(kernel_lib.LAUNCHES)
+        log(f"[{name} path] kernel launches {path}")
+        for k in kernels:
+            check(path[k] > 0, f"{k} was not launched on the {name} path")
+        detail[f"{name}_path_launches"] = path
+        launches = {k: n + path.get(k, 0) for k, n in launches.items()}
+    mesh_phases_s = time.monotonic() - t_mesh
+
     errs = {"ed_parse_packets": max(detail["k1"].values()),
             "ed_relay_window": max(
                 [*detail["window"].values()]
@@ -3960,6 +4568,7 @@ def main() -> int:
                                    detail["b6"]["edge_max_abs_err"],
                                    detail["b6"]["leg"]["max_abs_err"])}
     errs["ed_h264_requant_chroma"] = errs["ed_h264_requant"]
+    errs["ed_relay_shard"] = detail["mesh"]["max_abs_err"]
     detail["launch_floor_ms"] = launch_floor_ms()
     log(f"[kernels] launch floor: {detail['launch_floor_ms']:.6f} ms per "
         f"graph node (ed_launch_floor, an empty kernel)")
@@ -4008,10 +4617,12 @@ def main() -> int:
             f"ms in a graph, {k['_wrapper_call_ms']:.6f} ms per direct "
             f"call; {k['launches']} main-path launches")
     script_s = time.monotonic() - t_script
-    detail["seconds"] = {"script": script_s, "phases_13b_13c": new_phases_s}
+    detail["seconds"] = {"script": script_s, "phases_13b_13c": new_phases_s,
+                         "phases_6c_7f_7g_13d": mesh_phases_s}
     log(f"[time] the script {script_s:.3f} s from its build; phases 13c "
         f"and 13b (the 1080p pictures' encode included) {new_phases_s:.3f}"
-        f" s of it, the rest {script_s - new_phases_s:.3f} s")
+        f" s of it, phases 6c, 7f, 7g and 13d {mesh_phases_s:.3f} s, the "
+        f"rest {script_s - new_phases_s - mesh_phases_s:.3f} s")
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(detail, f, indent=1, default=str)
 

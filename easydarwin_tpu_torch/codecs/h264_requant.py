@@ -31,8 +31,13 @@ rendition re-encodes it, all without the GIL.  High-profile 8x8 slices
 parse and recode (``parse_slice_cpython``), with B6 the same; a slice the
 walk finds malformed (-2) passes through.  The walk's fused form
 (``native.h264_requant_slice``) is its oracle, never the serving path.
-A missing walk library raises.  The closed loop for I slices is not
-ported (ROADMAP A7c-2): ``closed_loop=True`` raises.
+A missing walk library raises.
+
+``SliceRequantizer(closed_loop=True)`` re-derives each I slice's
+residuals against the OUTPUT picture's reconstruction
+(``h264_closed_loop``: the CPython parse, the host loop, the CPython
+write), so requantization error stops compounding along intra
+prediction chains; its P slices keep the split walk around B6.
 
 On a card the dispatch (``FusedRequantDispatch`` with ``device``) makes
 one pinned upload, one ``ed_h264_requant`` launch and one readback for
@@ -83,6 +88,25 @@ class RequantStats:
             self.bytes_in += d.bytes_in
             self.bytes_out += d.bytes_out
             self.native_slices += d.native_slices
+
+
+def _peek_is_p(nal: bytes) -> bool:
+    """slice_type of a coded-slice NAL (2nd ue of the header) % 5 == 0."""
+    try:
+        br = BitReader(nal_to_rbsp(nal[1:9]))
+        br.ue()                          # first_mb_in_slice
+        return br.ue() % 5 == 0
+    except (ValueError, EOFError, IndexError):
+        return False
+
+
+def _check_ceiling(parsed: "ParsedSlice", delta_qp: int) -> None:
+    """Raise when a parsed slice's largest per-MB QP would pass 51 at
+    ``delta_qp`` (mb.qp is absolute; P_Skip MBs carry none)."""
+    if max((mb.qp for mb in parsed.mbs
+            if not isinstance(mb, MacroblockPSkip)),
+           default=parsed.qp_in_base) + delta_qp > 51:
+        raise ValueError("qp already at ladder ceiling")
 
 
 def _scalar_batch(levels: np.ndarray, qp_in: np.ndarray,
@@ -674,9 +698,15 @@ class SliceRequantizer:
     on the host (default: the scalar oracles); ``device`` runs it as a
     ``DevicePass`` there instead (the two are exclusive).
 
-    ``closed_loop=True`` (I slices re-derived against the output
-    reconstruction) is not ported (ROADMAP A7c-2) and raises: it must
-    never quietly run open loop."""
+    ``closed_loop=True``: I slices are requantized in the closed loop
+    (``h264_closed_loop``) on the host, against a reconstruction of the
+    output picture that spans the picture's slices; P slices keep the
+    open-loop split walk around B6 on ``device``.  The closed loop's
+    calls are STATEFUL: a closed-loop I slice reads and writes the
+    picture's reconstructions (reset at each slice with
+    ``first_mb == 0``), so run a stream's I slices in order on one
+    thread.  P slices, and every slice without the closed loop, touch no
+    instance state."""
 
     def __init__(self, delta_qp: int, *, requant_fn=None, chroma_fn=None,
                  device: str | torch.device | None = None,
@@ -685,9 +715,6 @@ class SliceRequantizer:
             # +6k steps are EXACT level shifts (table periodicity); other
             # deltas would need transform-normalization terms
             raise ValueError("delta_qp must be a positive multiple of 6")
-        if closed_loop:
-            raise ValueError("closed-loop requant is not ported (ROADMAP "
-                             "A7c-2: codecs/h264_closed_loop.py)")
         if device is not None and (requant_fn or chroma_fn):
             raise ValueError("requant_fn/chroma_fn run on the host; pass "
                              "them or device, not both")
@@ -696,6 +723,11 @@ class SliceRequantizer:
         self.requant_fn = requant_fn or _scalar_batch
         self.chroma_fn = chroma_fn or _scalar_batch_chroma
         self.device = None if device is None else torch.device(device)
+        self.closed_loop = closed_loop
+        #: the closed loop's reconstructions of the source and the output
+        #: picture (``h264_closed_loop.PictureRecon``), across its slices
+        self._cl_orig = None
+        self._cl_out = None
         self.sps: Sps | None = None
         self.pps: Pps | None = None
         self.stats = RequantStats()
@@ -722,16 +754,20 @@ class SliceRequantizer:
     def requant_with(self, nal: bytes, sps: Sps | None, pps: Pps | None
                      ) -> tuple[bytes, RequantStats]:
         """Requant one slice NAL against EXPLICIT parameter sets,
-        returning the output and a stats delta: no instance state is
-        read or written, so pool workers can run AUs from the same
-        stream concurrently."""
+        returning the output and a stats delta.  Without the closed loop,
+        and for P slices with it, no instance state is read or written,
+        so pool workers can run AUs concurrently; a closed-loop I slice
+        updates the picture's reconstructions (the class docstring)."""
         delta = RequantStats()
         t = nal[0] & 0x1F
         if t not in (1, 5) or sps is None or pps is None:
             return nal, delta
         delta.bytes_in += len(nal)
         try:
-            out, n_blocks = self._requant_slice(nal, sps, pps, delta)
+            if self.closed_loop and not _peek_is_p(nal):
+                out, n_blocks = self._closed_loop_nal(nal, sps, pps)
+            else:
+                out, n_blocks = self._requant_slice(nal, sps, pps, delta)
             delta.slices_requantized += 1
             delta.blocks += n_blocks
         except (ValueError, EOFError, KeyError, IndexError):
@@ -755,3 +791,36 @@ class SliceRequantizer:
             chroma_qp_offset=pps.chroma_qp_offset, device=self.device)
         return recode_parsed(parsed, gather, dispatch, 0, 0,
                              clone=False, stats=stats)
+
+    def _closed_loop_nal(self, nal: bytes, sps: Sps, pps: Pps
+                         ) -> tuple[bytes, int]:
+        """One I slice through the closed loop: the CPython parse, the QP
+        ceiling (checked before the loop, which never reaches a recode
+        that would refuse it), the loop over its MBs, the CBP and QP
+        chain, the CPython write."""
+        parsed = parse_slice_cpython(nal, sps, pps)
+        _check_ceiling(parsed, self.delta_qp)
+        if parsed.hdr.is_p:
+            raise ValueError("the closed loop takes I slices only")
+        n_blocks = self._closed_loop_slice(sps, pps, parsed.hdr, parsed.mbs)
+        _finalize_mbs(parsed.mbs, self.delta_qp)
+        return (_write_slice_bytes(parsed, parsed.mbs,
+                                   parsed.qp_in_base + self.delta_qp),
+                n_blocks)
+
+    def _closed_loop_slice(self, sps: Sps, pps: Pps, hdr, mbs) -> int:
+        """Closed-loop intra requant of one slice's MBs (their levels
+        change in place); returns the block count for the stats."""
+        from .h264_closed_loop import PictureRecon, requant_mb_closed
+        if hdr.first_mb % sps.width_mbs:
+            raise ValueError("closed loop needs MB-row-aligned slices")
+        if hdr.first_mb == 0 or self._cl_orig is None:
+            self._cl_orig = PictureRecon(sps.width_mbs, sps.height_mbs)
+            self._cl_out = PictureRecon(sps.width_mbs, sps.height_mbs)
+        n_blocks = 0
+        for i, mb in enumerate(mbs, start=hdr.first_mb):
+            requant_mb_closed(self._cl_orig, self._cl_out, sps, pps, i,
+                              mb, hdr.first_mb, self.delta_qp)
+            n_blocks += (17 if isinstance(mb, MacroblockI16x16) else 16)
+            n_blocks += 8 if mb.chroma_cbp else 0
+        return n_blocks

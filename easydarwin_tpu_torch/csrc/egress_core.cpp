@@ -18,6 +18,7 @@
 #include <cerrno>
 #include <cstring>
 #include <ctime>
+#include <map>
 #include <vector>
 
 namespace {
@@ -795,5 +796,102 @@ int32_t ed_uring_probe(void) {
   }
   return caps;
 }
+
+}  // extern "C"
+
+extern "C" {
+
+/* ------------------------------------------------------------- timer wheel */
+
+struct ed_wheel {
+  // 1 ms hashed wheel: 4096 buckets; overflow handled by re-hashing rounds.
+  static constexpr int kSlots = 4096;
+  struct Entry {
+    int64_t id;
+    int64_t fire_ms;
+    int64_t user_data;
+  };
+  std::vector<Entry> slots[kSlots];
+  std::map<int64_t, int> where;  // id -> slot (for cancel)
+  int64_t now_ms;
+  int64_t next_id = 1;
+  int32_t pending = 0;
+};
+
+ed_wheel *ed_wheel_new(int64_t now_ms) {
+  auto *w = new ed_wheel();
+  w->now_ms = now_ms;
+  return w;
+}
+
+void ed_wheel_free(ed_wheel *w) { delete w; }
+
+int64_t ed_wheel_schedule(ed_wheel *w, int64_t delay_ms, int64_t user_data) {
+  if (delay_ms < 0) delay_ms = 0;
+  int64_t fire = w->now_ms + delay_ms;
+  int slot = static_cast<int>(fire % ed_wheel::kSlots);
+  int64_t id = w->next_id++;
+  w->slots[slot].push_back({id, fire, user_data});
+  w->where[id] = slot;
+  w->pending++;
+  return id;
+}
+
+int ed_wheel_cancel(ed_wheel *w, int64_t timer_id) {
+  auto it = w->where.find(timer_id);
+  if (it == w->where.end()) return 0;
+  auto &vec = w->slots[it->second];
+  for (auto e = vec.begin(); e != vec.end(); ++e) {
+    if (e->id == timer_id) {
+      vec.erase(e);
+      w->where.erase(it);
+      w->pending--;
+      return 1;
+    }
+  }
+  w->where.erase(it);
+  return 0;
+}
+
+int32_t ed_wheel_advance(ed_wheel *w, int64_t now_ms, int64_t *out,
+                         int32_t max_out) {
+  int32_t fired = 0;
+  if (now_ms <= w->now_ms) return 0;
+  // bound the walk: never more than one full wheel revolution
+  int64_t steps = now_ms - w->now_ms;
+  if (steps > ed_wheel::kSlots) steps = ed_wheel::kSlots;
+  for (int64_t t = 0; t < steps && fired < max_out; ++t) {
+    int64_t tick = w->now_ms + 1 + t;
+    auto &vec = w->slots[tick % ed_wheel::kSlots];
+    for (size_t i = 0; i < vec.size() && fired < max_out;) {
+      if (vec[i].fire_ms <= now_ms) {
+        out[fired++] = vec[i].user_data;
+        w->where.erase(vec[i].id);
+        vec[i] = vec.back();
+        vec.pop_back();
+        w->pending--;
+      } else {
+        ++i;
+      }
+    }
+  }
+  w->now_ms = now_ms;
+  return fired;
+}
+
+int64_t ed_wheel_next(const ed_wheel *w, int64_t now_ms) {
+  int64_t best = -1;
+  for (int s = 0; s < ed_wheel::kSlots; ++s) {
+    for (const auto &e : w->slots[s]) {
+      int64_t d = e.fire_ms - now_ms;
+      if (d < 0) d = 0;
+      if (best < 0 || d < best) best = d;
+    }
+  }
+  if (best > 3600000) best = 3600000;
+  return best;
+}
+
+int32_t ed_wheel_pending(const ed_wheel *w) { return w->pending; }
 
 }  // extern "C"

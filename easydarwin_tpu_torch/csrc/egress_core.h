@@ -142,6 +142,27 @@ int32_t ed_udp_ingest(int fd, uint8_t *ring_data, int32_t *ring_len,
                                       * under this RLIMIT_MEMLOCK */
 int32_t ed_uring_probe(void);
 
+/* ------------------------------------------------------------ timer wheel */
+
+/* Hashed timer wheel, 1 ms ticks: the pump's sleep until the earliest
+ * stream deadline (a bucket-delay release, a reliable-UDP resend).
+ * Single-threaded use from the owner loop.  A copy of the reference's
+ * ed_wheel (csrc/edtpu_core.cpp). */
+typedef struct ed_wheel ed_wheel;
+
+ed_wheel *ed_wheel_new(int64_t now_ms);
+void ed_wheel_free(ed_wheel *w);
+/* schedule returns a timer id (>0) firing at now+delay_ms */
+int64_t ed_wheel_schedule(ed_wheel *w, int64_t delay_ms, int64_t user_data);
+int ed_wheel_cancel(ed_wheel *w, int64_t timer_id);
+/* advance to now_ms; expired user_data values are copied into out (up to
+ * max_out); returns number expired */
+int32_t ed_wheel_advance(ed_wheel *w, int64_t now_ms, int64_t *out,
+                         int32_t max_out);
+/* ms until next timer from now_ms, or -1 if none (capped at 3600000) */
+int64_t ed_wheel_next(const ed_wheel *w, int64_t now_ms);
+int32_t ed_wheel_pending(const ed_wheel *w);
+
 #ifdef __cplusplus
 }
 #endif

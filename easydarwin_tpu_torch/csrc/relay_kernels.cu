@@ -46,6 +46,17 @@
 //     once) by 4-output columns, whose stores run as 4-byte words along
 //     each output's contiguous 12 * P header bytes, and whose newest
 //     keyframe is the ring query's self-resetting last-CTA fold.
+//   * ed_relay_shard replaces the XLA pass
+//     easydarwin_tpu/parallel/mesh.py:80 _local_step (B8's per-shard step
+//     of sharded_relay_step, :110): the same kernel as ed_relay_batch over
+//     a shard's block of sources, one per blockIdx.z, with the reference's
+//     mask (eligible and length > 0), keyframe indices offset by the
+//     shard's packet base along ``win``, and strided views in and out, so
+//     a shard reads its block where it lies and writes straight into its
+//     block of the whole result.  The cross-shard max of the newest
+//     keyframe and the sum of the eligible sends are one atomicMax a
+//     source tile and one atomicAdd a CTA into buffers the shards of one
+//     device share: ONE launch a shard, and no reduction step after it.
 //
 // Why the TPU's trick is dropped
 //   The TPU kernel avoids per-row dynamic gathers by building each byte at
@@ -150,6 +161,7 @@ constexpr int kBatchSubsPerCta = 4;    // outputs a CTA renders
 constexpr int kBatchMaxPkts = 1 << 16;
 constexpr int kBatchMaxSubs = 1 << 16;
 constexpr int kBatchMaxTiles = kBatchMaxPkts / kBatchTileRows;
+constexpr int kShardMaxSources = 65535;  // ed_relay_shard: gridDim.z's limit
 
 // head + tail bytes are at most 2 * 15 (an empty interior means a span of
 // at most 30 bytes); threads 1.. load them, one byte each
@@ -525,94 +537,131 @@ ring_query_kernel(const uint8_t* __restrict__ rows, int capacity,
   }
 }
 
-// -------------------------------------------------- batch step (B9)
+// -------------------------------------------------- batch step (B9, B8)
 
-// One launch per batch pass: grid (n_tiles, ceil(n_subs / kBatchSubsPerCta)).
-// CTA (x, y) takes rows [64x, 64x + 64) into shared memory by the bulk copy,
-// loads its outputs' state and the rows' lengths and ages while the copy is
-// in flight, parses each row once (one thread a row) into shared memory,
-// then writes its (output, packet) tile: headers as 4-byte words, three a
-// packet, along each output's contiguous 12 * P bytes, and the mask bytes.
-// The y = 0 CTAs also write keyframe_first and frame_last and, after their
-// stores are issued, fold the newest keyframe: one tile writes it at once;
-// more store each tile's max into partials[x] and make ONE acq_rel add on
-// the ticket, and the last arrival's warp 0 reduces the partials, writes
-// *newest and puts the ticket back to 0.  ``scratch`` = ticket ++
-// partials[kBatchMaxTiles]; launches sharing it stay on one stream.
+// What one batch launch reads and writes.  B9 (ed_relay_batch) is one
+// source: every source stride is 0, the mask asks length >= 12 and the
+// newest keyframe is folded through ``scratch``.  B8 (ed_relay_shard) is
+// a mesh shard's block of sources, one per blockIdx.z: each input and
+// output is a strided view (a source stride, and the headers' and mask's
+// output stride, so a shard writes straight into its block of the whole
+// [N, S, P, ...] result), the mask asks length >= 1 (the reference's
+// ``length > 0``), keyframe indices are offset by the shard's packet base
+// and maxed into newest[z] by atomicMax (filled with -1 first), and the
+// eligible sends are added into *eligible (zeroed first).
+struct BatchArgs {
+  const uint8_t* prefix;
+  long long prefix_src;                  // bytes between sources
+  int n_pkts, row_stride;
+  const int32_t* length;
+  const int32_t* age_ms;
+  long long length_src, age_src;         // elements between sources
+  const uint32_t* state;
+  const int32_t* bucket;
+  long long state_src, bucket_src;       // elements between sources
+  int n_subs, min_len, kf_base, pad;
+  long long delay_ms;
+  uint32_t* headers;
+  long long headers_src, headers_sub;    // 4-byte words
+  uint8_t* mask;
+  long long mask_src, mask_sub;          // bytes
+  uint8_t* keyframe_first;               // B9 only
+  uint8_t* frame_last;                   // B9 only
+  int* scratch;                          // B9 only
+  int32_t* newest;
+  unsigned long long* eligible;          // B8 only
+};
+
+// Grid (n_tiles, ceil(n_subs / kBatchSubsPerCta), sources).  CTA (x, y, z)
+// takes rows [64x, 64x + 64) of source z into shared memory by the bulk
+// copy, loads its outputs' state and the rows' lengths and ages while the
+// copy is in flight, parses each row once (one thread a row) into shared
+// memory, then writes its (output, packet) tile: headers as 4-byte words,
+// three a packet, along each output's contiguous 12 * P bytes, and the
+// mask bytes.  The y = 0 CTAs also write keyframe_first and frame_last
+// (B9) and, after their stores are issued, fold the newest keyframe.  B9:
+// one tile writes it at once; more store each tile's max into partials[x]
+// and make ONE acq_rel add on the ticket, and the last arrival's warp 0
+// reduces the partials, writes *newest and puts the ticket back to 0
+// (``scratch`` = ticket ++ partials[kBatchMaxTiles]; launches sharing it
+// stay on one stream).  B8: each y = 0 CTA makes one atomicMax on
+// newest[z], and every CTA one atomicAdd of its mask count.
+template <bool kShard>
 __global__ void __launch_bounds__(kBatchThreads)
-relay_batch_kernel(const uint8_t* __restrict__ prefix, int n_pkts,
-                   int row_stride, const int32_t* __restrict__ length,
-                   const int32_t* __restrict__ age_ms,
-                   const uint32_t* __restrict__ state,
-                   const int32_t* __restrict__ bucket, int n_subs,
-                   int64_t delay_ms, uint32_t* __restrict__ headers,
-                   uint8_t* __restrict__ mask,
-                   uint8_t* __restrict__ keyframe_first,
-                   uint8_t* __restrict__ frame_last, int* __restrict__ scratch,
-                   int32_t* __restrict__ newest) {
+relay_batch_kernel(const BatchArgs a) {
   extern __shared__ __align__(16) uint8_t s_tile[];
   __shared__ uint64_t s_bar;
   __shared__ uint32_t s_word0[kBatchTileRows];   // b0 | b1 << 8 | seq << 16
   __shared__ uint32_t s_ts[kBatchTileRows];
   __shared__ int32_t s_age[kBatchTileRows];
-  __shared__ uint8_t s_sendable[kBatchTileRows];  // length >= 12: not a runt
+  __shared__ uint8_t s_sendable[kBatchTileRows];  // length >= min_len
   __shared__ uint32_t s_seq_add[kBatchSubsPerCta];
   __shared__ uint32_t s_ts_add[kBatchSubsPerCta];
   __shared__ uint32_t s_ssrc_be[kBatchSubsPerCta];
   __shared__ int64_t s_min_age[kBatchSubsPerCta];
   __shared__ int s_warp_best[kBatchThreads / 32];
+  __shared__ int s_warp_count[kBatchThreads / 32];
   __shared__ int s_last;
   const int t = threadIdx.x;
   const int tile = blockIdx.x;
+  const int n_pkts = a.n_pkts;
   const int row0 = tile * kBatchTileRows;
   const int rows = min(kBatchTileRows, n_pkts - row0);
   const int sub0 = blockIdx.y * kBatchSubsPerCta;
-  const int subs = min(kBatchSubsPerCta, n_subs - sub0);
+  const int subs = min(kBatchSubsPerCta, a.n_subs - sub0);
   const bool first_col = blockIdx.y == 0;      // writes the per-packet outputs
-  const uint8_t* src = prefix + size_t(row0) * row_stride;
+  const long long z = kShard ? blockIdx.z : 0;
+  const uint8_t* src =
+      a.prefix + z * a.prefix_src + size_t(row0) * a.row_stride;
+  const int32_t* length = a.length + z * a.length_src;
+  const int32_t* age_ms = a.age_ms + z * a.age_src;
   uint8_t* buf = s_tile + (reinterpret_cast<uintptr_t>(src) & (kBulkAlign - 1));
-  const bool wait = bulk_fetch(buf, src, uint32_t(rows) * row_stride, &s_bar);
+  const bool wait =
+      bulk_fetch(buf, src, uint32_t(rows) * a.row_stride, &s_bar);
 
   // under the copy: the rows' lengths and ages, the outputs' affine terms
   const int32_t len = t < rows ? length[row0 + t] : 0;
   const int32_t age = t < rows ? age_ms[row0 + t] : 0;
   if (t < subs) {
-    const uint32_t* st = state + size_t(sub0 + t) * kStateCols;
+    const uint32_t* st =
+        a.state + z * a.state_src + size_t(sub0 + t) * kStateCols;
     uint32_t sv[kStateCols];
 #pragma unroll
     for (int c = 0; c < kStateCols; ++c) sv[c] = st[c];
-    const int32_t b = bucket[sub0 + t];
+    const int32_t b = a.bucket[z * a.bucket_src + sub0 + t];
     s_seq_add[t] = (sv[3] - sv[1]) & 0xFFFFu;      // seq' = seq + this (mod 2^16)
     s_ts_add[t] = sv[4] - sv[2];                   // ts' = ts + this (mod 2^32)
     s_ssrc_be[t] = __byte_perm(sv[0], 0, 0x0123);  // big-endian on the wire
     // bucket * delay in int64, wrapping as the plain version's product does
-    s_min_age[t] = int64_t(uint64_t(int64_t(b)) * uint64_t(delay_ms));
+    s_min_age[t] = int64_t(uint64_t(int64_t(b)) * uint64_t(a.delay_ms));
   }
   __syncthreads();                             // mbarrier init, head/tail bytes
   if (wait) mbar_wait(smem_addr(&s_bar), 0);
 
   int best = -1;
   if (t < rows) {
-    const uint8_t* row = buf + size_t(t) * row_stride;
+    const uint8_t* row = buf + size_t(t) * a.row_stride;
     const Parsed p = parse_row(row, len);
     s_word0[t] = uint32_t(row[0]) | (uint32_t(row[1]) << 8) | (p.seq << 16);
     s_ts[t] = p.ts;
     s_age[t] = age;
-    s_sendable[t] = len >= 12;
-    if (first_col) {
-      keyframe_first[row0 + t] = uint8_t(p.kf);
-      frame_last[row0 + t] = uint8_t(p.fl);
+    s_sendable[t] = len >= a.min_len;
+    if (!kShard && first_col) {
+      a.keyframe_first[row0 + t] = uint8_t(p.kf);
+      a.frame_last[row0 + t] = uint8_t(p.fl);
     }
     // padding rows carry length 0: never valid, never a keyframe
-    if (p.kf && len > 0) best = row0 + t;
+    if (p.kf && len > 0) best = row0 + t + a.kf_base;
   }
   __syncthreads();                             // the parsed rows
 
   // headers: word w of an output's span is packet w / 3, part w % 3
   // (0: b0 b1 seq_hi seq_lo, 1: ts big-endian, 2: ssrc big-endian)
   const int words = 3 * rows;
+  int sent = 0;
   for (int s = 0; s < subs; ++s) {
-    uint32_t* out = headers + (size_t(sub0 + s) * n_pkts + row0) * 3;
+    uint32_t* out = a.headers + z * a.headers_src +
+                    (sub0 + s) * a.headers_sub + size_t(row0) * 3;
     const uint32_t seq_add = s_seq_add[s], ts_add = s_ts_add[s];
     for (int w = t; w < words; w += kBatchThreads) {
       const int j = w / 3;
@@ -629,18 +678,35 @@ relay_batch_kernel(const uint8_t* __restrict__ prefix, int n_pkts,
       }
       out[w] = v;
     }
-    // mask: bucket-eligible (age >= bucket * delay) and not a runt
-    if (t < rows)
-      mask[size_t(sub0 + s) * n_pkts + row0 + t] =
-          uint8_t(s_sendable[t] && int64_t(s_age[t]) >= s_min_age[s]);
+    // mask: bucket-eligible (age >= bucket * delay) and long enough
+    if (t < rows) {
+      const bool m = s_sendable[t] && int64_t(s_age[t]) >= s_min_age[s];
+      a.mask[z * a.mask_src + (sub0 + s) * a.mask_sub + row0 + t] = uint8_t(m);
+      sent += m;
+    }
   }
 
+  if (kShard) {
+    // the CTA's eligible sends: a warp sum, then one add a CTA
+    sent = __reduce_add_sync(0xffffffffu, sent);
+    if ((t & 31) == 0) s_warp_count[t >> 5] = sent;
+    const int m = block_max<kBatchThreads>(best, s_warp_best);  // syncs
+    if (t == 0) {
+      int total = 0;
+#pragma unroll
+      for (int w = 0; w < kBatchThreads / 32; ++w) total += s_warp_count[w];
+      if (total) atomicAdd(a.eligible, (unsigned long long)total);
+      if (first_col && m >= 0) atomicMax(a.newest + z, m);
+    }
+    return;
+  }
   if (!first_col) return;                      // uniform over the CTA
   const int m = block_max<kBatchThreads>(best, s_warp_best);
   if (gridDim.x == 1) {                        // one tile: no fold
-    if (t == 0) *newest = m;
+    if (t == 0) *a.newest = m;
     return;
   }
+  int* scratch = a.scratch;
   if (t == 0) {
     scratch[1 + tile] = m;
     // one acq_rel atomic: it releases the partial before the arrival and,
@@ -658,7 +724,7 @@ relay_batch_kernel(const uint8_t* __restrict__ prefix, int n_pkts,
     fold = max(fold, __ldcg(scratch + 1 + i));
   fold = __reduce_max_sync(0xffffffffu, fold);
   if (t == 0) {
-    *newest = fold;
+    *a.newest = fold;
     *scratch = 0;                              // ready for the next pass
   }
 }
@@ -793,17 +859,89 @@ int ed_relay_batch(const void* prefix, int n_pkts, int row_stride,
       smem > size_t(kDynSmemLimit) ||
       (reinterpret_cast<uintptr_t>(headers) & 3) != 0)
     return int(cudaErrorInvalidValue);
+  BatchArgs a = {};
+  a.prefix = static_cast<const uint8_t*>(prefix);
+  a.n_pkts = n_pkts;
+  a.row_stride = row_stride;
+  a.length = static_cast<const int32_t*>(length);
+  a.age_ms = static_cast<const int32_t*>(age_ms);
+  a.state = static_cast<const uint32_t*>(state);
+  a.bucket = static_cast<const int32_t*>(bucket);
+  a.n_subs = n_subs;
+  a.min_len = 12;                              // not a runt
+  a.delay_ms = delay_ms;
+  a.headers = static_cast<uint32_t*>(headers);
+  a.headers_sub = 3ll * n_pkts;
+  a.mask = static_cast<uint8_t*>(mask);
+  a.mask_sub = n_pkts;
+  a.keyframe_first = static_cast<uint8_t*>(keyframe_first);
+  a.frame_last = static_cast<uint8_t*>(frame_last);
+  a.scratch = static_cast<int*>(scratch);
+  a.newest = static_cast<int32_t*>(newest);
   const dim3 grid((n_pkts + kBatchTileRows - 1) / kBatchTileRows,
                   (n_subs + kBatchSubsPerCta - 1) / kBatchSubsPerCta);
-  relay_batch_kernel<<<grid, kBatchThreads, smem,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(prefix), n_pkts, row_stride,
-      static_cast<const int32_t*>(length), static_cast<const int32_t*>(age_ms),
-      static_cast<const uint32_t*>(state), static_cast<const int32_t*>(bucket),
-      n_subs, int64_t(delay_ms), static_cast<uint32_t*>(headers),
-      static_cast<uint8_t*>(mask), static_cast<uint8_t*>(keyframe_first),
-      static_cast<uint8_t*>(frame_last), static_cast<int*>(scratch),
-      static_cast<int32_t*>(newest));
+  relay_batch_kernel<false><<<grid, kBatchThreads, smem,
+                              static_cast<cudaStream_t>(stream)>>>(a);
+  return int(cudaGetLastError());
+}
+
+// One mesh shard's relay step (B8): n_src sources of prefix [n_pkts,
+// row_stride] uint8 (``prefix_src`` bytes apart), length and age_ms
+// [n_pkts] int32, state [n_subs, 6] uint32 and bucket [n_subs] int32
+// (each ``*_src`` elements apart) -> headers [n_subs, n_pkts, 12] uint8 a
+// source (``headers_src`` bytes apart, outputs ``headers_sub`` bytes apart,
+// 4-byte aligned), mask [n_subs, n_pkts] a source (``mask_src``,
+// ``mask_sub`` bytes apart; eligible and length > 0), newest[n_src] maxed
+// with each source's newest keyframe + kf_base (fill it with -1 first) and
+// *eligible (uint64) increased by the mask's count (zero it first).  ONE
+// launch; shards of one result on one device may share newest and
+// eligible, in any order.
+int ed_relay_shard(const void* prefix, int n_src, int n_pkts, int row_stride,
+                   long long prefix_src, const void* length,
+                   long long length_src, const void* age_ms,
+                   long long age_src, const void* state, long long state_src,
+                   const void* bucket, long long bucket_src, int n_subs,
+                   long long delay_ms, int kf_base, void* headers,
+                   long long headers_src, long long headers_sub, void* mask,
+                   long long mask_src, long long mask_sub, void* newest,
+                   void* eligible, void* stream) {
+  const size_t smem = size_t(kBatchTileRows) * row_stride + kBulkAlign;
+  if (n_src < 1 || n_src > kShardMaxSources || n_pkts < 1 ||
+      n_pkts > kBatchMaxPkts || n_subs < 1 || n_subs > kBatchMaxSubs ||
+      row_stride < kParsePrefix || smem > size_t(kDynSmemLimit) ||
+      kf_base < 0 || kf_base > (1 << 30) ||
+      ((reinterpret_cast<uintptr_t>(headers) | uintptr_t(headers_src) |
+        uintptr_t(headers_sub)) & 3) != 0)
+    return int(cudaErrorInvalidValue);
+  BatchArgs a = {};
+  a.prefix = static_cast<const uint8_t*>(prefix);
+  a.prefix_src = prefix_src;
+  a.n_pkts = n_pkts;
+  a.row_stride = row_stride;
+  a.length = static_cast<const int32_t*>(length);
+  a.age_ms = static_cast<const int32_t*>(age_ms);
+  a.length_src = length_src;
+  a.age_src = age_src;
+  a.state = static_cast<const uint32_t*>(state);
+  a.bucket = static_cast<const int32_t*>(bucket);
+  a.state_src = state_src;
+  a.bucket_src = bucket_src;
+  a.n_subs = n_subs;
+  a.min_len = 1;                               // the reference's length > 0
+  a.kf_base = kf_base;
+  a.delay_ms = delay_ms;
+  a.headers = static_cast<uint32_t*>(headers);
+  a.headers_src = headers_src / 4;
+  a.headers_sub = headers_sub / 4;
+  a.mask = static_cast<uint8_t*>(mask);
+  a.mask_src = mask_src;
+  a.mask_sub = mask_sub;
+  a.newest = static_cast<int32_t*>(newest);
+  a.eligible = static_cast<unsigned long long*>(eligible);
+  const dim3 grid((n_pkts + kBatchTileRows - 1) / kBatchTileRows,
+                  (n_subs + kBatchSubsPerCta - 1) / kBatchSubsPerCta, n_src);
+  relay_batch_kernel<true><<<grid, kBatchThreads, smem,
+                             static_cast<cudaStream_t>(stream)>>>(a);
   return int(cudaGetLastError());
 }
 

@@ -8,7 +8,8 @@ Two parse backends (the hand-written K1 kernel, or the plain PyTorch parse
 
 ``megabatch_window_steps`` is the cross-stream stacked pass the scheduler
 (``relay.megabatch``) dispatches once per wake over every shape bucket
-(``megabatch_window_step`` is its group of one), and
+(``megabatch_window_step`` is its group of one; under a serving mesh the
+scheduler makes one such call a device, inside ``on_device``), and
 ``scatter_affine_segments`` splits a bucket's result back into per-stream
 params.  ``fec_parity_window_step`` is the FEC tier's GF(256) parity pass
 (B4), shared by the wire FEC (``relay.fec``) and the stripe codec
@@ -17,6 +18,7 @@ params.  ``fec_parity_window_step`` is the FEC tier's GF(256) parity pass
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
 
 import numpy as np
@@ -117,6 +119,13 @@ def megabatch_window_steps(pairs) -> list[torch.Tensor]:
     ``ed_relay_window`` launch (for up to ``WINDOW_MAX_BUCKETS``
     buckets)."""
     return fanout_ops.relay_affine_step_windows(pairs)
+
+
+def on_device(dev: torch.device):
+    """A context that makes ``dev`` the current card (its current stream
+    takes the launches); nothing for the CPU."""
+    return (torch.cuda.device(dev) if dev.type == "cuda"
+            else contextlib.nullcontext())
 
 
 def scatter_affine_segments(packed, n_subs):

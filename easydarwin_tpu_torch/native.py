@@ -3,8 +3,9 @@
 
 The egress core sends the relay's wire writes, packs the megabatch upload
 rows, drains a UDP pusher's RTP socket into the packet ring
-(``udp_ingest``) and probes what io_uring offers this process
-(``uring_probe``).  The walk serves the HLS requant ladder: the fused walk
+(``udp_ingest``), probes what io_uring offers this process
+(``uring_probe``) and keeps the pump's 1 ms timer wheel
+(``TimerWheel``).  The walk serves the HLS requant ladder: the fused walk
 ``h264_requant_slice`` (decode, requantize and re-encode in one pass, the
 split's oracle) and the split walk: ``h264_parse_slice`` (a ``SliceWalk``
 holding the gather), B6 elsewhere, then ``SliceWalk.write`` once a rung.
@@ -141,6 +142,14 @@ _SIGNATURES = {
     "ed_h264_write_slice_cabac": _WRITE,
     "ed_h264_walk_free": (None, [_VP]),
     "ed_h264_walk_info_fields": (_I32, []),
+    "ed_wheel_new": (_VP, [ctypes.c_int64]),
+    "ed_wheel_free": (None, [_VP]),
+    "ed_wheel_schedule": (ctypes.c_int64, [_VP, ctypes.c_int64,
+                                           ctypes.c_int64]),
+    "ed_wheel_cancel": (ctypes.c_int, [_VP, ctypes.c_int64]),
+    "ed_wheel_advance": (_I32, [_VP, ctypes.c_int64, _I64P, _I32]),
+    "ed_wheel_next": (ctypes.c_int64, [_VP, ctypes.c_int64]),
+    "ed_wheel_pending": (_I32, [_VP]),
 }
 
 
@@ -565,3 +574,47 @@ def describe_uring(caps: int) -> str:
         return errno.errorcode.get(-caps, f"errno {-caps}")
     return "+".join(n for n, bit in URING_CAPS.items() if caps & bit) \
         or "none"
+
+
+class TimerWheel:
+    """The egress core's 1 ms hashed timer wheel (``ed_wheel``): the pump
+    sleeps until its next deadline.  ``schedule`` arms ``user_data`` to
+    fire ``delay_ms`` after the time the wheel was last advanced to,
+    ``advance`` returns what fired up to ``now_ms``, ``next_deadline``
+    the ms until the earliest armed timer (-1: none).  Raises when the
+    library is missing: no caller keeps a fixed tick instead."""
+
+    def __init__(self, now_ms: int = 0):
+        self._lib = _need()
+        self._w = self._lib.ed_wheel_new(int(now_ms))
+
+    def close(self) -> None:
+        if self._w:
+            self._lib.ed_wheel_free(self._w)
+            self._w = None
+
+    def __del__(self):
+        try:
+            self.close()
+        except Exception:
+            pass
+
+    def schedule(self, delay_ms: int, user_data: int) -> int:
+        return self._lib.ed_wheel_schedule(self._w, int(delay_ms),
+                                           int(user_data))
+
+    def cancel(self, timer_id: int) -> bool:
+        return bool(self._lib.ed_wheel_cancel(self._w, int(timer_id)))
+
+    def advance(self, now_ms: int, max_out: int = 1024) -> list[int]:
+        out = np.zeros(max_out, dtype=np.int64)
+        n = self._lib.ed_wheel_advance(self._w, int(now_ms),
+                                       out.ctypes.data_as(_I64P), max_out)
+        return out[:n].tolist()
+
+    def next_deadline(self, now_ms: int) -> int:
+        return self._lib.ed_wheel_next(self._w, int(now_ms))
+
+    @property
+    def pending(self) -> int:
+        return self._lib.ed_wheel_pending(self._w)

@@ -25,7 +25,9 @@ eligibility mask and the newest keyframe.  On CUDA tensors it is ONE
 launch of the hand-written ``ed_relay_batch`` (K1's parse fused in); on
 CPU tensors it runs ``relay_batch_step_plain``.  ``pack_batch_upload`` and
 ``batch_upload_views`` lay its five inputs out as one buffer, so the engine
-uploads a pass in one copy.
+uploads a pass in one copy.  ``relay_shard_step`` is B8's per-shard step
+(``parallel.mesh``): the same kernel over a block of sources, as ONE
+``ed_relay_shard`` launch, writing into the whole result's views.
 
 All arithmetic on 32-bit quantities runs in int64 masked to 16/32 bits;
 values become uint32 only at the output boundary (``u32_from_i64``).
@@ -225,6 +227,113 @@ def relay_batch_step(prefix: torch.Tensor, length: torch.Tensor,
         newest.data_ptr())
     return {"headers": headers, "mask": mask, "keyframe_first": flags[0],
             "newest_keyframe": newest, "frame_last": flags[1]}
+
+
+#: ``ed_relay_shard``'s most sources a launch (``kShardMaxSources``: the
+#: grid's z limit)
+SHARD_MAX_SOURCES = 65535
+
+
+def check_shard_args(prefix, length, age_ms, out_state, bucket_of_output,
+                     headers, mask, newest, eligible) -> None:
+    """What ``ed_relay_shard`` takes, on either device: a shard's block of
+    ``n`` sources as views whose innermost axes are dense (any stride
+    between sources and, for the outputs, between outputs) — ``prefix``
+    ``[n, P, W>=96]`` uint8, ``length`` and ``age_ms`` ``[n, P]`` int32,
+    ``out_state`` ``[n, S, STATE_COLS]`` uint32, ``bucket_of_output``
+    ``[n, S]`` int32, ``headers`` ``[n, S, P, 12]`` uint8 (4-byte aligned),
+    ``mask`` ``[n, S, P]`` bool, ``newest`` ``[n]`` int32 and ``eligible``
+    a scalar int64, all on one device."""
+    if prefix.dim() != 3 or out_state.dim() != 3:
+        raise ValueError(f"prefix and out_state must be 3-D, got "
+                         f"{tuple(prefix.shape)} and {tuple(out_state.shape)}")
+    n, p, w = prefix.shape
+    s = out_state.shape[1]
+    if not 1 <= n <= SHARD_MAX_SOURCES:
+        raise ValueError(f"{n} sources is outside 1..{SHARD_MAX_SOURCES}")
+    check_batch_args(prefix[0], length[0], age_ms[0], out_state[0],
+                     bucket_of_output[0])
+    want = (("prefix", prefix, torch.uint8, (n, p, w), (w, 1)),
+            ("length", length, torch.int32, (n, p), (1,)),
+            ("age_ms", age_ms, torch.int32, (n, p), (1,)),
+            ("out_state", out_state, torch.uint32, (n, s, STATE_COLS),
+             (STATE_COLS, 1)),
+            ("bucket_of_output", bucket_of_output, torch.int32, (n, s), (1,)),
+            ("headers", headers, torch.uint8, (n, s, p, 12), (12, 1)),
+            ("mask", mask, torch.bool, (n, s, p), (1,)),
+            ("newest", newest, torch.int32, (n,), (1,)),
+            ("eligible", eligible, torch.int64, (), ()))
+    for name, t, dtype, shape, inner in want:
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be {list(shape)}, got "
+                             f"{list(t.shape)}")
+        if t.dtype != dtype:
+            raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+        if inner and tuple(t.stride()[-len(inner):]) != inner:
+            raise ValueError(f"{name}'s inner strides must be {inner}, got "
+                             f"{t.stride()}")
+        if t.device != prefix.device:
+            raise ValueError(f"{name} is on {t.device}, prefix on "
+                             f"{prefix.device}")
+    if (headers.data_ptr() | headers.stride(0) | headers.stride(1)) & 3:
+        raise ValueError("headers must be 4-byte aligned")
+
+
+def relay_shard_step_plain(prefix, length, age_ms, out_state,
+                           bucket_of_output, bucket_delay_ms: int,
+                           kf_base: int, headers, mask, newest,
+                           eligible) -> None:
+    """B8's per-shard step in plain PyTorch (B9's plain chain a source, the
+    reference's ``length > 0`` mask): the arguments and effects of
+    ``relay_shard_step``."""
+    for i in range(prefix.shape[0]):
+        fields = parse_packets_kernel(prefix[i], length[i])
+        headers[i] = fanout_headers(prefix[i, :, :2], fields["seq"],
+                                    fields["timestamp"], out_state[i])
+        valid = length[i] > 0
+        m = eligibility(age_ms[i], bucket_of_output[i],
+                        bucket_delay_ms) & valid[None, :]
+        mask[i] = m
+        kf = newest_keyframe(fields["keyframe_first"], valid)
+        kf = torch.where(kf >= 0, kf + kf_base, kf).to(torch.int32)
+        newest[i] = torch.maximum(newest[i], kf)
+        eligible += m.sum(dtype=torch.int64)
+
+
+def relay_shard_step(prefix, length, age_ms, out_state, bucket_of_output,
+                     bucket_delay_ms: int, kf_base: int, headers, mask,
+                     newest, eligible) -> None:
+    """One mesh shard's step (B8, ``parallel.mesh``) over its block of
+    ``n`` sources (shapes in ``check_shard_args``): writes each source's
+    ``[S, P, 12]`` headers and ``[S, P]`` mask (bucket-eligible and
+    ``length > 0``) into ``headers`` and ``mask``, maxes ``newest[i]``
+    with source i's newest keyframe + ``kf_base`` (−1: none; fill it with
+    −1 first) and adds the mask's count to ``eligible`` (zero it first).
+    Shards on one device may share ``newest`` and ``eligible``.  CUDA
+    tensors make ONE ``ed_relay_shard`` launch; CPU tensors run
+    ``relay_shard_step_plain``."""
+    check_shard_args(prefix, length, age_ms, out_state, bucket_of_output,
+                     headers, mask, newest, eligible)
+    if not 0 <= kf_base <= 1 << 30:
+        raise ValueError(f"kf_base {kf_base} is outside 0..2^30")
+    dev = prefix.device
+    if dev.type == "cpu":
+        relay_shard_step_plain(prefix, length, age_ms, out_state,
+                               bucket_of_output, bucket_delay_ms, kf_base,
+                               headers, mask, newest, eligible)
+        return
+    if dev.type != "cuda":
+        raise ValueError(f"no shard-step kernel for device {dev}")
+    n, p, w = prefix.shape
+    kernel_lib.launch(
+        "ed_relay_shard", prefix.data_ptr(), n, p, w, prefix.stride(0),
+        length.data_ptr(), length.stride(0), age_ms.data_ptr(),
+        age_ms.stride(0), out_state.data_ptr(), out_state.stride(0),
+        bucket_of_output.data_ptr(), bucket_of_output.stride(0),
+        out_state.shape[1], int(bucket_delay_ms), int(kf_base),
+        headers.data_ptr(), headers.stride(0), headers.stride(1),
+        mask.data_ptr(), mask.stride(0), mask.stride(1), newest.data_ptr(),
+        eligible.data_ptr())
 
 
 def batch_upload_layout(n_pkts: int, n_subs: int) -> tuple[int, ...]:

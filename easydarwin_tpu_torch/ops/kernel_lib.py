@@ -52,7 +52,8 @@ NVCC_FLAGS = (*GENCODE, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 #: kernel name → launches made by its wrapper in this process
 LAUNCHES = {"ed_parse_packets": 0, "ed_relay_window": 0,
             "ed_ring_query": 0, "ed_decode_blocks": 0, "ed_gf_parity": 0,
-            "ed_relay_batch": 0, "ed_requant_rungs": 0,
+            "ed_relay_batch": 0, "ed_relay_shard": 0,
+            "ed_requant_rungs": 0,
             "ed_h264_requant": 0, "ed_h264_requant_chroma": 0}
 
 #: cp.async.bulk moves 16-byte-aligned runs that are a multiple of 16 bytes
@@ -73,6 +74,7 @@ TENSOR_MAP_ERROR = 1 << 16
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _IP = ctypes.POINTER(ctypes.c_int)
+_LL = ctypes.c_longlong
 _SIGNATURES = {
     # prefix, n_rows, row_stride, length, words, flags, stream
     "ed_parse_packets": (_P, _I, _I, _P, _P, _P, _P),
@@ -100,6 +102,13 @@ _SIGNATURES = {
                        _P, _P, _P, _P, _P, _P, _P),
     # -> tile rows, outputs per CTA, max P, max S
     "ed_relay_batch_geometry": (_IP, _IP, _IP, _IP),
+    # prefix, n_src, P, row_stride, prefix_src, length, length_src, age_ms,
+    # age_src, state, state_src, bucket, bucket_src, S, delay_ms, kf_base,
+    # headers, headers_src, headers_sub, mask, mask_src, mask_sub, newest,
+    # eligible, stream
+    "ed_relay_shard": (_P, _I, _I, _I, _LL, _P, _LL, _P, _LL, _P, _LL, _P,
+                       _LL, _I, _LL, _I, _P, _LL, _LL, _P, _LL, _LL, _P, _P,
+                       _P),
     # levels, N, qt_in, qt_rungs, R, rungs, scratch, nonzeros, stream
     "ed_requant_rungs": (_P, _I, _P, _P, _I, _P, _P, _P, _P),
     # -> max rungs, max blocks, max CTAs

@@ -13,8 +13,9 @@ device computed:
   ONE framed ``writev`` per connection (``native.stream_send``), a torn
   packet's remainder completed through ``push_tail``;
 * **the loop** — every other primed output (``CollectingOutput``, an
-  interleaved output whose transport holds a backlog): headers rendered
-  by numpy (``render_headers``) and written through ``send_rewritten``.
+  interleaved output whose transport holds a backlog, a UDP player on a
+  port pair of its own): headers rendered by numpy (``render_headers``)
+  and written through ``send_rewritten``.
 
 The fourth, the **batch-header rung**, serves the outputs the other three
 must not: a meta-info output (its packets are wrapped), a thinned one
@@ -175,6 +176,10 @@ class FanoutEngine:
         #: kernel + D2H (launch, headers copy, the wait on its event)
         self.batch_stage_ns = 0
         self.batch_kernel_ns = 0
+        #: packets the loop rung sent and the host ns of its passes (a UDP
+        #: player on a port pair of its own takes this rung)
+        self.loop_sent = 0
+        self.loop_ns = 0
         self._batch_stage: staging.PinnedStage | None = None
         self._batch_dev: torch.device | None = None
         self.last_newest_keyframe = -1
@@ -417,8 +422,11 @@ class FanoutEngine:
         if udp or tcp:
             self.native_passes += 1
         if rest:
-            sent += self._loop(stream, rest, len(udp) + len(tcp), win,
-                               params)
+            t0 = time.perf_counter_ns()
+            n = self._loop(stream, rest, len(udp) + len(tcp), win, params)
+            self.loop_ns += time.perf_counter_ns() - t0
+            self.loop_sent += n
+            sent += n
         return sent
 
     # ---------------------------------------------------------- UDP rung

@@ -1,4 +1,4 @@
-"""Cross-stream megabatch relay scheduler (single device).
+"""Cross-stream megabatch relay scheduler (one device, or a mesh).
 
 Coalesces every stream's device work into **one shape-bucketed stacked
 pass per wake**:
@@ -17,7 +17,8 @@ pass per wake**:
 * **dispatch** — ONE ``megabatch_window_steps`` call per wake over every
   bucket (one ``ed_relay_window`` launch on the card); each bucket's
   result is copied into its pinned host buffer with ``non_blocking=True``
-  and one CUDA event, recorded behind them all, stands for the wake;
+  and one CUDA event, recorded behind them all, stands for the wake (the
+  one-device dispatch is the mesh dispatch below with one shard);
 * **harvest** (next wake) — a pass whose event ``query()`` reports done is
   scattered back into per-stream affine params (``scatter_affine_segments``)
   and installed into each engine's ``megabatch_params``.
@@ -31,6 +32,28 @@ Every installed segment is checked against the host arithmetic oracle
 (``relay.fanout.host_affine_params``); a disagreement is counted in
 ``mismatches`` and the segment discarded, so a device/host divergence can
 never reach the wire.
+
+**Mesh dispatch.**  Given a serving mesh (``parallel.mesh.
+make_megabatch_mesh``: ``src`` only, built once by the server from
+``megabatch_devices``), each bucket's stream axis is split over the
+mesh's devices instead:
+
+* stream i rides row i; shard k owns the block ``[k·rows_per,
+  (k+1)·rows_per)`` (``ops.staging.rows_per_shard``, pow2), staged in
+  its OWN pinned buffer, so each shard's upload is one H2D copy only its
+  device reads; uneven stream counts leave the tail shards zero rows
+  (zero windows and state stage and install nothing), and a shard of
+  padding only is neither uploaded nor launched;
+* one window call a device a wake over every bucket
+  (``models.relay_pipeline.megabatch_window_steps`` with the device
+  current: one ``ed_relay_window`` launch on each card), no collectives;
+* each shard's result is copied to its own pinned host buffer behind an
+  event of its device, and the harvest fetches and installs every shard
+  on its own, through the same oracle check.
+
+A mesh dispatch that fails is counted (``mesh_dispatch_errors``) and
+raised to the wake.  Without a mesh every dispatch takes the one-device
+path.
 """
 
 from __future__ import annotations
@@ -41,7 +64,7 @@ import numpy as np
 import torch
 
 from .. import native, resolve_device
-from ..models.relay_pipeline import (megabatch_window_steps,
+from ..models.relay_pipeline import (megabatch_window_steps, on_device,
                                      scatter_affine_segments)
 from ..ops import staging
 from ..ops.fanout import STATE_COLS, pack_output_state
@@ -65,25 +88,30 @@ class _Staging:
 
 
 class _InFlight:
-    """One dispatched stacked pass awaiting harvest."""
+    """One dispatched bucket awaiting harvest, one entry a shard in each
+    list (one shard without a mesh)."""
 
-    __slots__ = ("host", "event", "entries", "buf", "dispatch_ns")
+    __slots__ = ("host", "event", "entries", "buf", "dispatch_ns",
+                 "rows_per")
 
-    def __init__(self, host, event, entries, buf, dispatch_ns):
-        #: pinned host copy of the [B, 4·S+1] result (valid once ``event``
-        #: has completed)
+    def __init__(self, host, event, entries, buf, dispatch_ns, rows_per):
+        #: each shard's host copy of its [rows, 4·S+1] result, pinned on a
+        #: card (valid once its event has completed); None: padding only
         self.host = host
-        #: CUDA event recorded after the wake's D2H copies (shared by every
-        #: bucket of the wake); None on the CPU, where the pass has run
+        #: each shard's CUDA event, recorded after its device's D2H copies
+        #: of the wake (shared by the wake's buckets); None on the CPU,
+        #: where the pass has run
         self.event = event
         #: per-row (stream, engine, key, n_fast, base_pid)
         self.entries = entries
-        #: the staging this pass was uploaded from, held until harvest
+        #: each shard's staging, held until harvest
         self.buf = buf
         self.dispatch_ns = dispatch_ns
+        #: stream rows a shard
+        self.rows_per = rows_per
 
     def ready(self) -> bool:
-        return self.event is None or self.event.query()
+        return all(e is None or e.query() for e in self.event)
 
 
 class MegabatchScheduler:
@@ -98,14 +126,24 @@ class MegabatchScheduler:
     #: an in-flight pass older than this is force-fetched
     FORCE_FETCH_NS = 2_000_000_000
 
-    def __init__(self, device: str | torch.device = "cuda"):
+    def __init__(self, device: str | torch.device = "cuda", mesh=None):
         self.device = resolve_device(device)
-        self._pin = self.device.type == "cuda"
+        #: the serving mesh (``parallel.mesh.make_megabatch_mesh``), or
+        #: None for the one-device path; the prime passes stay on
+        #: ``device``
+        self.mesh = None
+        self._mesh_devices: list[torch.device] = []
+        if mesh is not None and mesh.size > 1:
+            self.mesh = mesh
+            self._mesh_devices = [resolve_device(d) for d in mesh.flat()]
+        self._pin = any(d.type == "cuda"
+                        for d in (self.device, *self._mesh_devices))
         #: staging gathers through the egress core's ``ed_stage_gather``
         #: when it builds (``ops.staging.gather_window``)
         self.native_gather = native.available()
-        #: staging buffers kept per hot shape (the double buffer)
-        self._pool_cap = 2
+        #: staging buffers kept per hot shape: the double buffer, per
+        #: device under a mesh (every shard of a bucket draws from one pool)
+        self._pool_cap = 2 * max(1, len(self._mesh_devices))
         self._tracked: dict[int, int] = {}     # id(stream) → staged head
         #: id(stream) → (params_key, packed out_state rows)
         self._state_cache: dict[int, tuple] = {}
@@ -123,6 +161,9 @@ class MegabatchScheduler:
         self.installs = 0
         self.mismatches = 0
         self.deferred_wakes = 0
+        #: buckets dispatched over the mesh, and mesh dispatches that raised
+        self.sharded_passes = 0
+        self.mesh_dispatch_errors = 0
 
     # ------------------------------------------------------------- wake API
     def begin_wake(self, pairs, now_ms: int) -> None:
@@ -289,44 +330,101 @@ class MegabatchScheduler:
         return packed
 
     def _dispatch(self, buckets) -> None:
-        """Stage every ``(entries, p_pad, s_pad)`` bucket and upload it,
-        then ONE window call for the wake; each bucket's result goes to
-        its pinned host buffer, and one event stands behind them all."""
+        """Stage every ``(entries, p_pad, s_pad)`` bucket, split over the
+        serving mesh's devices (without a mesh: one shard on ``device``),
+        upload each shard's rows from its own pinned buffer, then ONE
+        window call a device for the wake; each shard's result goes to its
+        pinned host buffer behind its device's event.  A mesh dispatch
+        that raises is counted first."""
+        if self.mesh is None:
+            self._dispatch_shards(buckets, [self.device])
+            return
+        try:
+            self._dispatch_shards(buckets, self._mesh_devices)
+        except Exception:
+            self.mesh_dispatch_errors += 1
+            raise
+
+    def _dispatch_shards(self, buckets, devs) -> None:
+        n_dev = len(devs)
         staged = []
-        for entries, p_pad, s_pad in buckets:
-            buf = self._buffer(pow2(len(entries), 1), p_pad, s_pad)
-            buf.state_np[:] = 0
+        #: per device, the (window, state) of each bucket it takes, and
+        #: the index of that bucket
+        inputs = [[] for _ in devs]
+        where = [[] for _ in devs]
+        for b, (entries, p_pad, s_pad) in enumerate(buckets):
+            rows_per = staging.rows_per_shard(len(entries), n_dev)
+            bufs = [self._buffer(rows_per, p_pad, s_pad) for _ in devs]
+            filled = [0] * n_dev
             recs = []
-            for i, (stream, eng, fast, key, base, n_new) in enumerate(entries):
+            for buf in bufs:
+                buf.state_np[:] = 0
+            for i, (stream, eng, fast, key, base, n_new) in enumerate(
+                    entries):
+                k, r = divmod(i, rows_per)
                 staging.gather_window(stream.rtp_ring, base, n_new,
-                                      buf.win_np[i])
-                buf.state_np[i, :len(fast)] = self._packed_state(stream, fast,
-                                                                 key)
+                                      bufs[k].win_np[r])
+                bufs[k].state_np[r, :len(fast)] = self._packed_state(
+                    stream, fast, key)
                 self._tracked[id(stream)] = base + n_new
                 recs.append((stream, eng, key, len(fast), base))
-            buf.win_np[len(entries):] = 0  # bucket padding rows
-            staged.append((buf, recs))
-        if self._pin:
-            results = self._window_steps(
-                [(buf.win.to(self.device, non_blocking=True),
-                  buf.state.to(self.device, non_blocking=True))
-                 for buf, _recs in staged])
-            hosts = []
-            for res in results:
-                host = torch.empty(res.shape, dtype=torch.int32,
-                                   pin_memory=True)
-                host.copy_(res.view(torch.int32), non_blocking=True)
-                hosts.append(host)
-            event = torch.cuda.Event()
-            event.record()
-        else:
-            hosts = self._window_steps([(buf.win, buf.state)
-                                        for buf, _recs in staged])
+                filled[k] = r + 1
+            for k, buf in enumerate(bufs):
+                buf.win_np[filled[k]:] = 0   # shard and bucket padding
+                if filled[k]:                # a padding-only shard: none
+                    dev = devs[k]
+                    inputs[k].append(
+                        (buf.win.to(dev, non_blocking=True),
+                         buf.state.to(dev, non_blocking=True))
+                        if dev.type == "cuda" else (buf.win, buf.state))
+                    where[k].append(b)
+            staged.append((bufs, recs, rows_per))
+        results = []
+        for dev, pairs in zip(devs, inputs):
+            with on_device(dev):
+                results.append(self._window_steps(pairs) if pairs else [])
+        hosts = [[None] * n_dev for _ in buckets]
+        events = [[None] * n_dev for _ in buckets]
+        for k, (dev, outs) in enumerate(zip(devs, results)):
             event = None
+            if dev.type == "cuda":
+                copies = []
+                for res in outs:
+                    host = torch.empty(res.shape, dtype=torch.int32,
+                                       pin_memory=True)
+                    host.copy_(res.view(torch.int32), non_blocking=True)
+                    copies.append(host)
+                if outs:
+                    event = torch.cuda.Event()
+                    event.record(torch.cuda.current_stream(dev))
+                outs = copies
+            for b, res in zip(where[k], outs):
+                hosts[b][k] = res
+                events[b][k] = event
         now = time.perf_counter_ns()
-        for (buf, recs), host in zip(staged, hosts):
-            self._inflight.append(_InFlight(host, event, recs, buf, now))
+        for (bufs, recs, rows_per), host, ev in zip(staged, hosts, events):
+            self._inflight.append(_InFlight(host, ev, recs, bufs, now,
+                                            rows_per))
             self._note_pass(len(recs))
+            self.sharded_passes += self.mesh is not None
+
+    def _consume(self, inf: _InFlight) -> int:
+        """Install one pass shard by shard: each shard's rows from its own
+        host copy, through the oracle check."""
+        installed = 0
+        for k, host in enumerate(inf.host):
+            ents = inf.entries[k * inf.rows_per:(k + 1) * inf.rows_per]
+            if not ents:
+                continue                     # padding only: nothing ran
+            if inf.event[k] is not None:
+                inf.event[k].synchronize()   # no-op once ready() said done
+            packed = host.numpy().view(np.uint32)
+            segs = scatter_affine_segments(
+                packed, [n for (_s, _e, _k, n, _b) in ents])
+            for (_stream, eng, key, _n, base), seg in zip(ents, segs):
+                if self._install_segment(eng, key, seg, base=base):
+                    installed += 1
+        return installed
 
     # ------------------------------------------------------------- harvest
     def _harvest(self, *, force: bool = False) -> int:
@@ -337,15 +435,9 @@ class MegabatchScheduler:
             if not (inf.ready() or force or age >= self.FORCE_FETCH_NS):
                 keep.append(inf)           # never stall the wake on it
                 continue
-            if inf.event is not None:
-                inf.event.synchronize()    # no-op once query() said done
-            packed = inf.host.numpy().view(np.uint32)
-            segs = scatter_affine_segments(
-                packed, [n for (_s, _e, _k, n, _b) in inf.entries])
-            for (_stream, eng, key, _n, base), seg in zip(inf.entries, segs):
-                if self._install_segment(eng, key, seg, base=base):
-                    installed += 1
-            self._recycle(inf.buf)
+            installed += self._consume(inf)
+            for buf in inf.buf:
+                self._recycle(buf)
             self.harvests += 1
         self._inflight = keep
         return installed
@@ -367,5 +459,8 @@ class MegabatchScheduler:
             "installs": self.installs,
             "mismatches": self.mismatches,
             "deferred_wakes": self.deferred_wakes,
+            "sharded_passes": self.sharded_passes,
+            "mesh_devices": len(self._mesh_devices),
+            "mesh_dispatch_errors": self.mesh_dispatch_errors,
             "native_gather": self.native_gather,
         }

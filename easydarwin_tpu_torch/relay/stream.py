@@ -21,6 +21,9 @@ StreamFec``, made when the first output with an ``out.fec`` state joins)
 emits parity at the head of every ``relay_rtcp``, and
 ``tickable_outputs`` lists the outputs with a ``tick`` (reliable UDP's
 resend sweeps), which the server's pump runs each wake.
+``next_deadline_ms`` says when the stream next needs a pump pass without
+new ingest (a held bucket's release, a resend's RTO): the pump's timer
+wheel sleeps until the earliest one.
 """
 
 from __future__ import annotations
@@ -110,6 +113,9 @@ class RelayStream:
         self.fec = None
         #: outputs with a resend sweep (``tick``), run by the pump
         self.tickable_outputs: list[RelayOutput] = []
+        #: the pump's last pass over this stream stalled an output (a due
+        #: release then waits for ingest or the tick, not the wheel)
+        self.last_pass_stalled = False
         #: packets and non-empty drains of the native UDP ingest
         self.native_ingest_pkts = 0
         self.native_ingest_batches = 0
@@ -366,6 +372,45 @@ class RelayStream:
             # a dead transport: stop trying
             self.upstream_rtcp = self.upstream_rtcp_owner = None
         return True
+
+    def next_deadline_ms(self, now_ms: int, *, allow_due: bool = False
+                         ) -> int:
+        """ms until this stream next needs a pump pass without new ingest:
+        the earliest bucket-delay release among held-back packets (bucket
+        0 has no delay), or the earliest future reliable-UDP RTO.  -1 =
+        nothing scheduled.  Reads the ring's host arrival times only.
+
+        ``allow_due`` controls releases already due: a caller that knows
+        the stream's last pass did NOT stall arms them at 1 ms (the
+        release matured mid-pass and the next pass sends it); for a
+        stalled stream they are left out, since a time wake cannot make a
+        blocked socket writable and 1 ms timers would spin the pump until
+        the client drains.  Future RTOs are always reported, due ones
+        never (the sweep that just ran handled them)."""
+        best = -1
+        ring = self.rtp_ring
+        delay = self.settings.bucket_delay_ms
+        for b_idx, bucket in enumerate(self.buckets):
+            if b_idx == 0:
+                continue
+            for out in bucket:
+                bm = out.bookmark
+                if bm is None or bm >= ring.head:
+                    continue
+                if bm < ring.tail:
+                    bm = ring.tail
+                d = int(ring.arrival[ring.slot(bm)]) + b_idx * delay - now_ms
+                if d <= 0:
+                    if not allow_due:
+                        continue
+                    d = 1
+                if best < 0 or d < best:
+                    best = d
+        for out in self.tickable_outputs:
+            d = out.resender.next_deadline_ms(now_ms)
+            if d > 0 and (best < 0 or d < best):
+                best = d
+        return best
 
     # -- maintenance -------------------------------------------------------
     def prune(self, now_ms: int) -> int:

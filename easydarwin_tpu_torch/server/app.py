@@ -1,9 +1,14 @@
 """Server assembly: session registry → RTSP listener + REST API → relay
 pump, and the MJPEG transcode service the REST API starts ladders on.
 
-The pump is one asyncio task, woken by ingest and ticking every
-``reflect_interval_ms``.  Each wake runs the live relay for every stream
-that has outputs.  With at least ``MEGABATCH_MIN_STREAMS`` of them:
+The pump is one asyncio task, woken by ingest, by the earliest stream
+deadline on the egress core's 1 ms timer wheel (``native.TimerWheel``: a
+held bucket's release, a reliable-UDP resend's RTO, from
+``RelayStream.next_deadline_ms``), and at the latest every
+``reflect_interval_ms``.  The wheel is required: a server whose egress
+core does not build does not start.  Each wake runs the live relay for
+every stream that has outputs.  With at least ``MEGABATCH_MIN_STREAMS``
+of them:
 
 1. ``MegabatchScheduler.begin_wake`` — harvest the previous wake's device
    pass, prime params for streams whose membership changed;
@@ -15,7 +20,10 @@ that has outputs.  With at least ``MEGABATCH_MIN_STREAMS`` of them:
    card), the rest through the Python loop; then the stream's RTCP (the pusher's
    SRs rebased per player, and SRs of the relay's own);
 3. ``MegabatchScheduler.end_wake`` — stage and dispatch the next pass (one
-   ``ed_relay_window`` launch for the wake on the card).
+   ``ed_relay_window`` launch for the wake on the card; with
+   ``megabatch_devices`` past 1 on a box of several cards, one a card over
+   the ``src`` mesh ``make_megabatch_mesh`` builds, whose summary the
+   stats carry as ``mesh``).
 
 Below that the scheduler idles and each engine keeps its stream's ring on
 the device, appending the new packets each wake and querying it (one
@@ -88,6 +96,8 @@ from ..dvr.timeshift import DVR_TIER
 from ..hls import HlsService
 from ..models.mjpeg_ladder import MjpegTranscodeService
 from ..ops import device_ring, kernel_lib
+from ..parallel.distributed import mesh_summary
+from ..parallel.mesh import make_megabatch_mesh
 from ..relay.fanout import FanoutEngine
 from ..relay.fec import StreamFec
 from ..relay.megabatch import MegabatchScheduler
@@ -110,7 +120,8 @@ STORAGE_RESTORE_INFLIGHT_MAX = 32
 ENGINE_COUNTERS = ("native_sent", "native_passes", "device_param_refreshes",
                    "send_errors", "tcp_shed_pkts", "missing_params",
                    "batch_sent", "batch_passes", "batch_rows",
-                   "batch_stage_ns", "batch_kernel_ns")
+                   "batch_stage_ns", "batch_kernel_ns", "loop_sent",
+                   "loop_ns")
 
 
 class StreamingServer:
@@ -123,7 +134,11 @@ class StreamingServer:
         self.rtsp = RtspServer(self.config, self.registry,
                                on_pump_wake=self._wake, device=self.device,
                                vod=self.vod)
-        self.megabatch = MegabatchScheduler(device=self.device)
+        #: the megabatch's serving mesh (``megabatch_devices``), or None:
+        #: one device
+        self.megabatch_mesh = self._build_mesh()
+        self.megabatch = MegabatchScheduler(device=self.device,
+                                            mesh=self.megabatch_mesh)
         self.transcodes = MjpegTranscodeService(
             self.registry, on_frame=lambda _p: self._wake(),
             device=self.device)
@@ -179,11 +194,24 @@ class StreamingServer:
         self._pump_event = asyncio.Event()
         self._pump_task: asyncio.Task | None = None
         self._running = False
+        #: the pump's timer wheel (made at start) and, per stream id, the
+        #: (timer id, due ms) armed on it
+        self._wheel: native.TimerWheel | None = None
+        self._wheel_sched: dict[int, tuple[int, int]] = {}
+        #: pump wakes by cause: the wait timed out (the interval, or a
+        #: deadline the wheel armed: ``wheel_wakes`` of them), or an
+        #: ingest or a stop set the event
+        self.time_wakes = 0
+        self.wheel_wakes = 0
+        self.event_wakes = 0
         self.wakes = 0
         #: host ms of the newest wakes that sent packets (the pump's clock)
         self.wake_ms: collections.deque = collections.deque(maxlen=8192)
         #: host ms of the first wake that sent packets (a first join's)
         self.wake_ms_first: float | None = None
+        #: host ms of each wake's wheel work after its pass (advance, and
+        #: every stream's next deadline armed): not in ``wake_ms``
+        self.schedule_ms: collections.deque = collections.deque(maxlen=8192)
         self.packets_out = 0
         self.pump_errors = 0
         #: the process's CPU seconds (every thread) and the host clock at
@@ -191,6 +219,15 @@ class StreamingServer:
         #: whether the server ran short of cores or of the GIL
         self._cpu0 = time.process_time()
         self._wall0 = time.monotonic()
+
+    def _build_mesh(self):
+        """The ``src`` mesh over the first ``megabatch_devices`` cards (0:
+        every card), clamped to the cards the box has: None on one card,
+        on the CPU, or with ``megabatch_devices`` 1, which keeps the
+        one-device path exactly."""
+        if self.config.megabatch_devices == 1 or self.device.type != "cuda":
+            return None
+        return make_megabatch_mesh(self.config.megabatch_devices)
 
     def _build_dvr(self) -> None:
         """The DVR manager under ``<movie_folder>/.dvr`` and the store
@@ -254,7 +291,10 @@ class StreamingServer:
         return fut.result()
 
     async def start(self) -> None:
-        self.native_loaded = native.available()
+        native.require()                # the pump's wheel is the core's
+        self.native_loaded = True
+        self._wheel = native.TimerWheel(now_ms())
+        self._wheel_sched.clear()
         if self.device.type == "cuda":
             self._warm_card()
         self.record_orphans = sweep_orphans(self.config.movie_folder)
@@ -400,6 +440,7 @@ class StreamingServer:
                 eng.megabatch_owned = False
         sent = 0
         for stream, eng in pairs:
+            stalls = stream.stats.stalls
             try:
                 sent += eng.step(stream, t)
             except Exception:
@@ -409,6 +450,10 @@ class StreamingServer:
                     self._tick(out, t)
                 except Exception:
                     self._pump_error()
+            # the wheel's hint: a due release of a stream that did not
+            # stall may be armed at 1 ms; a stalled one's may not (a time
+            # wake cannot unblock a full socket)
+            stream.last_pass_stalled = stream.stats.stalls > stalls
         self.packets_out += sent
         if engaged:
             self.megabatch.end_wake(pairs, t)
@@ -454,14 +499,43 @@ class StreamingServer:
                 ing[k] = core[k]
         return ing
 
+    def _schedule_stream_deadlines(self, t: int) -> None:
+        """Arm each live stream's next deadline on the wheel.  ``t`` must
+        be the time the wheel was last advanced to, so relative deadlines
+        land on the right tick; a stream that keeps an earlier or equal
+        timer armed keeps it."""
+        wheel, sched = self._wheel, self._wheel_sched
+        for sess in list(self.registry.sessions.values()):
+            for stream in sess.streams.values():
+                d = stream.next_deadline_ms(
+                    t, allow_due=not stream.last_pass_stalled)
+                if d < 0:
+                    continue
+                key = id(stream)
+                cur = sched.get(key)
+                due = t + d
+                if cur is not None and t <= cur[1] <= due:
+                    continue
+                if cur is not None:
+                    wheel.cancel(cur[0])
+                sched[key] = (wheel.schedule(d, key), due)
+
     async def _pump_loop(self) -> None:
         interval = self.config.reflect_interval_ms / 1000.0
         last_maint = 0.0
+        wheel = self._wheel
         while self._running:
+            timeout = interval
+            if wheel.pending:
+                nd = wheel.next_deadline(now_ms())
+                if nd >= 0:
+                    timeout = min(interval, max(nd, 1) / 1000.0)
             try:
-                await asyncio.wait_for(self._pump_event.wait(), interval)
+                await asyncio.wait_for(self._pump_event.wait(), timeout)
+                self.event_wakes += 1
             except asyncio.TimeoutError:
-                pass
+                self.time_wakes += 1
+                self.wheel_wakes += timeout < interval
             self._pump_event.clear()
             try:
                 t0 = time.perf_counter()
@@ -470,6 +544,14 @@ class StreamingServer:
                     if self.wake_ms_first is None:
                         self.wake_ms_first = ms
                     self.wake_ms.append(ms)
+                # advance and schedule on the SAME clock sample, or timers
+                # fire early by the pass's length
+                t1 = time.perf_counter()
+                t = now_ms()
+                for key in wheel.advance(t):
+                    self._wheel_sched.pop(key, None)
+                self._schedule_stream_deadlines(t)
+                self.schedule_ms.append((time.perf_counter() - t1) * 1e3)
             except Exception:
                 # the pump must keep serving the streams; the error is
                 # counted and its traceback kept
@@ -490,6 +572,7 @@ class StreamingServer:
                     self._storage_scrub_due = (
                         now + self.config.storage_scrub_interval_sec)
                     self.storage.scrub_async()
+        wheel.close()
 
     def stats(self) -> dict:
         engines = {k: v + sum(getattr(e, k) for e in self._engines.values())
@@ -499,7 +582,11 @@ class StreamingServer:
         for leg in ("stage", "kernel"):
             engines[f"batch_{leg}_ms_per_pass"] = \
                 engines.pop(f"batch_{leg}_ns") / passes / 1e6
+        # the loop rung, host µs a packet sent
+        engines["loop_us_per_packet"] = (engines.pop("loop_ns") / 1e3
+                                         / max(engines["loop_sent"], 1))
         wake = sorted(self.wake_ms)
+        sched = sorted(self.schedule_ms)
         return {"wakes": self.wakes, "packets_in": self.rtsp.packets_in,
                 "packets_out": self.packets_out,
                 "pump_errors": self.pump_errors,
@@ -508,6 +595,12 @@ class StreamingServer:
                 "wake_ms_p50": wake[len(wake) // 2] if wake else None,
                 "wake_ms_max": wake[-1] if wake else None,
                 "wake_ms_first": self.wake_ms_first,
+                "pump": {"time_wakes": self.time_wakes,
+                         "wheel_wakes": self.wheel_wakes,
+                         "event_wakes": self.event_wakes,
+                         "schedule_ms_p50":
+                         sched[len(sched) // 2] if sched else None,
+                         "schedule_ms_max": sched[-1] if sched else None},
                 "native_loaded": self.native_loaded,
                 "ingest": self.ingest_stats(),
                 "egress": self.egress_stats(),
@@ -520,6 +613,10 @@ class StreamingServer:
                              "giveups": self.reliable_giveups,
                              "rto_ms_max": self.reliable_rto_ms_max},
                 "megabatch": self.megabatch.stats(),
+                "mesh": (None if self.megabatch_mesh is None else
+                         {**mesh_summary(self.megabatch_mesh),
+                          "MeshShardedPasses":
+                          str(self.megabatch.sharded_passes)}),
                 "vod": (None if self.vod_pacer is None
                         else self.vod_pacer.stats()),
                 "vod_errors": self.vod_errors,

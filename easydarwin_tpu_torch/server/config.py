@@ -15,7 +15,7 @@ class ServerConfig:
     rtsp_port: int = 10554
     service_port: int = 10008          # REST API (service_lan_port)
     bind_ip: str = "0.0.0.0"
-    reflect_interval_ms: int = 20      # pump tick when no ingest wakes it
+    reflect_interval_ms: int = 20      # pump tick when nothing wakes it
     rtsp_timeout_sec: int = 120        # idle player connection kill
     push_timeout_sec: int = 20         # idle pusher connection kill
     max_connections: int = 20000
@@ -23,6 +23,16 @@ class ServerConfig:
     #: straight into the ring (off: one asyncio callback a datagram); the
     #: per-datagram path serves when the egress core is not built
     native_ingest: bool = True
+    #: UDP players share one egress pair, written by the native
+    #: sendmmsg/GSO scatter; off: each UDP player gets a port pair of its
+    #: own from the pool, and its packets take the engine's per-output
+    #: loop
+    shared_udp_egress: bool = True
+    #: devices the megabatch serves from: 1 = one device; N > 1 = each
+    #: shape bucket's stream axis sharded over the first N cards
+    #: (``parallel.mesh.make_megabatch_mesh``); 0 = every card.  Clamped
+    #: to the cards the box has, so one card keeps the one-device path
+    megabatch_devices: int = 1
     #: per-stream relay tunables (buckets, fast-start, eviction, ring)
     stream: StreamSettings = field(default_factory=StreamSettings)
     #: where DESCRIBE/SETUP/PLAY of a path that no pusher serves look for

@@ -265,6 +265,9 @@ class RtspConnection:
         self.channel_map: dict[int, tuple[int, bool]] = {}
         #: track id → the UDP port pair a pusher sends that track to
         self.pusher_pairs: dict[int, UdpPair] = {}
+        #: track id → a UDP player's own port pair (``shared_udp_egress``
+        #: off)
+        self.player_pairs: dict[int, UdpPair] = {}
         #: the file a VOD player SETUP (an ``Mp4File``), and its playing
         #: session (``FileSession`` or ``PacedVodSession``)
         self.vod_file = None
@@ -404,10 +407,13 @@ class RtspConnection:
         self._reply(rtsp.RtspResponse(200, {"Transport": resp_t.to_header()}),
                     req.cseq)
 
-    def _make_output(self, t, rewrite: dict):
+    async def _make_output(self, t, rewrite: dict, track_id: int):
         """A player track's output for transport ``t``: interleaved on this
-        connection, or UDP from the shared egress pair.  Returns ``(output,
-        reply transport)``."""
+        connection, or UDP: from the shared egress pair, or with
+        ``shared_udp_egress`` off from a port pair of the track's own (its
+        RTCP port hands the player's reports to ``on_client_rtcp``; the
+        pair goes back at TEARDOWN or close, or when the track is SETUP
+        again).  Returns ``(output, reply transport)``."""
         resp_t = rtsp.TransportSpec(protocol=t.protocol, is_tcp=t.is_tcp,
                                     ssrc=rewrite["ssrc"])
         if t.is_tcp:
@@ -416,14 +422,23 @@ class RtspConnection:
             out = InterleavedOutput(self.writer.transport, ch[0], ch[1],
                                     **rewrite)
             resp_t.interleaved = ch
-        else:
-            sender = self.server.shared_egress
+            return out, resp_t
+        srv = self.server
+        if srv.config.shared_udp_egress:
+            sender = srv.shared_egress
             if sender is None:
                 raise rtsp.RtspError(503, "the UDP egress is not started")
-            out = UdpOutput(sender, self.writer.get_extra_info("peername")[0],
-                            *t.client_port, **rewrite)
-            resp_t.client_port = t.client_port
-            resp_t.server_port = (sender.rtp_port, sender.rtcp_port)
+        else:
+            old = self.player_pairs.pop(track_id, None)
+            if old is not None:
+                old.close()
+            sender = await srv.udp_pool.allocate(
+                None, lambda d, a: srv.on_client_rtcp(d, a, conn=self))
+            self.player_pairs[track_id] = sender
+        out = UdpOutput(sender, self.writer.get_extra_info("peername")[0],
+                        *t.client_port, **rewrite)
+        resp_t.client_port = t.client_port
+        resp_t.server_port = (sender.rtp_port, sender.rtcp_port)
         return out, resp_t
 
     async def _setup_play(self, req, base, track_id, t) -> None:
@@ -443,9 +458,9 @@ class RtspConnection:
             track_id = free[0] if free else None
         if track_id is None or track_id not in relay.streams:
             raise rtsp.RtspError(404, f"unknown track {track_id}")
-        out, resp_t = self._make_output(t, dict(
+        out, resp_t = await self._make_output(t, dict(
             ssrc=secrets.randbits(32), out_seq_start=secrets.randbits(16),
-            out_ts_start=secrets.randbits(32)))
+            out_ts_start=secrets.randbits(32)), track_id)
         extra = negotiate_meta_info(req.headers.get("x-rtp-meta-info", ""),
                                     out)
         srv = self.server
@@ -475,8 +490,9 @@ class RtspConnection:
             track_id = len(self.player_tracks) + 1
         if not 1 <= track_id <= n_tracks:
             raise rtsp.RtspError(404, f"unknown track {track_id}")
-        out, resp_t = self._make_output(t, dict(
-            ssrc=secrets.randbits(32), out_seq_start=secrets.randbits(16)))
+        out, resp_t = await self._make_output(t, dict(
+            ssrc=secrets.randbits(32), out_seq_start=secrets.randbits(16)),
+            track_id)
         extra = negotiate_meta_info(req.headers.get("x-rtp-meta-info", ""),
                                     out, META_SUPPORTED_VOD)
         out, rel = negotiate_retransmit(req.headers.get("x-retransmit", ""),
@@ -509,8 +525,9 @@ class RtspConnection:
             raise rtsp.RtspError(404, f"unknown track {track_id}")
         self.dvr_path = sdp._norm(base)
         self.path = self.dvr_path
-        out, resp_t = self._make_output(t, dict(
-            ssrc=secrets.randbits(32), out_seq_start=secrets.randbits(16)))
+        out, resp_t = await self._make_output(t, dict(
+            ssrc=secrets.randbits(32), out_seq_start=secrets.randbits(16)),
+            track_id)
         out, extra = negotiate_retransmit(req.headers.get("x-retransmit", ""),
                                           out, t)
         self.server.note_player_output(self, out,
@@ -761,9 +778,11 @@ class RtspConnection:
         if self.closed:
             return
         self.closed = True
-        for pair in self.pusher_pairs.values():
+        for pair in (*self.pusher_pairs.values(),
+                     *self.player_pairs.values()):
             pair.close()
         self.pusher_pairs.clear()
+        self.player_pairs.clear()
         if self.vod_session is not None:
             self.vod_session.stop()
             self.vod_session = None
@@ -853,9 +872,10 @@ class RtspServer:
         self._server = await asyncio.start_server(
             self._on_connection, self.config.bind_ip, self.config.rtsp_port)
         self.port = self._server.sockets[0].getsockname()[1]
-        self.shared_egress = SharedUdpEgress(self.config.bind_ip,
-                                             on_rtcp=self.on_client_rtcp)
-        await self.shared_egress.start()
+        if self.config.shared_udp_egress:
+            self.shared_egress = SharedUdpEgress(self.config.bind_ip,
+                                                 on_rtcp=self.on_client_rtcp)
+            await self.shared_egress.start()
 
     async def stop(self) -> None:
         for conn in list(self.connections):

@@ -17,7 +17,10 @@ endpoint takes one a loop turn; the bound keeps a flood from holding the
 loop), and
 its receive buffer (``RTCP_RCVBUF``) holds what arrives while a pump wake
 holds the loop: a dropped ack is resent data, and a late one inflates
-the reliable output's RTO.
+the reliable output's RTO.  With the server's ``shared_udp_egress`` off
+each UDP player takes a port pair of its own from ``UdpPortPool``
+instead: its packets leave through the engine's per-output loop, and its
+RTCP port hands the player's reports on.
 
 A pusher that SETUPs over UDP gets a port pair of its own from
 ``UdpPortPool``: an even RTP port and the odd one above it.  With the
@@ -109,9 +112,11 @@ class InterleavedOutput(RelayOutput):
 
 
 class UdpOutput(RelayOutput):
-    """RTP/RTCP egress to a client's UDP port pair through ``sender``, the
-    server's ``SharedUdpEgress``; the engine scatters its RTP natively to
-    ``native_addr`` through the same socket."""
+    """RTP/RTCP egress to a client's UDP port pair through ``sender``: the
+    server's ``SharedUdpEgress``, through whose socket the engine
+    scatters its RTP natively to ``native_addr``, or a ``UdpPair`` of the
+    player's own (``native_addr`` None: the engine's per-output loop
+    sends each packet)."""
 
     def __init__(self, sender, client_ip: str, client_rtp_port: int,
                  client_rtcp_port: int, **kw):
@@ -119,7 +124,8 @@ class UdpOutput(RelayOutput):
         self.sender = sender
         self.rtp_addr = (client_ip, client_rtp_port)
         self.rtcp_addr = (client_ip, client_rtcp_port)
-        self.native_addr = self.rtp_addr
+        self.native_addr = (self.rtp_addr
+                            if isinstance(sender, SharedUdpEgress) else None)
 
     def send_bytes(self, data: bytes, *, is_rtcp: bool) -> WriteResult:
         if is_rtcp:
@@ -250,8 +256,10 @@ class SharedUdpEgress:
 
 
 class UdpPair:
-    """A pusher's bound even/odd (RTP, RTCP) port pair, each side an
-    asyncio endpoint whose datagrams go to its callback."""
+    """A bound even/odd (RTP, RTCP) port pair, each side an asyncio
+    endpoint whose datagrams go to its callback: a pusher's, or a UDP
+    player's own when the shared egress is off (its ``send_rtp`` and
+    ``send_rtcp`` serve the player's ``UdpOutput``)."""
 
     def __init__(self, rtp_transport, rtcp_transport, rtp_port: int):
         self.rtp_transport: asyncio.DatagramTransport | None = rtp_transport
@@ -262,6 +270,19 @@ class UdpPair:
     @property
     def rtcp_port(self) -> int:
         return self.rtp_port + 1
+
+    @staticmethod
+    def _sendto(tr, data: bytes, addr) -> WriteResult:
+        if tr is None or tr.is_closing():
+            return WriteResult.ERROR
+        tr.sendto(data, addr)
+        return WriteResult.OK
+
+    def send_rtp(self, data: bytes, addr) -> WriteResult:
+        return self._sendto(self.rtp_transport, data, addr)
+
+    def send_rtcp(self, data: bytes, addr) -> WriteResult:
+        return self._sendto(self.rtcp_transport, data, addr)
 
     def close(self) -> None:
         for tr in (self.rtp_transport, self.rtcp_transport):

@@ -129,10 +129,11 @@ class MiniClient:
         self._task = None
         self._udp: list = []
 
-    async def udp_ports(self) -> str:
-        """Open the RTP (into ``frames``) and RTCP (into ``rtcp``)
-        endpoints; returns the ``client_port=a-b`` value."""
-        self._udp = [await _udp_endpoint(self.frames),
+    async def udp_ports(self, stamp: bool = False) -> str:
+        """Open the RTP (into ``frames``; with ``stamp`` as ``(monotonic
+        seconds, data)``) and RTCP (into ``rtcp``) endpoints; returns the
+        ``client_port=a-b`` value."""
+        self._udp = [await _udp_endpoint(self.frames, stamp),
                      await _udp_endpoint(self.rtcp)]
         a, b = (t.get_extra_info("sockname")[1] for t in self._udp)
         return f"{a}-{b}"

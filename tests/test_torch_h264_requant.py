@@ -13,11 +13,10 @@ bit:
 * the QP-51 ceiling (per rendition, and a wholly-over-ceiling delta kept
   out of the tile) and the pass-through of what the rung cannot parse;
 * B6's kernel wrappers on CPU tensors against JAX B6, and their checks;
-* ``closed_loop=True`` raises naming A7c; an exception in the ladder's
-  device dispatch is counted in ``device_errors``, never as a
-  passed-through slice; with ``native.available()`` patched True the
-  ladder still takes the device arm (the egress core is not a requant
-  walk).
+* an exception in the ladder's device dispatch is counted in
+  ``device_errors``, never as a passed-through slice; with
+  ``native.available()`` patched True the ladder still takes the device
+  arm (the egress core is not a requant walk).
 """
 
 import asyncio
@@ -256,15 +255,6 @@ def test_device_batch_equals_the_reference():
 
 
 # ------------------------------------------------- the rung's contracts
-def test_closed_loop_raises_naming_a7c():
-    with pytest.raises(ValueError, match="A7c"):
-        rq.SliceRequantizer(6, closed_loop=True)
-    with pytest.raises(ValueError):
-        rq.SliceRequantizer(6, device=CPU, requant_fn=rq._scalar_batch)
-    with pytest.raises(ValueError):
-        rq.SliceRequantizer(7)
-
-
 def _ladder_units(seed=9, entropy="cavlc", slices=3):
     nals = _nals(seed, entropy, slices)
     pkts, seq = [], 0

@@ -318,11 +318,12 @@ def test_staging_buffer_returns_to_the_pool_only_at_harvest():
     eng.step(port, t)
     sched.end_wake(pairs, t)
     (inf,) = sched._inflight
-    assert all(inf.buf is not b for pool in sched._free.values() for b in pool)
+    (buf,) = inf.buf                           # one shard: one device
+    assert all(buf is not b for pool in sched._free.values() for b in pool)
     port.push_rtp(more[0], t + 5)
     sched.begin_wake(pairs, t + 5)             # harvest recycles it
     assert not sched._inflight
-    assert any(inf.buf is b for pool in sched._free.values() for b in pool)
+    assert any(buf is b for pool in sched._free.values() for b in pool)
 
 
 def test_default_device_is_the_card():

@@ -91,6 +91,7 @@ async def test_loopback_push_play_through_the_cli_on_cpu():
                                         "ed_decode_blocks": 0,
                                         "ed_gf_parity": 0,
                                         "ed_relay_batch": 0,
+                                        "ed_relay_shard": 0,
                                         "ed_requant_rungs": 0,
                                         "ed_h264_requant": 0,
                                         "ed_h264_requant_chroma": 0}
@@ -831,6 +832,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "import easydarwin_tpu_torch.ops.h264_kernel\n"
             "import easydarwin_tpu_torch.protocol.aac\n"
             "import easydarwin_tpu_torch.utils.hls_loopback\n"
+            "import easydarwin_tpu_torch.codecs.h264_pred\n"
+            "import easydarwin_tpu_torch.codecs.h264_closed_loop\n"
+            "import easydarwin_tpu_torch.parallel\n"
+            "import easydarwin_tpu_torch.parallel.megabench\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m.split('.')[0] in ('jax', 'jaxlib', "
             "'easydarwin_tpu'))\n"

@@ -463,6 +463,7 @@ async def test_cli_serves_the_ladder_end_to_end_on_cpu():
                                         "ed_decode_blocks": 0,
                                         "ed_gf_parity": 0,
                                         "ed_relay_batch": 0,
+                                        "ed_relay_shard": 0,
                                         "ed_requant_rungs": 0,
                                         "ed_h264_requant": 0,
                                         "ed_h264_requant_chroma": 0}
