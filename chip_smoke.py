@@ -353,6 +353,33 @@ phase raises and the script exits non-zero.
              host ms an AU of the I (the host loop) and P (the split walk
              around B6) pictures, the I picture's PSNR to the source
              closed against open loop (the port's intra decoder)
+14. surface the reference's server surface through two CLI servers on the
+             card at BASELINE config 2's traffic
+             (``utils.surface_loopback.serve_surface``): origin A from
+             ``-c a.toml`` (``max_connections_per_ip = 3``), edge B from
+             ``-c easydarwin.xml`` in the reference's format (Digest
+             on every path, the access log) with REST auth and the log
+             folder as flags (no XML pref carries them); 7b's source
+             (1080p30 H.264, 13 packets of about 1.3 KB a frame, an IDR
+             every 30 frames, 5 s) pushed to A's /cam1 and /cam2 and
+             sent as UDP to the port a ``bcast.sdp`` under B's movie
+             folder names; B logs in and startpullrelays A's paths into
+             /pull1 and /pull2 with X-Token; 64 players join B one a
+             frame: 16 over RTSP-over-HTTP tunnels and 16 interleaved on
+             /pull1, 16 UDP on /pull2, 8 UDP and 8 TCP on /bcast, each
+             answering the Digest challenge.  Every packet held to
+             its source from byte 12 (seq contiguous from RTP-Info, own
+             SSRC); every core REST command's envelope, 403 without
+             X-Token, 401 on a bad login, getbaseconfig without
+             rest_password, setbaseconfig read back, the live sessions;
+             A refusing a fourth connection from one address; the icy
+             GET of song.mp3 equal to the file between its metadata
+             blocks; a W3C line in B's access log for each closed player;
+             B's ed_relay_window launches > 0, pump errors, scheduler
+             mismatches and error-log lines 0.  B's wake p50/p99 beside
+             7b's, each kind's first join, the ms from startpullrelay to
+             the pull's first packet and its host µs a forwarded packet,
+             the card's name and power limit
 
 ``python3 chip_smoke.py --hls-control`` runs phases 1, 2, 5c's leg check
 and phases 13 and 13c twice each instead, each checked in full: the
@@ -373,13 +400,14 @@ and just after it (the DVR path), just before phase 13 and just after it
 HLS path; these two launch B6).  Phase 13b runs after them: its B6 legs
 are not the main path's.  Then each of phase 6c's scheduler mesh
 path (after its one-device comparison run), 7f, 7g and 13d is its own
-path, with the counts set to 0 just before it and read just after, and
+path, with the counts set to 0 just before it and read just after, as
+is phase 14 (its two servers report their own), and
 so is B8's own path in phase 6c: its two calls through
 ``sharded_relay_step``.  No serving code calls B8 (the server's mesh path
 is the scheduler's, one ``ed_relay_window`` a shard), so its kernel
 ``ed_relay_shard`` is launched on that path alone, and its row in the
 kernels line says so under ``caller``.  The kernels line's launches are
-the ten paths' sum.  The comparisons and
+the eleven paths' sum.  The comparisons and
 timings of phases 3, 4, 4b, 4c, 4d, 4e, 5, 5b, 5c and 10 run outside
 those windows.  Phase 10's window rows also time the VOD prime's calls
 of phase 11.
@@ -3708,6 +3736,55 @@ def phase_closed_loop() -> dict:
     return res
 
 
+# ------------------------------------------------------------- phase 14
+SURFACE_DIR = os.path.join(HERE, "build", "surface_phase")
+#: the phase's limit in seconds (servers started, traffic, checks, stop)
+SURFACE_LIMIT_S = 90.0
+
+
+def phase_surface(rng, smi: str, config2: dict) -> dict:
+    """The reference's server surface through two CLI servers at 7b's
+    traffic (``utils.surface_loopback``); its server B's figures beside
+    phase 7b's."""
+    import shutil
+    from easydarwin_tpu_torch.utils import surface_loopback
+    shutil.rmtree(SURFACE_DIR, ignore_errors=True)
+    t0 = time.monotonic()
+    res = asyncio.run(asyncio.wait_for(surface_loopback.serve_surface(
+        DEVICE, rng, SURFACE_DIR), SURFACE_LIMIT_S + 30))
+    seconds = time.monotonic() - t0
+    b, a = res["b_stats"], res["a_stats"]
+    for name, st in (("A", a), ("B", b)):
+        check(st["send_errors"] == 0 and st["missing_params"] == 0,
+              f"server {name} send errors / missing params: {st}")
+    check(b["kernel_launches"]["ed_relay_window"] > 0,
+          "server B launched no ed_relay_window")
+    check(seconds <= SURFACE_LIMIT_S,
+          f"phase 14 took {seconds:.1f} s, over {SURFACE_LIMIT_S} s")
+    ref = config2["server_stats"]
+    join = res["first_join_ms"]
+    log(f"[surface] {res['players']} players on B (16 tunneled + 16 TCP on "
+        f"/pull1, 16 UDP on /pull2, 8 UDP + 8 TCP on /bcast; each behind "
+        f"Digest), {res['packets_per_source']} packets a source, "
+        f"{res['delivered']} delivered, every one checked; A's 4th "
+        f"connection from one address {res['per_ip']['fourth']}; icy "
+        f"{res['icy']['bytes']} bytes equal to the file between "
+        f"{res['icy']['meta_blocks']} metadata blocks; {res['access_log_plays']}"
+        f" W3C PLAY lines on B; launches A {a['kernel_launches']} B "
+        f"{b['kernel_launches']}; {seconds:.1f} s")
+    log(f"[surface] B wake host ms p50 {b['wake_ms_p50']:.3f} p99 "
+        f"{b['wake_ms_p99']:.3f} (phase 7b: p50 {ref['wake_ms_p50']:.3f} "
+        f"p99 {ref['wake_ms_p99']:.3f}); first join ms: tunnel "
+        f"{join['tunnel']['first']:.1f} (p50 {join['tunnel']['p50']:.1f}), "
+        f"TCP {join['tcp']['first']:.1f} (p50 {join['tcp']['p50']:.1f}), "
+        f"UDP {join['udp']['first']:.1f} (p50 {join['udp']['p50']:.1f}); "
+        f"startpullrelay to the pull's first packet "
+        f"{res['pull_first_packet_ms']:.1f} ms; the pull's host "
+        f"{res['pull_forward_us']:.2f} µs a forwarded packet; card {smi}")
+    res["seconds"] = seconds
+    return res
+
+
 def gf_storage_check(rng, shapes) -> int:
     """``ed_gf_parity`` (the wrapper) vs ``gf_parity_plain`` on the same
     card tensors at phase 12's stripe shapes; the largest difference."""
@@ -4551,6 +4628,16 @@ def main() -> int:
         launches = {k: n + path.get(k, 0) for k, n in launches.items()}
     mesh_phases_s = time.monotonic() - t_mesh
 
+    kernel_lib.reset_launch_counts()           # the surface path starts here
+    detail["surface"] = phase_surface(rng, smi, detail["config2"])
+    surface_path = {k: n + detail["surface"]["a_stats"]["kernel_launches"]
+                    .get(k, 0) + detail["surface"]["b_stats"]
+                    ["kernel_launches"].get(k, 0)
+                    for k, n in kernel_lib.LAUNCHES.items()}
+    log(f"[surface path] kernel launches {surface_path}")
+    detail["surface_path_launches"] = surface_path
+    launches = {k: n + surface_path.get(k, 0) for k, n in launches.items()}
+
     errs = {"ed_parse_packets": max(detail["k1"].values()),
             "ed_relay_window": max(
                 [*detail["window"].values()]
@@ -4618,11 +4705,13 @@ def main() -> int:
             f"call; {k['launches']} main-path launches")
     script_s = time.monotonic() - t_script
     detail["seconds"] = {"script": script_s, "phases_13b_13c": new_phases_s,
-                         "phases_6c_7f_7g_13d": mesh_phases_s}
+                         "phases_6c_7f_7g_13d": mesh_phases_s,
+                         "phase_14": detail["surface"]["seconds"]}
     log(f"[time] the script {script_s:.3f} s from its build; phases 13c "
         f"and 13b (the 1080p pictures' encode included) {new_phases_s:.3f}"
-        f" s of it, phases 6c, 7f, 7g and 13d {mesh_phases_s:.3f} s, the "
-        f"rest {script_s - new_phases_s - mesh_phases_s:.3f} s")
+        f" s of it, phases 6c, 7f, 7g and 13d {mesh_phases_s:.3f} s, phase "
+        f"14 {detail['surface']['seconds']:.3f} s, the rest "
+        f"{script_s - new_phases_s - mesh_phases_s - detail['surface']['seconds']:.3f} s")
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(detail, f, indent=1, default=str)
 

@@ -1,12 +1,29 @@
-"""CLI entry: ``python -m easydarwin_tpu_torch [-p PORT] [--service-port N]
-[--device cuda|cpu] [--movie-folder DIR] [--vod-cache-*] [--dvr-*]
-[--storage-*] [--hls-device cuda|cpu]``.
+"""CLI entry: ``python -m easydarwin_tpu_torch [-c FILE] [-x] [-w]
+[-p PORT] [--service-port N] [--device cuda|cpu] [--movie-folder DIR]
+[--vod-cache-*] [--dvr-*] [--storage-*] [--hls-device cuda|cpu]
+[--auth-enabled 0|1] [--rest-username U] [--rest-password P]
+[--log-folder DIR]``.
+
+``-c FILE`` loads the config from a TOML file of ``ServerConfig`` keys or
+from the reference's ``easydarwin.xml`` (told apart by content); the
+flags given apply over it, and the keys the port could not apply are
+printed (``unmapped:``).  ``-x`` boots, prints, stops and exits 0 (a
+config check); ``-w`` runs the server as a child of the watchdog
+(``server.supervisor``), which relaunches it when REST ``restart`` makes
+it exit with the restart code.
 
 Serves the live relay: pushers ANNOUNCE/SETUP/RECORD over interleaved TCP
 or UDP (``client_port``; their RTP drained in native recvmmsg batches),
-players DESCRIBE/SETUP/PLAY over interleaved TCP or UDP
-(``client_port``).  The REST API on the service port
-starts MJPEG transcode ladders (``/api/v1/starttranscode?path=/cam&
+players DESCRIBE/SETUP/PLAY over interleaved TCP, UDP (``client_port``)
+or an RTSP-over-HTTP tunnel on the RTSP port.  A path may also be fed by
+a pull relay (REST ``startpullrelay?path=/p&url=rtsp://...``) or by a
+``<path>.sdp`` broadcast under ``--movie-folder`` (its UDP or multicast
+ports bound at the first SETUP).  An HTTP GET of ``<file>.mp3`` on the
+RTSP port streams the file as icy MP3.  The REST API on the service port
+answers the core commands (``login``, ``getserverinfo``,
+``getrtsplivesessions``, ``getbaseconfig``, ``setbaseconfig``,
+``restart``, ``getdevicestream``, the pull relays), starts MJPEG
+transcode ladders (``/api/v1/starttranscode?path=/cam&
 rungs=40,20s2``) whose rungs play as ``/cam@q40`` and ``/cam@q20s2``, and
 records a live path to an MP4 (``startrecord?path=/cam&file=cam.mp4``,
 ``stoprecord?path=/cam``).  A path no pusher serves plays the file of
@@ -24,7 +41,7 @@ and r2) on the service port, then ``/hls/cam/[<rung>/]index.m3u8``,
 ``init.mp4`` and ``seg<N>.m4s``; the requant rungs run B6 on ``--device``
 (or ``--hls-device``).
 Prints one ``listening:`` line once both listeners are bound (port 0 picks
-a free port) and runs until SIGINT/SIGTERM.
+a free port) and runs until SIGINT/SIGTERM, or REST ``restart``.
 """
 
 from __future__ import annotations
@@ -33,26 +50,38 @@ import argparse
 import asyncio
 import json
 import signal
+import sys
 
 from .server import ServerConfig, StreamingServer
-
+from .server.config import load_config
+from .server.supervisor import EXIT_RESTART, run_supervised
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="easydarwin_tpu_torch",
         description="RTSP live relay, file playback and MJPEG transcode "
                     "ladder with their device work on a CUDA card")
-    p.add_argument("-p", "--rtsp-port", type=int, default=10554,
+    d = ServerConfig()
+    p.add_argument("-c", "--config",
+                   help="config file: TOML of ServerConfig keys, or the "
+                        "reference's easydarwin.xml")
+    p.add_argument("-x", "--exit-after-boot", action="store_true",
+                   help="boot, print the listening line, stop (a config "
+                        "check)")
+    p.add_argument("-w", "--watchdog", action="store_true",
+                   help="run under the watchdog, which relaunches the "
+                        "server on REST restart or a crash")
+    p.add_argument("-p", "--rtsp-port", type=int, default=d.rtsp_port,
                    help="RTSP listen port (0 = any free port)")
-    p.add_argument("--service-port", type=int, default=10008,
+    p.add_argument("--service-port", type=int, default=d.service_port,
                    help="REST API listen port (0 = any free port)")
-    p.add_argument("--bind-ip", default="0.0.0.0", help="bind address")
+    p.add_argument("--bind-ip", default=d.bind_ip, help="bind address")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                    help="where the megabatch pass and the transcode ladder "
                         "run (default: cuda)")
-    p.add_argument("--reflect-interval-ms", type=int, default=20,
+    p.add_argument("--reflect-interval-ms", type=int,
+                   default=d.reflect_interval_ms,
                    help="pump tick when no ingest wakes it")
-    d = ServerConfig()
     p.add_argument("--movie-folder", default=d.movie_folder,
                    help="files played by path, and where recordings go")
     p.add_argument("--vod-cache-enabled", type=int, choices=(0, 1),
@@ -99,47 +128,75 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--hls-device", choices=("cuda", "cpu"), default=None,
                    help="where the HLS requant rungs run B6 (default: "
                         "--device)")
+    # keys of the port that no easydarwin.xml pref carries
+    p.add_argument("--auth-enabled", type=int, choices=(0, 1),
+                   default=int(d.auth_enabled),
+                   help="REST auth: Basic on every command, a login token "
+                        "(X-Token) on every command that changes state")
+    p.add_argument("--rest-username", default=d.rest_username,
+                   help="the REST user")
+    p.add_argument("--rest-password", default=d.rest_password,
+                   help="the REST user's password")
+    p.add_argument("--log-folder", default=d.log_folder,
+                   help="where access.log and error.log roll")
     return p
 
 
-async def amain(args) -> int:
-    cfg = ServerConfig(rtsp_port=args.rtsp_port,
-                       service_port=args.service_port, bind_ip=args.bind_ip,
-                       reflect_interval_ms=args.reflect_interval_ms,
-                       movie_folder=args.movie_folder,
-                       vod_cache_enabled=bool(args.vod_cache_enabled),
-                       vod_cache_bytes=args.vod_cache_bytes,
-                       vod_cache_window_samples=args.vod_cache_window_samples,
-                       vod_cache_lookahead_ms=args.vod_cache_lookahead_ms,
-                       vod_cache_device=bool(args.vod_cache_device),
-                       dvr_enabled=bool(args.dvr_enabled),
-                       dvr_window_pkts=args.dvr_window_pkts,
-                       dvr_retention_bytes=args.dvr_retention_bytes,
-                       dvr_retention_sec=args.dvr_retention_sec,
-                       storage_enabled=bool(args.storage_enabled),
-                       storage_data_shards=args.storage_data_shards,
-                       storage_parity_shards=args.storage_parity_shards,
-                       storage_scrub_interval_sec=(
-                           args.storage_scrub_interval_sec),
-                       hls_device=args.hls_device)
-    app = StreamingServer(cfg, device=args.device)
+def config_from_args(argv=None) -> tuple[ServerConfig, list[str]]:
+    """The config file of ``-c`` (else the defaults) with the flags the
+    command line gives applied over it, and the file's unmapped keys."""
+    p = build_parser()
+    args = p.parse_args(argv)
+    cfg, unmapped = (load_config(args.config) if args.config
+                     else (ServerConfig(), []))
+    # parse again with every default unset: what is set was given
+    unset = object()
+    p.set_defaults(**{a.dest: unset for a in p._actions})
+    keys = ServerConfig.keys()
+    for dest, v in vars(p.parse_args(argv)).items():
+        if dest in keys and v is not unset:
+            setattr(cfg, dest,
+                    bool(v) if isinstance(getattr(cfg, dest), bool) else v)
+    return cfg, unmapped
+
+
+async def amain(cfg: ServerConfig, device: str,
+                exit_after_boot: bool = False) -> int:
+    app = StreamingServer(cfg, device=device)
     await app.start()
     print(f"easydarwin-tpu-torch listening: rtsp://{cfg.bind_ip}:"
           f"{app.rtsp.port} service http://{cfg.bind_ip}:{app.rest.port}"
           f"/api/v1 device={app.device}", flush=True)
+    if exit_after_boot:
+        await app.stop()
+        return 0
     stop = asyncio.Event()
     loop = asyncio.get_running_loop()
     for sig in (signal.SIGINT, signal.SIGTERM):
         loop.add_signal_handler(sig, stop.set)
-    await stop.wait()
+    waits = [asyncio.create_task(stop.wait()),
+             asyncio.create_task(app.restart_event.wait())]
+    await asyncio.wait(waits, return_when=asyncio.FIRST_COMPLETED)
+    for w in waits:
+        w.cancel()
+    restarting = app.restart_event.is_set() and not stop.is_set()
     await app.stop()
     print("stats " + json.dumps(app.stats()), flush=True)
-    return 0
+    return EXIT_RESTART if restarting else 0
 
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    return asyncio.run(amain(args))
+    if args.watchdog:
+        child = [sys.executable, "-m", "easydarwin_tpu_torch"] + [
+            a for a in (sys.argv[1:] if argv is None else argv)
+            if a not in ("-w", "--watchdog")]
+        return run_supervised(child)
+    cfg, unmapped = config_from_args(argv)
+    if unmapped:
+        print(f"unmapped: {len(unmapped)} keys of {args.config} are not "
+              f"served by this port: {json.dumps(unmapped)}", flush=True)
+    return asyncio.run(amain(cfg, args.device, args.exit_after_boot))
 
 
 if __name__ == "__main__":

@@ -104,3 +104,9 @@ def rewrite_header(data: bytes, *, seq: int | None = None,
     if ssrc is not None:
         struct.pack_into("!I", out, 8, ssrc & 0xFFFFFFFF)
     return bytes(out)
+
+
+def seq_delta(a: int, b: int) -> int:
+    """Signed distance a-b in 16-bit sequence space (RFC 3550 A.1 style)."""
+    d = (a - b) & 0xFFFF
+    return d - 0x10000 if d >= 0x8000 else d

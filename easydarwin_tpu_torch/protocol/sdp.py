@@ -28,6 +28,14 @@ class StreamInfo:
     control: str = ""                 # raw control attribute value
     fmtp: str = ""
     attributes: dict[str, str] = field(default_factory=dict)
+    connection: str = ""              # media-level c= (a broadcast's ingest)
+
+    def dest_address(self, session_connection: str = "") -> str:
+        """The ingest destination from the media-level ``c=`` (falling back
+        to the session-level one): ``IN IP4 239.1.2.3/127`` → ``239.1.2.3``."""
+        conn = self.connection or session_connection
+        parts = conn.split()
+        return parts[-1].split("/")[0] if parts else ""
 
 
 @dataclass
@@ -77,6 +85,8 @@ def parse(text: str | bytes) -> SessionDescription:
         elif kind == "c":
             if cur is None:
                 sd.connection = val
+            else:
+                cur.connection = val
         elif kind == "a":
             name, _, aval = val.partition(":")
             if cur is None:

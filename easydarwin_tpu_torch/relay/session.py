@@ -84,6 +84,29 @@ class RelaySession:
         t = now_ms() if t_ms is None else t_ms
         return sum(s.prune(t) for s in self.streams.values())
 
+    @property
+    def num_outputs(self) -> int:
+        return sum(s.num_outputs for s in self.streams.values())
+
+    def stats(self) -> dict:
+        """Per-track ingest and fan-out counters (REST
+        ``getrtsplivesessions``)."""
+        return {
+            "path": self.path,
+            "outputs": self.num_outputs,
+            "streams": {
+                tid: {
+                    "media": s.info.media_type, "codec": s.info.codec,
+                    "packets_in": s.stats.packets_in,
+                    "bytes_in": s.stats.bytes_in,
+                    "packets_out": s.stats.packets_out,
+                    "keyframes": s.stats.keyframes,
+                    "queue": len(s.rtp_ring),
+                    "oversize_dropped": s.rtp_ring.total_oversize,
+                } for tid, s in self.streams.items()
+            },
+        }
+
 
 class SessionRegistry:
     """Path → RelaySession map."""

@@ -77,6 +77,19 @@ then the storage workers finish.
 ``recordings`` attaches MP4 recorders to live sessions (REST
 ``startrecord``/``stoprecord``); recorder temp files a crashed process
 left in the movie folder are listed at start (``record_orphans``).
+
+The server surface (``rtsp``, ``rest``): RTSP auth from the config
+(``server.auth``), the access and error logs under ``log_folder``
+(``utils.logs``), icy MP3 and ``.m3u`` playlists on the RTSP port
+(``mp3``), ``.sdp`` broadcasts (``relay_source``) and pull relays
+(``pulls``).  A pulled or broadcast path is a relay session whose
+packets enter its ring through ``RelaySession.push`` as a pusher's do,
+and wake the pump.  Once a second the housekeeping also closes
+broadcasts without players and retires pulls whose upstream ended.
+``server_info``, ``live_sessions`` and ``device_stream_url`` answer the
+core REST commands; ``request_restart`` sets ``restart_event``, on which
+the CLI exits with the watchdog's restart code.  ``update`` on the
+config re-reads auth and the logs.
 """
 
 from __future__ import annotations
@@ -101,12 +114,17 @@ from ..parallel.mesh import make_megabatch_mesh
 from ..relay.fanout import FanoutEngine
 from ..relay.fec import StreamFec
 from ..relay.megabatch import MegabatchScheduler
+from ..relay.pull import PullRelayManager
 from ..relay.session import SessionRegistry, now_ms
+from ..relay.source import SdpFileRelaySource
 from ..storage import StorageService
+from ..utils.logs import AccessLog, ErrorLog
 from ..vod.cache import SegmentCache
 from ..vod.record import RecordingManager, sweep_orphans
 from ..vod.session import VodPacerGroup, VodService
+from .auth import auth_from_config
 from .config import ServerConfig
+from .mp3 import Mp3Service
 from .rest import RestApi
 from .rtsp import RtspServer
 
@@ -134,6 +152,27 @@ class StreamingServer:
         self.rtsp = RtspServer(self.config, self.registry,
                                on_pump_wake=self._wake, device=self.device,
                                vod=self.vod)
+        #: the config's auth and log keys the surface was built from
+        self._surface_keys = None
+        self._apply_surface_config(self.config)
+        self.config.on_change(self._apply_surface_config)
+        self.relay_source = SdpFileRelaySource(
+            self.config.movie_folder, self.registry,
+            on_ingest=self._on_ingest)
+        self.rtsp.relay_source = self.relay_source
+        self.pulls = PullRelayManager(self.registry,
+                                      on_packet=self._on_ingest)
+        #: the running pull sweep (a task; None: none)
+        self._pull_sweep: asyncio.Task | None = None
+        self.mp3 = Mp3Service(self.config.movie_folder)
+        self.rtsp.http_get_handler = self._rtsp_port_http_get
+        #: set by REST ``restart``: the CLI stops and exits with the
+        #: watchdog's restart code
+        self.restart_event = asyncio.Event()
+        self.started_at = time.time()
+        #: packets a second in and out, over the last housekeeping second
+        self._rates = (0.0, 0.0)
+        self._rate_base = (time.monotonic(), 0, 0)
         #: the megabatch's serving mesh (``megabatch_devices``), or None:
         #: one device
         self.megabatch_mesh = self._build_mesh()
@@ -312,6 +351,10 @@ class StreamingServer:
         self.transcodes.stop_all()
         # every in-flight recording finalizes while its session exists
         self.recordings.stop_all()
+        if self._pull_sweep is not None:
+            await self._pull_sweep
+        await self.pulls.stop_all()
+        self.relay_source.close_all()
         if self.dvr is not None:
             self.dvr.close()            # every armed asset finalizes
             self.rtsp.dvr = None
@@ -320,6 +363,9 @@ class StreamingServer:
             self._storage_fetches.clear()
         await self.rest.stop()
         await self.rtsp.stop()
+        for log in (self.rtsp.access_log, self.rtsp.error_log):
+            if log is not None:
+                log.log.close()
         if self.vod_pacer is not None:
             self.rtsp.vod_pacer = None
             self.vod_pacer.close()
@@ -328,6 +374,123 @@ class StreamingServer:
 
     def _wake(self) -> None:
         self._pump_event.set()
+
+    def _on_ingest(self, _path: str) -> None:
+        """A pulled or broadcast media packet went into its ring."""
+        self.rtsp.packets_in += 1
+        self._pump_event.set()
+
+    def _apply_surface_config(self, cfg: ServerConfig) -> None:
+        """RTSP auth and the logs as the config says, made again when an
+        ``update`` changed their keys (a new auth forgets its nonces)."""
+        keys = (cfg.rtsp_auth_enabled, cfg.users_file, cfg.auth_scheme,
+                cfg.log_folder, cfg.access_log_enabled,
+                cfg.error_log_verbosity)
+        if keys == self._surface_keys:
+            return
+        self._surface_keys = keys
+        self.rtsp.auth = auth_from_config(cfg)
+        for log in (self.rtsp.access_log, self.rtsp.error_log):
+            if log is not None:
+                log.log.close()
+        # both logs only with access logging on, as the reference (a
+        # connection's error is on stderr either way)
+        self.rtsp.access_log = self.rtsp.error_log = None
+        if cfg.access_log_enabled:
+            self.rtsp.access_log = AccessLog(
+                os.path.join(cfg.log_folder, "access.log"))
+            self.rtsp.error_log = ErrorLog(
+                os.path.join(cfg.log_folder, "error.log"),
+                verbosity=cfg.error_log_verbosity)
+
+    def request_restart(self) -> None:
+        """REST ``restart``: the CLI's main loop stops the server and exits
+        with ``supervisor.EXIT_RESTART``, and the watchdog relaunches."""
+        self.restart_event.set()
+
+    async def _rtsp_port_http_get(self, conn, target: str,
+                                  headers: dict) -> bool:
+        """A plain HTTP GET on the RTSP port: an icy MP3 stream or an
+        ``.m3u`` playlist."""
+        path = target.split("?")[0]
+        if path.lower().endswith(".mp3"):
+            await self.mp3.stream(conn.writer, path, headers)
+            return True
+        if path.lower().endswith(".m3u"):
+            # a directory scan and an ID3 probe a file: off the loop
+            pl = await asyncio.to_thread(self.mp3.playlist, path)
+            if pl is not None:
+                body = pl.encode()
+                conn.writer.write(
+                    b"HTTP/1.0 200 OK\r\n"
+                    b"Content-Type: audio/x-mpegurl\r\n"
+                    b"Content-Length: " + str(len(body)).encode()
+                    + b"\r\n\r\n" + body)
+                return True
+        return False
+
+    # ------------------------------------------------------------- queries
+    def _url(self, path: str) -> str:
+        return (f"rtsp://{self.config.wan_ip}:"
+                f"{self.rtsp.port or self.config.rtsp_port}{path}")
+
+    def server_info(self) -> dict:
+        """REST ``getserverinfo``: the reference's keys.  The ingest-to-wire
+        p99 and the wake ledger's class and last wake come from the
+        reference's ``obs``, which the port does not have yet: empty."""
+        in_rate, out_rate = self._rates
+        info = {
+            "ServerName": "easydarwin-tpu",
+            "Version": "0.1.0",
+            "UpTimeSec": str(int(time.time() - self.started_at)),
+            "RTSPPort": str(self.rtsp.port or self.config.rtsp_port),
+            "ServicePort": str(self.rest.port or self.config.service_port),
+            "Connections": str(len(self.rtsp.connections)),
+            "PushSessions": str(len(self.registry.sessions)),
+            "Requests": str(self.rtsp.requests),
+            "PacketsIn": str(self.rtsp.packets_in),
+            "PacketsOut": str(self.packets_out),
+            "InRatePps": str(round(in_rate, 1)),
+            "OutRatePps": str(round(out_rate, 1)),
+            "IngestToWireP99Ms": "",
+            "TpuFanout": "1",
+            "LedgerTopWaitClass": "",
+            "LedgerLastWakeMs": "",
+        }
+        if self.megabatch_mesh is not None:
+            info.update(mesh_summary(self.megabatch_mesh))
+            info["MeshShardedPasses"] = str(self.megabatch.sharded_passes)
+        return info
+
+    def live_sessions(self) -> list[dict]:
+        """REST ``getrtsplivesessions``: every relay session (pushed,
+        pulled or broadcast)."""
+        return [{"Path": sess.path, "Url": self._url(sess.path),
+                 "Outputs": str(sess.num_outputs),
+                 "AgeSec": str((now_ms() - sess.created_ms) // 1000),
+                 "Streams": sess.stats()["streams"]}
+                for sess in self.registry.sessions.values()]
+
+    def device_stream_url(self, device: str) -> str | None:
+        name = device.strip("/")
+        for cand in (f"/{name}", f"/live/{name}"):
+            if self.registry.find(cand) is not None:
+                return self._url(cand)
+        return None
+
+    def _housekeep_surface(self) -> None:
+        """The once-a-second part of the server surface: the packet rates,
+        broadcasts without players, and pulls whose upstream ended."""
+        t0, in0, out0 = self._rate_base
+        now = time.monotonic()
+        if now > t0:
+            self._rates = ((self.rtsp.packets_in - in0) / (now - t0),
+                           (self.packets_out - out0) / (now - t0))
+        self._rate_base = (now, self.rtsp.packets_in, self.packets_out)
+        self.relay_source.sweep()
+        if self.pulls.has_dead() and (self._pull_sweep is None
+                                      or self._pull_sweep.done()):
+            self._pull_sweep = asyncio.create_task(self.pulls.sweep())
 
     def _warm_card(self) -> None:
         """Make the CUDA context, load the kernel library and run one
@@ -394,9 +557,11 @@ class StreamingServer:
         return pairs
 
     def _pump_error(self) -> None:
-        """Count an error the pump caught and keep its traceback."""
+        """Count an error the pump caught and keep its traceback (stderr
+        and the error log)."""
         self.pump_errors += 1
         traceback.print_exc(file=sys.stderr)
+        self.rtsp.log_error(f"pump: {traceback.format_exc(limit=4)}")
 
     def reflect_all(self) -> int:
         """One pump wake of the live relay; returns packets written.  One
@@ -567,12 +732,35 @@ class StreamingServer:
                 self.rtsp.sweep_timeouts()
                 self.transcodes.sweep()
                 self.hls.sweep()
+                self._housekeep_surface()
                 if self.storage is not None \
                         and now >= self._storage_scrub_due:
                     self._storage_scrub_due = (
                         now + self.config.storage_scrub_interval_sec)
                     self.storage.scrub_async()
         wheel.close()
+
+    def surface_stats(self) -> dict:
+        """The server surface's counters: tunnels, the per-IP cap, RTSP
+        and REST auth refusals, the logs' lines and rolls, icy streams,
+        pulls and broadcasts (each pull's own figures: REST
+        ``getpullrelays``)."""
+        rtsp = self.rtsp
+        return {
+            "requests": rtsp.requests,
+            "tunnels": dict(rtsp.tunnel_counts),
+            "per_ip_refused": rtsp.per_ip_refused,
+            "rtsp_auth_refused": rtsp.auth_refused,
+            "rest_refused": dict(self.rest.refused),
+            "access_log": (rtsp.access_log.log.stats()
+                           if rtsp.access_log is not None else None),
+            "error_log": (rtsp.error_log.log.stats()
+                          if rtsp.error_log is not None else None),
+            "mp3": {"streams": self.mp3.streams_served,
+                    "bytes": self.mp3.bytes_served},
+            "pulls": self.pulls.stats(),
+            "broadcasts": dict(self.relay_source.counts),
+        }
 
     def stats(self) -> dict:
         engines = {k: v + sum(getattr(e, k) for e in self._engines.values())
@@ -593,6 +781,7 @@ class StreamingServer:
                 "sessions": len(self.registry.sessions),
                 **engines,
                 "wake_ms_p50": wake[len(wake) // 2] if wake else None,
+                "wake_ms_p99": wake[len(wake) * 99 // 100] if wake else None,
                 "wake_ms_max": wake[-1] if wake else None,
                 "wake_ms_first": self.wake_ms_first,
                 "pump": {"time_wakes": self.time_wakes,
@@ -627,6 +816,7 @@ class StreamingServer:
                 "hls": self.hls.stats(),
                 "hls_not_modified": self.rest.hls_not_modified,
                 "recordings": len(self.recordings.active),
+                "surface": self.surface_stats(),
                 "record_orphans": self.record_orphans,
                 "cpu_s": time.process_time() - self._cpu0,
                 "wall_s": time.monotonic() - self._wall0,

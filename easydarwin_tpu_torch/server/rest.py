@@ -10,27 +10,45 @@ segments with their content type and ETag; a matching
 body ``str`` or ``bytes``; the header block and the body go out as two
 writes, so a segment is never copied into a response buffer.
 
-Commands: ``starttranscode``, ``stoptranscode``, ``gettranscodes``,
+Commands: ``login`` (``username=``, ``password=``; answers a ``Token``)
+and ``logout``, ``getserverinfo``, ``getrtsplivesessions``,
+``getbaseconfig`` (every config key but ``rest_password``) and
+``setbaseconfig`` (a JSON body ``{"Config": {key: value}}``; an unknown
+key answers 400), ``restart`` (the process exits with the watchdog's
+restart code), ``getdevicestream`` / ``livedevicestream``
+(``device=``: the ``rtsp://`` URL of ``/<device>`` or
+``/live/<device>`` when it is live), ``startpullrelay`` (``path=``,
+``url=``), ``stoppullrelay`` and ``getpullrelays``,
+``starttranscode``, ``stoptranscode``, ``gettranscodes``,
 ``startrecord`` and ``stoprecord`` (with DVR on they also arm and
 finalize the path's DVR asset), ``storagestats`` (plain JSON: the
 storage tier's counters and ``pack_window.calls``), ``starthls``
 (``path=``, ``rungs=`` a comma list of thinning levels 1-2 and requant
 rungs q6-q18, default ``1,2``), ``stophls`` and ``gethlsstreams``; any
-other command answers the 404 envelope.  There is no auth (the
-reference's is off by default).
+other command answers the 404 envelope.
+
+With ``auth_enabled`` every command but ``login`` needs a login token
+(``token=`` or the ``X-Token`` header) or Basic credentials, else 401;
+a command that changes state (``MUTATING``) also needs the token in the
+``X-Token`` header, else 403: a cross-site request can carry cached
+credentials but not a custom header.
 """
 
 from __future__ import annotations
 
 import asyncio
+import base64
+import binascii
 import json
 import os
+import secrets
 import time
 from urllib.parse import parse_qs, urlparse
 
 from ..cluster import protocol as ep
 from ..hls.segmenter import DEFAULT_RUNGS
 from ..protocol.sdp import _norm
+from ..relay.pull import PullError
 from ..utils.paths import confined_subpath
 from ..vod.cache import pack_window
 from .config import ServerConfig
@@ -46,6 +64,10 @@ class RestApi:
         self.port: int | None = None
         #: ``/hls/`` GETs answered 304 (an ``If-None-Match`` revalidation)
         self.hls_not_modified = 0
+        #: live login tokens
+        self.tokens: set[str] = set()
+        #: calls answered 401 and 403
+        self.refused = {"401": 0, "403": 0}
 
     async def start(self) -> None:
         self._server = await asyncio.start_server(
@@ -101,6 +123,12 @@ class RestApi:
         finally:
             writer.close()
 
+    #: commands that change the server's state
+    MUTATING = frozenset((
+        "setbaseconfig", "restart", "startrecord", "stoprecord",
+        "startpullrelay", "stoppullrelay", "starttranscode",
+        "stoptranscode", "starthls", "stophls", "logout"))
+
     async def route(self, method: str, target: str, headers: dict,
                     body: bytes) -> tuple:
         url = urlparse(target)
@@ -110,10 +138,133 @@ class RestApi:
             return self._serve_hls(url.path, headers)
         if not path.startswith("/api/v1/"):
             return 404, json.dumps({"error": "not found"})
-        fn = getattr(self, f"_cmd_{path[len('/api/v1/'):]}", None)
+        cmd = path[len("/api/v1/"):]
+        if "x-token" in headers and "token" not in params:
+            params["token"] = [headers["x-token"]]
+        if cmd == "login":
+            return self._login(params)
+        if not self._authorized(headers, params):
+            self.refused["401"] += 1
+            return 401, ep.ack(ep.MSG_SC_EXCEPTION, error=ep.ERR_UNAUTHORIZED)
+        if (self.config.auth_enabled and cmd in self.MUTATING
+                and headers.get("x-token") not in self.tokens):
+            self.refused["403"] += 1
+            return 403, ep.ack(ep.MSG_SC_EXCEPTION, error=ep.ERR_UNAUTHORIZED,
+                               body={"Detail":
+                                     "mutating API calls need the X-Token "
+                                     "header (see /api/v1/login)"})
+        fn = getattr(self, f"_cmd_{cmd}", None)
         if fn is None:
             return 404, ep.ack(ep.MSG_SC_EXCEPTION, error=ep.ERR_NOT_FOUND)
-        return fn(params, body)
+        res = fn(params, body)
+        return await res if asyncio.iscoroutine(res) else res
+
+    # ---------------------------------------------------------------- auth
+    def _authorized(self, headers: dict, params: dict) -> bool:
+        if not self.config.auth_enabled:
+            return True
+        if params.get("token", [None])[0] in self.tokens:
+            return True
+        auth = headers.get("authorization", "")
+        if auth.lower().startswith("basic "):
+            try:
+                user, _, pw = base64.b64decode(auth[6:]).decode() \
+                    .partition(":")
+            except (binascii.Error, UnicodeDecodeError):
+                return False
+            return (user == self.config.rest_username
+                    and pw == self.config.rest_password)
+        return False
+
+    def _login(self, params: dict) -> tuple[int, str]:
+        user = params.get("username", [""])[0]
+        pw = params.get("password", [""])[0]
+        if (self.config.auth_enabled
+                and (user != self.config.rest_username
+                     or pw != self.config.rest_password)):
+            self.refused["401"] += 1
+            return 401, ep.ack(ep.MSG_SC_EXCEPTION, error=ep.ERR_UNAUTHORIZED)
+        token = secrets.token_hex(16)
+        self.tokens.add(token)
+        return 200, ep.ack(ep.MSG_SC_SERVER_INFO_ACK, body={"Token": token})
+
+    def _cmd_logout(self, params: dict, body: bytes) -> tuple[int, str]:
+        self.tokens.discard(params.get("token", [""])[0])
+        return 200, ep.ack(ep.MSG_SC_SERVER_INFO_ACK)
+
+    # -------------------------------------------------------- core commands
+    def _cmd_getserverinfo(self, params: dict, body: bytes) -> tuple[int, str]:
+        return 200, ep.ack(ep.MSG_SC_SERVER_INFO_ACK,
+                           body=self.app.server_info())
+
+    def _cmd_getrtsplivesessions(self, params: dict,
+                                 body: bytes) -> tuple[int, str]:
+        sessions = self.app.live_sessions()
+        return 200, ep.ack(ep.MSG_SC_RTSP_LIVE_SESSIONS_ACK, body={
+            "SessionCount": str(len(sessions)), "Sessions": sessions})
+
+    def _cmd_getbaseconfig(self, params: dict, body: bytes) -> tuple[int, str]:
+        cfg = {k: v for k, v in self.config.to_dict().items()
+               if k != "rest_password"}
+        return 200, ep.ack(ep.MSG_SC_BASE_CONFIG_ACK, body={"Config": cfg})
+
+    def _cmd_setbaseconfig(self, params: dict, body: bytes) -> tuple[int, str]:
+        try:
+            doc = json.loads(body or b"{}")
+            changes = doc.get("Config", doc) if isinstance(doc, dict) else {}
+            self.config.update(**changes)
+        except (json.JSONDecodeError, KeyError, TypeError, ValueError) as e:
+            return 400, ep.ack(ep.MSG_SC_EXCEPTION, error=ep.ERR_BAD_REQUEST,
+                               body={"Detail": str(e)})
+        return 200, ep.ack(ep.MSG_SC_BASE_CONFIG_ACK)
+
+    def _cmd_restart(self, params: dict, body: bytes) -> tuple[int, str]:
+        self.app.request_restart()
+        return 200, ep.ack(ep.MSG_SC_SERVER_INFO_ACK, body={"Restarting": "1"})
+
+    def _cmd_getdevicestream(self, params: dict,
+                             body: bytes) -> tuple[int, str]:
+        """A device's stream URL when its path is live here."""
+        device = params.get("device", params.get("serial", [""]))[0]
+        if not device:
+            return 400, ep.ack(ep.MSG_SC_EXCEPTION, error=ep.ERR_BAD_REQUEST)
+        url = self.app.device_stream_url(device)
+        if url is None:
+            return 404, ep.ack(ep.MSG_SC_EXCEPTION,
+                               error=ep.ERR_DEVICE_OFFLINE)
+        return 200, ep.ack(ep.MSG_SC_GET_STREAM_ACK, body={"URL": url})
+
+    _cmd_livedevicestream = _cmd_getdevicestream
+
+    async def _cmd_startpullrelay(self, params: dict,
+                                  body: bytes) -> tuple[int, str]:
+        """Pull a remote ``rtsp://`` stream into a local path."""
+        url = params.get("url", [""])[0]
+        path = params.get("path", [""])[0]
+        if not url or not path:
+            return 400, ep.ack(ep.MSG_SC_EXCEPTION, error=ep.ERR_BAD_REQUEST,
+                               body={"Detail": "need url= and path="})
+        try:
+            pull = await self.app.pulls.start_pull(path, url)
+        except PullError as e:
+            return 502, ep.ack(ep.MSG_SC_EXCEPTION, error=ep.ERR_BAD_REQUEST,
+                               body={"Detail": str(e)})
+        return 200, ep.ack(ep.MSG_SC_SERVER_INFO_ACK, body={
+            "Pull": pull.local_path, "Url": pull.url})
+
+    async def _cmd_stoppullrelay(self, params: dict,
+                                 body: bytes) -> tuple[int, str]:
+        path = params.get("path", [""])[0]
+        try:
+            st = await self.app.pulls.stop_pull(path)
+        except KeyError:
+            return 404, ep.ack(ep.MSG_SC_EXCEPTION, error=ep.ERR_NOT_FOUND)
+        return 200, ep.ack(ep.MSG_SC_SERVER_INFO_ACK, body={
+            "Pull": st["path"], "Packets": str(st["packets"])})
+
+    def _cmd_getpullrelays(self, params: dict, body: bytes) -> tuple[int, str]:
+        return 200, ep.ack(ep.MSG_SC_SERVER_INFO_ACK, body={
+            "Pulls": self.app.pulls.list_pulls()})
 
     def _serve_hls(self, url_path: str, headers: dict) -> tuple:
         """A ``/hls/`` GET: the body, its content type and ETag, or a 304

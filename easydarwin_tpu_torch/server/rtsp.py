@@ -71,11 +71,34 @@ keeps it alive, but only on proof of ownership: the source address a UDP
 track registered, a block naming an output SSRC of the connection, a
 NACK a FEC output acted on, an APP routed by address or SSRC to a
 reliable output, or a fallback ack that popped a packet from the window.
+
+HTTP on the RTSP port: a connection whose first bytes are ``GET `` or
+``POST`` never reaches the RTSP reader.  A GET and a POST that carry one
+``x-sessioncookie`` are the two halves of an RTSP-over-HTTP tunnel: the
+GET half answers ``application/x-rtsp-tunnelled`` and then carries every
+RTSP reply and every ``$``-framed packet (a tunneled player's output is
+an ``InterleavedOutput`` on its writer, so it takes the engine's framed
+writev like any interleaved player); the POST half's body is base64 RTSP
+(partial quads kept across reads), decoded into the GET half's reader.
+A POST whose GET half is not there answers 404.  Any other GET goes to
+the server's ``http_get_handler`` (icy MP3, ``server.mp3``), and 404
+when it takes nothing.
+
+With RTSP auth on (``RtspServer.auth``, a ``server.auth.AuthService``),
+DESCRIBE, SETUP, ANNOUNCE, PLAY and RECORD of a protected path are
+answered 401 with ``WWW-Authenticate`` until the request carries valid
+credentials.  ``max_connections_per_ip`` closes a connection past the
+cap before it costs a task; every close gives the slot back.  When a
+player's or pusher's connection closes, the access log gets its W3C
+line.  DESCRIBE and SETUP look a path up as a live session, then a
+``.sdp`` broadcast under the movie folder (``relay.source``, opened at
+SETUP), then a file, then a ``.dvr`` asset.
 """
 
 from __future__ import annotations
 
 import asyncio
+import base64
 import secrets
 import sys
 import time
@@ -87,6 +110,7 @@ from ..protocol import rtcp, rtp_meta, rtsp, sdp
 from ..relay.fec import FecConfig, FecOutputState
 from ..relay.reliable import ReliableUdpOutput
 from ..relay.session import RelaySession, SessionRegistry, now_ms
+from ..utils.logs import AccessRecord
 from ..vod.session import FileSession
 from .config import ServerConfig
 from .transports import (InterleavedOutput, SharedUdpEgress, UdpOutput,
@@ -101,6 +125,8 @@ META_SUPPORTED = ("tt", "sq", "md")
 #: a file session adds the packet's file position, the frame type and the
 #: packet number from its sample tables
 META_SUPPORTED_VOD = ("pp", "tt", "ft", "pn", "sq", "md")
+#: the requests the auth hook checks
+AUTH_METHODS = ("DESCRIBE", "SETUP", "ANNOUNCE", "PLAY", "RECORD")
 
 
 def _extract_track(uri_path: str) -> tuple[str, int | None]:
@@ -280,22 +306,34 @@ class RtspConnection:
         #: a live or DVR PLAY is in effect (no PAUSE since)
         self.playing = False
         self.last_activity = time.monotonic()
+        self.created_at = self.last_activity
         self.closed = False
+        peer = writer.get_extra_info("peername") or ("?", 0)
+        self.client_ip = peer[0]
+        #: the last request URI and User-Agent (the access log's)
+        self.uri = ""
+        self.user_agent = ""
 
     # ------------------------------------------------------------------ io
     async def run(self) -> None:
         try:
-            while not self.closed:
-                data = await self.reader.read(65536)
-                if not data:
+            first = await self.reader.read(65536)
+            # a GET or POST split before its fourth byte is still HTTP
+            while first and len(first) < 4 and (
+                    b"GET ".startswith(first) or b"POST".startswith(first)):
+                more = await self.reader.read(65536)
+                if not more:
                     break
+                first += more
+            if first.startswith((b"GET ", b"POST")):
+                await self._run_http(first)
+                return
+            data = first
+            while data and not self.closed:
                 self.last_activity = time.monotonic()
                 self.wire.feed(data)
-                for ev in self.wire.events():
-                    if isinstance(ev, rtsp.InterleavedPacket):
-                        self._on_interleaved(ev)
-                    else:
-                        await self._dispatch(ev)
+                await self._drain_events()
+                data = await self.reader.read(65536)
         except ConnectionError:
             pass
         except rtsp.RtspError as e:
@@ -304,8 +342,94 @@ class RtspConnection:
             # one connection's bug must not take the server down; leave
             # the traceback where an operator reads it
             traceback.print_exc(file=sys.stderr)
+            self.server.log_error(f"rtsp connection {self.client_ip}: "
+                                  f"{traceback.format_exc(limit=4)}")
         finally:
             await self.close()
+
+    async def _drain_events(self) -> None:
+        for ev in self.wire.events():
+            if isinstance(ev, rtsp.InterleavedPacket):
+                self._on_interleaved(ev)
+            else:
+                await self._dispatch(ev)
+
+    # ------------------------------------------------ HTTP on the RTSP port
+    async def _run_http(self, first: bytes) -> None:
+        buf = bytearray(first)
+        while b"\r\n\r\n" not in buf:
+            data = await self.reader.read(65536)
+            if not data:
+                return
+            buf += data
+        head_end = buf.index(b"\r\n\r\n")
+        lines = bytes(buf[:head_end]).decode("latin-1").split("\r\n")
+        rest = bytes(buf[head_end + 4:])
+        try:
+            method, target, _ver = lines[0].split(None, 2)
+        except ValueError:
+            return
+        headers = {}
+        for ln in lines[1:]:
+            k, sep, v = ln.partition(":")
+            if sep:
+                headers[k.strip().lower()] = v.strip()
+        cookie = headers.get("x-sessioncookie")
+        if method == "GET" and cookie:
+            await self._tunnel_get(cookie)
+        elif method == "POST" and cookie:
+            await self._tunnel_post(cookie, rest)
+        elif method == "GET":
+            await self.server.handle_http_get(self, target, headers)
+        else:
+            self.writer.write(b"HTTP/1.0 404 Not Found\r\n\r\n")
+
+    async def _tunnel_get(self, cookie: str) -> None:
+        """The data half of a tunnel: answer the preamble and hold the
+        connection; every RTSP reply and packet goes out here."""
+        self.writer.write(
+            b"HTTP/1.0 200 OK\r\nServer: " + SERVER_NAME.encode() +
+            b"\r\nConnection: close\r\nCache-Control: no-store\r\n"
+            b"Pragma: no-cache\r\n"
+            b"Content-Type: application/x-rtsp-tunnelled\r\n\r\n")
+        self.server.tunnels[cookie] = self
+        self.server.tunnel_counts["opened"] += 1
+        try:
+            while not self.closed:        # the client sends nothing here
+                if not await self.reader.read(4096):
+                    break
+        finally:
+            if self.server.tunnels.get(cookie) is self:
+                del self.server.tunnels[cookie]
+
+    async def _tunnel_post(self, cookie: str, initial: bytes) -> None:
+        """The command half: base64 RTSP, decoded a whole quad at a time
+        into the GET half's reader and run there (its replies go out on
+        the GET half)."""
+        target = self.server.tunnels.get(cookie)
+        if target is None:
+            self.server.tunnel_counts["orphan_posts"] += 1
+            self.writer.write(b"HTTP/1.0 404 Not Found\r\n\r\n")
+            return
+        b64 = bytearray()
+
+        async def feed(raw: bytes) -> None:
+            b64.extend(c for c in raw if c not in b" \r\n\t")
+            n = len(b64) // 4 * 4
+            if n:
+                decoded = base64.b64decode(bytes(b64[:n]))
+                del b64[:n]
+                target.last_activity = time.monotonic()
+                target.wire.feed(decoded)
+                await target._drain_events()
+
+        await feed(initial)
+        while not self.closed and not target.closed:
+            data = await self.reader.read(65536)
+            if not data:
+                break
+            self.last_activity = time.monotonic()
+            await feed(data)
 
     def _reply(self, resp: rtsp.RtspResponse, cseq: int) -> None:
         resp.headers.setdefault("CSeq", str(cseq))
@@ -317,10 +441,24 @@ class RtspConnection:
 
     # ----------------------------------------------------------- dispatch
     async def _dispatch(self, req: rtsp.RtspRequest) -> None:
+        self.server.requests += 1
         handler = getattr(self, f"_do_{req.method.lower()}", None)
         if handler is None:
             self._reply(rtsp.RtspResponse(501), req.cseq)
             return
+        if ua := req.headers.get("user-agent"):
+            self.user_agent = ua
+        if req.uri != "*":
+            self.uri = req.uri
+        auth = self.server.auth
+        if auth is not None and req.method in AUTH_METHODS:
+            allowed, _user = auth.authorize(
+                req.path(), req.method, req.headers.get("authorization"))
+            if not allowed:
+                self.server.auth_refused += 1
+                self._reply(rtsp.RtspResponse(401, {
+                    "WWW-Authenticate": auth.challenge()}), req.cseq)
+                return
         try:
             await handler(req)
         except rtsp.RtspError as e:
@@ -339,12 +477,7 @@ class RtspConnection:
 
     async def _do_describe(self, req: rtsp.RtspRequest) -> None:
         path = req.path()
-        # a pushed session wins over a file of the same name
-        text = self.server.registry.sdp_cache.get(path)
-        if text is None and self.server.dvr is not None:
-            text = await self.server.dvr.describe(path)
-        if text is None and self.server.vod is not None:
-            text = self.server.vod.describe(path)
+        text = await self.server.describe(path)
         if text is None:
             raise rtsp.RtspError(404)
         self.path = sdp._norm(path)
@@ -447,7 +580,7 @@ class RtspConnection:
                 and self.vod_file is None):
             await self._setup_play_dvr(req, base, track_id, t)
             return
-        relay = self.server.registry.find(base)
+        relay = await self.server.open_for_play(base)
         if relay is None:
             await self._setup_play_vod(req, base, track_id, t)
             return
@@ -778,6 +911,7 @@ class RtspConnection:
         if self.closed:
             return
         self.closed = True
+        self.server.on_session_closed(self)
         for pair in (*self.pusher_pairs.values(),
                      *self.player_pairs.values()):
             pair.close()
@@ -810,7 +944,9 @@ class RtspConnection:
                     is self.relay):
                 self.server.registry.remove(self.relay.path)
             self.relay = None
-        self.server.connections.discard(self)
+        if self in self.server.connections:
+            self.server.connections.discard(self)
+            self.server.on_ip_disconnect(self.client_ip)
         self.writer.close()
 
 
@@ -819,9 +955,31 @@ class RtspServer:
 
     def __init__(self, config: ServerConfig, registry: SessionRegistry, *,
                  on_pump_wake=None, device: str | torch.device = "cuda",
-                 vod=None):
+                 vod=None, auth=None, access_log=None, error_log=None):
         self.config = config
         self.registry = registry
+        #: RTSP auth (``server.auth.AuthService``; None: every path open),
+        #: the access log (``utils.logs.AccessLog``; None: off) and the
+        #: error log (``utils.logs.ErrorLog``; None: stderr only)
+        self.auth = auth
+        self.access_log = access_log
+        self.error_log = error_log
+        #: ``.sdp`` broadcasts (``relay.source.SdpFileRelaySource``)
+        self.relay_source = None
+        #: an HTTP GET on the RTSP port that is not a tunnel:
+        #: ``async (conn, target, headers) -> handled``
+        self.http_get_handler = None
+        #: RTSP-over-HTTP tunnels: x-sessioncookie → the GET half
+        self.tunnels: dict[str, RtspConnection] = {}
+        #: GET halves opened, and POST halves that found no GET half
+        self.tunnel_counts = {"opened": 0, "orphan_posts": 0}
+        #: live connections a client address holds, and connections
+        #: refused by the per-IP cap
+        self._per_ip: dict[str, int] = {}
+        self.per_ip_refused = 0
+        #: RTSP requests dispatched, and answered 401 by the auth hook
+        self.requests = 0
+        self.auth_refused = 0
         #: the file tier (``vod.session.VodService``; None: live only) and
         #: the group pacer of hot file sessions (None: every file session
         #: is a ``FileSession``)
@@ -892,9 +1050,73 @@ class RtspServer:
         if len(self.connections) >= self.config.max_connections:
             writer.close()
             return
+        per_ip = self.config.max_connections_per_ip
+        peer = writer.get_extra_info("peername")
+        ip = peer[0] if peer else "?"
+        if per_ip and self._per_ip.get(ip, 0) >= per_ip:
+            self.per_ip_refused += 1
+            writer.close()
+            return
         conn = RtspConnection(self, reader, writer)
         self.connections.add(conn)
+        self._per_ip[ip] = self._per_ip.get(ip, 0) + 1
         await conn.run()
+
+    def on_ip_disconnect(self, ip: str) -> None:
+        n = self._per_ip.get(ip, 0) - 1
+        if n > 0:
+            self._per_ip[ip] = n
+        else:
+            self._per_ip.pop(ip, None)
+
+    # -- lookup chain, HTTP and the logs -----------------------------------
+    async def describe(self, path: str) -> str | None:
+        """A path's SDP: a live session's, then an ``.sdp`` broadcast's
+        (stripped of its ingest transport), a file's, a ``.dvr`` asset's."""
+        text = self.registry.sdp_cache.get(path)
+        if text is None and self.relay_source is not None:
+            text = await self.relay_source.describe(path)
+        if text is None and self.vod is not None:
+            text = self.vod.describe(path)
+        if text is None and self.dvr is not None:
+            text = await self.dvr.describe(path)
+        return text
+
+    async def open_for_play(self, path: str) -> RelaySession | None:
+        """The live session a player SETUP joins: a registered one, or an
+        ``.sdp`` broadcast opened now."""
+        sess = self.registry.find(path)
+        if sess is None and self.relay_source is not None:
+            sess = await self.relay_source.open(path)
+        return sess
+
+    async def handle_http_get(self, conn: RtspConnection, target: str,
+                              headers: dict) -> None:
+        if self.http_get_handler is not None \
+                and await self.http_get_handler(conn, target, headers):
+            return
+        conn.writer.write(b"HTTP/1.0 404 Not Found\r\n\r\n")
+
+    def on_session_closed(self, conn: RtspConnection) -> None:
+        """A closing player's or pusher's connection → its access-log
+        line."""
+        if self.access_log is None or (not conn.player_tracks
+                                       and not conn.is_pusher):
+            return
+        outs = conn.player_tracks.values()
+        udp = any(not isinstance(o, InterleavedOutput) for o in outs)
+        self.access_log.record(AccessRecord(
+            client_ip=conn.client_ip, uri=conn.uri or conn.path or "-",
+            method="RECORD" if conn.is_pusher else "PLAY",
+            duration_sec=time.monotonic() - conn.created_at,
+            bytes_sent=sum(o.bytes_sent for o in outs),
+            packets_sent=sum(o.packets_sent for o in outs),
+            user_agent=conn.user_agent,
+            transport="UDP" if udp else "TCP"))
+
+    def log_error(self, message: str) -> None:
+        if self.error_log is not None:
+            self.error_log.warning(message)
 
     async def allocate_pusher_pair(self, conn: RtspConnection,
                                    track_id: int) -> UdpPair:

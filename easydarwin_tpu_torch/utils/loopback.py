@@ -45,9 +45,12 @@ it, stops it with SIGTERM and checks the stats it prints at exit.
 from __future__ import annotations
 
 import asyncio
+import base64
+import hashlib
 import itertools
 import json
 import re
+import secrets
 import signal
 import socket
 import struct
@@ -112,9 +115,21 @@ def _udp_socket() -> socket.socket:
 class MiniClient:
     """Just enough RTSP over TCP for a pusher, an interleaved player or a
     UDP player or pusher (``udp_ports`` opens its RTP/RTCP endpoints; a
-    UDP pusher sets ``server_port`` from its SETUP reply)."""
+    UDP pusher sets ``server_port`` from its SETUP reply).  It connects
+    from ``local_ip`` (any 127.x address), and with ``credentials``
+    (user, password) answers a Basic or Digest challenge: the request
+    that got 401 goes again, and every later one carries the credentials
+    (for Digest, its own response to the same nonce)."""
 
-    def __init__(self):
+    def __init__(self, local_ip: str | None = None,
+                 credentials: tuple[str, str] | None = None):
+        self.local_ip = local_ip
+        self.credentials = credentials
+        #: (realm, nonce) of the server's Digest challenge, or ("basic",
+        #: None) for a Basic one, once answered
+        self.digest: tuple[str, str | None] | None = None
+        #: requests answered 401 before their retry
+        self.challenges = 0
         self.wire = rtsp.RtspWireReader(parse_responses=True)
         self.responses: asyncio.Queue = asyncio.Queue()
         self.frames: list[bytes] = []
@@ -140,8 +155,12 @@ class MiniClient:
 
     async def connect(self, port: int) -> None:
         self.reader, self.writer = await asyncio.open_connection(
-            "127.0.0.1", port)
+            "127.0.0.1", port,
+            local_addr=(self.local_ip, 0) if self.local_ip else None)
         self._task = asyncio.create_task(self._read())
+
+    def _write(self, data: bytes) -> None:
+        self.writer.write(data)
 
     async def _read(self) -> None:
         while True:
@@ -160,23 +179,42 @@ class MiniClient:
 
     async def request(self, method: str, uri: str, headers=None,
                       body: bytes = b""):
-        self.cseq += 1
-        h = {"cseq": str(self.cseq), **(headers or {})}
-        if self.session:
-            h["session"] = self.session
-        self.writer.write(rtsp.RtspRequest(method, uri, h, body).to_bytes())
-        resp = await asyncio.wait_for(self.responses.get(), 30)
+        resp = await self._send_request(method, uri, headers, body)
+        if (resp.status == 401 and self.credentials is not None
+                and self.digest is None):
+            challenge = resp.headers.get("www-authenticate", "")
+            self.digest = (
+                ("basic", None) if challenge.lower().startswith("basic")
+                else (re.search(r'realm="([^"]*)"', challenge).group(1),
+                      re.search(r'nonce="([^"]*)"', challenge).group(1)))
+            self.challenges += 1
+            resp = await self._send_request(method, uri, headers, body)
         check(resp.status == 200, f"{method} {uri} -> {resp.status}")
         if "session" in resp.headers:
             self.session = resp.headers["session"].split(";")[0]
         return resp
+
+    async def _send_request(self, method: str, uri: str, headers,
+                            body: bytes):
+        self.cseq += 1
+        h = {"cseq": str(self.cseq), **(headers or {})}
+        if self.session:
+            h["session"] = self.session
+        if self.digest == ("basic", None):
+            h["authorization"] = "Basic " + base64.b64encode(
+                ":".join(self.credentials).encode()).decode()
+        elif self.digest is not None:
+            h["authorization"] = digest_authorization(
+                *self.credentials, *self.digest, method, uri)
+        self._write(rtsp.RtspRequest(method, uri, h, body).to_bytes())
+        return await asyncio.wait_for(self.responses.get(), 30)
 
     def push(self, pkt: bytes, channel: int = 0) -> None:
         """Send one packet: ``$``-framed on ``channel``, or for a UDP
         pusher as a datagram to the server's RTP (even channel) or RTCP
         (odd) port from the matching endpoint."""
         if self.server_port is None:
-            self.writer.write(rtsp.frame_interleaved(channel, pkt))
+            self._write(rtsp.frame_interleaved(channel, pkt))
         else:
             self._udp[channel % 2].sendto(
                 pkt, ("127.0.0.1", self.server_port[channel % 2]))
@@ -193,6 +231,57 @@ class MiniClient:
                 pass
 
 
+def digest_authorization(user: str, password: str, realm: str, nonce: str,
+                         method: str, uri: str) -> str:
+    """The ``Authorization`` header answering a Digest challenge (RFC
+    2617, MD5, no qop), computed here apart from the server's code;
+    ``uri`` is the request's URI as sent."""
+    def md5(text: str) -> str:
+        return hashlib.md5(text.encode()).hexdigest()
+    resp = md5(f"{md5(f'{user}:{realm}:{password}')}:{nonce}:"
+               f"{md5(f'{method}:{uri}')}")
+    return (f'Digest username="{user}", realm="{realm}", nonce="{nonce}", '
+            f'uri="{uri}", response="{resp}"')
+
+
+class TunnelClient(MiniClient):
+    """A player over an RTSP-over-HTTP tunnel: a GET connection that
+    carries every reply and ``$``-framed packet, and a POST connection
+    that carries the requests in base64, each written in two pieces split
+    inside a quad."""
+
+    async def connect(self, port: int) -> None:
+        cookie = secrets.token_hex(8)
+        local = (self.local_ip, 0) if self.local_ip else None
+        self.reader, self.get_writer = await asyncio.open_connection(
+            "127.0.0.1", port, local_addr=local)
+        self.get_writer.write(
+            f"GET /tunnel HTTP/1.0\r\nx-sessioncookie: {cookie}\r\n"
+            f"Accept: application/x-rtsp-tunnelled\r\n\r\n".encode())
+        head = await asyncio.wait_for(self.reader.readuntil(b"\r\n\r\n"),
+                                      30)
+        check(head.startswith(b"HTTP/1.0 200") and
+              b"application/x-rtsp-tunnelled" in head,
+              f"tunnel GET answered {head[:80]!r}")
+        self._task = asyncio.create_task(self._read())
+        _r, self.writer = await asyncio.open_connection(
+            "127.0.0.1", port, local_addr=local)
+        self.writer.write(
+            f"POST /tunnel HTTP/1.0\r\nx-sessioncookie: {cookie}\r\n"
+            f"Content-Type: application/x-rtsp-tunnelled\r\n"
+            f"Content-Length: 32767\r\n\r\n".encode())
+
+    def _write(self, data: bytes) -> None:
+        b64 = base64.b64encode(data)
+        cut = min(len(b64), 4 * (len(b64) // 8) + 3)
+        self.writer.write(b64[:cut])
+        self.writer.write(b64[cut:])
+
+    async def close(self) -> None:
+        self.get_writer.close()
+        await super().close()
+
+
 async def push_play(port: int, rng: np.random.Generator, *, n_push: int,
                     n_play: int, transport: str = "tcp",
                     push_transport: str = "tcp", gops: int = 4,
@@ -205,7 +294,8 @@ async def push_play(port: int, rng: np.random.Generator, *, n_push: int,
     an SR a second); ``n_play`` players of ``transport`` (``tcp`` or
     ``udp``, or a sequence of them taken in turn by the joins) join each
     source after the first GOP, or — with ``join_every`` — one every
-    ``join_every`` frames of the live part.  Returns counts."""
+    ``join_every`` frames of the live part; a ``tunnel`` player plays
+    interleaved through an RTSP-over-HTTP tunnel.  Returns counts."""
     gop = frames * packets_per_frame           # packets a GOP; IDR first
     udp_push = push_transport == "udp"
     kinds = (transport,) if isinstance(transport, str) else tuple(transport)
@@ -272,11 +362,11 @@ async def push_play(port: int, rng: np.random.Generator, *, n_push: int,
 
     async def join(k: int) -> None:
         uri = pushers[k][1]
-        p = MiniClient()
-        await p.connect(port)
-        await p.request("DESCRIBE", uri)
         kind = kinds[len(player_kinds) % len(kinds)]
         player_kinds.append(kind)
+        p = TunnelClient() if kind == "tunnel" else MiniClient()
+        await p.connect(port)
+        await p.request("DESCRIBE", uri)
         spec = "RTP/AVP/TCP;unicast;interleaved=0-1"
         if kind == "udp":
             spec = f"RTP/AVP;unicast;client_port={await p.udp_ports()}"
@@ -284,7 +374,7 @@ async def push_play(port: int, rng: np.random.Generator, *, n_push: int,
                                {"transport": spec})
         t = rtsp.TransportSpec.parse(resp.headers["transport"])
         check(t.ssrc is not None, "SETUP reply names no ssrc")
-        check(kind == "tcp" or t.server_port is not None,
+        check(kind != "udp" or t.server_port is not None,
               "UDP SETUP reply names no server_port")
         before = pushed[k]
         resp = await p.request("PLAY", uri)
@@ -402,10 +492,17 @@ class CliServer:
             cwd=Path(__file__).resolve().parents[2],
             stdout=asyncio.subprocess.PIPE)
         try:
-            line = (await asyncio.wait_for(self.proc.stdout.readline(),
-                                           60)).decode()
-            m = re.search(r"listening: rtsp://[\d.]+:(\d+) service "
-                          r"http://[\d.]+:(\d+)", line)
+            #: what the server printed before it listened (``-c``'s
+            #: unmapped keys)
+            self.preamble = []
+            for _ in range(8):
+                line = (await asyncio.wait_for(self.proc.stdout.readline(),
+                                               60)).decode()
+                m = re.search(r"listening: rtsp://[\d.]+:(\d+) service "
+                              r"http://[\d.]+:(\d+)", line)
+                if m is not None or not line:
+                    break
+                self.preamble.append(line)
             check(m is not None, f"server did not start: {line!r}")
         except BaseException:
             await self.__aexit__(None, None, None)

@@ -34,8 +34,10 @@
   server does in process;
 * a server on the CPU touches nothing of CUDA when it starts;
 * importing the port, its server, its CLI, the transcode modules, the
-  REST API, the VOD tier and the HLS tier with its codecs leaves ``jax``
-  and ``easydarwin_tpu`` out of ``sys.modules``;
+  REST API, the VOD tier, the HLS tier with its codecs and the server
+  surface (auth, MP3, the watchdog, the config file, the logs, the RTSP
+  client, pull relays and ``.sdp`` sources) leaves ``jax`` and
+  ``easydarwin_tpu`` out of ``sys.modules``;
 * the CLI's device defaults to the card, and without one it raises.
 """
 
@@ -836,6 +838,17 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "import easydarwin_tpu_torch.codecs.h264_closed_loop\n"
             "import easydarwin_tpu_torch.parallel\n"
             "import easydarwin_tpu_torch.parallel.megabench\n"
+            "import easydarwin_tpu_torch.server.auth\n"
+            "import easydarwin_tpu_torch.server.mp3\n"
+            "import easydarwin_tpu_torch.server.supervisor\n"
+            "import easydarwin_tpu_torch.server.config\n"
+            "import easydarwin_tpu_torch.utils.logs\n"
+            "import easydarwin_tpu_torch.utils.http_misc\n"
+            "import easydarwin_tpu_torch.utils.client\n"
+            "import easydarwin_tpu_torch.utils.surface_loopback\n"
+            "import easydarwin_tpu_torch.relay.pull\n"
+            "import easydarwin_tpu_torch.relay.source\n"
+            "import easydarwin_tpu_torch.cluster.protocol\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m.split('.')[0] in ('jax', 'jaxlib', "
             "'easydarwin_tpu'))\n"

@@ -41,6 +41,7 @@ from easydarwin_tpu_torch.relay.megabatch import MegabatchScheduler
 from easydarwin_tpu_torch.relay.output import CollectingOutput
 from easydarwin_tpu_torch.relay.session import SessionRegistry
 from easydarwin_tpu_torch.relay.stream import RelayStream, StreamSettings
+from easydarwin_tpu_torch.server.config import ServerConfig
 from easydarwin_tpu_torch.server.rest import RestApi
 from easydarwin_tpu_torch.utils import mjpeg_loopback as mlb
 
@@ -430,8 +431,8 @@ async def test_rest_envelope_is_byte_compatible_and_unknown_is_404():
     class App:
         transcodes = ml.MjpegTranscodeService(SessionRegistry(), device="cpu")
         hls = HlsService(SessionRegistry(), device="cpu")
-    api = RestApi(None, App())
-    status, doc = await api.route("GET", "/api/v1/getserverinfo", {}, b"")
+    api = RestApi(ServerConfig(), App())
+    status, doc = await api.route("GET", "/api/v1/nosuchcommand", {}, b"")
     assert status == 404 and doc == ref_ep.ack(ref_ep.MSG_SC_EXCEPTION,
                                                error=ref_ep.ERR_NOT_FOUND)
     assert (await api.route("GET", "/hls/x/index.m3u8", {}, b""))[0] == 404
