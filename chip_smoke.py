@@ -380,6 +380,29 @@ phase raises and the script exits non-zero.
              7b's, each kind's first join, the ms from startpullrelay to
              the pull's first packet and its host µs a forwarded packet,
              the card's name and power limit
+15. observed the relay with its ``obs`` stack scraped, through one CLI
+             server (``utils.obs_loopback.observed_relay``): 7c's source
+             (1080p30 H.264 + AAC with SRs, 13 packets of about 1.3 KB a
+             frame, an IDR every 30 frames, 5 s) pushed to two paths, 7d's
+             to a third; 16 UDP, 16 TCP, 8 meta-info/lossy-report (the
+             B9 rung) and 8 FEC (B4) players, every packet held to its
+             source; ``/metrics`` and the ledger, profile, audience and
+             events documents scraped each second, then ``/metrics``,
+             those and the fleet's, ``/debug/profile``, ``admin
+             command=top``, ``getserverinfo`` and GET ``/`` and
+             ``/stats`` on both ports, and ``tools/blame_report.py
+             --url``.  The same traffic runs twice, ``EDTPU_PROFILE=0``
+             then ``=1``; on the profiled run every scraped family is one
+             of the port's inventory and ``relay_phase_seconds`` keeps to
+             ``PHASES`` × ``ENGINES``, the report names a work class, the
+             ``device_step`` count of engine ``megabatch`` equals the
+             server's ``ed_relay_window`` launches and (after phase 10)
+             its mean lies between that kernel's time and that time plus
+             a launch allowance, ``tpu_h2d_bytes_total`` and
+             ``tpu_d2h_bytes_total`` equal the bytes the relay tiers'
+             copies moved (``ops.staging.COPIED``), the three
+             ``getserverinfo`` keys answer, the pprof profile parses; the
+             wake p50 with profiling is at most 1.5× the p50 without
 
 ``python3 chip_smoke.py --hls-control`` runs phases 1, 2, 5c's leg check
 and phases 13 and 13c twice each instead, each checked in full: the
@@ -401,13 +424,13 @@ HLS path; these two launch B6).  Phase 13b runs after them: its B6 legs
 are not the main path's.  Then each of phase 6c's scheduler mesh
 path (after its one-device comparison run), 7f, 7g and 13d is its own
 path, with the counts set to 0 just before it and read just after, as
-is phase 14 (its two servers report their own), and
-so is B8's own path in phase 6c: its two calls through
+are phase 14 (its two servers report their own) and phase 15 (its
+two runs' server), and so is B8's own path in phase 6c: its two calls through
 ``sharded_relay_step``.  No serving code calls B8 (the server's mesh path
 is the scheduler's, one ``ed_relay_window`` a shard), so its kernel
 ``ed_relay_shard`` is launched on that path alone, and its row in the
 kernels line says so under ``caller``.  The kernels line's launches are
-the eleven paths' sum.  The comparisons and
+the twelve paths' sum.  The comparisons and
 timings of phases 3, 4, 4b, 4c, 4d, 4e, 5, 5b, 5c and 10 run outside
 those windows.  Phase 10's window rows also time the VOD prime's calls
 of phase 11.
@@ -3785,6 +3808,148 @@ def phase_surface(rng, smi: str, config2: dict) -> dict:
     return res
 
 
+#: phase 15: its limit in seconds (both runs, started, scraped, stopped),
+#: its players, its source's GOPs and the traffic's seed (both runs)
+OBS_LIMIT_S = 90.0
+OBS_PLAYERS = dict(udp=16, tcp=16, meta=8, fec=8)
+OBS_GOPS = 5
+OBS_SEED = 20261019
+#: the most the wake p50 with profiling may be over the p50 without
+OBS_OVERHEAD_MAX = 1.5
+#: the most ``device_step``'s mean may be over the window kernel's own
+#: time (phase 10): the host's time inside the launch call, between the
+#: two events, where the card waits for the kernel to arrive (a few µs;
+#: the pump runs on one thread, so no other Python thread holds the GIL
+#: across it), with room
+OBS_LAUNCH_ALLOWANCE_MS = 0.05
+
+
+def phase_observed(smi: str) -> dict:
+    """Phase 15: the observed relay twice on the same traffic, profiling
+    off then on (``utils.obs_loopback``), and every check of the module
+    docstring but the device time's, which needs phase 10
+    (``observed_device_check``)."""
+    from easydarwin_tpu_torch import obs
+    from easydarwin_tpu_torch.utils import obs_loopback as ol
+    t0 = time.monotonic()
+    runs = {}
+    for profile in (False, True):
+        runs[profile] = asyncio.run(asyncio.wait_for(ol.observed_relay(
+            DEVICE, OBS_SEED, profile=profile, gops=OBS_GOPS,
+            **OBS_PLAYERS), OBS_LIMIT_S))
+    seconds = time.monotonic() - t0
+    on, off = runs[True], runs[False]
+    st, final = on["server_stats"], on["final"]
+    fams, samples = ol.exposition(final["metrics"][1])
+    inventory = {f.name: f.kind for f in obs.REGISTRY.families()}
+    check(final["metrics"][0] == 200 and fams,
+          f"/metrics answered {final['metrics'][0]}")
+    strays = {n: k for n, k in fams.items() if inventory.get(n) != k}
+    check(not strays, f"families outside the inventory: {strays}")
+    orphans = {n for n, _l, _v in samples if ol.family_of(n, fams) is None}
+    check(not orphans, f"samples of no family: {sorted(orphans)[:5]}")
+    phases = ol.phase_stats(samples)
+    bad = [k for k in phases if k[0] not in obs.ENGINES
+           or k[1] not in obs.PHASES]
+    check(not bad, f"relay_phase_seconds outside PHASES x ENGINES: {bad}")
+    rc, report, top = on["blame"]
+    check(rc == 0 and top in obs.WORK_CLASSES,
+          f"blame_report --url exited {rc}, top offender {top!r}:\n"
+          f"{report}")
+    launches = st["kernel_launches"]
+    dev_n, dev_s = phases.get(("megabatch", "device_step"), (0, 0.0))
+    check(launches["ed_relay_window"] > 0
+          and dev_n == launches["ed_relay_window"],
+          f"device_step count {dev_n} != the server's ed_relay_window "
+          f"launches {launches['ed_relay_window']}")
+    copied = st["copied_bytes"]
+    got = {d: ol.sample_value(samples, f"tpu_{d}_bytes_total")
+           for d in ("h2d", "d2h")}
+    check(got == copied and copied["h2d"] > 0 and copied["d2h"] > 0,
+          f"tpu_*_bytes_total {got} != the bytes the relay tiers' copies "
+          f"moved {copied}")
+    info = final["info"][1]
+    keys = ("IngestToWireP99Ms", "LedgerTopWaitClass", "LedgerLastWakeMs")
+    check(all(info.get(k) not in (None, "") for k in keys),
+          f"getserverinfo obs keys: {[(k, info.get(k)) for k in keys]}")
+    check(info["LedgerTopWaitClass"] in obs.WORK_CLASSES,
+          f"LedgerTopWaitClass {info['LedgerTopWaitClass']!r}")
+    prof = ol.pprof_summary(final["pprof"][1])
+    check(final["pprof"][0] == 200 and prof["samples"] > 0
+          and "samples" in prof["strings"]
+          and "megabatch.dispatch" in prof["strings"],
+          f"/debug/profile: {final['pprof'][0]}, {prof['samples']} samples")
+    check(all(p[0] == 200 for p in final["pages"].values()),
+          f"pages: {final['pages']}")
+    check(final["top"][0] == 200 and "phases" in final["top"][1],
+          f"admin command=top answered {final['top'][0]}")
+    for name, (status, _doc) in final["docs"].items():
+        check(status == 200, f"/api/v1/{name} answered {status}")
+    check(all(s[d][0] == 200 for s in on["scrapes"] for d in ol.DOCS)
+          and on["scrapes"], f"a scrape failed: {on['scrapes']}")
+    ratio = (st["wake_ms_p50"] / off["server_stats"]["wake_ms_p50"])
+    check(ratio <= OBS_OVERHEAD_MAX,
+          f"wake p50 with obs {st['wake_ms_p50']:.3f} ms is {ratio:.2f}x "
+          f"the p50 without ({off['server_stats']['wake_ms_p50']:.3f} ms)")
+    check(seconds <= OBS_LIMIT_S,
+          f"phase 15 took {seconds:.1f} s, over {OBS_LIMIT_S} s")
+    path = {k: on["server_stats"]["kernel_launches"].get(k, 0)
+            + off["server_stats"]["kernel_launches"].get(k, 0)
+            for k in launches}
+    delivered = [r["delivered"] for r in on["av"]] \
+        + [on["lossy"]["delivered"]]
+    log(f"[observed] {on['players']} players on 3 paths ({OBS_PLAYERS}), "
+        f"delivered {delivered}, every packet "
+        f"held; {len(fams)} families scraped, all in the inventory; "
+        f"{len(on['scrapes'])} scrapes during the run, host ms "
+        f"{[round(x['ms'], 1) for x in on['scrapes']]}; blame_report "
+        f"names {top}; getserverinfo {[(k, info[k]) for k in keys]}; "
+        f"pprof {prof['samples']} stacks of {prof['span_count']} spans; "
+        f"launches {launches}")
+    log(f"[observed] device_step (megabatch) {dev_n} samples = "
+        f"{launches['ed_relay_window']} ed_relay_window launches, mean "
+        f"{dev_s / max(dev_n, 1) * 1e3:.6f} ms; tpu_h2d_bytes_total "
+        f"{got['h2d']:.0f} and tpu_d2h_bytes_total {got['d2h']:.0f} = the "
+        f"copies' {copied['h2d']} and {copied['d2h']}")
+    log(f"[observed] wake host ms with EDTPU_PROFILE=1 p50 "
+        f"{st['wake_ms_p50']:.3f} p99 {st['wake_ms_p99']:.3f}, with =0 p50 "
+        f"{off['server_stats']['wake_ms_p50']:.3f} p99 "
+        f"{off['server_stats']['wake_ms_p99']:.3f}: p50 ratio {ratio:.3f} "
+        f"(limit {OBS_OVERHEAD_MAX}); phases (count, mean ms) "
+        f"{ {f'{e}/{p}': (int(c), round(v / max(c, 1) * 1e3, 6)) for (e, p), (c, v) in sorted(phases.items())} }; "
+        f"{seconds:.1f} s; card {smi}")
+    return {"seconds": seconds, "ratio": ratio, "path_launches": path,
+            "device_step": {"count": dev_n, "mean_ms":
+                            dev_s / max(dev_n, 1) * 1e3},
+            "wake_ms": {"on": [st["wake_ms_p50"], st["wake_ms_p99"]],
+                        "off": [off["server_stats"]["wake_ms_p50"],
+                                off["server_stats"]["wake_ms_p99"]]},
+            "bytes": {"metrics": got, "copied": copied}, "blame_top": top,
+            "info": {k: info[k] for k in keys}, "phases": {
+                f"{e}/{p}": v for (e, p), v in phases.items()},
+            "scrapes": on["scrapes"], "pages": final["pages"],
+            "server_stats": {"on": st, "off": off["server_stats"]},
+            "blame_report": report}
+
+
+def observed_device_check(observed: dict, timed: list) -> None:
+    """Phase 15's device time against phase 10: the ``device_step`` mean
+    (the timing events around the ``ed_relay_window`` launch) at least
+    the kernel's own time in a graph and at most that time plus
+    ``OBS_LAUNCH_ALLOWANCE_MS``."""
+    kernel = min(k["ms"] for k in timed if k["name"] == "ed_relay_window"
+                 and k["_main_path"])
+    mean = observed["device_step"]["mean_ms"]
+    top = kernel + OBS_LAUNCH_ALLOWANCE_MS
+    check(kernel <= mean <= top,
+          f"device_step mean {mean:.6f} ms outside [kernel {kernel:.6f}, "
+          f"kernel + launch allowance {top:.6f}] ms")
+    log(f"[observed] device_step mean {mean:.6f} ms between the kernel's "
+        f"{kernel:.6f} ms (phase 10) and that plus the "
+        f"{OBS_LAUNCH_ALLOWANCE_MS} ms launch allowance")
+    observed["kernel_ms"] = kernel
+
+
 def gf_storage_check(rng, shapes) -> int:
     """``ed_gf_parity`` (the wrapper) vs ``gf_parity_plain`` on the same
     card tensors at phase 12's stripe shapes; the largest difference."""
@@ -4638,6 +4803,16 @@ def main() -> int:
     detail["surface_path_launches"] = surface_path
     launches = {k: n + surface_path.get(k, 0) for k, n in launches.items()}
 
+    kernel_lib.reset_launch_counts()       # the observed path starts here
+    detail["observed"] = phase_observed(smi)
+    observed_path = {k: n + detail["observed"]["path_launches"].get(k, 0)
+                     for k, n in kernel_lib.LAUNCHES.items()}
+    log(f"[observed path] kernel launches {observed_path}")
+    check(observed_path["ed_relay_window"] > 0,
+          "ed_relay_window was not launched on the observed path")
+    detail["observed_path_launches"] = observed_path
+    launches = {k: n + observed_path.get(k, 0) for k, n in launches.items()}
+
     errs = {"ed_parse_packets": max(detail["k1"].values()),
             "ed_relay_window": max(
                 [*detail["window"].values()]
@@ -4668,6 +4843,7 @@ def main() -> int:
                           prime_window_specs(detail["vod"]["prime_shapes"]),
                           stripe_shapes, b6_cases(b6_inputs))
     detail["kernels"] = timed
+    observed_device_check(detail["observed"], timed)
     detail["join_query"] = join = join_query_ms(rng)
     ring_ms = next(k["ms"] for k in timed if k["name"] == "ed_ring_query"
                    and k["_main_path"])
@@ -4706,12 +4882,14 @@ def main() -> int:
     script_s = time.monotonic() - t_script
     detail["seconds"] = {"script": script_s, "phases_13b_13c": new_phases_s,
                          "phases_6c_7f_7g_13d": mesh_phases_s,
-                         "phase_14": detail["surface"]["seconds"]}
+                         "phase_14": detail["surface"]["seconds"],
+                         "phase_15": detail["observed"]["seconds"]}
     log(f"[time] the script {script_s:.3f} s from its build; phases 13c "
         f"and 13b (the 1080p pictures' encode included) {new_phases_s:.3f}"
         f" s of it, phases 6c, 7f, 7g and 13d {mesh_phases_s:.3f} s, phase "
-        f"14 {detail['surface']['seconds']:.3f} s, the rest "
-        f"{script_s - new_phases_s - mesh_phases_s - detail['surface']['seconds']:.3f} s")
+        f"14 {detail['surface']['seconds']:.3f} s, phase 15 "
+        f"{detail['observed']['seconds']:.3f} s, the rest "
+        f"{script_s - new_phases_s - mesh_phases_s - detail['surface']['seconds'] - detail['observed']['seconds']:.3f} s")
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(detail, f, indent=1, default=str)
 

@@ -24,6 +24,11 @@ Every pointer argument is declared (``c_void_p`` or a typed pointer), so
 none is cut to 32 bits; at load every symbol must be there, and the
 stats struct's and the walk's info field counts are checked against the
 library (``ed_stats_fields``, ``ed_h264_walk_info_fields``).
+
+The ``obs`` registry reads the egress core's counters before every scrape
+(``egress_*``, ``ingest_*``, ``stage_gather_*``: the reference's names;
+the io_uring and ``sendto`` families stay 0, as the port sends neither
+way).
 """
 
 from __future__ import annotations
@@ -618,3 +623,41 @@ class TimerWheel:
     @property
     def pending(self) -> int:
         return self._lib.ed_wheel_pending(self._w)
+
+
+# ------------------------------------------------------------- observability
+def _collect_native_stats() -> None:
+    """The ``obs`` registry's pre-scrape collector: the egress core's
+    cumulative ``ed_stats`` mirrored into the reference's egress, ingest
+    and staging families.  Nothing until the library is loaded (a scrape
+    never builds it): the families read 0, as any idle counter."""
+    if _lib is None:
+        return
+    from . import obs
+    s = get_stats()
+    obs.EGRESS_SENDMMSG_CALLS.set_to(s["sendmmsg_calls"])
+    obs.EGRESS_PACKETS.set_to(s["send_packets"])
+    obs.EGRESS_BYTES.set_to(s["bytes_to_wire"])
+    obs.EGRESS_GSO_SUPERS.set_to(s["gso_supers"])
+    obs.EGRESS_GSO_SEGMENTS.set_to(s["gso_segments"])
+    obs.EGRESS_EAGAIN.set_to(s["eagain_stops"])
+    obs.EGRESS_SEND_ERRORS.set_to(s["hard_errors"])
+    obs.INGEST_RECVMMSG_CALLS.set_to(s["recvmmsg_calls"])
+    obs.INGEST_DATAGRAMS.set_to(s["recv_packets"])
+    obs.INGEST_BYTES.set_to(s["recv_bytes"])
+    obs.INGEST_OVERSIZE_DROPPED.set_to(s["oversize_dropped"])
+    obs.EGRESS_BUSY_SECONDS.set_to(s["send_ns"] / 1e9)
+    obs.INGEST_BUSY_SECONDS.set_to(s["ingest_ns"] / 1e9)
+    obs.STAGE_GATHER_BUSY_SECONDS.set_to(s["stage_gather_ns"] / 1e9)
+    obs.STAGE_GATHER_BYTES.set_to(s["staged_bytes"])
+    if s["fault_injections"]:
+        obs.FAULT_INJECTED.set_to(s["fault_injections"],
+                                  site="egress_native")
+
+
+def _register_collector() -> None:
+    from .obs import REGISTRY
+    REGISTRY.add_collector(_collect_native_stats)
+
+
+_register_collector()

@@ -20,10 +20,20 @@ the launch counts are guarded by one lock.  A ``ctypes.CDLL`` call gives
 up the GIL; the few entry points that serve Python worker threads with
 microseconds of host work are bound a second time through
 ``ctypes.PyDLL`` (``held``), which keeps it.
+
+The first ``library()`` call notes the build and load time with the
+profiler (``obs.PROFILER.note_compile``) under each kernel's name: the
+port's counterpart of a jitted step's first trace.
+
+A launch made inside ``timed(timer)`` (``ops.staging.DeviceTimer``) has
+the timer's start event recorded on its stream just before the thread's
+first launch and its stop event just after each launch, so the pair holds
+the kernels and none of the host's preparation of their arguments.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -36,6 +46,8 @@ from dataclasses import dataclass
 from pathlib import Path
 
 import torch
+
+from ..obs import PROFILER
 
 _PKG = Path(__file__).resolve().parents[1]
 SOURCES = (_PKG / "csrc" / "relay_kernels.cu",
@@ -151,6 +163,8 @@ _BUILD: BuildResult | None = None
 _SCRATCH: dict[tuple, torch.Tensor] = {}
 #: guards ``_LIB``, ``_HELD``, ``_BUILD``, ``_SCRATCH`` and ``LAUNCHES``
 _LOCK = threading.RLock()
+#: ``timer``: the ``DeviceTimer`` this thread's launches record into
+_TIMING = threading.local()
 
 
 def reset_launch_counts() -> None:
@@ -225,7 +239,13 @@ def library() -> ctypes.CDLL:
     if _LIB is None:
         with _LOCK:
             if _LIB is None:
+                t0 = time.perf_counter()
                 _LIB = _load()
+                # the build and load are the port's compile: noted once
+                # under each kernel's name, never a phase sample
+                secs = time.perf_counter() - t0
+                for name in LAUNCHES:
+                    PROFILER.note_compile(name, secs)
     return _LIB
 
 
@@ -276,8 +296,14 @@ def launch_held(name: str, kernel: str, *args,
     """Call the GIL-keeping entry point ``name``, which launches
     ``kernel`` once, on ``device``'s current stream; raise on a CUDA
     error, count the launch of ``kernel`` otherwise."""
-    stream = torch.cuda.current_stream(device).cuda_stream
-    rc = getattr(held(), name)(*args, stream)
+    stream = torch.cuda.current_stream(device)
+    fn = getattr(held(), name)
+    timer = getattr(_TIMING, "timer", None)
+    if timer is not None:
+        timer.before_launch(stream)
+    rc = fn(*args, stream.cuda_stream)
+    if timer is not None:
+        timer.after_launch(stream)
     if rc != 0:
         raise RuntimeError(f"{name} failed: {error_message(rc)}")
     with _LOCK:
@@ -287,13 +313,30 @@ def launch_held(name: str, kernel: str, *args,
 def launch(name: str, *args) -> None:
     """Call one entry point on the current stream; raise on a CUDA error,
     count the launch otherwise."""
-    lib = library()
-    stream = torch.cuda.current_stream().cuda_stream
-    rc = getattr(lib, name)(*args, stream)
+    fn = getattr(library(), name)
+    stream = torch.cuda.current_stream()
+    timer = getattr(_TIMING, "timer", None)
+    if timer is not None:
+        timer.before_launch(stream)
+    rc = fn(*args, stream.cuda_stream)
+    if timer is not None:
+        timer.after_launch(stream)
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: {error_message(rc)}")
     with _LOCK:
         LAUNCHES[name] += 1
+
+
+@contextlib.contextmanager
+def timed(timer):
+    """Record this thread's launches into ``timer`` (``before_launch`` and
+    ``after_launch`` around each) while the block runs."""
+    outer = getattr(_TIMING, "timer", None)
+    _TIMING.timer = timer
+    try:
+        yield timer
+    finally:
+        _TIMING.timer = outer
 
 
 def scratch(name: str, words: int, device: torch.device) -> torch.Tensor:

@@ -14,14 +14,24 @@ The FEC tier's device pass stages one window of whole ring rows at a time
 (``stage_fec_rows``) into a ``PinnedStage``: host buffers, page-locked
 when they feed a card, that are written again only after the CUDA event
 recorded behind their last copy has completed.
+
+The relay tiers' copies between host and device go through ``upload``
+and ``readback`` (the device ring's appends through ``count_upload``),
+which count the bytes of the tensors they copy in ``COPIED``: the
+figure that ``tpu_h2d_bytes_total`` and ``tpu_d2h_bytes_total``, bumped
+where the reference bumps them, are held to.
 """
 
 from __future__ import annotations
+
+import threading
+import time
 
 import numpy as np
 import torch
 
 from .. import native
+from . import kernel_lib
 from .fanout import WINDOW_EXTRA
 from .parse import PARSE_PREFIX
 
@@ -99,6 +109,39 @@ def gather_window(ring, start: int, count: int, out_rows: np.ndarray,
     return n
 
 
+#: bytes the relay tiers copied to the device (``h2d``) and back
+#: (``d2h``), counted from the copied tensors; guarded by ``_COPIED_LOCK``
+COPIED = {"h2d": 0, "d2h": 0}
+_COPIED_LOCK = threading.Lock()
+
+
+def count_upload(*tensors: torch.Tensor) -> None:
+    """Count ``tensors`` as copied to the device (a copy made elsewhere,
+    such as the device ring's slice copies)."""
+    with _COPIED_LOCK:
+        COPIED["h2d"] += sum(t.nbytes for t in tensors)
+
+
+def upload(src: torch.Tensor, dev: torch.device) -> torch.Tensor:
+    """``src`` on ``dev``: a non-blocking copy on a card (from pinned
+    memory, so a caller reuses ``src`` only after an event recorded
+    behind it), ``src`` itself on the CPU; its bytes counted."""
+    count_upload(src)
+    return src.to(dev, non_blocking=True)
+
+
+def readback(src: torch.Tensor, dst: torch.Tensor | None = None
+             ) -> torch.Tensor:
+    """``src`` copied into the host tensor ``dst`` (non-blocking: valid
+    once an event recorded behind it has completed), or, without ``dst``,
+    into a new host tensor by a blocking copy; its bytes counted."""
+    with _COPIED_LOCK:
+        COPIED["d2h"] += src.nbytes
+    if dst is None:
+        return src.cpu()
+    return dst.copy_(src, non_blocking=True)
+
+
 class PinnedStage:
     """Host buffers for one caller's H2D and D2H copies, one per (name,
     shape, dtype), page-locked when ``pin``; ``buffer`` waits on the event
@@ -127,6 +170,62 @@ class PinnedStage:
         if self.pin:
             self.event = torch.cuda.Event()
             self.event.record()
+
+
+class DeviceTimer:
+    """The device time of one wrapper call's kernels, taken by ``with
+    timer:`` around the call.  On a card: a pair of timing CUDA events
+    that ``kernel_lib.timed`` records on the launching stream just before
+    the call's first launch and just after its last, so the pair holds
+    the kernels and not the host's preparation of their arguments (only
+    the host's time inside the launch calls, where the card waits for the
+    kernel to arrive).  On the CPU, or with ``enabled`` False (as
+    ``EDTPU_PROFILE=0`` asks): host ``perf_counter_ns`` around the call
+    and no event at all.  ``ns()`` reads the card's pair only once the
+    caller knows the work is done (its own readiness check or a wait it
+    makes anyway): it never synchronises for a metric; a call that
+    launched nothing reads 0."""
+
+    __slots__ = ("cuda", "pair", "launched", "t0", "t1", "_ctx")
+
+    def __init__(self, device: torch.device, enabled: bool = True):
+        self.cuda = enabled and device.type == "cuda"
+        self.pair = ((torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+                     if self.cuda else None)
+        self.launched = False
+        self.t0 = self.t1 = 0
+        self._ctx = None
+
+    def __enter__(self) -> "DeviceTimer":
+        if self.pair is not None:
+            self._ctx = kernel_lib.timed(self)
+            self._ctx.__enter__()
+        else:
+            self.t0 = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        if self._ctx is not None:
+            self._ctx.__exit__(*exc)
+            self._ctx = None
+        else:
+            self.t1 = time.perf_counter_ns()
+
+    def before_launch(self, stream) -> None:
+        if not self.launched:
+            self.pair[0].record(stream)
+            self.launched = True
+
+    def after_launch(self, stream) -> None:
+        self.pair[1].record(stream)
+
+    def ns(self) -> int:
+        if self.pair is not None:
+            if not self.launched:
+                return 0
+            return int(self.pair[0].elapsed_time(self.pair[1]) * 1e6)
+        return self.t1 - self.t0
 
 
 def stage_fec_rows(ring, slots: np.ndarray, lens: np.ndarray,

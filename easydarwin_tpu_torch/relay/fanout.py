@@ -48,6 +48,22 @@ leaves their bookmarks.
 For the same ring and output state the bytes equal those of
 ``RelayStream.reflect`` (tested), apart from the TCP rung's shed of a
 reader more than half the ring behind.
+
+Observability (``obs``): each pass is one ``engine.step`` span and one
+``tpu_pass_seconds{stage="engine_step"}`` sample, its phases filed with
+the profiler by engine: ``native`` (the ring append as ``h2d``, the ring
+query as ``device_step`` and ``d2h``, the UDP and TCP scatters as
+``egress_native``, the RTCP as ``rtcp_qos``) and ``batch`` (the batch
+rung's upload as ``h2d``, its kernel as ``device_step``, its headers'
+copy back as ``d2h``).  A device phase on a card is read from a pair of
+timing events recorded around its one launch (``ops.staging.
+DeviceTimer``) once the engine's own wait on the result is done.  Every
+delivered packet's ingest-to-wire latency (against the ring's
+``arrival_ns``) feeds ``relay_ingest_to_wire_seconds``, the wake ledger's
+queue age, the profiler's session attribution and the audience store,
+one vectorized call each a rung.  What the engine uploads and reads back
+is counted in ``tpu_h2d_bytes_total`` and ``tpu_d2h_bytes_total``; its
+copies go through ``ops.staging``'s counted ``upload`` and ``readback``.
 """
 
 from __future__ import annotations
@@ -58,7 +74,8 @@ import time
 import numpy as np
 import torch
 
-from .. import native, resolve_device
+from .. import native, obs, resolve_device
+from ..obs import PROFILER, TRACER
 from ..ops import device_ring, staging
 from ..ops.fanout import (batch_upload_views, pack_batch_upload,
                           pack_output_state, relay_batch_step, unpack_affine)
@@ -66,7 +83,7 @@ from ..ops.parse import PARSE_PREFIX
 from ..protocol import rtp
 from .output import WriteResult
 from .ring import PacketFlags
-from .stream import RelayStream
+from .stream import Delivered, RelayStream, note_latency
 
 #: the flags of a packet that starts a video frame (``admit`` counts it)
 _VIDEO_FRAME_FIRST = PacketFlags.VIDEO | PacketFlags.FRAME_FIRST
@@ -206,6 +223,15 @@ class FanoutEngine:
         self._dring_epoch = 0         # arrival-ms epoch (int32 room)
         self._stage: _RingStaging | None = None
         self.dring_appends = 0
+        #: (engine, phase) → ns of the current pass, filed at its end
+        self._pass_phases: dict[tuple[str, str], int] = {}
+        self._pass_wire_bytes = 0
+        self._pass_ran = False
+
+    def _phase_add(self, phase: str, dur_ns: int,
+                   engine: str = "native") -> None:
+        key = (engine, phase)
+        self._pass_phases[key] = self._pass_phases.get(key, 0) + dur_ns
 
     # ------------------------------------------------------------ outputs
     def _flat_outputs(self, stream: RelayStream):
@@ -319,6 +345,7 @@ class FanoutEngine:
         n = ring.head - self._dring_appended
         if n <= 0:
             return
+        t_h = time.perf_counter_ns()
         pin = dr.rows.device.type == "cuda"
         st = self._stage
         if st is None or st.rows.shape[0] < n:
@@ -330,11 +357,15 @@ class FanoutEngine:
         slots = np.arange(start, start + n) % ring.capacity
         st.arrival.numpy()[:n] = ring.arrival[slots] - self._dring_epoch
         device_ring.append_rows(dr, st.rows, st.arrival, n)
+        staging.count_upload(st.rows[:n], st.arrival[:n])
         if pin:
             st.event = torch.cuda.Event()
             st.event.record()
         self._dring_appended = ring.head
         self.dring_appends += 1
+        obs.TPU_H2D_BYTES.inc(n * (device_ring.ROW_STRIDE + 4))
+        if PROFILER.enabled:
+            self._phase_add("h2d", time.perf_counter_ns() - t_h)
 
     def _install(self, key, params) -> tuple:
         self._params, self._params_key = params, key
@@ -357,11 +388,23 @@ class FanoutEngine:
             # rebase latch mid-wake): the scheduler staged its windows, so
             # the resident ring catches up first
             self._ring_sync(ring, now_ms)
-        state = torch.from_numpy(pack_output_state(outputs)).to(
-            self._dring.rows.device)
-        packed = device_ring.query_params(self._dring, state)
-        seq_off, ts_off, ssrc, chan, kf = unpack_affine(
-            packed.cpu().numpy()[None], len(outputs))
+        dev = self._dring.rows.device
+        state = staging.upload(
+            torch.from_numpy(pack_output_state(outputs)), dev)
+        obs.TPU_H2D_BYTES.inc(state.numel() * 4)
+        with staging.DeviceTimer(dev, PROFILER.enabled) as timer:
+            packed = device_ring.query_params(self._dring, state)
+        t_d = time.perf_counter_ns()
+        host = staging.readback(packed).numpy()   # the wait: query done
+        t_f = time.perf_counter_ns()
+        obs.TPU_D2H_BYTES.inc(host.nbytes)
+        if PROFILER.enabled:
+            dev_ns = timer.ns()
+            self._phase_add("device_step", dev_ns)
+            self._phase_add("d2h", t_f - t_d)
+            obs.TPU_PASS_SECONDS.observe(dev_ns / 1e9, stage="device_params")
+        seq_off, ts_off, ssrc, chan, kf = unpack_affine(host[None],
+                                                        len(outputs))
         params = tuple(np.ascontiguousarray(a)
                        for a in (seq_off, ts_off, ssrc, chan))
         if not params_agree(params, key):
@@ -369,14 +412,56 @@ class FanoutEngine:
         kf = int(kf[0])
         self.last_newest_keyframe = self._dring_base + kf if kf >= 0 else -1
         self.device_param_refreshes += 1
+        obs.TPU_PARAM_REFRESHES.inc()
         return self._install(key, params)
 
     # --------------------------------------------------------------- step
     def step(self, stream: RelayStream, now_ms: int) -> int:
         """One fan-out pass over ``stream``, then its RTCP; returns RTP
         packets written."""
+        t0 = time.perf_counter_ns()
+        profiled = PROFILER.enabled
+        self._pass_phases = {}
+        self._pass_wire_bytes = 0
+        self._pass_ran = False
         sent = self._send_rtp(stream, now_ms)
-        stream.relay_rtcp(now_ms)
+        if profiled and self._pass_ran:
+            t_r = time.perf_counter_ns()
+            stream.relay_rtcp(now_ms)
+            dt = time.perf_counter_ns() - t_r
+            # one slice per engine the pass ran, the last taking the
+            # division's remainder, so the slices sum to the bracket
+            engines = sorted({e for e, _ph in self._pass_phases}) \
+                or ["native"]
+            share = dt // len(engines)
+            for i, e in enumerate(engines):
+                self._phase_add("rtcp_qos", dt - share * (len(engines) - 1)
+                                if i == len(engines) - 1 else share,
+                                engine=e)
+        else:
+            stream.relay_rtcp(now_ms)
+        if not self._pass_ran:
+            return sent
+        dur = time.perf_counter_ns() - t0
+        obs.TPU_PASS_SECONDS.observe(dur / 1e9, stage="engine_step")
+        obs.TPU_PASSES.inc()
+        if sent:
+            obs.TPU_PACKETS_SENT.inc(sent)
+        if profiled and self._pass_phases:
+            by_engine: dict[str, dict[str, int]] = {}
+            for (eng, ph), ns in self._pass_phases.items():
+                by_engine.setdefault(eng, {})[ph] = ns
+            first = True                # session bytes and passes once
+            for eng, phases in sorted(by_engine.items()):
+                PROFILER.account_pass(
+                    eng, dur, phases, path=stream.session_path,
+                    wire_bytes=self._pass_wire_bytes if first else 0,
+                    count_pass=first)
+                first = False
+        span_args = {"sent": sent, "outputs": stream.num_outputs}
+        if stream.trace_id is not None:
+            span_args["trace_id"] = stream.trace_id
+        TRACER.add("engine.step", t0, dur, cat="tpu", **span_args)
         return sent
 
     def _send_rtp(self, stream: RelayStream, now_ms: int) -> int:
@@ -388,6 +473,7 @@ class FanoutEngine:
         udp, tcp, rest, batch = self.split_flat(flat)
         if not (udp or tcp or rest or batch):
             return 0
+        self._pass_ran = True
         sent = 0
         if udp or tcp or rest:
             sent += self._param_rungs(stream, udp, tcp, rest, now_ms)
@@ -467,10 +553,17 @@ class FanoutEngine:
             ops_np = np.empty((total, 2), np.int32)
             ops_np[:, 0] = win.idx[rows]
             ops_np[:, 1] = np.repeat(np.arange(n_out, dtype=np.int32), n)
+            t_e = time.perf_counter_ns()
             r, hard = self._udp_send_all(ring, params, self._dests_for(udp),
                                          ops_np)
+            wire_ns = time.perf_counter_ns()
+            if PROFILER.enabled:
+                self._phase_add("egress_native", wire_ns - t_e)
         k = np.clip(r - starts, 0, n)
         nbytes = win.valid_len_cum[first + k] - win.valid_len_cum[first]
+        if r > 0:
+            self._note_udp_delivered(stream, udp, win, ops_np[:r], first, k,
+                                     nbytes, wire_ns)
         # video frame starts among each output's first k + 1 and all n
         # sendable rows (``admit`` would have counted them)
         ff_k1 = (win.ff_cum[first + np.minimum(k + 1, n)]
@@ -503,6 +596,27 @@ class FanoutEngine:
                 out.payload_octets += nb - 12 * ks
         self.native_sent += r
         return r
+
+    def _note_udp_delivered(self, stream, udp, win, ops, first, k, nbytes,
+                            wire_ns: int) -> None:
+        """The UDP rung's delivered ops (``ops``: the sent prefix of the op
+        list, grouped by output) into the latency histogram and, for the
+        outputs with an audience row, the audience columns."""
+        self._pass_wire_bytes += int(nbytes.sum())
+        lat_s = (wire_ns - stream.rtp_ring.arrival_ns[ops[:, 0]]) / 1e9
+        blk = stream.audience
+        if blk is not None and obs.AUDIENCE.enabled:
+            rows = np.fromiter((getattr(o, "audience_row", -1)
+                                for o, _ in udp), np.int64, len(udp))
+            take = (rows >= 0) & (k > 0)
+            if take.any():
+                f, kk = first[take], k[take]
+                obs.AUDIENCE.note_pass(
+                    blk, rows[take], kk, nbytes[take],
+                    win.ids[win.valid_rows[f]],
+                    win.ids[win.valid_rows[f + kk - 1]],
+                    lat_s[take[ops[:, 1]]], wire_ns)
+        note_latency(stream, "native", lat_s)
 
     def _udp_send_all(self, ring, params, dests, ops_np) -> tuple[int, bool]:
         """``(ops sent, whether the stop was hard)`` for ``ops_np``."""
@@ -557,6 +671,9 @@ class FanoutEngine:
         ring = stream.rtp_ring
         seq_off, ts_off, ssrc, chan = params
         sent = 0
+        delivered = Delivered()
+        shed0 = self.tcp_shed_pkts
+        t_e = time.perf_counter_ns()
         for j, (out, b_idx) in enumerate(tcp):
             col = col0 + j
             if ring.head - out.bookmark > ring.capacity // 2:
@@ -625,6 +742,20 @@ class FanoutEngine:
                 out.bytes_sent += nbytes
                 out.payload_octets += nbytes - 12 * k
                 sent += k
+                delivered.add(out, slots[:k], nbytes, int(pids[0]),
+                              int(pids[k - 1]))
+        wire_ns = time.perf_counter_ns()
+        if PROFILER.enabled:
+            self._phase_add("egress_native", wire_ns - t_e)
+        if sent:
+            self._pass_wire_bytes += delivered.nbytes
+            obs.TCP_EGRESS_PACKETS.inc(sent, backend="writev")
+            obs.TCP_EGRESS_BYTES.inc(delivered.nbytes + 4 * sent,
+                                     backend="writev")
+            delivered.note(stream, "native", wire_ns)
+        if self.tcp_shed_pkts > shed0:
+            obs.TCP_EGRESS_BACKPRESSURE_SHEDS.inc(
+                self.tcp_shed_pkts - shed0, backend="writev")
         self.native_sent += sent
         return sent
 
@@ -651,9 +782,11 @@ class FanoutEngine:
                                  ring.timestamp[win.idx], seq_off[0],
                                  ts_off[0], ssrc[0])
         sent = 0
+        delivered = Delivered()
         for s, (out, b_idx) in enumerate(rest):
             deadline = win.now_ms - b_idx * win.delay
             pid = out.bookmark
+            o_slots, o_pids, nbytes = [], [], 0
             while pid < ring.head:
                 j = pid - win.start
                 # the oracle's order: eligibility first (break holds the
@@ -679,7 +812,15 @@ class FanoutEngine:
                     out.bytes_sent += n
                     out.payload_octets += n - 12
                     sent += 1
+                    nbytes += n
+                    o_slots.append(win.idx[j])
+                    o_pids.append(pid - 1)
+            if o_slots:
+                delivered.add(out, np.asarray(o_slots, np.int64), nbytes,
+                              o_pids[0], o_pids[-1])
             out.bookmark = pid
+        self._pass_wire_bytes += delivered.nbytes
+        delivered.note(stream, "scalar", time.perf_counter_ns())
         return sent
 
     # ------------------------------------------------- batch-header rung
@@ -702,9 +843,11 @@ class FanoutEngine:
         self.batch_passes += 1
         self.batch_rows += len(ids)
         sent = 0
+        delivered = Delivered()
         for s, (out, b_idx) in enumerate(batch):
             deadline = now_ms - b_idx * delay
             pid = out.bookmark
+            o_slots, o_pids, nbytes = [], [], 0
             while pid < ring.head:
                 j = pid - start
                 # the oracle's order: eligibility first (break holds the
@@ -727,7 +870,15 @@ class FanoutEngine:
                     out.bytes_sent += n
                     out.payload_octets += n - 12
                     sent += 1
+                    nbytes += n
+                    o_slots.append(idx[j])
+                    o_pids.append(pid - 1)
+            if o_slots:
+                delivered.add(out, np.asarray(o_slots, np.int64), nbytes,
+                              o_pids[0], o_pids[-1])
             out.bookmark = pid
+        self._pass_wire_bytes += delivered.nbytes
+        delivered.note(stream, "batch", time.perf_counter_ns())
         self.batch_sent += sent
         return sent
 
@@ -752,18 +903,29 @@ class FanoutEngine:
             up.numpy(), ring.data[idx, :PARSE_PREFIX], lengths, ages,
             pack_output_state([o for o, _ in batch]),
             np.fromiter((b for _, b in batch), np.int32, n_subs))
-        d_up = up[:nbytes].to(dev, non_blocking=True)
+        d_up = staging.upload(up[:nbytes], dev)
         t1 = time.perf_counter_ns()
-        res = relay_batch_step(*batch_upload_views(d_up, n_pkts, n_subs),
-                               delay)
+        with staging.DeviceTimer(dev, PROFILER.enabled) as timer:
+            res = relay_batch_step(
+                *batch_upload_views(d_up, n_pkts, n_subs), delay)
         n_hdr = n_subs * n_pkts * 12
         out = st.buffer("headers", (staging.pow2(n_hdr, 4096),))[:n_hdr]
-        out.copy_(res["headers"].view(-1), non_blocking=True)
+        staging.readback(res["headers"].view(-1), out)
         st.record()
         if st.event is not None:
-            st.event.synchronize()
+            st.event.synchronize()       # the wait: kernel and copy done
+        t2 = time.perf_counter_ns()
         self.batch_stage_ns += t1 - t0
-        self.batch_kernel_ns += time.perf_counter_ns() - t1
+        self.batch_kernel_ns += t2 - t1
+        obs.TPU_H2D_BYTES.inc(nbytes)
+        obs.TPU_D2H_BYTES.inc(n_hdr)
+        obs.TPU_HEADERS_RENDERED.inc(n_subs * n_pkts)
+        if PROFILER.enabled:
+            dev_ns = timer.ns()
+            self._phase_add("h2d", t1 - t0, engine="batch")
+            self._phase_add("device_step", dev_ns, engine="batch")
+            # the copy back and the wait on it, past the kernel's own time
+            self._phase_add("d2h", max(t2 - t1 - dev_ns, 0), engine="batch")
         return out.numpy().reshape(n_subs, n_pkts, 12)
 
 

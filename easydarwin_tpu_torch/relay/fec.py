@@ -1,7 +1,16 @@
 """Lossy-UDP reliability tier: FEC parity windows and NACK → RTX replay.
 
-A copy of the reference's ``relay/fec.py`` without its ``obs`` gauges and
-events, with the device pass on the port's B4 (``ed_gf_parity``):
+A copy of the reference's ``relay/fec.py``, with the device pass on the
+port's B4 (``ed_gf_parity``) and the reference's ``obs`` counters:
+``fec_parity_packets_total{kind}``, the per-stream
+``fec_overhead_ratio`` gauge (dropped with ``drop_overhead_gauge`` when a
+player leaves), ``rtx_sent_total``, ``rtx_giveup_total`` (and one
+``rtx.giveup`` event an output, at its first), the audience store's RTX
+and FEC credits, ``fec_recovered_total`` and ``fec_solve_singular_total``
+of the receiver model, and each device pass's
+``tpu_pass_seconds{stage="fec_parity"}`` (from timing events around the
+launch on a card) and its bytes in ``tpu_h2d_bytes_total`` and
+``tpu_d2h_bytes_total``:
 
 * **FEC parity as a GF(256) product.**  The fixed-slot ring is a dense
   ``[window, slot]`` uint8 matrix, so a window's parity is one product:
@@ -43,7 +52,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from .. import resolve_device
+from .. import obs, resolve_device
 from ..ops import staging
 
 # ------------------------------------------------------------ GF(256) tables
@@ -116,17 +125,19 @@ def coeff_rows(deltas, n_parity: int) -> np.ndarray:
     return GF_EXP512[(np.outer(p, d)) % 255].astype(np.uint8)
 
 
-def gf_solve(a: np.ndarray, b: np.ndarray) -> np.ndarray | None:
+def gf_solve(a: np.ndarray, b: np.ndarray,
+             caller: str = "unlabeled") -> np.ndarray | None:
     """Solve ``A · x = b`` over GF(256) (A ``[m, m]``, b ``[m, B]``) by
     Gaussian elimination; None when A is singular (which an arbitrary
     parity-index subset can be, never the consecutive-from-0 rows of
-    ``coeff_rows``)."""
+    ``coeff_rows``), counted under ``caller``."""
     a = np.array(a, np.uint8)
     b = np.array(b, np.uint8)
     m = a.shape[0]
     for col in range(m):
         piv = next((r for r in range(col, m) if a[r, col]), None)
         if piv is None:
+            obs.FEC_SOLVE_SINGULAR.inc(caller=caller)
             return None
         if piv != col:
             a[[col, piv]] = a[[piv, col]]
@@ -358,6 +369,8 @@ class FecOutputState:
         self.parity_sent = 0
         self.rtx_sent = 0
         self.rtx_giveups = 0
+        #: the first give-up's event was emitted (one an output)
+        self._giveup_reported = False
         self._tokens = float(cfg.rtx_burst)
         self._last_refill_ms: int | None = None
 
@@ -469,7 +482,9 @@ class StreamFec:
         ring = self.stream.rtp_ring
         k = self.cfg.window
         sent = 0
+        max_ratio = 0.0
         for out, f in self._states:
+            max_ratio = max(max_ratio, f.controller.overhead)
             if out.bookmark is None or f.next_window is None:
                 continue
             if not out.thinning.passthrough():
@@ -492,6 +507,12 @@ class StreamFec:
                   - self.CACHE_WINDOWS]:
             self._cache.pop(w, None)
             self._cached_rows.pop(w, None)
+        if self.stream.session_path is not None:
+            # set every pass: a departed player's close drops the gauge of
+            # the whole path, and a surviving FEC player sets it again
+            obs.FEC_OVERHEAD_RATIO.set(
+                round(max_ratio, 4), path=self.stream.session_path,
+                track=str(self.stream.info.track_id))
         return sent
 
     # -- window parity --------------------------------------------------
@@ -575,19 +596,25 @@ class StreamFec:
         rows = rows_t.numpy()
         staging.stage_fec_rows(self.stream.rtp_ring, slots, lens, rows)
         coeff_t.numpy()[:] = coeff
-        d_rows = rows_t.to(dev, non_blocking=True)
-        d_coeff = coeff_t.to(dev, non_blocking=True)
+        d_rows = staging.upload(rows_t, dev)
+        d_coeff = staging.upload(coeff_t, dev)
         t1 = time.perf_counter_ns()
         out_t = st.buffer("parity", (coeff.shape[0], b_pad))
-        out_t.copy_(fec_parity_window_step(d_rows, d_coeff),
-                    non_blocking=True)
+        with staging.DeviceTimer(dev, obs.PROFILER.enabled) as timer:
+            parity = fec_parity_window_step(d_rows, d_coeff)
+        staging.readback(parity, out_t)
         st.record()
         if st.event is not None:
-            st.event.synchronize()
+            st.event.synchronize()       # the wait: kernel and copy done
         self.device_passes += 1
         t2 = time.perf_counter_ns()
         self.stage_ns += t1 - t0
         self.kernel_ns += t2 - t1
+        if obs.PROFILER.enabled:
+            obs.TPU_PASS_SECONDS.observe(timer.ns() / 1e9,
+                                         stage="fec_parity")
+        obs.TPU_H2D_BYTES.inc(rows.nbytes + coeff.nbytes)
+        obs.TPU_D2H_BYTES.inc(out_t.numel())
         return rows, out_t.numpy().copy()
 
     def _emit_window(self, out, f: FecOutputState, w: int,
@@ -639,6 +666,7 @@ class StreamFec:
         if sent:
             self.parity_sent += sent
             self.windows_emitted += 1
+            obs.FEC_PARITY_PACKETS.inc(sent, kind=KIND_NAMES[kind])
         return sent
 
     # -- NACK / RTX -------------------------------------------------------
@@ -671,6 +699,13 @@ class StreamFec:
             if not f.take_rtx_token(now_ms):
                 f.rtx_giveups += 1
                 self.rtx_giveups += 1
+                obs.RTX_GIVEUP.inc()
+                if not f._giveup_reported:
+                    f._giveup_reported = True
+                    obs.EVENTS.emit("rtx.giveup", level="warn",
+                                    stream=self.stream.session_path,
+                                    trace_id=self.stream.trace_id,
+                                    giveups=f.rtx_giveups)
                 if on_giveup is not None:
                     on_giveup(self.stream.session_path)
                 continue
@@ -689,8 +724,16 @@ class StreamFec:
                 f.rtx_seq = (f.rtx_seq + 1) & 0xFFFF
                 f.rtx_sent += 1
                 sent += 1
+                obs.RTX_SENT.inc()
         self.rtx_sent += sent
+        if sent:
+            obs.AUDIENCE.note_credit(out, rtx=sent)
         return sent
+
+
+def drop_overhead_gauge(path: str, track_id) -> None:
+    """Remove a departed stream's FEC overhead gauge."""
+    obs.FEC_OVERHEAD_RATIO.remove(path=path or "-", track=str(track_id))
 
 
 def _find_ring_id(ring, src_seq: int) -> int | None:
@@ -835,7 +878,7 @@ class FecReceiver:
             miss_d = [d for s, d in zip(prot, deltas)
                       if self.have(s) is None]
             a = coeff_for_indices(miss_d, idxs)
-            rows = gf_solve(a, synd)
+            rows = gf_solve(a, synd, caller="fec_receiver")
             if rows is None:
                 continue
             ok = True
@@ -851,6 +894,7 @@ class FecReceiver:
             for s, wire in out.items():
                 self.recovered[s] = wire
                 solved += 1
+                obs.FEC_RECOVERED.inc()
             self._groups.pop(key, None)
         return solved
 

@@ -54,6 +54,29 @@ mesh's devices instead:
 A mesh dispatch that fails is counted (``mesh_dispatch_errors``) and
 raised to the wake.  Without a mesh every dispatch takes the one-device
 path.
+
+**Observability** (``obs``).  A dispatch is one ``megabatch.dispatch``
+span and one profiler pass (engine ``megabatch``: ``stage_gather``, the
+host gather into the staging buffers, and ``h2d``, the uploads and the
+enqueue of the copies back, without the window calls); a prime is one
+``megabatch.prime`` span and a pass of ``device_step`` and ``d2h``.  Each
+window call's device time comes from a pair of timing events that its
+launch wrapper records on the current stream just before and just after
+the ``ed_relay_window`` launch (``ops.staging.DeviceTimer``), and is read
+only when that device's work is known done: a prime after its own
+blocking read, a dispatch at the harvest of the first bucket the device
+ran, once its event there has answered ``query()`` (or been waited on by
+a forced fetch), never through an added wait.  It is filed as
+``device_step`` (so that phase's count is the window calls of the
+scheduler) and as ``tpu_pass_seconds{stage="pipeline_dispatch"}``.  A
+harvest's fetch is ``d2h`` when the pass was ready and ``h2d_overlap``
+when it was forced (the double buffer's un-hidden remainder).  A
+saturated ``end_wake`` is a ``megabatch`` deferral in the wake ledger.
+``megabatch_passes_total``/``_streams_total`` count buckets and their
+streams, ``tpu_h2d_bytes_total``/``tpu_d2h_bytes_total`` the staging and
+readback bytes (the copies themselves go through ``ops.staging``'s
+counted ``upload`` and ``readback``), and the mesh path bumps the
+per-device families.
 """
 
 from __future__ import annotations
@@ -63,7 +86,8 @@ import time
 import numpy as np
 import torch
 
-from .. import native, resolve_device
+from .. import native, obs, resolve_device
+from ..obs import LEDGER, PROFILER, TRACER
 from ..models.relay_pipeline import (megabatch_window_steps, on_device,
                                      scatter_affine_segments)
 from ..ops import staging
@@ -92,9 +116,10 @@ class _InFlight:
     list (one shard without a mesh)."""
 
     __slots__ = ("host", "event", "entries", "buf", "dispatch_ns",
-                 "rows_per")
+                 "rows_per", "timers")
 
-    def __init__(self, host, event, entries, buf, dispatch_ns, rows_per):
+    def __init__(self, host, event, entries, buf, dispatch_ns, rows_per,
+                 timers):
         #: each shard's host copy of its [rows, 4·S+1] result, pinned on a
         #: card (valid once its event has completed); None: padding only
         self.host = host
@@ -109,6 +134,11 @@ class _InFlight:
         self.dispatch_ns = dispatch_ns
         #: stream rows a shard
         self.rows_per = rows_per
+        #: each shard's ``DeviceTimer`` of its device's window call of the
+        #: wake, on the first bucket that device ran (the call is shared,
+        #: and that bucket's event of the device comes after its stop);
+        #: None: none
+        self.timers = timers
 
     def ready(self) -> bool:
         return all(e is None or e.query() for e in self.event)
@@ -188,6 +218,7 @@ class MegabatchScheduler:
 
     def end_wake(self, pairs, now_ms: int) -> None:
         """Collect, bucket, stage and dispatch the next stacked pass."""
+        t0 = time.perf_counter_ns()
         # prune dead streams BEFORE any early return: a torn-down stream's
         # id() can be recycled by a new RelayStream
         live = {id(s) for s, _ in pairs}
@@ -196,6 +227,7 @@ class MegabatchScheduler:
             self._state_cache.pop(sid, None)
         if len(self._inflight) >= self.MAX_INFLIGHT:
             self.deferred_wakes += 1       # saturated: dispatch next wake
+            LEDGER.defer("megabatch", len(pairs))
             return
         work = self._collect(pairs)
         if not work:
@@ -205,8 +237,14 @@ class MegabatchScheduler:
             _stream, _eng, fast, _key, _base, n_new = item
             shape = (pow2(max(n_new, 1), 16), pow2(len(fast), 8))
             buckets.setdefault(shape, []).append(item)
-        self._dispatch([(entries, p_pad, s_pad) for (p_pad, s_pad), entries
-                        in sorted(buckets.items())])
+        gather_ns, h2d_ns = self._dispatch(
+            [(entries, p_pad, s_pad) for (p_pad, s_pad), entries
+             in sorted(buckets.items())])
+        total = time.perf_counter_ns() - t0
+        PROFILER.account_pass("megabatch", total,
+                              {"stage_gather": gather_ns, "h2d": h2d_ns})
+        TRACER.add("megabatch.dispatch", t0, total, cat="tpu",
+                   buckets=len(buckets), streams=len(work))
 
     # ------------------------------------------------------------- prime
     def _prime_stale(self, pairs, now_ms: int) -> None:
@@ -229,6 +267,7 @@ class MegabatchScheduler:
             stale.append((eng, fast, key))
         if not stale:
             return
+        t0 = time.perf_counter_ns()
         buckets: dict[int, list] = {}
         for item in stale:
             buckets.setdefault(pow2(len(item[1]), 8), []).append(item)
@@ -244,14 +283,31 @@ class MegabatchScheduler:
             for i, (_eng, fast, _key) in enumerate(items):
                 state[i, :len(fast)] = pack_output_state(fast)
             groups.append(items)
-            inputs.append((win, torch.from_numpy(state).to(self.device)))
-        for items, res in zip(groups, self._window_steps(inputs)):
+            inputs.append((win, staging.upload(torch.from_numpy(state),
+                                               self.device)))
+            obs.TPU_H2D_BYTES.inc(state.nbytes)
+        with staging.DeviceTimer(self.device, PROFILER.enabled) as timer:
+            results = self._window_steps(inputs)
+        t_d = time.perf_counter_ns()
+        packed = [staging.readback(res).numpy()         # the wait
+                  for res in results]
+        t_f = time.perf_counter_ns()
+        for items, host in zip(groups, packed):
+            obs.TPU_D2H_BYTES.inc(host.nbytes)
             segs = scatter_affine_segments(
-                res.cpu().numpy(), [len(f) for (_e, f, _k) in items])
+                host, [len(f) for (_e, f, _k) in items])
             for (eng, _fast, key), seg in zip(items, segs):
                 self._install_segment(eng, key, seg)
             self.prime_passes += 1
             self._note_pass(len(items))
+        if PROFILER.enabled:
+            dev_ns = max(timer.ns(), 1)
+            PROFILER.account_pass("megabatch", t_f - t_d + dev_ns,
+                                  {"device_step": dev_ns, "d2h": t_f - t_d})
+            obs.TPU_PASS_SECONDS.observe(dev_ns / 1e9,
+                                         stage="pipeline_dispatch")
+        TRACER.add("megabatch.prime", t0, time.perf_counter_ns() - t0,
+                   cat="tpu", streams=len(stale))
 
     def _window_steps(self, inputs) -> list:
         """The one device call of a dispatch or a prime."""
@@ -308,6 +364,7 @@ class MegabatchScheduler:
         params, kf = seg[:4], seg[4]
         if not params_agree(params, key):
             self.mismatches += 1
+            obs.MEGABATCH_WIRE_MISMATCH.inc()
             eng.megabatch_params = None
             return False
         eng.megabatch_params = (key, params)
@@ -320,6 +377,8 @@ class MegabatchScheduler:
     def _note_pass(self, n_streams: int) -> None:
         self.passes += 1
         self.streams_coalesced += n_streams
+        obs.MEGABATCH_PASSES.inc()
+        obs.MEGABATCH_STREAMS.inc(n_streams)
 
     def _packed_state(self, stream, fast, key) -> np.ndarray:
         cached = self._state_cache.get(id(stream))
@@ -335,18 +394,21 @@ class MegabatchScheduler:
         upload each shard's rows from its own pinned buffer, then ONE
         window call a device for the wake; each shard's result goes to its
         pinned host buffer behind its device's event.  A mesh dispatch
-        that raises is counted first."""
+        that raises is counted first.  Returns the host ns of the gather
+        and of the uploads and calls."""
         if self.mesh is None:
-            self._dispatch_shards(buckets, [self.device])
-            return
+            return self._dispatch_shards(buckets, [self.device])
         try:
-            self._dispatch_shards(buckets, self._mesh_devices)
+            return self._dispatch_shards(buckets, self._mesh_devices)
         except Exception:
             self.mesh_dispatch_errors += 1
             raise
 
-    def _dispatch_shards(self, buckets, devs) -> None:
+    def _dispatch_shards(self, buckets, devs) -> tuple[int, int]:
         n_dev = len(devs)
+        mesh = self.mesh is not None
+        gather_ns = 0
+        up_ns = [0] * n_dev
         staged = []
         #: per device, the (window, state) of each bucket it takes, and
         #: the index of that bucket
@@ -357,6 +419,7 @@ class MegabatchScheduler:
             bufs = [self._buffer(rows_per, p_pad, s_pad) for _ in devs]
             filled = [0] * n_dev
             recs = []
+            t_g = time.perf_counter_ns()
             for buf in bufs:
                 buf.state_np[:] = 0
             for i, (stream, eng, fast, key, base, n_new) in enumerate(
@@ -371,75 +434,148 @@ class MegabatchScheduler:
                 filled[k] = r + 1
             for k, buf in enumerate(bufs):
                 buf.win_np[filled[k]:] = 0   # shard and bucket padding
+            t_u = time.perf_counter_ns()
+            gather_ns += t_u - t_g
+            for k, buf in enumerate(bufs):
                 if filled[k]:                # a padding-only shard: none
                     dev = devs[k]
-                    inputs[k].append(
-                        (buf.win.to(dev, non_blocking=True),
-                         buf.state.to(dev, non_blocking=True))
-                        if dev.type == "cuda" else (buf.win, buf.state))
+                    inputs[k].append((staging.upload(buf.win, dev),
+                                      staging.upload(buf.state, dev)))
                     where[k].append(b)
+                    obs.TPU_H2D_BYTES.inc(buf.win.nbytes + buf.state.nbytes)
+                    t_k = time.perf_counter_ns()
+                    up_ns[k] += t_k - t_u
+                    t_u = t_k
+                    if mesh:
+                        obs.MEGABATCH_DEVICE_PASSES.inc(device=str(k))
+                        obs.MEGABATCH_DEVICE_STREAMS.inc(filled[k],
+                                                         device=str(k))
             staged.append((bufs, recs, rows_per))
         results = []
-        for dev, pairs in zip(devs, inputs):
+        timers = [None] * n_dev
+        t_c = time.perf_counter_ns()
+        call_ns = 0
+        for k, (dev, pairs) in enumerate(zip(devs, inputs)):
             with on_device(dev):
-                results.append(self._window_steps(pairs) if pairs else [])
+                if pairs:
+                    t_k = time.perf_counter_ns()
+                    with staging.DeviceTimer(dev, PROFILER.enabled) as tm:
+                        results.append(self._window_steps(pairs))
+                    timers[k] = tm
+                    call_ns += time.perf_counter_ns() - t_k
+                else:
+                    results.append([])
         hosts = [[None] * n_dev for _ in buckets]
         events = [[None] * n_dev for _ in buckets]
         for k, (dev, outs) in enumerate(zip(devs, results)):
+            card = dev.type == "cuda"
             event = None
-            if dev.type == "cuda":
-                copies = []
-                for res in outs:
-                    host = torch.empty(res.shape, dtype=torch.int32,
-                                       pin_memory=True)
-                    host.copy_(res.view(torch.int32), non_blocking=True)
-                    copies.append(host)
-                if outs:
-                    event = torch.cuda.Event()
-                    event.record(torch.cuda.current_stream(dev))
-                outs = copies
-            for b, res in zip(where[k], outs):
-                hosts[b][k] = res
+            copies = [staging.readback(res.view(torch.int32), torch.empty(
+                res.shape, dtype=torch.int32, pin_memory=card))
+                for res in outs]
+            if card and outs:
+                event = torch.cuda.Event()
+                event.record(torch.cuda.current_stream(dev))
+            for b, host in zip(where[k], copies):
+                hosts[b][k] = host
                 events[b][k] = event
+        # device k's timer rides the first bucket it ran: that bucket's
+        # harvest waits on (or has seen done) device k's event, recorded
+        # behind the timer's stop
+        bucket_timers = [[None] * n_dev for _ in buckets]
+        for k, timer in enumerate(timers):
+            if timer is not None:
+                bucket_timers[where[k][0]][k] = timer
         now = time.perf_counter_ns()
-        for (bufs, recs, rows_per), host, ev in zip(staged, hosts, events):
+        for (bufs, recs, rows_per), host, ev, tms in zip(
+                staged, hosts, events, bucket_timers):
             self._inflight.append(_InFlight(host, ev, recs, bufs, now,
-                                            rows_per))
+                                            rows_per, tms))
             self._note_pass(len(recs))
-            self.sharded_passes += self.mesh is not None
+            self.sharded_passes += mesh
+        if mesh and PROFILER.enabled:
+            for k, ns in enumerate(up_ns):
+                if ns:
+                    obs.MEGABATCH_DEVICE_PHASE_SECONDS.observe(
+                        ns / 1e9, device=str(k), phase="h2d")
+        # the window calls are the device_step phase's, not the upload's
+        return gather_ns, sum(up_ns) + now - t_c - call_ns
 
-    def _consume(self, inf: _InFlight) -> int:
+    def _consume(self, inf: _InFlight) -> tuple[int, int]:
         """Install one pass shard by shard: each shard's rows from its own
-        host copy, through the oracle check."""
+        host copy, through the oracle check, and, once the shard's event
+        is known done, its device's window-call time when the pass holds
+        it.  Returns the installs and the host ns of the fetches (the
+        event waits and host views)."""
         installed = 0
+        fetch_ns = 0
+        mesh = self.mesh is not None
         for k, host in enumerate(inf.host):
             ents = inf.entries[k * inf.rows_per:(k + 1) * inf.rows_per]
             if not ents:
                 continue                     # padding only: nothing ran
+            t_w = time.perf_counter_ns()
             if inf.event[k] is not None:
                 inf.event[k].synchronize()   # no-op once ready() said done
             packed = host.numpy().view(np.uint32)
+            t_f = time.perf_counter_ns()
+            fetch_ns += t_f - t_w
+            if inf.timers[k] is not None:
+                self._note_device_time(k, inf.timers[k])
+            obs.TPU_D2H_BYTES.inc(packed.nbytes)
+            if mesh and PROFILER.enabled:
+                obs.MEGABATCH_DEVICE_PHASE_SECONDS.observe(
+                    (t_f - t_w) / 1e9, device=str(k), phase="d2h")
             segs = scatter_affine_segments(
                 packed, [n for (_s, _e, _k, n, _b) in ents])
             for (_stream, eng, key, _n, base), seg in zip(ents, segs):
                 if self._install_segment(eng, key, seg, base=base):
                     installed += 1
-        return installed
+        return installed, fetch_ns
+
+    def _note_device_time(self, k: int, timer) -> None:
+        """Device ``k``'s window-call time of a harvested wake, one
+        ``device_step`` sample a call (read only after that device's event
+        of the wake has completed)."""
+        if not PROFILER.enabled:
+            return
+        dev_ns = max(timer.ns(), 1)
+        PROFILER.observe("device_step", "megabatch", dev_ns)
+        obs.TPU_PASS_SECONDS.observe(dev_ns / 1e9, stage="pipeline_dispatch")
+        if self.mesh is not None:
+            obs.MEGABATCH_DEVICE_PHASE_SECONDS.observe(
+                dev_ns / 1e9, device=str(k), phase="device_step")
 
     # ------------------------------------------------------------- harvest
     def _harvest(self, *, force: bool = False) -> int:
+        if not self._inflight:
+            return 0
+        t0 = time.perf_counter_ns()
         keep: list[_InFlight] = []
         installed = 0
+        d2h_ns = overlap_ns = 0
         for inf in self._inflight:
             age = time.perf_counter_ns() - inf.dispatch_ns
-            if not (inf.ready() or force or age >= self.FORCE_FETCH_NS):
+            ready = inf.ready()
+            if not (ready or force or age >= self.FORCE_FETCH_NS):
                 keep.append(inf)           # never stall the wake on it
                 continue
-            installed += self._consume(inf)
+            got, fetch_ns = self._consume(inf)
+            installed += got
+            # a ready pass's fetch is the copy's; a forced one's is the
+            # double buffer's un-hidden remainder
+            if ready:
+                d2h_ns += fetch_ns
+            else:
+                overlap_ns += fetch_ns
             for buf in inf.buf:
                 self._recycle(buf)
             self.harvests += 1
         self._inflight = keep
+        if d2h_ns or overlap_ns:
+            PROFILER.account_pass(
+                "megabatch", time.perf_counter_ns() - t0,
+                {"h2d_overlap": overlap_ns, "d2h": d2h_ns})
         return installed
 
     # -------------------------------------------------------------- stats

@@ -13,15 +13,20 @@ which it owns; ``PullRelayManager`` keeps them, is driven by REST
 ``startpullrelay`` / ``stoppullrelay`` / ``getpullrelays``, refuses a
 path that already has a session, and sweeps pulls whose upstream ended.
 A dead pull never removes a session something else has since taken
-over (a re-ANNOUNCE).
+over (a re-ANNOUNCE).  The local session is served under the pull's own
+trace id, its streams count their players in the audience store's
+``pull`` tier, and a start, an upstream EOF and a stop are ``pull.*``
+events.
 """
 
 from __future__ import annotations
 
 import asyncio
+import secrets
 import time
 from urllib.parse import urlparse
 
+from ..obs import EVENTS
 from ..utils.client import RtspClient
 from .session import RelaySession, SessionRegistry
 
@@ -48,6 +53,8 @@ class PullRelay:
         #: called with the path after each media packet (the pump's wake)
         self.on_packet = on_packet
         self.client = RtspClient()
+        #: the trace id the local session is served under
+        self.trace_id = secrets.token_hex(8)
         self.session: RelaySession | None = None
         self.started_at = time.time()
         self.alive = False
@@ -85,7 +92,12 @@ class PullRelay:
             self._channel_map[2 * i + 1] = (st.track_id, True)
         self.session = self.registry.find_or_create(self.local_path, sd.raw)
         self.session.owner = self
+        self.session.set_trace(self.trace_id)
+        for st in self.session.streams.values():
+            st.audience_tier = "pull"   # its players are pull-fed
         self.alive = True
+        EVENTS.emit("pull.start", stream=self.local_path,
+                    trace_id=self.trace_id, url=self.url)
         self._forward_task = asyncio.create_task(
             self._forward_loop(), name=f"pull:{self.local_path}")
 
@@ -113,6 +125,10 @@ class PullRelay:
         except (asyncio.CancelledError, ConnectionError):
             pass
         finally:
+            if self.alive:              # upstream EOF, not a local stop
+                EVENTS.emit("pull.eof", level="warn",
+                            stream=self.local_path, trace_id=self.trace_id,
+                            url=self.url)
             self.alive = False
             # release the session now, as a pusher's disconnect does: a
             # later ANNOUNCE gets a fresh session, never a dead pull's
@@ -139,6 +155,9 @@ class PullRelay:
             await self.client.teardown(self.url)
         await self.client.close()
         self._release()
+        EVENTS.emit("pull.stop", stream=self.local_path,
+                    trace_id=self.trace_id, url=self.url,
+                    packets=self.client.stats.packets)
 
     def stats(self) -> dict:
         n = self.client.stats.packets

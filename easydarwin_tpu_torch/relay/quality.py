@@ -3,7 +3,10 @@
 A copy of the reference's ``relay/quality.py`` (``QTSSFlowControlModule``
 parity: thin when loss > 30% once or > 10% three times running, thicken
 after six clean reports; 3GPP NADU buffer state feeds the same
-hysteresis), without its QoS gauges.  A relay knows only frame boundaries
+hysteresis), with its QoS gauges: ``qos_thins_total`` and
+``qos_thickens_total`` count the level moves, ``record_rr_qos`` sets a
+stream's ``qos_fraction_lost_ratio`` and ``qos_jitter_seconds`` from each
+RR block and ``drop_qos`` removes them when its player leaves.  A relay knows only frame boundaries
 and keyframes (the ingest classifier), so thinning drops *complete
 frames* per output:
 
@@ -21,6 +24,7 @@ from __future__ import annotations
 
 from dataclasses import dataclass, field
 
+from .. import obs
 from .ring import PacketFlags
 
 MAX_LEVEL = 3
@@ -102,9 +106,30 @@ class QualityController:
         new = max(0, min(MAX_LEVEL, self.level + d))
         if new > self.level:
             self.thins += 1
+            obs.QOS_THINS.inc()
         elif new < self.level:
             self.thickens += 1
+            obs.QOS_THICKENS.inc()
         self.level = new
+
+
+def record_rr_qos(path: str, track_id, fraction_lost: float,
+                  jitter_units: int, clock_rate: int | None = None) -> None:
+    """One RR report block into the stream's QoS gauges: the newest
+    report's loss fraction, and its RFC 3550 interarrival jitter (RTP
+    timestamp units) in seconds at the stream's clock rate (90 kHz when
+    unknown)."""
+    rate = clock_rate or 90000
+    labels = {"path": path or "-", "track": str(track_id)}
+    obs.QOS_FRACTION_LOST.set(round(float(fraction_lost), 6), **labels)
+    obs.QOS_JITTER.set(round(jitter_units / rate, 6), **labels)
+
+
+def drop_qos(path: str, track_id) -> None:
+    """Remove a departed stream's QoS gauges from the exposition."""
+    labels = {"path": path or "-", "track": str(track_id)}
+    obs.QOS_FRACTION_LOST.remove(**labels)
+    obs.QOS_JITTER.remove(**labels)
 
 
 @dataclass

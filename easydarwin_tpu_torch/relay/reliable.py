@@ -1,7 +1,9 @@
 """Reliable UDP: resend window, RTT/cwnd tracking, overbuffer pacing.
 
 A copy of the reference's ``relay/reliable.py`` (the reliable-RTP kit
-behind ``RTPStream::ReliableRTPWrite``) without its ``obs`` event:
+behind ``RTPStream::ReliableRTPWrite``), with its ``obs`` event: a
+resend sweep in which packets gave up emits one ``reliable.expired``
+(per sweep, never per packet):
 
 * ``BandwidthTracker``: Karn-style smoothed RTT (SRTT/RTTVAR → RTO) and a
   byte congestion window, slow start then congestion avoidance;
@@ -23,6 +25,7 @@ import struct
 import time
 from dataclasses import dataclass
 
+from ..obs import EVENTS
 from ..protocol import rtp
 from ..protocol.rtcp import App
 from .output import RelayOutput, WriteResult
@@ -245,6 +248,8 @@ class ReliableUdpOutput(RelayOutput):
             self.tracker.max_cwnd = float(cap)
             self.tracker.ssthresh = min(self.tracker.ssthresh, float(cap))
         self.resender = PacketResender(self.tracker)
+        #: the give-ups the last ``reliable.expired`` event reported
+        self._expired_reported = 0
         self._clock = clock or (lambda: int(time.monotonic() * 1000))
 
     @property
@@ -283,4 +288,11 @@ class ReliableUdpOutput(RelayOutput):
             if self.transport.send_bytes(data, is_rtcp=False) \
                     is WriteResult.OK:
                 n += 1
+        if self.resender.expired > self._expired_reported:
+            self._expired_reported = self.resender.expired
+            EVENTS.emit("reliable.expired", level="warn",
+                        session_id=getattr(self, "session_id", None),
+                        trace_id=getattr(self, "trace_id", None),
+                        expired=self.resender.expired,
+                        resent=self.resender.resent)
         return n

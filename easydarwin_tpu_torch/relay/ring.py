@@ -5,6 +5,7 @@ A struct-of-arrays ring replaces the reflector's linked packet queue:
 * ``data``     uint8  [capacity, SLOT_SIZE]  packet bytes, zero-padded
 * ``length``   int32  [capacity]
 * ``arrival``  int64  [capacity]             arrival time, ms
+* ``arrival_ns`` int64 [capacity]             ingest stamp, ``perf_counter_ns``
 * ``flags``    int32  [capacity]             bitfield (RTCP / keyframe / …)
 * ``seq``      int32  [capacity]             RTP sequence (host byte order)
 * ``timestamp``/``ssrc`` int64 [capacity]
@@ -15,6 +16,8 @@ because ids never repeat.
 """
 
 from __future__ import annotations
+
+import time
 
 import numpy as np
 
@@ -50,6 +53,10 @@ class PacketRing:
         self.data = np.zeros((capacity, slot_size), dtype=np.uint8)
         self.length = np.zeros(capacity, dtype=np.int32)
         self.arrival = np.zeros(capacity, dtype=np.int64)
+        #: the host's ``perf_counter_ns`` at admission: the ingest-to-wire
+        #: latency (``obs.RELAY_INGEST_TO_WIRE``) is read against it per
+        #: packet, not rounded to a millisecond
+        self.arrival_ns = np.zeros(capacity, dtype=np.int64)
         self.flags = np.zeros(capacity, dtype=np.int32)
         self.seq = np.zeros(capacity, dtype=np.int32)
         self.timestamp = np.zeros(capacity, dtype=np.int64)
@@ -112,20 +119,23 @@ class PacketRing:
             self.data[s, n:] = 0
         self.length[s] = n
         self.arrival[s] = arrival_ms
+        self.arrival_ns[s] = time.perf_counter_ns()
         self.classify_slot(s, packet, is_rtcp=is_rtcp)
         self.head = pid + 1
         return pid
 
     def push_block(self, data: np.ndarray, length: np.ndarray,
                    arrival_ms: np.ndarray, flags: np.ndarray,
-                   seq: np.ndarray, timestamp: np.ndarray) -> int:
+                   seq: np.ndarray, timestamp: np.ndarray,
+                   arrival_ns: np.ndarray | None = None) -> int:
         """Admit ``n`` pre-classified packets (``data [n, <= slot_size]``
         uint8 rows and their per-packet metadata) into consecutive slots
         in a few array copies: the VOD pacer's fill from a packed cache
         window, which was parsed and classified once when it was packed.
         Each row's RTP seq bytes are restamped from ``seq``, so one shared
         canonical window serves every subscriber's ring.  Returns the
-        absolute id of the first packet."""
+        absolute id of the first packet.  ``arrival_ns`` stamps the rows
+        (default: one ``perf_counter_ns`` for the block)."""
         n = len(length)
         if n == 0:
             return self.head
@@ -145,6 +155,8 @@ class PacketRing:
         self.data[slots, 2:4] = sq[:, None].view(np.uint8)
         self.length[slots] = length
         self.arrival[slots] = arrival_ms
+        self.arrival_ns[slots] = (time.perf_counter_ns()
+                                  if arrival_ns is None else arrival_ns)
         self.flags[slots] = flags
         self.seq[slots] = np.asarray(seq, np.int64) & 0xFFFF
         self.timestamp[slots] = timestamp
@@ -165,8 +177,10 @@ class PacketRing:
             fd, self.data, self.length, self.arrival, now_ms, self.head,
             min(max_pkts, self.capacity))
         self.total_oversize += oversize
+        stamp_ns = time.perf_counter_ns()   # one stamp a drained batch
         for pid in range(self.head, new_head):
             s = self.slot(pid)
+            self.arrival_ns[s] = stamp_ns
             self.classify_slot(s, self.data[s, :self.length[s]].tobytes())
         self.head = new_head
         if len(self) > self.capacity:       # the batch wrapped the ring

@@ -10,8 +10,10 @@ joiner's audio starts with the video GOP.
 
 from __future__ import annotations
 
+import secrets
 import time
 
+from ..obs import EVENTS
 from ..protocol import sdp as sdp_mod
 from .stream import RelayStream, StreamSettings
 
@@ -26,17 +28,30 @@ class RelaySession:
         self.path = path
         self.description = description
         self.settings = settings or StreamSettings()
+        #: the correlation id of this source's spans and events; a feeder
+        #: that owns a trace (an ANNOUNCE pusher) re-stamps it with
+        #: ``set_trace``
+        self.trace_id = secrets.token_hex(8)
+        #: node ids this stream's trace has lived on (the fleet's lineage)
+        self.trace_nodes: list[str] = []
         self.streams: dict[int, RelayStream] = {}
         for info in description.streams:
-            st = RelayStream(info, self.settings)
-            st.session_path = path
-            self.streams[info.track_id] = st
+            self.streams[info.track_id] = RelayStream(info, self.settings)
+        self.set_trace(self.trace_id)
         self.created_ms = now_ms()
         self.last_ingest_ms = self.created_ms
         #: the object feeding this session (the pusher's RTSP connection):
         #: identity-based ownership, so a teardown never removes a session
         #: something else has since taken over
         self.owner: object | None = None
+
+    def set_trace(self, trace_id: str) -> None:
+        """Adopt the feeder's trace id and hand it to every stream (the
+        engine reads it off the stream when it records a span)."""
+        self.trace_id = trace_id
+        for st in self.streams.values():
+            st.trace_id = trace_id
+            st.session_path = self.path
 
     # -- ingest ------------------------------------------------------------
     def push(self, track_id: int, packet: bytes, *, is_rtcp: bool = False,
@@ -126,9 +141,15 @@ class SessionRegistry:
             sess = RelaySession(key, sdp_mod.parse(sdp_text), self.settings)
             self.sessions[key] = sess
             self.sdp_cache.set(key, sdp_text)
+            EVENTS.emit("session.create", stream=key,
+                        trace_id=sess.trace_id, path=key,
+                        streams=len(sess.streams))
         return sess
 
     def remove(self, path: str) -> None:
         key = sdp_mod._norm(path)
-        self.sessions.pop(key, None)
+        sess = self.sessions.pop(key, None)
         self.sdp_cache.pop(key)
+        if sess is not None:
+            EVENTS.emit("session.remove", stream=key,
+                        trace_id=sess.trace_id, path=key)

@@ -12,6 +12,7 @@ through RTSP.  ``open`` is idempotent and safe against concurrent SETUPs
 of one path; a path that already has a session (a pusher, a pull) is
 served as it is.  ``sweep`` closes a source that had no player for
 ``idle_timeout`` seconds; a session someone else took over survives.
+An open and a close are ``source.open`` and ``source.close`` events.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ import os
 import socket
 import time
 
+from ..obs import EVENTS
 from ..protocol import sdp as sdp_mod
 from .session import RelaySession, SessionRegistry
 
@@ -164,6 +166,9 @@ class SdpFileRelaySource:
                 return None
             self.sources[key] = src
             self.counts["opened"] += 1
+            EVENTS.emit("source.open", stream=key,
+                        trace_id=session.trace_id, path=key,
+                        transports=len(src.transports))
             return session
 
     def _make_cb(self, src: BroadcastSource, track_id: int, is_rtcp: bool):
@@ -181,6 +186,8 @@ class SdpFileRelaySource:
         if src is not None:
             src.close()
             self.counts["closed"] += 1
+            EVENTS.emit("source.close", stream=src.path,
+                        trace_id=src.session.trace_id, path=src.path)
             sess = self.registry.find(src.path)
             if sess is src.session and sess.owner is self:
                 self.registry.remove(src.path)

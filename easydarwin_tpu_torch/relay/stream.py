@@ -24,6 +24,14 @@ resend sweeps), which the server's pump runs each wake.
 ``next_deadline_ms`` says when the stream next needs a pump pass without
 new ingest (a held bucket's release, a resend's RTO): the pump's timer
 wheel sleeps until the earliest one.
+
+Observability (``obs``): each output joins the audience store's block of
+its stream at ``add_output`` and leaves it at ``remove_output`` (with a
+``stream.output_add``/``_remove`` event); ``reflect`` observes the
+ingest-to-wire latency of every packet it delivers (engine ``scalar``)
+and feeds the audience store and the profiler's session attribution;
+``relay_rtcp`` charges the FEC tier's parity to the wake ledger's
+``fec_parity`` class.
 """
 
 from __future__ import annotations
@@ -32,6 +40,9 @@ import random
 import time
 from dataclasses import dataclass
 
+import numpy as np
+
+from .. import obs
 from ..protocol import rtcp as rtcp_mod
 from ..protocol.sdp import StreamInfo
 from .output import RelayOutput, WriteResult
@@ -64,6 +75,69 @@ class StreamStats:
     keyframes: int = 0
 
 
+class Delivered:
+    """The packets one rung's pass delivered: every ring slot (for the
+    ingest-to-wire latency) and, per output with an audience row, its
+    row, packets, bytes, first and last ring id and its slots; ``note``
+    files them once the pass is on the wire.  The one per-output
+    accumulation of ``RelayStream.reflect`` and the engine's TCP, scalar
+    and batch rungs."""
+
+    __slots__ = ("slots", "nbytes", "rows", "pkts", "byts", "first", "last",
+                 "a_slots")
+
+    def __init__(self):
+        self.slots: list[np.ndarray] = []
+        self.nbytes = 0
+        self.rows: list[int] = []
+        self.pkts: list[int] = []
+        self.byts: list[int] = []
+        self.first: list[int] = []
+        self.last: list[int] = []
+        self.a_slots: list[np.ndarray] = []
+
+    def add(self, out, slots: np.ndarray, nbytes: int, first_pid: int,
+            last_pid: int) -> None:
+        self.slots.append(slots)
+        self.nbytes += nbytes
+        row = getattr(out, "audience_row", -1)
+        if row >= 0:
+            self.rows.append(row)
+            self.pkts.append(len(slots))
+            self.byts.append(nbytes)
+            self.first.append(first_pid)
+            self.last.append(last_pid)
+            self.a_slots.append(slots)
+
+    def note(self, stream, engine: str, wire_ns: int) -> None:
+        """Observe the latencies and apply the audience columns."""
+        if not self.slots:
+            return
+        arrival_ns = stream.rtp_ring.arrival_ns
+        lat_s = (wire_ns - arrival_ns[np.concatenate(self.slots)]) / 1e9
+        if self.rows and stream.audience is not None:
+            # every delivering output has a row (the usual case): the
+            # same latencies, in the same order
+            a_lat = (lat_s if len(self.a_slots) == len(self.slots) else
+                     (wire_ns - arrival_ns[np.concatenate(self.a_slots)])
+                     / 1e9)
+            obs.AUDIENCE.note_pass(stream.audience, self.rows, self.pkts,
+                                   self.byts, self.first, self.last, a_lat,
+                                   wire_ns)
+        note_latency(stream, engine, lat_s)
+
+
+def note_latency(stream, engine: str, lat_s: np.ndarray) -> None:
+    """One rung's ingest-to-wire latencies: the histogram, the wake
+    ledger's queue age and the profiler's session attribution."""
+    if not lat_s.size:
+        return
+    obs.RELAY_INGEST_TO_WIRE.observe_many(lat_s, engine=engine)
+    if obs.LEDGER.enabled:
+        obs.LEDGER.note_queue_age(float(lat_s.max()), lat_s.size)
+    obs.PROFILER.account_latency(stream.session_path, lat_s)
+
+
 class RelayStream:
     def __init__(self, info: StreamInfo,
                  settings: StreamSettings | None = None, *,
@@ -81,6 +155,13 @@ class RelayStream:
         self._kf_run_active = False
         self.has_keyframe_update = False
         self.session_path: str | None = None
+        #: the session's trace id (``RelaySession.set_trace``), carried on
+        #: the engine's spans
+        self.trace_id: str | None = None
+        #: this stream's audience column block (``obs.audience``), set at
+        #: the first ``add_output``, and the tier its outputs count under
+        self.audience = None
+        self.audience_tier = "live"
         self.buckets: list[list[RelayOutput]] = []
         self.stats = StreamStats()
         #: the pusher's RTCP compounds; ``relay_rtcp`` forwards the newest
@@ -197,12 +278,18 @@ class RelayStream:
             while len(self.buckets) <= bucket:
                 self.buckets.append([])
             self.buckets[bucket].append(output)
-            return
-        for b in self.buckets:
-            if len(b) < self.settings.bucket_size:
-                b.append(output)
-                return
-        self.buckets.append([output])
+        else:
+            for b in self.buckets:
+                if len(b) < self.settings.bucket_size:
+                    b.append(output)
+                    break
+            else:
+                self.buckets.append([output])
+        obs.AUDIENCE.register(self, output)
+        obs.EVENTS.emit("stream.output_add", stream=self.session_path,
+                        trace_id=self.trace_id,
+                        session_id=getattr(output, "session_id", None),
+                        track=self.info.track_id, outputs=self.num_outputs)
 
     def remove_output(self, output: RelayOutput) -> bool:
         if output in self.tickable_outputs:
@@ -212,6 +299,12 @@ class RelayStream:
         for bucket in self.buckets:
             if output in bucket:
                 bucket.remove(output)
+                obs.AUDIENCE.unregister(output)
+                obs.EVENTS.emit(
+                    "stream.output_remove", stream=self.session_path,
+                    trace_id=self.trace_id,
+                    session_id=getattr(output, "session_id", None),
+                    track=self.info.track_id, outputs=self.num_outputs)
                 return True
         return False
 
@@ -246,6 +339,7 @@ class RelayStream:
         frames skipped for their output only; then ``relay_rtcp``."""
         ring = self.rtp_ring
         sent = 0
+        delivered = Delivered()
         for b_idx, bucket in enumerate(self.buckets):
             deadline = now_ms - b_idx * self.settings.bucket_delay_ms
             for out in bucket:
@@ -256,6 +350,9 @@ class RelayStream:
                 if out.bookmark < ring.tail:   # evicted under a stalled output
                     out.bookmark = ring.tail
                 pid = out.bookmark
+                o_slots: list[int] = []
+                o_byts = 0
+                o_first = -1
                 while pid < ring.head:
                     if ring.get_arrival(pid) > deadline:
                         break
@@ -273,9 +370,23 @@ class RelayStream:
                         break
                     pid += 1
                     if res is WriteResult.OK:
-                        sent += 1
+                        o_slots.append(ring.slot(pid - 1))
+                        o_byts += len(data)
+                        if o_first < 0:
+                            o_first = pid - 1
+                        o_last = pid - 1
                 out.bookmark = pid
+                if o_slots:
+                    sent += len(o_slots)
+                    delivered.add(out, np.asarray(o_slots, np.int64), o_byts,
+                                  o_first, o_last)
         self.stats.packets_out += sent
+        if delivered.slots:
+            delivered.note(self, "scalar", time.perf_counter_ns())
+            if self.session_path is not None:
+                obs.PROFILER.account_pass("scalar", 0, {},
+                                          path=self.session_path,
+                                          wire_bytes=delivered.nbytes)
         self.relay_rtcp(now_ms)
         return sent
 
@@ -304,7 +415,11 @@ class RelayStream:
         FEC tier's parity goes first, before the early return: a pusher
         that sends no RTCP still gets its players' parity."""
         if self.fec is not None:
+            # parity runs nested in the live-relay pass: charged to its
+            # own ledger class, so ``live_relay``'s service stays conserved
+            tok = obs.LEDGER.unit_start()
             self.fec.tick(now_ms)
+            obs.LEDGER.unit_end(tok, "fec_parity")
         rring = self.rtcp_ring
         if len(rring) == 0 and now_ms < self._next_sr_due_ms:
             return                  # nothing buffered, no SR due

@@ -90,6 +90,22 @@ broadcasts without players and retires pulls whose upstream ended.
 core REST commands; ``request_restart`` sets ``restart_event``, on which
 the CLI exits with the watchdog's restart code.  ``update`` on the
 config re-reads auth and the logs.
+
+Observability (``obs``, the reference's stack): every pump wake is one
+wake-ledger record (``LEDGER.begin_wake`` in ``reflect_all``, closed
+after the once-a-second block), its work in units of the closed
+work-class vocabulary (``vod_fill``, ``dvr_spill``, ``megabatch``,
+``live_relay``); an ingest's wake is stamped and the delay to its pass
+observed as the pump's ``wake_to_pass`` phase.  Once a second the pump
+ticks the SLO watchdog (``slo_enabled``), observes each relaying
+stream's freshness (``obs.fleet``) and ticks the audience store.  At
+start the flight recorder's dumps go under ``<log_folder>/flight``, the
+node id is ``server_id`` and every registered module's (``register_module``,
+before ``start``) ``initialize`` runs; ``stop`` runs their ``shutdown``.  ``status`` (``server.status.StatusMonitor``) answers
+``server_info`` (its ingest-to-wire p99 and the ledger's class and last
+wake among the reference's keys), the console columns
+(``stats_interval_sec``) and the status file (``status_file_path``).
+The stats page answers GET ``/`` and ``/stats`` on the RTSP port.
 """
 
 from __future__ import annotations
@@ -103,12 +119,13 @@ import traceback
 
 import torch
 
-from .. import native, resolve_device
+from .. import native, obs, resolve_device
 from ..dvr import DvrManager
 from ..dvr.timeshift import DVR_TIER
 from ..hls import HlsService
 from ..models.mjpeg_ladder import MjpegTranscodeService
-from ..ops import device_ring, kernel_lib
+from ..obs import fleet as obs_fleet
+from ..ops import device_ring, kernel_lib, staging
 from ..parallel.distributed import mesh_summary
 from ..parallel.mesh import make_megabatch_mesh
 from ..relay.fanout import FanoutEngine
@@ -127,6 +144,7 @@ from .config import ServerConfig
 from .mp3 import Mp3Service
 from .rest import RestApi
 from .rtsp import RtspServer
+from .status import StatusMonitor
 
 #: below this many streams with players the megabatch scheduler idles and
 #: each stream's engine queries its own device ring (the reference's
@@ -156,6 +174,7 @@ class StreamingServer:
         self._surface_keys = None
         self._apply_surface_config(self.config)
         self.config.on_change(self._apply_surface_config)
+        self.config.on_change(self.rtsp.modules.run_reread_prefs)
         self.relay_source = SdpFileRelaySource(
             self.config.movie_folder, self.registry,
             on_ingest=self._on_ingest)
@@ -170,9 +189,16 @@ class StreamingServer:
         #: watchdog's restart code
         self.restart_event = asyncio.Event()
         self.started_at = time.time()
-        #: packets a second in and out, over the last housekeeping second
-        self._rates = (0.0, 0.0)
-        self._rate_base = (time.monotonic(), 0, 0)
+        #: the console, status file and ``server_info`` reader
+        self.status = StatusMonitor(self)
+        #: the SLO watchdog over the ``obs`` families (ticked once a
+        #: second by the pump when ``slo_enabled``)
+        self.slo = obs.SloWatchdog(self.config.slo_config(),
+                                   offender=obs.PROFILER.top_offender)
+        #: the ``perf_counter_ns`` of the first ingest wake not yet served
+        #: (the pump's ``wake_to_pass`` phase); None: none pending
+        self._wake_ns: int | None = None
+        self._status_task: asyncio.Task | None = None
         #: the megabatch's serving mesh (``megabatch_devices``), or None:
         #: one device
         self.megabatch_mesh = self._build_mesh()
@@ -329,6 +355,14 @@ class StreamingServer:
             return None                 # counted in worker_errors
         return fut.result()
 
+    @property
+    def modules(self):
+        return self.rtsp.modules
+
+    def register_module(self, module) -> None:
+        """Add a plugin module to the role arrays (``server.modules``)."""
+        self.rtsp.modules.register(module)
+
     async def start(self) -> None:
         native.require()                # the pump's wheel is the core's
         self.native_loaded = True
@@ -337,17 +371,32 @@ class StreamingServer:
         if self.device.type == "cuda":
             self._warm_card()
         self.record_orphans = sweep_orphans(self.config.movie_folder)
+        # the recorder and the node id are process-wide: a server that
+        # starts claims them (one that is only constructed does not)
+        obs.FLIGHT.dump_dir = os.path.join(self.config.log_folder, "flight")
+        obs.set_node(self.config.server_id)
         await self.rtsp.start()
         await self.rest.start()
+        self.rtsp.modules.run_initialize(self)
         self._running = True
         self._pump_task = asyncio.create_task(self._pump_loop())
+        if self.config.stats_interval_sec or self.config.status_file_path:
+            self._status_task = asyncio.create_task(self._status_loop())
 
     async def stop(self) -> None:
         self._running = False
+        if self._status_task is not None:
+            self._status_task.cancel()
+            try:
+                await self._status_task
+            except asyncio.CancelledError:
+                pass
+            self._status_task = None
         if self._pump_task is not None:
             self._pump_event.set()
             await self._pump_task
             self._pump_task = None
+        self.rtsp.modules.run_shutdown(self)
         self.transcodes.stop_all()
         # every in-flight recording finalizes while its session exists
         self.recordings.stop_all()
@@ -373,12 +422,14 @@ class StreamingServer:
         self.megabatch.drain()
 
     def _wake(self) -> None:
+        if self._wake_ns is None:
+            self._wake_ns = time.perf_counter_ns()
         self._pump_event.set()
 
     def _on_ingest(self, _path: str) -> None:
         """A pulled or broadcast media packet went into its ring."""
         self.rtsp.packets_in += 1
-        self._pump_event.set()
+        self._wake()
 
     def _apply_surface_config(self, cfg: ServerConfig) -> None:
         """RTSP auth and the logs as the config says, made again when an
@@ -427,6 +478,13 @@ class StreamingServer:
                     b"Content-Length: " + str(len(body)).encode()
                     + b"\r\n\r\n" + body)
                 return True
+        if path in ("/", "/stats"):
+            html = self.rest.webstats_html().encode()
+            conn.writer.write(
+                b"HTTP/1.0 200 OK\r\nContent-Type: text/html\r\n"
+                b"Content-Length: " + str(len(html)).encode() + b"\r\n\r\n"
+                + html)
+            return True
         return False
 
     # ------------------------------------------------------------- queries
@@ -435,27 +493,26 @@ class StreamingServer:
                 f"{self.rtsp.port or self.config.rtsp_port}{path}")
 
     def server_info(self) -> dict:
-        """REST ``getserverinfo``: the reference's keys.  The ingest-to-wire
-        p99 and the wake ledger's class and last wake come from the
-        reference's ``obs``, which the port does not have yet: empty."""
-        in_rate, out_rate = self._rates
+        """REST ``getserverinfo``: the reference's keys, read from the
+        status monitor's pure snapshot (rates from its last tick)."""
+        d = self.status.snapshot()
         info = {
             "ServerName": "easydarwin-tpu",
             "Version": "0.1.0",
-            "UpTimeSec": str(int(time.time() - self.started_at)),
+            "UpTimeSec": str(d["uptime_sec"]),
             "RTSPPort": str(self.rtsp.port or self.config.rtsp_port),
             "ServicePort": str(self.rest.port or self.config.service_port),
-            "Connections": str(len(self.rtsp.connections)),
-            "PushSessions": str(len(self.registry.sessions)),
-            "Requests": str(self.rtsp.requests),
-            "PacketsIn": str(self.rtsp.packets_in),
-            "PacketsOut": str(self.packets_out),
-            "InRatePps": str(round(in_rate, 1)),
-            "OutRatePps": str(round(out_rate, 1)),
-            "IngestToWireP99Ms": "",
+            "Connections": str(d["rtsp_connections"]),
+            "PushSessions": str(d["push_sessions"]),
+            "Requests": str(d["requests"]),
+            "PacketsIn": str(d["packets_in"]),
+            "PacketsOut": str(d["packets_out"]),
+            "InRatePps": str(d["in_rate"]),
+            "OutRatePps": str(d["out_rate"]),
+            "IngestToWireP99Ms": str(d["ingest_to_wire_p99_ms"]),
             "TpuFanout": "1",
-            "LedgerTopWaitClass": "",
-            "LedgerLastWakeMs": "",
+            "LedgerTopWaitClass": str(d.get("ledger_top_wait_class", "")),
+            "LedgerLastWakeMs": str(d.get("ledger_last_wake_ms", 0.0)),
         }
         if self.megabatch_mesh is not None:
             info.update(mesh_summary(self.megabatch_mesh))
@@ -479,14 +536,11 @@ class StreamingServer:
         return None
 
     def _housekeep_surface(self) -> None:
-        """The once-a-second part of the server surface: the packet rates,
-        broadcasts without players, and pulls whose upstream ended."""
-        t0, in0, out0 = self._rate_base
-        now = time.monotonic()
-        if now > t0:
-            self._rates = ((self.rtsp.packets_in - in0) / (now - t0),
-                           (self.packets_out - out0) / (now - t0))
-        self._rate_base = (now, self.rtsp.packets_in, self.packets_out)
+        """The once-a-second part of the server surface: the packet rates
+        (the status monitor's tick, unless its own loop runs), broadcasts
+        without players, and pulls whose upstream ended."""
+        if self._status_task is None:
+            self.status.tick()
         self.relay_source.sweep()
         if self.pulls.has_dead() and (self._pull_sweep is None
                                       or self._pull_sweep.done()):
@@ -569,21 +623,36 @@ class StreamingServer:
         failed ``begin_wake`` serves the wake's streams one by one."""
         t = now_ms()
         self.wakes += 1
+        wake_ns, self._wake_ns = self._wake_ns, None
+        led = obs.LEDGER
+        if wake_ns is not None:
+            # ingest set the event at wake_ns: the loop's delay to this
+            # pass, which no phase of the pass sees
+            obs.PROFILER.observe("wake_to_pass", "pump",
+                                 time.perf_counter_ns() - wake_ns)
+        # one ledger record a wake, closed after the once-a-second block
+        led.begin_wake(wake_ns)
+        led_on = led.enabled
         vod_pairs = []
         if self.vod_pacer is not None and self.vod_pacer.sessions:
+            u = led.unit_start()
             try:
                 vod_pairs = self.vod_pacer.tick(t)
             except Exception:
                 self.vod_errors += 1
                 traceback.print_exc(file=sys.stderr)
+            led.unit_end(u, "vod_fill", items=max(len(vod_pairs), 1))
         if self.dvr is not None and self.dvr._armed:
+            u = led.unit_start()
             try:
                 self.dvr.tick(t)
             except Exception:
                 self.dvr.spill_errors += 1
                 traceback.print_exc(file=sys.stderr)
+            led.unit_end(u, "dvr_spill")
         pairs = self._pairs(vod_pairs)
         engaged = len(pairs) >= MEGABATCH_MIN_STREAMS
+        u = led.unit_start()
         if engaged:
             try:
                 self.megabatch.begin_wake(pairs, t)
@@ -603,8 +672,14 @@ class StreamingServer:
                 self._pump_error()
             for _stream, eng in pairs:
                 eng.megabatch_owned = False
+        led.unit_end(u, "megabatch", items=max(len(pairs), 1))
+        # one ledger unit for every stream's step; the slowest stream's
+        # trace id rides the record
+        lu = led.unit_start()
+        worst_ns, worst_trace = -1, None
         sent = 0
         for stream, eng in pairs:
+            s0 = time.perf_counter_ns() if led_on else 0
             stalls = stream.stats.stalls
             try:
                 sent += eng.step(stream, t)
@@ -619,9 +694,17 @@ class StreamingServer:
             # stall may be armed at 1 ms; a stalled one's may not (a time
             # wake cannot unblock a full socket)
             stream.last_pass_stalled = stream.stats.stalls > stalls
+            if led_on:
+                el = time.perf_counter_ns() - s0
+                if el > worst_ns:
+                    worst_ns, worst_trace = el, stream.trace_id
+        led.unit_end(lu, "live_relay", items=max(len(pairs), 1),
+                     trace_id=worst_trace)
         self.packets_out += sent
         if engaged:
+            u = led.unit_start()
             self.megabatch.end_wake(pairs, t)
+            led.unit_end(u, "megabatch", items=len(pairs))
         return sent
 
     def _tick(self, out, t: int) -> None:
@@ -738,7 +821,54 @@ class StreamingServer:
                     self._storage_scrub_due = (
                         now + self.config.storage_scrub_interval_sec)
                     self.storage.scrub_async()
+                self._observe_second()
+            # the wake's ledger record closes after the once-a-second
+            # block: its duties ran on the same wake
+            obs.LEDGER.end_wake()
         wheel.close()
+
+    def _observe_second(self) -> None:
+        """The pump's once-a-second ``obs`` duties: the SLO watchdog, each
+        relaying stream's freshness and the audience store's tick; one
+        that raises is logged and the others run."""
+        duties = [("freshness", lambda: obs_fleet.observe_freshness(self)),
+                  ("audience tick", obs.AUDIENCE.tick)]
+        if self.config.slo_enabled:
+            duties.insert(0, ("slo tick", self.slo.tick))
+        for name, fn in duties:
+            try:
+                fn()
+            except Exception as e:
+                self.rtsp.log_error(f"{name}: {e!r}")
+
+    async def _status_loop(self) -> None:
+        """The console columns every ``stats_interval_sec`` (stderr) and
+        the status file every ``status_file_interval_sec``, from one tick
+        of the status monitor a round."""
+        cfg = self.config
+        enabled = [i for i in (cfg.stats_interval_sec,
+                               cfg.status_file_interval_sec
+                               if cfg.status_file_path else 0) if i]
+        interval = min(enabled) if enabled else 1
+        last_console = last_file = 0.0
+        while self._running:
+            await asyncio.sleep(interval)
+            snap = self.status.tick()
+            now = time.monotonic()
+            if (cfg.stats_interval_sec and now - last_console
+                    >= cfg.stats_interval_sec - interval / 2):
+                last_console = now
+                if self.status.needs_header():
+                    print(self.status.header_line(), file=sys.stderr)
+                print(self.status.console_line(snap), file=sys.stderr,
+                      flush=True)
+            if (cfg.status_file_path and now - last_file
+                    >= cfg.status_file_interval_sec - interval / 2):
+                last_file = now
+                try:
+                    self.status.write_file(cfg.status_file_path, snap)
+                except OSError:
+                    pass
 
     def surface_stats(self) -> dict:
         """The server surface's counters: tunnels, the per-IP cap, RTSP
@@ -820,4 +950,5 @@ class StreamingServer:
                 "record_orphans": self.record_orphans,
                 "cpu_s": time.process_time() - self._cpu0,
                 "wall_s": time.monotonic() - self._wall0,
-                "kernel_launches": dict(kernel_lib.LAUNCHES)}
+                "kernel_launches": dict(kernel_lib.LAUNCHES),
+                "copied_bytes": dict(staging.COPIED)}

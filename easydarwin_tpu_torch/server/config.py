@@ -6,8 +6,11 @@ A ``ServerConfig`` loads from a TOML file of its keys (``load_toml``) or
 from the reference's ``easydarwin.xml`` (``load_reference_xml``, the DSS
 ``PREF``/``MODULE`` layout); ``load_config`` sniffs which one a file is.
 Both return the keys they could not apply, never dropping one in
-silence: a key this port does not serve yet (``slo_*``, the cluster,
-the degradation ladder, fault injection, …) is listed.  ``to_dict``,
+silence: a key this port does not serve yet (the cluster, the
+degradation ladder, fault injection, …) is listed.  The SLO watchdog's
+``slo_*`` keys, the console and status file (``stats_interval_sec``,
+``status_file_*``; the XML's ``monitor_stats_file_*`` with
+``enable_monitor_stats_file``) are applied.  ``to_dict``,
 ``from_dict`` and ``update`` (``KeyError`` on an unknown key; the
 listeners registered with ``on_change`` run after it) serve REST
 ``getbaseconfig`` and ``setbaseconfig``.  The relay tunables live in
@@ -128,6 +131,22 @@ class ServerConfig:
         tempfile.gettempdir(), "edtpu_torch_logs"))
     access_log_enabled: bool = True
     error_log_verbosity: str = "info"
+    #: the SLO watchdog (``obs.slo``): burn-rate budgets over the ``obs``
+    #: families, evaluated once a second by the pump
+    slo_enabled: bool = True
+    slo_latency_objective_ms: float = 50.0   # a good packet hits the wire…
+    slo_latency_target: float = 0.99         # …within this for 99% of them
+    slo_drop_objective: float = 0.01         # budgeted bad-packet fraction
+    slo_fast_window_sec: float = 60.0
+    slo_slow_window_sec: float = 600.0
+    slo_fast_burn: float = 14.0
+    slo_slow_burn: float = 2.0
+    slo_min_events: int = 200                # below this a window is noise
+    #: the status console (columns on stderr every ``stats_interval_sec``;
+    #: 0: off) and the JSON status file (``status_file_path``; "": none)
+    stats_interval_sec: int = 0
+    status_file_path: str = ""
+    status_file_interval_sec: int = 10
 
     _listeners: list[Callable[["ServerConfig"], None]] = field(
         default_factory=list, repr=False, compare=False)
@@ -181,6 +200,18 @@ class ServerConfig:
             if k in cls.keys():
                 cfg._set(k, v)
         return cfg
+
+    def slo_config(self):
+        from ..obs.slo import SloConfig
+        return SloConfig(
+            latency_objective_ms=self.slo_latency_objective_ms,
+            latency_target=self.slo_latency_target,
+            drop_objective=self.slo_drop_objective,
+            fast_window_s=self.slo_fast_window_sec,
+            slow_window_s=self.slo_slow_window_sec,
+            fast_burn=self.slo_fast_burn,
+            slow_burn=self.slo_slow_burn,
+            min_events=self.slo_min_events)
 
     @classmethod
     def from_toml(cls, path: str) -> "ServerConfig":
@@ -294,6 +325,7 @@ def load_reference_xml(path: str) -> tuple[ServerConfig, list[str]]:
     cfg = ServerConfig()
     known = ServerConfig.keys()
     unmapped: list[str] = []
+    monitor_enabled = False
 
     def pref_value(el, label: str) -> str:
         if el.tag == "LIST-PREF":
@@ -321,6 +353,9 @@ def load_reference_xml(path: str) -> tuple[ServerConfig, list[str]]:
         if el.tag not in ("PREF", "LIST-PREF"):
             continue
         name = el.get("NAME", "")
+        if name == "enable_monitor_stats_file":
+            monitor_enabled = pref_value(el, name) == "true"
+            continue
         apply(el, name, _XML_SERVER_MAP.get(name))
     for mod in root.findall("MODULE"):
         mod_name = mod.get("NAME", "")
@@ -330,4 +365,6 @@ def load_reference_xml(path: str) -> tuple[ServerConfig, list[str]]:
             name = el.get("NAME", "")
             apply(el, f"{mod_name}/{name}",
                   _XML_MODULE_MAP.get((mod_name, name)))
+    if not monitor_enabled:
+        cfg.status_file_path = ""       # a file name without the flag
     return cfg, unmapped

@@ -29,9 +29,25 @@ other command answers the 404 envelope.
 
 With ``auth_enabled`` every command but ``login`` needs a login token
 (``token=`` or the ``X-Token`` header) or Basic credentials, else 401;
-a command that changes state (``MUTATING``) also needs the token in the
-``X-Token`` header, else 403: a cross-site request can carry cached
-credentials but not a custom header.
+a command that changes state (``MUTATING``, and ``admin`` with
+``command=set``) also needs the token in the ``X-Token`` header, else
+403: a cross-site request can carry cached credentials but not a custom
+header.
+
+Observability, as the reference serves it: GET ``/`` and ``/stats`` (the
+HTML stats page) and ``/metrics`` (the Prometheus exposition) answer
+without auth, as does ``/debug/profile`` (the span ring as a gzipped
+pprof profile); ``/admin`` is the HTML dictionary tree (Basic or a
+token), whose set form carries a per-process CSRF token.  The commands
+``profile``, ``ledger``, ``audience`` (``n=`` worst subscribers),
+``events`` (NDJSON, ``n=`` and ``since=`` a sequence number), ``fleet``,
+``streamtrace`` (``path=``) and ``sessions/<id>/trace`` or ``/flight``
+answer raw JSON; ``admin`` browses the tree (``path=``, ``command=get``
+with ``recurse=``, or ``set`` with ``value=``) or answers the span ring
+(``command=trace``), a flight record (``flight``, ``session=``), the
+events, the fleet, the profile (``top``), the ledger's blame table
+(``blame``) and the audience.  ``/metrics`` and NDJSON bodies of 256
+bytes and more are gzipped when the client accepts it.
 """
 
 from __future__ import annotations
@@ -39,21 +55,36 @@ from __future__ import annotations
 import asyncio
 import base64
 import binascii
+import gzip
+import html as html_mod
 import json
 import os
+import re
 import secrets
 import time
-from urllib.parse import parse_qs, urlparse
+from urllib.parse import parse_qs, quote, urlparse
 
+from .. import obs
 from ..cluster import protocol as ep
 from ..hls.segmenter import DEFAULT_RUNGS
+from ..obs import fleet
 from ..protocol.sdp import _norm
 from ..relay.pull import PullError
 from ..utils.paths import confined_subpath
 from ..vod.cache import pack_window
+from . import admin
 from .config import ServerConfig
 
 SERVER_NAME = "easydarwin-tpu-torch/0.1"
+
+#: ``/api/v1/sessions/<rtsp session id>/trace`` (or ``/flight``); the ids
+#: are lower-case hex, so the router's lower-casing loses nothing
+_SESSION_DOC_RE = re.compile(r"^sessions/([0-9a-f]+)/(trace|flight)$")
+#: content types whose bodies are gzipped for a client that accepts it
+#: (the exposition and the NDJSON feeds), and the size below which a
+#: gzip header costs more than it saves
+_GZIP_CTYPES = ("text/plain", "application/x-ndjson")
+_GZIP_MIN_BYTES = 256
 
 
 class RestApi:
@@ -68,6 +99,9 @@ class RestApi:
         self.tokens: set[str] = set()
         #: calls answered 401 and 403
         self.refused = {"401": 0, "403": 0}
+        #: the ``/admin`` set form's per-process CSRF token: a cross-site
+        #: POST may carry cached Basic credentials but cannot read the page
+        self._admin_csrf = secrets.token_urlsafe(16)
 
     async def start(self) -> None:
         self._server = await asyncio.start_server(
@@ -105,6 +139,9 @@ class RestApi:
                 extra = res[3] if len(res) > 3 else {}
                 data = payload.encode() if isinstance(payload, str) \
                     else payload
+                data, enc = _maybe_gzip(headers, status, ctype, data)
+                if enc:
+                    extra = {**extra, **enc}
                 reason = {200: "OK", 304: "Not Modified"}.get(status,
                                                               "Error")
                 writer.write((
@@ -129,6 +166,11 @@ class RestApi:
         "startpullrelay", "stoppullrelay", "starttranscode",
         "stoptranscode", "starthls", "stophls", "logout"))
 
+    def _mutates(self, cmd: str, params: dict) -> bool:
+        return cmd in self.MUTATING or (
+            cmd == "admin"
+            and params.get("command", ["get"])[0].lower() == "set")
+
     async def route(self, method: str, target: str, headers: dict,
                     body: bytes) -> tuple:
         url = urlparse(target)
@@ -136,6 +178,22 @@ class RestApi:
         params = parse_qs(url.query)
         if path.startswith("/hls/"):
             return self._serve_hls(url.path, headers)
+        if path in ("", "/stats"):
+            return 200, self.webstats_html(), "text/html"
+        if path == "/metrics":
+            # the scrape: unauthenticated and read-only, as /stats
+            return (200, obs.REGISTRY.expose(),
+                    "text/plain; version=0.0.4; charset=utf-8")
+        if path == "/debug/profile":
+            return 200, obs.build_pprof(), "application/octet-stream"
+        if path == "/admin":
+            if not self._authorized(headers, params):
+                self.refused["401"] += 1
+                return 401, "<h1>401</h1>", "text/html"
+            if method == "POST" and body:
+                params = {**params, **parse_qs(body.decode("utf-8",
+                                                           "replace"))}
+            return self._admin_html(params, method, headers)
         if not path.startswith("/api/v1/"):
             return 404, json.dumps({"error": "not found"})
         cmd = path[len("/api/v1/"):]
@@ -146,7 +204,17 @@ class RestApi:
         if not self._authorized(headers, params):
             self.refused["401"] += 1
             return 401, ep.ack(ep.MSG_SC_EXCEPTION, error=ep.ERR_UNAUTHORIZED)
-        if (self.config.auth_enabled and cmd in self.MUTATING
+        m = _SESSION_DOC_RE.match(cmd)
+        if m is not None:
+            # a session's flight record, raw JSON (a stitched trace
+            # needs the cluster, which the port does not have: each hop
+            # is this node's)
+            status, doc = admin.flight_query(self.app, m.group(1))
+            if status == 200 and m.group(2) == "trace" \
+                    and params.get("local", ["0"])[0] not in ("1", "true"):
+                doc = await fleet.stitch_trace(self.app, doc)
+            return status, json.dumps(doc, default=str), "application/json"
+        if (self.config.auth_enabled and self._mutates(cmd, params)
                 and headers.get("x-token") not in self.tokens):
             self.refused["403"] += 1
             return 403, ep.ack(ep.MSG_SC_EXCEPTION, error=ep.ERR_UNAUTHORIZED,
@@ -191,6 +259,193 @@ class RestApi:
     def _cmd_logout(self, params: dict, body: bytes) -> tuple[int, str]:
         self.tokens.discard(params.get("token", [""])[0])
         return 200, ep.ack(ep.MSG_SC_SERVER_INFO_ACK)
+
+    # ------------------------------------------------------ observability
+    def _cmd_profile(self, params: dict, body: bytes) -> tuple:
+        """The phase profiler's live document (``admin command=top``)."""
+        return _json(admin.profile_snapshot(self.app))
+
+    def _cmd_ledger(self, params: dict, body: bytes) -> tuple:
+        """The wake ledger's live document (``tools/blame_report.py
+        --url`` reads it)."""
+        return _json(admin.ledger_snapshot(self.app))
+
+    def _cmd_audience(self, params: dict, body: bytes) -> tuple:
+        """The audience store's per-stream rollup and worst ``n=``
+        subscribers (default 5, at most 100)."""
+        try:
+            n = int(params.get("n", ["5"])[0])
+        except ValueError:
+            n = 5
+        return _json(admin.audience_snapshot(self.app,
+                                             worst_n=max(0, min(n, 100))))
+
+    def _cmd_fleet(self, params: dict, body: bytes) -> tuple:
+        """The fleet document: one node without a cluster."""
+        return _json(fleet.fleet_snapshot(self.app))
+
+    def _cmd_streamtrace(self, params: dict, body: bytes) -> tuple:
+        """This node's hop of a stream's trace (``path=``)."""
+        path = params.get("path", [""])[0]
+        if not path:
+            return 400, ep.ack(ep.MSG_SC_EXCEPTION, error=ep.ERR_BAD_REQUEST)
+        doc = fleet.local_hop_doc(self.app, path)
+        return (404 if doc.get("error") else 200,
+                json.dumps(doc, default=str), "application/json")
+
+    @staticmethod
+    def _page_params(params: dict) -> tuple[int, int | None]:
+        """The event log's ``(n, since)`` paging query: the one parser
+        ``events`` and ``admin command=events`` share."""
+        try:
+            n = int(params.get("n", ["256"])[0])
+        except ValueError:
+            n = 256
+        since = None
+        try:
+            if "since" in params:
+                since = int(params["since"][0])
+        except ValueError:
+            since = None
+        return n, since
+
+    def _cmd_events(self, params: dict, body: bytes) -> tuple:
+        """The structured event log as NDJSON, oldest first from
+        ``since=`` (a record's ``seq``)."""
+        lines = obs.EVENTS.dump_lines(*self._page_params(params))
+        return (200, "\n".join(lines) + ("\n" if lines else ""),
+                "application/x-ndjson")
+
+    def _cmd_admin(self, params: dict, body: bytes) -> tuple:
+        """The dictionary tree (``path=``, ``command=get|set``) and the
+        raw ``obs`` documents (``command=trace|flight|events|fleet|top|
+        blame|audience``)."""
+        path = params.get("path", ["server/*"])[0]
+        command = params.get("command", ["get"])[0].lower()
+        if command == "trace":
+            return _json(obs.TRACER.dump())
+        if command == "flight":
+            status, doc = admin.flight_query(
+                self.app, params.get("session", [""])[0])
+            return status, json.dumps(doc, default=str), "application/json"
+        if command == "events":
+            return self._cmd_events(params, b"")
+        if command == "fleet":
+            return self._cmd_fleet(params, b"")
+        if command == "top":
+            return self._cmd_profile(params, b"")
+        if command == "blame":
+            return _json(admin.blame_snapshot(self.app))
+        if command == "audience":
+            return self._cmd_audience(params, b"")
+        if command == "set":
+            status, payload = admin.set_pref(
+                self.app, path, params.get("value", [""])[0])
+        elif command == "get":
+            recurse = params.get("recurse", ["0"])[0] in ("1", "true")
+            status, payload = admin.query(self.app, path, recurse=recurse)
+        else:
+            return 400, ep.ack(ep.MSG_SC_EXCEPTION, error=ep.ERR_BAD_REQUEST,
+                               body={"Detail": f"unknown command {command}"})
+        if status != 200:
+            return status, ep.ack(
+                ep.MSG_SC_EXCEPTION,
+                error=ep.ERR_NOT_FOUND if status == 404
+                else ep.ERR_BAD_REQUEST, body=payload)
+        return 200, ep.ack(ep.MSG_SC_SERVER_INFO_ACK,
+                           body={"Path": path, "Value": payload})
+
+    def _admin_html(self, params: dict, method: str,
+                    headers: dict) -> tuple:
+        """The HTML face of the dictionary tree: containers to follow,
+        leaf values, and a set form on each pref (a set needs a POST with
+        the page's CSRF token or an ``X-Token`` header)."""
+        esc = html_mod.escape
+        path = params.get("path", ["server/*"])[0]
+        msg = ""
+        if params.get("command", [""])[0].lower() == "set":
+            if method != "POST":
+                msg = "<p class=err>set requires POST</p>"
+            elif (not secrets.compare_digest(
+                    params.get("csrf", [""])[0].encode("utf-8"),
+                    self._admin_csrf.encode("ascii"))
+                    and headers.get("x-token") not in self.tokens):
+                msg = "<p class=err>set requires the page CSRF token</p>"
+            else:
+                st, payload = admin.set_pref(self.app, path.rstrip("/*"),
+                                             params.get("value", [""])[0])
+                msg = ("<p class=ok>set ok</p>" if st == 200 else
+                       f"<p class=err>{esc(str(payload))}</p>")
+            path = "server/prefs/*"
+        status, payload = admin.query(self.app, path)
+        crumbs, acc = [], []
+        for part in [p for p in path.strip("/").split("/") if p != "*"]:
+            acc.append(part)
+            href = quote("/".join(acc), safe="/") + "/*"
+            crumbs.append(f'<a href="/admin?path={quote(href, safe="/*")}"'
+                          f">{esc(part)}</a>")
+        rows = []
+        if status != 200:
+            rows.append(f"<tr><td colspan=2 class=err>"
+                        f"{esc(str(payload))}</td></tr>")
+        elif isinstance(payload, dict):
+            base = path.strip("/").rstrip("*").rstrip("/")
+            for k in sorted(payload):
+                v = payload[k]
+                if isinstance(v, dict) or v == "*container*":
+                    href = quote(f"{base}/{k}", safe="/") + "/*"
+                    rows.append(f'<tr><td><a href="/admin?path='
+                                f'{quote(href, safe="/*")}">'
+                                f"{esc(str(k))}/</a></td><td></td></tr>")
+                    continue
+                cell = esc(str(v))
+                if base == "server/prefs":
+                    cell += (f'<form method=post action=/admin '
+                             f'style="display:inline">'
+                             f'<input type=hidden name=path value='
+                             f'"server/prefs/{esc(str(k))}">'
+                             f'<input type=hidden name=command value=set>'
+                             f'<input type=hidden name=csrf value='
+                             f'"{self._admin_csrf}">'
+                             f'<input name=value size=12> '
+                             f'<input type=submit value=set></form>')
+                rows.append(f"<tr><td>{esc(str(k))}</td>"
+                            f"<td>{cell}</td></tr>")
+        else:
+            rows.append(f"<tr><td>{esc(path)}</td>"
+                        f"<td>{esc(str(payload))}</td></tr>")
+        page = ("<!doctype html><html><head><title>easydarwin-tpu admin"
+                "</title><style>body{font-family:monospace;margin:2em}"
+                "table{border-collapse:collapse}td{border:1px solid #ccc;"
+                "padding:2px 8px}.err{color:#b00}.ok{color:#080}"
+                "</style></head><body>"
+                f"<h2><a href=\"/admin?path=server/*\">admin</a> "
+                f"{' / '.join(crumbs)}</h2>{msg}"
+                f"<table>{''.join(rows)}</table>"
+                "<p><a href=/stats>stats</a></p></body></html>")
+        return 200, page, "text/html"
+
+    def webstats_html(self) -> str:
+        """The HTML stats page (the reference's web stats module): the
+        server's ``getserverinfo`` keys and its live sessions."""
+        info = self.app.server_info()
+        sessions = self.app.live_sessions()
+        rows = "".join(
+            f"<tr><td>{s['Path']}</td><td>{s['Outputs']}</td>"
+            f"<td>{s['AgeSec']}s</td><td><code>{s['Url']}</code></td></tr>"
+            for s in sessions)
+        infos = "".join(f"<tr><td>{k}</td><td>{v}</td></tr>"
+                        for k, v in info.items())
+        return (
+            "<!doctype html><html><head><title>easydarwin-tpu stats"
+            "</title><style>body{font-family:monospace;margin:2em}"
+            "table{border-collapse:collapse;margin:1em 0}"
+            "td,th{border:1px solid #999;padding:4px 10px}</style></head>"
+            f"<body><h1>easydarwin-tpu</h1><h2>Server</h2>"
+            f"<table>{infos}</table>"
+            f"<h2>Live sessions ({len(sessions)})</h2>"
+            f"<table><tr><th>Path</th><th>Outputs</th><th>Age</th>"
+            f"<th>URL</th></tr>{rows}</table></body></html>")
 
     # -------------------------------------------------------- core commands
     def _cmd_getserverinfo(self, params: dict, body: bytes) -> tuple[int, str]:
@@ -278,6 +533,9 @@ class RestApi:
         if headers.get("if-none-match") == etag:
             self.hls_not_modified += 1
             return 304, b"", ctype, {"ETag": etag}
+        # the body goes out through the transport: the reference's
+        # "buffered" rung
+        obs.HLS_SEGMENT_EGRESS_BYTES.inc(len(data), rung="buffered")
         return 200, data, ctype, {"ETag": etag}
 
     def _cmd_starthls(self, params: dict, body: bytes) -> tuple[int, str]:
@@ -410,3 +668,23 @@ class RestApi:
         if st is not None:
             doc.update(st.stats())
         return 200, json.dumps(doc, separators=(",", ":"))
+
+
+def _json(doc) -> tuple:
+    """A raw JSON answer (not the envelope): pipes straight to jq."""
+    return 200, json.dumps(doc, default=str), "application/json"
+
+
+def _maybe_gzip(headers: dict, status: int, ctype: str,
+                data: bytes) -> tuple[bytes, dict | None]:
+    """A body gzipped (deterministic bytes: ``mtime=0``) when the client
+    accepts gzip, its type is one of ``_GZIP_CTYPES`` and it shrinks;
+    else as it is."""
+    if (status != 200 or len(data) < _GZIP_MIN_BYTES
+            or not (ctype or "").startswith(_GZIP_CTYPES)
+            or "gzip" not in headers.get("accept-encoding", "").lower()):
+        return data, None
+    packed = gzip.compress(data, 6, mtime=0)
+    if len(packed) >= len(data):
+        return data, None
+    return packed, {"Content-Encoding": "gzip", "Vary": "Accept-Encoding"}

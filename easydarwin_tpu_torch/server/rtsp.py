@@ -93,12 +93,29 @@ player's or pusher's connection closes, the access log gets its W3C
 line.  DESCRIBE and SETUP look a path up as a live session, then a
 ``.sdp`` broadcast under the movie folder (``relay.source``, opened at
 SETUP), then a file, then a ``.dvr`` asset.
+
+Modules (``server.modules``, ``RtspServer.modules``) see every request
+as the reference's role arrays do: the filter role may answer it, the
+route role sees it, the authorize role may refuse it (403) after RTSP
+auth, the postprocess role sees its reply, the incoming-RTP role sees
+each pushed interleaved packet and the session-closing role each close.
+
+Observability (``obs``): each connection carries a trace id (an ANNOUNCE
+gives it to the session it feeds, a pusher adopting a live session takes
+the session's); each request is an ``rtsp.<method>`` span, the media
+lifecycle methods and SETUP emit their events, and the first SETUP
+registers the session with the flight recorder, which a close for a
+protocol error, an exception or an idle timeout dumps (any other close
+discards it).  GET_PARAMETER with an ``x-freshness`` body answers the
+stream's freshness chain (``obs.fleet``) as JSON.  Each RR report block
+sets the stream's ``qos_*`` gauges.
 """
 
 from __future__ import annotations
 
 import asyncio
 import base64
+import json
 import secrets
 import sys
 import time
@@ -106,17 +123,24 @@ import traceback
 
 import torch
 
+from ..obs import EVENTS, FLIGHT, TRACER
 from ..protocol import rtcp, rtp_meta, rtsp, sdp
-from ..relay.fec import FecConfig, FecOutputState
+from ..relay import quality as quality_mod
+from ..relay.fec import FecConfig, FecOutputState, drop_overhead_gauge
 from ..relay.reliable import ReliableUdpOutput
 from ..relay.session import RelaySession, SessionRegistry, now_ms
 from ..utils.logs import AccessRecord
 from ..vod.session import FileSession
 from .config import ServerConfig
+from .modules import ModuleRegistry
 from .transports import (InterleavedOutput, SharedUdpEgress, UdpOutput,
                          UdpPair, UdpPortPool)
 
 SERVER_NAME = "easydarwin-tpu-torch/0.1"
+#: media lifecycle methods whose status the dispatcher emits as an event
+#: (SETUP emits its own, richer one)
+EVENT_METHODS = frozenset(("ANNOUNCE", "PLAY", "RECORD", "PAUSE",
+                           "TEARDOWN"))
 ALLOWED = ("OPTIONS, DESCRIBE, ANNOUNCE, SETUP, PLAY, PAUSE, RECORD, "
            "TEARDOWN, GET_PARAMETER, SET_PARAMETER")
 #: x-RTP-Meta-Info fields the live relay fills: transmit time, sequence
@@ -313,6 +337,15 @@ class RtspConnection:
         #: the last request URI and User-Agent (the access log's)
         self.uri = ""
         self.user_agent = ""
+        #: the correlation id of this connection's spans, events and
+        #: flight records (stamped on its session and outputs)
+        self.trace_id = secrets.token_hex(8)
+        #: why the connection died when not by TEARDOWN or EOF (a
+        #: protocol error, an exception, the idle sweep): a close with it
+        #: set dumps the flight recorder
+        self.abnormal_reason: str | None = None
+        #: the reply of the request being dispatched
+        self._last_response: rtsp.RtspResponse | None = None
 
     # ------------------------------------------------------------------ io
     async def run(self) -> None:
@@ -338,12 +371,20 @@ class RtspConnection:
             pass
         except rtsp.RtspError as e:
             self._reply(rtsp.RtspResponse(e.status), cseq=0)
-        except Exception:
+            self.abnormal_reason = f"protocol: {e.status}"
+        except Exception as e:
             # one connection's bug must not take the server down; leave
-            # the traceback where an operator reads it
+            # the traceback where an operator reads it, and a black box
             traceback.print_exc(file=sys.stderr)
             self.server.log_error(f"rtsp connection {self.client_ip}: "
                                   f"{traceback.format_exc(limit=4)}")
+            self.abnormal_reason = (f"exception: {type(e).__name__}: "
+                                    f"{e}"[:200])
+            EVENTS.emit("rtsp.exception", level="error",
+                        session_id=self.session_id, stream=self.path,
+                        trace_id=self.trace_id,
+                        error=f"{type(e).__name__}: {e}"[:200],
+                        tb=traceback.format_exc(limit=12)[-2000:])
         finally:
             await self.close()
 
@@ -436,6 +477,7 @@ class RtspConnection:
         resp.headers.setdefault("Server", SERVER_NAME)
         if self.session_id:
             resp.headers.setdefault("Session", self.session_id)
+        self._last_response = resp
         if not self.writer.is_closing():
             self.writer.write(resp.to_bytes())
 
@@ -450,6 +492,12 @@ class RtspConnection:
             self.user_agent = ua
         if req.uri != "*":
             self.uri = req.uri
+        mods = self.server.modules
+        filtered = mods.run_filter(self, req)
+        if filtered is not None:
+            self._reply(filtered, req.cseq)
+            return
+        mods.run_route(self, req)
         auth = self.server.auth
         if auth is not None and req.method in AUTH_METHODS:
             allowed, _user = auth.authorize(
@@ -459,17 +507,51 @@ class RtspConnection:
                 self._reply(rtsp.RtspResponse(401, {
                     "WWW-Authenticate": auth.challenge()}), req.cseq)
                 return
+        if not mods.run_authorize(self, req):
+            self._reply(rtsp.RtspResponse(403), req.cseq)
+            return
+        self._last_response = None
+        t0 = TRACER.begin()
+        errored = False
         try:
             await handler(req)
         except rtsp.RtspError as e:
+            errored = True
             self._reply(rtsp.RtspResponse(e.status), req.cseq)
+            EVENTS.emit("rtsp.error", level="warn",
+                        session_id=self.session_id, stream=self.path,
+                        trace_id=self.trace_id, method=req.method,
+                        status=e.status)
+        finally:
+            TRACER.end(f"rtsp.{req.method.lower()}", t0, cat="rtsp",
+                       trace_id=self.trace_id)
+        if (not errored and req.method in EVENT_METHODS
+                and self._last_response is not None):
+            EVENTS.emit(f"rtsp.{req.method.lower()}",
+                        session_id=self.session_id, stream=self.path,
+                        trace_id=self.trace_id,
+                        status=self._last_response.status)
+        if self._last_response is not None:
+            mods.run_postprocess(self, req, self._last_response)
 
     async def _do_options(self, req: rtsp.RtspRequest) -> None:
         self._reply(rtsp.RtspResponse(200, {"Public": ALLOWED}), req.cseq)
 
     async def _do_get_parameter(self, req: rtsp.RtspRequest) -> None:
-        # players send it as a keep-alive: an empty 200 (the reference's
-        # x-freshness body needs the fleet observer, which the port lacks)
+        """A keep-alive (an empty 200), or with ``x-freshness`` in the
+        body the stream's freshness chain, origin hop first, as JSON: the
+        hop a downstream relay appends its own stamp to."""
+        body = (req.body or b"").decode("utf-8", "replace").lower()
+        if "x-freshness" in body:
+            from ..obs import fleet
+            sess = self.server.registry.find(self.path or req.path())
+            if sess is not None:
+                chain = fleet.freshness_chain(sess,
+                                              self.server.config.server_id)
+                self._reply(rtsp.RtspResponse(
+                    200, {"Content-Type": "application/json"},
+                    json.dumps(chain).encode()), req.cseq)
+                return
         self._reply(rtsp.RtspResponse(200), req.cseq)
 
     async def _do_set_parameter(self, req: rtsp.RtspRequest) -> None:
@@ -481,17 +563,30 @@ class RtspConnection:
         if text is None:
             raise rtsp.RtspError(404)
         self.path = sdp._norm(path)
+        extra = {}
+        sess = self.server.registry.find(self.path)
+        if sess is not None:
+            # the stream's trace id, for a pulling relay to serve its
+            # replica under (informational: an id grants nothing)
+            extra["X-Trace-Id"] = sess.trace_id
         self._reply(rtsp.RtspResponse(200, {
             "Content-Type": "application/sdp",
             "Content-Base": req.uri.rstrip("/") + "/",
+            **extra,
         }, text.encode()), req.cseq)
 
     async def _do_announce(self, req: rtsp.RtspRequest) -> None:
         if not req.body:
             raise rtsp.RtspError(400, "ANNOUNCE without SDP")
+        existing = self.server.registry.find(req.path())
         self.relay = self.server.registry.find_or_create(
             req.path(), req.body.decode("utf-8", "replace"))
         self.relay.owner = self         # ANNOUNCE takes ownership
+        if existing is self.relay:
+            # an adopted session keeps its trace across feeders
+            self.trace_id = self.relay.trace_id
+        else:
+            self.relay.set_trace(self.trace_id)
         self.path = self.relay.path
         self.is_pusher = True
         self._reply(rtsp.RtspResponse(200), req.cseq)
@@ -506,10 +601,17 @@ class RtspConnection:
         base, track_id = _extract_track(req.path())
         if self.session_id is None:
             self.session_id = secrets.token_hex(8)
+            FLIGHT.register(self.session_id, trace_id=self.trace_id,
+                            client_ip=self.client_ip, path=base)
         if record:
             await self._setup_record(req, track_id, t)
         else:
             await self._setup_play(req, base, track_id, t)
+        EVENTS.emit("rtsp.setup", session_id=self.session_id,
+                    stream=self.path or base, trace_id=self.trace_id,
+                    status=self._last_response.status
+                    if self._last_response else 0,
+                    track=track_id, mode="record" if record else "play")
 
     async def _setup_record(self, req, track_id, t) -> None:
         if self.relay is None:
@@ -602,6 +704,8 @@ class RtspConnection:
         extra.update(rel)
         extra.update(attach_fec(req.headers.get("x-fec", ""), out, t,
                                 srv.device))
+        out.trace_id = self.trace_id
+        out.session_id = self.session_id
         srv.note_player_output(self, out, self.player_tracks.get(track_id))
         self.player_tracks[track_id] = out
         self._reply(rtsp.RtspResponse(200, {"Transport": resp_t.to_header(),
@@ -836,6 +940,9 @@ class RtspConnection:
         m = self.channel_map.get(pkt.channel)
         if m is not None and self.relay is not None:
             track_id, is_rtcp = m
+            if not is_rtcp:
+                self.server.modules.run_incoming_rtp(self.relay, track_id,
+                                                     pkt.data)
             self.relay.push(track_id, pkt.data, is_rtcp=is_rtcp)
             self.server.packets_in += 1
             self.server.wake_pump()
@@ -911,6 +1018,17 @@ class RtspConnection:
         if self.closed:
             return
         self.closed = True
+        if self.session_id is not None:
+            EVENTS.emit("rtsp.close", session_id=self.session_id,
+                        stream=self.path, trace_id=self.trace_id,
+                        level="warn" if self.abnormal_reason else "info",
+                        reason=self.abnormal_reason or "eof")
+            if self.abnormal_reason and (self.player_tracks
+                                         or self.is_pusher):
+                FLIGHT.dump(self.session_id, reason=self.abnormal_reason)
+            else:
+                FLIGHT.discard(self.session_id)
+        self.server.modules.run_session_closing(self)
         self.server.on_session_closed(self)
         for pair in (*self.pusher_pairs.values(),
                      *self.player_pairs.values()):
@@ -932,6 +1050,10 @@ class RtspConnection:
                 if st is not None:
                     st.remove_output(out)
                 self.server.drop_player_output(self, out)
+                # a departed player's gauges leave the exposition (a
+                # surviving player's next RR or FEC pass sets them again)
+                quality_mod.drop_qos(self.path, tid)
+                drop_overhead_gauge(self.path, tid)
             if self.is_pusher:
                 # our RR writers point at this closing connection; a
                 # pusher that adopted the session installed its own
@@ -991,6 +1113,8 @@ class RtspServer:
         #: where the FEC tier's parity pass runs
         self.device = torch.device(device)
         self.connections: set[RtspConnection] = set()
+        #: plugin modules and their role hooks (``server.modules``)
+        self.modules = ModuleRegistry()
         self.packets_in = 0
         self._on_pump_wake = on_pump_wake
         self._server: asyncio.AbstractServer | None = None
@@ -1134,6 +1258,17 @@ class RtspServer:
             lambda d, a, tid=track_id: conn.udp_ingest(tid, d, a, False),
             on_rtcp)
 
+    @staticmethod
+    def _record_qos(conn, out, frac: float, jitter: int) -> None:
+        """One RR block into its stream's ``qos_*`` gauges."""
+        if conn is None or conn.relay is None:
+            return
+        tid = next((t for t, o in conn.player_tracks.items() if o is out),
+                   None)
+        st = conn.relay.streams.get(tid)
+        quality_mod.record_rr_qos(conn.path, tid, frac, jitter,
+                                  st.info.clock_rate if st else None)
+
     def note_player_output(self, conn: RtspConnection, out,
                            replaced=None) -> None:
         """Register a player output's RTCP keys (a re-SETUP of a track
@@ -1194,6 +1329,7 @@ class RtspServer:
                         out.on_receiver_report(frac)
                         if out.fec is not None:
                             out.fec.controller.on_receiver_report(frac)
+                        self._record_qos(c, out, frac, rb.jitter)
             elif isinstance(p, rtcp.Nadu):
                 for blk in p.blocks:
                     c, out = output(blk.ssrc)
@@ -1274,7 +1410,11 @@ class RtspServer:
         for conn in list(self.connections):
             limit = (self.config.push_timeout_sec if conn.is_pusher
                      else self.config.rtsp_timeout_sec)
-            if now - conn.last_activity > limit:
+            idle = now - conn.last_activity
+            if idle > limit:
+                conn.abnormal_reason = (conn.abnormal_reason
+                                        or f"timeout: idle {idle:.1f}s "
+                                           f"> {limit}s")
                 task = asyncio.get_running_loop().create_task(conn.close())
                 self._tasks.add(task)
                 task.add_done_callback(self._tasks.discard)

@@ -4,8 +4,9 @@
 (``.1`` … ``.keep`` suffixes).  ``ErrorLog`` filters by level
 (fatal/warning/info/debug); ``AccessLog`` writes one W3C-extended line
 for each finished player or pusher session.  Each counts its lines and
-rolls (``stats``), where the reference counts them in its metrics
-registry.
+rolls (``stats``) and bumps the reference's ``log_lines_total{log,level}``
+and ``log_rolls_total{log}`` (``log`` is the file's name without its
+extension: ``access`` or ``error``).
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ import os
 import time
 from dataclasses import dataclass
 
+from .. import obs
 from .http_misc import parse_user_agent
 
 
@@ -22,8 +24,10 @@ class RollingLog:
     The file is opened at the first line."""
 
     def __init__(self, path: str, *, max_bytes: int = 10_000_000,
-                 max_age_sec: float = 7 * 86400, keep: int = 5):
+                 max_age_sec: float = 7 * 86400, keep: int = 5,
+                 name: str | None = None):
         self.path = path
+        self.name = name or os.path.splitext(os.path.basename(path))[0]
         self.max_bytes = max_bytes
         self.max_age_sec = max_age_sec
         self.keep = keep
@@ -62,6 +66,7 @@ class RollingLog:
         if os.path.exists(self.path):
             os.replace(self.path, f"{self.path}.1")
         self.rolls += 1
+        obs.LOG_ROLLS.inc(log=self.name)
         self._open()
 
     def close(self) -> None:
@@ -86,6 +91,7 @@ class ErrorLog:
         if self.LEVELS.get(level, 3) <= self.verbosity:
             ts = time.strftime("%Y-%m-%d %H:%M:%S")
             self.log.write_line(f"{ts} [{level.upper()}] {message}")
+            obs.LOG_LINES.inc(log=self.log.name, level=level)
 
     def fatal(self, m):
         self.write("fatal", m)
@@ -146,3 +152,4 @@ class AccessLog:
             self.log.write_line("#Software: easydarwin-tpu/0.1")
             self.log.write_line(f"#Fields: {W3C_FIELDS}")
         self.log.write_line(w3c_line(r, time.gmtime()))
+        obs.LOG_LINES.inc(log=self.log.name, level="access")

@@ -31,7 +31,8 @@ kinds: plain ones; FEC ones (``x-FEC: parity``) that drop media datagrams
 at a seeded rate, report a fixed loss in an RR each ``rr_every_s``,
 rebuild what they can from parity (``relay.fec.FecReceiver``) and send a
 generic NACK for each packet still missing ``NACK_AFTER_S`` after a later
-one arrived (at most ``NACK_MAX_PER_TICK`` a 50 ms tick); and reliable
+one arrived, or after the push ended for a lost tail (at most
+``NACK_MAX_PER_TICK`` a 50 ms tick); and reliable
 ones (``x-Retransmit: our-retransmit``) that
 drop at a seeded rate and ack each datagram they keep with a 'qtak' APP.
 Every player's whole span, from its fast-start IDR to the last pushed
@@ -750,7 +751,8 @@ async def push_play_av(port: int, rng: np.random.Generator, *,
                        players: list[dict], gops: int = 7, frames: int = 30,
                        packets_per_frame: int = 13, body_len=(1270, 1300),
                        rr_every_s: float = 1.0, loss_after_s: float = 1.0,
-                       deadline_s: float = 30.0) -> dict:
+                       deadline_s: float = 30.0,
+                       path: str = "/live/av") -> dict:
     """One pusher of ``gops`` GOPs of ``frames`` H.264 frames (FU-A,
     ``packets_per_frame`` packets a frame) at ``FPS`` and an AAC track
     (one packet of 200–400 bytes each 1024 ticks at 48 kHz), each with an
@@ -759,7 +761,8 @@ async def push_play_av(port: int, rng: np.random.Generator, *,
     "udp"|"tcp", "meta": bool, "lossy": bool}``; every player sends an RR
     on each track each ``rr_every_s``, a lossy one reports
     ``LOSS_FRACTION`` on video once, ``loss_after_s`` after its join.
-    Every check of the module docstring is made; returns the counts."""
+    The pusher announces ``path``.  Every check of the module docstring
+    is made; returns the counts."""
     gop = frames * packets_per_frame
     duration = gops * frames / FPS
     v_ssrc, a_ssrc = 0xC0DE0001, 0xA0D10002
@@ -777,7 +780,7 @@ async def push_play_av(port: int, rng: np.random.Generator, *,
     media_ssrc = {VIDEO: v_ssrc, AUDIO: a_ssrc}
     pusher = MiniClient()
     await pusher.connect(port)
-    uri = f"rtsp://127.0.0.1:{port}/live/av"
+    uri = f"rtsp://127.0.0.1:{port}{path}"
     await pusher.request("ANNOUNCE", uri, {"content-type": "application/sdp"},
                          AV_SDP.encode())
     for tid in (VIDEO, AUDIO):
@@ -1130,6 +1133,8 @@ class _LossyPlayer:
         self.missing: dict[int, float] = {}
         self._nacked_at: dict[int, float] = {}
         self._early: list[tuple[int, bytes]] = []
+        #: the span's length once the push is over (None: not known yet)
+        self.end: int | None = None
 
     def set_origin(self, seq0: int, ts0: int) -> None:
         """The PLAY reply's RTP-Info: index what arrived before it."""
@@ -1155,6 +1160,19 @@ class _LossyPlayer:
             if m not in self.held:
                 self.missing[m] = now
         self.max_j = max(self.max_j, j)
+
+    def note_end(self, n: int) -> None:
+        """The push is over and the span holds ``n`` packets (what a
+        receiver learns from the sender's report of its packet count):
+        the indices past the newest held become missing, so a lost tail
+        is NACKed like a lost middle."""
+        if self.end is not None:
+            return
+        self.end = n
+        now = time.monotonic()
+        for m in range(self.max_j + 1, n):
+            if m not in self.held:
+                self.missing[m] = now
 
     # -- the RTP socket --------------------------------------------------
     def on_rtp(self, data: bytes) -> None:
@@ -1220,15 +1238,16 @@ async def push_play_lossy(port: int, rng: np.random.Generator, *,
                           body_len=(1270, 1300),
                           frame_interval_s: float = 1 / 30,
                           rr_every_s: float = 0.5,
-                          deadline_s: float = 30.0) -> dict:
+                          deadline_s: float = 30.0,
+                          path: str = "/live/lossy") -> dict:
     """One pusher of ``gops`` GOPs (``push_play``'s), then one player of
     ``players`` joining each frame of the live part; a spec is
     ``{"kind": "plain"|"fec"|"reliable", "drop": fraction}``.  Holds every
     player's span to the oracle (the module docstring); returns the
     counts, per FEC player the packets rebuilt from parity and replayed,
-    and the first join's host time."""
+    and the first join's host time.  The pusher announces ``path``."""
     gop = frames * packets_per_frame
-    uri = f"rtsp://127.0.0.1:{port}/live/lossy"
+    uri = f"rtsp://127.0.0.1:{port}{path}"
     sent = []
     for _ in range(gops):
         sent += synth.paced_gop(rng, seq0=0xFFE0 + len(sent),
@@ -1350,6 +1369,11 @@ async def push_play_lossy(port: int, rng: np.random.Generator, *,
         push_s = time.monotonic() - t_start
         deadline = time.monotonic() + deadline_s
         while time.monotonic() < deadline and not all(map(done, av)):
+            for pl in av:
+                if pl.kind == "fec" and pl.end is None:
+                    i0 = first_index(pl, pl.first)
+                    if i0 is not None:
+                        pl.note_end(len(sent) - i0)
             await asyncio.sleep(0.1)
         settle_s = time.monotonic() - t_start - push_s
         stop.set()

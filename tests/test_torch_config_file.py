@@ -6,11 +6,12 @@ unmapped list, ``update`` / ``on_change`` and the CLI's ``-c`` and ``-x``.
   the reference loader's value for every key both sides map; the port's
   unmapped list holds every pref the reference's leaves unmapped that
   the port does not serve, and every pref the reference maps to a key
-  the port does not serve yet (the cloud, the status file, Redis);
+  the port does not serve yet (the cloud, Redis);
 * a TOML written by the reference's ``to_toml`` loads to the reference's
-  values for every shared key, and each reference key the port lacks
-  (``slo_*``, the cluster, the degradation ladder, fault injection, …)
-  is in the unmapped list, none dropped in silence;
+  values for every shared key (the SLO watchdog's ``slo_*`` and the
+  status keys among them), and each reference key the port lacks (the
+  cluster, the degradation ladder, fault injection, …) is in the
+  unmapped list, none dropped in silence;
 * ``to_toml`` round trips; ``update`` casts, routes the relay keys into
   ``stream``, runs the ``on_change`` listeners and raises ``KeyError``
   on an unknown key before changing anything;
@@ -135,9 +136,12 @@ def test_reference_toml_loads_with_every_missing_key_listed(tmp_path):
     for k in set(ref_d) & set(d):
         assert d[k] == ref_d[k], k
     assert set(unmapped) == set(ref_d) - set(d)
-    for k in ("slo_enabled", "cluster_enabled", "resilience_fault_plan",
+    for k in ("cluster_enabled", "resilience_fault_plan",
               "resilience_enabled", "tpu_fanout", "redis_host"):
         assert k in unmapped
+    for k in ("slo_enabled", "slo_latency_objective_ms", "stats_interval_sec",
+              "status_file_path", "status_file_interval_sec"):
+        assert k not in unmapped and d[k] == ref_d[k], k
     assert cfg.stream.overbuffer_ms == 3500 and cfg.stream.max_age_ms == 9000
     assert config.ServerConfig.from_toml(str(p)).to_dict() == d
 
@@ -162,7 +166,7 @@ def test_update_casts_routes_and_notifies():
     assert cfg.stream.bucket_delay_ms == 50 and cfg.rtsp_timeout_sec == 90
     assert cfg.stream.overbuffer_ms == 2000 and seen == [50]
     with pytest.raises(KeyError):
-        cfg.update(rtsp_timeout_sec=5, slo_enabled=True)
+        cfg.update(rtsp_timeout_sec=5, cluster_enabled=True)
     assert cfg.rtsp_timeout_sec == 90 and seen == [50]
     with pytest.raises(KeyError):
         cfg.update(_listeners=[])
@@ -180,11 +184,11 @@ def test_cli_flags_apply_over_the_file_and_content_decides(tmp_path):
     assert cfg.movie_folder == "/srv/movies" and cfg.dvr_enabled is True
     assert "run_num_threads" in unmapped
     t = tmp_path / "c.xml"                       # TOML under an XML name
-    t.write_text('rtsp_port = 7\nmovie_folder = "/m"\nslo_enabled = true\n')
+    t.write_text('rtsp_port = 7\nmovie_folder = "/m"\ncluster_enabled = true\n')
     cfg, unmapped = cli.config_from_args(["-c", str(t),
                                           "--movie-folder", "/n"])
     assert (cfg.rtsp_port, cfg.movie_folder) == (7, "/n")
-    assert unmapped == ["slo_enabled"]
+    assert unmapped == ["cluster_enabled"]
     cfg, unmapped = cli.config_from_args(["--service-port", "9"])
     assert cfg.service_port == 9 and cfg.rtsp_port == 10554
     assert unmapped == []

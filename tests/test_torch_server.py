@@ -36,8 +36,10 @@
 * importing the port, its server, its CLI, the transcode modules, the
   REST API, the VOD tier, the HLS tier with its codecs and the server
   surface (auth, MP3, the watchdog, the config file, the logs, the RTSP
-  client, pull relays and ``.sdp`` sources) leaves ``jax`` and
-  ``easydarwin_tpu`` out of ``sys.modules``;
+  client, pull relays and ``.sdp`` sources), and the observability stack
+  (the eleven ``obs`` modules, the status monitor, the dictionary, the
+  modules and the admin tree) leaves ``jax`` and ``easydarwin_tpu`` out
+  of ``sys.modules``;
 * the CLI's device defaults to the card, and without one it raises.
 """
 
@@ -849,6 +851,21 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "import easydarwin_tpu_torch.relay.pull\n"
             "import easydarwin_tpu_torch.relay.source\n"
             "import easydarwin_tpu_torch.cluster.protocol\n"
+            "import easydarwin_tpu_torch.obs\n"
+            "import easydarwin_tpu_torch.obs.metrics\n"
+            "import easydarwin_tpu_torch.obs.families\n"
+            "import easydarwin_tpu_torch.obs.trace\n"
+            "import easydarwin_tpu_torch.obs.events\n"
+            "import easydarwin_tpu_torch.obs.flight\n"
+            "import easydarwin_tpu_torch.obs.ledger\n"
+            "import easydarwin_tpu_torch.obs.profile\n"
+            "import easydarwin_tpu_torch.obs.slo\n"
+            "import easydarwin_tpu_torch.obs.audience\n"
+            "import easydarwin_tpu_torch.obs.fleet\n"
+            "import easydarwin_tpu_torch.server.status\n"
+            "import easydarwin_tpu_torch.server.dictionary\n"
+            "import easydarwin_tpu_torch.server.modules\n"
+            "import easydarwin_tpu_torch.server.admin\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m.split('.')[0] in ('jax', 'jaxlib', "
             "'easydarwin_tpu'))\n"

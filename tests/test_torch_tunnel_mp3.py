@@ -147,9 +147,12 @@ async def test_orphan_post_and_unserved_get_answer_404(tmp_path):
                            b"nobody\r\nContent-Length: 32767\r\n\r\n"
                            + base64.b64encode(b"OPTIONS * RTSP/1.0\r\n"))
         assert post == b"HTTP/1.0 404 Not Found\r\n\r\n"
-        for target in (b"/stats", b"/nothing.mp3", b"/../etc/passwd.mp3"):
+        for target in (b"/nothing", b"/nothing.mp3", b"/../etc/passwd.mp3"):
             got = await _http(port, b"GET " + target + b" HTTP/1.0\r\n\r\n")
             assert got == b"HTTP/1.0 404 Not Found\r\n\r\n", target
+        # the stats page is served on the RTSP port
+        got = await _http(port, b"GET /stats HTTP/1.0\r\n\r\n")
+        assert got.startswith(b"HTTP/1.0 200 OK\r\n"), got[:40]
         # a GET split before its fourth byte is still HTTP
         r, w = await asyncio.open_connection("127.0.0.1", port)
         w.write(b"GE")
