@@ -302,7 +302,13 @@ phase raises and the script exits non-zero.
              the ladder's host ms an AU by stage, an AU's latency (mean,
              max), the most AUs pending, and the pump's wake p50 and max;
              every requantized slice written by the native walk
-             (``native_slices``)
+             (``native_slices``).  After phase 13, the tiers' counter
+             families over phases 11-13 (``vod_cache_hits_total``,
+             ``vod_cache_misses_total``, ``dvr_windows_spilled_total``,
+             ``storage_reconstructs_total``, ``requant_aus_total``,
+             ``requant_slices_total``, ``requant_renditions_total``): this
+             process's change plus each CLI server's ``/metrics`` scraped
+             at its stop; each must be non-zero
 13c. hls 1080p phase 13 at config 5's pictures, 1920x1088 (8,160
              macroblocks): the same server, sources, rungs and rate for
              30 s (12 pictures a source); 2 pictures of each kind (entropy
@@ -403,6 +409,27 @@ phase raises and the script exits non-zero.
              copies moved (``ops.staging.COPIED``), the three
              ``getserverinfo`` keys answer, the pprof profile parses; the
              wake p50 with profiling is at most 1.5× the p50 without
+16. chaos   the resilience tier on the card, in-process
+             (``utils.chaos_loopback``): a server with
+             ``resilience_fault_plan`` armed from its start
+             (``CHAOS_PLAN``: device errors every 100th draw of the
+             ``megabatch.dispatch`` and ``fanout.device_params`` sites,
+             ingest drop and corrupt at 1%, EAGAIN and ENOBUFS every
+             97th and 131st egress send call) and ``resilience_recover_sec``
+             1 s serves 8 pushed H.264 streams (half over TCP, half over
+             UDP) × 8 UDP players through the megabatch for
+             ``CHAOS_FAULT_S``; ``fault_injected_total`` by site equals
+             the injector's counts, the ladder degrades, ``ed_relay_window``
+             launches while the faults fire with 0 oracle mismatches;
+             after the disarm every stream is back on the megabatch rung
+             within 4 rungs × 1 s + 2 s and ``ed_relay_window`` launches
+             again; the device errors the pump counted are no more than
+             the faults injected and none is a real one; every player's
+             packets are pushed ones, one SSRC, increasing seqs.  Then a
+             restart from the checkpoint: server A stops, server B
+             restores on its log folder, the pusher re-ANNOUNCEs, and a UDP
+             and an interleaved-TCP player (re-attached with its old
+             Session id) each see one SSRC and a contiguous seq
 
 ``python3 chip_smoke.py --hls-control`` runs phases 1, 2, 5c's leg check
 and phases 13 and 13c twice each instead, each checked in full: the
@@ -424,13 +451,14 @@ HLS path; these two launch B6).  Phase 13b runs after them: its B6 legs
 are not the main path's.  Then each of phase 6c's scheduler mesh
 path (after its one-device comparison run), 7f, 7g and 13d is its own
 path, with the counts set to 0 just before it and read just after, as
-are phase 14 (its two servers report their own) and phase 15 (its
-two runs' server), and so is B8's own path in phase 6c: its two calls through
+are phase 14 (its two servers report their own), phase 15 (its
+two runs' server) and phase 16 (its servers run in-process), and so is
+B8's own path in phase 6c: its two calls through
 ``sharded_relay_step``.  No serving code calls B8 (the server's mesh path
 is the scheduler's, one ``ed_relay_window`` a shard), so its kernel
 ``ed_relay_shard`` is launched on that path alone, and its row in the
 kernels line says so under ``caller``.  The kernels line's launches are
-the twelve paths' sum.  The comparisons and
+the thirteen paths' sum.  The comparisons and
 timings of phases 3, 4, 4b, 4c, 4d, 4e, 5, 5b, 5c and 10 run outside
 those windows.  Phase 10's window rows also time the VOD prime's calls
 of phase 11.
@@ -2706,7 +2734,7 @@ def phase_vod_server(clips: dict, rng) -> dict:
             play = await vl.play_vod(srv.rtsp_port, VOD_DIR, "clipA.mp4",
                                      VOD_SERVER_KINDS, run_s=VOD_RUN_S)
             play["udp_rcvbuf_errors"] = loopback.udp_rcvbuf_errors() - rcvbuf0
-            play_stats = await srv.stop()
+            play_stats = await srv.stop(counters=loopback.TIER_COUNTERS)
         # the recorder on a server of its own, so each phase's wake
         # figures are its own
         async with loopback.CliServer(DEVICE, "--movie-folder",
@@ -2776,6 +2804,27 @@ def phase_vod_server(clips: dict, rng) -> dict:
                     for k, n in st["kernel_launches"].items()}
     return {"play": play, "record": rec, "server_stats": st,
             "kernel_launches": vod_launches}
+
+
+def tier_totals() -> dict:
+    """This process's totals of the tiers' counter families."""
+    from easydarwin_tpu_torch import obs
+    from easydarwin_tpu_torch.utils.loopback import TIER_COUNTERS
+    return {n: obs.REGISTRY.get(n).total() for n in TIER_COUNTERS}
+
+
+def tier_check(before: dict, servers: list) -> dict:
+    """The tiers' counter families over phases 11-13: this process's
+    change since ``before`` plus each CLI server's scrape at its stop
+    (``servers``: their exit stats); fails on a family still at 0."""
+    now = tier_totals()
+    got = {n: now[n] - before[n] + sum(st["counters"][n] for st in servers)
+           for n in now}
+    zero = [n for n, v in got.items() if not v]
+    check(not zero, f"tier counter families at 0 over phases 11-13: {zero}")
+    log(f"[tiers] counter families over phases 11-13 (this process and "
+        f"{len(servers)} servers): {got}")
+    return got
 
 
 # ------------------------------------------------------------- phase 12
@@ -3568,6 +3617,8 @@ async def _wheel_run(rng) -> dict:
             await asyncio.sleep(WHEEL_FRAME_S)
         await asyncio.sleep(0.4)
         after = app.stats()
+        check(after["resilience"]["device_errors"] == 0,
+              f"7f device errors: {after['resilience']}")
     finally:
         for c in clients:
             await c.close()
@@ -3640,7 +3691,8 @@ def phase_udp_pairs(rng, shared: dict) -> dict:
     res = asyncio.run(asyncio.wait_for(run(), 240))
     st = res["server_stats"]
     check(st["pump_errors"] == 0 and st["send_errors"] == 0
-          and st["missing_params"] == 0, f"7g server: {st}")
+          and st["missing_params"] == 0
+          and st["resilience"]["device_errors"] == 0, f"7g server: {st}")
     check(st["native_sent"] == 0 and st["loop_sent"] == st["packets_out"]
           == res["delivered"], f"7g: {st['loop_sent']} sent by the loop, "
           f"{st['native_sent']} by the scatter, {res['delivered']} delivered")
@@ -3930,6 +3982,68 @@ def phase_observed(smi: str) -> dict:
             "scrapes": on["scrapes"], "pages": final["pages"],
             "server_stats": {"on": st, "off": off["server_stats"]},
             "blame_report": report}
+
+
+#: phase 16: its limit in seconds, its seed, how long the faults fire and
+#: the ladder's recover time
+CHAOS_LIMIT_S = 90.0
+CHAOS_SEED = 20261021
+CHAOS_FAULT_S = 5.0
+CHAOS_RECOVER_S = 1.0
+CHAOS_DIR = os.path.join(HERE, "build", "chaos_phase")
+
+def phase_chaos(smi: str) -> dict:
+    """Phase 16: the chaos run and the restart from the checkpoint (the
+    module docstring)."""
+    import shutil
+    from easydarwin_tpu_torch.utils import chaos_loopback as cl
+    shutil.rmtree(CHAOS_DIR, ignore_errors=True)
+    t0 = time.monotonic()
+    res = asyncio.run(asyncio.wait_for(cl.chaos_relay(
+        DEVICE, CHAOS_SEED, streams=8, players=8, fault_s=CHAOS_FAULT_S,
+        recover_sec=CHAOS_RECOVER_S,
+        log_folder=os.path.join(CHAOS_DIR, "logs")), CHAOS_LIMIT_S))
+    t_chaos = time.monotonic() - t0
+    wl = res["window_launches"]
+    check(wl["fault"] > 0 and wl["after"] > 0,
+          f"ed_relay_window launches while the faults fired / after the "
+          f"recovery: {wl}")
+    check(wl == res["window_calls"],
+          f"ed_relay_window launches {wl} != the scheduler's window calls "
+          f"{res['window_calls']}")
+    restart = asyncio.run(asyncio.wait_for(cl.restart_resume(
+        DEVICE, os.path.join(CHAOS_DIR, "restart"), seed=CHAOS_SEED,
+        packets=60), CHAOS_LIMIT_S))
+    t_restart = time.monotonic() - t0 - t_chaos
+    seconds = time.monotonic() - t0
+    check(seconds <= CHAOS_LIMIT_S,
+          f"phase 16 took {seconds:.1f} s, over {CHAOS_LIMIT_S} s")
+    rung_s = {k: round(v, 3) for k, v in res["rung_s"].items()}
+    log(f"[chaos] plan {res['plan']}: {res['streams']} streams × "
+        f"{res['players'] // res['streams']} UDP players for "
+        f"{CHAOS_FAULT_S} s; faults by site {res['faults']} (= "
+        f"fault_injected_total {res['fault_injected_total']}; the egress "
+        f"core's own count {res['egress_native_faults']}); device errors "
+        f"counted {res['device_errors']} (injected "
+        f"{res['device_errors_injected']}); transitions {res['transitions']};"
+        f" stream-seconds by rung {rung_s}")
+    log(f"[chaos] recovered to the megabatch rung {res['recover_s']:.3f} s "
+        f"after the disarm (bound {res['recover_bound_s']:.1f} s); "
+        f"ed_relay_window launches while faulted {wl['fault']}, after the "
+        f"recovery {wl['after']} (in {1.0:.1f} s); oracle mismatches "
+        f"{res['mismatches']}; wake host ms while faulted p50 "
+        f"{res['wake_ms_p50']:.3f} p99 {res['wake_ms_p99']:.3f} over "
+        f"{res['wakes_faulted']} wakes; {res['pushed']} packets pushed, "
+        f"{res['delivered']} delivered and checked; {t_chaos:.1f} s")
+    log(f"[chaos] restart: restored {restart['restored_sessions']} session "
+        f"/ {restart['restored_outputs']} UDP output, 1 TCP record "
+        f"re-attached; packets before / after: UDP {restart['udp_packets']}"
+        f", TCP {restart['tcp_packets']}, one SSRC and a contiguous seq "
+        f"each; the restored subscriber's RR proved it: "
+        f"{restart['rr_proved']}; {t_restart:.1f} s")
+    log(f"[chaos] phase {seconds:.1f} s; card {smi}")
+    return {"chaos": res, "restart": restart, "seconds": seconds,
+            "chaos_s": t_chaos, "restart_s": t_restart}
 
 
 def observed_device_check(observed: dict, timed: list) -> None:
@@ -4713,6 +4827,7 @@ def main() -> int:
 
     clips = vod_clips(int(rng.integers(1 << 31)))
     kernel_lib.reset_launch_counts()           # the VOD path starts here
+    tiers0 = tier_totals()
     detail["vod"] = phase_vod(clips)
     detail["vod_server"] = phase_vod_server(clips, rng)
     vod_in_proc = dict(kernel_lib.LAUNCHES)
@@ -4751,6 +4866,9 @@ def main() -> int:
         check(hls_launches[k] > 0, f"{k} was not launched on the HLS path")
     detail["hls_path_launches"] = hls_launches
     launches = {k: n + hls_launches[k] for k, n in launches.items()}
+    detail["tiers"] = tier_check(tiers0, [
+        detail["vod_server"]["server_stats"], detail["dvr"]["server_a"],
+        detail["dvr"]["server_b"], detail["hls"]["server_stats"]])
 
     t_1080 = time.monotonic()
     sources_1080, prepared_1080, enc_s = prepare_1080(rng)
@@ -4812,6 +4930,15 @@ def main() -> int:
           "ed_relay_window was not launched on the observed path")
     detail["observed_path_launches"] = observed_path
     launches = {k: n + observed_path.get(k, 0) for k, n in launches.items()}
+
+    kernel_lib.reset_launch_counts()         # the chaos path starts here
+    detail["chaos"] = phase_chaos(smi)
+    chaos_path = dict(kernel_lib.LAUNCHES)
+    log(f"[chaos path] kernel launches {chaos_path}")
+    check(chaos_path["ed_relay_window"] > 0,
+          "ed_relay_window was not launched on the chaos path")
+    detail["chaos_path_launches"] = chaos_path
+    launches = {k: n + chaos_path.get(k, 0) for k, n in launches.items()}
 
     errs = {"ed_parse_packets": max(detail["k1"].values()),
             "ed_relay_window": max(
@@ -4883,13 +5010,15 @@ def main() -> int:
     detail["seconds"] = {"script": script_s, "phases_13b_13c": new_phases_s,
                          "phases_6c_7f_7g_13d": mesh_phases_s,
                          "phase_14": detail["surface"]["seconds"],
-                         "phase_15": detail["observed"]["seconds"]}
+                         "phase_15": detail["observed"]["seconds"],
+                         "phase_16": detail["chaos"]["seconds"]}
     log(f"[time] the script {script_s:.3f} s from its build; phases 13c "
         f"and 13b (the 1080p pictures' encode included) {new_phases_s:.3f}"
         f" s of it, phases 6c, 7f, 7g and 13d {mesh_phases_s:.3f} s, phase "
         f"14 {detail['surface']['seconds']:.3f} s, phase 15 "
-        f"{detail['observed']['seconds']:.3f} s, the rest "
-        f"{script_s - new_phases_s - mesh_phases_s - detail['surface']['seconds'] - detail['observed']['seconds']:.3f} s")
+        f"{detail['observed']['seconds']:.3f} s, phase 16 "
+        f"{detail['chaos']['seconds']:.3f} s, the rest "
+        f"{script_s - new_phases_s - mesh_phases_s - detail['surface']['seconds'] - detail['observed']['seconds'] - detail['chaos']['seconds']:.3f} s")
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(detail, f, indent=1, default=str)
 

@@ -2,7 +2,7 @@
 [-p PORT] [--service-port N] [--device cuda|cpu] [--movie-folder DIR]
 [--vod-cache-*] [--dvr-*] [--storage-*] [--hls-device cuda|cpu]
 [--auth-enabled 0|1] [--rest-username U] [--rest-password P]
-[--log-folder DIR]``.
+[--log-folder DIR] [-S N] [--status-file PATH] [--module-folder DIR]``.
 
 ``-c FILE`` loads the config from a TOML file of ``ServerConfig`` keys or
 from the reference's ``easydarwin.xml`` (told apart by content); the
@@ -40,8 +40,16 @@ H.264 path publishes over HLS: ``/api/v1/starthls?path=/cam&rungs=q6,q12``
 and r2) on the service port, then ``/hls/cam/[<rung>/]index.m3u8``,
 ``init.mp4`` and ``seg<N>.m4s``; the requant rungs run B6 on ``--device``
 (or ``--hls-device``).
+``-S N`` prints the status columns every N seconds, ``--status-file
+PATH`` writes the JSON status snapshot there every
+``status_file_interval_sec``, and ``--module-folder DIR`` loads the
+``*.py`` plugin modules of DIR at start.
 Prints one ``listening:`` line once both listeners are bound (port 0 picks
-a free port) and runs until SIGINT/SIGTERM, or REST ``restart``.
+a free port) and runs until SIGINT/SIGTERM, or REST ``restart``.  SIGHUP
+re-reads the prefs as the reference does: ``update()`` on the running
+server's config, which runs its ``on_change`` listeners (auth and the
+logs made again, every module's ``reread_prefs``); the server keeps
+serving.  The handlers are in place before the listening line.
 """
 
 from __future__ import annotations
@@ -139,6 +147,15 @@ def build_parser() -> argparse.ArgumentParser:
                    help="the REST user's password")
     p.add_argument("--log-folder", default=d.log_folder,
                    help="where access.log and error.log roll")
+    p.add_argument("-S", "--stats-interval", dest="stats_interval_sec",
+                   type=int, metavar="N", default=d.stats_interval_sec,
+                   help="print the status columns every N seconds "
+                        "(0: off)")
+    p.add_argument("--status-file", dest="status_file_path",
+                   default=d.status_file_path,
+                   help="write a JSON status snapshot here on an interval")
+    p.add_argument("--module-folder", default=d.module_folder,
+                   help="a folder of *.py plugin modules loaded at start")
     return p
 
 
@@ -163,6 +180,12 @@ def config_from_args(argv=None) -> tuple[ServerConfig, list[str]]:
 async def amain(cfg: ServerConfig, device: str,
                 exit_after_boot: bool = False) -> int:
     app = StreamingServer(cfg, device=device)
+    stop = asyncio.Event()
+    loop = asyncio.get_running_loop()
+    for sig in (signal.SIGINT, signal.SIGTERM):
+        loop.add_signal_handler(sig, stop.set)
+    # SIGHUP re-reads the prefs of the config the running server holds
+    loop.add_signal_handler(signal.SIGHUP, lambda: app.config.update())
     await app.start()
     print(f"easydarwin-tpu-torch listening: rtsp://{cfg.bind_ip}:"
           f"{app.rtsp.port} service http://{cfg.bind_ip}:{app.rest.port}"
@@ -170,10 +193,6 @@ async def amain(cfg: ServerConfig, device: str,
     if exit_after_boot:
         await app.stop()
         return 0
-    stop = asyncio.Event()
-    loop = asyncio.get_running_loop()
-    for sig in (signal.SIGINT, signal.SIGTERM):
-        loop.add_signal_handler(sig, stop.set)
     waits = [asyncio.create_task(stop.wait()),
              asyncio.create_task(app.restart_event.wait())]
     await asyncio.wait(waits, return_when=asyncio.FIRST_COMPLETED)

@@ -1,10 +1,11 @@
 """DVR manager: the arm / spill / finalize lifecycle and time-shift
 serving.
 
-A copy of the reference's ``dvr/service.py`` without its ``obs`` gauges
-and events, and without the cluster wire (``materialize`` and
-``advertise`` serve the peer fill of a cluster tier the port does not
-have).  Errors the reference logs and swallows are counted here
+A copy of the reference's ``dvr/service.py`` without the cluster wire
+(``materialize`` and ``advertise`` serve the peer fill of a cluster tier
+the port does not have).  Its ``obs`` sites are the reference's: the
+``dvr.arm`` and ``dvr.finalize`` events and the ``dvr_spill_bytes``
+gauge (set after a tick that spilled, and at finalize).  Errors the reference logs and swallows are counted here
 (``finalize_errors``; the server counts a failed spill tick in
 ``spill_errors``) and their tracebacks go to stderr; a recording still
 finalizes.
@@ -31,6 +32,8 @@ import sys
 import time
 import traceback
 
+from .. import obs
+from ..obs import EVENTS
 from ..protocol.sdp import _norm
 from ..utils.paths import confined_subpath
 from .spill import SpilledTrack, SpillError, SpillWriter, WindowSpiller
@@ -161,6 +164,8 @@ class DvrManager:
                          gen=gen)
         self._armed[path] = _Armed(session, spillers, dir_path, sdp_text,
                                    gen)
+        EVENTS.emit("dvr.arm", stream=path, trace_id=session.trace_id,
+                    path=path, tracks=len(spillers))
         return True
 
     @staticmethod
@@ -203,7 +208,14 @@ class DvrManager:
         self.tick_ns += time.perf_counter_ns() - t0
         if spilled:
             self.spill_ticks += 1
+            self._update_bytes_gauge()
         return spilled
+
+    def _update_bytes_gauge(self) -> None:
+        total = sum(sp.writer.live_bytes
+                    for a in self._armed.values()
+                    for sp in a.spillers.values())
+        obs.DVR_SPILL_BYTES.set(total)
 
     # ------------------------------------------------------------ finalize
     def _count_error(self) -> None:
@@ -236,6 +248,10 @@ class DvrManager:
         self._write_meta(a.dir, a.session.path, a.sdp, complete=True,
                          gen=a.gen)
         self.finalized_count += 1
+        self._update_bytes_gauge()
+        EVENTS.emit("dvr.finalize", stream=a.session.path,
+                    trace_id=a.session.trace_id, path=a.session.path,
+                    windows=windows)
         result = {"path": a.session.path, "dir": a.dir,
                   "windows": windows}
         if self.on_finalize is not None and windows:

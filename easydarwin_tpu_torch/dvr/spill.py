@@ -1,7 +1,9 @@
 """DVR window spill: live ring windows → an on-disk packed-window store.
 
-A copy of the reference's ``dvr/spill.py`` without its ``obs`` counters
-and profiler spans (their counts are plain attributes here).  Completed
+A copy of the reference's ``dvr/spill.py``, with its ``obs`` sites: each
+spilled window counts ``dvr_windows_spilled_total`` and is one profiler
+pass of the ``spill`` phase (engine ``dvr``), each window the retention
+drops ``dvr_retention_evictions_total``.  Completed
 ring windows (the absolute-id grid ``[w·k, (w+1)·k)``) are snapshot in
 the fixed-slot packed format the segment cache serves (``CachedWindow``'s
 parallel arrays: payload bytes + length/flags/ts/seq/arrival a packet)
@@ -35,6 +37,8 @@ import zlib
 
 import numpy as np
 
+from .. import obs
+from ..obs import PROFILER
 from ..protocol.sdp import StreamInfo
 from ..relay.ring import SLOT_SIZE, PacketFlags
 
@@ -216,6 +220,7 @@ class SpillWriter:
             self.live_bytes -= rec["nbytes"]
             self.dead_bytes += rec["nbytes"]
             self.evictions += 1
+            obs.DVR_RETENTION_EVICTIONS.inc()
         if self.dead_bytes > max(self.live_bytes,
                                  self.compact_floor_bytes):
             self._compact()
@@ -469,7 +474,11 @@ class WindowSpiller:
             self.writer.append_window(w, rows)
             self.spilled += 1
             done += 1
-            self.spill_ns += time.perf_counter_ns() - t0
+            obs.DVR_WINDOWS_SPILLED.inc()
+            dur = time.perf_counter_ns() - t0
+            self.spill_ns += dur
+            PROFILER.account_pass("dvr", dur, {"spill": dur},
+                                  path=self.stream.session_path)
         return done
 
 

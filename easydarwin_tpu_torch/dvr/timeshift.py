@@ -1,9 +1,13 @@
 """Time-shift sessions: pause and rewind on live streams, and replay of
 spilled assets.
 
-A copy of the reference's ``dvr/timeshift.py`` without its ``obs``
-gauges and events: the catch-up joins and the live session count are
-plain counters in the ``counters`` dict a ``DvrManager`` hands in.
+A copy of the reference's ``dvr/timeshift.py``.  The catch-up joins and
+the live session count are counters in the ``counters`` dict a
+``DvrManager`` hands in, and its ``obs`` sites are the reference's: a
+catch-up join counts ``dvr_catchup_joins_total`` and emits
+``dvr.catchup``, the pacer's block fills count ``vod_packets_total``
+(``hot``), and ``dvr_timeshift_sessions`` follows the live sessions of
+the process.
 
 A ``TimeShiftSession`` is a citizen of the shared VOD pacer
 (``VodPacerGroup.adopt``): each subscriber-track gets its own
@@ -35,6 +39,8 @@ import time
 
 import numpy as np
 
+from .. import obs
+from ..obs import EVENTS
 from ..relay.stream import StreamSettings
 from ..vod.cache import CachedWindow, StagedPacketRing
 from ..vod.session import VodStream
@@ -228,6 +234,7 @@ class _ShiftTrack:
                             rows.seq[sel], rows.ts[sel])
             self.cursor += n_due
             self.last_arr = int(rows.arrival[rel_lo + n_due - 1])
+            obs.VOD_PACKETS.inc(n_due, path="hot")
             sess.pacer.hot_pkts += n_due
 
     def _caught_up(self, sess: "TimeShiftSession", lr) -> bool:
@@ -261,6 +268,10 @@ class _ShiftTrack:
         live.add_output(self.out)
         self.joined = True
         sess.counters["catchup_joins"] += 1
+        obs.DVR_CATCHUP_JOINS.inc()
+        EVENTS.emit("dvr.catchup", stream=sess.path,
+                    trace_id=self.stream.trace_id,
+                    track=self.track_id, join_id=self.cursor)
 
     def release(self, pacer) -> None:
         if self.released:
@@ -361,9 +372,19 @@ class TimeShiftSession:
                 self, tid, sp, out, pacer.settings, cursors[tid],
                 live_stream=live_stream))
         self.counters["timeshift_sessions"] += 1
+        self._gauge(+1)
+
+    #: time-shift sessions alive in the process (the gauge's value)
+    _live = 0
+
+    @classmethod
+    def _gauge(cls, d: int) -> None:
+        cls._live = max(cls._live + d, 0)
+        obs.DVR_TIMESHIFT_SESSIONS.set(cls._live)
 
     def on_retire(self) -> None:
         self.counters["timeshift_sessions"] -= 1
+        self._gauge(-1)
 
     @staticmethod
     def _seek_arrival(sp: SpilledTrack, arr_ms: float) -> int:

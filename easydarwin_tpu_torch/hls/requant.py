@@ -39,7 +39,16 @@ ladder's counts and the host seconds of each stage (``REQUANT_STAGES``),
 which ``HlsService.stats`` sums.
 
 ``RequantHlsOutput`` is the serial single-rendition form: an
-``HlsOutput`` whose AUs pass through one ``SliceRequantizer``."""
+``HlsOutput`` whose AUs pass through one ``SliceRequantizer``.
+
+Observability (``obs``, at the reference's places): each stage's host
+seconds are ``requant_stage_seconds``; finished (slice, rendition)
+units count ``requant_slices_total``, emitted AUs ``requant_aus_total``
+and their renditions ``requant_renditions_total``, shed AUs
+``requant_shed_total`` (and a ``hls_requant`` deferral in the wake
+ledger), a reassembly that had to pass an AU through
+``requant_reassembly_mismatch_total``; the AU admission nested in the
+pump's relay pass is one ``hls_requant`` unit of the wake ledger."""
 
 from __future__ import annotations
 
@@ -54,6 +63,9 @@ from concurrent.futures import ThreadPoolExecutor
 import torch
 
 from .. import native
+from ..obs import (LEDGER, REQUANT_AUS, REQUANT_REASSEMBLY_MISMATCH,
+                   REQUANT_RENDITIONS, REQUANT_SHED, REQUANT_SLICES,
+                   REQUANT_STAGE_SECONDS)
 from ..codecs.h264_requant import (FusedRequantDispatch, RequantStats,
                                    SliceRequantizer, gather_slice,
                                    parse_slice_nal, recode_parsed)
@@ -316,6 +328,7 @@ class RequantHlsOutput(HlsOutput):
         # too, so the reorder buffer stays bounded
         if self.pending >= self._max_pending:
             self.shed += 1
+            LEDGER.defer("hls_requant")
             return
         self._feed_ps(ps)
         sps, pps = self.requant.sps, self.requant.pps
@@ -491,6 +504,7 @@ class RequantLadder(RelayOutput):
 
     def _stage(self, stage: str, t0: float) -> None:
         dt = time.perf_counter() - t0
+        REQUANT_STAGE_SECONDS.observe(dt, stage=stage)
         with self._stats_lock:
             self.stage_s[stage] += dt
             self.stage_n[stage] += 1
@@ -527,8 +541,15 @@ class RequantLadder(RelayOutput):
         if is_rtcp:
             return WriteResult.OK
         self.depack.push(data)
-        for au in self.depack.pop_units():
+        units = self.depack.pop_units()
+        if not units:
+            return WriteResult.OK
+        # AU admission runs nested in the pump's relay pass: one ledger
+        # unit a batch of AUs (never a packet) charges it to its own class
+        tok = LEDGER.unit_start()
+        for au in units:
             self._on_unit(au)
+        LEDGER.unit_end(tok, "hls_requant", items=len(units))
         return WriteResult.OK
 
     def _latch_ps(self, au: AccessUnit) -> None:
@@ -575,6 +596,8 @@ class RequantLadder(RelayOutput):
         self.pending_max = max(self.pending_max, self.pending)
         if self.pending >= self._max_pending:
             self.shed += 1               # backlogged: shed, stay live
+            REQUANT_SHED.inc()
+            LEDGER.defer("hls_requant")
             return
         job = _AuJob(self._next_submit, au, deltas, self._sps, self._pps)
         self._next_submit += 1
@@ -643,6 +666,7 @@ class RequantLadder(RelayOutput):
                     d.slices_passed_through += int(passed_through)
                     job.outs[delta][pos] = job.au.nals[pos]
                     job.stats[delta].append(d)
+        REQUANT_SLICES.inc(len(positions) * len(job.deltas))
         with self._stats_lock:
             self.slices += len(positions) * len(job.deltas)
 
@@ -724,6 +748,7 @@ class RequantLadder(RelayOutput):
         with job.lock:
             job.outs[delta][pos] = out
             job.stats[delta].append(d)
+        REQUANT_SLICES.inc()
         with self._stats_lock:
             self.slices += 1
         self._complete_unit(loop, job)
@@ -752,6 +777,8 @@ class RequantLadder(RelayOutput):
                 job.mismatch = True
                 job.outs[delta] = list(job.au.nals)
                 job.stats[delta] = []
+        if job.mismatch:
+            REQUANT_REASSEMBLY_MISMATCH.inc()
         self._ready[job.seq] = job
         emitted = 0
         latency = latency_max = 0.0
@@ -759,6 +786,8 @@ class RequantLadder(RelayOutput):
             j = self._ready.pop(self._next_emit)
             self._next_emit += 1
             emitted += 1
+            REQUANT_AUS.inc()
+            REQUANT_RENDITIONS.inc(len(j.deltas))
             dt = time.perf_counter() - j.t_in
             latency += dt
             latency_max = max(latency_max, dt)

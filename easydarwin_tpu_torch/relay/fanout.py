@@ -64,11 +64,22 @@ queue age, the profiler's session attribution and the audience store,
 one vectorized call each a rung.  What the engine uploads and reads back
 is counted in ``tpu_h2d_bytes_total`` and ``tpu_d2h_bytes_total``; its
 copies go through ``ops.staging``'s counted ``upload`` and ``readback``.
+
+Fault injection (``resilience.inject``): while a plan is armed, each
+``_device_params`` call first draws ``stale_params`` (the cached and the
+installed params are dropped, forcing the refresh path) and then
+``device_dispatch("fanout.device_params")``, which raises
+``InjectedFault`` before anything is sent, and the pump charges it to
+the degradation ladder.  An exception out of the engine's device work
+(the ring append, the params query, the batch rung's pass) sets
+``device_error`` for that step, so the pump counts device errors apart
+from a broken output's send; a real one moves no rung.
 """
 
 from __future__ import annotations
 
 import errno
+import functools
 import time
 
 import numpy as np
@@ -79,6 +90,7 @@ from ..obs import PROFILER, TRACER
 from ..ops import device_ring, staging
 from ..ops.fanout import (batch_upload_views, pack_batch_upload,
                           pack_output_state, relay_batch_step, unpack_affine)
+from ..resilience.inject import INJECTOR
 from ..ops.parse import PARSE_PREFIX
 from ..protocol import rtp
 from .output import WriteResult
@@ -160,6 +172,19 @@ class _RingStaging:
         self.event = None
 
 
+def _device_work(fn):
+    """Mark an exception out of ``fn`` as the device path's
+    (``FanoutEngine.device_error``)."""
+    @functools.wraps(fn)
+    def run(self, *args, **kw):
+        try:
+            return fn(self, *args, **kw)
+        except BaseException:
+            self.device_error = True
+            raise
+    return run
+
+
 class FanoutEngine:
     """Batched fan-out for one stream.
 
@@ -227,6 +252,9 @@ class FanoutEngine:
         self._pass_phases: dict[tuple[str, str], int] = {}
         self._pass_wire_bytes = 0
         self._pass_ran = False
+        #: the last step raised out of its device work (the pump charges
+        #: only such an error to the degradation ladder)
+        self.device_error = False
 
     def _phase_add(self, phase: str, dur_ns: int,
                    engine: str = "native") -> None:
@@ -328,6 +356,7 @@ class FanoutEngine:
                 out.rewrite.base_src_ts = int(ring.timestamp[s])
 
     # ------------------------------------------------------- device ring
+    @_device_work
     def _ring_sync(self, ring, now_ms: int) -> None:
         """Append the packets the device ring has not seen (O(new) H2D):
         one gather into pinned staging, at most two slice copies a
@@ -371,11 +400,17 @@ class FanoutEngine:
         self._params, self._params_key = params, key
         return params
 
+    @_device_work
     def _device_params(self, outputs, ring, now_ms: int):
         """The affine params for ``outputs`` (canonical order): cached
         while the key holds, else the scheduler's installed set, else one
         per-stream query of the device ring.  None when the device result
         disagrees with the host oracle."""
+        if INJECTOR.active:
+            if INJECTOR.stale_params():
+                self._params_key = None
+                self.megabatch_params = None
+            INJECTOR.device_dispatch("fanout.device_params")
         key = params_key(outputs)
         if key == self._params_key:
             return self._params
@@ -424,6 +459,7 @@ class FanoutEngine:
         self._pass_phases = {}
         self._pass_wire_bytes = 0
         self._pass_ran = False
+        self.device_error = False
         sent = self._send_rtp(stream, now_ms)
         if profiled and self._pass_ran:
             t_r = time.perf_counter_ns()
@@ -883,6 +919,7 @@ class FanoutEngine:
         return sent
 
 
+    @_device_work
     def _batch_headers(self, ring, idx, lengths, ages, batch,
                        delay: int) -> np.ndarray:
         """``[S, P, 12]`` headers of one batch pass: the window's rows,

@@ -72,6 +72,13 @@ scheduler) and as ``tpu_pass_seconds{stage="pipeline_dispatch"}``.  A
 harvest's fetch is ``d2h`` when the pass was ready and ``h2d_overlap``
 when it was forced (the double buffer's un-hidden remainder).  A
 saturated ``end_wake`` is a ``megabatch`` deferral in the wake ledger.
+Fault injection (``resilience.inject``): while a plan is armed, a
+dispatch draws ``device_dispatch("megabatch.dispatch")`` once a bucket,
+in bucket order, before it stages anything, so the count-based schedule
+is the reference's (which draws at each bucket's dispatch) and a raise
+leaves no cursor, pinned buffer or in-flight event half-moved; the pump
+charges it to the degradation ladder.
+
 ``megabatch_passes_total``/``_streams_total`` count buckets and their
 streams, ``tpu_h2d_bytes_total``/``tpu_d2h_bytes_total`` the staging and
 readback bytes (the copies themselves go through ``ops.staging``'s
@@ -93,6 +100,7 @@ from ..models.relay_pipeline import (megabatch_window_steps, on_device,
 from ..ops import staging
 from ..ops.fanout import STATE_COLS, pack_output_state
 from ..ops.staging import pow2
+from ..resilience.inject import INJECTOR
 from .fanout import params_agree, params_key
 
 
@@ -396,6 +404,11 @@ class MegabatchScheduler:
         pinned host buffer behind its device's event.  A mesh dispatch
         that raises is counted first.  Returns the host ns of the gather
         and of the uploads and calls."""
+        if INJECTOR.active:
+            # the chaos site: one draw a bucket, in bucket order, before
+            # anything is staged
+            for _bucket in buckets:
+                INJECTOR.device_dispatch("megabatch.dispatch")
         if self.mesh is None:
             return self._dispatch_shards(buckets, [self.device])
         try:

@@ -8,6 +8,11 @@ timestamp rebase), which the device pass consumes as one row of the
 ``ThinningFilter`` whose level the player's RRs and NADU blocks move, and
 the x-RTP-Meta-Info fields its SETUP negotiated (``meta_field_ids``; None
 for plain RTP), which wrap every RTP packet it sends.
+
+Fault injection (``resilience.inject``): while a plan is armed, a
+Python-path write may report WOULD_BLOCK (``slow_subscriber``: the
+bookmark replays it, as for a full socket) or be accounted sent and
+lost (``egress_drop``: only the receiver's feedback can show it).
 """
 
 from __future__ import annotations
@@ -17,6 +22,7 @@ import time
 from dataclasses import dataclass
 
 from ..protocol import rtcp, rtp, rtp_meta
+from ..resilience.inject import INJECTOR
 from .quality import ThinningFilter
 
 
@@ -106,6 +112,15 @@ class RelayOutput:
     def send_rewritten(self, header: bytes, tail: bytes) -> WriteResult:
         """Send an engine-rewritten packet: 12-byte header + the original
         bytes from offset 12, wrapped when meta-info was negotiated."""
+        if INJECTOR.active:
+            if INJECTOR.slow_subscriber():
+                # the chaos site: the engine's WOULD_BLOCK replay handles
+                # it, as it does a full socket
+                return WriteResult.WOULD_BLOCK
+            if INJECTOR.egress_drop():
+                # sent and lost on the wire: only the receiver's RR/NACK
+                # feedback can show it
+                return WriteResult.OK
         if self.meta_field_ids is not None:
             return self.send_bytes(self.wrap_meta(header, tail),
                                    is_rtcp=False)
@@ -137,6 +152,9 @@ class RelayOutput:
         if rw.base_src_seq < 0:
             rw.base_src_seq = rtp.peek_seq(packet)
             rw.base_src_ts = rtp.peek_timestamp(packet)
+        if INJECTOR.active and INJECTOR.slow_subscriber():
+            self.stalls += 1            # the accounting of a real block
+            return WriteResult.WOULD_BLOCK
         out = rtp.rewrite_header(
             packet,
             seq=rw.map_seq(rtp.peek_seq(packet)),
@@ -144,6 +162,13 @@ class RelayOutput:
             ssrc=rw.ssrc)
         if self.meta_field_ids is not None:
             out = self.wrap_meta(out[:12], out[12:])
+        if INJECTOR.active and INJECTOR.egress_drop():
+            # sent and lost: the accounting of a real send, on the bytes
+            # as wrapped, so the SR counts match an undropped schedule
+            self.packets_sent += 1
+            self.bytes_sent += len(out)
+            self.payload_octets += max(len(packet) - 12, 0)
+            return WriteResult.OK
         res = self.send_bytes(out, is_rtcp=False)
         if res is WriteResult.OK:
             self.packets_sent += 1

@@ -32,6 +32,14 @@ ingest-to-wire latency of every packet it delivers (engine ``scalar``)
 and feeds the audience store and the profiler's session attribution;
 ``relay_rtcp`` charges the FEC tier's parity to the wake ledger's
 ``fec_parity`` class.
+
+Fault injection (``resilience.inject``): while a plan is armed,
+``push_rtp`` runs each packet through the ingest gauntlet (drop, an
+adjacent swap through the stream's own one-slot ``_chaos_hold``, a
+flipped payload byte), and ``drain_rtp_native`` through its in-place
+form over the slots that just landed (a dropped slot gets length and
+flags 0: a runt that no rung relays, and that the device ring and the
+megabatch stage as a runt too).
 """
 
 from __future__ import annotations
@@ -45,6 +53,7 @@ import numpy as np
 from .. import obs
 from ..protocol import rtcp as rtcp_mod
 from ..protocol.sdp import StreamInfo
+from ..resilience.inject import INJECTOR
 from .output import RelayOutput, WriteResult
 from .ring import DEFAULT_CAPACITY, PacketFlags, PacketRing
 
@@ -200,6 +209,9 @@ class RelayStream:
         #: packets and non-empty drains of the native UDP ingest
         self.native_ingest_pkts = 0
         self.native_ingest_batches = 0
+        #: the fault injector's one-slot reorder hold: a held packet lives
+        #: and dies with its own stream
+        self._chaos_hold: list[bytes] = []
 
     # -- ingest ------------------------------------------------------------
     def _note_rtp_ingested(self, pid: int) -> None:
@@ -234,6 +246,14 @@ class RelayStream:
 
     def push_rtp(self, packet: bytes, now_ms: int) -> int:
         self._latch_wall_base(now_ms)
+        if INJECTOR.active:
+            # the chaos gauntlet: one attribute check when no plan is armed
+            pid = -1
+            for pkt in INJECTOR.ingest(packet, self._chaos_hold):
+                pid = self.rtp_ring.push(pkt, now_ms)
+                if pid >= 0:
+                    self._note_rtp_ingested(pid)
+            return pid
         pid = self.rtp_ring.push(packet, now_ms)
         if pid >= 0:
             self._note_rtp_ingested(pid)
@@ -251,6 +271,10 @@ class RelayStream:
         self._latch_wall_base(now_ms)
         pre = self.rtp_ring.head
         n = self.rtp_ring.native_drain(fd, now_ms, max_pkts)
+        if n > 0 and INJECTOR.active:
+            # the gauntlet for the recvmmsg path: drops and corruption
+            # change the slots that just landed, before any rung reads them
+            INJECTOR.ingest_ring(self.rtp_ring, pre, self.rtp_ring.head)
         for pid in range(pre, self.rtp_ring.head):
             self._note_rtp_ingested(pid)
         if n > 0:

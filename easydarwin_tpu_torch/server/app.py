@@ -106,12 +106,50 @@ before ``start``) ``initialize`` runs; ``stop`` runs their ``shutdown``.  ``stat
 wake among the reference's keys), the console columns
 (``stats_interval_sec``) and the status file (``status_file_path``).
 The stats page answers GET ``/`` and ``/stats`` on the RTSP port.
+With ``module_folder`` set, the ``*.py`` plugin files there are loaded
+(``server.modules.load_modules_from``) and their modules registered at
+start, before anything serves.
+
+Resilience (``resilience``, the reference's): with ``resilience_enabled``
+the server keeps a ``DegradationLadder``.  Each wake the pump asks it each
+live stream's rung: only a stream on the megabatch rung joins the
+megabatch (``allows_megabatch``); the device rung steps the stream's
+engine on its own device ring; the cpu rung (also a retry's backoff
+window) serves the stream by the host scalar path (``RelayStream.
+reflect``), a path the pump chooses, not a kernel wrapper falling back;
+the shed rung serves it so and sheds its newest subscriber once a
+second.  An exception of the device path (an engine step's device
+work: ``FanoutEngine.device_error``; the scheduler's ``begin_wake`` or
+``end_wake``) counts in ``device_errors``.  Only an injected one
+(``InjectedFault``, counted in ``device_errors_injected``) is charged to
+the ladder: an engine step's with ``note_device_error`` (a device step
+that succeeds with ``note_device_ok``), the scheduler's with
+``note_scheduler_error`` over the wake's megabatch streams.  A real one
+is a pump error and moves no rung, so the host scalar path never serves
+around a failing kernel or launch: the stream's step sends nothing, and
+a failed scheduler leaves the wake's streams to their own engines on the
+device.  Any other error (a broken output's send) is a pump error and
+moves no rung.  An RTX give-up
+of the FEC tier is charged to its path.  The 1 Hz block ticks the ladder
+with the streams' stalls and the SLO watchdog's edge, and sheds.  A
+``resilience_fault_plan`` is armed on the process-wide ``INJECTOR``
+before anything serves and disarmed at stop.  With
+``resilience_checkpoint_enabled`` the relay state is restored from
+``<log_folder>/ckpt/relay.json`` at start (after the egress pair exists,
+before the pump) and written every ``resilience_checkpoint_interval_sec``
+and at stop, beside the segment cache's hot set (``vod_cache.json``).  A
+restored UDP subscriber sends through the shared egress pair and gets a
+connection stand-in that its RTCP proves alive; one silent for
+``rtsp_timeout_sec`` is removed.  A restored interleaved-TCP record
+parks until its player's SETUP re-attaches it; one unclaimed for
+``rtsp_timeout_sec`` is counted in ``ckpt.tcp_orphan``.
 """
 
 from __future__ import annotations
 
 import asyncio
 import collections
+import json
 import os
 import sys
 import time
@@ -120,6 +158,9 @@ import traceback
 import torch
 
 from .. import native, obs, resolve_device
+from ..resilience import (INJECTOR, LEVEL_DEVICE, LEVEL_FULL, LEVEL_SHED,
+                          CheckpointManager, DegradationLadder,
+                          InjectedFault)
 from ..dvr import DvrManager
 from ..dvr.timeshift import DVR_TIER
 from ..hls import HlsService
@@ -141,10 +182,12 @@ from ..vod.record import RecordingManager, sweep_orphans
 from ..vod.session import VodPacerGroup, VodService
 from .auth import auth_from_config
 from .config import ServerConfig
+from .modules import load_modules_from
 from .mp3 import Mp3Service
 from .rest import RestApi
 from .rtsp import RtspServer
 from .status import StatusMonitor
+from .transports import UdpOutput
 
 #: below this many streams with players the megabatch scheduler idles and
 #: each stream's engine queries its own device ring (the reference's
@@ -158,6 +201,23 @@ ENGINE_COUNTERS = ("native_sent", "native_passes", "device_param_refreshes",
                    "batch_sent", "batch_passes", "batch_rows",
                    "batch_stage_ns", "batch_kernel_ns", "loop_sent",
                    "loop_ns")
+
+
+class _RestoredSubscriber:
+    """The connection stand-in of a UDP subscriber the checkpoint
+    restored.  Its RTSP connection died with the previous process; this
+    carries what ``RtspServer.on_client_rtcp`` reads (``player_tracks``,
+    ``relay``, ``path``, ``last_activity``), so the player's receiver
+    reports still move its output's quality and prove it alive, and the
+    sweep removes the output after ``rtsp_timeout_sec`` of silence."""
+
+    def __init__(self, sess, track_id: int, stream, output):
+        self.relay = sess
+        self.path = sess.path
+        self.stream = stream
+        self.output = output
+        self.player_tracks = {track_id: output}
+        self.last_activity = time.monotonic()
 
 
 class StreamingServer:
@@ -195,6 +255,32 @@ class StreamingServer:
         #: second by the pump when ``slo_enabled``)
         self.slo = obs.SloWatchdog(self.config.slo_config(),
                                    offender=obs.PROFILER.top_offender)
+        #: the degradation ladder (``resilience_enabled``): each live
+        #: stream's rung, asked by the pump a wake and ticked once a second
+        self.ladder: DegradationLadder | None = None
+        if self.config.resilience_enabled:
+            self.ladder = DegradationLadder(self.config.ladder_config())
+            # an exhausted RTX budget is charged to the ladder: a
+            # black-holed player's NACK storm sheds load like any overload
+            self.rtsp.on_rtx_giveup = (
+                lambda path: self.ladder.note_device_error(
+                    path, reason="rtx_giveup"))
+        #: device-path exceptions the pump caught (engine steps and the
+        #: scheduler), and of them the injected ones
+        self.device_errors = 0
+        self.device_errors_injected = 0
+        #: the session checkpoint (built at start with the log folder)
+        self.checkpoint: CheckpointManager | None = None
+        #: where the segment cache's hot set is checkpointed (None: off)
+        self._vod_ckpt_path: str | None = None
+        #: the stand-ins of checkpoint-restored UDP subscribers
+        self._restored_subs: list[_RestoredSubscriber] = []
+        #: parked interleaved-TCP checkpoint records: (path, track,
+        #: session id) → (record, monotonic time parked)
+        self._pending_tcp: dict = {}
+        #: restored sessions and outputs at the last start
+        self.restored = (0, 0)
+        self._armed_faults = False
         #: the ``perf_counter_ns`` of the first ingest wake not yet served
         #: (the pump's ``wake_to_pass`` phase); None: none pending
         self._wake_ns: int | None = None
@@ -375,16 +461,168 @@ class StreamingServer:
         # starts claims them (one that is only constructed does not)
         obs.FLIGHT.dump_dir = os.path.join(self.config.log_folder, "flight")
         obs.set_node(self.config.server_id)
+        # plugins register before the listeners accept anything, so their
+        # hooks see every request
+        if self.config.module_folder:
+            for m in load_modules_from(
+                    self.config.module_folder,
+                    on_error=lambda f, e: self.rtsp.log_error(
+                        f"module {f} failed: {e!r}")):
+                self.register_module(m)
+        # the chaos plan is armed before anything serves, so the first
+        # pass already runs under it
+        plan = self.config.fault_plan()
+        if plan is not None:
+            INJECTOR.arm(plan)
+            self._armed_faults = True
         await self.rtsp.start()
         await self.rest.start()
+        if self.config.resilience_checkpoint_enabled:
+            self._restore_checkpoint()
         self.rtsp.modules.run_initialize(self)
         self._running = True
         self._pump_task = asyncio.create_task(self._pump_loop())
         if self.config.stats_interval_sec or self.config.status_file_path:
             self._status_task = asyncio.create_task(self._status_loop())
 
+    def _restore_checkpoint(self) -> None:
+        """Build the checkpoint manager and restore from it: after the
+        egress pair exists (restored UDP subscribers send through it),
+        before the pump starts.  The segment cache's hot set is re-warmed
+        beside it."""
+        ckpt_dir = os.path.join(self.config.log_folder, "ckpt")
+        self.checkpoint = CheckpointManager(
+            ckpt_dir,
+            interval_sec=self.config.resilience_checkpoint_interval_sec,
+            max_age_sec=self.config.resilience_checkpoint_max_age_sec)
+        self.rtsp.tcp_restore = self.claim_tcp_restore
+        try:
+            self.restored = self.checkpoint.restore(
+                self.registry, output_factory=self._restored_output,
+                tcp_sink=self._park_tcp_record)
+            if self.restored[1]:
+                self._adopt_restored_outputs()
+            if self.restored[0]:
+                self.rtsp.log_error(
+                    f"checkpoint: restored {self.restored[0]} sessions / "
+                    f"{self.restored[1]} subscribers")
+        except Exception as e:
+            self.rtsp.log_error(f"checkpoint restore: {e!r}")
+        if self.vod_cache is not None:
+            self._vod_ckpt_path = os.path.join(ckpt_dir, "vod_cache.json")
+            try:
+                with open(self._vod_ckpt_path, encoding="utf-8") as fh:
+                    self.vod_cache.restore(json.load(fh))
+            except (OSError, ValueError):
+                pass
+
+    def _write_checkpoint(self) -> bool:
+        """One relay checkpoint, and the segment cache's hot set beside
+        it (the same tmp + rename rule)."""
+        wrote = self.checkpoint.write(self.registry)
+        if wrote and self._vod_ckpt_path is not None:
+            self._write_vod_cache_meta()
+        return wrote
+
+    def _write_vod_cache_meta(self) -> None:
+        path = self._vod_ckpt_path
+        try:
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+            tmp = path + ".tmp"
+            with open(tmp, "w", encoding="utf-8") as fh:
+                json.dump(self.vod_cache.snapshot(), fh,
+                          separators=(",", ":"))
+            os.replace(tmp, path)
+        except OSError:
+            pass
+
+    def _restored_output(self, rec: dict):
+        """The checkpoint's output factory: a UDP subscriber made again
+        on the shared egress pair (the address pair is its whole
+        transport, so the player never learns the server restarted).
+        Any other kind gives None."""
+        if rec.get("kind") != "udp" or not rec.get("rtp_addr"):
+            return None
+        egress = self.rtsp.shared_egress
+        if egress is None:
+            return None
+        ip, rtp_port = rec["rtp_addr"]
+        rtcp = rec.get("rtcp_addr") or (ip, int(rtp_port) + 1)
+        out = UdpOutput(egress, ip, int(rtp_port), int(rtcp[1]))
+        # the RTCP destination may be another host than the RTP one
+        out.rtcp_addr = (rtcp[0], int(rtcp[1]))
+        return out
+
+    def _adopt_restored_outputs(self) -> None:
+        """Give every restored UDP output a connection stand-in whose
+        RTCP keys route the player's reports to it (at start every output
+        in the registry is a restored one)."""
+        for sess in self.registry.sessions.values():
+            for tid, stream in sess.streams.items():
+                for out in stream.outputs:
+                    if getattr(out, "native_addr", None) is None:
+                        continue
+                    sub = _RestoredSubscriber(sess, tid, stream, out)
+                    self._restored_subs.append(sub)
+                    self.rtsp.note_player_output(sub, out)
+
+    def _park_tcp_record(self, path: str, track_id, rec: dict) -> None:
+        """The restore's sink of ``kind=tcp`` records: parked until the
+        player re-attaches.  A record without a session id can never be
+        matched and is counted an orphan at once."""
+        sid = rec.get("session_id")
+        if not sid:
+            obs.RESILIENCE_CKPT_TCP_ORPHANS.inc()
+            obs.EVENTS.emit("ckpt.tcp_orphan", stream=path or "?",
+                            reason="no_session_id")
+            return
+        self._pending_tcp[(path, track_id, sid)] = (rec, time.monotonic())
+
+    def claim_tcp_restore(self, path: str, track_id, sid: str):
+        """The SETUP re-attach hook: the parked record of (path, track,
+        old session id), removed from the park, or None."""
+        ent = self._pending_tcp.pop((path, track_id, sid), None)
+        return ent[0] if ent is not None else None
+
+    def _sweep_pending_tcp(self) -> None:
+        """Discard the parked TCP records no player claimed within the
+        RTSP timeout, each counted an orphan."""
+        now = time.monotonic()
+        for key in [k for k, (_r, t0) in self._pending_tcp.items()
+                    if now - t0 > self.config.rtsp_timeout_sec]:
+            del self._pending_tcp[key]
+            obs.RESILIENCE_CKPT_TCP_ORPHANS.inc()
+            obs.EVENTS.emit("ckpt.tcp_orphan", stream=key[0],
+                            reason="timeout", track=key[1])
+
+    def _sweep_restored(self) -> None:
+        """Remove the restored subscribers whose player has not proved
+        itself by RTCP for ``rtsp_timeout_sec`` (the clock a live UDP
+        player's connection is held to), or whose session went away."""
+        self._sweep_pending_tcp()
+        now = time.monotonic()
+        for sub in list(self._restored_subs):
+            stale = now - sub.last_activity > self.config.rtsp_timeout_sec
+            gone = self.registry.find(sub.path) is not sub.relay
+            if not (stale or gone):
+                continue
+            self._restored_subs.remove(sub)
+            if not gone:
+                sub.stream.remove_output(sub.output)
+            self.rtsp.drop_player_output(sub, sub.output)
+
     async def stop(self) -> None:
         self._running = False
+        if self.checkpoint is not None:
+            # the last snapshot, while the registry is whole: a watchdog
+            # relaunch resumes from the very last state
+            try:
+                self._write_checkpoint()
+            except Exception as e:
+                self.rtsp.log_error(f"checkpoint: {e!r}")
+        if self._armed_faults:
+            INJECTOR.disarm()
+            self._armed_faults = False
         if self._status_task is not None:
             self._status_task.cancel()
             try:
@@ -592,8 +830,9 @@ class StreamingServer:
 
     def _pairs(self, vod_pairs=()) -> list:
         """(stream, engine) for every live stream with outputs, in a
-        stable order, then ``vod_pairs``; engines of streams that went
-        away are dropped."""
+        stable order, then ``vod_pairs`` (the live ones come first: the
+        ladder rules them); engines of streams that went away are
+        dropped."""
         pairs = [(stream, self._engine_for(stream))
                  for sess in list(self.registry.sessions.values())
                  for stream in sess.streams.values() if stream.num_outputs]
@@ -620,7 +859,8 @@ class StreamingServer:
     def reflect_all(self) -> int:
         """One pump wake of the live relay; returns packets written.  One
         stream's error is counted and the wake goes on with the next; a
-        failed ``begin_wake`` serves the wake's streams one by one."""
+        failed ``begin_wake`` serves the wake's streams one by one.  Each
+        live stream takes the rung its ladder gives it this wake."""
         t = now_ms()
         self.wakes += 1
         wake_ns, self._wake_ns = self._wake_ns, None
@@ -651,16 +891,31 @@ class StreamingServer:
                 traceback.print_exc(file=sys.stderr)
             led.unit_end(u, "dvr_spill")
         pairs = self._pairs(vod_pairs)
-        engaged = len(pairs) >= MEGABATCH_MIN_STREAMS
+        # each live stream's rung this wake (file streams: the megabatch's)
+        lad = self.ladder
+        live = len(pairs) - len(vod_pairs)
+        modes = [LEVEL_FULL] * len(pairs)
+        if lad is not None:
+            for i in range(live):
+                modes[i] = lad.engine_mode(pairs[i][0].session_path)
+        mega = [p for p, m in zip(pairs, modes) if m == LEVEL_FULL]
+        mega_paths = [pairs[i][0].session_path for i in range(live)
+                      if modes[i] == LEVEL_FULL]
+        engaged = len(mega) >= MEGABATCH_MIN_STREAMS
+        for _stream, eng in pairs:
+            eng.megabatch_owned = False
         u = led.unit_start()
         if engaged:
             try:
-                self.megabatch.begin_wake(pairs, t)
+                self.megabatch.begin_wake(mega, t)
                 self.dvr_megabatch_streams += sum(
-                    1 for s, _e in pairs
+                    1 for s, _e in mega
                     if getattr(s, "audience_tier", None) == DVR_TIER)
-            except Exception:
-                self._pump_error()
+            except Exception as e:
+                if self._device_error(e):
+                    lad.note_scheduler_error(mega_paths)
+                for _stream, eng in mega:
+                    eng.megabatch_owned = False
                 engaged = False
         if not engaged:
             # too few streams to coalesce (or the scheduler failed): each
@@ -670,21 +925,35 @@ class StreamingServer:
                 self.megabatch.idle_wake()
             except Exception:
                 self._pump_error()
-            for _stream, eng in pairs:
-                eng.megabatch_owned = False
         led.unit_end(u, "megabatch", items=max(len(pairs), 1))
         # one ledger unit for every stream's step; the slowest stream's
         # trace id rides the record
         lu = led.unit_start()
         worst_ns, worst_trace = -1, None
         sent = 0
-        for stream, eng in pairs:
+        for i, (stream, eng) in enumerate(pairs):
             s0 = time.perf_counter_ns() if led_on else 0
             stalls = stream.stats.stalls
+            # the device rungs step the engine; the cpu and shed rungs
+            # (and a retry's backoff) serve by the host scalar path
+            device = modes[i] <= LEVEL_DEVICE
+            path = stream.session_path if i < live and lad is not None \
+                else None
             try:
-                sent += eng.step(stream, t)
-            except Exception:
-                self._pump_error()
+                if device:
+                    sent += eng.step(stream, t)
+                    if path is not None:
+                        lad.note_device_ok(path)
+                else:
+                    sent += stream.reflect(t)
+            except Exception as e:
+                # only the engine's injected device faults are charged to
+                # the ladder (a broken output's send is not device health)
+                if device and eng.device_error:
+                    if self._device_error(e) and path is not None:
+                        lad.note_device_error(path)
+                else:
+                    self._pump_error()
             for out in list(stream.tickable_outputs):
                 try:
                     self._tick(out, t)
@@ -703,9 +972,25 @@ class StreamingServer:
         self.packets_out += sent
         if engaged:
             u = led.unit_start()
-            self.megabatch.end_wake(pairs, t)
-            led.unit_end(u, "megabatch", items=len(pairs))
+            try:
+                self.megabatch.end_wake(mega, t)
+            except Exception as e:
+                if self._device_error(e):
+                    lad.note_scheduler_error(mega_paths)
+            led.unit_end(u, "megabatch", items=len(mega))
         return sent
+
+    def _device_error(self, e: Exception) -> bool:
+        """Counts an exception of the device path.  True, to charge the
+        ladder, only for an injected one (counted apart, without its
+        traceback) on a server with a ladder; a real one is a pump error
+        and moves no rung."""
+        self.device_errors += 1
+        if not isinstance(e, InjectedFault):
+            self._pump_error()
+            return False
+        self.device_errors_injected += 1
+        return self.ladder is not None
 
     def _tick(self, out, t: int) -> None:
         """One reliable-UDP player's resend sweep."""
@@ -822,10 +1107,60 @@ class StreamingServer:
                         now + self.config.storage_scrub_interval_sec)
                     self.storage.scrub_async()
                 self._observe_second()
+                self._resilience_second()
             # the wake's ledger record closes after the once-a-second
             # block: its duties ran on the same wake
             obs.LEDGER.end_wake()
         wheel.close()
+
+    def _resilience_second(self) -> None:
+        """The pump's once-a-second resilience duties: the ladder's tick
+        and shed, the checkpoint's write when due, and the sweep of
+        restored subscribers and parked TCP records; one that raises is
+        logged and the others run."""
+        if self.ladder is not None:
+            try:
+                self._ladder_maintenance()
+            except Exception as e:
+                self.rtsp.log_error(f"ladder tick: {e!r}")
+        if self.checkpoint is not None:
+            u = obs.LEDGER.unit_start()
+            try:
+                if self.checkpoint.maybe_write(self.registry) \
+                        and self._vod_ckpt_path is not None:
+                    self._write_vod_cache_meta()
+            except Exception as e:
+                self.rtsp.log_error(f"checkpoint: {e!r}")
+            obs.LEDGER.unit_end(u, "checkpoint")
+        try:
+            self._sweep_restored()
+        except Exception as e:
+            self.rtsp.log_error(f"restored sweep: {e!r}")
+
+    def _ladder_maintenance(self) -> None:
+        """The ladder's tick over every session's stalls and the SLO
+        watchdog's state, then the shed: the newest subscriber of each
+        shed-rung session's streams, one a session a tick."""
+        stalls = {sess.path: sum(st.stats.stalls
+                                 for st in sess.streams.values())
+                  for sess in self.registry.sessions.values()}
+        slo_status = offender = None
+        if self.config.slo_enabled:
+            slo_status = self.slo.status()
+            offender = obs.PROFILER.top_offender()
+        self.ladder.tick(stalls, slo_status=slo_status, offender=offender)
+        for sess in list(self.registry.sessions.values()):
+            if self.ladder.level(sess.path) < LEVEL_SHED:
+                continue
+            for stream in sess.streams.values():
+                out = self.ladder.shed_candidate(stream)
+                if out is not None and stream.remove_output(out):
+                    obs.RESILIENCE_SHED_OUTPUTS.inc()
+                    obs.EVENTS.emit(
+                        "ladder.shed", level="warn", stream=sess.path,
+                        trace_id=sess.trace_id,
+                        outputs=stream.num_outputs)
+                    break
 
     def _observe_second(self) -> None:
         """The pump's once-a-second ``obs`` duties: the SLO watchdog, each
@@ -869,6 +1204,27 @@ class StreamingServer:
                     self.status.write_file(cfg.status_file_path, snap)
                 except OSError:
                     pass
+
+    def resilience_stats(self) -> dict:
+        """The device errors the pump caught (and of them the injected),
+        the faults injected by site, the ladder's transitions and each
+        stream's rung, and the checkpoint's writes and restore."""
+        lad = self.ladder
+        ckpt = self.checkpoint
+        return {
+            "device_errors": self.device_errors,
+            "device_errors_injected": self.device_errors_injected,
+            "faults": INJECTOR.counts() if INJECTOR.plan is not None else {},
+            "ladder": None if lad is None else {
+                "degrades": lad.degrades, "recovers": lad.recovers,
+                "worst_level": lad.worst_level(), "streams": lad.status()},
+            "checkpoint": None if ckpt is None else {
+                "writes": ckpt.writes, "restores": ckpt.restores,
+                "restored_sessions": self.restored[0],
+                "restored_outputs": self.restored[1],
+                "restored_subscribers": len(self._restored_subs),
+                "parked_tcp": len(self._pending_tcp)},
+        }
 
     def surface_stats(self) -> dict:
         """The server surface's counters: tunnels, the per-IP cap, RTSP
@@ -950,5 +1306,6 @@ class StreamingServer:
                 "record_orphans": self.record_orphans,
                 "cpu_s": time.process_time() - self._cpu0,
                 "wall_s": time.monotonic() - self._wall0,
+                "resilience": self.resilience_stats(),
                 "kernel_launches": dict(kernel_lib.LAUNCHES),
                 "copied_bytes": dict(staging.COPIED)}

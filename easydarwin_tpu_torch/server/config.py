@@ -6,11 +6,14 @@ A ``ServerConfig`` loads from a TOML file of its keys (``load_toml``) or
 from the reference's ``easydarwin.xml`` (``load_reference_xml``, the DSS
 ``PREF``/``MODULE`` layout); ``load_config`` sniffs which one a file is.
 Both return the keys they could not apply, never dropping one in
-silence: a key this port does not serve yet (the cluster, the
-degradation ladder, fault injection, …) is listed.  The SLO watchdog's
-``slo_*`` keys, the console and status file (``stats_interval_sec``,
-``status_file_*``; the XML's ``monitor_stats_file_*`` with
-``enable_monitor_stats_file``) are applied.  ``to_dict``,
+silence: a key this port does not serve yet (the cluster tier, …) is
+listed.  The SLO watchdog's ``slo_*`` keys, the console and status file
+(``stats_interval_sec``, ``status_file_*``; the XML's
+``monitor_stats_file_*`` with ``enable_monitor_stats_file``), the
+plugin folder (``module_folder``) and the resilience keys
+(``resilience_*``: the degradation ladder, the armed fault plan and the
+session checkpoint; ``ladder_config`` and ``fault_plan`` build their
+objects) are applied.  ``to_dict``,
 ``from_dict`` and ``update`` (``KeyError`` on an unknown key; the
 listeners registered with ``on_change`` run after it) serve REST
 ``getbaseconfig`` and ``setbaseconfig``.  The relay tunables live in
@@ -147,6 +150,26 @@ class ServerConfig:
     stats_interval_sec: int = 0
     status_file_path: str = ""
     status_file_interval_sec: int = 10
+    #: a folder of ``*.py`` plugin files whose modules (``server.
+    #: modules.Module``) register at start, before anything serves; "":
+    #: none
+    module_folder: str = ""
+    #: the degradation ladder (``resilience.ladder``): each stream's rung,
+    #: megabatch → per-stream device → host → shed
+    resilience_enabled: bool = True
+    #: a ``FaultPlan`` spec armed at start (chaos testing), e.g.
+    #: ``"seed=7,ingest_drop=0.05,egress_enobufs_every=300"``; "": none
+    resilience_fault_plan: str = ""
+    resilience_recover_sec: float = 10.0     # clean time a rung climbed
+    resilience_max_retries: int = 3          # device retries before a drop
+    resilience_backoff_ms: float = 250.0     # first retry backoff (doubles)
+    #: the session checkpoint (``<log_folder>/ckpt/``), off by default: a
+    #: restore brings back the sessions of the PREVIOUS process, which an
+    #: operator opts into (the watchdog's deployment)
+    resilience_checkpoint_enabled: bool = False
+    resilience_checkpoint_interval_sec: float = 5.0
+    #: a checkpoint older than this is ignored at start
+    resilience_checkpoint_max_age_sec: float = 60.0
 
     _listeners: list[Callable[["ServerConfig"], None]] = field(
         default_factory=list, repr=False, compare=False)
@@ -212,6 +235,22 @@ class ServerConfig:
             fast_burn=self.slo_fast_burn,
             slow_burn=self.slo_slow_burn,
             min_events=self.slo_min_events)
+
+    def ladder_config(self):
+        from ..resilience.ladder import LadderConfig
+        return LadderConfig(
+            recover_sec=self.resilience_recover_sec,
+            max_retries=self.resilience_max_retries,
+            backoff_ms=self.resilience_backoff_ms)
+
+    def fault_plan(self):
+        """The ``FaultPlan`` to arm, or None when no spec is set.  A
+        malformed spec raises at start: a mistyped plan that injects
+        nothing would void the chaos run it was meant to drive."""
+        if not self.resilience_fault_plan.strip():
+            return None
+        from ..resilience.inject import FaultPlan
+        return FaultPlan.parse(self.resilience_fault_plan)
 
     @classmethod
     def from_toml(cls, path: str) -> "ServerConfig":

@@ -109,6 +109,16 @@ protocol error, an exception or an idle timeout dumps (any other close
 discards it).  GET_PARAMETER with an ``x-freshness`` body answers the
 stream's freshness chain (``obs.fleet``) as JSON.  Each RR report block
 sets the stream's ``qos_*`` gauges.
+
+Resilience (``resilience``): while a fault plan with ``rr_loss_spoof``
+is armed, every RR report block's loss fraction is replaced by the
+plan's before it reaches the output's controllers; an RTX give-up of
+the FEC tier calls ``RtspServer.on_rtx_giveup(path)`` (the server
+charges it to the degradation ladder).  With the checkpoint on, the
+server sets ``tcp_restore``: an interleaved SETUP that carries a
+``Session`` id of the previous process resumes that session's parked
+``kind=tcp`` record, so the player keeps its SSRC and its framed seq
+continues without a gap (``ckpt.tcp_reattach``).
 """
 
 from __future__ import annotations
@@ -129,6 +139,7 @@ from ..relay import quality as quality_mod
 from ..relay.fec import FecConfig, FecOutputState, drop_overhead_gauge
 from ..relay.reliable import ReliableUdpOutput
 from ..relay.session import RelaySession, SessionRegistry, now_ms
+from ..resilience.inject import INJECTOR
 from ..utils.logs import AccessRecord
 from ..vod.session import FileSession
 from .config import ServerConfig
@@ -696,6 +707,8 @@ class RtspConnection:
         out, resp_t = await self._make_output(t, dict(
             ssrc=secrets.randbits(32), out_seq_start=secrets.randbits(16),
             out_ts_start=secrets.randbits(32)), track_id)
+        if t.is_tcp:
+            self._maybe_readopt_tcp(req, relay.path, track_id, out, resp_t)
         extra = negotiate_meta_info(req.headers.get("x-rtp-meta-info", ""),
                                     out)
         srv = self.server
@@ -710,6 +723,33 @@ class RtspConnection:
         self.player_tracks[track_id] = out
         self._reply(rtsp.RtspResponse(200, {"Transport": resp_t.to_header(),
                                             **extra}), req.cseq)
+
+    def _maybe_readopt_tcp(self, req, path, track_id, out, resp_t) -> None:
+        """A player re-connecting after a restart presents its old
+        ``Session`` id on an interleaved SETUP; when the server parked a
+        ``kind=tcp`` checkpoint record for (path, track, session), the
+        output takes its rewrite state and sent counters: the same SSRC,
+        and the framed seq continues where the old process's wire
+        stopped.  No match: a fresh subscriber."""
+        hook = self.server.tcp_restore
+        sid = (req.headers.get("session") or "").split(";")[0].strip()
+        if hook is None or not sid:
+            return
+        rec = hook(path, track_id, sid)
+        if rec is None:
+            return
+        rw = rec.get("rewrite") or [0, -1, -1, 0, 0]
+        out.rewrite.ssrc = int(rw[0])
+        out.rewrite.base_src_seq = int(rw[1])
+        out.rewrite.base_src_ts = int(rw[2])
+        out.rewrite.out_seq_start = int(rw[3])
+        out.rewrite.out_ts_start = int(rw[4])
+        out.packets_sent = int(rec.get("packets_sent", 0))
+        out.bytes_sent = int(rec.get("bytes_sent", 0))
+        out.payload_octets = int(rec.get("payload_octets", 0))
+        resp_t.ssrc = out.rewrite.ssrc      # Transport echoes the OLD ssrc
+        EVENTS.emit("ckpt.tcp_reattach", session_id=self.session_id,
+                    stream=path, trace_id=self.trace_id, track=track_id)
 
     async def _setup_play_vod(self, req, base, track_id, t) -> None:
         """SETUP of a track of a file under the movie folder."""
@@ -1140,6 +1180,13 @@ class RtspServer:
         self.rtcp_counts = dict.fromkeys(("rr", "nadu", "nack", "app"), 0)
         #: packets APP acks popped from reliable outputs' resend windows
         self.reliable_acks = 0
+        #: the interleaved-TCP checkpoint re-attach hook, set by the
+        #: server when the checkpoint is on: ``(path, track_id,
+        #: session_id) -> record | None``
+        self.tcp_restore = None
+        #: ``(path) -> None``, called at each RTX give-up of the FEC tier
+        #: (the server charges it to the degradation ladder); None: none
+        self.on_rtx_giveup = None
         #: the shared RTCP socket's buffer and drops as they stood at stop
         self._rtcp_socket_final = {"rcvbuf": 0, "drops": -1}
 
@@ -1326,6 +1373,12 @@ class RtspServer:
                         proven.add(c)
                         self.rtcp_counts["rr"] += 1
                         frac = rb.fraction_lost / 256.0
+                        if INJECTOR.active:
+                            # the chaos site: drive the loss-fed
+                            # controllers without a lossy wire
+                            spoof = INJECTOR.rr_loss_spoof()
+                            if spoof is not None:
+                                frac = spoof
                         out.on_receiver_report(frac)
                         if out.fec is not None:
                             out.fec.controller.on_receiver_report(frac)
@@ -1396,7 +1449,8 @@ class RtspServer:
         stream = conn.relay.streams.get(tid) if tid is not None else None
         if stream is None or stream.fec is None:
             return False
-        stream.fec.replay_nacked(out, nack.lost_seqs(), now_ms())
+        stream.fec.replay_nacked(out, nack.lost_seqs(), now_ms(),
+                                 on_giveup=self.on_rtx_giveup)
         return True
 
     def wake_pump(self) -> None:

@@ -1,8 +1,14 @@
 """GF(256) stripe codec: ``k`` window blobs → ``m`` parity shards, and back.
 
-A copy of the reference's ``storage/codec.py`` without its ``obs``
-counters and events, on the port's B4.  A stripe is ``k`` blobs
-zero-padded on the byte axis to the widest; the ``m`` parity shards are
+A copy of the reference's ``storage/codec.py`` on the port's B4, with
+the reference's ``obs`` sites: each device product is one
+``tpu_pass_seconds`` sample (``storage_parity`` or
+``storage_reconstruct``) and counts its copies in
+``tpu_h2d_bytes_total``/``tpu_d2h_bytes_total``; a product that fails
+its check counts ``fec_parity_oracle_mismatch_total``; a reconstruction
+counts ``storage_reconstructs_total`` by result with its
+``storage.reconstruct`` (or ``storage.solve_singular``) event.  A
+stripe is ``k`` blobs zero-padded on the byte axis to the widest; the ``m`` parity shards are
 the Vandermonde rows ``C[p, i] = α^(i·p)`` (``relay.fec.coeff_rows`` over
 ``0..k-1``) times that ``[k, B]`` matrix, computed by
 ``models.relay_pipeline.fec_parity_window_step`` (the wire FEC's pass)
@@ -36,7 +42,8 @@ import zlib
 import numpy as np
 import torch
 
-from .. import resolve_device
+from .. import obs, resolve_device
+from ..ops import staging
 from ..ops.staging import pow2
 from ..relay.fec import coeff_for_indices, coeff_rows, gf_matmul, gf_solve
 
@@ -64,13 +71,19 @@ class StripeCodec:
         self.check_ns = {"parity": 0, "reconstruct": 0}
         self._lock = threading.Lock()
 
-    def _device_product(self, coeff: np.ndarray,
-                        rows: np.ndarray) -> np.ndarray:
-        """One B4 pass of pow2-padded ``coeff × rows`` on the device."""
+    def _device_product(self, coeff: np.ndarray, rows: np.ndarray,
+                        stage: str = "storage_parity") -> np.ndarray:
+        """One B4 pass of pow2-padded ``coeff × rows`` on the device
+        (``stage``: ``storage_parity`` or ``storage_reconstruct``)."""
         from ..models.relay_pipeline import fec_parity_window_step
-        out = fec_parity_window_step(
-            torch.from_numpy(rows).to(self.device),
-            torch.from_numpy(coeff).to(self.device)).cpu().numpy()
+        t0 = time.perf_counter_ns()
+        out = staging.readback(fec_parity_window_step(
+            staging.upload(torch.from_numpy(rows), self.device),
+            staging.upload(torch.from_numpy(coeff), self.device))).numpy()
+        obs.TPU_PASS_SECONDS.observe((time.perf_counter_ns() - t0) / 1e9,
+                                     stage=stage)
+        obs.TPU_H2D_BYTES.inc(rows.nbytes + coeff.nbytes)
+        obs.TPU_D2H_BYTES.inc(out.nbytes)
         with self._lock:
             self.device_passes += 1
         return out
@@ -86,6 +99,7 @@ class StripeCodec:
         """Count a product that failed its check; the error to raise."""
         with self._lock:
             self.oracle_mismatches += 1
+        obs.FEC_PARITY_ORACLE_MISMATCH.inc()
         return StorageError(f"{what}: the device product fails its check")
 
     # ------------------------------------------------------------- encode
@@ -136,6 +150,10 @@ class StripeCodec:
             return out
         pav = sorted(i - k for i in present if i >= k)
         if len(need) > len(pav):
+            obs.STORAGE_RECONSTRUCTS.inc(result="failed")
+            obs.EVENTS.emit("storage.reconstruct", level="error",
+                            asset=asset, missing=len(need),
+                            parity=len(pav))
             raise StorageError(
                 f"{asset}: {len(need)} data shards missing, only "
                 f"{len(pav)} parity rows survive")
@@ -146,6 +164,9 @@ class StripeCodec:
         ainv = gf_solve(coeff_for_indices(need, idxs),
                         np.eye(n, dtype=np.uint8))
         if ainv is None:
+            obs.STORAGE_RECONSTRUCTS.inc(result="failed")
+            obs.EVENTS.emit("storage.solve_singular", level="error",
+                            asset=asset, missing=len(need))
             raise StorageError(
                 f"{asset}: singular parity subset {idxs} for {need}")
         # survivors stacked [chosen parity rows ∥ surviving data rows];
@@ -175,6 +196,9 @@ class StripeCodec:
             solved = self._wide_matmul(ccomb, surv, need, lens, crcs)
         for j, i in enumerate(need):
             out[i] = solved[j, :lens[i]].tobytes()
+        obs.STORAGE_RECONSTRUCTS.inc(result="ok")
+        obs.EVENTS.emit("storage.reconstruct", asset=asset,
+                        missing=len(need))
         return out
 
     def _wide_matmul(self, ccomb: np.ndarray, surv: np.ndarray,
@@ -188,8 +212,9 @@ class StripeCodec:
         coeff = np.zeros((pow2(ccomb.shape[0], 1), rows.shape[0]), np.uint8)
         coeff[:ccomb.shape[0], :ccomb.shape[1]] = ccomb
         t0 = time.perf_counter_ns()
-        dev = self._device_product(coeff, rows)[:ccomb.shape[0],
-                                                 :surv.shape[1]]
+        dev = self._device_product(
+            coeff, rows, stage="storage_reconstruct")[:ccomb.shape[0],
+                                                       :surv.shape[1]]
         t1 = time.perf_counter_ns()
         if crcs:
             ok = all((zlib.crc32(dev[j, :lens[i]].tobytes()) & 0xFFFFFFFF)

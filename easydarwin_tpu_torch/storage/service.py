@@ -1,8 +1,11 @@
 """Erasure-coded storage of finalized DVR assets: one node's shard store,
 scrub and repair, and the restore reads of the spill chain.
 
-A copy of the reference's ``storage/service.py`` without its ``obs``
-counters and events, over the port's ``StripeCodec`` (B4, ``ed_gf_parity``
+A copy of the reference's ``storage/service.py`` with its ``obs`` sites
+(``storage_shards_total`` by kind a placed or repaired shard,
+``storage_scrub_errors_total``, ``storage_repairs_total`` and
+``_repair_bytes_total``, the ``storage.store``, ``storage.scrub_error``
+and ``storage.repair`` events), over the port's ``StripeCodec`` (B4, ``ed_gf_parity``
 on the card).  Every finalized asset is sharded into ``k`` data + ``m``
 parity window shards a track: data shard ``j`` of stripe ``s`` is the
 raw spill blob of the stripe's ``j``-th window, the parity shards are
@@ -43,6 +46,7 @@ import zlib
 import numpy as np
 import torch
 
+from .. import obs
 from ..cluster.placement import SHARD_KEY_PREFIX, shard_key
 from ..protocol.sdp import _norm
 from ..relay.fec import coeff_rows, gf_matmul
@@ -283,10 +287,12 @@ class StorageService:
         if not shards:
             return None
         man_json = json.dumps(man, separators=(",", ":"))
-        for name, _idx, payload in shards:
+        placed = {"data": 0, "parity": 0}
+        for name, idx, payload in shards:
             target = self.node_id
             if ring is not None and len(ring_nodes) > 1:
                 target = self._placement_target(ring, key, name)
+            kind = "data" if idx < self.k else "parity"
             if target != self.node_id and self.push_shard is not None:
                 try:
                     ok = bool(self.push_shard(
@@ -305,10 +311,15 @@ class StorageService:
                     self.shards_local += 1
             else:
                 self.shards_pushed += 1
+            obs.STORAGE_SHARDS.inc(kind=kind)
+            placed[kind] += 1
             man["holders"][name] = target
             self._queue_claim(key, name, target)
         self._write_manifest(key, man)
         self.stored_assets += 1
+        obs.EVENTS.emit("storage.store", stream=key, asset=key,
+                        shards=placed["data"] + placed["parity"],
+                        parity=placed["parity"])
         return man
 
     def _write_shard(self, asset: str, name: str, payload: bytes) -> bool:
@@ -431,6 +442,9 @@ class StorageService:
             os.unlink(path)
         except OSError:
             pass
+        obs.STORAGE_SCRUB_ERRORS.inc()
+        obs.EVENTS.emit("storage.scrub_error", level="error",
+                        stream=asset, asset=asset, shard=name)
         with self._lock:
             self.scrub_errors += 1
             if (asset, name) not in self._repair_inflight:
@@ -732,6 +746,13 @@ class StorageService:
         with self._lock:
             self.repairs += 1
             self.repair_bytes += nbytes
+        parsed = self._parse_name(name)
+        kind = "parity" if parsed and parsed[2] >= self.k else "data"
+        obs.STORAGE_REPAIRS.inc(kind=kind)
+        obs.STORAGE_REPAIR_BYTES.inc(nbytes)
+        obs.STORAGE_SHARDS.inc(kind=kind)
+        obs.EVENTS.emit("storage.repair", stream=asset, asset=asset,
+                        shards=1, shard=name)
         return nbytes
 
     def _repair_job(self, asset: str, name: str) -> None:

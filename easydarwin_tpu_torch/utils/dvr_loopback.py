@@ -17,7 +17,8 @@ loopback, against ``python -m easydarwin_tpu_torch --dvr-enabled 1
    every player has its tail, REST ``stoprecord`` finalizes the asset,
    ``n_replay`` players replay ``<path>.dvr`` from npt 0 at
    ``replay_speed``, and the store of the asset is awaited over REST
-   ``storagestats``.  The server stops (SIGTERM) and prints its stats.
+   ``storagestats``.  The server stops (SIGTERM) and prints its stats
+   (with its tiers' ``/metrics`` counters, scraped just before).
 2. In this process: one ``scrub_tick`` of a ``StorageService`` on
    ``device`` over every shard file must report no error.  Then every
    ``spill.bin`` and ``lost`` shards of every stripe (data shards first,
@@ -48,8 +49,8 @@ import time
 
 from ..protocol import rtp, rtsp
 from . import synth
-from .loopback import (AV_SDP, MiniClient, _udp_endpoint, check,
-                       http_get_json, udp_rcvbuf_errors, CliServer)
+from .loopback import (AV_SDP, TIER_COUNTERS, MiniClient, _udp_endpoint,
+                       check, http_get_json, udp_rcvbuf_errors, CliServer)
 
 VIDEO, AUDIO = 1, 2
 CLOCK = {VIDEO: 90000, AUDIO: 48000}
@@ -382,7 +383,7 @@ async def dvr_session(device: str, folder: str, rng, *,
         for pl in live["players"] + replay:
             await pl.client.close()
         await live["pusher"].close()
-        stats_a = await srv.stop()
+        stats_a = await srv.stop(counters=TIER_COUNTERS)
     scrub = _scrub_all(folder, device)
     deleted = _delete_for_reconstruct(folder, lost)
     async with CliServer(device, *args) as srv:
@@ -390,7 +391,7 @@ async def dvr_session(device: str, folder: str, rng, *,
             srv.rtsp_port, n_reconstruct, replay_speed, spilled, settle_s)
         for pl in rebuilt:
             await pl.client.close()
-        stats_b = await srv.stop()
+        stats_b = await srv.stop(counters=TIER_COUNTERS)
     rcvbuf = udp_rcvbuf_errors() - rcvbuf0
     last = {t: sent[t][-1] for t in sent}
     by_kind = _check_players(live["players"], sent,

@@ -46,8 +46,8 @@ from dataclasses import dataclass
 import numpy as np
 
 from ..protocol import nalu, rtp
-from .loopback import (AV_SDP, VIDEO_SDP, CliServer, MiniClient, check,
-                       http_get_json)
+from .loopback import (AV_SDP, TIER_COUNTERS, VIDEO_SDP, CliServer,
+                       MiniClient, check, http_get_json)
 from .synth import aac_packet
 
 #: media time of one pushed picture (90 kHz): one second, so a GOP of 3
@@ -586,7 +586,7 @@ async def serve_hls(device: str, rng: np.random.Generator, *,
                              prepared, rng, frames=frames, fps=fps, gop=gop,
                              deltas=deltas, master=master,
                              deadline_s=deadline_s, allow_shed=allow_shed)
-        stats = await srv.stop()
+        stats = await srv.stop(counters=TIER_COUNTERS)
     hls = stats["hls"]
     check(hls["device_errors"] == 0, f"B6 device errors: {hls}")
     check(allow_shed or hls["shed"] == 0, f"shed AUs: {hls}")

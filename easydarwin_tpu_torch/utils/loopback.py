@@ -472,6 +472,14 @@ def gop_heads(before: int, after: int, gop: int) -> range:
     return range((before - 1) // gop * gop, (after - 1) // gop * gop + 1, gop)
 
 
+#: the ``/metrics`` counter families of the VOD cache, DVR spill, store and
+#: HLS requant tiers (scraped by ``CliServer.stop(counters=...)``)
+TIER_COUNTERS = ("vod_cache_hits_total", "vod_cache_misses_total",
+                 "dvr_windows_spilled_total", "storage_reconstructs_total",
+                 "requant_aus_total", "requant_slices_total",
+                 "requant_renditions_total")
+
+
 class CliServer:
     """``python -m easydarwin_tpu_torch`` on free loopback ports, as an
     async context manager: ``rtsp_port`` and ``rest_port`` are set once
@@ -511,15 +519,22 @@ class CliServer:
         self.rtsp_port, self.rest_port = int(m.group(1)), int(m.group(2))
         return self
 
-    async def stop(self) -> dict:
-        """SIGTERM, then the exit stats; pump errors and oracle mismatches
-        must be 0."""
+    async def stop(self, counters: tuple = ()) -> dict:
+        """SIGTERM, then the exit stats; pump errors, device errors and
+        oracle mismatches must be 0.  ``counters`` (exposition names of
+        ``/metrics`` families) are scraped just before the SIGTERM into
+        ``stats["counters"]``, each summed over its label sets."""
+        totals = await metric_totals(self.rest_port, counters) \
+            if counters else {}
         self.proc.send_signal(signal.SIGTERM)
         out, _ = await asyncio.wait_for(self.proc.communicate(), 60)
         check(self.proc.returncode == 0,
               f"server exited {self.proc.returncode}")
         stats = json.loads(out.decode().split("stats ", 1)[1])
+        stats["counters"] = totals
         check(stats["pump_errors"] == 0, f"server pump errors: {stats}")
+        check(stats["resilience"]["device_errors"] == 0,
+              f"server device errors: {stats['resilience']}")
         check(stats["megabatch"]["mismatches"] == 0,
               f"server scheduler mismatches: {stats}")
         return stats
@@ -658,6 +673,27 @@ async def http_get_json(port: int, target: str) -> tuple[int, dict]:
         return status, json.loads(body)
     finally:
         writer.close()
+
+
+async def metric_totals(port: int, names) -> dict:
+    """``/metrics`` on the REST port → {family: its samples summed over
+    their label sets} for each exposition name in ``names``."""
+    reader, writer = await asyncio.open_connection("127.0.0.1", port)
+    try:
+        writer.write(b"GET /metrics HTTP/1.1\r\nHost: 127.0.0.1\r\n\r\n")
+        head = (await asyncio.wait_for(reader.readuntil(b"\r\n\r\n"), 30)
+                ).decode("latin-1")
+        check(int(head.split()[1]) == 200, f"/metrics answered {head!r}")
+        clen = int(re.search(r"(?i)content-length:\s*(\d+)", head).group(1))
+        body = await asyncio.wait_for(reader.readexactly(clen), 30)
+    finally:
+        writer.close()
+    totals = dict.fromkeys(names, 0.0)
+    for line in body.decode().splitlines():
+        m = re.match(r"([A-Za-z_:][\w:]*)(?:\{.*\})?\s+(\S+)$", line)
+        if m is not None and m.group(1) in totals:
+            totals[m.group(1)] += float(m.group(2))
+    return totals
 
 
 def _drain(sock: socket.socket, sink: list) -> None:

@@ -34,17 +34,26 @@ card copies; windows a pacer cursor is serving are pinned (refcounted)
 and never evicted.  ``snapshot``/``restore`` checkpoint which windows
 were hot (metadata only), so a restart re-packs the working set in the
 background on each asset's first open.
+
+Observability (``obs``, at the reference's places): hits and misses
+count ``vod_cache_hits_total``/``_misses_total``, evictions
+``vod_cache_evictions_total``, the budgeted bytes set ``vod_cache_bytes``;
+a fill is one profiler pass of the ``cache_fill`` phase (engine ``vod``
+for a pack, ``dvr`` for a spill window), and a window's card copy counts
+in ``tpu_h2d_bytes_total``.
 """
 
 from __future__ import annotations
 
 import threading
+import time
 from collections import OrderedDict
 
 import numpy as np
 import torch
 
-from .. import resolve_device
+from .. import obs, resolve_device
+from ..obs import PROFILER
 from ..ops import staging
 from ..protocol import nalu, rtp
 from ..relay.ring import SLOT_SIZE, PacketFlags, PacketRing
@@ -223,8 +232,10 @@ class CachedWindow:
         window.  An upload error raises (a CUDA error is never turned
         into a quiet host result)."""
         if self._device is None:
-            self._device = torch.from_numpy(self.staged).to(device)
+            self._device = staging.upload(torch.from_numpy(self.staged),
+                                          device)
             self.device_uploads += 1
+            obs.TPU_H2D_BYTES.inc(self.staged.nbytes)
             if self._on_device is not None:
                 self._on_device(self.staged.nbytes)
         return self._device
@@ -325,8 +336,10 @@ class SegmentCache:
                 self._lru.move_to_end(key)
                 w.hits += 1
                 self.hits += 1
+                obs.VOD_CACHE_HITS.inc()
                 return w
             self.misses += 1
+            obs.VOD_CACHE_MISSES.inc()
             if aid in self._unpackable or self._closed:
                 return None
             schedule = background_fill and key not in self._filling
@@ -352,11 +365,14 @@ class SegmentCache:
                 self._lru.move_to_end(key)
                 w.hits += 1
                 self.hits += 1
+                obs.VOD_CACHE_HITS.inc()
                 return w
             self.misses += 1
+            obs.VOD_CACHE_MISSES.inc()
             if self._closed or key in self._filling:
                 return None
             self._filling.add(key)
+        t0 = time.perf_counter_ns()
         try:
             w = loader(key[2])
         except Exception:
@@ -368,6 +384,8 @@ class SegmentCache:
         if w is None:
             return None
         w.key = key
+        dur = time.perf_counter_ns() - t0
+        PROFILER.account_pass("dvr", dur, {"cache_fill": dur})
         with self._lock:
             cur = self._lru.get(key)
             if cur is not None:
@@ -380,6 +398,7 @@ class SegmentCache:
             if w.restored:
                 self.restored_fills += 1
             self._evict_over_budget(keep=key)
+            obs.VOD_CACHE_BYTES.set(self.bytes)
         return w
 
     def fill_now(self, file: Mp4File, track_no: int, track: Track,
@@ -412,6 +431,7 @@ class SegmentCache:
 
     def _fill_job(self, file, track_no, track, win,
                   key) -> CachedWindow | None:
+        t0 = time.perf_counter_ns()
         try:
             lo, hi = self.window_span(track, win)
             if lo >= hi:
@@ -429,6 +449,8 @@ class SegmentCache:
         finally:
             with self._lock:
                 self._filling.discard(key)
+        dur = time.perf_counter_ns() - t0
+        PROFILER.account_pass("vod", dur, {"cache_fill": dur})
         with self._lock:
             cur = self._lru.get(key)
             if cur is not None:
@@ -439,6 +461,7 @@ class SegmentCache:
             self.bytes += w.nbytes
             self.fills += 1
             self._evict_over_budget(keep=key)
+            obs.VOD_CACHE_BYTES.set(self.bytes)
         return w
 
     def _account_device_bytes(self, key, n: int) -> None:
@@ -450,6 +473,7 @@ class SegmentCache:
                 return
             self.bytes += n
             self._evict_over_budget(keep=key)
+            obs.VOD_CACHE_BYTES.set(self.bytes)
 
     def _evict_over_budget(self, keep=None) -> None:
         # caller holds the lock.  Pinned windows and the just-inserted
@@ -470,6 +494,7 @@ class SegmentCache:
                 self.bytes -= w.staged.nbytes
             w.drop_device()
             self.evictions += 1
+            obs.VOD_CACHE_EVICTIONS.inc()
 
     # ----------------------------------------------------------- pin/unpin
     def pin(self, w: CachedWindow) -> CachedWindow:
@@ -484,6 +509,7 @@ class SegmentCache:
             w.pins = max(w.pins - 1, 0)
             if w.pins == 0:
                 self._evict_over_budget()
+            obs.VOD_CACHE_BYTES.set(self.bytes)
 
     # ------------------------------------------------- checkpoint metadata
     def snapshot(self) -> dict:
@@ -562,6 +588,7 @@ class SegmentCache:
                 w.drop_device()
             self._lru.clear()
             self.bytes = 0
+            obs.VOD_CACHE_BYTES.set(0)
 
 
 __all__ = ["SegmentCache", "CachedWindow", "StagedPacketRing",

@@ -5,7 +5,8 @@ as a relay sink: ``RecorderOutput`` *is* a ``RelayOutput``, so it rides the
 same bucketed fan-out, bookmark/WouldBlock and thinning machinery as any
 subscriber (the engine's loop rung renders its headers), and the recorder
 never touches sockets.  Started and stopped over REST
-(``/api/v1/startrecord`` / ``stoprecord``).
+(``/api/v1/startrecord`` / ``stoprecord``).  Each orphan the start-up
+sweep finds is a ``record.orphan`` event (``obs``).
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ import base64
 import os
 import time
 
+from ..obs import EVENTS
 from ..protocol.sdp import _norm
 from ..relay.output import RelayOutput, WriteResult
 from ..relay.session import RelaySession
@@ -44,7 +46,9 @@ def sweep_orphans(folder: str) -> list[str]:
             dirs[:] = sorted(d for d in dirs if d != ".dvr")
             for name in sorted(names):
                 if name.endswith(".mp4" + TMP_SUFFIX):
-                    orphans.append(os.path.join(root, name))
+                    full = os.path.join(root, name)
+                    orphans.append(full)
+                    EVENTS.emit("record.orphan", level="warn", file=full)
     except OSError:
         pass
     return orphans

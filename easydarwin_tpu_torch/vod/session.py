@@ -25,6 +25,10 @@ through the scheduler's ``megabatch_window_steps`` call (one
 through the scheduler's host-oracle check.  An upload or launch error raises out of the pacer's
 ``tick``; only an oracle mismatch leaves a join to the scheduler's own
 prime, and it counts in ``prime_failures``.
+
+Observability (``obs``): the pacer's ring fills count
+``vod_packets_total`` by path (``hot`` from the cache, ``cold`` from the
+per-sample path), and ``vod_sessions`` follows the paced sessions.
 """
 
 from __future__ import annotations
@@ -38,6 +42,7 @@ from collections import deque
 import numpy as np
 import torch
 
+from .. import obs
 from ..models.relay_pipeline import scatter_affine_segments
 from ..ops.fanout import STATE_COLS, pack_output_state
 from ..ops.staging import pow2
@@ -489,6 +494,7 @@ class _PacedTrack:
                             due_ms.astype(np.int64), w.flags[idx], seqs,
                             w.ts[idx])
             self.seq_next = int((self.seq_next + n_total) & 0xFFFF)
+            obs.VOD_PACKETS.inc(n_total, path="hot")
             sess.pacer.hot_pkts += n_total
         sess.frames_thinned += thinned
         self.cursor = w.lo + end_rel
@@ -530,6 +536,8 @@ class _PacedTrack:
                 ring.push(p, int(due))
             self.seq_next = (self.seq_next + len(pkts)) & 0xFFFF
             self.cursor += 1
+            if pkts:
+                obs.VOD_PACKETS.inc(len(pkts), path="cold")
             sess.pacer.cold_pkts += len(pkts)
             progressed = True
         return progressed
@@ -661,6 +669,7 @@ class VodPacerGroup:
                                speed=speed, path=path, now_ms=now_ms)
         self.sessions.append(sess)
         self._unprimed.extend((sess, tr) for tr in sess.tracks)
+        obs.VOD_SESSIONS.set(len(self.sessions))
         return sess
 
     def adopt(self, sess):
@@ -670,6 +679,7 @@ class VodPacerGroup:
         ``done``, ``stopped``, ``tracks`` (each with ``stream`` and
         ``release``), ``file.close()`` and an optional ``on_retire``."""
         self.sessions.append(sess)
+        obs.VOD_SESSIONS.set(len(self.sessions))
         return sess
 
     def retire(self, sess: PacedVodSession) -> None:
@@ -688,6 +698,7 @@ class VodPacerGroup:
             cb = getattr(sess, "on_retire", None)
             if cb is not None:
                 cb()
+        obs.VOD_SESSIONS.set(len(self.sessions))
 
     # ---------------------------------------------------------------- tick
     def tick(self, now_ms: int) -> list:

@@ -136,11 +136,15 @@ def test_reference_toml_loads_with_every_missing_key_listed(tmp_path):
     for k in set(ref_d) & set(d):
         assert d[k] == ref_d[k], k
     assert set(unmapped) == set(ref_d) - set(d)
-    for k in ("cluster_enabled", "resilience_fault_plan",
-              "resilience_enabled", "tpu_fanout", "redis_host"):
+    for k in ("cluster_enabled", "tpu_fanout", "redis_host"):
         assert k in unmapped
     for k in ("slo_enabled", "slo_latency_objective_ms", "stats_interval_sec",
-              "status_file_path", "status_file_interval_sec"):
+              "status_file_path", "status_file_interval_sec",
+              "module_folder", "resilience_fault_plan", "resilience_enabled",
+              "resilience_recover_sec", "resilience_max_retries",
+              "resilience_backoff_ms", "resilience_checkpoint_enabled",
+              "resilience_checkpoint_interval_sec",
+              "resilience_checkpoint_max_age_sec"):
         assert k not in unmapped and d[k] == ref_d[k], k
     assert cfg.stream.overbuffer_ms == 3500 and cfg.stream.max_age_ms == 9000
     assert config.ServerConfig.from_toml(str(p)).to_dict() == d

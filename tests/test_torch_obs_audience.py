@@ -30,6 +30,11 @@ SIDES = {"ref": (ref_audience, ref_metrics),
 def _store(side, monkeypatch, clock):
     aud, met = SIDES[side]
     monkeypatch.setattr(aud, "time", clock)
+    # a storm blames the process-wide wake ledger's top class: pin it on
+    # both sides, whatever an earlier test in this process served
+    from importlib import import_module
+    ledger = import_module(aud.__name__.rsplit(".", 1)[0] + ".ledger")
+    monkeypatch.setattr(ledger.LEDGER, "last_top_class", "")
     reg = met.Registry()
     fams = {"qoe": reg.histogram("audience_qoe_score", "q",
                                  labels=("tier",), buckets=aud.QOE_BUCKETS),
