@@ -430,6 +430,31 @@ phase raises and the script exits non-zero.
              restores on its log folder, the pusher re-ANNOUNCEs, and a UDP
              and an interleaved-TCP player (re-attached with its old
              Session id) each see one SSRC and a contiguous seq
+17. cluster the cluster tier on the card (``utils.cluster_loopback.
+             cluster_kill``): the port's ``MiniRedisServer`` in this
+             process and two CLI servers (``--device cuda -c
+             node-{a,b}.toml``, ``cluster_enabled``, their own
+             ``server_id``s, the reference soak's lease settings: TTL 2 s,
+             heartbeat 0.5 s); 3 H.264 pushers and a UDP player each on
+             A, an interleaved player of the first path on B, served
+             through a ``RemotePull`` from A (payloads equal to the pushed
+             ones from byte 12, in order; B's ``x-freshness`` chain two
+             hops); SIGKILL of A; B's fenced claims on every path within
+             10 s; B's ``/api/v1/fleet`` lists both nodes, A stale; the
+             paths re-pushed to B (each pusher's last 64 packets first);
+             the UDP players, which never re-SETUP, keep their SSRC, and
+             each one's seq minus its payload's push index is one
+             constant (no rebase) with no index missing; on B
+             ``cluster_migrations_total`` >= 3, ``megabatch_passes_total``
+             grows after the adoption (``ed_relay_window`` launches = the
+             scheduler's window calls > 0), 0 oracle mismatches, 0 pump
+             and device errors, no pass on the host scalar path, every
+             path on a device rung and no pull failure charged to the
+             ladder (the pull's failures after the kill are counted and
+             stay off it).  The
+             ``[cluster]`` line gives kill → adopt seconds, the seq gap,
+             B's wake host ms p50/p99, the capacity score and the card;
+             the phase takes at most ``CLUSTER_LIMIT_S``
 
 ``python3 chip_smoke.py --hls-control`` runs phases 1, 2, 5c's leg check
 and phases 13 and 13c twice each instead, each checked in full: the
@@ -452,13 +477,14 @@ are not the main path's.  Then each of phase 6c's scheduler mesh
 path (after its one-device comparison run), 7f, 7g and 13d is its own
 path, with the counts set to 0 just before it and read just after, as
 are phase 14 (its two servers report their own), phase 15 (its
-two runs' server) and phase 16 (its servers run in-process), and so is
+two runs' server), phase 16 (its servers run in-process) and phase 17
+(the adopter's exit stats: the killed node reports none), and so is
 B8's own path in phase 6c: its two calls through
 ``sharded_relay_step``.  No serving code calls B8 (the server's mesh path
 is the scheduler's, one ``ed_relay_window`` a shard), so its kernel
 ``ed_relay_shard`` is launched on that path alone, and its row in the
 kernels line says so under ``caller``.  The kernels line's launches are
-the thirteen paths' sum.  The comparisons and
+the fourteen paths' sum.  The comparisons and
 timings of phases 3, 4, 4b, 4c, 4d, 4e, 5, 5b, 5c and 10 run outside
 those windows.  Phase 10's window rows also time the VOD prime's calls
 of phase 11.
@@ -4046,6 +4072,62 @@ def phase_chaos(smi: str) -> dict:
             "chaos_s": t_chaos, "restart_s": t_restart}
 
 
+#: phase 17: its limit in seconds, its seed and its folder (node configs,
+#: logs)
+CLUSTER_LIMIT_S = 60.0
+CLUSTER_SEED = 20261022
+CLUSTER_DIR = os.path.join(HERE, "build", "cluster_phase")
+
+
+def phase_cluster(smi: str) -> dict:
+    """Phase 17: two CLI servers over the in-process Redis, a pull, the
+    owner's SIGKILL and the migration (the module docstring)."""
+    import shutil
+    from easydarwin_tpu_torch.utils import cluster_loopback as cl
+    shutil.rmtree(CLUSTER_DIR, ignore_errors=True)
+    t0 = time.monotonic()
+    res = asyncio.run(asyncio.wait_for(cl.cluster_kill(
+        DEVICE, CLUSTER_DIR, seed=CLUSTER_SEED), CLUSTER_LIMIT_S))
+    seconds = time.monotonic() - t0
+    check(seconds <= CLUSTER_LIMIT_S,
+          f"phase 17 took {seconds:.1f} s, over {CLUSTER_LIMIT_S} s")
+    check(res["adopt_s"] <= cl.ADOPT_BUDGET_S and res["seq_gap"] == 0
+          and res["seq_offsets"] == 1 and res["host_steps"] == 0,
+          f"adoption {res['adopt_s']:.3f} s, seq gap {res['seq_gap']}, "
+          f"seq offsets {res['seq_offsets']}, host passes "
+          f"{res['host_steps']}")
+    srv = res.pop("server_stats")
+    res["server_counters"] = {
+        "pump_errors": srv["pump_errors"],
+        "device_errors": srv["resilience"]["device_errors"],
+        "mismatches": srv["megabatch"]["mismatches"],
+        "cluster": srv["cluster"]}
+    log(f"[cluster] {res['paths']} paths pushed to A, a UDP player each, "
+        f"one pulled on B: {res['pull_packets'][0]} packets through the "
+        f"pull before the kill (payloads = the pushed ones, in order), "
+        f"freshness chain {res['freshness_hops']} hops; SIGKILL of A → B's "
+        f"claims on every path in {res['adopt_s']:.3f} s; fleet on B "
+        f"{res['fleet']}; migrations {res['migrations']:.0f}, pull retries "
+        f"{res['pull_retries']:.0f}")
+    log(f"[cluster] UDP players (packets before / after the kill) "
+        f"{res['udp_packets']}, one SSRC each, seq gap {res['seq_gap']}, "
+        f"one seq offset from the push index ({res['resent_or_dup']} "
+        f"packets of the pushers' tails repeated); B: pull errors "
+        f"{res['pull_errors']} (none charged to the ladder), host passes "
+        f"{res['host_steps']}, ladder degrades {res['ladder_degrades']} "
+        f"(each to the device rung at most); megabatch passes before the "
+        f"kill "
+        f"{res['megabatch_passes']['before_kill']:.0f}, after the adoption "
+        f"{res['megabatch_passes']['after_adoption']:.0f}, window calls "
+        f"{res['window_calls']}; wake host ms p50 "
+        f"{res['wake_ms_p50']:.3f} p99 {res['wake_ms_p99']:.3f}; capacity "
+        f"score {res['capacity_score']:.0f} (self-bench "
+        f"{res['capacity_pps']:.1f} pkt/s); phase {seconds:.1f} s; card "
+        f"{smi}")
+    res["seconds"] = seconds
+    return res
+
+
 def observed_device_check(observed: dict, timed: list) -> None:
     """Phase 15's device time against phase 10: the ``device_step`` mean
     (the timing events around the ``ed_relay_window`` launch) at least
@@ -4940,6 +5022,16 @@ def main() -> int:
     detail["chaos_path_launches"] = chaos_path
     launches = {k: n + chaos_path.get(k, 0) for k, n in launches.items()}
 
+    kernel_lib.reset_launch_counts()       # the cluster path starts here
+    detail["cluster"] = phase_cluster(smi)
+    cluster_path = {k: n + detail["cluster"]["kernel_launches"].get(k, 0)
+                    for k, n in kernel_lib.LAUNCHES.items()}
+    log(f"[cluster path] kernel launches {cluster_path}")
+    check(cluster_path["ed_relay_window"] > 0,
+          "ed_relay_window was not launched on the cluster path")
+    detail["cluster_path_launches"] = cluster_path
+    launches = {k: n + cluster_path.get(k, 0) for k, n in launches.items()}
+
     errs = {"ed_parse_packets": max(detail["k1"].values()),
             "ed_relay_window": max(
                 [*detail["window"].values()]
@@ -5011,14 +5103,16 @@ def main() -> int:
                          "phases_6c_7f_7g_13d": mesh_phases_s,
                          "phase_14": detail["surface"]["seconds"],
                          "phase_15": detail["observed"]["seconds"],
-                         "phase_16": detail["chaos"]["seconds"]}
+                         "phase_16": detail["chaos"]["seconds"],
+                         "phase_17": detail["cluster"]["seconds"]}
     log(f"[time] the script {script_s:.3f} s from its build; phases 13c "
         f"and 13b (the 1080p pictures' encode included) {new_phases_s:.3f}"
         f" s of it, phases 6c, 7f, 7g and 13d {mesh_phases_s:.3f} s, phase "
         f"14 {detail['surface']['seconds']:.3f} s, phase 15 "
         f"{detail['observed']['seconds']:.3f} s, phase 16 "
-        f"{detail['chaos']['seconds']:.3f} s, the rest "
-        f"{script_s - new_phases_s - mesh_phases_s - detail['surface']['seconds'] - detail['observed']['seconds'] - detail['chaos']['seconds']:.3f} s")
+        f"{detail['chaos']['seconds']:.3f} s, phase 17 "
+        f"{detail['cluster']['seconds']:.3f} s, the rest "
+        f"{script_s - new_phases_s - mesh_phases_s - detail['surface']['seconds'] - detail['observed']['seconds'] - detail['chaos']['seconds'] - detail['cluster']['seconds']:.3f} s")
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(detail, f, indent=1, default=str)
 

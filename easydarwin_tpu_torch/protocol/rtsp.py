@@ -20,8 +20,9 @@ METHODS = (
 
 #: status code → reason phrase
 STATUS_PHRASES = {
-    200: "OK", 400: "Bad Request", 401: "Unauthorized", 403: "Forbidden",
-    404: "Not Found", 405: "Method Not Allowed", 413: "Request Entity Too Large",
+    200: "OK", 305: "Use Proxy", 400: "Bad Request", 401: "Unauthorized",
+    403: "Forbidden", 404: "Not Found", 405: "Method Not Allowed",
+    413: "Request Entity Too Large", 453: "Not Enough Bandwidth",
     454: "Session Not Found", 455: "Method Not Valid in This State",
     459: "Aggregate Operation Not Allowed", 461: "Unsupported Transport",
     500: "Internal Server Error", 501: "Not Implemented",

@@ -17,6 +17,15 @@ over (a re-ANNOUNCE).  The local session is served under the pull's own
 trace id, its streams count their players in the audience store's
 ``pull`` tier, and a start, an upstream EOF and a stop are ``pull.*``
 events.
+
+The cluster's pull envelope (``cluster.pull.RemotePull``) starts pulls
+with ``adopt=True``, which feeds a session already on the path (its
+local players survive an upstream restart), and with ``peer_headers``
+(``X-Cluster-Node``) that every request upstream carries.  The pull
+sends its trace id upstream as ``X-Trace-Id`` and serves under the
+upstream stream's trace once the DESCRIBE reply names it, so both hops
+correlate under one id.  ``upstream_chain`` holds the upstream's
+freshness chain, which the envelope polls (``obs.fleet``).
 """
 
 from __future__ import annotations
@@ -35,6 +44,19 @@ class PullError(Exception):
     pass
 
 
+#: cleanup tasks in flight (a task the loop holds no reference to can be
+#: collected before it runs)
+_CLEANUPS: set = set()
+
+
+def _spawn_cleanup(coro) -> None:
+    """Run a teardown coroutine on a task of its own (its caller is being
+    cancelled or must not wait)."""
+    task = asyncio.ensure_future(coro)
+    _CLEANUPS.add(task)
+    task.add_done_callback(_CLEANUPS.discard)
+
+
 def parse_rtsp_url(url: str) -> tuple[str, int, str]:
     u = urlparse(url)
     if u.scheme != "rtsp" or not u.hostname:
@@ -46,15 +68,22 @@ class PullRelay:
     """One upstream pull session."""
 
     def __init__(self, local_path: str, url: str, registry: SessionRegistry,
-                 *, on_packet=None):
+                 *, on_packet=None, peer_headers: dict | None = None):
         self.local_path = local_path
         self.url = url
         self.registry = registry
         #: called with the path after each media packet (the pump's wake)
         self.on_packet = on_packet
         self.client = RtspClient()
-        #: the trace id the local session is served under
+        #: the trace id the local session is served under: minted here,
+        #: then the upstream stream's when its DESCRIBE reply names one
         self.trace_id = secrets.token_hex(8)
+        #: the upstream's freshness chain (origin hop first), polled by
+        #: the cluster's pull envelope
+        self.upstream_chain: list[dict] = []
+        #: cluster-peer headers every upstream request carries ({} for a
+        #: REST ``startpullrelay``)
+        self.peer_headers = dict(peer_headers or {})
         self.session: RelaySession | None = None
         self.started_at = time.time()
         self.alive = False
@@ -71,6 +100,8 @@ class PullRelay:
         host, port, _path = parse_rtsp_url(self.url)
         self._t0 = time.perf_counter()
         self.client.enable_any_queue()      # before any packet can arrive
+        self.client.default_headers = {**self.peer_headers,
+                                       "x-trace-id": self.trace_id}
         try:
             await asyncio.wait_for(self._handshake(host, port), timeout)
         except asyncio.CancelledError:
@@ -87,6 +118,11 @@ class PullRelay:
         sd = await self.client.play_start(self.url)
         if not sd.streams:
             raise ConnectionError("SDP has no streams")
+        # play_start took the upstream stream's trace from the DESCRIBE
+        # reply: serve the local replica under it
+        up = self.client.default_headers.get("x-trace-id", "")
+        if up and up != self.trace_id:
+            self.trace_id = up
         for i, st in enumerate(sd.streams):
             self._channel_map[2 * i] = (st.track_id, False)
             self._channel_map[2 * i + 1] = (st.track_id, True)
@@ -185,7 +221,12 @@ class PullRelayManager:
         self.counts = dict.fromkeys(("started", "refused", "stopped",
                                      "swept"), 0)
 
-    async def start_pull(self, local_path: str, url: str) -> PullRelay:
+    async def start_pull(self, local_path: str, url: str, *,
+                         adopt: bool = False,
+                         peer_headers: dict | None = None) -> PullRelay:
+        """Start one pull.  ``adopt=True`` (the cluster's pull envelope)
+        feeds a session already on the path instead of refusing it, so a
+        restarted pull keeps the local players."""
         key = local_path.rstrip("/") or "/"
         async with self._lock:
             old = self.pulls.get(key)
@@ -196,15 +237,22 @@ class PullRelayManager:
                 # dead but not swept yet: retire it before starting again
                 self.pulls.pop(key, None)
                 await old.stop()
-            elif self.registry.find(key) is not None:
+            elif not adopt and self.registry.find(key) is not None:
                 self.counts["refused"] += 1
                 raise PullError(f"{key} already has a live session")
             pull = PullRelay(key, url, self.registry,
-                             on_packet=self.on_packet)
+                             on_packet=self.on_packet,
+                             peer_headers=peer_headers)
             try:
                 await pull.start(self.connect_timeout)
             except PullError:
                 self.counts["refused"] += 1
+                raise
+            except asyncio.CancelledError:
+                # cancelled after a start that may have succeeded: retire
+                # it on a task of its own, so no untracked pull feeds the
+                # session
+                _spawn_cleanup(pull.stop())
                 raise
             self.pulls[key] = pull
             self.counts["started"] += 1

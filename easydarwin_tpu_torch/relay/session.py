@@ -146,6 +146,9 @@ class SessionRegistry:
                         streams=len(sess.streams))
         return sess
 
+    def paths(self) -> list[str]:
+        return sorted(self.sessions)
+
     def remove(self, path: str) -> None:
         key = sdp_mod._norm(path)
         sess = self.sessions.pop(key, None)

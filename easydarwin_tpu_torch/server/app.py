@@ -143,6 +143,37 @@ connection stand-in that its RTCP proves alive; one silent for
 ``rtsp_timeout_sec`` is removed.  A restored interleaved-TCP record
 parks until its player's SETUP re-attaches it; one unclaimed for
 ``rtsp_timeout_sec`` is counted in ``ckpt.tcp_orphan``.
+
+The cluster (``cluster``, the reference's tier): with ``cluster_enabled``
+the server builds a ``ClusterService`` at start, after the listeners and
+the pump (its Redis is ``redis_client``, or an ``AsyncRedis`` to
+``redis_host``:``redis_port``).  Its tick is a task of its own, the only
+code that awaits Redis; the pump's wake never does.  It holds the node's
+fenced lease, claims every locally sourced path and publishes its
+checkpoint (``Ckpt:``), and adopts a path whose owner's lease died when
+this node is the ring's successor: ``_cluster_restore`` restores the
+published document into the live registry (a path this node was pulling
+merges, each of its own outputs' bookmarks clamped to the restored
+head), re-points the UDP subscribers through the shared egress pair
+without a re-SETUP and parks the interleaved ones for their re-attach.
+A newer fencing token (``_cluster_fence_lost``) takes the path's data
+plane away: its pusher connections close and its session goes.  A
+DESCRIBE of a path another live node owns (``_cluster_describe``) is
+served through a ``RemotePull``.  Its failures count in
+``pull_errors``; only an injected one (``pull_stall``, counted in
+``pull_errors_injected``) is charged to the degradation ladder's
+``pull_errors``, as only an injected device fault moves a rung: a
+network failure leaves the stream on the card.  A ``LoadTracker`` publishes the
+capacity score (``cluster_capacity_score``, else the boot self-bench)
+and the utilization into the lease each tick; past
+``cluster_admission_high_water`` (or when ``overload_spoof`` fires) a
+session's first play SETUP is answered 305 to an edge with headroom or
+453 (``_admission_verdict``; plain local-file VOD is exempt).  A pulling
+peer's ``X-Trace-Id`` is adopted only from a live lease's address
+(``_peer_trace_gate``).  ``stop`` drains: fresh checkpoints, the lease
+released, so a peer adopts within a tick.  Without a cluster,
+``cloud_enabled`` keeps the reference's passive presence records (a
+Redis unreachable at start leaves the server standalone).
 """
 
 from __future__ import annotations
@@ -154,6 +185,7 @@ import os
 import sys
 import time
 import traceback
+import types
 
 import torch
 
@@ -222,7 +254,7 @@ class _RestoredSubscriber:
 
 class StreamingServer:
     def __init__(self, config: ServerConfig | None = None, *,
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda", redis_client=None):
         self.config = config or ServerConfig()
         self.device = resolve_device(device)
         self.registry = SessionRegistry(self.config.stream)
@@ -230,6 +262,19 @@ class StreamingServer:
         self.rtsp = RtspServer(self.config, self.registry,
                                on_pump_wake=self._wake, device=self.device,
                                vod=self.vod)
+        #: the Redis the cluster tier or the presence records use (None:
+        #: an ``AsyncRedis`` to ``redis_host``:``redis_port`` at start)
+        self._redis_client = redis_client
+        #: the cluster service, its load tracker and the passive presence
+        #: (built at start as the config asks)
+        self.cluster = None
+        self.load_tracker = None
+        self.presence = None
+        self._presence_sync: asyncio.Task | None = None
+        #: the cluster's status as it stood when it stopped (``stats``)
+        self._cluster_final: dict | None = None
+        #: the helper threads of peer REST GETs (a stitched trace's hops)
+        self._dvr_fetch_pool = None
         #: the config's auth and log keys the surface was built from
         self._surface_keys = None
         self._apply_surface_config(self.config)
@@ -269,6 +314,12 @@ class StreamingServer:
         #: scheduler), and of them the injected ones
         self.device_errors = 0
         self.device_errors_injected = 0
+        #: cluster pull failures, and of them the injected ones
+        self.pull_errors = 0
+        self.pull_errors_injected = 0
+        #: live stream passes the pump served by the host scalar path
+        #: (the cpu and shed rungs, a retry's backoff)
+        self.host_steps = 0
         #: the session checkpoint (built at start with the log folder)
         self.checkpoint: CheckpointManager | None = None
         #: where the segment cache's hot set is checkpointed (None: off)
@@ -484,6 +535,83 @@ class StreamingServer:
         self._pump_task = asyncio.create_task(self._pump_loop())
         if self.config.stats_interval_sec or self.config.status_file_path:
             self._status_task = asyncio.create_task(self._status_loop())
+        if self.config.cluster_enabled:
+            await self._start_cluster()
+        elif self.config.cloud_enabled:
+            await self._start_presence()
+
+    def _redis(self):
+        from ..cluster.redis_client import AsyncRedis
+        return self._redis_client or AsyncRedis(self.config.redis_host,
+                                                self.config.redis_port)
+
+    async def _start_cluster(self) -> None:
+        """The cluster service on the bound ports, its load tracker (the
+        capacity score, else the boot self-bench), the admission gate, the
+        fleet rollup, the peer trace gate and the DESCRIBE fallback."""
+        from ..cluster.capacity import LoadTracker, self_bench
+        from ..cluster.service import ClusterService
+        ccfg = self.config.cluster_config()
+        ccfg.rtsp_port = self.rtsp.port or self.config.rtsp_port
+        ccfg.http_port = self.rest.port or self.config.service_port
+        self.cluster = ClusterService(
+            self._redis(), ccfg, registry=self.registry,
+            pull_manager=self.pulls, restore_doc=self._cluster_restore,
+            on_pull_failure=self._on_pull_failure,
+            on_fence_lost=self._cluster_fence_lost,
+            # the server's error log as it stands when a warning comes (an
+            # ``update`` may have made it again)
+            error_log=types.SimpleNamespace(warning=self.rtsp.log_error))
+        cap = self.config.cluster_capacity_score or self_bench()
+        self.load_tracker = LoadTracker(
+            cap, slo=self.slo if self.config.slo_enabled else None,
+            subscribers=lambda: sum(
+                s.num_outputs for s in self.registry.sessions.values()))
+        self.cluster.load_status = self.load_tracker.sample
+        if ccfg.admission_enabled:
+            self.rtsp.admission = self._admission_verdict
+        self.cluster.fleet_status = lambda: obs_fleet.build_rollup(self)
+        self.rtsp.peer_trace_gate = self._peer_trace_gate
+        await self.cluster.start()
+        self.rtsp.describe_fallback = self._cluster_describe
+
+    async def _start_presence(self) -> None:
+        """The reference's passive presence records; a Redis unreachable
+        now leaves the server standalone, as the reference's does."""
+        from ..cluster.presence import PresenceService
+        self.presence = PresenceService(
+            self._redis(), self.config.server_id, ip=self.config.wan_ip,
+            rtsp_port=self.rtsp.port or self.config.rtsp_port,
+            http_port=self.rest.port or self.config.service_port)
+        try:
+            await self.presence.start()
+        except Exception as e:
+            self.rtsp.log_error(f"presence: {e!r}")
+            self.presence = None
+
+    async def _stop_cluster(self) -> None:
+        """The planned drain (fresh checkpoints, the lease released) while
+        the registry is whole, then the presence records."""
+        if self.cluster is not None:
+            self._cluster_final = self.cluster_stats()
+            try:
+                await self.cluster.stop(drain=True)
+            except Exception as e:
+                self.rtsp.log_error(f"cluster stop: {e!r}")
+            self.cluster = None
+            self.rtsp.admission = None
+            self.rtsp.peer_trace_gate = None
+            self.rtsp.describe_fallback = None
+            self.load_tracker = None
+        if self._presence_sync is not None:
+            await asyncio.gather(self._presence_sync, return_exceptions=True)
+            self._presence_sync = None
+        if self.presence is not None:
+            try:
+                await self.presence.stop()
+            except Exception as e:
+                self.rtsp.log_error(f"presence stop: {e!r}")
+            self.presence = None
 
     def _restore_checkpoint(self) -> None:
         """Build the checkpoint manager and restore from it: after the
@@ -553,18 +681,177 @@ class StreamingServer:
         out.rtcp_addr = (rtcp[0], int(rtcp[1]))
         return out
 
-    def _adopt_restored_outputs(self) -> None:
+    def _adopt_restored_outputs(self, *, paths=None, exclude_ids=()) -> None:
         """Give every restored UDP output a connection stand-in whose
-        RTCP keys route the player's reports to it (at start every output
-        in the registry is a restored one)."""
+        RTCP keys route the player's reports to it.  At start every output
+        in the registry is a restored one; a cluster adoption names its
+        ``paths`` and excludes the outputs those sessions already had
+        (``exclude_ids``, by ``id``), which have their own connections."""
+        exclude = set(exclude_ids)
         for sess in self.registry.sessions.values():
+            if paths is not None and sess.path not in paths:
+                continue
             for tid, stream in sess.streams.items():
                 for out in stream.outputs:
-                    if getattr(out, "native_addr", None) is None:
+                    if getattr(out, "native_addr", None) is None \
+                            or id(out) in exclude:
                         continue
                     sub = _RestoredSubscriber(sess, tid, stream, out)
                     self._restored_subs.append(sub)
                     self.rtsp.note_player_output(sub, out)
+
+    # ----------------------------------------------------------- the cluster
+    def _cluster_restore(self, doc: dict) -> tuple[int, int]:
+        """The cluster's adoption hook: restore an adopted path's
+        published checkpoint into the live registry.  UDP subscribers are
+        re-pointed through the shared egress pair without a re-SETUP (the
+        address pair is their transport); interleaved ones park for their
+        player's re-attach with its old Session id.  The adopted sessions'
+        trace lineage gains this node."""
+        from ..resilience.checkpoint import restore_registry
+        if self.rtsp.tcp_restore is None:
+            self.rtsp.tcp_restore = self.claim_tcp_restore
+        paths = {s.get("path") for s in doc.get("sessions", ())}
+        pre = {id(o)
+               for p in paths if p
+               for sess in (self.registry.find(p),) if sess is not None
+               for st in sess.streams.values() for o in st.outputs}
+        n_sess, n_out = restore_registry(
+            self.registry, doc, output_factory=self._restored_output,
+            tcp_sink=self._park_tcp_record)
+        for p in paths:
+            sess = self.registry.find(p) if p else None
+            if sess is not None and (not sess.trace_nodes
+                                     or sess.trace_nodes[-1]
+                                     != self.config.server_id):
+                sess.trace_nodes.append(self.config.server_id)
+        if n_out:
+            self._adopt_restored_outputs(paths=paths, exclude_ids=pre)
+        self._wake()
+        return n_sess, n_out
+
+    def _on_pull_failure(self, path: str, injected: bool) -> None:
+        """A cluster pull's failure is counted; only an injected one is
+        charged to the path's rung (a real one is the network's, and the
+        stream stays on the card), never to its session."""
+        self.pull_errors += 1
+        if not injected:
+            return
+        self.pull_errors_injected += 1
+        if self.ladder is not None:
+            self.ladder.note_device_error(path, reason="pull_errors")
+
+    def _cluster_fence_lost(self, path: str) -> None:
+        """A newer owner fenced this node out of ``path``: stop serving it
+        here.  Its pusher connections close (the source re-pushes to the
+        new owner), its restored stand-ins go and its session is
+        removed."""
+        from ..relay.pull import _spawn_cleanup
+        sess = self.registry.find(path)
+        if sess is None:
+            return
+        for sub in [s for s in self._restored_subs if s.path == sess.path]:
+            self._restored_subs.remove(sub)
+            self.rtsp.drop_player_output(sub, sub.output)
+        for conn in [c for c in list(self.rtsp.connections)
+                     if c.is_pusher and c.path == sess.path]:
+            try:
+                conn.writer.close()
+            except Exception:
+                pass
+            _spawn_cleanup(conn.close())
+        if self.registry.find(path) is sess:
+            self.registry.remove(path)
+
+    async def _cluster_describe(self, path: str):
+        """The DESCRIBE fallback in a cluster: a path another live node
+        owns is served here through a pull."""
+        if self.cluster is None:
+            return None
+        try:
+            return await self.cluster.describe(path)
+        except Exception as e:
+            self.rtsp.log_error(f"cluster describe: {e!r}")
+            return None
+
+    def _peer_trace_gate(self, node_id: str, client_ip: str) -> bool:
+        """An ``X-Trace-Id`` is adopted only from a request that names a
+        live-leased node in ``X-Cluster-Node`` and comes from that node's
+        lease address (node ids are public; the address binds the claim
+        to the peer's socket)."""
+        if not node_id or self.cluster is None:
+            return False
+        meta = self.cluster.last_nodes.get(node_id)
+        return isinstance(meta, dict) and meta.get("ip") == client_ip
+
+    def _admission_verdict(self, path: str, client_key: str):
+        """Overload admission: None admits; ``("redirect", url)`` sends
+        305 to the placement's edge with headroom, ``("refuse", None)``
+        453.  It reads the last tick's load sample and node snapshot (a
+        SETUP never waits on Redis); ``overload_spoof`` forces the
+        verdict under a fault plan.  Every refusal is counted and an
+        event."""
+        lt = self.load_tracker
+        if lt is None:
+            return None
+        hw = self.config.cluster_admission_high_water
+        over = lt.last_util >= hw
+        if not over and INJECTOR.active:
+            over = INJECTOR.overload_spoof()
+        if not over:
+            return None
+        target = url = None
+        cl = self.cluster
+        if cl is not None and cl.last_nodes:
+            target = cl.placement.edge_for(
+                path, cl.last_nodes, client_key=client_key,
+                exclude=(cl.config.node_id,), high_water=hw)
+            if target is not None:
+                meta = cl.last_nodes.get(target) or {}
+                ip, port = meta.get("ip"), meta.get("rtsp")
+                if ip and port:
+                    p = path if path.startswith("/") else "/" + path
+                    url = f"rtsp://{ip}:{int(port)}{p}"
+        action = "redirect" if url else "refuse"
+        obs.CLUSTER_ADMISSION_REFUSED.inc(action=action)
+        obs.EVENTS.emit("cluster.refuse", level="warn", stream=path,
+                        action=action, util=round(lt.last_util, 3),
+                        target=target)
+        return (action, url)
+
+    def _ensure_dvr_fetch_pool(self):
+        """The helper threads peer REST GETs run on."""
+        if self._dvr_fetch_pool is None:
+            from concurrent.futures import ThreadPoolExecutor
+            self._dvr_fetch_pool = ThreadPoolExecutor(
+                max_workers=2, thread_name_prefix="peer-fetch")
+        return self._dvr_fetch_pool
+
+    def _peer_http_get(self, host: str, port: int,
+                       target: str) -> bytes | None:
+        """One peer REST GET, on a helper thread, with this node's REST
+        credentials (a cluster shares its config); None on any non-200 or
+        network failure."""
+        import base64
+        import http.client
+        headers = {}
+        if self.config.auth_enabled:
+            cred = (f"{self.config.rest_username}:"
+                    f"{self.config.rest_password}").encode()
+            headers["Authorization"] = \
+                "Basic " + base64.b64encode(cred).decode()
+        try:
+            conn = http.client.HTTPConnection(host, port, timeout=2.0)
+            try:
+                conn.request("GET", target, headers=headers)
+                resp = conn.getresponse()
+                if resp.status != 200:
+                    return None
+                return resp.read()
+            finally:
+                conn.close()
+        except OSError:
+            return None
 
     def _park_tcp_record(self, path: str, track_id, rec: dict) -> None:
         """The restore's sink of ``kind=tcp`` records: parked until the
@@ -623,6 +910,7 @@ class StreamingServer:
         if self._armed_faults:
             INJECTOR.disarm()
             self._armed_faults = False
+        await self._stop_cluster()
         if self._status_task is not None:
             self._status_task.cancel()
             try:
@@ -657,6 +945,9 @@ class StreamingServer:
             self.rtsp.vod_pacer = None
             self.vod_pacer.close()
             self.vod_cache.close()
+        if self._dvr_fetch_pool is not None:
+            self._dvr_fetch_pool.shutdown(wait=False)
+            self._dvr_fetch_pool = None
         self.megabatch.drain()
 
     def _wake(self) -> None:
@@ -783,6 +1074,20 @@ class StreamingServer:
         if self.pulls.has_dead() and (self._pull_sweep is None
                                       or self._pull_sweep.done()):
             self._pull_sweep = asyncio.create_task(self.pulls.sweep())
+        if self.presence is not None:
+            # the records' sync awaits Redis: a task of its own, never
+            # the pump's wake
+            self.presence.set_load(sum(
+                s.num_outputs for s in self.registry.sessions.values()))
+            if self._presence_sync is None or self._presence_sync.done():
+                self._presence_sync = asyncio.create_task(
+                    self._sync_presence())
+
+    async def _sync_presence(self) -> None:
+        try:
+            await self.presence.sync_streams(self.registry.paths())
+        except Exception:
+            pass                        # Redis gone: the next tick retries
 
     def _warm_card(self) -> None:
         """Make the CUDA context, load the kernel library and run one
@@ -945,6 +1250,7 @@ class StreamingServer:
                     if path is not None:
                         lad.note_device_ok(path)
                 else:
+                    self.host_steps += 1
                     sent += stream.reflect(t)
             except Exception as e:
                 # only the engine's injected device faults are charged to
@@ -1206,14 +1512,18 @@ class StreamingServer:
                     pass
 
     def resilience_stats(self) -> dict:
-        """The device errors the pump caught (and of them the injected),
-        the faults injected by site, the ladder's transitions and each
+        """The device errors the pump caught and the cluster pull's
+        failures (and of each the injected), the live stream passes
+        served on the host, the faults injected by site, the ladder's transitions and each
         stream's rung, and the checkpoint's writes and restore."""
         lad = self.ladder
         ckpt = self.checkpoint
         return {
             "device_errors": self.device_errors,
             "device_errors_injected": self.device_errors_injected,
+            "pull_errors": self.pull_errors,
+            "pull_errors_injected": self.pull_errors_injected,
+            "host_steps": self.host_steps,
             "faults": INJECTOR.counts() if INJECTOR.plan is not None else {},
             "ladder": None if lad is None else {
                 "degrades": lad.degrades, "recovers": lad.recovers,
@@ -1225,6 +1535,18 @@ class StreamingServer:
                 "restored_subscribers": len(self._restored_subs),
                 "parked_tcp": len(self._pending_tcp)},
         }
+
+    def cluster_stats(self) -> dict | None:
+        """The cluster service's status (its lease token, claims, pulls,
+        migrations, ticks and last load sample) and the capacity score it
+        publishes; the last of them once it stopped; None without one."""
+        if self.cluster is None:
+            return self._cluster_final
+        st = self.cluster.status()
+        lt = self.load_tracker
+        st["capacity_pps"] = None if lt is None else lt.capacity_pps
+        st["restored_subscribers"] = len(self._restored_subs)
+        return st
 
     def surface_stats(self) -> dict:
         """The server surface's counters: tunnels, the per-IP cap, RTSP
@@ -1307,5 +1629,6 @@ class StreamingServer:
                 "cpu_s": time.process_time() - self._cpu0,
                 "wall_s": time.monotonic() - self._wall0,
                 "resilience": self.resilience_stats(),
+                "cluster": self.cluster_stats(),
                 "kernel_launches": dict(kernel_lib.LAUNCHES),
                 "copied_bytes": dict(staging.COPIED)}

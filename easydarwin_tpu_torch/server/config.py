@@ -6,8 +6,12 @@ A ``ServerConfig`` loads from a TOML file of its keys (``load_toml``) or
 from the reference's ``easydarwin.xml`` (``load_reference_xml``, the DSS
 ``PREF``/``MODULE`` layout); ``load_config`` sniffs which one a file is.
 Both return the keys they could not apply, never dropping one in
-silence: a key this port does not serve yet (the cluster tier, …) is
-listed.  The SLO watchdog's ``slo_*`` keys, the console and status file
+silence: a key this port does not serve yet (EasyCMS's ``cms_*``, …) is
+listed.  The cluster tier's keys (``cloud_enabled``, ``redis_host``,
+``redis_port``, ``server_id`` and every ``cluster_*``; the XML's
+``enable_cloud_platform`` and ``EasyRedisModule`` ``redis_ip`` and
+``redis_port``) are applied, and ``cluster_config`` builds the
+``cluster.service.ClusterConfig``.  The SLO watchdog's ``slo_*`` keys, the console and status file
 (``stats_interval_sec``, ``status_file_*``; the XML's
 ``monitor_stats_file_*`` with ``enable_monitor_stats_file``), the
 plugin folder (``module_folder``) and the resilience keys
@@ -107,8 +111,47 @@ class ServerConfig:
     storage_data_shards: int = 4           # k: data shards a stripe
     storage_parity_shards: int = 2         # m: parity shards a stripe
     storage_scrub_interval_sec: float = 30.0
-    #: this node's name in shard claims and manifests
+    #: this node's name in shard claims and manifests, its cluster lease
+    #: and its presence records
     server_id: str = "easydarwin-tpu-0"
+    #: the reference's passive presence (``EasyDarwin:{id}`` and
+    #: ``Live:{name}`` records in Redis, ``cluster.presence``); a server
+    #: whose Redis is unreachable at start runs without it
+    cloud_enabled: bool = False
+    redis_host: str = "127.0.0.1"
+    redis_port: int = 6379
+    #: the fault-tolerant cluster tier (``cluster.service``): Redis leases
+    #: with fencing, consistent-hash placement, the cross-server pull
+    #: relay and checkpoint-driven live migration; supersedes the passive
+    #: presence when on
+    cluster_enabled: bool = False
+    cluster_lease_ttl_sec: float = 5.0     # lease TTL = failure-detect time
+    cluster_heartbeat_sec: float = 1.0     # service tick cadence
+    cluster_vnodes: int = 64               # ring points per node
+    cluster_own_ttl_sec: float = 30.0      # Own:{path} record TTL
+    cluster_migration_ttl_sec: float = 30.0  # Ckpt:{path} record TTL
+    #: the cross-server pull envelope (``cluster.pull``)
+    cluster_pull_connect_timeout_sec: float = 5.0
+    cluster_pull_read_timeout_sec: float = 5.0   # no packet → stall
+    cluster_pull_backoff_ms: float = 200.0       # first retry (doubles)
+    cluster_pull_backoff_cap_ms: float = 5000.0
+    cluster_pull_jitter_frac: float = 0.25       # ± anti-stampede jitter
+    cluster_pull_breaker_failures: int = 5       # consecutive → open
+    cluster_pull_breaker_open_sec: float = 10.0
+    #: the load-aware control plane (``cluster.capacity`` and the
+    #: rebalancer): a capacity score (0: the boot self-bench of the host
+    #: relay loop, in relayed packets a second) and live utilization ride
+    #: the lease; past the admission high-water mark a new SETUP answers
+    #: 305 to an edge with headroom or 453; the rebalancer drains a
+    #: sustained-burning node's hottest stream to the least-loaded peer
+    cluster_capacity_score: float = 0.0
+    cluster_admission_enabled: bool = True
+    cluster_admission_high_water: float = 0.85   # util ratio gate
+    cluster_rebalance_enabled: bool = True
+    cluster_rebalance_high_water: float = 0.9    # sustained-burn level
+    cluster_rebalance_low_water: float = 0.5     # target headroom gate
+    cluster_rebalance_burn_sec: float = 10.0     # sustained-burn window
+    cluster_rebalance_cooldown_sec: float = 30.0  # min gap between moves
     #: where the HLS requant rungs run B6 (``"cuda"`` or ``"cpu"``);
     #: None: the server's device
     hls_device: str | None = None
@@ -235,6 +278,34 @@ class ServerConfig:
             fast_burn=self.slo_fast_burn,
             slow_burn=self.slo_slow_burn,
             min_events=self.slo_min_events)
+
+    def cluster_config(self):
+        """The ``ClusterConfig`` of the ``cluster_*`` keys (the server
+        fills the ports once its listeners are bound)."""
+        from ..cluster.pull import PullConfig
+        from ..cluster.service import ClusterConfig
+        return ClusterConfig(
+            self.server_id, ip=self.wan_ip,
+            lease_ttl_sec=self.cluster_lease_ttl_sec,
+            heartbeat_sec=self.cluster_heartbeat_sec,
+            vnodes=self.cluster_vnodes,
+            own_ttl_sec=self.cluster_own_ttl_sec,
+            migration_ttl_sec=self.cluster_migration_ttl_sec,
+            rebalance_enabled=self.cluster_rebalance_enabled,
+            rebalance_high_water=self.cluster_rebalance_high_water,
+            rebalance_low_water=self.cluster_rebalance_low_water,
+            rebalance_burn_sec=self.cluster_rebalance_burn_sec,
+            rebalance_cooldown_sec=self.cluster_rebalance_cooldown_sec,
+            admission_enabled=self.cluster_admission_enabled,
+            admission_high_water=self.cluster_admission_high_water,
+            pull=PullConfig(
+                connect_timeout_sec=self.cluster_pull_connect_timeout_sec,
+                read_timeout_sec=self.cluster_pull_read_timeout_sec,
+                backoff_ms=self.cluster_pull_backoff_ms,
+                backoff_cap_ms=self.cluster_pull_backoff_cap_ms,
+                jitter_frac=self.cluster_pull_jitter_frac,
+                breaker_failures=self.cluster_pull_breaker_failures,
+                breaker_open_sec=self.cluster_pull_breaker_open_sec))
 
     def ladder_config(self):
         from ..resilience.ladder import LadderConfig

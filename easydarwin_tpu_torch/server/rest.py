@@ -206,9 +206,8 @@ class RestApi:
             return 401, ep.ack(ep.MSG_SC_EXCEPTION, error=ep.ERR_UNAUTHORIZED)
         m = _SESSION_DOC_RE.match(cmd)
         if m is not None:
-            # a session's flight record, raw JSON (a stitched trace
-            # needs the cluster, which the port does not have: each hop
-            # is this node's)
+            # a session's flight record, raw JSON; a trace is stitched
+            # over the cluster's pull and ownership records, hop by hop
             status, doc = admin.flight_query(self.app, m.group(1))
             if status == 200 and m.group(2) == "trace" \
                     and params.get("local", ["0"])[0] not in ("1", "true"):
@@ -281,7 +280,9 @@ class RestApi:
                                              worst_n=max(0, min(n, 100))))
 
     def _cmd_fleet(self, params: dict, body: bytes) -> tuple:
-        """The fleet document: one node without a cluster."""
+        """The fleet document: the cluster's last aggregate (every node's
+        rollup, a dead node's marked stale) when a cluster runs, else this
+        node alone."""
         return _json(fleet.fleet_snapshot(self.app))
 
     def _cmd_streamtrace(self, params: dict, body: bytes) -> tuple:

@@ -119,6 +119,16 @@ server sets ``tcp_restore``: an interleaved SETUP that carries a
 ``Session`` id of the previous process resumes that session's parked
 ``kind=tcp`` record, so the player keeps its SSRC and its framed seq
 continues without a gap (``ckpt.tcp_reattach``).
+
+The cluster (set by the server when a cluster runs): ``describe_fallback``
+answers a DESCRIBE no local source serves (the cluster pulls the path
+from its owner); ``admission`` gates a session's FIRST play SETUP
+(``(path, client_key) -> None | (action, url)``: 305 with a ``Location``
+to redirect, 453 to refuse; plain local-file VOD is exempt, since no
+peer can serve this node's movie folder); ``peer_trace_gate`` decides
+whether a request's ``X-Trace-Id`` is adopted (``(X-Cluster-Node, client
+ip) -> bool``: a live peer's pull joins the stream's trace).  The
+redirect's spread key is the client's ``ip:port``.
 """
 
 from __future__ import annotations
@@ -140,6 +150,7 @@ from ..relay.fec import FecConfig, FecOutputState, drop_overhead_gauge
 from ..relay.reliable import ReliableUdpOutput
 from ..relay.session import RelaySession, SessionRegistry, now_ms
 from ..resilience.inject import INJECTOR
+from ..utils.client import hexish
 from ..utils.logs import AccessRecord
 from ..vod.session import FileSession
 from .config import ServerConfig
@@ -345,6 +356,9 @@ class RtspConnection:
         self.closed = False
         peer = writer.get_extra_info("peername") or ("?", 0)
         self.client_ip = peer[0]
+        #: ``ip:port``: the admission redirect's spread key (viewers behind
+        #: one address still fan over several edges)
+        self.client_key = f"{peer[0]}:{peer[1]}"
         #: the last request URI and User-Agent (the access log's)
         self.uri = ""
         self.user_agent = ""
@@ -493,8 +507,23 @@ class RtspConnection:
             self.writer.write(resp.to_bytes())
 
     # ----------------------------------------------------------- dispatch
+    def _adopt_peer_trace(self, req: rtsp.RtspRequest) -> None:
+        """A cluster peer's pull carries the stream's trace upstream as
+        ``X-Trace-Id``; the connection adopts it when the server's gate
+        accepts the request's ``X-Cluster-Node`` from this address."""
+        tid = req.headers.get("x-trace-id", "").strip()
+        if not tid or tid == self.trace_id:
+            return
+        gate = self.server.peer_trace_gate
+        if gate is None or not gate(req.headers.get("x-cluster-node", ""),
+                                    self.client_ip):
+            return
+        if hexish(tid):
+            self.trace_id = tid
+
     async def _dispatch(self, req: rtsp.RtspRequest) -> None:
         self.server.requests += 1
+        self._adopt_peer_trace(req)
         handler = getattr(self, f"_do_{req.method.lower()}", None)
         if handler is None:
             self._reply(rtsp.RtspResponse(501), req.cseq)
@@ -688,12 +717,26 @@ class RtspConnection:
         return out, resp_t
 
     async def _setup_play(self, req, base, track_id, t) -> None:
-        dvr = self.server.dvr
+        srv = self.server
+        adm = srv.admission
+        if adm is not None and not self.player_tracks:
+            is_dvr = srv.dvr is not None and srv.dvr.is_dvr_path(base)
+            local_file = (not is_dvr and srv.vod is not None
+                          and srv.vod.resolve(base) is not None)
+            verdict = None if local_file else adm(base, self.client_key)
+            if verdict is not None:
+                action, url = verdict
+                if action == "redirect" and url:
+                    self._reply(rtsp.RtspResponse(305, {"Location": url}),
+                                req.cseq)
+                    return
+                raise rtsp.RtspError(453)
+        dvr = srv.dvr
         if (dvr is not None and dvr.is_dvr_path(base)
                 and self.vod_file is None):
             await self._setup_play_dvr(req, base, track_id, t)
             return
-        relay = await self.server.open_for_play(base)
+        relay = await srv.open_for_play(base)
         if relay is None:
             await self._setup_play_vod(req, base, track_id, t)
             return
@@ -711,7 +754,6 @@ class RtspConnection:
             self._maybe_readopt_tcp(req, relay.path, track_id, out, resp_t)
         extra = negotiate_meta_info(req.headers.get("x-rtp-meta-info", ""),
                                     out)
-        srv = self.server
         out, rel = negotiate_retransmit(req.headers.get("x-retransmit", ""),
                                         out, t)
         extra.update(rel)
@@ -1120,6 +1162,13 @@ class RtspServer:
                  vod=None, auth=None, access_log=None, error_log=None):
         self.config = config
         self.registry = registry
+        #: ``async (path) -> sdp | None`` asked when nothing local serves a
+        #: DESCRIBE (the cluster's pull), or None
+        self.describe_fallback = None
+        #: the cluster's admission gate and peer trace gate (None: every
+        #: SETUP admitted, no ``X-Trace-Id`` adopted)
+        self.admission = None
+        self.peer_trace_gate = None
         #: RTSP auth (``server.auth.AuthService``; None: every path open),
         #: the access log (``utils.logs.AccessLog``; None: off) and the
         #: error log (``utils.logs.ErrorLog``; None: stderr only)
@@ -1243,7 +1292,8 @@ class RtspServer:
     # -- lookup chain, HTTP and the logs -----------------------------------
     async def describe(self, path: str) -> str | None:
         """A path's SDP: a live session's, then an ``.sdp`` broadcast's
-        (stripped of its ingest transport), a file's, a ``.dvr`` asset's."""
+        (stripped of its ingest transport), a file's, a ``.dvr`` asset's,
+        then the fallback's."""
         text = self.registry.sdp_cache.get(path)
         if text is None and self.relay_source is not None:
             text = await self.relay_source.describe(path)
@@ -1251,6 +1301,8 @@ class RtspServer:
             text = self.vod.describe(path)
         if text is None and self.dvr is not None:
             text = await self.dvr.describe(path)
+        if text is None and self.describe_fallback is not None:
+            text = await self.describe_fallback(path)
         return text
 
     async def open_for_play(self, path: str) -> RelaySession | None:

@@ -47,6 +47,13 @@ class ReceiverStats:
             self._last_seq = seq
 
 
+def hexish(s: str) -> bool:
+    """A plausible trace id: 8-64 lowercase hex characters (the shape of
+    ``secrets.token_hex``); anything else must not become a correlation
+    key."""
+    return 8 <= len(s) <= 64 and all(c in "0123456789abcdef" for c in s)
+
+
 class RtspClient:
     def __init__(self):
         self.reader: asyncio.StreamReader | None = None
@@ -167,6 +174,13 @@ class RtspClient:
         PLAY; returns the described session."""
         r = await self.request("DESCRIBE", uri, {"accept": "application/sdp"})
         _expect(r, "DESCRIBE")
+        up_trace = r.headers.get("x-trace-id", "").strip()
+        if "x-trace-id" in self.default_headers and hexish(up_trace):
+            # a caller that propagates traces (the pull relay) takes the
+            # upstream stream's trace before the SETUPs go out, so the
+            # upstream's serving connection is tagged with the id this
+            # side serves under
+            self.default_headers["x-trace-id"] = up_trace
         sd = sdp.parse(r.body)
         for i, st in enumerate(sd.streams):
             r = await self.request("SETUP", f"{uri}/trackID={st.track_id}", {

@@ -141,7 +141,7 @@ def write_configs(folder: str, rng: np.random.Generator, bcast_port: int,
         f.write(f'max_connections_per_ip = 3\n'
                 f'movie_folder = "{os.path.join(a_dir, "movies")}"\n'
                 f'log_folder = "{os.path.join(a_dir, "logs")}"\n'
-                f'cluster_enabled = false\n')
+                f'tpu_fanout = false\n')
     users = os.path.join(b_dir, "users")
     from hashlib import md5
     with open(users, "w") as f:
@@ -379,7 +379,7 @@ async def serve_surface(device: str, rng: np.random.Generator, folder: str,
                         CliServer(device, "-c", files["b_xml"],
                                   *files["b_flags"])) as (a, b):
         res = {"a_unmapped": a.preamble, "b_unmapped": b.preamble}
-        check(any("cluster_enabled" in ln for ln in a.preamble),
+        check(any("tpu_fanout" in ln for ln in a.preamble),
               f"A did not print its unmapped key: {a.preamble}")
         check(any("run_num_threads" in ln for ln in b.preamble),
               f"B did not print its unmapped pref: {b.preamble}")

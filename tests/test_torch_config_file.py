@@ -6,12 +6,12 @@ unmapped list, ``update`` / ``on_change`` and the CLI's ``-c`` and ``-x``.
   the reference loader's value for every key both sides map; the port's
   unmapped list holds every pref the reference's leaves unmapped that
   the port does not serve, and every pref the reference maps to a key
-  the port does not serve yet (the cloud, Redis);
+  the port does not serve yet (EasyCMS);
 * a TOML written by the reference's ``to_toml`` loads to the reference's
-  values for every shared key (the SLO watchdog's ``slo_*`` and the
-  status keys among them), and each reference key the port lacks (the
-  cluster, the degradation ladder, fault injection, …) is in the
-  unmapped list, none dropped in silence;
+  values for every shared key (the SLO watchdog's ``slo_*``, the status
+  keys and the cluster's ``cluster_*`` and Redis keys among them), and
+  each reference key the port lacks (EasyCMS, the JAX fan-out switches,
+  …) is in the unmapped list, none dropped in silence;
 * ``to_toml`` round trips; ``update`` casts, routes the relay keys into
   ``stream``, runs the ``on_change`` listeners and raises ``KeyError``
   on an unknown key before changing anything;
@@ -136,9 +136,11 @@ def test_reference_toml_loads_with_every_missing_key_listed(tmp_path):
     for k in set(ref_d) & set(d):
         assert d[k] == ref_d[k], k
     assert set(unmapped) == set(ref_d) - set(d)
-    for k in ("cluster_enabled", "tpu_fanout", "redis_host"):
+    for k in ("tpu_fanout", "cms_host"):
         assert k in unmapped
-    for k in ("slo_enabled", "slo_latency_objective_ms", "stats_interval_sec",
+    for k in ("cluster_enabled", "redis_host", "cloud_enabled",
+              "cluster_lease_ttl_sec", "cluster_pull_backoff_ms",
+              "cluster_admission_high_water", "slo_enabled", "slo_latency_objective_ms", "stats_interval_sec",
               "status_file_path", "status_file_interval_sec",
               "module_folder", "resilience_fault_plan", "resilience_enabled",
               "resilience_recover_sec", "resilience_max_retries",
@@ -170,7 +172,7 @@ def test_update_casts_routes_and_notifies():
     assert cfg.stream.bucket_delay_ms == 50 and cfg.rtsp_timeout_sec == 90
     assert cfg.stream.overbuffer_ms == 2000 and seen == [50]
     with pytest.raises(KeyError):
-        cfg.update(rtsp_timeout_sec=5, cluster_enabled=True)
+        cfg.update(rtsp_timeout_sec=5, tpu_fanout=True)
     assert cfg.rtsp_timeout_sec == 90 and seen == [50]
     with pytest.raises(KeyError):
         cfg.update(_listeners=[])
@@ -188,11 +190,11 @@ def test_cli_flags_apply_over_the_file_and_content_decides(tmp_path):
     assert cfg.movie_folder == "/srv/movies" and cfg.dvr_enabled is True
     assert "run_num_threads" in unmapped
     t = tmp_path / "c.xml"                       # TOML under an XML name
-    t.write_text('rtsp_port = 7\nmovie_folder = "/m"\ncluster_enabled = true\n')
+    t.write_text('rtsp_port = 7\nmovie_folder = "/m"\ntpu_fanout = true\n')
     cfg, unmapped = cli.config_from_args(["-c", str(t),
                                           "--movie-folder", "/n"])
     assert (cfg.rtsp_port, cfg.movie_folder) == (7, "/n")
-    assert unmapped == ["cluster_enabled"]
+    assert unmapped == ["tpu_fanout"]
     cfg, unmapped = cli.config_from_args(["--service-port", "9"])
     assert cfg.service_port == 9 and cfg.rtsp_port == 10554
     assert unmapped == []
@@ -205,7 +207,7 @@ def test_cli_boots_from_a_file_and_exits(tmp_path, kind):
         p.write_text(REFERENCE_XML.replace("/srv/movies", str(tmp_path)))
     else:
         p.write_text(f'movie_folder = "{tmp_path}"\nslo_enabled = true\n'
-                     f'cluster_vnodes = 8\nlog_folder = "{tmp_path}"\n')
+                     f'tpu_fanout = true\nlog_folder = "{tmp_path}"\n')
     out = subprocess.run(
         [sys.executable, "-m", "easydarwin_tpu_torch", "-c", str(p), "-x",
          "--device", "cpu", "-p", "0", "--service-port", "0",
@@ -215,6 +217,6 @@ def test_cli_boots_from_a_file_and_exits(tmp_path, kind):
     assert out.returncode == 0, out.stderr
     lines = out.stdout.splitlines()
     assert lines[0].startswith("unmapped: ")
-    assert ("run_num_threads" if kind == "xml" else "cluster_vnodes") \
+    assert ("run_num_threads" if kind == "xml" else "tpu_fanout") \
         in lines[0]
     assert "listening: rtsp://127.0.0.1:" in lines[1]
