@@ -455,6 +455,34 @@ phase raises and the script exits non-zero.
              ``[cluster]`` line gives kill → adopt seconds, the seq gap,
              B's wake host ms p50/p99, the capacity score and the card;
              the phase takes at most ``CLUSTER_LIMIT_S``
+17b. cluster-dvr  the cluster's DVR and store wire and EasyCMS on the
+             card (``utils.cluster_dvr_loopback.cluster_dvr`` at
+             ``CLUSTER_DVR_SIZE``): three servers in this process over
+             one in-process Redis, ``dvr_enabled`` and
+             ``storage_enabled`` (k = 2, m = 2), the lease settings of
+             the reference's dead-owner test.  Two H.264 recordings
+             pushed to A and finalized, A's store encoding their parity
+             (``ed_gf_parity``) and pushing shards to B and C; B, which
+             never saw them, replays the first through A's ``dvrmeta``
+             and ``dvrwindow``; a data shard of the second deleted on C
+             (one whose stripe then needs a B4 solve) and A stopped, C
+             replays it through B's ``dvrmeta`` answer from its manifest
+             and the store's reconstruct; a ``SimDevice`` registers two
+             channels with a ``CmsServer``, a ``CmsClient`` gets both,
+             the CMS places them on one media server, the device pushes
+             there and a player plays each.  Every replay and CMS player
+             starts with the SPS, keeps one SSRC, has a gapless seq and
+             the pushed payloads; no window repacked; ``ed_relay_window``
+             launched in B's replay, C's replay and on the media server,
+             ``ed_gf_parity`` at A's store and in C's replay step, C's
+             own reconstruct running a B4 product; on each of A (read
+             before it stops), B and C 0 wire and prime mismatches, codec
+             oracle mismatches, pump, device and storage worker errors.
+             The ``[cluster-dvr]`` lines give finalize → every shard
+             placed ms, each replay's first-datagram ms, the
+             reconstruct's host ms by leg, the CMS's get stream → first
+             packet ms, the launches by step and the card; the phase
+             takes at most ``CLUSTER_DVR_LIMIT_S``
 
 ``python3 chip_smoke.py --hls-control`` runs phases 1, 2, 5c's leg check
 and phases 13 and 13c twice each instead, each checked in full: the
@@ -477,14 +505,15 @@ are not the main path's.  Then each of phase 6c's scheduler mesh
 path (after its one-device comparison run), 7f, 7g and 13d is its own
 path, with the counts set to 0 just before it and read just after, as
 are phase 14 (its two servers report their own), phase 15 (its
-two runs' server), phase 16 (its servers run in-process) and phase 17
-(the adopter's exit stats: the killed node reports none), and so is
+two runs' server), phase 16 (its servers run in-process), phase 17
+(the adopter's exit stats: the killed node reports none) and phase 17b
+(its servers run in-process), and so is
 B8's own path in phase 6c: its two calls through
 ``sharded_relay_step``.  No serving code calls B8 (the server's mesh path
 is the scheduler's, one ``ed_relay_window`` a shard), so its kernel
 ``ed_relay_shard`` is launched on that path alone, and its row in the
 kernels line says so under ``caller``.  The kernels line's launches are
-the fourteen paths' sum.  The comparisons and
+the fifteen paths' sum.  The comparisons and
 timings of phases 3, 4, 4b, 4c, 4d, 4e, 5, 5b, 5c and 10 run outside
 those windows.  Phase 10's window rows also time the VOD prime's calls
 of phase 11.
@@ -4128,6 +4157,90 @@ def phase_cluster(smi: str) -> dict:
     return res
 
 
+#: phase 17b: its limit in seconds, its seed, its folder (the three
+#: nodes' movie and log folders, the CMS's snapshots) and its size: two
+#: 4 s recordings of a 25 fps H.264 camera at 4 Mbit/s (20,000-byte
+#: frames, 15 FU-A packets each, pushed at the camera's pace: a replay
+#: is paced by the recording's arrival times), 64-packet windows, k = 2
+#: and m = 2, two players a replay, and a two-channel device's 2 s a
+#: channel
+CLUSTER_DVR_LIMIT_S = 60.0
+CLUSTER_DVR_SEED = 20261023
+CLUSTER_DVR_DIR = os.path.join(HERE, "build", "cluster_dvr_phase")
+CLUSTER_DVR_SIZE = dict(frames=100, gop=25, nal_bytes=20_000, frame_s=0.04,
+                        window_pkts=64, k=2, m=2, players=2, cms_frames=50)
+
+
+def phase_cluster_dvr(smi: str) -> dict:
+    """Phase 17b: the cluster's DVR peer fill, the dead owner's replay
+    from the store and the CMS flow, on three servers in this process
+    (the module docstring)."""
+    import shutil
+    from easydarwin_tpu_torch.utils import cluster_dvr_loopback as cdl
+    shutil.rmtree(CLUSTER_DVR_DIR, ignore_errors=True)
+    t0 = time.monotonic()
+    res = asyncio.run(asyncio.wait_for(cdl.cluster_dvr(
+        DEVICE, CLUSTER_DVR_DIR, seed=CLUSTER_DVR_SEED, **CLUSTER_DVR_SIZE),
+        CLUSTER_DVR_LIMIT_S))
+    seconds = time.monotonic() - t0
+    shutil.rmtree(CLUSTER_DVR_DIR, ignore_errors=True)
+    check(seconds <= CLUSTER_DVR_LIMIT_S,
+          f"phase 17b took {seconds:.1f} s, over {CLUSTER_DVR_LIMIT_S} s")
+    steps = {"store on A": res["store_launches"],
+             "B's remote replay": res["remote"]["launches"],
+             "C's dead-owner replay": res["dead_owner"]["launches"],
+             f"the CMS's media server {res['cms']['media']}":
+                 res["cms"]["launches"]}
+    for step, kernel in (("B's remote replay", "ed_relay_window"),
+                         ("C's dead-owner replay", "ed_relay_window"),
+                         (f"the CMS's media server {res['cms']['media']}",
+                          "ed_relay_window"),
+                         ("store on A", "ed_gf_parity"),
+                         ("C's dead-owner replay", "ed_gf_parity")):
+        check(steps[step].get(kernel, 0) > 0,
+              f"{kernel} was not launched in phase 17b's {step}")
+    rec = res["dead_owner"]["reconstruct"]
+    srv = res["servers"]
+    log(f"[cluster-dvr] {len(res['windows'])} recordings on A "
+        f"({', '.join(f'{p}: {w} windows' for p, w in res['windows'].items())}"
+        f"), k = {res['k']}, m = {res['m']}: finalize → every shard placed "
+        f"{', '.join(f'{v:.3f}' for v in res['store_ms'].values())} ms "
+        f"(A's store {srv['dvr-a']['store_ms_per_call']:.3f} ms a call, "
+        f"parity products {srv['dvr-a']['parity_product_ms']:.3f} ms and "
+        f"their host checks {srv['dvr-a']['parity_check_ms']:.3f} ms in "
+        f"all); shards by node {res['shards']}")
+    log(f"[cluster-dvr] B's remote replay (dvrmeta + dvrwindow from A): "
+        f"first datagram {', '.join(f'{v:.3f}' for v in res['remote']['first_ms'])}"
+        f" ms after the DESCRIBE, {res['remote']['players'][0]['packets']} "
+        f"packets a player; C's dead-owner replay (A stopped, shard "
+        f"{res['deleted_shard']} deleted on C, dvrmeta from B's manifest): "
+        f"first datagram "
+        f"{', '.join(f'{v:.3f}' for v in res['dead_owner']['first_ms'])} "
+        f"ms, {res['dead_owner']['players'][0]['packets']} packets a "
+        f"player; C's reconstructs {rec['reconstructs']} over "
+        f"{rec['gathers']} gathers, host ms a reconstruct: gather "
+        f"{rec['gather_ms']:.3f}, launch and readback "
+        f"{rec['launch_readback_ms']:.3f}, crc {rec['crc_ms']:.3f}; C's "
+        f"B4 reconstruct products "
+        f"{res['dead_owner']['c_product_ms']:.3f} ms in all; "
+        f"repairs B {srv['dvr-b']['repairs']}, C "
+        f"{srv['dvr-c']['repairs']}; every replay SPS first, one SSRC, "
+        f"gapless, the pushed payloads; pack_window calls "
+        f"{res['pack_window_calls']}")
+    log(f"[cluster-dvr] CMS: 2 channels on {res['cms']['media']}, get "
+        f"stream → first packet "
+        f"{', '.join(f'{v:.3f}' for v in res['cms']['get_stream_to_first_ms'])}"
+        f" ms, {res['cms']['players'][0]['packets']} packets a player, SPS "
+        f"first, one SSRC, gapless; launches by step {steps}; phase "
+        f"{seconds:.1f} s; card {smi}")
+    zeros = {node: {k: s[k] for k in cdl.ZERO_COUNTERS}
+             for node, s in srv.items()}
+    log(f"[cluster-dvr] counters by node (A's read before it stopped): "
+        f"{zeros}")
+    res["seconds"] = seconds
+    return res
+
+
 def observed_device_check(observed: dict, timed: list) -> None:
     """Phase 15's device time against phase 10: the ``device_step`` mean
     (the timing events around the ``ed_relay_window`` launch) at least
@@ -5032,6 +5145,17 @@ def main() -> int:
     detail["cluster_path_launches"] = cluster_path
     launches = {k: n + cluster_path.get(k, 0) for k, n in launches.items()}
 
+    kernel_lib.reset_launch_counts()   # the cluster's DVR path starts here
+    detail["cluster_dvr"] = phase_cluster_dvr(smi)
+    cluster_dvr_path = dict(kernel_lib.LAUNCHES)
+    log(f"[cluster-dvr path] kernel launches {cluster_dvr_path}")
+    for k in ("ed_relay_window", "ed_gf_parity"):
+        check(cluster_dvr_path[k] > 0,
+              f"{k} was not launched on the cluster's DVR path")
+    detail["cluster_dvr_path_launches"] = cluster_dvr_path
+    launches = {k: n + cluster_dvr_path.get(k, 0)
+                for k, n in launches.items()}
+
     errs = {"ed_parse_packets": max(detail["k1"].values()),
             "ed_relay_window": max(
                 [*detail["window"].values()]
@@ -5104,15 +5228,17 @@ def main() -> int:
                          "phase_14": detail["surface"]["seconds"],
                          "phase_15": detail["observed"]["seconds"],
                          "phase_16": detail["chaos"]["seconds"],
-                         "phase_17": detail["cluster"]["seconds"]}
+                         "phase_17": detail["cluster"]["seconds"],
+                         "phase_17b": detail["cluster_dvr"]["seconds"]}
     log(f"[time] the script {script_s:.3f} s from its build; phases 13c "
         f"and 13b (the 1080p pictures' encode included) {new_phases_s:.3f}"
         f" s of it, phases 6c, 7f, 7g and 13d {mesh_phases_s:.3f} s, phase "
         f"14 {detail['surface']['seconds']:.3f} s, phase 15 "
         f"{detail['observed']['seconds']:.3f} s, phase 16 "
         f"{detail['chaos']['seconds']:.3f} s, phase 17 "
-        f"{detail['cluster']['seconds']:.3f} s, the rest "
-        f"{script_s - new_phases_s - mesh_phases_s - detail['surface']['seconds'] - detail['observed']['seconds'] - detail['chaos']['seconds'] - detail['cluster']['seconds']:.3f} s")
+        f"{detail['cluster']['seconds']:.3f} s, phase 17b "
+        f"{detail['cluster_dvr']['seconds']:.3f} s, the rest "
+        f"{script_s - new_phases_s - mesh_phases_s - sum(detail[p]['seconds'] for p in ('surface', 'observed', 'chaos', 'cluster', 'cluster_dvr')):.3f} s")
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(detail, f, indent=1, default=str)
 

@@ -37,10 +37,14 @@ is ONE failure path, and chaos soaks drive it on purpose.  The tick is
 the only code that awaits Redis; the pump's wake never does (admission
 and the fleet readers take the last tick's snapshots).
 
-The DVR and erasure-store hooks (``dvr_advertise``, ``dvr_peers``,
-``storage_claims``, ``storage_repair``) are the reference's attributes;
-the server leaves them unset (None, an empty map), so the tick skips
-those duties and the DVR tier and the store serve one node.
+The DVR and erasure-store hooks are the reference's attributes, and a
+server with ``dvr_enabled`` or ``storage_enabled`` sets them: each tick
+publishes ``dvr_advertise()``'s spans in this node's ``Own:`` records
+and rebuilds ``dvr_peers`` (path → a live peer's address and spans)
+from the others', files the store's fenced ``Shard:`` claims
+(``storage_claims``) and runs its repair of a dead holder's shards
+(``storage_repair``).  Left unset (None, an empty map) the tick skips
+those duties.
 """
 
 from __future__ import annotations

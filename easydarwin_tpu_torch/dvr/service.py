@@ -1,11 +1,10 @@
 """DVR manager: the arm / spill / finalize lifecycle and time-shift
 serving.
 
-A copy of the reference's ``dvr/service.py`` without the cluster wire
-(``materialize`` and ``advertise`` serve the peer fill of a cluster tier
-the port does not have).  Its ``obs`` sites are the reference's: the
-``dvr.arm`` and ``dvr.finalize`` events and the ``dvr_spill_bytes``
-gauge (set after a tick that spilled, and at finalize).  Errors the reference logs and swallows are counted here
+A copy of the reference's ``dvr/service.py``.  Its ``obs`` sites are the
+reference's: the ``dvr.arm``, ``dvr.finalize`` and ``dvr.bootstrap``
+events and the ``dvr_spill_bytes`` gauge (set after a tick that spilled,
+and at finalize).  Errors the reference logs and swallows are counted here
 (``finalize_errors``; the server counts a failed spill tick in
 ``spill_errors``) and their tracebacks go to stderr; a recording still
 finalizes.
@@ -22,12 +21,20 @@ erasure shards).
 Serving: ``open_timeshift`` builds a ``TimeShiftSession`` over an armed
 asset (live pause and rewind) or a finalized one (replay) and hands it
 to the shared VOD pacer.
+
+The cluster wire: ``advertise`` names the spilled-window spans of the
+armed paths (carried in the node's ``Own:`` records), ``window_blob``
+and ``meta_doc`` answer a peer's REST ``dvrwindow`` and ``dvrmeta``, and
+``materialize`` writes a peer's ``meta_doc`` as a local skeleton whose
+every window read goes to ``fetcher`` (the peer fill); ``meta_sync``
+is the ``.dvr`` DESCRIBE's bootstrap of an asset with no local copy.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import shutil
 import sys
 import time
 import traceback
@@ -413,6 +420,89 @@ class DvrManager:
         if not tracks:
             return None
         return {"path": key, "meta": meta, "tracks": tracks}
+
+    # ------------------------------------------------------- cluster wire
+    def materialize(self, path: str, doc: dict) -> bool:
+        """Write a peer's ``meta_doc`` as a local asset skeleton: the real
+        index records (seek, duration and keyframes work off them) over
+        an empty spill file, so every window read misses locally and
+        goes to the ``fetcher``.  Refused for an armed path, a path
+        outside the root, an asset that is not ``complete`` (a recording
+        peer's asset is peer-filled through its ``Own:`` advertisement,
+        never frozen here) and a path with a local asset.  Track
+        directories without ``meta.json`` (a write torn between the
+        tracks and the meta, which is written last) are scrubbed and
+        rebuilt; a failed write scrubs what it wrote."""
+        key = self.live_path_of(path)
+        if key in self._armed:
+            return False
+        dir_path = self._dir_for(key)
+        if dir_path is None:
+            return False
+        meta = doc.get("meta")
+        tracks = doc.get("tracks")
+        if not isinstance(meta, dict) or not isinstance(tracks, dict) \
+                or not tracks or not meta.get("complete"):
+            return False
+        if os.path.isdir(dir_path) and any(
+                n.startswith("track") for n in os.listdir(dir_path)):
+            if os.path.isfile(os.path.join(dir_path, "meta.json")):
+                return False            # a local asset: never clobbered
+            for n in os.listdir(dir_path):
+                if n.startswith("track"):
+                    shutil.rmtree(os.path.join(dir_path, n),
+                                  ignore_errors=True)
+        wrote = 0
+        try:
+            for tid, idx in tracks.items():
+                if not isinstance(idx, dict) or not str(tid).isdigit():
+                    continue
+                tdir = os.path.join(dir_path, f"track{int(tid)}")
+                os.makedirs(tdir, exist_ok=True)
+                with open(os.path.join(tdir, "spill.bin"), "wb"):
+                    pass                 # empty: every read → fetcher
+                tmp = os.path.join(tdir, "index.json.tmp")
+                with open(tmp, "w", encoding="utf-8") as fh:
+                    json.dump(idx, fh, separators=(",", ":"))
+                os.replace(tmp, os.path.join(tdir, "index.json"))
+                wrote += 1
+            if not wrote:
+                return False
+            try:
+                gen = int(meta.get("gen", 0))
+            except (TypeError, ValueError):
+                gen = 0
+            self._write_meta(dir_path, key, str(meta.get("sdp", "")),
+                             complete=True, gen=gen)
+        except OSError:
+            for tid in tracks:
+                if str(tid).isdigit():
+                    shutil.rmtree(
+                        os.path.join(dir_path, f"track{int(tid)}"),
+                        ignore_errors=True)
+            try:
+                os.unlink(os.path.join(dir_path, "meta.json"))
+            except OSError:
+                pass
+            return False
+        EVENTS.emit("dvr.bootstrap", stream=key, path=key, tracks=wrote)
+        return True
+
+    def advertise(self) -> dict:
+        """The spilled-window span ``[first, last]`` of each track of each
+        armed path, folded into this node's fenced ``Own:`` records (a
+        finalized asset's advertisement ends with its record's TTL;
+        ``window_blob`` still serves it to a peer that asks)."""
+        out: dict[str, dict] = {}
+        for path, a in self._armed.items():
+            spans = {}
+            for tid, sp in a.spillers.items():
+                if sp.writer.windows:
+                    spans[str(tid)] = [sp.writer.windows[0]["win"],
+                                       sp.writer.windows[-1]["win"]]
+            if spans:
+                out[path] = spans
+        return out
 
     # ---------------------------------------------------------------- misc
     def stats(self) -> dict:

@@ -270,7 +270,10 @@ class SpilledTrack:
     """Read side of one track's spill directory.  A window's read chain
     is the local file, then ``fetch`` (a peer's spill blob: bytes, ``b""``
     while in flight, or None), then ``restore`` (the storage tier's
-    reconstruct, same protocol)."""
+    reconstruct, same protocol).  ``restore`` is asked whenever the fetch
+    brought no blob, a pending fetch included: a peer that answers slowly
+    or not at all does not hold the cursor while the store's reconstruct
+    has the window."""
 
     def __init__(self, dir_path: str, *, fetch=None, restore=None):
         self.dir = dir_path
@@ -362,9 +365,10 @@ class SpilledTrack:
 
     def read_window(self, win: int) -> WindowRows | None:
         """Window ``win``'s rows: local spill file first, then the fetch
-        hook, then the restore hook.  A local miss re-reads the index
-        once (an armed asset's writer keeps appending after this reader
-        opened).  A hook answering ``b""`` latches ``fetch_pending``."""
+        hook, then the restore hook (also while the fetch is pending).  A
+        local miss re-reads the index once (an armed asset's writer keeps
+        appending after this reader opened).  A hook answering ``b""``
+        latches ``fetch_pending``."""
         self.fetch_pending = False
         rec = self.windows.get(int(win))
         if rec is None:

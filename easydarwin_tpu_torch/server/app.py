@@ -174,6 +174,28 @@ peer's ``X-Trace-Id`` is adopted only from a live lease's address
 released, so a peer adopts within a tick.  Without a cluster,
 ``cloud_enabled`` keeps the reference's passive presence records (a
 Redis unreachable at start leaves the server standalone).
+
+The cluster's DVR and store wire (with ``dvr_enabled`` and
+``storage_enabled``): the armed paths' spilled-window spans ride this
+node's ``Own:`` records (``DvrManager.advertise``), and a window a local
+asset lacks is fetched from the node that advertises it, or else from
+the live node that answered the asset's ``dvrmeta``, over REST
+``dvrwindow`` (``_dvr_peer_fetch``).  The fetch is called on the pump:
+the HTTP round trip runs on a helper thread and the call answers ``b""``
+while it runs (the time-shift cursor holds), the blob when it lands,
+None when the window is not to be had; while it brings no blob the
+store's restore is asked too, and the cursor hops only when both miss.
+A ``.dvr`` DESCRIBE of an asset with no local copy asks each live
+peer's ``dvrmeta`` and materializes the first answer
+(``_dvr_meta_sync``; a path no peer knows is not asked again for
+``DVR_META_MISS_SEC``).  The store places each
+finalized asset's shards on the capacity-weighted ring of the live
+nodes, pushes them over ``shardpush`` from its worker, fetches shards
+and manifests over ``shard`` and ``shardmeta`` when it reconstructs, and
+its fenced ``Shard:`` claims and the repair of a dead holder's shards
+run from the cluster's tick.  On an auth-enabled cluster every peer
+call carries this node's REST credentials; a refused or failed call is
+a failed fetch (None), never an exception.
 """
 
 from __future__ import annotations
@@ -186,6 +208,7 @@ import sys
 import time
 import traceback
 import types
+from urllib.parse import quote
 
 import torch
 
@@ -201,6 +224,7 @@ from ..obs import fleet as obs_fleet
 from ..ops import device_ring, kernel_lib, staging
 from ..parallel.distributed import mesh_summary
 from ..parallel.mesh import make_megabatch_mesh
+from ..protocol.sdp import _norm
 from ..relay.fanout import FanoutEngine
 from ..relay.fec import StreamFec
 from ..relay.megabatch import MegabatchScheduler
@@ -227,6 +251,13 @@ from .transports import UdpOutput
 MEGABATCH_MIN_STREAMS = 2
 #: in-flight storage restores the pump keeps at most
 STORAGE_RESTORE_INFLIGHT_MAX = 32
+#: in-flight DVR peer fetches the pump keeps at most (a slow peer must
+#: not pile up HTTP work)
+DVR_FETCH_INFLIGHT_MAX = 32
+#: seconds a path no peer's ``dvrmeta`` knew stays a miss, and the most
+#: such paths remembered
+DVR_META_MISS_SEC = 10.0
+DVR_META_MISS_MAX = 512
 #: per-engine counters ``stats()`` sums over every engine the server ran
 ENGINE_COUNTERS = ("native_sent", "native_passes", "device_param_refreshes",
                    "send_errors", "tcp_shed_pkts", "missing_params",
@@ -273,8 +304,17 @@ class StreamingServer:
         self._presence_sync: asyncio.Task | None = None
         #: the cluster's status as it stood when it stopped (``stats``)
         self._cluster_final: dict | None = None
-        #: the helper threads of peer REST GETs (a stitched trace's hops)
+        #: the helper threads of peer REST calls (DVR window and meta
+        #: fetches, a stitched trace's hops)
         self._dvr_fetch_pool = None
+        #: (path, track, window) → the helper's window fetch future
+        self._dvr_fetches: dict = {}
+        #: path → (host, port, spans) of the peer whose ``dvrmeta``
+        #: bootstrapped it, and path → monotonic end of a miss
+        self._dvr_meta_peers: dict[str, tuple[str, int, dict]] = {}
+        self._dvr_meta_misses: dict[str, float] = {}
+        #: path → the ``dvrmeta`` sweep in flight
+        self._dvr_meta_sweeps: dict[str, asyncio.Future] = {}
         #: the config's auth and log keys the surface was built from
         self._surface_keys = None
         self._apply_surface_config(self.config)
@@ -572,6 +612,21 @@ class StreamingServer:
             self.rtsp.admission = self._admission_verdict
         self.cluster.fleet_status = lambda: obs_fleet.build_rollup(self)
         self.rtsp.peer_trace_gate = self._peer_trace_gate
+        if self.dvr is not None:
+            self.cluster.dvr_advertise = self.dvr.advertise
+            self.dvr.fetcher = self._dvr_peer_fetch
+            self.dvr.meta_sync = self._dvr_meta_sync
+        if self.storage is not None:
+            st = self.storage
+            st.node_id = ccfg.node_id
+            st.peer_nodes = lambda: (dict(self.cluster.last_nodes)
+                                     if self.cluster is not None else {})
+            st.ring_for = self.cluster.placement.ring
+            st.push_shard = self._storage_push_blocking
+            st.fetch_shard = self._storage_fetch_blocking
+            st.fetch_manifest = self._storage_manifest_blocking
+            self.cluster.storage_claims = st.pending_claims
+            self.cluster.storage_repair = st.repair_scan
         await self.cluster.start()
         self.rtsp.describe_fallback = self._cluster_describe
 
@@ -827,14 +882,16 @@ class StreamingServer:
                 max_workers=2, thread_name_prefix="peer-fetch")
         return self._dvr_fetch_pool
 
-    def _peer_http_get(self, host: str, port: int,
-                       target: str) -> bytes | None:
-        """One peer REST GET, on a helper thread, with this node's REST
-        credentials (a cluster shares its config); None on any non-200 or
-        network failure."""
+    def _peer_http(self, method: str, host: str, port: int, target: str,
+                   body: bytes | None = None) -> bytes | None:
+        """One peer REST call, on a helper or storage worker thread, with
+        this node's REST credentials (a cluster shares its config): the
+        body of a 200, None on any other status or a network failure."""
         import base64
         import http.client
         headers = {}
+        if body is not None:
+            headers["Content-Type"] = "application/octet-stream"
         if self.config.auth_enabled:
             cred = (f"{self.config.rest_username}:"
                     f"{self.config.rest_password}").encode()
@@ -843,15 +900,192 @@ class StreamingServer:
         try:
             conn = http.client.HTTPConnection(host, port, timeout=2.0)
             try:
-                conn.request("GET", target, headers=headers)
+                conn.request(method, target, body=body, headers=headers)
                 resp = conn.getresponse()
-                if resp.status != 200:
-                    return None
-                return resp.read()
+                return resp.read() if resp.status == 200 else None
             finally:
                 conn.close()
-        except OSError:
+        except (OSError, http.client.HTTPException):
             return None
+
+    def _peer_http_get(self, host: str, port: int,
+                       target: str) -> bytes | None:
+        return self._peer_http("GET", host, port, target)
+
+    def _peer_http_post(self, host: str, port: int, target: str,
+                        body: bytes) -> bool:
+        return self._peer_http("POST", host, port, target, body) is not None
+
+    @staticmethod
+    def _peer_json(raw: bytes | None) -> dict | None:
+        if raw is None:
+            return None
+        try:
+            doc = json.loads(raw.decode("utf-8", "replace"))
+        except ValueError:
+            return None
+        return doc if isinstance(doc, dict) else None
+
+    # --------------------------------------------- the cluster's DVR wire
+    def _dvr_peer_fetch(self, path: str, track_id: int,
+                        win: int) -> bytes | None:
+        """The DVR fetcher, called on the pump by the spill read chain:
+        one window blob over REST ``dvrwindow`` from the live peer whose
+        ``Own:`` record advertises the path, as in the reference, or,
+        where that span leaves the window out or no peer advertises it,
+        from the peer whose ``dvrmeta`` bootstrapped the path while its
+        lease is live (a recording's last advert can predate its
+        finalize by up to a tick, and a dead owner advertises nothing).
+        The round trip runs on a helper thread; the call answers ``b""``
+        while it runs (the cursor holds), then the blob, or None (no
+        live peer whose span holds the window, a failed fetch, or
+        ``DVR_FETCH_INFLIGHT_MAX`` fetches in flight: the cursor hops,
+        or the store's restore has the window)."""
+        cluster = self.cluster
+        if cluster is None:
+            return None
+        key_path = _norm(path)
+        meta_peer = self._dvr_meta_peers.get(key_path)
+        if meta_peer is not None and not any(
+                str(n.get("ip")) == meta_peer[0]
+                and str(n.get("http")) == str(meta_peer[1])
+                for n in cluster.last_nodes.values()):
+            meta_peer = None            # its lease lapsed: not asked
+        for peer in (cluster.dvr_peers.get(key_path), meta_peer):
+            if peer is None:
+                continue
+            host, port, spans = peer
+            span = spans.get(str(track_id))
+            if span is None or span[0] <= int(win) <= span[1]:
+                break
+        else:
+            return None
+        key = (key_path, int(track_id), int(win))
+        fut = self._dvr_fetches.get(key)
+        if fut is None:
+            if len(self._dvr_fetches) >= DVR_FETCH_INFLIGHT_MAX:
+                # a session torn down mid-fetch never polls its key
+                # again: its finished future must not hold the cap shut
+                for k in [k for k, f in self._dvr_fetches.items()
+                          if f.done()]:
+                    del self._dvr_fetches[k]
+                if len(self._dvr_fetches) >= DVR_FETCH_INFLIGHT_MAX:
+                    return None
+            self._dvr_fetches[key] = self._ensure_dvr_fetch_pool().submit(
+                self._dvr_fetch_blocking, host, int(port), path,
+                int(track_id), int(win))
+            return b""
+        if not fut.done():
+            return b""
+        del self._dvr_fetches[key]
+        if fut.cancelled() or fut.exception() is not None:
+            return None
+        return fut.result()
+
+    def _dvr_fetch_blocking(self, host: str, port: int, path: str,
+                            track_id: int, win: int) -> bytes | None:
+        return self._peer_http_get(
+            host, port, f"/api/v1/dvrwindow?path={quote(path)}"
+                        f"&track={track_id}&win={win}")
+
+    async def _dvr_meta_sync(self, path: str) -> bool:
+        """The ``.dvr`` DESCRIBE's bootstrap of an asset with no local
+        copy: ask each live peer's ``dvrmeta`` (on a helper thread),
+        materialize the first answer and route the window fetches to the
+        peer that gave it.  A path no peer knew is a miss for
+        ``DVR_META_MISS_SEC`` (at most ``DVR_META_MISS_MAX`` remembered),
+        so repeated DESCRIBEs make no new sweep; concurrent ones await
+        the one sweep in flight (the reference's second sweep finds the
+        first's skeleton, and its DESCRIBE answers 404)."""
+        cluster, dvr = self.cluster, self.dvr
+        if cluster is None or dvr is None:
+            return False
+        key = _norm(path)
+        now = time.monotonic()
+        until = self._dvr_meta_misses.get(key)
+        if until is not None:
+            if now < until:
+                return False
+            del self._dvr_meta_misses[key]
+        # concurrent DESCRIBEs of one path share one sweep: a second
+        # sweep's materialize would find the first's skeleton and miss
+        sweep = self._dvr_meta_sweeps.get(key)
+        if sweep is None:
+            sweep = asyncio.ensure_future(
+                self._dvr_meta_sweep(cluster, dvr, path, key, now))
+            self._dvr_meta_sweeps[key] = sweep
+            sweep.add_done_callback(
+                lambda _f: self._dvr_meta_sweeps.pop(key, None))
+        return await asyncio.shield(sweep)
+
+    async def _dvr_meta_sweep(self, cluster, dvr, path: str, key: str,
+                              now: float) -> bool:
+        nodes = dict(cluster.last_nodes)
+        if not nodes:
+            try:
+                nodes = await cluster.placement.live_nodes()
+            except Exception:
+                return False
+        loop = asyncio.get_running_loop()
+        for node, meta in nodes.items():
+            if node == cluster.config.node_id:
+                continue
+            host, port = meta.get("ip"), meta.get("http")
+            if not host or not port:
+                continue
+            doc = await loop.run_in_executor(
+                self._ensure_dvr_fetch_pool(), self._dvr_meta_blocking,
+                str(host), int(port), path)
+            if not doc or not dvr.materialize(path, doc):
+                continue
+            spans = {}
+            for tid, idx in (doc.get("tracks") or {}).items():
+                wins = [int(r["win"]) for r in idx.get("windows", ())
+                        if isinstance(r, dict) and "win" in r]
+                if wins:
+                    spans[str(tid)] = [min(wins), max(wins)]
+            self._dvr_meta_peers[key] = (str(host), int(port), spans)
+            return True
+        if len(self._dvr_meta_misses) >= DVR_META_MISS_MAX:
+            self._dvr_meta_misses.clear()
+        self._dvr_meta_misses[key] = now + DVR_META_MISS_SEC
+        return False
+
+    def _dvr_meta_blocking(self, host: str, port: int,
+                           path: str) -> dict | None:
+        return self._peer_json(self._peer_http_get(
+            host, port, f"/api/v1/dvrmeta?path={quote(path)}"))
+
+    # ------------------------------------------- the store's peer calls
+    # (each on a storage worker thread: a store's pushes, a reconstruct's
+    # gathers and a repair's)
+    def _storage_push_blocking(self, node_meta: dict, asset: str,
+                               name: str, payload: bytes,
+                               manifest_json: str) -> bool:
+        host, port = node_meta.get("ip"), node_meta.get("http")
+        if not host or not port:
+            return False
+        return self._peer_http_post(
+            str(host), int(port),
+            f"/api/v1/shardpush?path={quote(asset)}&name={quote(name)}",
+            manifest_json.encode() + b"\n\n" + payload)
+
+    def _storage_fetch_blocking(self, node_meta: dict, asset: str,
+                                name: str) -> bytes | None:
+        host, port = node_meta.get("ip"), node_meta.get("http")
+        if not host or not port:
+            return None
+        return self._peer_http_get(
+            str(host), int(port),
+            f"/api/v1/shard?path={quote(asset)}&name={quote(name)}")
+
+    def _storage_manifest_blocking(self, node_meta: dict,
+                                   asset: str) -> dict | None:
+        host, port = node_meta.get("ip"), node_meta.get("http")
+        if not host or not port:
+            return None
+        return self._peer_json(self._peer_http_get(
+            str(host), int(port), f"/api/v1/shardmeta?path={quote(asset)}"))
 
     def _park_tcp_record(self, path: str, track_id, rec: dict) -> None:
         """The restore's sink of ``kind=tcp`` records: parked until the

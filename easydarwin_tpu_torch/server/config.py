@@ -6,11 +6,12 @@ A ``ServerConfig`` loads from a TOML file of its keys (``load_toml``) or
 from the reference's ``easydarwin.xml`` (``load_reference_xml``, the DSS
 ``PREF``/``MODULE`` layout); ``load_config`` sniffs which one a file is.
 Both return the keys they could not apply, never dropping one in
-silence: a key this port does not serve yet (EasyCMS's ``cms_*``, …) is
+silence: a key this port does not serve (the JAX fan-out switches, …) is
 listed.  The cluster tier's keys (``cloud_enabled``, ``redis_host``,
-``redis_port``, ``server_id`` and every ``cluster_*``; the XML's
-``enable_cloud_platform`` and ``EasyRedisModule`` ``redis_ip`` and
-``redis_port``) are applied, and ``cluster_config`` builds the
+``redis_port``, ``server_id``, ``cms_host``, ``cms_port`` and every
+``cluster_*``; the XML's ``enable_cloud_platform``, ``EasyRedisModule``
+``redis_ip`` and ``redis_port`` and ``EasyCMSModule`` ``cms_ip`` and
+``cms_port``) are applied, and ``cluster_config`` builds the
 ``cluster.service.ClusterConfig``.  The SLO watchdog's ``slo_*`` keys, the console and status file
 (``stats_interval_sec``, ``status_file_*``; the XML's
 ``monitor_stats_file_*`` with ``enable_monitor_stats_file``), the
@@ -120,6 +121,12 @@ class ServerConfig:
     cloud_enabled: bool = False
     redis_host: str = "127.0.0.1"
     redis_port: int = 6379
+    #: the EasyCMS address (the XML's ``EasyCMSModule`` ``cms_ip`` and
+    #: ``cms_port``), read and kept as the reference keeps it; nothing
+    #: in the server uses it: ``cluster.cms``'s ``CmsServer`` is a
+    #: library class that takes its own ``bind_ip`` and ``port``
+    cms_host: str = "127.0.0.1"
+    cms_port: int = 10000
     #: the fault-tolerant cluster tier (``cluster.service``): Redis leases
     #: with fencing, consistent-hash placement, the cross-server pull
     #: relay and checkpoint-driven live migration; supersedes the passive

@@ -659,6 +659,91 @@ class RestApi:
         return 200, ep.ack(ep.MSG_SC_SERVER_INFO_ACK, body={
             "File": res["path"], "Samples": str(res["samples"]), **extra})
 
+    # -------------------------------------------------- the cluster's wire
+    def _cmd_dvrwindow(self, params: dict, body: bytes) -> tuple:
+        """One spilled window's blob, as the spill file stores it: the
+        peer fill of a node time-shifting or replaying a stream this
+        node recorded (``path=``, ``track=``, ``win=``)."""
+        if self.app.dvr is None:
+            return 404, ep.ack(ep.MSG_SC_EXCEPTION, error=ep.ERR_NOT_FOUND)
+        path = params.get("path", [""])[0]
+        try:
+            track = int(params.get("track", [""])[0])
+            win = int(params.get("win", [""])[0])
+        except ValueError:
+            return 400, ep.ack(ep.MSG_SC_EXCEPTION, error=ep.ERR_BAD_REQUEST)
+        blob = self.app.dvr.window_blob(path, track, win)
+        if blob is None:
+            return 404, ep.ack(ep.MSG_SC_EXCEPTION, error=ep.ERR_NOT_FOUND)
+        return 200, blob, "application/octet-stream"
+
+    def _cmd_dvrmeta(self, params: dict, body: bytes) -> tuple:
+        """An asset's meta and per-track index documents (``path=``),
+        which a node that never saw the stream materializes to replay
+        it; with no local asset, the store's manifest copy answers, so
+        any shard holder bootstraps a replay of a dead owner's asset."""
+        if self.app.dvr is None:
+            return 404, ep.ack(ep.MSG_SC_EXCEPTION, error=ep.ERR_NOT_FOUND)
+        path = params.get("path", [""])[0]
+        doc = self.app.dvr.meta_doc(path) if path else None
+        if doc is None and path and self.app.storage is not None:
+            doc = self.app.storage.meta_doc(path)
+        if doc is None:
+            return 404, ep.ack(ep.MSG_SC_EXCEPTION, error=ep.ERR_NOT_FOUND)
+        return 200, json.dumps(doc, separators=(",", ":")), \
+            "application/json"
+
+    def _cmd_shard(self, params: dict, body: bytes) -> tuple:
+        """One local erasure shard's payload (``path=``, ``name=``),
+        crc-checked against the manifest before it ships (a corrupt copy
+        answers 404 and is queued for repair)."""
+        st = self.app.storage
+        if st is None:
+            return 404, ep.ack(ep.MSG_SC_EXCEPTION, error=ep.ERR_NOT_FOUND)
+        path = params.get("path", [""])[0]
+        name = params.get("name", [""])[0]
+        if not path or not name:
+            return 400, ep.ack(ep.MSG_SC_EXCEPTION, error=ep.ERR_BAD_REQUEST)
+        payload = st.serve_shard(path, name)
+        if payload is None:
+            return 404, ep.ack(ep.MSG_SC_EXCEPTION, error=ep.ERR_NOT_FOUND)
+        return 200, payload, "application/octet-stream"
+
+    def _cmd_shardmeta(self, params: dict, body: bytes) -> tuple:
+        """The asset's shard manifest (``path=``)."""
+        st = self.app.storage
+        if st is None:
+            return 404, ep.ack(ep.MSG_SC_EXCEPTION, error=ep.ERR_NOT_FOUND)
+        path = params.get("path", [""])[0]
+        man = st.manifest(path) if path else None
+        if man is None:
+            return 404, ep.ack(ep.MSG_SC_EXCEPTION, error=ep.ERR_NOT_FOUND)
+        return 200, json.dumps(man, separators=(",", ":")), \
+            "application/json"
+
+    def _cmd_shardpush(self, params: dict, body: bytes) -> tuple[int, str]:
+        """A peer placing one shard here (POST, ``path=``, ``name=``; the
+        body is ``manifest-json\\n\\n`` and the payload).  Not in
+        ``MUTATING``: it rides Basic auth as every peer call does, and a
+        payload that fails the manifest's crc32 or an older generation
+        is refused."""
+        st = self.app.storage
+        if st is None:
+            return 404, ep.ack(ep.MSG_SC_EXCEPTION, error=ep.ERR_NOT_FOUND)
+        path = params.get("path", [""])[0]
+        name = params.get("name", [""])[0]
+        sep = body.find(b"\n\n")
+        if not path or not name or sep < 0:
+            return 400, ep.ack(ep.MSG_SC_EXCEPTION, error=ep.ERR_BAD_REQUEST)
+        try:
+            man = json.loads(body[:sep]) if sep > 0 else None
+        except ValueError:
+            return 400, ep.ack(ep.MSG_SC_EXCEPTION, error=ep.ERR_BAD_REQUEST)
+        if not st.receive_shard(path, name, body[sep + 2:], man):
+            return 400, ep.ack(ep.MSG_SC_EXCEPTION, error=ep.ERR_BAD_REQUEST,
+                               body={"Detail": "shard refused (crc/gen)"})
+        return 200, ep.ack(ep.MSG_SC_SERVER_INFO_ACK, body={"Shard": name})
+
     def _cmd_storagestats(self, params: dict,
                           body: bytes) -> tuple[int, str]:
         """The storage tier's counters and ``pack_window.calls`` (a

@@ -6,12 +6,13 @@ unmapped list, ``update`` / ``on_change`` and the CLI's ``-c`` and ``-x``.
   the reference loader's value for every key both sides map; the port's
   unmapped list holds every pref the reference's leaves unmapped that
   the port does not serve, and every pref the reference maps to a key
-  the port does not serve yet (EasyCMS);
+  the port does not serve;
 * a TOML written by the reference's ``to_toml`` loads to the reference's
   values for every shared key (the SLO watchdog's ``slo_*``, the status
-  keys and the cluster's ``cluster_*`` and Redis keys among them), and
-  each reference key the port lacks (EasyCMS, the JAX fan-out switches,
-  …) is in the unmapped list, none dropped in silence;
+  keys, the cluster's ``cluster_*`` and Redis keys and EasyCMS's
+  ``cms_host`` and ``cms_port`` among them), and each reference key the
+  port lacks (the JAX fan-out switches, …) is in the unmapped list, none
+  dropped in silence;
 * ``to_toml`` round trips; ``update`` casts, routes the relay keys into
   ``stream``, runs the ``on_change`` listeners and raises ``KeyError``
   on an unknown key before changing anything;
@@ -136,9 +137,10 @@ def test_reference_toml_loads_with_every_missing_key_listed(tmp_path):
     for k in set(ref_d) & set(d):
         assert d[k] == ref_d[k], k
     assert set(unmapped) == set(ref_d) - set(d)
-    for k in ("tpu_fanout", "cms_host"):
+    for k in ("tpu_fanout",):
         assert k in unmapped
     for k in ("cluster_enabled", "redis_host", "cloud_enabled",
+              "cms_host", "cms_port",
               "cluster_lease_ttl_sec", "cluster_pull_backoff_ms",
               "cluster_admission_high_water", "slo_enabled", "slo_latency_objective_ms", "stats_interval_sec",
               "status_file_path", "status_file_interval_sec",

@@ -38,9 +38,9 @@
   surface (auth, MP3, the watchdog, the config file, the logs, the RTSP
   client, pull relays and ``.sdp`` sources), and the observability stack
   (the eleven ``obs`` modules, the status monitor, the dictionary, the
-  modules and the admin tree), and the cluster tier (``cluster.*`` and
-  its harness) leaves ``jax`` and ``easydarwin_tpu`` out of
-  ``sys.modules``;
+  modules and the admin tree), and the cluster tier (``cluster.*`` with
+  EasyCMS's ``cms`` and ``device``, and its harnesses) leaves ``jax`` and
+  ``easydarwin_tpu`` out of ``sys.modules``;
 * the CLI's device defaults to the card, and without one it raises.
 """
 
@@ -872,7 +872,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "import easydarwin_tpu_torch.cluster.capacity\n"
             "import easydarwin_tpu_torch.cluster.pull\n"
             "import easydarwin_tpu_torch.cluster.service\n"
+            "import easydarwin_tpu_torch.cluster.cms\n"
+            "import easydarwin_tpu_torch.cluster.device\n"
             "import easydarwin_tpu_torch.utils.cluster_loopback\n"
+            "import easydarwin_tpu_torch.utils.cluster_dvr_loopback\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m.split('.')[0] in ('jax', 'jaxlib', "
             "'easydarwin_tpu'))\n"
