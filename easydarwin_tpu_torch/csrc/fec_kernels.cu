@@ -72,6 +72,8 @@
 
 #include <cuda_runtime.h>
 
+#include "launch_timing.h"
+
 namespace {
 
 constexpr int kGfMaxK = 64;        // rows a window (MASK_BITS 48, pow2)
@@ -295,10 +297,11 @@ int launch_stripe(const uint8_t* rows, int K, int B, const uint8_t* coeff,
   const int chunks = B / 16;
   int ctas = (chunks + kGfStripeThreads - 1) / kGfStripeThreads;
   if (ctas > wave) ctas = wave;
+  if (const int rc2 = ed_timing::start(st)) return rc2;
   gf_parity_stripe_kernel<MAXK, R><<<ctas, kGfStripeThreads, 0, st>>>(
       reinterpret_cast<const uint4*>(rows), K, chunks, coeff, nib,
       reinterpret_cast<uint4*>(out));
-  return int(cudaGetLastError());
+  return ed_timing::stop(st, cudaGetLastError());
 }
 
 template <int KPT, int R>
@@ -308,10 +311,11 @@ int launch_lanes(const uint8_t* rows, int K, int B, const uint8_t* coeff,
   while ((1 << lanes_log2) < K && lanes_log2 < 5) ++lanes_log2;
   // B / 4 words, a multiple of 64, times 2^lanes_log2 lanes: whole CTAs
   const long blocks = (long(B / 4) << lanes_log2) / kGfLaneThreads;
+  if (const int rc = ed_timing::start(st)) return rc;
   gf_parity_lanes_kernel<KPT, R>
       <<<unsigned(blocks), kGfLaneThreads, 0, st>>>(rows, K, B, coeff, nib,
                                                    lanes_log2, out);
-  return int(cudaGetLastError());
+  return ed_timing::stop(st, cudaGetLastError());
 }
 
 }  // namespace

@@ -114,6 +114,8 @@
 #include <cstdint>
 #include <cstring>
 
+#include "launch_timing.h"
+
 namespace {
 
 constexpr int kLevelClip = 2047;   // codecs/h264_transform.py LEVEL_CLIP
@@ -580,10 +582,11 @@ int launch_chroma(const int* dc, const int* ac, const int* qpc_in,
   if (rc != 0) return rc;
   const int rows = kChromaWarps * kChromaChunkRows;
   const int need = int((int64_t(n) + rows - 1) / rows);
+  if (const int rc2 = ed_timing::start(s)) return rc2;
   h264_requant_chroma_kernel<<<need < ctas ? need : ctas, kChromaThreads,
                                kChromaSmem, s>>>(dc, ac, qpc_in, qpc_out, n,
                                                  dc_out, ac_out);
-  return int(cudaGetLastError());
+  return ed_timing::stop(s, cudaGetLastError());
 }
 
 // The leg's tail: upload the staged inputs, run the launch (which returns
@@ -615,11 +618,12 @@ int ed_h264_requant(const void* levels, const void* qp_in,
   if (n < 0 || misaligned(levels) || misaligned(out))
     return int(cudaErrorInvalidValue);
   if (n == 0) return 0;
-  h264_requant_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (const int rc = ed_timing::start(st)) return rc;
+  h264_requant_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0, st>>>(
       static_cast<const int4*>(levels), static_cast<const int*>(qp_in),
       static_cast<const int*>(qp_out), n, static_cast<int4*>(out));
-  return int(cudaGetLastError());
+  return ed_timing::stop(st, cudaGetLastError());
 }
 
 // dc [n, 4] and ac [n, 4, 15] int32, qpc_in [n] and qpc_out [n] int32,
@@ -681,11 +685,12 @@ int ed_h264_requant_leg(const int64_t* rows, const int64_t* qp_in,
   const size_t out_at = align4(18 * n);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return leg_run(stage, 18 * n, dev, out_at, 16 * n, back, event, s, [&] {
+    if (const int rc = ed_timing::start(s)) return rc;
     h264_requant_kernel<<<(int(n) + kThreads - 1) / kThreads, kThreads, 0,
                           s>>>(reinterpret_cast<const int4*>(dev), dev + 16 * n,
                                dev + 17 * n, int(n),
                                reinterpret_cast<int4*>(dev + out_at));
-    return int(cudaGetLastError());
+    return ed_timing::stop(s, cudaGetLastError());
   });
 }
 

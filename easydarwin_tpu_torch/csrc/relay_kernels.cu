@@ -48,15 +48,20 @@
 //     keyframe is the ring query's self-resetting last-CTA fold.
 //   * ed_relay_shard replaces the XLA pass
 //     easydarwin_tpu/parallel/mesh.py:80 _local_step (B8's per-shard step
-//     of sharded_relay_step, :110): the same kernel as ed_relay_batch over
-//     a shard's block of sources, one per blockIdx.z, with the reference's
-//     mask (eligible and length > 0), keyframe indices offset by the
-//     shard's packet base along ``win``, and strided views in and out, so
-//     a shard reads its block where it lies and writes straight into its
-//     block of the whole result.  The cross-shard max of the newest
-//     keyframe and the sum of the eligible sends are one atomicMax a
-//     source tile and one atomicAdd a CTA into buffers the shards of one
-//     device share: ONE launch a shard, and no reduction step after it.
+//     of sharded_relay_step, :110): B9's function over a shard's block of
+//     sources, with the reference's mask (eligible and length > 0),
+//     keyframe indices offset by the shard's packet base along ``win``, and
+//     strided views in and out, so a shard reads its block where it lies
+//     and writes straight into its block of the whole result.  It writes
+//     [N, S, P, 12] headers and an [N, S, P] mask, 13 bytes an (output,
+//     packet): 96% of its bytes at config 4, so it is bound by its
+//     stores.  ONE launch a device takes every shard of that device
+//     (descriptors in a __grid_constant__ struct); a CTA parses a 64-row
+//     tile once for 64 outputs and writes their spans as 16-byte stores;
+//     the newest keyframe of each source (maxed over its ``win`` shards)
+//     and the sum of the eligible sends are written, not folded into, by
+//     the last CTA of each source and of the launch, through
+//     self-resetting atomic words.
 //
 // Why the TPU's trick is dropped
 //   The TPU kernel avoids per-row dynamic gathers by building each byte at
@@ -129,6 +134,8 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include "launch_timing.h"
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -161,7 +168,11 @@ constexpr int kBatchSubsPerCta = 4;    // outputs a CTA renders
 constexpr int kBatchMaxPkts = 1 << 16;
 constexpr int kBatchMaxSubs = 1 << 16;
 constexpr int kBatchMaxTiles = kBatchMaxPkts / kBatchTileRows;
-constexpr int kShardMaxSources = 65535;  // ed_relay_shard: gridDim.z's limit
+constexpr int kShardTileRows = 64;     // ed_relay_shard: rows a CTA parses
+constexpr int kShardSubsPerCta = 64;   // outputs a CTA renders from them
+constexpr int kShardThreads = 256;
+constexpr int kShardMaxShards = 16;    // shard descriptors a launch
+constexpr int kShardMaxSlots = 4096;   // sources a launch folds
 
 // head + tail bytes are at most 2 * 15 (an empty interior means a span of
 // at most 30 bytes); threads 1.. load them, one byte each
@@ -171,6 +182,7 @@ static_assert(kRingTileRows - 1 >= 2 * (kBulkAlign - 1), "head/tail loaders");
 static_assert(kBatchTileRows - 1 >= 2 * (kBulkAlign - 1), "head/tail loaders");
 static_assert(kBatchThreads >= kBatchTileRows, "one thread a row");
 static_assert(kBatchThreads >= kBatchSubsPerCta, "one thread an output");
+static_assert(kShardThreads - 1 >= 2 * (kBulkAlign - 1), "head/tail loaders");
 
 struct Parsed {
   uint32_t seq, ts, ssrc, hs;
@@ -537,56 +549,43 @@ ring_query_kernel(const uint8_t* __restrict__ rows, int capacity,
   }
 }
 
-// -------------------------------------------------- batch step (B9, B8)
+// --------------------------------------------------------- batch step (B9)
 
-// What one batch launch reads and writes.  B9 (ed_relay_batch) is one
-// source: every source stride is 0, the mask asks length >= 12 and the
-// newest keyframe is folded through ``scratch``.  B8 (ed_relay_shard) is
-// a mesh shard's block of sources, one per blockIdx.z: each input and
-// output is a strided view (a source stride, and the headers' and mask's
-// output stride, so a shard writes straight into its block of the whole
-// [N, S, P, ...] result), the mask asks length >= 1 (the reference's
-// ``length > 0``), keyframe indices are offset by the shard's packet base
-// and maxed into newest[z] by atomicMax (filled with -1 first), and the
-// eligible sends are added into *eligible (zeroed first).
+// What one batch launch reads and writes: one source's rows, lengths and
+// ages, its outputs' state and delay buckets; the headers, the mask
+// (bucket-eligible and length >= 12), keyframe_first and frame_last, and
+// the newest keyframe, folded through ``scratch``.
 struct BatchArgs {
   const uint8_t* prefix;
-  long long prefix_src;                  // bytes between sources
   int n_pkts, row_stride;
   const int32_t* length;
   const int32_t* age_ms;
-  long long length_src, age_src;         // elements between sources
   const uint32_t* state;
   const int32_t* bucket;
-  long long state_src, bucket_src;       // elements between sources
-  int n_subs, min_len, kf_base, pad;
+  int n_subs, pad;
   long long delay_ms;
   uint32_t* headers;
-  long long headers_src, headers_sub;    // 4-byte words
+  long long headers_sub;                 // 4-byte words
   uint8_t* mask;
-  long long mask_src, mask_sub;          // bytes
-  uint8_t* keyframe_first;               // B9 only
-  uint8_t* frame_last;                   // B9 only
-  int* scratch;                          // B9 only
+  long long mask_sub;                    // bytes
+  uint8_t* keyframe_first;
+  uint8_t* frame_last;
+  int* scratch;
   int32_t* newest;
-  unsigned long long* eligible;          // B8 only
 };
 
-// Grid (n_tiles, ceil(n_subs / kBatchSubsPerCta), sources).  CTA (x, y, z)
-// takes rows [64x, 64x + 64) of source z into shared memory by the bulk
-// copy, loads its outputs' state and the rows' lengths and ages while the
-// copy is in flight, parses each row once (one thread a row) into shared
-// memory, then writes its (output, packet) tile: headers as 4-byte words,
-// three a packet, along each output's contiguous 12 * P bytes, and the
-// mask bytes.  The y = 0 CTAs also write keyframe_first and frame_last
-// (B9) and, after their stores are issued, fold the newest keyframe.  B9:
-// one tile writes it at once; more store each tile's max into partials[x]
-// and make ONE acq_rel add on the ticket, and the last arrival's warp 0
-// reduces the partials, writes *newest and puts the ticket back to 0
-// (``scratch`` = ticket ++ partials[kBatchMaxTiles]; launches sharing it
-// stay on one stream).  B8: each y = 0 CTA makes one atomicMax on
-// newest[z], and every CTA one atomicAdd of its mask count.
-template <bool kShard>
+// Grid (n_tiles, ceil(n_subs / kBatchSubsPerCta)).  CTA (x, y) takes rows
+// [64x, 64x + 64) into shared memory by the bulk copy, loads its outputs'
+// state and the rows' lengths and ages while the copy is in flight,
+// parses each row once (one thread a row) into shared memory, then writes
+// its (output, packet) tile: headers as 4-byte words, three a packet,
+// along each output's contiguous 12 * P bytes, and the mask bytes.  The
+// y = 0 CTAs also write keyframe_first and frame_last and, after their
+// stores are issued, fold the newest keyframe: one tile writes it at
+// once; more store each tile's max into partials[x] and make ONE acq_rel
+// add on the ticket, and the last arrival's warp 0 reduces the partials,
+// writes *newest and puts the ticket back to 0 (``scratch`` = ticket ++
+// partials[kBatchMaxTiles]; launches sharing it stay on one stream).
 __global__ void __launch_bounds__(kBatchThreads)
 relay_batch_kernel(const BatchArgs a) {
   extern __shared__ __align__(16) uint8_t s_tile[];
@@ -594,13 +593,12 @@ relay_batch_kernel(const BatchArgs a) {
   __shared__ uint32_t s_word0[kBatchTileRows];   // b0 | b1 << 8 | seq << 16
   __shared__ uint32_t s_ts[kBatchTileRows];
   __shared__ int32_t s_age[kBatchTileRows];
-  __shared__ uint8_t s_sendable[kBatchTileRows];  // length >= min_len
+  __shared__ uint8_t s_sendable[kBatchTileRows];  // length >= 12
   __shared__ uint32_t s_seq_add[kBatchSubsPerCta];
   __shared__ uint32_t s_ts_add[kBatchSubsPerCta];
   __shared__ uint32_t s_ssrc_be[kBatchSubsPerCta];
   __shared__ int64_t s_min_age[kBatchSubsPerCta];
   __shared__ int s_warp_best[kBatchThreads / 32];
-  __shared__ int s_warp_count[kBatchThreads / 32];
   __shared__ int s_last;
   const int t = threadIdx.x;
   const int tile = blockIdx.x;
@@ -610,25 +608,20 @@ relay_batch_kernel(const BatchArgs a) {
   const int sub0 = blockIdx.y * kBatchSubsPerCta;
   const int subs = min(kBatchSubsPerCta, a.n_subs - sub0);
   const bool first_col = blockIdx.y == 0;      // writes the per-packet outputs
-  const long long z = kShard ? blockIdx.z : 0;
-  const uint8_t* src =
-      a.prefix + z * a.prefix_src + size_t(row0) * a.row_stride;
-  const int32_t* length = a.length + z * a.length_src;
-  const int32_t* age_ms = a.age_ms + z * a.age_src;
+  const uint8_t* src = a.prefix + size_t(row0) * a.row_stride;
   uint8_t* buf = s_tile + (reinterpret_cast<uintptr_t>(src) & (kBulkAlign - 1));
   const bool wait =
       bulk_fetch(buf, src, uint32_t(rows) * a.row_stride, &s_bar);
 
   // under the copy: the rows' lengths and ages, the outputs' affine terms
-  const int32_t len = t < rows ? length[row0 + t] : 0;
-  const int32_t age = t < rows ? age_ms[row0 + t] : 0;
+  const int32_t len = t < rows ? a.length[row0 + t] : 0;
+  const int32_t age = t < rows ? a.age_ms[row0 + t] : 0;
   if (t < subs) {
-    const uint32_t* st =
-        a.state + z * a.state_src + size_t(sub0 + t) * kStateCols;
+    const uint32_t* st = a.state + size_t(sub0 + t) * kStateCols;
     uint32_t sv[kStateCols];
 #pragma unroll
     for (int c = 0; c < kStateCols; ++c) sv[c] = st[c];
-    const int32_t b = a.bucket[z * a.bucket_src + sub0 + t];
+    const int32_t b = a.bucket[sub0 + t];
     s_seq_add[t] = (sv[3] - sv[1]) & 0xFFFFu;      // seq' = seq + this (mod 2^16)
     s_ts_add[t] = sv[4] - sv[2];                   // ts' = ts + this (mod 2^32)
     s_ssrc_be[t] = __byte_perm(sv[0], 0, 0x0123);  // big-endian on the wire
@@ -645,23 +638,21 @@ relay_batch_kernel(const BatchArgs a) {
     s_word0[t] = uint32_t(row[0]) | (uint32_t(row[1]) << 8) | (p.seq << 16);
     s_ts[t] = p.ts;
     s_age[t] = age;
-    s_sendable[t] = len >= a.min_len;
-    if (!kShard && first_col) {
+    s_sendable[t] = len >= 12;                 // not a runt
+    if (first_col) {
       a.keyframe_first[row0 + t] = uint8_t(p.kf);
       a.frame_last[row0 + t] = uint8_t(p.fl);
     }
     // padding rows carry length 0: never valid, never a keyframe
-    if (p.kf && len > 0) best = row0 + t + a.kf_base;
+    if (p.kf && len > 0) best = row0 + t;
   }
   __syncthreads();                             // the parsed rows
 
   // headers: word w of an output's span is packet w / 3, part w % 3
   // (0: b0 b1 seq_hi seq_lo, 1: ts big-endian, 2: ssrc big-endian)
   const int words = 3 * rows;
-  int sent = 0;
   for (int s = 0; s < subs; ++s) {
-    uint32_t* out = a.headers + z * a.headers_src +
-                    (sub0 + s) * a.headers_sub + size_t(row0) * 3;
+    uint32_t* out = a.headers + (sub0 + s) * a.headers_sub + size_t(row0) * 3;
     const uint32_t seq_add = s_seq_add[s], ts_add = s_ts_add[s];
     for (int w = t; w < words; w += kBatchThreads) {
       const int j = w / 3;
@@ -681,25 +672,10 @@ relay_batch_kernel(const BatchArgs a) {
     // mask: bucket-eligible (age >= bucket * delay) and long enough
     if (t < rows) {
       const bool m = s_sendable[t] && int64_t(s_age[t]) >= s_min_age[s];
-      a.mask[z * a.mask_src + (sub0 + s) * a.mask_sub + row0 + t] = uint8_t(m);
-      sent += m;
+      a.mask[(sub0 + s) * a.mask_sub + row0 + t] = uint8_t(m);
     }
   }
 
-  if (kShard) {
-    // the CTA's eligible sends: a warp sum, then one add a CTA
-    sent = __reduce_add_sync(0xffffffffu, sent);
-    if ((t & 31) == 0) s_warp_count[t >> 5] = sent;
-    const int m = block_max<kBatchThreads>(best, s_warp_best);  // syncs
-    if (t == 0) {
-      int total = 0;
-#pragma unroll
-      for (int w = 0; w < kBatchThreads / 32; ++w) total += s_warp_count[w];
-      if (total) atomicAdd(a.eligible, (unsigned long long)total);
-      if (first_col && m >= 0) atomicMax(a.newest + z, m);
-    }
-    return;
-  }
   if (!first_col) return;                      // uniform over the CTA
   const int m = block_max<kBatchThreads>(best, s_warp_best);
   if (gridDim.x == 1) {                        // one tile: no fold
@@ -726,6 +702,335 @@ relay_batch_kernel(const BatchArgs a) {
   if (t == 0) {
     *a.newest = fold;
     *scratch = 0;                              // ready for the next pass
+  }
+}
+
+// --------------------------------------------------------- shard step (B8)
+
+// One mesh shard of a grouped B8 launch (ops/fanout.py ShardDescStruct has
+// the same layout): n_src sources of rows, lengths, ages, state and
+// buckets, each input and output a view with a stride between sources
+// (and, for the outputs, between outputs), so a shard reads its block
+// where it lies and writes straight into its block of the whole
+// [N, S, P, ...] result.  The shards of one source block (its ``sub`` and
+// ``win`` shards) share ``newest``, ``slot0`` and ``n_src``, and ``parts``
+// counts them.
+struct ShardDesc {
+  const uint8_t* prefix;
+  const int32_t* length;
+  const int32_t* age_ms;
+  const uint32_t* state;
+  const int32_t* bucket;
+  uint8_t* headers;
+  uint8_t* mask;
+  int32_t* newest;                       // the source block's [n_src]
+  long long prefix_src;                  // bytes between sources
+  long long length_src, age_src;         // elements between sources
+  long long state_src, bucket_src;       // elements between sources
+  long long headers_src, headers_sub;    // bytes
+  long long mask_src, mask_sub;          // bytes
+  int n_src, kf_base;
+  int slot0;                             // the block's first fold slot
+  int parts;                             // shards of the block in the launch
+  int first_item;                        // CTAs of earlier shards
+  int pad;
+};
+
+// Every shard of one device's call (or of its share, past kShardMaxShards
+// shards or kShardMaxSlots sources) in ONE launch.  The shards share the
+// packet, output and row geometry (a mesh cuts equal blocks).
+struct ShardLaunch {
+  ShardDesc shard[kShardMaxShards];
+  unsigned long long* eligible;
+  long long delay_ms;
+  int n_shards, n_pkts, row_stride, n_subs;
+  int n_tiles, n_groups;                 // CTAs a source: tiles x groups
+  int n_items, n_sources;                // CTAs; fold slots in use
+  int accumulate;                        // add to *eligible, not write it
+  int pad;
+};
+
+static_assert(sizeof(ShardDesc) == 160, "ShardDescStruct layout");
+static_assert(sizeof(ShardLaunch) < 4096, "kernel parameter space");
+
+// the fold's tickets: a source's counts arrivals in its low 28 bits and
+// eligible sends above them; the launch's counts finished sources in its
+// low 16 bits and their sends above (a source's keyframe word counts its
+// tiles in its low 32 bits and holds the keyframe + 1 above)
+constexpr int kSrcArrivalBits = 28;
+constexpr int kLaunchArrivalBits = 16;
+static_assert(kShardMaxSlots < (1 << kLaunchArrivalBits), "launch arrivals");
+
+// The four header words of output span word i0 .. i0 + 3 (word i is packet
+// i / 3, part i % 3; i0 may be -3 .. -1 for the chunk that begins before
+// the span): the chunk lies in packets j = floor(i0 / 3) and j + 1, so both
+// are rendered and the chunk's phase p = i0 - 3j picks four of their six
+// words.  Packets outside [0, rows) are read clamped; their words are the
+// caller's to skip.
+__device__ __forceinline__ uint4 header_chunk(
+    int i0, int rows, const uint32_t* s_word0, const uint32_t* s_ts,
+    uint32_t seq_add, uint32_t ts_add, uint32_t ssrc_be) {
+  const int j = (i0 + 3) / 3 - 1;
+  const int p = i0 - 3 * j;
+  uint32_t w[2][3];
+#pragma unroll
+  for (int q = 0; q < 2; ++q) {
+    const int k = min(max(j + q, 0), rows - 1);
+    const uint32_t w0 = s_word0[k];
+    const uint32_t seq = ((w0 >> 16) + seq_add) & 0xFFFFu;
+    w[q][0] = (w0 & 0xFFFFu) | ((seq >> 8) << 16) | ((seq & 0xFFu) << 24);
+    w[q][1] = __byte_perm(s_ts[k] + ts_add, 0, 0x0123);
+    w[q][2] = ssrc_be;
+  }
+  return make_uint4(p == 0 ? w[0][0] : p == 1 ? w[0][1] : w[0][2],
+                    p == 0 ? w[0][1] : p == 1 ? w[0][2] : w[1][0],
+                    p == 0 ? w[0][2] : p == 1 ? w[1][0] : w[1][1],
+                    p == 0 ? w[1][0] : p == 1 ? w[1][1] : w[1][2]);
+}
+
+// The fold of one CTA of a shard launch, by one thread, with relaxed
+// atomics whose values carry everything, so no fence orders any store:
+// ``counts`` and ``bests`` hold each warp's eligible sends and newest
+// keyframe (the source's index + kf_base, -1 = none); ``report_kf``
+// whether this CTA reports its tile's keyframe (group 0 does, one CTA a
+// tile).
+//   * the keyframe: the reporting CTAs of a source meet in its slot's
+//     keyframe word (keyframe + 1 above, arrivals below): a CAS that maxes
+//     the one and counts the other (an add when the tile has none); the
+//     last of the source's tiles writes newest[z] and resets the word;
+//   * the sends: every CTA adds its count (above) and one arrival (below)
+//     to its source's ticket; the source's last CTA resets it and adds the
+//     source's sends and one arrival to the launch's ticket, whose last
+//     arrival writes *eligible and resets it.
+__device__ __forceinline__ void shard_fold(
+    const ShardLaunch& L, const ShardDesc& sd, int* scratch, int z,
+    bool report_kf, const int* counts, const int* bests) {
+  unsigned long long total = 0;
+  int m = -1;
+#pragma unroll
+  for (int w = 0; w < kShardThreads / 32; ++w) {
+    total += unsigned(counts[w]);
+    m = max(m, bests[w]);
+  }
+  unsigned long long* slot = reinterpret_cast<unsigned long long*>(
+      scratch + 2 + 4 * (sd.slot0 + z));
+  if (report_kf) {
+    unsigned long long* kf = slot + 1;
+    unsigned long long now;
+    if (m < 0) {
+      now = atomicAdd(kf, 1ull) + 1;
+    } else {
+      unsigned long long seen = 0;
+      do {
+        now = (max(seen >> 32, (unsigned long long)(m + 1)) << 32) |
+              ((seen & 0xFFFFFFFFull) + 1);
+        const unsigned long long was = atomicCAS(kf, seen, now);
+        if (was == seen) break;
+        seen = was;
+      } while (true);
+    }
+    if ((now & 0xFFFFFFFFull) == (unsigned long long)sd.parts * L.n_tiles) {
+      sd.newest[z] = int(now >> 32) - 1;       // 0 (none) rides as -1
+      *kf = 0;
+    }
+  }
+  const unsigned long long before =
+      atomicAdd(slot, (total << kSrcArrivalBits) | 1ull);
+  const int per_src = L.n_tiles * L.n_groups;
+  if ((before & ((1ull << kSrcArrivalBits) - 1)) + 1 !=
+      (unsigned long long)sd.parts * per_src)
+    return;
+  // the source's last CTA
+  *slot = 0;
+  const unsigned long long src_total = (before >> kSrcArrivalBits) + total;
+  unsigned long long* launch_ticket =
+      reinterpret_cast<unsigned long long*>(scratch);
+  const unsigned long long done = atomicAdd(
+      launch_ticket, (src_total << kLaunchArrivalBits) | 1ull);
+  if ((done & ((1ull << kLaunchArrivalBits) - 1)) + 1 !=
+      (unsigned long long)L.n_sources)
+    return;
+  // the launch's last source
+  const unsigned long long all = (done >> kLaunchArrivalBits) + src_total;
+  *L.eligible = L.accumulate ? *L.eligible + all : all;
+  *launch_ticket = 0;                          // ready for the next launch
+}
+
+// One CTA a work item (shard, source z, tile of kRows rows, group of kSubs
+// outputs), the group fastest, so CTAs that share a tile run side by side.
+// Outputs go out as 16-byte chunks: an output's mask span (rows bytes) and
+// header span (rows * 12 bytes) are cut into the aligned 16-byte chunks
+// they touch, the chunks wholly inside a span go out as one 16-byte store
+// each (the chunks of a span run along consecutive threads), and the at
+// most one chunk at each end of a span that it only partly covers goes
+// out byte by byte (mask) or word by word (headers).  In order:
+//   1. the tile's bulk copy is issued; the rows' lengths and ages and the
+//      outputs' state are loaded under it;
+//   2. while the copy flies, the mask, which needs no row byte, is
+//      computed into shared memory (a thread a row, for every
+//      kShardThreads / kRows-th output) and each thread counts its
+//      eligible sends;
+//   3. each row is parsed once (one thread a row) for all kSubs outputs;
+//   4. warp 0 folds (shard_fold: relaxed atomics, no fence) while warps
+//      1.. write the mask and the headers.
+// ``scratch`` = the launch's ticket ++ kShardMaxSlots slots of (the
+// source's ticket, its keyframe word), each 64 bits; every launch leaves
+// it at 0, and launches sharing it stay on one stream.
+template <int kRows, int kSubs>
+__global__ void __launch_bounds__(kShardThreads)
+relay_shard_kernel(const __grid_constant__ ShardLaunch L,
+                   int* __restrict__ scratch) {
+  static_assert(kRows <= kShardThreads && kSubs <= kShardThreads &&
+                kRows % 16 == 0 && kShardThreads % kRows == 0 &&
+                kShardThreads > 32,
+                "one thread a row and an output; a warp to fold");
+  extern __shared__ __align__(16) uint8_t s_tile[];
+  __shared__ uint64_t s_bar;
+  __shared__ uint32_t s_word0[kRows];          // b0 | b1 << 8 | seq << 16
+  __shared__ uint32_t s_ts[kRows];
+  __shared__ int32_t s_age[kRows];
+  __shared__ uint8_t s_sendable[kRows];        // length > 0
+  __shared__ __align__(16) uint8_t s_mask[kSubs * kRows];
+  __shared__ uint32_t s_seq_add[kSubs];
+  __shared__ uint32_t s_ts_add[kSubs];
+  __shared__ uint32_t s_ssrc_be[kSubs];
+  __shared__ int64_t s_min_age[kSubs];
+  __shared__ int s_warp_best[kShardThreads / 32];
+  __shared__ int s_warp_count[kShardThreads / 32];
+  const int t = threadIdx.x;
+  const int item = blockIdx.x;
+  int d = 0;
+  for (int k = 1; k < L.n_shards; ++k)
+    if (item >= L.shard[k].first_item) d = k;
+  const ShardDesc& sd = L.shard[d];
+  const int per_src = L.n_tiles * L.n_groups;
+  const int local = item - sd.first_item;
+  const int z = local / per_src;
+  const int tile = (local - z * per_src) / L.n_groups;
+  const int group = local - z * per_src - tile * L.n_groups;
+  const int row0 = tile * kRows;
+  const int rows = min(kRows, L.n_pkts - row0);
+  const int sub0 = group * kSubs;
+  const int subs = min(kSubs, L.n_subs - sub0);
+  const uint8_t* src =
+      sd.prefix + z * sd.prefix_src + size_t(row0) * L.row_stride;
+  uint8_t* buf = s_tile + (reinterpret_cast<uintptr_t>(src) & (kBulkAlign - 1));
+  const bool wait =
+      bulk_fetch(buf, src, uint32_t(rows) * L.row_stride, &s_bar);
+
+  // 1. under the copy: the rows' lengths and ages, the outputs' terms
+  const int32_t len = t < rows ? sd.length[z * sd.length_src + row0 + t] : 0;
+  if (t < rows) {
+    s_age[t] = sd.age_ms[z * sd.age_src + row0 + t];
+    s_sendable[t] = len > 0;                   // the reference's length > 0
+  }
+  if (t < subs) {
+    const uint32_t* st =
+        sd.state + z * sd.state_src + size_t(sub0 + t) * kStateCols;
+    uint32_t sv[kStateCols];
+#pragma unroll
+    for (int c = 0; c < kStateCols; ++c) sv[c] = st[c];
+    const int32_t b = sd.bucket[z * sd.bucket_src + sub0 + t];
+    s_seq_add[t] = (sv[3] - sv[1]) & 0xFFFFu;      // seq' = seq + this (mod 2^16)
+    s_ts_add[t] = sv[4] - sv[2];                   // ts' = ts + this (mod 2^32)
+    s_ssrc_be[t] = __byte_perm(sv[0], 0, 0x0123);  // big-endian on the wire
+    // bucket * delay in int64, wrapping as the plain version's product does
+    s_min_age[t] = int64_t(uint64_t(int64_t(b)) * uint64_t(L.delay_ms));
+  }
+  __syncthreads();                             // mbarrier init, head/tail bytes
+
+  // 2. the mask, bucket-eligible (age >= bucket * delay) and length > 0,
+  // into shared memory while the copy flies
+  int sent = 0;
+  if (t % kRows < rows) {
+    const int k = t % kRows;
+    const bool sendable = s_sendable[k];
+    const int64_t age = s_age[k];
+    for (int s = t / kRows; s < subs; s += kShardThreads / kRows) {
+      const bool m = sendable && age >= s_min_age[s];
+      s_mask[s * kRows + k] = uint8_t(m);
+      sent += m;
+    }
+  }
+
+  // 3. the parse
+  if (wait) mbar_wait(smem_addr(&s_bar), 0);
+  int best = -1;
+  if (t < rows) {
+    const uint8_t* row = buf + size_t(t) * L.row_stride;
+    const Parsed p = parse_row(row, len);
+    s_word0[t] = uint32_t(row[0]) | (uint32_t(row[1]) << 8) | (p.seq << 16);
+    s_ts[t] = p.ts;
+    // padding rows carry length 0: never valid, never a keyframe
+    if (p.kf && len > 0) best = row0 + t + sd.kf_base;
+  }
+  sent = __reduce_add_sync(0xffffffffu, sent);
+  best = __reduce_max_sync(0xffffffffu, best);
+  if ((t & 31) == 0) {
+    s_warp_count[t >> 5] = sent;
+    s_warp_best[t >> 5] = best;
+  }
+  __syncthreads();                             // the parsed rows, the mask
+
+  // 4. warp 0 folds; the others write the mask and the headers
+  if (t < 32) {
+    if (t == 0) shard_fold(L, sd, scratch, z, group == 0, s_warp_count,
+                           s_warp_best);
+    return;
+  }
+  constexpr int kStoreThreads = kShardThreads - 32;
+  constexpr int kMaskSlots = kRows / 16 + 1;   // chunks a mask span touches
+  uint8_t* const mask0 = sd.mask + z * sd.mask_src + row0;
+  for (int idx = t - 32; idx < subs * kMaskSlots; idx += kStoreThreads) {
+    const int s = idx / kMaskSlots;
+    const int c = idx - s * kMaskSlots;
+    const uintptr_t span =
+        reinterpret_cast<uintptr_t>(mask0 + (sub0 + s) * sd.mask_sub);
+    const int k0 = 16 * c - int(span & (kBulkAlign - 1));
+    if (k0 >= rows) continue;
+    const uint8_t* bits = s_mask + s * kRows;
+    uint8_t* chunk = reinterpret_cast<uint8_t*>(
+        (span & ~uintptr_t(kBulkAlign - 1)) + size_t(kBulkAlign) * c);
+    if (k0 >= 0 && k0 + 16 <= rows) {
+      uint4 v;
+      if ((k0 & (kBulkAlign - 1)) == 0) {      // an aligned span
+        v = *reinterpret_cast<const uint4*>(bits + k0);
+      } else {
+        uint32_t w[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+        for (int b = 0; b < 16; ++b)
+          w[b >> 2] |= uint32_t(bits[k0 + b]) << (8 * (b & 3));
+        v = make_uint4(w[0], w[1], w[2], w[3]);
+      }
+      *reinterpret_cast<uint4*>(chunk) = v;
+    } else {
+#pragma unroll
+      for (int b = 0; b < 16; ++b)
+        if (unsigned(k0 + b) < unsigned(rows)) chunk[b] = bits[k0 + b];
+    }
+  }
+  constexpr int kSlots = kRows * 12 / 16 + 1;  // chunks a header span touches
+  const int n_words = 3 * rows;
+  uint8_t* const hdr0 = sd.headers + z * sd.headers_src + size_t(row0) * 12;
+  for (int idx = t - 32; idx < subs * kSlots; idx += kStoreThreads) {
+    const int s = idx / kSlots;
+    const int c = idx - s * kSlots;
+    const uintptr_t span = reinterpret_cast<uintptr_t>(hdr0 + (sub0 + s) *
+                                                       sd.headers_sub);
+    const int i0 = 4 * c - int(span & (kBulkAlign - 1)) / 4;
+    if (i0 >= n_words) continue;
+    const uint4 v = header_chunk(i0, rows, s_word0, s_ts, s_seq_add[s],
+                                 s_ts_add[s], s_ssrc_be[s]);
+    uint32_t* chunk = reinterpret_cast<uint32_t*>(
+        (span & ~uintptr_t(kBulkAlign - 1)) + size_t(kBulkAlign) * c);
+    if (i0 >= 0 && i0 + 4 <= n_words) {
+      *reinterpret_cast<uint4*>(chunk) = v;
+    } else {
+      const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        if (i0 + k >= 0 && i0 + k < n_words) chunk[k] = w[k];
+    }
   }
 }
 
@@ -762,12 +1067,13 @@ int ed_parse_packets(const void* prefix, int n_rows, int row_stride,
       (reinterpret_cast<uintptr_t>(words) & 15) != 0)
     return int(cudaErrorInvalidValue);
   const int blocks = (n_rows + kTileRows - 1) / kTileRows;
-  parse_packets_kernel<<<blocks, kTileRows, smem,
-                         static_cast<cudaStream_t>(stream)>>>(
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (const int rc = ed_timing::start(st)) return rc;
+  parse_packets_kernel<<<blocks, kTileRows, smem, st>>>(
       static_cast<const uint8_t*>(prefix), n_rows, row_stride,
       static_cast<const int32_t*>(length), static_cast<uint4*>(words),
       static_cast<int32_t*>(flags));
-  return int(cudaGetLastError());
+  return ed_timing::stop(st, cudaGetLastError());
 }
 
 // One grouped window launch: ``buckets`` points at n_buckets WindowBucket
@@ -814,9 +1120,10 @@ int ed_relay_window(const void* buckets, int n_buckets, int cluster,
   cfg.stream = static_cast<cudaStream_t>(stream);
   cfg.attrs = attr;
   cfg.numAttrs = 1;
+  if (const int rc = ed_timing::start(cfg.stream)) return rc;
   const cudaError_t err = cudaLaunchKernelEx(&cfg, relay_window_kernel, launch);
-  if (err != cudaSuccess) return int(err);
-  return int(cudaGetLastError());
+  return ed_timing::stop(cfg.stream,
+                         err != cudaSuccess ? err : cudaGetLastError());
 }
 
 // One per-stream ring query: rows [capacity, row_stride] uint8 (prefix +
@@ -833,12 +1140,13 @@ int ed_ring_query(const void* rows, int capacity, int row_stride, int head,
       row_stride < kParsePrefix + kWindowExtra || smem > size_t(kDynSmemLimit))
     return int(cudaErrorInvalidValue);
   const int n_tiles = (capacity + kRingTileRows - 1) / kRingTileRows;
-  ring_query_kernel<<<n_tiles, kRingTileRows, smem,
-                      static_cast<cudaStream_t>(stream)>>>(
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (const int rc = ed_timing::start(st)) return rc;
+  ring_query_kernel<<<n_tiles, kRingTileRows, smem, st>>>(
       static_cast<const uint8_t*>(rows), capacity, row_stride, head,
       static_cast<const uint32_t*>(state), n_subs, static_cast<int*>(scratch),
       static_cast<uint32_t*>(out));
-  return int(cudaGetLastError());
+  return ed_timing::stop(st, cudaGetLastError());
 }
 
 // One batch-header pass (B9): prefix [n_pkts, row_stride] uint8, length
@@ -868,7 +1176,6 @@ int ed_relay_batch(const void* prefix, int n_pkts, int row_stride,
   a.state = static_cast<const uint32_t*>(state);
   a.bucket = static_cast<const int32_t*>(bucket);
   a.n_subs = n_subs;
-  a.min_len = 12;                              // not a runt
   a.delay_ms = delay_ms;
   a.headers = static_cast<uint32_t*>(headers);
   a.headers_sub = 3ll * n_pkts;
@@ -880,69 +1187,88 @@ int ed_relay_batch(const void* prefix, int n_pkts, int row_stride,
   a.newest = static_cast<int32_t*>(newest);
   const dim3 grid((n_pkts + kBatchTileRows - 1) / kBatchTileRows,
                   (n_subs + kBatchSubsPerCta - 1) / kBatchSubsPerCta);
-  relay_batch_kernel<false><<<grid, kBatchThreads, smem,
-                              static_cast<cudaStream_t>(stream)>>>(a);
-  return int(cudaGetLastError());
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (const int rc = ed_timing::start(st)) return rc;
+  relay_batch_kernel<<<grid, kBatchThreads, smem, st>>>(a);
+  return ed_timing::stop(st, cudaGetLastError());
 }
 
-// One mesh shard's relay step (B8): n_src sources of prefix [n_pkts,
-// row_stride] uint8 (``prefix_src`` bytes apart), length and age_ms
-// [n_pkts] int32, state [n_subs, 6] uint32 and bucket [n_subs] int32
-// (each ``*_src`` elements apart) -> headers [n_subs, n_pkts, 12] uint8 a
-// source (``headers_src`` bytes apart, outputs ``headers_sub`` bytes apart,
-// 4-byte aligned), mask [n_subs, n_pkts] a source (``mask_src``,
-// ``mask_sub`` bytes apart; eligible and length > 0), newest[n_src] maxed
-// with each source's newest keyframe + kf_base (fill it with -1 first) and
-// *eligible (uint64) increased by the mask's count (zero it first).  ONE
-// launch; shards of one result on one device may share newest and
-// eligible, in any order.
-int ed_relay_shard(const void* prefix, int n_src, int n_pkts, int row_stride,
-                   long long prefix_src, const void* length,
-                   long long length_src, const void* age_ms,
-                   long long age_src, const void* state, long long state_src,
-                   const void* bucket, long long bucket_src, int n_subs,
-                   long long delay_ms, int kf_base, void* headers,
-                   long long headers_src, long long headers_sub, void* mask,
-                   long long mask_src, long long mask_sub, void* newest,
-                   void* eligible, void* stream) {
-  const size_t smem = size_t(kBatchTileRows) * row_stride + kBulkAlign;
-  if (n_src < 1 || n_src > kShardMaxSources || n_pkts < 1 ||
-      n_pkts > kBatchMaxPkts || n_subs < 1 || n_subs > kBatchMaxSubs ||
-      row_stride < kParsePrefix || smem > size_t(kDynSmemLimit) ||
-      kf_base < 0 || kf_base > (1 << 30) ||
-      ((reinterpret_cast<uintptr_t>(headers) | uintptr_t(headers_src) |
-        uintptr_t(headers_sub)) & 3) != 0)
+// One grouped B8 launch (ed_relay_shard): ``launch`` points at a
+// ShardLaunch (ops/fanout.py ShardLaunchStruct, built by
+// shard_launch_plan); ``scratch`` holds 2 + 4 * kShardMaxSlots int32
+// that every launch leaves at 0.  Each shard's rows [n_src, n_pkts,
+// row_stride] uint8, lengths and ages [n_src, n_pkts] int32, state
+// [n_src, n_subs, 6] uint32 and buckets [n_src, n_subs] int32 -> headers
+// [n_src, n_subs, n_pkts, 12] uint8 (4-byte aligned) and mask [n_src,
+// n_subs, n_pkts] (eligible and length > 0), each where its strides put
+// it; newest[z] of each source block = its newest keyframe + kf_base,
+// maxed over the block's shards (-1 = none), and *eligible = the sends of
+// the launch (plus *eligible with ``accumulate``): written, not folded
+// into, so nothing is filled first.  ONE launch.  The plan is checked,
+// not trusted: a descriptor that does not follow it is refused.
+int ed_relay_shard(const void* launch, void* scratch, void* stream) {
+  const ShardLaunch& L = *static_cast<const ShardLaunch*>(launch);
+  const size_t smem = size_t(kShardTileRows) * L.row_stride + kBulkAlign;
+  if (L.n_shards < 1 || L.n_shards > kShardMaxShards || L.n_pkts < 1 ||
+      L.n_pkts > kBatchMaxPkts || L.n_subs < 1 || L.n_subs > kBatchMaxSubs ||
+      L.row_stride < kParsePrefix || smem > size_t(kDynSmemLimit) ||
+      L.n_tiles != (L.n_pkts + kShardTileRows - 1) / kShardTileRows ||
+      L.n_groups != (L.n_subs + kShardSubsPerCta - 1) / kShardSubsPerCta ||
+      L.n_sources < 1 || L.n_sources > kShardMaxSlots ||
+      L.eligible == nullptr || scratch == nullptr)
     return int(cudaErrorInvalidValue);
-  BatchArgs a = {};
-  a.prefix = static_cast<const uint8_t*>(prefix);
-  a.prefix_src = prefix_src;
-  a.n_pkts = n_pkts;
-  a.row_stride = row_stride;
-  a.length = static_cast<const int32_t*>(length);
-  a.age_ms = static_cast<const int32_t*>(age_ms);
-  a.length_src = length_src;
-  a.age_src = age_src;
-  a.state = static_cast<const uint32_t*>(state);
-  a.bucket = static_cast<const int32_t*>(bucket);
-  a.state_src = state_src;
-  a.bucket_src = bucket_src;
-  a.n_subs = n_subs;
-  a.min_len = 1;                               // the reference's length > 0
-  a.kf_base = kf_base;
-  a.delay_ms = delay_ms;
-  a.headers = static_cast<uint32_t*>(headers);
-  a.headers_src = headers_src / 4;
-  a.headers_sub = headers_sub / 4;
-  a.mask = static_cast<uint8_t*>(mask);
-  a.mask_src = mask_src;
-  a.mask_sub = mask_sub;
-  a.newest = static_cast<int32_t*>(newest);
-  a.eligible = static_cast<unsigned long long*>(eligible);
-  const dim3 grid((n_pkts + kBatchTileRows - 1) / kBatchTileRows,
-                  (n_subs + kBatchSubsPerCta - 1) / kBatchSubsPerCta, n_src);
-  relay_batch_kernel<true><<<grid, kBatchThreads, smem,
-                             static_cast<cudaStream_t>(stream)>>>(a);
-  return int(cudaGetLastError());
+  const long long per_src = (long long)L.n_tiles * L.n_groups;
+  long long items = 0, sources = 0;
+  for (int k = 0; k < L.n_shards; ++k) {
+    const ShardDesc& d = L.shard[k];
+    if (d.first_item != items || d.n_src < 1 || d.slot0 < 0 ||
+        d.slot0 + d.n_src > L.n_sources || d.kf_base < 0 ||
+        d.kf_base > (1 << 30) ||
+        ((reinterpret_cast<uintptr_t>(d.headers) | uintptr_t(d.headers_src) |
+          uintptr_t(d.headers_sub)) & 3) != 0)
+      return int(cudaErrorInvalidValue);
+    // the shards of one block share its slots, sources and newest; the
+    // blocks' slots do not overlap
+    int parts = 0;
+    bool first = true;
+    for (int q = 0; q < L.n_shards; ++q) {
+      const ShardDesc& e = L.shard[q];
+      if (e.slot0 != d.slot0) {
+        if (e.slot0 < d.slot0 + d.n_src && d.slot0 < e.slot0 + e.n_src)
+          return int(cudaErrorInvalidValue);
+        continue;
+      }
+      if (e.n_src != d.n_src || e.newest != d.newest)
+        return int(cudaErrorInvalidValue);
+      first = first && q >= k;
+      ++parts;
+    }
+    if (parts != d.parts) return int(cudaErrorInvalidValue);
+    if (first) sources += d.n_src;
+    items += d.n_src * per_src;
+    if (items > 0x7FFFFFFF) return int(cudaErrorInvalidValue);
+  }
+  if (items != L.n_items || sources != L.n_sources)
+    return int(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (const int rc = ed_timing::start(st)) return rc;
+  relay_shard_kernel<kShardTileRows, kShardSubsPerCta>
+      <<<unsigned(items), kShardThreads, smem, st>>>(
+          L, static_cast<int*>(scratch));
+  return ed_timing::stop(st, cudaGetLastError());
+}
+
+// ed_relay_shard's geometry and limits (ops/fanout.py SHARD_*): checked
+// by chip_smoke.py against the Python side.
+int ed_relay_shard_geometry(int* tile_rows, int* subs_per_cta,
+                            int* max_shards, int* max_slots,
+                            int* launch_bytes) {
+  *tile_rows = kShardTileRows;
+  *subs_per_cta = kShardSubsPerCta;
+  *max_shards = kShardMaxShards;
+  *max_slots = kShardMaxSlots;
+  *launch_bytes = int(sizeof(ShardLaunch));
+  return 0;
 }
 
 // ed_relay_batch's tile and limits (ops/fanout.py BATCH_*): checked by
@@ -977,8 +1303,53 @@ int ed_relay_window_optin(int* smem_limit) {
 }
 
 int ed_launch_floor(void* stream) {
-  launch_floor_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>();
-  return int(cudaGetLastError());
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (const int rc = ed_timing::start(st)) return rc;
+  launch_floor_kernel<<<1, 32, 0, st>>>();
+  return ed_timing::stop(st, cudaGetLastError());
+}
+
+// ------------------------------------------------------- the device timer
+// (launch_timing.h) A TimingPair's two timing events, made on `device`
+// (the calling thread's current device is left as it was).
+int ed_timing_open(int device, void* pair) {
+  TimingPair* t = static_cast<TimingPair*>(pair);
+  int old = 0;
+  cudaError_t e = cudaGetDevice(&old);
+  if (e != cudaSuccess) return int(e);
+  if (device != old && (e = cudaSetDevice(device)) != cudaSuccess)
+    return int(e);
+  t->start = t->stop = nullptr;
+  t->started = t->stops = 0;
+  e = cudaEventCreate(&t->start);
+  if (e == cudaSuccess) e = cudaEventCreate(&t->stop);
+  const cudaError_t back = device != old ? cudaSetDevice(old) : cudaSuccess;
+  return int(e != cudaSuccess ? e : back);
+}
+
+// Arm the calling thread's next launch with `pair` (null: disarm).
+int ed_timing_arm(void* pair) {
+  ed_timing::armed() = static_cast<TimingPair*>(pair);
+  return 0;
+}
+
+// Milliseconds from the pair's start to its last stop; both must be done.
+int ed_timing_elapsed(const void* pair, float* ms) {
+  const TimingPair* t = static_cast<const TimingPair*>(pair);
+  return int(cudaEventElapsedTime(ms, t->start, t->stop));
+}
+
+// Release the pair's events (those still pending are released once done).
+int ed_timing_close(void* pair) {
+  TimingPair* t = static_cast<TimingPair*>(pair);
+  cudaError_t e = cudaSuccess;
+  if (t->start != nullptr) e = cudaEventDestroy(t->start);
+  if (t->stop != nullptr) {
+    const cudaError_t e2 = cudaEventDestroy(t->stop);
+    if (e == cudaSuccess) e = e2;
+  }
+  t->start = t->stop = nullptr;
+  return int(e);
 }
 
 const char* ed_error_string(int code) {

@@ -84,6 +84,8 @@
 #include <cuda_runtime.h>
 #include <dlfcn.h>
 
+#include "launch_timing.h"
+
 namespace {
 
 constexpr int kTile = 256;                     // blocks per tile
@@ -443,12 +445,13 @@ int launch_requant(const void* levels, int n_chunks, const void* qt_in,
   const int per_cta = kRqThreads * kRqUnroll;
   int ctas = (n_chunks + per_cta - 1) / per_cta;
   if (ctas > wave) ctas = wave;
+  if (const int rc2 = ed_timing::start(stream)) return rc2;
   requant_rungs_kernel<R><<<ctas, kRqThreads, 0, stream>>>(
       static_cast<const int4*>(levels), n_chunks,
       static_cast<const float*>(qt_in), static_cast<const float*>(qt_rungs),
       static_cast<int4*>(rungs), static_cast<int*>(scratch),
       static_cast<int32_t*>(nonzeros));
-  return int(cudaGetLastError());
+  return ed_timing::stop(stream, cudaGetLastError());
 }
 
 using EncodeTiled = decltype(&cuTensorMapEncodeTiled);
@@ -530,11 +533,13 @@ int ed_decode_blocks(const void* levels, int n_blocks, const void* qtable,
                  64, 32, 64, CU_TENSOR_MAP_SWIZZLE_64B);
   if (rc != 0) return rc;
   const int n_tiles = (n_blocks + kTile - 1) / kTile;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if ((rc = ed_timing::start(st)) != 0) return rc;
   decode_blocks_kernel<<<n_tiles < ctas ? n_tiles : ctas, kThreads,
-                         kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
+                         kSmemBytes, st>>>(
       levels_map, out_map, n_blocks, static_cast<const float*>(qtable),
       static_cast<const float*>(idct8));
-  return int(cudaGetLastError());
+  return ed_timing::stop(st, cudaGetLastError());
 }
 
 // B7's ladder requant: levels [n_blocks, 64] int32 (16-byte aligned),

@@ -25,9 +25,10 @@ eligibility mask and the newest keyframe.  On CUDA tensors it is ONE
 launch of the hand-written ``ed_relay_batch`` (K1's parse fused in); on
 CPU tensors it runs ``relay_batch_step_plain``.  ``pack_batch_upload`` and
 ``batch_upload_views`` lay its five inputs out as one buffer, so the engine
-uploads a pass in one copy.  ``relay_shard_step`` is B8's per-shard step
-(``parallel.mesh``): the same kernel over a block of sources, as ONE
-``ed_relay_shard`` launch, writing into the whole result's views.
+uploads a pass in one copy.  ``relay_shard_step`` is B8's step for the
+mesh shards of one device (``parallel.mesh``): B9's function over each
+shard's block of sources, as ONE ``ed_relay_shard`` launch for all of
+them, writing into the whole result's views.
 
 All arithmetic on 32-bit quantities runs in int64 masked to 16/32 bits;
 values become uint32 only at the output boundary (``u32_from_i64``).
@@ -229,111 +230,306 @@ def relay_batch_step(prefix: torch.Tensor, length: torch.Tensor,
             "newest_keyframe": newest, "frame_last": flags[1]}
 
 
-#: ``ed_relay_shard``'s most sources a launch (``kShardMaxSources``: the
-#: grid's z limit)
-SHARD_MAX_SOURCES = 65535
+#: ``ed_relay_shard``'s geometry and limits (``kShard*`` in
+#: ``csrc/relay_kernels.cu``; chip_smoke.py checks them against the
+#: library's ``ed_relay_shard_geometry``): a CTA parses a 64-row tile for
+#: 64 outputs; a launch takes at most 16 shard descriptors and folds at
+#: most 4,096 sources, and runs at most 2^31 − 1 CTAs
+SHARD_TILE_ROWS = 64
+SHARD_SUBS_PER_CTA = 64
+SHARD_MAX_SHARDS = 16
+SHARD_MAX_SLOTS = 4096
+SHARD_MAX_ITEMS = (1 << 31) - 1
+#: the fold's scratch: the launch's ticket (two words), then four words a
+#: source slot (its ticket and its keyframe word, 64 bits each)
+SHARD_SCRATCH_WORDS = 2 + 4 * SHARD_MAX_SLOTS
 
 
-def check_shard_args(prefix, length, age_ms, out_state, bucket_of_output,
-                     headers, mask, newest, eligible) -> None:
-    """What ``ed_relay_shard`` takes, on either device: a shard's block of
-    ``n`` sources as views whose innermost axes are dense (any stride
-    between sources and, for the outputs, between outputs) — ``prefix``
-    ``[n, P, W>=96]`` uint8, ``length`` and ``age_ms`` ``[n, P]`` int32,
-    ``out_state`` ``[n, S, STATE_COLS]`` uint32, ``bucket_of_output``
-    ``[n, S]`` int32, ``headers`` ``[n, S, P, 12]`` uint8 (4-byte aligned),
-    ``mask`` ``[n, S, P]`` bool, ``newest`` ``[n]`` int32 and ``eligible``
-    a scalar int64, all on one device."""
-    if prefix.dim() != 3 or out_state.dim() != 3:
-        raise ValueError(f"prefix and out_state must be 3-D, got "
-                         f"{tuple(prefix.shape)} and {tuple(out_state.shape)}")
-    n, p, w = prefix.shape
-    s = out_state.shape[1]
-    if not 1 <= n <= SHARD_MAX_SOURCES:
-        raise ValueError(f"{n} sources is outside 1..{SHARD_MAX_SOURCES}")
-    check_batch_args(prefix[0], length[0], age_ms[0], out_state[0],
-                     bucket_of_output[0])
-    want = (("prefix", prefix, torch.uint8, (n, p, w), (w, 1)),
-            ("length", length, torch.int32, (n, p), (1,)),
-            ("age_ms", age_ms, torch.int32, (n, p), (1,)),
-            ("out_state", out_state, torch.uint32, (n, s, STATE_COLS),
-             (STATE_COLS, 1)),
-            ("bucket_of_output", bucket_of_output, torch.int32, (n, s), (1,)),
-            ("headers", headers, torch.uint8, (n, s, p, 12), (12, 1)),
-            ("mask", mask, torch.bool, (n, s, p), (1,)),
-            ("newest", newest, torch.int32, (n,), (1,)),
-            ("eligible", eligible, torch.int64, (), ()))
-    for name, t, dtype, shape, inner in want:
-        if tuple(t.shape) != shape:
-            raise ValueError(f"{name} must be {list(shape)}, got "
-                             f"{list(t.shape)}")
-        if t.dtype != dtype:
-            raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
-        if inner and tuple(t.stride()[-len(inner):]) != inner:
-            raise ValueError(f"{name}'s inner strides must be {inner}, got "
-                             f"{t.stride()}")
-        if t.device != prefix.device:
-            raise ValueError(f"{name} is on {t.device}, prefix on "
-                             f"{prefix.device}")
-    if (headers.data_ptr() | headers.stride(0) | headers.stride(1)) & 3:
-        raise ValueError("headers must be 4-byte aligned")
+@dataclass(frozen=True)
+class ShardBlock:
+    """One mesh shard's block of ``n`` sources for ``relay_shard_step``:
+    views whose innermost axes are dense (any stride between sources and,
+    for the outputs, between outputs) — ``prefix`` ``[n, P, W>=96]``
+    uint8, ``length`` and ``age_ms`` ``[n, P]`` int32, ``out_state``
+    ``[n, S, STATE_COLS]`` uint32, ``bucket_of_output`` ``[n, S]`` int32,
+    ``headers`` ``[n, S, P, 12]`` uint8 (4-byte aligned), ``mask``
+    ``[n, S, P]`` bool and ``newest`` ``[n]`` int32, all on one device.
+    The shards of one source block (its ``sub`` and ``win`` shards)
+    share one ``newest`` view; ``kf_base`` is the shard's first packet
+    along ``win``."""
+    prefix: torch.Tensor
+    length: torch.Tensor
+    age_ms: torch.Tensor
+    out_state: torch.Tensor
+    bucket_of_output: torch.Tensor
+    headers: torch.Tensor
+    mask: torch.Tensor
+    newest: torch.Tensor
+    kf_base: int = 0
+
+    def sources(self, lo: int, hi: int) -> "ShardBlock":
+        """The block's sources ``[lo, hi)``, as views."""
+        return ShardBlock(*(getattr(self, f)[lo:hi] for f in _SHARD_VIEWS),
+                          kf_base=self.kf_base)
 
 
-def relay_shard_step_plain(prefix, length, age_ms, out_state,
-                           bucket_of_output, bucket_delay_ms: int,
-                           kf_base: int, headers, mask, newest,
-                           eligible) -> None:
-    """B8's per-shard step in plain PyTorch (B9's plain chain a source, the
-    reference's ``length > 0`` mask): the arguments and effects of
+_SHARD_VIEWS = ("prefix", "length", "age_ms", "out_state",
+                "bucket_of_output", "headers", "mask", "newest")
+
+
+def check_shard_args(shards, eligible) -> None:
+    """What ``relay_shard_step`` takes, on either device: one or more
+    ``ShardBlock`` of one geometry (``n``, P, W, S) on one device, and
+    ``eligible`` a scalar int64 there."""
+    shards = list(shards)
+    if not shards:
+        raise ValueError("no shard to run")
+    geo = None
+    for blk in shards:
+        prefix, out_state = blk.prefix, blk.out_state
+        if prefix.dim() != 3 or out_state.dim() != 3:
+            raise ValueError(f"prefix and out_state must be 3-D, got "
+                             f"{tuple(prefix.shape)} and "
+                             f"{tuple(out_state.shape)}")
+        n, p, w = prefix.shape
+        s = out_state.shape[1]
+        if n < 1:
+            raise ValueError("a shard of 0 sources")
+        check_batch_args(prefix[0], blk.length[0], blk.age_ms[0],
+                         out_state[0], blk.bucket_of_output[0])
+        if geo is None:
+            geo = (n, p, w, s, prefix.device)
+        elif (n, p, w, s, prefix.device) != geo:
+            raise ValueError(f"shards of two geometries: {geo} and "
+                             f"{(n, p, w, s, prefix.device)}")
+        want = (("prefix", prefix, torch.uint8, (n, p, w), (w, 1)),
+                ("length", blk.length, torch.int32, (n, p), (1,)),
+                ("age_ms", blk.age_ms, torch.int32, (n, p), (1,)),
+                ("out_state", out_state, torch.uint32, (n, s, STATE_COLS),
+                 (STATE_COLS, 1)),
+                ("bucket_of_output", blk.bucket_of_output, torch.int32,
+                 (n, s), (1,)),
+                ("headers", blk.headers, torch.uint8, (n, s, p, 12),
+                 (12, 1)),
+                ("mask", blk.mask, torch.bool, (n, s, p), (1,)),
+                ("newest", blk.newest, torch.int32, (n,), (1,)))
+        for name, t, dtype, shape, inner in want:
+            if tuple(t.shape) != shape:
+                raise ValueError(f"{name} must be {list(shape)}, got "
+                                 f"{list(t.shape)}")
+            if t.dtype != dtype:
+                raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+            if tuple(t.stride()[-len(inner):]) != inner:
+                raise ValueError(f"{name}'s inner strides must be {inner}, "
+                                 f"got {t.stride()}")
+            if t.device != prefix.device:
+                raise ValueError(f"{name} is on {t.device}, prefix on "
+                                 f"{prefix.device}")
+        h = blk.headers
+        if (h.data_ptr() | h.stride(0) | h.stride(1)) & 3:
+            raise ValueError("headers must be 4-byte aligned")
+        if not 0 <= blk.kf_base <= 1 << 30:
+            raise ValueError(f"kf_base {blk.kf_base} is outside 0..2^30")
+    if (tuple(eligible.shape) != () or eligible.dtype != torch.int64
+            or eligible.device != geo[4]):
+        raise ValueError(f"eligible must be a scalar int64 on {geo[4]}, got "
+                         f"{eligible.dtype}{list(eligible.shape)} on "
+                         f"{eligible.device}")
+
+
+@dataclass(frozen=True)
+class ShardLaunch:
+    """One ``ed_relay_shard`` launch: its shards (each cut to its share of
+    its block's sources), each shard's first fold slot (the shards of one
+    block share theirs), the shards of its block (``parts``) and its
+    first CTA, the CTAs and slots in all, and whether it adds to
+    ``eligible`` (every launch of a call but the first) or writes it."""
+    shards: tuple[ShardBlock, ...]
+    slot0: tuple[int, ...]
+    parts: tuple[int, ...]
+    first_item: tuple[int, ...]
+    n_items: int
+    n_sources: int
+    accumulate: bool
+
+
+def shard_items(n_pkts: int, n_subs: int) -> int:
+    """The CTAs of one source of one shard: tiles × output groups."""
+    return -(-n_pkts // SHARD_TILE_ROWS) * -(-n_subs // SHARD_SUBS_PER_CTA)
+
+
+def shard_launch_plan(shards) -> list[ShardLaunch]:
+    """The launches that run ``shards`` (checked by ``check_shard_args``):
+    one while they fit one launch's ``SHARD_MAX_SHARDS`` descriptors,
+    ``SHARD_MAX_SLOTS`` sources and ``SHARD_MAX_ITEMS`` CTAs.  Past that,
+    the shards are cut along their sources and packed in order, every
+    shard of a source block (those that share its ``newest``) in the same
+    launch, so each launch writes its blocks' ``newest`` whole.  A block
+    of more than ``SHARD_MAX_SHARDS`` shards raises."""
+    shards = list(shards)
+    n, p, _w, s = (*shards[0].prefix.shape, shards[0].out_state.shape[1])
+    per_src = shard_items(p, s)
+    blocks: dict[tuple[int, int], list[ShardBlock]] = {}
+    for blk in shards:
+        blocks.setdefault((blk.newest.data_ptr(), blk.newest.numel()),
+                          []).append(blk)
+    units = []                  # (the block's shards cut to [lo, hi), hi - lo)
+    for group in blocks.values():
+        parts = len(group)
+        if parts > SHARD_MAX_SHARDS:
+            raise ValueError(f"{parts} shards of one source block (at most "
+                             f"{SHARD_MAX_SHARDS} a launch)")
+        cap = min(SHARD_MAX_SLOTS, SHARD_MAX_ITEMS // (parts * per_src))
+        for lo in range(0, n, cap):
+            hi = min(n, lo + cap)
+            units.append(([b.sources(lo, hi) if (lo, hi) != (0, n) else b
+                           for b in group], hi - lo))
+    # pack the units in order: a launch closes when the next unit would
+    # pass one of its limits
+    groups: list[list] = [[]]
+    descs = slots = items = 0
+    for group, m in units:
+        cost = len(group) * m * per_src
+        if groups[-1] and (descs + len(group) > SHARD_MAX_SHARDS
+                           or slots + m > SHARD_MAX_SLOTS
+                           or items + cost > SHARD_MAX_ITEMS):
+            groups.append([])
+            descs = slots = items = 0
+        groups[-1].append((group, m))
+        descs, slots, items = descs + len(group), slots + m, items + cost
+    plans = []
+    for packed in groups:
+        blks, slot0, parts, first = [], [], [], []
+        slots = items = 0
+        for group, m in packed:
+            for blk in group:
+                blks.append(blk)
+                slot0.append(slots)
+                parts.append(len(group))
+                first.append(items)
+                items += m * per_src
+            slots += m
+        plans.append(ShardLaunch(tuple(blks), tuple(slot0), tuple(parts),
+                                 tuple(first), items, slots, bool(plans)))
+    return plans
+
+
+class ShardDescStruct(ctypes.Structure):
+    """One shard of a grouped launch: ``ShardDesc`` in the source."""
+    _fields_ = [(f, ctypes.c_void_p) for f in (
+        "prefix", "length", "age_ms", "state", "bucket", "headers", "mask",
+        "newest")] + [(f, ctypes.c_longlong) for f in (
+            "prefix_src", "length_src", "age_src", "state_src", "bucket_src",
+            "headers_src", "headers_sub", "mask_src", "mask_sub")] + [
+        (f, ctypes.c_int) for f in ("n_src", "kf_base", "slot0", "parts",
+                                    "first_item", "pad")]
+
+
+class ShardLaunchStruct(ctypes.Structure):
+    """A grouped launch: ``ShardLaunch`` in the source."""
+    _fields_ = [("shard", ShardDescStruct * SHARD_MAX_SHARDS),
+                ("eligible", ctypes.c_void_p),
+                ("delay_ms", ctypes.c_longlong)] + [
+        (f, ctypes.c_int) for f in (
+            "n_shards", "n_pkts", "row_stride", "n_subs", "n_tiles",
+            "n_groups", "n_items", "n_sources", "accumulate", "pad")]
+
+
+def shard_descriptors(launch: ShardLaunch, bucket_delay_ms: int,
+                      eligible: torch.Tensor) -> ShardLaunchStruct:
+    """The ``ShardLaunch`` struct ``ed_relay_shard`` takes for ``launch``
+    (strides in the bytes or elements the source names)."""
+    first = launch.shards[0]
+    _n, p, w = first.prefix.shape
+    s = first.out_state.shape[1]
+    out = ShardLaunchStruct()
+    for k, blk in enumerate(launch.shards):
+        out.shard[k] = ShardDescStruct(
+            *(getattr(blk, f).data_ptr() for f in _SHARD_VIEWS),
+            blk.prefix.stride(0), blk.length.stride(0),
+            blk.age_ms.stride(0), blk.out_state.stride(0),
+            blk.bucket_of_output.stride(0), blk.headers.stride(0),
+            blk.headers.stride(1), blk.mask.stride(0), blk.mask.stride(1),
+            blk.prefix.shape[0], blk.kf_base, launch.slot0[k],
+            launch.parts[k], launch.first_item[k], 0)
+    out.eligible = eligible.data_ptr()
+    out.delay_ms = int(bucket_delay_ms)
+    out.n_shards = len(launch.shards)
+    out.n_pkts, out.row_stride, out.n_subs = p, w, s
+    out.n_tiles = -(-p // SHARD_TILE_ROWS)
+    out.n_groups = -(-s // SHARD_SUBS_PER_CTA)
+    out.n_items, out.n_sources = launch.n_items, launch.n_sources
+    out.accumulate = int(launch.accumulate)
+    return out
+
+
+def _shard_launch_plain(launch: ShardLaunch, bucket_delay_ms: int,
+                        eligible: torch.Tensor) -> None:
+    """One launch of ``relay_shard_step_plain``: B9's plain chain a source
+    with the reference's ``length > 0`` mask."""
+    total = torch.zeros((), dtype=torch.int64, device=eligible.device)
+    best: dict[int, torch.Tensor] = {}
+    for blk, slot0 in zip(launch.shards, launch.slot0):
+        kfs = []
+        for i in range(blk.prefix.shape[0]):
+            fields = parse_packets_kernel(blk.prefix[i], blk.length[i])
+            blk.headers[i] = fanout_headers(
+                blk.prefix[i, :, :2], fields["seq"], fields["timestamp"],
+                blk.out_state[i])
+            valid = blk.length[i] > 0
+            m = eligibility(blk.age_ms[i], blk.bucket_of_output[i],
+                            bucket_delay_ms) & valid[None, :]
+            blk.mask[i] = m
+            total += m.sum(dtype=torch.int64)
+            kf = newest_keyframe(fields["keyframe_first"], valid)
+            kfs.append(torch.where(kf >= 0, kf + blk.kf_base, kf))
+        kf = torch.stack(kfs).to(torch.int32)
+        best[slot0] = kf if slot0 not in best \
+            else torch.maximum(best[slot0], kf)
+    # every shard of a block is in the launch: its newest is written whole
+    for blk, slot0 in zip(launch.shards, launch.slot0):
+        blk.newest.copy_(best[slot0])
+    if launch.accumulate:
+        eligible += total
+    else:
+        eligible.copy_(total)
+
+
+def relay_shard_step_plain(shards, bucket_delay_ms: int,
+                           eligible: torch.Tensor) -> None:
+    """B8's grouped shard step in plain PyTorch, launch by launch of the
+    same plan (``shard_launch_plan``): the arguments and effects of
     ``relay_shard_step``."""
-    for i in range(prefix.shape[0]):
-        fields = parse_packets_kernel(prefix[i], length[i])
-        headers[i] = fanout_headers(prefix[i, :, :2], fields["seq"],
-                                    fields["timestamp"], out_state[i])
-        valid = length[i] > 0
-        m = eligibility(age_ms[i], bucket_of_output[i],
-                        bucket_delay_ms) & valid[None, :]
-        mask[i] = m
-        kf = newest_keyframe(fields["keyframe_first"], valid)
-        kf = torch.where(kf >= 0, kf + kf_base, kf).to(torch.int32)
-        newest[i] = torch.maximum(newest[i], kf)
-        eligible += m.sum(dtype=torch.int64)
+    shards = list(shards)
+    check_shard_args(shards, eligible)
+    for launch in shard_launch_plan(shards):
+        _shard_launch_plain(launch, bucket_delay_ms, eligible)
 
 
-def relay_shard_step(prefix, length, age_ms, out_state, bucket_of_output,
-                     bucket_delay_ms: int, kf_base: int, headers, mask,
-                     newest, eligible) -> None:
-    """One mesh shard's step (B8, ``parallel.mesh``) over its block of
-    ``n`` sources (shapes in ``check_shard_args``): writes each source's
-    ``[S, P, 12]`` headers and ``[S, P]`` mask (bucket-eligible and
-    ``length > 0``) into ``headers`` and ``mask``, maxes ``newest[i]``
-    with source i's newest keyframe + ``kf_base`` (−1: none; fill it with
-    −1 first) and adds the mask's count to ``eligible`` (zero it first).
-    Shards on one device may share ``newest`` and ``eligible``.  CUDA
-    tensors make ONE ``ed_relay_shard`` launch; CPU tensors run
-    ``relay_shard_step_plain``."""
-    check_shard_args(prefix, length, age_ms, out_state, bucket_of_output,
-                     headers, mask, newest, eligible)
-    if not 0 <= kf_base <= 1 << 30:
-        raise ValueError(f"kf_base {kf_base} is outside 0..2^30")
-    dev = prefix.device
+def relay_shard_step(shards, bucket_delay_ms: int,
+                     eligible: torch.Tensor) -> None:
+    """The mesh shards of one device in one step (B8, ``parallel.mesh``):
+    each ``ShardBlock``'s ``[S, P, 12]`` headers and ``[S, P]`` mask a
+    source (bucket-eligible and ``length > 0``) into its views; each
+    source block's ``newest`` written with its sources' newest keyframe +
+    ``kf_base``, maxed over the block's shards (−1: none); ``eligible``
+    written with the count of the mask.  Nothing needs filling first.
+    CUDA tensors make ONE ``ed_relay_shard`` launch for every launch of
+    ``shard_launch_plan`` (one, unless the shards pass a launch's
+    limits); CPU tensors run ``relay_shard_step_plain``."""
+    shards = list(shards)
+    check_shard_args(shards, eligible)
+    dev = shards[0].prefix.device
     if dev.type == "cpu":
-        relay_shard_step_plain(prefix, length, age_ms, out_state,
-                               bucket_of_output, bucket_delay_ms, kf_base,
-                               headers, mask, newest, eligible)
+        relay_shard_step_plain(shards, bucket_delay_ms, eligible)
         return
     if dev.type != "cuda":
         raise ValueError(f"no shard-step kernel for device {dev}")
-    n, p, w = prefix.shape
-    kernel_lib.launch(
-        "ed_relay_shard", prefix.data_ptr(), n, p, w, prefix.stride(0),
-        length.data_ptr(), length.stride(0), age_ms.data_ptr(),
-        age_ms.stride(0), out_state.data_ptr(), out_state.stride(0),
-        bucket_of_output.data_ptr(), bucket_of_output.stride(0),
-        out_state.shape[1], int(bucket_delay_ms), int(kf_base),
-        headers.data_ptr(), headers.stride(0), headers.stride(1),
-        mask.data_ptr(), mask.stride(0), mask.stride(1), newest.data_ptr(),
-        eligible.data_ptr())
+    scratch = kernel_lib.scratch("ed_relay_shard", SHARD_SCRATCH_WORDS, dev)
+    for launch in shard_launch_plan(shards):
+        desc = shard_descriptors(launch, bucket_delay_ms, eligible)
+        kernel_lib.launch("ed_relay_shard", ctypes.addressof(desc),
+                          scratch.data_ptr())
 
 
 def batch_upload_layout(n_pkts: int, n_subs: int) -> tuple[int, ...]:

@@ -25,10 +25,13 @@ The first ``library()`` call notes the build and load time with the
 profiler (``obs.PROFILER.note_compile``) under each kernel's name: the
 port's counterpart of a jitted step's first trace.
 
-A launch made inside ``timed(timer)`` (``ops.staging.DeviceTimer``) has
-the timer's start event recorded on its stream just before the thread's
-first launch and its stop event just after each launch, so the pair holds
-the kernels and none of the host's preparation of their arguments.
+A launch made inside ``timed(timer)`` (``ops.staging.DeviceTimer``) arms
+the calling thread with the timer's ``TimingPair`` just before the entry
+point is called; the entry point itself records the pair's start event
+just before the thread's first launch and its stop event just after each
+launch, inside the one host call (``csrc/launch_timing.h``), so the pair
+holds the kernels and neither the host's preparation of their arguments
+nor a wait to take the GIL back.
 """
 
 from __future__ import annotations
@@ -54,6 +57,8 @@ SOURCES = (_PKG / "csrc" / "relay_kernels.cu",
            _PKG / "csrc" / "transform_kernels.cu",
            _PKG / "csrc" / "fec_kernels.cu",
            _PKG / "csrc" / "h264_kernels.cu")
+#: headers the sources include (hashed with them)
+HEADERS = (_PKG / "csrc" / "launch_timing.h",)
 BUILD_DIR = _PKG.parent / "build" / "easydarwin_tpu_torch"
 GENCODE = ("-gencode", "arch=compute_90a,code=sm_90a")
 #: compile flags of every source (no fast-math: K2 rounds like jnp.round,
@@ -114,13 +119,10 @@ _SIGNATURES = {
                        _P, _P, _P, _P, _P, _P, _P),
     # -> tile rows, outputs per CTA, max P, max S
     "ed_relay_batch_geometry": (_IP, _IP, _IP, _IP),
-    # prefix, n_src, P, row_stride, prefix_src, length, length_src, age_ms,
-    # age_src, state, state_src, bucket, bucket_src, S, delay_ms, kf_base,
-    # headers, headers_src, headers_sub, mask, mask_src, mask_sub, newest,
-    # eligible, stream
-    "ed_relay_shard": (_P, _I, _I, _I, _LL, _P, _LL, _P, _LL, _P, _LL, _P,
-                       _LL, _I, _LL, _I, _P, _LL, _LL, _P, _LL, _LL, _P, _P,
-                       _P),
+    # ShardLaunch descriptor, scratch, stream
+    "ed_relay_shard": (_P, _P, _P),
+    # -> tile rows, outputs per CTA, max shards, max slots, launch bytes
+    "ed_relay_shard_geometry": (_IP, _IP, _IP, _IP, _IP),
     # levels, N, qt_in, qt_rungs, R, rungs, scratch, nonzeros, stream
     "ed_requant_rungs": (_P, _I, _P, _P, _I, _P, _P, _P, _P),
     # -> max rungs, max blocks, max CTAs
@@ -133,6 +135,12 @@ _SIGNATURES = {
     "ed_event_create": (ctypes.POINTER(_P),),
     # event (waits without the GIL: this library is a CDLL)
     "ed_event_synchronize": (_P,),
+    # device, TimingPair -> its two timing events, made on that device
+    "ed_timing_open": (_I, _P),
+    # TimingPair, -> ms from its start to its last stop
+    "ed_timing_elapsed": (_P, ctypes.POINTER(ctypes.c_float)),
+    # TimingPair (its events released)
+    "ed_timing_close": (_P,),
 }
 #: the entry points bound again through ``ctypes.PyDLL`` (``held``): host
 #: calls of microseconds that keep the GIL, for callers beside busy Python
@@ -145,9 +153,18 @@ _HELD_SIGNATURES = {
                                    _P, _P),
     # event, back, words, out, spin_us
     "ed_h264_leg_finish": (_P, _P, ctypes.c_longlong, _P, _I),
+    # TimingPair or null: arms (or disarms) this thread's next launch
+    "ed_timing_arm": (_P,),
 }
 #: ``cudaErrorNotReady``: an event or stream still has work pending
 CUDA_ERROR_NOT_READY = 600
+
+
+class TimingPair(ctypes.Structure):
+    """A device timer's two timing events and what the launches recorded
+    into them (``TimingPair`` in ``csrc/launch_timing.h``)."""
+    _fields_ = [("start", ctypes.c_void_p), ("stop", ctypes.c_void_p),
+                ("started", ctypes.c_int), ("stops", ctypes.c_int)]
 
 
 @dataclass
@@ -186,7 +203,7 @@ def _nvcc() -> str:
 
 def _source_hash() -> str:
     h = hashlib.sha256()
-    for src in SOURCES:
+    for src in (*SOURCES, *HEADERS):
         h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return h.hexdigest()[:16]
@@ -299,11 +316,9 @@ def launch_held(name: str, kernel: str, *args,
     stream = torch.cuda.current_stream(device)
     fn = getattr(held(), name)
     timer = getattr(_TIMING, "timer", None)
-    if timer is not None:
-        timer.before_launch(stream)
+    stops = _arm(timer)
     rc = fn(*args, stream.cuda_stream)
-    if timer is not None:
-        timer.after_launch(stream)
+    _disarm(timer, stops)
     if rc != 0:
         raise RuntimeError(f"{name} failed: {error_message(rc)}")
     with _LOCK:
@@ -316,21 +331,61 @@ def launch(name: str, *args) -> None:
     fn = getattr(library(), name)
     stream = torch.cuda.current_stream()
     timer = getattr(_TIMING, "timer", None)
-    if timer is not None:
-        timer.before_launch(stream)
+    stops = _arm(timer)
     rc = fn(*args, stream.cuda_stream)
-    if timer is not None:
-        timer.after_launch(stream)
+    _disarm(timer, stops)
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: {error_message(rc)}")
     with _LOCK:
         LAUNCHES[name] += 1
 
 
+def _arm(timer) -> int:
+    """Arm this thread's next launch with ``timer``'s pair (a GIL-keeping
+    call, so nothing waits between it and the launch); the pair's stop
+    count before the launch (-1 without a timer)."""
+    if timer is None:
+        return -1
+    held().ed_timing_arm(ctypes.byref(timer.pair))
+    return timer.pair.stops
+
+
+def _disarm(timer, stops: int) -> None:
+    """Clear the arm of an entry point that launched nothing (every launch,
+    made or failed, consumes its arm itself)."""
+    if timer is not None and timer.pair.stops == stops:
+        held().ed_timing_arm(None)
+
+
+def timing_pair(device: torch.device) -> TimingPair:
+    """A ``TimingPair`` whose two timing events live on ``device``."""
+    pair = TimingPair()
+    index = (device.index if device.index is not None
+             else torch.cuda.current_device())
+    rc = library().ed_timing_open(index, ctypes.byref(pair))
+    if rc != 0:
+        raise RuntimeError(f"ed_timing_open failed: {error_message(rc)}")
+    return pair
+
+
+def timing_ms(pair: TimingPair) -> float:
+    """Milliseconds from ``pair``'s start to its last stop, both done."""
+    ms = ctypes.c_float()
+    rc = library().ed_timing_elapsed(ctypes.byref(pair), ctypes.byref(ms))
+    if rc != 0:
+        raise RuntimeError(f"ed_timing_elapsed failed: {error_message(rc)}")
+    return ms.value
+
+
+def timing_close(pair: TimingPair) -> None:
+    """Release ``pair``'s events."""
+    library().ed_timing_close(ctypes.byref(pair))
+
+
 @contextlib.contextmanager
 def timed(timer):
-    """Record this thread's launches into ``timer`` (``before_launch`` and
-    ``after_launch`` around each) while the block runs."""
+    """Arm this thread's launches with ``timer``'s pair (``timer.pair``, a
+    ``TimingPair``) while the block runs."""
     outer = getattr(_TIMING, "timer", None)
     _TIMING.timer = timer
     try:

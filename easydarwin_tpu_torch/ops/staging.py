@@ -174,28 +174,30 @@ class PinnedStage:
 
 class DeviceTimer:
     """The device time of one wrapper call's kernels, taken by ``with
-    timer:`` around the call.  On a card: a pair of timing CUDA events
-    that ``kernel_lib.timed`` records on the launching stream just before
-    the call's first launch and just after its last, so the pair holds
-    the kernels and not the host's preparation of their arguments (only
-    the host's time inside the launch calls, where the card waits for the
-    kernel to arrive).  On the CPU, or with ``enabled`` False (as
-    ``EDTPU_PROFILE=0`` asks): host ``perf_counter_ns`` around the call
-    and no event at all.  ``ns()`` reads the card's pair only once the
-    caller knows the work is done (its own readiness check or a wait it
-    makes anyway): it never synchronises for a metric; a call that
+    timer:`` around the call.  On a card: a ``kernel_lib.TimingPair``, two
+    timing CUDA events on the timer's device that the launching entry
+    points themselves record, the start just before the call's first
+    launch and the stop just after each (``kernel_lib.timed``), so the
+    pair holds the kernels and not the host's preparation of their
+    arguments (only the host's time inside the launch calls, where the
+    card waits for the kernel to arrive).  On the CPU, or with ``enabled``
+    False (as ``EDTPU_PROFILE=0`` asks): host ``perf_counter_ns`` around
+    the call and no event at all.  ``ns()`` reads the card's pair only
+    once the caller knows the work is done (its own readiness check or a
+    wait it makes anyway): it never synchronises for a metric; a call that
     launched nothing reads 0."""
 
-    __slots__ = ("cuda", "pair", "launched", "t0", "t1", "_ctx")
+    __slots__ = ("pair", "t0", "t1", "_ctx")
 
     def __init__(self, device: torch.device, enabled: bool = True):
-        self.cuda = enabled and device.type == "cuda"
-        self.pair = ((torch.cuda.Event(enable_timing=True),
-                      torch.cuda.Event(enable_timing=True))
-                     if self.cuda else None)
-        self.launched = False
+        self.pair = (kernel_lib.timing_pair(device)
+                     if enabled and device.type == "cuda" else None)
         self.t0 = self.t1 = 0
         self._ctx = None
+
+    @property
+    def launched(self) -> bool:
+        return self.pair is not None and bool(self.pair.started)
 
     def __enter__(self) -> "DeviceTimer":
         if self.pair is not None:
@@ -212,20 +214,16 @@ class DeviceTimer:
         else:
             self.t1 = time.perf_counter_ns()
 
-    def before_launch(self, stream) -> None:
-        if not self.launched:
-            self.pair[0].record(stream)
-            self.launched = True
-
-    def after_launch(self, stream) -> None:
-        self.pair[1].record(stream)
-
     def ns(self) -> int:
         if self.pair is not None:
-            if not self.launched:
+            if not self.pair.started:
                 return 0
-            return int(self.pair[0].elapsed_time(self.pair[1]) * 1e6)
+            return int(kernel_lib.timing_ms(self.pair) * 1e6)
         return self.t1 - self.t0
+
+    def __del__(self) -> None:
+        if self.pair is not None and self.pair.start:
+            kernel_lib.timing_close(self.pair)
 
 
 def stage_fec_rows(ring, slots: np.ndarray, lens: np.ndarray,

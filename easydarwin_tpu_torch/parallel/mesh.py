@@ -16,19 +16,19 @@ total_eligible (out)  []                    sum over every shard
 ====================  ====================  =============================
 
 Each shard renders headers for its subscriber block over its packet
-block as ONE launch of the hand-written ``ed_relay_shard`` on the shard's
-device (``ops.fanout.relay_shard_step``: B9's kernel, K1's parse fused
-in, over the shard's sources, with the reference's ``length > 0`` mask);
-on the CPU its plain version.  The only cross-shard dependencies are two
-scalars a source: the newest keyframe, offset by the shard's ``win`` base
-and maxed over the ``win`` shards, and the count of eligible sends,
-summed over all.  The shards on the first shard's device write straight
-into the whole result and fold both into it in the kernel (an atomic
-max and add); a shard on another device writes its own block, which is
-copied over and folded by one max and one add on the first device.
-With a process group up (``parallel.distributed``) both become
-``all_reduce``s (MAX and SUM) over it, and each process runs only its
-own shards.
+block.  The shards of one device run as ONE launch of the hand-written
+``ed_relay_shard`` (``ops.fanout.relay_shard_step``: B9's function, K1's
+parse fused in, over every shard's sources, with the reference's
+``length > 0`` mask); on the CPU its plain version.  The only cross-shard
+dependencies are two scalars a source: the newest keyframe, offset by
+the shard's ``win`` base and maxed over the ``win`` shards, and the count
+of eligible sends, summed over all.  The shards on the first shard's
+device write straight into the whole result, and their launch writes
+both folds over them there: nothing is filled first.  The shards of
+another device write blocks of their own, which are copied over and
+folded by one max and one add on the first device.  With a process group
+up (``parallel.distributed``) both become ``all_reduce``s (MAX and SUM)
+over it, and each process runs only its own shards.
 
 No serving path calls this step: the server's mesh path is the
 megabatch scheduler's (``relay.megabatch``), one ``ed_relay_window`` a
@@ -155,6 +155,10 @@ def _sharded(mesh: RelayMesh, bucket_delay_ms: int, group, shard_step):
         raise ValueError("this process runs no shard of the mesh")
     first = devs[local[0]]
     spans = len(set(mesh.ranks.reshape(-1).tolist())) > 1
+    # the local shards by device, the first shard's device first
+    by_dev: dict[torch.device, list] = {}
+    for idx in local:
+        by_dev.setdefault(devs[idx], []).append(idx)
 
     def step(prefix, length, age, out_state, buckets):
         prefix = _as_tensor(prefix, torch.uint8)
@@ -167,40 +171,57 @@ def _sharded(mesh: RelayMesh, bucket_delay_ms: int, group, shard_step):
         nb = _blocks(n, n_src, "src")
         sb = _blocks(s, n_sub, "sub")
         pb = _blocks(p, n_win, "win")
+
+        def slices_of(i, j, k):
+            return (slice(i * nb, (i + 1) * nb), slice(j * sb, (j + 1) * sb),
+                    slice(k * pb, (k + 1) * pb))
+
         # the local shards tile the result; across processes the blocks of
         # other ranks stay 0
         alloc = torch.zeros if spans else torch.empty
         headers = alloc((n, s, p, 12), dtype=torch.uint8, device=first)
         mask = alloc((n, s, p), dtype=torch.bool, device=first)
-        newest = torch.full((n,), -1, dtype=torch.int32, device=first)
-        total = torch.zeros((), dtype=torch.int64, device=first)
-        for i, j, k in local:
-            dev = devs[i, j, k]
-            rs, ss, ps = (slice(i * nb, (i + 1) * nb),
-                          slice(j * sb, (j + 1) * sb),
-                          slice(k * pb, (k + 1) * pb))
-            if dev == first:
-                outs = (headers[rs, ss, ps], mask[rs, ss, ps], newest[rs],
-                        total)
-            else:
-                outs = (torch.empty((nb, sb, pb, 12), dtype=torch.uint8,
-                                    device=dev),
-                        torch.empty((nb, sb, pb), dtype=torch.bool,
-                                    device=dev),
-                        torch.full((nb,), -1, dtype=torch.int32, device=dev),
-                        torch.zeros((), dtype=torch.int64, device=dev))
-            with on_device(dev):
+        newest = torch.empty((n,), dtype=torch.int32, device=first)
+        total = torch.empty((), dtype=torch.int64, device=first)
+        filled = set()              # source blocks whose newest is written
+        for dev, idxs in by_dev.items():
+            home = dev == first
+            dev_newest, dev_total = (newest, total) if home else (
+                torch.empty((n,), dtype=torch.int32, device=dev),
+                torch.empty((), dtype=torch.int64, device=dev))
+            shards = []
+            for i, j, k in idxs:
+                rs, ss, ps = slices_of(i, j, k)
+                outs = (headers[rs, ss, ps], mask[rs, ss, ps]) if home else (
+                    torch.empty((nb, sb, pb, 12), dtype=torch.uint8,
+                                device=dev),
+                    torch.empty((nb, sb, pb), dtype=torch.bool, device=dev))
                 # the shard's block where it lies, or copied to its device
-                shard_step(prefix[rs, ps].to(dev), length[rs, ps].to(dev),
-                           age[rs, ps].to(dev), out_state[rs, ss].to(dev),
-                           buckets[rs, ss].to(dev), bucket_delay_ms, k * pb,
-                           *outs)
-            if dev != first:
-                h, m, kf, elig = outs
-                headers[rs, ss, ps] = h.to(first)
-                mask[rs, ss, ps] = m.to(first)
-                newest[rs] = torch.maximum(newest[rs], kf.to(first))
-                total += elig.to(first)
+                shards.append(fanout_ops.ShardBlock(
+                    prefix[rs, ps].to(dev), length[rs, ps].to(dev),
+                    age[rs, ps].to(dev), out_state[rs, ss].to(dev),
+                    buckets[rs, ss].to(dev), *outs, dev_newest[rs],
+                    kf_base=k * pb))
+            with on_device(dev):
+                shard_step(shards, bucket_delay_ms, dev_total)
+            blocks = sorted({i for i, _j, _k in idxs})
+            if home:
+                filled.update(blocks)
+                continue
+            for (i, j, k), blk in zip(idxs, shards):
+                rs, ss, ps = slices_of(i, j, k)
+                headers[rs, ss, ps] = blk.headers.to(first)
+                mask[rs, ss, ps] = blk.mask.to(first)
+            for i in blocks:
+                rs = slice(i * nb, (i + 1) * nb)
+                kf = dev_newest[rs].to(first)
+                newest[rs] = torch.maximum(newest[rs], kf) if i in filled \
+                    else kf
+                filled.add(i)
+            total += dev_total.to(first)
+        for i in range(n_src):
+            if i not in filled:     # another process's blocks
+                newest[i * nb:(i + 1) * nb] = -1
         if spans:
             dist = torch.distributed
             dist.all_reduce(newest, op=dist.ReduceOp.MAX, group=group)
@@ -217,18 +238,18 @@ def sharded_relay_step(mesh: RelayMesh, bucket_delay_ms: int = 73,
     total_eligible)`` on the first local shard's device.  The inputs
     (numpy arrays or tensors on any device) are split by the layout in the
     module docstring; each local shard reads its block where it lies, or
-    a copy on its device, and runs ONE ``ed_relay_shard`` there (its plain
-    version on the CPU).  Headers and mask hold the blocks this process
-    ran (every block, in one process).  ``group``: the process group
-    whose shards the mesh spans (default: the default group when one is
-    up)."""
+    a copy on its device, and the shards of each device run as ONE
+    ``ed_relay_shard`` there (its plain version on the CPU).  Headers and
+    mask hold the blocks this process ran (every block, in one process).
+    ``group``: the process group whose shards the mesh spans (default:
+    the default group when one is up)."""
     return _sharded(mesh, bucket_delay_ms, group, fanout_ops.relay_shard_step)
 
 
 def sharded_relay_step_plain(mesh: RelayMesh, bucket_delay_ms: int = 73,
                              group=None):
-    """``sharded_relay_step`` with each shard running the plain version
-    (``ops.fanout.relay_shard_step_plain``) on its device, the card's
+    """``sharded_relay_step`` with each device's shards running the plain
+    version (``ops.fanout.relay_shard_step_plain``) there, the card's
     included."""
     return _sharded(mesh, bucket_delay_ms, group,
                     fanout_ops.relay_shard_step_plain)

@@ -1156,6 +1156,8 @@ class StreamingServer:
             self._pump_event.set()
             await self._pump_task
             self._pump_task = None
+        # the files of the SLO flags' dumps the writer thread still holds
+        await asyncio.to_thread(obs.FLIGHT.flush)
         self.rtsp.modules.run_shutdown(self)
         self.transcodes.stop_all()
         # every in-flight recording finalizes while its session exists

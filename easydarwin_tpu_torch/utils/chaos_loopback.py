@@ -4,11 +4,13 @@
 pushed over interleaved TCP, so their packets meet ``push_rtp``'s
 gauntlet; odd ones over UDP, drained natively, so they meet
 ``ingest_ring``'s) to ``players`` UDP players each, from an in-process
-``StreamingServer`` whose ``resilience_fault_plan`` is armed from its
-start.  While the faults fire it samples each stream's rung every
-``SAMPLE_S``; then it disarms the injector and waits for every stream to
-climb back to the megabatch rung, and serves ``confirm_s`` more.  It
-holds:
+``StreamingServer`` whose ``resilience_fault_plan`` (``CHAOS_PLAN``) is
+armed from its start.  When every player plays, it arms that plan again
+with the device faults of ``device_fault_plan`` added, so that no stream
+degrades before the megabatch serves them all, and samples each
+stream's rung every ``SAMPLE_S`` for ``fault_s``; then it disarms the
+injector and waits for every stream to climb back to the megabatch
+rung, and serves ``confirm_s`` more.  It holds:
 
 * ``fault_injected_total`` by site to the injector's own ``counts()``;
 * the ladder to have degraded (``resilience_transitions_total`` down);
@@ -54,22 +56,38 @@ from .. import native, obs
 from ..ops import kernel_lib
 from ..protocol import rtp, rtsp
 from ..resilience import INJECTOR, RUNGS
-from ..resilience.inject import SITES
+from ..resilience.inject import SITES, FaultPlan
 from ..server import ServerConfig, StreamingServer
 from . import synth
 from .loopback import VIDEO_SDP, MiniClient, check
 
-#: the plan of the chaos run: device errors on the megabatch and
-#: ``fanout.device_params`` sites, ingest drop and corrupt, EAGAIN and
-#: ENOBUFS at the egress core; ``chaos_relay`` arms it with its own seed
-CHAOS_PLAN = ("device_error_every=100,ingest_drop=0.01,"
-              "ingest_corrupt=0.01,egress_eagain_every=97,"
+#: the plan of the chaos run: ingest drop and corrupt, EAGAIN and ENOBUFS
+#: at the egress core; ``chaos_relay`` arms it with its own seed, and for
+#: the fault window with the device faults of ``device_fault_plan`` too
+CHAOS_PLAN = ("ingest_drop=0.01,ingest_corrupt=0.01,egress_eagain_every=97,"
               "egress_enobufs_every=131")
+#: device faults a ``recover_sec``: see ``device_fault_plan``
+DEVICE_FAULTS_PER_RECOVER = 2
 #: the rung sampling period, s
 SAMPLE_S = 0.05
 #: the recovery's allowance past ``RUNGS × recover_sec``: the 1 Hz
 #: maintenance tick, and a retry's backoff still running at the disarm
 RECOVER_SLACK_S = 2.0
+
+
+def device_fault_plan(recover_sec: float) -> str:
+    """Device errors on the ``megabatch.dispatch`` and
+    ``fanout.device_params`` sites, each at the first draw past
+    ``recover_sec / DEVICE_FAULTS_PER_RECOVER`` since the last.  The
+    ladder drops a stream's rung after ``max_retries`` + 1 faults with no
+    clean ``recover_sec`` between them.  Counted every Nth draw, the
+    faults come as far apart as the host's dispatch rate puts them, and a
+    slow host never degrades.  Under the period a slower host only moves
+    each fault to a later draw: the stream that draws first in a wake (or
+    every stream, when the scheduler's draw comes first) takes its faults
+    at most a period and a wake apart."""
+    return (f"device_error_period_s="
+            f"{recover_sec / DEVICE_FAULTS_PER_RECOVER!r}")
 
 
 def _window_launches() -> int:
@@ -218,7 +236,10 @@ async def chaos_relay(device, seed: int = 21, *, streams: int = 8,
             for _ in range(players):
                 plays.append((k, *await _player(app.rtsp.port,
                                                 f"/live/chaos{k}", "udp")))
-        # -- the faults fire
+        # -- the faults fire: the plan again, with the device faults
+        armed = f"seed={seed},{device_fault_plan(recover_sec)},{plan}"
+        counts0 = INJECTOR.counts()
+        INJECTOR.arm(FaultPlan.parse(armed))
         calls0, launches0 = app.megabatch.window_calls, _window_launches()
         wake0 = len(app.wake_ms)
         rung_s = dict.fromkeys(RUNGS, 0.0)
@@ -233,7 +254,9 @@ async def chaos_relay(device, seed: int = 21, *, streams: int = 8,
                 rung_s[lv["rung"]] += now - t_prev
             t_prev = now
         fault_wakes = list(app.wake_ms)[wake0:]
-        counts = {k: v for k, v in INJECTOR.counts().items() if v}
+        counts = {k: counts0.get(k, 0) + v
+                  for k, v in INJECTOR.counts().items()
+                  if counts0.get(k, 0) + v}
         calls_fault = app.megabatch.window_calls - calls0
         launches_fault = _window_launches() - launches0
         # -- disarm and recover
@@ -295,7 +318,7 @@ async def chaos_relay(device, seed: int = 21, *, streams: int = 8,
                                    ssrc, sources[k].payloads)
     return {
         "streams": streams, "players": streams * players,
-        "plan": cfg.resilience_fault_plan, "recover_sec": recover_sec, "fault_s": fault_s,
+        "plan": armed, "recover_sec": recover_sec, "fault_s": fault_s,
         "faults": counts, "fault_injected_total": {
             s: v for s, v in faults.items() if v},
         "egress_native_faults": native_faults,
@@ -423,4 +446,5 @@ async def restart_resume(device, folder: str, seed: int = 5, *,
     return out
 
 
-__all__ = ["CHAOS_PLAN", "chaos_relay", "restart_resume"]
+__all__ = ["CHAOS_PLAN", "chaos_relay", "device_fault_plan",
+           "restart_resume"]

@@ -21,6 +21,7 @@
   result (one test, 60 s).
 """
 
+import ctypes
 import json
 import os
 import socket
@@ -116,6 +117,16 @@ def test_win_axis_keyframe_offset():
     assert int(kf[0]) == int(np.asarray(want)[0]) == 61
 
 
+def _blocks_of(batch, devices=CPU8, **axes):
+    """The port's step over ``devices`` laid out as ``axes``, and the JAX
+    result of the same layout on the forced host devices."""
+    ref = ref_mesh.make_relay_mesh(**axes)
+    want = [np.asarray(a) for a in ref_mesh.sharded_relay_step(ref, 40)(
+        *ref_mesh.shard_args(ref, *batch))]
+    return mesh.sharded_relay_step(mesh.make_relay_mesh(devices, **axes),
+                                   40), want
+
+
 def _shard_outputs(n, s, p, newest=-1, eligible=0):
     return (torch.zeros((n, s, p, 12), dtype=torch.uint8),
             torch.zeros((n, s, p), dtype=torch.bool),
@@ -123,47 +134,50 @@ def _shard_outputs(n, s, p, newest=-1, eligible=0):
             torch.full((), eligible, dtype=torch.int64))
 
 
+_VIEWS = ("prefix", "length", "age_ms", "out_state", "bucket_of_output",
+          "headers", "mask", "newest")
+
+
 @needs_devices
 def test_relay_shard_step_folds_into_shared_outputs_as_the_reference():
     """Two shards of one source block (the two halves along ``win``, each
-    a strided view of the whole batch) writing into views of one result
-    and sharing its keyframe and eligible folds give JAX's (1,1,2) step;
-    values already in the folds are maxed and added to."""
+    a strided view of the whole batch, sharing the block's ``newest``) in
+    one call, writing into views of one result, give JAX's (1,1,2) step;
+    ``newest`` and ``eligible`` are written, not folded into, so what
+    they held before is gone."""
     batch = [torch.from_numpy(a) for a in _short_rows_batch(4, 8, 64, 9)]
     prefix, length, age, state, buckets = batch
     ref = ref_mesh.make_relay_mesh(src=1, win=2, devices=jax.devices()[:2])
     want = [np.asarray(a) for a in ref_mesh.sharded_relay_step(ref, 40)(
         *ref_mesh.shard_args(ref, *(b.numpy() for b in batch)))]
-    headers, mask, newest, total = _shard_outputs(4, 8, 64, eligible=5)
-    for k in range(2):
-        ps = slice(32 * k, 32 * (k + 1))
-        fanout.relay_shard_step(prefix[:, ps], length[:, ps], age[:, ps],
-                                state, buckets, 40, 32 * k,
-                                headers[:, :, ps], mask[:, :, ps], newest,
-                                total)
+    headers, mask, newest, total = _shard_outputs(4, 8, 64, newest=1000,
+                                                  eligible=5)
+    shards = [fanout.ShardBlock(
+        prefix[:, ps], length[:, ps], age[:, ps], state, buckets,
+        headers[:, :, ps], mask[:, :, ps], newest, kf_base=32 * k)
+        for k, ps in enumerate((slice(0, 32), slice(32, 64)))]
+    fanout.relay_shard_step(shards, 40, total)
     for name, a, b in zip(("headers", "mask", "newest"),
                           (headers, mask, newest), want):
         np.testing.assert_array_equal(a.numpy(), b, err_msg=name)
-    assert int(total) == int(want[3]) + 5
-    newest[:] = 1000                       # a larger fold value stays
-    fanout.relay_shard_step(prefix, length, age, state, buckets, 40, 0,
-                            *_shard_outputs(4, 8, 64)[:2], newest, total)
-    assert (newest.numpy() == 1000).all()
+    assert int(total) == int(want[3])
     assert kernel_lib.LAUNCHES["ed_relay_shard"] == 0    # the CPU version
 
 
 def _shard_args(**bad):
     n, s, p = 2, 3, 8
-    args = dict(prefix=torch.zeros((n, p, 96), dtype=torch.uint8),
-                length=torch.zeros((n, p), dtype=torch.int32),
-                age_ms=torch.zeros((n, p), dtype=torch.int32),
-                out_state=torch.zeros((n, s, STATE_COLS), dtype=torch.uint32),
-                bucket_of_output=torch.zeros((n, s), dtype=torch.int32),
-                bucket_delay_ms=40, kf_base=0)
-    args.update(zip(("headers", "mask", "newest", "eligible"),
-                    _shard_outputs(n, s, p)))
-    args.update(bad)
-    return args
+    blk = dict(prefix=torch.zeros((n, p, 96), dtype=torch.uint8),
+               length=torch.zeros((n, p), dtype=torch.int32),
+               age_ms=torch.zeros((n, p), dtype=torch.int32),
+               out_state=torch.zeros((n, s, STATE_COLS), dtype=torch.uint32),
+               bucket_of_output=torch.zeros((n, s), dtype=torch.int32),
+               kf_base=0)
+    outs = _shard_outputs(n, s, p)
+    blk.update(zip(("headers", "mask", "newest"), outs[:3]))
+    eligible = bad.pop("eligible", outs[3])
+    blk.update(bad)
+    return dict(shards=[fanout.ShardBlock(**blk)], bucket_delay_ms=40,
+                eligible=eligible)
 
 
 @pytest.mark.parametrize("bad,err,match", [
@@ -197,12 +211,198 @@ def test_relay_shard_step_raises_on_a_wrong_view(bad, err, match):
     assert kernel_lib.LAUNCHES["ed_relay_shard"] == 0
 
 
+def test_relay_shard_step_raises_on_mixed_shards():
+    """No shard, shards of two geometries, and a source block of more
+    shards than a launch's descriptors are refused."""
+    args = _shard_args()
+    blk, eligible = args["shards"][0], args["eligible"]
+    with pytest.raises(ValueError, match="no shard"):
+        fanout.relay_shard_step([], 40, eligible)
+    other = fanout.ShardBlock(*(getattr(blk, f)[:1] for f in _VIEWS))
+    with pytest.raises(ValueError, match="two geometries"):
+        fanout.relay_shard_step([blk, other], 40, eligible)
+    with pytest.raises(ValueError, match="shards of one source block"):
+        fanout.relay_shard_step([blk] * (fanout.SHARD_MAX_SHARDS + 1), 40,
+                                eligible)
+    assert kernel_lib.LAUNCHES["ed_relay_shard"] == 0
+
+
 def test_relay_shard_step_raises_on_a_device_without_a_kernel():
-    args = {k: v.to("meta") if isinstance(v, torch.Tensor) else v
-            for k, v in _shard_args().items()}
+    args = _shard_args()
+    meta = fanout.ShardBlock(*(getattr(args["shards"][0], f).to("meta")
+                               for f in _VIEWS))
     with pytest.raises(ValueError, match="no shard-step kernel for device "
                                          "meta"):
-        fanout.relay_shard_step(**args)
+        fanout.relay_shard_step([meta], 40, args["eligible"].to("meta"))
+
+
+@needs_devices
+@pytest.mark.parametrize("axes", [
+    dict(src=8), dict(src=4, sub=2), dict(src=2, sub=2, win=2),
+    dict(src=1, sub=8), dict(src=1, sub=1, win=8)],
+    ids=["8-1-1", "4-2-1", "2-2-2", "1-8-1", "1-1-8"])
+def test_one_shard_step_call_a_device(axes, monkeypatch):
+    """The eight shards of ``CPU8`` share one device: a step makes ONE
+    call of the shard step, whose plan is ONE launch of eight
+    descriptors; a source block's ``sub`` and ``win`` shards share its
+    fold slots."""
+    calls, plans = [], []
+    step_fn, plan_fn = fanout.relay_shard_step, fanout.shard_launch_plan
+
+    def counted(shards, *args):
+        calls.append(len(shards))
+        return step_fn(shards, *args)
+
+    def planned(shards):
+        plans.append(plan_fn(shards))
+        return plans[-1]
+
+    monkeypatch.setattr(fanout, "relay_shard_step", counted)
+    monkeypatch.setattr(fanout, "shard_launch_plan", planned)
+    batch = _short_rows_batch(8, 32, 64, seed=3)
+    step, want = _blocks_of(batch, **axes)
+    for a, b in zip(step(*batch), want):
+        np.testing.assert_array_equal(a.numpy(), b)
+    assert calls == [8]
+    (launch,) = plans[-1]
+    parts = 8 // axes["src"]
+    assert len(launch.shards) == 8 and not launch.accumulate
+    assert launch.parts == (parts,) * 8 and launch.n_sources == 8
+    assert launch.slot0 == tuple(8 // axes["src"] * (k // parts)
+                                 for k in range(8))
+    assert launch.n_items == 8 * (8 // axes["src"]) * fanout.shard_items(
+        64 // axes.get("win", 1), 32 // axes.get("sub", 1))
+
+
+@pytest.mark.parametrize("axes", [dict(src=32), dict(src=16, win=2)],
+                         ids=["32-1-1", "16-1-2"])
+def test_shards_past_a_launch_split_into_launches(axes):
+    """32 shards on one device pass a launch's 16 descriptors: the plan
+    makes two launches, each with whole source blocks (a block's ``win``
+    shards together), the second adding to ``eligible``; the result
+    equals one shard's."""
+    batch = _short_rows_batch(32, 8, 64, seed=11)
+    devices = [torch.device("cpu")] * 32
+    got = mesh.sharded_relay_step(mesh.make_relay_mesh(devices, **axes),
+                                  40)(*batch)
+    want = mesh.sharded_relay_step(mesh.make_relay_mesh(CPU8[:1]), 40)(
+        *batch)
+    for name, a, b in zip(("headers", "mask", "newest", "total"), got,
+                          want):
+        np.testing.assert_array_equal(a.numpy(), b.numpy(), err_msg=name)
+    win = axes.get("win", 1)
+    nb, pb = 32 // axes["src"], 64 // win
+    headers, mask, newest, _total = _shard_outputs(32, 8, 64)
+    prefix, length, age, state, buckets = map(torch.from_numpy, batch)
+    shards = []
+    for i in range(axes["src"]):
+        rs = slice(i * nb, (i + 1) * nb)
+        for k in range(win):
+            ps = slice(k * pb, (k + 1) * pb)
+            shards.append(fanout.ShardBlock(
+                prefix[rs, ps], length[rs, ps], age[rs, ps], state[rs],
+                buckets[rs], headers[rs, :, ps], mask[rs, :, ps],
+                newest[rs], kf_base=k * pb))
+    plan = fanout.shard_launch_plan(shards)
+    assert [len(lp.shards) for lp in plan] == [16, 16]
+    assert [lp.accumulate for lp in plan] == [False, True]
+    for lp in plan:
+        blocks = {b.newest.data_ptr() for b in lp.shards}
+        assert lp.n_sources == len(blocks) * nb
+        assert lp.parts == (win,) * 16
+
+
+def test_a_block_past_a_launchs_slots_is_cut_along_its_sources():
+    """A block of 4,100 sources passes a launch's 4,096 fold slots: the
+    plan cuts it into views of 4,096 and 4 sources (two launches); the
+    packed descriptors name each view's own pointers, strides and
+    CTAs."""
+    n, p, s = 4100, 4, 2
+    headers, mask, newest, total = _shard_outputs(n, s, p)
+    blk = fanout.ShardBlock(
+        torch.zeros((n, p, 100), dtype=torch.uint8),
+        torch.zeros((n, p), dtype=torch.int32),
+        torch.zeros((n, p), dtype=torch.int32),
+        torch.zeros((n, s, STATE_COLS), dtype=torch.uint32),
+        torch.zeros((n, s), dtype=torch.int32), headers, mask, newest)
+    plan = fanout.shard_launch_plan([blk])
+    assert [lp.n_sources for lp in plan] == [4096, 4]
+    assert [lp.accumulate for lp in plan] == [False, True]
+    tail = plan[1].shards[0]
+    assert tail.newest.data_ptr() == newest[4096:].data_ptr()
+    desc = fanout.shard_descriptors(plan[1], 40, total)
+    d = desc.shard[0]
+    assert ctypes.sizeof(fanout.ShardDescStruct) == 160
+    assert ctypes.sizeof(desc) == 2616
+    assert (d.prefix, d.headers, d.mask) == (
+        blk.prefix[4096].data_ptr(), headers[4096].data_ptr(),
+        mask[4096].data_ptr())
+    assert (d.prefix_src, d.headers_src, d.headers_sub, d.mask_sub) == (
+        p * 100, s * p * 12, p * 12, p)
+    assert (d.n_src, d.slot0, d.parts, d.first_item) == (4, 0, 1, 0)
+    assert (desc.n_shards, desc.n_items, desc.n_sources, desc.accumulate,
+            desc.n_tiles, desc.n_groups, desc.row_stride) == (
+        1, 4, 4, 1, 1, 1, 100)
+    assert desc.eligible == total.data_ptr() and desc.delay_ms == 40
+
+
+@needs_devices
+@pytest.mark.parametrize("axes", [dict(src=2, sub=2, win=2),
+                                  dict(src=4, win=2)],
+                         ids=["2-2-2", "4-1-2"])
+def test_unaligned_win_spans_equal_jax(axes):
+    """P = 130 over two ``win`` shards at W = 100: each output's header
+    span starts 1,560 bytes after the last (8 past a 16-byte boundary)
+    and the second shard's 780 bytes into it, so no span is 16-byte
+    aligned, and its mask span 65 bytes in: equal to JAX."""
+    batch = _short_rows_batch(4, 18, 130, seed=13)
+    batch[0] = np.concatenate(
+        [batch[0], np.random.default_rng(13).integers(
+            0, 256, (4, 130, 4), dtype=np.uint8)], axis=2)
+    step, want = _blocks_of(batch, **axes)
+    for name, a, b in zip(("headers", "mask", "newest", "total"),
+                          step(*batch), want):
+        np.testing.assert_array_equal(a.numpy(), b, err_msg=name)
+
+
+def _chunk_model(head_words: int, rows: int, words: np.ndarray):
+    """``relay_shard_kernel``'s header stores in numpy: the span of
+    ``rows`` packets (``words`` [rows, 3]) starts ``head_words`` words past
+    a 16-byte boundary; each of its kSlots chunks renders packets j and
+    j + 1 and picks four words by its phase, a whole chunk as one store
+    and a partial one word by word.  Returns the words written at each
+    position past the boundary."""
+    n_words = 3 * rows
+    out = np.full(4 * (rows * 12 // 16 + 2), -1, np.int64)
+    slots = 64 * 12 // 16 + 1
+    for c in range(slots):
+        i0 = 4 * c - head_words
+        if i0 >= n_words:
+            continue
+        j = (i0 + 3) // 3 - 1
+        ph = i0 - 3 * j
+        w = [words[min(max(j + q, 0), rows - 1)] for q in (0, 1)]
+        six = [*w[0], *w[1]]
+        four = six[ph:ph + 4]
+        for k in range(4):
+            if 0 <= i0 + k < n_words:
+                out[4 * c + k] = four[k]
+    return out
+
+
+@pytest.mark.parametrize("head_words", [0, 1, 2, 3])
+def test_shard_header_chunks_cover_every_word_once(head_words):
+    """The kernel's chunk arithmetic (``header_chunk`` and its caller) in
+    numpy, at every alignment a 4-byte-aligned span can have and every
+    tile height: each word of the span is written with packet i // 3's
+    part i % 3, and nothing outside it."""
+    for rows in range(1, 65):
+        words = np.arange(3 * rows).reshape(rows, 3) + 1000
+        out = _chunk_model(head_words, rows, words)
+        span = out[head_words:head_words + 3 * rows]
+        np.testing.assert_array_equal(span, words.reshape(-1))
+        assert (out[:head_words] == -1).all()
+        assert (out[head_words + 3 * rows:] == -1).all()
 
 
 def test_example_batch_is_the_reference_batch():

@@ -17,6 +17,9 @@ the CPU.
   events byte-identical NDJSON pages, under a pinned clock;
 * a session's flight dump (events, spans, node id) is equal, file and
   document, under a pinned clock;
+* the SLO flag's ``dump_path`` over a stream's sessions is equal, files
+  and documents, from one pass over the span ring, and the port opens no
+  file on the calling thread;
 * the SLO watchdog's burn windows, budget gauges, violations and
   recoveries are equal over the same latency history and clock.
 
@@ -26,6 +29,7 @@ restores them, so the order of tests does not matter.
 
 import json
 import re
+import threading
 import types
 
 import numpy as np
@@ -355,6 +359,8 @@ def test_flight_dump_is_equal(tmp_path, monkeypatch):
         doc = rec.dump("abc123", reason="timeout: idle")
         assert rec.lookup("abc123") is doc
         assert rec.dump("abc123", reason="again") is None
+        if side == "port":
+            rec.flush()                 # its writer thread writes the file
         path = doc.pop("file")
         files[side] = (path.split("/")[-1], open(path).read())
         for s in doc["spans"]:
@@ -368,6 +374,76 @@ def test_flight_dump_is_equal(tmp_path, monkeypatch):
         for s in d["spans"]:
             s.pop("tid")
     assert a == b and a["events"] and len(a["spans"]) >= 2
+
+
+def test_flight_dump_path_is_equal_and_writes_off_the_caller(tmp_path,
+                                                             monkeypatch):
+    """The SLO flag's ``dump_path`` over a stream's sessions: the port's
+    documents and files equal the reference's, its span summaries come
+    from one pass over the span ring, and no file is opened on the
+    calling thread (the event loop); ``flush`` waits for them."""
+    import builtins
+    clock = FakeClock(1_700_000_321.5)
+    docs, files = {}, {}
+    caller = threading.get_ident()
+    opened, scans = [], []
+    for side in SIDES:
+        m = MODS[side]
+        monkeypatch.setattr(m.events, "time", clock)
+        monkeypatch.setattr(m.flight, "time", clock)
+        monkeypatch.setitem(m.events.NODE, "id", "edge-3")
+        monkeypatch.setitem(m.events.NODE, "fence", 1)
+        rec = m.flight.FlightRecorder(str(tmp_path / side))
+        log = m.events.EventLog()
+        log.add_sink(rec.on_event)
+        sids = [f"s{i}" for i in range(5)]
+        for i, sid in enumerate(sids):
+            rec.register(sid, trace_id=f"t{i}" if i != 3 else None,
+                         client_ip="10.0.0.9",
+                         path="/cam" if i != 4 else "/other")
+            for j, ev in enumerate(("rtsp.setup", "rtsp.play")):
+                fields = {k: i + j for k in m.events.SCHEMA[ev]}
+                log.emit(ev, session_id=sid, stream="/cam",
+                         trace_id=f"t{i}", **fields)
+        for k in range(40):
+            m.trace.TRACER.add("engine.step", 1_000 * k, 50 + k, cat="tpu",
+                               trace_id=f"t{k % 6}", extra=k)
+        if side == "port":
+            def tracked_open(*a, **kw):
+                opened.append(threading.get_ident())
+                return builtins.open(*a, **kw)
+            monkeypatch.setattr(m.flight, "open", tracked_open,
+                                raising=False)
+            records = m.flight.TRACER.records
+
+            def counted_records():
+                scans.append(1)
+                return records()
+            monkeypatch.setattr(m.flight.TRACER, "records", counted_records)
+        flagged = rec.dump_path("/cam", reason="slo: latency burn 20.0x")
+        assert flagged == sids[:4]
+        if side == "port":
+            assert len(scans) == 1
+            rec.flush()
+            assert opened and caller not in opened
+        got = {}
+        for sid in flagged:
+            doc = dict(rec.lookup(sid))
+            assert doc.pop("live") is True
+            dumped = dict(rec.dumps[sid])
+            path = dumped.pop("file")
+            files.setdefault(side, {})[sid] = (
+                path.split("/")[-1], json.loads(open(path).read()))
+            for d in (dumped, files[side][sid][1]):
+                for sp in d["spans"]:
+                    sp.pop("tid")
+            got[sid] = dumped
+        docs[side] = got
+    assert docs["ref"] == docs["port"]
+    assert files["ref"] == files["port"]
+    assert files["port"]["s0"][0] == "flight_edge-3_s0_1700000321.json"
+    assert len(docs["port"]["s1"]["spans"]) == 7
+    assert docs["port"]["s3"]["spans"] == []
 
 
 # ------------------------------------------------------------------- SLO

@@ -16,9 +16,10 @@ the CPU, and the profiler's cost on the port's own engine.
   (64 outputs × 256 packets, the loop and batch-header rungs) within
   the reference's 5% bound (``tests/test_profile.py``: interleaved
   pairs, min of each, up to three rounds);
-* a launch inside ``kernel_lib.timed`` records the timer's start event
-  just before the first launch and its stop event just after each, and
-  nothing around the rest of the call;
+* a launch inside ``kernel_lib.timed`` arms the timer's pair just before
+  the entry point, whose launch records the start event once and the
+  stop event after each; an entry point that launched nothing is
+  disarmed, and nothing is armed around the rest of the call;
 * on a two-device mesh where one device holds no row of the wake's first
   bucket, each device's window-call time rides the first bucket that
   device ran and is read only after that device's event is done, in a
@@ -335,31 +336,57 @@ class _FakeEvent:
 def test_launch_records_the_timer_around_the_launch_only(monkeypatch):
     from easydarwin_tpu_torch.ops import kernel_lib, staging
     log = []
+    armed = [None]
+
+    def fake_arm(ref):
+        armed[0] = None if ref is None else ref._obj
+        log.append(("arm", ref is not None))
+        return 0
 
     def fake_launch(*args):
+        # what csrc/launch_timing.h does inside the entry point: start
+        # once, launch, stop, the arm consumed; 3 launches nothing
+        pair = armed[0]
+        if args[0] == 3:
+            return 0
+        if pair is not None and not pair.started:
+            log.append("start")
+            pair.started = 1
         log.append(("launch",) + args)
+        if pair is not None:
+            log.append("stop")
+            pair.stops += 1
+        armed[0] = None
         return 0
 
     monkeypatch.setattr(kernel_lib, "library",
                         lambda: types.SimpleNamespace(ed_fake=fake_launch))
+    monkeypatch.setattr(kernel_lib, "held",
+                        lambda: types.SimpleNamespace(ed_timing_arm=fake_arm))
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda *_a: types.SimpleNamespace(cuda_stream=7))
     monkeypatch.setitem(kernel_lib.LAUNCHES, "ed_fake", 0)
     timer = staging.DeviceTimer(torch.device("cpu"))
-    timer.pair = (_FakeEvent(log, "start"), _FakeEvent(log, "stop"))
+    timer.pair = kernel_lib.TimingPair()
     kernel_lib.launch("ed_fake", 1)
     with timer:
         log.append("prepare")
         kernel_lib.launch("ed_fake", 2)
         kernel_lib.launch("ed_fake", 3)
+        kernel_lib.launch("ed_fake", 4)
         log.append("after")
-    kernel_lib.launch("ed_fake", 4)
-    assert log == [("launch", 1, 7), "prepare", "start", ("launch", 2, 7),
-                   "stop", ("launch", 3, 7), "stop", "after",
-                   ("launch", 4, 7)]
-    assert kernel_lib.LAUNCHES["ed_fake"] == 4 and timer.launched
+    kernel_lib.launch("ed_fake", 5)
+    assert log == [("launch", 1, 7), "prepare",
+                   ("arm", True), "start", ("launch", 2, 7), "stop",
+                   ("arm", True), ("arm", False),
+                   ("arm", True), ("launch", 4, 7), "stop", "after",
+                   ("launch", 5, 7)]
+    assert armed[0] is None
+    assert kernel_lib.LAUNCHES["ed_fake"] == 5 and timer.launched
+    assert (timer.pair.started, timer.pair.stops) == (1, 2)
     untimed = staging.DeviceTimer(torch.device("cpu"))
-    untimed.pair = timer.pair
+    untimed.pair = kernel_lib.TimingPair()
+    assert not untimed.launched
     assert untimed.ns() == 0             # launched nothing: no read
 
 

@@ -65,6 +65,31 @@ def test_chaos_run_degrades_and_recovers(tmp_path):
     assert res["delivered"] > 0
 
 
+def test_chaos_run_degrades_on_a_slow_pump(tmp_path, monkeypatch):
+    """A loaded host: every pump pass starts 60 ms late, so the pump
+    makes few device dispatches a second.  The chaos plan's device faults
+    still come closer together than ``recover_sec``, so the ladder still
+    degrades and every stream still recovers."""
+    import time
+
+    from easydarwin_tpu_torch.server import StreamingServer
+    reflect_all = StreamingServer.reflect_all
+
+    def slow(self):
+        time.sleep(0.06)
+        return reflect_all(self)
+
+    monkeypatch.setattr(StreamingServer, "reflect_all", slow)
+    res = asyncio.run(chaos_relay(
+        "cpu", 21, streams=3, players=2, fault_s=2.5, recover_sec=0.5,
+        confirm_s=0.6, log_folder=str(tmp_path)))
+    assert res["transitions"]["down"] > 0
+    assert res["recover_s"] <= res["recover_bound_s"]
+    assert res["window_calls"]["fault"] > 0
+    assert res["window_calls"]["after"] > 0
+    assert res["mismatches"] == 0
+
+
 def _two_streams(app, rng, broken=False):
     """Two live streams of three outputs each and their scalar twins."""
     from easydarwin_tpu_torch.relay.output import CollectingOutput

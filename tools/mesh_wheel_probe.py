@@ -1,15 +1,16 @@
 """``chip_smoke.py``'s phases 6c, 7f, 7g and 13d alone, and B8's timing.
 
 One command on the card runs the kernel build, phase 4d (B9 against its
-plain version: B8 shares its kernel), phase 6 (config 4 in-process, with
-the pump's deadline walk after each wake), phase 7b (for the shared pair's
+plain version: B8 shares its parse and header arithmetic), phase 6
+(config 4 in-process, with the pump's deadline walk after each wake),
+phase 7b (for the shared pair's
 ``sendmmsg`` figure phase 7g reports beside its own), phase 6c (B8 on
 two shards of the card and the scheduler's mesh path), 7f (the pump's
 timer wheel), 7g (per-player UDP pairs), 13d (the closed-loop requant),
 each after the launch counts are set to 0, then B8
 (``parallel.mesh.sharded_relay_step`` over two shards) at config 4's and
-the example batch's shapes: CUDA-event medians in a graph of its two
-``ed_relay_shard`` launches and of the entry point, a direct call, its
+the example batch's shapes: CUDA-event medians in a graph of its one
+``ed_relay_shard`` launch and of the entry point, a direct call, its
 plain version, its byte and operation bounds and the launch floor.
 About two minutes of command on the card, against the whole script's
 eight:
@@ -72,27 +73,21 @@ def main() -> int:
         m = pm.make_relay_mesh([card, card], src=2)
         step = pm.sharded_relay_step(m)
         plain = pm.sharded_relay_step_plain(m)
-        prefix, length, age, state, buckets = dev
-        headers = torch.empty((n, s, p, 12), dtype=torch.uint8, device=card)
-        mask = torch.empty((n, s, p), dtype=torch.bool, device=card)
-        newest = torch.full((n,), -1, dtype=torch.int32, device=card)
-        total = torch.zeros((), dtype=torch.int64, device=card)
+        outs = cs.b8_outputs(n, s, p)
+        shards = cs.b8_probe().layout_shards(dev, {"src": 2}, *outs[:3])
 
-        def shards():
-            for rs in (slice(0, n // 2), slice(n // 2, n)):
-                fanout.relay_shard_step(
-                    prefix[rs], length[rs], age[rs], state[rs], buckets[rs],
-                    73, 0, headers[rs], mask[rs], newest[rs], total)
+        def launch():
+            fanout.relay_shard_step(shards, 73, outs[3])
 
         nbytes, ops = cs.b8_bound(n, s, p)
-        row = {"kernel_ms": cs.graph_ms(shards, inner=20),
+        row = {"kernel_ms": cs.graph_ms(launch, inner=20),
                "graph_ms": cs.graph_ms(lambda: step(*dev), inner=20),
                "call_ms": cs.call_ms(lambda: step(*dev), reps=11, inner=10),
                "plain_ms": cs.graph_ms(lambda: plain(*dev), inner=20),
                "bytes_ms": nbytes / cs.PEAK_BYTES_PER_S * 1e3,
                "ops_ms": ops / cs.PEAK_OPS_PER_S * 1e3, "floor_ms": floor}
         out[f"b8_{n}x{s}x{p}"] = row
-        cs.log(f"[b8] {n}x{s}x{p}: two ed_relay_shard in a graph "
+        cs.log(f"[b8] {n}x{s}x{p}: one ed_relay_shard in a graph "
                f"{row['kernel_ms']:.6f} ms, entry point in a graph "
                f"{row['graph_ms']:.6f} ms, direct "
                f"call {row['call_ms']:.6f}, plain {row['plain_ms']:.6f}, "
