@@ -54,11 +54,17 @@ phase raises and the script exits non-zero.
 4d. b9      ``ed_relay_batch`` (B9) vs ``relay_batch_step_plain`` on the
              same card tensors and vs the call on CPU tensors, every key
              bit-exact: phase 7c's pass (P = 47, S = 16), P = S = 256, the
-             tile's edges, 20 fuzzed passes (runts, padding only, zero
-             rows, W 96-128, delay 0) and an unaligned view; one launch a
-             pass, its ticket back at 0; the library's tile and limits =
-             ``ops.fanout``'s; P, S = 65,537, W = 95, wrong dtypes, a
-             strided prefix and meta tensors raise without a launch
+             tile's edges, the output group's (S = G - 1, G, G + 1 and
+             2G + 1 at P = 47; P = 64, 65, 128 and 129 at S = 16) and
+             the fold's (P = 512, the last pass of 8 tiles folded in one
+             word's fields, and 513), the widest row (W = 735, the
+             kernel's shared-memory opt-in), 20 fuzzed passes (runts,
+             padding only, zero rows, W 96-128, delay 0) and an
+             unaligned view; one launch a pass, its
+             scratch back at 0 after one-tile and multi-tile passes; the
+             library's tile, limits and scratch = ``ops.fanout``'s; P,
+             S = 65,537, W = 95, wrong dtypes, a strided prefix and meta
+             tensors raise without a launch
 5. K2        ``ed_decode_blocks`` vs ``decode_blocks_plain`` at N = 1, 300,
              48,960 (one 1080p 4:2:0 frame), 48,961, T·stages + 1 (one
              past a full ring of tiles), CTAs·T·stages + 1 (every CTA
@@ -198,7 +204,12 @@ phase raises and the script exits non-zero.
              the plain version (K1 + torch ops) in a graph, the bound, the
              CPU call and the engine's batch leg (7c's and 7d's servers,
              and alone in this process at the same shape, its headers
-             held against the CPU call);
+             held against the CPU call); B9 in turns with the design it
+             replaced (4-output columns, a tile copied and parsed for
+             each: the column design, kept in ``tools/b9_batch_probe.cu``,
+             built beside the library, checked bit-exact first) at phase
+             7c's pass, two tiles (P = 67, S = 16) and P = S = 256 ([b9]
+             lines);
              ``ed_gf_parity`` at the wire shape (the kernels line) and the
              stripe, on one input set and rotating through 12 (75 MB, more
              than L2 holds), beside the launch floor, its bound and its
@@ -413,8 +424,12 @@ phase raises and the script exits non-zero.
              ``tpu_d2h_bytes_total`` equal the bytes the relay tiers'
              copies moved (``ops.staging.COPIED``), the three
              ``getserverinfo`` keys answer, the pprof profile parses; the
-             mean of the profiled runs' wake p50s is at most 1.5× that of
-             the runs without
+             profiled runs' pump host µs a packet relayed (every pass's
+             host ms over the packets they sent) and the server process's
+             CPU µs a packet (every thread), each mean to mean, are at
+             most 1.5× those of the runs without.  The wake p50s are
+             printed beside them: they follow how the packets fell into
+             wakes, and two runs of one setting differ by up to 1.5×
 16. chaos   the resilience tier on the card, in-process
              (``utils.chaos_loopback``): a server with
              ``resilience_fault_plan`` armed from its start
@@ -1238,35 +1253,48 @@ def b9_diff(got: dict, want: dict, what: str) -> int:
     return worst
 
 
-def batch_scratch_at_zero() -> None:
+def batch_scratch_at_zero(what: str = "ed_relay_batch") -> None:
+    """Every word of ``ed_relay_batch``'s scratch on this stream is 0."""
     import torch
     from easydarwin_tpu_torch.ops import fanout, kernel_lib
     torch.cuda.synchronize()
-    ticket = int(kernel_lib.scratch("ed_relay_batch",
-                                    fanout.BATCH_SCRATCH_WORDS,
-                                    torch.device("cuda", 0))[0])
-    check(ticket == 0, f"ed_relay_batch left its ticket at {ticket}")
+    words = kernel_lib.scratch("ed_relay_batch", fanout.BATCH_SCRATCH_WORDS,
+                               torch.device("cuda", 0)).cpu().tolist()
+    check(not any(words), f"{what} left its scratch at {words}")
 
 
 def phase_b9(rng) -> dict:
     """``ed_relay_batch`` (B9) against ``relay_batch_step_plain`` on the
     same card tensors and against the call on CPU tensors, every key
     bit-exact: phase 7c's pass (P = 47, S = 16), P = S = 256, the tile's
-    edges, a view whose first byte is not 16-byte aligned and 20 fuzzed
-    passes (runts, padding only, zero rows, rows of 97-128 bytes, delay 0);
+    edges, the output group's (S = G - 1, G, G + 1, 2G + 1 at P = 47) and
+    more tiles' (P = 64, 65, 128, 129 at S = 16), the fold's (P = 512,
+    513), the widest row (W = 735), a view whose first byte is not 16-byte
+    aligned and 20 fuzzed passes (runts, padding only, zero rows, rows of
+    97-128 bytes, delay 0); its scratch back at 0 after every pass;
     out-of-range shapes raise without a launch; one launch a pass."""
     import torch
     from easydarwin_tpu_torch.ops import fanout, kernel_lib
-    geo = kernel_lib.geometry("ed_relay_batch_geometry", 4)
+    geo = kernel_lib.geometry("ed_relay_batch_geometry", 5)
     check(geo == (fanout.BATCH_TILE_ROWS, fanout.BATCH_SUBS_PER_CTA,
-                  fanout.BATCH_MAX_PKTS, fanout.BATCH_MAX_SUBS),
+                  fanout.BATCH_MAX_PKTS, fanout.BATCH_MAX_SUBS,
+                  fanout.BATCH_SCRATCH_WORDS),
           f"ed_relay_batch_geometry {geo} differs from ops.fanout's")
+    g = fanout.BATCH_SUBS_PER_CTA
     cases = [("7c", 47, 16, 96, "fuzz", 73),
              ("config4", 256, 256, 96, "fuzz", 73),
              ("p1_s1", 1, 1, 96, "fuzz", 73),
-             ("p64_s16", 64, 16, 96, "fuzz", 73),
              ("p65_s17", 65, 17, 96, "fuzz", 73),
-             ("p600_s70_w100", 600, 70, 100, "fuzz", 40)]
+             ("p600_s70_w100", 600, 70, 100, "fuzz", 40),
+             ("p130_s9_w735", 130, 9, 735, "fuzz", 73)]
+    # the output group's edges at 7c's P, then more tiles at 7c's S
+    cases += [(f"p47_s{s}", 47, s, 96, "fuzz", 73)
+              for s in (g - 1, g, g + 1, 2 * g + 1)]
+    cases += [(f"p{p}_s16", p, 16, 96, "fuzz", 73)
+              for p in (64, 65, 128, 129)]
+    # the last pass whose keyframe folds in one word of tile fields, and
+    # the first past it (the CAS fold)
+    cases += [(f"p{p}_s5", p, 5, 96, "fuzz", 73) for p in (512, 513)]
     for i in range(20):
         cases.append((f"fuzz{i}", int(rng.integers(1, 700)),
                       int(rng.integers(1, 80)),
@@ -1288,6 +1316,8 @@ def phase_b9(rng) -> dict:
         what = f"ed_relay_batch {label} (P={p} S={s} W={w} {kind})"
         res[label] = max(b9_diff(got, plain, what + " vs plain"),
                          b9_diff(got, host, what + " vs CPU"))
+        # one tile writes newest at once; more meet in the 64-bit word
+        batch_scratch_at_zero(what)
     # rows at an address that is not 16-byte aligned: head and tail bytes
     arrays = b9_arrays(rng, 301, 9, 97)
     view = torch.from_numpy(arrays[0]).cuda()[1:]
@@ -1302,10 +1332,12 @@ def phase_b9(rng) -> dict:
     batch_scratch_at_zero()
     log(f"[b9] ed_relay_batch bit-exact on every key vs "
         f"relay_batch_step_plain on the card and vs the CPU call at "
-        f"{len(cases)} passes (7c P=47 S=16, P=S=256, tile edges, 20 "
-        f"fuzzed: runts, padding only, zero rows, W 96-128, delay 0) and "
-        f"an unaligned view; one launch a pass; ticket back at 0; geometry "
-        f"{geo} = ops.fanout's")
+        f"{len(cases)} passes (7c P=47 S=16, P=S=256, tile edges, group "
+        f"edges S={g - 1},{g},{g + 1},{2 * g + 1} at P=47, P=64,65,128,129 "
+        f"at S=16, P=512,513, W=735, 20 fuzzed: runts, padding only, zero "
+        f"rows, W 96-128, delay 0) and an unaligned view; one launch a "
+        f"pass; scratch back at 0 after each; geometry {geo} = "
+        f"ops.fanout's")
     before = kernel_lib.LAUNCHES["ed_relay_batch"]
     good = [torch.from_numpy(a).cuda() for a in b9_arrays(rng, 8, 3)]
     meta = [torch.empty(t.shape, dtype=t.dtype, device="meta")
@@ -3520,6 +3552,74 @@ def phase_b8_designs(probe_build, timed: list) -> dict:
     return out
 
 
+_B9_PROBE = None
+
+
+def b9_probe():
+    """``tools/b9_batch_probe.py`` as a module: the column design of B9 and
+    the helpers phase 10 times it with."""
+    global _B9_PROBE
+    if _B9_PROBE is None:
+        import importlib.util
+        spec = importlib.util.spec_from_file_location(
+            "b9_batch_probe", os.path.join(HERE, "tools", "b9_batch_probe.py"))
+        _B9_PROBE = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(_B9_PROBE)
+    return _B9_PROBE
+
+
+def phase_b9_designs(rng, probe_build, timed: list, shapes) -> dict:
+    """Phase 10's [b9] design lines: B9's one ``ed_relay_batch`` launch
+    against the column design (kept in ``tools/b9_batch_probe.cu``, whose
+    build started beside the library's) at each ``(label, P, S)``, in
+    turns (new, column, column, new), the column design first checked
+    bit-exact with the plain version on every key; the times also go to
+    the B9 rows of ``timed`` (``_column_ms``)."""
+    import torch
+    from easydarwin_tpu_torch.ops import fanout
+    probe = b9_probe()
+    lib, built = probe.load(probe_build)
+    out = {"probe_build_s": built["seconds"],
+           "ptxas": ptxas_report(built["log"], probe.KERNELS)}
+    ticket = torch.zeros(lib.probe_batch_scratch_words(), dtype=torch.int32,
+                         device="cuda")
+    for label, p, s in shapes:
+        dev = [torch.from_numpy(a).cuda() for a in b9_arrays(rng, p, s)]
+        want = fanout.relay_batch_step_plain(*dev, probe.DELAY)
+        outs = probe.outputs(p, s)
+        probe.column_call(lib, dev, outs, ticket)
+        b9_diff(probe.as_result(outs), want,
+                f"the column design at {label}")
+        check(int(ticket[0]) == 0, f"the column design at {label} left its "
+              f"ticket at {int(ticket[0])}")
+        cases = {"new": lambda: probe.product_call(dev, outs),
+                 "column": lambda: probe.column_call(lib, dev, outs, ticket)}
+        ms = {k: [] for k in cases}
+        for k in ("new", "column", "column", "new"):
+            ms[k].append(graph_ms(cases[k], inner=100))
+        b9_diff(probe.as_result(outs), want, f"ed_relay_batch at {label} "
+                f"after the graph replays")
+        batch_scratch_at_zero(f"ed_relay_batch at {label} after the replays")
+        bound = b9_bound(p, s)[0] / PEAK_BYTES_PER_S * 1e3
+        out[label] = {"P": p, "S": s, "new_ms": ms["new"],
+                      "column_ms": ms["column"], "bound_ms": bound}
+        for row in timed:
+            if row["name"] == "ed_relay_batch" and \
+                    row["_shape"] == f"P={p} S={s}":
+                row["_column_ms"] = ms["column"]
+                row["_new_in_turns_ms"] = ms["new"]
+        log(f"[b9] {label} P={p} S={s}: one ed_relay_batch "
+            f"{ms['new'][0]:.6f} / {ms['new'][1]:.6f} ms, the column design "
+            f"{ms['column'][0]:.6f} / {ms['column'][1]:.6f} ms, in turns new, "
+            f"column, column, new; bound {bound:.6f} ms (new at "
+            f"{bound / min(ms['new']):.1%}, the column design at "
+            f"{bound / min(ms['column']):.1%}); the column design bit-exact "
+            f"with the plain version")
+    log(f"[b9] the column design built in {built['seconds']:.1f} s beside the "
+        f"library; ptxas {out['ptxas']}")
+    return out
+
+
 def b8_diff(got, want, what: str) -> int:
     """Max |difference| of B8's four outputs; any is a failure."""
     err = 0
@@ -4036,7 +4136,9 @@ OBS_RUNS = (False, True, True, False)
 OBS_PLAYERS = dict(udp=16, tcp=16, meta=8, fec=8)
 OBS_GOPS = 5
 OBS_SEED = 20261019
-#: the most the profiled runs' mean wake p50 may be over the others'
+#: the most the profiled runs' mean host µs a packet relayed (the pump's
+#: passes, ``pass_ms_total`` over ``packets_out``), and their mean CPU µs
+#: a packet (the server process's ``cpu_s``), may be over the others'
 OBS_OVERHEAD_MAX = 1.5
 #: the most ``device_step``'s mean may be over the window kernel's own
 #: time (phase 10): the host's time inside the launch call, between the
@@ -4067,6 +4169,11 @@ def phase_observed(smi: str) -> dict:
            for k, v in runs.items()}
     p99 = {k: [r["server_stats"]["wake_ms_p99"] for r in v]
            for k, v in runs.items()}
+    per_packet, cpu_packet = (
+        {k: [r["server_stats"][key] * scale
+             / max(r["server_stats"]["packets_out"], 1) for r in v]
+         for k, v in runs.items()}
+        for key, scale in (("pass_ms_total", 1e3), ("cpu_s", 1e6)))
     st, final = on["server_stats"], on["final"]
     fams, samples = ol.exposition(final["metrics"][1])
     inventory = {f.name: f.kind for f in obs.REGISTRY.families()}
@@ -4115,11 +4222,20 @@ def phase_observed(smi: str) -> dict:
         check(status == 200, f"/api/v1/{name} answered {status}")
     check(all(s[d][0] == 200 for s in on["scrapes"] for d in ol.DOCS)
           and on["scrapes"], f"a scrape failed: {on['scrapes']}")
-    ratio = (sum(p50[True]) / len(p50[True])) \
-        / (sum(p50[False]) / len(p50[False]))
+    def mean(xs):
+        return sum(xs) / len(xs)
+
+    ratio = mean(per_packet[True]) / mean(per_packet[False])
+    cpu_ratio = mean(cpu_packet[True]) / mean(cpu_packet[False])
+    p50_ratio = mean(p50[True]) / mean(p50[False])
     check(ratio <= OBS_OVERHEAD_MAX,
-          f"wake p50s with obs {p50[True]} ms are {ratio:.2f}x the p50s "
-          f"without ({p50[False]} ms), mean to mean")
+          f"the pump's host µs a packet relayed with obs "
+          f"{per_packet[True]} are {ratio:.2f}x those without "
+          f"({per_packet[False]}), mean to mean")
+    check(cpu_ratio <= OBS_OVERHEAD_MAX,
+          f"the server's CPU µs a packet relayed with obs "
+          f"{cpu_packet[True]} are {cpu_ratio:.2f}x those without "
+          f"({cpu_packet[False]}), mean to mean")
     check(seconds <= limit_s,
           f"phase 15 took {seconds:.1f} s, over {limit_s} s")
     path = {k: sum(r["server_stats"]["kernel_launches"].get(k, 0)
@@ -4140,13 +4256,23 @@ def phase_observed(smi: str) -> dict:
         f"{dev_s / max(dev_n, 1) * 1e3:.6f} ms; tpu_h2d_bytes_total "
         f"{got['h2d']:.0f} and tpu_d2h_bytes_total {got['d2h']:.0f} = the "
         f"copies' {copied['h2d']} and {copied['d2h']}")
-    log(f"[observed] wake host ms, runs {OBS_RUNS} in turn: with "
-        f"EDTPU_PROFILE=1 p50 {p50[True]} p99 {p99[True]}, with =0 p50 "
-        f"{p50[False]} p99 {p99[False]}: ratio of the mean p50s "
-        f"{ratio:.3f} (limit {OBS_OVERHEAD_MAX}); phases (count, mean ms) "
+    log(f"[observed] runs {OBS_RUNS} in turn: the pump's host µs a packet "
+        f"relayed with EDTPU_PROFILE=1 {per_packet[True]}, with =0 "
+        f"{per_packet[False]}: ratio of the means {ratio:.3f}; the "
+        f"server's CPU µs a packet {cpu_packet[True]} against "
+        f"{cpu_packet[False]}: {cpu_ratio:.3f} (limit {OBS_OVERHEAD_MAX} "
+        f"each); wake host ms with =1 p50 {p50[True]} p99 "
+        f"{p99[True]}, with =0 p50 {p50[False]} p99 {p99[False]} (ratio of "
+        f"the mean p50s {p50_ratio:.3f}); phases (count, mean ms) "
         f"{ {f'{e}/{p}': (int(c), round(v / max(c, 1) * 1e3, 6)) for (e, p), (c, v) in sorted(phases.items())} }; "
         f"{seconds:.1f} s; card {smi}")
-    return {"seconds": seconds, "ratio": ratio, "path_launches": path,
+    return {"seconds": seconds, "ratio": ratio, "cpu_ratio": cpu_ratio,
+            "p50_ratio": p50_ratio,
+            "us_per_packet": {"on": per_packet[True],
+                              "off": per_packet[False]},
+            "cpu_us_per_packet": {"on": cpu_packet[True],
+                                  "off": cpu_packet[False]},
+            "path_launches": path,
             "device_step": {"count": dev_n, "mean_ms":
                             dev_s / max(dev_n, 1) * 1e3},
             "wake_ms": {"on": {"p50": p50[True], "p99": p99[True]},
@@ -4405,7 +4531,7 @@ def gf_storage_check(rng, shapes) -> int:
 KERNEL_NAMES = ("parse_packets_kernel", "relay_window_kernel",
                 "ring_query_kernel", "launch_floor_kernel",
                 "decode_blocks_kernel", "gf_parity_lanes_kernel",
-                "gf_parity_stripe_kernel", "relay_batch_kernel",
+                "gf_parity_stripe_kernel",
                 "requant_rungs_kernel", "h264_requant_chroma_kernel",
                 "h264_requant_kernel", "relay_shard_kernel")
 
@@ -4413,7 +4539,7 @@ KERNEL_NAMES = ("parse_packets_kernel", "relay_window_kernel",
 def kernel_key(mangled: str, names=KERNEL_NAMES) -> str | None:
     """The first of ``names`` in a mangled symbol, with its template's
     integer and bool arguments (``gf_parity_lanes_kernel<1,2>``,
-    ``relay_batch_kernel<1>``); None if none."""
+    ``relay_shard_kernel<64,16,1,1>``); None if none."""
     import re
     name = next((n for n in names if n in mangled), None)
     if name:
@@ -4536,6 +4662,10 @@ def phase_kernels(rng, launches: dict, errs: dict, levels, qt,
     #: case index → where its shape comes from, when not the main path's
     #: wake or an earlier run's shape
     where_of = {}
+    #: the outputs a launch descriptor points at, which no lambda holds:
+    #: kept for the phase, or the timed launches write into blocks the
+    #: allocator has handed on (B8's once wrote over B7's tables)
+    held = []
 
     def k1_case(rows: int, main: bool):
         pre, ln = fuzz_rows(rng, rows)
@@ -4562,6 +4692,7 @@ def phase_kernels(rng, launches: dict, errs: dict, levels, qt,
         (plan,) = fanout.window_launch_plan(
             shapes, [w.data_ptr() for w, _ in pairs])
         descs = fanout.window_descriptors(plan, pairs, outs)
+        held.append(outs)
         nbytes = sum(w.numel() + 4 * s.numel() + 4 * o.numel()
                      for (w, s), o in zip(pairs, outs))
         ops = sum(OPS_PER_WINDOW_ROW * b * p + OPS_PER_SUBSCRIBER * b * n_s
@@ -4686,6 +4817,7 @@ def phase_kernels(rng, launches: dict, errs: dict, levels, qt,
         (launch,) = fanout.shard_launch_plan(
             b8_probe().layout_shards(dev, {"src": 2}, *outs[:3]))
         desc = fanout.shard_descriptors(launch, 73, outs[3])
+        held.append(outs)
         scratch = kernel_lib.scratch("ed_relay_shard",
                                      fanout.SHARD_SCRATCH_WORDS, card)
         where_of[len(cases)] = ("phase 6c's mesh of two shards on the card "
@@ -4790,8 +4922,10 @@ def phase_kernels(rng, launches: dict, errs: dict, levels, qt,
     b9_diff(fanout.relay_batch_step(*dev, 73),
             fanout.relay_batch_step_plain(*dev, 73),
             "ed_relay_batch after the graph replays")
+    # against tables made now: a launch that wrote over the phase's
+    # tables fails here
     b7_diff(tk.requant_rungs(levels, qt_in, qt_rungs),
-            tf.requant_rungs_plain(levels, qt_in, qt_rungs),
+            tf.requant_rungs_plain(levels, *config5_tables()),
             "ed_requant_rungs after the graph replays")
     log("[kernels] ed_relay_batch and ed_requant_rungs after the graph "
         "replays: bit-exact, tickets back at 0")
@@ -5102,8 +5236,10 @@ def main() -> int:
     detail: dict = {}
     t_script = time.monotonic()
 
-    # B8's per-shard design, for phase 10: its nvcc runs beside the library's
+    # B8's per-shard design and B9's column design, for phase 10: their nvcc
+    # runs beside the library's
     b8_build = b8_probe().start_build(per_shard_only=True)
+    b9_build = b9_probe().start_build(column_only=True)
     b = kernel_lib.build()
     kernel_lib.library()
     log(f"[build] {b.path.name} built in {b.seconds:.3f} s")
@@ -5339,6 +5475,9 @@ def main() -> int:
                           stripe_shapes, b6_cases(b6_inputs))
     detail["kernels"] = timed
     detail["b8_designs"] = phase_b8_designs(b8_build, timed)
+    detail["b9_designs"] = phase_b9_designs(
+        rng, b9_build, timed, (("phase 7c", b9_p, b9_s), ("two tiles", 67, 16),
+                               ("P = S = 256", 256, 256)))
     observed_device_check(detail["observed"], timed)
     detail["join_query"] = join = join_query_ms(rng)
     ring_ms = next(k["ms"] for k in timed if k["name"] == "ed_ring_query"

@@ -41,11 +41,11 @@
 //     [S, P] mask (bucket-eligible and length >= 12), keyframe_first and
 //     frame_last [P] and the newest keyframe (-1 = none).  At phase 7c's
 //     pass (P = 47, S = 16) it moves 15 KB: bound by latency, like the
-//     others.  It was K1 and about 30 torch launches; now it is ONE launch
-//     of 64-row tile CTAs (K1's bulk_fetch and parse_row, each row parsed
-//     once) by 4-output columns, whose stores run as 4-byte words along
-//     each output's contiguous 12 * P header bytes, and whose newest
-//     keyframe is the ring query's self-resetting last-CTA fold.
+//     others; at P = S = 256 its 852 KB of headers and mask are most of
+//     its bytes.  It is ONE launch of ed_relay_shard's kernel as its
+//     one-source, one-shard case: a CTA parses a 64-row tile once for
+//     kBatchSubsPerCta outputs, writes their spans as 16-byte stores, and
+//     the newest keyframe meets in one self-resetting 64-bit word.
 //   * ed_relay_shard replaces the XLA pass
 //     easydarwin_tpu/parallel/mesh.py:80 _local_step (B8's per-shard step
 //     of sharded_relay_step, :110): B9's function over a shard's block of
@@ -162,26 +162,22 @@ constexpr int kMaxBuckets = 32;
 constexpr int kMaxCluster = 8;         // the portable cluster size
 constexpr int kTileRows = 64;          // K1: rows (and threads) per CTA
 constexpr int kRingTileRows = 128;     // ed_ring_query: rows (and threads) per CTA
-constexpr int kBatchTileRows = 64;     // ed_relay_batch: rows a CTA parses
-constexpr int kBatchThreads = 128;
-constexpr int kBatchSubsPerCta = 4;    // outputs a CTA renders
-constexpr int kBatchMaxPkts = 1 << 16;
-constexpr int kBatchMaxSubs = 1 << 16;
-constexpr int kBatchMaxTiles = kBatchMaxPkts / kBatchTileRows;
 constexpr int kShardTileRows = 64;     // ed_relay_shard: rows a CTA parses
 constexpr int kShardSubsPerCta = 64;   // outputs a CTA renders from them
 constexpr int kShardThreads = 256;
 constexpr int kShardMaxShards = 16;    // shard descriptors a launch
 constexpr int kShardMaxSlots = 4096;   // sources a launch folds
+constexpr int kBatchTileRows = 64;     // ed_relay_batch: rows a CTA parses
+constexpr int kBatchSubsPerCta = 4;    // outputs a CTA renders from them
+constexpr int kBatchMaxPkts = 1 << 16;
+constexpr int kBatchMaxSubs = 1 << 16;
+constexpr int kBatchScratchWords = 2;  // the 64-bit keyframe word
 
 // head + tail bytes are at most 2 * 15 (an empty interior means a span of
 // at most 30 bytes); threads 1.. load them, one byte each
 static_assert(kWindowThreads - 1 >= 2 * (kBulkAlign - 1), "head/tail loaders");
 static_assert(kTileRows - 1 >= 2 * (kBulkAlign - 1), "head/tail loaders");
 static_assert(kRingTileRows - 1 >= 2 * (kBulkAlign - 1), "head/tail loaders");
-static_assert(kBatchTileRows - 1 >= 2 * (kBulkAlign - 1), "head/tail loaders");
-static_assert(kBatchThreads >= kBatchTileRows, "one thread a row");
-static_assert(kBatchThreads >= kBatchSubsPerCta, "one thread an output");
 static_assert(kShardThreads - 1 >= 2 * (kBulkAlign - 1), "head/tail loaders");
 
 struct Parsed {
@@ -549,163 +545,7 @@ ring_query_kernel(const uint8_t* __restrict__ rows, int capacity,
   }
 }
 
-// --------------------------------------------------------- batch step (B9)
-
-// What one batch launch reads and writes: one source's rows, lengths and
-// ages, its outputs' state and delay buckets; the headers, the mask
-// (bucket-eligible and length >= 12), keyframe_first and frame_last, and
-// the newest keyframe, folded through ``scratch``.
-struct BatchArgs {
-  const uint8_t* prefix;
-  int n_pkts, row_stride;
-  const int32_t* length;
-  const int32_t* age_ms;
-  const uint32_t* state;
-  const int32_t* bucket;
-  int n_subs, pad;
-  long long delay_ms;
-  uint32_t* headers;
-  long long headers_sub;                 // 4-byte words
-  uint8_t* mask;
-  long long mask_sub;                    // bytes
-  uint8_t* keyframe_first;
-  uint8_t* frame_last;
-  int* scratch;
-  int32_t* newest;
-};
-
-// Grid (n_tiles, ceil(n_subs / kBatchSubsPerCta)).  CTA (x, y) takes rows
-// [64x, 64x + 64) into shared memory by the bulk copy, loads its outputs'
-// state and the rows' lengths and ages while the copy is in flight,
-// parses each row once (one thread a row) into shared memory, then writes
-// its (output, packet) tile: headers as 4-byte words, three a packet,
-// along each output's contiguous 12 * P bytes, and the mask bytes.  The
-// y = 0 CTAs also write keyframe_first and frame_last and, after their
-// stores are issued, fold the newest keyframe: one tile writes it at
-// once; more store each tile's max into partials[x] and make ONE acq_rel
-// add on the ticket, and the last arrival's warp 0 reduces the partials,
-// writes *newest and puts the ticket back to 0 (``scratch`` = ticket ++
-// partials[kBatchMaxTiles]; launches sharing it stay on one stream).
-__global__ void __launch_bounds__(kBatchThreads)
-relay_batch_kernel(const BatchArgs a) {
-  extern __shared__ __align__(16) uint8_t s_tile[];
-  __shared__ uint64_t s_bar;
-  __shared__ uint32_t s_word0[kBatchTileRows];   // b0 | b1 << 8 | seq << 16
-  __shared__ uint32_t s_ts[kBatchTileRows];
-  __shared__ int32_t s_age[kBatchTileRows];
-  __shared__ uint8_t s_sendable[kBatchTileRows];  // length >= 12
-  __shared__ uint32_t s_seq_add[kBatchSubsPerCta];
-  __shared__ uint32_t s_ts_add[kBatchSubsPerCta];
-  __shared__ uint32_t s_ssrc_be[kBatchSubsPerCta];
-  __shared__ int64_t s_min_age[kBatchSubsPerCta];
-  __shared__ int s_warp_best[kBatchThreads / 32];
-  __shared__ int s_last;
-  const int t = threadIdx.x;
-  const int tile = blockIdx.x;
-  const int n_pkts = a.n_pkts;
-  const int row0 = tile * kBatchTileRows;
-  const int rows = min(kBatchTileRows, n_pkts - row0);
-  const int sub0 = blockIdx.y * kBatchSubsPerCta;
-  const int subs = min(kBatchSubsPerCta, a.n_subs - sub0);
-  const bool first_col = blockIdx.y == 0;      // writes the per-packet outputs
-  const uint8_t* src = a.prefix + size_t(row0) * a.row_stride;
-  uint8_t* buf = s_tile + (reinterpret_cast<uintptr_t>(src) & (kBulkAlign - 1));
-  const bool wait =
-      bulk_fetch(buf, src, uint32_t(rows) * a.row_stride, &s_bar);
-
-  // under the copy: the rows' lengths and ages, the outputs' affine terms
-  const int32_t len = t < rows ? a.length[row0 + t] : 0;
-  const int32_t age = t < rows ? a.age_ms[row0 + t] : 0;
-  if (t < subs) {
-    const uint32_t* st = a.state + size_t(sub0 + t) * kStateCols;
-    uint32_t sv[kStateCols];
-#pragma unroll
-    for (int c = 0; c < kStateCols; ++c) sv[c] = st[c];
-    const int32_t b = a.bucket[sub0 + t];
-    s_seq_add[t] = (sv[3] - sv[1]) & 0xFFFFu;      // seq' = seq + this (mod 2^16)
-    s_ts_add[t] = sv[4] - sv[2];                   // ts' = ts + this (mod 2^32)
-    s_ssrc_be[t] = __byte_perm(sv[0], 0, 0x0123);  // big-endian on the wire
-    // bucket * delay in int64, wrapping as the plain version's product does
-    s_min_age[t] = int64_t(uint64_t(int64_t(b)) * uint64_t(a.delay_ms));
-  }
-  __syncthreads();                             // mbarrier init, head/tail bytes
-  if (wait) mbar_wait(smem_addr(&s_bar), 0);
-
-  int best = -1;
-  if (t < rows) {
-    const uint8_t* row = buf + size_t(t) * a.row_stride;
-    const Parsed p = parse_row(row, len);
-    s_word0[t] = uint32_t(row[0]) | (uint32_t(row[1]) << 8) | (p.seq << 16);
-    s_ts[t] = p.ts;
-    s_age[t] = age;
-    s_sendable[t] = len >= 12;                 // not a runt
-    if (first_col) {
-      a.keyframe_first[row0 + t] = uint8_t(p.kf);
-      a.frame_last[row0 + t] = uint8_t(p.fl);
-    }
-    // padding rows carry length 0: never valid, never a keyframe
-    if (p.kf && len > 0) best = row0 + t;
-  }
-  __syncthreads();                             // the parsed rows
-
-  // headers: word w of an output's span is packet w / 3, part w % 3
-  // (0: b0 b1 seq_hi seq_lo, 1: ts big-endian, 2: ssrc big-endian)
-  const int words = 3 * rows;
-  for (int s = 0; s < subs; ++s) {
-    uint32_t* out = a.headers + (sub0 + s) * a.headers_sub + size_t(row0) * 3;
-    const uint32_t seq_add = s_seq_add[s], ts_add = s_ts_add[s];
-    for (int w = t; w < words; w += kBatchThreads) {
-      const int j = w / 3;
-      const int part = w - 3 * j;
-      uint32_t v;
-      if (part == 0) {
-        const uint32_t w0 = s_word0[j];
-        const uint32_t seq = ((w0 >> 16) + seq_add) & 0xFFFFu;
-        v = (w0 & 0xFFFFu) | ((seq >> 8) << 16) | ((seq & 0xFFu) << 24);
-      } else if (part == 1) {
-        v = __byte_perm(s_ts[j] + ts_add, 0, 0x0123);
-      } else {
-        v = s_ssrc_be[s];
-      }
-      out[w] = v;
-    }
-    // mask: bucket-eligible (age >= bucket * delay) and long enough
-    if (t < rows) {
-      const bool m = s_sendable[t] && int64_t(s_age[t]) >= s_min_age[s];
-      a.mask[(sub0 + s) * a.mask_sub + row0 + t] = uint8_t(m);
-    }
-  }
-
-  if (!first_col) return;                      // uniform over the CTA
-  const int m = block_max<kBatchThreads>(best, s_warp_best);
-  if (gridDim.x == 1) {                        // one tile: no fold
-    if (t == 0) *a.newest = m;
-    return;
-  }
-  int* scratch = a.scratch;
-  if (t == 0) {
-    scratch[1 + tile] = m;
-    // one acq_rel atomic: it releases the partial before the arrival and,
-    // for the last CTA, acquires every other CTA's partial
-    int before;
-    asm volatile("atom.acq_rel.gpu.global.add.u32 %0, [%1], 1;"
-                 : "=r"(before) : "l"(scratch) : "memory");
-    s_last = before == int(gridDim.x) - 1;
-  }
-  __syncthreads();                             // s_last
-  if (!s_last || t >= 32) return;
-  // the last arrival: warp 0 folds the partials (read from L2)
-  int fold = -1;
-  for (int i = t; i < int(gridDim.x); i += 32)
-    fold = max(fold, __ldcg(scratch + 1 + i));
-  fold = __reduce_max_sync(0xffffffffu, fold);
-  if (t == 0) {
-    *a.newest = fold;
-    *scratch = 0;                              // ready for the next pass
-  }
-}
-
-// --------------------------------------------------------- shard step (B8)
+// ---------------------------------------- shard step (B8) and batch step (B9)
 
 // One mesh shard of a grouped B8 launch (ops/fanout.py ShardDescStruct has
 // the same layout): n_src sources of rows, lengths, ages, state and
@@ -714,7 +554,7 @@ relay_batch_kernel(const BatchArgs a) {
 // where it lies and writes straight into its block of the whole
 // [N, S, P, ...] result.  The shards of one source block (its ``sub`` and
 // ``win`` shards) share ``newest``, ``slot0`` and ``n_src``, and ``parts``
-// counts them.
+// counts them.  A B9 pass is one such shard of one source.
 struct ShardDesc {
   const uint8_t* prefix;
   const int32_t* length;
@@ -736,11 +576,12 @@ struct ShardDesc {
   int pad;
 };
 
-// Every shard of one device's call (or of its share, past kShardMaxShards
-// shards or kShardMaxSlots sources) in ONE launch.  The shards share the
-// packet, output and row geometry (a mesh cuts equal blocks).
-struct ShardLaunch {
-  ShardDesc shard[kShardMaxShards];
+// One launch of relay_shard_kernel: kSlots shard descriptors and the
+// packet, output and row geometry they share (a mesh cuts equal blocks);
+// ``eligible`` and ``accumulate`` are B8's.
+template <int kSlots>
+struct TileLaunch {
+  ShardDesc shard[kSlots];
   unsigned long long* eligible;
   long long delay_ms;
   int n_shards, n_pkts, row_stride, n_subs;
@@ -749,6 +590,12 @@ struct ShardLaunch {
   int accumulate;                        // add to *eligible, not write it
   int pad;
 };
+// B8: every shard of one device's call (or of its share, past
+// kShardMaxShards shards or kShardMaxSlots sources) in ONE launch
+using ShardLaunch = TileLaunch<kShardMaxShards>;
+// B9: one pass, 216 bytes of parameters where ShardLaunch has 2,616
+// (the two forms timed in turns: PERF.md)
+using BatchLaunch = TileLaunch<1>;
 
 static_assert(sizeof(ShardDesc) == 160, "ShardDescStruct layout");
 static_assert(sizeof(ShardLaunch) < 4096, "kernel parameter space");
@@ -788,16 +635,74 @@ __device__ __forceinline__ uint4 header_chunk(
                     p == 0 ? w[1][0] : p == 1 ? w[1][1] : w[1][2]);
 }
 
-// The fold of one CTA of a shard launch, by one thread, with relaxed
-// atomics whose values carry everything, so no fence orders any store:
-// ``counts`` and ``bests`` hold each warp's eligible sends and newest
-// keyframe (the source's index + kf_base, -1 = none); ``report_kf``
-// whether this CTA reports its tile's keyframe (group 0 does, one CTA a
-// tile).
-//   * the keyframe: the reporting CTAs of a source meet in its slot's
-//     keyframe word (keyframe + 1 above, arrivals below): a CAS that maxes
-//     the one and counts the other (an add when the tile has none); the
-//     last of the source's tiles writes newest[z] and resets the word;
+// A source's keyframe word (keyframe + 1 above, arrivals below), met by
+// the ``reporters`` CTAs that report its tiles, each with its tile's
+// newest keyframe ``m`` (-1 = none), through relaxed atomics whose values
+// carry everything, so no fence orders any store: a CAS that maxes the one
+// and counts the other (an add when the tile has none); the last arrival
+// writes *newest and resets the word.
+__device__ __forceinline__ void fold_keyframe(unsigned long long* kf, int m,
+                                              unsigned long long reporters,
+                                              int32_t* newest) {
+  unsigned long long now;
+  if (m < 0) {
+    now = atomicAdd(kf, 1ull) + 1;
+  } else {
+    unsigned long long seen = 0;
+    do {
+      now = (max(seen >> 32, (unsigned long long)(m + 1)) << 32) |
+            ((seen & 0xFFFFFFFFull) + 1);
+      const unsigned long long was = atomicCAS(kf, seen, now);
+      if (was == seen) break;
+      seen = was;
+    } while (true);
+  }
+  if ((now & 0xFFFFFFFFull) == reporters) {
+    *newest = int(now >> 32) - 1;              // 0 (none) rides as -1
+    *kf = 0;
+  }
+}
+
+// B9's fold of a pass of 2 to field_tiles(kRows) tiles of kRows rows, by
+// each tile's reporting CTA: ONE relaxed add of its arrival (the low
+// kFieldBase bits) and its newest keyframe's row in the tile + 1 (``r``
+// + 1, 0 = none) in field_bits(kRows) bits of its own, so the values
+// carry everything with no retry and no fence.  The last arrival reads
+// the highest tile's nonzero field, writes *newest and resets the word.
+constexpr int kFieldBase = 8;
+__host__ __device__ constexpr int field_bits(int rows) {
+  int b = 0;
+  while ((1 << b) <= rows) ++b;
+  return b;
+}
+__host__ __device__ constexpr int field_tiles(int rows) {
+  return (64 - kFieldBase) / field_bits(rows);
+}
+static_assert(field_tiles(kShardTileRows) == 8, "eight 64-row tiles a word");
+
+template <int kRows>
+__device__ __forceinline__ void fold_fields(unsigned long long* kf, int r,
+                                            int tile, int n_tiles,
+                                            int32_t* newest) {
+  constexpr int kBits = field_bits(kRows);
+  const unsigned long long mine =
+      1ull + ((unsigned long long)(r + 1) << (kFieldBase + kBits * tile));
+  const unsigned long long all = atomicAdd(kf, mine) + mine;
+  if (int(all & ((1ull << kFieldBase) - 1)) != n_tiles) return;
+  int best = -1;
+  for (int i = n_tiles - 1; i >= 0 && best < 0; --i) {
+    const int f = int(all >> (kFieldBase + kBits * i)) & ((1 << kBits) - 1);
+    if (f != 0) best = i * kRows + f - 1;
+  }
+  *newest = best;
+  *kf = 0;
+}
+
+// B8's fold of one CTA of a shard launch, by one thread: ``counts`` and
+// ``bests`` hold each warp's eligible sends and newest keyframe (the
+// source's index + kf_base, -1 = none); ``report_kf`` whether this CTA
+// reports its tile's keyframe (group 0 does, one CTA a tile).
+//   * the keyframe: fold_keyframe on its source slot's keyframe word;
 //   * the sends: every CTA adds its count (above) and one arrival (below)
 //     to its source's ticket; the source's last CTA resets it and adds the
 //     source's sends and one arrival to the launch's ticket, whose last
@@ -814,26 +719,9 @@ __device__ __forceinline__ void shard_fold(
   }
   unsigned long long* slot = reinterpret_cast<unsigned long long*>(
       scratch + 2 + 4 * (sd.slot0 + z));
-  if (report_kf) {
-    unsigned long long* kf = slot + 1;
-    unsigned long long now;
-    if (m < 0) {
-      now = atomicAdd(kf, 1ull) + 1;
-    } else {
-      unsigned long long seen = 0;
-      do {
-        now = (max(seen >> 32, (unsigned long long)(m + 1)) << 32) |
-              ((seen & 0xFFFFFFFFull) + 1);
-        const unsigned long long was = atomicCAS(kf, seen, now);
-        if (was == seen) break;
-        seen = was;
-      } while (true);
-    }
-    if ((now & 0xFFFFFFFFull) == (unsigned long long)sd.parts * L.n_tiles) {
-      sd.newest[z] = int(now >> 32) - 1;       // 0 (none) rides as -1
-      *kf = 0;
-    }
-  }
+  if (report_kf)
+    fold_keyframe(slot + 1, m, (unsigned long long)sd.parts * L.n_tiles,
+                  sd.newest + z);
   const unsigned long long before =
       atomicAdd(slot, (total << kSrcArrivalBits) | 1ull);
   const int per_src = L.n_tiles * L.n_groups;
@@ -858,8 +746,12 @@ __device__ __forceinline__ void shard_fold(
 
 // One CTA a work item (shard, source z, tile of kRows rows, group of kSubs
 // outputs), the group fastest, so CTAs that share a tile run side by side.
-// Outputs go out as 16-byte chunks: an output's mask span (rows bytes) and
-// header span (rows * 12 bytes) are cut into the aligned 16-byte chunks
+// B8 (kBatch false) and B9 (kBatch true) share it: B9 is B8's one-source,
+// one-shard case but for its mask's length floor (12, where B8's is > 0),
+// its keyframe_first and frame_last rows (written by group 0) and B8's sum
+// of the eligible sends, which it does not keep.  Outputs go out as
+// 16-byte chunks: an output's mask span (rows bytes) and header span
+// (rows * 12 bytes) are cut into the aligned 16-byte chunks
 // they touch, the chunks wholly inside a span go out as one 16-byte store
 // each (the chunks of a span run along consecutive threads), and the at
 // most one chunk at each end of a span that it only partly covers goes
@@ -868,18 +760,24 @@ __device__ __forceinline__ void shard_fold(
 //      outputs' state are loaded under it;
 //   2. while the copy flies, the mask, which needs no row byte, is
 //      computed into shared memory (a thread a row, for every
-//      kShardThreads / kRows-th output) and each thread counts its
+//      kShardThreads / kRows-th output) and each thread of B8 counts its
 //      eligible sends;
 //   3. each row is parsed once (one thread a row) for all kSubs outputs;
-//   4. warp 0 folds (shard_fold: relaxed atomics, no fence) while warps
-//      1.. write the mask and the headers.
-// ``scratch`` = the launch's ticket ++ kShardMaxSlots slots of (the
-// source's ticket, its keyframe word), each 64 bits; every launch leaves
-// it at 0, and launches sharing it stay on one stream.
-template <int kRows, int kSubs>
+//   4. warp 0 folds (relaxed atomics, no fence) while warps 1.. write the
+//      mask and the headers: B8's CTAs by shard_fold; B9's group-0 CTAs on
+//      its one keyframe word, by fold_fields up to field_tiles(kRows)
+//      tiles and by fold_keyframe past them (a one-tile pass writes
+//      *newest at once).
+// ``scratch``: B8's = the launch's ticket ++ kShardMaxSlots slots of (the
+// source's ticket, its keyframe word), B9's = its keyframe word, each 64
+// bits; every launch leaves it at 0, and launches sharing it stay on one
+// stream.
+template <int kRows, int kSubs, bool kBatch, int kSlots>
 __global__ void __launch_bounds__(kShardThreads)
-relay_shard_kernel(const __grid_constant__ ShardLaunch L,
-                   int* __restrict__ scratch) {
+relay_shard_kernel(const __grid_constant__ TileLaunch<kSlots> L,
+                   int* __restrict__ scratch,
+                   uint8_t* __restrict__ keyframe_first,
+                   uint8_t* __restrict__ frame_last) {
   static_assert(kRows <= kShardThreads && kSubs <= kShardThreads &&
                 kRows % 16 == 0 && kShardThreads % kRows == 0 &&
                 kShardThreads > 32,
@@ -889,7 +787,7 @@ relay_shard_kernel(const __grid_constant__ ShardLaunch L,
   __shared__ uint32_t s_word0[kRows];          // b0 | b1 << 8 | seq << 16
   __shared__ uint32_t s_ts[kRows];
   __shared__ int32_t s_age[kRows];
-  __shared__ uint8_t s_sendable[kRows];        // length > 0
+  __shared__ uint8_t s_sendable[kRows];        // length > 0 (B9: >= 12)
   __shared__ __align__(16) uint8_t s_mask[kSubs * kRows];
   __shared__ uint32_t s_seq_add[kSubs];
   __shared__ uint32_t s_ts_add[kSubs];
@@ -899,15 +797,20 @@ relay_shard_kernel(const __grid_constant__ ShardLaunch L,
   __shared__ int s_warp_count[kShardThreads / 32];
   const int t = threadIdx.x;
   const int item = blockIdx.x;
-  int d = 0;
-  for (int k = 1; k < L.n_shards; ++k)
-    if (item >= L.shard[k].first_item) d = k;
+  // B9: shard 0, source 0, so its descriptor's fields are constant-bank
+  // operands and no stride is multiplied (0.4 us at 7c's pass, PERF.md)
+  int d = 0, z = 0, local = item;
+  if constexpr (!kBatch) {
+    for (int k = 1; k < L.n_shards; ++k)
+      if (item >= L.shard[k].first_item) d = k;
+    const int per_src = L.n_tiles * L.n_groups;
+    local = item - L.shard[d].first_item;
+    z = local / per_src;
+    local -= z * per_src;
+  }
   const ShardDesc& sd = L.shard[d];
-  const int per_src = L.n_tiles * L.n_groups;
-  const int local = item - sd.first_item;
-  const int z = local / per_src;
-  const int tile = (local - z * per_src) / L.n_groups;
-  const int group = local - z * per_src - tile * L.n_groups;
+  const int tile = local / L.n_groups;
+  const int group = local - tile * L.n_groups;
   const int row0 = tile * kRows;
   const int rows = min(kRows, L.n_pkts - row0);
   const int sub0 = group * kSubs;
@@ -922,7 +825,8 @@ relay_shard_kernel(const __grid_constant__ ShardLaunch L,
   const int32_t len = t < rows ? sd.length[z * sd.length_src + row0 + t] : 0;
   if (t < rows) {
     s_age[t] = sd.age_ms[z * sd.age_src + row0 + t];
-    s_sendable[t] = len > 0;                   // the reference's length > 0
+    // B8: the reference's length > 0; B9: not a runt
+    s_sendable[t] = kBatch ? len >= 12 : len > 0;
   }
   if (t < subs) {
     const uint32_t* st =
@@ -939,7 +843,7 @@ relay_shard_kernel(const __grid_constant__ ShardLaunch L,
   }
   __syncthreads();                             // mbarrier init, head/tail bytes
 
-  // 2. the mask, bucket-eligible (age >= bucket * delay) and length > 0,
+  // 2. the mask, bucket-eligible (age >= bucket * delay) and sendable,
   // into shared memory while the copy flies
   int sent = 0;
   if (t % kRows < rows) {
@@ -949,7 +853,7 @@ relay_shard_kernel(const __grid_constant__ ShardLaunch L,
     for (int s = t / kRows; s < subs; s += kShardThreads / kRows) {
       const bool m = sendable && age >= s_min_age[s];
       s_mask[s * kRows + k] = uint8_t(m);
-      sent += m;
+      if (!kBatch) sent += m;
     }
   }
 
@@ -961,21 +865,41 @@ relay_shard_kernel(const __grid_constant__ ShardLaunch L,
     const Parsed p = parse_row(row, len);
     s_word0[t] = uint32_t(row[0]) | (uint32_t(row[1]) << 8) | (p.seq << 16);
     s_ts[t] = p.ts;
+    if (kBatch && group == 0) {
+      keyframe_first[row0 + t] = uint8_t(p.kf);
+      frame_last[row0 + t] = uint8_t(p.fl);
+    }
     // padding rows carry length 0: never valid, never a keyframe
-    if (p.kf && len > 0) best = row0 + t + sd.kf_base;
+    if (p.kf && len > 0) best = row0 + t + (kBatch ? 0 : sd.kf_base);
   }
-  sent = __reduce_add_sync(0xffffffffu, sent);
+  if (!kBatch) sent = __reduce_add_sync(0xffffffffu, sent);
   best = __reduce_max_sync(0xffffffffu, best);
   if ((t & 31) == 0) {
-    s_warp_count[t >> 5] = sent;
+    if (!kBatch) s_warp_count[t >> 5] = sent;
     s_warp_best[t >> 5] = best;
   }
   __syncthreads();                             // the parsed rows, the mask
 
   // 4. warp 0 folds; the others write the mask and the headers
   if (t < 32) {
-    if (t == 0) shard_fold(L, sd, scratch, z, group == 0, s_warp_count,
-                           s_warp_best);
+    if (t != 0) return;
+    if constexpr (kBatch) {
+      if (group == 0) {
+        int m = -1;
+#pragma unroll
+        for (int w = 0; w < kShardThreads / 32; ++w) m = max(m, s_warp_best[w]);
+        unsigned long long* kf = reinterpret_cast<unsigned long long*>(scratch);
+        if (L.n_tiles == 1)
+          *sd.newest = m;
+        else if (L.n_tiles <= field_tiles(kRows))
+          fold_fields<kRows>(kf, m < 0 ? -1 : m - row0, tile, L.n_tiles,
+                             sd.newest);
+        else
+          fold_keyframe(kf, m, (unsigned long long)L.n_tiles, sd.newest);
+      }
+    } else {
+      shard_fold(L, sd, scratch, z, group == 0, s_warp_count, s_warp_best);
+    }
     return;
   }
   constexpr int kStoreThreads = kShardThreads - 32;
@@ -1009,12 +933,12 @@ relay_shard_kernel(const __grid_constant__ ShardLaunch L,
         if (unsigned(k0 + b) < unsigned(rows)) chunk[b] = bits[k0 + b];
     }
   }
-  constexpr int kSlots = kRows * 12 / 16 + 1;  // chunks a header span touches
+  constexpr int kHdrSlots = kRows * 12 / 16 + 1;  // chunks a header span hits
   const int n_words = 3 * rows;
   uint8_t* const hdr0 = sd.headers + z * sd.headers_src + size_t(row0) * 12;
-  for (int idx = t - 32; idx < subs * kSlots; idx += kStoreThreads) {
-    const int s = idx / kSlots;
-    const int c = idx - s * kSlots;
+  for (int idx = t - 32; idx < subs * kHdrSlots; idx += kStoreThreads) {
+    const int s = idx / kHdrSlots;
+    const int c = idx - s * kHdrSlots;
     const uintptr_t span = reinterpret_cast<uintptr_t>(hdr0 + (sub0 + s) *
                                                        sd.headers_sub);
     const int i0 = 4 * c - int(span & (kBulkAlign - 1)) / 4;
@@ -1032,6 +956,68 @@ relay_shard_kernel(const __grid_constant__ ShardLaunch L,
         if (i0 + k >= 0 && i0 + k < n_words) chunk[k] = w[k];
     }
   }
+}
+
+// relay_shard_kernel<kRows, kSubs, kBatch, kSlots> over L's items on
+// ``st``.  Its tile of rows is dynamic shared memory beside up to 6.3 KB
+// of static arrays (64 x 64), and a block gets 48 KB of both without an
+// opt-in, so a tile past 32 KB opts the kernel into kDynSmemLimit bytes
+// first.
+template <int kRows, int kSubs, bool kBatch, int kSlots>
+cudaError_t launch_tiles(const TileLaunch<kSlots>& L, int* scratch,
+                         uint8_t* keyframe_first, uint8_t* frame_last,
+                         cudaStream_t st) {
+  const auto kernel = relay_shard_kernel<kRows, kSubs, kBatch, kSlots>;
+  const size_t smem = size_t(kRows) * L.row_stride + kBulkAlign;
+  if (smem > 32 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kDynSmemLimit);
+    if (err != cudaSuccess) return err;
+  }
+  kernel<<<unsigned(L.n_items), kShardThreads, smem, st>>>(
+      L, scratch, keyframe_first, frame_last);
+  return cudaGetLastError();
+}
+
+// A B9 pass (ed_relay_batch's arguments) as relay_shard_kernel's
+// one-source, one-shard case on kRows-row tiles at kSubs outputs a CTA:
+// ``L`` filled, or an error for arguments the kernel does not take.  The
+// product launches <kBatchTileRows, kBatchSubsPerCta> in a BatchLaunch;
+// tools/b9_batch_probe.cu the others.
+template <int kRows, int kSubs, int kSlots>
+int batch_plan(const void* prefix, int n_pkts, int row_stride,
+               const void* length, const void* age_ms, const void* state,
+               const void* bucket, int n_subs, long long delay_ms,
+               void* headers, void* mask, void* scratch, void* newest,
+               TileLaunch<kSlots>& L) {
+  const size_t smem = size_t(kRows) * row_stride + kBulkAlign;
+  if (n_pkts < 1 || n_pkts > kBatchMaxPkts || n_subs < 1 ||
+      n_subs > kBatchMaxSubs || row_stride < kParsePrefix ||
+      smem > size_t(kDynSmemLimit) || scratch == nullptr ||
+      (reinterpret_cast<uintptr_t>(headers) & 3) != 0)
+    return int(cudaErrorInvalidValue);
+  L = {};
+  ShardDesc& d = L.shard[0];
+  d.prefix = static_cast<const uint8_t*>(prefix);
+  d.length = static_cast<const int32_t*>(length);
+  d.age_ms = static_cast<const int32_t*>(age_ms);
+  d.state = static_cast<const uint32_t*>(state);
+  d.bucket = static_cast<const int32_t*>(bucket);
+  d.headers = static_cast<uint8_t*>(headers);
+  d.mask = static_cast<uint8_t*>(mask);
+  d.newest = static_cast<int32_t*>(newest);
+  d.headers_sub = 12ll * n_pkts;               // dense [S, P, 12] and [S, P]
+  d.mask_sub = n_pkts;
+  d.n_src = d.parts = 1;
+  L.delay_ms = delay_ms;
+  L.n_shards = L.n_sources = 1;
+  L.n_pkts = n_pkts;
+  L.row_stride = row_stride;
+  L.n_subs = n_subs;
+  L.n_tiles = (n_pkts + kRows - 1) / kRows;
+  L.n_groups = (n_subs + kSubs - 1) / kSubs;
+  L.n_items = L.n_tiles * L.n_groups;
+  return 0;
 }
 
 // The card's floor for one launch: a kernel that does nothing.
@@ -1153,44 +1139,26 @@ int ed_ring_query(const void* rows, int capacity, int row_stride, int head,
 // and age_ms [n_pkts] int32, state [n_subs, 6] uint32, bucket [n_subs]
 // int32 -> headers [n_subs, n_pkts, 12] uint8 (4-byte aligned), mask
 // [n_subs, n_pkts], keyframe_first and frame_last [n_pkts] (0/1 bytes) and
-// *newest (-1 = none).  ``scratch`` holds 1 + kBatchMaxTiles int32 whose
-// first word is 0 (every pass leaves it at 0).  ONE launch.
+// *newest (-1 = none).  ``scratch`` holds kBatchScratchWords int32 at 0
+// (every pass leaves them at 0).  ONE launch.
 int ed_relay_batch(const void* prefix, int n_pkts, int row_stride,
                    const void* length, const void* age_ms, const void* state,
                    const void* bucket, int n_subs, long long delay_ms,
                    void* headers, void* mask, void* keyframe_first,
                    void* frame_last, void* scratch, void* newest,
                    void* stream) {
-  const size_t smem = size_t(kBatchTileRows) * row_stride + kBulkAlign;
-  if (n_pkts < 1 || n_pkts > kBatchMaxPkts || n_subs < 1 ||
-      n_subs > kBatchMaxSubs || row_stride < kParsePrefix ||
-      smem > size_t(kDynSmemLimit) ||
-      (reinterpret_cast<uintptr_t>(headers) & 3) != 0)
-    return int(cudaErrorInvalidValue);
-  BatchArgs a = {};
-  a.prefix = static_cast<const uint8_t*>(prefix);
-  a.n_pkts = n_pkts;
-  a.row_stride = row_stride;
-  a.length = static_cast<const int32_t*>(length);
-  a.age_ms = static_cast<const int32_t*>(age_ms);
-  a.state = static_cast<const uint32_t*>(state);
-  a.bucket = static_cast<const int32_t*>(bucket);
-  a.n_subs = n_subs;
-  a.delay_ms = delay_ms;
-  a.headers = static_cast<uint32_t*>(headers);
-  a.headers_sub = 3ll * n_pkts;
-  a.mask = static_cast<uint8_t*>(mask);
-  a.mask_sub = n_pkts;
-  a.keyframe_first = static_cast<uint8_t*>(keyframe_first);
-  a.frame_last = static_cast<uint8_t*>(frame_last);
-  a.scratch = static_cast<int*>(scratch);
-  a.newest = static_cast<int32_t*>(newest);
-  const dim3 grid((n_pkts + kBatchTileRows - 1) / kBatchTileRows,
-                  (n_subs + kBatchSubsPerCta - 1) / kBatchSubsPerCta);
+  BatchLaunch L;
+  if (const int rc = batch_plan<kBatchTileRows, kBatchSubsPerCta>(
+          prefix, n_pkts, row_stride, length, age_ms, state, bucket, n_subs,
+          delay_ms, headers, mask, scratch, newest, L))
+    return rc;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (const int rc = ed_timing::start(st)) return rc;
-  relay_batch_kernel<<<grid, kBatchThreads, smem, st>>>(a);
-  return ed_timing::stop(st, cudaGetLastError());
+  return ed_timing::stop(st, launch_tiles<kBatchTileRows, kBatchSubsPerCta,
+                                          true, 1>(
+                                 L, static_cast<int*>(scratch),
+                                 static_cast<uint8_t*>(keyframe_first),
+                                 static_cast<uint8_t*>(frame_last), st));
 }
 
 // One grouped B8 launch (ed_relay_shard): ``launch`` points at a
@@ -1252,10 +1220,10 @@ int ed_relay_shard(const void* launch, void* scratch, void* stream) {
     return int(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (const int rc = ed_timing::start(st)) return rc;
-  relay_shard_kernel<kShardTileRows, kShardSubsPerCta>
-      <<<unsigned(items), kShardThreads, smem, st>>>(
-          L, static_cast<int*>(scratch));
-  return ed_timing::stop(st, cudaGetLastError());
+  return ed_timing::stop(st, launch_tiles<kShardTileRows, kShardSubsPerCta,
+                                          false, kShardMaxShards>(
+                                 L, static_cast<int*>(scratch), nullptr,
+                                 nullptr, st));
 }
 
 // ed_relay_shard's geometry and limits (ops/fanout.py SHARD_*): checked
@@ -1271,14 +1239,15 @@ int ed_relay_shard_geometry(int* tile_rows, int* subs_per_cta,
   return 0;
 }
 
-// ed_relay_batch's tile and limits (ops/fanout.py BATCH_*): checked by
-// chip_smoke.py against the Python side.
+// ed_relay_batch's tile, limits and scratch (ops/fanout.py BATCH_*):
+// checked by chip_smoke.py against the Python side.
 int ed_relay_batch_geometry(int* tile_rows, int* subs_per_cta, int* max_pkts,
-                            int* max_subs) {
+                            int* max_subs, int* scratch_words) {
   *tile_rows = kBatchTileRows;
   *subs_per_cta = kBatchSubsPerCta;
   *max_pkts = kBatchMaxPkts;
   *max_subs = kBatchMaxSubs;
+  *scratch_words = kBatchScratchWords;
   return 0;
 }
 

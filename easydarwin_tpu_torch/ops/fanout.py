@@ -22,8 +22,9 @@ rows of their own, and the pieces' results are merged back
 ``relay_batch_step`` (B9) is one source's full step for the engine's
 batch-header rung: the parse, the ``[S, P, 12]`` headers, the ``[S, P]``
 eligibility mask and the newest keyframe.  On CUDA tensors it is ONE
-launch of the hand-written ``ed_relay_batch`` (K1's parse fused in); on
-CPU tensors it runs ``relay_batch_step_plain``.  ``pack_batch_upload`` and
+launch of the hand-written ``ed_relay_batch`` (K1's parse fused in; B8's
+kernel as its one-source, one-shard case); on CPU tensors it runs
+``relay_batch_step_plain``.  ``pack_batch_upload`` and
 ``batch_upload_views`` lay its five inputs out as one buffer, so the engine
 uploads a pass in one copy.  ``relay_shard_step`` is B8's step for the
 mesh shards of one device (``parallel.mesh``): B9's function over each
@@ -115,14 +116,16 @@ def eligibility(age_ms: torch.Tensor, bucket_of_output: torch.Tensor,
 
 #: ``ed_relay_batch``'s tile and limits (``kBatch*`` in
 #: ``csrc/relay_kernels.cu``; chip_smoke.py checks them against the
-#: library's ``ed_relay_batch_geometry``): 64-row tiles by 4-output
-#: columns, 1 <= P <= 65,536 packets and 1 <= S <= 65,536 outputs a pass
+#: library's ``ed_relay_batch_geometry``, the tests against the source):
+#: a CTA parses a 64-row tile for 4 outputs, 1 <= P <= 65,536 packets
+#: and 1 <= S <= 65,536 outputs a pass
 BATCH_TILE_ROWS = 64
 BATCH_SUBS_PER_CTA = 4
 BATCH_MAX_PKTS = 1 << 16
 BATCH_MAX_SUBS = 1 << 16
-#: the fold's scratch: the ticket and one partial a tile
-BATCH_SCRATCH_WORDS = 1 + BATCH_MAX_PKTS // BATCH_TILE_ROWS
+#: the fold's scratch: one 64-bit word (the newest keyframe + 1 above, the
+#: tiles that have reported below), which every pass leaves at 0
+BATCH_SCRATCH_WORDS = 2
 
 
 def check_batch_args(prefix: torch.Tensor, length: torch.Tensor,

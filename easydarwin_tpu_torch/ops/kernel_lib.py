@@ -117,8 +117,8 @@ _SIGNATURES = {
     # headers, mask, keyframe_first, frame_last, scratch, newest, stream
     "ed_relay_batch": (_P, _I, _I, _P, _P, _P, _P, _I, ctypes.c_longlong,
                        _P, _P, _P, _P, _P, _P, _P),
-    # -> tile rows, outputs per CTA, max P, max S
-    "ed_relay_batch_geometry": (_IP, _IP, _IP, _IP),
+    # -> tile rows, outputs per CTA, max P, max S, scratch words
+    "ed_relay_batch_geometry": (_IP, _IP, _IP, _IP, _IP),
     # ShardLaunch descriptor, scratch, stream
     "ed_relay_shard": (_P, _P, _P),
     # -> tile rows, outputs per CTA, max shards, max slots, launch bytes

@@ -451,6 +451,9 @@ class StreamingServer:
         self.wake_ms: collections.deque = collections.deque(maxlen=8192)
         #: host ms of the first wake that sent packets (a first join's)
         self.wake_ms_first: float | None = None
+        #: host ms of every pass, those that sent nothing included: over
+        #: ``packets_out``, the pump's host cost a packet relayed
+        self.pass_ms_total = 0.0
         #: host ms of each wake's wheel work after its pass (advance, and
         #: every stream's next deadline armed): not in ``wake_ms``
         self.schedule_ms: collections.deque = collections.deque(maxlen=8192)
@@ -1614,8 +1617,10 @@ class StreamingServer:
             self._pump_event.clear()
             try:
                 t0 = time.perf_counter()
-                if self.reflect_all():
-                    ms = (time.perf_counter() - t0) * 1e3
+                sent = self.reflect_all()
+                ms = (time.perf_counter() - t0) * 1e3
+                self.pass_ms_total += ms
+                if sent:
                     if self.wake_ms_first is None:
                         self.wake_ms_first = ms
                     self.wake_ms.append(ms)
@@ -1828,6 +1833,7 @@ class StreamingServer:
                 "wake_ms_p99": wake[len(wake) * 99 // 100] if wake else None,
                 "wake_ms_max": wake[-1] if wake else None,
                 "wake_ms_first": self.wake_ms_first,
+                "pass_ms_total": self.pass_ms_total,
                 "pump": {"time_wakes": self.time_wakes,
                          "wheel_wakes": self.wheel_wakes,
                          "event_wakes": self.event_wakes,

@@ -4,7 +4,10 @@ tensors: the plain PyTorch versions the kernel wrappers run off the
 card); B9's wrapper raises on what ``ed_relay_batch`` does not take, on
 either device."""
 
+import ast
+import re
 from collections import Counter
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -368,16 +371,34 @@ def test_relay_batch_step_matches_reference(case):
     assert kernel_lib.LAUNCHES["ed_relay_batch"] == 0
 
 
+#: ``ed_relay_batch``'s output group (``BATCH_SUBS_PER_CTA``)
+_G = fanout.BATCH_SUBS_PER_CTA
+#: B9's edges: (P, S, W, delay) a case
+_B9_EDGES = {"s1_p1": (1, 1, 96, 73), "p65": (65, 5, 96, 73),
+             "p200": (200, 21, 96, 40), "all_padding": (48, 7, 96, 73),
+             "all_runts": (48, 7, 96, 73), "wrap": (80, 9, 96, 73),
+             "delay0": (70, 18, 96, 0), "w100": (90, 6, 100, 73),
+             # the output group's edges at phase 7c's P
+             "p47_s_g_minus_1": (47, _G - 1, 96, 73),
+             "p47_s_g": (47, _G, 96, 73),
+             "p47_s_g_plus_1": (47, _G + 1, 96, 73),
+             "p47_s_2g_plus_1": (47, 2 * _G + 1, 96, 73),
+             # the tiles' edges at phase 7c's S, and the last pass whose
+             # keyframe folds in one word of 64-row tiles' fields (8 tiles)
+             "p64_s16": (64, 16, 96, 73), "p65_s16": (65, 16, 96, 73),
+             "p128_s16": (128, 16, 96, 73), "p129_s16": (129, 16, 96, 73),
+             "p512_s5": (512, 5, 96, 73), "p513_s5": (513, 5, 96, 73)}
+
+
 def _b9_edge_inputs(case, rng):
     """(prefix, length, age, state, buckets, delay) for one edge of B9:
     one output and one packet, P off the 64-row tile (65, 200), a window
     of padding rows only (no keyframe: −1), runts only (an all-False
     mask), seq and ts that wrap (every base above the packet's value),
-    a zero bucket delay and 100-byte rows."""
-    p, s, w, delay = {"s1_p1": (1, 1, 96, 73), "p65": (65, 5, 96, 73),
-                      "p200": (200, 21, 96, 40), "all_padding": (48, 7, 96, 73),
-                      "all_runts": (48, 7, 96, 73), "wrap": (80, 9, 96, 73),
-                      "delay0": (70, 18, 96, 0), "w100": (90, 6, 100, 73)}[case]
+    a zero bucket delay, 100-byte rows, the kernel's output group's edges
+    (S = G − 1, G, G + 1, 2G + 1) and its tiles' (P = 64, 65, 128, 129,
+    512, 513)."""
+    p, s, w, delay = _B9_EDGES[case]
     if case == "all_runts":
         pkts = [bytes(rng.integers(0, 256, int(rng.integers(0, 12)),
                                    dtype=np.uint8)) for _ in range(p)]
@@ -403,8 +424,7 @@ def _b9_edge_inputs(case, rng):
     return prefix, length, age, state, buckets, delay
 
 
-@pytest.mark.parametrize("case", ["s1_p1", "p65", "p200", "all_padding",
-                                  "all_runts", "wrap", "delay0", "w100"])
+@pytest.mark.parametrize("case", list(_B9_EDGES))
 def test_relay_batch_step_plain_matches_reference_at_the_edges(case):
     args = _b9_edge_inputs(case, np.random.default_rng(sum(map(ord, case))))
     ref = ref_fanout.relay_batch_step(*args)
@@ -422,6 +442,43 @@ def test_relay_batch_step_plain_matches_reference_at_the_edges(case):
     if case == "all_runts":
         assert not got["mask"].any()
     assert kernel_lib.LAUNCHES["ed_relay_batch"] == 0      # the CPU version
+
+
+def _kernel_constants(prefix: str) -> dict[str, int]:
+    """The ``constexpr int`` constants of ``csrc/relay_kernels.cu`` whose
+    names start with ``prefix``, evaluated (literals, ``<<``, ``*``,
+    ``/``, ``+``, ``-`` and earlier constants)."""
+    src = (Path(fanout.__file__).resolve().parents[1] / "csrc"
+           / "relay_kernels.cu").read_text()
+    known: dict[str, int] = {}
+
+    def ev(node):
+        if isinstance(node, ast.Constant):
+            return node.value
+        if isinstance(node, ast.Name):
+            return known[node.id]
+        if isinstance(node, ast.BinOp):
+            a, b = ev(node.left), ev(node.right)
+            ops = {ast.LShift: lambda: a << b, ast.Mult: lambda: a * b,
+                   ast.FloorDiv: lambda: a // b, ast.Add: lambda: a + b,
+                   ast.Sub: lambda: a - b}
+            return ops[type(node.op)]()
+        raise ValueError(ast.dump(node))
+
+    for name, expr in re.findall(r"^constexpr int (k\w+) = ([^;]+);", src,
+                                 re.M):
+        known[name] = ev(ast.parse(expr.replace("/", "//"),
+                                   mode="eval").body)
+    return {k: v for k, v in known.items() if k.startswith(prefix)}
+
+
+def test_batch_constants_match_the_kernel_source():
+    got = _kernel_constants("kBatch")
+    assert got == {"kBatchTileRows": fanout.BATCH_TILE_ROWS,
+                   "kBatchSubsPerCta": fanout.BATCH_SUBS_PER_CTA,
+                   "kBatchMaxPkts": fanout.BATCH_MAX_PKTS,
+                   "kBatchMaxSubs": fanout.BATCH_MAX_SUBS,
+                   "kBatchScratchWords": fanout.BATCH_SCRATCH_WORDS}
 
 
 def _b9_tensors(p=8, s=3, w=96):

@@ -26,6 +26,11 @@
 
 namespace {
 
+// the per-shard design's CTA: 64 rows, 4 outputs, 128 threads
+constexpr int kPerShardRows = 64;
+constexpr int kPerShardSubs = 4;
+constexpr int kPerShardThreads = 128;
+
 struct PerShardArgs {
   const uint8_t* prefix;
   long long prefix_src;                  // bytes between sources
@@ -49,7 +54,7 @@ struct PerShardArgs {
   unsigned long long* eligible;          // B8 only
 };
 
-// Grid (n_tiles, ceil(n_subs / kBatchSubsPerCta), sources).  CTA (x, y, z)
+// Grid (n_tiles, ceil(n_subs / kPerShardSubs), sources).  CTA (x, y, z)
 // takes rows [64x, 64x + 64) of source z into shared memory by the bulk
 // copy, loads its outputs' state and the rows' lengths and ages while the
 // copy is in flight, parses each row once (one thread a row) into shared
@@ -60,31 +65,31 @@ struct PerShardArgs {
 // one tile writes it at once; more store each tile's max into partials[x]
 // and make ONE acq_rel add on the ticket, and the last arrival's warp 0
 // reduces the partials, writes *newest and puts the ticket back to 0
-// (``scratch`` = ticket ++ partials[kBatchMaxTiles]; launches sharing it
+// (``scratch`` = ticket ++ one partial a tile; launches sharing it
 // stay on one stream).  B8: each y = 0 CTA makes one atomicMax on
 // newest[z], and every CTA one atomicAdd of its mask count.
-__global__ void __launch_bounds__(kBatchThreads)
+__global__ void __launch_bounds__(kPerShardThreads)
 per_shard_kernel(const PerShardArgs a) {
   extern __shared__ __align__(16) uint8_t s_tile[];
   __shared__ uint64_t s_bar;
-  __shared__ uint32_t s_word0[kBatchTileRows];   // b0 | b1 << 8 | seq << 16
-  __shared__ uint32_t s_ts[kBatchTileRows];
-  __shared__ int32_t s_age[kBatchTileRows];
-  __shared__ uint8_t s_sendable[kBatchTileRows];  // length >= min_len
-  __shared__ uint32_t s_seq_add[kBatchSubsPerCta];
-  __shared__ uint32_t s_ts_add[kBatchSubsPerCta];
-  __shared__ uint32_t s_ssrc_be[kBatchSubsPerCta];
-  __shared__ int64_t s_min_age[kBatchSubsPerCta];
-  __shared__ int s_warp_best[kBatchThreads / 32];
-  __shared__ int s_warp_count[kBatchThreads / 32];
+  __shared__ uint32_t s_word0[kPerShardRows];   // b0 | b1 << 8 | seq << 16
+  __shared__ uint32_t s_ts[kPerShardRows];
+  __shared__ int32_t s_age[kPerShardRows];
+  __shared__ uint8_t s_sendable[kPerShardRows];  // length >= min_len
+  __shared__ uint32_t s_seq_add[kPerShardSubs];
+  __shared__ uint32_t s_ts_add[kPerShardSubs];
+  __shared__ uint32_t s_ssrc_be[kPerShardSubs];
+  __shared__ int64_t s_min_age[kPerShardSubs];
+  __shared__ int s_warp_best[kPerShardThreads / 32];
+  __shared__ int s_warp_count[kPerShardThreads / 32];
   __shared__ int s_last;
   const int t = threadIdx.x;
   const int tile = blockIdx.x;
   const int n_pkts = a.n_pkts;
-  const int row0 = tile * kBatchTileRows;
-  const int rows = min(kBatchTileRows, n_pkts - row0);
-  const int sub0 = blockIdx.y * kBatchSubsPerCta;
-  const int subs = min(kBatchSubsPerCta, a.n_subs - sub0);
+  const int row0 = tile * kPerShardRows;
+  const int rows = min(kPerShardRows, n_pkts - row0);
+  const int sub0 = blockIdx.y * kPerShardSubs;
+  const int subs = min(kPerShardSubs, a.n_subs - sub0);
   const bool first_col = blockIdx.y == 0;      // writes the per-packet outputs
   const long long z = true ? blockIdx.z : 0;
   const uint8_t* src =
@@ -139,7 +144,7 @@ per_shard_kernel(const PerShardArgs a) {
     uint32_t* out = a.headers + z * a.headers_src +
                     (sub0 + s) * a.headers_sub + size_t(row0) * 3;
     const uint32_t seq_add = s_seq_add[s], ts_add = s_ts_add[s];
-    for (int w = t; w < words; w += kBatchThreads) {
+    for (int w = t; w < words; w += kPerShardThreads) {
       const int j = w / 3;
       const int part = w - 3 * j;
       uint32_t v;
@@ -166,18 +171,18 @@ per_shard_kernel(const PerShardArgs a) {
     // the CTA's eligible sends: a warp sum, then one add a CTA
     sent = __reduce_add_sync(0xffffffffu, sent);
     if ((t & 31) == 0) s_warp_count[t >> 5] = sent;
-    const int m = block_max<kBatchThreads>(best, s_warp_best);  // syncs
+    const int m = block_max<kPerShardThreads>(best, s_warp_best);  // syncs
     if (t == 0) {
       int total = 0;
 #pragma unroll
-      for (int w = 0; w < kBatchThreads / 32; ++w) total += s_warp_count[w];
+      for (int w = 0; w < kPerShardThreads / 32; ++w) total += s_warp_count[w];
       if (total) atomicAdd(a.eligible, (unsigned long long)total);
       if (first_col && m >= 0) atomicMax(a.newest + z, m);
     }
     return;
   }
   if (!first_col) return;                      // uniform over the CTA
-  const int m = block_max<kBatchThreads>(best, s_warp_best);
+  const int m = block_max<kPerShardThreads>(best, s_warp_best);
   if (gridDim.x == 1) {                        // one tile: no fold
     if (t == 0) *a.newest = m;
     return;
@@ -299,8 +304,9 @@ int launch_variant(ShardLaunch L, int* scratch, cudaStream_t stream,
   } else {
     const size_t smem = size_t(kRows) * L.row_stride + kBulkAlign;
     if (smem > size_t(kDynSmemLimit)) return int(cudaErrorInvalidValue);
-    relay_shard_kernel<kRows, kSubs>
-        <<<unsigned(items), kShardThreads, smem, stream>>>(L, scratch);
+    relay_shard_kernel<kRows, kSubs, false, kShardMaxShards>
+        <<<unsigned(items), kShardThreads, smem, stream>>>(L, scratch, nullptr,
+                                                           nullptr);
   }
   return int(cudaGetLastError());
 }
@@ -550,7 +556,7 @@ int probe_per_shard(const void* prefix, int n_src, int n_pkts, int row_stride,
                    long long headers_src, long long headers_sub, void* mask,
                    long long mask_src, long long mask_sub, void* newest,
                    void* eligible, void* stream) {
-  const size_t smem = size_t(kBatchTileRows) * row_stride + kBulkAlign;
+  const size_t smem = size_t(kPerShardRows) * row_stride + kBulkAlign;
   if (n_src < 1 || n_src > 65535 || n_pkts < 1 ||
       n_pkts > kBatchMaxPkts || n_subs < 1 || n_subs > kBatchMaxSubs ||
       row_stride < kParsePrefix || smem > size_t(kDynSmemLimit) ||
@@ -583,9 +589,9 @@ int probe_per_shard(const void* prefix, int n_src, int n_pkts, int row_stride,
   a.mask_sub = mask_sub;
   a.newest = static_cast<int32_t*>(newest);
   a.eligible = static_cast<unsigned long long*>(eligible);
-  const dim3 grid((n_pkts + kBatchTileRows - 1) / kBatchTileRows,
-                  (n_subs + kBatchSubsPerCta - 1) / kBatchSubsPerCta, n_src);
-  per_shard_kernel<<<grid, kBatchThreads, smem,
+  const dim3 grid((n_pkts + kPerShardRows - 1) / kPerShardRows,
+                  (n_subs + kPerShardSubs - 1) / kPerShardSubs, n_src);
+  per_shard_kernel<<<grid, kPerShardThreads, smem,
                              static_cast<cudaStream_t>(stream)>>>(a);
   return int(cudaGetLastError());
 }
