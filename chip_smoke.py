@@ -204,12 +204,7 @@ phase raises and the script exits non-zero.
              the plain version (K1 + torch ops) in a graph, the bound, the
              CPU call and the engine's batch leg (7c's and 7d's servers,
              and alone in this process at the same shape, its headers
-             held against the CPU call); B9 in turns with the design it
-             replaced (4-output columns, a tile copied and parsed for
-             each: the column design, kept in ``tools/b9_batch_probe.cu``,
-             built beside the library, checked bit-exact first) at phase
-             7c's pass, two tiles (P = 67, S = 16) and P = S = 256 ([b9]
-             lines);
+             held against the CPU call) ([b9] lines);
              ``ed_gf_parity`` at the wire shape (the kernels line) and the
              stripe, on one input set and rotating through 12 (75 MB, more
              than L2 holds), beside the launch floor, its bound and its
@@ -229,10 +224,9 @@ phase raises and the script exits non-zero.
              launch over phase 6c's two shards, into one result) at
              config 4's shape and the example batch's, beside B8's entry
              point ``sharded_relay_step``, its plain version (B9's plain
-             chain a source) and its byte bound, and in turns with PR
-             17's design (one launch a shard, kept in
-             ``tools/b8_shard_probe.cu``, built beside the library) at
-             both shapes ([b8] lines)
+             chain a source) and its byte bound ([b8] lines).  The
+             designs B8 and B9 replaced are timed against them by
+             ``tools/b8_shard_probe.py`` and ``tools/b9_batch_probe.py``
 
 4e. window vod ``ed_relay_window`` vs the plain window pass, bit-exact,
              at the VOD prime's shapes, past the 48 KB a CTA had before the
@@ -507,6 +501,35 @@ phase raises and the script exits non-zero.
              reconstruct's host ms by leg, the CMS's get stream → first
              packet ms, the launches by step and the card; the phase
              takes at most ``CLUSTER_DVR_LIMIT_S``
+18. keys    the reference's reliability-tier and serving-path keys
+             (``utils.keys_loopback``), two CLI servers one after the
+             other, each ``-c`` on a TOML of the reference's key names.
+             Run A, the keys off (``megabatch_enabled``,
+             ``tcp_engine_enabled`` and ``fec_device`` false,
+             ``fec_window`` 8, ``fec_payload_type`` 110,
+             ``rtx_payload_type`` 109, ``timeout_sweep_sec`` 2, and
+             ``dvr_enabled``, ``storage_enabled`` with
+             ``storage_device`` false): 7d's source (1080p30, 13 packets
+             of about 1.3 KB a frame, 5 s) on 4 paths, each to 8 plain
+             UDP, 4 interleaved TCP and 4 FEC players dropping 8% of
+             media, every span byte-equal to the oracle; beside them a
+             path recorded for 2 s, finalized, stored, its spill and 2
+             data shards a stripe deleted, and replayed through the
+             reconstruct, equal to the pushed packets.  0
+             ``ed_relay_window``, ``ed_ring_query`` on every path (the
+             server's ring queries by path), ``ed_relay_batch`` > 0 with
+             the TCP players' packets on the batch rung and none on the
+             TCP rung, 0 ``ed_gf_parity`` with the FEC tier's and the
+             store's products on the host, parity on PT 110 and RTX on
+             109, 0 oracle mismatches and give-ups.  Run B, the gates
+             (``reliable_udp`` and ``fec_enabled`` false,
+             ``megabatch_min_streams`` 3): two paths of UDP players
+             asking for x-FEC or x-Retransmit, then a third; no grant
+             and no wrapped output, ``megabatch_passes_total`` 0 while two
+             paths play and > 0 after the third joined (with
+             ``ed_relay_window`` launches), and REST ``setbaseconfig`` of
+             each of the fifteen keys answered 200 and read back by
+             ``getbaseconfig``; the phase takes at most ``KEYS_LIMIT_S``
 
 ``python3 chip_smoke.py --hls-control`` runs phases 1, 2, 5c's leg check
 and phases 13 and 13c twice each instead, each checked in full: the
@@ -531,13 +554,13 @@ path, with the counts set to 0 just before it and read just after, as
 are phase 14 (its two servers report their own), phase 15 (its
 two runs' server), phase 16 (its servers run in-process), phase 17
 (the adopter's exit stats: the killed node reports none) and phase 17b
-(its servers run in-process), and so is
-B8's own path in phase 6c: its two calls through
+(its servers run in-process) and phase 18 (its two servers report their
+own), and so is B8's own path in phase 6c: its two calls through
 ``sharded_relay_step``.  No serving code calls B8 (the server's mesh path
 is the scheduler's, one ``ed_relay_window`` a shard), so its kernel
 ``ed_relay_shard`` is launched on that path alone, and its row in the
 kernels line says so under ``caller``.  The kernels line's launches are
-the fifteen paths' sum.  The comparisons and
+the sixteen paths' sum.  The comparisons and
 timings of phases 3, 4, 4b, 4c, 4d, 4e, 5, 5b, 5c and 10 run outside
 those windows.  Phase 10's window rows also time the VOD prime's calls
 of phase 11.
@@ -3476,8 +3499,8 @@ _B8_PROBE = None
 
 
 def b8_probe():
-    """``tools/b8_shard_probe.py`` as a module: B8's per-shard design and
-    the helpers phase 10 times it with."""
+    """``tools/b8_shard_probe.py`` as a module: its ``layout_shards``
+    lays out phase 10's B8 case."""
     global _B8_PROBE
     if _B8_PROBE is None:
         import importlib.util
@@ -3486,138 +3509,6 @@ def b8_probe():
         _B8_PROBE = importlib.util.module_from_spec(spec)
         spec.loader.exec_module(_B8_PROBE)
     return _B8_PROBE
-
-
-def phase_b8_designs(probe_build, timed: list) -> dict:
-    """Phase 10's [b8] lines: B8's one launch over phase 6c's two shards
-    of the card against the per-shard design it replaced (one launch a
-    shard, kept in ``tools/b8_shard_probe.cu``, whose build started
-    beside the library's), at config 4 and the example, in turns (new,
-    per-shard, per-shard, new), the per-shard design first checked
-    bit-exact with the plain version; the times also go to the B8 rows of
-    ``timed`` (``_per_shard_ms``)."""
-    import ctypes
-    import numpy as np
-    import torch
-    from easydarwin_tpu_torch.ops import fanout, kernel_lib
-    probe = b8_probe()
-    lib, built = probe.load(probe_build)
-    out = {"probe_build_s": built["seconds"],
-           "ptxas": ptxas_report(built["log"], probe.KERNELS)}
-    for n, s, p in ((16, 256, 256), (4, 8, 32)):
-        dev = [torch.from_numpy(np.ascontiguousarray(a)).cuda()
-               for a in b8_batch(n, s, p, seed=n + s + p)]
-        want = b8_outputs(n, s, p)
-        fanout.relay_shard_step_plain(
-            probe.layout_shards(dev, {"src": 2}, *want[:3]), 73, want[3])
-        got = b8_outputs(n, s, p)
-        shards = probe.layout_shards(dev, {"src": 2}, *got[:3])
-        got[2].fill_(-1)
-        got[3].zero_()
-        probe.per_shard_call(lib, shards, 73, got[3])
-        torch.cuda.synchronize()
-        key = f"[{n},{p},96]x[{n},{s},6]"
-        b8_diff(got, want, f"the per-shard design at {key}")
-        (launch,) = fanout.shard_launch_plan(shards)
-        desc = fanout.shard_descriptors(launch, 73, got[3])
-        scratch = kernel_lib.scratch("ed_relay_shard",
-                                     fanout.SHARD_SCRATCH_WORDS,
-                                     got[0].device)
-        cases = {"new": lambda: kernel_lib.launch(
-                     "ed_relay_shard", ctypes.addressof(desc),
-                     scratch.data_ptr()),
-                 "per_shard": lambda: probe.per_shard_call(lib, shards, 73,
-                                                           got[3])}
-        ms = {k: [] for k in cases}
-        for k in ("new", "per_shard", "per_shard", "new"):
-            ms[k].append(graph_ms(cases[k], inner=20))
-        bound = b8_bound(n, s, p)[0] / PEAK_BYTES_PER_S * 1e3
-        out[key] = {"new_ms": ms["new"], "per_shard_ms": ms["per_shard"],
-                    "bound_ms": bound}
-        for row in timed:
-            if row["name"] == "ed_relay_shard" and row["_shape"].startswith(
-                    key):
-                row["_per_shard_ms"] = ms["per_shard"]
-                row["_new_in_turns_ms"] = ms["new"]
-        log(f"[b8] {key} over 2 shards of the card: one ed_relay_shard "
-            f"{ms['new'][0]:.6f} / {ms['new'][1]:.6f} ms, the per-shard "
-            f"design (two launches) {ms['per_shard'][0]:.6f} / "
-            f"{ms['per_shard'][1]:.6f} ms, in turns new, per-shard, "
-            f"per-shard, new; bound {bound:.6f} ms (new at "
-            f"{bound / min(ms['new']):.1%}, per-shard at "
-            f"{bound / min(ms['per_shard']):.1%}); the per-shard design "
-            f"bit-exact with the plain version")
-    log(f"[b8] the per-shard design built in {built['seconds']:.1f} s beside "
-        f"the library; ptxas {out['ptxas']}")
-    return out
-
-
-_B9_PROBE = None
-
-
-def b9_probe():
-    """``tools/b9_batch_probe.py`` as a module: the column design of B9 and
-    the helpers phase 10 times it with."""
-    global _B9_PROBE
-    if _B9_PROBE is None:
-        import importlib.util
-        spec = importlib.util.spec_from_file_location(
-            "b9_batch_probe", os.path.join(HERE, "tools", "b9_batch_probe.py"))
-        _B9_PROBE = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(_B9_PROBE)
-    return _B9_PROBE
-
-
-def phase_b9_designs(rng, probe_build, timed: list, shapes) -> dict:
-    """Phase 10's [b9] design lines: B9's one ``ed_relay_batch`` launch
-    against the column design (kept in ``tools/b9_batch_probe.cu``, whose
-    build started beside the library's) at each ``(label, P, S)``, in
-    turns (new, column, column, new), the column design first checked
-    bit-exact with the plain version on every key; the times also go to
-    the B9 rows of ``timed`` (``_column_ms``)."""
-    import torch
-    from easydarwin_tpu_torch.ops import fanout
-    probe = b9_probe()
-    lib, built = probe.load(probe_build)
-    out = {"probe_build_s": built["seconds"],
-           "ptxas": ptxas_report(built["log"], probe.KERNELS)}
-    ticket = torch.zeros(lib.probe_batch_scratch_words(), dtype=torch.int32,
-                         device="cuda")
-    for label, p, s in shapes:
-        dev = [torch.from_numpy(a).cuda() for a in b9_arrays(rng, p, s)]
-        want = fanout.relay_batch_step_plain(*dev, probe.DELAY)
-        outs = probe.outputs(p, s)
-        probe.column_call(lib, dev, outs, ticket)
-        b9_diff(probe.as_result(outs), want,
-                f"the column design at {label}")
-        check(int(ticket[0]) == 0, f"the column design at {label} left its "
-              f"ticket at {int(ticket[0])}")
-        cases = {"new": lambda: probe.product_call(dev, outs),
-                 "column": lambda: probe.column_call(lib, dev, outs, ticket)}
-        ms = {k: [] for k in cases}
-        for k in ("new", "column", "column", "new"):
-            ms[k].append(graph_ms(cases[k], inner=100))
-        b9_diff(probe.as_result(outs), want, f"ed_relay_batch at {label} "
-                f"after the graph replays")
-        batch_scratch_at_zero(f"ed_relay_batch at {label} after the replays")
-        bound = b9_bound(p, s)[0] / PEAK_BYTES_PER_S * 1e3
-        out[label] = {"P": p, "S": s, "new_ms": ms["new"],
-                      "column_ms": ms["column"], "bound_ms": bound}
-        for row in timed:
-            if row["name"] == "ed_relay_batch" and \
-                    row["_shape"] == f"P={p} S={s}":
-                row["_column_ms"] = ms["column"]
-                row["_new_in_turns_ms"] = ms["new"]
-        log(f"[b9] {label} P={p} S={s}: one ed_relay_batch "
-            f"{ms['new'][0]:.6f} / {ms['new'][1]:.6f} ms, the column design "
-            f"{ms['column'][0]:.6f} / {ms['column'][1]:.6f} ms, in turns new, "
-            f"column, column, new; bound {bound:.6f} ms (new at "
-            f"{bound / min(ms['new']):.1%}, the column design at "
-            f"{bound / min(ms['column']):.1%}); the column design bit-exact "
-            f"with the plain version")
-    log(f"[b9] the column design built in {built['seconds']:.1f} s beside the "
-        f"library; ptxas {out['ptxas']}")
-    return out
 
 
 def b8_diff(got, want, what: str) -> int:
@@ -4487,6 +4378,139 @@ def phase_cluster_dvr(smi: str) -> dict:
     return res
 
 
+# ------------------------------------------------------------- phase 18
+KEYS_LIMIT_S = 90.0
+KEYS_SEED = 20261026
+KEYS_DIR = os.path.join(HERE, "build", "keys_phase")
+#: run A: paths, and each path's plain UDP, interleaved TCP and FEC
+#: players (the FEC ones drop 7d's share of media)
+KEYS_PATHS = 4
+KEYS_PLAYERS = (8, 4, 4)
+KEYS_DROP = 0.08
+
+
+def phase_keys(smi: str) -> dict:
+    """Phase 18: the reference's keys off (run A) and its gates (run B),
+    one CLI server each (the module docstring)."""
+    import shutil
+    from easydarwin_tpu_torch.utils import keys_loopback as kl
+    t0 = time.monotonic()
+    off = asyncio.run(asyncio.wait_for(kl.keys_off(
+        DEVICE, os.path.join(KEYS_DIR, "a"), KEYS_SEED, paths=KEYS_PATHS,
+        players=kl.off_players(*KEYS_PLAYERS, drop=KEYS_DROP), gops=5,
+        dvr_s=2.0, lost=2), KEYS_LIMIT_S))
+    t_a = time.monotonic() - t0
+    gates = asyncio.run(asyncio.wait_for(kl.keys_gates(
+        DEVICE, os.path.join(KEYS_DIR, "b"), KEYS_SEED + 7, players=4,
+        gops=6), KEYS_LIMIT_S - t_a))
+    seconds = time.monotonic() - t0
+    shutil.rmtree(KEYS_DIR, ignore_errors=True)
+    check(seconds <= KEYS_LIMIT_S,
+          f"phase 18 took {seconds:.1f} s, over {KEYS_LIMIT_S} s")
+
+    # -- run A: the keys off
+    st = off["server_stats"]
+    la, fec, store = st["kernel_launches"], st["fec"], st["storage"]
+    check(kl.unmapped_keys(off["preamble"]) == [],
+          f"run A's TOML left keys unmapped: {off['preamble']}")
+    check(la["ed_relay_window"] == 0 and st["megabatch"]["passes"] == 0
+          and st["megabatch"]["prime_passes"] == 0,
+          f"megabatch_enabled = false, yet ed_relay_window launched "
+          f"{la['ed_relay_window']} times ({st['megabatch']})")
+    by_path = st["param_refreshes_by_path"]
+    live = [f"/keys/a{i}" for i in range(KEYS_PATHS)]
+    check(all(by_path.get(p, 0) > 0 for p in live)
+          and la["ed_ring_query"] >= sum(by_path.values()),
+          f"ring queries by path {by_path}, ed_ring_query launches "
+          f"{la['ed_ring_query']}")
+    delivered = {k: sum(r["delivered"][k] for r in off["paths"])
+                 for k in ("plain", "tcp", "fec")}
+    check(la["ed_relay_batch"] > 0 and st["tcp_sent"] == 0
+          and st["batch_sent"] >= delivered["tcp"] > 0,
+          f"tcp_engine_enabled = false: batch rung {st['batch_sent']} "
+          f"packets ({la['ed_relay_batch']} ed_relay_batch launches), TCP "
+          f"rung {st['tcp_sent']}, the TCP players' spans "
+          f"{delivered['tcp']}")
+    fec_players = [p for r in off["paths"] for p in r["fec_players"]]
+    pts = {}
+    for p in fec_players:
+        for pt, n in p["pts"].items():
+            pts[int(pt)] = pts.get(int(pt), 0) + n
+    check(la["ed_gf_parity"] == 0 and fec["device_passes"] == 0
+          and fec["host_passes"] > 0 and fec["parity_sent"] > 0,
+          f"fec_device = false: ed_gf_parity {la['ed_gf_parity']}, FEC "
+          f"{fec}")
+    check(set(pts) <= {96, 109, 110} and pts.get(110, 0) > 0
+          and all(p["pts"].get(110, 0) > 0 for p in fec_players)
+          and (fec["rtx_sent"] == 0 or pts.get(109, 0) > 0),
+          f"FEC payload types on the wire {pts} (want parity on 110, RTX "
+          f"on 109)")
+    check(fec["rtx_sent"] > 0 and fec["oracle_mismatches"] == 0
+          and fec["rtx_giveups"] == 0 and st["loss_tiers"]["fec_granted"]
+          == len(fec_players),
+          f"run A's FEC tier: {fec}, grants {st['loss_tiers']}")
+    check(store["device_passes"] == 0 and store["host_products"] > 0
+          and store["reconstructs"] > 0
+          and store["reconstruct_failures"] == 0
+          and store["oracle_mismatches"] == 0
+          and store["worker_errors"] == 0,
+          f"storage_device = false: the store {store}")
+    check(st["send_errors"] == 0 and st["missing_params"] == 0,
+          f"run A send errors / missing params: {st}")
+    dvr = off["dvr"]
+    log(f"[keys] run A (megabatch_enabled, tcp_engine_enabled, fec_device "
+        f"false; fec_window 8, PTs 110/109, timeout_sweep_sec 2; "
+        f"storage_device false): {KEYS_PATHS} paths x "
+        f"{sum(KEYS_PLAYERS)} players, every span byte-equal to the oracle, "
+        f"delivered {delivered}; ed_relay_window 0, ed_ring_query "
+        f"{la['ed_ring_query']} (ring queries by path {by_path}), "
+        f"ed_relay_batch {la['ed_relay_batch']} (batch rung "
+        f"{st['batch_sent']} packets, TCP rung {st['tcp_sent']}), "
+        f"ed_gf_parity 0; FEC {fec['parity_sent']} parity in "
+        f"{fec['windows_emitted']} windows, {fec['host_passes']} host "
+        f"products at {fec['host_ms_per_window']:.6f} ms a window, RTX "
+        f"{fec['rtx_sent']}, PTs on the wire {pts}, 0 mismatches, 0 "
+        f"give-ups; the store: {dvr['windows']} windows recorded, "
+        f"{dvr['deleted']} deleted, the replay {dvr['replayed']} of "
+        f"{dvr['packets']} packets through {store['reconstructs']} "
+        f"reconstructs, {store['host_products']} host products "
+        f"({store['product_ms_per_reconstruct']:.3f} ms a reconstruct), "
+        f"0 device passes; launches {la}; {t_a:.1f} s; card {smi}")
+
+    # -- run B: the gates
+    st = gates["server_stats"]
+    lb, tiers = st["kernel_launches"], st["loss_tiers"]
+    asked = [g for r in gates["paths"] for g in r["grants"]]
+    check(asked and all(g["grants"] == {} for g in asked),
+          f"reliable_udp / fec_enabled false, yet granted: "
+          f"{[g for g in asked if g['grants']]}")
+    check(tiers["retransmit_granted"] == 0 and tiers["fec_granted"] == 0
+          and tiers["retransmit_refused"] > 0 and tiers["fec_refused"] > 0
+          and st["batch_sent"] == 0 and st["fec"]["parity_sent"] == 0
+          and st["reliable"]["acks"] == 0,
+          f"an output was wrapped: loss tiers {tiers}, batch rung "
+          f"{st['batch_sent']}, FEC {st['fec']}, reliable {st['reliable']}")
+    mb = gates["megabatch_passes"]
+    check(mb["two_paths"] == 0 and mb["three_paths"] > 0
+          and st["megabatch"]["passes"] > 0 and lb["ed_relay_window"] > 0
+          and lb["ed_relay_window"] == st["megabatch"]["window_calls"]
+          and lb["ed_ring_query"] > 0 and lb["ed_gf_parity"] == 0,
+          f"megabatch_min_streams = 3: passes {mb}, {st['megabatch']}, "
+          f"launches {lb}")
+    log(f"[keys] run B (reliable_udp, fec_enabled false, "
+        f"megabatch_min_streams 3): {len(asked)} players asked for x-FEC or "
+        f"x-Retransmit, none granted ({tiers}); megabatch_passes_total "
+        f"{mb['two_paths']:.0f} while two paths played, "
+        f"{mb['three_paths']:.0f} after the third joined; launches {lb}; "
+        f"setbaseconfig 200 and getbaseconfig read back for "
+        f"{len(gates['keys'])} keys; {seconds - t_a:.1f} s; card {smi}")
+    log(f"[keys] phase 18 {seconds:.3f} s (limit {KEYS_LIMIT_S} s); card "
+        f"{smi}")
+    return {"off": off, "gates": gates, "seconds": seconds,
+            "launches_a": la, "launches_b": lb,
+            "path_launches": {k: la[k] + lb.get(k, 0) for k in la}}
+
+
 def observed_device_check(observed: dict, timed: list) -> None:
     """Phase 15's device time against phase 10: the ``device_step`` mean
     (the timing events around the ``ed_relay_window`` launch) at least
@@ -5236,10 +5260,6 @@ def main() -> int:
     detail: dict = {}
     t_script = time.monotonic()
 
-    # B8's per-shard design and B9's column design, for phase 10: their nvcc
-    # runs beside the library's
-    b8_build = b8_probe().start_build(per_shard_only=True)
-    b9_build = b9_probe().start_build(column_only=True)
     b = kernel_lib.build()
     kernel_lib.library()
     log(f"[build] {b.path.name} built in {b.seconds:.3f} s")
@@ -5438,6 +5458,16 @@ def main() -> int:
     launches = {k: n + cluster_dvr_path.get(k, 0)
                 for k, n in launches.items()}
 
+    kernel_lib.reset_launch_counts()           # the keys' path starts here
+    detail["keys"] = phase_keys(smi)
+    keys_path = {k: n + detail["keys"]["path_launches"].get(k, 0)
+                 for k, n in kernel_lib.LAUNCHES.items()}
+    log(f"[keys path] kernel launches {keys_path}")
+    for k in ("ed_ring_query", "ed_relay_batch", "ed_relay_window"):
+        check(keys_path[k] > 0, f"{k} was not launched on the keys' path")
+    detail["keys_path_launches"] = keys_path
+    launches = {k: n + keys_path.get(k, 0) for k, n in launches.items()}
+
     errs = {"ed_parse_packets": max(detail["k1"].values()),
             "ed_relay_window": max(
                 [*detail["window"].values()]
@@ -5474,10 +5504,6 @@ def main() -> int:
                           prime_window_specs(detail["vod"]["prime_shapes"]),
                           stripe_shapes, b6_cases(b6_inputs))
     detail["kernels"] = timed
-    detail["b8_designs"] = phase_b8_designs(b8_build, timed)
-    detail["b9_designs"] = phase_b9_designs(
-        rng, b9_build, timed, (("phase 7c", b9_p, b9_s), ("two tiles", 67, 16),
-                               ("P = S = 256", 256, 256)))
     observed_device_check(detail["observed"], timed)
     detail["join_query"] = join = join_query_ms(rng)
     ring_ms = next(k["ms"] for k in timed if k["name"] == "ed_ring_query"
@@ -5521,7 +5547,8 @@ def main() -> int:
                          "phase_15": detail["observed"]["seconds"],
                          "phase_16": detail["chaos"]["seconds"],
                          "phase_17": detail["cluster"]["seconds"],
-                         "phase_17b": detail["cluster_dvr"]["seconds"]}
+                         "phase_17b": detail["cluster_dvr"]["seconds"],
+                         "phase_18": detail["keys"]["seconds"]}
     log(f"[time] the script {script_s:.3f} s from its build; phases 13c "
         f"and 13b (the 1080p pictures' encode included) {new_phases_s:.3f}"
         f" s of it, phases 6c, 7f, 7g and 13d {mesh_phases_s:.3f} s, phase "
@@ -5529,8 +5556,10 @@ def main() -> int:
         f"{detail['observed']['seconds']:.3f} s, phase 16 "
         f"{detail['chaos']['seconds']:.3f} s, phase 17 "
         f"{detail['cluster']['seconds']:.3f} s, phase 17b "
-        f"{detail['cluster_dvr']['seconds']:.3f} s, the rest "
-        f"{script_s - new_phases_s - mesh_phases_s - sum(detail[p]['seconds'] for p in ('surface', 'observed', 'chaos', 'cluster', 'cluster_dvr')):.3f} s")
+        f"{detail['cluster_dvr']['seconds']:.3f} s, phase 18 "
+        f"{detail['keys']['seconds']:.3f} s, the rest "
+        f"{script_s - new_phases_s - mesh_phases_s - sum(detail[p]['seconds'] for p in ('surface', 'observed', 'chaos', 'cluster', 'cluster_dvr', 'keys')):.3f} s; "
+        f"card {smi}")
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(detail, f, indent=1, default=str)
 

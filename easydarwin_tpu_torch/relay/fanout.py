@@ -11,7 +11,9 @@ device computed:
   rewritten in C;
 * **TCP fast** — interleaved outputs whose socket is directly writable:
   ONE framed ``writev`` per connection (``native.stream_send``), a torn
-  packet's remainder completed through ``push_tail``;
+  packet's remainder completed through ``push_tail`` (with
+  ``tcp_fast_enabled`` off, the server's ``tcp_engine_enabled = false``,
+  every interleaved output takes the batch-header rung instead);
 * **the loop** — every other primed output (``CollectingOutput``, an
   interleaved output whose transport holds a backlog, a UDP player on a
   port pair of its own): headers rendered by numpy (``render_headers``)
@@ -199,9 +201,14 @@ class FanoutEngine:
         self.device = device
         self.steps = 0
         self.packets_sent = 0
-        #: packets sent by the native rungs / passes that used them
+        #: packets sent by the native rungs / passes that used them, and of
+        #: them by the TCP rung
         self.native_sent = 0
         self.native_passes = 0
+        self.tcp_sent = 0
+        #: interleaved players may take the TCP rung (the server's
+        #: ``tcp_engine_enabled``); off: they take the batch-header rung
+        self.tcp_fast_enabled = True
         #: per-stream ring queries that installed params
         self.device_param_refreshes = 0
         #: datagrams or packets a hard send error skipped
@@ -296,13 +303,17 @@ class FanoutEngine:
 
     def split_flat(self, flat) -> tuple[list, list, list, list]:
         """The primed ``(output, bucket)`` pairs as (UDP fast, TCP fast,
-        the loop, the batch-header rung)."""
+        the loop, the batch-header rung).  With ``tcp_fast_enabled`` off
+        every interleaved output takes the batch-header rung."""
         udp, tcp, rest, batch = [], [], [], []
         native_ok = None
+        tcp_off = not self.tcp_fast_enabled
         for out, b_idx in flat:
             if out.bookmark is None:
                 continue
-            if self._batched(out):
+            if self._batched(out) or (
+                    tcp_off
+                    and getattr(out, "interleave_chan", None) is not None):
                 batch.append((out, b_idx))
                 continue
             if out.native_addr is not None:
@@ -793,6 +804,7 @@ class FanoutEngine:
             obs.TCP_EGRESS_BACKPRESSURE_SHEDS.inc(
                 self.tcp_shed_pkts - shed0, backend="writev")
         self.native_sent += sent
+        self.tcp_sent += sent
         return sent
 
     @staticmethod

@@ -23,6 +23,9 @@ launch on a card) and its bytes in ``tpu_h2d_bytes_total`` and
   product ``gf_matmul`` runs on every window: a device row that differs
   counts ``oracle_mismatches`` and raises ``FecOracleError``, so the wire
   never carries an unchecked row and the kernel is never silently off.
+  With ``FecConfig.use_device`` off (the server's ``fec_device = false``,
+  the operator's choice, never a path a failed launch falls into) the
+  host product alone is the parity: no upload, no launch, no oracle.
 * **Parity packets** are RED/ULPFEC-shaped: an RTP header (its own
   ``fec_pt`` and seq space, the output's SSRC), a 12-byte FEC header
   (``snbase``, a 48-bit mask of protected seq offsets, count, parity
@@ -320,8 +323,12 @@ class FecRateController:
 
 @dataclass(frozen=True)
 class FecConfig:
-    """The tier's tunables (the server's ``fec_*`` keys), and the device
-    of its parity pass."""
+    """The tier's tunables.  A server builds it from its config keys
+    (``ServerConfig.fec_config``: ``fec_window``, ``fec_max_overhead``,
+    ``fec_kind``, ``fec_payload_type``, ``rtx_payload_type``,
+    ``rtx_budget_per_sec``, ``rtx_burst`` and ``fec_device`` as
+    ``use_device``), with ``device`` the server's device when
+    ``use_device`` is on and None when it is off."""
 
     window: int = 16              # media packets per FEC window
     max_overhead: float = 0.30    # parity budget ceiling (ratio of window)
@@ -330,7 +337,8 @@ class FecConfig:
     rtx_payload_type: int = 126   # RTX replays' RTP PT
     rtx_budget_per_sec: float = 64.0   # token refill per output
     rtx_burst: int = 32                # token bucket depth
-    device: str = "cuda"          # where the parity pass runs
+    use_device: bool = True       # B4 parity (host oracle checked)
+    device: str | None = "cuda"   # where B4 runs (None: no device)
 
     @property
     def kind_code(self) -> int:
@@ -351,6 +359,8 @@ class FecConfig:
             raise ValueError(
                 f"fec_payload_type and rtx_payload_type must differ "
                 f"(both {self.payload_type})")
+        if self.use_device and self.device is None:
+            raise ValueError("use_device needs a device")
         return self
 
 
@@ -407,7 +417,8 @@ class StreamFec:
     in a ``staging.PinnedStage``, uploads them on the current stream,
     launches B4 there and copies the parity back, then waits on that
     stream's event; ``stage_ns``, ``kernel_ns`` and ``oracle_ns`` sum the
-    host time of the three legs."""
+    host time of the three legs.  With ``cfg.use_device`` off a window's
+    parity is the host product alone (``host_passes``, ``host_ns``)."""
 
     #: windows of cached parity kept: covers tick()'s per-output catch-up
     #: budget (8), so a backlog of several subscribers reuses the passes
@@ -428,6 +439,8 @@ class StreamFec:
         self.stage_ns = 0
         self.kernel_ns = 0
         self.oracle_ns = 0
+        self.host_passes = 0
+        self.host_ns = 0
         self.parity_sent = 0
         self.rtx_sent = 0
         self.rtx_giveups = 0
@@ -437,7 +450,8 @@ class StreamFec:
     #: the counters ``drain_counters`` hands over
     COUNTERS = ("parity_sent", "windows_emitted", "windows_skipped",
                 "device_passes", "oracle_mismatches", "rtx_sent",
-                "rtx_giveups", "stage_ns", "kernel_ns", "oracle_ns")
+                "rtx_giveups", "stage_ns", "kernel_ns", "oracle_ns",
+                "host_passes", "host_ns")
 
     def drain_counters(self) -> dict:
         """The counters, reset to 0: a server folds a departing stream's figures into its totals once."""
@@ -549,7 +563,8 @@ class StreamFec:
 
     def _window_parity(self, w: int, n_parity: int):
         """B4's parity over window ``w``'s ring rows, host oracle checked
-        (a differing row raises ``FecOracleError``), cached per window
+        (a differing row raises ``FecOracleError``), or with
+        ``use_device`` off the host product alone; cached per window
         (recomputed only when a subscriber needs more parity rows than
         cached)."""
         if w in self._cache and self._cached_rows.get(w, 0) >= n_parity:
@@ -567,14 +582,23 @@ class StreamFec:
         r_pad = staging.pow2(n_parity, 1)
         coeff = np.zeros((r_pad, k), np.uint8)
         coeff[:, :len(deltas)] = coeff_rows(deltas, r_pad)
-        rows, parity = self._device_parity(slots, lens, coeff, b_pad)
-        t0 = time.perf_counter_ns()
-        same = np.array_equal(parity, gf_matmul(coeff, rows))
-        self.oracle_ns += time.perf_counter_ns() - t0
-        if not same:
-            self.oracle_mismatches += 1
-            raise FecOracleError(
-                f"window {w}: device parity differs from the host product")
+        if self.cfg.use_device:
+            rows, parity = self._device_parity(slots, lens, coeff, b_pad)
+            t0 = time.perf_counter_ns()
+            same = np.array_equal(parity, gf_matmul(coeff, rows))
+            self.oracle_ns += time.perf_counter_ns() - t0
+            if not same:
+                self.oracle_mismatches += 1
+                raise FecOracleError(
+                    f"window {w}: device parity differs from the host "
+                    f"product")
+        else:
+            t0 = time.perf_counter_ns()
+            rows = np.empty((k, b_pad), np.uint8)
+            staging.stage_fec_rows(self.stream.rtp_ring, slots, lens, rows)
+            parity = gf_matmul(coeff, rows)
+            self.host_passes += 1
+            self.host_ns += time.perf_counter_ns() - t0
         entry = (slots, deltas, seqs, lens, max_len, parity)
         self._cache[w] = entry
         self._cached_rows[w] = r_pad

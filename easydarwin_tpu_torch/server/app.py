@@ -7,8 +7,8 @@ held bucket's release, a reliable-UDP resend's RTO, from
 ``RelayStream.next_deadline_ms``), and at the latest every
 ``reflect_interval_ms``.  The wheel is required: a server whose egress
 core does not build does not start.  Each wake runs the live relay for
-every stream that has outputs.  With at least ``MEGABATCH_MIN_STREAMS``
-of them:
+every stream that has outputs.  With ``megabatch_enabled`` and at least
+``megabatch_min_streams`` of them (both read each wake):
 
 1. ``MegabatchScheduler.begin_wake`` — harvest the previous wake's device
    pass, prime params for streams whose membership changed;
@@ -25,13 +25,19 @@ of them:
    the ``src`` mesh ``make_megabatch_mesh`` builds, whose summary the
    stats carry as ``mesh``).
 
-Below that the scheduler idles and each engine keeps its stream's ring on
-the device, appending the new packets each wake and querying it (one
-``ed_ring_query`` launch) when its membership changes.  The native egress
-core is built when the server starts; without it every player takes the
-Python loop.  On a card the server also makes the CUDA context, loads the
-kernel library and runs one small ring query when it starts, so the first
-join does not pay for them.  One stream's error is counted
+Below that, or with ``megabatch_enabled`` off, the scheduler idles and
+each engine keeps its stream's ring on the device, appending the new
+packets each wake and querying it (one ``ed_ring_query`` launch) when its
+membership changes; file streams then step on their own engines too, and
+the pacer's device prime is off (its scheduler hook answers None), so a
+VOD join's params come from its engine's ring query.  Each wake sets every
+engine's ``tcp_fast_enabled`` from ``tcp_engine_enabled``: off, the
+interleaved players take the batch-header rung (``ed_relay_batch``).  The
+native egress core is built when the server starts; without it every
+player takes the Python loop.  On a card the server also makes the CUDA
+context, loads the kernel library and runs one small ring query when it
+starts, so the first join does not pay for them.  One stream's error is
+counted
 (``pump_errors``) and the wake goes on with the next stream.
 
 After each stream's step the pump runs the resend sweep (``tick``) of
@@ -40,9 +46,10 @@ FEC tier's parity rides the step itself (``relay_rtcp``); ``stats()``
 sums it over every stream (``"fec"``) and the reliable players' resends,
 acks and give-ups (``"reliable"``).
 
-Once a second the pump evicts old packets, sends each pusher its due
-receiver reports, closes idle connections and retires transcode ladders
-and HLS entries whose source went away.
+Once a second the pump evicts old packets and sends each pusher its due
+receiver reports.  Every ``timeout_sweep_sec`` (the first one that long
+after start, as the reference's sweep loop) it closes idle connections
+and retires transcode ladders and HLS entries whose source went away.
 
 HLS (``hls``): REST ``starthls`` or a GET of ``/hls/<path>/master.m3u8``
 attaches the path's segmenters to its video track as relay outputs
@@ -245,10 +252,6 @@ from .rtsp import RtspServer
 from .status import StatusMonitor
 from .transports import UdpOutput
 
-#: below this many streams with players the megabatch scheduler idles and
-#: each stream's engine queries its own device ring (the reference's
-#: ``megabatch_min_streams`` default)
-MEGABATCH_MIN_STREAMS = 2
 #: in-flight storage restores the pump keeps at most
 STORAGE_RESTORE_INFLIGHT_MAX = 32
 #: in-flight DVR peer fetches the pump keeps at most (a slow peer must
@@ -260,7 +263,8 @@ DVR_META_MISS_SEC = 10.0
 DVR_META_MISS_MAX = 512
 #: per-engine counters ``stats()`` sums over every engine the server ran
 ENGINE_COUNTERS = ("native_sent", "native_passes", "device_param_refreshes",
-                   "send_errors", "tcp_shed_pkts", "missing_params",
+                   "send_errors", "tcp_sent", "tcp_shed_pkts",
+                   "missing_params",
                    "batch_sent", "batch_passes", "batch_rows",
                    "batch_stage_ns", "batch_kernel_ns", "loop_sent",
                    "loop_ns")
@@ -404,7 +408,9 @@ class StreamingServer:
             self.vod_pacer = VodPacerGroup(
                 self.vod_cache, engine_for=self._engine_for,
                 engine_drop=self._drop_engine,
-                scheduler=lambda: self.megabatch,
+                scheduler=lambda: (self.megabatch
+                                   if self.config.megabatch_enabled
+                                   else None),
                 settings=self.config.stream,
                 lookahead_ms=self.config.vod_cache_lookahead_ms,
                 device_prime=self.config.vod_cache_device)
@@ -416,6 +422,8 @@ class StreamingServer:
         #: (path, track, window) → the storage worker's restore future
         self._storage_fetches: dict = {}
         self._storage_scrub_due = 0.0
+        #: monotonic time of the next idle-connection sweep (armed at start)
+        self._sweep_due = 0.0
         self._build_dvr()
         #: time-shift and ``.dvr`` streams handed to ``begin_wake``,
         #: summed over the wakes
@@ -423,6 +431,10 @@ class StreamingServer:
         self._engines: dict[int, FanoutEngine] = {}
         #: native counters of engines whose streams went away
         self._retired = dict.fromkeys(ENGINE_COUNTERS, 0)
+        #: stream id → its engine's path, and path → the ring queries
+        #: (``device_param_refreshes``) of its engines that went away
+        self._engine_paths: dict[int, str | None] = {}
+        self._retired_refreshes: dict[str | None, int] = {}
         #: stream id → the StreamFec of every stream with one, and the FEC
         #: counters of those that went away
         self._fec: dict[int, StreamFec] = {}
@@ -498,7 +510,7 @@ class StreamingServer:
             self.storage = StorageService(
                 os.path.join(cfg.movie_folder, ".shards"), cfg.server_id,
                 k=cfg.storage_data_shards, m=cfg.storage_parity_shards,
-                device=self.device)
+                device=self.device, use_device=cfg.storage_device)
             self.dvr.on_finalize = self._storage_on_finalize
             self.dvr.restorer = self._storage_restore
 
@@ -563,6 +575,10 @@ class StreamingServer:
                     on_error=lambda f, e: self.rtsp.log_error(
                         f"module {f} failed: {e!r}")):
                 self.register_module(m)
+        if self.config.fec_enabled:
+            # a bad window, kind or pair of payload types fails the start,
+            # not the first SETUP
+            self.config.fec_config(str(self.device))
         # the chaos plan is armed before anything serves, so the first
         # pass already runs under it
         plan = self.config.fault_plan()
@@ -575,6 +591,7 @@ class StreamingServer:
             self._restore_checkpoint()
         self.rtsp.modules.run_initialize(self)
         self._running = True
+        self._arm_sweep(time.monotonic())
         self._pump_task = asyncio.create_task(self._pump_loop())
         if self.config.stats_interval_sec or self.config.status_file_path:
             self._status_task = asyncio.create_task(self._status_loop())
@@ -1358,6 +1375,7 @@ class StreamingServer:
         eng = self._engines.get(id(stream))
         if eng is None:
             eng = self._engines[id(stream)] = FanoutEngine(device=self.device)
+            self._engine_paths[id(stream)] = stream.session_path
         egress = self.rtsp.shared_egress
         eng.egress_fd = egress.fileno() if egress is not None else -1
         return eng
@@ -1368,9 +1386,13 @@ class StreamingServer:
 
     def _retire_engine(self, sid: int) -> None:
         eng = self._engines.pop(sid, None)
+        path = self._engine_paths.pop(sid, None)
         if eng is not None:
             for k in ENGINE_COUNTERS:
                 self._retired[k] += getattr(eng, k)
+            self._retired_refreshes[path] = (
+                self._retired_refreshes.get(path, 0)
+                + eng.device_param_refreshes)
 
     def _pairs(self, vod_pairs=()) -> list:
         """(stream, engine) for every live stream with outputs, in a
@@ -1442,12 +1464,16 @@ class StreamingServer:
         if lad is not None:
             for i in range(live):
                 modes[i] = lad.engine_mode(pairs[i][0].session_path)
-        mega = [p for p, m in zip(pairs, modes) if m == LEVEL_FULL]
+        cfg = self.config
+        mega = ([p for p, m in zip(pairs, modes) if m == LEVEL_FULL]
+                if cfg.megabatch_enabled else [])
         mega_paths = [pairs[i][0].session_path for i in range(live)
-                      if modes[i] == LEVEL_FULL]
-        engaged = len(mega) >= MEGABATCH_MIN_STREAMS
+                      if modes[i] == LEVEL_FULL] if mega else []
+        engaged = bool(mega) and len(mega) >= cfg.megabatch_min_streams
+        tcp_fast = cfg.tcp_engine_enabled
         for _stream, eng in pairs:
             eng.megabatch_owned = False
+            eng.tcp_fast_enabled = tcp_fast
         u = led.unit_start()
         if engaged:
             try:
@@ -1546,8 +1572,9 @@ class StreamingServer:
                                        out.tracker.rto_ms)
 
     def fec_stats(self) -> dict:
-        """The FEC tier's counters over every stream the server ran, and
-        the host ms per device pass of its three legs."""
+        """The FEC tier's counters over every stream the server ran, the
+        host ms per device pass of its three legs, and the host ms per
+        window of the host product (``fec_device`` off)."""
         tot = dict(self._fec_retired)
         for fec in self._fec.values():
             for k in StreamFec.COUNTERS:
@@ -1555,6 +1582,9 @@ class StreamingServer:
         passes = max(tot["device_passes"], 1)
         for leg in ("stage", "kernel", "oracle"):
             tot[f"{leg}_ms_per_window"] = tot.pop(f"{leg}_ns") / passes / 1e6
+        # the host product's windows (``fec_device`` off)
+        tot["host_ms_per_window"] = (tot.pop("host_ns")
+                                     / max(tot["host_passes"], 1) / 1e6)
         return tot
 
     def egress_stats(self) -> dict:
@@ -1639,26 +1669,46 @@ class StreamingServer:
             now = time.monotonic()
             if now - last_maint >= 1.0:
                 last_maint = now
-                t = now_ms()
-                for sess in list(self.registry.sessions.values()):
-                    sess.prune(t)
-                    for st in sess.streams.values():
-                        st.send_upstream_rr(t)
-                self.rtsp.sweep_timeouts()
-                self.transcodes.sweep()
-                self.hls.sweep()
-                self._housekeep_surface()
-                if self.storage is not None \
-                        and now >= self._storage_scrub_due:
-                    self._storage_scrub_due = (
-                        now + self.config.storage_scrub_interval_sec)
-                    self.storage.scrub_async()
-                self._observe_second()
-                self._resilience_second()
+                self._maintenance(now)
             # the wake's ledger record closes after the once-a-second
             # block: its duties ran on the same wake
             obs.LEDGER.end_wake()
         wheel.close()
+
+    def _maintenance(self, now: float) -> None:
+        """The pump's once-a-second duties at monotonic ``now``: eviction,
+        the pushers' due receiver reports, the surface's housekeeping, the
+        scrub when due, the ``obs`` and resilience seconds, and the sweep
+        when ``timeout_sweep_sec`` has passed since the last one."""
+        t = now_ms()
+        for sess in list(self.registry.sessions.values()):
+            sess.prune(t)
+            for st in sess.streams.values():
+                st.send_upstream_rr(t)
+        self._sweep_if_due(now)
+        self._housekeep_surface()
+        if self.storage is not None and now >= self._storage_scrub_due:
+            self._storage_scrub_due = (
+                now + self.config.storage_scrub_interval_sec)
+            self.storage.scrub_async()
+        self._observe_second()
+        self._resilience_second()
+
+    def _arm_sweep(self, now: float) -> None:
+        """The next sweep is ``timeout_sweep_sec`` after ``now``."""
+        self._sweep_due = now + self.config.timeout_sweep_sec
+
+    def _sweep_if_due(self, now: float) -> bool:
+        """The reference's sweep duties, once ``now`` reaches the due
+        time: idle connections closed, and the transcode ladders and HLS
+        entries whose source went away retired; True when it ran."""
+        if now < self._sweep_due:
+            return False
+        self._arm_sweep(now)
+        self.rtsp.sweep_timeouts()
+        self.transcodes.sweep()
+        self.hls.sweep()
+        return True
 
     def _resilience_second(self) -> None:
         """The pump's once-a-second resilience duties: the ladder's tick
@@ -1811,6 +1861,15 @@ class StreamingServer:
             "broadcasts": dict(self.relay_source.counts),
         }
 
+    def refreshes_by_path(self) -> dict:
+        """Path → the ring queries that installed params on its streams'
+        engines (one ``ed_ring_query`` launch each on a card)."""
+        out = dict(self._retired_refreshes)
+        for sid, eng in self._engines.items():
+            path = self._engine_paths.get(sid)
+            out[path] = out.get(path, 0) + eng.device_param_refreshes
+        return {str(k): v for k, v in out.items()}
+
     def stats(self) -> dict:
         engines = {k: v + sum(getattr(e, k) for e in self._engines.values())
                    for k, v in self._retired.items()}
@@ -1829,6 +1888,7 @@ class StreamingServer:
                 "pump_errors": self.pump_errors,
                 "sessions": len(self.registry.sessions),
                 **engines,
+                "param_refreshes_by_path": self.refreshes_by_path(),
                 "wake_ms_p50": wake[len(wake) // 2] if wake else None,
                 "wake_ms_p99": wake[len(wake) * 99 // 100] if wake else None,
                 "wake_ms_max": wake[-1] if wake else None,
@@ -1847,6 +1907,7 @@ class StreamingServer:
                          **{f"socket_{k}": v for k, v
                             in self.rtsp.rtcp_socket_stats().items()}},
                 "fec": self.fec_stats(),
+                "loss_tiers": dict(self.rtsp.loss_tiers),
                 "reliable": {"resends": self.reliable_resends,
                              "acks": self.rtsp.reliable_acks,
                              "giveups": self.reliable_giveups,

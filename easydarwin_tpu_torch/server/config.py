@@ -25,6 +25,16 @@ listeners registered with ``on_change`` run after it) serve REST
 ``stream`` (``StreamSettings``) and read and write under the reference's
 top-level names (``bucket_size``, ``bucket_delay_ms``, ``overbuffer_sec``,
 ``max_packet_age_sec``, ``ring_capacity``).
+
+The reference's reliability-tier keys (``reliable_udp``, ``fec_*``,
+``rtx_*``; ``fec_config`` builds the validated ``relay.fec.FecConfig``)
+and its serving-path switches (``megabatch_enabled``,
+``megabatch_min_streams``, ``tcp_engine_enabled``, ``storage_device``,
+``timeout_sweep_sec``) are applied; each says which path or kernel it
+selects beside its field.  Three keys of the reference stay unmapped:
+``tpu_fanout`` and ``tpu_min_outputs`` (the JAX package's switch between
+its scalar loop and its batch engine: the port always runs the engine)
+and ``egress_backend`` (the port has one egress, the GSO/sendmmsg pair).
 """
 
 from __future__ import annotations
@@ -55,6 +65,10 @@ class ServerConfig:
     reflect_interval_ms: int = 20      # pump tick when nothing wakes it
     rtsp_timeout_sec: int = 120        # idle player connection kill
     push_timeout_sec: int = 20         # idle pusher connection kill
+    #: seconds between the idle-connection sweeps (which also retire
+    #: transcode ladders and HLS entries whose source went away): a
+    #: connection is closed at the first sweep past its limit
+    timeout_sweep_sec: int = 15
     max_connections: int = 20000
     #: a UDP pusher's RTP socket is drained in native recvmmsg batches
     #: straight into the ring (off: one asyncio callback a datagram); the
@@ -70,6 +84,38 @@ class ServerConfig:
     #: (``parallel.mesh.make_megabatch_mesh``); 0 = every card.  Clamped
     #: to the cards the box has, so one card keeps the one-device path
     megabatch_devices: int = 1
+    #: the cross-stream megabatch scheduler: with at least
+    #: ``megabatch_min_streams`` streams with players, ONE
+    #: ``ed_relay_window`` launch a wake serves them all; below that, or
+    #: with ``megabatch_enabled`` off, each stream's engine queries its
+    #: own device ring (``ed_ring_query``) and a VOD join is primed there
+    megabatch_enabled: bool = True
+    megabatch_min_streams: int = 2
+    #: interleaved-TCP players take the engine's TCP rung (one framed
+    #: ``writev`` a connection); off: they take the batch-header rung
+    #: (``ed_relay_batch``) as meta-info and thinned players do
+    tcp_engine_enabled: bool = True
+    #: ``x-Retransmit`` (reliable UDP) is granted at SETUP; off: the
+    #: header is neither echoed nor acted on
+    reliable_udp: bool = True
+    #: the FEC tier: ``x-FEC: parity`` is granted at a UDP SETUP, with
+    #: parity over windows of ``fec_window`` media packets
+    #: (``fec_kind`` ``rs`` or ``xor``, at most ``fec_max_overhead`` of the
+    #: window), parity and RTX replays on their own payload types, and a
+    #: NACK budget of ``rtx_budget_per_sec`` an output (bucket
+    #: ``rtx_burst``); off: the header is not granted
+    fec_enabled: bool = True
+    fec_window: int = 16
+    fec_max_overhead: float = 0.30
+    fec_kind: str = "rs"
+    fec_payload_type: int = 127
+    rtx_payload_type: int = 126
+    rtx_budget_per_sec: float = 64.0
+    rtx_burst: int = 32
+    #: a window's parity is B4 (``ed_gf_parity``) on the server's device,
+    #: checked against the host product; off: the host product alone,
+    #: with no upload and no launch
+    fec_device: bool = True
     #: per-stream relay tunables (buckets, fast-start, eviction, ring)
     stream: StreamSettings = field(default_factory=StreamSettings)
     #: where DESCRIBE/SETUP/PLAY of a path that no pusher serves look for
@@ -112,6 +158,10 @@ class ServerConfig:
     storage_data_shards: int = 4           # k: data shards a stripe
     storage_parity_shards: int = 2         # m: parity shards a stripe
     storage_scrub_interval_sec: float = 30.0
+    #: a stripe's parity and a reconstruct's solve are B4 on the server's
+    #: device, checked against the host product or the crc32s; off: the
+    #: host product alone (the crc32s still checked), with no launch
+    storage_device: bool = True
     #: this node's name in shard claims and manifests, its cluster lease
     #: and its presence records
     server_id: str = "easydarwin-tpu-0"
@@ -313,6 +363,23 @@ class ServerConfig:
                 jitter_frac=self.cluster_pull_jitter_frac,
                 breaker_failures=self.cluster_pull_breaker_failures,
                 breaker_open_sec=self.cluster_pull_breaker_open_sec))
+
+    def fec_config(self, device: str = "cuda"):
+        """The validated FEC tier's ``FecConfig`` (``ValueError`` on a bad
+        window, kind or pair of payload types: the server calls it at
+        start with ``fec_enabled``).  With ``fec_device`` its parity runs
+        on ``device``; without it on no device."""
+        from ..relay.fec import FecConfig
+        return FecConfig(
+            window=self.fec_window,
+            max_overhead=self.fec_max_overhead,
+            kind=self.fec_kind,
+            payload_type=self.fec_payload_type,
+            rtx_payload_type=self.rtx_payload_type,
+            rtx_budget_per_sec=self.rtx_budget_per_sec,
+            rtx_burst=self.rtx_burst,
+            use_device=self.fec_device,
+            device=str(device) if self.fec_device else None).validate()
 
     def ladder_config(self):
         from ..resilience.ladder import LadderConfig

@@ -33,6 +33,10 @@ ring); the reply grants ``parity;pt=<fec pt>;rtx-pt=<rtx pt>``.
 ``x-Retransmit: our-retransmit[;window=KB]`` wraps the output in the
 resend window (``relay.reliable.ReliableUdpOutput``) and echoes the
 header.  A reliable or meta-info output gets no FEC; TCP gets neither.
+Each SETUP reads the config: with ``reliable_udp`` off ``x-Retransmit``
+is not granted, with ``fec_enabled`` off ``x-FEC`` is not, and a FEC
+grant's payload types and tier come from ``ServerConfig.fec_config``
+(``RtspServer.loss_tiers`` counts the grants and the refusals).
 
 A path no pusher serves is looked up as a file under the movie folder
 (``vod.session.VodService``): DESCRIBE answers the file's SDP, SETUP makes
@@ -146,7 +150,7 @@ import torch
 from ..obs import EVENTS, FLIGHT, TRACER
 from ..protocol import rtcp, rtp_meta, rtsp, sdp
 from ..relay import quality as quality_mod
-from ..relay.fec import FecConfig, FecOutputState, drop_overhead_gauge
+from ..relay.fec import FecOutputState, drop_overhead_gauge
 from ..relay.reliable import ReliableUdpOutput
 from ..relay.session import RelaySession, SessionRegistry, now_ms
 from ..resilience.inject import INJECTOR
@@ -207,12 +211,19 @@ def negotiate_meta_info(want: str, out,
     return {"x-RTP-Meta-Info": rtp_meta.build_header(granted)}
 
 
-def negotiate_retransmit(want: str, out, t):
+def negotiate_retransmit(want: str, out, t, config: ServerConfig,
+                         tiers: dict | None = None):
     """A UDP SETUP's ``x-Retransmit: our-retransmit[;window=KB]`` →
     ``(output, reply headers)``: the output wrapped in the resend window
-    and the header echoed.  A TCP transport is never wrapped."""
+    and the header echoed, when ``config.reliable_udp`` is on.  A TCP
+    transport is never wrapped.  ``tiers`` (``RtspServer.loss_tiers``)
+    counts a grant, or a refusal by the config."""
     if t.is_tcp or "our-retransmit" not in want.lower():
         return out, {}
+    if not config.reliable_udp:
+        _count(tiers, "retransmit_refused")
+        return out, {}
+    _count(tiers, "retransmit_granted")
     window_kb = None
     for part in want.split(";"):
         k, _, v = part.partition("=")
@@ -225,19 +236,34 @@ def negotiate_retransmit(want: str, out, t):
             {"x-Retransmit": want})
 
 
-def attach_fec(want: str, out, t, device: torch.device) -> dict[str, str]:
+def attach_fec(want: str, out, t, config: ServerConfig,
+               device: torch.device, tiers: dict | None = None
+               ) -> dict[str, str]:
     """A UDP SETUP's ``x-FEC: parity`` → the FEC tier state on ``out`` and
-    the grant header.  Not for TCP (it does not lose packets), a reliable
-    output (its resend window owns its loss) or a meta-info output (parity
-    would have to describe the wrapped packets)."""
+    the grant header, when ``config.fec_enabled`` is on.  The state is
+    built from ``config.fec_config(device)`` (the ``fec_*`` and ``rtx_*``
+    keys, and ``fec_device``: B4 on ``device``, or the host product
+    alone), read at each SETUP.  Not for TCP (it does not lose packets), a
+    reliable output (its resend window owns its loss) or a meta-info
+    output (parity would have to describe the wrapped packets).
+    ``tiers`` counts a grant, or a refusal by the config."""
     if (t.is_tcp or "parity" not in want.lower()
             or isinstance(out, ReliableUdpOutput)
             or out.meta_field_ids is not None):
         return {}
-    cfg = FecConfig(device=str(device))
+    if not config.fec_enabled:
+        _count(tiers, "fec_refused")
+        return {}
+    _count(tiers, "fec_granted")
+    cfg = config.fec_config(str(device))
     out.fec = FecOutputState(cfg)
     return {"x-FEC": f"parity;pt={cfg.payload_type}"
                      f";rtx-pt={cfg.rtx_payload_type}"}
+
+
+def _count(tiers: dict | None, key: str) -> None:
+    if tiers is not None:
+        tiers[key] += 1
 
 
 def parse_rate(req) -> tuple[float, float, dict[str, str]]:
@@ -755,10 +781,10 @@ class RtspConnection:
         extra = negotiate_meta_info(req.headers.get("x-rtp-meta-info", ""),
                                     out)
         out, rel = negotiate_retransmit(req.headers.get("x-retransmit", ""),
-                                        out, t)
+                                        out, t, srv.config, srv.loss_tiers)
         extra.update(rel)
         extra.update(attach_fec(req.headers.get("x-fec", ""), out, t,
-                                srv.device))
+                                srv.config, srv.device, srv.loss_tiers))
         out.trace_id = self.trace_id
         out.session_id = self.session_id
         srv.note_player_output(self, out, self.player_tracks.get(track_id))
@@ -815,7 +841,8 @@ class RtspConnection:
         extra = negotiate_meta_info(req.headers.get("x-rtp-meta-info", ""),
                                     out, META_SUPPORTED_VOD)
         out, rel = negotiate_retransmit(req.headers.get("x-retransmit", ""),
-                                        out, t)
+                                        out, t, self.server.config,
+                                        self.server.loss_tiers)
         extra.update(rel)
         # no x-FEC: a NACK is replayed from a relay stream's ring, which a
         # file session does not have
@@ -848,7 +875,8 @@ class RtspConnection:
             ssrc=secrets.randbits(32), out_seq_start=secrets.randbits(16)),
             track_id)
         out, extra = negotiate_retransmit(req.headers.get("x-retransmit", ""),
-                                          out, t)
+                                          out, t, self.server.config,
+                                          self.server.loss_tiers)
         self.server.note_player_output(self, out,
                                        self.player_tracks.get(track_id))
         self.player_tracks[track_id] = out
@@ -1227,6 +1255,11 @@ class RtspServer:
         #: NACKs and APP packets (each one, acted on or not)
         self.rtcp_in = 0
         self.rtcp_counts = dict.fromkeys(("rr", "nadu", "nack", "app"), 0)
+        #: SETUP loss-tier requests granted, and refused by the config
+        #: (``reliable_udp``, ``fec_enabled``)
+        self.loss_tiers = dict.fromkeys(
+            ("retransmit_granted", "retransmit_refused", "fec_granted",
+             "fec_refused"), 0)
         #: packets APP acks popped from reliable outputs' resend windows
         self.reliable_acks = 0
         #: the interleaved-TCP checkpoint re-attach hook, set by the

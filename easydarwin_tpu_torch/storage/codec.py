@@ -25,8 +25,12 @@ crc32s when it has them and against the host product when it does not.
 More missing shards than surviving parity, a singular subset or a result
 that fails its check raises ``StorageError``.
 
-Unlike the reference, a failed device launch is not caught: it raises,
-and no product moves to the host.  The storage tier calls a codec from
+With ``use_device`` off (the server's ``storage_device = false``, read
+once when the codec is built) every product is the host ``gf_matmul``:
+the parity is its answer, and a reconstruct's solve is checked against
+the crc32s when it has them (``host_products`` counts them).  Unlike
+the reference, a failed device launch is not caught: it raises, and no
+product moves to the host.  The storage tier calls a codec from
 its worker threads: each B4 launch goes on the calling thread's current
 stream and its ``.cpu()`` readback syncs it; the counters and the host
 ns of the device products (upload, launch, readback) and of their checks
@@ -54,17 +58,22 @@ class StorageError(RuntimeError):
 
 class StripeCodec:
     """Encode/reconstruct one ``k + m`` stripe of window blobs, the wide
-    products on ``device``."""
+    products on ``device`` (with ``use_device`` off: on the host, and
+    ``device`` is None)."""
 
     def __init__(self, k: int, m: int, *,
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda",
+                 use_device: bool = True):
         if not (1 <= k and 1 <= m <= 8):
             raise ValueError(f"bad stripe geometry k={k} m={m}")
         self.k = int(k)
         self.m = int(m)
-        self.device = resolve_device(device)
+        self.use_device = bool(use_device)
+        self.device = resolve_device(device) if self.use_device else None
         self.oracle_mismatches = 0
         self.device_passes = 0
+        #: products computed on the host alone (``use_device`` off)
+        self.host_products = 0
         #: host ns in the device products (upload, launch, readback) and
         #: in their checks (host product or crc32s), by operation
         self.product_ns = {"parity": 0, "reconstruct": 0}
@@ -88,19 +97,20 @@ class StripeCodec:
             self.device_passes += 1
         return out
 
-    def _timed(self, op: str, t0: int, t1: int) -> None:
-        """Book a product that ran from ``t0`` to ``t1`` and its check,
-        which ended now."""
+    def _timed(self, op: str, t0: int, t1: int, host: bool = False) -> None:
+        """Book a product that ran from ``t0`` to ``t1`` (on the host with
+        ``host``) and its check, which ended now."""
         with self._lock:
+            self.host_products += host
             self.product_ns[op] += t1 - t0
             self.check_ns[op] += time.perf_counter_ns() - t1
 
-    def _mismatch(self, what: str) -> StorageError:
+    def _mismatch(self, what: str, where: str = "device") -> StorageError:
         """Count a product that failed its check; the error to raise."""
         with self._lock:
             self.oracle_mismatches += 1
         obs.FEC_PARITY_ORACLE_MISMATCH.inc()
-        return StorageError(f"{what}: the device product fails its check")
+        return StorageError(f"{what}: the {where} product fails its check")
 
     # ------------------------------------------------------------- encode
     def parity(self, blobs: list[bytes]) -> list[bytes]:
@@ -119,6 +129,10 @@ class StripeCodec:
         r_pad = pow2(self.m, 1)
         coeff = coeff_rows(range(self.k), r_pad)
         t0 = time.perf_counter_ns()
+        if not self.use_device:
+            parity = gf_matmul(coeff, rows)
+            self._timed("parity", t0, time.perf_counter_ns(), host=True)
+            return [parity[p, :width].tobytes() for p in range(self.m)]
         parity = self._device_product(coeff, rows)
         t1 = time.perf_counter_ns()
         ok = np.array_equal(parity, gf_matmul(coeff, rows))
@@ -205,7 +219,18 @@ class StripeCodec:
                      need: list[int], lens: list[int],
                      crcs: list[int] | None) -> np.ndarray:
         """``ccomb × surv`` on the device, checked against the crc32s
-        when there are any and against the host product otherwise."""
+        when there are any and against the host product otherwise; with
+        ``use_device`` off the host product, checked against the crc32s
+        when there are any."""
+        if not self.use_device:
+            t0 = time.perf_counter_ns()
+            host = gf_matmul(ccomb, surv)
+            t1 = time.perf_counter_ns()
+            ok = not crcs or self._crcs_hold(host, need, lens, crcs)
+            self._timed("reconstruct", t0, t1, host=True)
+            if not ok:
+                raise self._mismatch("stripe reconstruction", "host")
+            return host
         rows = np.zeros((pow2(surv.shape[0], 1), pow2(surv.shape[1], 256)),
                         np.uint8)
         rows[:surv.shape[0], :surv.shape[1]] = surv
@@ -217,14 +242,18 @@ class StripeCodec:
                                                        :surv.shape[1]]
         t1 = time.perf_counter_ns()
         if crcs:
-            ok = all((zlib.crc32(dev[j, :lens[i]].tobytes()) & 0xFFFFFFFF)
-                     == int(crcs[i]) for j, i in enumerate(need))
+            ok = self._crcs_hold(dev, need, lens, crcs)
         else:
             ok = np.array_equal(dev, gf_matmul(ccomb, surv))
         self._timed("reconstruct", t0, t1)
         if not ok:
             raise self._mismatch("stripe reconstruction")
         return dev
+
+    @staticmethod
+    def _crcs_hold(solved, need, lens, crcs) -> bool:
+        return all((zlib.crc32(solved[j, :lens[i]].tobytes()) & 0xFFFFFFFF)
+                   == int(crcs[i]) for j, i in enumerate(need))
 
 
 __all__ = ["StripeCodec", "StorageError"]

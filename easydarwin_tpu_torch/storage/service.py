@@ -9,7 +9,9 @@ and ``storage.repair`` events), over the port's ``StripeCodec`` (B4, ``ed_gf_par
 on the card).  Every finalized asset is sharded into ``k`` data + ``m``
 parity window shards a track: data shard ``j`` of stripe ``s`` is the
 raw spill blob of the stripe's ``j``-th window, the parity shards are
-the codec's device products, each checked against the host product.
+the codec's device products, each checked against the host product
+(with ``use_device`` off, the server's ``storage_device = false``: the
+host products alone, and ``stats()["host_products"]`` counts them).
 Shards are files ``<root>/<asset>/t{track}/s{stripe}.{idx}`` beside a
 ``manifest.json`` (stripe geometry, per-shard lengths and crc32s, the
 holder map and the asset's DVR meta/index document).
@@ -62,17 +64,19 @@ def shard_name(track: int, stripe: int, idx: int) -> str:
 
 class StorageService:
     """One node's shard store, scrub and repair workers and restore
-    reads, with the stripe products on ``device``."""
+    reads, with the stripe products on ``device`` (``use_device`` off:
+    on the host alone, ``StripeCodec``'s)."""
 
     #: local shards crc-verified per scrub tick
     SCRUB_BATCH = 32
 
     def __init__(self, root: str, node_id: str, *, k: int = 4,
-                 m: int = 2, device: str | torch.device = "cuda"):
+                 m: int = 2, device: str | torch.device = "cuda",
+                 use_device: bool = True):
         self.root = os.path.abspath(root)
         os.makedirs(self.root, exist_ok=True)
         self.node_id = str(node_id)
-        self.codec = StripeCodec(k, m, device=device)
+        self.codec = StripeCodec(k, m, device=device, use_device=use_device)
         self.k, self.m = self.codec.k, self.codec.m
         # -- cluster hooks (None: a single-node store) --
         #: () -> dict[node_id, lease_meta] of live nodes
@@ -834,6 +838,7 @@ class StorageService:
             "worker_errors": self.worker_errors,
             "oracle_mismatches": c.oracle_mismatches,
             "device_passes": c.device_passes,
+            "host_products": c.host_products,
             "store_calls": self.store_calls,
             "store_ms_per_call": self.store_ns / max(self.store_calls, 1)
             / 1e6,

@@ -37,7 +37,8 @@ lease settings of the reference's ``tools/soak.py --cluster``
    a card.
 
 ``paths`` is 3 by default: the megabatch engages at two streams with
-players (``server.app.MEGABATCH_MIN_STREAMS``), and the SLO watchdog's
+players (the config's ``megabatch_min_streams``, 2 by default, read by
+the pump each wake), and the SLO watchdog's
 burn may move its worst stream to the device rung (the engine's own ring
 on the card, off the megabatch), so a third path keeps two on it.
 

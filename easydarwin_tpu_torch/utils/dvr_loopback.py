@@ -277,17 +277,18 @@ def _spilled_end(sent: dict, k: int) -> dict:
     return {t: sent[t][len(sent[t]) // k * k - 1] for t in sent}
 
 
-def _delete_for_reconstruct(folder: str, lost: int) -> dict:
-    """Delete every ``spill.bin`` of the asset and ``lost`` shards of each
-    stripe (data shards first); returns the counts."""
-    dvr_dir = os.path.join(folder, ".dvr", PATH.strip("/"))
+def _delete_for_reconstruct(folder: str, lost: int,
+                            path: str = PATH) -> dict:
+    """Delete every ``spill.bin`` of ``path``'s asset and ``lost`` shards
+    of each stripe (data shards first); returns the counts."""
+    dvr_dir = os.path.join(folder, ".dvr", path.strip("/"))
     spills = 0
     for name in os.listdir(dvr_dir):
         p = os.path.join(dvr_dir, name, "spill.bin")
         if os.path.isfile(p):
             os.unlink(p)
             spills += 1
-    shard_dir = os.path.join(folder, ".shards", PATH.strip("/"))
+    shard_dir = os.path.join(folder, ".shards", path.strip("/"))
     stripes: dict[tuple, list[int]] = {}
     for tdir in os.listdir(shard_dir):
         full = os.path.join(shard_dir, tdir)

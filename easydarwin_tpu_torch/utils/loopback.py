@@ -26,17 +26,20 @@ pusher's upstream RRs to its media SSRCs.  It reads RTCP and meta-info
 with ``struct`` alone (RFC 3550 §6.4, the meta-info TLV layout), not with
 the port's parsers, so that a fault there cannot cancel itself out.
 
-``push_play_lossy`` plays ``push_play``'s pusher to UDP players of three
-kinds: plain ones; FEC ones (``x-FEC: parity``) that drop media datagrams
-at a seeded rate, report a fixed loss in an RR each ``rr_every_s``,
-rebuild what they can from parity (``relay.fec.FecReceiver``) and send a
-generic NACK for each packet still missing ``NACK_AFTER_S`` after a later
-one arrived, or after the push ended for a lost tail (at most
-``NACK_MAX_PER_TICK`` a 50 ms tick); and reliable
-ones (``x-Retransmit: our-retransmit``) that
+``push_play_lossy`` plays ``push_play``'s pusher to players of four
+kinds: plain UDP ones; interleaved TCP ones (``tcp``); FEC ones
+(``x-FEC: parity``) that drop media datagrams at a seeded rate, report a
+fixed loss in an RR each ``rr_every_s``, rebuild what they can from
+parity (``relay.fec.FecReceiver``) and send a generic NACK for each
+packet still missing ``NACK_AFTER_S`` after a later one arrived, or
+after the push ended for a lost tail (at most ``NACK_MAX_PER_TICK`` a
+50 ms tick); and reliable ones (``x-Retransmit: our-retransmit``) that
 drop at a seeded rate and ack each datagram they keep with a 'qtak' APP.
-Every player's whole span, from its fast-start IDR to the last pushed
-packet, must end byte-equal to the oracle, however each packet came.
+A plain or TCP player may also ask for the loss tiers (``ask``: SETUP
+headers) and keeps the reply's ``x-FEC`` and ``x-Retransmit``; a FEC
+player counts the payload types it received.  Every player's whole span,
+from its fast-start IDR to the last pushed packet, must end byte-equal
+to the oracle, however each packet came.
 
 ``serve_and_check`` starts ``python -m easydarwin_tpu_torch`` on free
 ports (``CliServer``), runs ``push_play`` (or another harness) against
@@ -484,12 +487,14 @@ class CliServer:
     """``python -m easydarwin_tpu_torch`` on free loopback ports, as an
     async context manager: ``rtsp_port`` and ``rest_port`` are set once
     it listens; ``stop()`` sends SIGTERM and returns the stats it prints
-    at exit (a server still running at exit is killed)."""
+    at exit (a server still running at exit is killed).  ``config`` is a
+    config file for ``-c`` (a TOML of config keys or the reference's
+    XML)."""
 
-    def __init__(self, device: str, *args: str):
+    def __init__(self, device: str, *args: str, config: str | None = None):
         self.device = device
         #: more command-line arguments (``--movie-folder DIR``)
-        self.args = args
+        self.args = args + (("-c", str(config)) if config else ())
         self.proc = None
         self.rtsp_port = self.rest_port = None
 
@@ -1146,6 +1151,12 @@ class _LossyPlayer:
         self.index = index
         self.kind = spec.get("kind", "plain")
         self.drop = float(spec.get("drop", 0.0))
+        #: loss-tier headers a plain or TCP player sends at SETUP, and the
+        #: reply's ``x-fec`` / ``x-retransmit`` headers
+        self.ask: dict[str, str] = dict(spec.get("ask", {}))
+        self.grants: dict[str, str] = {}
+        #: RTP payload type → datagrams received (a FEC player's)
+        self.pts: dict[int, int] = {}
         #: the player's own seeded drop stream
         self.rng = np.random.default_rng(int(rng.integers(1 << 62)))
         self.client = MiniClient()
@@ -1215,6 +1226,9 @@ class _LossyPlayer:
         if self.kind == "plain":
             self.datagrams.append(data)
             return
+        if self.kind == "fec" and len(data) >= 2:
+            pt = data[1] & 0x7F
+            self.pts[pt] = self.pts.get(pt, 0) + 1
         if len(data) >= 12 and (data[1] & 0x7F) == 96 \
                 and self.rng.random() < self.drop:
             self.dropped += 1              # a media datagram lost
@@ -1275,13 +1289,16 @@ async def push_play_lossy(port: int, rng: np.random.Generator, *,
                           frame_interval_s: float = 1 / 30,
                           rr_every_s: float = 0.5,
                           deadline_s: float = 30.0,
-                          path: str = "/live/lossy") -> dict:
+                          path: str = "/live/lossy",
+                          joined: asyncio.Event | None = None) -> dict:
     """One pusher of ``gops`` GOPs (``push_play``'s), then one player of
     ``players`` joining each frame of the live part; a spec is
-    ``{"kind": "plain"|"fec"|"reliable", "drop": fraction}``.  Holds every
-    player's span to the oracle (the module docstring); returns the
-    counts, per FEC player the packets rebuilt from parity and replayed,
-    and the first join's host time.  The pusher announces ``path``."""
+    ``{"kind": "plain"|"tcp"|"fec"|"reliable", "drop": fraction,
+    "ask": {header: value}}``.  Holds every player's span to the oracle
+    (the module docstring); returns the counts, per FEC player the
+    packets rebuilt from parity and replayed and the payload types it
+    received, and each asking player's grants.  The pusher announces
+    ``path``; ``joined`` is set once the first player's PLAY answered."""
     gop = frames * packets_per_frame
     uri = f"rtsp://127.0.0.1:{port}{path}"
     sent = []
@@ -1305,6 +1322,15 @@ async def push_play_lossy(port: int, rng: np.random.Generator, *,
         c = pl.client
         await c.connect(port)
         await c.request("DESCRIBE", uri)
+        if pl.kind == "tcp":
+            pl.datagrams = c.frames        # channel 0, in arrival order
+            resp = await c.request("SETUP", uri + "/trackID=1", {
+                "transport": "RTP/AVP/TCP;unicast;interleaved=0-1",
+                **pl.ask})
+            pl.ssrc = rtsp.TransportSpec.parse(resp.headers["transport"]).ssrc
+            check(pl.ssrc is not None, "TCP SETUP reply names no ssrc")
+            await play(pl, resp)
+            return
         rtp_sock = _udp_socket()
         rtp_tr, _ = await asyncio.get_running_loop() \
             .create_datagram_endpoint(lambda: _Callback(pl.on_rtp),
@@ -1312,7 +1338,8 @@ async def push_play_lossy(port: int, rng: np.random.Generator, *,
         pl.rtcp_tr = await _udp_endpoint(None)
         c._udp += [rtp_tr, pl.rtcp_tr]
         a, b = (x.get_extra_info("sockname")[1] for x in (rtp_tr, pl.rtcp_tr))
-        hdr = {"transport": f"RTP/AVP;unicast;client_port={a}-{b}"}
+        hdr = {"transport": f"RTP/AVP;unicast;client_port={a}-{b}",
+               **pl.ask}
         if pl.kind == "fec":
             hdr["x-fec"] = "parity"
         elif pl.kind == "reliable":
@@ -1332,13 +1359,20 @@ async def push_play_lossy(port: int, rng: np.random.Generator, *,
         elif pl.kind == "reliable":
             check(resp.headers.get("x-retransmit") == "our-retransmit",
                   "x-Retransmit was not granted")
+        await play(pl, resp)
+
+    async def play(pl: _LossyPlayer, setup) -> None:
+        pl.grants = {k: setup.headers[k] for k in ("x-fec", "x-retransmit")
+                     if k in setup.headers}
         before = pushed
-        resp = await c.request("PLAY", uri)
+        resp = await pl.client.request("PLAY", uri)
         pl.allowed = gop_heads(before, pushed, gop)
         info = resp.headers["rtp-info"]
         pl.set_origin(int(re.search(r"seq=(\d+)", info).group(1)),
                       int(re.search(r"rtptime=(\d+)", info).group(1)))
         pl.joined_at = time.monotonic()
+        if joined is not None:
+            joined.set()
 
     def first_index(pl: _LossyPlayer, first: bytes | None) -> int | None:
         if first is None:
@@ -1349,7 +1383,7 @@ async def push_play_lossy(port: int, rng: np.random.Generator, *,
     def done(pl: _LossyPlayer) -> bool:
         if pl.seq0 is None:
             return False
-        if pl.kind == "plain":
+        if pl.kind in ("plain", "tcp"):
             i0 = first_index(pl, pl.datagrams[0] if pl.datagrams else None)
             return i0 is not None and len(pl.datagrams) >= len(sent) - i0
         i0 = first_index(pl, pl.first)
@@ -1365,7 +1399,7 @@ async def push_play_lossy(port: int, rng: np.random.Generator, *,
             if rr_due:
                 last_rr = now
             for pl in av:
-                if pl.seq0 is None or pl.kind == "plain":
+                if pl.seq0 is None or pl.kind in ("plain", "tcp"):
                     continue
                 if rr_due:
                     pl.send_rtcp(receiver_report(
@@ -1443,11 +1477,11 @@ class _Callback(asyncio.DatagramProtocol):
 
 
 def _check_lossy(av: list[_LossyPlayer], sent: list[bytes]) -> dict:
-    delivered = {"plain": 0, "fec": 0, "reliable": 0}
+    delivered = {"plain": 0, "tcp": 0, "fec": 0, "reliable": 0}
     fec_players, reliable_players = [], []
     for pl in av:
         who = f"player {pl.index} ({pl.kind})"
-        if pl.kind == "plain":
+        if pl.kind in ("plain", "tcp"):
             have = dict(enumerate(pl.datagrams))
         else:
             have = pl.span()
@@ -1478,10 +1512,13 @@ def _check_lossy(av: list[_LossyPlayer], sent: list[bytes]) -> dict:
                 "index": pl.index, "packets": n, "dropped": pl.dropped,
                 "parity": len(parity),
                 "rtx": len(idx(pl.rx.rtx_restored) - media - parity),
-                "nacks": pl.nacks, "nacked_seqs": pl.nacked_seqs})
+                "nacks": pl.nacks, "nacked_seqs": pl.nacked_seqs,
+                "pts": dict(pl.pts)})
         elif pl.kind == "reliable":
             reliable_players.append({
                 "index": pl.index, "packets": n, "dropped": pl.dropped,
                 "duplicates": pl.duplicates, "acks": pl.acks})
     return {"delivered": delivered, "fec_players": fec_players,
-            "reliable_players": reliable_players}
+            "reliable_players": reliable_players,
+            "grants": [{"index": pl.index, "kind": pl.kind, "ask": pl.ask,
+                        "grants": pl.grants} for pl in av if pl.ask]}

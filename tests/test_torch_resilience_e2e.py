@@ -172,11 +172,13 @@ def test_a_real_device_error_moves_no_rung(site, monkeypatch):
     import numpy as np
     from easydarwin_tpu_torch.ops import device_ring
     from easydarwin_tpu_torch.server import ServerConfig, StreamingServer
-    from easydarwin_tpu_torch.server import app as app_module
     from easydarwin_tpu_torch.utils import synth
-    app = StreamingServer(ServerConfig(rtsp_port=0, service_port=0,
-                                       resilience_max_retries=0),
-                          device="cpu")
+    # the engine site: two streams below a gate of 3, so each engine runs
+    # on its own device ring, whose append fails
+    app = StreamingServer(ServerConfig(
+        rtsp_port=0, service_port=0, resilience_max_retries=0,
+        megabatch_min_streams=2 if site == "scheduler" else 3),
+        device="cpu")
     rng = np.random.default_rng(62)
     streams, twins = _two_streams(app, rng)
 
@@ -186,8 +188,6 @@ def test_a_real_device_error_moves_no_rung(site, monkeypatch):
     if site == "scheduler":
         monkeypatch.setattr(app.megabatch, "begin_wake", down)
     else:
-        # each engine on its own device ring, whose append fails
-        monkeypatch.setattr(app_module, "MEGABATCH_MIN_STREAMS", 3)
         monkeypatch.setattr(device_ring, "append_rows", down)
     pkts = synth.paced_gop(rng, seq0=300, ts0=0, ssrc=0x53, frames=12,
                            packets_per_frame=4)

@@ -308,12 +308,12 @@ def test_rr_report_ssrcs_matches_the_reference_parse():
 @pytest.mark.parametrize("proof", ["source_address", "report_block_ssrc"])
 async def test_udp_player_kept_alive_by_rtcp_alone(proof):
     """Two UDP players whose RTSP connections go silent after PLAY, with a
-    2 s idle limit: the one that sends RRs to the shared pair's RTCP port
-    (from the RTCP port it registered, or from another naming its SSRC)
-    stays; the silent one is closed."""
+    2 s idle limit swept each second: the one that sends RRs to the
+    shared pair's RTCP port (from the RTCP port it registered, or from
+    another naming its SSRC) stays; the silent one is closed."""
     app = StreamingServer(ServerConfig(
         rtsp_port=0, service_port=0, bind_ip="127.0.0.1", rtsp_timeout_sec=2,
-        push_timeout_sec=60), device="cpu")
+        timeout_sweep_sec=1, push_timeout_sec=60), device="cpu")
     await app.start()
     pusher, live, silent = (loopback.MiniClient() for _ in range(3))
     other = None
@@ -387,7 +387,7 @@ async def test_forged_rtcp_neither_keeps_alive_nor_thins():
     moves, and the NACK and APP are counted."""
     app = StreamingServer(ServerConfig(
         rtsp_port=0, service_port=0, bind_ip="127.0.0.1", rtsp_timeout_sec=2,
-        push_timeout_sec=60), device="cpu")
+        timeout_sweep_sec=1, push_timeout_sec=60), device="cpu")
     await app.start()
     pusher, player = loopback.MiniClient(), loopback.MiniClient()
     forger = None
